@@ -1,0 +1,121 @@
+"""Extended-resource encodings: GPU-share device matrices and open-local
+node storage tensors.
+
+GPU parity: a node advertises ``alibabacloud.com/gpu-count`` devices whose
+per-device memory is total-gpu-mem / count (reference NewGpuNodeInfo,
+``pkg/type/open-gpu-share/cache/gpunodeinfo.go:33-66``). Pods request
+per-GPU memory + count via annotations (``utils/pod.go:83-100``).
+
+Local-storage parity: node annotation ``simon/node-local-storage`` carries
+``{"vgs": [{name, capacity}], "devices": [{device, capacity, mediaType}]}``
+(``pkg/utils/utils.go:510-556``); statefulset pods carry
+``simon/pod-local-storage`` volume requests (LVM or exclusive-device).
+"""
+
+from __future__ import annotations
+
+import json
+from typing import List, Tuple
+
+import numpy as np
+
+from ..models.objects import ANNO_NODE_LOCAL_STORAGE, Node
+from ..models.quantity import parse_quantity
+from .templates import SchedTemplate
+
+MEDIA_SSD = 0
+MEDIA_HDD = 1
+
+
+def encode_gpu_nodes(nodes: List[Node], n_pad: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-device total memory [N, Gd] and device count [N]."""
+    counts = []
+    mems = []
+    for n in nodes:
+        total = n.capacity.get("alibabacloud.com/gpu-mem", n.allocatable.get("alibabacloud.com/gpu-mem", 0.0))
+        cnt = int(n.capacity.get("alibabacloud.com/gpu-count", n.allocatable.get("alibabacloud.com/gpu-count", 0)))
+        counts.append(cnt if total > 0 else 0)
+        mems.append(total / cnt if cnt > 0 and total > 0 else 0.0)
+    Gd = max(counts + [1])
+    node_gpu_mem = np.zeros((n_pad, Gd), dtype=np.float32)
+    node_gpu_count = np.zeros((n_pad,), dtype=np.int32)
+    for i, (cnt, mem) in enumerate(zip(counts, mems)):
+        node_gpu_count[i] = cnt
+        node_gpu_mem[i, :cnt] = mem
+    return node_gpu_mem, node_gpu_count
+
+
+def parse_node_storage(node: Node):
+    """Decode the simon/node-local-storage annotation; returns (vgs, devices)
+    as lists of (name, capacity) / (name, capacity, media)."""
+    raw = node.metadata.annotations.get(ANNO_NODE_LOCAL_STORAGE)
+    if not raw:
+        return [], []
+    try:
+        data = json.loads(raw)
+    except ValueError:
+        return [], []
+    vgs = []
+    for vg in data.get("vgs") or []:
+        vgs.append((str(vg.get("name", "")), float(parse_quantity(vg.get("capacity", 0)))))
+    devices = []
+    for dev in data.get("devices") or []:
+        media = str(dev.get("mediaType", "")).lower()
+        devices.append(
+            (
+                str(dev.get("device", dev.get("name", ""))),
+                float(parse_quantity(dev.get("capacity", 0))),
+                MEDIA_SSD if media == "ssd" else MEDIA_HDD,
+            )
+        )
+    return vgs, devices
+
+
+def encode_local_storage(nodes: List[Node], n_pad: int):
+    """VG capacity [N, Vg], device capacity [N, Dv], device media [N, Dv]."""
+    parsed = [parse_node_storage(n) for n in nodes]
+    Vg = max([len(v) for v, _ in parsed] + [1])
+    Dv = max([len(d) for _, d in parsed] + [1])
+    vg_cap = np.zeros((n_pad, Vg), dtype=np.float32)
+    dev_cap = np.zeros((n_pad, Dv), dtype=np.float32)
+    dev_media = np.full((n_pad, Dv), -1, dtype=np.int32)
+    vg_names: List[List[str]] = []
+    dev_names: List[List[str]] = []
+    for i, (vgs, devs) in enumerate(parsed):
+        vg_names.append([name for name, _ in vgs])
+        dev_names.append([name for name, _, _ in devs])
+        for j, (_, cap) in enumerate(vgs):
+            vg_cap[i, j] = cap
+        for j, (_, cap, media) in enumerate(devs):
+            dev_cap[i, j] = cap
+            dev_media[i, j] = media
+    return vg_cap, dev_cap, dev_media, vg_names, dev_names
+
+
+def encode_local_requests(templates: List[SchedTemplate]):
+    """Per-template storage requests: total LVM bytes; exclusive-device
+    volumes by media. `dev_req_sizes[u, media]` carries each volume's size
+    sorted DESCENDING (the reference allocates one device per volume,
+    smallest-volume → smallest fitting device, common.go:290-349); the
+    max-size `dev_req` and `dev_req_count` remain for the score proxy."""
+    U = len(templates)
+    lvm_req = np.zeros((U,), dtype=np.float32)
+    dev_req = np.zeros((U, 2), dtype=np.float32)
+    dev_req_count = np.zeros((U, 2), dtype=np.int32)
+    per_media: List[List[List[float]]] = [[[], []] for _ in range(U)]
+    for u, t in enumerate(templates):
+        for kind, size, _sc in t.local_volumes:
+            if kind == "LVM":
+                lvm_req[u] += size
+            elif kind in ("SSD", "HDD"):
+                media = MEDIA_SSD if kind == "SSD" else MEDIA_HDD
+                dev_req[u, media] = max(dev_req[u, media], size)
+                dev_req_count[u, media] += 1
+                per_media[u][media].append(float(size))
+    Mv = max([len(v) for row in per_media for v in row] + [1])
+    dev_req_sizes = np.zeros((U, 2, Mv), dtype=np.float32)
+    for u in range(U):
+        for media in (0, 1):
+            for i, size in enumerate(sorted(per_media[u][media], reverse=True)):
+                dev_req_sizes[u, media, i] = size
+    return lvm_req, dev_req, dev_req_count, dev_req_sizes

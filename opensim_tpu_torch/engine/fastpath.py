@@ -1,0 +1,217 @@
+"""Envelope check and input marshalling for the bind-scan kernel.
+
+`why_not()` decides whether a prepared simulation lies inside what the
+port's kernel computes (the base variant: fit, spread, least/balanced/share
+scores, selectHost, bind); `build_inputs()` turns the encoded cluster into
+the kernel's tensors; `schedule()` runs it. The counterpart in the JAX
+package is ``opensim_tpu/engine/fastpath.py``; the TPU layout rules there
+(128-lane node padding, transposed scalar tables, chunked pod streams) have
+no place here, but the kernel gets the same quantities.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..encoding import vocab as V
+from ..ops import kernels
+from ..ops.fast_scan import MAX_CS, MAX_R, FastInputs, fast_scan
+
+HOSTNAME = "kubernetes.io/hostname"
+
+#: Zone-like topology keys besides the hostname (per-key count blocks).
+MAX_ZONE_KEYS = 4
+
+#: Template tables past this size are the big-U variant of the TPU kernel
+#: (tables streamed one row per step), which is a later slice: the base
+#: variant holds the three [U, N] f32 tables within 4 MiB.
+_BASE_U_TABLE_BYTES = 4 * 1024 * 1024
+
+_LATER = {
+    "gpu": "GPU-share pods (has_gpu)",
+    "local": "open-local storage pods (has_local)",
+    "ports": "host ports (has_ports)",
+    "interpod": "inter-pod affinity terms (has_interpod)",
+    "prefg": "preferred inter-pod terms (has_interpod)",
+    "pref_node_affinity": "preferred node affinity scores (has_na)",
+    "prefer_taints": "PreferNoSchedule taint scores (has_tt)",
+    "prefer_avoid": "NodePreferAvoidPods scores (has_avoid)",
+    "gc_dyn": "dynamic gpu-count allocatable (gc_row)",
+}
+
+
+def why_not(prep) -> Optional[str]:
+    """None when the prepared simulation runs on the port's bind-scan
+    kernel, else a one-line reason. The caps are what the CUDA kernel
+    takes: R ≤ 8 resources and Cs ≤ 8 spread constraints per template
+    (per-thread tables), hostname plus at most four zone keys, and
+    hostname domains that identify nodes."""
+    f = prep.features
+    for name, what in _LATER.items():
+        if getattr(f, name):
+            return f"{what}: a later slice of the port"
+    ec = prep.ec_np
+    R = int(ec.alloc.shape[1])
+    Cs = int(ec.spr_topo.shape[1])
+    U = int(ec.req.shape[0])
+    N = int(ec.node_valid.shape[0])
+    if R > MAX_R or Cs > MAX_CS:
+        return f"R={R} resources or Cs={Cs} spread constraints per template exceed the kernel's {MAX_R}/{MAX_CS}"
+    if 3 * U * N * 4 > _BASE_U_TABLE_BYTES:
+        return f"U={U} templates at N={N} nodes is the big-U variant: a later slice of the port"
+    topo_keys = prep.meta.vocab.topo_keys.items()
+    non_host = [k for k in topo_keys if k != HOSTNAME]
+    if len(non_host) > MAX_ZONE_KEYS:
+        return f"{len(non_host)} non-hostname topology keys > {MAX_ZONE_KEYS} supported"
+    # hostname domains must be node-identity (each valid node carries its
+    # own hostname label) for the per-node count layout to be exact
+    if HOSTNAME in topo_keys:
+        tk = topo_keys.index(HOSTNAME)
+        nd = np.asarray(ec.node_domain)[:, tk]
+        nv = np.asarray(ec.node_valid)
+        trash = np.asarray(ec.domain_topo).shape[0] - 1
+        if (nd[nv] == trash).any():
+            return "some valid nodes carry no hostname label"
+        if len(np.unique(nd[nv])) != int(nv.sum()):
+            return "hostname domains are not node-identity (duplicate hostname labels)"
+    return None
+
+
+def _to(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+
+def build_inputs(prep) -> Tuple[FastInputs, Dict[str, np.ndarray]]:
+    """The kernel's tensors on ``prep.device``, plus the static first-fail
+    counts over the real valid nodes. Static tables are computed with every
+    node valid; validity is the kernel's runtime row (static filters are
+    per node, so this is equivalent)."""
+    ec = prep.ec_np
+    stat = kernels.precompute_static_np(ec._replace(node_valid=np.ones_like(ec.node_valid)))
+    static_fail = kernels.precompute_static_np(ec).static_fail
+    N = int(ec.node_valid.shape[0])
+    topo_keys = prep.meta.vocab.topo_keys.items()
+    zone_tks = [i for i, k in enumerate(topo_keys) if k != HOSTNAME]
+    trash = np.asarray(ec.domain_topo).shape[0] - 1
+    node_domain = np.asarray(ec.node_domain)
+
+    # zone column of each node per zone key (columns in domain-id order),
+    # -1 where the node lacks the label
+    K = max(len(zone_tks), 1)
+    zone_idx = np.full((K, N), -1, np.int32)
+    for ki, tk in enumerate(zone_tks):
+        zd = node_domain[:, tk]
+        _ids, inv = np.unique(zd, return_inverse=True)
+        present = zd != trash
+        zone_idx[ki, present] = inv.reshape(-1)[present]
+    n_zones = max(int(zone_idx.max()) + 1, 1)
+
+    # topology-key index → kernel key: 0 = hostname, 1..K = zone keys
+    key_lut = np.zeros((max(len(topo_keys), 1) + 1,), np.int32)
+    for ki, tk in enumerate(zone_tks):
+        key_lut[tk] = ki + 1
+    spr_topo = np.asarray(ec.spr_topo)
+    active = spr_topo >= 0
+    spr_sel = np.maximum(np.asarray(ec.spr_sel), 0).astype(np.int32)
+    matches_sel = np.asarray(ec.matches_sel)
+    spread_weight = np.asarray(stat.spread_weight)
+    spr_self = np.where(
+        active, np.take_along_axis(matches_sel, spr_sel, axis=1), False
+    ).astype(np.float32)
+    spr_weight = np.where(active, spread_weight[np.maximum(spr_topo, 0)], 0.0).astype(np.float32)
+
+    req = np.asarray(ec.req).astype(np.float32)
+    cpu, mem = req[:, V.RES_CPU], req[:, V.RES_MEMORY]
+    cpu_nz = np.where(cpu > 0, cpu, 100.0).astype(np.float32)
+    mem_nz = np.where(mem > 0, mem, 200.0 * 1024 * 1024).astype(np.float32)
+
+    dev = prep.device
+    f32, i32 = torch.float32, torch.int32
+    fi = FastInputs(
+        alloc_T=_to(np.asarray(ec.alloc).T, f32, dev),
+        used0_T=_to(np.asarray(prep.st0_np.used).T, f32, dev),
+        static_pass=_to(stat.static_pass, f32, dev),
+        aff_mask=_to(stat.aff_mask, f32, dev),
+        share_raw=_to(stat.share_raw, f32, dev),
+        zone_idx=_to(zone_idx, i32, dev),
+        matches_AU=_to(matches_sel.T, f32, dev),
+        node_valid=_to(ec.node_valid, f32, dev),
+        req=_to(req, f32, dev),
+        cpu_nz=_to(cpu_nz, f32, dev),
+        mem_nz=_to(mem_nz, f32, dev),
+        pin=_to(ec.pin, i32, dev),
+        spr_active=_to(active, i32, dev),
+        spr_key=_to(key_lut[np.maximum(spr_topo, 0)], i32, dev),
+        spr_sel=_to(spr_sel, i32, dev),
+        spr_skew=_to(ec.spr_skew, f32, dev),
+        spr_hard=_to(ec.spr_hard, i32, dev),
+        spr_self=_to(spr_self, f32, dev),
+        spr_weight=_to(spr_weight, f32, dev),
+        n_zones=n_zones,
+    )
+    return fi, {"static_fail": static_fail}
+
+
+def inputs_from_reference(arrays: Dict[str, np.ndarray], device, n_nodes: Optional[int] = None) -> FastInputs:
+    """The port's inputs from the JAX package's ``FastInputs`` as numpy
+    (``fi._asdict()`` of ``opensim_tpu.engine.fastpath.build_inputs``):
+    drops the node-lane padding past `n_nodes` (None keeps every lane),
+    turns the one-hot zone blocks ``zone_NZ [K, N, Z]`` into zone columns,
+    flattens ``node_valid [1, N]``. Other tables keep their layout; the
+    selector rows padded to a multiple of 8 stay, as no constraint names
+    them."""
+    a = {k: np.asarray(v) for k, v in arrays.items()}
+    N = a["alloc_T"].shape[1] if n_nodes is None else int(n_nodes)
+    zone_NZ = a["zone_NZ"][:, :N]  # [K, N, Z]
+    has_zone = a["has_zone"][:, :N] > 0
+    zone_idx = np.where(has_zone, zone_NZ.argmax(-1), -1).astype(np.int32)
+    f32, i32 = torch.float32, torch.int32
+    nodes = lambda name: a[name][..., :N]
+    return FastInputs(
+        alloc_T=_to(nodes("alloc_T"), f32, device),
+        used0_T=_to(nodes("used0_T"), f32, device),
+        static_pass=_to(nodes("static_pass"), f32, device),
+        aff_mask=_to(nodes("aff_mask"), f32, device),
+        share_raw=_to(nodes("share_raw"), f32, device),
+        zone_idx=_to(zone_idx, i32, device),
+        matches_AU=_to(a["matches_AU"], f32, device),
+        node_valid=_to(a["node_valid"].reshape(-1)[:N], f32, device),
+        req=_to(a["req"], f32, device),
+        cpu_nz=_to(a["cpu_nz"], f32, device),
+        mem_nz=_to(a["mem_nz"], f32, device),
+        pin=_to(a["pin"], i32, device),
+        spr_active=_to(a["spr_active"], i32, device),
+        spr_key=_to(a["spr_key"], i32, device),
+        spr_sel=_to(a["spr_sel"], i32, device),
+        spr_skew=_to(a["spr_skew"], f32, device),
+        spr_hard=_to(a["spr_hard"], i32, device),
+        spr_self=_to(a["spr_self"], f32, device),
+        spr_weight=_to(a["spr_weight"], f32, device),
+        n_zones=max(int(zone_idx.max()) + 1, 1),
+    )
+
+
+def pod_stream(prep):
+    """(tmpl, valid, forced) int32 tensors of the prepared stream on
+    ``prep.device``; every pod is valid."""
+    valid = np.ones(len(prep.tmpl_ids), bool)
+    i32 = torch.int32
+    return (
+        _to(prep.tmpl_ids, i32, prep.device),
+        _to(valid, i32, prep.device),
+        _to(prep.forced, i32, prep.device),
+    )
+
+
+def schedule(prep, fi: Optional[FastInputs] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """Run the bind scan over the prepared stream: the kernel on a card,
+    the plain version on the CPU. Returns host ``(chosen [P] i32,
+    used [N, R] f32)``."""
+    if fi is None:
+        fi, _ = build_inputs(prep)
+    tmpl, valid, forced = pod_stream(prep)
+    chosen, used_T = fast_scan(fi, tmpl, valid, forced)
+    return chosen.cpu().numpy(), used_T.T.contiguous().cpu().numpy()

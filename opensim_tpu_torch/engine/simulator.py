@@ -1,0 +1,345 @@
+"""Simulation facade — parity with ``pkg/simulator/core.go``.
+
+``simulate(cluster, apps)`` mirrors ``Simulate()``
+(``pkg/simulator/core.go:67-117``): expand the cluster's workloads into
+pods, schedule cluster pods first, then each app in configured order, and
+return which pods landed where. The whole pod stream is placed by one
+bind-scan kernel launch (``ops/fast_scan.py``).
+
+This slice covers the default arguments and the success path. It raises
+rather than falls back: ``NotImplementedError`` for an input outside the
+kernel's envelope (``fastpath.why_not``) and for a stream in which a pod
+ends unscheduled (failure attribution is a later slice).
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..encoding.state import ClusterEncoder, ClusterMeta, EncodedCluster, ScanState, to_device
+from ..models import expand
+from ..models.objects import (
+    ANNO_GPU_INDEX,
+    ANNO_NODE_GPU_SHARE,
+    ANNO_NODE_LOCAL_STORAGE,
+    ANNO_WORKLOAD_KIND,
+    LABEL_APP_NAME,
+    LABEL_GPU_CARD_MODEL,
+    Node,
+    Pod,
+    ResourceTypes,
+)
+from ..ops import kernels
+from . import fastpath, queues
+
+
+@dataclass
+class AppResource:
+    """Parity with core.go:54-57."""
+
+    name: str
+    resources: ResourceTypes
+
+
+@dataclass
+class UnscheduledPod:
+    """Parity with core.go:25-28."""
+
+    pod: Pod
+    reason: str
+
+
+@dataclass
+class NodeStatus:
+    """Parity with core.go:31-36."""
+
+    node: Node
+    pods: List[Pod] = field(default_factory=list)
+
+
+@dataclass
+class SimulateResult:
+    """Parity with core.go:19-23, plus what the run measured: the node
+    index of each pod of the stream (``placements``, -1 unplaced), the final
+    per-node usage ``used [N, R]``, and host-clock phase times in seconds
+    (``timings``: prepare, inputs, kernel, decode)."""
+
+    unscheduled_pods: List[UnscheduledPod] = field(default_factory=list)
+    node_status: List[NodeStatus] = field(default_factory=list)
+    placements: Optional[np.ndarray] = None
+    used: Optional[np.ndarray] = None
+    timings: Dict[str, float] = field(default_factory=dict)
+
+    def pods_on(self, node_name: str) -> List[Pod]:
+        for ns in self.node_status:
+            if ns.node.metadata.name == node_name:
+                return ns.pods
+        return []
+
+
+@dataclass
+class Prepared:
+    """Expanded + encoded simulation inputs: the numpy encoding
+    (``ec_np``/``st0_np``) and its tensors on ``device`` (``ec``/``st0``)."""
+
+    ec: EncodedCluster
+    st0: ScanState
+    ec_np: EncodedCluster
+    st0_np: ScanState
+    meta: ClusterMeta
+    ordered: List[Pod]
+    tmpl_ids: np.ndarray
+    forced: np.ndarray
+    features: kernels.Features
+    device: torch.device
+
+
+def pinned_node_name(pod: Pod) -> str:
+    """Target node of a DaemonSet pod pinned via matchFields metadata.name
+    (SetDaemonSetPodNodeNameByNodeAffinity semantics)."""
+    aff = (pod.spec.affinity or {}).get("nodeAffinity") or {}
+    required = aff.get("requiredDuringSchedulingIgnoredDuringExecution") or {}
+    for term in required.get("nodeSelectorTerms") or []:
+        for f in term.get("matchFields") or []:
+            if f.get("key") == "metadata.name" and f.get("operator") == "In":
+                vals = f.get("values") or []
+                if len(vals) == 1:
+                    return str(vals[0])
+    return ""
+
+
+def _tmpl_hint(pod: Pod) -> Optional[tuple]:
+    """Cheap template-identity key for workload-owned pods: all pods of one
+    workload expansion share a scheduling spec. DaemonSet pods embed their
+    pinned node (each targets a different one); bare pods get no hint and
+    take the full canonical path."""
+    kind = pod.metadata.annotations.get(ANNO_WORKLOAD_KIND)
+    name = pod.metadata.annotations.get("simon/workload-name")
+    if not kind or not name:
+        return None
+    # the owning object's uid disambiguates same-named workloads coming from
+    # different sources (cluster snapshot vs apps, or two apps)
+    owner_uid = pod.metadata.owner_references[0].uid if pod.metadata.owner_references else ""
+    pin = pinned_node_name(pod) if kind == "DaemonSet" else ""
+    return (pod.metadata.namespace, kind, name, owner_uid, pod.spec.node_name, pin)
+
+
+def _owner_selector(pod: Pod) -> Optional[dict]:
+    """Selector used for system-default topology spreading: the owning
+    workload's pods share identical labels, so matching on the pod's own
+    labels reproduces the RS/STS selector grouping that k8s
+    buildDefaultConstraints derives from the owning objects."""
+    if pod.metadata.annotations.get(ANNO_WORKLOAD_KIND) and pod.metadata.labels:
+        return {"matchLabels": dict(pod.metadata.labels)}
+    return None
+
+
+def _cluster_pods(cluster: ResourceTypes) -> List[Pod]:
+    """GetValidPodExcludeDaemonSet (pkg/simulator/utils.go:77-230): bare
+    cluster pods minus DaemonSet-owned ones (those are re-expanded per
+    node), plus expanded cluster workloads; DaemonSet pods form the tail,
+    grouped in ``cluster.daemon_sets`` order."""
+    ds_names = {(d.metadata.namespace, d.metadata.name) for d in cluster.daemon_sets}
+    bare = [
+        p
+        for p in cluster.pods
+        if not any(
+            r.kind == "DaemonSet" and (p.metadata.namespace, r.name) in ds_names
+            for r in p.metadata.owner_references
+        )
+    ]
+    rt = ResourceTypes(
+        pods=bare,
+        deployments=cluster.deployments,
+        replica_sets=cluster.replica_sets,
+        stateful_sets=cluster.stateful_sets,
+        jobs=cluster.jobs,
+        cron_jobs=cluster.cron_jobs,
+    )
+    pods = expand.generate_pods_from_resources(rt, cluster.nodes, include_daemon_sets=False)
+    for ds in cluster.daemon_sets:
+        pods.extend(expand.pods_from_daemon_set(ds, cluster.nodes))
+    return pods
+
+
+def prepare(
+    cluster: ResourceTypes,
+    apps: List[AppResource],
+    use_greed: bool = False,
+    node_pad: int = 1,
+    device: DeviceLike = None,
+) -> Optional[Prepared]:
+    """Expand cluster + app workloads into an ordered pod stream and encode
+    it; the tensors go to `device` (the card unless the caller names
+    another). The node axis is padded to a multiple of `node_pad` with
+    invalid nodes (1: no padding). Returns None when there are no pods."""
+    device = resolve_device(device)
+    enc = ClusterEncoder(node_pad=node_pad)
+    enc.add_nodes(cluster.nodes)
+
+    ordered: List[Pod] = list(_cluster_pods(cluster))
+    for app in apps:
+        app_pods = expand.generate_pods_from_resources(app.resources, cluster.nodes)
+        for p in app_pods:
+            p.metadata.labels.setdefault(LABEL_APP_NAME, app.name)
+        # simulator.go:238-241: affinity sort then toleration sort
+        app_pods = queues.toleration_sort(queues.affinity_sort(app_pods))
+        if use_greed:
+            app_pods = queues.greed_sort(cluster.nodes, app_pods)
+        ordered.extend(app_pods)
+    if not ordered:
+        return None
+
+    # pods of one workload share a template: the hint short-circuits
+    # canonical extraction and the lazy selector callable skips the per-pod
+    # dict build on hint hits
+    tmpl_ids = np.array(
+        [enc.add_pod(p, (lambda p=p: _owner_selector(p)), hint=_tmpl_hint(p)) for p in ordered],
+        dtype=np.int32,
+    )
+    ec_np, st0_np, meta = enc.build()
+    ec, st0 = to_device(ec_np, st0_np, device)
+    return Prepared(
+        ec=ec,
+        st0=st0,
+        ec_np=ec_np,
+        st0_np=st0_np,
+        meta=meta,
+        ordered=ordered,
+        tmpl_ids=tmpl_ids,
+        forced=np.array([bool(p.spec.node_name) for p in ordered], dtype=bool),
+        features=kernels.features_of(ec_np),
+        device=device,
+    )
+
+
+def simulate(
+    cluster: ResourceTypes,
+    apps: List[AppResource],
+    use_greed: bool = False,
+    node_pad: int = 1,
+    device: DeviceLike = None,
+) -> SimulateResult:
+    """One full simulation: cluster pods then apps in order, all placed by
+    the bind-scan kernel on `device` (the card unless the caller names
+    another device; the CPU runs the kernel's plain version)."""
+    t0 = time.perf_counter()
+    prep = prepare(cluster, apps, use_greed=use_greed, node_pad=node_pad, device=device)
+    if prep is None:
+        return SimulateResult(node_status=[NodeStatus(node=n, pods=[]) for n in cluster.nodes])
+    miss = fastpath.why_not(prep)
+    if miss is not None:
+        raise NotImplementedError(f"outside the port's bind-scan envelope: {miss}")
+    t1 = time.perf_counter()
+    fi, _ = fastpath.build_inputs(prep)
+    if prep.device.type == "cuda":
+        torch.cuda.synchronize(prep.device)
+    t2 = time.perf_counter()
+    chosen, used = fastpath.schedule(prep, fi)  # host copies: the card is done
+    t3 = time.perf_counter()
+
+    failed = np.nonzero(chosen < 0)[0]
+    if len(failed):
+        pod = prep.ordered[int(failed[0])]
+        raise NotImplementedError(
+            f"{len(failed)} pod(s) ended unscheduled (first: stream index {int(failed[0])}, "
+            f"{pod.metadata.namespace}/{pod.metadata.name}); failure attribution "
+            "(per-filter reasons) is a later slice of the port"
+        )
+    statuses = _decode(prep, chosen, cluster.nodes)
+    t4 = time.perf_counter()
+    return SimulateResult(
+        node_status=statuses,
+        placements=chosen,
+        used=used,
+        timings={"prepare": t1 - t0, "inputs": t2 - t1, "kernel": t3 - t2, "decode": t4 - t3},
+    )
+
+
+def _decode(prep: Prepared, chosen: np.ndarray, nodes: List[Node]) -> List[NodeStatus]:
+    """Bind every pod into its node's bucket, in stream order (the success
+    path of the reference's ``_decode``)."""
+    node_pods: Dict[str, List[Pod]] = {n.metadata.name: [] for n in nodes}
+    pod_lists = [node_pods.get(n) for n in prep.meta.node_names]
+    for pod, c in zip(prep.ordered, chosen.astype(int).tolist()):
+        pod.spec.node_name = prep.meta.node_names[c]
+        pod.phase = "Running"
+        pod_lists[c].append(pod)
+    st = prep.st0_np  # no pod of the envelope touches GPU or storage state
+    return _node_statuses(nodes, node_pods, prep.meta, st.gpu_free, st.vg_free, st.dev_free)
+
+
+def _node_statuses(
+    nodes: List[Node],
+    node_pods: Dict[str, List[Pod]],
+    meta: ClusterMeta,
+    gpu_free: np.ndarray,
+    vg_free: np.ndarray,
+    dev_free: np.ndarray,
+) -> List[NodeStatus]:
+    """Write final storage/GPU usage back into node annotations — parity
+    with the Bind plugins updating the fake cluster's node objects
+    (open-local.go:175-254 writes simon/node-local-storage;
+    open-gpu-share.go Reserve writes simon/node-gpu-share)."""
+    statuses: List[NodeStatus] = []
+    for idx, orig in enumerate(nodes):
+        # shallow-copy the node and give it fresh metadata so the caller's
+        # objects stay untouched without deep-copying 5k raw dicts
+        node = copy.copy(orig)
+        node.metadata = copy.copy(orig.metadata)
+        node.metadata.annotations = dict(orig.metadata.annotations)
+        node.metadata.labels = dict(orig.metadata.labels)
+        pods = node_pods[node.metadata.name]
+        vg_names = meta.node_vg_names[idx] if idx < len(meta.node_vg_names) else []
+        dev_names = meta.node_dev_names[idx] if idx < len(meta.node_dev_names) else []
+        if vg_names or dev_names:
+            vgs = []
+            for j, name in enumerate(vg_names):
+                cap = float(meta.node_vg_cap[idx, j])
+                vgs.append({"name": name, "capacity": int(cap), "requested": int(cap - vg_free[idx, j])})
+            devices = []
+            for j, name in enumerate(dev_names):
+                devices.append(
+                    {
+                        "name": name,
+                        "device": name,
+                        "capacity": int(meta.node_dev_cap[idx, j]),
+                        "mediaType": "ssd" if int(meta.node_dev_media[idx, j]) == 0 else "hdd",
+                        "isAllocated": bool(dev_free[idx, j] == 0 and meta.node_dev_cap[idx, j] > 0),
+                    }
+                )
+            node.metadata.annotations[ANNO_NODE_LOCAL_STORAGE] = json.dumps({"vgs": vgs, "devices": devices})
+        gpu_count = int(meta.node_gpu_count[idx]) if meta.node_gpu_count is not None else 0
+        if gpu_count > 0:
+            devs = {}
+            for d in range(gpu_count):
+                total = float(meta.node_gpu_mem[idx, d])
+                devs[str(d)] = {
+                    "GpuTotalMemory": int(total),
+                    "GpuUsedMemory": int(total - gpu_free[idx, d]),
+                    "PodList": [p.metadata.name for p in pods if _pod_uses_device(p, d)],
+                }
+            info = {
+                "GpuCount": gpu_count,
+                "GpuTotalMemory": int(sum(v["GpuTotalMemory"] for v in devs.values())),
+                "GpuModel": node.metadata.labels.get(LABEL_GPU_CARD_MODEL, "N/A"),
+                "NumPods": sum(1 for p in pods if ANNO_GPU_INDEX in p.metadata.annotations),
+                "DevsBrief": devs,
+            }
+            node.metadata.annotations[ANNO_NODE_GPU_SHARE] = json.dumps(info)
+        statuses.append(NodeStatus(node=node, pods=pods))
+    return statuses
+
+
+def _pod_uses_device(pod: Pod, device: int) -> bool:
+    idx = pod.metadata.annotations.get(ANNO_GPU_INDEX, "")
+    return str(device) in idx.split("-") if idx else False
+
