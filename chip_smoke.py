@@ -4,21 +4,28 @@
     python3 chip_smoke.py
 
 Builds the bind-scan kernel from ops/csrc/ with nvcc, holds it against its
-plain PyTorch version on small cases and over the whole stream at full
-width, runs simulate() on
-the capacity plan (50,000 pods from 20 Deployments on 5,000 nodes, 4
-zones; bench.py:85-135) through the kernel, and times the kernel, its
-plain version and the phases of simulate() with CUDA events and the host
-clock. Every phase raises on failure. The last lines are the card's name
-and power limit, one JSON line per the kernel table, and
-``{"ok": true, "device": {...}}``. Without a card it exits non-zero and
-prints no result.
+plain PyTorch version on small cases and over whole streams at full width,
+and drives simulate() through the kernel on two plans at full size:
+
+- the capacity plan (50,000 pods from 20 Deployments on 5,000 nodes, 4
+  zones; bench.py:85-135), the kernel's base variant;
+- the all-GPU-share plan (50,000 pods from 10 Deployments on 5,000 nodes of
+  8 × 8 GiB GPUs; bench.py:174-217), the variant with GPU share and the
+  dynamic gpu-count allocatable (``fast_scan[gpu,gc]``).
+
+For each plan it checks the placements, counts the launches of the path's
+run, and times the kernel, its plain version and the phases of simulate()
+with CUDA events and the host clock. Every phase raises on failure. The last
+lines are the card's name and power limit, one JSON line with a row per
+kernel variant timed at full width, and ``{"ok": true, "device": {...}}``.
+Without a card it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -29,7 +36,7 @@ import torch
 #: float32 non-tensor-core FLOP/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
-#: The capacity plan of bench.py:85-135, at its full size.
+#: Both plans at their full size.
 N_NODES = 5000
 N_PODS = 50000
 
@@ -57,15 +64,22 @@ def _events_ms(fn, reps: int) -> float:
 
 
 def _same(got, want, what: str) -> float:
-    """Identical placements and usage, or raise; returns max |Δused|."""
-    (c1, u1), (c2, u2) = got, want
-    if not torch.equal(c1, c2):
-        bad = int((c1 != c2).sum())
-        first = int(torch.nonzero(c1 != c2)[0, 0])
-        raise AssertionError(f"{what}: {bad} placements differ (first at pod {first})")
-    err = float((u1 - u2).abs().max()) if u1.numel() else 0.0
-    if not torch.equal(u1, u2):
-        raise AssertionError(f"{what}: used differs, max abs err {err}")
+    """Identical outputs (placements, usage, GPU takes, GPU state), or
+    raise; returns the largest absolute difference of the float outputs."""
+    if not torch.equal(got.chosen, want.chosen):
+        diff = got.chosen != want.chosen
+        raise AssertionError(
+            f"{what}: {int(diff.sum())} placements differ (first at pod {int(torch.nonzero(diff)[0, 0])})"
+        )
+    err = 0.0
+    for field in ("used", "gpu_take", "gpu_free"):
+        g, w = getattr(got, field), getattr(want, field)
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}: {field} has shape {tuple(g.shape)}, want {tuple(w.shape)}")
+        e = float((g - w).abs().max()) if g.numel() else 0.0
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: {field} differs, max abs err {e}")
+        err = max(err, e)
     return err
 
 
@@ -82,47 +96,28 @@ def small_cases(device) -> None:
         got = fs.fast_scan(fi, *stream)
         want = fs.fast_scan_reference(fi, *stream)
         _same(got, want, f"case {name}")
-        print(f"case {name}: N={fi.alloc_T.shape[1]} P={len(prep.tmpl_ids)} "
-              f"placed={int((got[0] >= 0).sum())} identical", flush=True)
+        print(f"case {name} ({fs.variant_name(fi)}): N={fi.alloc_T.shape[1]} P={len(prep.tmpl_ids)} "
+              f"placed={int((got.chosen >= 0).sum())} gpu slots={int(got.gpu_take.sum())} identical",
+              flush=True)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+def full_plan(device, label: str, make, variant: str) -> dict:
+    """Kernel against its plain version over the whole stream, simulate()
+    through the kernel, then the kernel timed alone. Returns the plan's row
+    of the kernels table."""
     from opensim_tpu_torch.engine import fastpath, simulator as sim
-    from opensim_tpu_torch.models import fixtures as fx
     from opensim_tpu_torch.ops import fast_scan as fs
 
-    device = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    _phase("1 card")
-    card = card_line()
-    print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
-
-    _phase("2 build")
-    t0 = time.perf_counter()
-    fs.build()
-    print(f"build: {time.perf_counter() - t0:.3f} s ({fs.BUILD_LOG['library']})")
-    for line in fs.BUILD_LOG["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}")
-
-    _phase("3 small cases: kernel vs plain version")
-    small_cases(device)
-
-    _phase(f"4 full width: {N_NODES} nodes, the whole {N_PODS}-pod stream, kernel vs plain")
-    cluster = fx.synthetic_cluster(N_NODES)
-    apps = [sim.AppResource("plan", fx.synthetic_apps(N_PODS))]
+    _phase(f"{label}: {N_NODES} nodes, the whole {N_PODS}-pod stream, kernel vs plain")
+    cluster, app = make()
+    apps = [sim.AppResource("plan", app)]
     prep = sim.prepare(cluster, apps, device=device)
     miss = fastpath.why_not(prep)
     if miss is not None:
         raise AssertionError(f"the plan falls outside the envelope: {miss}")
     fi, _ = fastpath.build_inputs(prep)
+    if fs.variant_name(fi) != variant:
+        raise AssertionError(f"the plan runs {fs.variant_name(fi)}, not {variant}")
     tmpl, valid, forced = fastpath.pod_stream(prep)
     P, N = tmpl.shape[0], fi.alloc_T.shape[1]
     got = fs.fast_scan(fi, tmpl, valid, forced)
@@ -133,37 +128,45 @@ def main() -> int:
         plain[0] = fs.fast_scan_reference(fi, tmpl, valid, forced)
 
     plain_ms = _events_ms(run_plain, reps=1)
-    err = _same(got, plain[0], "whole stream")
-    print(f"{P} pods at N={N}: kernel and plain version identical (plain {plain_ms:.3f} ms)")
+    err = _same(got, plain[0], f"{label} whole stream")
+    print(f"{P} pods at N={N}: kernel and plain version identical on all four outputs "
+          f"(plain {plain_ms:.3f} ms, {int(got.gpu_take.sum())} GPU slots taken)", flush=True)
 
-    _phase(f"5 simulate(): {N_PODS} pods on {N_NODES} nodes")
+    _phase(f"{label}: simulate(), {N_PODS} pods on {N_NODES} nodes")
+    cluster, app = make()  # fresh objects: simulate() writes into its pods
+    apps = [sim.AppResource("plan", app)]
     fs.LAUNCHES = 0
+    fs.VARIANT_LAUNCHES.clear()
     res = sim.simulate(cluster, apps, device=device)
-    launches = fs.LAUNCHES
+    launches, by_variant = fs.LAUNCHES, dict(fs.VARIANT_LAUNCHES)
     n_placed = sum(len(ns.pods) for ns in res.node_status)
-    if launches < 1:
-        raise AssertionError("simulate() did not launch the fast_scan kernel")
+    if launches != 1 or by_variant != {variant: 1}:
+        raise AssertionError(f"simulate() launched {by_variant}, want exactly one {variant}")
     if len(res.placements) != P or (res.placements < 0).any() or n_placed != P:
         raise AssertionError(f"placed {n_placed} of {P} pods")
-    if not (res.used.shape == (N, fi.alloc_T.shape[0]) and bool(torch.isfinite(torch.from_numpy(res.used)).all())):
-        raise AssertionError("final usage has the wrong shape or non-finite values")
-    if not torch.equal(got[0].cpu(), torch.from_numpy(res.placements)):
+    for field, shape in (("used", (N, fi.alloc_T.shape[0])), ("gpu_take", (P, prep.st0_np.gpu_free.shape[1])),
+                         ("gpu_free", prep.st0_np.gpu_free.shape)):
+        arr = torch.from_numpy(getattr(res, field))
+        if tuple(arr.shape) != tuple(shape) or not bool(torch.isfinite(arr).all()):
+            raise AssertionError(f"simulate(): {field} has the wrong shape or non-finite values")
+    if not torch.equal(got.chosen.cpu(), torch.from_numpy(res.placements)):
         raise AssertionError("simulate() placed the stream differently from the checked kernel run")
+    if got.gpu_take.numel() and not torch.equal(got.gpu_take.cpu(), torch.from_numpy(res.gpu_take)):
+        raise AssertionError("simulate() took GPUs differently from the checked kernel run")
     wall = sum(res.timings.values())
-    print(f"placed {n_placed}/{P} pods, kernel launches {launches}")
+    print(f"placed {n_placed}/{P} pods, kernel launches {by_variant}")
     print("timings: " + json.dumps({k: round(v, 6) for k, v in res.timings.items()}))
-    print(f"plan wall-clock {wall:.6f} s, {P / wall:.1f} pods/s (host clock)")
+    print(f"plan wall-clock {wall:.6f} s, {P / wall:.1f} pods/s (host clock)", flush=True)
 
-    _phase("6 timing: the kernel over the whole stream (CUDA events)")
+    _phase(f"{label}: the kernel over the whole stream (CUDA events)")
     ms = _events_ms(lambda: fs.fast_scan(fi, tmpl, valid, forced), reps=3)
-    work = fs.fast_scan_work(fi, tmpl, valid, forced)
+    work = fs.fast_scan_work(fi, tmpl, valid, forced, got.chosen)
     t_bytes = work["bytes"] / PEAK_BYTES_S * 1e3
     t_ops = work["ops"] / PEAK_F32_S * 1e3
     print(f"kernel {ms:.3f} ms ({ms * 1e3 / P:.3f} us/pod), plain {plain_ms:.3f} ms, "
-          f"bound {max(t_bytes, t_ops):.6f} ms ({work['bytes']} B, {work['ops']} flop)")
-
-    row = {
-        "name": "fast_scan",
+          f"bound {max(t_bytes, t_ops):.6f} ms ({work['bytes']} B, {work['ops']} flop)", flush=True)
+    return {
+        "name": variant,
         "route": "cuda",
         "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu",
         "replaces": "opensim_tpu/ops/pallas_scan.py:1009",
@@ -175,8 +178,48 @@ def main() -> int:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
     }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    _phase("1 card")
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    _phase("2 build")
+    t0 = time.perf_counter()
+    fs.build()
+    print(f"build: {time.perf_counter() - t0:.3f} s ({fs.BUILD_LOG['library']})")
+    ptxas = fs.BUILD_LOG["ptxas"]
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
+    spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas))
+    if regs:
+        print(f"ptxas: {len(regs)} kernel variants, {min(regs)}-{max(regs)} registers, {spill} spill bytes")
+
+    _phase("3 small cases: kernel vs plain version")
+    small_cases(device)
+
+    rows = [
+        full_plan(device, "4-6 capacity plan",
+                  lambda: (fx.synthetic_cluster(N_NODES), fx.synthetic_apps(N_PODS)), "fast_scan"),
+        full_plan(device, "7-9 all-GPU-share plan",
+                  lambda: (fx.gpu_cluster(N_NODES), fx.gpu_apps(N_PODS)), "fast_scan[gpu,gc]"),
+    ]
+    print(f"smoke run {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

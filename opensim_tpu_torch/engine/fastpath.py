@@ -1,54 +1,49 @@
 """Envelope check and input marshalling for the bind-scan kernel.
 
 `why_not()` decides whether a prepared simulation lies inside what the
-port's kernel computes (the base variant: fit, spread, least/balanced/share
-scores, selectHost, bind); `build_inputs()` turns the encoded cluster into
-the kernel's tensors; `schedule()` runs it. The counterpart in the JAX
-package is ``opensim_tpu/engine/fastpath.py``; the TPU layout rules there
-(128-lane node padding, transposed scalar tables, chunked pod streams) have
-no place here, but the kernel gets the same quantities.
+port's kernel computes (fit, spread, least/balanced/share scores, GPU
+share with the dynamic gpu-count allocatable, the NodeAffinity,
+TaintToleration and NodePreferAvoidPods score tables, selectHost, bind);
+`build_inputs()` turns the encoded cluster into the kernel's tensors;
+`schedule()` runs it. The counterpart in the JAX package is
+``opensim_tpu/engine/fastpath.py``; the TPU layout rules there (128-lane
+node padding, 8-row GPU padding, transposed scalar tables, chunked pod
+streams) and its VMEM-derived caps have no place here, but the kernel gets
+the same quantities.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..encoding import vocab as V
 from ..ops import kernels
-from ..ops.fast_scan import MAX_CS, MAX_R, FastInputs, fast_scan
+from ..ops.fast_scan import MAX_CS, MAX_GD, MAX_R, FastInputs, fast_scan, variant
 
 HOSTNAME = "kubernetes.io/hostname"
 
 #: Zone-like topology keys besides the hostname (per-key count blocks).
 MAX_ZONE_KEYS = 4
 
-#: Template tables past this size are the big-U variant of the TPU kernel
-#: (tables streamed one row per step), which is a later slice: the base
-#: variant holds the three [U, N] f32 tables within 4 MiB.
-_BASE_U_TABLE_BYTES = 4 * 1024 * 1024
-
 _LATER = {
-    "gpu": "GPU-share pods (has_gpu)",
     "local": "open-local storage pods (has_local)",
     "ports": "host ports (has_ports)",
     "interpod": "inter-pod affinity terms (has_interpod)",
     "prefg": "preferred inter-pod terms (has_interpod)",
-    "pref_node_affinity": "preferred node affinity scores (has_na)",
-    "prefer_taints": "PreferNoSchedule taint scores (has_tt)",
-    "prefer_avoid": "NodePreferAvoidPods scores (has_avoid)",
-    "gc_dyn": "dynamic gpu-count allocatable (gc_row)",
 }
 
 
 def why_not(prep) -> Optional[str]:
     """None when the prepared simulation runs on the port's bind-scan
     kernel, else a one-line reason. The caps are what the CUDA kernel
-    takes: R ≤ 8 resources and Cs ≤ 8 spread constraints per template
-    (per-thread tables), hostname plus at most four zone keys, and
-    hostname domains that identify nodes."""
+    takes: R ≤ 8 resources, Cs ≤ 8 spread constraints per template and
+    Gd ≤ 8 GPUs per node (per-thread tables), hostname plus at most four
+    zone keys, and hostname domains that identify nodes. The number of
+    templates is not capped: the template tables live in global memory and
+    the kernel reads them with 64-bit offsets."""
     f = prep.features
     for name, what in _LATER.items():
         if getattr(f, name):
@@ -56,12 +51,11 @@ def why_not(prep) -> Optional[str]:
     ec = prep.ec_np
     R = int(ec.alloc.shape[1])
     Cs = int(ec.spr_topo.shape[1])
-    U = int(ec.req.shape[0])
-    N = int(ec.node_valid.shape[0])
+    Gd = int(ec.node_gpu_mem.shape[1])
     if R > MAX_R or Cs > MAX_CS:
         return f"R={R} resources or Cs={Cs} spread constraints per template exceed the kernel's {MAX_R}/{MAX_CS}"
-    if 3 * U * N * 4 > _BASE_U_TABLE_BYTES:
-        return f"U={U} templates at N={N} nodes is the big-U variant: a later slice of the port"
+    if f.gpu and Gd > MAX_GD:
+        return f"{Gd} GPUs per node exceed the kernel's {MAX_GD}"
     topo_keys = prep.meta.vocab.topo_keys.items()
     non_host = [k for k in topo_keys if k != HOSTNAME]
     if len(non_host) > MAX_ZONE_KEYS:
@@ -128,6 +122,12 @@ def build_inputs(prep) -> Tuple[FastInputs, Dict[str, np.ndarray]]:
     cpu_nz = np.where(cpu > 0, cpu, 100.0).astype(np.float32)
     mem_nz = np.where(mem > 0, mem, 200.0 * 1024 * 1024).astype(np.float32)
 
+    # flag branches: a feature that is off gets zero-size tables
+    f = prep.features
+    off_un = np.zeros((0, N), np.float32)
+    gpu_on = bool(f.gpu)
+    gpu0 = np.asarray(prep.st0_np.gpu_free).T if gpu_on else off_un  # [Gd, N]
+
     dev = prep.device
     f32, i32 = torch.float32, torch.int32
     fi = FastInputs(
@@ -150,26 +150,45 @@ def build_inputs(prep) -> Tuple[FastInputs, Dict[str, np.ndarray]]:
         spr_hard=_to(ec.spr_hard, i32, dev),
         spr_self=_to(spr_self, f32, dev),
         spr_weight=_to(spr_weight, f32, dev),
+        gpu_mem=_to(np.asarray(ec.gpu_mem) if gpu_on else np.zeros(0), f32, dev),
+        gpu_cnt=_to(np.asarray(ec.gpu_count) if gpu_on else np.zeros(0), f32, dev),
+        gpu0=_to(gpu0, f32, dev),
+        na_raw=_to(stat.na_raw if f.pref_node_affinity else off_un, f32, dev),
+        tt_raw=_to(stat.tt_raw if f.prefer_taints else off_un, f32, dev),
+        avoid_raw=_to(ec.avoid_score if f.prefer_avoid else off_un, f32, dev),
         n_zones=n_zones,
+        gc_row=kernels.gc_row_of(ec) if f.gc_dyn else -1,
     )
     return fi, {"static_fail": static_fail}
 
 
-def inputs_from_reference(arrays: Dict[str, np.ndarray], device, n_nodes: Optional[int] = None) -> FastInputs:
+def inputs_from_reference(
+    arrays: Dict[str, np.ndarray],
+    device,
+    features,
+    gc_row: int = -1,
+    n_nodes: Optional[int] = None,
+    n_gpus: Optional[int] = None,
+) -> FastInputs:
     """The port's inputs from the JAX package's ``FastInputs`` as numpy
-    (``fi._asdict()`` of ``opensim_tpu.engine.fastpath.build_inputs``):
-    drops the node-lane padding past `n_nodes` (None keeps every lane),
-    turns the one-hot zone blocks ``zone_NZ [K, N, Z]`` into zone columns,
-    flattens ``node_valid [1, N]``. Other tables keep their layout; the
-    selector rows padded to a multiple of 8 stay, as no constraint names
-    them."""
+    (``fi._asdict()`` of ``opensim_tpu.engine.fastpath.build_inputs``),
+    with the flags of its ``features`` and its ``gc_row``: drops the
+    node-lane padding past `n_nodes` and the GPU rows padded past `n_gpus`
+    (None keeps every lane or row), gives the tables of a feature that is
+    off zero size, turns the one-hot zone blocks ``zone_NZ [K, N, Z]`` into
+    zone columns, flattens ``node_valid [1, N]``. Other tables keep their
+    layout; the selector rows padded to a multiple of 8 stay, as no
+    constraint names them."""
     a = {k: np.asarray(v) for k, v in arrays.items()}
     N = a["alloc_T"].shape[1] if n_nodes is None else int(n_nodes)
+    Gd = a["gpu0_DN"].shape[0] if n_gpus is None else int(n_gpus)
     zone_NZ = a["zone_NZ"][:, :N]  # [K, N, Z]
     has_zone = a["has_zone"][:, :N] > 0
     zone_idx = np.where(has_zone, zone_NZ.argmax(-1), -1).astype(np.int32)
     f32, i32 = torch.float32, torch.int32
     nodes = lambda name: a[name][..., :N]
+    off_un = np.zeros((0, N), np.float32)
+    gpu_on = bool(features.gpu)
     return FastInputs(
         alloc_T=_to(nodes("alloc_T"), f32, device),
         used0_T=_to(nodes("used0_T"), f32, device),
@@ -190,7 +209,14 @@ def inputs_from_reference(arrays: Dict[str, np.ndarray], device, n_nodes: Option
         spr_hard=_to(a["spr_hard"], i32, device),
         spr_self=_to(a["spr_self"], f32, device),
         spr_weight=_to(a["spr_weight"], f32, device),
+        gpu_mem=_to(a["gpu_mem"] if gpu_on else np.zeros(0), f32, device),
+        gpu_cnt=_to(a["gpu_cnt"] if gpu_on else np.zeros(0), f32, device),
+        gpu0=_to(nodes("gpu0_DN")[:Gd] if gpu_on else off_un, f32, device),
+        na_raw=_to(nodes("na_raw") if features.pref_node_affinity else off_un, f32, device),
+        tt_raw=_to(nodes("tt_raw") if features.prefer_taints else off_un, f32, device),
+        avoid_raw=_to(nodes("avoid_raw") if features.prefer_avoid else off_un, f32, device),
         n_zones=max(int(zone_idx.max()) + 1, 1),
+        gc_row=int(gc_row) if features.gc_dyn else -1,
     )
 
 
@@ -206,12 +232,26 @@ def pod_stream(prep):
     )
 
 
-def schedule(prep, fi: Optional[FastInputs] = None) -> Tuple[np.ndarray, np.ndarray]:
+class Scheduled(NamedTuple):
+    """Host copies of a scan's results, in the encoder's layouts."""
+
+    chosen: np.ndarray  # [P] i32 node index, -1 unplaced
+    used: np.ndarray  # [N, R] f32
+    gpu_take: np.ndarray  # [P, Gd] f32 GPU slots per device
+    gpu_free: np.ndarray  # [N, Gd] f32 final free memory per GPU
+
+
+def schedule(prep, fi: Optional[FastInputs] = None) -> Scheduled:
     """Run the bind scan over the prepared stream: the kernel on a card,
-    the plain version on the CPU. Returns host ``(chosen [P] i32,
-    used [N, R] f32)``."""
+    the plain version on the CPU. Without GPU-share pods the scan leaves
+    the GPUs as they were: no takes, the initial free memory."""
     if fi is None:
         fi, _ = build_inputs(prep)
     tmpl, valid, forced = pod_stream(prep)
-    chosen, used_T = fast_scan(fi, tmpl, valid, forced)
-    return chosen.cpu().numpy(), used_T.T.contiguous().cpu().numpy()
+    out = fast_scan(fi, tmpl, valid, forced)
+    chosen = out.chosen.cpu().numpy()
+    used = out.used.T.contiguous().cpu().numpy()
+    if variant(fi).gpu:
+        return Scheduled(chosen, used, out.gpu_take.cpu().numpy(), out.gpu_free.T.contiguous().cpu().numpy())
+    gpu0 = np.asarray(prep.st0_np.gpu_free)
+    return Scheduled(chosen, used, np.zeros((len(chosen), gpu0.shape[1]), np.float32), gpu0)

@@ -27,6 +27,7 @@ from ..device import DeviceLike, resolve_device
 from ..encoding.state import ClusterEncoder, ClusterMeta, EncodedCluster, ScanState, to_device
 from ..models import expand
 from ..models.objects import (
+    ANNO_GPU_ASSUME_TIME,
     ANNO_GPU_INDEX,
     ANNO_NODE_GPU_SHARE,
     ANNO_NODE_LOCAL_STORAGE,
@@ -69,13 +70,17 @@ class NodeStatus:
 class SimulateResult:
     """Parity with core.go:19-23, plus what the run measured: the node
     index of each pod of the stream (``placements``, -1 unplaced), the final
-    per-node usage ``used [N, R]``, and host-clock phase times in seconds
-    (``timings``: prepare, inputs, kernel, decode)."""
+    per-node usage ``used [N, R]``, the GPU slots each pod took per device
+    ``gpu_take [P, Gd]``, the final free memory per GPU ``gpu_free [N, Gd]``,
+    and host-clock phase times in seconds (``timings``: prepare, inputs,
+    kernel with the copies back, decode)."""
 
     unscheduled_pods: List[UnscheduledPod] = field(default_factory=list)
     node_status: List[NodeStatus] = field(default_factory=list)
     placements: Optional[np.ndarray] = None
     used: Optional[np.ndarray] = None
+    gpu_take: Optional[np.ndarray] = None
+    gpu_free: Optional[np.ndarray] = None
     timings: Dict[str, float] = field(default_factory=dict)
 
     def pods_on(self, node_name: str) -> List[Pod]:
@@ -243,7 +248,8 @@ def simulate(
     if prep.device.type == "cuda":
         torch.cuda.synchronize(prep.device)
     t2 = time.perf_counter()
-    chosen, used = fastpath.schedule(prep, fi)  # host copies: the card is done
+    out = fastpath.schedule(prep, fi)  # host copies: the card is done
+    chosen = out.chosen
     t3 = time.perf_counter()
 
     failed = np.nonzero(chosen < 0)[0]
@@ -254,27 +260,40 @@ def simulate(
             f"{pod.metadata.namespace}/{pod.metadata.name}); failure attribution "
             "(per-filter reasons) is a later slice of the port"
         )
-    statuses = _decode(prep, chosen, cluster.nodes)
+    statuses = _decode(prep, out, cluster.nodes)
     t4 = time.perf_counter()
     return SimulateResult(
         node_status=statuses,
         placements=chosen,
-        used=used,
+        used=out.used,
+        gpu_take=out.gpu_take,
+        gpu_free=out.gpu_free,
         timings={"prepare": t1 - t0, "inputs": t2 - t1, "kernel": t3 - t2, "decode": t4 - t3},
     )
 
 
-def _decode(prep: Prepared, chosen: np.ndarray, nodes: List[Node]) -> List[NodeStatus]:
-    """Bind every pod into its node's bucket, in stream order (the success
-    path of the reference's ``_decode``)."""
+def _decode(prep: Prepared, out: fastpath.Scheduled, nodes: List[Node]) -> List[NodeStatus]:
+    """Bind every pod into its node's bucket, in stream order, and write
+    the GPU devices it took (the success path of the reference's
+    ``_decode``); node annotations show the final GPU state."""
     node_pods: Dict[str, List[Pod]] = {n.metadata.name: [] for n in nodes}
     pod_lists = [node_pods.get(n) for n in prep.meta.node_names]
-    for pod, c in zip(prep.ordered, chosen.astype(int).tolist()):
+    gpu_any = (out.gpu_take.sum(axis=1) > 0).tolist()
+    for i, (pod, c) in enumerate(zip(prep.ordered, out.chosen.astype(int).tolist())):
         pod.spec.node_name = prep.meta.node_names[c]
         pod.phase = "Running"
+        if gpu_any[i]:
+            # gpu-index parity (GetUpdatedPodAnnotationSpec, gpushare
+            # utils/pod.go:116-127): one device id per packed slot, and the
+            # bind time in nanoseconds
+            ids: List[str] = []
+            for d, cnt in enumerate(out.gpu_take[i].tolist()):
+                ids.extend([str(d)] * int(round(cnt)))
+            pod.metadata.annotations[ANNO_GPU_INDEX] = "-".join(ids)
+            pod.metadata.annotations[ANNO_GPU_ASSUME_TIME] = str(time.time_ns())
         pod_lists[c].append(pod)
-    st = prep.st0_np  # no pod of the envelope touches GPU or storage state
-    return _node_statuses(nodes, node_pods, prep.meta, st.gpu_free, st.vg_free, st.dev_free)
+    st = prep.st0_np  # no pod of the envelope touches storage state
+    return _node_statuses(nodes, node_pods, prep.meta, out.gpu_free, st.vg_free, st.dev_free)
 
 
 def _node_statuses(

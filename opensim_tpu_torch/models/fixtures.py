@@ -322,6 +322,87 @@ def synthetic_apps(n_pods: int) -> ResourceTypes:
     return rt
 
 
+def bigu_apps(n_pods: int, n_templates: int = 1000) -> ResourceTypes:
+    """The template-heavy workload (bench.py:138-149): `n_templates`
+    Deployments of distinct requests, ``n_pods // n_templates`` pods each
+    (at least one)."""
+    rt = ResourceTypes()
+    per = max(n_pods // n_templates, 1)
+    for w in range(n_templates):
+        rt.deployments.append(
+            make_fake_deployment(f"t{w:04d}", per, f"{100 + (w % 400)}m", f"{128 + (w % 97)}Mi")
+        )
+    return rt
+
+
+def _tmpl_annotate(deploy: Workload, anno: Dict[str, str]) -> None:
+    """Pod-template annotations on a workload (bench.py:165-171): gpu-share
+    and open-local pod requests live on the pod template, not on the
+    controller's metadata. The manifest (`raw`) carries them too."""
+    deploy.template_metadata.annotations.update(anno)
+    deploy.template_raw.setdefault("metadata", {}).setdefault("annotations", {}).update(anno)
+    _pod_template(deploy.raw).setdefault("metadata", {}).setdefault("annotations", {}).update(anno)
+
+
+def gpu_cluster(n_nodes: int) -> ResourceTypes:
+    """The all-GPU fleet (bench.py:174-191): the plan's 64-core / 256 GiB /
+    256-pod nodes in 4 zones, each advertising 8 gpu-share devices of 8 GiB
+    (per-device memory = gpu-mem / gpu-count)."""
+    rt = ResourceTypes()
+    zones = [f"zone-{z}" for z in range(4)]
+    for i in range(n_nodes):
+        rt.nodes.append(
+            make_fake_node(
+                f"node-{i:05d}", "64", "256Gi", "256",
+                with_labels({"topology.kubernetes.io/zone": zones[i % len(zones)]}),
+                with_allocatable({
+                    "alibabacloud.com/gpu-mem": "64Gi",
+                    "alibabacloud.com/gpu-count": "8",
+                }),
+            )
+        )
+    return rt
+
+
+def gpu_apps(n_pods: int) -> ResourceTypes:
+    """The all-GPU workload (bench.py:194-217): 10 Deployments of
+    ``n_pods // 10`` pods. Eight are gpu-share templates (pod-template
+    annotations asking one GPU with 2, 4 or 6 GiB); two (every fifth) ask
+    a whole GPU as the spec resource ``alibabacloud.com/gpu-count: 1``,
+    which turns on the dynamic gpu-count allocatable."""
+    rt = ResourceTypes()
+    n_workloads = 10
+    per = n_pods // n_workloads
+    for w in range(n_workloads):
+        if w % 5 == 4:
+            rt.deployments.append(
+                make_fake_deployment(
+                    f"gpu-{w}", per, "250m", "512Mi",
+                    with_requests({"alibabacloud.com/gpu-count": "1"}),
+                )
+            )
+            continue
+        d = make_fake_deployment(f"gpu-{w}", per, "250m", "512Mi")
+        _tmpl_annotate(d, {
+            "alibabacloud.com/gpu-mem": f"{2 + 2 * (w % 3)}Gi",
+            "alibabacloud.com/gpu-count": "1",
+        })
+        rt.deployments.append(d)
+    return rt
+
+
+def _gpu_share(mem: str, count: str) -> Option:
+    return with_annotations({"alibabacloud.com/gpu-mem": mem, "alibabacloud.com/gpu-count": count})
+
+
+def _gpu_node(name: str) -> Node:
+    """64 cores, 128 GiB, 4 gpu-share devices of 8 GiB."""
+    return make_fake_node(
+        name, "64", "128Gi", "110",
+        with_allocatable({"alibabacloud.com/gpu-mem": "32Gi", "alibabacloud.com/gpu-count": "4"}),
+    )
+
+
 #: Small bind-scan cases: (name, node count, node_pad) — see scan_case.
 SCAN_CASES = (
     ("ties", 16, 128),
@@ -330,6 +411,10 @@ SCAN_CASES = (
     ("no_spread", 16, 128),
     ("forced", 12, 128),
     ("unpadded_n", 20, 1),
+    ("gpu", 6, 128),
+    ("gpu_dyn", 8, 1),
+    ("gpu_forced", 6, 1),
+    ("scores", 6, 128),
 )
 
 
@@ -340,7 +425,14 @@ def scan_case(name: str):
     label, and pods that fit nowhere; ``spread_no_zone``/``no_spread``: the
     same with the zone label or the spread workload left out; ``forced``:
     pods bound to a node by name, one to a node that does not exist;
-    ``unpadded_n``: 20 nodes, not a multiple of 32, no node padding."""
+    ``unpadded_n``: 20 nodes, not a multiple of 32, no node padding;
+    ``gpu``: gpu-share pods asking 1, 2 and 3 GPUs on 4-GPU nodes, and
+    pods larger than any GPU; ``gpu_dyn``: 8 nodes of the all-GPU fleet
+    under both template kinds of its workload, overloaded (dynamic
+    gpu-count allocatable); ``gpu_forced``: gpu-share pods bound by name,
+    some to a node where no GPU fits; ``scores``: PreferNoSchedule taints,
+    preferred node affinity and a node that prefers to avoid a ReplicaSet's
+    pods."""
     n_nodes, node_pad = {c[0]: c[1:] for c in SCAN_CASES}[name]
     cluster = ResourceTypes()
     app = ResourceTypes()
@@ -349,6 +441,56 @@ def scan_case(name: str):
             cluster.nodes.append(make_fake_node(f"n{i:03d}", "8", "16Gi", "110"))
         app.deployments.append(make_fake_deployment("even", 40, "500m", "1Gi"))
         app.deployments.append(make_fake_deployment("odd", 24, "300m", "700Mi"))
+        return cluster, app, node_pad
+    if name in ("gpu", "gpu_forced"):
+        # tests/test_fastpath.py:144-178 of the JAX package
+        cluster.nodes.extend(_gpu_node(f"g{i}") for i in range(n_nodes))
+        mix = [("4Gi", "1", 10), ("10Gi", "1", 6), ("6Gi", "2", 4), ("8Gi", "3", 3)]
+        if name == "gpu_forced":
+            # bound by name: one device fits on g0; on g1 nothing fits a
+            # 10 GiB slot (one GPU or two), so those take no device
+            for j, (mem, cnt, node) in enumerate([("4Gi", "1", "g0"), ("10Gi", "1", "g1"),
+                                                   ("10Gi", "2", "g1"), ("6Gi", "2", "g1")]):
+                cluster.pods.append(make_fake_pod(f"bound-{j}", "1", "1Gi", _gpu_share(mem, cnt),
+                                                  with_node_name(node)))
+            mix = [("4Gi", "1", 16), ("6Gi", "2", 6), ("12Gi", "1", 2)]
+        for j, (mem, cnt, n) in enumerate(mix):
+            for k in range(n):
+                app.pods.append(make_fake_pod(f"gpu-{j}-{k}", "1", "1Gi", _gpu_share(mem, cnt)))
+        return cluster, app, node_pad
+    if name == "gpu_dyn":
+        # 200 pods: devices fill and pods fail, yet whole-GPU pods still
+        # place where the gpu-count share (its add-back) decides the node
+        return gpu_cluster(n_nodes), gpu_apps(200), node_pad
+    if name == "scores":
+        # tests/test_fastpath.py:181-214 of the JAX package, without ports
+        avoid = json.dumps({"preferAvoidPods": [{"podSignature": {"podController": {
+            "apiVersion": "apps/v1", "kind": "ReplicaSet", "name": "avoided",
+            "uid": "rs-avoided", "controller": True}}}]})
+        for i in range(n_nodes):
+            opts = [with_labels({"disk": "ssd" if i % 2 else "hdd"})]
+            if i < 2:
+                opts.append(with_taints([{"key": "soft", "value": "x", "effect": "PreferNoSchedule"}]))
+            if i == 3:
+                opts.append(with_annotations({"scheduler.alpha.kubernetes.io/preferAvoidPods": avoid}))
+            cluster.nodes.append(make_fake_node(f"n{i}", "16", "32Gi", "110", *opts))
+        for k in range(5):
+            app.pods.append(make_fake_pod(f"web-{k}", "500m", "1Gi"))
+        app.deployments.append(
+            make_fake_deployment(
+                "pref", 6, "250m", "512Mi",
+                with_affinity({"nodeAffinity": {"preferredDuringSchedulingIgnoredDuringExecution": [
+                    {"weight": 50, "preference": {"matchExpressions": [
+                        {"key": "disk", "operator": "In", "values": ["ssd"]}]}},
+                ]}}),
+            )
+        )
+        app.replica_sets.append(
+            make_fake_replica_set("avoided", 8, "1", "2Gi",
+                                  lambda d: d["metadata"].update(uid="rs-avoided"))
+        )
+        # overload so some pods genuinely fail
+        app.deployments.append(make_fake_deployment("fat", 16, "6", "12Gi"))
         return cluster, app, node_pad
     with_zone = name != "spread_no_zone"
     for i in range(n_nodes):

@@ -18,16 +18,21 @@ from opensim_tpu_torch.models import expand, fixtures as fx
 from opensim_tpu_torch.ops import kernels
 
 
-def _example(pkg_expand):
-    cluster = pkg_expand.load_cluster_from_dir("example/cluster/demo")
+_EXAMPLES = {"demo": ("demo", "simple"), "gpushare": ("gpushare", "gpushare")}
+_GENERATED = {
+    "synthetic": lambda: (fx.synthetic_cluster(16), fx.synthetic_apps(64)),
+    "gpu_plan": lambda: (fx.gpu_cluster(16), fx.gpu_apps(160)),
+}
+CASES = list(_EXAMPLES) + list(_GENERATED)
+
+
+def _example(pkg_expand, case):
+    cluster_dir, app_dir = _EXAMPLES[case]
+    cluster = pkg_expand.load_cluster_from_dir(f"example/cluster/{cluster_dir}")
     app, _skipped = pkg_expand.resources_from_dicts(
-        pkg_expand.load_yaml_objects("example/application/simple")
+        pkg_expand.load_yaml_objects(f"example/application/{app_dir}")
     )
     return cluster, app
-
-
-def _synthetic():
-    return fx.synthetic_cluster(16), fx.synthetic_apps(64)
 
 
 def _reference_copy(rt):
@@ -40,10 +45,10 @@ def _reference_copy(rt):
 
 
 def _both(case):
-    if case == "demo":
-        (c_ref, a_ref), (c, a) = _example(ref_expand), _example(expand)
+    if case in _EXAMPLES:
+        (c_ref, a_ref), (c, a) = _example(ref_expand, case), _example(expand, case)
     else:
-        c, a = _synthetic()
+        c, a = _GENERATED[case]()
         c_ref, a_ref = _reference_copy(c), _reference_copy(a)
     # the reference's default node padding, 128 lanes; the port pads none by default
     ref = ref_sim.prepare(c_ref, [ref_sim.AppResource("a", a_ref)])
@@ -58,7 +63,7 @@ def _eq(x, y):
     )
 
 
-@pytest.mark.parametrize("case", ["demo", "synthetic"])
+@pytest.mark.parametrize("case", CASES)
 def test_prepare_matches_reference(case):
     ref, port = _both(case)
     assert np.array_equal(port.tmpl_ids, ref.tmpl_ids)
@@ -74,7 +79,7 @@ def test_prepare_matches_reference(case):
     assert tuple(port.features) == tuple(ref.features)
 
 
-@pytest.mark.parametrize("case", ["demo", "synthetic"])
+@pytest.mark.parametrize("case", CASES)
 def test_static_tables_bitwise(case):
     ref, port = _both(case)
     ours = kernels.precompute_static_np(port.ec_np)
@@ -82,6 +87,19 @@ def test_static_tables_bitwise(case):
     for f in kernels.StaticTables._fields:
         assert _eq(getattr(ours, f), getattr(theirs, f)), f
     assert kernels.gc_row_of(port.ec_np) == ref_kernels.gc_row_of(ref.ec_np)
+
+
+def test_gpu_cases_exercise_the_gpu_fields():
+    """The GPU fields the parity tests above compare are live here: devices
+    on every node, GPU-share templates, and on the GPU plan the gpu-count
+    column zeroed in share_raw on device-bearing nodes (Features.gc_dyn)."""
+    for case, gc_dyn in (("gpushare", False), ("gpu_plan", True)):
+        _, port = _both(case)
+        ec = port.ec_np
+        assert port.features.gpu and port.features.gc_dyn == gc_dyn
+        assert (ec.gpu_mem > 0).any() and (ec.node_gpu_mem > 0).any() and (port.st0_np.gpu_free > 0).any()
+        assert ec.gc_mask.any() and (kernels.gc_row_of(ec) >= 0)
+    assert (ec.gpu_count[ec.gpu_mem > 0] == 1).all() and (ec.req[:, kernels.gc_row_of(ec)] > 0).any()
 
 
 def test_contracts_cover_every_field_and_set_torch_dtypes():

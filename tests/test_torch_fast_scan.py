@@ -1,11 +1,14 @@
 """Bind-scan parity: the port's plain version against the JAX package on
 the same prepared inputs (the reference's FastInputs handed across as
 numpy), and the port's own marshalling against those inputs. Placements
-must be identical and `used` equal to rtol=0, atol=0: one ulp would flip a
-score tie."""
+must be identical, and `used`, the GPU takes and the final GPU state equal
+to rtol=0, atol=0: one ulp would flip a score tie."""
 
 import copy
+import ctypes
 import dataclasses
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -15,6 +18,7 @@ from opensim_tpu.engine import fastpath as ref_fastpath
 from opensim_tpu.engine import simulator as ref_sim
 from opensim_tpu.engine.scheduler import pad_pod_stream, schedule_pods
 from opensim_tpu.models import expand as ref_expand
+from opensim_tpu.ops import kernels as ref_kernels
 from opensim_tpu_torch.engine import fastpath, simulator as sim
 from opensim_tpu_torch.models import fixtures as fx
 from opensim_tpu_torch.ops import fast_scan as fs
@@ -52,12 +56,28 @@ def _stream(prep):
     )
 
 
-def _port_on_reference_inputs(ref):
+def _reference_inputs(ref):
+    """The JAX package's FastInputs of `ref`, carried across to the port."""
     fi_ref, meta = ref_fastpath.build_inputs(ref)
     arrays = {k: np.asarray(v) for k, v in fi_ref._asdict().items()}
-    fi = fastpath.inputs_from_reference(arrays, "cpu", n_nodes=meta["n_orig"])
-    chosen, used_T = fs.fast_scan_reference(fi, *_stream(ref))
-    return chosen.numpy(), used_T.T.numpy()
+    gc_row = ref_kernels.gc_row_of(ref.ec_np) if ref.features.gc_dyn else -1
+    return fastpath.inputs_from_reference(
+        arrays, "cpu", ref.features, gc_row, n_nodes=meta["n_orig"], n_gpus=ref.st0.gpu_free.shape[1]
+    ), meta
+
+
+def _port_on_reference_inputs(ref):
+    """(chosen [P], used [N, R], gpu_take [P, Gd], gpu_free [N, Gd]) of the
+    plain version; the GPU arrays are None when no pod asks GPU memory."""
+    fi, _ = _reference_inputs(ref)
+    out = fs.fast_scan_reference(fi, *_stream(ref))
+    gpu = (out.gpu_take.numpy(), out.gpu_free.T.numpy()) if ref.features.gpu else (None, None)
+    return (out.chosen.numpy(), out.used.T.numpy()) + gpu
+
+
+def _exact(got, want):
+    np.testing.assert_allclose(got, want, rtol=0, atol=0)
+    assert got.shape == np.shape(want)
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -67,32 +87,46 @@ def test_plain_version_matches_xla_scan(name):
     P = len(ref.ordered)
     t, v, f = pad_pod_stream(ref.tmpl_ids, np.ones(P, bool), ref.forced)
     out = schedule_pods(ref.ec, ref.st0, t, v, f, features=ref.features)
-    want_chosen = np.asarray(out.chosen)[:P]
-    want_used = np.asarray(out.final_state.used)
-    chosen, used = _port_on_reference_inputs(ref)
-    np.testing.assert_array_equal(chosen, want_chosen)
-    np.testing.assert_allclose(used, want_used, rtol=0, atol=0)
+    chosen, used, gpu_take, gpu_free = _port_on_reference_inputs(ref)
+    np.testing.assert_array_equal(chosen, np.asarray(out.chosen)[:P])
+    _exact(used, np.asarray(out.final_state.used))
+    if ref.features.gpu:
+        _exact(gpu_take, np.asarray(out.gpu_take)[:P])
+        _exact(gpu_free, np.asarray(out.final_state.gpu_free))
+        assert gpu_take.sum() > 0
+    else:  # without GPU-share pods the XLA scan leaves the GPUs alone
+        assert not np.asarray(out.gpu_take).any()
+        _exact(np.asarray(out.final_state.gpu_free), np.asarray(ref.st0.gpu_free))
     if name != "ties":  # the cases do exercise failures
         assert (chosen < 0).any()
 
 
-@pytest.mark.parametrize("name", ["spread", "forced"])
+@pytest.mark.parametrize("name", ["spread", "forced", "gpu_dyn", "scores"])
 def test_plain_version_matches_pallas_interpret(name):
     ref = _ref_prep(name)
     P = len(ref.ordered)
     want = ref_fastpath.schedule(ref, ref.tmpl_ids, np.ones(P, bool), ref.forced, interpret=True)
-    chosen, used = _port_on_reference_inputs(ref)
+    chosen, used, gpu_take, gpu_free = _port_on_reference_inputs(ref)
     np.testing.assert_array_equal(chosen, want[0])
-    np.testing.assert_allclose(used, want[1], rtol=0, atol=0)
+    _exact(used, want[1])
+    if ref.features.gpu:
+        _exact(gpu_take, want[3])
+        _exact(gpu_free, want[4])
+
+
+def test_forced_gpu_pods_take_no_device_where_none_fits():
+    ref = _ref_prep("gpu_forced")
+    chosen, _used, gpu_take, _free = _port_on_reference_inputs(ref)
+    # the four bound pods lead the stream: 4 GiB on g0, then 10 GiB (one and
+    # two GPUs) and 6 GiB on two GPUs, all on g1 (8 GiB GPUs)
+    assert ref.forced[:4].all() and chosen[:4].tolist() == [0, 1, 1, 1]
+    _exact(gpu_take[:4], np.array([[1, 0, 0, 0], [0, 0, 0, 0], [0, 0, 0, 0], [1, 1, 0, 0]], np.float32))
 
 
 @pytest.mark.parametrize("name", CASES)
 def test_build_inputs_equal_reference_inputs(name):
     ref, port = _ref_prep(name), _port_prep(name)
-    fi_ref, meta = ref_fastpath.build_inputs(ref)
-    theirs = fastpath.inputs_from_reference(
-        {k: np.asarray(v) for k, v in fi_ref._asdict().items()}, "cpu", n_nodes=meta["n_orig"]
-    )
+    theirs, meta = _reference_inputs(ref)
     ours, ours_meta = fastpath.build_inputs(port)
     A = ours.matches_AU.shape[0]
     for f in fs.FastInputs._fields:
@@ -115,8 +149,11 @@ def test_wrapper_on_cpu_runs_the_plain_version(name):
     a = fs.fast_scan(fi, *_stream(port))
     b = fs.fast_scan_reference(fi, *_stream(port))
     assert fs.LAUNCHES == before  # the CPU launches no kernel
-    assert a[0].dtype == torch.int32 and a[1].dtype == torch.float32
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert a.chosen.dtype == torch.int32 and a.used.dtype == a.gpu_take.dtype == torch.float32
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    P, Gd = len(port.tmpl_ids), fi.gpu0.shape[0]
+    assert a.gpu_take.shape == (P, Gd) and a.gpu_free.shape == (Gd, fi.alloc_T.shape[1])
+    assert fs.variant(fi).gpu == port.features.gpu == (Gd > 0)
 
 
 def test_invalid_pods_bind_nothing():
@@ -124,8 +161,17 @@ def test_invalid_pods_bind_nothing():
     fi, _ = fastpath.build_inputs(port)
     tmpl, valid, forced = _stream(port)
     valid[::2] = 0
-    chosen, _ = fs.fast_scan_reference(fi, tmpl, valid, forced)
+    chosen = fs.fast_scan_reference(fi, tmpl, valid, forced).chosen
     assert (chosen[::2] == -1).all() and (chosen[1::2] >= 0).any()
+
+
+def test_invalid_gpu_pods_take_no_device():
+    port = _port_prep("gpu")
+    fi, _ = fastpath.build_inputs(port)
+    tmpl, valid, forced = _stream(port)
+    valid[::2] = 0
+    out = fs.fast_scan_reference(fi, tmpl, valid, forced)
+    assert not out.gpu_take[::2].any() and out.gpu_take[1::2].any()
 
 
 def test_launcher_checks_dtypes_and_shapes():
@@ -139,6 +185,16 @@ def test_launcher_checks_dtypes_and_shapes():
     with pytest.raises(ValueError, match="static_pass"):
         fs._check(fi._replace(static_pass=fi.static_pass.t()), tmpl, valid, forced)
     fs._check(fi, tmpl, valid, forced)
+    with pytest.raises(ValueError, match="gc_row"):
+        fs._check(fi._replace(gc_row=0), tmpl, valid, forced)  # no GPU tables
+    gpu = _port_prep("gpu")
+    fi_g, _ = fastpath.build_inputs(gpu)
+    stream_g = _stream(gpu)
+    fs._check(fi_g, *stream_g)
+    with pytest.raises(ValueError, match="gpu0"):
+        fs._check(fi_g._replace(gpu0=fi_g.gpu0[:, :-1].contiguous()), *stream_g)
+    with pytest.raises(ValueError, match="Gd=9"):
+        fs._check(fi_g._replace(gpu0=torch.zeros((9, fi_g.gpu0.shape[1]))), *stream_g)
     with pytest.raises(ValueError, match="no kernel"):
         fs.fast_scan(fi._replace(alloc_T=fi.alloc_T.to("meta")), tmpl, valid, forced)
 
@@ -147,8 +203,9 @@ def test_work_counts_scheduled_pods_only():
     port = _port_prep("forced")
     fi, _ = fastpath.build_inputs(port)
     tmpl, valid, forced = _stream(port)
-    w = fs.fast_scan_work(fi, tmpl, valid, forced)
-    w_none = fs.fast_scan_work(fi, tmpl, torch.zeros_like(valid), forced)
+    chosen = fs.fast_scan_reference(fi, tmpl, valid, forced).chosen
+    w = fs.fast_scan_work(fi, tmpl, valid, forced, chosen)
+    w_none = fs.fast_scan_work(fi, tmpl, torch.zeros_like(valid), forced, chosen)
     assert w["ops"] > w_none["ops"] == 0 and w["bytes"] == w_none["bytes"] > 0
 
 
@@ -159,5 +216,40 @@ def test_work_counts_valid_node_lanes_only():
     fi_pad, _ = fastpath.build_inputs(padded)
     fi_bare, _ = fastpath.build_inputs(bare)
     assert fi_pad.alloc_T.shape[1] == 128 and fi_bare.alloc_T.shape[1] == 12
-    w_pad = fs.fast_scan_work(fi_pad, *_stream(padded))
-    assert w_pad == fs.fast_scan_work(fi_bare, *_stream(bare))
+    chosen = fs.fast_scan_reference(fi_bare, *_stream(bare)).chosen
+    w_pad = fs.fast_scan_work(fi_pad, *_stream(padded), chosen)
+    assert w_pad == fs.fast_scan_work(fi_bare, *_stream(bare), chosen)
+
+
+def test_work_counts_the_flag_branches():
+    port = _port_prep("gpu_dyn")
+    fi, _ = fastpath.build_inputs(port)
+    stream = _stream(port)
+    base = fi._replace(gpu_mem=fi.gpu_mem[:0], gpu_cnt=fi.gpu_cnt[:0], gpu0=fi.gpu0[:0], gc_row=-1)
+    chosen = fs.fast_scan_reference(fi, *stream).chosen
+    w, w_base = fs.fast_scan_work(fi, *stream, chosen), fs.fast_scan_work(base, *stream, chosen)
+    assert w["ops"] > w_base["ops"] and w["bytes"] > w_base["bytes"]
+    all_bound = fs.fast_scan_work(fi, *stream, torch.zeros_like(chosen))
+    assert (chosen < 0).any() and all_bound["ops"] > w["ops"]  # a pod that did not bind binds nothing
+    assert fs.variant_name(fi) == "fast_scan[gpu,gc]" and fs.variant_name(base) == "fast_scan"
+
+
+def _struct_fields(src: str):
+    """Field names of ``struct FastScanArgs`` in the CUDA source, in order."""
+    body = re.search(r"struct FastScanArgs \{(.*?)\n\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    names = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if decl:
+            head, *rest = decl.split(",")
+            names += [head.split()[-1].lstrip("*")] + [r.strip() for r in rest]
+    return names
+
+
+def test_ctypes_struct_matches_the_cuda_struct():
+    src = (pathlib.Path(fs.__file__).parent / "csrc" / "fast_scan.cu").read_text()
+    fields = _struct_fields(src)
+    assert fields == [n for n, _ in fs._Args._fields_]
+    pointers = [n for n, t in fs._Args._fields_ if t is ctypes.c_void_p]
+    assert fields[: len(pointers)] == pointers  # every pointer before the int32 scalars

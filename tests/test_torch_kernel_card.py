@@ -34,14 +34,39 @@ def test_kernel_matches_plain_version_on_card(name, cuda_device):
     torch.cuda.synchronize()
     want = fs.fast_scan_reference(fi, *stream)
     assert fs.LAUNCHES == before + 1
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for field, g, w in zip(fs.FastOutputs._fields, got, want):
+        assert torch.equal(g, w), field
 
 
 @pytest.mark.cuda
-def test_simulate_on_card_launches_once(cuda_device):
-    cluster, apps = fx.synthetic_cluster(64), fx.synthetic_apps(640)
+@pytest.mark.parametrize("plan", ["capacity", "gpu"])
+def test_simulate_on_card_launches_once(plan, cuda_device):
+    make = {
+        "capacity": lambda: (fx.synthetic_cluster(64), fx.synthetic_apps(640)),
+        "gpu": lambda: (fx.gpu_cluster(64), fx.gpu_apps(640)),
+    }[plan]
+    cluster, apps = make()
     before = fs.LAUNCHES
     res = sim.simulate(cluster, [sim.AppResource("plan", apps)])
     assert fs.LAUNCHES == before + 1
-    cpu = sim.simulate(fx.synthetic_cluster(64), [sim.AppResource("plan", fx.synthetic_apps(640))], device="cpu")
-    assert (res.placements == cpu.placements).all() and (res.used == cpu.used).all()
+    cluster, apps = make()
+    cpu = sim.simulate(cluster, [sim.AppResource("plan", apps)], device="cpu")
+    for field in ("placements", "used", "gpu_take", "gpu_free"):
+        assert (getattr(res, field) == getattr(cpu, field)).all(), field
+    if plan == "gpu":
+        assert res.gpu_take.sum() > 0
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_version_at_a_thousand_templates(cuda_device):
+    """U = 1,000 templates at N = 5,000 nodes: the template tables the TPU
+    kernel streams row by row are read from global memory here."""
+    prep = sim.prepare(fx.synthetic_cluster(5000), [sim.AppResource("t", fx.bigu_apps(1000))], device=cuda_device)
+    assert fastpath.why_not(prep) is None and prep.ec_np.req.shape[0] >= 1000
+    fi, _ = fastpath.build_inputs(prep)
+    stream = fastpath.pod_stream(prep)
+    got = fs.fast_scan(fi, *stream)
+    torch.cuda.synchronize()
+    want = fs.fast_scan_reference(fi, *stream)
+    assert torch.equal(got.chosen, want.chosen) and torch.equal(got.used, want.used)
+    assert (got.chosen >= 0).all()

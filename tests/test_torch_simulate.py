@@ -5,6 +5,7 @@ card and no explicit device)."""
 
 import copy
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -12,8 +13,9 @@ import torch
 
 from opensim_tpu.engine import simulator as ref_sim
 from opensim_tpu.models import expand as ref_expand
-from opensim_tpu_torch.engine import simulator as sim
+from opensim_tpu_torch.engine import fastpath, simulator as sim
 from opensim_tpu_torch.models import expand, fixtures as fx
+from opensim_tpu_torch.models.objects import ANNO_GPU_INDEX, ANNO_NODE_GPU_SHARE
 
 
 def _plan(n_nodes=32, n_pods=256):
@@ -58,10 +60,53 @@ def test_simulate_matches_reference_on_a_small_plan():
 
 
 def test_simulate_raises_outside_the_envelope():
-    cluster = expand.load_cluster_from_dir("example/cluster/gpushare")
-    app, _ = expand.resources_from_dicts(expand.load_yaml_objects("example/application/gpushare"))
-    with pytest.raises(NotImplementedError, match="GPU-share"):
-        sim.simulate(cluster, [sim.AppResource("g", app)], device="cpu")
+    cluster = expand.load_cluster_from_dir("example/cluster/demo")
+    app, _ = expand.resources_from_dicts(expand.load_yaml_objects("example/application/local"))
+    with pytest.raises(NotImplementedError, match="has_local"):
+        sim.simulate(cluster, [sim.AppResource("l", app)], device="cpu")
+
+
+def _gpu_view(placements, node_names, node_status):
+    """Stream index → (node, gpu-index annotation), and node → its
+    gpu-share JSON with pod names replaced by stream indices (names embed a
+    process-global counter). A node's pods are its bucket in stream order."""
+    pods, names, nodes = {}, {}, {}
+    for ns in node_status:
+        idx = np.flatnonzero(placements == node_names.index(ns.node.metadata.name)).tolist()
+        assert len(idx) == len(ns.pods)
+        for i, p in zip(idx, ns.pods):
+            names[p.metadata.name] = i
+            pods[i] = (ns.node.metadata.name, p.metadata.annotations.get(ANNO_GPU_INDEX))
+    for ns in node_status:
+        share = json.loads(ns.node.metadata.annotations[ANNO_NODE_GPU_SHARE])
+        for dev in share["DevsBrief"].values():
+            dev["PodList"] = [names[n] for n in dev["PodList"]]
+        nodes[ns.node.metadata.name] = share
+    return pods, nodes
+
+
+def test_simulate_matches_reference_on_gpushare_example():
+    def load(pkg):
+        cluster = pkg.load_cluster_from_dir("example/cluster/gpushare")
+        app, _ = pkg.resources_from_dicts(pkg.load_yaml_objects("example/application/gpushare"))
+        return cluster, app
+
+    c_ref, a_ref = load(ref_expand)
+    ref_apps = [ref_sim.AppResource("g", a_ref)]
+    prep_ref = ref_sim.prepare(c_ref, ref_apps)
+    ref_res = ref_sim.simulate(c_ref, ref_apps, prep=prep_ref)
+    c, a = load(expand)
+    res = sim.simulate(c, [sim.AppResource("g", a)], device="cpu")
+    assert not ref_res.unscheduled_pods and not res.unscheduled_pods
+    names = list(prep_ref.meta.node_names)
+    want = np.array([names.index(p.spec.node_name) for p in prep_ref.ordered], np.int32)
+    np.testing.assert_array_equal(res.placements, want)
+    ours = _gpu_view(res.placements, names, res.node_status)
+    assert ours == _gpu_view(want, names, ref_res.node_status)
+    gpu_index = [v[1] for v in ours[0].values()]
+    assert len(gpu_index) == 7 and all(gpu_index)  # every pod took a GPU
+    assert any("-" in g for g in gpu_index)  # one across two GPUs
+    assert res.gpu_take.shape == (7, 4) and res.gpu_free.shape == (len(names), 4)
 
 
 def test_simulate_raises_on_an_unscheduled_pod():
@@ -83,3 +128,27 @@ def test_simulate_with_no_pods_reports_empty_nodes():
     c, _ = _plan(4, 20)
     res = sim.simulate(c, [], device="cpu")
     assert [len(ns.pods) for ns in res.node_status] == [0, 0, 0, 0]
+
+
+def test_why_not_takes_a_thousand_templates():
+    cluster = fx.synthetic_cluster(1100)
+    prep = sim.prepare(cluster, [sim.AppResource("t", fx.bigu_apps(1000))], device="cpu")
+    U, N = prep.ec_np.req.shape[0], len(cluster.nodes)
+    assert U >= 1000 and 3 * U * N * 4 > 4 * 1024 * 1024  # past the TPU kernel's resident-table cap
+    assert fastpath.why_not(prep) is None
+
+
+def test_why_not_refuses_more_than_eight_gpus_per_node():
+    cluster = expand.ResourceTypes()
+    cluster.nodes.append(fx.make_fake_node("big", "64", "256Gi", "110", fx.with_allocatable({
+        "alibabacloud.com/gpu-mem": "144Gi", "alibabacloud.com/gpu-count": "9",
+    })))
+    app = expand.ResourceTypes()
+    app.pods.append(fx.make_fake_pod("p", "1", "1Gi", fx.with_annotations({
+        "alibabacloud.com/gpu-mem": "4Gi", "alibabacloud.com/gpu-count": "1",
+    })))
+    prep = sim.prepare(cluster, [sim.AppResource("g", app)], device="cpu")
+    assert prep.features.gpu
+    assert fastpath.why_not(prep) == "9 GPUs per node exceed the kernel's 8"
+    with pytest.raises(NotImplementedError, match="9 GPUs per node"):
+        sim.simulate(cluster, [sim.AppResource("g", app)], device="cpu")
