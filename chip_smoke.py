@@ -3,22 +3,32 @@
 
     python3 chip_smoke.py
 
-Builds the bind-scan kernel from ops/csrc/ with nvcc, holds it against its
-plain PyTorch version on small cases and over whole streams at full width,
-and drives simulate() through the kernel on two plans at full size:
+Builds the bind-scan kernel's variants from ops/csrc/ with nvcc (one
+shared object per variant, all compiled at once), holds each against its
+plain PyTorch version on small cases and at full width, and drives
+simulate() through the kernel on five plans of 50,000 pods on 5,000 nodes:
 
-- the capacity plan (50,000 pods from 20 Deployments on 5,000 nodes, 4
-  zones; bench.py:85-135), the kernel's base variant;
-- the all-GPU-share plan (50,000 pods from 10 Deployments on 5,000 nodes of
-  8 × 8 GiB GPUs; bench.py:174-217), the variant with GPU share and the
-  dynamic gpu-count allocatable (``fast_scan[gpu,gc]``).
+- the capacity plan (20 Deployments, 4 zones; bench.py:85-135), the
+  kernel's base variant;
+- the all-GPU-share plan (10 Deployments on nodes of 8 × 8 GiB GPUs;
+  bench.py:174-217), ``fast_scan[gpu,gc]``;
+- the affinity-heavy plan (10 Deployments under hard zone spread,
+  preferred host anti-affinity and required zone affinity;
+  bench.py:454-506), ``fast_scan[interpod]``;
+- the score-table plan (the capacity plan with PreferNoSchedule taints,
+  preferred node affinity and a node-avoided ReplicaSet),
+  ``fast_scan[na,tt,avoid]``, and the same with host port 8080 on one
+  Deployment, ``fast_scan[na,tt,avoid,ports]``.
 
-For each plan it checks the placements, counts the launches of the path's
-run, and times the kernel, its plain version and the phases of simulate()
-with CUDA events and the host clock. Every phase raises on failure. The last
-lines are the card's name and power limit, one JSON line with a row per
-kernel variant timed at full width, and ``{"ok": true, "device": {...}}``.
-Without a card it exits non-zero and prints no result.
+For each plan it holds the kernel identical to the plain version (over the
+whole stream for the affinity plan, over a prefix of the others: the plain
+version is a Python loop), runs simulate() with the launch counts set to 0
+just before and read just after, and times the kernel over the whole
+stream, its plain version and the phases of simulate() with CUDA events
+and the host clock. Every phase raises on failure. The last lines are the
+card's name and power limit, one JSON line with a row per kernel variant
+timed at full width, and ``{"ok": true, "device": {...}}``. Without a card
+it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ import torch
 #: float32 non-tensor-core FLOP/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
-#: Both plans at their full size.
+#: Every plan at its full size.
 N_NODES = 5000
 N_PODS = 50000
 
@@ -64,15 +74,16 @@ def _events_ms(fn, reps: int) -> float:
 
 
 def _same(got, want, what: str) -> float:
-    """Identical outputs (placements, usage, GPU takes, GPU state), or
-    raise; returns the largest absolute difference of the float outputs."""
+    """Identical outputs (placements, usage, GPU takes, GPU state, host-port
+    use), or raise; returns the largest absolute difference of the float
+    outputs."""
     if not torch.equal(got.chosen, want.chosen):
         diff = got.chosen != want.chosen
         raise AssertionError(
             f"{what}: {int(diff.sum())} placements differ (first at pod {int(torch.nonzero(diff)[0, 0])})"
         )
     err = 0.0
-    for field in ("used", "gpu_take", "gpu_free"):
+    for field in ("used", "gpu_take", "gpu_free", "port_used"):
         g, w = getattr(got, field), getattr(want, field)
         if g.shape != w.shape:
             raise AssertionError(f"{what}: {field} has shape {tuple(g.shape)}, want {tuple(w.shape)}")
@@ -83,32 +94,40 @@ def _same(got, want, what: str) -> float:
     return err
 
 
-def small_cases(device) -> None:
+def _small_preps(device):
     from opensim_tpu_torch.engine import fastpath, simulator as sim
     from opensim_tpu_torch.models import fixtures as fx
-    from opensim_tpu_torch.ops import fast_scan as fs
 
     for name, _n, _pad in fx.SCAN_CASES:
         cluster, app, node_pad = fx.scan_case(name)
         prep = sim.prepare(cluster, [sim.AppResource("a", app)], node_pad=node_pad, device=device)
-        fi, _ = fastpath.build_inputs(prep)
+        yield name, prep, fastpath.build_inputs(prep)[0]
+
+
+def small_cases(device) -> None:
+    from opensim_tpu_torch.engine import fastpath
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    for name, prep, fi in _small_preps(device):
         stream = fastpath.pod_stream(prep)
         got = fs.fast_scan(fi, *stream)
         want = fs.fast_scan_reference(fi, *stream)
         _same(got, want, f"case {name}")
         print(f"case {name} ({fs.variant_name(fi)}): N={fi.alloc_T.shape[1]} P={len(prep.tmpl_ids)} "
-              f"placed={int((got.chosen >= 0).sum())} gpu slots={int(got.gpu_take.sum())} identical",
-              flush=True)
+              f"placed={int((got.chosen >= 0).sum())} gpu slots={int(got.gpu_take.sum())} "
+              f"ports used={int(got.port_used.sum())} identical", flush=True)
 
 
-def full_plan(device, label: str, make, variant: str) -> dict:
-    """Kernel against its plain version over the whole stream, simulate()
-    through the kernel, then the kernel timed alone. Returns the plan's row
-    of the kernels table."""
+def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
+    """Kernel against its plain version over the first `prefix` pods of
+    the stream (None: the whole stream), simulate() through the kernel,
+    then the kernel timed alone over the whole stream. Returns the plan's
+    row of the kernels table."""
     from opensim_tpu_torch.engine import fastpath, simulator as sim
     from opensim_tpu_torch.ops import fast_scan as fs
 
-    _phase(f"{label}: {N_NODES} nodes, the whole {N_PODS}-pod stream, kernel vs plain")
+    span = "the whole stream" if prefix is None else f"its first {prefix} pods"
+    _phase(f"{label}: {N_NODES} nodes, {N_PODS} pods, kernel vs plain over {span}")
     cluster, app = make()
     apps = [sim.AppResource("plan", app)]
     prep = sim.prepare(cluster, apps, device=device)
@@ -120,21 +139,25 @@ def full_plan(device, label: str, make, variant: str) -> dict:
         raise AssertionError(f"the plan runs {fs.variant_name(fi)}, not {variant}")
     tmpl, valid, forced = fastpath.pod_stream(prep)
     P, N = tmpl.shape[0], fi.alloc_T.shape[1]
-    got = fs.fast_scan(fi, tmpl, valid, forced)
+    head = (tmpl, valid, forced) if prefix is None else tuple(t[:prefix].contiguous() for t in (tmpl, valid, forced))
+    P_head = head[0].shape[0]
+    got_head = fs.fast_scan(fi, *head)
     torch.cuda.synchronize()
     plain = [None]
 
     def run_plain():
-        plain[0] = fs.fast_scan_reference(fi, tmpl, valid, forced)
+        plain[0] = fs.fast_scan_reference(fi, *head)
 
     plain_ms = _events_ms(run_plain, reps=1)
-    err = _same(got, plain[0], f"{label} whole stream")
-    print(f"{P} pods at N={N}: kernel and plain version identical on all four outputs "
-          f"(plain {plain_ms:.3f} ms, {int(got.gpu_take.sum())} GPU slots taken)", flush=True)
+    err = _same(got_head, plain[0], f"{label}, {P_head} pods")
+    print(f"{P_head} pods at N={N}: kernel and plain version identical on all five outputs "
+          f"(plain {plain_ms:.3f} ms, {int(got_head.gpu_take.sum())} GPU slots taken, "
+          f"{int(got_head.port_used.sum())} host ports used)", flush=True)
 
     _phase(f"{label}: simulate(), {N_PODS} pods on {N_NODES} nodes")
     cluster, app = make()  # fresh objects: simulate() writes into its pods
     apps = [sim.AppResource("plan", app)]
+    torch.cuda.synchronize()
     fs.LAUNCHES = 0
     fs.VARIANT_LAUNCHES.clear()
     res = sim.simulate(cluster, apps, device=device)
@@ -149,9 +172,10 @@ def full_plan(device, label: str, make, variant: str) -> dict:
         arr = torch.from_numpy(getattr(res, field))
         if tuple(arr.shape) != tuple(shape) or not bool(torch.isfinite(arr).all()):
             raise AssertionError(f"simulate(): {field} has the wrong shape or non-finite values")
-    if not torch.equal(got.chosen.cpu(), torch.from_numpy(res.placements)):
+    head_placements = torch.from_numpy(res.placements[:P_head])
+    if not torch.equal(got_head.chosen.cpu(), head_placements):
         raise AssertionError("simulate() placed the stream differently from the checked kernel run")
-    if got.gpu_take.numel() and not torch.equal(got.gpu_take.cpu(), torch.from_numpy(res.gpu_take)):
+    if got_head.gpu_take.numel() and not torch.equal(got_head.gpu_take.cpu(), torch.from_numpy(res.gpu_take[:P_head])):
         raise AssertionError("simulate() took GPUs differently from the checked kernel run")
     wall = sum(res.timings.values())
     print(f"placed {n_placed}/{P} pods, kernel launches {by_variant}")
@@ -160,11 +184,12 @@ def full_plan(device, label: str, make, variant: str) -> dict:
 
     _phase(f"{label}: the kernel over the whole stream (CUDA events)")
     ms = _events_ms(lambda: fs.fast_scan(fi, tmpl, valid, forced), reps=3)
-    work = fs.fast_scan_work(fi, tmpl, valid, forced, got.chosen)
+    work = fs.fast_scan_work(fi, tmpl, valid, forced, torch.from_numpy(res.placements))
     t_bytes = work["bytes"] / PEAK_BYTES_S * 1e3
     t_ops = work["ops"] / PEAK_F32_S * 1e3
-    print(f"kernel {ms:.3f} ms ({ms * 1e3 / P:.3f} us/pod), plain {plain_ms:.3f} ms, "
-          f"bound {max(t_bytes, t_ops):.6f} ms ({work['bytes']} B, {work['ops']} flop)", flush=True)
+    print(f"kernel {ms:.3f} ms ({ms * 1e3 / P:.3f} us/pod), plain {plain_ms:.3f} ms over {P_head} pods "
+          f"({plain_ms * 1e3 / P_head:.3f} us/pod), bound {max(t_bytes, t_ops):.6f} ms "
+          f"({work['bytes']} B, {work['ops']} flop)", flush=True)
     return {
         "name": variant,
         "route": "cuda",
@@ -174,6 +199,8 @@ def full_plan(device, label: str, make, variant: str) -> dict:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "pods": P,
+        "plain_pods": P_head,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
@@ -198,25 +225,36 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
+    plans = [
+        ("4-6 capacity plan", lambda: (fx.synthetic_cluster(N_NODES), fx.synthetic_apps(N_PODS)),
+         "fast_scan", 10000),
+        ("7-9 all-GPU-share plan", lambda: (fx.gpu_cluster(N_NODES), fx.gpu_apps(N_PODS)),
+         "fast_scan[gpu,gc]", 10000),
+        ("10-12 affinity-heavy plan", lambda: (fx.synthetic_cluster(N_NODES), fx.affinity_apps(N_PODS)),
+         "fast_scan[interpod]", None),
+        ("13-15 score-table plan", lambda: (fx.score_cluster(N_NODES), fx.score_apps(N_PODS)),
+         "fast_scan[na,tt,avoid]", 5000),
+        ("16-18 host-port plan", lambda: (fx.score_cluster(N_NODES), fx.score_apps(N_PODS, host_port=True)),
+         "fast_scan[na,tt,avoid,ports]", 5000),
+    ]
+
     _phase("2 build")
-    t0 = time.perf_counter()
-    fs.build()
-    print(f"build: {time.perf_counter() - t0:.3f} s ({fs.BUILD_LOG['library']})")
-    ptxas = fs.BUILD_LOG["ptxas"]
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
-    spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas))
-    if regs:
-        print(f"ptxas: {len(regs)} kernel variants, {min(regs)}-{max(regs)} registers, {spill} spill bytes")
+    variants = sorted({v for *_rest, v, _p in plans} | {fs.variant_name(fi) for _n, _p, fi in _small_preps("cpu")})
+    fs.build(variants)
+    print(f"build: {fs.BUILD_LOG['seconds']:.3f} s for {len(variants)} kernel variants, one nvcc each, "
+          f"all started together: {', '.join(variants)}")
+    for name, entry in fs.BUILD_LOG["variants"].items():
+        ptxas = entry["ptxas"]
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
+        spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas))
+        smem = [int(b) for b in re.findall(r"(\d+) bytes smem", ptxas)]
+        secs = "cached" if entry["seconds"] is None else f"nvcc {entry['seconds']:.3f} s"
+        print(f"  {name}: {secs}, {regs} registers, {spill} spill bytes, {smem} B shared memory")
 
     _phase("3 small cases: kernel vs plain version")
     small_cases(device)
 
-    rows = [
-        full_plan(device, "4-6 capacity plan",
-                  lambda: (fx.synthetic_cluster(N_NODES), fx.synthetic_apps(N_PODS)), "fast_scan"),
-        full_plan(device, "7-9 all-GPU-share plan",
-                  lambda: (fx.gpu_cluster(N_NODES), fx.gpu_apps(N_PODS)), "fast_scan[gpu,gc]"),
-    ]
+    rows = [full_plan(device, label, make, variant, prefix) for label, make, variant, prefix in plans]
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -3,13 +3,14 @@
 `why_not()` decides whether a prepared simulation lies inside what the
 port's kernel computes (fit, spread, least/balanced/share scores, GPU
 share with the dynamic gpu-count allocatable, the NodeAffinity,
-TaintToleration and NodePreferAvoidPods score tables, selectHost, bind);
+TaintToleration and NodePreferAvoidPods score tables, host ports,
+inter-pod affinity, selectHost, bind);
 `build_inputs()` turns the encoded cluster into the kernel's tensors;
 `schedule()` runs it. The counterpart in the JAX package is
 ``opensim_tpu/engine/fastpath.py``; the TPU layout rules there (128-lane
-node padding, 8-row GPU padding, transposed scalar tables, chunked pod
-streams) and its VMEM-derived caps have no place here, but the kernel gets
-the same quantities.
+node padding, 8-row GPU, port and term-row padding, transposed scalar
+tables, chunked pod streams) and its VMEM- and SMEM-derived caps have no
+place here, but the kernel gets the same quantities.
 """
 
 from __future__ import annotations
@@ -27,13 +28,22 @@ HOSTNAME = "kubernetes.io/hostname"
 
 #: Zone-like topology keys besides the hostname (per-key count blocks).
 MAX_ZONE_KEYS = 4
+#: Float32 holds every integer below 2^24 exactly: the bound on the
+#: inter-pod weight sums that the kernel and its plain version add in
+#: different orders.
+EXACT_INT = 2 ** 24
 
-_LATER = {
-    "local": "open-local storage pods (has_local)",
-    "ports": "host ports (has_ports)",
-    "interpod": "inter-pod affinity terms (has_interpod)",
-    "prefg": "preferred inter-pod terms (has_interpod)",
-}
+_LATER = {"local": "open-local storage pods (has_local)"}
+
+
+def interpod_weight_bound(ec, tmpl_ids: np.ndarray) -> float:
+    """An upper bound on |the inter-pod raw score| of any node at any step
+    of the stream: every pod counted under each of its template's preferred
+    terms, plus every pod's symmetric preferred and hard-affinity weights."""
+    pt = np.abs(np.asarray(ec.pt_w, np.float64)).sum(1)  # [U]
+    prefg = np.abs(np.asarray(ec.prefg_w, np.float64)).sum(1)  # [U]
+    P = len(tmpl_ids)
+    return float(P * (pt.max() if pt.size else 0.0) + prefg[np.asarray(tmpl_ids)].sum())
 
 
 def why_not(prep) -> Optional[str]:
@@ -43,7 +53,11 @@ def why_not(prep) -> Optional[str]:
     Gd ≤ 8 GPUs per node (per-thread tables), hostname plus at most four
     zone keys, and hostname domains that identify nodes. The number of
     templates is not capped: the template tables live in global memory and
-    the kernel reads them with 64-bit offsets."""
+    the kernel reads them with 64-bit offsets. Nor are host-port ids,
+    inter-pod terms per template or existing-pod term rows: the kernel
+    loops over them in global memory and holds no per-thread table of
+    them. The inter-pod sums must stay exact in any order, so
+    `interpod_weight_bound` must stay below 2^24."""
     f = prep.features
     for name, what in _LATER.items():
         if getattr(f, name):
@@ -71,6 +85,10 @@ def why_not(prep) -> Optional[str]:
             return "some valid nodes carry no hostname label"
         if len(np.unique(nd[nv])) != int(nv.sum()):
             return "hostname domains are not node-identity (duplicate hostname labels)"
+    if f.interpod or f.prefg:
+        bound = interpod_weight_bound(ec, prep.tmpl_ids)
+        if bound >= EXACT_INT:
+            return f"inter-pod weights may sum to {bound:.0f} >= 2^24, past float32's exact integers"
     return None
 
 
@@ -127,6 +145,8 @@ def build_inputs(prep) -> Tuple[FastInputs, Dict[str, np.ndarray]]:
     off_un = np.zeros((0, N), np.float32)
     gpu_on = bool(f.gpu)
     gpu0 = np.asarray(prep.st0_np.gpu_free).T if gpu_on else off_un  # [Gd, N]
+    ports = _port_tables(ec) if f.ports else np.zeros((2, 0, len(req)), np.float32)
+    terms = _term_tables(ec, key_lut) if (f.interpod or f.prefg) else _no_terms(len(req))
 
     dev = prep.device
     f32, i32 = torch.float32, torch.int32
@@ -156,10 +176,72 @@ def build_inputs(prep) -> Tuple[FastInputs, Dict[str, np.ndarray]]:
         na_raw=_to(stat.na_raw if f.pref_node_affinity else off_un, f32, dev),
         tt_raw=_to(stat.tt_raw if f.prefer_taints else off_un, f32, dev),
         avoid_raw=_to(ec.avoid_score if f.prefer_avoid else off_un, f32, dev),
+        port_HU=_to(ports[0], f32, dev),
+        port_conf_HU=_to(ports[1], f32, dev),
+        **{name: _to(t, i32 if name in _TERM_I32 else f32, dev) for name, t in terms.items()},
         n_zones=n_zones,
         gc_row=kernels.gc_row_of(ec) if f.gc_dyn else -1,
     )
     return fi, {"static_fail": static_fail}
+
+
+def _port_tables(ec) -> np.ndarray:
+    """``[port_HU, port_conf_HU]``, each ``[Hp, U]`` over the port ids the
+    templates use (Hp = the largest id + 1): how often each template uses
+    each id, and which ids conflict with one of its own. The wildcard
+    expansion (0.0.0.0 overlaps every address on the same port,
+    nodeports.go) is done here, on the host."""
+    ports_u = np.asarray(ec.ports)  # [U, Hp_tmpl] port ids, -1 pad
+    Hp = int(ports_u.max()) + 1
+    port_HU = np.zeros((Hp, ports_u.shape[0]), np.float32)
+    for u, row in enumerate(ports_u):
+        for h in row[row >= 0]:
+            port_HU[int(h), u] += 1.0
+    conf = np.asarray(ec.port_conflict)[:Hp, :Hp].astype(np.float32)
+    port_conf_HU = (conf @ port_HU > 0).astype(np.float32)
+    return np.stack([port_HU, port_conf_HU])
+
+
+def _term_tables(ec, key_lut: np.ndarray) -> Dict[str, np.ndarray]:
+    """The inter-pod term tables: the incoming pod's required affinity
+    (``at_*``), required anti-affinity (``an_*``) and preferred (``pt_*``)
+    terms, ``[U, T]`` each with keys 0 = hostname, 1..K = zone keys; and the
+    existing pods' term rows, one per (selector, key): anti rows
+    (``anti_g_key``, ``antig_GU``, ``gmatch_GU``) and preferred plus
+    hard-affinity weight rows (``prefg_key``, ``prefg_GU``, ``pmatch_GU``)."""
+    matches_sel = np.asarray(ec.matches_sel)
+    out: Dict[str, np.ndarray] = {}
+    for prefix, sel, topo in (("at", ec.at_sel, ec.at_topo), ("an", ec.an_sel, ec.an_topo),
+                              ("pt", ec.pt_sel, ec.pt_topo)):
+        sel = np.asarray(sel)
+        out[f"{prefix}_active"] = (sel >= 0).astype(np.int32)
+        out[f"{prefix}_key"] = key_lut[np.maximum(np.asarray(topo), 0)].astype(np.int32)
+        out[f"{prefix}_sel"] = np.maximum(sel, 0).astype(np.int32)
+    out["at_self"] = np.where(
+        out["at_active"] == 1, np.take_along_axis(matches_sel, out["at_sel"], axis=1), 0.0
+    ).astype(np.float32)
+    out["pt_w"] = np.asarray(ec.pt_w).astype(np.float32)
+    for key, carry, match, sel, topo in (
+        ("anti_g_key", "antig_GU", "gmatch_GU", ec.anti_g_sel, ec.anti_g_topo),
+        ("prefg_key", "prefg_GU", "pmatch_GU", ec.prefg_sel, ec.prefg_topo),
+    ):
+        out[key] = key_lut[np.maximum(np.asarray(topo), 0)].astype(np.int32)
+        out[match] = matches_sel[:, np.asarray(sel)].T.astype(np.float32)
+    out["antig_GU"] = np.asarray(ec.anti_g).T.astype(np.float32)
+    out["prefg_GU"] = np.asarray(ec.prefg_w).T.astype(np.float32)
+    return out
+
+
+_TERM_I32 = {f"{p}_{f}" for p in ("at", "an", "pt") for f in ("active", "key", "sel")} | {"anti_g_key", "prefg_key"}
+
+
+def _no_terms(U: int) -> Dict[str, np.ndarray]:
+    """Zero-size inter-pod tables: the variant without inter-pod terms."""
+    i32, f32 = np.zeros((U, 0), np.int32), np.zeros((U, 0), np.float32)
+    out = {f"{p}_{f}": i32 for p in ("at", "an", "pt") for f in ("active", "key", "sel")}
+    out.update(at_self=f32, pt_w=f32, anti_g_key=np.zeros(0, np.int32), prefg_key=np.zeros(0, np.int32))
+    out.update({name: np.zeros((0, U), np.float32) for name in ("antig_GU", "gmatch_GU", "prefg_GU", "pmatch_GU")})
+    return out
 
 
 def inputs_from_reference(
@@ -169,16 +251,20 @@ def inputs_from_reference(
     gc_row: int = -1,
     n_nodes: Optional[int] = None,
     n_gpus: Optional[int] = None,
+    n_ports: Optional[int] = None,
+    n_anti: Optional[int] = None,
+    n_pref: Optional[int] = None,
 ) -> FastInputs:
     """The port's inputs from the JAX package's ``FastInputs`` as numpy
     (``fi._asdict()`` of ``opensim_tpu.engine.fastpath.build_inputs``),
     with the flags of its ``features`` and its ``gc_row``: drops the
-    node-lane padding past `n_nodes` and the GPU rows padded past `n_gpus`
-    (None keeps every lane or row), gives the tables of a feature that is
-    off zero size, turns the one-hot zone blocks ``zone_NZ [K, N, Z]`` into
-    zone columns, flattens ``node_valid [1, N]``. Other tables keep their
-    layout; the selector rows padded to a multiple of 8 stay, as no
-    constraint names them."""
+    node-lane padding past `n_nodes`, and the GPU, port-id, anti and
+    preferred term rows padded past `n_gpus`, `n_ports`, `n_anti` and
+    `n_pref` (None keeps every lane or row), gives the tables of a feature
+    that is off zero size, turns the one-hot zone blocks ``zone_NZ [K, N,
+    Z]`` into zone columns, flattens ``node_valid [1, N]``. Other tables
+    keep their layout; the selector rows padded to a multiple of 8 stay, as
+    no constraint names them."""
     a = {k: np.asarray(v) for k, v in arrays.items()}
     N = a["alloc_T"].shape[1] if n_nodes is None else int(n_nodes)
     Gd = a["gpu0_DN"].shape[0] if n_gpus is None else int(n_gpus)
@@ -189,6 +275,15 @@ def inputs_from_reference(
     nodes = lambda name: a[name][..., :N]
     off_un = np.zeros((0, N), np.float32)
     gpu_on = bool(features.gpu)
+    U = a["req"].shape[0]
+    ports = [a[name][:n_ports] if features.ports else np.zeros((0, U)) for name in ("port_HU", "port_conf_HU")]
+    if features.interpod or features.prefg:
+        terms = {name: a[name] for name in _no_terms(U)}
+        for names, rows in ((("anti_g_key", "antig_GU", "gmatch_GU"), n_anti),
+                            (("prefg_key", "prefg_GU", "pmatch_GU"), n_pref)):
+            terms.update({name: a[name][:rows] for name in names})
+    else:
+        terms = _no_terms(U)
     return FastInputs(
         alloc_T=_to(nodes("alloc_T"), f32, device),
         used0_T=_to(nodes("used0_T"), f32, device),
@@ -215,6 +310,9 @@ def inputs_from_reference(
         na_raw=_to(nodes("na_raw") if features.pref_node_affinity else off_un, f32, device),
         tt_raw=_to(nodes("tt_raw") if features.prefer_taints else off_un, f32, device),
         avoid_raw=_to(nodes("avoid_raw") if features.prefer_avoid else off_un, f32, device),
+        port_HU=_to(ports[0], f32, device),
+        port_conf_HU=_to(ports[1], f32, device),
+        **{name: _to(t, i32 if name in _TERM_I32 else f32, device) for name, t in terms.items()},
         n_zones=max(int(zone_idx.max()) + 1, 1),
         gc_row=int(gc_row) if features.gc_dyn else -1,
     )

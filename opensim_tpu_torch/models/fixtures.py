@@ -278,23 +278,43 @@ def make_fake_cron_job(name: str, completions: int = 1, cpu: str = "100m", memor
 
 # -- generated clusters ---------------------------------------------------------
 
+def _fleet_node(i: int, *options: Option) -> Node:
+    """Node i of the capacity plan's fleet (bench.py:85-104)."""
+    zones = [f"zone-{z}" for z in range(4)]
+    return make_fake_node(
+        f"node-{i:05d}", "64", "256Gi", "256",
+        with_labels({
+            "topology.kubernetes.io/zone": zones[i % len(zones)],
+            "node-role.kubernetes.io/worker": "",
+            "disk": "ssd" if i % 3 else "hdd",
+        }),
+        *options,
+    )
+
+
 def synthetic_cluster(n_nodes: int) -> ResourceTypes:
     """The capacity plan's fleet (bench.py:85-104): identical 64-core /
     256 GiB / 256-pod nodes, 4 zones, a `disk` label on every node."""
     rt = ResourceTypes()
-    zones = [f"zone-{z}" for z in range(4)]
-    for i in range(n_nodes):
-        rt.nodes.append(
-            make_fake_node(
-                f"node-{i:05d}", "64", "256Gi", "256",
-                with_labels({
-                    "topology.kubernetes.io/zone": zones[i % len(zones)],
-                    "node-role.kubernetes.io/worker": "",
-                    "disk": "ssd" if i % 3 else "hdd",
-                }),
-            )
-        )
+    rt.nodes.extend(_fleet_node(i) for i in range(n_nodes))
     return rt
+
+
+def _plan_workload(w: int) -> tuple:
+    """(cpu, memory, options) of workload w of the capacity plan
+    (bench.py:107-135): node selectors on every fourth, soft zone spread on
+    every fifth."""
+    opts = []
+    if w % 4 == 0:
+        opts.append(with_node_selector({"disk": "ssd"}))
+    if w % 5 == 0:
+        opts.append(with_topology_spread([{
+            "maxSkew": 5,
+            "topologyKey": "topology.kubernetes.io/zone",
+            "whenUnsatisfiable": "ScheduleAnyway",
+            "labelSelector": {"matchLabels": {"app": f"bench-{w}"}},
+        }]))
+    return f"{100 + 20 * (w % 8)}m", f"{256 + 64 * (w % 6)}Mi", opts
 
 
 def synthetic_apps(n_pods: int) -> ResourceTypes:
@@ -304,21 +324,96 @@ def synthetic_apps(n_pods: int) -> ResourceTypes:
     n_workloads = 20
     per = n_pods // n_workloads
     for w in range(n_workloads):
-        opts = []
-        if w % 4 == 0:
-            opts.append(with_node_selector({"disk": "ssd"}))
-        if w % 5 == 0:
-            opts.append(with_topology_spread([{
-                "maxSkew": 5,
+        cpu, memory, opts = _plan_workload(w)
+        rt.deployments.append(make_fake_deployment(f"bench-{w}", per, cpu, memory, *opts))
+    return rt
+
+
+def affinity_apps(n_pods: int) -> ResourceTypes:
+    """The affinity-heavy plan's workload (bench.py:454-506, BASELINE.md
+    config 4): 10 Deployments of ``n_pods // 10`` pods, each under a hard
+    zone spread (maxSkew 3); the even ones prefer not to share a host with
+    their own pods (preferred anti-affinity, weight 100), and each odd one
+    requires a zone that holds its even neighbour's pods."""
+    rt = ResourceTypes()
+    n_workloads = 10
+    per = n_pods // n_workloads
+    for w in range(n_workloads):
+        opts = [with_topology_spread([{
+            "maxSkew": 3,
+            "topologyKey": "topology.kubernetes.io/zone",
+            "whenUnsatisfiable": "DoNotSchedule",
+            "labelSelector": {"matchLabels": {"app": f"aff-{w}"}},
+        }])]
+        if w % 2 == 0:
+            opts.append(with_affinity({"podAntiAffinity": {"preferredDuringSchedulingIgnoredDuringExecution": [{
+                "weight": 100,
+                "podAffinityTerm": {
+                    "labelSelector": {"matchLabels": {"app": f"aff-{w}"}},
+                    "topologyKey": "kubernetes.io/hostname",
+                },
+            }]}}))
+        else:
+            opts.append(with_affinity({"podAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [{
+                "labelSelector": {"matchLabels": {"app": f"aff-{w - 1}"}},
                 "topologyKey": "topology.kubernetes.io/zone",
-                "whenUnsatisfiable": "ScheduleAnyway",
-                "labelSelector": {"matchLabels": {"app": f"bench-{w}"}},
-            }]))
-        rt.deployments.append(
-            make_fake_deployment(
-                f"bench-{w}", per, f"{100 + 20 * (w % 8)}m", f"{256 + 64 * (w % 6)}Mi", *opts
-            )
-        )
+            }]}}))
+        rt.deployments.append(make_fake_deployment(f"aff-{w}", per, "100m", "256Mi", *opts))
+    return rt
+
+
+_AVOID_RS = json.dumps({"preferAvoidPods": [{"podSignature": {"podController": {
+    "apiVersion": "apps/v1", "kind": "ReplicaSet", "name": "avoided",
+    "uid": "rs-avoided", "controller": True}}}]})
+
+
+def _avoided_replica_set(replicas: int, cpu: str, memory: str, *options: Option) -> Workload:
+    """A ReplicaSet of fixed uid, so that a node's preferAvoidPods
+    annotation can name it."""
+    return make_fake_replica_set("avoided", replicas, cpu, memory,
+                                 lambda d: d["metadata"].update(uid="rs-avoided"), *options)
+
+
+def score_cluster(n_nodes: int) -> ResourceTypes:
+    """The capacity plan's fleet with the score tables' inputs: a
+    PreferNoSchedule taint on every eighth node, and every eighth node
+    (another set) prefers to avoid the ReplicaSet ``avoided``."""
+    rt = ResourceTypes()
+    for i in range(n_nodes):
+        opts = []
+        if i % 8 == 0:
+            opts.append(with_taints([{"key": "soft", "value": "x", "effect": "PreferNoSchedule"}]))
+        if i % 8 == 4:
+            opts.append(with_annotations({"scheduler.alpha.kubernetes.io/preferAvoidPods": _AVOID_RS}))
+        rt.nodes.append(_fleet_node(i, *opts))
+    return rt
+
+
+def score_apps(n_pods: int, host_port: bool = False) -> ResourceTypes:
+    """The capacity plan's workload with the score tables' inputs: 20
+    workloads of ``n_pods // 20`` pods with its node selectors and soft
+    zone spread, preferred ``disk=ssd`` node affinity (weight 50) on every
+    third, and workload 4 the ReplicaSet ``avoided``, which tolerates the
+    soft taint; with `host_port`, Deployment 0 also asks host port 8080.
+    The queue sorts put the tolerating pods first and the node-selector
+    pods next, so both lead the stream."""
+    rt = ResourceTypes()
+    n_workloads = 20
+    per = n_pods // n_workloads
+    for w in range(n_workloads):
+        cpu, memory, opts = _plan_workload(w)
+        if w % 3 == 0:
+            opts.append(with_affinity({"nodeAffinity": {"preferredDuringSchedulingIgnoredDuringExecution": [
+                {"weight": 50, "preference": {"matchExpressions": [
+                    {"key": "disk", "operator": "In", "values": ["ssd"]}]}},
+            ]}}))
+        if host_port and w == 0:
+            opts.append(with_host_ports([8080]))
+        if w == 4:
+            opts.append(with_tolerations([{"key": "soft", "operator": "Exists", "effect": "PreferNoSchedule"}]))
+            rt.replica_sets.append(_avoided_replica_set(per, cpu, memory, *opts))
+        else:
+            rt.deployments.append(make_fake_deployment(f"bench-{w}", per, cpu, memory, *opts))
     return rt
 
 
@@ -415,6 +510,11 @@ SCAN_CASES = (
     ("gpu_dyn", 8, 1),
     ("gpu_forced", 6, 1),
     ("scores", 6, 128),
+    ("interpod", 12, 128),
+    ("interpod_terms", 12, 128),
+    ("two_keys", 12, 128),
+    ("ports", 6, 128),
+    ("interpod_small", 64, 1),
 )
 
 
@@ -432,7 +532,17 @@ def scan_case(name: str):
     gpu-count allocatable); ``gpu_forced``: gpu-share pods bound by name,
     some to a node where no GPU fits; ``scores``: PreferNoSchedule taints,
     preferred node affinity and a node that prefers to avoid a ReplicaSet's
-    pods."""
+    pods; ``ports``: the same with host port 8080 on the bare pods, more of
+    them than nodes, and pods asking 8080 on one address, which the
+    wildcard address blocks; ``interpod``: required affinity (one term and
+    two), required anti-affinity and preferred anti-affinity, some nodes
+    without the zone label; ``interpod_terms``: the same fleet, where each
+    inter-pod rule decides placements: pods that require a zone holding
+    their own kind (the first one passes by the bootstrap), pods that only
+    an existing pod's anti term keeps off its node, and pods that prefer a
+    partner's node; ``two_keys``: spread and inter-pod terms over
+    hostname, zone and region; ``interpod_small``: the affinity-heavy plan
+    at 64 nodes and 640 pods."""
     n_nodes, node_pad = {c[0]: c[1:] for c in SCAN_CASES}[name]
     cluster = ResourceTypes()
     app = ResourceTypes()
@@ -442,6 +552,13 @@ def scan_case(name: str):
         app.deployments.append(make_fake_deployment("even", 40, "500m", "1Gi"))
         app.deployments.append(make_fake_deployment("odd", 24, "300m", "700Mi"))
         return cluster, app, node_pad
+    if name in ("interpod", "interpod_terms"):
+        # tests/test_fastpath.py:291-371 of the JAX package; every fourth
+        # node lacks the zone label
+        for i in range(n_nodes):
+            labels = {} if i % 4 == 3 else {"topology.kubernetes.io/zone": f"z{i % 3}"}
+            cluster.nodes.append(make_fake_node(f"n{i:02d}", "16", "32Gi", "110", with_labels(labels)))
+        return cluster, _interpod_apps() if name == "interpod" else _interpod_terms_apps(), node_pad
     if name in ("gpu", "gpu_forced"):
         # tests/test_fastpath.py:144-178 of the JAX package
         cluster.nodes.extend(_gpu_node(f"g{i}") for i in range(n_nodes))
@@ -462,20 +579,29 @@ def scan_case(name: str):
         # 200 pods: devices fill and pods fail, yet whole-GPU pods still
         # place where the gpu-count share (its add-back) decides the node
         return gpu_cluster(n_nodes), gpu_apps(200), node_pad
-    if name == "scores":
-        # tests/test_fastpath.py:181-214 of the JAX package, without ports
-        avoid = json.dumps({"preferAvoidPods": [{"podSignature": {"podController": {
-            "apiVersion": "apps/v1", "kind": "ReplicaSet", "name": "avoided",
-            "uid": "rs-avoided", "controller": True}}}]})
+    if name in ("scores", "ports"):
+        # tests/test_fastpath.py:181-214 of the JAX package; its host ports
+        # only in "ports"
         for i in range(n_nodes):
             opts = [with_labels({"disk": "ssd" if i % 2 else "hdd"})]
             if i < 2:
                 opts.append(with_taints([{"key": "soft", "value": "x", "effect": "PreferNoSchedule"}]))
             if i == 3:
-                opts.append(with_annotations({"scheduler.alpha.kubernetes.io/preferAvoidPods": avoid}))
+                opts.append(with_annotations({"scheduler.alpha.kubernetes.io/preferAvoidPods": _AVOID_RS}))
             cluster.nodes.append(make_fake_node(f"n{i}", "16", "32Gi", "110", *opts))
-        for k in range(5):
-            app.pods.append(make_fake_pod(f"web-{k}", "500m", "1Gi"))
+        if name == "scores":
+            for k in range(5):
+                app.pods.append(make_fake_pod(f"web-{k}", "500m", "1Gi"))
+        else:
+            # 8080 on every address: one pod per node, two left over; then
+            # 8080 on one address, which conflicts with the wildcard
+            for k in range(n_nodes + 2):
+                app.pods.append(make_fake_pod(f"web-{k}", "500m", "1Gi", with_host_ports([8080])))
+            for k in range(3):
+                app.pods.append(make_fake_pod(f"edge-{k}", "250m", "256Mi", with_host_port_specs([
+                    {"hostPort": 8080, "containerPort": 8080, "protocol": "TCP", "hostIP": "10.0.0.1"}])))
+            for k in range(3):
+                app.pods.append(make_fake_pod(f"alt-{k}", "250m", "256Mi", with_host_ports([9090])))
         app.deployments.append(
             make_fake_deployment(
                 "pref", 6, "250m", "512Mi",
@@ -485,13 +611,14 @@ def scan_case(name: str):
                 ]}}),
             )
         )
-        app.replica_sets.append(
-            make_fake_replica_set("avoided", 8, "1", "2Gi",
-                                  lambda d: d["metadata"].update(uid="rs-avoided"))
-        )
+        app.replica_sets.append(_avoided_replica_set(8, "1", "2Gi"))
         # overload so some pods genuinely fail
         app.deployments.append(make_fake_deployment("fat", 16, "6", "12Gi"))
         return cluster, app, node_pad
+    if name == "two_keys":
+        return _two_keys_cluster(n_nodes), _two_keys_apps(), node_pad
+    if name == "interpod_small":
+        return synthetic_cluster(n_nodes), affinity_apps(10 * n_nodes), node_pad
     with_zone = name != "spread_no_zone"
     for i in range(n_nodes):
         labels = {}
@@ -529,3 +656,120 @@ def scan_case(name: str):
     # overload so some pods genuinely fail
     app.deployments.append(make_fake_deployment("fat", 40, "8", "16Gi"))
     return cluster, app, node_pad
+
+
+def _interpod_apps() -> ResourceTypes:
+    """The ``interpod`` case's workload (tests/test_fastpath.py:300-358 of
+    the JAX package): two anchors, followers that require an anchor's zone,
+    picky pods that require a pod matching both of two terms (zone and
+    host), and a StatefulSet that must not share a host with its own pods
+    and prefers not to share a zone. Its 14 replicas are more than the 12
+    nodes, so two find no node."""
+    app = ResourceTypes()
+    app.pods.append(make_fake_pod("anchor", "100m", "128Mi", with_labels({"role": "anchor"})))
+    app.pods.append(make_fake_pod("anchor-b", "100m", "128Mi", with_labels({"role": "anchor", "grade": "gold"})))
+    app.deployments.append(make_fake_deployment("followers", 6, "200m", "256Mi", with_affinity({
+        "podAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+            {"labelSelector": {"matchLabels": {"role": "anchor"}}, "topologyKey": "topology.kubernetes.io/zone"},
+        ]},
+    })))
+    app.deployments.append(make_fake_deployment("picky", 4, "200m", "256Mi", with_affinity({
+        "podAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+            {"labelSelector": {"matchLabels": {"role": "anchor"}}, "topologyKey": "topology.kubernetes.io/zone"},
+            {"labelSelector": {"matchLabels": {"grade": "gold"}}, "topologyKey": "kubernetes.io/hostname"},
+        ]},
+    })))
+    app.stateful_sets.append(make_fake_stateful_set("spread-db", 14, "500m", "1Gi", with_affinity({
+        "podAntiAffinity": {
+            "requiredDuringSchedulingIgnoredDuringExecution": [
+                {"labelSelector": {"matchLabels": {"app": "spread-db"}}, "topologyKey": "kubernetes.io/hostname"},
+            ],
+            "preferredDuringSchedulingIgnoredDuringExecution": [{"weight": 100, "podAffinityTerm": {
+                "labelSelector": {"matchLabels": {"app": "spread-db"}},
+                "topologyKey": "topology.kubernetes.io/zone",
+            }}],
+        },
+    })))
+    return app
+
+
+def _interpod_terms_apps() -> ResourceTypes:
+    """Workloads where each inter-pod rule decides placements: ``colo``
+    requires a zone holding ``colo`` pods, so its first pod places only by
+    the bootstrap (no match anywhere yet, and it matches itself); ``guard``
+    keeps ``tier: noisy`` pods off its nodes, and the ``noisy`` pods carry
+    no term of their own, so only the symmetric anti check stops them;
+    ``cache`` prefers the nodes of ``web`` (weight 100), against
+    least-allocated, which prefers the empty ones; ``orphan`` requires a
+    zone holding pods that never come, and does not match itself, so it
+    finds no node."""
+    app = ResourceTypes()
+    app.deployments.append(make_fake_deployment("colo", 5, "300m", "512Mi", with_affinity({
+        "podAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+            {"labelSelector": {"matchLabels": {"app": "colo"}}, "topologyKey": "topology.kubernetes.io/zone"},
+        ]},
+    })))
+    app.deployments.append(make_fake_deployment("guard", 4, "200m", "256Mi", with_affinity({
+        "podAntiAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+            {"labelSelector": {"matchLabels": {"tier": "noisy"}}, "topologyKey": "kubernetes.io/hostname"},
+        ]},
+    })))
+    app.deployments.append(make_fake_deployment("noisy", 20, "2", "2Gi", with_pod_labels({"tier": "noisy"})))
+    app.deployments.append(make_fake_deployment("web", 3, "1", "1Gi"))
+    app.deployments.append(make_fake_deployment("cache", 6, "500m", "512Mi", with_affinity({
+        "podAffinity": {"preferredDuringSchedulingIgnoredDuringExecution": [{"weight": 100, "podAffinityTerm": {
+            "labelSelector": {"matchLabels": {"app": "web"}}, "topologyKey": "kubernetes.io/hostname",
+        }}]},
+    })))
+    app.deployments.append(make_fake_deployment("orphan", 2, "100m", "128Mi", with_affinity({
+        "podAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+            {"labelSelector": {"matchLabels": {"app": "missing"}}, "topologyKey": "topology.kubernetes.io/zone"},
+        ]},
+    })))
+    return app
+
+
+def _two_keys_cluster(n_nodes: int) -> ResourceTypes:
+    """Nodes under hostname, zone and region; some lack the zone label and
+    others, independently, the region label (tests/test_fastpath.py:
+    379-386 of the JAX package)."""
+    rt = ResourceTypes()
+    for i in range(n_nodes):
+        labels = {}
+        if i % 4 != 3:
+            labels["topology.kubernetes.io/zone"] = f"z{i % 3}"
+        if i % 5 != 4:
+            labels["topology.kubernetes.io/region"] = f"r{i % 2}"
+        rt.nodes.append(make_fake_node(f"n{i:02d}", "16", "32Gi", "110", with_labels(labels)))
+    return rt
+
+
+def _two_keys_apps() -> ResourceTypes:
+    """tests/test_fastpath.py:387-438 of the JAX package: hard zone and
+    soft region spread, required region affinity to an anchor, and required
+    zone anti-affinity with preferred region anti-affinity."""
+    app = ResourceTypes()
+    app.deployments.append(make_fake_deployment("zonal", 9, "250m", "512Mi", with_topology_spread([
+        {"maxSkew": 1, "topologyKey": "topology.kubernetes.io/zone", "whenUnsatisfiable": "DoNotSchedule",
+         "labelSelector": {"matchLabels": {"app": "zonal"}}},
+        {"maxSkew": 2, "topologyKey": "topology.kubernetes.io/region", "whenUnsatisfiable": "ScheduleAnyway",
+         "labelSelector": {"matchLabels": {"app": "zonal"}}},
+    ])))
+    app.pods.append(make_fake_pod("anchor", "100m", "128Mi", with_labels({"role": "anchor"})))
+    app.deployments.append(make_fake_deployment("regional", 4, "200m", "256Mi", with_affinity({
+        "podAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+            {"labelSelector": {"matchLabels": {"role": "anchor"}}, "topologyKey": "topology.kubernetes.io/region"},
+        ]},
+    })))
+    app.stateful_sets.append(make_fake_stateful_set("iso", 4, "500m", "1Gi", with_affinity({
+        "podAntiAffinity": {
+            "requiredDuringSchedulingIgnoredDuringExecution": [
+                {"labelSelector": {"matchLabels": {"app": "iso"}}, "topologyKey": "topology.kubernetes.io/zone"},
+            ],
+            "preferredDuringSchedulingIgnoredDuringExecution": [{"weight": 50, "podAffinityTerm": {
+                "labelSelector": {"matchLabels": {"app": "iso"}},
+                "topologyKey": "topology.kubernetes.io/region",
+            }}],
+        },
+    })))
+    return app

@@ -2,49 +2,59 @@
 //
 // Replaces the Pallas megakernel that opensim_tpu/ops/pallas_scan.py:
 // _make_kernel generates (reached through run_fast_scan's pl.pallas_call)
-// for the flags has_gpu (with gc_row), has_na, has_tt and has_avoid: static
-// row gather, NodeResourcesFit (with the dynamic gpu-count allocatable),
-// node validity, the Open-Gpu-Share filter, PodTopologySpread (hard and
-// soft; hostname plus zone keys), least-allocated + balanced + Simon share
-// (min-max, with the gpu-count add-back) + spread + NodeAffinity +
-// TaintToleration + NodePreferAvoidPods scores, selectHost (lowest index
-// among the maxima, pins for forced pods) and the bind update of the usage,
-// selector-count and GPU state.
+// for the flags has_gpu (with gc_row), has_na, has_tt, has_avoid, has_ports
+// and has_interpod: static row gather, NodeResourcesFit (with the dynamic
+// gpu-count allocatable), node validity, NodePorts, the Open-Gpu-Share
+// filter, PodTopologySpread (hard and soft; hostname plus zone keys),
+// InterPodAffinity (required affinity with its bootstrap, required
+// anti-affinity, the existing pods' anti terms), least-allocated + balanced
+// + Simon share (min-max, with the gpu-count add-back) + spread +
+// NodeAffinity + TaintToleration + NodePreferAvoidPods + inter-pod
+// preferred scores, selectHost (lowest index among the maxima, pins for
+// forced pods) and the bind update of the usage, selector-count, host-port,
+// GPU and inter-pod term state.
 //
-// Variants: the kernel is a template over the five flags, and the host entry
-// picks the instantiation, so a variant carries no code of a feature it
-// lacks.
+// Variants: the kernel is a template over the seven flags. Each shared
+// object holds one instantiation, chosen at compile time by -DFS_VARIANT
+// (bit i = flag i in the order of the template; ops/fast_scan.py builds
+// the variants a run needs, all at once), so a variant carries no code of a
+// feature it lacks and the build does not grow with the number of flags.
 //
 // What bounds it: not bytes and not operations. A step reads a few hundred
-// KB that stay in L2 and does some 70-200 flops per node, but pod i+1 reads
+// KB that stay in L2 and does some 70-250 flops per node, but pod i+1 reads
 // the state pod i wrote, so the P steps form a serial chain; each step costs
 // a fixed number of block-wide barriers and reductions. The design therefore
 // keeps the chain inside one persistent CTA (no per-pod launch, no grid
 // sync): 1024 threads, thread t owns the nodes n = t (mod 1024), and a step
 // is three block reductions plus one barrier after the bind. The state
-// (used, node_cnt, zone_cnt, gpu_free) lives in global memory and stays in
-// L2. The flag branches add no reduction: the NodeAffinity and
-// TaintToleration maxima ride in the second one.
+// (used, node_cnt, zone_cnt, gpu_free, port_used, the inter-pod term counts)
+// lives in global memory and stays in L2. The flag branches add no
+// reduction: the NodeAffinity and TaintToleration maxima and the inter-pod
+// score's range ride in the second one, and the inter-pod bootstrap reads
+// per-selector totals that the bind keeps instead of summing a count row.
 //
 // Bit-exactness with the plain PyTorch version (ops/fast_scan.py) and the
 // JAX reference: every formula is written in the reference's op order,
 // every constant is a float literal, and the file is compiled with
 // --fmad=false and without fast math, so each + - * / rounds once as an
 // IEEE single op. Equal scores are the rule on a uniform fleet; one ulp
-// would flip a tie.
+// would flip a tie. The inter-pod and port sums, dots in the Pallas body,
+// add integers below 2^24 (engine/fastpath.why_not), so they are loops
+// here over the rows a template touches, exact in any order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <array>
-#include <utility>
+#ifndef FS_VARIANT
+#error "build one kernel variant per library: nvcc -DFS_VARIANT=<flag bits> (ops/fast_scan.py)"
+#endif
 
 #define NT 1024
 #define NWARP (NT / 32)
 #define MAX_R 8
 #define MAX_CS 8
 #define MAX_GD 8
-#define MAX_RED 8  // values one block_reduce call takes: max(MAX_CS, 7)
+#define MAX_RED 9  // values one block_reduce call takes: max(MAX_CS, 5 + na + tt + 2 inter-pod)
 #define FULL_MASK 0xffffffffu
 
 namespace {
@@ -93,6 +103,28 @@ struct FastScanArgs {
     const float* na_raw;       // [U, N]
     const float* tt_raw;       // [U, N]
     const float* avoid_raw;    // [U, N]
+    // host ports (has_ports)
+    const float* port_hu;      // [Hp, U] the template's own port ids
+    const float* port_conf;    // [Hp, U] 0/1 port ids that conflict with the template's
+    // inter-pod terms of the incoming pod (has_interpod), keys as spr_key
+    const int32_t* at_active;  // [U, Ti] required affinity
+    const int32_t* at_key;     // [U, Ti]
+    const int32_t* at_sel;     // [U, Ti] the conjunction of the template's terms
+    const float* at_self;      // [U, Ti] 0/1 the template matches it
+    const int32_t* an_active;  // [U, Tn] required anti-affinity
+    const int32_t* an_key;     // [U, Tn]
+    const int32_t* an_sel;     // [U, Tn]
+    const int32_t* pt_active;  // [U, Tp] preferred terms
+    const int32_t* pt_key;     // [U, Tp]
+    const int32_t* pt_sel;     // [U, Tp]
+    const float* pt_w;         // [U, Tp] signed weight
+    // existing pods' terms, one row per (selector, key)
+    const int32_t* anti_g_key; // [G]
+    const float* antig;        // [G, U] 0/1 the template carries anti row g
+    const float* gmatch;       // [G, U] 0/1 the template matches row g's selector
+    const int32_t* prefg_key;  // [Gp]
+    const float* prefg;        // [Gp, U] signed weight the template carries on row g
+    const float* pmatch;       // [Gp, U] 0/1 the template matches row g's selector
     // outputs and state
     int32_t* chosen;           // [P]
     float* used;               // [R, N]
@@ -100,8 +132,14 @@ struct FastScanArgs {
     float* zone_cnt;           // [K * A, Z]
     float* gpu_take;           // [P, Gd] written for bound pods only
     float* gpu_free;           // [Gd, N]
-    int32_t P, N, R, U, A, K, Z, Cs, Gd, gc_row;
-    int32_t has_gpu, has_na, has_tt, has_avoid;
+    float* port_used;          // [Hp, N]
+    float* anti_node;          // [G, N]
+    float* anti_zone;          // [G, Z] each row under its own key
+    float* prefw_node;         // [Gp, N]
+    float* prefw_zone;         // [Gp, Z] each row under its own key
+    float* sel_total;          // [(K + 1) * A] bound pods per selector: all, then on nodes labelled with key k
+    int32_t P, N, R, U, A, K, Z, Cs, Gd, gc_row, Hp, Ti, Tn, Tp, G, Gp;
+    int32_t has_gpu, has_na, has_tt, has_avoid, has_ports, has_interpod;
 };
 
 __device__ __forceinline__ float warp_min(float v) {
@@ -180,6 +218,27 @@ __device__ __forceinline__ void sel_cnt(const FastScanArgs& a, int sel, int key,
     has_label = z >= 0 ? 1.0f : 0.0f;
 }
 
+// Row g of an inter-pod term table at node n: its node row for a hostname
+// row (key 0), else its zone row under its own key, 0 where node n lacks
+// that label.
+__device__ __forceinline__ float term_cnt(const FastScanArgs& a, const float* node_rows, const float* zone_rows,
+                                          int g, int key, int n) {
+    if (key == 0) return node_rows[(size_t)g * a.N + n];
+    const int z = a.zone_idx[(size_t)(key - 1) * a.N + n];
+    return z >= 0 ? zone_rows[(size_t)g * a.Z + z] : 0.0f;
+}
+
+// Bind of row g with value v at node c: its node column, and its zone
+// column under its own key where node c carries the label (pallas_scan.py:
+// 836-854 adds a_col * key_mask * the zone one-hot).
+__device__ __forceinline__ void term_bind(const FastScanArgs& a, float* node_rows, float* zone_rows, int g,
+                                          int key, int c, float v) {
+    node_rows[(size_t)g * a.N + c] += v;
+    if (key == 0) return;
+    const int z = a.zone_idx[(size_t)(key - 1) * a.N + c];
+    if (z >= 0) zone_rows[(size_t)g * a.Z + z] += v;
+}
+
 // Dynamic gpu-count allocatable of node n (pallas_scan.py:401-412): the
 // count of its devices with free memory left, and whether it has devices.
 __device__ __forceinline__ void gc_node(const FastScanArgs& a, int n, float& dyn, float& has_dev) {
@@ -193,13 +252,63 @@ __device__ __forceinline__ void gc_node(const FastScanArgs& a, int n, float& dyn
     }
 }
 
-// Filter and soft-spread raw score of node n for template u, given the
-// per-constraint minimum counts (pallas_scan.py:400-501), plus node n's
-// dynamic gpu-count state for the share add-back.
-template <bool GPU, bool GC>
+// Inter-pod terms of template u at node n (pallas_scan.py:503-586): the
+// filter factor (0 or 1) of the incoming required anti-affinity terms, the
+// incoming required affinity terms with the bootstrap (`at_bootstrap`, the
+// same for every node), and the existing pods' anti terms against this
+// pod; `ip_raw` gets the raw preferred score, the incoming preferred terms
+// plus the existing pods' preferred and hard-affinity weights. Rows whose
+// selector the template does not match add exact zeros in the Pallas dots
+// and are skipped.
+__device__ __forceinline__ float interpod_node(const FastScanArgs& a, int u, int n, float at_bootstrap,
+                                               float& ip_raw) {
+    float ok = 1.0f;
+    for (int t = 0; t < a.Tn; ++t) {
+        const int ut = u * a.Tn + t;
+        if (a.an_active[ut] != 1) continue;
+        float cnt, has_label;
+        sel_cnt(a, a.an_sel[ut], a.an_key[ut], n, cnt, has_label);
+        ok = ok * (1.0f - ((cnt > 0.0f && has_label > 0.0f) ? 1.0f : 0.0f));
+    }
+    float at_all_ok = 1.0f, at_labels_ok = 1.0f;
+    for (int t = 0; t < a.Ti; ++t) {
+        const int ut = u * a.Ti + t;
+        if (a.at_active[ut] != 1) continue;
+        float cnt, has_label;
+        sel_cnt(a, a.at_sel[ut], a.at_key[ut], n, cnt, has_label);
+        at_all_ok = at_all_ok * ((cnt > 0.0f && has_label > 0.0f) ? 1.0f : 0.0f);
+        at_labels_ok = at_labels_ok * (has_label > 0.0f ? 1.0f : 0.0f);
+    }
+    ok = ok * fmaxf(at_all_ok, at_labels_ok * at_bootstrap);
+    float sym_cnt = 0.0f;
+    for (int g = 0; g < a.G; ++g) {
+        const float m = a.gmatch[(size_t)g * a.U + u];
+        if (m != 0.0f) sym_cnt = sym_cnt + m * term_cnt(a, a.anti_node, a.anti_zone, g, a.anti_g_key[g], n);
+    }
+    ok = ok * (1.0f - (sym_cnt > 0.0f ? 1.0f : 0.0f));
+    float ip = 0.0f;
+    for (int t = 0; t < a.Tp; ++t) {
+        const int ut = u * a.Tp + t;
+        if (a.pt_active[ut] != 1) continue;
+        float cnt, has_label;
+        sel_cnt(a, a.pt_sel[ut], a.pt_key[ut], n, cnt, has_label);
+        ip = ip + cnt * a.pt_w[ut] * has_label;
+    }
+    for (int g = 0; g < a.Gp; ++g) {
+        const float m = a.pmatch[(size_t)g * a.U + u];
+        if (m != 0.0f) ip = ip + m * term_cnt(a, a.prefw_node, a.prefw_zone, g, a.prefg_key[g], n);
+    }
+    ip_raw = ip;
+    return ok;
+}
+
+// Filter, soft-spread raw score and inter-pod raw score of node n for
+// template u, given the per-constraint minimum counts (pallas_scan.py:
+// 400-586), plus node n's dynamic gpu-count state for the share add-back.
+template <bool GPU, bool GC, bool PORTS, bool IP>
 __device__ __forceinline__ void node_filter(const FastScanArgs& a, int u, int n, const float* min_cnt,
-                                            float& feasible, float& soft_raw, float& ignored,
-                                            float& gc_dyn, float& gc_has_dev) {
+                                            float at_bootstrap, float& feasible, float& soft_raw,
+                                            float& ignored, float& gc_dyn, float& gc_has_dev, float& ip_raw) {
     const float valid_row = a.node_valid[n];
     if constexpr (GC) gc_node(a, n, gc_dyn, gc_has_dev);
     float fit = 1.0f;
@@ -212,6 +321,16 @@ __device__ __forceinline__ void node_filter(const FastScanArgs& a, int u, int n,
         fit = fit * (req_r > 0.0f ? 1.0f - over : 1.0f);
     }
     feasible = a.static_pass[(size_t)u * a.N + n] * fit * valid_row;
+    if constexpr (PORTS) {
+        // NodePorts: a conflicting port id already used on the node
+        float conflicts = 0.0f;
+        for (int h = 0; h < a.Hp; ++h) {
+            const float mine = a.port_conf[(size_t)h * a.U + u];
+            if (mine != 0.0f)
+                conflicts = conflicts + mine * (a.port_used[(size_t)h * a.N + n] > 0.0f ? 1.0f : 0.0f);
+        }
+        feasible = feasible * (conflicts == 0.0f ? 1.0f : 0.0f);
+    }
     if constexpr (GPU) {
         // Open-Gpu-Share filter: sum_d floor(free_d / mem) >= count
         const float gmem = a.gpu_mem[u];
@@ -241,6 +360,7 @@ __device__ __forceinline__ void node_filter(const FastScanArgs& a, int u, int n,
             ignored = fmaxf(ignored, 1.0f - has_label);
         }
     }
+    if constexpr (IP) feasible = feasible * interpod_node(a, u, n, at_bootstrap, ip_raw);
 }
 
 // Simon share of node n for template u, with the gpu-count share added back
@@ -287,8 +407,9 @@ __device__ __forceinline__ void gpu_bind(const FastScanArgs& a, int i, int u, in
     }
 }
 
-template <bool GPU, bool GC, bool NA, bool TT, bool AV>
+template <bool GPU, bool GC, bool NA, bool TT, bool AV, bool PORTS, bool IP>
 __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(FastScanArgs a) {
+    static_assert(GPU || !GC, "the gpu-count allocatable follows the GPUs");
     __shared__ float buf[MAX_RED][NWARP];
     __shared__ float res[MAX_RED];
     __shared__ float sbuf[NWARP];
@@ -298,21 +419,34 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(FastScanArgs a) {
     const int tid = threadIdx.x;
     const int N = a.N, R = a.R, A = a.A, K = a.K, Z = a.Z, Cs = a.Cs;
 
-    // state init: used <- used0, selector counts <- 0, gpu_free <- gpu0
+    // state init: used <- used0, counts <- 0, gpu_free <- gpu0
     for (size_t j = tid; j < (size_t)R * N; j += NT) a.used[j] = a.used0[j];
     for (size_t j = tid; j < (size_t)A * N; j += NT) a.node_cnt[j] = 0.0f;
     for (size_t j = tid; j < (size_t)K * A * Z; j += NT) a.zone_cnt[j] = 0.0f;
     if constexpr (GPU)
         for (size_t j = tid; j < (size_t)a.Gd * N; j += NT) a.gpu_free[j] = a.gpu0[j];
+    if constexpr (PORTS)
+        for (size_t j = tid; j < (size_t)a.Hp * N; j += NT) a.port_used[j] = 0.0f;
+    if constexpr (IP) {
+        for (size_t j = tid; j < (size_t)a.G * N; j += NT) a.anti_node[j] = 0.0f;
+        for (size_t j = tid; j < (size_t)a.G * Z; j += NT) a.anti_zone[j] = 0.0f;
+        for (size_t j = tid; j < (size_t)a.Gp * N; j += NT) a.prefw_node[j] = 0.0f;
+        for (size_t j = tid; j < (size_t)a.Gp * Z; j += NT) a.prefw_zone[j] = 0.0f;
+        for (size_t j = tid; j < (size_t)(K + 1) * A; j += NT) a.sel_total[j] = 0.0f;
+    }
     __syncthreads();
 
     int all_min[MAX_CS];
     for (int c = 0; c < MAX_CS; ++c) all_min[c] = 0;
     // lo min, hi max, smn min, smx max, any-feasible max, then the
-    // NodeAffinity and TaintToleration maxima where the variant has them
-    constexpr int NRED = 5 + (NA ? 1 : 0) + (TT ? 1 : 0);
-    constexpr int I_NA = 5, I_TT = 5 + (NA ? 1 : 0);
-    const int bmode[7] = {0, 1, 0, 1, 1, 1, 1};
+    // NodeAffinity and TaintToleration maxima and the inter-pod score's
+    // max and min where the variant has them
+    constexpr int I_NA = 5, I_TT = I_NA + (NA ? 1 : 0), I_IP = I_TT + (TT ? 1 : 0);
+    constexpr int NRED = I_IP + (IP ? 2 : 0);
+    int bmode[MAX_RED] = {0, 1, 0, 1, 1, 0, 0, 0, 0};
+    if constexpr (NA) bmode[I_NA] = 1;
+    if constexpr (TT) bmode[I_TT] = 1;
+    if constexpr (IP) bmode[I_IP] = 1;
 
     for (int i = 0; i < a.P; ++i) {
         const int u = a.tmpl[i];
@@ -325,6 +459,21 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(FastScanArgs a) {
             const int p = a.pin[u];
             choice = p >= 0 ? p : -1;
         } else {
+            // --- the inter-pod bootstrap (pallas_scan.py:520-542): no pod
+            // yet matches the affinity terms anywhere and the pod matches
+            // them itself. The same for every node and thread.
+            float at_bootstrap = 0.0f;
+            if constexpr (IP) {
+                float map_total = 0.0f, self_all = 1.0f;
+                for (int t = 0; t < a.Ti; ++t) {
+                    const int ut = u * a.Ti + t;
+                    if (a.at_active[ut] != 1) continue;
+                    map_total = map_total + a.sel_total[(size_t)a.at_key[ut] * A + a.at_sel[ut]];
+                    self_all = self_all * (a.at_self[ut] > 0.0f ? 1.0f : 0.0f);
+                }
+                at_bootstrap = (map_total == 0.0f && self_all > 0.0f) ? 1.0f : 0.0f;
+            }
+
             // --- pass 1: per-constraint min count over eligible nodes
             float min_cnt[MAX_CS];
             bool any_active = false;
@@ -351,7 +500,8 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(FastScanArgs a) {
                 any_soft |= a.spr_active[u * Cs + c] == 1 && a.spr_hard[u * Cs + c] == 0;
 
             // --- pass 2: share lo/hi over feasible, spread smn/smx over
-            // scored, any-feasible, and the score tables' feasible maxima
+            // scored, any-feasible, the score tables' feasible maxima, and
+            // the inter-pod score's range with both ends seeded at 0
             float rv[NRED];
             rv[0] = BIG;
             rv[1] = NEG;
@@ -360,9 +510,14 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(FastScanArgs a) {
             rv[4] = 0.0f;
             if constexpr (NA) rv[I_NA] = NEG;
             if constexpr (TT) rv[I_TT] = NEG;
+            if constexpr (IP) {
+                rv[I_IP] = 0.0f;
+                rv[I_IP + 1] = 0.0f;
+            }
             for (int n = tid; n < N; n += NT) {
-                float feasible, soft_raw, ignored, gc_dyn = 0.0f, gc_has_dev = 0.0f;
-                node_filter<GPU, GC>(a, u, n, min_cnt, feasible, soft_raw, ignored, gc_dyn, gc_has_dev);
+                float feasible, soft_raw, ignored, gc_dyn = 0.0f, gc_has_dev = 0.0f, ip = 0.0f;
+                node_filter<GPU, GC, PORTS, IP>(a, u, n, min_cnt, at_bootstrap, feasible, soft_raw, ignored,
+                                                gc_dyn, gc_has_dev, ip);
                 if (feasible > 0.0f) {
                     const float sh = share_of<GC>(a, u, n, gc_dyn, gc_has_dev);
                     rv[0] = fminf(rv[0], sh);
@@ -375,14 +530,23 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(FastScanArgs a) {
                 rv[4] = fmaxf(rv[4], feasible);
                 if constexpr (NA) rv[I_NA] = fmaxf(rv[I_NA], feasible > 0.0f ? a.na_raw[(size_t)u * N + n] : 0.0f);
                 if constexpr (TT) rv[I_TT] = fmaxf(rv[I_TT], feasible > 0.0f ? a.tt_raw[(size_t)u * N + n] : 0.0f);
+                if constexpr (IP) {
+                    const float ip_masked = feasible > 0.0f ? ip : 0.0f;
+                    rv[I_IP] = fmaxf(rv[I_IP], ip_masked);
+                    rv[I_IP + 1] = fminf(rv[I_IP + 1], ip_masked);
+                }
             }
             block_reduce(rv, bmode, NRED, rv, buf, res);
             const float lo = rv[0], hi = rv[1], smn = rv[2], smx = rv[3];
             const bool any_feasible = rv[4] > 0.0f;
             const float rng = hi - lo;
-            float na_max = 0.0f, tt_max = 0.0f;
+            float na_max = 0.0f, tt_max = 0.0f, ip_lo = 0.0f, ip_rng = 0.0f;
             if constexpr (NA) na_max = rv[I_NA];
             if constexpr (TT) tt_max = rv[I_TT];
+            if constexpr (IP) {
+                ip_lo = rv[I_IP + 1];
+                ip_rng = rv[I_IP] - ip_lo;
+            }
 
             // --- pass 3: score, then the lowest index among the maxima
             const float cpu_req = a.cpu_nz[u];
@@ -390,8 +554,9 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(FastScanArgs a) {
             float best_s = NEG;
             int best_i = N;
             for (int n = tid; n < N; n += NT) {
-                float feasible, soft_raw, ignored, gc_dyn = 0.0f, gc_has_dev = 0.0f;
-                node_filter<GPU, GC>(a, u, n, min_cnt, feasible, soft_raw, ignored, gc_dyn, gc_has_dev);
+                float feasible, soft_raw, ignored, gc_dyn = 0.0f, gc_has_dev = 0.0f, ip = 0.0f;
+                node_filter<GPU, GC, PORTS, IP>(a, u, n, min_cnt, at_bootstrap, feasible, soft_raw, ignored,
+                                                gc_dyn, gc_has_dev, ip);
                 const float alloc_cpu = a.alloc[(size_t)RES_CPU * N + n];
                 const float alloc_mem = a.alloc[(size_t)RES_MEMORY * N + n];
                 const float used_cpu = a.used[(size_t)RES_CPU * N + n] + cpu_req;
@@ -424,6 +589,8 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(FastScanArgs a) {
                     score = score + (tt_max > 0.0f ? MAX_SCORE - tt * MAX_SCORE / fmaxf(tt_max, 1.0f) : MAX_SCORE);
                 }
                 if constexpr (AV) score = score + AVOID_WEIGHT * a.avoid_raw[(size_t)u * N + n];
+                if constexpr (IP)
+                    score = score + (ip_rng > 0.0f ? MAX_SCORE * (ip - ip_lo) / fmaxf(ip_rng, 1.0f) : 0.0f);
                 better(best_s, best_i, feasible > 0.0f ? score : NEG, n);
             }
             const int best = block_argmax(best_s, best_i, sbuf, ibuf, &ires);
@@ -431,16 +598,30 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(FastScanArgs a) {
         }
         if (tid == 0) a.chosen[i] = choice;
 
-        // --- bind: only the chosen node's column changes
+        // --- bind: only the chosen node's column changes (and the
+        // per-selector totals); each thread writes its own rows
         if (choice >= 0) {
             if (tid < R) a.used[(size_t)tid * N + choice] += a.req[u * R + tid];
             for (int j = tid; j < A; j += NT) {
                 const float m = a.matches[(size_t)j * a.U + u];
                 a.node_cnt[(size_t)j * N + choice] += m;
+                if constexpr (IP) a.sel_total[j] += m;
                 for (int k = 0; k < K; ++k) {
                     const int z = a.zone_idx[(size_t)k * N + choice];
-                    if (z >= 0) a.zone_cnt[((size_t)k * A + j) * Z + z] += m;
+                    if (z >= 0) {
+                        a.zone_cnt[((size_t)k * A + j) * Z + z] += m;
+                        if constexpr (IP) a.sel_total[(size_t)(k + 1) * A + j] += m;
+                    }
                 }
+            }
+            // the template's own ports, not the conflict rows
+            if constexpr (PORTS)
+                for (int h = tid; h < a.Hp; h += NT) a.port_used[(size_t)h * N + choice] += a.port_hu[(size_t)h * a.U + u];
+            if constexpr (IP) {
+                for (int g = tid; g < a.G; g += NT)
+                    term_bind(a, a.anti_node, a.anti_zone, g, a.anti_g_key[g], choice, a.antig[(size_t)g * a.U + u]);
+                for (int g = tid; g < a.Gp; g += NT)
+                    term_bind(a, a.prefw_node, a.prefw_zone, g, a.prefg_key[g], choice, a.prefg[(size_t)g * a.U + u]);
             }
             // the thread that owns the chosen node packs its devices
             if constexpr (GPU)
@@ -450,36 +631,15 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(FastScanArgs a) {
     }
 }
 
-namespace {
-
-typedef cudaError_t (*LaunchFn)(const FastScanArgs&, cudaStream_t);
-
-// Variant index: bit 0 gpu, 1 gc, 2 na, 3 tt, 4 avoid.
-template <int V>
-cudaError_t launch_variant(const FastScanArgs& a, cudaStream_t stream) {
-    constexpr bool GPU = V & 1, GC = V & 2, NA = V & 4, TT = V & 8, AV = V & 16;
-    if constexpr (GC && !GPU) {
-        return cudaErrorInvalidValue;  // the gpu-count allocatable follows the GPUs
-    } else {
-        fast_scan_kernel<GPU, GC, NA, TT, AV><<<1, NT, 0, stream>>>(a);
-        return cudaGetLastError();
-    }
-}
-
-template <int... V>
-constexpr std::array<LaunchFn, sizeof...(V)> variant_table(std::integer_sequence<int, V...>) {
-    return {{&launch_variant<V>...}};
-}
-
-constexpr auto kVariants = variant_table(std::make_integer_sequence<int, 32>{});
-
-}  // namespace
-
 extern "C" int fast_scan_launch(const FastScanArgs* args, void* stream) {
+    constexpr int V = FS_VARIANT;
     const FastScanArgs& a = *args;
     if (a.R > MAX_R || a.Cs > MAX_CS || a.Gd > MAX_GD || a.gc_row >= a.R) return (int)cudaErrorInvalidValue;
     const int v = (a.has_gpu ? 1 : 0) | (a.gc_row >= 0 ? 2 : 0) | (a.has_na ? 4 : 0) | (a.has_tt ? 8 : 0) |
-                  (a.has_avoid ? 16 : 0);
+                  (a.has_avoid ? 16 : 0) | (a.has_ports ? 32 : 0) | (a.has_interpod ? 64 : 0);
+    if (v != V) return (int)cudaErrorInvalidValue;  // this library holds one variant
     cudaGetLastError();  // clear a stale error so the check reports this launch
-    return (int)kVariants[v](a, (cudaStream_t)stream);
+    fast_scan_kernel<(V & 1) != 0, (V & 2) != 0, (V & 4) != 0, (V & 8) != 0, (V & 16) != 0, (V & 32) != 0,
+                     (V & 64) != 0><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
 }

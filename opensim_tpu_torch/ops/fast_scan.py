@@ -1,19 +1,23 @@
 """The bind scan: one hand-written Hopper kernel and its plain version.
 
 For each pod of the stream, in order: filter the nodes (static row,
-NodeResourcesFit, node validity, Open-Gpu-Share, hard PodTopologySpread),
-score the feasible ones (least-allocated + balanced + 2·Simon share + 2·soft
-spread, plus the NodeAffinity, TaintToleration and NodePreferAvoidPods
-tables where present), take the lowest-index node among the best scores (or
-the pin of a forced pod), and bind it (usage, selector counts and GPU
-devices of the chosen node). This is the JAX package's Pallas megakernel
+NodeResourcesFit, node validity, NodePorts, Open-Gpu-Share, hard
+PodTopologySpread, InterPodAffinity), score the feasible ones
+(least-allocated + balanced + 2·Simon share + 2·soft spread, plus the
+NodeAffinity, TaintToleration and NodePreferAvoidPods tables and the
+inter-pod preferred score where present), take the lowest-index node among
+the best scores (or the pin of a forced pod), and bind it (usage, selector
+counts, host ports, GPU devices and inter-pod term counts of the chosen
+node). This is the JAX package's Pallas megakernel
 (``opensim_tpu/ops/pallas_scan.py``, ``_make_kernel`` through
 ``run_fast_scan``'s ``pl.pallas_call``) for the flags ``has_gpu`` (with
-``gc_row``), ``has_na``, ``has_tt`` and ``has_avoid``.
+``gc_row``), ``has_na``, ``has_tt``, ``has_avoid``, ``has_ports`` and
+``has_interpod``.
 
 - :func:`fast_scan` is the wrapper: on a CUDA tensor it launches
-  ``csrc/fast_scan.cu`` (built with ``nvcc`` at first use, bound with
-  ``ctypes``) or raises; on a CPU tensor it runs :func:`fast_scan_reference`.
+  ``csrc/fast_scan.cu`` (one shared object per kernel variant, built with
+  ``nvcc`` at first use and bound with ``ctypes``) or raises; on a CPU
+  tensor it runs :func:`fast_scan_reference`.
 - :func:`fast_scan_reference` is the plain PyTorch version: a Python loop
   over pods, vector ops over nodes, op for op the Pallas body's formulas.
   It runs on any device; the tests use it on the CPU, and the smoke script
@@ -21,10 +25,12 @@ devices of the chosen node). This is the JAX package's Pallas megakernel
 
 Layouts (N nodes, R ≤ 8 resources, U templates, A selectors, K zone keys
 with Z zone columns, Cs ≤ 8 spread constraints per template, Gd ≤ 8 GPUs
-per node, P pods): node-minor ``[X, N]`` tables, so neighbouring threads
-read neighbouring nodes. Float tables are float32, index tables int32. A
-feature that is off has zero-size tables (``gc_row`` -1), and the kernel
-variant that runs is chosen from them (:func:`variant`).
+per node, Hp host-port ids, Ti/Tn/Tp required-affinity/anti/preferred
+terms per template, G/Gp existing-pod anti/preferred term rows, P pods):
+node-minor ``[X, N]`` tables, so neighbouring threads read neighbouring
+nodes. Float tables are float32, index tables int32. A feature that is off
+has zero-size tables (``gc_row`` -1), and the kernel variant that runs is
+chosen from them (:func:`variant`).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Iterable, NamedTuple
 
 import torch
 
@@ -92,6 +98,30 @@ class FastInputs(NamedTuple):
     na_raw: torch.Tensor  # preferred node-affinity weights
     tt_raw: torch.Tensor  # intolerable PreferNoSchedule taint counts
     avoid_raw: torch.Tensor  # NodePreferAvoidPods raw score (0 or 100)
+    # host ports: [Hp, U] f32 each, [0, U] when off
+    port_HU: torch.Tensor  # how often the template uses port id h (the bind adds it)
+    port_conf_HU: torch.Tensor  # 0/1: port id h conflicts with one of the template's (wildcards expanded)
+    # inter-pod terms of the incoming pod: [U, T] each, [U, 0] when off; key
+    # 0 = hostname, 1..K = zone keys
+    at_active: torch.Tensor  # i32 required affinity (Ti), selector = all terms' conjunction
+    at_key: torch.Tensor  # i32
+    at_sel: torch.Tensor  # i32
+    at_self: torch.Tensor  # f32 0/1 the template matches the term's selector
+    an_active: torch.Tensor  # i32 required anti-affinity (Tn)
+    an_key: torch.Tensor  # i32
+    an_sel: torch.Tensor  # i32
+    pt_active: torch.Tensor  # i32 preferred terms (Tp)
+    pt_key: torch.Tensor  # i32
+    pt_sel: torch.Tensor  # i32
+    pt_w: torch.Tensor  # f32 signed weight (anti terms negative)
+    # existing pods' terms, one row per (selector, key): [G]/[G, U] anti,
+    # [Gp]/[Gp, U] preferred and hard-affinity weights; zero rows when off
+    anti_g_key: torch.Tensor  # i32 [G]
+    antig_GU: torch.Tensor  # f32 [G, U] 0/1 the template carries anti row g
+    gmatch_GU: torch.Tensor  # f32 [G, U] 0/1 the template matches row g's selector
+    prefg_key: torch.Tensor  # i32 [Gp]
+    prefg_GU: torch.Tensor  # f32 [Gp, U] signed weight the template carries on row g
+    pmatch_GU: torch.Tensor  # f32 [Gp, U] 0/1 the template matches row g's selector
     n_zones: int  # Z, zone columns of the count table (max over keys, >= 1)
     gc_row: int  # resource row of alibabacloud.com/gpu-count whose allocatable follows the GPUs, -1 off
 
@@ -103,16 +133,20 @@ class FastOutputs(NamedTuple):
     used: torch.Tensor  # [R, N] f32 final usage
     gpu_take: torch.Tensor  # [P, Gd] f32 GPU slots each pod took per device ([P, 0] without gpu)
     gpu_free: torch.Tensor  # [Gd, N] f32 final free memory per GPU ([0, N] without gpu)
+    port_used: torch.Tensor  # [Hp, N] f32 final host-port use per port id ([0, N] without ports)
 
 
 class Variant(NamedTuple):
-    """Kernel variant: which flag branches of the Pallas body it carries."""
+    """Kernel variant: which flag branches of the Pallas body it carries.
+    Field i is bit i of the variant number the CUDA build takes."""
 
     gpu: bool
     gc: bool
     na: bool
     tt: bool
     avoid: bool
+    ports: bool
+    interpod: bool
 
 
 def variant(fi: FastInputs) -> Variant:
@@ -122,33 +156,74 @@ def variant(fi: FastInputs) -> Variant:
         na=fi.na_raw.numel() > 0,
         tt=fi.tt_raw.numel() > 0,
         avoid=fi.avoid_raw.numel() > 0,
+        ports=fi.port_HU.shape[0] > 0,
+        interpod=any(n > 0 for n in (fi.at_active.shape[1], fi.an_active.shape[1], fi.pt_active.shape[1],
+                                     fi.anti_g_key.numel(), fi.prefg_key.numel())),
     )
+
+
+def _name(v: Variant) -> str:
+    on = [k for k, flag in v._asdict().items() if flag]
+    return f"fast_scan[{','.join(on)}]" if on else "fast_scan"
 
 
 def variant_name(fi: FastInputs) -> str:
     """``fast_scan`` for the base variant, else ``fast_scan[gpu,gc,...]``."""
-    on = [k for k, v in variant(fi)._asdict().items() if v]
-    return f"fast_scan[{','.join(on)}]" if on else "fast_scan"
+    return _name(variant(fi))
 
 
-_F32 = {"alloc_T", "used0_T", "static_pass", "aff_mask", "share_raw", "matches_AU",
-        "node_valid", "req", "cpu_nz", "mem_nz", "spr_skew", "spr_self", "spr_weight",
-        "gpu_mem", "gpu_cnt", "gpu0", "na_raw", "tt_raw", "avoid_raw"}
+def parse_variant(name: str) -> Variant:
+    """The :class:`Variant` of a :func:`variant_name` string."""
+    flags = set(name[len("fast_scan["):-1].split(",")) if name != "fast_scan" else set()
+    unknown = flags - set(Variant._fields)
+    if not name.startswith("fast_scan") or unknown:
+        raise ValueError(f"fast_scan: no kernel variant named {name!r}")
+    return Variant(*(f in flags for f in Variant._fields))
 
 
-def _shapes(fi: FastInputs) -> Tuple[int, int, int, int, int, int, int]:
+def _bits(v: Variant) -> int:
+    return sum(1 << i for i, flag in enumerate(v) if flag)
+
+
+_I32 = {"zone_idx", "pin", "spr_active", "spr_key", "spr_sel", "spr_hard", "at_active", "at_key",
+        "at_sel", "an_active", "an_key", "an_sel", "pt_active", "pt_key", "pt_sel", "anti_g_key",
+        "prefg_key"}
+#: Key and selector tables the kernel indexes with (checked against K and A).
+_KEYS = ("spr_key", "at_key", "an_key", "pt_key", "anti_g_key", "prefg_key")
+_SELS = ("spr_sel", "at_sel", "an_sel", "pt_sel")
+
+
+class _Dims(NamedTuple):
+    N: int
+    R: int
+    U: int
+    A: int
+    K: int
+    Cs: int
+    Gd: int
+    Hp: int
+    Ti: int
+    Tn: int
+    Tp: int
+    G: int
+    Gp: int
+
+
+def _dims(fi: FastInputs) -> _Dims:
     R, N = fi.alloc_T.shape
-    U = fi.static_pass.shape[0]
-    A = fi.matches_AU.shape[0]
-    K = fi.zone_idx.shape[0]
-    Cs = fi.spr_active.shape[1]
-    Gd = fi.gpu0.shape[0]
-    return N, R, U, A, K, Cs, Gd
+    return _Dims(
+        N=N, R=R, U=fi.static_pass.shape[0], A=fi.matches_AU.shape[0], K=fi.zone_idx.shape[0],
+        Cs=fi.spr_active.shape[1], Gd=fi.gpu0.shape[0], Hp=fi.port_HU.shape[0],
+        Ti=fi.at_active.shape[1], Tn=fi.an_active.shape[1], Tp=fi.pt_active.shape[1],
+        G=fi.anti_g_key.shape[0], Gp=fi.prefg_key.shape[0],
+    )
 
 
 def _check(fi: FastInputs, tmpl, valid, forced) -> None:
-    """Device, dtype, shape and contiguity of everything the kernel reads."""
-    N, R, U, A, K, Cs, Gd = _shapes(fi)
+    """Device, dtype, shape and contiguity of everything the kernel reads,
+    and the range of every key and selector index it follows."""
+    d = _dims(fi)
+    N, R, U, A, K, Cs, Gd = d.N, d.R, d.U, d.A, d.K, d.Cs, d.Gd
     v = variant(fi)
     want = {
         "alloc_T": (R, N), "used0_T": (R, N), "static_pass": (U, N), "aff_mask": (U, N),
@@ -156,14 +231,20 @@ def _check(fi: FastInputs, tmpl, valid, forced) -> None:
         "req": (U, R), "cpu_nz": (U,), "mem_nz": (U,), "pin": (U,),
         "gpu_mem": (U if v.gpu else 0,), "gpu_cnt": (U if v.gpu else 0,), "gpu0": (Gd, N),
         "na_raw": (U if v.na else 0, N), "tt_raw": (U if v.tt else 0, N),
-        "avoid_raw": (U if v.avoid else 0, N),
+        "avoid_raw": (U if v.avoid else 0, N), "port_HU": (d.Hp, U), "port_conf_HU": (d.Hp, U),
+        "anti_g_key": (d.G,), "antig_GU": (d.G, U), "gmatch_GU": (d.G, U),
+        "prefg_key": (d.Gp,), "prefg_GU": (d.Gp, U), "pmatch_GU": (d.Gp, U),
     }
     for f in ("spr_active", "spr_key", "spr_sel", "spr_skew", "spr_hard", "spr_self", "spr_weight"):
         want[f] = (U, Cs)
+    for prefix, T in (("at", d.Ti), ("an", d.Tn), ("pt", d.Tp)):
+        for f in ("active", "key", "sel"):
+            want[f"{prefix}_{f}"] = (U, T)
+    want["at_self"], want["pt_w"] = (U, d.Ti), (U, d.Tp)
     dev = fi.alloc_T.device
     for name, shape in want.items():
         t = getattr(fi, name)
-        dt = torch.float32 if name in _F32 else torch.int32
+        dt = torch.int32 if name in _I32 else torch.float32
         if t.device != dev or t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(
                 f"fast_scan: {name} is {t.dtype}{tuple(t.shape)} on {t.device} "
@@ -183,6 +264,11 @@ def _check(fi: FastInputs, tmpl, valid, forced) -> None:
         raise ValueError(
             f"fast_scan: gpu tables ({Gd} GPU rows, {fi.gpu_mem.numel()} templates) and gc_row={fi.gc_row} disagree"
         )
+    for names, hi in ((_KEYS, K), (_SELS, A - 1)):
+        for name in names:
+            t = getattr(fi, name)
+            if t.numel() and (int(t.min()) < 0 or int(t.max()) > hi):
+                raise ValueError(f"fast_scan: {name} holds an index outside [0, {hi}]")
 
 
 # ---------------------------------------------------------------------------
@@ -198,14 +284,24 @@ class _Args(ctypes.Structure):
         "static_pass", "aff_mask", "share_raw", "matches", "req", "cpu_nz", "mem_nz",
         "pin", "spr_active", "spr_key", "spr_sel", "spr_skew", "spr_hard", "spr_self",
         "spr_weight", "gpu_mem", "gpu_cnt", "gpu0", "na_raw", "tt_raw", "avoid_raw",
+        "port_hu", "port_conf", "at_active", "at_key", "at_sel", "at_self",
+        "an_active", "an_key", "an_sel", "pt_active", "pt_key", "pt_sel", "pt_w",
+        "anti_g_key", "antig", "gmatch", "prefg_key", "prefg", "pmatch",
         "chosen", "used", "node_cnt", "zone_cnt", "gpu_take", "gpu_free",
+        "port_used", "anti_node", "anti_zone", "prefw_node", "prefw_zone", "sel_total",
     )] + [(n, ctypes.c_int32) for n in (
-        "P", "N", "R", "U", "A", "K", "Z", "Cs", "Gd", "gc_row", "has_gpu", "has_na", "has_tt", "has_avoid",
+        "P", "N", "R", "U", "A", "K", "Z", "Cs", "Gd", "gc_row", "Hp", "Ti", "Tn", "Tp", "G", "Gp",
+        "has_gpu", "has_na", "has_tt", "has_avoid", "has_ports", "has_interpod",
     )]
 
 
-_LIB: Optional[ctypes.CDLL] = None
-BUILD_LOG = {"seconds": None, "ptxas": "", "library": None}
+#: Loaded shared objects by variant name; one per variant, each holding
+#: only its own instantiation of the kernel.
+_LIBS: Dict[str, ctypes.CDLL] = {}
+#: The last build() call: its wall-clock seconds, and per variant name the
+#: library, the nvcc seconds (None when the library was already built) and
+#: ptxas's report.
+BUILD_LOG: Dict[str, object] = {"seconds": None, "variants": {}}
 
 
 def _nvcc() -> str:
@@ -218,51 +314,76 @@ def _nvcc() -> str:
     raise RuntimeError("fast_scan: nvcc not found (needs the CUDA toolkit)")
 
 
-def build() -> ctypes.CDLL:
-    """Compile csrc/fast_scan.cu into ``_build/`` (once per source content)
-    and load it. Raises when the build fails; there is no fallback."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    src = _SRC.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"fast_scan-{tag}.so"
+def _lib_path(v: Variant) -> Path:
+    bits = _bits(v)
+    tag = hashlib.sha1(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode() + str(bits).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"fast_scan-{tag}-v{bits}.so"
+
+
+def build(names: Iterable[str]) -> None:
+    """Compile and load the named kernel variants (:func:`variant_name`
+    strings): one ``nvcc -DFS_VARIANT=<bits>`` per variant not yet built,
+    all started together, into ``_build/`` (cached by source, flags and
+    variant). Raises when a build fails; there is no fallback."""
     t0 = time.perf_counter()
-    if not lib_path.exists():
-        tmp = lib_path.with_suffix(f".{time.time_ns()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-            capture_output=True, text=True,
-        )
+    todo = {n: parse_variant(n) for n in names if n not in _LIBS}
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, v in todo.items():
+        path = _lib_path(v)
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{time.time_ns()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, f"-DFS_VARIANT={_bits(v)}", "-o", str(tmp), str(_SRC)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+                       tmp, path, time.perf_counter())
+    log: Dict[str, dict] = {}
+    failed = []
+    for name, (proc, tmp, path, started) in procs.items():
+        _out, err = proc.communicate()
+        log[name] = {"library": str(path), "seconds": time.perf_counter() - started, "ptxas": err}
         if proc.returncode != 0:
-            raise RuntimeError(f"fast_scan: nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        tmp.replace(lib_path)
-        BUILD_LOG["ptxas"] = proc.stderr
-    lib = ctypes.CDLL(str(lib_path))
-    lib.fast_scan_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-    lib.fast_scan_launch.restype = ctypes.c_int
+            failed.append(f"{name} ({proc.returncode}):\n{err}")
+        else:
+            tmp.replace(path)
+    if failed:
+        raise RuntimeError("fast_scan: nvcc failed for " + "\n".join(failed))
+    for name, v in todo.items():
+        path = _lib_path(v)
+        lib = ctypes.CDLL(str(path))
+        lib.fast_scan_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+        lib.fast_scan_launch.restype = ctypes.c_int
+        _LIBS[name] = lib
+        log.setdefault(name, {"library": str(path), "seconds": None, "ptxas": ""})
     BUILD_LOG["seconds"] = time.perf_counter() - t0
-    BUILD_LOG["library"] = str(lib_path)
-    _LIB = lib
-    return lib
+    BUILD_LOG["variants"] = log
 
 
 def _launch(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     global LAUNCHES
     _check(fi, tmpl, valid, forced)
-    lib = build()
-    N, R, U, A, K, Cs, Gd = _shapes(fi)
+    name = variant_name(fi)
+    build([name])
+    lib = _LIBS[name]
+    d = _dims(fi)
+    N, R, A, K, Gd = d.N, d.R, d.A, d.K, d.Gd
     P, Z = tmpl.shape[0], fi.n_zones
     v = variant(fi)
     dev = fi.alloc_T.device
     f32 = torch.float32
+    empty = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
     chosen = torch.empty((P,), dtype=torch.int32, device=dev)
-    used = torch.empty((R, N), dtype=f32, device=dev)
-    node_cnt = torch.empty((A, N), dtype=f32, device=dev)  # zeroed by the kernel
-    zone_cnt = torch.empty((K * A, Z), dtype=f32, device=dev)
+    used = empty(R, N)
+    node_cnt = empty(A, N)  # zeroed by the kernel, as every count below
+    zone_cnt = empty(K * A, Z)
     gpu_take = torch.zeros((P, Gd), dtype=f32, device=dev)  # the kernel writes bound pods' rows only
-    gpu_free = torch.empty((Gd, N), dtype=f32, device=dev)  # gpu0 copied in by the kernel
+    gpu_free = empty(Gd, N)  # gpu0 copied in by the kernel
+    port_used = empty(d.Hp, N)
+    anti_node, anti_zone = empty(d.G, N), empty(d.G, Z)
+    prefw_node, prefw_zone = empty(d.Gp, N), empty(d.Gp, Z)
+    sel_total = empty((K + 1) * A if v.interpod else 0)
     ptr = lambda t: t.data_ptr()
     args = _Args(
         ptr(tmpl), ptr(valid), ptr(forced), ptr(fi.alloc_T), ptr(fi.used0_T),
@@ -271,8 +392,14 @@ def _launch(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
         ptr(fi.pin), ptr(fi.spr_active), ptr(fi.spr_key), ptr(fi.spr_sel), ptr(fi.spr_skew),
         ptr(fi.spr_hard), ptr(fi.spr_self), ptr(fi.spr_weight),
         ptr(fi.gpu_mem), ptr(fi.gpu_cnt), ptr(fi.gpu0), ptr(fi.na_raw), ptr(fi.tt_raw), ptr(fi.avoid_raw),
+        ptr(fi.port_HU), ptr(fi.port_conf_HU), ptr(fi.at_active), ptr(fi.at_key), ptr(fi.at_sel),
+        ptr(fi.at_self), ptr(fi.an_active), ptr(fi.an_key), ptr(fi.an_sel), ptr(fi.pt_active),
+        ptr(fi.pt_key), ptr(fi.pt_sel), ptr(fi.pt_w), ptr(fi.anti_g_key), ptr(fi.antig_GU),
+        ptr(fi.gmatch_GU), ptr(fi.prefg_key), ptr(fi.prefg_GU), ptr(fi.pmatch_GU),
         ptr(chosen), ptr(used), ptr(node_cnt), ptr(zone_cnt), ptr(gpu_take), ptr(gpu_free),
-        P, N, R, U, A, K, Z, Cs, Gd, fi.gc_row, int(v.gpu), int(v.na), int(v.tt), int(v.avoid),
+        ptr(port_used), ptr(anti_node), ptr(anti_zone), ptr(prefw_node), ptr(prefw_zone), ptr(sel_total),
+        P, N, R, d.U, A, K, Z, d.Cs, Gd, fi.gc_row, d.Hp, d.Ti, d.Tn, d.Tp, d.G, d.Gp,
+        int(v.gpu), int(v.na), int(v.tt), int(v.avoid), int(v.ports), int(v.interpod),
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -280,16 +407,16 @@ def _launch(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     if err != 0:
         raise RuntimeError(f"fast_scan: kernel launch failed (cudaError {err})")
     LAUNCHES += 1
-    name = variant_name(fi)
     VARIANT_LAUNCHES[name] = VARIANT_LAUNCHES.get(name, 0) + 1
-    return FastOutputs(chosen, used, gpu_take, gpu_free)
+    return FastOutputs(chosen, used, gpu_take, gpu_free, port_used)
 
 
 def fast_scan(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     """Run the bind scan over the pod stream. ``tmpl``/``valid``/``forced``
     are int32 ``[P]`` tensors on the inputs' device. Returns the chosen
     nodes (-1 for a pod that did not bind), the final usage, each pod's GPU
-    slots per device and the final free memory per GPU.
+    slots per device, the final free memory per GPU and the final host-port
+    use.
 
     On a CUDA device this launches the kernel (one launch for the stream)
     or raises; on the CPU it runs the plain version."""
@@ -307,15 +434,20 @@ def fast_scan(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
 
 def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     """Plain PyTorch bind scan on any device: the Pallas body's formulas op
-    for op (pallas_scan.py:395-782), one torch op at a time, so each float
-    op rounds once as on the card. The template ids and the spread
-    constraints' integer fields come to the host once, before the loop, so
-    a template's rows are views and the constraint branches are Python
-    branches; the bind indexes the chosen node with a one-element tensor.
-    So nothing inside the loop waits for the device. Sums and prefix sums
-    over GPUs run device by device, in the Pallas body's order; only exact
-    ops (min, counts of 0/1 flags) are vectorised over them."""
-    N, R, U, A, K, Cs, Gd = _shapes(fi)
+    for op (pallas_scan.py:395-854), one torch op at a time, so each float
+    op rounds once as on the card. The template ids, the spread and
+    inter-pod terms' integer fields and the rows each template's port and
+    symmetric terms touch come to the host once, before the loop, so a
+    template's rows are views and the term branches are Python branches;
+    the bind indexes the chosen node with a one-element tensor. So nothing
+    inside the loop waits for the device. Sums and prefix sums over GPUs
+    run device by device, in the Pallas body's order; only exact ops (min,
+    counts of 0/1 flags, integer counts and weights below 2^24) are
+    vectorised over them or summed in another order. The Pallas body's
+    inter-pod and port dots are such sums: no matmul here, which on the
+    card could round through TF32."""
+    d = _dims(fi)
+    N, R, U, A, K, Cs, Gd = d.N, d.R, d.U, d.A, d.K, d.Cs, d.Gd
     Z = fi.n_zones
     v = variant(fi)
     dev = fi.alloc_T.device
@@ -342,11 +474,55 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     chosen = torch.empty((P,), dtype=torch.int32, device=dev)
     gpu_free = fi.gpu0.clone()
     gpu_take = torch.zeros((P, Gd), dtype=f32, device=dev)
+    port_used = torch.zeros((d.Hp, N), dtype=f32, device=dev)
     if v.gc:
         # devices a node has (gpu0 > 0) never change: the count of its
         # not-fully-used devices is a sum of 0/1 flags, exact in any order
         gc_valid = (fi.gpu0 > 0).to(f32)  # [Gd, N]
         gc_has_dev = gc_valid.amax(0) if Gd else torch.zeros((N,), dtype=f32, device=dev)
+    if v.ports:
+        # per template: the port ids that conflict with its own
+        conf = fi.port_conf_HU.t().tolist()  # [U][Hp]
+        conf_rows = [[(h, w) for h, w in enumerate(row) if w != 0] for row in conf]
+    if v.interpod:
+        at = [t.tolist() for t in (fi.at_active, fi.at_key, fi.at_sel, fi.at_self)]
+        an = [t.tolist() for t in (fi.an_active, fi.an_key, fi.an_sel)]
+        pt = [t.tolist() for t in (fi.pt_active, fi.pt_key, fi.pt_sel)]
+        g_key, p_key = fi.anti_g_key.tolist(), fi.prefg_key.tolist()
+        # per template: the existing-pod term rows whose selector it matches
+        # (0/1 matches; the other rows add exact zeros in the Pallas dots)
+        g_rows = [[(g, m) for g, m in enumerate(row) if m != 0] for row in fi.gmatch_GU.t().tolist()]
+        p_rows = [[(g, m) for g, m in enumerate(row) if m != 0] for row in fi.pmatch_GU.t().tolist()]
+        anti_node = torch.zeros((d.G, N), dtype=f32, device=dev)
+        prefw_node = torch.zeros((d.Gp, N), dtype=f32, device=dev)
+        # zone rows in each row's own key space, with the "no label" column Z
+        anti_zone = torch.zeros((d.G, Z + 1), dtype=f32, device=dev)
+        prefw_zone = torch.zeros((d.Gp, Z + 1), dtype=f32, device=dev)
+
+        def row_gather(keys):  # per row: the node's column under the row's key, and its label
+            col = torch.full((len(keys), N), Z, dtype=torch.long, device=dev)
+            has = torch.zeros((len(keys), N), dtype=f32, device=dev)
+            for g, k in enumerate(keys):
+                if k > 0:
+                    col[g], has[g] = zone_col[k - 1], has_zone[k - 1]
+            return col, has
+
+        g_col, g_has = row_gather(g_key)
+        p_col, p_has = row_gather(p_key)
+
+    def sel_cnt(key, sel):
+        """Count of bound pods matching selector `sel` in each node's domain
+        under `key` (0 = hostname, 1..K = zone keys), and the label row."""
+        if key == 0:
+            return node_cnt[sel], ones_n
+        return zone_cnt[key - 1, sel][zone_col[key - 1]], has_zone[key - 1]
+
+    def term_cnt(node_rows, zone_rows, g, key):
+        """Row g of a per-term count table at every node: the node row for
+        a hostname term, else the row's zone column (0 without the label)."""
+        if key == 0:
+            return node_rows[g]
+        return zone_rows[g][zone_col[key - 1]]
 
     for i in range(P):
         u = tmpl[i]
@@ -364,13 +540,20 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
             fit = fit * torch.where(req_u[r] > 0, 1.0 - over, 1.0)
         feasible = fi.static_pass[u] * fit * valid_row
 
+        if v.ports:
+            # NodePorts (:425-441): a conflicting port already used there
+            conflicts = zero
+            for h, w in conf_rows[u]:
+                conflicts = conflicts + w * (port_used[h] > 0).to(f32)
+            feasible = feasible * (conflicts == 0).to(f32)
+
         if v.gpu:
             # Open-Gpu-Share filter: sum_d floor(free_d / mem) >= count
             gmem, gcnt = fi.gpu_mem[u], fi.gpu_cnt[u]
             gmem1 = torch.clamp(gmem, min=1.0)
             chunks_sum = torch.zeros((N,), dtype=f32, device=dev)
-            for d in range(Gd):
-                chunks_sum = chunks_sum + torch.floor(gpu_free[d] / gmem1)
+            for d_ in range(Gd):
+                chunks_sum = chunks_sum + torch.floor(gpu_free[d_] / gmem1)
             gpu_ok = ((chunks_sum >= gcnt) & (gcnt > 0)).to(f32)
             feasible = torch.where(gmem > 0, feasible * gpu_ok, feasible)
 
@@ -384,10 +567,7 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
                 continue  # an inactive constraint changes nothing
             key, sel = spr_key[u][c], spr_sel[u][c]
             skew = fi.spr_skew[u, c]
-            if key == 0:
-                cnt, has_label = node_cnt[sel], ones_n
-            else:
-                cnt, has_label = zone_cnt[key - 1, sel][zone_col[key - 1]], has_zone[key - 1]
+            cnt, has_label = sel_cnt(key, sel)
             if spr_hard[u][c] == 1:
                 elig = aff_row * has_label
                 masked = torch.where(elig > 0, cnt, BIG)
@@ -399,6 +579,42 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
                 soft_raw = soft_raw + contrib
                 ignored = torch.maximum(ignored, 1.0 - has_label)
                 any_soft = True
+
+        if v.interpod:
+            # --- InterPodAffinity (:503-586); every count and weight below
+            # is an integer under 2^24 (fastpath.why_not), so these sums are
+            # exact in any order
+            for t in range(d.Tn):  # incoming required anti-affinity
+                if an[0][u][t] == 1:
+                    cnt, has_label = sel_cnt(an[1][u][t], an[2][u][t])
+                    feasible = feasible * (1.0 - ((cnt > 0) & (has_label > 0)).to(f32))
+            at_terms = [t for t in range(d.Ti) if at[0][u][t] == 1]
+            if at_terms:  # incoming required affinity, with the bootstrap
+                at_all_ok, at_labels_ok, at_map_total, at_self_all = ones_n, ones_n, zero, 1.0
+                for t in at_terms:
+                    key, sel = at[1][u][t], at[2][u][t]
+                    cnt, has_label = sel_cnt(key, sel)
+                    total = node_cnt[sel].sum() if key == 0 else zone_cnt[key - 1, sel, :Z].sum()
+                    at_all_ok = at_all_ok * ((cnt > 0) & (has_label > 0)).to(f32)
+                    at_labels_ok = at_labels_ok * (has_label > 0).to(f32)
+                    at_map_total = at_map_total + total
+                    at_self_all = at_self_all * (1.0 if at[3][u][t] > 0 else 0.0)
+                at_bootstrap = ((at_map_total == 0) & (at_self_all > 0)).to(f32)
+                feasible = feasible * torch.maximum(at_all_ok, at_labels_ok * at_bootstrap)
+            # existing pods' anti terms against this pod
+            sym_cnt = zero
+            for g, m in g_rows[u]:
+                sym_cnt = sym_cnt + m * term_cnt(anti_node, anti_zone, g, g_key[g])
+            feasible = feasible * (1.0 - (sym_cnt > 0).to(f32))
+            # raw score: incoming preferred terms, then the existing pods'
+            # preferred and hard-affinity weights
+            ip_raw = torch.zeros((N,), dtype=f32, device=dev)
+            for t in range(d.Tp):
+                if pt[0][u][t] == 1:
+                    cnt, has_label = sel_cnt(pt[1][u][t], pt[2][u][t])
+                    ip_raw = ip_raw + cnt * fi.pt_w[u, t] * has_label
+            for g, m in p_rows[u]:
+                ip_raw = ip_raw + m * term_cnt(prefw_node, prefw_zone, g, p_key[g])
 
         # --- scores
         alloc_cpu = fi.alloc_T[V.RES_CPU]
@@ -469,6 +685,15 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
             )
         if v.avoid:
             score = score + AVOID_WEIGHT * fi.avoid_raw[u]
+        if v.interpod:
+            # inter-pod score, min-max normalised with both ends seeded at 0 (:703-711)
+            ip_masked = torch.where(feas_b, ip_raw, 0.0)
+            ip_hi = torch.clamp(torch.max(ip_masked), min=0.0)
+            ip_lo = torch.clamp(torch.min(ip_masked), max=0.0)
+            ip_rng = ip_hi - ip_lo
+            score = score + torch.where(
+                ip_rng > 0, MAX_SCORE * (ip_raw - ip_lo) / torch.clamp(ip_rng, min=1.0), 0.0
+            )
 
         # --- selectHost: lowest index among the maxima; pins for forced pods
         masked_score = torch.where(feas_b, score, NEG)
@@ -492,6 +717,9 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
             z = zone_col[kk][c]
             zone_k = zone_cnt[kk]  # [A, Z + 1] view
             zone_k[:, z] = zone_k[:, z] + (m_col * has_zone[kk][c])[:, None]
+        if v.ports:
+            # the template's own ports, not the conflict rows (:754-758)
+            port_used[:, c] = port_used[:, c] + (fi.port_HU[:, u] * bind_f)[:, None]
         if v.gpu and Gd:
             # device packing on the chosen node (:759-782): one GPU takes
             # the tightest fit (first among equals), several take greedy
@@ -505,16 +733,26 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
             chunks = torch.floor(free / torch.clamp(gmem, min=1.0))
             cum = torch.empty_like(chunks)  # exclusive prefix, added device by device
             acc = zero
-            for d in range(Gd):
-                cum[d] = acc
-                acc = acc + chunks[d]
+            for d_ in range(Gd):
+                cum[d_] = acc
+                acc = acc + chunks[d_]
             take_greedy = torch.minimum(torch.clamp(gcnt - cum, min=0.0), chunks)
             take = torch.where(gcnt == 1, take_tight, take_greedy)
             take = torch.where(gmem > 0, take, 0.0)
             gpu_free[:, c] = (free - take * gmem * bind_f)[:, None]
             gpu_take[i] = take * bind_f
+        if v.interpod:
+            # term counts (:836-854): the node row, and the zone row under
+            # the row's own key where the chosen node carries that label
+            for rows, node_rows, zone_rows, col, has in (
+                (fi.antig_GU, anti_node, anti_zone, g_col, g_has),
+                (fi.prefg_GU, prefw_node, prefw_zone, p_col, p_has),
+            ):
+                add = rows[:, u] * bind_f  # [G]
+                node_rows[:, c] = node_rows[:, c] + add[:, None]
+                zone_rows.scatter_add_(1, col[:, c], (add * has[:, c][:, 0])[:, None])
 
-    return FastOutputs(chosen, used, gpu_take, gpu_free)
+    return FastOutputs(chosen, used, gpu_take, gpu_free, port_used)
 
 
 # ---------------------------------------------------------------------------
@@ -533,6 +771,13 @@ _OPS_PER_NODE = 48
 _GPU_FILTER_PER_GD, _GPU_FILTER = 3, 4
 _GC_PER_GD, _GC = 4, 11
 _NA, _TT, _AVOID = 6, 7, 2
+#: NodePorts: 3 per conflicting port id of the template (compare, multiply,
+#: add) plus 2 (the test and the product). InterPodAffinity: 4 per active
+#: incoming anti or affinity term, 3 per active preferred term, 2 per
+#: existing-pod row whose selector the template matches, 4 for the filter
+#: products and bootstrap, 10 for the score's reductions and normalisation.
+_PORT_PER_ROW, _PORT = 3, 2
+_IP_REQ_TERM, _IP_PREF_TERM, _IP_ROW, _IP = 4, 3, 2, 14
 #: Per bound pod: the device packing, 14 per GPU.
 _GPU_BIND_PER_GD = 14
 
@@ -545,19 +790,20 @@ def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen) -> dict:
     """Bytes the scan must move (each input read once, each output written
     once) and float ops that this stream's pods need, over the valid node
     lanes only (padding lanes need no work): a scheduled pod does the
-    per-node work of its own template's active constraints and of the
-    variant's flag branches, a pod that bound (``chosen`` >= 0, the scan's
-    result) its bind."""
-    N, R, U, A, K, Cs, Gd = _shapes(fi)
+    per-node work of its own template's active constraints, terms, port
+    conflicts and matched term rows and of the variant's flag branches, a
+    pod that bound (``chosen`` >= 0, the scan's result) its bind."""
+    d = _dims(fi)
+    R, A, K, Gd = d.R, d.A, d.K, d.Gd
     v = variant(fi)
     n_valid = int((fi.node_valid != 0).sum())
     in_bytes = sum(t.numel() * t.element_size() for t in (tmpl, valid, forced))
     for name, t in fi._asdict().items():
         if isinstance(t, torch.Tensor):
-            lanes = n_valid / N if name in _NODE_AXIS else 1
+            lanes = n_valid / d.N if name in _NODE_AXIS else 1
             in_bytes += int(t.numel() * lanes) * t.element_size()
     P = int(tmpl.shape[0])
-    out_bytes = P * 4 + R * n_valid * 4 + P * Gd * 4 + Gd * n_valid * 4
+    out_bytes = P * 4 + (R + Gd + d.Hp) * n_valid * 4 + P * Gd * 4
     tm = tmpl.long().cpu()
     vd = valid.cpu() != 0
     fd = forced.cpu() != 0
@@ -570,6 +816,15 @@ def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen) -> dict:
         per_node = per_node + asks * (_GPU_FILTER_PER_GD * Gd + _GPU_FILTER)
         per_bind = per_bind + asks * (_GPU_BIND_PER_GD * Gd)
     per_node = per_node + v.gc * (_GC_PER_GD * Gd + _GC) + v.na * _NA + v.tt * _TT + v.avoid * _AVOID
+    if v.ports:
+        per_node = per_node + _PORT + _PORT_PER_ROW * (fi.port_conf_HU.cpu() != 0).sum(0)[tm]
+        per_bind = per_bind + d.Hp
+    if v.interpod:
+        count = lambda t: (t.cpu() == 1).sum(1)[tm] if t.shape[1] else torch.zeros(P, dtype=torch.int64)
+        rows = (fi.gmatch_GU.cpu() != 0).sum(0)[tm] + (fi.pmatch_GU.cpu() != 0).sum(0)[tm]
+        per_node = (per_node + _IP + _IP_REQ_TERM * (count(fi.at_active) + count(fi.an_active))
+                    + _IP_PREF_TERM * count(fi.pt_active) + _IP_ROW * rows)
+        per_bind = per_bind + 2 * (d.G + d.Gp) + A * (1 + K)
     sched = vd & ~fd
     ops = int((per_node[sched] * n_valid).sum()) + int(per_bind[bound].sum())
     return {"bytes": in_bytes + out_bytes, "ops": ops}

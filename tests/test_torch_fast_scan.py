@@ -1,8 +1,9 @@
 """Bind-scan parity: the port's plain version against the JAX package on
 the same prepared inputs (the reference's FastInputs handed across as
 numpy), and the port's own marshalling against those inputs. Placements
-must be identical, and `used`, the GPU takes and the final GPU state equal
-to rtol=0, atol=0: one ulp would flip a score tie."""
+must be identical, and `used`, the GPU takes, the final GPU state and the
+final host-port use equal to rtol=0, atol=0: one ulp would flip a score
+tie."""
 
 import copy
 import ctypes
@@ -60,19 +61,23 @@ def _reference_inputs(ref):
     """The JAX package's FastInputs of `ref`, carried across to the port."""
     fi_ref, meta = ref_fastpath.build_inputs(ref)
     arrays = {k: np.asarray(v) for k, v in fi_ref._asdict().items()}
-    gc_row = ref_kernels.gc_row_of(ref.ec_np) if ref.features.gc_dyn else -1
+    ec = ref.ec_np
+    gc_row = ref_kernels.gc_row_of(ec) if ref.features.gc_dyn else -1
+    n_ports = int(np.asarray(ec.ports).max()) + 1
     return fastpath.inputs_from_reference(
-        arrays, "cpu", ref.features, gc_row, n_nodes=meta["n_orig"], n_gpus=ref.st0.gpu_free.shape[1]
+        arrays, "cpu", ref.features, gc_row, n_nodes=meta["n_orig"], n_gpus=ref.st0.gpu_free.shape[1],
+        n_ports=n_ports, n_anti=ec.anti_g_sel.shape[0], n_pref=ec.prefg_sel.shape[0],
     ), meta
 
 
 def _port_on_reference_inputs(ref):
-    """(chosen [P], used [N, R], gpu_take [P, Gd], gpu_free [N, Gd]) of the
-    plain version; the GPU arrays are None when no pod asks GPU memory."""
+    """(chosen [P], used [N, R], gpu_take [P, Gd], gpu_free [N, Gd],
+    port_used [N, Hp]) of the plain version; the GPU arrays are None when
+    no pod asks GPU memory."""
     fi, _ = _reference_inputs(ref)
     out = fs.fast_scan_reference(fi, *_stream(ref))
     gpu = (out.gpu_take.numpy(), out.gpu_free.T.numpy()) if ref.features.gpu else (None, None)
-    return (out.chosen.numpy(), out.used.T.numpy()) + gpu
+    return (out.chosen.numpy(), out.used.T.numpy()) + gpu + (out.port_used.T.numpy(),)
 
 
 def _exact(got, want):
@@ -87,9 +92,13 @@ def test_plain_version_matches_xla_scan(name):
     P = len(ref.ordered)
     t, v, f = pad_pod_stream(ref.tmpl_ids, np.ones(P, bool), ref.forced)
     out = schedule_pods(ref.ec, ref.st0, t, v, f, features=ref.features)
-    chosen, used, gpu_take, gpu_free = _port_on_reference_inputs(ref)
+    chosen, used, gpu_take, gpu_free, port_used = _port_on_reference_inputs(ref)
     np.testing.assert_array_equal(chosen, np.asarray(out.chosen)[:P])
     _exact(used, np.asarray(out.final_state.used))
+    want_ports = np.asarray(out.final_state.port_used)  # [N, Hports], every port id of the vocabulary
+    Hp = port_used.shape[1]
+    _exact(port_used, want_ports[:, :Hp])
+    assert not want_ports[:, Hp:].any() and (Hp > 0) == ref.features.ports
     if ref.features.gpu:
         _exact(gpu_take, np.asarray(out.gpu_take)[:P])
         _exact(gpu_free, np.asarray(out.final_state.gpu_free))
@@ -97,16 +106,16 @@ def test_plain_version_matches_xla_scan(name):
     else:  # without GPU-share pods the XLA scan leaves the GPUs alone
         assert not np.asarray(out.gpu_take).any()
         _exact(np.asarray(out.final_state.gpu_free), np.asarray(ref.st0.gpu_free))
-    if name != "ties":  # the cases do exercise failures
+    if name not in ("ties", "two_keys", "interpod_small"):  # the cases do exercise failures
         assert (chosen < 0).any()
 
 
-@pytest.mark.parametrize("name", ["spread", "forced", "gpu_dyn", "scores"])
+@pytest.mark.parametrize("name", ["spread", "forced", "gpu_dyn", "scores", "interpod", "interpod_terms", "ports"])
 def test_plain_version_matches_pallas_interpret(name):
     ref = _ref_prep(name)
     P = len(ref.ordered)
     want = ref_fastpath.schedule(ref, ref.tmpl_ids, np.ones(P, bool), ref.forced, interpret=True)
-    chosen, used, gpu_take, gpu_free = _port_on_reference_inputs(ref)
+    chosen, used, gpu_take, gpu_free, _ports = _port_on_reference_inputs(ref)
     np.testing.assert_array_equal(chosen, want[0])
     _exact(used, want[1])
     if ref.features.gpu:
@@ -116,7 +125,7 @@ def test_plain_version_matches_pallas_interpret(name):
 
 def test_forced_gpu_pods_take_no_device_where_none_fits():
     ref = _ref_prep("gpu_forced")
-    chosen, _used, gpu_take, _free = _port_on_reference_inputs(ref)
+    chosen, _used, gpu_take, _free, _ports = _port_on_reference_inputs(ref)
     # the four bound pods lead the stream: 4 GiB on g0, then 10 GiB (one and
     # two GPUs) and 6 GiB on two GPUs, all on g1 (8 GiB GPUs)
     assert ref.forced[:4].all() and chosen[:4].tolist() == [0, 1, 1, 1]
@@ -153,7 +162,11 @@ def test_wrapper_on_cpu_runs_the_plain_version(name):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     P, Gd = len(port.tmpl_ids), fi.gpu0.shape[0]
     assert a.gpu_take.shape == (P, Gd) and a.gpu_free.shape == (Gd, fi.alloc_T.shape[1])
-    assert fs.variant(fi).gpu == port.features.gpu == (Gd > 0)
+    assert a.port_used.shape == (fi.port_HU.shape[0], fi.alloc_T.shape[1])
+    v = fs.variant(fi)
+    assert v.gpu == port.features.gpu == (Gd > 0)
+    assert v.ports == port.features.ports and v.interpod == (port.features.interpod or port.features.prefg)
+    assert fs.parse_variant(fs.variant_name(fi)) == v
 
 
 def test_invalid_pods_bind_nothing():
@@ -232,6 +245,43 @@ def test_work_counts_the_flag_branches():
     all_bound = fs.fast_scan_work(fi, *stream, torch.zeros_like(chosen))
     assert (chosen < 0).any() and all_bound["ops"] > w["ops"]  # a pod that did not bind binds nothing
     assert fs.variant_name(fi) == "fast_scan[gpu,gc]" and fs.variant_name(base) == "fast_scan"
+
+
+def test_work_counts_the_port_and_interpod_branches():
+    for name, off in (
+        ("ports", lambda fi, U: fi._replace(port_HU=fi.port_HU[:0], port_conf_HU=fi.port_conf_HU[:0])),
+        ("interpod", lambda fi, U: fi._replace(**{k: torch.from_numpy(t) for k, t in fastpath._no_terms(U).items()})),
+    ):
+        port = _port_prep(name)
+        fi, _ = fastpath.build_inputs(port)
+        stream = _stream(port)
+        base = off(fi, fi.req.shape[0])
+        assert fs.variant(base) == fs.variant(fi)._replace(**{name: False})
+        chosen = fs.fast_scan_reference(fi, *stream).chosen
+        w, w_base = fs.fast_scan_work(fi, *stream, chosen), fs.fast_scan_work(base, *stream, chosen)
+        assert w["ops"] > w_base["ops"] and w["bytes"] > w_base["bytes"], name
+
+
+def test_launcher_checks_term_indices():
+    port = _port_prep("interpod")
+    fi, _ = fastpath.build_inputs(port)
+    stream = _stream(port)
+    fs._check(fi, *stream)
+    K, A = fi.zone_idx.shape[0], fi.matches_AU.shape[0]
+    with pytest.raises(ValueError, match="an_key"):
+        fs._check(fi._replace(an_key=torch.full_like(fi.an_key, K + 1)), *stream)
+    with pytest.raises(ValueError, match="pt_sel"):
+        fs._check(fi._replace(pt_sel=torch.full_like(fi.pt_sel, A)), *stream)
+    with pytest.raises(ValueError, match="gmatch_GU"):
+        fs._check(fi._replace(gmatch_GU=fi.gmatch_GU[:, :-1].contiguous()), *stream)
+
+
+def test_variant_names_round_trip():
+    for bits in range(1 << len(fs.Variant._fields)):
+        v = fs.Variant(*(bool(bits >> i & 1) for i in range(len(fs.Variant._fields))))
+        assert fs.parse_variant(fs._name(v)) == v and fs._bits(v) == bits
+    with pytest.raises(ValueError, match="no kernel variant"):
+        fs.parse_variant("fast_scan[local]")
 
 
 def _struct_fields(src: str):

@@ -39,11 +39,12 @@ def test_kernel_matches_plain_version_on_card(name, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("plan", ["capacity", "gpu"])
+@pytest.mark.parametrize("plan", ["capacity", "gpu", "interpod"])
 def test_simulate_on_card_launches_once(plan, cuda_device):
     make = {
         "capacity": lambda: (fx.synthetic_cluster(64), fx.synthetic_apps(640)),
         "gpu": lambda: (fx.gpu_cluster(64), fx.gpu_apps(640)),
+        "interpod": lambda: (fx.synthetic_cluster(64), fx.affinity_apps(640)),
     }[plan]
     cluster, apps = make()
     before = fs.LAUNCHES

@@ -109,6 +109,42 @@ def test_simulate_matches_reference_on_gpushare_example():
     assert res.gpu_take.shape == (7, 4) and res.gpu_free.shape == (len(names), 4)
 
 
+def test_simulate_matches_reference_on_mixed_example():
+    """Host ports, required and preferred inter-pod terms and hard and soft
+    spread together (example/cluster/demo + example/application/mixed)."""
+    def load(pkg):
+        cluster = pkg.load_cluster_from_dir("example/cluster/demo")
+        app, _ = pkg.resources_from_dicts(pkg.load_yaml_objects("example/application/mixed"))
+        return cluster, app
+
+    c_ref, a_ref = load(ref_expand)
+    ref_apps = [ref_sim.AppResource("m", a_ref)]
+    prep_ref = ref_sim.prepare(c_ref, ref_apps)
+    ref_res = ref_sim.simulate(c_ref, ref_apps, prep=prep_ref)
+    c, a = load(expand)
+    prep = sim.prepare(c, [sim.AppResource("m", a)], device="cpu")
+    f = prep.features
+    assert f.ports and f.interpod and f.prefg and f.spread_hard and f.spread_soft
+    assert fastpath.why_not(prep) is None
+    res = sim.simulate(c, [sim.AppResource("m", a)], device="cpu")
+    assert not ref_res.unscheduled_pods and not res.unscheduled_pods
+    names = list(prep_ref.meta.node_names)
+    want = np.array([names.index(p.spec.node_name) for p in prep_ref.ordered], np.int32)
+    np.testing.assert_array_equal(res.placements, want)
+    assert len(want) == 19 and [len(ns.pods) for ns in res.node_status] == [len(ns.pods) for ns in ref_res.node_status]
+
+
+def test_why_not_refuses_inter_pod_weights_past_exact_floats(monkeypatch):
+    c, a = fx.synthetic_cluster(8), fx.affinity_apps(40)
+    prep = sim.prepare(c, [sim.AppResource("aff", a)], device="cpu")
+    bound = fastpath.interpod_weight_bound(prep.ec_np, prep.tmpl_ids)
+    # 40 pods × weight 100 under a preferred term; 20 pods carry 100, 20 carry 1
+    assert bound == 40 * 100 + 20 * 100 + 20 * 1
+    assert fastpath.why_not(prep) is None
+    monkeypatch.setattr(fastpath, "EXACT_INT", bound)
+    assert "2^24" in fastpath.why_not(prep)
+
+
 def test_simulate_raises_on_an_unscheduled_pod():
     cluster = fx.synthetic_cluster(4)
     app = expand.ResourceTypes()
