@@ -5,8 +5,9 @@
 
 Builds the bind-scan kernel's variants from ops/csrc/ with nvcc (one
 shared object per variant, all compiled at once), holds each against its
-plain PyTorch version on small cases and at full width, and drives
-simulate() through the kernel on five plans of 50,000 pods on 5,000 nodes:
+plain PyTorch version on small cases and at full width (the scenario grid
+too, with three drain scenarios per small case), and drives simulate()
+through the kernel on six plans of 50,000 pods on 5,000 nodes:
 
 - the capacity plan (20 Deployments, 4 zones; bench.py:85-135), the
   kernel's base variant;
@@ -18,17 +19,26 @@ simulate() through the kernel on five plans of 50,000 pods on 5,000 nodes:
 - the score-table plan (the capacity plan with PreferNoSchedule taints,
   preferred node affinity and a node-avoided ReplicaSet),
   ``fast_scan[na,tt,avoid]``, and the same with host port 8080 on one
-  Deployment, ``fast_scan[na,tt,avoid,ports]``.
+  Deployment, ``fast_scan[na,tt,avoid,ports]``;
+- the all-local-PV plan (10 Deployments with LVM volumes on nodes of one
+  600 GiB volume group and two 100 GiB SSDs; bench.py:220-262),
+  ``fast_scan[local]``.
 
 For each plan it holds the kernel identical to the plain version (over the
 whole stream for the affinity plan, over a prefix of the others: the plain
 version is a Python loop), runs simulate() with the launch counts set to 0
 just before and read just after, and times the kernel over the whole
 stream, its plain version and the phases of simulate() with CUDA events
-and the host clock. Every phase raises on failure. The last lines are the
-card's name and power limit, one JSON line with a row per kernel variant
-timed at full width, and ``{"ok": true, "device": {...}}``. Without a card
-it exits non-zero and prints no result.
+and the host clock. Then it drives plan_drains() on the capacity plan with
+1,000 drain scenarios (the first 1,000 nodes; bench.py:308-335): one
+launch of the scenario grid, its rows held against single-scenario
+launches over the whole stream and against the plain sweep over prefixes
+(the first two scenarios, and the last one, which runs in the grid's last
+wave).
+Every phase raises on failure. The last lines are the card's name and
+power limit, one JSON line with a row per kernel variant timed at full
+width and one for the sweep, and ``{"ok": true, "device": {...}}``.
+Without a card it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -49,6 +59,13 @@ PEAK_F32_S = 67e12
 #: Every plan at its full size.
 N_NODES = 5000
 N_PODS = 50000
+#: The drain sweep: scenarios (bench.py --scenarios default), and the
+#: scenarios and pods its plain version is checked on: the first two over
+#: a short prefix, and the last (in the grid's last wave over 132 SMs) over
+#: the capacity plan's checked prefix.
+N_SCENARIOS = 1000
+PLAIN_SCENARIOS, PLAIN_PODS = 2, 2000
+LATE_PODS = 10000
 
 
 def _phase(name: str) -> None:
@@ -74,16 +91,16 @@ def _events_ms(fn, reps: int) -> float:
 
 
 def _same(got, want, what: str) -> float:
-    """Identical outputs (placements, usage, GPU takes, GPU state, host-port
-    use), or raise; returns the largest absolute difference of the float
-    outputs."""
+    """Identical outputs (placements, usage, GPU takes, GPU, host-port,
+    volume-group and device state), or raise; returns the largest absolute
+    difference of the float outputs."""
     if not torch.equal(got.chosen, want.chosen):
         diff = got.chosen != want.chosen
         raise AssertionError(
-            f"{what}: {int(diff.sum())} placements differ (first at pod {int(torch.nonzero(diff)[0, 0])})"
+            f"{what}: {int(diff.sum())} placements differ (first at {torch.nonzero(diff)[0].tolist()})"
         )
     err = 0.0
-    for field in ("used", "gpu_take", "gpu_free", "port_used"):
+    for field in ("used", "gpu_take", "gpu_free", "port_used", "vg_free", "dev_free"):
         g, w = getattr(got, field), getattr(want, field)
         if g.shape != w.shape:
             raise AssertionError(f"{what}: {field} has shape {tuple(g.shape)}, want {tuple(w.shape)}")
@@ -104,6 +121,15 @@ def _small_preps(device):
         yield name, prep, fastpath.build_inputs(prep)[0]
 
 
+def _drain_grid(prep, drained):
+    """The scenario grid's inputs for draining each node of `drained`:
+    tmpl [P], valid and forced [S, P], node_valid [S, N], spr_weight [S, U, Cs]."""
+    from opensim_tpu_torch.engine import fastpath
+    from opensim_tpu_torch.planner import defrag
+
+    return fastpath.sweep_inputs(prep, *defrag.drain_masks(prep, drained))
+
+
 def small_cases(device) -> None:
     from opensim_tpu_torch.engine import fastpath
     from opensim_tpu_torch.ops import fast_scan as fs
@@ -113,9 +139,15 @@ def small_cases(device) -> None:
         got = fs.fast_scan(fi, *stream)
         want = fs.fast_scan_reference(fi, *stream)
         _same(got, want, f"case {name}")
+        grid = _drain_grid(prep, list(range(min(3, len(prep.meta.node_names)))))
+        got_s = fs.fast_scan_sweep(fi, *grid)
+        want_s = fs.fast_scan_sweep_reference(fi, *grid)
+        _same(got_s, want_s, f"case {name}, sweep of {grid[1].shape[0]} drains")
         print(f"case {name} ({fs.variant_name(fi)}): N={fi.alloc_T.shape[1]} P={len(prep.tmpl_ids)} "
               f"placed={int((got.chosen >= 0).sum())} gpu slots={int(got.gpu_take.sum())} "
-              f"ports used={int(got.port_used.sum())} identical", flush=True)
+              f"ports used={int(got.port_used.sum())} devices taken={int((got.dev_free < fi.dev0).sum())} "
+              f"identical; sweep of {grid[1].shape[0]} drains identical "
+              f"(placed {(got_s.chosen >= 0).sum(1).tolist()})", flush=True)
 
 
 def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
@@ -150,7 +182,7 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
 
     plain_ms = _events_ms(run_plain, reps=1)
     err = _same(got_head, plain[0], f"{label}, {P_head} pods")
-    print(f"{P_head} pods at N={N}: kernel and plain version identical on all five outputs "
+    print(f"{P_head} pods at N={N}: kernel and plain version identical on all seven outputs "
           f"(plain {plain_ms:.3f} ms, {int(got_head.gpu_take.sum())} GPU slots taken, "
           f"{int(got_head.port_used.sum())} host ports used)", flush=True)
 
@@ -168,7 +200,8 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
     if len(res.placements) != P or (res.placements < 0).any() or n_placed != P:
         raise AssertionError(f"placed {n_placed} of {P} pods")
     for field, shape in (("used", (N, fi.alloc_T.shape[0])), ("gpu_take", (P, prep.st0_np.gpu_free.shape[1])),
-                         ("gpu_free", prep.st0_np.gpu_free.shape)):
+                         ("gpu_free", prep.st0_np.gpu_free.shape), ("vg_free", prep.st0_np.vg_free.shape),
+                         ("dev_free", prep.st0_np.dev_free.shape)):
         arr = torch.from_numpy(getattr(res, field))
         if tuple(arr.shape) != tuple(shape) or not bool(torch.isfinite(arr).all()):
             raise AssertionError(f"simulate(): {field} has the wrong shape or non-finite values")
@@ -177,6 +210,10 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
         raise AssertionError("simulate() placed the stream differently from the checked kernel run")
     if got_head.gpu_take.numel() and not torch.equal(got_head.gpu_take.cpu(), torch.from_numpy(res.gpu_take[:P_head])):
         raise AssertionError("simulate() took GPUs differently from the checked kernel run")
+    if prep.features.local:
+        storage = [ns.node.metadata.annotations.get("simon/node-local-storage") for ns in res.node_status]
+        if not all(storage) or not (res.vg_free < prep.st0_np.vg_free).any():
+            raise AssertionError("simulate() wrote no local-storage state")
     wall = sum(res.timings.values())
     print(f"placed {n_placed}/{P} pods, kernel launches {by_variant}")
     print("timings: " + json.dumps({k: round(v, 6) for k, v in res.timings.items()}))
@@ -204,6 +241,110 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
+    }
+
+
+def drain_sweep(device) -> dict:
+    """plan_drains() on the capacity plan with N_SCENARIOS drain scenarios
+    (one launch of the scenario grid), the grid's rows against
+    single-scenario launches and against the plain sweep, the grid timed
+    alone. Returns its row of the kernels table."""
+    from opensim_tpu_torch.engine import fastpath, simulator as sim
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.planner import defrag
+
+    _phase(f"22 drain sweep: plan_drains(), {N_SCENARIOS} scenarios of {N_PODS} pods on {N_NODES} nodes")
+    cluster, app = fx.synthetic_cluster(N_NODES), fx.synthetic_apps(N_PODS)
+    apps = [sim.AppResource("plan", app)]
+    candidates = [n.metadata.name for n in cluster.nodes[:N_SCENARIOS]]
+    torch.cuda.synchronize()
+    fs.LAUNCHES = 0
+    fs.VARIANT_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    result = defrag.plan_drains(cluster, apps, candidates=candidates)
+    wall = time.perf_counter() - t0
+    launches, by_name = fs.LAUNCHES, dict(fs.VARIANT_LAUNCHES)
+    if launches != 1 or by_name != {"fast_scan_sweep": 1}:
+        raise AssertionError(f"plan_drains() launched {by_name}, want exactly one fast_scan_sweep")
+    plans = result.plans
+    if [p.node for p in plans] != candidates:
+        raise AssertionError("plan_drains() returned plans for other nodes than the candidates")
+    print(f"plan_drains: {len(plans)} plans, {len(result.drainable())} drainable, launches {by_name}")
+    print("timings: " + json.dumps({k: round(v, 6) for k, v in result.timings.items()}))
+    print(f"plan_drains wall-clock {wall:.6f} s, {len(plans) / wall:.3f} scenarios/s (host clock)", flush=True)
+
+    _phase("23 drain sweep: the grid timed alone, its rows against single-scenario launches")
+    prep = sim.prepare(cluster, apps, device=device)
+    fi, _ = fastpath.build_inputs(prep)
+    drained = list(range(N_SCENARIOS))
+    tmpl, *grid = _drain_grid(prep, drained)
+    out = [None]
+
+    def run_grid():
+        out[0] = fs.fast_scan_sweep(fi, tmpl, *grid)
+
+    ms = _events_ms(run_grid, reps=1)
+    sweep = out[0]
+    unscheduled = ((sweep.chosen < 0) & (grid[0] != 0)).sum(1).cpu().numpy()
+    if unscheduled.tolist() != [p.unscheduled for p in plans]:
+        raise AssertionError("the timed grid and plan_drains() disagree on unscheduled pods")
+    for s, d in enumerate(drained):
+        if bool((sweep.chosen[s] == d).any()):
+            raise AssertionError(f"scenario {s} placed a pod on its drained node {d}")
+    if not bool(torch.isfinite(sweep.used).all()):
+        raise AssertionError("the sweep's usage is not finite")
+    err = 0.0
+    checked = [0, N_SCENARIOS // 2, N_SCENARIOS - 1]
+    for s in checked:
+        one = fs.fast_scan(fi._replace(node_valid=grid[2][s], spr_weight=grid[3][s]), tmpl, grid[0][s], grid[1][s])
+        err = max(err, _same(fs.FastOutputs(*(t[s] for t in sweep)), one, f"sweep scenario {s} vs its own launch"))
+    print(f"sweep kernel {ms:.3f} ms for {N_SCENARIOS} scenarios ({ms / N_SCENARIOS:.3f} ms/scenario); "
+          f"scenarios {checked} identical to single-scenario launches over the whole stream", flush=True)
+
+    late = N_SCENARIOS - 1
+    _phase(f"24 drain sweep: kernel vs plain sweep, scenarios 0-{PLAIN_SCENARIOS - 1} x {PLAIN_PODS} pods, "
+           f"scenario {late} of a {N_SCENARIOS}-scenario grid x {LATE_PODS} pods")
+    plain_ms = 0.0
+    for rows, pods in ((slice(0, PLAIN_SCENARIOS), PLAIN_PODS), (slice(late, late + 1), LATE_PODS)):
+        head = [t[:, :pods].contiguous() for t in grid[:2]] + grid[2:]
+        got = fs.fast_scan_sweep(fi, tmpl[:pods].contiguous(), *head)  # all N_SCENARIOS blocks
+        got = fs.FastOutputs(*(t[rows] for t in got))
+        plain = [None]
+
+        def run_plain():
+            plain[0] = fs.fast_scan_sweep_reference(fi, tmpl[:pods].contiguous(), *(t[rows] for t in head))
+
+        ms_rows = _events_ms(run_plain, reps=1)
+        plain_ms += ms_rows
+        err = max(err, _same(got, plain[0], f"sweep scenarios {rows.start}-{rows.stop - 1} x {pods} pods vs plain"))
+        print(f"scenarios {rows.start}-{rows.stop - 1} of the grid x {pods} pods identical to the plain sweep "
+              f"(plain {ms_rows:.3f} ms)", flush=True)
+    work = fs.fast_scan_work(fi, tmpl, grid[0], grid[1], sweep.chosen, grid[2])
+    t_bytes = work["bytes"] / PEAK_BYTES_S * 1e3
+    t_ops = work["ops"] / PEAK_F32_S * 1e3
+    print(f"plain {plain_ms:.3f} ms in all; bound {max(t_bytes, t_ops):.6f} ms "
+          f"({work['bytes']} B, {work['ops']} flop)", flush=True)
+    return {
+        "name": "fast_scan_sweep",
+        "route": "cuda",
+        "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu",
+        "replaces": "opensim_tpu/engine/fastpath.py:532",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "scenarios": N_SCENARIOS,
+        "pods": int(tmpl.shape[0]),
+        "plain_checks": [[0, PLAIN_SCENARIOS - 1, PLAIN_PODS], [late, late, LATE_PODS]],
+        "plain_pod_scenarios": PLAIN_SCENARIOS * PLAIN_PODS + LATE_PODS,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "plan_drains_s": wall,
+        "plan_drains_timings": result.timings,
+        "scenarios_per_s": len(plans) / wall,
+        "drainable": len(result.drainable()),
     }
 
 
@@ -236,6 +377,8 @@ def main() -> int:
          "fast_scan[na,tt,avoid]", 5000),
         ("16-18 host-port plan", lambda: (fx.score_cluster(N_NODES), fx.score_apps(N_PODS, host_port=True)),
          "fast_scan[na,tt,avoid,ports]", 5000),
+        ("19-21 all-local-PV plan", lambda: (fx.local_pv_cluster(N_NODES), fx.local_pv_apps(N_PODS)),
+         "fast_scan[local]", 5000),
     ]
 
     _phase("2 build")
@@ -251,10 +394,11 @@ def main() -> int:
         secs = "cached" if entry["seconds"] is None else f"nvcc {entry['seconds']:.3f} s"
         print(f"  {name}: {secs}, {regs} registers, {spill} spill bytes, {smem} B shared memory")
 
-    _phase("3 small cases: kernel vs plain version")
+    _phase("3 small cases: kernel vs plain version, one scan and a sweep of drains each")
     small_cases(device)
 
     rows = [full_plan(device, label, make, variant, prefix) for label, make, variant, prefix in plans]
+    rows.append(drain_sweep(device))
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

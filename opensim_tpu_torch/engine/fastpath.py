@@ -4,13 +4,15 @@
 port's kernel computes (fit, spread, least/balanced/share scores, GPU
 share with the dynamic gpu-count allocatable, the NodeAffinity,
 TaintToleration and NodePreferAvoidPods score tables, host ports,
-inter-pod affinity, selectHost, bind);
+inter-pod affinity, Open-Local storage, selectHost, bind);
 `build_inputs()` turns the encoded cluster into the kernel's tensors;
-`schedule()` runs it. The counterpart in the JAX package is
+`schedule()` runs it over the stream, `sweep()` over a batch of
+scenarios. The counterpart in the JAX package is
 ``opensim_tpu/engine/fastpath.py``; the TPU layout rules there (128-lane
-node padding, 8-row GPU, port and term-row padding, transposed scalar
-tables, chunked pod streams) and its VMEM- and SMEM-derived caps have no
-place here, but the kernel gets the same quantities.
+node padding, 8-row GPU, VG, device, port and term-row padding,
+transposed scalar tables, chunked pod streams) and its VMEM- and
+SMEM-derived caps have no place here, but the kernel gets the same
+quantities.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from ..encoding import vocab as V
 from ..ops import kernels
-from ..ops.fast_scan import MAX_CS, MAX_GD, MAX_R, FastInputs, fast_scan, variant
+from ..ops.fast_scan import MAX_CS, MAX_DV, MAX_GD, MAX_R, FastInputs, fast_scan, fast_scan_sweep, variant
 
 HOSTNAME = "kubernetes.io/hostname"
 
@@ -32,8 +34,6 @@ MAX_ZONE_KEYS = 4
 #: inter-pod weight sums that the kernel and its plain version add in
 #: different orders.
 EXACT_INT = 2 ** 24
-
-_LATER = {"local": "open-local storage pods (has_local)"}
 
 
 def interpod_weight_bound(ec, tmpl_ids: np.ndarray) -> float:
@@ -50,26 +50,28 @@ def why_not(prep) -> Optional[str]:
     """None when the prepared simulation runs on the port's bind-scan
     kernel, else a one-line reason. The caps are what the CUDA kernel
     takes: R ≤ 8 resources, Cs ≤ 8 spread constraints per template and
-    Gd ≤ 8 GPUs per node (per-thread tables), hostname plus at most four
-    zone keys, and hostname domains that identify nodes. The number of
+    Gd ≤ 8 GPUs per node (per-thread tables), Dv ≤ 64 exclusive devices per
+    node (the bits of the bind's per-pod taken mask), hostname plus at most
+    four zone keys, and hostname domains that identify nodes. The number of
     templates is not capped: the template tables live in global memory and
     the kernel reads them with 64-bit offsets. Nor are host-port ids,
-    inter-pod terms per template or existing-pod term rows: the kernel
-    loops over them in global memory and holds no per-thread table of
-    them. The inter-pod sums must stay exact in any order, so
-    `interpod_weight_bound` must stay below 2^24."""
+    inter-pod terms per template, existing-pod term rows, volume groups per
+    node or device volumes per template: the kernel loops over them in
+    global memory and holds no per-thread table of them. The inter-pod
+    sums must stay exact in any order, so `interpod_weight_bound` must stay
+    below 2^24."""
     f = prep.features
-    for name, what in _LATER.items():
-        if getattr(f, name):
-            return f"{what}: a later slice of the port"
     ec = prep.ec_np
     R = int(ec.alloc.shape[1])
     Cs = int(ec.spr_topo.shape[1])
     Gd = int(ec.node_gpu_mem.shape[1])
+    Dv = int(ec.node_dev_cap.shape[1])
     if R > MAX_R or Cs > MAX_CS:
         return f"R={R} resources or Cs={Cs} spread constraints per template exceed the kernel's {MAX_R}/{MAX_CS}"
     if f.gpu and Gd > MAX_GD:
         return f"{Gd} GPUs per node exceed the kernel's {MAX_GD}"
+    if f.local and Dv > MAX_DV:
+        return f"{Dv} exclusive devices per node exceed the kernel's {MAX_DV}"
     topo_keys = prep.meta.vocab.topo_keys.items()
     non_host = [k for k in topo_keys if k != HOSTNAME]
     if len(non_host) > MAX_ZONE_KEYS:
@@ -147,6 +149,7 @@ def build_inputs(prep) -> Tuple[FastInputs, Dict[str, np.ndarray]]:
     gpu0 = np.asarray(prep.st0_np.gpu_free).T if gpu_on else off_un  # [Gd, N]
     ports = _port_tables(ec) if f.ports else np.zeros((2, 0, len(req)), np.float32)
     terms = _term_tables(ec, key_lut) if (f.interpod or f.prefg) else _no_terms(len(req))
+    local = _local_tables(prep) if f.local else _no_local(N)
 
     dev = prep.device
     f32, i32 = torch.float32, torch.int32
@@ -179,10 +182,39 @@ def build_inputs(prep) -> Tuple[FastInputs, Dict[str, np.ndarray]]:
         port_HU=_to(ports[0], f32, dev),
         port_conf_HU=_to(ports[1], f32, dev),
         **{name: _to(t, i32 if name in _TERM_I32 else f32, dev) for name, t in terms.items()},
+        **{name: _to(t, f32, dev) for name, t in local.items()},
         n_zones=n_zones,
         gc_row=kernels.gc_row_of(ec) if f.gc_dyn else -1,
     )
     return fi, {"static_fail": static_fail}
+
+
+def _local_tables(prep) -> Dict[str, np.ndarray]:
+    """The Open-Local tables: per template its LVM bytes, largest device
+    volume and volume count per media and each media's volume sizes
+    (``dev_sizes [U, 2·Mv]``, ssd slots then hdd, descending); per node its
+    VG and device capacities and initial free bytes, and the device media
+    as one-hot rows (``dev_media [2·Dv, N]``, row m·Dv + d)."""
+    ec, meta = prep.ec_np, prep.meta
+    media = np.asarray(meta.node_dev_media)  # [N, Dv] 0 ssd, 1 hdd, -1 none
+    return {
+        "lvm_req": np.asarray(ec.lvm_req),
+        "dev_req": np.asarray(ec.dev_req),
+        "dev_need": np.asarray(ec.dev_req_count),
+        "dev_sizes": np.asarray(ec.dev_req_sizes).reshape(len(ec.req), -1),
+        "vg_cap": np.asarray(meta.node_vg_cap).T,
+        "vg0": np.asarray(prep.st0_np.vg_free).T,
+        "dev_cap": np.asarray(meta.node_dev_cap).T,
+        "dev0": np.asarray(prep.st0_np.dev_free).T,
+        "dev_media": np.concatenate([media.T == m for m in range(2)]),
+    }
+
+
+def _no_local(N: int) -> Dict[str, np.ndarray]:
+    """Zero-size Open-Local tables: the variant without local storage."""
+    z = np.zeros
+    return {"lvm_req": z(0), "dev_req": z((0, 2)), "dev_need": z((0, 2)), "dev_sizes": z((0, 0)),
+            **{name: z((0, N)) for name in ("vg_cap", "vg0", "dev_cap", "dev0", "dev_media")}}
 
 
 def _port_tables(ec) -> np.ndarray:
@@ -254,17 +286,19 @@ def inputs_from_reference(
     n_ports: Optional[int] = None,
     n_anti: Optional[int] = None,
     n_pref: Optional[int] = None,
+    n_vg: Optional[int] = None,
+    n_dev: Optional[int] = None,
 ) -> FastInputs:
     """The port's inputs from the JAX package's ``FastInputs`` as numpy
     (``fi._asdict()`` of ``opensim_tpu.engine.fastpath.build_inputs``),
     with the flags of its ``features`` and its ``gc_row``: drops the
     node-lane padding past `n_nodes`, and the GPU, port-id, anti and
-    preferred term rows padded past `n_gpus`, `n_ports`, `n_anti` and
-    `n_pref` (None keeps every lane or row), gives the tables of a feature
-    that is off zero size, turns the one-hot zone blocks ``zone_NZ [K, N,
-    Z]`` into zone columns, flattens ``node_valid [1, N]``. Other tables
-    keep their layout; the selector rows padded to a multiple of 8 stay, as
-    no constraint names them."""
+    preferred term, VG and device rows padded past `n_gpus`, `n_ports`,
+    `n_anti`, `n_pref`, `n_vg` and `n_dev` (None keeps every lane or row),
+    gives the tables of a feature that is off zero size, turns the one-hot
+    zone blocks ``zone_NZ [K, N, Z]`` into zone columns, flattens
+    ``node_valid [1, N]``. Other tables keep their layout; the selector
+    rows padded to a multiple of 8 stay, as no constraint names them."""
     a = {k: np.asarray(v) for k, v in arrays.items()}
     N = a["alloc_T"].shape[1] if n_nodes is None else int(n_nodes)
     Gd = a["gpu0_DN"].shape[0] if n_gpus is None else int(n_gpus)
@@ -284,6 +318,19 @@ def inputs_from_reference(
             terms.update({name: a[name][:rows] for name in names})
     else:
         terms = _no_terms(U)
+    if features.local:
+        Dp = a["dev0_DN"].shape[0]  # the JAX package's padded device rows
+        Vg = a["vg0_VN"].shape[0] if n_vg is None else int(n_vg)
+        Dv = Dp if n_dev is None else int(n_dev)
+        media = a["dev_media_DN"]
+        local = {
+            "lvm_req": a["lvm_req"], "dev_req": a["dev_req"], "dev_need": a["dev_need"],
+            "dev_sizes": a["dev_sizes"], "vg_cap": nodes("vg_cap_VN")[:Vg], "vg0": nodes("vg0_VN")[:Vg],
+            "dev_cap": nodes("dev_cap_DN")[:Dv], "dev0": nodes("dev0_DN")[:Dv],
+            "dev_media": np.concatenate([media[:Dv, :N], media[Dp:Dp + Dv, :N]]),
+        }
+    else:
+        local = _no_local(N)
     return FastInputs(
         alloc_T=_to(nodes("alloc_T"), f32, device),
         used0_T=_to(nodes("used0_T"), f32, device),
@@ -313,6 +360,7 @@ def inputs_from_reference(
         port_HU=_to(ports[0], f32, device),
         port_conf_HU=_to(ports[1], f32, device),
         **{name: _to(t, i32 if name in _TERM_I32 else f32, device) for name, t in terms.items()},
+        **{name: _to(t, f32, device) for name, t in local.items()},
         n_zones=max(int(zone_idx.max()) + 1, 1),
         gc_row=int(gc_row) if features.gc_dyn else -1,
     )
@@ -337,19 +385,91 @@ class Scheduled(NamedTuple):
     used: np.ndarray  # [N, R] f32
     gpu_take: np.ndarray  # [P, Gd] f32 GPU slots per device
     gpu_free: np.ndarray  # [N, Gd] f32 final free memory per GPU
+    vg_free: np.ndarray  # [N, Vg] f32 final free bytes per volume group
+    dev_free: np.ndarray  # [N, Dv] f32 final free bytes per device, 0 once taken
 
 
 def schedule(prep, fi: Optional[FastInputs] = None) -> Scheduled:
     """Run the bind scan over the prepared stream: the kernel on a card,
     the plain version on the CPU. Without GPU-share pods the scan leaves
-    the GPUs as they were: no takes, the initial free memory."""
+    the GPUs as they were (no takes, the initial free memory), and without
+    local-storage pods the volume groups and devices."""
     if fi is None:
         fi, _ = build_inputs(prep)
     tmpl, valid, forced = pod_stream(prep)
     out = fast_scan(fi, tmpl, valid, forced)
+    host = lambda t: t.T.contiguous().cpu().numpy()
     chosen = out.chosen.cpu().numpy()
-    used = out.used.T.contiguous().cpu().numpy()
-    if variant(fi).gpu:
-        return Scheduled(chosen, used, out.gpu_take.cpu().numpy(), out.gpu_free.T.contiguous().cpu().numpy())
-    gpu0 = np.asarray(prep.st0_np.gpu_free)
-    return Scheduled(chosen, used, np.zeros((len(chosen), gpu0.shape[1]), np.float32), gpu0)
+    v = variant(fi)
+    st0 = prep.st0_np
+    if v.gpu:
+        gpu_take, gpu_free = out.gpu_take.cpu().numpy(), host(out.gpu_free)
+    else:
+        gpu_free = np.asarray(st0.gpu_free)
+        gpu_take = np.zeros((len(chosen), gpu_free.shape[1]), np.float32)
+    vg_free, dev_free = (host(out.vg_free), host(out.dev_free)) if v.local else (st0.vg_free, st0.dev_free)
+    return Scheduled(chosen, host(out.used), gpu_take, gpu_free, np.asarray(vg_free), np.asarray(dev_free))
+
+
+class _SweepContext:
+    """Host-side tables hoisted out of the per-scenario loop
+    (``opensim_tpu/engine/fastpath.py:449-472``)."""
+
+    def __init__(self, prep) -> None:
+        ec = prep.ec_np
+        self.node_domain = np.asarray(ec.node_domain)
+        self.trash = np.asarray(ec.domain_topo).shape[0] - 1
+        self.spr_topo = np.asarray(ec.spr_topo)
+        self.log_sizes = np.asarray(ec.log_sizes)
+
+    def spread_weights(self, node_valid: np.ndarray) -> np.ndarray:
+        """[U, Cs] log(size + 2) table for a scenario's valid nodes (domain
+        counts depend on them). The weights are gathers from the shared
+        ``ec.log_sizes`` table, never a log on the device: a 1-ulp
+        difference would flip ties."""
+        Tk = self.node_domain.shape[1]
+        sizes = np.zeros((Tk,), np.int64)
+        for tk in range(Tk):
+            doms = self.node_domain[node_valid, tk]
+            sizes[tk] = len(np.unique(doms[doms != self.trash]))
+        weights = self.log_sizes[np.clip(sizes, 0, self.log_sizes.shape[0] - 1)]
+        return np.where(self.spr_topo >= 0, weights[np.maximum(self.spr_topo, 0)], 0.0).astype(np.float32)
+
+
+def sweep_inputs(prep, node_valid_masks, pod_valid_masks, forced_masks):
+    """The scenario grid's tensors on ``prep.device`` for the kernel's
+    sweep: ``tmpl [P]``, ``valid``/``forced`` int32 ``[S, P]`` from the
+    bool masks, ``node_valid`` float32 ``[S, N]`` and ``spr_weight`` float32
+    ``[S, U, Cs]``, the spread weights of each scenario's valid nodes."""
+    nv = np.asarray(node_valid_masks, dtype=bool)
+    ctx = _SweepContext(prep)
+    sw = np.stack([ctx.spread_weights(row) for row in nv])
+    dev = prep.device
+    i32, f32 = torch.int32, torch.float32
+    return (_to(prep.tmpl_ids, i32, dev), _to(np.asarray(pod_valid_masks, dtype=bool), i32, dev),
+            _to(np.asarray(forced_masks, dtype=bool), i32, dev), _to(nv, f32, dev), _to(sw, f32, dev))
+
+
+def sweep(prep, node_valid_masks, pod_valid_masks, forced_masks):
+    """Scenario sweep over the prepared stream: scenario s runs the bind
+    scan with node validity ``node_valid_masks[s]`` ([S, N] bool), pod
+    validity ``pod_valid_masks[s]`` and forced pods ``forced_masks[s]``
+    ([S, P] bool), and the spread weights of its valid nodes. All S in one
+    launch on a card (one block per scenario), the plain version scenario
+    by scenario on the CPU. Returns host arrays (unscheduled [S] i32, used
+    [S, N, R] f32, chosen [S, P] i32, vg_used [S] f32), as
+    ``opensim_tpu/engine/fastpath.py:sweep``; VG usage counts only the
+    scenario's valid nodes."""
+    fi, _ = build_inputs(prep)
+    nv = np.asarray(node_valid_masks, dtype=bool)
+    pv = np.asarray(pod_valid_masks, dtype=bool)
+    out = fast_scan_sweep(fi, *sweep_inputs(prep, nv, pv, forced_masks))
+    chosen = out.chosen.cpu().numpy()
+    unscheduled = ((chosen < 0) & pv).sum(axis=1).astype(np.int32)
+    used = out.used.transpose(1, 2).contiguous().cpu().numpy()
+    if variant(fi).local:
+        vg0, vg_b = fi.vg0.cpu().numpy(), out.vg_free.cpu().numpy()  # [Vg, N], [S, Vg, N]
+        vg_used = ((vg0[None] - vg_b) * nv[:, None, :]).sum(axis=(1, 2)).astype(np.float32)
+    else:
+        vg_used = np.zeros((len(nv),), np.float32)
+    return unscheduled, used, chosen, vg_used

@@ -72,8 +72,10 @@ class SimulateResult:
     index of each pod of the stream (``placements``, -1 unplaced), the final
     per-node usage ``used [N, R]``, the GPU slots each pod took per device
     ``gpu_take [P, Gd]``, the final free memory per GPU ``gpu_free [N, Gd]``,
-    and host-clock phase times in seconds (``timings``: prepare, inputs,
-    kernel with the copies back, decode)."""
+    the final free bytes per volume group ``vg_free [N, Vg]`` and per
+    exclusive device ``dev_free [N, Dv]`` (0 once taken), and host-clock
+    phase times in seconds (``timings``: prepare, inputs, kernel with the
+    copies back, decode)."""
 
     unscheduled_pods: List[UnscheduledPod] = field(default_factory=list)
     node_status: List[NodeStatus] = field(default_factory=list)
@@ -81,6 +83,8 @@ class SimulateResult:
     used: Optional[np.ndarray] = None
     gpu_take: Optional[np.ndarray] = None
     gpu_free: Optional[np.ndarray] = None
+    vg_free: Optional[np.ndarray] = None
+    dev_free: Optional[np.ndarray] = None
     timings: Dict[str, float] = field(default_factory=dict)
 
     def pods_on(self, node_name: str) -> List[Pod]:
@@ -93,7 +97,9 @@ class SimulateResult:
 @dataclass
 class Prepared:
     """Expanded + encoded simulation inputs: the numpy encoding
-    (``ec_np``/``st0_np``) and its tensors on ``device`` (``ec``/``st0``)."""
+    (``ec_np``/``st0_np``) and its tensors on ``device`` (``ec``/``st0``).
+    ``ds_target[p]`` is the node a DaemonSet pod is pinned to, -1 for any
+    other pod."""
 
     ec: EncodedCluster
     st0: ScanState
@@ -103,6 +109,7 @@ class Prepared:
     ordered: List[Pod]
     tmpl_ids: np.ndarray
     forced: np.ndarray
+    ds_target: np.ndarray
     features: kernels.Features
     device: torch.device
 
@@ -212,6 +219,17 @@ def prepare(
     )
     ec_np, st0_np, meta = enc.build()
     ec, st0 = to_device(ec_np, st0_np, device)
+    node_idx = {name: i for i, name in enumerate(meta.node_names)}
+    # only DaemonSet expansion pins a pod by matchFields metadata.name; a
+    # bare pinned pod is not a DaemonSet pod (the drain masks rely on it)
+    ds_target = np.array(
+        [
+            node_idx.get(pinned_node_name(p), -1) if p.metadata.annotations.get(ANNO_WORKLOAD_KIND) == "DaemonSet"
+            else -1
+            for p in ordered
+        ],
+        dtype=np.int32,
+    )
     return Prepared(
         ec=ec,
         st0=st0,
@@ -221,6 +239,7 @@ def prepare(
         ordered=ordered,
         tmpl_ids=tmpl_ids,
         forced=np.array([bool(p.spec.node_name) for p in ordered], dtype=bool),
+        ds_target=ds_target,
         features=kernels.features_of(ec_np),
         device=device,
     )
@@ -268,6 +287,8 @@ def simulate(
         used=out.used,
         gpu_take=out.gpu_take,
         gpu_free=out.gpu_free,
+        vg_free=out.vg_free,
+        dev_free=out.dev_free,
         timings={"prepare": t1 - t0, "inputs": t2 - t1, "kernel": t3 - t2, "decode": t4 - t3},
     )
 
@@ -275,7 +296,8 @@ def simulate(
 def _decode(prep: Prepared, out: fastpath.Scheduled, nodes: List[Node]) -> List[NodeStatus]:
     """Bind every pod into its node's bucket, in stream order, and write
     the GPU devices it took (the success path of the reference's
-    ``_decode``); node annotations show the final GPU state."""
+    ``_decode``); node annotations show the final GPU and local-storage
+    state."""
     node_pods: Dict[str, List[Pod]] = {n.metadata.name: [] for n in nodes}
     pod_lists = [node_pods.get(n) for n in prep.meta.node_names]
     gpu_any = (out.gpu_take.sum(axis=1) > 0).tolist()
@@ -292,8 +314,7 @@ def _decode(prep: Prepared, out: fastpath.Scheduled, nodes: List[Node]) -> List[
             pod.metadata.annotations[ANNO_GPU_INDEX] = "-".join(ids)
             pod.metadata.annotations[ANNO_GPU_ASSUME_TIME] = str(time.time_ns())
         pod_lists[c].append(pod)
-    st = prep.st0_np  # no pod of the envelope touches storage state
-    return _node_statuses(nodes, node_pods, prep.meta, out.gpu_free, st.vg_free, st.dev_free)
+    return _node_statuses(nodes, node_pods, prep.meta, out.gpu_free, out.vg_free, out.dev_free)
 
 
 def _node_statuses(

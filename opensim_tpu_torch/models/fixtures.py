@@ -5,6 +5,7 @@ functional ``With*`` options, e.g. ``pkg/test/node.go:15-40``,
 from __future__ import annotations
 
 import json
+from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 from .objects import (
@@ -146,6 +147,20 @@ def with_topology_spread(constraints: List[dict]) -> Option:
 
 def with_pod_local_storage(volumes_json: str) -> Option:
     return with_annotations({ANNO_POD_LOCAL_STORAGE: volumes_json})
+
+
+def with_volume_claims(claims: List[tuple]) -> Option:
+    """A StatefulSet's volumeClaimTemplates, one per (name, storage class,
+    size); the open-local classes become local volumes of its pods."""
+
+    def apply(d: dict) -> None:
+        d["spec"]["volumeClaimTemplates"] = [
+            {"metadata": {"name": name},
+             "spec": {"storageClassName": sc, "resources": {"requests": {"storage": size}}}}
+            for name, sc, size in claims
+        ]
+
+    return apply
 
 
 # -- node options ------------------------------------------------------------
@@ -486,6 +501,47 @@ def gpu_apps(n_pods: int) -> ResourceTypes:
     return rt
 
 
+def local_pv_cluster(n_nodes: int) -> ResourceTypes:
+    """The all-local-PV fleet (bench.py:220-239): the plan's 64-core /
+    256 GiB / 256-pod nodes in 4 zones, each with an open-local volume
+    group of 600 GiB and two exclusive 100 GiB SSDs."""
+    rt = ResourceTypes()
+    zones = [f"zone-{z}" for z in range(4)]
+    for i in range(n_nodes):
+        rt.nodes.append(
+            make_fake_node(
+                f"node-{i:05d}", "64", "256Gi", "256",
+                with_labels({"topology.kubernetes.io/zone": zones[i % len(zones)]}),
+                with_node_local_storage(
+                    vgs=[{"name": "pool0", "capacity": 600 * 1024**3}],
+                    devices=[
+                        {"device": "/dev/vdb", "capacity": 100 * 1024**3, "mediaType": "ssd"},
+                        {"device": "/dev/vdc", "capacity": 100 * 1024**3, "mediaType": "ssd"},
+                    ],
+                ),
+            )
+        )
+    return rt
+
+
+def local_pv_apps(n_pods: int) -> ResourceTypes:
+    """The all-local-PV workload (bench.py:242-262): 10 Deployments of
+    ``n_pods // 10`` pods, each asking an LVM volume of 5, 10 or 15 GiB
+    (pod-template annotation); Deployment 4 also asks a 20 GiB exclusive
+    SSD."""
+    rt = ResourceTypes()
+    n_workloads = 10
+    per = n_pods // n_workloads
+    for w in range(n_workloads):
+        vols = [{"size": str((5 + 5 * (w % 3)) * 1024**3), "kind": "LVM", "scName": "open-local-lvm"}]
+        if w == 4:
+            vols.append({"size": str(20 * 1024**3), "kind": "SSD", "scName": "open-local-device"})
+        d = make_fake_deployment(f"loc-{w}", per, "250m", "512Mi")
+        _tmpl_annotate(d, {ANNO_POD_LOCAL_STORAGE: json.dumps({"volumes": vols})})
+        rt.deployments.append(d)
+    return rt
+
+
 def _gpu_share(mem: str, count: str) -> Option:
     return with_annotations({"alibabacloud.com/gpu-mem": mem, "alibabacloud.com/gpu-count": count})
 
@@ -515,6 +571,9 @@ SCAN_CASES = (
     ("two_keys", 12, 128),
     ("ports", 6, 128),
     ("interpod_small", 64, 1),
+    ("local", 4, 128),
+    ("local_rules", 9, 1),
+    ("local_demo", 0, 1),
 )
 
 
@@ -542,10 +601,25 @@ def scan_case(name: str):
     an existing pod's anti term keeps off its node, and pods that prefer a
     partner's node; ``two_keys``: spread and inter-pod terms over
     hostname, zone and region; ``interpod_small``: the affinity-heavy plan
-    at 64 nodes and 640 pods."""
+    at 64 nodes and 640 pods; ``local``: open-local volume groups and SSD
+    and HDD devices, StatefulSets asking LVM, an HDD device, and two SSD
+    volumes of different sizes; ``local_demo``: the shipped
+    ``example/cluster/demo`` with ``example/application/local`` (its node
+    count is the example's), where two pods find no device."""
     n_nodes, node_pad = {c[0]: c[1:] for c in SCAN_CASES}[name]
     cluster = ResourceTypes()
     app = ResourceTypes()
+    if name == "local":
+        return _local_cluster(n_nodes), _local_apps(), node_pad
+    if name == "local_rules":
+        return _local_rules_cluster(), _local_rules_apps(), node_pad
+    if name == "local_demo":
+        from . import expand
+
+        example = Path(__file__).resolve().parents[2] / "example"
+        cluster = expand.load_cluster_from_dir(str(example / "cluster" / "demo"))
+        app, _skipped = expand.resources_from_dicts(expand.load_yaml_objects(str(example / "application" / "local")))
+        return cluster, app, node_pad
     if name == "ties":
         for i in range(n_nodes):
             cluster.nodes.append(make_fake_node(f"n{i:03d}", "8", "16Gi", "110"))
@@ -726,6 +800,93 @@ def _interpod_terms_apps() -> ResourceTypes:
             {"labelSelector": {"matchLabels": {"app": "missing"}}, "topologyKey": "topology.kubernetes.io/zone"},
         ]},
     })))
+    return app
+
+
+def _local_cluster(n_nodes: int) -> ResourceTypes:
+    """tests/test_fastpath.py:219-239 of the JAX package: two volume groups
+    (100 and 50 GiB), SSDs of 80 and 30 GiB and an HDD of 120 GiB per node."""
+    rt = ResourceTypes()
+    for i in range(n_nodes):
+        rt.nodes.append(make_fake_node(
+            f"s{i}", "32", "64Gi", "110",
+            with_node_local_storage(
+                vgs=[{"name": "pool0", "capacity": 100 * 1024**3}, {"name": "pool1", "capacity": 50 * 1024**3}],
+                devices=[
+                    {"device": "/dev/vdb", "capacity": 80 * 1024**3, "mediaType": "ssd"},
+                    {"device": "/dev/vdd", "capacity": 30 * 1024**3, "mediaType": "ssd"},
+                    {"device": "/dev/vdc", "capacity": 120 * 1024**3, "mediaType": "hdd"},
+                ],
+            ),
+        ))
+    return rt
+
+
+def _local_apps() -> ResourceTypes:
+    """tests/test_fastpath.py:240-258 of the JAX package: 30 GiB LVM
+    volumes, 100 GiB HDD devices, and two SSD volumes of 10 and 60 GiB per
+    pod (one device per volume, not count × largest size)."""
+    app = ResourceTypes()
+    app.stateful_sets.append(make_fake_stateful_set(
+        "db", 6, "500m", "1Gi", with_volume_claims([("data", "open-local-lvm", "30Gi")])))
+    app.stateful_sets.append(make_fake_stateful_set(
+        "disk", 3, "250m", "512Mi", with_volume_claims([("d", "open-local-device-hdd", "100Gi")])))
+    app.stateful_sets.append(make_fake_stateful_set(
+        "mixed", 2, "250m", "512Mi",
+        with_volume_claims([("small", "open-local-device-ssd", "10Gi"), ("big", "open-local-device-ssd", "60Gi")])))
+    return app
+
+
+def _local_node(name: str, group: str, cpu: str, vgs=(), ssd=(), hdd=()) -> Node:
+    """A node of the ``local_rules`` case: label ``rule=<group>``, volume
+    groups and devices of the given sizes in GiB."""
+    devices = [{"device": f"/dev/{m}{j}", "capacity": gib * 1024**3, "mediaType": m}
+               for m, sizes in (("ssd", ssd), ("hdd", hdd)) for j, gib in enumerate(sizes)]
+    return make_fake_node(
+        name, cpu, "32Gi", "110", with_labels({"rule": group}),
+        with_node_local_storage(vgs=[{"name": f"vg{j}", "capacity": gib * 1024**3} for j, gib in enumerate(vgs)],
+                                devices=devices),
+    )
+
+
+def _local_pod(name: str, group: str, volumes) -> Pod:
+    """A 1.5-core pod of the ``local_rules`` case on the nodes of `group`,
+    with local volumes (kind, GiB)."""
+    vols = [{"size": str(gib * 1024**3), "kind": kind, "scName": "open-local"} for kind, gib in volumes]
+    return make_fake_pod(name, "1500m", "1Gi", with_node_selector({"rule": group}),
+                         with_pod_local_storage(json.dumps({"volumes": vols})))
+
+
+def _local_rules_cluster() -> ResourceTypes:
+    """Groups of nodes, one per Open-Local rule, that the ``local_rules``
+    pods reach by node selector. In ``vg`` and ``dev`` the 2-core node
+    would win on the share score if the storage filter let it through; in the other groups the nodes tie on every score but the
+    binpack score, or the pod binds to one node and the choice of its
+    volume group shows in the final state."""
+    rt = ResourceTypes()
+    rt.nodes.extend([
+        _local_node("vg-a", "vg", "2", vgs=[29]),  # too small for 30 GiB
+        _local_node("vg-b", "vg", "8", vgs=[1000]),
+        _local_node("dev-a", "dev", "2", ssd=[25, 5]),  # one device for two volumes
+        _local_node("dev-b", "dev", "8", ssd=[200, 200]),
+        _local_node("bind-a", "vgbind", "16", vgs=[100, 40, 40]),  # tightest VG, first among equals
+        _local_node("lvm-b", "lvm", "16", vgs=[60]),
+        _local_node("lvm-a", "lvm", "16", vgs=[200, 35]),  # the score's VG is the tightest, not the first
+        _local_node("ssd-b", "ssd", "16", ssd=[300]),
+        _local_node("ssd-a", "ssd", "16", ssd=[25, 400]),  # the score's device is the smallest that fits
+    ])
+    return rt
+
+
+def _local_rules_apps() -> ResourceTypes:
+    app = ResourceTypes()
+    app.pods.extend([
+        _local_pod("vg", "vg", [("LVM", 30)]),
+        _local_pod("dev", "dev", [("SSD", 20), ("SSD", 10)]),
+        _local_pod("vgbind", "vgbind", [("LVM", 30)]),
+        _local_pod("lvm", "lvm", [("LVM", 30)]),
+        _local_pod("ssd", "ssd", [("SSD", 20)]),
+    ])
     return app
 
 

@@ -1,23 +1,29 @@
 """The bind scan: one hand-written Hopper kernel and its plain version.
 
 For each pod of the stream, in order: filter the nodes (static row,
-NodeResourcesFit, node validity, NodePorts, Open-Gpu-Share, hard
-PodTopologySpread, InterPodAffinity), score the feasible ones
+NodeResourcesFit, node validity, NodePorts, Open-Gpu-Share, Open-Local,
+hard PodTopologySpread, InterPodAffinity), score the feasible ones
 (least-allocated + balanced + 2·Simon share + 2·soft spread, plus the
-NodeAffinity, TaintToleration and NodePreferAvoidPods tables and the
-inter-pod preferred score where present), take the lowest-index node among
-the best scores (or the pin of a forced pod), and bind it (usage, selector
-counts, host ports, GPU devices and inter-pod term counts of the chosen
-node). This is the JAX package's Pallas megakernel
+NodeAffinity, TaintToleration and NodePreferAvoidPods tables, the
+Open-Local binpack score and the inter-pod preferred score where present),
+take the lowest-index node among the best scores (or the pin of a forced
+pod), and bind it (usage, selector counts, host ports, GPU devices, volume
+groups and exclusive devices, inter-pod term counts of the chosen node).
+This is the JAX package's Pallas megakernel
 (``opensim_tpu/ops/pallas_scan.py``, ``_make_kernel`` through
 ``run_fast_scan``'s ``pl.pallas_call``) for the flags ``has_gpu`` (with
-``gc_row``), ``has_na``, ``has_tt``, ``has_avoid``, ``has_ports`` and
-``has_interpod``.
+``gc_row``), ``has_na``, ``has_tt``, ``has_avoid``, ``has_ports``,
+``has_interpod`` and ``has_local``, and its scenario sweep
+(``run_fast_scan`` under ``jax.vmap`` in ``engine/fastpath.sweep``).
 
 - :func:`fast_scan` is the wrapper: on a CUDA tensor it launches
   ``csrc/fast_scan.cu`` (one shared object per kernel variant, built with
   ``nvcc`` at first use and bound with ``ctypes``) or raises; on a CPU
   tensor it runs :func:`fast_scan_reference`.
+- :func:`fast_scan_sweep` runs S scans that share the template tables and
+  differ in node validity, spread weights, pod validity and forced masks:
+  one launch of the same kernel with one block per scenario (``fast_scan``
+  is its S = 1 case); on the CPU, :func:`fast_scan_sweep_reference`.
 - :func:`fast_scan_reference` is the plain PyTorch version: a Python loop
   over pods, vector ops over nodes, op for op the Pallas body's formulas.
   It runs on any device; the tests use it on the CPU, and the smoke script
@@ -26,17 +32,25 @@ node). This is the JAX package's Pallas megakernel
 Layouts (N nodes, R ≤ 8 resources, U templates, A selectors, K zone keys
 with Z zone columns, Cs ≤ 8 spread constraints per template, Gd ≤ 8 GPUs
 per node, Hp host-port ids, Ti/Tn/Tp required-affinity/anti/preferred
-terms per template, G/Gp existing-pod anti/preferred term rows, P pods):
-node-minor ``[X, N]`` tables, so neighbouring threads read neighbouring
-nodes. Float tables are float32, index tables int32. A feature that is off
-has zero-size tables (``gc_row`` -1), and the kernel variant that runs is
-chosen from them (:func:`variant`).
+terms per template, G/Gp existing-pod anti/preferred term rows, Vg volume
+groups and Dv ≤ 64 exclusive devices per node, Mv device volumes per
+template and media, P pods, S scenarios): node-minor ``[X, N]`` tables,
+so neighbouring threads read neighbouring nodes. Float tables are float32,
+index tables int32. A feature that is off has zero-size tables (``gc_row``
+-1), and the kernel variant that runs is chosen from them (:func:`variant`).
+
+Byte counts of the storage tables are float32, as in the JAX package: GiB
+multiples stay exact (600 GiB = 75·2^33), and the kernel and the plain
+version do the same single ops in the same order, so any input gives the
+same bits in both.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
+import math
 import shutil
 import subprocess
 import time
@@ -54,9 +68,11 @@ AVOID_WEIGHT = 10000.0  # NodePreferAvoidPods, no NormalizeScore
 MAX_R = 8  # resource rows the kernel's per-pod tables take (csrc MAX_R)
 MAX_CS = 8  # spread constraints per template (csrc MAX_CS)
 MAX_GD = 8  # GPUs per node (csrc MAX_GD)
+MAX_DV = 64  # exclusive devices per node: the bits of the bind's per-pod taken mask (csrc MAX_DV)
 
-#: Number of kernel launches made through :func:`fast_scan` (CUDA only),
-#: in all and by variant name (:func:`variant_name`).
+#: Number of kernel launches made through :func:`fast_scan` and
+#: :func:`fast_scan_sweep` (CUDA only), in all and by row name
+#: (:func:`variant_name`, :func:`sweep_name`).
 LAUNCHES = 0
 VARIANT_LAUNCHES: Dict[str, int] = {}
 
@@ -122,18 +138,34 @@ class FastInputs(NamedTuple):
     prefg_key: torch.Tensor  # i32 [Gp]
     prefg_GU: torch.Tensor  # f32 [Gp, U] signed weight the template carries on row g
     pmatch_GU: torch.Tensor  # f32 [Gp, U] 0/1 the template matches row g's selector
+    # open-local storage, bytes: [U], [U, 2], [U, 2], [U, 2·Mv] per template
+    # ([0], [0, 2], [0, 2], [0, 0] when off); media 0 = ssd, 1 = hdd
+    lvm_req: torch.Tensor  # f32 LVM bytes
+    dev_req: torch.Tensor  # f32 largest exclusive-device volume per media (the score's size)
+    dev_need: torch.Tensor  # f32 exclusive-device volumes per media (the score's count)
+    dev_sizes: torch.Tensor  # f32 each media's volume sizes, descending, 0-padded (ssd slots, then hdd)
+    # and per node: [Vg, N], [Vg, N], [Dv, N], [Dv, N], [2·Dv, N] (zero rows when off)
+    vg_cap: torch.Tensor  # f32 volume-group capacity
+    vg0: torch.Tensor  # f32 initial free bytes per volume group
+    dev_cap: torch.Tensor  # f32 device capacity
+    dev0: torch.Tensor  # f32 initial free bytes per device (0 = taken or absent)
+    dev_media: torch.Tensor  # f32 0/1 media one-hots: row m·Dv + d is device d of media m
     n_zones: int  # Z, zone columns of the count table (max over keys, >= 1)
     gc_row: int  # resource row of alibabacloud.com/gpu-count whose allocatable follows the GPUs, -1 off
 
 
 class FastOutputs(NamedTuple):
-    """What the scan returns, on the inputs' device."""
+    """What the scan returns, on the inputs' device (a sweep's fields have
+    a leading scenario axis; from the kernel, the float state fields are
+    views into one per-launch arena, not contiguous across scenarios)."""
 
     chosen: torch.Tensor  # [P] i32 node of each pod, -1 when it did not bind
     used: torch.Tensor  # [R, N] f32 final usage
     gpu_take: torch.Tensor  # [P, Gd] f32 GPU slots each pod took per device ([P, 0] without gpu)
     gpu_free: torch.Tensor  # [Gd, N] f32 final free memory per GPU ([0, N] without gpu)
     port_used: torch.Tensor  # [Hp, N] f32 final host-port use per port id ([0, N] without ports)
+    vg_free: torch.Tensor  # [Vg, N] f32 final free bytes per volume group ([0, N] without local)
+    dev_free: torch.Tensor  # [Dv, N] f32 final free bytes per device, 0 once taken ([0, N] without local)
 
 
 class Variant(NamedTuple):
@@ -147,6 +179,7 @@ class Variant(NamedTuple):
     avoid: bool
     ports: bool
     interpod: bool
+    local: bool
 
 
 def variant(fi: FastInputs) -> Variant:
@@ -159,6 +192,7 @@ def variant(fi: FastInputs) -> Variant:
         ports=fi.port_HU.shape[0] > 0,
         interpod=any(n > 0 for n in (fi.at_active.shape[1], fi.an_active.shape[1], fi.pt_active.shape[1],
                                      fi.anti_g_key.numel(), fi.prefg_key.numel())),
+        local=fi.lvm_req.numel() > 0,
     )
 
 
@@ -170,6 +204,13 @@ def _name(v: Variant) -> str:
 def variant_name(fi: FastInputs) -> str:
     """``fast_scan`` for the base variant, else ``fast_scan[gpu,gc,...]``."""
     return _name(variant(fi))
+
+
+def sweep_name(fi: FastInputs) -> str:
+    """The launch-count name of :func:`fast_scan_sweep` on these inputs:
+    ``fast_scan_sweep``, or ``fast_scan_sweep[...]`` with the variant's
+    flags. The sweep runs the same shared object as :func:`fast_scan`."""
+    return "fast_scan_sweep" + variant_name(fi)[len("fast_scan"):]
 
 
 def parse_variant(name: str) -> Variant:
@@ -207,6 +248,9 @@ class _Dims(NamedTuple):
     Tp: int
     G: int
     Gp: int
+    Vg: int
+    Dv: int
+    Mv: int
 
 
 def _dims(fi: FastInputs) -> _Dims:
@@ -216,15 +260,20 @@ def _dims(fi: FastInputs) -> _Dims:
         Cs=fi.spr_active.shape[1], Gd=fi.gpu0.shape[0], Hp=fi.port_HU.shape[0],
         Ti=fi.at_active.shape[1], Tn=fi.an_active.shape[1], Tp=fi.pt_active.shape[1],
         G=fi.anti_g_key.shape[0], Gp=fi.prefg_key.shape[0],
+        Vg=fi.vg0.shape[0], Dv=fi.dev0.shape[0], Mv=fi.dev_sizes.shape[1] // 2,
     )
 
 
-def _check(fi: FastInputs, tmpl, valid, forced) -> None:
+def _check(fi: FastInputs, tmpl, valid, forced, node_valid=None, spr_weight=None) -> None:
     """Device, dtype, shape and contiguity of everything the kernel reads,
-    and the range of every key and selector index it follows."""
+    and the range of every key and selector index it follows. ``valid``
+    and ``forced`` are ``[P]`` for one scan or ``[S, P]`` for a scenario
+    grid, whose ``node_valid [S, N]`` and ``spr_weight [S, U, Cs]`` are
+    checked too."""
     d = _dims(fi)
     N, R, U, A, K, Cs, Gd = d.N, d.R, d.U, d.A, d.K, d.Cs, d.Gd
     v = variant(fi)
+    Ul = U if v.local else 0
     want = {
         "alloc_T": (R, N), "used0_T": (R, N), "static_pass": (U, N), "aff_mask": (U, N),
         "share_raw": (U, N), "zone_idx": (K, N), "matches_AU": (A, U), "node_valid": (N,),
@@ -234,6 +283,9 @@ def _check(fi: FastInputs, tmpl, valid, forced) -> None:
         "avoid_raw": (U if v.avoid else 0, N), "port_HU": (d.Hp, U), "port_conf_HU": (d.Hp, U),
         "anti_g_key": (d.G,), "antig_GU": (d.G, U), "gmatch_GU": (d.G, U),
         "prefg_key": (d.Gp,), "prefg_GU": (d.Gp, U), "pmatch_GU": (d.Gp, U),
+        "lvm_req": (Ul,), "dev_req": (Ul, 2), "dev_need": (Ul, 2), "dev_sizes": (Ul, 2 * d.Mv),
+        "vg_cap": (d.Vg, N), "vg0": (d.Vg, N), "dev_cap": (d.Dv, N), "dev0": (d.Dv, N),
+        "dev_media": (2 * d.Dv, N),
     }
     for f in ("spr_active", "spr_key", "spr_sel", "spr_skew", "spr_hard", "spr_self", "spr_weight"):
         want[f] = (U, Cs)
@@ -251,12 +303,22 @@ def _check(fi: FastInputs, tmpl, valid, forced) -> None:
                 f"(contiguous={t.is_contiguous()}); want contiguous {dt}{shape} on {dev}"
             )
     P = tmpl.shape[0]
-    for name, t in (("tmpl", tmpl), ("valid", valid), ("forced", forced)):
-        if t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != (P,) or not t.is_contiguous():
-            raise ValueError(f"fast_scan: {name} must be a contiguous int32 [{P}] tensor on {dev}")
-    if R > MAX_R or Cs > MAX_CS or Gd > MAX_GD:
+    lead = tuple(valid.shape[:-1])  # () for one scan, (S,) for a scenario grid
+    per_pod = [("tmpl", tmpl, (P,), torch.int32), ("valid", valid, lead + (P,), torch.int32),
+               ("forced", forced, lead + (P,), torch.int32)]
+    if node_valid is not None or spr_weight is not None:
+        per_pod += [("node_valid", node_valid, lead + (N,), torch.float32),
+                    ("spr_weight", spr_weight, lead + (U, Cs), torch.float32)]
+    for name, t, shape, dt in per_pod:
+        if (t is None or t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"fast_scan: {name} must be a contiguous {dt} {list(shape)} tensor on {dev}")
+    if len(lead) > 1 or (lead and lead[0] < 1):
+        raise ValueError(f"fast_scan: a scenario grid takes [S, P] masks with S >= 1, not {list(valid.shape)}")
+    if R > MAX_R or Cs > MAX_CS or Gd > MAX_GD or d.Dv > MAX_DV:
         raise ValueError(
-            f"fast_scan: R={R} (max {MAX_R}), Cs={Cs} (max {MAX_CS}) or Gd={Gd} (max {MAX_GD}) outside the kernel"
+            f"fast_scan: R={R} (max {MAX_R}), Cs={Cs} (max {MAX_CS}), Gd={Gd} (max {MAX_GD}) "
+            f"or Dv={d.Dv} (max {MAX_DV}) outside the kernel"
         )
     if K < 1 or fi.n_zones < 1 or R <= V.RES_MEMORY:
         raise ValueError("fast_scan: needs K >= 1 zone-key rows, n_zones >= 1 and cpu/memory rows")
@@ -287,11 +349,14 @@ class _Args(ctypes.Structure):
         "port_hu", "port_conf", "at_active", "at_key", "at_sel", "at_self",
         "an_active", "an_key", "an_sel", "pt_active", "pt_key", "pt_sel", "pt_w",
         "anti_g_key", "antig", "gmatch", "prefg_key", "prefg", "pmatch",
+        "lvm_req", "dev_req", "dev_need", "dev_sizes", "vg_cap", "vg0", "dev_cap", "dev0", "dev_media",
         "chosen", "used", "node_cnt", "zone_cnt", "gpu_take", "gpu_free",
         "port_used", "anti_node", "anti_zone", "prefw_node", "prefw_zone", "sel_total",
-    )] + [(n, ctypes.c_int32) for n in (
-        "P", "N", "R", "U", "A", "K", "Z", "Cs", "Gd", "gc_row", "Hp", "Ti", "Tn", "Tp", "G", "Gp",
-        "has_gpu", "has_na", "has_tt", "has_avoid", "has_ports", "has_interpod",
+        "vg_free", "dev_free",
+    )] + [("W", ctypes.c_int64)] + [(n, ctypes.c_int32) for n in (
+        "S", "P", "N", "R", "U", "A", "K", "Z", "Cs", "Gd", "gc_row", "Hp", "Ti", "Tn", "Tp", "G", "Gp",
+        "Vg", "Dv", "Mv",
+        "has_gpu", "has_na", "has_tt", "has_avoid", "has_ports", "has_interpod", "has_local",
     )]
 
 
@@ -361,71 +426,115 @@ def build(names: Iterable[str]) -> None:
     BUILD_LOG["variants"] = log
 
 
-def _launch(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
+def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, row: str) -> FastOutputs:
+    """One launch of the kernel over a grid of S scenarios (``valid`` and
+    ``forced`` [S, P], ``node_valid`` [S, N], ``spr_weight`` [S, U, Cs]),
+    counted under `row`. Every output and state buffer has a leading S
+    axis; block s writes its own slice."""
     global LAUNCHES
-    _check(fi, tmpl, valid, forced)
+    _check(fi, tmpl, valid, forced, node_valid, spr_weight)
     name = variant_name(fi)
     build([name])
-    lib = _LIBS[name]
     d = _dims(fi)
     N, R, A, K, Gd = d.N, d.R, d.A, d.K, d.Gd
-    P, Z = tmpl.shape[0], fi.n_zones
+    S, P, Z = valid.shape[0], tmpl.shape[0], fi.n_zones
     v = variant(fi)
     dev = fi.alloc_T.device
     f32 = torch.float32
-    empty = lambda *shape: torch.empty(shape, dtype=f32, device=dev)
-    chosen = torch.empty((P,), dtype=torch.int32, device=dev)
-    used = empty(R, N)
-    node_cnt = empty(A, N)  # zeroed by the kernel, as every count below
-    zone_cnt = empty(K * A, Z)
-    gpu_take = torch.zeros((P, Gd), dtype=f32, device=dev)  # the kernel writes bound pods' rows only
-    gpu_free = empty(Gd, N)  # gpu0 copied in by the kernel
-    port_used = empty(d.Hp, N)
-    anti_node, anti_zone = empty(d.G, N), empty(d.G, Z)
-    prefw_node, prefw_zone = empty(d.Gp, N), empty(d.Gp, Z)
-    sel_total = empty((K + 1) * A if v.interpod else 0)
+    # The float state and outputs and the per-scenario node rows of scenario
+    # s lie in row s of one [S, W] arena, so the kernel selects a scenario by
+    # one offset s * W for all of them. It zeroes or copies in the state.
+    shapes = {"used": (R, N), "node_cnt": (A, N), "zone_cnt": (K * A, Z), "gpu_free": (Gd, N),
+              "port_used": (d.Hp, N), "anti_node": (d.G, N), "anti_zone": (d.G, Z), "prefw_node": (d.Gp, N),
+              "prefw_zone": (d.Gp, Z), "sel_total": ((K + 1) * A if v.interpod else 0,), "vg_free": (d.Vg, N),
+              "dev_free": (d.Dv, N), "node_valid": (N,), "spr_weight": (d.U, d.Cs)}
+    sizes = [math.prod(shape) for shape in shapes.values()]
+    arena = torch.empty((S, sum(sizes)), dtype=f32, device=dev)
+    starts = itertools.accumulate([0] + sizes)
+    part = {name: arena[:, o:o + n].unflatten(1, shape) for (name, shape), o, n in zip(shapes.items(), starts, sizes)}
+    part["node_valid"].copy_(node_valid)
+    part["spr_weight"].copy_(spr_weight)
+    chosen = torch.empty((S, P), dtype=torch.int32, device=dev)
+    gpu_take = torch.zeros((S, P, Gd), dtype=f32, device=dev)  # the kernel writes bound pods' rows only
     ptr = lambda t: t.data_ptr()
     args = _Args(
         ptr(tmpl), ptr(valid), ptr(forced), ptr(fi.alloc_T), ptr(fi.used0_T),
-        ptr(fi.node_valid), ptr(fi.zone_idx), ptr(fi.static_pass), ptr(fi.aff_mask),
+        ptr(part["node_valid"]), ptr(fi.zone_idx), ptr(fi.static_pass), ptr(fi.aff_mask),
         ptr(fi.share_raw), ptr(fi.matches_AU), ptr(fi.req), ptr(fi.cpu_nz), ptr(fi.mem_nz),
         ptr(fi.pin), ptr(fi.spr_active), ptr(fi.spr_key), ptr(fi.spr_sel), ptr(fi.spr_skew),
-        ptr(fi.spr_hard), ptr(fi.spr_self), ptr(fi.spr_weight),
+        ptr(fi.spr_hard), ptr(fi.spr_self), ptr(part["spr_weight"]),
         ptr(fi.gpu_mem), ptr(fi.gpu_cnt), ptr(fi.gpu0), ptr(fi.na_raw), ptr(fi.tt_raw), ptr(fi.avoid_raw),
         ptr(fi.port_HU), ptr(fi.port_conf_HU), ptr(fi.at_active), ptr(fi.at_key), ptr(fi.at_sel),
         ptr(fi.at_self), ptr(fi.an_active), ptr(fi.an_key), ptr(fi.an_sel), ptr(fi.pt_active),
         ptr(fi.pt_key), ptr(fi.pt_sel), ptr(fi.pt_w), ptr(fi.anti_g_key), ptr(fi.antig_GU),
         ptr(fi.gmatch_GU), ptr(fi.prefg_key), ptr(fi.prefg_GU), ptr(fi.pmatch_GU),
-        ptr(chosen), ptr(used), ptr(node_cnt), ptr(zone_cnt), ptr(gpu_take), ptr(gpu_free),
-        ptr(port_used), ptr(anti_node), ptr(anti_zone), ptr(prefw_node), ptr(prefw_zone), ptr(sel_total),
-        P, N, R, d.U, A, K, Z, d.Cs, Gd, fi.gc_row, d.Hp, d.Ti, d.Tn, d.Tp, d.G, d.Gp,
-        int(v.gpu), int(v.na), int(v.tt), int(v.avoid), int(v.ports), int(v.interpod),
+        ptr(fi.lvm_req), ptr(fi.dev_req), ptr(fi.dev_need), ptr(fi.dev_sizes), ptr(fi.vg_cap),
+        ptr(fi.vg0), ptr(fi.dev_cap), ptr(fi.dev0), ptr(fi.dev_media),
+        ptr(chosen), ptr(part["used"]), ptr(part["node_cnt"]), ptr(part["zone_cnt"]), ptr(gpu_take),
+        *(ptr(part[n]) for n in ("gpu_free", "port_used", "anti_node", "anti_zone", "prefw_node", "prefw_zone",
+                                 "sel_total", "vg_free", "dev_free")),
+        arena.shape[1],
+        S, P, N, R, d.U, A, K, Z, d.Cs, Gd, fi.gc_row, d.Hp, d.Ti, d.Tn, d.Tp, d.G, d.Gp, d.Vg, d.Dv, d.Mv,
+        int(v.gpu), int(v.na), int(v.tt), int(v.avoid), int(v.ports), int(v.interpod), int(v.local),
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fast_scan_launch(ctypes.byref(args), stream)
+        err = _LIBS[name].fast_scan_launch(ctypes.byref(args), stream)
     if err != 0:
         raise RuntimeError(f"fast_scan: kernel launch failed (cudaError {err})")
     LAUNCHES += 1
-    VARIANT_LAUNCHES[name] = VARIANT_LAUNCHES.get(name, 0) + 1
-    return FastOutputs(chosen, used, gpu_take, gpu_free, port_used)
+    VARIANT_LAUNCHES[row] = VARIANT_LAUNCHES.get(row, 0) + 1
+    return FastOutputs(chosen, part["used"], gpu_take, part["gpu_free"], part["port_used"], part["vg_free"],
+                       part["dev_free"])
 
 
 def fast_scan(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     """Run the bind scan over the pod stream. ``tmpl``/``valid``/``forced``
     are int32 ``[P]`` tensors on the inputs' device. Returns the chosen
     nodes (-1 for a pod that did not bind), the final usage, each pod's GPU
-    slots per device, the final free memory per GPU and the final host-port
-    use.
+    slots per device, the final free memory per GPU, the final host-port
+    use and the final free bytes per volume group and device.
 
-    On a CUDA device this launches the kernel (one launch for the stream)
-    or raises; on the CPU it runs the plain version."""
+    On a CUDA device this launches the kernel (one launch for the stream,
+    the S = 1 case of :func:`fast_scan_sweep`'s grid) or raises; on the
+    CPU it runs the plain version."""
     dev = fi.alloc_T.device
     if dev.type == "cuda":
-        return _launch(fi, tmpl, valid, forced)
+        out = _launch(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None],
+                      variant_name(fi))
+        return FastOutputs(*(t[0] for t in out))
     if dev.type == "cpu":
         return fast_scan_reference(fi, tmpl, valid, forced)
     raise ValueError(f"fast_scan: no kernel for device {dev}")
+
+
+def fast_scan_sweep(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight) -> FastOutputs:
+    """S bind scans over one pod stream ``tmpl [P]`` that share every
+    template table and differ per scenario in ``valid``/``forced`` (int32
+    ``[S, P]``), ``node_valid`` (float32 ``[S, N]``) and ``spr_weight``
+    (float32 ``[S, U, Cs]``, the spread weights of the scenario's valid
+    nodes). Returns :class:`FastOutputs` with a leading S axis; scenario s
+    gives what :func:`fast_scan` gives on its rows.
+
+    On a CUDA device this is one launch, one block per scenario, or
+    raises; on the CPU it runs the plain version scenario by scenario."""
+    dev = fi.alloc_T.device
+    if dev.type == "cuda":
+        return _launch(fi, tmpl, valid, forced, node_valid, spr_weight, sweep_name(fi))
+    if dev.type == "cpu":
+        return fast_scan_sweep_reference(fi, tmpl, valid, forced, node_valid, spr_weight)
+    raise ValueError(f"fast_scan_sweep: no kernel for device {dev}")
+
+
+def fast_scan_sweep_reference(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight) -> FastOutputs:
+    """Plain version of :func:`fast_scan_sweep` on any device: the plain
+    scan once per scenario, with the scenario's node validity and spread
+    weights in place of the template's."""
+    outs = [
+        fast_scan_reference(fi._replace(node_valid=node_valid[s], spr_weight=spr_weight[s]), tmpl, valid[s], forced[s])
+        for s in range(valid.shape[0])
+    ]
+    return FastOutputs(*(torch.stack(field) for field in zip(*outs)))
 
 
 # ---------------------------------------------------------------------------
@@ -445,9 +554,13 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     counts of 0/1 flags, integer counts and weights below 2^24) are
     vectorised over them or summed in another order. The Pallas body's
     inter-pod and port dots are such sums: no matmul here, which on the
-    card could round through TF32."""
+    card could round through TF32. Storage terms that the Pallas body
+    multiplies by ``where(size > 0, ..., 0)`` (a volume slot of size 0,
+    the LVM part of a template with no LVM) are skipped, which leaves every
+    value as it was."""
     d = _dims(fi)
     N, R, U, A, K, Cs, Gd = d.N, d.R, d.U, d.A, d.K, d.Cs, d.Gd
+    Vg, Dv, Mv = d.Vg, d.Dv, d.Mv
     Z = fi.n_zones
     v = variant(fi)
     dev = fi.alloc_T.device
@@ -475,6 +588,11 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     gpu_free = fi.gpu0.clone()
     gpu_take = torch.zeros((P, Gd), dtype=f32, device=dev)
     port_used = torch.zeros((d.Hp, N), dtype=f32, device=dev)
+    vg_free = fi.vg0.clone()
+    dev_free = fi.dev0.clone()
+    if v.local:
+        # which storage terms each template has (host lists: control flow only)
+        lvm_h, dreq_h, sizes_h = fi.lvm_req.tolist(), fi.dev_req.tolist(), fi.dev_sizes.tolist()
     if v.gc:
         # devices a node has (gpu0 > 0) never change: the count of its
         # not-fully-used devices is a sum of 0/1 flags, exact in any order
@@ -556,6 +674,25 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
                 chunks_sum = chunks_sum + torch.floor(gpu_free[d_] / gmem1)
             gpu_ok = ((chunks_sum >= gcnt) & (gcnt > 0)).to(f32)
             feasible = torch.where(gmem > 0, feasible * gpu_ok, feasible)
+
+        if v.local:
+            # Open-Local filter (:455-477): the LVM request fits the VG with
+            # the most free bytes; the i-th largest volume of a media finds
+            # at least i + 1 free devices that fit it
+            if lvm_h[u] > 0:
+                best_vg = torch.full((N,), NEG, dtype=f32, device=dev)
+                for g_ in range(Vg):
+                    best_vg = torch.maximum(best_vg, vg_free[g_])
+                feasible = feasible * (best_vg >= fi.lvm_req[u]).to(f32)
+            for m in range(2):
+                for vi in range(Mv):
+                    if sizes_h[u][m * Mv + vi] > 0:
+                        size = fi.dev_sizes[u, m * Mv + vi]
+                        cnt_fit = torch.zeros((N,), dtype=f32, device=dev)
+                        for d_ in range(Dv):
+                            free_d = dev_free[d_]
+                            cnt_fit = cnt_fit + fi.dev_media[m * Dv + d_] * ((free_d >= size) & (free_d > 0)).to(f32)
+                        feasible = feasible * (cnt_fit >= vi + 1).to(f32)
 
         # --- PodTopologySpread
         aff_row = fi.aff_mask[u] * valid_row
@@ -685,6 +822,36 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
             )
         if v.avoid:
             score = score + AVOID_WEIGHT * fi.avoid_raw[u]
+        if v.local:
+            # Open-Local binpack score (:668-702): the mean over the pod's
+            # storage units of request / capacity of the unit it would take,
+            # × 10, min-max normalised over the feasible nodes
+            local_raw = torch.zeros((N,), dtype=f32, device=dev)
+            if lvm_h[u] > 0 or dreq_h[u][0] > 0 or dreq_h[u][1] > 0:  # else count = 0
+                lvm = fi.lvm_req[u]
+                best_free = torch.full((N,), BIG, dtype=f32, device=dev)
+                best_cap = torch.zeros((N,), dtype=f32, device=dev)
+                for g_ in range(Vg):
+                    free_v = vg_free[g_]
+                    better = (free_v >= lvm) & (free_v < best_free)
+                    best_free = torch.where(better, free_v, best_free)
+                    best_cap = torch.where(better, fi.vg_cap[g_], best_cap)
+                parts = torch.where((lvm > 0) & (best_free < BIG), lvm / torch.clamp(best_cap, min=1.0), 0.0)
+                count = torch.where(lvm > 0, 1.0, 0.0)
+                for m in range(2):
+                    size, need = fi.dev_req[u, m], fi.dev_need[u, m]
+                    first_cap = torch.full((N,), BIG, dtype=f32, device=dev)
+                    for d_ in range(Dv):
+                        free_d = dev_free[d_]
+                        fitting = (fi.dev_media[m * Dv + d_] > 0) & (free_d >= size) & (free_d > 0)
+                        first_cap = torch.where(fitting, torch.minimum(first_cap, fi.dev_cap[d_]), first_cap)
+                    parts = parts + torch.where(size > 0, need * size / torch.clamp(first_cap, min=1.0), 0.0)
+                    count = count + torch.where(size > 0, need, 0.0)
+                local_raw = torch.where(count > 0, parts / torch.clamp(count, min=1.0) * 10.0, 0.0)
+            l_lo = torch.min(torch.where(feas_b, local_raw, BIG))
+            l_hi = torch.max(torch.where(feas_b, local_raw, NEG))
+            l_rng = l_hi - l_lo
+            score = score + torch.where(l_rng > 0, (local_raw - l_lo) * MAX_SCORE / l_rng, 0.0)
         if v.interpod:
             # inter-pod score, min-max normalised with both ends seeded at 0 (:703-711)
             ip_masked = torch.where(feas_b, ip_raw, 0.0)
@@ -741,6 +908,35 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
             take = torch.where(gmem > 0, take, 0.0)
             gpu_free[:, c] = (free - take * gmem * bind_f)[:, None]
             gpu_take[i] = take * bind_f
+        if v.local and lvm_h[u] > 0:
+            # LVM (:784-798): the tightest VG that fits, first among equals
+            lvm = fi.lvm_req[u]
+            free = vg_free[:, c][:, 0]  # [Vg]
+            fits = free >= lvm
+            best_free = torch.min(torch.where(fits, free, BIG))
+            tight = fits & (free == best_free)
+            take = (tight & (torch.cumsum(tight.to(torch.int32), 0) == 1)).to(f32)
+            vg_free[:, c] = (free - torch.clamp(lvm, min=0.0) * take * bind_f)[:, None]
+        if v.local:
+            # exclusive devices (:799-835): volumes in ascending size, each on
+            # the smallest-capacity candidate this pod has not taken yet, ties
+            # to the lowest index; a taken device's free bytes become 0
+            cap = fi.dev_cap[:, c][:, 0]  # [Dv]
+            media = fi.dev_media[:, c][:, 0]  # [2·Dv]
+            free = dev_free[:, c][:, 0]
+            taken = torch.zeros((Dv,), dtype=torch.bool, device=dev)
+            for m in range(2):
+                for vi in reversed(range(Mv)):
+                    if sizes_h[u][m * Mv + vi] <= 0:
+                        continue
+                    size = fi.dev_sizes[u, m * Mv + vi]
+                    cand = (media[m * Dv:(m + 1) * Dv] > 0) & (free >= size) & (free > 0) & ~taken
+                    best_cap = torch.min(torch.where(cand, cap, BIG))
+                    pick = cand & (cap == best_cap)
+                    pick = pick & (torch.cumsum(pick.to(torch.int32), 0) == 1)
+                    taken = taken | pick
+                    free = free * (1.0 - pick.to(f32) * bind_f)
+            dev_free[:, c] = free[:, None]
         if v.interpod:
             # term counts (:836-854): the node row, and the zone row under
             # the row's own key where the chosen node carries that label
@@ -752,7 +948,7 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
                 node_rows[:, c] = node_rows[:, c] + add[:, None]
                 zone_rows.scatter_add_(1, col[:, c], (add * has[:, c][:, 0])[:, None])
 
-    return FastOutputs(chosen, used, gpu_take, gpu_free, port_used)
+    return FastOutputs(chosen, used, gpu_take, gpu_free, port_used, vg_free, dev_free)
 
 
 # ---------------------------------------------------------------------------
@@ -780,30 +976,59 @@ _PORT_PER_ROW, _PORT = 3, 2
 _IP_REQ_TERM, _IP_PREF_TERM, _IP_ROW, _IP = 4, 3, 2, 14
 #: Per bound pod: the device packing, 14 per GPU.
 _GPU_BIND_PER_GD = 14
+#: Open-Local, per (scheduled pod, node): its range reduction and
+#: normalisation 4 for every pod; for a template with LVM, the filter's
+#: best VG 1 per VG plus 1 and the score's VG choice 4 per VG plus 4; per
+#: exclusive volume of the template, the filter's device count 4 per device
+#: plus 1; per media the template asks, the score's device choice 4 per
+#: device plus 6. Per bound pod: 4 per VG (with LVM) and 8 per device for
+#: each of its volumes.
+_LOC = 4
+_LOC_VG, _LOC_DEV = 5, 4
+_LOC_LVM, _LOC_VOL, _LOC_MEDIA = 5, 1, 6
+_LOC_BIND_VG, _LOC_BIND_DEV = 4, 8
 
 #: FastInputs tables with a node axis (their last one).
 _NODE_AXIS = {"alloc_T", "used0_T", "static_pass", "aff_mask", "share_raw", "zone_idx", "node_valid",
-              "gpu0", "na_raw", "tt_raw", "avoid_raw"}
+              "gpu0", "na_raw", "tt_raw", "avoid_raw", "vg_cap", "vg0", "dev_cap", "dev0", "dev_media"}
+#: FastInputs tables a scenario grid replaces with its own [S, ...] rows.
+_PER_SCENARIO = {"node_valid", "spr_weight"}
 
 
-def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen) -> dict:
+def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None) -> dict:
     """Bytes the scan must move (each input read once, each output written
     once) and float ops that this stream's pods need, over the valid node
     lanes only (padding lanes need no work): a scheduled pod does the
     per-node work of its own template's active constraints, terms, port
-    conflicts and matched term rows and of the variant's flag branches, a
-    pod that bound (``chosen`` >= 0, the scan's result) its bind."""
+    conflicts, matched term rows and storage volumes and of the variant's
+    flag branches, a pod that bound (``chosen`` >= 0, the scan's result)
+    its bind.
+
+    For a scenario grid, ``valid``/``forced``/``chosen`` are ``[S, P]`` and
+    ``node_valid`` ``[S, N]``: each scenario is counted over its own valid
+    nodes, the template tables the scenarios share are read once, and each
+    scenario's node validity and spread weights once per scenario."""
     d = _dims(fi)
     R, A, K, Gd = d.R, d.A, d.K, d.Gd
     v = variant(fi)
+    if valid.dim() == 1:
+        valid, forced, chosen = valid[None], forced[None], chosen[None]
+    if node_valid is None:
+        node_valid = fi.node_valid[None]
+    S = valid.shape[0]
     n_valid = int((fi.node_valid != 0).sum())
+    n_valid_s = (node_valid.cpu() != 0).sum(1).tolist()  # [S]
     in_bytes = sum(t.numel() * t.element_size() for t in (tmpl, valid, forced))
     for name, t in fi._asdict().items():
         if isinstance(t, torch.Tensor):
+            if name in _PER_SCENARIO:
+                lanes = [n / d.N if name in _NODE_AXIS else 1 for n in n_valid_s]
+                in_bytes += sum(int(t.numel() * x) * t.element_size() for x in lanes)
+                continue
             lanes = n_valid / d.N if name in _NODE_AXIS else 1
             in_bytes += int(t.numel() * lanes) * t.element_size()
     P = int(tmpl.shape[0])
-    out_bytes = P * 4 + (R + Gd + d.Hp) * n_valid * 4 + P * Gd * 4
+    out_bytes = sum(P * 4 + (R + Gd + d.Hp + d.Vg + d.Dv) * n * 4 + P * Gd * 4 for n in n_valid_s)
     tm = tmpl.long().cpu()
     vd = valid.cpu() != 0
     fd = forced.cpu() != 0
@@ -825,6 +1050,13 @@ def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen) -> dict:
         per_node = (per_node + _IP + _IP_REQ_TERM * (count(fi.at_active) + count(fi.an_active))
                     + _IP_PREF_TERM * count(fi.pt_active) + _IP_ROW * rows)
         per_bind = per_bind + 2 * (d.G + d.Gp) + A * (1 + K)
+    if v.local:
+        has_lvm = (fi.lvm_req.cpu() > 0)[tm]
+        vols = (fi.dev_sizes.cpu() > 0).sum(1)[tm]
+        medias = (fi.dev_req.cpu() > 0).sum(1)[tm]
+        per_node = (per_node + _LOC + has_lvm * (_LOC_VG * d.Vg + _LOC_LVM)
+                    + vols * (_LOC_DEV * d.Dv + _LOC_VOL) + medias * (_LOC_DEV * d.Dv + _LOC_MEDIA))
+        per_bind = per_bind + has_lvm * (_LOC_BIND_VG * d.Vg) + vols * (_LOC_BIND_DEV * d.Dv)
     sched = vd & ~fd
-    ops = int((per_node[sched] * n_valid).sum()) + int(per_bind[bound].sum())
+    ops = sum(int(per_node[sched[s]].sum()) * n_valid_s[s] + int(per_bind[bound[s]].sum()) for s in range(S))
     return {"bytes": in_bytes + out_bytes, "ops": ops}

@@ -1,9 +1,9 @@
 """Bind-scan parity: the port's plain version against the JAX package on
 the same prepared inputs (the reference's FastInputs handed across as
 numpy), and the port's own marshalling against those inputs. Placements
-must be identical, and `used`, the GPU takes, the final GPU state and the
-final host-port use equal to rtol=0, atol=0: one ulp would flip a score
-tie."""
+must be identical, and `used`, the GPU takes, the final GPU, host-port,
+volume-group and device state equal to rtol=0, atol=0: one ulp would flip
+a score tie."""
 
 import copy
 import ctypes
@@ -23,6 +23,7 @@ from opensim_tpu.ops import kernels as ref_kernels
 from opensim_tpu_torch.engine import fastpath, simulator as sim
 from opensim_tpu_torch.models import fixtures as fx
 from opensim_tpu_torch.ops import fast_scan as fs
+from opensim_tpu_torch.planner import defrag
 
 CASES = [c[0] for c in fx.SCAN_CASES]
 
@@ -38,6 +39,12 @@ def _reference_copy(rt):
 
 def _ref_prep(name):
     cluster, app, node_pad = fx.scan_case(name)
+    if name == "local_demo":
+        # the example's node storage comes from a JSON file beside the
+        # manifests, so the JAX package loads the same directories
+        cluster = ref_expand.load_cluster_from_dir("example/cluster/demo")
+        app, _ = ref_expand.resources_from_dicts(ref_expand.load_yaml_objects("example/application/local"))
+        return ref_sim.prepare(cluster, [ref_sim.AppResource("a", app)], node_pad=node_pad)
     return ref_sim.prepare(
         _reference_copy(cluster), [ref_sim.AppResource("a", _reference_copy(app))], node_pad=node_pad
     )
@@ -67,17 +74,20 @@ def _reference_inputs(ref):
     return fastpath.inputs_from_reference(
         arrays, "cpu", ref.features, gc_row, n_nodes=meta["n_orig"], n_gpus=ref.st0.gpu_free.shape[1],
         n_ports=n_ports, n_anti=ec.anti_g_sel.shape[0], n_pref=ec.prefg_sel.shape[0],
+        n_vg=ref.st0.vg_free.shape[1], n_dev=ref.st0.dev_free.shape[1],
     ), meta
 
 
 def _port_on_reference_inputs(ref):
     """(chosen [P], used [N, R], gpu_take [P, Gd], gpu_free [N, Gd],
-    port_used [N, Hp]) of the plain version; the GPU arrays are None when
-    no pod asks GPU memory."""
+    port_used [N, Hp], vg_free [N, Vg], dev_free [N, Dv]) of the plain
+    version; the GPU arrays are None when no pod asks GPU memory, the
+    storage arrays when no pod asks local storage."""
     fi, _ = _reference_inputs(ref)
     out = fs.fast_scan_reference(fi, *_stream(ref))
     gpu = (out.gpu_take.numpy(), out.gpu_free.T.numpy()) if ref.features.gpu else (None, None)
-    return (out.chosen.numpy(), out.used.T.numpy()) + gpu + (out.port_used.T.numpy(),)
+    local = (out.vg_free.T.numpy(), out.dev_free.T.numpy()) if ref.features.local else (None, None)
+    return (out.chosen.numpy(), out.used.T.numpy()) + gpu + (out.port_used.T.numpy(),) + local
 
 
 def _exact(got, want):
@@ -92,7 +102,7 @@ def test_plain_version_matches_xla_scan(name):
     P = len(ref.ordered)
     t, v, f = pad_pod_stream(ref.tmpl_ids, np.ones(P, bool), ref.forced)
     out = schedule_pods(ref.ec, ref.st0, t, v, f, features=ref.features)
-    chosen, used, gpu_take, gpu_free, port_used = _port_on_reference_inputs(ref)
+    chosen, used, gpu_take, gpu_free, port_used, vg_free, dev_free = _port_on_reference_inputs(ref)
     np.testing.assert_array_equal(chosen, np.asarray(out.chosen)[:P])
     _exact(used, np.asarray(out.final_state.used))
     want_ports = np.asarray(out.final_state.port_used)  # [N, Hports], every port id of the vocabulary
@@ -106,26 +116,39 @@ def test_plain_version_matches_xla_scan(name):
     else:  # without GPU-share pods the XLA scan leaves the GPUs alone
         assert not np.asarray(out.gpu_take).any()
         _exact(np.asarray(out.final_state.gpu_free), np.asarray(ref.st0.gpu_free))
-    if name not in ("ties", "two_keys", "interpod_small"):  # the cases do exercise failures
+    if ref.features.local:
+        _exact(vg_free, np.asarray(out.final_state.vg_free))
+        _exact(dev_free, np.asarray(out.final_state.dev_free))
+        assert (vg_free != np.asarray(ref.st0.vg_free)).any() and (dev_free != np.asarray(ref.st0.dev_free)).any()
+    else:  # without local-storage pods the XLA scan leaves the storage alone
+        _exact(np.asarray(out.final_state.vg_free), np.asarray(ref.st0.vg_free))
+        _exact(np.asarray(out.final_state.dev_free), np.asarray(ref.st0.dev_free))
+    if name not in ("ties", "two_keys", "interpod_small", "local", "local_rules"):  # the cases do exercise failures
         assert (chosen < 0).any()
 
 
-@pytest.mark.parametrize("name", ["spread", "forced", "gpu_dyn", "scores", "interpod", "interpod_terms", "ports"])
+@pytest.mark.parametrize(
+    "name",
+    ["spread", "forced", "gpu_dyn", "scores", "interpod", "interpod_terms", "ports", "local", "local_rules", "local_demo"],
+)
 def test_plain_version_matches_pallas_interpret(name):
     ref = _ref_prep(name)
     P = len(ref.ordered)
     want = ref_fastpath.schedule(ref, ref.tmpl_ids, np.ones(P, bool), ref.forced, interpret=True)
-    chosen, used, gpu_take, gpu_free, _ports = _port_on_reference_inputs(ref)
+    chosen, used, gpu_take, gpu_free, _ports, vg_free, dev_free = _port_on_reference_inputs(ref)
     np.testing.assert_array_equal(chosen, want[0])
     _exact(used, want[1])
     if ref.features.gpu:
         _exact(gpu_take, want[3])
         _exact(gpu_free, want[4])
+    if ref.features.local:
+        _exact(vg_free, want[5])
+        _exact(dev_free, want[6])
 
 
 def test_forced_gpu_pods_take_no_device_where_none_fits():
     ref = _ref_prep("gpu_forced")
-    chosen, _used, gpu_take, _free, _ports = _port_on_reference_inputs(ref)
+    chosen, _used, gpu_take, _free, _ports, _vg, _dev = _port_on_reference_inputs(ref)
     # the four bound pods lead the stream: 4 GiB on g0, then 10 GiB (one and
     # two GPUs) and 6 GiB on two GPUs, all on g1 (8 GiB GPUs)
     assert ref.forced[:4].all() and chosen[:4].tolist() == [0, 1, 1, 1]
@@ -163,9 +186,11 @@ def test_wrapper_on_cpu_runs_the_plain_version(name):
     P, Gd = len(port.tmpl_ids), fi.gpu0.shape[0]
     assert a.gpu_take.shape == (P, Gd) and a.gpu_free.shape == (Gd, fi.alloc_T.shape[1])
     assert a.port_used.shape == (fi.port_HU.shape[0], fi.alloc_T.shape[1])
+    assert a.vg_free.shape == fi.vg0.shape and a.dev_free.shape == fi.dev0.shape
     v = fs.variant(fi)
     assert v.gpu == port.features.gpu == (Gd > 0)
     assert v.ports == port.features.ports and v.interpod == (port.features.interpod or port.features.prefg)
+    assert v.local == port.features.local == (fi.lvm_req.numel() > 0)
     assert fs.parse_variant(fs.variant_name(fi)) == v
 
 
@@ -280,8 +305,9 @@ def test_variant_names_round_trip():
     for bits in range(1 << len(fs.Variant._fields)):
         v = fs.Variant(*(bool(bits >> i & 1) for i in range(len(fs.Variant._fields))))
         assert fs.parse_variant(fs._name(v)) == v and fs._bits(v) == bits
+    assert fs._bits(fs.parse_variant("fast_scan[local]")) == 1 << 7  # appended: earlier numbers keep their meaning
     with pytest.raises(ValueError, match="no kernel variant"):
-        fs.parse_variant("fast_scan[local]")
+        fs.parse_variant("fast_scan[bogus]")
 
 
 def _struct_fields(src: str):
@@ -303,3 +329,77 @@ def test_ctypes_struct_matches_the_cuda_struct():
     assert fields == [n for n, _ in fs._Args._fields_]
     pointers = [n for n, t in fs._Args._fields_ if t is ctypes.c_void_p]
     assert fields[: len(pointers)] == pointers  # every pointer before the int32 scalars
+
+
+def _drain_grid(port, drained):
+    """The sweep's inputs for draining each node of `drained`: tmpl,
+    valid, forced, node_valid and spr_weight."""
+    return fastpath.sweep_inputs(port, *defrag.drain_masks(port, drained))
+
+
+def test_work_counts_the_local_branch():
+    port = _port_prep("local")
+    fi, _ = fastpath.build_inputs(port)
+    stream = _stream(port)
+    off = {k: torch.from_numpy(t).float() for k, t in fastpath._no_local(fi.alloc_T.shape[1]).items()}
+    base = fi._replace(**off)
+    assert fs.variant(base) == fs.variant(fi)._replace(local=False) and fs.variant(fi).local
+    chosen = fs.fast_scan_reference(fi, *stream).chosen
+    w, w_base = fs.fast_scan_work(fi, *stream, chosen), fs.fast_scan_work(base, *stream, chosen)
+    assert w["ops"] > w_base["ops"] and w["bytes"] > w_base["bytes"]
+    all_bound = fs.fast_scan_work(fi, *stream, torch.zeros_like(chosen))
+    assert all_bound["ops"] == w["ops"]  # every pod of the case binds
+
+
+def test_work_of_a_scenario_grid_counts_each_scenario_over_its_own_nodes():
+    port = _port_prep("local")
+    fi, _ = fastpath.build_inputs(port)
+    tmpl, valid, forced, node_valid, spr_weight = _drain_grid(port, [0, 1, 2])
+    chosen = fs.fast_scan_sweep_reference(fi, tmpl, valid, forced, node_valid, spr_weight).chosen
+    w = fs.fast_scan_work(fi, tmpl, valid, forced, chosen, node_valid)
+    singles = [fs.fast_scan_work(fi._replace(node_valid=node_valid[s]), tmpl, valid[s], forced[s], chosen[s])
+               for s in range(3)]
+    assert w["ops"] == sum(x["ops"] for x in singles) > 0
+    assert int((node_valid != 0).sum()) == 3 * 3  # each scenario has lost one of the four nodes
+    # the template tables the scenarios share are read once
+    assert singles[0]["bytes"] < w["bytes"] < sum(x["bytes"] for x in singles)
+
+
+def test_plain_sweep_is_the_plain_scan_per_scenario():
+    port = _port_prep("forced")
+    fi, _ = fastpath.build_inputs(port)
+    tmpl, valid, forced, node_valid, spr_weight = _drain_grid(port, [0, 3, 5])
+    assert not forced.all(dim=0).equal(forced.any(dim=0))  # draining n000 or n003 releases a bound pod
+    out = fs.fast_scan_sweep(fi, tmpl, valid, forced, node_valid, spr_weight)
+    for s in range(3):
+        one = fs.fast_scan_reference(fi._replace(node_valid=node_valid[s], spr_weight=spr_weight[s]),
+                                     tmpl, valid[s], forced[s])
+        assert all(torch.equal(a[s], b) for a, b in zip(out, one))
+        assert not (out.chosen[s] == (0, 3, 5)[s]).any()  # nothing lands on the drained node
+
+
+def test_launcher_checks_a_scenario_grid():
+    port = _port_prep("ties")
+    fi, _ = fastpath.build_inputs(port)
+    tmpl, valid, forced = _stream(port)
+    grid = (valid.repeat(2, 1), forced.repeat(2, 1), fi.node_valid.repeat(2, 1), fi.spr_weight.repeat(2, 1, 1))
+    fs._check(fi, tmpl, *grid)
+    with pytest.raises(ValueError, match="node_valid"):
+        fs._check(fi, tmpl, grid[0], grid[1], grid[2][:, :-1].contiguous(), grid[3])
+    with pytest.raises(ValueError, match="spr_weight"):
+        fs._check(fi, tmpl, grid[0], grid[1], grid[2], grid[3][:1].contiguous())
+    with pytest.raises(ValueError, match="forced"):
+        fs._check(fi, tmpl, grid[0], forced, grid[2], grid[3])
+    with pytest.raises(ValueError, match="S >= 1"):
+        fs._check(fi, tmpl, grid[0][:0], grid[1][:0], grid[2][:0], grid[3][:0])
+    with pytest.raises(ValueError, match="no kernel"):
+        fs.fast_scan_sweep(fi._replace(alloc_T=fi.alloc_T.to("meta")), tmpl, *grid)
+    local = _port_prep("local")
+    fi_l, _ = fastpath.build_inputs(local)
+    fs._check(fi_l, *_stream(local))
+    wide = {k: torch.zeros((rows, fi_l.alloc_T.shape[1])) for k, rows in
+            (("dev_cap", 65), ("dev0", 65), ("dev_media", 130))}
+    with pytest.raises(ValueError, match="Dv=65"):
+        fs._check(fi_l._replace(**wide), *_stream(local))
+    with pytest.raises(ValueError, match="dev_sizes"):
+        fs._check(fi_l._replace(dev_sizes=fi_l.dev_sizes[:, :1].contiguous()), *_stream(local))

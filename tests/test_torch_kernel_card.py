@@ -12,6 +12,7 @@ import torch
 from opensim_tpu_torch.engine import fastpath, simulator as sim
 from opensim_tpu_torch.models import fixtures as fx
 from opensim_tpu_torch.ops import fast_scan as fs
+from opensim_tpu_torch.planner import defrag
 
 
 @pytest.fixture
@@ -39,12 +40,31 @@ def test_kernel_matches_plain_version_on_card(name, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("plan", ["capacity", "gpu", "interpod"])
+@pytest.mark.parametrize("name", [c[0] for c in fx.SCAN_CASES])
+def test_sweep_kernel_matches_plain_sweep_on_card(name, cuda_device):
+    """Three drain scenarios of each small case in one launch of the
+    scenario grid, against the plain sweep."""
+    cluster, app, node_pad = fx.scan_case(name)
+    prep = sim.prepare(cluster, [sim.AppResource("a", app)], node_pad=node_pad, device=cuda_device)
+    fi, _ = fastpath.build_inputs(prep)
+    grid = fastpath.sweep_inputs(prep, *defrag.drain_masks(prep, list(range(min(3, len(prep.meta.node_names))))))
+    before = dict(fs.VARIANT_LAUNCHES)
+    got = fs.fast_scan_sweep(fi, *grid)
+    torch.cuda.synchronize()
+    want = fs.fast_scan_sweep_reference(fi, *grid)
+    assert fs.VARIANT_LAUNCHES[fs.sweep_name(fi)] == before.get(fs.sweep_name(fi), 0) + 1
+    for field, g, w in zip(fs.FastOutputs._fields, got, want):
+        assert torch.equal(g, w), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["capacity", "gpu", "interpod", "local"])
 def test_simulate_on_card_launches_once(plan, cuda_device):
     make = {
         "capacity": lambda: (fx.synthetic_cluster(64), fx.synthetic_apps(640)),
         "gpu": lambda: (fx.gpu_cluster(64), fx.gpu_apps(640)),
         "interpod": lambda: (fx.synthetic_cluster(64), fx.affinity_apps(640)),
+        "local": lambda: (fx.local_pv_cluster(64), fx.local_pv_apps(640)),
     }[plan]
     cluster, apps = make()
     before = fs.LAUNCHES
@@ -52,10 +72,23 @@ def test_simulate_on_card_launches_once(plan, cuda_device):
     assert fs.LAUNCHES == before + 1
     cluster, apps = make()
     cpu = sim.simulate(cluster, [sim.AppResource("plan", apps)], device="cpu")
-    for field in ("placements", "used", "gpu_take", "gpu_free"):
+    for field in ("placements", "used", "gpu_take", "gpu_free", "vg_free", "dev_free"):
         assert (getattr(res, field) == getattr(cpu, field)).all(), field
     if plan == "gpu":
         assert res.gpu_take.sum() > 0
+    if plan == "local":
+        assert (res.dev_free == 0).any()
+
+
+@pytest.mark.cuda
+def test_plan_drains_on_card_launches_once(cuda_device):
+    cluster, apps = fx.synthetic_cluster(64), fx.synthetic_apps(640)
+    candidates = [n.metadata.name for n in cluster.nodes[:16]]
+    before = fs.LAUNCHES
+    got = defrag.plan_drains(cluster, [sim.AppResource("plan", apps)], candidates=candidates)
+    assert fs.LAUNCHES == before + 1
+    want = defrag.plan_drains(cluster, [sim.AppResource("plan", apps)], candidates=candidates, device="cpu")
+    assert got == want and len(got.plans) == 16
 
 
 @pytest.mark.cuda

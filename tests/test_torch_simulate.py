@@ -1,7 +1,7 @@
-"""Slice parity: the port's simulate() against the JAX package's on a
-small capacity plan, placements compared by stream index, plus the ways
-the slice refuses to run (outside the envelope, an unscheduled pod, no
-card and no explicit device)."""
+"""Slice parity: the port's simulate() against the JAX package's on small
+plans, placements compared by stream index, node annotations by content,
+plus the ways the slice refuses to run (outside the envelope, an
+unscheduled pod, no card and no explicit device)."""
 
 import copy
 import dataclasses
@@ -15,7 +15,7 @@ from opensim_tpu.engine import simulator as ref_sim
 from opensim_tpu.models import expand as ref_expand
 from opensim_tpu_torch.engine import fastpath, simulator as sim
 from opensim_tpu_torch.models import expand, fixtures as fx
-from opensim_tpu_torch.models.objects import ANNO_GPU_INDEX, ANNO_NODE_GPU_SHARE
+from opensim_tpu_torch.models.objects import ANNO_GPU_INDEX, ANNO_NODE_GPU_SHARE, ANNO_NODE_LOCAL_STORAGE
 
 
 def _plan(n_nodes=32, n_pods=256):
@@ -60,10 +60,48 @@ def test_simulate_matches_reference_on_a_small_plan():
 
 
 def test_simulate_raises_outside_the_envelope():
-    cluster = expand.load_cluster_from_dir("example/cluster/demo")
-    app, _ = expand.resources_from_dicts(expand.load_yaml_objects("example/application/local"))
-    with pytest.raises(NotImplementedError, match="has_local"):
-        sim.simulate(cluster, [sim.AppResource("l", app)], device="cpu")
+    cluster = fx.synthetic_cluster(4)
+    app = expand.ResourceTypes()
+    keys = ["topology.kubernetes.io/zone", "topology.kubernetes.io/region", "topology.rack", "topology.row",
+            "topology.cell"]
+    app.pods.append(fx.make_fake_pod("p", "1", "1Gi", fx.with_topology_spread([
+        {"maxSkew": 1, "topologyKey": k, "whenUnsatisfiable": "ScheduleAnyway",
+         "labelSelector": {"matchLabels": {"x": "y"}}} for k in keys])))
+    with pytest.raises(NotImplementedError, match="5 non-hostname topology keys"):
+        sim.simulate(cluster, [sim.AppResource("k", app)], device="cpu")
+
+
+def _storage_view(node_status):
+    """Node name → its simon/node-local-storage JSON, parsed."""
+    return {ns.node.metadata.name: json.loads(ns.node.metadata.annotations[ANNO_NODE_LOCAL_STORAGE])
+            for ns in node_status if ANNO_NODE_LOCAL_STORAGE in ns.node.metadata.annotations}
+
+
+@pytest.mark.parametrize("plan", ["local_pv", "local"])
+def test_simulate_matches_reference_on_local_storage(plan):
+    """Open-Local pods (LVM volumes; exclusive SSD and HDD devices): the
+    all-local-PV plan at 40 nodes, and the JAX package's local fixture."""
+    def make():
+        if plan == "local_pv":
+            return fx.local_pv_cluster(40), fx.local_pv_apps(400)
+        return fx.scan_case("local")[:2]
+
+    c, a = make()
+    c_ref, a_ref = _reference_copy(c), _reference_copy(a)
+    ref_apps = [ref_sim.AppResource("l", a_ref)]
+    prep_ref = ref_sim.prepare(c_ref, ref_apps)
+    ref_res = ref_sim.simulate(c_ref, ref_apps, prep=prep_ref)
+    res = sim.simulate(c, [sim.AppResource("l", a)], device="cpu")
+    assert not ref_res.unscheduled_pods and not res.unscheduled_pods
+    names = list(prep_ref.meta.node_names)
+    want = np.array([names.index(p.spec.node_name) for p in prep_ref.ordered], np.int32)
+    np.testing.assert_array_equal(res.placements, want)
+    ours, theirs = _storage_view(res.node_status), _storage_view(ref_res.node_status)
+    assert ours == theirs and len(ours) == len(c.nodes)
+    requested = sum(vg["requested"] for node in ours.values() for vg in node["vgs"])
+    taken = sum(d["isAllocated"] for node in ours.values() for d in node["devices"])
+    assert requested > 0 and taken > 0
+    assert res.vg_free.shape == prep_ref.meta.node_vg_cap[: len(c.nodes)].shape
 
 
 def _gpu_view(placements, node_names, node_status):
