@@ -31,10 +31,11 @@ just before and read just after, and times the kernel over the whole
 stream, its plain version and the phases of simulate() with CUDA events
 and the host clock. Then it drives plan_drains() on the capacity plan with
 1,000 drain scenarios (the first 1,000 nodes; bench.py:308-335): one
-launch of the scenario grid, its rows held against single-scenario
-launches over the whole stream and against the plain sweep over prefixes
-(the first two scenarios, and the last one, which runs in the grid's last
-wave).
+launch of the scenario grid, which runs up to fast_scan.SWEEP_B_MAX
+scenarios to a block in lockstep, its rows held against single-scenario
+launches over the whole stream; then a grid of 1,001 scenarios, whose
+last block holds one, its last two rows against their own launches and,
+with its first two, against the plain sweep over prefixes.
 Every phase raises on failure. The last lines are the card's name and
 power limit, one JSON line with a row per kernel variant timed at full
 width and one for the sweep, and ``{"ok": true, "device": {...}}``.
@@ -45,7 +46,6 @@ from __future__ import annotations
 
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -60,12 +60,14 @@ PEAK_F32_S = 67e12
 N_NODES = 5000
 N_PODS = 50000
 #: The drain sweep: scenarios (bench.py --scenarios default), and the
-#: scenarios and pods its plain version is checked on: the first two over
-#: a short prefix, and the last (in the grid's last wave over 132 SMs) over
-#: the capacity plan's checked prefix.
+#: scenarios and pods its plain version is checked on, in a grid of one
+#: scenario more, whose last block holds one scenario (1,001 is one more
+#: than a multiple of every B the grid takes at this size): the first two
+#: over a short prefix, and the last two (the last full block's last
+#: scenario and the ragged block's) over a longer one.
 N_SCENARIOS = 1000
 PLAIN_SCENARIOS, PLAIN_PODS = 2, 2000
-LATE_PODS = 10000
+LATE_PODS = 5000
 
 
 def _phase(name: str) -> None:
@@ -261,10 +263,13 @@ def drain_sweep(device) -> dict:
     torch.cuda.synchronize()
     fs.LAUNCHES = 0
     fs.VARIANT_LAUNCHES.clear()
+    fs.SWEEP_LAUNCHED.clear()
     t0 = time.perf_counter()
     result = defrag.plan_drains(cluster, apps, candidates=candidates)
     wall = time.perf_counter() - t0
     launches, by_name = fs.LAUNCHES, dict(fs.VARIANT_LAUNCHES)
+    launched = fs.SWEEP_LAUNCHED["fast_scan_sweep"]  # the grid that ran and its library's ptxas report
+    grid_shape, ptxas = launched["grid"], launched["ptxas"]
     if launches != 1 or by_name != {"fast_scan_sweep": 1}:
         raise AssertionError(f"plan_drains() launched {by_name}, want exactly one fast_scan_sweep")
     plans = result.plans
@@ -273,6 +278,10 @@ def drain_sweep(device) -> dict:
     print(f"plan_drains: {len(plans)} plans, {len(result.drainable())} drainable, launches {by_name}")
     print("timings: " + json.dumps({k: round(v, 6) for k, v in result.timings.items()}))
     print(f"plan_drains wall-clock {wall:.6f} s, {len(plans) / wall:.3f} scenarios/s (host clock)", flush=True)
+
+    print(f"grid at S={N_SCENARIOS}: {grid_shape.b} scenarios per block, {grid_shape.blocks} blocks of "
+          f"{grid_shape.threads} threads, {grid_shape.smem} B of dynamic shared memory; "
+          f"sweep kernel ptxas {json.dumps(ptxas)}", flush=True)
 
     _phase("23 drain sweep: the grid timed alone, its rows against single-scenario launches")
     prep = sim.prepare(cluster, apps, device=device)
@@ -294,26 +303,40 @@ def drain_sweep(device) -> dict:
             raise AssertionError(f"scenario {s} placed a pod on its drained node {d}")
     if not bool(torch.isfinite(sweep.used).all()):
         raise AssertionError("the sweep's usage is not finite")
-    err = 0.0
+
+    def own_launches(sweep, grid, rows, what):
+        err = 0.0
+        for s in rows:
+            one = fs.fast_scan(fi._replace(node_valid=grid[2][s], spr_weight=grid[3][s]), tmpl, grid[0][s], grid[1][s])
+            err = max(err, _same(fs.FastOutputs(*(t[s] for t in sweep)), one, f"{what} scenario {s} vs its own launch"))
+        return err
+
     checked = [0, N_SCENARIOS // 2, N_SCENARIOS - 1]
-    for s in checked:
-        one = fs.fast_scan(fi._replace(node_valid=grid[2][s], spr_weight=grid[3][s]), tmpl, grid[0][s], grid[1][s])
-        err = max(err, _same(fs.FastOutputs(*(t[s] for t in sweep)), one, f"sweep scenario {s} vs its own launch"))
+    err = own_launches(sweep, grid, checked, "sweep")
     print(f"sweep kernel {ms:.3f} ms for {N_SCENARIOS} scenarios ({ms / N_SCENARIOS:.3f} ms/scenario); "
           f"scenarios {checked} identical to single-scenario launches over the whole stream", flush=True)
 
-    late = N_SCENARIOS - 1
-    _phase(f"24 drain sweep: kernel vs plain sweep, scenarios 0-{PLAIN_SCENARIOS - 1} x {PLAIN_PODS} pods, "
-           f"scenario {late} of a {N_SCENARIOS}-scenario grid x {LATE_PODS} pods")
+    S_r = N_SCENARIOS + 1
+    ragged = fs.sweep_grid(S_r, N_NODES, torch.cuda.get_device_properties(0).multi_processor_count)
+    late = [S_r - 2, S_r - 1]
+    _phase(f"24 drain sweep: a grid of {S_r} scenarios ({ragged.blocks} blocks, the last holding "
+           f"{S_r - (ragged.blocks - 1) * ragged.b}): scenarios {late} against their own launches; kernel vs "
+           f"plain sweep, scenarios 0-{PLAIN_SCENARIOS - 1} x {PLAIN_PODS} pods and {late} x {LATE_PODS} pods")
+    tmpl_r, *grid_r = _drain_grid(prep, list(range(S_r)))
+    err = max(err, own_launches(fs.fast_scan_sweep(fi, tmpl_r, *grid_r), grid_r, late, "ragged grid"))
+    if fs.SWEEP_LAUNCHED["fast_scan_sweep"]["grid"] != ragged:
+        raise AssertionError(f"the ragged grid ran as {fs.SWEEP_LAUNCHED['fast_scan_sweep']['grid']}, not {ragged}")
+    print(f"scenarios {late} of the {S_r}-scenario grid identical to single-scenario launches over the whole "
+          f"stream", flush=True)
     plain_ms = 0.0
-    for rows, pods in ((slice(0, PLAIN_SCENARIOS), PLAIN_PODS), (slice(late, late + 1), LATE_PODS)):
-        head = [t[:, :pods].contiguous() for t in grid[:2]] + grid[2:]
-        got = fs.fast_scan_sweep(fi, tmpl[:pods].contiguous(), *head)  # all N_SCENARIOS blocks
+    for rows, pods in ((slice(0, PLAIN_SCENARIOS), PLAIN_PODS), (slice(late[0], late[-1] + 1), LATE_PODS)):
+        head = [t[:, :pods].contiguous() for t in grid_r[:2]] + grid_r[2:]
+        got = fs.fast_scan_sweep(fi, tmpl_r[:pods].contiguous(), *head)  # all S_r scenarios
         got = fs.FastOutputs(*(t[rows] for t in got))
         plain = [None]
 
         def run_plain():
-            plain[0] = fs.fast_scan_sweep_reference(fi, tmpl[:pods].contiguous(), *(t[rows] for t in head))
+            plain[0] = fs.fast_scan_sweep_reference(fi, tmpl_r[:pods].contiguous(), *(t[rows] for t in head))
 
         ms_rows = _events_ms(run_plain, reps=1)
         plain_ms += ms_rows
@@ -336,8 +359,14 @@ def drain_sweep(device) -> dict:
         "plain_ms": plain_ms,
         "scenarios": N_SCENARIOS,
         "pods": int(tmpl.shape[0]),
-        "plain_checks": [[0, PLAIN_SCENARIOS - 1, PLAIN_PODS], [late, late, LATE_PODS]],
-        "plain_pod_scenarios": PLAIN_SCENARIOS * PLAIN_PODS + LATE_PODS,
+        "b": grid_shape.b,
+        "blocks": grid_shape.blocks,
+        "threads": grid_shape.threads,
+        "smem": grid_shape.smem,
+        "ptxas": ptxas,
+        "own_launch_checks": checked + [f"{s} of {S_r}" for s in late],
+        "plain_checks": [[0, PLAIN_SCENARIOS - 1, PLAIN_PODS], [late[0], late[-1], LATE_PODS]],
+        "plain_pod_scenarios": PLAIN_SCENARIOS * PLAIN_PODS + len(late) * LATE_PODS,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
@@ -387,12 +416,8 @@ def main() -> int:
     print(f"build: {fs.BUILD_LOG['seconds']:.3f} s for {len(variants)} kernel variants, one nvcc each, "
           f"all started together: {', '.join(variants)}")
     for name, entry in fs.BUILD_LOG["variants"].items():
-        ptxas = entry["ptxas"]
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
-        spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", ptxas))
-        smem = [int(b) for b in re.findall(r"(\d+) bytes smem", ptxas)]
         secs = "cached" if entry["seconds"] is None else f"nvcc {entry['seconds']:.3f} s"
-        print(f"  {name}: {secs}, {regs} registers, {spill} spill bytes, {smem} B shared memory")
+        print(f"  {name}: {secs}, ptxas {json.dumps(fs.ptxas_report(entry['ptxas']))}")
 
     _phase("3 small cases: kernel vs plain version, one scan and a sweep of drains each")
     small_cases(device)

@@ -455,7 +455,7 @@ def sweep(prep, node_valid_masks, pod_valid_masks, forced_masks):
     scan with node validity ``node_valid_masks[s]`` ([S, N] bool), pod
     validity ``pod_valid_masks[s]`` and forced pods ``forced_masks[s]``
     ([S, P] bool), and the spread weights of its valid nodes. All S in one
-    launch on a card (one block per scenario), the plain version scenario
+    launch on a card (B scenarios per block), the plain version scenario
     by scenario on the CPU. Returns host arrays (unscheduled [S] i32, used
     [S, N, R] f32, chosen [S, P] i32, vg_used [S] f32), as
     ``opensim_tpu/engine/fastpath.py:sweep``; VG usage counts only the

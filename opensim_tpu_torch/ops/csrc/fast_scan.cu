@@ -1,5 +1,6 @@
-// Bind-scan kernel for Hopper (sm_90a): the whole pod stream in one launch,
-// for one scenario or a grid of them.
+// Bind-scan kernels for Hopper (sm_90a): the whole pod stream in one launch,
+// for one scenario (fast_scan_kernel) or a grid of them
+// (fast_scan_sweep_kernel).
 //
 // Replaces the Pallas megakernel that opensim_tpu/ops/pallas_scan.py:
 // _make_kernel generates (reached through run_fast_scan's pl.pallas_call)
@@ -14,42 +15,62 @@
 // NodeAffinity + TaintToleration + NodePreferAvoidPods + Open-Local binpack
 // + inter-pod preferred scores, selectHost (lowest index among the maxima,
 // pins for forced pods) and the bind update of the usage, selector-count,
-// host-port, GPU, volume-group, device and inter-pod term state. It also
-// replaces that kernel under jax.vmap (opensim_tpu/engine/fastpath.py:
-// sweep): block s of the grid runs scenario s.
+// host-port, GPU, volume-group, device and inter-pod term state. The sweep
+// kernel replaces that kernel under jax.vmap (opensim_tpu/engine/fastpath.py:
+// sweep).
 //
-// Variants: the kernel is a template over the eight flags. Each shared
-// object holds one instantiation, chosen at compile time by -DFS_VARIANT
-// (bit i = flag i in the order of the template; ops/fast_scan.py builds
-// the variants a run needs, all at once), so a variant carries no code of a
-// feature it lacks and the build does not grow with the number of flags.
+// Variants: both kernels are templates over the eight flags. Each shared
+// object holds one instantiation of each, chosen at compile time by
+// -DFS_VARIANT (bit i = flag i in the order of the template; ops/fast_scan.py
+// builds the variants a run needs, all at once), so a variant carries no
+// code of a feature it lacks and the build does not grow with the number of
+// flags.
 //
-// What bounds it: not bytes and not operations. A step reads a few hundred
-// KB that stay in L2 and does some 70-250 flops per node, but pod i+1 reads
-// the state pod i wrote, so the P steps form a serial chain; each step costs
-// a fixed number of block-wide barriers and reductions. The design therefore
-// keeps the chain inside one persistent CTA (no per-pod launch, no grid
-// sync): 1024 threads, thread t owns the nodes n = t (mod 1024), and a step
-// is three block reductions plus one barrier after the bind. The state
-// (used, node_cnt, zone_cnt, gpu_free, port_used, vg_free, dev_free, the
-// inter-pod term counts) lives in global memory and stays in L2. The flag
-// branches add no reduction: the NodeAffinity and TaintToleration maxima
-// and the binpack and inter-pod scores' ranges ride in the second one, and
-// the inter-pod bootstrap reads per-selector totals that the bind keeps
-// instead of summing a count row. The GPU, VG and device binds are serial
-// loops in the thread that owns the chosen node.
+// One scan. What bounds it: not bytes and not operations. A step reads a few
+// hundred KB that stay in L2 and does some 70-250 flops per node, but pod
+// i+1 reads the state pod i wrote, so the P steps form a serial chain; each
+// step costs a fixed number of block-wide barriers and reductions. The
+// design therefore keeps the chain inside one persistent CTA (no per-pod
+// launch, no grid sync): 1024 threads, thread t owns the nodes n = t (mod
+// 1024), and a step is three block reductions plus one barrier after the
+// bind. The state (used, node_cnt, zone_cnt, gpu_free, port_used, vg_free,
+// dev_free, the inter-pod term counts) lives in global memory at offset 0 of
+// its buffers and stays in L2. The flag branches add no reduction: the
+// NodeAffinity and TaintToleration maxima and the binpack and inter-pod
+// scores' ranges ride in the second one, and the inter-pod bootstrap reads
+// per-selector totals that the bind keeps instead of summing a count row.
+// The GPU, VG and device binds are serial loops in the thread that owns the
+// chosen node.
 //
-// Scenario grid: scenarios are independent chains, so a sweep of S of them
-// is S blocks of the same kernel, one per SM at a time (1024 threads at up
-// to 64 registers take all of an SM's registers). Block s reads row s of
-// valid and forced, shares every template table, and writes its own slice
-// of chosen and gpu_take (64-bit offsets: chosen alone is S·P entries). Its
-// float state and its rows of node_valid and spr_weight lie in row s of one
-// [S, W] arena (ops/fast_scan.py lays it out), so one offset s·W, the same
-// for every such buffer, selects the scenario: the argument block stays in
-// constant space (__grid_constant__), as in a kernel without a grid, and
-// the scan holds one 64-bit offset in registers instead of a pointer per
-// buffer. One scan is the grid of S = 1.
+// Scenario grid. Scenarios are independent chains over the same pod stream,
+// so block b runs B of them (scenarios b·B ... b·B + B - 1; the host picks
+// B = ceil(S / SMs), at most BMAX = 4, so 132 scenarios run one to a block
+// and 1,000 run as 250 blocks in two waves) in lockstep through the
+// same pod, as jax.vmap runs them on the TPU: 512 threads a block. A thread
+// loads node n's template-level values (static row, share, allocatable,
+// zone columns, score tables, GPU presence) once per node visit, and each
+// helper loops over the fields outside and the B slots inside, so the B
+// scenarios' loads of one field are in flight together. The step's spread
+// constraints and each slot's spread weights are staged in shared memory
+// once per step; the block pays one set of barriers per step for all B.
+// Per-scenario control (valid, forced, pin, bootstrap, bind) is a bit per
+// slot; a slot whose pod is invalid or forced adds nothing to the
+// reductions. Each reduction's first level is warp shuffles per (scenario,
+// value), its second level spread over the warps, one value per warp. What
+// bounds it: instruction throughput and latency, not bytes. A node-slot
+// costs some 200 instructions a step (six IEEE divides among them) in
+// chains of dependent loads that 16 warps to an SM hide. So a scenario's
+// node validity is an N-bit mask in shared memory instead of a float row,
+// pass 1 runs only for hard spread constraints (its minimum is read by
+// nothing else), pass 2 keeps each node's feasibility bit for pass 3, so
+// pass 3 neither re-runs the filters nor scores an infeasible node, and the
+// fit loop loads only the rows the pod requests. Scenario s's float state
+// lies in row s of one [S, W] arena (ops/fast_scan.py lays it out), so one
+// offset s·W selects it; chosen and gpu_take take 64-bit offsets (chosen
+// alone is S·P entries). The per-node formulas are one copy: both kernels
+// call them through the views Solo or Slots (whose state), Pod and TNode
+// (template values, hoisted in the sweep only) and GCons or SCons
+// (constraints).
 //
 // Bit-exactness with the plain PyTorch version (ops/fast_scan.py) and the
 // JAX reference: every formula is written in the reference's op order,
@@ -61,7 +82,11 @@
 // add integers below 2^24 (engine/fastpath.why_not), so they are loops
 // here over the rows a template touches, exact in any order; so are the
 // device counts of the Open-Local filter. Storage byte counts are float32
-// as in the reference; GiB multiples stay exact.
+// as in the reference; GiB multiples stay exact. Skipped work is exact too:
+// the reference multiplies by 1 for a resource row the pod does not
+// request, every value of an infeasible node is masked out of the
+// reductions, and a feasible node's score is finite, so it beats any
+// infeasible one in selectHost.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,8 +101,17 @@
 #define MAX_CS 8
 #define MAX_GD 8
 #define MAX_DV 64  // devices per node: the bits of the bind's per-pod taken mask
-#define MAX_RED 11  // values one block_reduce call takes: max(MAX_CS, 5 + na + tt + 2 local + 2 inter-pod)
+#define MAX_K 4    // zone keys (engine/fastpath.MAX_ZONE_KEYS)
+#define MAX_RED 11  // values one step reduction takes: max(MAX_CS, 5 + na + tt + 2 local + 2 inter-pod)
 #define FULL_MASK 0xffffffffu
+// The sweep's shape, measured among B_max 2/4/8 at 512 or 1024 threads
+// (PERF.md §6); ops/fast_scan.SWEEP_B_MAX and SWEEP_THREADS hold the same.
+#define BMAX 4    // scenarios per sweep block at most
+#define SW_NT 512  // threads per sweep block
+#define SW_NWARP (SW_NT / 32)
+#define SWEEP_STATIC_SMEM 24576  // bytes the sweep kernel's static shared memory may take (ops/fast_scan.SWEEP_STATIC_SMEM)
+
+static_assert(BMAX >= 1 && BMAX <= 32 && SW_NT % 32 == 0 && SW_NT <= 1024, "sweep shape");
 
 namespace {
 
@@ -90,14 +124,11 @@ constexpr int RES_MEMORY = 1;
 
 }  // namespace
 
-// The scenario this block runs: block s of the grid runs scenario s.
-__device__ __forceinline__ size_t scn() { return blockIdx.x; }
-
 // Mirrors the ctypes.Structure in ops/fast_scan.py field for field. The
 // per-scenario inputs and every output and state buffer have a leading S
-// axis; the shapes below are one scenario's. Those marked "in the arena"
-// point into scenario 0's row of the state arena, whose rows are W floats
-// apart.
+// axis (S = 1 for one scan); the shapes below are one scenario's. The state
+// buffers point into scenario 0's row of the state arena, whose rows are W
+// floats apart.
 struct FastScanArgs {
     // pod stream: templates [P], per scenario valid and forced [P]
     const int32_t* tmpl;
@@ -106,7 +137,7 @@ struct FastScanArgs {
     // node tables
     const float* alloc;        // [R, N]
     const float* used0;        // [R, N]
-    const float* node_valid;   // [N] per scenario, in the arena
+    const float* node_valid;   // [N] one scan's node validity (the sweep reads nv_bits)
     const int32_t* zone_idx;   // [K, N] zone of node n under zone key k, -1 = no label
     // template tables
     const float* static_pass;  // [U, N]
@@ -123,7 +154,7 @@ struct FastScanArgs {
     const float* spr_skew;     // [U, Cs]
     const int32_t* spr_hard;   // [U, Cs]
     const float* spr_self;     // [U, Cs]
-    const float* spr_weight;   // [U, Cs] per scenario, in the arena
+    const float* spr_weight;   // [U, Cs] per scenario
     // gpu share (has_gpu)
     const float* gpu_mem;      // [U] per-GPU memory request
     const float* gpu_cnt;      // [U] GPUs requested
@@ -179,9 +210,177 @@ struct FastScanArgs {
     float* sel_total;          // [(K + 1) * A] bound pods per selector: all, then on nodes labelled with key k
     float* vg_free;            // [Vg, N]
     float* dev_free;           // [Dv, N]
+    // the sweep's bit masks: bit n & 31 of word n >> 5 is node n, padding bits 0
+    const uint32_t* nv_bits;   // [Nw] per scenario: node validity
+    uint32_t* feas_bits;       // [Nw] per scenario: pass 2's feasibility bits for pass 3, when the masks lie in global memory
     int64_t W;                 // floats per scenario in the arena
     int32_t S, P, N, R, U, A, K, Z, Cs, Gd, gc_row, Hp, Ti, Tn, Tp, G, Gp, Vg, Dv, Mv;
     int32_t has_gpu, has_na, has_tt, has_avoid, has_ports, has_interpod, has_local;
+    int32_t B, Nw, bits_in_smem;  // the sweep: scenarios per block, words per mask, masks in shared memory
+};
+
+// The scans a thread works on at once. One scan (Solo, NB = 1) reads its
+// buffers at offset 0 and its node validity from a float row. A block of
+// the grid (Slots, NB = BMAX) works on its B scenarios' slots at once: each
+// per-node helper loops over the fields outside and the slots inside, so
+// the NB loads of one field are in flight together and each slot's ops run
+// in the order of one scan. A load is predicated on its slot's bit in
+// `want` (the slots scheduling the pod, or, in pass 3, those for which the
+// node is feasible); a slot past a ragged block's last scenario reads that
+// scenario's node validity, and its results are never used.
+struct Solo {
+    static constexpr int NB = 1;
+    const float* nv;  // [N]
+    __device__ __forceinline__ size_t off(int) const { return 0; }
+    __device__ __forceinline__ size_t pod0(int) const { return 0; }
+    __device__ __forceinline__ float valid(int, int n) const { return nv[n]; }
+};
+
+struct Slots {
+    static constexpr int NB = BMAX;
+    int s0;                // the block's first scenario
+    int last;              // its last slot holding a scenario
+    int64_t W;             // arena floats per scenario
+    int P, Nw;             // pods, words per mask
+    const uint32_t* bits;  // [B, Nw] the block's node-validity masks, in shared or global memory
+    __device__ __forceinline__ int scn(int j) const { return s0 + min(j, last); }
+    __device__ __forceinline__ size_t off(int j) const { return (size_t)scn(j) * W; }
+    __device__ __forceinline__ size_t pod0(int j) const { return (size_t)scn(j) * P; }
+    __device__ __forceinline__ float valid(int j, int n) const {
+        return (bits[(size_t)min(j, last) * Nw + (n >> 5)] >> (n & 31)) & 1u ? 1.0f : 0.0f;
+    }
+};
+
+// The step's spread constraints: bit c of `hard` and `soft` marks an
+// active hard or soft constraint, and slot j's spread weight comes with
+// each. One scan reads its template's from global memory (GCons); a sweep
+// block stages them in shared memory once per step (StepCons, read through
+// SCons).
+__device__ __forceinline__ void cons_masks(const FastScanArgs& a, int u, unsigned& hard, unsigned& soft) {
+    hard = soft = 0u;
+    for (int c = 0; c < a.Cs; ++c) {
+        if (a.spr_active[u * a.Cs + c] != 1) continue;
+        if (a.spr_hard[u * a.Cs + c] == 1)
+            hard |= 1u << c;
+        else
+            soft |= 1u << c;
+    }
+}
+
+struct GCons {
+    const FastScanArgs& a;
+    int u;
+    unsigned hard, soft;
+    __device__ __forceinline__ GCons(const FastScanArgs& a_, int u_) : a(a_), u(u_) { cons_masks(a, u, hard, soft); }
+    __device__ __forceinline__ int uc(int c) const { return u * a.Cs + c; }
+    __device__ __forceinline__ int key(int c) const { return a.spr_key[uc(c)]; }
+    __device__ __forceinline__ int sel(int c) const { return a.spr_sel[uc(c)]; }
+    __device__ __forceinline__ float skew(int c) const { return a.spr_skew[uc(c)]; }
+    __device__ __forceinline__ float self(int c) const { return a.spr_self[uc(c)]; }
+    __device__ __forceinline__ float w(int, int c) const { return a.spr_weight[uc(c)]; }
+};
+
+struct StepCons {
+    int key[MAX_CS], sel[MAX_CS];
+    float skew[MAX_CS], self[MAX_CS];
+    float w[BMAX][MAX_CS];
+};
+
+struct SCons {
+    const StepCons& t;
+    unsigned hard, soft;
+    __device__ __forceinline__ int key(int c) const { return t.key[c]; }
+    __device__ __forceinline__ int sel(int c) const { return t.sel[c]; }
+    __device__ __forceinline__ float skew(int c) const { return t.skew[c]; }
+    __device__ __forceinline__ float self(int c) const { return t.self[c]; }
+    __device__ __forceinline__ float w(int j, int c) const { return t.w[j][c]; }
+};
+
+// The step's pod template and node n's template-level values at that step.
+// A sweep block (HOIST) loads each once, per step or per node visit, and
+// shares it among its slots; one scan reads each where it is used, as
+// nothing shares it and its 1,024 threads have 64 registers each.
+template <bool HOIST>
+struct Pod {
+    const FastScanArgs& a;
+    int u;
+    float req_[MAX_R], gc_req_, cpu_req_, mem_req_;
+    __device__ __forceinline__ Pod(const FastScanArgs& a_, int u_) : a(a_), u(u_) {
+        if constexpr (HOIST) {
+#pragma unroll
+            for (int r = 0; r < MAX_R; ++r) req_[r] = r < a.R ? a.req[u * a.R + r] : 0.0f;
+            gc_req_ = a.gc_row >= 0 ? a.req[u * a.R + a.gc_row] : 0.0f;
+            cpu_req_ = a.cpu_nz[u];
+            mem_req_ = a.mem_nz[u];
+        }
+    }
+    __device__ __forceinline__ float req(int r) const { return HOIST ? req_[r] : a.req[u * a.R + r]; }
+    __device__ __forceinline__ float gc_req() const { return HOIST ? gc_req_ : a.req[u * a.R + a.gc_row]; }
+    __device__ __forceinline__ float cpu_req() const { return HOIST ? cpu_req_ : a.cpu_nz[u]; }
+    __device__ __forceinline__ float mem_req() const { return HOIST ? mem_req_ : a.mem_nz[u]; }
+};
+
+template <bool HOIST>
+struct TNode {
+    const FastScanArgs& a;
+    int n;
+    size_t un;  // u * N + n
+    float sp_, share_, alloc_[MAX_R], alloc_cpu_, alloc_mem_, na_, tt_, avoid_, gc_alloc_;
+    int zone_[MAX_K];
+    unsigned gpu_has_;  // bit d: node n has GPU d
+    __device__ __forceinline__ TNode(const FastScanArgs& a_, int u, int n_)
+        : a(a_), n(n_), un((size_t)u * a_.N + n_) {}
+    __device__ __forceinline__ void load_zones() {
+        if constexpr (HOIST) {
+#pragma unroll
+            for (int k = 0; k < MAX_K; ++k) {
+                if (k >= a.K) break;
+                zone_[k] = a.zone_idx[(size_t)k * a.N + n];
+            }
+        }
+    }
+    // FIT: what the filters read; SCORES: what pass 3's scores read
+    template <bool GC, bool NA, bool TT, bool AV, bool FIT, bool SCORES>
+    __device__ __forceinline__ void load(const Pod<HOIST>& p) {
+        if constexpr (HOIST) {
+            if constexpr (FIT) {
+                sp_ = a.static_pass[un];
+#pragma unroll
+                for (int r = 0; r < MAX_R; ++r)
+                    if (p.req(r) > 0.0f) alloc_[r] = a.alloc[(size_t)r * a.N + n];
+            }
+            share_ = a.share_raw[un];
+            if constexpr (SCORES) {
+                alloc_cpu_ = a.alloc[(size_t)RES_CPU * a.N + n];
+                alloc_mem_ = a.alloc[(size_t)RES_MEMORY * a.N + n];
+            }
+            load_zones();
+            if constexpr (NA) na_ = a.na_raw[un];
+            if constexpr (TT) tt_ = a.tt_raw[un];
+            if constexpr (AV && SCORES) avoid_ = a.avoid_raw[un];
+            if constexpr (GC) {
+                gc_alloc_ = a.alloc[(size_t)a.gc_row * a.N + n];
+                gpu_has_ = 0u;
+                for (int d = 0; d < a.Gd; ++d) gpu_has_ |= (a.gpu0[(size_t)d * a.N + n] > 0.0f ? 1u : 0u) << d;
+            }
+        }
+    }
+    __device__ __forceinline__ float sp() const { return HOIST ? sp_ : a.static_pass[un]; }
+    __device__ __forceinline__ float share() const { return HOIST ? share_ : a.share_raw[un]; }
+    __device__ __forceinline__ float alloc(int r) const { return HOIST ? alloc_[r] : a.alloc[(size_t)r * a.N + n]; }
+    __device__ __forceinline__ float alloc_cpu() const { return HOIST ? alloc_cpu_ : alloc(RES_CPU); }
+    __device__ __forceinline__ float alloc_mem() const { return HOIST ? alloc_mem_ : alloc(RES_MEMORY); }
+    __device__ __forceinline__ float gc_alloc() const { return HOIST ? gc_alloc_ : alloc(a.gc_row); }
+    __device__ __forceinline__ float na() const { return HOIST ? na_ : a.na_raw[un]; }
+    __device__ __forceinline__ float tt() const { return HOIST ? tt_ : a.tt_raw[un]; }
+    __device__ __forceinline__ float avoid() const { return HOIST ? avoid_ : a.avoid_raw[un]; }
+    __device__ __forceinline__ bool gpu(int d) const {
+        return HOIST ? (gpu_has_ >> d & 1u) != 0u : a.gpu0[(size_t)d * a.N + n] > 0.0f;
+    }
+    __device__ __forceinline__ int zone(int k) const {
+        if constexpr (HOIST) return k == 0 ? zone_[0] : k == 1 ? zone_[1] : k == 2 ? zone_[2] : zone_[3];
+        return a.zone_idx[(size_t)k * a.N + n];
+    }
 };
 
 __device__ __forceinline__ float warp_min(float v) {
@@ -194,11 +393,9 @@ __device__ __forceinline__ float warp_max(float v) {
     return v;
 }
 
-// Offset of this block's scenario in the state arena.
-__device__ __forceinline__ size_t sw(const FastScanArgs& a) { return scn() * a.W; }
-
-// Block-wide min (is_max[j] == 0) or max (is_max[j] == 1) of `nv` values per
-// thread; every thread gets the results in `out`. Two barriers.
+// One scan's block-wide min (is_max[j] == 0) or max (is_max[j] == 1) of
+// `nv` values per thread; every thread gets the results in `out`. Two
+// barriers.
 __device__ void block_reduce(const float* in, const int* is_max, int nv, float* out,
                              float (*buf)[NWARP], float* res) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -227,9 +424,13 @@ __device__ __forceinline__ void better(float& s, int& i, float s2, int i2) {
     }
 }
 
+__device__ __forceinline__ void warp_argmax(float& s, int& i) {
+    for (int o = 16; o > 0; o >>= 1) better(s, i, __shfl_xor_sync(FULL_MASK, s, o), __shfl_xor_sync(FULL_MASK, i, o));
+}
+
 __device__ int block_argmax(float s, int i, float* sbuf, int* ibuf, int* res) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int o = 16; o > 0; o >>= 1) better(s, i, __shfl_xor_sync(FULL_MASK, s, o), __shfl_xor_sync(FULL_MASK, i, o));
+    warp_argmax(s, i);
     if (lane == 0) {
         sbuf[warp] = s;
         ibuf[warp] = i;
@@ -238,39 +439,84 @@ __device__ int block_argmax(float s, int i, float* sbuf, int* ibuf, int* res) {
     if (warp == 0) {
         s = sbuf[lane];
         i = ibuf[lane];
-        for (int o = 16; o > 0; o >>= 1) better(s, i, __shfl_xor_sync(FULL_MASK, s, o), __shfl_xor_sync(FULL_MASK, i, o));
+        warp_argmax(s, i);
         if (lane == 0) *res = i;
     }
     __syncthreads();
     return *res;
 }
 
-// Count of bound pods matching selector `sel` in node n's domain under
-// topology key `key` (0 = hostname, 1..K = zone keys), and whether node n
-// carries that key's label. The reference gathers zone counts with an f32
-// one-hot dot; the counts are integers below 2^24, so this gather by zone
-// index gives the same bits.
-__device__ __forceinline__ void sel_cnt(const FastScanArgs& a, int sel, int key, int n, float& cnt,
-                                        float& has_label) {
-    if (key == 0) {
-        cnt = a.node_cnt[sw(a) + (size_t)sel * a.N + n];
-        has_label = 1.0f;
-        return;
+// The values pass 2 reduces, in order: lo min, hi max, smn min, smx max,
+// any-feasible max, then the NodeAffinity and TaintToleration maxima, the
+// binpack score's min and max and the inter-pod score's max and min where
+// the variant has them.
+template <bool NA, bool TT, bool LOC, bool IP>
+struct Red {
+    static constexpr int I_NA = 5, I_TT = I_NA + (NA ? 1 : 0), I_LOC = I_TT + (TT ? 1 : 0);
+    static constexpr int I_IP = I_LOC + (LOC ? 2 : 0), N = I_IP + (IP ? 2 : 0);
+    static __host__ __device__ constexpr bool is_max(int k) {
+        return k == 1 || k == 3 || k == 4 || (NA && k == I_NA) || (TT && k == I_TT) || (LOC && k == I_LOC + 1) ||
+               (IP && k == I_IP);
     }
-    const int k = key - 1;
-    const int z = a.zone_idx[(size_t)k * a.N + n];
-    cnt = z >= 0 ? a.zone_cnt[sw(a) + ((size_t)k * a.A + sel) * a.Z + z] : 0.0f;
-    has_label = z >= 0 ? 1.0f : 0.0f;
+    // seeds: the share and spread ranges over the feasible nodes, the
+    // score-table maxima from -1e30, the inter-pod range with both ends at 0
+    static __device__ __forceinline__ void init(float* rv) {
+        rv[0] = BIG;
+        rv[1] = NEG;
+        rv[2] = BIG;
+        rv[3] = NEG;
+        rv[4] = 0.0f;
+        if constexpr (NA) rv[I_NA] = NEG;
+        if constexpr (TT) rv[I_TT] = NEG;
+        if constexpr (LOC) {
+            rv[I_LOC] = BIG;
+            rv[I_LOC + 1] = NEG;
+        }
+        if constexpr (IP) {
+            rv[I_IP] = 0.0f;
+            rv[I_IP + 1] = 0.0f;
+        }
+    }
+};
+
+// Counts of bound pods matching selector `sel` in node n's domain under
+// topology key `key` (0 = hostname, 1..K = zone keys), per slot in `want`
+// (0 elsewhere); returns whether node n carries that key's label, the same
+// for every slot. The reference gathers zone counts with an f32 one-hot
+// dot; the counts are integers below 2^24, so this gather by zone index
+// gives the same bits.
+template <class Sl, class TN>
+__device__ __forceinline__ float sel_cnts(const FastScanArgs& a, const Sl& S, const TN& t, int sel, int key, int n,
+                                          unsigned want, float (&cnt)[Sl::NB]) {
+    if (key == 0) {
+        const size_t rel = (size_t)sel * a.N + n;
+#pragma unroll
+        for (int j = 0; j < Sl::NB; ++j) cnt[j] = want >> j & 1u ? a.node_cnt[S.off(j) + rel] : 0.0f;
+        return 1.0f;
+    }
+    const int z = t.zone(key - 1);
+    const size_t rel = ((size_t)(key - 1) * a.A + sel) * a.Z + z;
+#pragma unroll
+    for (int j = 0; j < Sl::NB; ++j) cnt[j] = z >= 0 && (want >> j & 1u) ? a.zone_cnt[S.off(j) + rel] : 0.0f;
+    return z >= 0 ? 1.0f : 0.0f;
 }
 
-// Row g of an inter-pod term table at node n: its node row for a hostname
-// row (key 0), else its zone row under its own key, 0 where node n lacks
-// that label.
-__device__ __forceinline__ float term_cnt(const FastScanArgs& a, const float* node_rows, const float* zone_rows,
-                                          int g, int key, int n) {
-    if (key == 0) return node_rows[(size_t)g * a.N + n];
-    const int z = a.zone_idx[(size_t)(key - 1) * a.N + n];
-    return z >= 0 ? zone_rows[(size_t)g * a.Z + z] : 0.0f;
+// Row g of an inter-pod term table at node n, per slot in `want`: its node
+// row for a hostname row (key 0), else its zone row under its own key, 0
+// where node n lacks that label.
+template <class Sl, class TN>
+__device__ __forceinline__ void term_cnts(const FastScanArgs& a, const Sl& S, const TN& t, const float* node_rows,
+                                          const float* zone_rows, int g, int key, int n, unsigned want,
+                                          float (&cnt)[Sl::NB]) {
+    if (key == 0) {
+#pragma unroll
+        for (int j = 0; j < Sl::NB; ++j) cnt[j] = want >> j & 1u ? node_rows[S.off(j) + (size_t)g * a.N + n] : 0.0f;
+        return;
+    }
+    const int z = t.zone(key - 1);
+#pragma unroll
+    for (int j = 0; j < Sl::NB; ++j)
+        cnt[j] = z >= 0 && (want >> j & 1u) ? zone_rows[S.off(j) + (size_t)g * a.Z + z] : 0.0f;
 }
 
 // Bind of row g with value v at node c: its node column, and its zone
@@ -284,87 +530,120 @@ __device__ __forceinline__ void term_bind(const FastScanArgs& a, float* node_row
     if (z >= 0) zone_rows[(size_t)g * a.Z + z] += v;
 }
 
-// Dynamic gpu-count allocatable of node n (pallas_scan.py:401-412): the
-// count of its devices with free memory left, and whether it has devices.
-__device__ __forceinline__ void gc_node(const FastScanArgs& a, int n, float& dyn, float& has_dev) {
-    dyn = 0.0f;
+// Dynamic gpu-count allocatable of node n per slot (pallas_scan.py:
+// 401-412): the count of its devices with free memory left; and whether it
+// has devices, the same for every slot.
+template <class Sl, class TN>
+__device__ __forceinline__ void gc_nodes(const FastScanArgs& a, const Sl& S, const TN& t, int n, unsigned want,
+                                         float (&dyn)[Sl::NB], float& has_dev) {
+#pragma unroll
+    for (int j = 0; j < Sl::NB; ++j) dyn[j] = 0.0f;
     has_dev = 0.0f;
     for (int d = 0; d < a.Gd; ++d) {
-        const float valid_d = a.gpu0[(size_t)d * a.N + n] > 0.0f ? 1.0f : 0.0f;
-        const float free_d = a.gpu_free[sw(a) + (size_t)d * a.N + n] > 0.0f ? 1.0f : 0.0f;
-        dyn = dyn + valid_d * free_d;
+        const float valid_d = t.gpu(d) ? 1.0f : 0.0f;
+#pragma unroll
+        for (int j = 0; j < Sl::NB; ++j) {
+            const float g = want >> j & 1u ? a.gpu_free[S.off(j) + (size_t)d * a.N + n] : 0.0f;
+            dyn[j] = dyn[j] + valid_d * (g > 0.0f ? 1.0f : 0.0f);
+        }
         has_dev = fmaxf(has_dev, valid_d);
     }
 }
 
-// Inter-pod terms of template u at node n (pallas_scan.py:503-586): the
-// filter factor (0 or 1) of the incoming required anti-affinity terms, the
-// incoming required affinity terms with the bootstrap (`at_bootstrap`, the
-// same for every node), and the existing pods' anti terms against this
-// pod; `ip_raw` gets the raw preferred score, the incoming preferred terms
-// plus the existing pods' preferred and hard-affinity weights. Rows whose
-// selector the template does not match add exact zeros in the Pallas dots
-// and are skipped.
-__device__ __forceinline__ float interpod_node(const FastScanArgs& a, int u, int n, float at_bootstrap,
-                                               float& ip_raw) {
-    float ok = 1.0f;
-    for (int t = 0; t < a.Tn; ++t) {
-        const int ut = u * a.Tn + t;
-        if (a.an_active[ut] != 1) continue;
-        float cnt, has_label;
-        sel_cnt(a, a.an_sel[ut], a.an_key[ut], n, cnt, has_label);
-        ok = ok * (1.0f - ((cnt > 0.0f && has_label > 0.0f) ? 1.0f : 0.0f));
+// Inter-pod filter of template u at node n per slot (pallas_scan.py:
+// 503-586), 0 or 1: the incoming required anti-affinity terms, the
+// incoming required affinity terms with the bootstrap (bit j of `boot`,
+// the same for every node), and the existing pods' anti terms against this
+// pod. Rows whose selector the template does not match add exact zeros in
+// the Pallas dots and are skipped.
+template <class Sl, class TN>
+__device__ __forceinline__ void interpod_filter(const FastScanArgs& a, const Sl& S, const TN& t, int u, int n,
+                                                unsigned boot, unsigned want, float (&ok)[Sl::NB]) {
+    constexpr int NB = Sl::NB;
+    float cnt[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) ok[j] = 1.0f;
+    for (int k = 0; k < a.Tn; ++k) {
+        const int uk = u * a.Tn + k;
+        if (a.an_active[uk] != 1) continue;
+        const float has_label = sel_cnts(a, S, t, a.an_sel[uk], a.an_key[uk], n, want, cnt);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) ok[j] = ok[j] * (1.0f - ((cnt[j] > 0.0f && has_label > 0.0f) ? 1.0f : 0.0f));
     }
-    float at_all_ok = 1.0f, at_labels_ok = 1.0f;
-    for (int t = 0; t < a.Ti; ++t) {
-        const int ut = u * a.Ti + t;
-        if (a.at_active[ut] != 1) continue;
-        float cnt, has_label;
-        sel_cnt(a, a.at_sel[ut], a.at_key[ut], n, cnt, has_label);
-        at_all_ok = at_all_ok * ((cnt > 0.0f && has_label > 0.0f) ? 1.0f : 0.0f);
+    float at_all_ok[NB], at_labels_ok = 1.0f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) at_all_ok[j] = 1.0f;
+    for (int k = 0; k < a.Ti; ++k) {
+        const int uk = u * a.Ti + k;
+        if (a.at_active[uk] != 1) continue;
+        const float has_label = sel_cnts(a, S, t, a.at_sel[uk], a.at_key[uk], n, want, cnt);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) at_all_ok[j] = at_all_ok[j] * ((cnt[j] > 0.0f && has_label > 0.0f) ? 1.0f : 0.0f);
         at_labels_ok = at_labels_ok * (has_label > 0.0f ? 1.0f : 0.0f);
     }
-    ok = ok * fmaxf(at_all_ok, at_labels_ok * at_bootstrap);
-    float sym_cnt = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) ok[j] = ok[j] * fmaxf(at_all_ok[j], at_labels_ok * (boot >> j & 1u ? 1.0f : 0.0f));
+    float sym_cnt[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) sym_cnt[j] = 0.0f;
     for (int g = 0; g < a.G; ++g) {
         const float m = a.gmatch[(size_t)g * a.U + u];
-        if (m != 0.0f)
-            sym_cnt = sym_cnt + m * term_cnt(a, a.anti_node + sw(a), a.anti_zone + sw(a), g, a.anti_g_key[g], n);
+        if (m == 0.0f) continue;
+        term_cnts(a, S, t, a.anti_node, a.anti_zone, g, a.anti_g_key[g], n, want, cnt);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) sym_cnt[j] = sym_cnt[j] + m * cnt[j];
     }
-    ok = ok * (1.0f - (sym_cnt > 0.0f ? 1.0f : 0.0f));
-    float ip = 0.0f;
-    for (int t = 0; t < a.Tp; ++t) {
-        const int ut = u * a.Tp + t;
-        if (a.pt_active[ut] != 1) continue;
-        float cnt, has_label;
-        sel_cnt(a, a.pt_sel[ut], a.pt_key[ut], n, cnt, has_label);
-        ip = ip + cnt * a.pt_w[ut] * has_label;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) ok[j] = ok[j] * (1.0f - (sym_cnt[j] > 0.0f ? 1.0f : 0.0f));
+}
+
+// Inter-pod raw preferred score of template u at node n per slot: the
+// incoming preferred terms plus the existing pods' preferred and
+// hard-affinity weights.
+template <class Sl, class TN>
+__device__ __forceinline__ void interpod_raw(const FastScanArgs& a, const Sl& S, const TN& t, int u, int n,
+                                             unsigned want, float (&ip)[Sl::NB]) {
+    constexpr int NB = Sl::NB;
+    float cnt[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) ip[j] = 0.0f;
+    for (int k = 0; k < a.Tp; ++k) {
+        const int uk = u * a.Tp + k;
+        if (a.pt_active[uk] != 1) continue;
+        const float has_label = sel_cnts(a, S, t, a.pt_sel[uk], a.pt_key[uk], n, want, cnt);
+        const float w = a.pt_w[uk];
+#pragma unroll
+        for (int j = 0; j < NB; ++j) ip[j] = ip[j] + cnt[j] * w * has_label;
     }
     for (int g = 0; g < a.Gp; ++g) {
         const float m = a.pmatch[(size_t)g * a.U + u];
-        if (m != 0.0f)
-            ip = ip + m * term_cnt(a, a.prefw_node + sw(a), a.prefw_zone + sw(a), g, a.prefg_key[g], n);
+        if (m == 0.0f) continue;
+        term_cnts(a, S, t, a.prefw_node, a.prefw_zone, g, a.prefg_key[g], n, want, cnt);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) ip[j] = ip[j] + m * cnt[j];
     }
-    ip_raw = ip;
-    return ok;
 }
 
-// Whether device d of media m at node n is free, fits `size` bytes and is
-// of that media (pallas_scan.py:474, :692, :812-815 without the taken mask).
-__device__ __forceinline__ bool dev_fits(const FastScanArgs& a, int m, int d, int n, float size, float& free_d) {
-    free_d = a.dev_free[sw(a) + (size_t)d * a.N + n];
+// Whether device d of media m at node n is free for slot j, fits `size`
+// bytes and is of that media (pallas_scan.py:474, :692, :812-815 without
+// the taken mask).
+template <class Sl>
+__device__ __forceinline__ bool dev_fits(const FastScanArgs& a, const Sl& S, int j, int m, int d, int n, float size) {
+    const float free_d = a.dev_free[S.off(j) + (size_t)d * a.N + n];
     return a.dev_media[((size_t)m * a.Dv + d) * a.N + n] > 0.0f && free_d >= size && free_d > 0.0f;
 }
 
-// Open-Local filter of template u at node n (pallas_scan.py:455-477): the
-// LVM request fits the VG with the most free bytes, and for each media the
-// i-th largest exclusive volume finds at least i + 1 free devices that fit
-// it. Volume slots of size 0 (padding) pass, as in the reference.
-__device__ __forceinline__ float local_filter(const FastScanArgs& a, int u, int n) {
+// Open-Local filter of template u at node n for slot j (pallas_scan.py:
+// 455-477): the LVM request fits the VG with the most free bytes, and for
+// each media the i-th largest exclusive volume finds at least i + 1 free
+// devices that fit it. Volume slots of size 0 (padding) pass, as in the
+// reference.
+template <class Sl>
+__device__ __forceinline__ float local_filter(const FastScanArgs& a, const Sl& S, int j, int u, int n) {
     const float lvm = a.lvm_req[u];
     if (lvm > 0.0f) {
         float best = NEG;
-        for (int v = 0; v < a.Vg; ++v) best = fmaxf(best, a.vg_free[sw(a) + (size_t)v * a.N + n]);
+        for (int v = 0; v < a.Vg; ++v) best = fmaxf(best, a.vg_free[S.off(j) + (size_t)v * a.N + n]);
         if (!(best >= lvm)) return 0.0f;
     }
     for (int m = 0; m < 2; ++m) {
@@ -372,29 +651,27 @@ __device__ __forceinline__ float local_filter(const FastScanArgs& a, int u, int 
             const float size = a.dev_sizes[(size_t)u * 2 * a.Mv + m * a.Mv + vi];
             if (!(size > 0.0f)) continue;
             int cnt_fit = 0;
-            for (int d = 0; d < a.Dv; ++d) {
-                float free_d;
-                cnt_fit += dev_fits(a, m, d, n, size, free_d) ? 1 : 0;
-            }
+            for (int d = 0; d < a.Dv; ++d) cnt_fit += dev_fits(a, S, j, m, d, n, size) ? 1 : 0;
             if (cnt_fit < vi + 1) return 0.0f;
         }
     }
     return 1.0f;
 }
 
-// Open-Local binpack raw score of template u at node n (pallas_scan.py:
-// 668-698): the mean over the pod's storage units of request / capacity of
-// the unit it would take (the tightest fitting VG; per media, the
-// smallest-capacity fitting device, for need volumes of the largest size),
-// times 10. A template with no storage has count 0 and scores 0; the terms
-// the reference multiplies by 0 are skipped.
-__device__ __forceinline__ float local_raw_of(const FastScanArgs& a, int u, int n) {
+// Open-Local binpack raw score of template u at node n for slot j
+// (pallas_scan.py:668-698): the mean over the pod's storage units of
+// request / capacity of the unit it would take (the tightest fitting VG;
+// per media, the smallest-capacity fitting device, for need volumes of the
+// largest size), times 10. A template with no storage has count 0 and
+// scores 0; the terms the reference multiplies by 0 are skipped.
+template <class Sl>
+__device__ __forceinline__ float local_raw_of(const FastScanArgs& a, const Sl& S, int j, int u, int n) {
     const float lvm = a.lvm_req[u];
     float parts = 0.0f, count = 0.0f;
     if (lvm > 0.0f) {
         float best_free = BIG, best_cap = 0.0f;
         for (int v = 0; v < a.Vg; ++v) {
-            const float free_v = a.vg_free[sw(a) + (size_t)v * a.N + n];
+            const float free_v = a.vg_free[S.off(j) + (size_t)v * a.N + n];
             if (free_v >= lvm && free_v < best_free) {
                 best_free = free_v;
                 best_cap = a.vg_cap[(size_t)v * a.N + n];
@@ -408,37 +685,38 @@ __device__ __forceinline__ float local_raw_of(const FastScanArgs& a, int u, int 
         if (!(size > 0.0f)) continue;
         const float need = a.dev_need[u * 2 + m];
         float first_cap = BIG;
-        for (int d = 0; d < a.Dv; ++d) {
-            float free_d;
-            if (dev_fits(a, m, d, n, size, free_d)) first_cap = fminf(first_cap, a.dev_cap[(size_t)d * a.N + n]);
-        }
+        for (int d = 0; d < a.Dv; ++d)
+            if (dev_fits(a, S, j, m, d, n, size)) first_cap = fminf(first_cap, a.dev_cap[(size_t)d * a.N + n]);
         parts = parts + need * size / fmaxf(first_cap, 1.0f);
         count = count + need;
     }
     return count > 0.0f ? parts / fmaxf(count, 1.0f) * 10.0f : 0.0f;
 }
 
-// Open-Local bind of template u on node c (pallas_scan.py:783-835): the LVM
-// request goes to the tightest VG that fits (first among equals); the
-// exclusive volumes, each media in ascending size, each to the
+// Open-Local bind of template u on node c for slot j (pallas_scan.py:
+// 783-835): the LVM request goes to the tightest VG that fits (first among
+// equals); the exclusive volumes, each media in ascending size, each to the
 // smallest-capacity candidate this pod has not taken yet (ties to the
 // lowest index), whose free bytes become 0. Writes node c's vg_free and
 // dev_free columns.
-__device__ __forceinline__ void local_bind(const FastScanArgs& a, int u, int c) {
+template <class Sl>
+__device__ __forceinline__ void local_bind(const FastScanArgs& a, const Sl& S, int j, int u, int c) {
     const size_t N = a.N;
+    float* vg_free = a.vg_free + S.off(j);
+    float* dev_free = a.dev_free + S.off(j);
     const float lvm = a.lvm_req[u];
     if (lvm > 0.0f) {  // lvm = 0 would subtract 0 from one VG
         float best_free = BIG;
         for (int v = 0; v < a.Vg; ++v) {
-            const float free_v = a.vg_free[sw(a) + v * N + c];
+            const float free_v = vg_free[v * N + c];
             if (free_v >= lvm) best_free = fminf(best_free, free_v);
         }
         float taken_vg = 0.0f;
         for (int v = 0; v < a.Vg; ++v) {
-            const float free_v = a.vg_free[sw(a) + v * N + c];
+            const float free_v = vg_free[v * N + c];
             const float take_v = (free_v >= lvm && free_v == best_free ? 1.0f : 0.0f) * (1.0f - fminf(taken_vg, 1.0f));
             taken_vg = taken_vg + take_v;
-            a.vg_free[sw(a) + v * N + c] = free_v - fmaxf(lvm, 0.0f) * take_v;
+            vg_free[v * N + c] = free_v - fmaxf(lvm, 0.0f) * take_v;
         }
     }
     unsigned long long taken = 0ull;  // devices this pod took, bit d
@@ -447,16 +725,13 @@ __device__ __forceinline__ void local_bind(const FastScanArgs& a, int u, int c) 
             const float size = a.dev_sizes[(size_t)u * 2 * a.Mv + m * a.Mv + vi];
             if (!(size > 0.0f)) continue;
             float best_cap = BIG;
-            for (int d = 0; d < a.Dv; ++d) {
-                float free_d;
-                if (!(taken >> d & 1ull) && dev_fits(a, m, d, c, size, free_d))
+            for (int d = 0; d < a.Dv; ++d)
+                if (!(taken >> d & 1ull) && dev_fits(a, S, j, m, d, c, size))
                     best_cap = fminf(best_cap, a.dev_cap[d * N + c]);
-            }
             for (int d = 0; d < a.Dv; ++d) {
-                float free_d;
-                if (!(taken >> d & 1ull) && dev_fits(a, m, d, c, size, free_d) && a.dev_cap[d * N + c] == best_cap) {
+                if (!(taken >> d & 1ull) && dev_fits(a, S, j, m, d, c, size) && a.dev_cap[d * N + c] == best_cap) {
                     taken |= 1ull << d;
-                    a.dev_free[sw(a) + d * N + c] = 0.0f;  // free_d * (1 - 1): free_d > 0, so +0
+                    dev_free[d * N + c] = 0.0f;  // free_d * (1 - 1): free_d > 0, so +0
                     break;
                 }
             }
@@ -464,34 +739,54 @@ __device__ __forceinline__ void local_bind(const FastScanArgs& a, int u, int c) 
     }
 }
 
-// Filter, soft-spread raw score and inter-pod raw score of node n for
-// template u, given the per-constraint minimum counts (pallas_scan.py:
-// 400-586), plus node n's dynamic gpu-count state for the share add-back.
-template <bool GPU, bool GC, bool PORTS, bool IP, bool LOC>
-__device__ __forceinline__ void node_filter(const FastScanArgs& a, int u, int n, const float* min_cnt,
-                                            float at_bootstrap, float& feasible, float& soft_raw,
-                                            float& ignored, float& gc_dyn, float& gc_has_dev, float& ip_raw) {
-    const float valid_row = a.node_valid[sw(a) + n];
-    if constexpr (GC) gc_node(a, n, gc_dyn, gc_has_dev);
-    float fit = 1.0f;
-    for (int r = 0; r < a.R; ++r) {
-        const float req_r = a.req[u * a.R + r];
-        float alloc_r = a.alloc[(size_t)r * a.N + n];
-        if constexpr (GC)
-            if (r == a.gc_row) alloc_r = gc_has_dev > 0.0f ? gc_dyn : alloc_r;
-        const float over = (a.used[sw(a) + (size_t)r * a.N + n] + req_r > alloc_r) ? 1.0f : 0.0f;
-        fit = fit * (req_r > 0.0f ? 1.0f - over : 1.0f);
+// Feasibility of node n for the step's pod per slot, 0 or 1, given each
+// slot's minimum counts of its hard spread constraints (slot j's at
+// min_cnt + j * MAX_CS) (pallas_scan.py:400-586), plus node n's dynamic
+// gpu-count state for the share add-back.
+template <bool GPU, bool GC, bool PORTS, bool IP, bool LOC, class Sl, class Cn, class TN, class PD>
+__device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S, const Cn& cs, const TN& t,
+                                              const PD& p, int n, const float* min_cnt, unsigned boot, unsigned want,
+                                              float (&feasible)[Sl::NB], float (&gc_dyn)[Sl::NB],
+                                              float& gc_has_dev) {
+    constexpr int NB = Sl::NB;
+    const int u = p.u;
+    if constexpr (GC) gc_nodes(a, S, t, n, want, gc_dyn, gc_has_dev);
+    float fit[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) fit[j] = 1.0f;
+#pragma unroll
+    for (int r = 0; r < MAX_R; ++r) {
+        if (r >= a.R) break;
+        const float req_r = p.req(r);
+        if (!(req_r > 0.0f)) continue;  // the reference multiplies by 1 for a row the pod does not request
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+            const float used_r = want >> j & 1u ? a.used[S.off(j) + (size_t)r * a.N + n] : 0.0f;
+            float alloc_r = t.alloc(r);
+            if constexpr (GC)
+                if (r == a.gc_row) alloc_r = gc_has_dev > 0.0f ? gc_dyn[j] : alloc_r;
+            const float over = (used_r + req_r > alloc_r) ? 1.0f : 0.0f;
+            fit[j] = fit[j] * (1.0f - over);
+        }
     }
-    feasible = a.static_pass[(size_t)u * a.N + n] * fit * valid_row;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) feasible[j] = t.sp() * fit[j] * S.valid(j, n);
     if constexpr (PORTS) {
         // NodePorts: a conflicting port id already used on the node
-        float conflicts = 0.0f;
+        float conflicts[NB];
+#pragma unroll
+        for (int j = 0; j < NB; ++j) conflicts[j] = 0.0f;
         for (int h = 0; h < a.Hp; ++h) {
             const float mine = a.port_conf[(size_t)h * a.U + u];
-            if (mine != 0.0f)
-                conflicts = conflicts + mine * (a.port_used[sw(a) + (size_t)h * a.N + n] > 0.0f ? 1.0f : 0.0f);
+            if (mine == 0.0f) continue;
+#pragma unroll
+            for (int j = 0; j < NB; ++j) {
+                const float used_h = want >> j & 1u ? a.port_used[S.off(j) + (size_t)h * a.N + n] : 0.0f;
+                conflicts[j] = conflicts[j] + mine * (used_h > 0.0f ? 1.0f : 0.0f);
+            }
         }
-        feasible = feasible * (conflicts == 0.0f ? 1.0f : 0.0f);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) feasible[j] = feasible[j] * (conflicts[j] == 0.0f ? 1.0f : 0.0f);
     }
     if constexpr (GPU) {
         // Open-Gpu-Share filter: sum_d floor(free_d / mem) >= count
@@ -499,42 +794,94 @@ __device__ __forceinline__ void node_filter(const FastScanArgs& a, int u, int n,
         const float gcnt = a.gpu_cnt[u];
         if (gmem > 0.0f) {
             const float gmem1 = fmaxf(gmem, 1.0f);
-            float chunks_sum = 0.0f;
-            for (int d = 0; d < a.Gd; ++d)
-                chunks_sum = chunks_sum + floorf(a.gpu_free[sw(a) + (size_t)d * a.N + n] / gmem1);
-            const bool gpu_ok = chunks_sum >= gcnt && gcnt > 0.0f;
-            feasible = feasible * (gpu_ok ? 1.0f : 0.0f);
+            float chunks_sum[NB];
+#pragma unroll
+            for (int j = 0; j < NB; ++j) chunks_sum[j] = 0.0f;
+            for (int d = 0; d < a.Gd; ++d) {
+#pragma unroll
+                for (int j = 0; j < NB; ++j) {
+                    const float free_d = want >> j & 1u ? a.gpu_free[S.off(j) + (size_t)d * a.N + n] : 0.0f;
+                    chunks_sum[j] = chunks_sum[j] + floorf(free_d / gmem1);
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < NB; ++j) {
+                const bool gpu_ok = chunks_sum[j] >= gcnt && gcnt > 0.0f;
+                feasible[j] = feasible[j] * (gpu_ok ? 1.0f : 0.0f);
+            }
         }
     }
-    if constexpr (LOC) feasible = feasible * local_filter(a, u, n);
-    soft_raw = 0.0f;
-    ignored = 0.0f;
-    for (int c = 0; c < a.Cs; ++c) {
-        const int uc = u * a.Cs + c;
-        if (a.spr_active[uc] != 1) continue;
-        float cnt, has_label;
-        sel_cnt(a, a.spr_sel[uc], a.spr_key[uc], n, cnt, has_label);
-        const float skew = a.spr_skew[uc];
-        if (a.spr_hard[uc] == 1) {
-            const bool ok = (cnt + a.spr_self[uc] - min_cnt[c] <= skew) && (has_label > 0.0f);
-            feasible = feasible * (ok ? 1.0f : 0.0f);
-        } else {
-            const float contrib = has_label > 0.0f ? cnt * a.spr_weight[sw(a) + uc] + (skew - 1.0f) : 0.0f;
-            soft_raw = soft_raw + contrib;
-            ignored = fmaxf(ignored, 1.0f - has_label);
+    if constexpr (LOC) {
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+            if (want >> j & 1u) feasible[j] = feasible[j] * local_filter(a, S, j, u, n);
+    }
+    float cnt[NB];
+    for (unsigned m = cs.hard; m; m &= m - 1u) {
+        const int c = __ffs(m) - 1;
+        const float has_label = sel_cnts(a, S, t, cs.sel(c), cs.key(c), n, want, cnt);
+        const float self = cs.self(c), skew = cs.skew(c);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+            const bool ok = (cnt[j] + self - min_cnt[j * MAX_CS + c] <= skew) && (has_label > 0.0f);
+            feasible[j] = feasible[j] * (ok ? 1.0f : 0.0f);
         }
     }
-    if constexpr (IP) feasible = feasible * interpod_node(a, u, n, at_bootstrap, ip_raw);
+    if constexpr (IP) {
+        float ok[NB];
+        interpod_filter(a, S, t, u, n, boot, want, ok);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) feasible[j] = feasible[j] * ok[j];
+    }
 }
 
-// Simon share of node n for template u, with the gpu-count share added back
+// Soft-spread raw score of node n for template u per slot, and whether
+// node n lacks a label one of its soft constraints needs, the same for
+// every slot (pallas_scan.py:588-612).
+template <class Sl, class Cn, class TN>
+__device__ __forceinline__ void node_soft(const FastScanArgs& a, const Sl& S, const Cn& cs, const TN& t, int n,
+                                          unsigned want, float (&soft_raw)[Sl::NB], float& ignored) {
+    constexpr int NB = Sl::NB;
+    float cnt[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) soft_raw[j] = 0.0f;
+    ignored = 0.0f;
+    for (unsigned m = cs.soft; m; m &= m - 1u) {  // in ascending c, the reference's order
+        const int c = __ffs(m) - 1;
+        const float has_label = sel_cnts(a, S, t, cs.sel(c), cs.key(c), n, want, cnt);
+        const float skew = cs.skew(c);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+            const float contrib = has_label > 0.0f ? cnt[j] * cs.w(j, c) + (skew - 1.0f) : 0.0f;
+            soft_raw[j] = soft_raw[j] + contrib;
+        }
+        ignored = fmaxf(ignored, 1.0f - has_label);
+    }
+}
+
+// Pass 1 for constraint c at node n, per slot in `want`: the count where
+// the node is spread-eligible and carries the key's label, folded into the
+// slot's running minimum `mn`.
+template <class Sl, class Cn, class TN>
+__device__ __forceinline__ void elig_min(const FastScanArgs& a, const Sl& S, const Cn& cs, const TN& t, int c, int n,
+                                         float aff, unsigned want, float (&mn)[Sl::NB]) {
+    float cnt[Sl::NB];
+    const float has_label = sel_cnts(a, S, t, cs.sel(c), cs.key(c), n, want, cnt);
+#pragma unroll
+    for (int j = 0; j < Sl::NB; ++j) {
+        const float elig = aff * S.valid(j, n) * has_label;
+        mn[j] = fminf(mn[j], elig > 0.0f ? cnt[j] : BIG);
+    }
+}
+
+// Simon share of node n for the pod, with the gpu-count share added back
 // at the Reserve-updated count (pallas_scan.py:614-630).
-template <bool GC>
-__device__ __forceinline__ float share_of(const FastScanArgs& a, int u, int n, float gc_dyn, float gc_has_dev) {
-    float share_row = a.share_raw[(size_t)u * a.N + n];
+template <bool GC, class TN, class PD>
+__device__ __forceinline__ float share_of(const TN& t, const PD& p, float gc_dyn, float gc_has_dev) {
+    float share_row = t.share();
     if constexpr (GC) {
-        const float gc_req = a.req[u * a.R + a.gc_row];
-        const bool declared = a.alloc[(size_t)a.gc_row * a.N + n] > 0.0f;
+        const float gc_req = p.gc_req();
+        const bool declared = t.gc_alloc() > 0.0f;
         const float avail = gc_dyn - gc_req;
         float sh = avail == 0.0f ? (gc_req == 0.0f ? 0.0f : 1.0f) : gc_req / avail;
         sh = ((declared && gc_has_dev > 0.0f) ? fmaxf(sh, 0.0f) : 0.0f) * MAX_SCORE;
@@ -543,21 +890,136 @@ __device__ __forceinline__ float share_of(const FastScanArgs& a, int u, int n, f
     return share_row;
 }
 
-// Device packing of template u on node c (pallas_scan.py:759-782): one GPU
-// takes the tightest fit (first among equals), several take greedy chunks
-// with reuse, in device order. Writes node c's gpu_free column and pod i's
-// gpu_take row.
-__device__ __forceinline__ void gpu_bind(const FastScanArgs& a, int i, int u, int c) {
+// Pass 2 at node n for every slot in `want`: feasibility, then the node's
+// share, soft-spread, binpack, score-table and inter-pod values into slot
+// j's partial reductions rv[j] (Red's order). Only a feasible node adds to
+// them; an infeasible one adds the 0 the reference's masks give the
+// score-table maxima. Returns the feasibility in `feasible`.
+template <bool GPU, bool GC, bool NA, bool TT, bool PORTS, bool IP, bool LOC, class Sl, class Cn, class TN, class PD>
+__device__ __forceinline__ void pass2_node(const FastScanArgs& a, const Sl& S, const Cn& cs, const TN& t,
+                                           const PD& p, int n,
+                                           const float* min_cnt, unsigned boot, unsigned want,
+                                           float (&feasible)[Sl::NB], float (&rv)[Sl::NB][Red<NA, TT, LOC, IP>::N]) {
+    constexpr int NB = Sl::NB;
+    using RD = Red<NA, TT, LOC, IP>;
+    float gc_dyn[NB], gc_has_dev = 0.0f, soft_raw[NB], ignored, ip[NB];
+    node_feasible<GPU, GC, PORTS, IP, LOC>(a, S, cs, t, p, n, min_cnt, boot, want, feasible, gc_dyn, gc_has_dev);
+    node_soft(a, S, cs, t, n, want, soft_raw, ignored);
+    if constexpr (IP) interpod_raw(a, S, t, p.u, n, want, ip);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+        if (!(want >> j & 1u)) continue;
+        if (feasible[j] > 0.0f) {
+            const float sh = share_of<GC>(t, p, GC ? gc_dyn[j] : 0.0f, gc_has_dev);
+            rv[j][0] = fminf(rv[j][0], sh);
+            rv[j][1] = fmaxf(rv[j][1], sh);
+            if (ignored == 0.0f) {
+                rv[j][2] = fminf(rv[j][2], soft_raw[j]);
+                rv[j][3] = fmaxf(rv[j][3], soft_raw[j]);
+            }
+            if constexpr (LOC) {
+                const float lr = local_raw_of(a, S, j, p.u, n);
+                rv[j][RD::I_LOC] = fminf(rv[j][RD::I_LOC], lr);
+                rv[j][RD::I_LOC + 1] = fmaxf(rv[j][RD::I_LOC + 1], lr);
+            }
+            if constexpr (NA) rv[j][RD::I_NA] = fmaxf(rv[j][RD::I_NA], t.na());
+            if constexpr (TT) rv[j][RD::I_TT] = fmaxf(rv[j][RD::I_TT], t.tt());
+            if constexpr (IP) {
+                rv[j][RD::I_IP] = fmaxf(rv[j][RD::I_IP], ip[j]);
+                rv[j][RD::I_IP + 1] = fminf(rv[j][RD::I_IP + 1], ip[j]);
+            }
+        } else {
+            // the inter-pod range is seeded at 0 on both ends, so its masked 0 changes nothing
+            if constexpr (NA) rv[j][RD::I_NA] = fmaxf(rv[j][RD::I_NA], 0.0f);
+            if constexpr (TT) rv[j][RD::I_TT] = fmaxf(rv[j][RD::I_TT], 0.0f);
+        }
+        rv[j][4] = fmaxf(rv[j][4], feasible[j]);
+    }
+}
+
+// Pass 3's score of node n for every slot in `want` (those for which the
+// node is feasible) (pallas_scan.py:588-711), added in the reference's
+// order: ((least + balanced) + 2 share) + 2 spread, then the score tables,
+// binpack and inter-pod scores. Slot j normalises with its reduced pass-2
+// values at red + j * MAX_RED, gc_dyn its dynamic gpu-count allocatable.
+template <bool GC, bool NA, bool TT, bool AV, bool LOC, bool IP, class Sl, class Cn, class TN, class PD>
+__device__ __forceinline__ void node_score(const FastScanArgs& a, const Sl& S, const Cn& cs, const TN& t,
+                                           const PD& p, int n,
+                                           const float (&gc_dyn)[Sl::NB], float gc_has_dev, bool any_soft,
+                                           const float* red, unsigned want, float (&score)[Sl::NB]) {
+    constexpr int NB = Sl::NB;
+    using RD = Red<NA, TT, LOC, IP>;
+    const float alloc_cpu = t.alloc_cpu();
+    const float alloc_mem = t.alloc_mem();
+    float used_cpu[NB], used_mem[NB], soft_raw[NB], ignored, ip[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+        const bool on = want >> j & 1u;
+        used_cpu[j] = on ? a.used[S.off(j) + (size_t)RES_CPU * a.N + n] : 0.0f;
+        used_mem[j] = on ? a.used[S.off(j) + (size_t)RES_MEMORY * a.N + n] : 0.0f;
+    }
+    node_soft(a, S, cs, t, n, want, soft_raw, ignored);
+    if constexpr (IP) interpod_raw(a, S, t, p.u, n, want, ip);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+        if (!(want >> j & 1u)) continue;
+        const float* rv = red + j * MAX_RED;
+        const float lo = rv[0], rng = rv[1] - lo, smn = rv[2], smx = rv[3];
+        const float ucpu = used_cpu[j] + p.cpu_req();
+        const float umem = used_mem[j] + p.mem_req();
+        const float l_cpu =
+            (alloc_cpu == 0.0f || ucpu > alloc_cpu) ? 0.0f : (alloc_cpu - ucpu) * MAX_SCORE / fmaxf(alloc_cpu, 1.0f);
+        const float l_mem =
+            (alloc_mem == 0.0f || umem > alloc_mem) ? 0.0f : (alloc_mem - umem) * MAX_SCORE / fmaxf(alloc_mem, 1.0f);
+        const float least = (l_cpu + l_mem) / 2.0f;
+        const float cpu_frac = ucpu / fmaxf(alloc_cpu, 1.0f);
+        const float mem_frac = umem / fmaxf(alloc_mem, 1.0f);
+        const float balanced =
+            (cpu_frac >= 1.0f || mem_frac >= 1.0f) ? 0.0f : (1.0f - fabsf(cpu_frac - mem_frac)) * MAX_SCORE;
+        const float sh = share_of<GC>(t, p, GC ? gc_dyn[j] : 0.0f, gc_has_dev);
+        const float share_norm = rng > 0.0f ? (sh - lo) * MAX_SCORE / rng : 0.0f;
+        float spread_norm = smx <= 0.0f ? MAX_SCORE : MAX_SCORE * (smx + smn - soft_raw[j]) / fmaxf(smx, 1.0f);
+        if (ignored > 0.0f) spread_norm = 0.0f;
+        if (!any_soft) spread_norm = 0.0f;
+        float s = least + balanced + 2.0f * share_norm + 2.0f * spread_norm;
+        if constexpr (NA) {
+            const float na_max = rv[RD::I_NA];
+            s = s + (na_max > 0.0f ? t.na() * MAX_SCORE / fmaxf(na_max, 1.0f) : t.na());
+        }
+        if constexpr (TT) {
+            const float tt_max = rv[RD::I_TT];
+            s = s + (tt_max > 0.0f ? MAX_SCORE - t.tt() * MAX_SCORE / fmaxf(tt_max, 1.0f) : MAX_SCORE);
+        }
+        if constexpr (AV) s = s + AVOID_WEIGHT * t.avoid();
+        if constexpr (LOC) {
+            const float l_lo = rv[RD::I_LOC], l_rng = rv[RD::I_LOC + 1] - l_lo;
+            s = s + (l_rng > 0.0f ? (local_raw_of(a, S, j, p.u, n) - l_lo) * MAX_SCORE / l_rng : 0.0f);
+        }
+        if constexpr (IP) {
+            const float ip_lo = rv[RD::I_IP + 1], ip_rng = rv[RD::I_IP] - ip_lo;
+            s = s + (ip_rng > 0.0f ? MAX_SCORE * (ip[j] - ip_lo) / fmaxf(ip_rng, 1.0f) : 0.0f);
+        }
+        score[j] = s;
+    }
+}
+
+// Device packing of template u on node c for slot j (pallas_scan.py:
+// 759-782): one GPU takes the tightest fit (first among equals), several
+// take greedy chunks with reuse, in device order. Writes node c's gpu_free
+// column and pod i's gpu_take row.
+template <class Sl>
+__device__ __forceinline__ void gpu_bind(const FastScanArgs& a, const Sl& S, int j, int i, int u, int c) {
+    float* gpu_free = a.gpu_free + S.off(j);
     const float gmem = a.gpu_mem[u];
     const float gcnt = a.gpu_cnt[u];
     float best_free = BIG;
     for (int d = 0; d < a.Gd; ++d) {
-        const float free_d = a.gpu_free[sw(a) + (size_t)d * a.N + c];
+        const float free_d = gpu_free[(size_t)d * a.N + c];
         if (free_d >= gmem) best_free = fminf(best_free, free_d);
     }
     float assigned = 0.0f, cum = 0.0f;
     for (int d = 0; d < a.Gd; ++d) {
-        const float free_d = a.gpu_free[sw(a) + (size_t)d * a.N + c];
+        const float free_d = gpu_free[(size_t)d * a.N + c];
         const float fits_d = free_d >= gmem ? 1.0f : 0.0f;
         const float take_tight = fits_d * (free_d == best_free ? 1.0f : 0.0f) * (1.0f - fminf(assigned, 1.0f));
         assigned = assigned + take_tight;
@@ -566,18 +1028,93 @@ __device__ __forceinline__ void gpu_bind(const FastScanArgs& a, int i, int u, in
         cum = cum + chunks_d;
         float take_d = gcnt == 1.0f ? take_tight : take_greedy;
         take_d = gmem > 0.0f ? take_d : 0.0f;
-        a.gpu_free[sw(a) + (size_t)d * a.N + c] = free_d - take_d * gmem;
-        a.gpu_take[(scn() * a.P + i) * a.Gd + d] = take_d;
+        gpu_free[(size_t)d * a.N + c] = free_d - take_d * gmem;
+        a.gpu_take[(S.pod0(j) + i) * a.Gd + d] = take_d;
     }
 }
 
-// Block s of the grid runs scenario s over the whole pod stream: it reads
-// row s of the per-scenario inputs and writes its own slice of every output
-// and state buffer. One scan (fast_scan) is the grid of one block and goes
-// through the same offsets.
+// Bind of pod i (template u) on node c for slot j: only node c's column
+// changes (and the per-selector totals). Threads tid, tid + nt, ... of the
+// block write the rows; the thread that owns node c packs its GPUs, volume
+// groups and devices.
+template <bool GPU, bool PORTS, bool IP, bool LOC, class Sl>
+__device__ __forceinline__ void bind_pod(const FastScanArgs& a, const Sl& S, int j, int i, int u, int c, int tid,
+                                         int nt) {
+    const size_t N = a.N, off = S.off(j);
+    const int A = a.A, K = a.K, Z = a.Z;
+    if (tid < a.R) a.used[off + (size_t)tid * N + c] += a.req[u * a.R + tid];
+    for (int q = tid; q < A; q += nt) {
+        const float m = a.matches[(size_t)q * a.U + u];
+        a.node_cnt[off + (size_t)q * N + c] += m;
+        if constexpr (IP) a.sel_total[off + q] += m;
+        for (int k = 0; k < K; ++k) {
+            const int z = a.zone_idx[(size_t)k * N + c];
+            if (z >= 0) {
+                a.zone_cnt[off + ((size_t)k * A + q) * Z + z] += m;
+                if constexpr (IP) a.sel_total[off + (size_t)(k + 1) * A + q] += m;
+            }
+        }
+    }
+    // the template's own ports, not the conflict rows
+    if constexpr (PORTS)
+        for (int h = tid; h < a.Hp; h += nt) a.port_used[off + (size_t)h * N + c] += a.port_hu[(size_t)h * a.U + u];
+    if constexpr (IP) {
+        for (int g = tid; g < a.G; g += nt)
+            term_bind(a, a.anti_node + off, a.anti_zone + off, g, a.anti_g_key[g], c, a.antig[(size_t)g * a.U + u]);
+        for (int g = tid; g < a.Gp; g += nt)
+            term_bind(a, a.prefw_node + off, a.prefw_zone + off, g, a.prefg_key[g], c, a.prefg[(size_t)g * a.U + u]);
+    }
+    if (tid == c % nt) {
+        if constexpr (GPU) gpu_bind(a, S, j, i, u, c);
+        if constexpr (LOC) local_bind(a, S, j, u, c);
+    }
+}
+
+// The inter-pod bootstrap of slot j (pallas_scan.py:520-542): no pod yet
+// matches the affinity terms anywhere and the pod matches them itself. The
+// same for every node.
+template <class Sl>
+__device__ __forceinline__ bool at_bootstrap_of(const FastScanArgs& a, const Sl& S, int j, int u) {
+    float map_total = 0.0f, self_all = 1.0f;
+    for (int k = 0; k < a.Ti; ++k) {
+        const int uk = u * a.Ti + k;
+        if (a.at_active[uk] != 1) continue;
+        map_total = map_total + a.sel_total[S.off(j) + (size_t)a.at_key[uk] * a.A + a.at_sel[uk]];
+        self_all = self_all * (a.at_self[uk] > 0.0f ? 1.0f : 0.0f);
+    }
+    return map_total == 0.0f && self_all > 0.0f;
+}
+
+// State init of the scan at offset `off`: used <- used0, counts <- 0,
+// gpu_free <- gpu0, vg_free <- vg0, dev_free <- dev0.
+template <bool GPU, bool PORTS, bool IP, bool LOC>
+__device__ __forceinline__ void init_state(const FastScanArgs& a, size_t off, int tid, int nt) {
+    const size_t N = a.N, A = a.A, K = a.K, Z = a.Z;
+    for (size_t j = tid; j < (size_t)a.R * N; j += nt) a.used[off + j] = a.used0[j];
+    for (size_t j = tid; j < A * N; j += nt) a.node_cnt[off + j] = 0.0f;
+    for (size_t j = tid; j < K * A * Z; j += nt) a.zone_cnt[off + j] = 0.0f;
+    if constexpr (GPU)
+        for (size_t j = tid; j < (size_t)a.Gd * N; j += nt) a.gpu_free[off + j] = a.gpu0[j];
+    if constexpr (PORTS)
+        for (size_t j = tid; j < (size_t)a.Hp * N; j += nt) a.port_used[off + j] = 0.0f;
+    if constexpr (IP) {
+        for (size_t j = tid; j < (size_t)a.G * N; j += nt) a.anti_node[off + j] = 0.0f;
+        for (size_t j = tid; j < (size_t)a.G * Z; j += nt) a.anti_zone[off + j] = 0.0f;
+        for (size_t j = tid; j < (size_t)a.Gp * N; j += nt) a.prefw_node[off + j] = 0.0f;
+        for (size_t j = tid; j < (size_t)a.Gp * Z; j += nt) a.prefw_zone[off + j] = 0.0f;
+        for (size_t j = tid; j < (K + 1) * A; j += nt) a.sel_total[off + j] = 0.0f;
+    }
+    if constexpr (LOC) {
+        for (size_t j = tid; j < (size_t)a.Vg * N; j += nt) a.vg_free[off + j] = a.vg0[j];
+        for (size_t j = tid; j < (size_t)a.Dv * N; j += nt) a.dev_free[off + j] = a.dev0[j];
+    }
+}
+
+// One scan over the whole pod stream, in one CTA.
 template <bool GPU, bool GC, bool NA, bool TT, bool AV, bool PORTS, bool IP, bool LOC>
 __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant__ FastScanArgs a) {
     static_assert(GPU || !GC, "the gpu-count allocatable follows the GPUs");
+    using RD = Red<NA, TT, LOC, IP>;
     __shared__ float buf[MAX_RED][NWARP];
     __shared__ float res[MAX_RED];
     __shared__ float sbuf[NWARP];
@@ -585,261 +1122,366 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant_
     __shared__ int ires;
 
     const int tid = threadIdx.x;
-    const int N = a.N, R = a.R, A = a.A, K = a.K, Z = a.Z, Cs = a.Cs;
-    const size_t sP = scn() * a.P;
+    const int N = a.N, Cs = a.Cs;
+    const Solo S{a.node_valid};
 
-    // state init of this scenario's slice: used <- used0, counts <- 0, gpu_free <- gpu0, vg_free <-
-    // vg0, dev_free <- dev0
-    for (size_t j = tid; j < (size_t)R * N; j += NT) a.used[sw(a) + j] = a.used0[j];
-    for (size_t j = tid; j < (size_t)A * N; j += NT) a.node_cnt[sw(a) + j] = 0.0f;
-    for (size_t j = tid; j < (size_t)K * A * Z; j += NT) a.zone_cnt[sw(a) + j] = 0.0f;
-    if constexpr (GPU)
-        for (size_t j = tid; j < (size_t)a.Gd * N; j += NT) a.gpu_free[sw(a) + j] = a.gpu0[j];
-    if constexpr (PORTS)
-        for (size_t j = tid; j < (size_t)a.Hp * N; j += NT) a.port_used[sw(a) + j] = 0.0f;
-    if constexpr (IP) {
-        for (size_t j = tid; j < (size_t)a.G * N; j += NT) a.anti_node[sw(a) + j] = 0.0f;
-        for (size_t j = tid; j < (size_t)a.G * Z; j += NT) a.anti_zone[sw(a) + j] = 0.0f;
-        for (size_t j = tid; j < (size_t)a.Gp * N; j += NT) a.prefw_node[sw(a) + j] = 0.0f;
-        for (size_t j = tid; j < (size_t)a.Gp * Z; j += NT) a.prefw_zone[sw(a) + j] = 0.0f;
-        for (size_t j = tid; j < (size_t)(K + 1) * A; j += NT) a.sel_total[sw(a) + j] = 0.0f;
-    }
-    if constexpr (LOC) {
-        for (size_t j = tid; j < (size_t)a.Vg * N; j += NT) a.vg_free[sw(a) + j] = a.vg0[j];
-        for (size_t j = tid; j < (size_t)a.Dv * N; j += NT) a.dev_free[sw(a) + j] = a.dev0[j];
-    }
+    init_state<GPU, PORTS, IP, LOC>(a, 0, tid, NT);
     __syncthreads();
 
     int all_min[MAX_CS];
     for (int c = 0; c < MAX_CS; ++c) all_min[c] = 0;
-    // lo min, hi max, smn min, smx max, any-feasible max, then the
-    // NodeAffinity and TaintToleration maxima, the binpack score's min and
-    // max and the inter-pod score's max and min where the variant has them
-    constexpr int I_NA = 5, I_TT = I_NA + (NA ? 1 : 0), I_LOC = I_TT + (TT ? 1 : 0);
-    constexpr int I_IP = I_LOC + (LOC ? 2 : 0);
-    constexpr int NRED = I_IP + (IP ? 2 : 0);
-    int bmode[MAX_RED] = {0, 1, 0, 1, 1, 0, 0, 0, 0, 0, 0};
-    if constexpr (NA) bmode[I_NA] = 1;
-    if constexpr (TT) bmode[I_TT] = 1;
-    if constexpr (LOC) bmode[I_LOC + 1] = 1;
-    if constexpr (IP) bmode[I_IP] = 1;
+    int bmode[MAX_RED];
+    for (int k = 0; k < MAX_RED; ++k) bmode[k] = RD::is_max(k) ? 1 : 0;
 
     for (int i = 0; i < a.P; ++i) {
         const int u = a.tmpl[i];
-        if (a.valid[sP + i] != 1) {
-            if (tid == 0) a.chosen[sP + i] = -1;
+        if (a.valid[i] != 1) {
+            if (tid == 0) a.chosen[i] = -1;
             continue;  // invalid pods touch no state
         }
         int choice;
-        if (a.forced[sP + i] == 1) {
+        if (a.forced[i] == 1) {
             const int p = a.pin[u];
             choice = p >= 0 ? p : -1;
         } else {
-            // --- the inter-pod bootstrap (pallas_scan.py:520-542): no pod
-            // yet matches the affinity terms anywhere and the pod matches
-            // them itself. The same for every node and thread.
-            float at_bootstrap = 0.0f;
-            if constexpr (IP) {
-                float map_total = 0.0f, self_all = 1.0f;
-                for (int t = 0; t < a.Ti; ++t) {
-                    const int ut = u * a.Ti + t;
-                    if (a.at_active[ut] != 1) continue;
-                    map_total = map_total + a.sel_total[sw(a) + (size_t)a.at_key[ut] * A + a.at_sel[ut]];
-                    self_all = self_all * (a.at_self[ut] > 0.0f ? 1.0f : 0.0f);
-                }
-                at_bootstrap = (map_total == 0.0f && self_all > 0.0f) ? 1.0f : 0.0f;
-            }
+            const Pod<false> p(a, u);
+            const GCons cs(a, u);
+            const unsigned boot = IP && at_bootstrap_of(a, S, 0, u) ? 1u : 0u;
 
             // --- pass 1: per-constraint min count over eligible nodes
             float min_cnt[MAX_CS];
-            bool any_active = false;
+            bool any_active = false, any_soft = false;
             for (int c = 0; c < Cs; ++c) {
                 min_cnt[c] = BIG;
                 any_active |= a.spr_active[u * Cs + c] == 1;
+                any_soft |= a.spr_active[u * Cs + c] == 1 && a.spr_hard[u * Cs + c] == 0;
             }
             if (any_active) {
                 for (int n = tid; n < N; n += NT) {
-                    const float aff_row = a.aff_mask[(size_t)u * N + n] * a.node_valid[sw(a) + n];
-                    for (int c = 0; c < Cs; ++c) {
-                        const int uc = u * Cs + c;
-                        if (a.spr_active[uc] != 1) continue;
-                        float cnt, has_label;
-                        sel_cnt(a, a.spr_sel[uc], a.spr_key[uc], n, cnt, has_label);
-                        const float elig = aff_row * has_label;
-                        min_cnt[c] = fminf(min_cnt[c], elig > 0.0f ? cnt : BIG);
+                    const TNode<false> t(a, u, n);
+                    const float aff = a.aff_mask[(size_t)u * N + n];
+                    for (unsigned m = cs.hard | cs.soft; m; m &= m - 1u) {
+                        const int c = __ffs(m) - 1;
+                        float mn[1] = {min_cnt[c]};
+                        elig_min(a, S, cs, t, c, n, aff, 1u, mn);
+                        min_cnt[c] = mn[0];
                     }
                 }
                 block_reduce(min_cnt, all_min, Cs, min_cnt, buf, res);
             }
-            bool any_soft = false;
-            for (int c = 0; c < Cs; ++c)
-                any_soft |= a.spr_active[u * Cs + c] == 1 && a.spr_hard[u * Cs + c] == 0;
 
-            // --- pass 2: share lo/hi over feasible, spread smn/smx over
-            // scored, any-feasible, the score tables' feasible maxima, the
-            // binpack score's feasible range, and the inter-pod score's
-            // range with both ends seeded at 0
-            float rv[NRED];
-            rv[0] = BIG;
-            rv[1] = NEG;
-            rv[2] = BIG;
-            rv[3] = NEG;
-            rv[4] = 0.0f;
-            if constexpr (NA) rv[I_NA] = NEG;
-            if constexpr (TT) rv[I_TT] = NEG;
-            if constexpr (LOC) {
-                rv[I_LOC] = BIG;
-                rv[I_LOC + 1] = NEG;
-            }
-            if constexpr (IP) {
-                rv[I_IP] = 0.0f;
-                rv[I_IP + 1] = 0.0f;
-            }
+            // --- pass 2: the ranges, any-feasible and the maxima
+            float rv[1][RD::N];
+            RD::init(rv[0]);
             for (int n = tid; n < N; n += NT) {
-                float feasible, soft_raw, ignored, gc_dyn = 0.0f, gc_has_dev = 0.0f, ip = 0.0f;
-                node_filter<GPU, GC, PORTS, IP, LOC>(a, u, n, min_cnt, at_bootstrap, feasible, soft_raw, ignored,
-                                                     gc_dyn, gc_has_dev, ip);
-                if (feasible > 0.0f) {
-                    const float sh = share_of<GC>(a, u, n, gc_dyn, gc_has_dev);
-                    rv[0] = fminf(rv[0], sh);
-                    rv[1] = fmaxf(rv[1], sh);
-                    if (ignored == 0.0f) {
-                        rv[2] = fminf(rv[2], soft_raw);
-                        rv[3] = fmaxf(rv[3], soft_raw);
-                    }
-                    if constexpr (LOC) {
-                        const float lr = local_raw_of(a, u, n);
-                        rv[I_LOC] = fminf(rv[I_LOC], lr);
-                        rv[I_LOC + 1] = fmaxf(rv[I_LOC + 1], lr);
-                    }
-                }
-                rv[4] = fmaxf(rv[4], feasible);
-                if constexpr (NA) rv[I_NA] = fmaxf(rv[I_NA], feasible > 0.0f ? a.na_raw[(size_t)u * N + n] : 0.0f);
-                if constexpr (TT) rv[I_TT] = fmaxf(rv[I_TT], feasible > 0.0f ? a.tt_raw[(size_t)u * N + n] : 0.0f);
-                if constexpr (IP) {
-                    const float ip_masked = feasible > 0.0f ? ip : 0.0f;
-                    rv[I_IP] = fmaxf(rv[I_IP], ip_masked);
-                    rv[I_IP + 1] = fminf(rv[I_IP + 1], ip_masked);
-                }
+                const TNode<false> t(a, u, n);
+                float feasible[1];
+                pass2_node<GPU, GC, NA, TT, PORTS, IP, LOC>(a, S, cs, t, p, n, min_cnt, boot, 1u, feasible, rv);
             }
-            block_reduce(rv, bmode, NRED, rv, buf, res);
-            const float lo = rv[0], hi = rv[1], smn = rv[2], smx = rv[3];
-            const bool any_feasible = rv[4] > 0.0f;
-            const float rng = hi - lo;
-            float na_max = 0.0f, tt_max = 0.0f, l_lo = 0.0f, l_rng = 0.0f, ip_lo = 0.0f, ip_rng = 0.0f;
-            if constexpr (NA) na_max = rv[I_NA];
-            if constexpr (TT) tt_max = rv[I_TT];
-            if constexpr (LOC) {
-                l_lo = rv[I_LOC];
-                l_rng = rv[I_LOC + 1] - l_lo;
-            }
-            if constexpr (IP) {
-                ip_lo = rv[I_IP + 1];
-                ip_rng = rv[I_IP] - ip_lo;
-            }
+            block_reduce(rv[0], bmode, RD::N, rv[0], buf, res);
+            float red[MAX_RED];
+            for (int k = 0; k < RD::N; ++k) red[k] = rv[0][k];
+            const bool any_feasible = red[4] > 0.0f;
 
-            // --- pass 3: score, then the lowest index among the maxima
-            const float cpu_req = a.cpu_nz[u];
-            const float mem_req = a.mem_nz[u];
+            // --- pass 3: score the feasible nodes, then the lowest index
+            // among the maxima
             float best_s = NEG;
             int best_i = N;
             for (int n = tid; n < N; n += NT) {
-                float feasible, soft_raw, ignored, gc_dyn = 0.0f, gc_has_dev = 0.0f, ip = 0.0f;
-                node_filter<GPU, GC, PORTS, IP, LOC>(a, u, n, min_cnt, at_bootstrap, feasible, soft_raw, ignored,
-                                                     gc_dyn, gc_has_dev, ip);
-                const float alloc_cpu = a.alloc[(size_t)RES_CPU * N + n];
-                const float alloc_mem = a.alloc[(size_t)RES_MEMORY * N + n];
-                const float used_cpu = a.used[sw(a) + (size_t)RES_CPU * N + n] + cpu_req;
-                const float used_mem = a.used[sw(a) + (size_t)RES_MEMORY * N + n] + mem_req;
-                const float l_cpu = (alloc_cpu == 0.0f || used_cpu > alloc_cpu)
-                                        ? 0.0f
-                                        : (alloc_cpu - used_cpu) * MAX_SCORE / fmaxf(alloc_cpu, 1.0f);
-                const float l_mem = (alloc_mem == 0.0f || used_mem > alloc_mem)
-                                        ? 0.0f
-                                        : (alloc_mem - used_mem) * MAX_SCORE / fmaxf(alloc_mem, 1.0f);
-                const float least = (l_cpu + l_mem) / 2.0f;
-                const float cpu_frac = used_cpu / fmaxf(alloc_cpu, 1.0f);
-                const float mem_frac = used_mem / fmaxf(alloc_mem, 1.0f);
-                const float balanced = (cpu_frac >= 1.0f || mem_frac >= 1.0f)
-                                           ? 0.0f
-                                           : (1.0f - fabsf(cpu_frac - mem_frac)) * MAX_SCORE;
-                const float sh = share_of<GC>(a, u, n, gc_dyn, gc_has_dev);
-                const float share_norm = rng > 0.0f ? (sh - lo) * MAX_SCORE / rng : 0.0f;
-                float spread_norm =
-                    smx <= 0.0f ? MAX_SCORE : MAX_SCORE * (smx + smn - soft_raw) / fmaxf(smx, 1.0f);
-                if (ignored > 0.0f) spread_norm = 0.0f;
-                if (!any_soft) spread_norm = 0.0f;
-                float score = least + balanced + 2.0f * share_norm + 2.0f * spread_norm;
-                if constexpr (NA) {
-                    const float na = a.na_raw[(size_t)u * N + n];
-                    score = score + (na_max > 0.0f ? na * MAX_SCORE / fmaxf(na_max, 1.0f) : na);
+                const TNode<false> t(a, u, n);
+                float feasible[1], gc_dyn[1], gc_has_dev = 0.0f, score[1];
+                node_feasible<GPU, GC, PORTS, IP, LOC>(a, S, cs, t, p, n, min_cnt, boot, 1u, feasible, gc_dyn,
+                                                      gc_has_dev);
+                if (feasible[0] > 0.0f) {
+                    node_score<GC, NA, TT, AV, LOC, IP>(a, S, cs, t, p, n, gc_dyn, gc_has_dev, any_soft, red, 1u,
+                                                        score);
+                    better(best_s, best_i, score[0], n);
                 }
-                if constexpr (TT) {
-                    const float tt = a.tt_raw[(size_t)u * N + n];
-                    score = score + (tt_max > 0.0f ? MAX_SCORE - tt * MAX_SCORE / fmaxf(tt_max, 1.0f) : MAX_SCORE);
-                }
-                if constexpr (AV) score = score + AVOID_WEIGHT * a.avoid_raw[(size_t)u * N + n];
-                if constexpr (LOC)
-                    score = score + (l_rng > 0.0f ? (local_raw_of(a, u, n) - l_lo) * MAX_SCORE / l_rng : 0.0f);
-                if constexpr (IP)
-                    score = score + (ip_rng > 0.0f ? MAX_SCORE * (ip - ip_lo) / fmaxf(ip_rng, 1.0f) : 0.0f);
-                better(best_s, best_i, feasible > 0.0f ? score : NEG, n);
             }
             const int best = block_argmax(best_s, best_i, sbuf, ibuf, &ires);
             choice = any_feasible ? best : -1;
         }
-        if (tid == 0) a.chosen[sP + i] = choice;
-
-        // --- bind: only the chosen node's column changes (and the
-        // per-selector totals); each thread writes its own rows
+        if (tid == 0) a.chosen[i] = choice;
         if (choice >= 0) {
-            if (tid < R) a.used[sw(a) + (size_t)tid * N + choice] += a.req[u * R + tid];
-            for (int j = tid; j < A; j += NT) {
-                const float m = a.matches[(size_t)j * a.U + u];
-                a.node_cnt[sw(a) + (size_t)j * N + choice] += m;
-                if constexpr (IP) a.sel_total[sw(a) + j] += m;
-                for (int k = 0; k < K; ++k) {
-                    const int z = a.zone_idx[(size_t)k * N + choice];
-                    if (z >= 0) {
-                        a.zone_cnt[sw(a) + ((size_t)k * A + j) * Z + z] += m;
-                        if constexpr (IP) a.sel_total[sw(a) + (size_t)(k + 1) * A + j] += m;
-                    }
-                }
-            }
-            // the template's own ports, not the conflict rows
-            if constexpr (PORTS)
-                for (int h = tid; h < a.Hp; h += NT)
-                    a.port_used[sw(a) + (size_t)h * N + choice] += a.port_hu[(size_t)h * a.U + u];
-            if constexpr (IP) {
-                for (int g = tid; g < a.G; g += NT)
-                    term_bind(a, a.anti_node + sw(a), a.anti_zone + sw(a), g, a.anti_g_key[g], choice,
-                              a.antig[(size_t)g * a.U + u]);
-                for (int g = tid; g < a.Gp; g += NT)
-                    term_bind(a, a.prefw_node + sw(a), a.prefw_zone + sw(a), g, a.prefg_key[g], choice,
-                              a.prefg[(size_t)g * a.U + u]);
-            }
-            // the thread that owns the chosen node packs its GPUs, volume
-            // groups and devices
-            if (tid == choice % NT) {
-                if constexpr (GPU) gpu_bind(a, i, u, choice);
-                if constexpr (LOC) local_bind(a, u, choice);
-            }
+            bind_pod<GPU, PORTS, IP, LOC>(a, S, 0, i, u, choice, tid, NT);
             __syncthreads();
         }
     }
 }
 
-extern "C" int fast_scan_launch(const FastScanArgs* args, void* stream) {
-    constexpr int V = FS_VARIANT;
-    const FastScanArgs& a = *args;
-    if (a.S < 1 || a.R > MAX_R || a.Cs > MAX_CS || a.Gd > MAX_GD || a.Dv > MAX_DV || a.gc_row >= a.R)
+// Second level of a sweep reduction: warp w reduces values w, w +
+// SW_NWARP, ... of the `nv` values whose first level lies in buf[v][warp]
+// (v = the value's slot in `out`, from `slot(idx)`), min or max by
+// `is_max(idx)`, skipping values `skip(idx)`.
+template <class Slot, class IsMax, class Skip>
+__device__ __forceinline__ void reduce_level2(float (*buf)[SW_NWARP], int nv, Slot slot, IsMax is_max, Skip skip,
+                                              float* out) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int idx = warp; idx < nv; idx += SW_NWARP) {
+        if (skip(idx)) continue;
+        const int v = slot(idx);
+        const bool mx = is_max(idx);
+        float x = lane < SW_NWARP ? buf[v][lane] : (mx ? NEG : BIG);
+        x = mx ? warp_max(x) : warp_min(x);
+        if (lane == 0) out[v] = x;
+    }
+}
+
+// The scenario grid: block b runs scenarios b·B ... b·B + B - 1 (fewer in
+// a ragged last block) in lockstep through the pod stream. Slot j of the
+// block is scenario b·B + j.
+template <bool GPU, bool GC, bool NA, bool TT, bool AV, bool PORTS, bool IP, bool LOC>
+__global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_constant__ FastScanArgs a) {
+    static_assert(GPU || !GC, "the gpu-count allocatable follows the GPUs");
+    using RD = Red<NA, TT, LOC, IP>;
+    constexpr int NR = RD::N;
+    struct Shared {
+        float buf[BMAX * MAX_RED][SW_NWARP];  // first level of a reduction, value-major
+        float red[BMAX * MAX_RED];            // slot j's reduced pass-2 values (Red's order) at j * MAX_RED
+        float mn[BMAX * MAX_CS];              // slot j's hard-spread minimum counts at j * MAX_CS
+        float sbuf[BMAX][SW_NWARP];           // first level of selectHost
+        int ibuf[BMAX][SW_NWARP];
+        int best[BMAX];
+        StepCons cons;                        // the step's spread constraints
+    };
+    static_assert(sizeof(Shared) <= SWEEP_STATIC_SMEM, "the host budgets the rest of shared memory for the masks");
+    __shared__ Shared sh;
+    extern __shared__ uint32_t dyn[];  // node-validity bits [B][Nw], then feasibility bits [B][Nw]
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int N = a.N, Cs = a.Cs, Nw = a.Nw;
+    const int s0 = blockIdx.x * a.B;
+    const int nb = min(a.B, a.S - s0);  // slots holding a scenario
+    const Slots S{s0, nb - 1, a.W, a.P, Nw, a.bits_in_smem ? dyn : a.nv_bits + (size_t)s0 * Nw};
+    SCons cs{sh.cons, 0u, 0u};
+    uint32_t* const feas_bits = a.bits_in_smem ? dyn + (size_t)a.B * Nw : a.feas_bits + (size_t)s0 * Nw;
+
+    for (int j = 0; j < nb; ++j) init_state<GPU, PORTS, IP, LOC>(a, S.off(j), tid, SW_NT);
+    if (a.bits_in_smem)
+        for (int w = tid; w < nb * Nw; w += SW_NT) dyn[w] = a.nv_bits[(size_t)s0 * Nw + w];
+    __syncthreads();
+
+    for (int i = 0; i < a.P; ++i) {
+        const int u = a.tmpl[i];
+        unsigned act = 0u, frc = 0u;  // bit j: slot j's pod i is valid; it is forced
+#pragma unroll
+        for (int j = 0; j < BMAX; ++j) {
+            if (j >= nb) continue;
+            const size_t k = S.pod0(j) + i;
+            if (a.valid[k] == 1) {
+                act |= 1u << j;
+                if (a.forced[k] == 1) frc |= 1u << j;
+            }
+        }
+        const unsigned sched = act & ~frc;  // the slots that schedule pod i; the same in every thread
+        if (sched) {
+            const Pod<true> p(a, u);
+            if (tid < BMAX * MAX_CS) {  // stage the step's constraints and each slot's spread weights
+                const int j = tid / MAX_CS, c = tid % MAX_CS;
+                if (c < Cs) {
+                    const GCons g(a, u);
+                    if (j == 0) {
+                        sh.cons.key[c] = g.key(c);
+                        sh.cons.sel[c] = g.sel(c);
+                        sh.cons.skew[c] = g.skew(c);
+                        sh.cons.self[c] = g.self(c);
+                    }
+                    sh.cons.w[j][c] = a.spr_weight[(size_t)S.scn(j) * a.U * Cs + g.uc(c)];
+                }
+            }
+            __syncthreads();
+            cons_masks(a, u, cs.hard, cs.soft);
+            unsigned boot = 0u;  // bit j: slot j's inter-pod bootstrap
+            if constexpr (IP) {
+#pragma unroll
+                for (int j = 0; j < BMAX; ++j)
+                    if (sched >> j & 1u && at_bootstrap_of(a, S, j, u)) boot |= 1u << j;
+            }
+            bool any_soft = false;
+            for (int c = 0; c < Cs; ++c) any_soft |= a.spr_active[u * Cs + c] == 1 && a.spr_hard[u * Cs + c] == 0;
+
+            // --- pass 1: each hard constraint's min count over eligible
+            // nodes, per slot (a soft constraint's minimum is read by nothing)
+            if (cs.hard) {
+                for (unsigned m = cs.hard; m; m &= m - 1u) {
+                    const int c = __ffs(m) - 1;
+                    float mn[BMAX];
+#pragma unroll
+                    for (int j = 0; j < BMAX; ++j) mn[j] = BIG;
+                    for (int n = tid; n < N; n += SW_NT) {
+                        TNode<true> t(a, u, n);
+                        t.load_zones();
+                        elig_min(a, S, cs, t, c, n, a.aff_mask[(size_t)u * N + n], sched, mn);
+                    }
+#pragma unroll
+                    for (int j = 0; j < BMAX; ++j) {
+                        if (!(sched >> j & 1u)) continue;
+                        const float v = warp_min(mn[j]);
+                        if (lane == 0) sh.buf[j * MAX_CS + c][warp] = v;
+                    }
+                }
+                __syncthreads();
+                reduce_level2(
+                    sh.buf, BMAX * Cs, [&](int idx) { return (idx / Cs) * MAX_CS + idx % Cs; },
+                    [](int) { return false; },
+                    [&](int idx) { return !(sched >> (idx / Cs) & 1u) || !(cs.hard >> (idx % Cs) & 1u); },
+                    sh.mn);
+                __syncthreads();
+            }
+
+            // --- pass 2: per slot, the ranges, any-feasible and the maxima,
+            // and each node's feasibility bit for pass 3
+            float rv[BMAX][NR];
+#pragma unroll
+            for (int j = 0; j < BMAX; ++j) RD::init(rv[j]);
+            for (int base = warp * 32; base < N; base += SW_NT) {
+                const int n = base + lane;
+                const bool in = n < N;
+                float feasible[BMAX];
+#pragma unroll
+                for (int j = 0; j < BMAX; ++j) feasible[j] = 0.0f;
+                if (in) {
+                    TNode<true> t(a, u, n);
+                    t.load<GC, NA, TT, AV, true, false>(p);
+                    pass2_node<GPU, GC, NA, TT, PORTS, IP, LOC>(a, S, cs, t, p, n, sh.mn, boot, sched, feasible, rv);
+                }
+#pragma unroll
+                for (int j = 0; j < BMAX; ++j) {
+                    if (!(sched >> j & 1u)) continue;
+                    const unsigned word = __ballot_sync(FULL_MASK, feasible[j] > 0.0f);
+                    if (lane == 0) feas_bits[(size_t)j * Nw + (base >> 5)] = word;
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < BMAX; ++j) {
+                if (!(sched >> j & 1u)) continue;
+#pragma unroll
+                for (int k = 0; k < NR; ++k) {
+                    const float v = RD::is_max(k) ? warp_max(rv[j][k]) : warp_min(rv[j][k]);
+                    if (lane == 0) sh.buf[j * MAX_RED + k][warp] = v;
+                }
+            }
+            __syncthreads();
+            reduce_level2(
+                sh.buf, BMAX * NR, [](int idx) { return (idx / NR) * MAX_RED + idx % NR; },
+                [](int idx) { return RD::is_max(idx % NR); }, [&](int idx) { return !(sched >> (idx / NR) & 1u); },
+                sh.red);
+            __syncthreads();
+
+            // --- pass 3: per slot, score the feasible nodes and keep the
+            // lowest index among the maxima
+            float best_s[BMAX];
+            int best_i[BMAX];
+#pragma unroll
+            for (int j = 0; j < BMAX; ++j) {
+                best_s[j] = NEG;
+                best_i[j] = N;
+            }
+            for (int base = warp * 32; base < N; base += SW_NT) {
+                const int n = base + lane;
+                if (n >= N) continue;
+                TNode<true> t(a, u, n);
+                t.load<GC, NA, TT, AV, false, true>(p);
+                float gc_dyn[BMAX], gc_has_dev = 0.0f, score[BMAX];
+                unsigned feas = 0u;  // bit j: node n is feasible for slot j
+#pragma unroll
+                for (int j = 0; j < BMAX; ++j)
+                    if (sched >> j & 1u) feas |= (feas_bits[(size_t)j * Nw + (base >> 5)] >> lane & 1u) << j;
+                if constexpr (GC) gc_nodes(a, S, t, n, feas, gc_dyn, gc_has_dev);
+                if (!feas) continue;
+                node_score<GC, NA, TT, AV, LOC, IP>(a, S, cs, t, p, n, gc_dyn, gc_has_dev, any_soft, sh.red, feas,
+                                                    score);
+#pragma unroll
+                for (int j = 0; j < BMAX; ++j)
+                    if (feas >> j & 1u) better(best_s[j], best_i[j], score[j], n);
+            }
+#pragma unroll
+            for (int j = 0; j < BMAX; ++j) {
+                if (!(sched >> j & 1u)) continue;
+                warp_argmax(best_s[j], best_i[j]);
+                if (lane == 0) {
+                    sh.sbuf[j][warp] = best_s[j];
+                    sh.ibuf[j][warp] = best_i[j];
+                }
+            }
+            __syncthreads();
+            for (int j = warp; j < BMAX; j += SW_NWARP) {
+                if (!(sched >> j & 1u)) continue;
+                float s = lane < SW_NWARP ? sh.sbuf[j][lane] : NEG;
+                int bi = lane < SW_NWARP ? sh.ibuf[j][lane] : N;
+                warp_argmax(s, bi);
+                if (lane == 0) sh.best[j] = bi;
+            }
+            __syncthreads();
+        }
+
+        // --- per slot: the choice (the pin of a forced pod), then the bind
+        bool bound = false;
+#pragma unroll
+        for (int j = 0; j < BMAX; ++j) {
+            if (j >= nb) continue;
+            int choice = -1;
+            if (frc >> j & 1u) {
+                const int pin = a.pin[u];
+                choice = pin >= 0 ? pin : -1;
+            } else if (sched >> j & 1u) {
+                choice = sh.red[j * MAX_RED + 4] > 0.0f ? sh.best[j] : -1;
+            }
+            if (tid == j) a.chosen[S.pod0(j) + i] = choice;
+            if (choice >= 0) {
+                bind_pod<GPU, PORTS, IP, LOC>(a, S, j, i, u, choice, tid, SW_NT);
+                bound = true;
+            }
+        }
+        if (bound) __syncthreads();
+    }
+}
+
+namespace {
+
+int check_args(const FastScanArgs& a) {
+    if (a.S < 1 || a.R > MAX_R || a.Cs > MAX_CS || a.Gd > MAX_GD || a.Dv > MAX_DV || a.K < 1 || a.K > MAX_K ||
+        a.gc_row >= a.R)
         return (int)cudaErrorInvalidValue;
     const int v = (a.has_gpu ? 1 : 0) | (a.gc_row >= 0 ? 2 : 0) | (a.has_na ? 4 : 0) | (a.has_tt ? 8 : 0) |
                   (a.has_avoid ? 16 : 0) | (a.has_ports ? 32 : 0) | (a.has_interpod ? 64 : 0) |
                   (a.has_local ? 128 : 0);
-    if (v != V) return (int)cudaErrorInvalidValue;  // this library holds one variant
+    if (v != FS_VARIANT) return (int)cudaErrorInvalidValue;  // this library holds one variant
+    return 0;
+}
+
+}  // namespace
+
+#define FS_FLAGS                                                                                             \
+    (FS_VARIANT & 1) != 0, (FS_VARIANT & 2) != 0, (FS_VARIANT & 4) != 0, (FS_VARIANT & 8) != 0,              \
+        (FS_VARIANT & 16) != 0, (FS_VARIANT & 32) != 0, (FS_VARIANT & 64) != 0, (FS_VARIANT & 128) != 0
+
+extern "C" int fast_scan_launch(const FastScanArgs* args, void* stream) {
+    const FastScanArgs& a = *args;
+    if (int err = check_args(a)) return err;
+    if (a.S != 1) return (int)cudaErrorInvalidValue;
     cudaGetLastError();  // clear a stale error so the check reports this launch
-    fast_scan_kernel<(V & 1) != 0, (V & 2) != 0, (V & 4) != 0, (V & 8) != 0, (V & 16) != 0, (V & 32) != 0,
-                     (V & 64) != 0, (V & 128) != 0><<<a.S, NT, 0, (cudaStream_t)stream>>>(a);
+    fast_scan_kernel<FS_FLAGS><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// The scenario grid, shaped by ops/fast_scan.sweep_grid: `blocks` blocks of
+// `threads` threads (SW_NT), a.B scenarios each, `smem` bytes of dynamic
+// shared memory (the masks of a.B scenarios, or 0 when they lie in global
+// memory).
+extern "C" int fast_scan_sweep_launch(const FastScanArgs* args, int blocks, int threads, int smem, void* stream) {
+    const FastScanArgs& a = *args;
+    if (int err = check_args(a)) return err;
+    const long long want_smem = a.bits_in_smem ? (long long)a.B * a.Nw * 4 * 2 : 0;
+    if (a.B < 1 || a.B > BMAX || threads != SW_NT || blocks != (a.S + a.B - 1) / a.B || a.Nw != (a.N + 31) / 32 ||
+        smem != want_smem || (!a.bits_in_smem && a.feas_bits == nullptr) || a.nv_bits == nullptr)
+        return (int)cudaErrorInvalidValue;
+    cudaGetLastError();
+    auto kernel = fast_scan_sweep_kernel<FS_FLAGS>;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<blocks, SW_NT, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

@@ -22,8 +22,9 @@ This is the JAX package's Pallas megakernel
   tensor it runs :func:`fast_scan_reference`.
 - :func:`fast_scan_sweep` runs S scans that share the template tables and
   differ in node validity, spread weights, pod validity and forced masks:
-  one launch of the same kernel with one block per scenario (``fast_scan``
-  is its S = 1 case); on the CPU, :func:`fast_scan_sweep_reference`.
+  one launch of the sweep kernel in the same shared object, whose blocks
+  each run B scenarios in lockstep (:func:`sweep_grid` shapes the grid);
+  on the CPU, :func:`fast_scan_sweep_reference`.
 - :func:`fast_scan_reference` is the plain PyTorch version: a Python loop
   over pods, vector ops over nodes, op for op the Pallas body's formulas.
   It runs on any device; the tests use it on the CPU, and the smoke script
@@ -51,6 +52,7 @@ import ctypes
 import hashlib
 import itertools
 import math
+import re
 import shutil
 import subprocess
 import time
@@ -69,12 +71,31 @@ MAX_R = 8  # resource rows the kernel's per-pod tables take (csrc MAX_R)
 MAX_CS = 8  # spread constraints per template (csrc MAX_CS)
 MAX_GD = 8  # GPUs per node (csrc MAX_GD)
 MAX_DV = 64  # exclusive devices per node: the bits of the bind's per-pod taken mask (csrc MAX_DV)
+MAX_K = 4  # zone keys (csrc MAX_K; engine/fastpath.MAX_ZONE_KEYS)
+
+#: The scenario grid's shape, fixed in the kernel (csrc BMAX and SW_NT): at
+#: most SWEEP_B_MAX scenarios per block, run in lockstep by SWEEP_THREADS
+#: threads. Measured on the card among B_max 2/4/8 at 512 or 1024 threads
+#: (PERF.md §6).
+SWEEP_B_MAX = 4
+SWEEP_THREADS = 512
+#: SMs of one H100 SXM, the grid's default width: B = ceil(S / SMs), at
+#: most SWEEP_B_MAX.
+H100_SMS = 132
+#: Shared memory one block may take on Hopper, and the part of it that the
+#: sweep kernel's static arrays may take (csrc SWEEP_STATIC_SMEM); the rest
+#: holds the blocks' bit masks.
+SMEM_MAX = 232448
+SWEEP_STATIC_SMEM = 24576
 
 #: Number of kernel launches made through :func:`fast_scan` and
 #: :func:`fast_scan_sweep` (CUDA only), in all and by row name
-#: (:func:`variant_name`, :func:`sweep_name`).
+#: (:func:`variant_name`, :func:`sweep_name`); per sweep row name, the grid
+#: of its last launch (:class:`SweepGrid`) and the ptxas report of the
+#: sweep kernel it ran (:func:`ptxas_report`).
 LAUNCHES = 0
 VARIANT_LAUNCHES: Dict[str, int] = {}
+SWEEP_LAUNCHED: Dict[str, dict] = {}
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "fast_scan.cu"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -315,13 +336,15 @@ def _check(fi: FastInputs, tmpl, valid, forced, node_valid=None, spr_weight=None
             raise ValueError(f"fast_scan: {name} must be a contiguous {dt} {list(shape)} tensor on {dev}")
     if len(lead) > 1 or (lead and lead[0] < 1):
         raise ValueError(f"fast_scan: a scenario grid takes [S, P] masks with S >= 1, not {list(valid.shape)}")
+    if node_valid is not None and not bool(((node_valid == 0) | (node_valid == 1)).all()):
+        raise ValueError("fast_scan: node_valid must hold 0 or 1 (the sweep keeps it as bits)")
     if R > MAX_R or Cs > MAX_CS or Gd > MAX_GD or d.Dv > MAX_DV:
         raise ValueError(
             f"fast_scan: R={R} (max {MAX_R}), Cs={Cs} (max {MAX_CS}), Gd={Gd} (max {MAX_GD}) "
             f"or Dv={d.Dv} (max {MAX_DV}) outside the kernel"
         )
-    if K < 1 or fi.n_zones < 1 or R <= V.RES_MEMORY:
-        raise ValueError("fast_scan: needs K >= 1 zone-key rows, n_zones >= 1 and cpu/memory rows")
+    if K < 1 or K > MAX_K or fi.n_zones < 1 or R <= V.RES_MEMORY:
+        raise ValueError(f"fast_scan: needs 1 <= K <= {MAX_K} zone-key rows, n_zones >= 1 and cpu/memory rows")
     if not v.gpu and (Gd > 0 or fi.gc_row >= 0) or fi.gc_row >= R:
         raise ValueError(
             f"fast_scan: gpu tables ({Gd} GPU rows, {fi.gpu_mem.numel()} templates) and gc_row={fi.gc_row} disagree"
@@ -352,21 +375,37 @@ class _Args(ctypes.Structure):
         "lvm_req", "dev_req", "dev_need", "dev_sizes", "vg_cap", "vg0", "dev_cap", "dev0", "dev_media",
         "chosen", "used", "node_cnt", "zone_cnt", "gpu_take", "gpu_free",
         "port_used", "anti_node", "anti_zone", "prefw_node", "prefw_zone", "sel_total",
-        "vg_free", "dev_free",
+        "vg_free", "dev_free", "nv_bits", "feas_bits",
     )] + [("W", ctypes.c_int64)] + [(n, ctypes.c_int32) for n in (
         "S", "P", "N", "R", "U", "A", "K", "Z", "Cs", "Gd", "gc_row", "Hp", "Ti", "Tn", "Tp", "G", "Gp",
         "Vg", "Dv", "Mv",
         "has_gpu", "has_na", "has_tt", "has_avoid", "has_ports", "has_interpod", "has_local",
+        "B", "Nw", "bits_in_smem",
     )]
 
 
 #: Loaded shared objects by variant name; one per variant, each holding
-#: only its own instantiation of the kernel.
+#: only its own instantiation of the kernels, and ptxas's report of each.
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_PTXAS: Dict[str, Dict[str, dict]] = {}
 #: The last build() call: its wall-clock seconds, and per variant name the
 #: library, the nvcc seconds (None when the library was already built) and
-#: ptxas's report.
+#: ptxas's log (kept beside the library, so a cached one has it too).
 BUILD_LOG: Dict[str, object] = {"seconds": None, "variants": {}}
+
+
+def ptxas_report(log: str) -> Dict[str, dict]:
+    """ptxas's -v report per kernel of one build: for ``fast_scan`` and
+    ``fast_scan_sweep``, the registers, spill store and load bytes, stack
+    frame and static shared-memory bytes."""
+    out = {}
+    for entry in log.split("Compiling entry function")[1:]:
+        kernel = "fast_scan_sweep" if "sweep_kernel" in entry.split("\n", 1)[0] else "fast_scan"
+        num = lambda pat: sum(int(x) for x in re.findall(pat, entry))
+        out[kernel] = {"registers": num(r"Used (\d+) registers"),
+                       "spill_bytes": num(r"(\d+) bytes spill (?:stores|loads)"),
+                       "stack_bytes": num(r"(\d+) bytes stack frame"), "smem_bytes": num(r"(\d+) bytes smem")}
+    return out
 
 
 def _nvcc() -> str:
@@ -389,7 +428,8 @@ def build(names: Iterable[str]) -> None:
     """Compile and load the named kernel variants (:func:`variant_name`
     strings): one ``nvcc -DFS_VARIANT=<bits>`` per variant not yet built,
     all started together, into ``_build/`` (cached by source, flags and
-    variant). Raises when a build fails; there is no fallback."""
+    variant; ptxas's log beside each library). Raises when a build fails;
+    there is no fallback."""
     t0 = time.perf_counter()
     todo = {n: parse_variant(n) for n in names if n not in _LIBS}
     if not todo:
@@ -412,6 +452,7 @@ def build(names: Iterable[str]) -> None:
         if proc.returncode != 0:
             failed.append(f"{name} ({proc.returncode}):\n{err}")
         else:
+            path.with_suffix(".ptxas").write_text(err)  # before the library, which marks the build done
             tmp.replace(path)
     if failed:
         raise RuntimeError("fast_scan: nvcc failed for " + "\n".join(failed))
@@ -420,49 +461,107 @@ def build(names: Iterable[str]) -> None:
         lib = ctypes.CDLL(str(path))
         lib.fast_scan_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
         lib.fast_scan_launch.restype = ctypes.c_int
+        lib.fast_scan_sweep_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p]
+        lib.fast_scan_sweep_launch.restype = ctypes.c_int
         _LIBS[name] = lib
-        log.setdefault(name, {"library": str(path), "seconds": None, "ptxas": ""})
+        report = path.with_suffix(".ptxas")
+        log.setdefault(name, {"library": str(path), "seconds": None,
+                              "ptxas": report.read_text() if report.exists() else ""})
+        _PTXAS[name] = ptxas_report(log[name]["ptxas"])
     BUILD_LOG["seconds"] = time.perf_counter() - t0
     BUILD_LOG["variants"] = log
 
 
-def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, row: str) -> FastOutputs:
-    """One launch of the kernel over a grid of S scenarios (``valid`` and
-    ``forced`` [S, P], ``node_valid`` [S, N], ``spr_weight`` [S, U, Cs]),
-    counted under `row`. Every output and state buffer has a leading S
-    axis; block s writes its own slice."""
+class SweepGrid(NamedTuple):
+    """Shape of one launch of the scenario grid."""
+
+    b: int  # scenarios per block; block k runs scenarios k·b ... k·b + b - 1
+    blocks: int  # ceil(S / b); the last may hold fewer than b
+    threads: int  # per block
+    smem: int  # dynamic shared-memory bytes: b scenarios' bit masks, 0 when they lie in global memory
+    words: int  # 32-bit words of one N-bit mask
+
+
+def sweep_grid(S: int, N: int, sms: int = H100_SMS) -> SweepGrid:
+    """The scenario grid for S scenarios over N nodes on a card of `sms`
+    SMs: b = ceil(S / sms) scenarios per block, at most SWEEP_B_MAX, so the
+    grid fills the card in as few waves as b allows (S <= sms keeps one
+    scenario per block). Each scenario keeps its node validity and pass 2's
+    feasibility as two N-bit masks in shared memory; where b scenarios'
+    masks do not fit beside the static arrays, b shrinks to what fits, and
+    where one scenario's do not, they lie in global memory, so every N
+    runs."""
+    words = -(-N // 32)
+    per = 2 * 4 * words
+    b = min(SWEEP_B_MAX, -(-S // sms))
+    fit = (SMEM_MAX - SWEEP_STATIC_SMEM) // per
+    smem = 0
+    if fit >= 1:
+        b = min(b, fit)
+        smem = b * per
+    return SweepGrid(b, -(-S // b), SWEEP_THREADS, smem, words)
+
+
+def pack_bits(rows: torch.Tensor) -> torch.Tensor:
+    """[S, N] 0/1 float rows as [S, ceil(N / 32)] int32 words: node n is bit
+    n & 31 of word n >> 5, padding bits 0."""
+    S, N = rows.shape
+    words = -(-N // 32)
+    bits = torch.zeros((S, words * 32), dtype=torch.int64, device=rows.device)
+    bits[:, :N] = (rows != 0).long()
+    shift = torch.arange(32, dtype=torch.int64, device=rows.device)
+    w = (bits.view(S, words, 32) << shift).sum(2)  # below 2^32
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: bool) -> FastOutputs:
+    """One launch over S scenarios (``valid`` and ``forced`` [S, P],
+    ``node_valid`` [S, N], ``spr_weight`` [S, U, Cs]): the one-scan kernel
+    (S = 1), counted under :func:`variant_name`, or with `sweep` the sweep
+    kernel on :func:`sweep_grid`'s grid, counted under :func:`sweep_name`.
+    Every output and state buffer has a leading S axis; scenario s writes
+    its own slice."""
     global LAUNCHES
     _check(fi, tmpl, valid, forced, node_valid, spr_weight)
     name = variant_name(fi)
+    row = sweep_name(fi) if sweep else name
     build([name])
+    lib = _LIBS[name]
     d = _dims(fi)
     N, R, A, K, Gd = d.N, d.R, d.A, d.K, d.Gd
     S, P, Z = valid.shape[0], tmpl.shape[0], fi.n_zones
     v = variant(fi)
     dev = fi.alloc_T.device
     f32 = torch.float32
-    # The float state and outputs and the per-scenario node rows of scenario
-    # s lie in row s of one [S, W] arena, so the kernel selects a scenario by
-    # one offset s * W for all of them. It zeroes or copies in the state.
+    if not sweep and S != 1:
+        raise ValueError(f"fast_scan: one scan takes one scenario, not {S}")
+    # The float state and outputs of scenario s lie in row s of one [S, W]
+    # arena, so the sweep kernel selects a scenario by one offset s * W for
+    # all of them. The kernel zeroes or copies in the state.
     shapes = {"used": (R, N), "node_cnt": (A, N), "zone_cnt": (K * A, Z), "gpu_free": (Gd, N),
               "port_used": (d.Hp, N), "anti_node": (d.G, N), "anti_zone": (d.G, Z), "prefw_node": (d.Gp, N),
               "prefw_zone": (d.Gp, Z), "sel_total": ((K + 1) * A if v.interpod else 0,), "vg_free": (d.Vg, N),
-              "dev_free": (d.Dv, N), "node_valid": (N,), "spr_weight": (d.U, d.Cs)}
+              "dev_free": (d.Dv, N)}
     sizes = [math.prod(shape) for shape in shapes.values()]
     arena = torch.empty((S, sum(sizes)), dtype=f32, device=dev)
     starts = itertools.accumulate([0] + sizes)
     part = {name: arena[:, o:o + n].unflatten(1, shape) for (name, shape), o, n in zip(shapes.items(), starts, sizes)}
-    part["node_valid"].copy_(node_valid)
-    part["spr_weight"].copy_(spr_weight)
     chosen = torch.empty((S, P), dtype=torch.int32, device=dev)
     gpu_take = torch.zeros((S, P, Gd), dtype=f32, device=dev)  # the kernel writes bound pods' rows only
-    ptr = lambda t: t.data_ptr()
+    grid = sweep_grid(S, N, torch.cuda.get_device_properties(dev).multi_processor_count) if sweep else None
+    nv_bits = feas_bits = None
+    if grid is not None:
+        nv_bits = pack_bits(node_valid)
+        if not grid.smem:
+            feas_bits = torch.empty_like(nv_bits)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
     args = _Args(
         ptr(tmpl), ptr(valid), ptr(forced), ptr(fi.alloc_T), ptr(fi.used0_T),
-        ptr(part["node_valid"]), ptr(fi.zone_idx), ptr(fi.static_pass), ptr(fi.aff_mask),
+        ptr(None if sweep else node_valid[0]), ptr(fi.zone_idx), ptr(fi.static_pass), ptr(fi.aff_mask),
         ptr(fi.share_raw), ptr(fi.matches_AU), ptr(fi.req), ptr(fi.cpu_nz), ptr(fi.mem_nz),
         ptr(fi.pin), ptr(fi.spr_active), ptr(fi.spr_key), ptr(fi.spr_sel), ptr(fi.spr_skew),
-        ptr(fi.spr_hard), ptr(fi.spr_self), ptr(part["spr_weight"]),
+        ptr(fi.spr_hard), ptr(fi.spr_self), ptr(spr_weight),
         ptr(fi.gpu_mem), ptr(fi.gpu_cnt), ptr(fi.gpu0), ptr(fi.na_raw), ptr(fi.tt_raw), ptr(fi.avoid_raw),
         ptr(fi.port_HU), ptr(fi.port_conf_HU), ptr(fi.at_active), ptr(fi.at_key), ptr(fi.at_sel),
         ptr(fi.at_self), ptr(fi.an_active), ptr(fi.an_key), ptr(fi.an_sel), ptr(fi.pt_active),
@@ -473,17 +572,24 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, row: st
         ptr(chosen), ptr(part["used"]), ptr(part["node_cnt"]), ptr(part["zone_cnt"]), ptr(gpu_take),
         *(ptr(part[n]) for n in ("gpu_free", "port_used", "anti_node", "anti_zone", "prefw_node", "prefw_zone",
                                  "sel_total", "vg_free", "dev_free")),
+        ptr(nv_bits), ptr(feas_bits),
         arena.shape[1],
         S, P, N, R, d.U, A, K, Z, d.Cs, Gd, fi.gc_row, d.Hp, d.Ti, d.Tn, d.Tp, d.G, d.Gp, d.Vg, d.Dv, d.Mv,
         int(v.gpu), int(v.na), int(v.tt), int(v.avoid), int(v.ports), int(v.interpod), int(v.local),
+        *((1, 0, 0) if grid is None else (grid.b, grid.words, int(grid.smem > 0))),
     )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _LIBS[name].fast_scan_launch(ctypes.byref(args), stream)
+        if grid is None:
+            err = lib.fast_scan_launch(ctypes.byref(args), stream)
+        else:
+            err = lib.fast_scan_sweep_launch(ctypes.byref(args), grid.blocks, grid.threads, grid.smem, stream)
     if err != 0:
         raise RuntimeError(f"fast_scan: kernel launch failed (cudaError {err})")
     LAUNCHES += 1
     VARIANT_LAUNCHES[row] = VARIANT_LAUNCHES.get(row, 0) + 1
+    if grid is not None:
+        SWEEP_LAUNCHED[row] = {"grid": grid, "ptxas": _PTXAS[name].get("fast_scan_sweep")}
     return FastOutputs(chosen, part["used"], gpu_take, part["gpu_free"], part["port_used"], part["vg_free"],
                        part["dev_free"])
 
@@ -495,13 +601,11 @@ def fast_scan(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     slots per device, the final free memory per GPU, the final host-port
     use and the final free bytes per volume group and device.
 
-    On a CUDA device this launches the kernel (one launch for the stream,
-    the S = 1 case of :func:`fast_scan_sweep`'s grid) or raises; on the
-    CPU it runs the plain version."""
+    On a CUDA device this launches the one-scan kernel (one launch for the
+    stream) or raises; on the CPU it runs the plain version."""
     dev = fi.alloc_T.device
     if dev.type == "cuda":
-        out = _launch(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None],
-                      variant_name(fi))
+        out = _launch(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None], sweep=False)
         return FastOutputs(*(t[0] for t in out))
     if dev.type == "cpu":
         return fast_scan_reference(fi, tmpl, valid, forced)
@@ -511,16 +615,17 @@ def fast_scan(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
 def fast_scan_sweep(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight) -> FastOutputs:
     """S bind scans over one pod stream ``tmpl [P]`` that share every
     template table and differ per scenario in ``valid``/``forced`` (int32
-    ``[S, P]``), ``node_valid`` (float32 ``[S, N]``) and ``spr_weight``
-    (float32 ``[S, U, Cs]``, the spread weights of the scenario's valid
-    nodes). Returns :class:`FastOutputs` with a leading S axis; scenario s
-    gives what :func:`fast_scan` gives on its rows.
+    ``[S, P]``), ``node_valid`` (0/1 float32 ``[S, N]``) and
+    ``spr_weight`` (float32 ``[S, U, Cs]``, the spread weights of the
+    scenario's valid nodes). Returns :class:`FastOutputs` with a leading S
+    axis; scenario s gives what :func:`fast_scan` gives on its rows.
 
-    On a CUDA device this is one launch, one block per scenario, or
-    raises; on the CPU it runs the plain version scenario by scenario."""
+    On a CUDA device this is one launch of the sweep kernel, B scenarios
+    per block (:func:`sweep_grid`), or raises; on the CPU it runs the plain
+    version scenario by scenario."""
     dev = fi.alloc_T.device
     if dev.type == "cuda":
-        return _launch(fi, tmpl, valid, forced, node_valid, spr_weight, sweep_name(fi))
+        return _launch(fi, tmpl, valid, forced, node_valid, spr_weight, sweep=True)
     if dev.type == "cpu":
         return fast_scan_sweep_reference(fi, tmpl, valid, forced, node_valid, spr_weight)
     raise ValueError(f"fast_scan_sweep: no kernel for device {dev}")

@@ -4,7 +4,8 @@
 A batch of scenarios (candidate node counts, drain plans) shares one
 encoded cluster and differs only in its node-validity, pod-validity and
 forced masks. On a card the whole batch is one launch of the bind-scan
-kernel, one block per scenario (``ops/fast_scan.fast_scan_sweep``); on the
+kernel's scenario grid, B scenarios in lockstep per block
+(``ops/fast_scan.fast_scan_sweep``); on the
 CPU the plain version runs scenario by scenario. This slice has the
 single-device kernel route only: a scheduler config, segmented profiles
 and a mesh of several devices raise.

@@ -390,6 +390,8 @@ def test_launcher_checks_a_scenario_grid():
         fs._check(fi, tmpl, grid[0], grid[1], grid[2], grid[3][:1].contiguous())
     with pytest.raises(ValueError, match="forced"):
         fs._check(fi, tmpl, grid[0], forced, grid[2], grid[3])
+    with pytest.raises(ValueError, match="0 or 1"):
+        fs._check(fi, tmpl, grid[0], grid[1], grid[2] * 0.5, grid[3])
     with pytest.raises(ValueError, match="S >= 1"):
         fs._check(fi, tmpl, grid[0][:0], grid[1][:0], grid[2][:0], grid[3][:0])
     with pytest.raises(ValueError, match="no kernel"):

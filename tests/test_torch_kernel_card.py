@@ -57,6 +57,68 @@ def test_sweep_kernel_matches_plain_sweep_on_card(name, cuda_device):
         assert torch.equal(g, w), field
 
 
+def _cycling_grid(prep, S):
+    """The sweep's inputs for S scenarios, scenario s draining node s mod
+    n of the case's first n <= 3 nodes; and n."""
+    n = min(3, len(prep.meta.node_names))
+    return fastpath.sweep_inputs(prep, *defrag.drain_masks(prep, [s % n for s in range(S)])), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [3, 200, 1057])
+@pytest.mark.parametrize("name", [c[0] for c in fx.SCAN_CASES])
+def test_sweep_grid_rows_match_the_plain_sweep_of_their_drain_on_card(name, S, cuda_device):
+    """S = 3, 200 and 1,057 scenarios run one, two and SWEEP_B_MAX to a
+    block (1,057 is one more than a multiple of 2, 4 and 8, so the last
+    block holds one); every row equals the plain sweep of its own drain on
+    all seven outputs."""
+    cluster, app, node_pad = fx.scan_case(name)
+    prep = sim.prepare(cluster, [sim.AppResource("a", app)], node_pad=node_pad, device=cuda_device)
+    fi, _ = fastpath.build_inputs(prep)
+    grid, n = _cycling_grid(prep, S)
+    shape = fs.sweep_grid(S, fi.alloc_T.shape[1], torch.cuda.get_device_properties(0).multi_processor_count)
+    assert shape.b == {3: 1, 200: 2, 1057: fs.SWEEP_B_MAX}[S] and shape.smem > 0
+    got = fs.fast_scan_sweep(fi, *grid)
+    torch.cuda.synchronize()
+    assert fs.SWEEP_LAUNCHED[fs.sweep_name(fi)]["grid"] == shape
+    want = fs.fast_scan_sweep_reference(fi, grid[0], *(t[:n] for t in grid[1:]))
+    rows = torch.arange(S, device=cuda_device) % n
+    for field, g, w in zip(fs.FastOutputs._fields, got, want):
+        assert torch.equal(g, w[rows]), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [c[0] for c in fx.SCAN_CASES])
+def test_sweep_of_one_scenario_matches_one_scan_on_card(name, cuda_device):
+    cluster, app, node_pad = fx.scan_case(name)
+    prep = sim.prepare(cluster, [sim.AppResource("a", app)], node_pad=node_pad, device=cuda_device)
+    fi, _ = fastpath.build_inputs(prep)
+    tmpl, valid, forced = fastpath.pod_stream(prep)
+    got = fs.fast_scan_sweep(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None])
+    want = fs.fast_scan(fi, tmpl, valid, forced)
+    for field, g, w in zip(fs.FastOutputs._fields, got, want):
+        assert torch.equal(g[0], w), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("node_pad, S", [(1 << 19, 140), (1 << 20, 3)])
+def test_sweep_grid_past_shared_memory_on_card(node_pad, S, cuda_device):
+    """Half a million node lanes leave room for one scenario's masks per
+    block, a million for none: the masks then lie in global memory."""
+    cluster, app, _ = fx.scan_case("ties")
+    prep = sim.prepare(cluster, [sim.AppResource("a", app)], node_pad=node_pad, device=cuda_device)
+    fi, _ = fastpath.build_inputs(prep)
+    shape = fs.sweep_grid(S, fi.alloc_T.shape[1], torch.cuda.get_device_properties(0).multi_processor_count)
+    assert (shape.b, shape.smem > 0) == ((1, True) if node_pad == 1 << 19 else (1, False))
+    grid, n = _cycling_grid(prep, S)
+    got = fs.fast_scan_sweep(fi, *grid)
+    torch.cuda.synchronize()
+    want = fs.fast_scan_sweep_reference(fi, grid[0], *(t[:n] for t in grid[1:]))
+    rows = torch.arange(S, device=cuda_device) % n
+    for field, g, w in zip(fs.FastOutputs._fields, got, want):
+        assert torch.equal(g, w[rows]), field
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("plan", ["capacity", "gpu", "interpod", "local"])
 def test_simulate_on_card_launches_once(plan, cuda_device):

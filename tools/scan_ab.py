@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Time the port's bind-scan kernel on the capacity and score-table plans
-(5,000 nodes, 50,000 pods, the whole stream) for one checkout, so that two
-commits can be compared in turns on one card:
+"""Time the port's bind-scan kernels for one checkout, so that two commits
+can be compared in turns on one card: the one-scan kernel on the capacity
+and score-table plans (5,000 nodes, 50,000 pods, the whole stream) and the
+scenario grid on the 1,000-scenario drain sweep of the capacity plan:
 
     git archive PARENT | tar -x -C _chipcheck/parent    # gitignored
     for r in _chipcheck/parent . . _chipcheck/parent; do
         python3 tools/scan_ab.py --root $r; done           # on the card
 
 --root (default: this checkout) must lie inside this checkout, so the tool
-never loads code from another tree. Prints one JSON line per plan: the
-plan, the kernel variant, the root, the card's name and power limit, the
-ptxas report of the variant, and the kernel's milliseconds per launch
-(CUDA events, three launches after one warm-up). Needs a card.
+never loads code from another tree. Prints one JSON line per kernel: the
+plan, the kernel row, the root, the card's name and power limit, the
+lines of ptxas's report of the variant's library (each kernel's entry,
+registers and spills), and the kernel's milliseconds per launch (CUDA
+events over three launches after one warm-up); the grid's line adds the
+bytes of its own state one step-scenario reads. To
+compare shapes of the grid, time copies of this checkout whose
+SWEEP_B_MAX/SWEEP_THREADS (ops/fast_scan.py) and BMAX/SW_NT
+(ops/csrc/fast_scan.cu) were edited, in turns. Needs a card.
 """
 
 from __future__ import annotations
@@ -28,12 +34,41 @@ PLANS = {
     "score": ("score_cluster", "score_apps"),
 }
 REPS = 3
+N_NODES, N_PODS, N_SCENARIOS = 5000, 50000, 1000
+
+
+def _events_ms(torch, fn, reps: int) -> float:
+    fn()  # build and warm up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _step_bytes(fi, tmpl) -> dict:
+    """Bytes of one scenario's own state that one step reads, averaged over
+    the stream (4 B a node): pass 2 the rows of `used` the pod requests and
+    the hostname count row of each active spread constraint; pass 3 (with
+    the feasibility bits) `used`'s cpu and memory rows and the same count
+    rows. Zone counts are a few floats."""
+    N = fi.alloc_T.shape[1]
+    req = (fi.req > 0).cpu()
+    host_rows = ((fi.spr_active == 1) & (fi.spr_key == 0)).sum(1).cpu()
+    tm = tmpl.long().cpu()
+    p2 = (req.sum(1) + host_rows)[tm].double().mean().item() * 4 * N
+    p3 = (2 + host_rows)[tm].double().mean().item() * 4 * N
+    return {"pass2": p2, "pass3": p3}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=ROOT, help="checkout to time, inside this one")
-    root = ap.parse_args().root.resolve()
+    args = ap.parse_args()
+    root = args.root.resolve()
     if root != ROOT and ROOT not in root.parents:
         raise SystemExit(f"scan_ab: --root {root} lies outside this checkout {ROOT}")
     import torch
@@ -45,27 +80,27 @@ def main() -> int:
     from opensim_tpu_torch.engine import fastpath, simulator as sim
     from opensim_tpu_torch.models import fixtures as fx
     from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.planner import defrag
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     for plan, (make_cluster, make_apps) in PLANS.items():
-        cluster, apps = getattr(fx, make_cluster)(5000), getattr(fx, make_apps)(50000)
+        cluster, apps = getattr(fx, make_cluster)(N_NODES), getattr(fx, make_apps)(N_PODS)
         prep = sim.prepare(cluster, [sim.AppResource("plan", apps)], device="cuda")
         fi, _ = fastpath.build_inputs(prep)
         stream = fastpath.pod_stream(prep)
-        fs.fast_scan(fi, *stream)  # build and warm up
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(REPS):
-            fs.fast_scan(fi, *stream)
-        end.record()
-        torch.cuda.synchronize()
+        ms = _events_ms(torch, lambda: fs.fast_scan(fi, *stream), REPS)
         name = fs.variant_name(fi)
-        ptxas = fs.BUILD_LOG["variants"].get(name, {}).get("ptxas", "")
-        print(json.dumps({"plan": plan, "variant": name, "root": str(root), "card": card,
-                          "ptxas": " ".join(l.strip() for l in ptxas.splitlines() if "registers" in l or "spill" in l),
-                          "ms": start.elapsed_time(end) / REPS, "reps": REPS}), flush=True)
+        log = fs.BUILD_LOG["variants"].get(name, {}).get("ptxas", "")
+        ptxas = [line.strip() for line in log.splitlines() if any(k in line for k in ("entry", "registers", "spill"))]
+        print(json.dumps({"plan": plan, "variant": name, "root": str(root), "card": card, "ptxas": ptxas,
+                          "ms": ms, "reps": REPS}), flush=True)
+        if plan == "capacity":
+            tmpl, *grid = fastpath.sweep_inputs(prep, *defrag.drain_masks(prep, list(range(N_SCENARIOS))))
+            ms = _events_ms(torch, lambda: fs.fast_scan_sweep(fi, tmpl, *grid), REPS)
+            print(json.dumps({"plan": f"capacity, {N_SCENARIOS} drains", "variant": fs.sweep_name(fi),
+                              "root": str(root), "card": card, "ptxas": ptxas, "step_bytes": _step_bytes(fi, tmpl),
+                              "ms": ms, "reps": REPS}), flush=True)
     return 0
 
 
