@@ -24,12 +24,16 @@ through the kernel on six plans of 50,000 pods on 5,000 nodes:
   600 GiB volume group and two 100 GiB SSDs; bench.py:220-262),
   ``fast_scan[local]``.
 
-For each plan it holds the kernel identical to the plain version (over the
-whole stream for the affinity plan, over a prefix of the others: the plain
-version is a Python loop), runs simulate() with the launch counts set to 0
-just before and read just after, and times the kernel over the whole
-stream, its plain version and the phases of simulate() with CUDA events
-and the host clock. Then it drives plan_drains() on the capacity plan with
+For each plan it holds the one-scan kernel (a thread-block cluster that
+splits the node axis, fast_scan.SCAN_CLUSTER CTAs) identical to the plain
+version (over the whole stream for the affinity plan, over a prefix of the
+others: the plain version is a Python loop) and, over the whole stream, to
+one launch of the scenario grid at S = 1 (all nodes valid, the plan's own
+spread weights), a kernel of another design; runs simulate() with the
+launch counts set to 0 just before and read just after, prints the launch
+shape the one scan recorded (fast_scan.SCAN_LAUNCHED), and times the kernel
+over the whole stream, the grid at S = 1, the plain version and the phases
+of simulate() with CUDA events and the host clock. Then it drives plan_drains() on the capacity plan with
 1,000 drain scenarios (the first 1,000 nodes; bench.py:308-335): one
 launch of the scenario grid, which runs up to fast_scan.SWEEP_B_MAX
 scenarios to a block in lockstep, its rows held against single-scenario
@@ -187,6 +191,17 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
     print(f"{P_head} pods at N={N}: kernel and plain version identical on all seven outputs "
           f"(plain {plain_ms:.3f} ms, {int(got_head.gpu_take.sum())} GPU slots taken, "
           f"{int(got_head.port_used.sum())} host ports used)", flush=True)
+    whole = fs.fast_scan(fi, tmpl, valid, forced)
+    grid1 = [None]
+
+    def run_grid1():
+        grid1[0] = fs.fast_scan_sweep(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None])
+
+    grid1_ms = _events_ms(run_grid1, reps=1)
+    err = max(err, _same(whole, fs.FastOutputs(*(t[0] for t in grid1[0])),
+                         f"{label}: one scan vs the grid at S=1 over {P} pods"))
+    print(f"{P} pods: one scan and the grid at S=1 identical on all seven outputs over the whole stream "
+          f"(grid at S=1 {grid1_ms:.3f} ms)", flush=True)
 
     _phase(f"{label}: simulate(), {N_PODS} pods on {N_NODES} nodes")
     cluster, app = make()  # fresh objects: simulate() writes into its pods
@@ -196,6 +211,7 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
     fs.VARIANT_LAUNCHES.clear()
     res = sim.simulate(cluster, apps, device=device)
     launches, by_variant = fs.LAUNCHES, dict(fs.VARIANT_LAUNCHES)
+    launched = fs.SCAN_LAUNCHED[variant]  # the shape simulate()'s launch ran and its kernel's ptxas report
     n_placed = sum(len(ns.pods) for ns in res.node_status)
     if launches != 1 or by_variant != {variant: 1}:
         raise AssertionError(f"simulate() launched {by_variant}, want exactly one {variant}")
@@ -218,6 +234,8 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
             raise AssertionError("simulate() wrote no local-storage state")
     wall = sum(res.timings.values())
     print(f"placed {n_placed}/{P} pods, kernel launches {by_variant}")
+    shape = {k: v for k, v in launched["shape"]._asdict().items() if k != "offsets"}
+    print(f"one scan launched as {json.dumps(shape)}; ptxas {json.dumps(launched['ptxas'])}")
     print("timings: " + json.dumps({k: round(v, 6) for k, v in res.timings.items()}))
     print(f"plan wall-clock {wall:.6f} s, {P / wall:.1f} pods/s (host clock)", flush=True)
 
@@ -240,6 +258,12 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
         "plain_ms": plain_ms,
         "pods": P,
         "plain_pods": P_head,
+        "grid_s1_ms": grid1_ms,
+        "cluster": shape["cluster"],
+        "threads": shape["threads"],
+        "smem": shape["smem"],
+        "resident": shape["resident"],
+        "ptxas": launched["ptxas"],
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,

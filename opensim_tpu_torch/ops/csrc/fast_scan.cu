@@ -27,20 +27,36 @@
 // flags.
 //
 // One scan. What bounds it: not bytes and not operations. A step reads a few
-// hundred KB that stay in L2 and does some 70-250 flops per node, but pod
-// i+1 reads the state pod i wrote, so the P steps form a serial chain; each
-// step costs a fixed number of block-wide barriers and reductions. The
-// design therefore keeps the chain inside one persistent CTA (no per-pod
-// launch, no grid sync): 1024 threads, thread t owns the nodes n = t (mod
-// 1024), and a step is three block reductions plus one barrier after the
-// bind. The state (used, node_cnt, zone_cnt, gpu_free, port_used, vg_free,
-// dev_free, the inter-pod term counts) lives in global memory at offset 0 of
-// its buffers and stays in L2. The flag branches add no reduction: the
-// NodeAffinity and TaintToleration maxima and the binpack and inter-pod
-// scores' ranges ride in the second one, and the inter-pod bootstrap reads
-// per-selector totals that the bind keeps instead of summing a count row.
-// The GPU, VG and device binds are serial loops in the thread that owns the
-// chosen node.
+// hundred KB and does some 70-250 flops per node, but pod i+1 reads the
+// state pod i wrote, so the P steps form a serial chain, and a step's cost
+// is its latency: its node passes, its reductions over the node axis and
+// the serial bind. The design keeps the chain in one persistent launch (no
+// per-pod launch, no grid sync) and spreads the node axis over a
+// thread-block cluster of CL CTAs on CL SMs: CTA r owns the contiguous
+// slice of Nc = ceil(N / CL) nodes from r·Nc, one or two nodes a thread,
+// and keeps the slice's per-node state (used, node counts, GPU, port,
+// inter-pod node rows, VG and device state) and constant node tables
+// (allocatable, zone columns, validity, GPU presence, storage tables) in
+// its shared memory for the whole scan, so a node visit is a chain of
+// shared-memory loads, not of L2 round trips; each CTA keeps a copy of the
+// small state every bind touches (zone counts, inter-pod zone rows,
+// per-selector totals). A reduction over the node axis is warp shuffles, a
+// value per warp in shared memory, each CTA's partial, one cluster barrier,
+// then every warp reads the CL partials through distributed shared memory
+// (Slice, cluster_reduce, cluster_argmax). A step is two such reductions
+// (pass 2's values, selectHost) plus the barrier after the bind, and a
+// third for hard spread constraints: pass 1 runs only for them, as its
+// minimum is read by nothing else. Pass 2 leaves each owned node's
+// feasibility and score values in registers (Kept), so pass 3 neither
+// re-runs the filters nor scores an infeasible node. What bounds the step
+// now: the cluster barriers, the distributed-shared-memory reads after
+// them and the serial bind. A slice past the shared memory keeps its state
+// in global memory (Slice<0>), so every N runs. The flag branches add no
+// reduction: the NodeAffinity and TaintToleration maxima and the binpack
+// and inter-pod scores' ranges ride in pass 2's, and the inter-pod
+// bootstrap reads per-selector totals that the bind keeps instead of
+// summing a count row. The GPU, VG and device binds are serial loops in the
+// thread that owns the chosen node.
 //
 // Scenario grid. Scenarios are independent chains over the same pod stream,
 // so block b runs B of them (scenarios b·B ... b·B + B - 1; the host picks
@@ -68,7 +84,7 @@
 // lies in row s of one [S, W] arena (ops/fast_scan.py lays it out), so one
 // offset s·W selects it; chosen and gpu_take take 64-bit offsets (chosen
 // alone is S·P entries). The per-node formulas are one copy: both kernels
-// call them through the views Solo or Slots (whose state), Pod and TNode
+// call them through the views Slice or Slots (whose state), Pod and TNode
 // (template values, hoisted in the sweep only) and GCons or SCons
 // (constraints).
 //
@@ -88,6 +104,7 @@
 // reductions, and a feasible node's score is finite, so it beats any
 // infeasible one in selectHost.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,8 +112,16 @@
 #error "build one kernel variant per library: nvcc -DFS_VARIANT=<flag bits> (ops/fast_scan.py)"
 #endif
 
-#define NT 1024
+namespace cg = cooperative_groups;
+
+// The one scan's cluster, measured among C 4/8/16 at 640 or 1024 threads
+// (PERF.md §6); ops/fast_scan.SCAN_CLUSTER and SCAN_THREADS hold the same.
+#define CL 8     // CTAs per cluster: the node axis is split CL ways
+#define NT 640   // threads per CTA
 #define NWARP (NT / 32)
+#define SCAN_NPT 2  // owned nodes per thread whose pass-2 values stay in registers for pass 3
+#define SCAN_STATIC_SMEM 4096  // bytes the one scan's static shared memory may take (ops/fast_scan.SCAN_STATIC_SMEM)
+#define SCAN_UNSCHEDULABLE (-1)  // fast_scan_launch: no cluster of CL CTAs fits on the card
 #define MAX_R 8
 #define MAX_CS 8
 #define MAX_GD 8
@@ -111,7 +136,8 @@
 #define SW_NWARP (SW_NT / 32)
 #define SWEEP_STATIC_SMEM 24576  // bytes the sweep kernel's static shared memory may take (ops/fast_scan.SWEEP_STATIC_SMEM)
 
-static_assert(BMAX >= 1 && BMAX <= 32 && SW_NT % 32 == 0 && SW_NT <= 1024, "sweep shape");
+static_assert(BMAX >= 1 && BMAX <= 4 && SW_NT % 32 == 0 && SW_NT <= 1024, "sweep shape (Slots keeps four slot offsets)");
+static_assert(CL >= 2 && CL <= 16 && NT % 32 == 0 && NT <= 1024 && SCAN_NPT >= 1, "scan shape");
 
 namespace {
 
@@ -213,42 +239,142 @@ struct FastScanArgs {
     // the sweep's bit masks: bit n & 31 of word n >> 5 is node n, padding bits 0
     const uint32_t* nv_bits;   // [Nw] per scenario: node validity
     uint32_t* feas_bits;       // [Nw] per scenario: pass 2's feasibility bits for pass 3, when the masks lie in global memory
+    float* rep;                // [CL, Wrep] one scan: each CTA's copy of the small state, when its slice lies in global memory
     int64_t W;                 // floats per scenario in the arena
     int32_t S, P, N, R, U, A, K, Z, Cs, Gd, gc_row, Hp, Ti, Tn, Tp, G, Gp, Vg, Dv, Mv;
     int32_t has_gpu, has_na, has_tt, has_avoid, has_ports, has_interpod, has_local;
     int32_t B, Nw, bits_in_smem;  // the sweep: scenarios per block, words per mask, masks in shared memory
+    // the one scan (ops/fast_scan.scan_shape): nodes per CTA, whether the
+    // slices lie in shared memory, floats of the small state
+    int32_t Nc, resident, Wrep;
+    // float offsets in dynamic shared memory of the slice's rows (row r of
+    // node n at o + r * Nc + n - n0), and of the small state's copy (o_rep)
+    int32_t o_used, o_node_cnt, o_gpu_free, o_port_used, o_anti_node, o_prefw_node, o_vg_free, o_dev_free;
+    int32_t o_alloc, o_zone, o_nv, o_gpu0, o_vg_cap, o_dev_cap, o_dev_media, o_rep;
+    // float offsets of the small state within its copy
+    int32_t o_zone_cnt, o_anti_zone, o_prefw_zone, o_sel_total;
 };
 
-// The scans a thread works on at once. One scan (Solo, NB = 1) reads its
-// buffers at offset 0 and its node validity from a float row. A block of
-// the grid (Slots, NB = BMAX) works on its B scenarios' slots at once: each
-// per-node helper loops over the fields outside and the slots inside, so
-// the NB loads of one field are in flight together and each slot's ops run
-// in the order of one scan. A load is predicated on its slot's bit in
-// `want` (the slots scheduling the pod, or, in pass 3, those for which the
-// node is feasible); a slot past a ragged block's last scenario reads that
-// scenario's node validity, and its results are never used.
-struct Solo {
+// The scans a thread works on at once, and where their state lies. Every
+// per-node helper reads and writes state, and the constant node tables,
+// through its view: state(j, row, node) for slot j; the small state by
+// (j, row, zone) for the inter-pod zone rows, by (j, index) for the zone
+// counts (their flat [K·A, Z] index) and per-selector totals.
+//
+// One scan (Slice<RES>, NB = 1) runs on a cluster of CL CTAs. CTA r owns
+// nodes [n0, n1) = [r·Nc, min((r + 1)·Nc, N)): it alone reads and writes
+// their per-node rows. Each CTA keeps its own copy of the small state and
+// applies every bind to it in the same order, so the copies stay equal.
+// RES = 1: the slice's rows (state and constant node tables) lie in the
+// CTA's dynamic shared memory, row r of node n at o + r·Nc + n - n0, the
+// copy at o_rep; RES = 0 (a slice past the room): the rows stay in global
+// memory, the state at offset 0 of its buffers, the copy in row r of the
+// [CL, Wrep] scratch `rep`.
+//
+// A block of the grid (Slots, NB = BMAX) works on its B scenarios' slots at
+// once, in global memory: each per-node helper loops over the fields
+// outside and the slots inside, so the NB loads of one field are in flight
+// together and each slot's ops run in the order of one scan. A load is
+// predicated on its slot's bit in `want` (the slots scheduling the pod, or,
+// in pass 3, those for which the node is feasible); a slot past a ragged
+// block's last scenario reads that scenario's node validity, and its
+// results are never used.
+extern __shared__ float scan_smem[];
+
+template <int RES>
+struct Slice {
     static constexpr int NB = 1;
-    const float* nv;  // [N]
-    __device__ __forceinline__ size_t off(int) const { return 0; }
+    const FastScanArgs& a;
+    int n0, n1;
+    float* rep;  // this CTA's copy of the small state (RES = 0)
+    template <class T>
+    __device__ __forceinline__ T& sm(int o, int r, int n) const {
+        return reinterpret_cast<T*>(scan_smem)[o + r * a.Nc + (n - n0)];
+    }
+    template <class T>
+    __device__ __forceinline__ T& row(T* g, int o, int r, int n) const {
+        if constexpr (RES) return sm<T>(o, r, n);
+        else return g[(size_t)r * a.N + n];
+    }
+    __device__ __forceinline__ float& small(int o, int i) const {
+        if constexpr (RES) return scan_smem[a.o_rep + o + i];
+        else return rep[o + i];
+    }
+    __device__ __forceinline__ bool owns(int n) const { return n >= n0 && n < n1; }
+    __device__ __forceinline__ int owned(int n) const { return n - n0; }
     __device__ __forceinline__ size_t pod0(int) const { return 0; }
-    __device__ __forceinline__ float valid(int, int n) const { return nv[n]; }
+    __device__ __forceinline__ float valid(int, int n) const { return row(a.node_valid, a.o_nv, 0, n); }
+    __device__ __forceinline__ float alloc(int r, int n) const { return row(a.alloc, a.o_alloc, r, n); }
+    __device__ __forceinline__ int zone(int k, int n) const { return row(a.zone_idx, a.o_zone, k, n); }
+    __device__ __forceinline__ float gpu0(int d, int n) const { return row(a.gpu0, a.o_gpu0, d, n); }
+    __device__ __forceinline__ float vg_cap(int v, int n) const { return row(a.vg_cap, a.o_vg_cap, v, n); }
+    __device__ __forceinline__ float dev_cap(int d, int n) const { return row(a.dev_cap, a.o_dev_cap, d, n); }
+    __device__ __forceinline__ float dev_media(int md, int n) const { return row(a.dev_media, a.o_dev_media, md, n); }
+    __device__ __forceinline__ float& used(int, int r, int n) const { return row(a.used, a.o_used, r, n); }
+    __device__ __forceinline__ float& node_cnt(int, int q, int n) const { return row(a.node_cnt, a.o_node_cnt, q, n); }
+    __device__ __forceinline__ float& gpu_free(int, int d, int n) const { return row(a.gpu_free, a.o_gpu_free, d, n); }
+    __device__ __forceinline__ float& port_used(int, int h, int n) const { return row(a.port_used, a.o_port_used, h, n); }
+    __device__ __forceinline__ float& anti_node(int, int g, int n) const { return row(a.anti_node, a.o_anti_node, g, n); }
+    __device__ __forceinline__ float& prefw_node(int, int g, int n) const {
+        return row(a.prefw_node, a.o_prefw_node, g, n);
+    }
+    __device__ __forceinline__ float& vg_free(int, int v, int n) const { return row(a.vg_free, a.o_vg_free, v, n); }
+    __device__ __forceinline__ float& dev_free(int, int d, int n) const { return row(a.dev_free, a.o_dev_free, d, n); }
+    __device__ __forceinline__ float& zone_cnt(int, size_t i) const { return small(a.o_zone_cnt, (int)i); }
+    __device__ __forceinline__ float& anti_zone(int, int g, int z) const { return small(a.o_anti_zone, g * a.Z + z); }
+    __device__ __forceinline__ float& prefw_zone(int, int g, int z) const { return small(a.o_prefw_zone, g * a.Z + z); }
+    __device__ __forceinline__ float& sel_total(int, int k) const { return small(a.o_sel_total, k); }
 };
 
 struct Slots {
     static constexpr int NB = BMAX;
+    const FastScanArgs& a;
     int s0;                // the block's first scenario
     int last;              // its last slot holding a scenario
     int64_t W;             // arena floats per scenario
     int P, Nw;             // pods, words per mask
     const uint32_t* bits;  // [B, Nw] the block's node-validity masks, in shared or global memory
+    // slot j's arena offset scn(j)·W, computed once a block (init_offsets):
+    // the grid's loads add it instead of multiplying it out, and as four
+    // scalars (not an array) it stays out of local memory (PERF.md §6)
+    size_t o0, o1, o2, o3;
+    __device__ __forceinline__ void init_offsets() {
+        o0 = (size_t)scn(0) * W;
+        o1 = (size_t)scn(1) * W;
+        o2 = (size_t)scn(2) * W;
+        o3 = (size_t)scn(3) * W;
+    }
     __device__ __forceinline__ int scn(int j) const { return s0 + min(j, last); }
-    __device__ __forceinline__ size_t off(int j) const { return (size_t)scn(j) * W; }
+    __device__ __forceinline__ size_t off(int j) const { return j == 0 ? o0 : j == 1 ? o1 : j == 2 ? o2 : o3; }
     __device__ __forceinline__ size_t pod0(int j) const { return (size_t)scn(j) * P; }
     __device__ __forceinline__ float valid(int j, int n) const {
         return (bits[(size_t)min(j, last) * Nw + (n >> 5)] >> (n & 31)) & 1u ? 1.0f : 0.0f;
     }
+    __device__ __forceinline__ bool owns(int) const { return true; }
+    __device__ __forceinline__ int owned(int n) const { return n; }
+    __device__ __forceinline__ size_t at(int r, int n) const { return (size_t)r * a.N + n; }
+    __device__ __forceinline__ float alloc(int r, int n) const { return a.alloc[at(r, n)]; }
+    __device__ __forceinline__ int zone(int k, int n) const { return a.zone_idx[at(k, n)]; }
+    __device__ __forceinline__ float gpu0(int d, int n) const { return a.gpu0[at(d, n)]; }
+    __device__ __forceinline__ float vg_cap(int v, int n) const { return a.vg_cap[at(v, n)]; }
+    __device__ __forceinline__ float dev_cap(int d, int n) const { return a.dev_cap[at(d, n)]; }
+    __device__ __forceinline__ float dev_media(int md, int n) const { return a.dev_media[at(md, n)]; }
+    __device__ __forceinline__ float& used(int j, int r, int n) const { return a.used[off(j) + (size_t)r * a.N + n]; }
+    __device__ __forceinline__ float& node_cnt(int j, int q, int n) const { return a.node_cnt[off(j) + (size_t)q * a.N + n]; }
+    __device__ __forceinline__ float& gpu_free(int j, int d, int n) const { return a.gpu_free[off(j) + (size_t)d * a.N + n]; }
+    __device__ __forceinline__ float& port_used(int j, int h, int n) const { return a.port_used[off(j) + (size_t)h * a.N + n]; }
+    __device__ __forceinline__ float& anti_node(int j, int g, int n) const { return a.anti_node[off(j) + (size_t)g * a.N + n]; }
+    __device__ __forceinline__ float& prefw_node(int j, int g, int n) const { return a.prefw_node[off(j) + (size_t)g * a.N + n]; }
+    __device__ __forceinline__ float& vg_free(int j, int v, int n) const { return a.vg_free[off(j) + (size_t)v * a.N + n]; }
+    __device__ __forceinline__ float& dev_free(int j, int d, int n) const { return a.dev_free[off(j) + (size_t)d * a.N + n]; }
+    __device__ __forceinline__ float& zone_cnt(int j, size_t i) const { return a.zone_cnt[off(j) + i]; }
+    __device__ __forceinline__ float& anti_zone(int j, int g, int z) const {
+        return a.anti_zone[off(j) + (size_t)g * a.Z + z];
+    }
+    __device__ __forceinline__ float& prefw_zone(int j, int g, int z) const {
+        return a.prefw_zone[off(j) + (size_t)g * a.Z + z];
+    }
+    __device__ __forceinline__ float& sel_total(int j, int k) const { return a.sel_total[off(j) + k]; }
 };
 
 // The step's spread constraints: bit c of `hard` and `soft` marks an
@@ -299,7 +425,7 @@ struct SCons {
 // The step's pod template and node n's template-level values at that step.
 // A sweep block (HOIST) loads each once, per step or per node visit, and
 // shares it among its slots; one scan reads each where it is used, as
-// nothing shares it and its 1,024 threads have 64 registers each.
+// nothing shares it (its pass 3 reads what pass 2 kept instead).
 template <bool HOIST>
 struct Pod {
     const FastScanArgs& a;
@@ -320,66 +446,65 @@ struct Pod {
     __device__ __forceinline__ float mem_req() const { return HOIST ? mem_req_ : a.mem_nz[u]; }
 };
 
-template <bool HOIST>
+template <bool HOIST, class Sl>
 struct TNode {
     const FastScanArgs& a;
+    const Sl* Sp;  // the view one scan's node-table loads go through; null when hoisted (load() takes it)
     int n;
     size_t un;  // u * N + n
     float sp_, share_, alloc_[MAX_R], alloc_cpu_, alloc_mem_, na_, tt_, avoid_, gc_alloc_;
     int zone_[MAX_K];
     unsigned gpu_has_;  // bit d: node n has GPU d
-    __device__ __forceinline__ TNode(const FastScanArgs& a_, int u, int n_)
-        : a(a_), n(n_), un((size_t)u * a_.N + n_) {}
-    __device__ __forceinline__ void load_zones() {
+    __device__ __forceinline__ TNode(const FastScanArgs& a_, const Sl& S_, int u, int n_)
+        : a(a_), Sp(HOIST ? nullptr : &S_), n(n_), un((size_t)u * a_.N + n_) {}
+    __device__ __forceinline__ void load_zones(const Sl& S) {
         if constexpr (HOIST) {
 #pragma unroll
             for (int k = 0; k < MAX_K; ++k) {
                 if (k >= a.K) break;
-                zone_[k] = a.zone_idx[(size_t)k * a.N + n];
+                zone_[k] = S.zone(k, n);
             }
         }
     }
     // FIT: what the filters read; SCORES: what pass 3's scores read
     template <bool GC, bool NA, bool TT, bool AV, bool FIT, bool SCORES>
-    __device__ __forceinline__ void load(const Pod<HOIST>& p) {
+    __device__ __forceinline__ void load(const Pod<HOIST>& p, const Sl& S) {
         if constexpr (HOIST) {
             if constexpr (FIT) {
                 sp_ = a.static_pass[un];
 #pragma unroll
                 for (int r = 0; r < MAX_R; ++r)
-                    if (p.req(r) > 0.0f) alloc_[r] = a.alloc[(size_t)r * a.N + n];
+                    if (p.req(r) > 0.0f) alloc_[r] = S.alloc(r, n);
             }
             share_ = a.share_raw[un];
             if constexpr (SCORES) {
-                alloc_cpu_ = a.alloc[(size_t)RES_CPU * a.N + n];
-                alloc_mem_ = a.alloc[(size_t)RES_MEMORY * a.N + n];
+                alloc_cpu_ = S.alloc(RES_CPU, n);
+                alloc_mem_ = S.alloc(RES_MEMORY, n);
             }
-            load_zones();
+            load_zones(S);
             if constexpr (NA) na_ = a.na_raw[un];
             if constexpr (TT) tt_ = a.tt_raw[un];
             if constexpr (AV && SCORES) avoid_ = a.avoid_raw[un];
             if constexpr (GC) {
-                gc_alloc_ = a.alloc[(size_t)a.gc_row * a.N + n];
+                gc_alloc_ = S.alloc(a.gc_row, n);
                 gpu_has_ = 0u;
-                for (int d = 0; d < a.Gd; ++d) gpu_has_ |= (a.gpu0[(size_t)d * a.N + n] > 0.0f ? 1u : 0u) << d;
+                for (int d = 0; d < a.Gd; ++d) gpu_has_ |= (S.gpu0(d, n) > 0.0f ? 1u : 0u) << d;
             }
         }
     }
     __device__ __forceinline__ float sp() const { return HOIST ? sp_ : a.static_pass[un]; }
     __device__ __forceinline__ float share() const { return HOIST ? share_ : a.share_raw[un]; }
-    __device__ __forceinline__ float alloc(int r) const { return HOIST ? alloc_[r] : a.alloc[(size_t)r * a.N + n]; }
+    __device__ __forceinline__ float alloc(int r) const { return HOIST ? alloc_[r] : Sp->alloc(r, n); }
     __device__ __forceinline__ float alloc_cpu() const { return HOIST ? alloc_cpu_ : alloc(RES_CPU); }
     __device__ __forceinline__ float alloc_mem() const { return HOIST ? alloc_mem_ : alloc(RES_MEMORY); }
     __device__ __forceinline__ float gc_alloc() const { return HOIST ? gc_alloc_ : alloc(a.gc_row); }
     __device__ __forceinline__ float na() const { return HOIST ? na_ : a.na_raw[un]; }
     __device__ __forceinline__ float tt() const { return HOIST ? tt_ : a.tt_raw[un]; }
     __device__ __forceinline__ float avoid() const { return HOIST ? avoid_ : a.avoid_raw[un]; }
-    __device__ __forceinline__ bool gpu(int d) const {
-        return HOIST ? (gpu_has_ >> d & 1u) != 0u : a.gpu0[(size_t)d * a.N + n] > 0.0f;
-    }
+    __device__ __forceinline__ bool gpu(int d) const { return HOIST ? (gpu_has_ >> d & 1u) != 0u : Sp->gpu0(d, n) > 0.0f; }
     __device__ __forceinline__ int zone(int k) const {
         if constexpr (HOIST) return k == 0 ? zone_[0] : k == 1 ? zone_[1] : k == 2 ? zone_[2] : zone_[3];
-        return a.zone_idx[(size_t)k * a.N + n];
+        return Sp->zone(k, n);
     }
 };
 
@@ -393,30 +518,8 @@ __device__ __forceinline__ float warp_max(float v) {
     return v;
 }
 
-// One scan's block-wide min (is_max[j] == 0) or max (is_max[j] == 1) of
-// `nv` values per thread; every thread gets the results in `out`. Two
-// barriers.
-__device__ void block_reduce(const float* in, const int* is_max, int nv, float* out,
-                             float (*buf)[NWARP], float* res) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int j = 0; j < nv; ++j) {
-        float v = is_max[j] ? warp_max(in[j]) : warp_min(in[j]);
-        if (lane == 0) buf[j][warp] = v;
-    }
-    __syncthreads();
-    if (warp == 0) {
-        for (int j = 0; j < nv; ++j) {
-            float v = buf[j][lane];
-            v = is_max[j] ? warp_max(v) : warp_min(v);
-            if (lane == 0) res[j] = v;
-        }
-    }
-    __syncthreads();
-    for (int j = 0; j < nv; ++j) out[j] = res[j];
-}
-
 // Lowest index among the maxima: (score, index) pairs, ties to the lower
-// index. Two barriers.
+// index.
 __device__ __forceinline__ void better(float& s, int& i, float s2, int i2) {
     if (s2 > s || (s2 == s && i2 < i)) {
         s = s2;
@@ -428,22 +531,93 @@ __device__ __forceinline__ void warp_argmax(float& s, int& i) {
     for (int o = 16; o > 0; o >>= 1) better(s, i, __shfl_xor_sync(FULL_MASK, s, o), __shfl_xor_sync(FULL_MASK, i, o));
 }
 
-__device__ int block_argmax(float s, int i, float* sbuf, int* ibuf, int* res) {
+// One scan's shared scratch for its reductions: each warp's value, and
+// this CTA's partials, which its cluster peers read. The partials are
+// double-buffered by the parity of the reduction's count, so a CTA that
+// runs ahead into the next reduction never overwrites what a slow peer
+// still reads: it cannot start the one after before every peer has passed
+// the next barrier.
+struct ScanShared {
+    float wbuf[MAX_RED][NWARP];
+    float part[2][MAX_RED];
+    float sbuf[NWARP];
+    int ibuf[NWARP];
+    float ps[2];
+    int pi[2];
+};
+
+// The cluster's min (is_max(k) false) or max of NV values per thread
+// (pallas_scan.py's jnp.min/max over the node axis): warp shuffles, one
+// value per warp in shared memory, the CTA's partial (warp k reduces value
+// k, k + NWARP, ...), one cluster barrier (release/acquire, so the
+// partials are visible), then lane k of every warp reads value k of the CL
+// CTAs' partials through distributed shared memory and reduces them, and
+// the warp broadcasts. Every thread gets the results in v. Min and max are
+// exact in any order.
+template <int NV, class IsMax>
+__device__ __forceinline__ void cluster_reduce(float (&v)[NV], IsMax is_max, ScanShared& sh, int& par,
+                                               const cg::cluster_group& cluster) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+        const float x = is_max(k) ? warp_max(v[k]) : warp_min(v[k]);
+        if (lane == 0) sh.wbuf[k][warp] = x;
+    }
+    __syncthreads();
+    for (int k = warp; k < NV; k += NWARP) {
+        const bool mx = is_max(k);
+        float x = lane < NWARP ? sh.wbuf[k][lane] : (mx ? NEG : BIG);
+        x = mx ? warp_max(x) : warp_min(x);
+        if (lane == 0) sh.part[par][k] = x;
+    }
+    cluster.sync();
+    float x = 0.0f;
+    if (lane < NV) {
+        const bool mx = is_max(lane);
+        float y[CL];
+#pragma unroll
+        for (int r = 0; r < CL; ++r) y[r] = *cluster.map_shared_rank(&sh.part[par][lane], r);
+        x = y[0];
+#pragma unroll
+        for (int r = 1; r < CL; ++r) x = mx ? fmaxf(x, y[r]) : fminf(x, y[r]);
+    }
+#pragma unroll
+    for (int k = 0; k < NV; ++k) v[k] = __shfl_sync(FULL_MASK, x, k);
+    par ^= 1;
+}
+
+// The cluster's lowest index among the maxima of (s, i), the same way: one
+// pair per warp, the CTA's pair, one cluster barrier, then lane r of every
+// warp reads CTA r's pair and the warp reduces them. Returns the index in
+// every thread.
+__device__ __forceinline__ int cluster_argmax(float s, int i, int none, ScanShared& sh, int& par,
+                                              const cg::cluster_group& cluster) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     warp_argmax(s, i);
     if (lane == 0) {
-        sbuf[warp] = s;
-        ibuf[warp] = i;
+        sh.sbuf[warp] = s;
+        sh.ibuf[warp] = i;
     }
     __syncthreads();
     if (warp == 0) {
-        s = sbuf[lane];
-        i = ibuf[lane];
+        s = lane < NWARP ? sh.sbuf[lane] : NEG;
+        i = lane < NWARP ? sh.ibuf[lane] : none;
         warp_argmax(s, i);
-        if (lane == 0) *res = i;
+        if (lane == 0) {
+            sh.ps[par] = s;
+            sh.pi[par] = i;
+        }
     }
-    __syncthreads();
-    return *res;
+    cluster.sync();
+    s = NEG;
+    i = none;
+    if (lane < CL) {
+        s = *cluster.map_shared_rank(&sh.ps[par], lane);
+        i = *cluster.map_shared_rank(&sh.pi[par], lane);
+    }
+    warp_argmax(s, i);
+    par ^= 1;
+    return i;
 }
 
 // The values pass 2 reduces, in order: lo min, hi max, smn min, smx max,
@@ -489,45 +663,47 @@ template <class Sl, class TN>
 __device__ __forceinline__ float sel_cnts(const FastScanArgs& a, const Sl& S, const TN& t, int sel, int key, int n,
                                           unsigned want, float (&cnt)[Sl::NB]) {
     if (key == 0) {
-        const size_t rel = (size_t)sel * a.N + n;
 #pragma unroll
-        for (int j = 0; j < Sl::NB; ++j) cnt[j] = want >> j & 1u ? a.node_cnt[S.off(j) + rel] : 0.0f;
+        for (int j = 0; j < Sl::NB; ++j) cnt[j] = want >> j & 1u ? S.node_cnt(j, sel, n) : 0.0f;
         return 1.0f;
     }
     const int z = t.zone(key - 1);
     const size_t rel = ((size_t)(key - 1) * a.A + sel) * a.Z + z;
 #pragma unroll
-    for (int j = 0; j < Sl::NB; ++j) cnt[j] = z >= 0 && (want >> j & 1u) ? a.zone_cnt[S.off(j) + rel] : 0.0f;
+    for (int j = 0; j < Sl::NB; ++j) cnt[j] = z >= 0 && (want >> j & 1u) ? S.zone_cnt(j, rel) : 0.0f;
     return z >= 0 ? 1.0f : 0.0f;
 }
 
-// Row g of an inter-pod term table at node n, per slot in `want`: its node
-// row for a hostname row (key 0), else its zone row under its own key, 0
-// where node n lacks that label.
-template <class Sl, class TN>
-__device__ __forceinline__ void term_cnts(const FastScanArgs& a, const Sl& S, const TN& t, const float* node_rows,
-                                          const float* zone_rows, int g, int key, int n, unsigned want,
+// Row g of an inter-pod term table (the anti rows, or with PREF the
+// preferred rows) at node n, per slot in `want`: its node row for a
+// hostname row (key 0), else its zone row under its own key, 0 where node n
+// lacks that label.
+template <bool PREF, class Sl, class TN>
+__device__ __forceinline__ void term_cnts(const Sl& S, const TN& t, int g, int key, int n, unsigned want,
                                           float (&cnt)[Sl::NB]) {
     if (key == 0) {
 #pragma unroll
-        for (int j = 0; j < Sl::NB; ++j) cnt[j] = want >> j & 1u ? node_rows[S.off(j) + (size_t)g * a.N + n] : 0.0f;
+        for (int j = 0; j < Sl::NB; ++j)
+            cnt[j] = want >> j & 1u ? (PREF ? S.prefw_node(j, g, n) : S.anti_node(j, g, n)) : 0.0f;
         return;
     }
     const int z = t.zone(key - 1);
 #pragma unroll
     for (int j = 0; j < Sl::NB; ++j)
-        cnt[j] = z >= 0 && (want >> j & 1u) ? zone_rows[S.off(j) + (size_t)g * a.Z + z] : 0.0f;
+        cnt[j] = z >= 0 && (want >> j & 1u) ? (PREF ? S.prefw_zone(j, g, z) : S.anti_zone(j, g, z)) : 0.0f;
 }
 
-// Bind of row g with value v at node c: its node column, and its zone
-// column under its own key where node c carries the label (pallas_scan.py:
-// 836-854 adds a_col * key_mask * the zone one-hot).
-__device__ __forceinline__ void term_bind(const FastScanArgs& a, float* node_rows, float* zone_rows, int g,
-                                          int key, int c, float v) {
-    node_rows[(size_t)g * a.N + c] += v;
+// Bind of row g with value v at node c: its node column where the view
+// owns node c, and its zone column under its own key where node c carries
+// the label (pallas_scan.py:836-854 adds a_col * key_mask * the zone
+// one-hot). Node c's zone comes from the global table: it may lie outside
+// a cluster CTA's slice.
+template <bool PREF, class Sl>
+__device__ __forceinline__ void term_bind(const FastScanArgs& a, const Sl& S, int j, int g, int key, int c, float v) {
+    if (S.owns(c)) (PREF ? S.prefw_node(j, g, c) : S.anti_node(j, g, c)) += v;
     if (key == 0) return;
     const int z = a.zone_idx[(size_t)(key - 1) * a.N + c];
-    if (z >= 0) zone_rows[(size_t)g * a.Z + z] += v;
+    if (z >= 0) (PREF ? S.prefw_zone(j, g, z) : S.anti_zone(j, g, z)) += v;
 }
 
 // Dynamic gpu-count allocatable of node n per slot (pallas_scan.py:
@@ -543,7 +719,7 @@ __device__ __forceinline__ void gc_nodes(const FastScanArgs& a, const Sl& S, con
         const float valid_d = t.gpu(d) ? 1.0f : 0.0f;
 #pragma unroll
         for (int j = 0; j < Sl::NB; ++j) {
-            const float g = want >> j & 1u ? a.gpu_free[S.off(j) + (size_t)d * a.N + n] : 0.0f;
+            const float g = want >> j & 1u ? S.gpu_free(j, d, n) : 0.0f;
             dyn[j] = dyn[j] + valid_d * (g > 0.0f ? 1.0f : 0.0f);
         }
         has_dev = fmaxf(has_dev, valid_d);
@@ -589,7 +765,7 @@ __device__ __forceinline__ void interpod_filter(const FastScanArgs& a, const Sl&
     for (int g = 0; g < a.G; ++g) {
         const float m = a.gmatch[(size_t)g * a.U + u];
         if (m == 0.0f) continue;
-        term_cnts(a, S, t, a.anti_node, a.anti_zone, g, a.anti_g_key[g], n, want, cnt);
+        term_cnts<false>(S, t, g, a.anti_g_key[g], n, want, cnt);
 #pragma unroll
         for (int j = 0; j < NB; ++j) sym_cnt[j] = sym_cnt[j] + m * cnt[j];
     }
@@ -618,7 +794,7 @@ __device__ __forceinline__ void interpod_raw(const FastScanArgs& a, const Sl& S,
     for (int g = 0; g < a.Gp; ++g) {
         const float m = a.pmatch[(size_t)g * a.U + u];
         if (m == 0.0f) continue;
-        term_cnts(a, S, t, a.prefw_node, a.prefw_zone, g, a.prefg_key[g], n, want, cnt);
+        term_cnts<true>(S, t, g, a.prefg_key[g], n, want, cnt);
 #pragma unroll
         for (int j = 0; j < NB; ++j) ip[j] = ip[j] + m * cnt[j];
     }
@@ -629,8 +805,8 @@ __device__ __forceinline__ void interpod_raw(const FastScanArgs& a, const Sl& S,
 // the taken mask).
 template <class Sl>
 __device__ __forceinline__ bool dev_fits(const FastScanArgs& a, const Sl& S, int j, int m, int d, int n, float size) {
-    const float free_d = a.dev_free[S.off(j) + (size_t)d * a.N + n];
-    return a.dev_media[((size_t)m * a.Dv + d) * a.N + n] > 0.0f && free_d >= size && free_d > 0.0f;
+    const float free_d = S.dev_free(j, d, n);
+    return S.dev_media(m * a.Dv + d, n) > 0.0f && free_d >= size && free_d > 0.0f;
 }
 
 // Open-Local filter of template u at node n for slot j (pallas_scan.py:
@@ -643,7 +819,7 @@ __device__ __forceinline__ float local_filter(const FastScanArgs& a, const Sl& S
     const float lvm = a.lvm_req[u];
     if (lvm > 0.0f) {
         float best = NEG;
-        for (int v = 0; v < a.Vg; ++v) best = fmaxf(best, a.vg_free[S.off(j) + (size_t)v * a.N + n]);
+        for (int v = 0; v < a.Vg; ++v) best = fmaxf(best, S.vg_free(j, v, n));
         if (!(best >= lvm)) return 0.0f;
     }
     for (int m = 0; m < 2; ++m) {
@@ -671,10 +847,10 @@ __device__ __forceinline__ float local_raw_of(const FastScanArgs& a, const Sl& S
     if (lvm > 0.0f) {
         float best_free = BIG, best_cap = 0.0f;
         for (int v = 0; v < a.Vg; ++v) {
-            const float free_v = a.vg_free[S.off(j) + (size_t)v * a.N + n];
+            const float free_v = S.vg_free(j, v, n);
             if (free_v >= lvm && free_v < best_free) {
                 best_free = free_v;
-                best_cap = a.vg_cap[(size_t)v * a.N + n];
+                best_cap = S.vg_cap(v, n);
             }
         }
         parts = best_free < BIG ? lvm / fmaxf(best_cap, 1.0f) : 0.0f;
@@ -686,7 +862,7 @@ __device__ __forceinline__ float local_raw_of(const FastScanArgs& a, const Sl& S
         const float need = a.dev_need[u * 2 + m];
         float first_cap = BIG;
         for (int d = 0; d < a.Dv; ++d)
-            if (dev_fits(a, S, j, m, d, n, size)) first_cap = fminf(first_cap, a.dev_cap[(size_t)d * a.N + n]);
+            if (dev_fits(a, S, j, m, d, n, size)) first_cap = fminf(first_cap, S.dev_cap(d, n));
         parts = parts + need * size / fmaxf(first_cap, 1.0f);
         count = count + need;
     }
@@ -701,22 +877,19 @@ __device__ __forceinline__ float local_raw_of(const FastScanArgs& a, const Sl& S
 // dev_free columns.
 template <class Sl>
 __device__ __forceinline__ void local_bind(const FastScanArgs& a, const Sl& S, int j, int u, int c) {
-    const size_t N = a.N;
-    float* vg_free = a.vg_free + S.off(j);
-    float* dev_free = a.dev_free + S.off(j);
     const float lvm = a.lvm_req[u];
     if (lvm > 0.0f) {  // lvm = 0 would subtract 0 from one VG
         float best_free = BIG;
         for (int v = 0; v < a.Vg; ++v) {
-            const float free_v = vg_free[v * N + c];
+            const float free_v = S.vg_free(j, v, c);
             if (free_v >= lvm) best_free = fminf(best_free, free_v);
         }
         float taken_vg = 0.0f;
         for (int v = 0; v < a.Vg; ++v) {
-            const float free_v = vg_free[v * N + c];
+            const float free_v = S.vg_free(j, v, c);
             const float take_v = (free_v >= lvm && free_v == best_free ? 1.0f : 0.0f) * (1.0f - fminf(taken_vg, 1.0f));
             taken_vg = taken_vg + take_v;
-            vg_free[v * N + c] = free_v - fmaxf(lvm, 0.0f) * take_v;
+            S.vg_free(j, v, c) = free_v - fmaxf(lvm, 0.0f) * take_v;
         }
     }
     unsigned long long taken = 0ull;  // devices this pod took, bit d
@@ -727,11 +900,11 @@ __device__ __forceinline__ void local_bind(const FastScanArgs& a, const Sl& S, i
             float best_cap = BIG;
             for (int d = 0; d < a.Dv; ++d)
                 if (!(taken >> d & 1ull) && dev_fits(a, S, j, m, d, c, size))
-                    best_cap = fminf(best_cap, a.dev_cap[d * N + c]);
+                    best_cap = fminf(best_cap, S.dev_cap(d, c));
             for (int d = 0; d < a.Dv; ++d) {
-                if (!(taken >> d & 1ull) && dev_fits(a, S, j, m, d, c, size) && a.dev_cap[d * N + c] == best_cap) {
+                if (!(taken >> d & 1ull) && dev_fits(a, S, j, m, d, c, size) && S.dev_cap(d, c) == best_cap) {
                     taken |= 1ull << d;
-                    dev_free[d * N + c] = 0.0f;  // free_d * (1 - 1): free_d > 0, so +0
+                    S.dev_free(j, d, c) = 0.0f;  // free_d * (1 - 1): free_d > 0, so +0
                     break;
                 }
             }
@@ -761,7 +934,7 @@ __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S
         if (!(req_r > 0.0f)) continue;  // the reference multiplies by 1 for a row the pod does not request
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
-            const float used_r = want >> j & 1u ? a.used[S.off(j) + (size_t)r * a.N + n] : 0.0f;
+            const float used_r = want >> j & 1u ? S.used(j, r, n) : 0.0f;
             float alloc_r = t.alloc(r);
             if constexpr (GC)
                 if (r == a.gc_row) alloc_r = gc_has_dev > 0.0f ? gc_dyn[j] : alloc_r;
@@ -781,7 +954,7 @@ __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S
             if (mine == 0.0f) continue;
 #pragma unroll
             for (int j = 0; j < NB; ++j) {
-                const float used_h = want >> j & 1u ? a.port_used[S.off(j) + (size_t)h * a.N + n] : 0.0f;
+                const float used_h = want >> j & 1u ? S.port_used(j, h, n) : 0.0f;
                 conflicts[j] = conflicts[j] + mine * (used_h > 0.0f ? 1.0f : 0.0f);
             }
         }
@@ -800,7 +973,7 @@ __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S
             for (int d = 0; d < a.Gd; ++d) {
 #pragma unroll
                 for (int j = 0; j < NB; ++j) {
-                    const float free_d = want >> j & 1u ? a.gpu_free[S.off(j) + (size_t)d * a.N + n] : 0.0f;
+                    const float free_d = want >> j & 1u ? S.gpu_free(j, d, n) : 0.0f;
                     chunks_sum[j] = chunks_sum[j] + floorf(free_d / gmem1);
                 }
             }
@@ -890,16 +1063,27 @@ __device__ __forceinline__ float share_of(const TN& t, const PD& p, float gc_dyn
     return share_row;
 }
 
+// What pass 2 leaves in registers for pass 3 at an owned node of one scan:
+// its feasibility and, for a feasible node, every value its score reads
+// besides the state (share, soft-spread raw score and ignored flag,
+// inter-pod and binpack raw scores, score-table values).
+struct Kept {
+    bool feas;
+    float sh, soft, ignored, ip, lr, na, tt, av;
+};
+
 // Pass 2 at node n for every slot in `want`: feasibility, then the node's
 // share, soft-spread, binpack, score-table and inter-pod values into slot
 // j's partial reductions rv[j] (Red's order). Only a feasible node adds to
 // them; an infeasible one adds the 0 the reference's masks give the
-// score-table maxima. Returns the feasibility in `feasible`.
+// score-table maxima. Returns the feasibility in `feasible`, and one scan's
+// values for pass 3 in `kept` where given.
 template <bool GPU, bool GC, bool NA, bool TT, bool PORTS, bool IP, bool LOC, class Sl, class Cn, class TN, class PD>
 __device__ __forceinline__ void pass2_node(const FastScanArgs& a, const Sl& S, const Cn& cs, const TN& t,
                                            const PD& p, int n,
                                            const float* min_cnt, unsigned boot, unsigned want,
-                                           float (&feasible)[Sl::NB], float (&rv)[Sl::NB][Red<NA, TT, LOC, IP>::N]) {
+                                           float (&feasible)[Sl::NB], float (&rv)[Sl::NB][Red<NA, TT, LOC, IP>::N],
+                                           Kept* kept = nullptr) {
     constexpr int NB = Sl::NB;
     using RD = Red<NA, TT, LOC, IP>;
     float gc_dyn[NB], gc_has_dev = 0.0f, soft_raw[NB], ignored, ip[NB];
@@ -921,12 +1105,19 @@ __device__ __forceinline__ void pass2_node(const FastScanArgs& a, const Sl& S, c
                 const float lr = local_raw_of(a, S, j, p.u, n);
                 rv[j][RD::I_LOC] = fminf(rv[j][RD::I_LOC], lr);
                 rv[j][RD::I_LOC + 1] = fmaxf(rv[j][RD::I_LOC + 1], lr);
+                if (kept) kept->lr = lr;
             }
             if constexpr (NA) rv[j][RD::I_NA] = fmaxf(rv[j][RD::I_NA], t.na());
             if constexpr (TT) rv[j][RD::I_TT] = fmaxf(rv[j][RD::I_TT], t.tt());
             if constexpr (IP) {
                 rv[j][RD::I_IP] = fmaxf(rv[j][RD::I_IP], ip[j]);
                 rv[j][RD::I_IP + 1] = fminf(rv[j][RD::I_IP + 1], ip[j]);
+                if (kept) kept->ip = ip[j];
+            }
+            if (kept) {
+                kept->sh = sh;
+                kept->soft = soft_raw[j];
+                kept->ignored = ignored;
             }
         } else {
             // the inter-pod range is seeded at 0 on both ends, so its masked 0 changes nothing
@@ -934,72 +1125,86 @@ __device__ __forceinline__ void pass2_node(const FastScanArgs& a, const Sl& S, c
             if constexpr (TT) rv[j][RD::I_TT] = fmaxf(rv[j][RD::I_TT], 0.0f);
         }
         rv[j][4] = fmaxf(rv[j][4], feasible[j]);
+        if (kept) kept->feas = feasible[j] > 0.0f;
     }
 }
 
+// Pass 3's score of a feasible node for one slot (pallas_scan.py:588-711),
+// added in the reference's order: ((least + balanced) + 2 share) + 2
+// spread, then the score tables, binpack and inter-pod scores. `rv` holds
+// the slot's reduced pass-2 values (Red's order); `lr()` gives the node's
+// binpack raw score, read only where the binpack range is positive.
+template <bool NA, bool TT, bool AV, bool LOC, bool IP, class PD, class LR>
+__device__ __forceinline__ float score_of(const PD& p, float alloc_cpu, float alloc_mem, float used_cpu,
+                                          float used_mem, float sh, float soft_raw, float ignored, float ip, LR lr,
+                                          float na, float tt, float avoid, bool any_soft, const float* rv) {
+    using RD = Red<NA, TT, LOC, IP>;
+    const float lo = rv[0], rng = rv[1] - lo, smn = rv[2], smx = rv[3];
+    const float ucpu = used_cpu + p.cpu_req();
+    const float umem = used_mem + p.mem_req();
+    const float l_cpu =
+        (alloc_cpu == 0.0f || ucpu > alloc_cpu) ? 0.0f : (alloc_cpu - ucpu) * MAX_SCORE / fmaxf(alloc_cpu, 1.0f);
+    const float l_mem =
+        (alloc_mem == 0.0f || umem > alloc_mem) ? 0.0f : (alloc_mem - umem) * MAX_SCORE / fmaxf(alloc_mem, 1.0f);
+    const float least = (l_cpu + l_mem) / 2.0f;
+    const float cpu_frac = ucpu / fmaxf(alloc_cpu, 1.0f);
+    const float mem_frac = umem / fmaxf(alloc_mem, 1.0f);
+    const float balanced =
+        (cpu_frac >= 1.0f || mem_frac >= 1.0f) ? 0.0f : (1.0f - fabsf(cpu_frac - mem_frac)) * MAX_SCORE;
+    const float share_norm = rng > 0.0f ? (sh - lo) * MAX_SCORE / rng : 0.0f;
+    float spread_norm = smx <= 0.0f ? MAX_SCORE : MAX_SCORE * (smx + smn - soft_raw) / fmaxf(smx, 1.0f);
+    if (ignored > 0.0f) spread_norm = 0.0f;
+    if (!any_soft) spread_norm = 0.0f;
+    float s = least + balanced + 2.0f * share_norm + 2.0f * spread_norm;
+    if constexpr (NA) {
+        const float na_max = rv[RD::I_NA];
+        s = s + (na_max > 0.0f ? na * MAX_SCORE / fmaxf(na_max, 1.0f) : na);
+    }
+    if constexpr (TT) {
+        const float tt_max = rv[RD::I_TT];
+        s = s + (tt_max > 0.0f ? MAX_SCORE - tt * MAX_SCORE / fmaxf(tt_max, 1.0f) : MAX_SCORE);
+    }
+    if constexpr (AV) s = s + AVOID_WEIGHT * avoid;
+    if constexpr (LOC) {
+        const float l_lo = rv[RD::I_LOC], l_rng = rv[RD::I_LOC + 1] - l_lo;
+        s = s + (l_rng > 0.0f ? (lr() - l_lo) * MAX_SCORE / l_rng : 0.0f);
+    }
+    if constexpr (IP) {
+        const float ip_lo = rv[RD::I_IP + 1], ip_rng = rv[RD::I_IP] - ip_lo;
+        s = s + (ip_rng > 0.0f ? MAX_SCORE * (ip - ip_lo) / fmaxf(ip_rng, 1.0f) : 0.0f);
+    }
+    return s;
+}
+
 // Pass 3's score of node n for every slot in `want` (those for which the
-// node is feasible) (pallas_scan.py:588-711), added in the reference's
-// order: ((least + balanced) + 2 share) + 2 spread, then the score tables,
-// binpack and inter-pod scores. Slot j normalises with its reduced pass-2
-// values at red + j * MAX_RED, gc_dyn its dynamic gpu-count allocatable.
+// node is feasible), its values computed afresh from the state. Slot j
+// normalises with its reduced pass-2 values at red + j * MAX_RED, gc_dyn
+// its dynamic gpu-count allocatable.
 template <bool GC, bool NA, bool TT, bool AV, bool LOC, bool IP, class Sl, class Cn, class TN, class PD>
 __device__ __forceinline__ void node_score(const FastScanArgs& a, const Sl& S, const Cn& cs, const TN& t,
                                            const PD& p, int n,
                                            const float (&gc_dyn)[Sl::NB], float gc_has_dev, bool any_soft,
                                            const float* red, unsigned want, float (&score)[Sl::NB]) {
     constexpr int NB = Sl::NB;
-    using RD = Red<NA, TT, LOC, IP>;
     const float alloc_cpu = t.alloc_cpu();
     const float alloc_mem = t.alloc_mem();
     float used_cpu[NB], used_mem[NB], soft_raw[NB], ignored, ip[NB];
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
         const bool on = want >> j & 1u;
-        used_cpu[j] = on ? a.used[S.off(j) + (size_t)RES_CPU * a.N + n] : 0.0f;
-        used_mem[j] = on ? a.used[S.off(j) + (size_t)RES_MEMORY * a.N + n] : 0.0f;
+        used_cpu[j] = on ? S.used(j, RES_CPU, n) : 0.0f;
+        used_mem[j] = on ? S.used(j, RES_MEMORY, n) : 0.0f;
     }
     node_soft(a, S, cs, t, n, want, soft_raw, ignored);
     if constexpr (IP) interpod_raw(a, S, t, p.u, n, want, ip);
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
         if (!(want >> j & 1u)) continue;
-        const float* rv = red + j * MAX_RED;
-        const float lo = rv[0], rng = rv[1] - lo, smn = rv[2], smx = rv[3];
-        const float ucpu = used_cpu[j] + p.cpu_req();
-        const float umem = used_mem[j] + p.mem_req();
-        const float l_cpu =
-            (alloc_cpu == 0.0f || ucpu > alloc_cpu) ? 0.0f : (alloc_cpu - ucpu) * MAX_SCORE / fmaxf(alloc_cpu, 1.0f);
-        const float l_mem =
-            (alloc_mem == 0.0f || umem > alloc_mem) ? 0.0f : (alloc_mem - umem) * MAX_SCORE / fmaxf(alloc_mem, 1.0f);
-        const float least = (l_cpu + l_mem) / 2.0f;
-        const float cpu_frac = ucpu / fmaxf(alloc_cpu, 1.0f);
-        const float mem_frac = umem / fmaxf(alloc_mem, 1.0f);
-        const float balanced =
-            (cpu_frac >= 1.0f || mem_frac >= 1.0f) ? 0.0f : (1.0f - fabsf(cpu_frac - mem_frac)) * MAX_SCORE;
         const float sh = share_of<GC>(t, p, GC ? gc_dyn[j] : 0.0f, gc_has_dev);
-        const float share_norm = rng > 0.0f ? (sh - lo) * MAX_SCORE / rng : 0.0f;
-        float spread_norm = smx <= 0.0f ? MAX_SCORE : MAX_SCORE * (smx + smn - soft_raw[j]) / fmaxf(smx, 1.0f);
-        if (ignored > 0.0f) spread_norm = 0.0f;
-        if (!any_soft) spread_norm = 0.0f;
-        float s = least + balanced + 2.0f * share_norm + 2.0f * spread_norm;
-        if constexpr (NA) {
-            const float na_max = rv[RD::I_NA];
-            s = s + (na_max > 0.0f ? t.na() * MAX_SCORE / fmaxf(na_max, 1.0f) : t.na());
-        }
-        if constexpr (TT) {
-            const float tt_max = rv[RD::I_TT];
-            s = s + (tt_max > 0.0f ? MAX_SCORE - t.tt() * MAX_SCORE / fmaxf(tt_max, 1.0f) : MAX_SCORE);
-        }
-        if constexpr (AV) s = s + AVOID_WEIGHT * t.avoid();
-        if constexpr (LOC) {
-            const float l_lo = rv[RD::I_LOC], l_rng = rv[RD::I_LOC + 1] - l_lo;
-            s = s + (l_rng > 0.0f ? (local_raw_of(a, S, j, p.u, n) - l_lo) * MAX_SCORE / l_rng : 0.0f);
-        }
-        if constexpr (IP) {
-            const float ip_lo = rv[RD::I_IP + 1], ip_rng = rv[RD::I_IP] - ip_lo;
-            s = s + (ip_rng > 0.0f ? MAX_SCORE * (ip[j] - ip_lo) / fmaxf(ip_rng, 1.0f) : 0.0f);
-        }
-        score[j] = s;
+        score[j] = score_of<NA, TT, AV, LOC, IP>(
+            p, alloc_cpu, alloc_mem, used_cpu[j], used_mem[j], sh, soft_raw[j], ignored, IP ? ip[j] : 0.0f,
+            [&] { return local_raw_of(a, S, j, p.u, n); }, NA ? t.na() : 0.0f, TT ? t.tt() : 0.0f,
+            AV ? t.avoid() : 0.0f, any_soft, red + j * MAX_RED);
     }
 }
 
@@ -1009,17 +1214,16 @@ __device__ __forceinline__ void node_score(const FastScanArgs& a, const Sl& S, c
 // column and pod i's gpu_take row.
 template <class Sl>
 __device__ __forceinline__ void gpu_bind(const FastScanArgs& a, const Sl& S, int j, int i, int u, int c) {
-    float* gpu_free = a.gpu_free + S.off(j);
     const float gmem = a.gpu_mem[u];
     const float gcnt = a.gpu_cnt[u];
     float best_free = BIG;
     for (int d = 0; d < a.Gd; ++d) {
-        const float free_d = gpu_free[(size_t)d * a.N + c];
+        const float free_d = S.gpu_free(j, d, c);
         if (free_d >= gmem) best_free = fminf(best_free, free_d);
     }
     float assigned = 0.0f, cum = 0.0f;
     for (int d = 0; d < a.Gd; ++d) {
-        const float free_d = gpu_free[(size_t)d * a.N + c];
+        const float free_d = S.gpu_free(j, d, c);
         const float fits_d = free_d >= gmem ? 1.0f : 0.0f;
         const float take_tight = fits_d * (free_d == best_free ? 1.0f : 0.0f) * (1.0f - fminf(assigned, 1.0f));
         assigned = assigned + take_tight;
@@ -1028,43 +1232,44 @@ __device__ __forceinline__ void gpu_bind(const FastScanArgs& a, const Sl& S, int
         cum = cum + chunks_d;
         float take_d = gcnt == 1.0f ? take_tight : take_greedy;
         take_d = gmem > 0.0f ? take_d : 0.0f;
-        gpu_free[(size_t)d * a.N + c] = free_d - take_d * gmem;
+        S.gpu_free(j, d, c) = free_d - take_d * gmem;
         a.gpu_take[(S.pod0(j) + i) * a.Gd + d] = take_d;
     }
 }
 
 // Bind of pod i (template u) on node c for slot j: only node c's column
-// changes (and the per-selector totals). Threads tid, tid + nt, ... of the
-// block write the rows; the thread that owns node c packs its GPUs, volume
-// groups and devices.
+// changes (and the small state). Threads tid, tid + nt, ... of the block
+// write the rows: node c's where the view owns node c (a cluster CTA owns
+// its slice), the small state in every block (each cluster CTA keeps a
+// copy); the thread that owns node c packs its GPUs, volume groups and
+// devices.
 template <bool GPU, bool PORTS, bool IP, bool LOC, class Sl>
 __device__ __forceinline__ void bind_pod(const FastScanArgs& a, const Sl& S, int j, int i, int u, int c, int tid,
                                          int nt) {
-    const size_t N = a.N, off = S.off(j);
-    const int A = a.A, K = a.K, Z = a.Z;
-    if (tid < a.R) a.used[off + (size_t)tid * N + c] += a.req[u * a.R + tid];
+    const bool own = S.owns(c);
+    const int A = a.A, K = a.K;
+    if (own && tid < a.R) S.used(j, tid, c) += a.req[u * a.R + tid];
     for (int q = tid; q < A; q += nt) {
         const float m = a.matches[(size_t)q * a.U + u];
-        a.node_cnt[off + (size_t)q * N + c] += m;
-        if constexpr (IP) a.sel_total[off + q] += m;
+        if (own) S.node_cnt(j, q, c) += m;
+        if constexpr (IP) S.sel_total(j, q) += m;
         for (int k = 0; k < K; ++k) {
-            const int z = a.zone_idx[(size_t)k * N + c];
+            const int z = a.zone_idx[(size_t)k * a.N + c];
             if (z >= 0) {
-                a.zone_cnt[off + ((size_t)k * A + q) * Z + z] += m;
-                if constexpr (IP) a.sel_total[off + (size_t)(k + 1) * A + q] += m;
+                S.zone_cnt(j, ((size_t)k * A + q) * a.Z + z) += m;
+                if constexpr (IP) S.sel_total(j, (k + 1) * A + q) += m;
             }
         }
     }
     // the template's own ports, not the conflict rows
     if constexpr (PORTS)
-        for (int h = tid; h < a.Hp; h += nt) a.port_used[off + (size_t)h * N + c] += a.port_hu[(size_t)h * a.U + u];
+        if (own)
+            for (int h = tid; h < a.Hp; h += nt) S.port_used(j, h, c) += a.port_hu[(size_t)h * a.U + u];
     if constexpr (IP) {
-        for (int g = tid; g < a.G; g += nt)
-            term_bind(a, a.anti_node + off, a.anti_zone + off, g, a.anti_g_key[g], c, a.antig[(size_t)g * a.U + u]);
-        for (int g = tid; g < a.Gp; g += nt)
-            term_bind(a, a.prefw_node + off, a.prefw_zone + off, g, a.prefg_key[g], c, a.prefg[(size_t)g * a.U + u]);
+        for (int g = tid; g < a.G; g += nt) term_bind<false>(a, S, j, g, a.anti_g_key[g], c, a.antig[(size_t)g * a.U + u]);
+        for (int g = tid; g < a.Gp; g += nt) term_bind<true>(a, S, j, g, a.prefg_key[g], c, a.prefg[(size_t)g * a.U + u]);
     }
-    if (tid == c % nt) {
+    if (own && tid == S.owned(c) % nt) {
         if constexpr (GPU) gpu_bind(a, S, j, i, u, c);
         if constexpr (LOC) local_bind(a, S, j, u, c);
     }
@@ -1079,7 +1284,7 @@ __device__ __forceinline__ bool at_bootstrap_of(const FastScanArgs& a, const Sl&
     for (int k = 0; k < a.Ti; ++k) {
         const int uk = u * a.Ti + k;
         if (a.at_active[uk] != 1) continue;
-        map_total = map_total + a.sel_total[S.off(j) + (size_t)a.at_key[uk] * a.A + a.at_sel[uk]];
+        map_total = map_total + S.sel_total(j, a.at_key[uk] * a.A + a.at_sel[uk]);
         self_all = self_all * (a.at_self[uk] > 0.0f ? 1.0f : 0.0f);
     }
     return map_total == 0.0f && self_all > 0.0f;
@@ -1110,33 +1315,109 @@ __device__ __forceinline__ void init_state(const FastScanArgs& a, size_t off, in
     }
 }
 
-// One scan over the whole pod stream, in one CTA.
-template <bool GPU, bool GC, bool NA, bool TT, bool AV, bool PORTS, bool IP, bool LOC>
+// One scan's state at the start, for the nodes CTA `rank` owns: used <-
+// used0, counts <- 0, gpu_free <- gpu0, vg_free <- vg0, dev_free <- dev0,
+// its copy of the small state <- 0; with RES = 1, the slice's constant node
+// tables copied into shared memory too. Each thread fills its own nodes'
+// rows, so neighbouring threads read neighbouring nodes.
+template <bool GPU, bool GC, bool PORTS, bool IP, bool LOC, int RES>
+__device__ __forceinline__ void load_slice(const FastScanArgs& a, const Slice<RES>& S, int tid) {
+    const size_t N = a.N;
+    for (int n = S.n0 + tid; n < S.n1; n += NT) {
+        for (int r = 0; r < a.R; ++r) S.used(0, r, n) = a.used0[r * N + n];
+        for (int q = 0; q < a.A; ++q) S.node_cnt(0, q, n) = 0.0f;
+        if constexpr (GPU)
+            for (int d = 0; d < a.Gd; ++d) S.gpu_free(0, d, n) = a.gpu0[d * N + n];
+        if constexpr (PORTS)
+            for (int h = 0; h < a.Hp; ++h) S.port_used(0, h, n) = 0.0f;
+        if constexpr (IP) {
+            for (int g = 0; g < a.G; ++g) S.anti_node(0, g, n) = 0.0f;
+            for (int g = 0; g < a.Gp; ++g) S.prefw_node(0, g, n) = 0.0f;
+        }
+        if constexpr (LOC) {
+            for (int v = 0; v < a.Vg; ++v) S.vg_free(0, v, n) = a.vg0[v * N + n];
+            for (int d = 0; d < a.Dv; ++d) S.dev_free(0, d, n) = a.dev0[d * N + n];
+        }
+        if constexpr (RES) {
+            for (int r = 0; r < a.R; ++r) S.template sm<float>(a.o_alloc, r, n) = a.alloc[r * N + n];
+            for (int k = 0; k < a.K; ++k) S.template sm<int32_t>(a.o_zone, k, n) = a.zone_idx[k * N + n];
+            S.template sm<float>(a.o_nv, 0, n) = a.node_valid[n];
+            if constexpr (GC)
+                for (int d = 0; d < a.Gd; ++d) S.template sm<float>(a.o_gpu0, d, n) = a.gpu0[d * N + n];
+            if constexpr (LOC) {
+                for (int v = 0; v < a.Vg; ++v) S.template sm<float>(a.o_vg_cap, v, n) = a.vg_cap[v * N + n];
+                for (int d = 0; d < a.Dv; ++d) S.template sm<float>(a.o_dev_cap, d, n) = a.dev_cap[d * N + n];
+                for (int md = 0; md < 2 * a.Dv; ++md)
+                    S.template sm<float>(a.o_dev_media, md, n) = a.dev_media[md * N + n];
+            }
+        }
+    }
+    for (int k = tid; k < a.Wrep; k += NT) S.small(0, k) = 0.0f;
+}
+
+// One scan's state at the end, into its buffers at offset 0: with RES = 1
+// each CTA writes its slice's rows; CTA 0 writes its copy of the small
+// state (every copy is the same).
+template <bool GPU, bool PORTS, bool IP, bool LOC, int RES>
+__device__ __forceinline__ void store_slice(const FastScanArgs& a, const Slice<RES>& S, int rank, int tid) {
+    const size_t N = a.N;
+    if constexpr (RES) {
+        for (int n = S.n0 + tid; n < S.n1; n += NT) {
+            for (int r = 0; r < a.R; ++r) a.used[r * N + n] = S.used(0, r, n);
+            for (int q = 0; q < a.A; ++q) a.node_cnt[q * N + n] = S.node_cnt(0, q, n);
+            if constexpr (GPU)
+                for (int d = 0; d < a.Gd; ++d) a.gpu_free[d * N + n] = S.gpu_free(0, d, n);
+            if constexpr (PORTS)
+                for (int h = 0; h < a.Hp; ++h) a.port_used[h * N + n] = S.port_used(0, h, n);
+            if constexpr (IP) {
+                for (int g = 0; g < a.G; ++g) a.anti_node[g * N + n] = S.anti_node(0, g, n);
+                for (int g = 0; g < a.Gp; ++g) a.prefw_node[g * N + n] = S.prefw_node(0, g, n);
+            }
+            if constexpr (LOC) {
+                for (int v = 0; v < a.Vg; ++v) a.vg_free[v * N + n] = S.vg_free(0, v, n);
+                for (int d = 0; d < a.Dv; ++d) a.dev_free[d * N + n] = S.dev_free(0, d, n);
+            }
+        }
+    }
+    if (rank != 0) return;
+    const int KA = a.K * a.A, Z = a.Z;
+    for (int k = tid; k < KA * Z; k += NT) a.zone_cnt[k] = S.zone_cnt(0, k);
+    if constexpr (IP) {
+        for (int k = tid; k < a.G * Z; k += NT) a.anti_zone[k] = S.anti_zone(0, k / Z, k % Z);
+        for (int k = tid; k < a.Gp * Z; k += NT) a.prefw_zone[k] = S.prefw_zone(0, k / Z, k % Z);
+        for (int k = tid; k < KA + a.A; k += NT) a.sel_total[k] = S.sel_total(0, k);
+    }
+}
+
+// One scan over the whole pod stream, on a cluster of CL CTAs, CTA r
+// owning nodes [r·Nc, (r + 1)·Nc) (Slice<RES>). Every CTA walks the same
+// pods and takes the same branches; a step's node-axis reductions go
+// through the cluster (cluster_reduce, cluster_argmax), so every CTA knows
+// the choice, and the bind touches the owner's slice and every CTA's copy
+// of the small state.
+template <bool GPU, bool GC, bool NA, bool TT, bool AV, bool PORTS, bool IP, bool LOC, int RES>
 __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant__ FastScanArgs a) {
     static_assert(GPU || !GC, "the gpu-count allocatable follows the GPUs");
+    static_assert(sizeof(ScanShared) <= SCAN_STATIC_SMEM, "the host budgets the rest of shared memory for the slice");
     using RD = Red<NA, TT, LOC, IP>;
-    __shared__ float buf[MAX_RED][NWARP];
-    __shared__ float res[MAX_RED];
-    __shared__ float sbuf[NWARP];
-    __shared__ int ibuf[NWARP];
-    __shared__ int ires;
+    using SL = Slice<RES>;
+    using TN = TNode<false, SL>;
+    __shared__ ScanShared sh;
+    const cg::cluster_group cluster = cg::this_cluster();
+    const int tid = threadIdx.x, rank = (int)cluster.block_rank();
+    const int N = a.N;
+    const int n0 = min(rank * a.Nc, N), n1 = min(n0 + a.Nc, N);
+    const SL S{a, n0, n1, RES ? nullptr : a.rep + (size_t)rank * a.Wrep};
+    const bool lead = rank == 0 && tid == 0;  // writes chosen
+    int par = 0;                              // parity of the reductions so far
 
-    const int tid = threadIdx.x;
-    const int N = a.N, Cs = a.Cs;
-    const Solo S{a.node_valid};
-
-    init_state<GPU, PORTS, IP, LOC>(a, 0, tid, NT);
+    load_slice<GPU, GC, PORTS, IP, LOC>(a, S, tid);
     __syncthreads();
-
-    int all_min[MAX_CS];
-    for (int c = 0; c < MAX_CS; ++c) all_min[c] = 0;
-    int bmode[MAX_RED];
-    for (int k = 0; k < MAX_RED; ++k) bmode[k] = RD::is_max(k) ? 1 : 0;
 
     for (int i = 0; i < a.P; ++i) {
         const int u = a.tmpl[i];
         if (a.valid[i] != 1) {
-            if (tid == 0) a.chosen[i] = -1;
+            if (lead) a.chosen[i] = -1;
             continue;  // invalid pods touch no state
         }
         int choice;
@@ -1147,48 +1428,73 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant_
             const Pod<false> p(a, u);
             const GCons cs(a, u);
             const unsigned boot = IP && at_bootstrap_of(a, S, 0, u) ? 1u : 0u;
+            const bool any_soft = cs.soft != 0u;
 
-            // --- pass 1: per-constraint min count over eligible nodes
+            // --- pass 1: each hard constraint's min count over eligible
+            // nodes (a soft constraint's minimum is read by nothing)
             float min_cnt[MAX_CS];
-            bool any_active = false, any_soft = false;
-            for (int c = 0; c < Cs; ++c) {
-                min_cnt[c] = BIG;
-                any_active |= a.spr_active[u * Cs + c] == 1;
-                any_soft |= a.spr_active[u * Cs + c] == 1 && a.spr_hard[u * Cs + c] == 0;
-            }
-            if (any_active) {
-                for (int n = tid; n < N; n += NT) {
-                    const TNode<false> t(a, u, n);
+#pragma unroll
+            for (int c = 0; c < MAX_CS; ++c) min_cnt[c] = BIG;
+            if (cs.hard) {
+                for (int n = n0 + tid; n < n1; n += NT) {
+                    const TN t(a, S, u, n);
                     const float aff = a.aff_mask[(size_t)u * N + n];
-                    for (unsigned m = cs.hard | cs.soft; m; m &= m - 1u) {
-                        const int c = __ffs(m) - 1;
+#pragma unroll
+                    for (int c = 0; c < MAX_CS; ++c) {
+                        if (!(cs.hard >> c & 1u)) continue;
                         float mn[1] = {min_cnt[c]};
                         elig_min(a, S, cs, t, c, n, aff, 1u, mn);
                         min_cnt[c] = mn[0];
                     }
                 }
-                block_reduce(min_cnt, all_min, Cs, min_cnt, buf, res);
+                cluster_reduce(min_cnt, [](int) { return false; }, sh, par, cluster);
             }
 
-            // --- pass 2: the ranges, any-feasible and the maxima
+            // --- pass 2: the ranges, any-feasible and the maxima; the
+            // first SCAN_NPT owned nodes keep their values for pass 3
             float rv[1][RD::N];
             RD::init(rv[0]);
-            for (int n = tid; n < N; n += NT) {
-                const TNode<false> t(a, u, n);
+            Kept kept[SCAN_NPT];
+#pragma unroll
+            for (int k = 0; k < SCAN_NPT; ++k) {
+                const int n = n0 + tid + k * NT;
+                kept[k].feas = false;
+                if (n < n1) {
+                    const TN t(a, S, u, n);
+                    float feasible[1];
+                    pass2_node<GPU, GC, NA, TT, PORTS, IP, LOC>(a, S, cs, t, p, n, min_cnt, boot, 1u, feasible, rv,
+                                                                &kept[k]);
+                    if constexpr (NA) kept[k].na = t.na();
+                    if constexpr (TT) kept[k].tt = t.tt();
+                    if constexpr (AV) kept[k].av = t.avoid();
+                }
+            }
+            for (int n = n0 + tid + SCAN_NPT * NT; n < n1; n += NT) {
+                const TN t(a, S, u, n);
                 float feasible[1];
                 pass2_node<GPU, GC, NA, TT, PORTS, IP, LOC>(a, S, cs, t, p, n, min_cnt, boot, 1u, feasible, rv);
             }
-            block_reduce(rv[0], bmode, RD::N, rv[0], buf, res);
-            float red[MAX_RED];
-            for (int k = 0; k < RD::N; ++k) red[k] = rv[0][k];
+            cluster_reduce(rv[0], [](int k) { return RD::is_max(k); }, sh, par, cluster);
+            const float* red = rv[0];
             const bool any_feasible = red[4] > 0.0f;
 
-            // --- pass 3: score the feasible nodes, then the lowest index
-            // among the maxima
+            // --- pass 3: score the feasible nodes (the kept ones from
+            // their registers, the rest judged afresh), then the lowest
+            // index among the maxima
             float best_s = NEG;
             int best_i = N;
-            for (int n = tid; n < N; n += NT) {
-                const TNode<false> t(a, u, n);
+#pragma unroll
+            for (int k = 0; k < SCAN_NPT; ++k) {
+                const Kept& kk = kept[k];
+                if (!kk.feas) continue;
+                const int n = n0 + tid + k * NT;
+                const float s = score_of<NA, TT, AV, LOC, IP>(
+                    p, S.alloc(RES_CPU, n), S.alloc(RES_MEMORY, n), S.used(0, RES_CPU, n), S.used(0, RES_MEMORY, n),
+                    kk.sh, kk.soft, kk.ignored, kk.ip, [&] { return kk.lr; }, kk.na, kk.tt, kk.av, any_soft, red);
+                better(best_s, best_i, s, n);
+            }
+            for (int n = n0 + tid + SCAN_NPT * NT; n < n1; n += NT) {
+                const TN t(a, S, u, n);
                 float feasible[1], gc_dyn[1], gc_has_dev = 0.0f, score[1];
                 node_feasible<GPU, GC, PORTS, IP, LOC>(a, S, cs, t, p, n, min_cnt, boot, 1u, feasible, gc_dyn,
                                                       gc_has_dev);
@@ -1198,15 +1504,17 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant_
                     better(best_s, best_i, score[0], n);
                 }
             }
-            const int best = block_argmax(best_s, best_i, sbuf, ibuf, &ires);
+            const int best = cluster_argmax(best_s, best_i, N, sh, par, cluster);
             choice = any_feasible ? best : -1;
         }
-        if (tid == 0) a.chosen[i] = choice;
+        if (lead) a.chosen[i] = choice;
         if (choice >= 0) {
             bind_pod<GPU, PORTS, IP, LOC>(a, S, 0, i, u, choice, tid, NT);
             __syncthreads();
         }
     }
+    store_slice<GPU, PORTS, IP, LOC>(a, S, rank, tid);
+    cluster.sync();  // no CTA leaves while a peer may still read its partials
 }
 
 // Second level of a sweep reduction: warp w reduces values w, w +
@@ -1252,7 +1560,8 @@ __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_
     const int N = a.N, Cs = a.Cs, Nw = a.Nw;
     const int s0 = blockIdx.x * a.B;
     const int nb = min(a.B, a.S - s0);  // slots holding a scenario
-    const Slots S{s0, nb - 1, a.W, a.P, Nw, a.bits_in_smem ? dyn : a.nv_bits + (size_t)s0 * Nw};
+    Slots S{a, s0, nb - 1, a.W, a.P, Nw, a.bits_in_smem ? dyn : a.nv_bits + (size_t)s0 * Nw, 0, 0, 0, 0};
+    S.init_offsets();
     SCons cs{sh.cons, 0u, 0u};
     uint32_t* const feas_bits = a.bits_in_smem ? dyn + (size_t)a.B * Nw : a.feas_bits + (size_t)s0 * Nw;
 
@@ -1309,8 +1618,8 @@ __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_
 #pragma unroll
                     for (int j = 0; j < BMAX; ++j) mn[j] = BIG;
                     for (int n = tid; n < N; n += SW_NT) {
-                        TNode<true> t(a, u, n);
-                        t.load_zones();
+                        TNode<true, Slots> t(a, S, u, n);
+                        t.load_zones(S);
                         elig_min(a, S, cs, t, c, n, a.aff_mask[(size_t)u * N + n], sched, mn);
                     }
 #pragma unroll
@@ -1341,8 +1650,8 @@ __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_
 #pragma unroll
                 for (int j = 0; j < BMAX; ++j) feasible[j] = 0.0f;
                 if (in) {
-                    TNode<true> t(a, u, n);
-                    t.load<GC, NA, TT, AV, true, false>(p);
+                    TNode<true, Slots> t(a, S, u, n);
+                    t.load<GC, NA, TT, AV, true, false>(p, S);
                     pass2_node<GPU, GC, NA, TT, PORTS, IP, LOC>(a, S, cs, t, p, n, sh.mn, boot, sched, feasible, rv);
                 }
 #pragma unroll
@@ -1380,8 +1689,8 @@ __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_
             for (int base = warp * 32; base < N; base += SW_NT) {
                 const int n = base + lane;
                 if (n >= N) continue;
-                TNode<true> t(a, u, n);
-                t.load<GC, NA, TT, AV, false, true>(p);
+                TNode<true, Slots> t(a, S, u, n);
+                t.load<GC, NA, TT, AV, false, true>(p, S);
                 float gc_dyn[BMAX], gc_has_dev = 0.0f, score[BMAX];
                 unsigned feas = 0u;  // bit j: node n is feasible for slot j
 #pragma unroll
@@ -1456,13 +1765,46 @@ int check_args(const FastScanArgs& a) {
     (FS_VARIANT & 1) != 0, (FS_VARIANT & 2) != 0, (FS_VARIANT & 4) != 0, (FS_VARIANT & 8) != 0,              \
         (FS_VARIANT & 16) != 0, (FS_VARIANT & 32) != 0, (FS_VARIANT & 64) != 0, (FS_VARIANT & 128) != 0
 
-extern "C" int fast_scan_launch(const FastScanArgs* args, void* stream) {
+// One scan as a cluster of CL CTAs of NT threads, `smem` bytes of dynamic
+// shared memory (the slices, with a.resident; else 0 and the slices in
+// global memory, each CTA's copy of the small state in a.rep). Returns
+// SCAN_UNSCHEDULABLE when no such cluster fits on the card.
+template <int RES>
+int launch_scan(const FastScanArgs& a, int smem, cudaStream_t stream) {
+    auto kernel = fast_scan_kernel<FS_FLAGS, RES>;
+    cudaError_t err;
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess)
+        return (int)err;
+    if (CL > 8 && (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) != cudaSuccess)
+        return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CL, 1, 1);
+    cfg.blockDim = dim3(NT, 1, 1);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    if ((err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) != cudaSuccess) return (int)err;
+    if (clusters < 1) return SCAN_UNSCHEDULABLE;
+    if ((err = cudaLaunchKernelEx(&cfg, kernel, a)) != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
+extern "C" int fast_scan_launch(const FastScanArgs* args, int cluster, int threads, int smem, void* stream) {
     const FastScanArgs& a = *args;
     if (int err = check_args(a)) return err;
-    if (a.S != 1) return (int)cudaErrorInvalidValue;
+    if (a.S != 1 || cluster != CL || threads != NT || a.Nc != (a.N + CL - 1) / CL || a.Wrep < 0 ||
+        (a.resident ? smem <= 0 : smem != 0 || a.rep == nullptr))
+        return (int)cudaErrorInvalidValue;
     cudaGetLastError();  // clear a stale error so the check reports this launch
-    fast_scan_kernel<FS_FLAGS><<<1, NT, 0, (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    return a.resident ? launch_scan<1>(a, smem, (cudaStream_t)stream) : launch_scan<0>(a, 0, (cudaStream_t)stream);
 }
 
 // The scenario grid, shaped by ops/fast_scan.sweep_grid: `blocks` blocks of

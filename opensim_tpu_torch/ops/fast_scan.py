@@ -73,6 +73,16 @@ MAX_GD = 8  # GPUs per node (csrc MAX_GD)
 MAX_DV = 64  # exclusive devices per node: the bits of the bind's per-pod taken mask (csrc MAX_DV)
 MAX_K = 4  # zone keys (csrc MAX_K; engine/fastpath.MAX_ZONE_KEYS)
 
+#: The one scan's cluster, fixed in the kernel (csrc CL and NT): the node
+#: axis split over SCAN_CLUSTER CTAs of SCAN_THREADS threads, one thread-block
+#: cluster. Measured on the card among 4, 8 and 16 CTAs at 640 or 1024
+#: threads (PERF.md §6).
+SCAN_CLUSTER = 8
+SCAN_THREADS = 640
+#: Shared memory the one scan's static arrays may take (csrc
+#: SCAN_STATIC_SMEM); the rest holds a CTA's slice (:func:`scan_shape`).
+SCAN_STATIC_SMEM = 4096
+
 #: The scenario grid's shape, fixed in the kernel (csrc BMAX and SW_NT): at
 #: most SWEEP_B_MAX scenarios per block, run in lockstep by SWEEP_THREADS
 #: threads. Measured on the card among B_max 2/4/8 at 512 or 1024 threads
@@ -87,14 +97,20 @@ H100_SMS = 132
 #: holds the blocks' bit masks.
 SMEM_MAX = 232448
 SWEEP_STATIC_SMEM = 24576
+#: What the one-scan launcher returns when no cluster of SCAN_CLUSTER CTAs
+#: fits on the card (csrc SCAN_UNSCHEDULABLE).
+SCAN_UNSCHEDULABLE = -1
 
 #: Number of kernel launches made through :func:`fast_scan` and
 #: :func:`fast_scan_sweep` (CUDA only), in all and by row name
-#: (:func:`variant_name`, :func:`sweep_name`); per sweep row name, the grid
-#: of its last launch (:class:`SweepGrid`) and the ptxas report of the
-#: sweep kernel it ran (:func:`ptxas_report`).
+#: (:func:`variant_name`, :func:`sweep_name`); per one-scan row name, the
+#: shape of its last launch (:class:`ScanShape`) and the ptxas report of the
+#: kernel it ran, and per sweep row name the grid of its last launch
+#: (:class:`SweepGrid`) and the ptxas report of the sweep kernel it ran
+#: (:func:`ptxas_report`).
 LAUNCHES = 0
 VARIANT_LAUNCHES: Dict[str, int] = {}
+SCAN_LAUNCHED: Dict[str, dict] = {}
 SWEEP_LAUNCHED: Dict[str, dict] = {}
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "fast_scan.cu"
@@ -375,12 +391,16 @@ class _Args(ctypes.Structure):
         "lvm_req", "dev_req", "dev_need", "dev_sizes", "vg_cap", "vg0", "dev_cap", "dev0", "dev_media",
         "chosen", "used", "node_cnt", "zone_cnt", "gpu_take", "gpu_free",
         "port_used", "anti_node", "anti_zone", "prefw_node", "prefw_zone", "sel_total",
-        "vg_free", "dev_free", "nv_bits", "feas_bits",
+        "vg_free", "dev_free", "nv_bits", "feas_bits", "rep",
     )] + [("W", ctypes.c_int64)] + [(n, ctypes.c_int32) for n in (
         "S", "P", "N", "R", "U", "A", "K", "Z", "Cs", "Gd", "gc_row", "Hp", "Ti", "Tn", "Tp", "G", "Gp",
         "Vg", "Dv", "Mv",
         "has_gpu", "has_na", "has_tt", "has_avoid", "has_ports", "has_interpod", "has_local",
         "B", "Nw", "bits_in_smem",
+        "Nc", "resident", "Wrep",
+        "o_used", "o_node_cnt", "o_gpu_free", "o_port_used", "o_anti_node", "o_prefw_node", "o_vg_free", "o_dev_free",
+        "o_alloc", "o_zone", "o_nv", "o_gpu0", "o_vg_cap", "o_dev_cap", "o_dev_media", "o_rep",
+        "o_zone_cnt", "o_anti_zone", "o_prefw_zone", "o_sel_total",
     )]
 
 
@@ -395,12 +415,15 @@ BUILD_LOG: Dict[str, object] = {"seconds": None, "variants": {}}
 
 
 def ptxas_report(log: str) -> Dict[str, dict]:
-    """ptxas's -v report per kernel of one build: for ``fast_scan`` and
-    ``fast_scan_sweep``, the registers, spill store and load bytes, stack
-    frame and static shared-memory bytes."""
+    """ptxas's -v report per kernel of one build: for ``fast_scan`` (the
+    one scan with its slices in shared memory), ``fast_scan_global`` (in
+    global memory) and ``fast_scan_sweep``, the registers, spill store and
+    load bytes, stack frame and static shared-memory bytes."""
     out = {}
     for entry in log.split("Compiling entry function")[1:]:
-        kernel = "fast_scan_sweep" if "sweep_kernel" in entry.split("\n", 1)[0] else "fast_scan"
+        head = entry.split("\n", 1)[0]
+        kernel = ("fast_scan_sweep" if "sweep_kernel" in head
+                  else "fast_scan_global" if "Li0EE" in head else "fast_scan")
         num = lambda pat: sum(int(x) for x in re.findall(pat, entry))
         out[kernel] = {"registers": num(r"Used (\d+) registers"),
                        "spill_bytes": num(r"(\d+) bytes spill (?:stores|loads)"),
@@ -459,7 +482,8 @@ def build(names: Iterable[str]) -> None:
     for name, v in todo.items():
         path = _lib_path(v)
         lib = ctypes.CDLL(str(path))
-        lib.fast_scan_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+        lib.fast_scan_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p]
         lib.fast_scan_launch.restype = ctypes.c_int
         lib.fast_scan_sweep_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                                ctypes.c_void_p]
@@ -471,6 +495,57 @@ def build(names: Iterable[str]) -> None:
         _PTXAS[name] = ptxas_report(log[name]["ptxas"])
     BUILD_LOG["seconds"] = time.perf_counter() - t0
     BUILD_LOG["variants"] = log
+
+
+class ScanShape(NamedTuple):
+    """Shape of one launch of the one-scan kernel: a cluster of `cluster`
+    CTAs, CTA r owning nodes [r·nc, (r + 1)·nc)."""
+
+    cluster: int  # CTAs of the thread-block cluster
+    threads: int  # per CTA
+    nc: int  # nodes per CTA, ceil(N / cluster)
+    need: int  # bytes of a CTA's slice and its copy of the small state
+    smem: int  # dynamic shared-memory bytes: `need` where it fits beside the static arrays, else 0
+    resident: bool  # the slices lie in shared memory (else in global memory)
+    small: int  # floats of the small state each CTA keeps a copy of
+    offsets: Dict[str, int]  # the kernel's o_* fields: float offsets of each row block
+
+
+#: The per-node rows of a CTA's slice, in their order in shared memory: the
+#: state, then the constant node tables (``zone`` the zone columns, ``nv``
+#: node validity, ``gpu0`` the GPUs' presence for the dynamic gpu-count).
+def _slice_rows(d: "_Dims", v: "Variant") -> Dict[str, int]:
+    return {"used": d.R, "node_cnt": d.A, "gpu_free": d.Gd, "port_used": d.Hp, "anti_node": d.G,
+            "prefw_node": d.Gp, "vg_free": d.Vg, "dev_free": d.Dv, "alloc": d.R, "zone": d.K, "nv": 1,
+            "gpu0": d.Gd if v.gc else 0, "vg_cap": d.Vg, "dev_cap": d.Dv, "dev_media": 2 * d.Dv}
+
+
+def scan_shape(fi: FastInputs) -> ScanShape:
+    """The one scan's launch on these inputs: SCAN_CLUSTER CTAs of
+    SCAN_THREADS threads, each owning nc = ceil(N / SCAN_CLUSTER) nodes.
+    A CTA keeps its slice's per-node rows (:func:`_slice_rows`, nc floats
+    each) and a copy of the small state every bind touches (zone counts
+    [K·A, Z], the inter-pod zone rows [G + Gp, Z] and per-selector totals
+    [(K + 1)·A]) in shared memory when they fit beside the static arrays
+    (SMEM_MAX - SCAN_STATIC_SMEM bytes); else all of it stays in global
+    memory, so every N runs."""
+    d, v = _dims(fi), variant(fi)
+    nc = -(-d.N // SCAN_CLUSTER)
+    offsets, o = {}, 0
+    for name, rows in _slice_rows(d, v).items():
+        offsets[name] = o
+        o += rows * nc
+    small = {"zone_cnt": d.K * d.A * fi.n_zones, "anti_zone": d.G * fi.n_zones, "prefw_zone": d.Gp * fi.n_zones,
+             "sel_total": (d.K + 1) * d.A if v.interpod else 0}
+    offsets["rep"], r = o, 0
+    for name, n in small.items():
+        offsets[name] = r
+        r += n
+    need = 4 * (o + r)
+    resident = need <= SMEM_MAX - SCAN_STATIC_SMEM
+    if not resident:  # offsets into shared memory mean nothing then
+        offsets = {k: (x if k in small else 0) for k, x in offsets.items()}
+    return ScanShape(SCAN_CLUSTER, SCAN_THREADS, nc, need, need if resident else 0, resident, r, offsets)
 
 
 class SweepGrid(NamedTuple):
@@ -550,11 +625,14 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
     chosen = torch.empty((S, P), dtype=torch.int32, device=dev)
     gpu_take = torch.zeros((S, P, Gd), dtype=f32, device=dev)  # the kernel writes bound pods' rows only
     grid = sweep_grid(S, N, torch.cuda.get_device_properties(dev).multi_processor_count) if sweep else None
-    nv_bits = feas_bits = None
+    shape = None if sweep else scan_shape(fi)
+    nv_bits = feas_bits = rep = None
     if grid is not None:
         nv_bits = pack_bits(node_valid)
         if not grid.smem:
             feas_bits = torch.empty_like(nv_bits)
+    elif not shape.resident:
+        rep = torch.empty((shape.cluster, max(shape.small, 1)), dtype=f32, device=dev)  # each CTA's small state
     ptr = lambda t: 0 if t is None else t.data_ptr()
     args = _Args(
         ptr(tmpl), ptr(valid), ptr(forced), ptr(fi.alloc_T), ptr(fi.used0_T),
@@ -572,24 +650,34 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
         ptr(chosen), ptr(part["used"]), ptr(part["node_cnt"]), ptr(part["zone_cnt"]), ptr(gpu_take),
         *(ptr(part[n]) for n in ("gpu_free", "port_used", "anti_node", "anti_zone", "prefw_node", "prefw_zone",
                                  "sel_total", "vg_free", "dev_free")),
-        ptr(nv_bits), ptr(feas_bits),
+        ptr(nv_bits), ptr(feas_bits), ptr(rep),
         arena.shape[1],
         S, P, N, R, d.U, A, K, Z, d.Cs, Gd, fi.gc_row, d.Hp, d.Ti, d.Tn, d.Tp, d.G, d.Gp, d.Vg, d.Dv, d.Mv,
         int(v.gpu), int(v.na), int(v.tt), int(v.avoid), int(v.ports), int(v.interpod), int(v.local),
         *((1, 0, 0) if grid is None else (grid.b, grid.words, int(grid.smem > 0))),
     )
+    if shape is not None:
+        args.Nc, args.resident, args.Wrep = shape.nc, int(shape.resident), shape.small
+        for field, o in shape.offsets.items():
+            setattr(args, f"o_{field}", o)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if grid is None:
-            err = lib.fast_scan_launch(ctypes.byref(args), stream)
+            err = lib.fast_scan_launch(ctypes.byref(args), shape.cluster, shape.threads, shape.smem, stream)
         else:
             err = lib.fast_scan_sweep_launch(ctypes.byref(args), grid.blocks, grid.threads, grid.smem, stream)
+    if err == SCAN_UNSCHEDULABLE:
+        raise RuntimeError(f"fast_scan: a cluster of {shape.cluster} CTAs with {shape.smem} B of shared memory "
+                           "each cannot be scheduled on this card")
     if err != 0:
         raise RuntimeError(f"fast_scan: kernel launch failed (cudaError {err})")
     LAUNCHES += 1
     VARIANT_LAUNCHES[row] = VARIANT_LAUNCHES.get(row, 0) + 1
     if grid is not None:
         SWEEP_LAUNCHED[row] = {"grid": grid, "ptxas": _PTXAS[name].get("fast_scan_sweep")}
+    else:
+        kernel = "fast_scan" if shape.resident else "fast_scan_global"
+        SCAN_LAUNCHED[row] = {"shape": shape, "ptxas": _PTXAS[name].get(kernel)}
     return FastOutputs(chosen, part["used"], gpu_take, part["gpu_free"], part["port_used"], part["vg_free"],
                        part["dev_free"])
 
@@ -602,7 +690,8 @@ def fast_scan(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     use and the final free bytes per volume group and device.
 
     On a CUDA device this launches the one-scan kernel (one launch for the
-    stream) or raises; on the CPU it runs the plain version."""
+    stream, a thread-block cluster shaped by :func:`scan_shape`) or raises;
+    on the CPU it runs the plain version."""
     dev = fi.alloc_T.device
     if dev.type == "cuda":
         out = _launch(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None], sweep=False)

@@ -166,3 +166,69 @@ def test_kernel_matches_plain_version_at_a_thousand_templates(cuda_device):
     want = fs.fast_scan_reference(fi, *stream)
     assert torch.equal(got.chosen, want.chosen) and torch.equal(got.used, want.used)
     assert (got.chosen >= 0).all()
+
+
+def _case_on_card(name, node_pad, device):
+    cluster, app, _ = fx.scan_case(name)
+    prep = sim.prepare(cluster, [sim.AppResource("a", app)], node_pad=node_pad, device=device)
+    fi, _ = fastpath.build_inputs(prep)
+    return fi, fastpath.pod_stream(prep)
+
+
+def _one_scan_matches_plain(fi, stream):
+    got = fs.fast_scan(fi, *stream)
+    torch.cuda.synchronize()
+    want = fs.fast_scan_reference(fi, *stream)
+    for field, g, w in zip(fs.FastOutputs._fields, got, want):
+        assert torch.equal(g, w), field
+    assert fs.SCAN_LAUNCHED[fs.variant_name(fi)]["shape"] == fs.scan_shape(fi)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [c[0] for c in fx.SCAN_CASES])
+def test_one_scan_over_unpadded_nodes_matches_plain_version_on_card(name, cuda_device):
+    """Every small case on its own nodes, no padding: a few nodes to each
+    CTA of the cluster (N < SCAN_CLUSTER leaves some CTAs none, 20 nodes do
+    not divide among them), so equal scores tie across CTAs, hard spread's
+    minimum and every range are reduced across them, and the lowest index
+    must win across them."""
+    fi, stream = _case_on_card(name, 1, cuda_device)
+    shape = fs.scan_shape(fi)
+    assert shape.resident and shape.nc == -(-fi.alloc_T.shape[1] // fs.SCAN_CLUSTER)
+    _one_scan_matches_plain(fi, stream)
+
+
+@pytest.mark.cuda
+def test_one_scan_ties_resolve_to_the_lowest_index_across_the_cluster_on_card(cuda_device):
+    """16 equal nodes, two to a CTA: every pod's best score is tied among
+    nodes of several CTAs, and the first placements walk the nodes in
+    order, CTA by CTA."""
+    fi, stream = _case_on_card("ties", 1, cuda_device)
+    assert fs.scan_shape(fi).nc == 2
+    got = _one_scan_matches_plain(fi, stream)
+    assert got.chosen[:16].tolist() == list(range(16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ties", "spread", "scores", "ports"])
+def test_one_scan_with_several_nodes_a_thread_matches_plain_version_on_card(name, cuda_device):
+    """Three nodes a thread, the slices still in shared memory: the first
+    nodes' pass-2 values stay in registers, the third is judged afresh in
+    pass 3."""
+    pad = fs.SCAN_CLUSTER * fs.SCAN_THREADS * 3
+    fi, stream = _case_on_card(name, pad, cuda_device)
+    shape = fs.scan_shape(fi)
+    assert shape.resident and shape.nc == 3 * fs.SCAN_THREADS
+    _one_scan_matches_plain(fi, stream)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ties", "spread", "gpu_dyn", "interpod", "ports", "local"])
+def test_one_scan_with_state_in_global_memory_matches_plain_version_on_card(name, cuda_device):
+    """Half a million node lanes: a slice does not fit in shared memory, so
+    the state stays in global memory and each CTA keeps its copy of the
+    small state in the scratch buffer."""
+    fi, stream = _case_on_card(name, 1 << 19, cuda_device)
+    assert not fs.scan_shape(fi).resident
+    _one_scan_matches_plain(fi, stream)

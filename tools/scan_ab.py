@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the port's bind-scan kernels for one checkout, so that two commits
-can be compared in turns on one card: the one-scan kernel on the capacity
-and score-table plans (5,000 nodes, 50,000 pods, the whole stream) and the
-scenario grid on the 1,000-scenario drain sweep of the capacity plan:
+can be compared in turns on one card: the one-scan kernel on the six plans
+of chip_smoke.py (capacity, all-GPU-share, affinity-heavy, score-table,
+host-port, all-local-PV; 5,000 nodes, 50,000 pods, the whole stream) and
+the scenario grid on the 1,000-scenario drain sweep of the capacity plan:
 
     git archive PARENT | tar -x -C _chipcheck/parent    # gitignored
     for r in _chipcheck/parent . . _chipcheck/parent; do
@@ -12,11 +13,14 @@ scenario grid on the 1,000-scenario drain sweep of the capacity plan:
 never loads code from another tree. Prints one JSON line per kernel: the
 plan, the kernel row, the root, the card's name and power limit, the
 lines of ptxas's report of the variant's library (each kernel's entry,
-registers and spills), and the kernel's milliseconds per launch (CUDA
-events over three launches after one warm-up); the grid's line adds the
-bytes of its own state one step-scenario reads. To
-compare shapes of the grid, time copies of this checkout whose
-SWEEP_B_MAX/SWEEP_THREADS (ops/fast_scan.py) and BMAX/SW_NT
+registers and spills), the one scan's launch shape where the checkout
+records it (cluster, threads, shared memory, residency), the number of
+steps whose template differs from the step before's, and the kernel's
+milliseconds per launch (CUDA events over three launches after one
+warm-up); the grid's line adds the bytes of its own state one
+step-scenario reads. To compare shapes of the one scan's cluster or of
+the grid, time copies of this checkout whose SCAN_CLUSTER/SCAN_THREADS or
+SWEEP_B_MAX/SWEEP_THREADS (ops/fast_scan.py) and CL/NT or BMAX/SW_NT
 (ops/csrc/fast_scan.cu) were edited, in turns. Needs a card.
 """
 
@@ -29,9 +33,13 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PLANS = {
-    "capacity": ("synthetic_cluster", "synthetic_apps"),
-    "score": ("score_cluster", "score_apps"),
+PLANS = {  # fixtures' cluster and apps makers, and the apps maker's options
+    "capacity": ("synthetic_cluster", "synthetic_apps", {}),
+    "gpu": ("gpu_cluster", "gpu_apps", {}),
+    "affinity": ("synthetic_cluster", "affinity_apps", {}),
+    "score": ("score_cluster", "score_apps", {}),
+    "ports": ("score_cluster", "score_apps", {"host_port": True}),
+    "local": ("local_pv_cluster", "local_pv_apps", {}),
 }
 REPS = 3
 N_NODES, N_PODS, N_SCENARIOS = 5000, 50000, 1000
@@ -84,8 +92,8 @@ def main() -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    for plan, (make_cluster, make_apps) in PLANS.items():
-        cluster, apps = getattr(fx, make_cluster)(N_NODES), getattr(fx, make_apps)(N_PODS)
+    for plan, (make_cluster, make_apps, opts) in PLANS.items():
+        cluster, apps = getattr(fx, make_cluster)(N_NODES), getattr(fx, make_apps)(N_PODS, **opts)
         prep = sim.prepare(cluster, [sim.AppResource("plan", apps)], device="cuda")
         fi, _ = fastpath.build_inputs(prep)
         stream = fastpath.pod_stream(prep)
@@ -93,8 +101,12 @@ def main() -> int:
         name = fs.variant_name(fi)
         log = fs.BUILD_LOG["variants"].get(name, {}).get("ptxas", "")
         ptxas = [line.strip() for line in log.splitlines() if any(k in line for k in ("entry", "registers", "spill"))]
+        launched = getattr(fs, "SCAN_LAUNCHED", {}).get(name)  # none before the cluster kernel
+        shape = launched and {k: v for k, v in launched["shape"]._asdict().items() if k != "offsets"}
+        tmpl = stream[0]
+        switches = int((tmpl[1:] != tmpl[:-1]).sum())  # steps whose template differs from the step before's
         print(json.dumps({"plan": plan, "variant": name, "root": str(root), "card": card, "ptxas": ptxas,
-                          "ms": ms, "reps": REPS}), flush=True)
+                          "shape": shape, "template_switches": switches, "ms": ms, "reps": REPS}), flush=True)
         if plan == "capacity":
             tmpl, *grid = fastpath.sweep_inputs(prep, *defrag.drain_masks(prep, list(range(N_SCENARIOS))))
             ms = _events_ms(torch, lambda: fs.fast_scan_sweep(fi, tmpl, *grid), REPS)
