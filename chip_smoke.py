@@ -39,7 +39,16 @@ launch of the scenario grid, which runs up to fast_scan.SWEEP_B_MAX
 scenarios to a block in lockstep, its rows held against single-scenario
 launches over the whole stream; then a grid of 1,001 scenarios, whose
 last block holds one, its last two rows against their own launches and,
-with its first two, against the plain sweep over prefixes.
+with its first two, against the plain sweep over prefixes. Last, the
+over-subscribed capacity plan (the capacity fleet with 10 pods bound to a
+missing node, then 2,000 pods of 48 cores on the hdd nodes and 4,000 of 40
+cores anywhere, then the capacity plan's 50,000 pods; 1,010 pods find no
+node, all before the last 50,000 bind): the one scan against the plain
+version on all nine outputs over the first 6,010 pods (every failure,
+failure counts included), against the grid at S = 1 on the seven state
+outputs over the whole stream, simulate() through exactly one launch
+reporting the reason strings of the plain version's counts, and the
+counting pass timed by the card's global timer inside the kernel.
 Every phase raises on failure. The last lines are the card's name and
 power limit, one JSON line with a row per kernel variant timed at full
 width and one for the sweep, and ``{"ok": true, "device": {...}}``.
@@ -72,6 +81,9 @@ N_PODS = 50000
 N_SCENARIOS = 1000
 PLAIN_SCENARIOS, PLAIN_PODS = 2, 2000
 LATE_PODS = 5000
+#: The over-subscribed plan's pods before the capacity plan's 50,000: 10
+#: strays, 2,000 and 4,000 hog pods; the plain version checks them all.
+OVER_HEAD = 6010
 
 
 def _phase(name: str) -> None:
@@ -96,17 +108,18 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _same(got, want, what: str) -> float:
-    """Identical outputs (placements, usage, GPU takes, GPU, host-port,
-    volume-group and device state), or raise; returns the largest absolute
-    difference of the float outputs."""
+def _same(got, want, what: str, fields=None) -> float:
+    """Identical outputs, all nine unless `fields` names fewer (placements,
+    usage, GPU takes, GPU, host-port, volume-group and device state, the
+    failure counts and shortages), or raise; returns the largest absolute
+    difference of the other outputs."""
     if not torch.equal(got.chosen, want.chosen):
         diff = got.chosen != want.chosen
         raise AssertionError(
             f"{what}: {int(diff.sum())} placements differ (first at {torch.nonzero(diff)[0].tolist()})"
         )
     err = 0.0
-    for field in ("used", "gpu_take", "gpu_free", "port_used", "vg_free", "dev_free"):
+    for field in (fields or got._fields)[1:]:
         g, w = getattr(got, field), getattr(want, field)
         if g.shape != w.shape:
             raise AssertionError(f"{what}: {field} has shape {tuple(g.shape)}, want {tuple(w.shape)}")
@@ -149,8 +162,9 @@ def small_cases(device) -> None:
         got_s = fs.fast_scan_sweep(fi, *grid)
         want_s = fs.fast_scan_sweep_reference(fi, *grid)
         _same(got_s, want_s, f"case {name}, sweep of {grid[1].shape[0]} drains")
+        counted = int(got.fail_counts.any(1).sum())
         print(f"case {name} ({fs.variant_name(fi)}): N={fi.alloc_T.shape[1]} P={len(prep.tmpl_ids)} "
-              f"placed={int((got.chosen >= 0).sum())} gpu slots={int(got.gpu_take.sum())} "
+              f"placed={int((got.chosen >= 0).sum())} counted failures={counted} gpu slots={int(got.gpu_take.sum())} "
               f"ports used={int(got.port_used.sum())} devices taken={int((got.dev_free < fi.dev0).sum())} "
               f"identical; sweep of {grid[1].shape[0]} drains identical "
               f"(placed {(got_s.chosen >= 0).sum(1).tolist()})", flush=True)
@@ -188,7 +202,7 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
 
     plain_ms = _events_ms(run_plain, reps=1)
     err = _same(got_head, plain[0], f"{label}, {P_head} pods")
-    print(f"{P_head} pods at N={N}: kernel and plain version identical on all seven outputs "
+    print(f"{P_head} pods at N={N}: kernel and plain version identical on all nine outputs "
           f"(plain {plain_ms:.3f} ms, {int(got_head.gpu_take.sum())} GPU slots taken, "
           f"{int(got_head.port_used.sum())} host ports used)", flush=True)
     whole = fs.fast_scan(fi, tmpl, valid, forced)
@@ -199,7 +213,7 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
 
     grid1_ms = _events_ms(run_grid1, reps=1)
     err = max(err, _same(whole, fs.FastOutputs(*(t[0] for t in grid1[0])),
-                         f"{label}: one scan vs the grid at S=1 over {P} pods"))
+                         f"{label}: one scan vs the grid at S=1 over {P} pods", fs.STATE_FIELDS))
     print(f"{P} pods: one scan and the grid at S=1 identical on all seven outputs over the whole stream "
           f"(grid at S=1 {grid1_ms:.3f} ms)", flush=True)
 
@@ -249,6 +263,7 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
           f"({work['bytes']} B, {work['ops']} flop)", flush=True)
     return {
         "name": variant,
+        "plan": label.split(" ", 1)[1],
         "route": "cuda",
         "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu",
         "replaces": "opensim_tpu/ops/pallas_scan.py:1009",
@@ -332,7 +347,8 @@ def drain_sweep(device) -> dict:
         err = 0.0
         for s in rows:
             one = fs.fast_scan(fi._replace(node_valid=grid[2][s], spr_weight=grid[3][s]), tmpl, grid[0][s], grid[1][s])
-            err = max(err, _same(fs.FastOutputs(*(t[s] for t in sweep)), one, f"{what} scenario {s} vs its own launch"))
+            err = max(err, _same(fs.FastOutputs(*(t[s] for t in sweep)), one, f"{what} scenario {s} vs its own launch",
+                                 fs.STATE_FIELDS))
         return err
 
     checked = [0, N_SCENARIOS // 2, N_SCENARIOS - 1]
@@ -401,6 +417,139 @@ def drain_sweep(device) -> dict:
     }
 
 
+def oversubscribed_plan(device) -> list:
+    """The over-subscribed capacity plan through the one scan's counting
+    pass: kernel vs plain over the first OVER_HEAD pods (every failure) on
+    all nine outputs, vs the grid at S = 1 on the seven state outputs over
+    the whole stream; simulate() through exactly one launch, its reasons
+    those of the plain version's counts; the kernel timed over the whole
+    stream and its counting passes by their own clock. Returns the plan's
+    row and the counting pass's row of the kernels table."""
+    from opensim_tpu_torch.engine import fastpath, reasons, simulator as sim
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    variant = "fast_scan"
+
+    def make():
+        return fx.oversubscribed_cluster(N_NODES), [
+            sim.AppResource(name, app) for name, app in fx.oversubscribed_apps(N_NODES, N_PODS)]
+
+    _phase(f"25 over-subscribed plan: {N_NODES} nodes, {N_PODS + OVER_HEAD} pods, kernel vs plain over its first "
+           f"{OVER_HEAD} pods (every failure), vs the grid at S=1 over the whole stream")
+    prep = sim.prepare(*make(), device=device)
+    if fastpath.why_not(prep) is not None:
+        raise AssertionError(f"the plan falls outside the envelope: {fastpath.why_not(prep)}")
+    fi, built = fastpath.build_inputs(prep)
+    if fs.variant_name(fi) != variant:
+        raise AssertionError(f"the plan runs {fs.variant_name(fi)}, not {variant}")
+    tmpl, valid, forced = fastpath.pod_stream(prep)
+    P, N = tmpl.shape[0], fi.alloc_T.shape[1]
+    head = tuple(t[:OVER_HEAD].contiguous() for t in (tmpl, valid, forced))
+    got_head = fs.fast_scan(fi, *head)
+    torch.cuda.synchronize()
+    plain = [None]
+
+    def run_plain():
+        plain[0] = fs.fast_scan_reference(fi, *head)
+
+    plain_ms = _events_ms(run_plain, reps=1)
+    err = _same(got_head, plain[0], f"over-subscribed plan, {OVER_HEAD} pods")
+    count_err = max(float((got_head.fail_counts - plain[0].fail_counts).abs().max()),
+                    float((got_head.insufficient - plain[0].insufficient).abs().max()))
+    failing = (got_head.chosen < 0) & (head[2] == 0)
+    n_failing, n_forced = int(failing.sum()), int(((got_head.chosen < 0) & (head[2] != 0)).sum())
+    if n_failing == 0 or not bool(got_head.fail_counts[failing].any(1).all()):
+        raise AssertionError(f"{n_failing} failing pods, not every one counted")
+    print(f"{OVER_HEAD} pods at N={N}: kernel and plain version identical on all nine outputs (plain "
+          f"{plain_ms:.3f} ms); {n_failing} pods found no node and were counted, {n_forced} forced pods "
+          f"found none", flush=True)
+    whole = fs.fast_scan(fi, tmpl, valid, forced)
+    grid1 = fs.fast_scan_sweep(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None])
+    err = max(err, _same(whole, fs.FastOutputs(*(t[0] for t in grid1)),
+                         f"over-subscribed plan: one scan vs the grid at S=1 over {P} pods", fs.STATE_FIELDS))
+    if not torch.equal(whole.fail_counts[:OVER_HEAD], got_head.fail_counts) or whole.fail_counts[OVER_HEAD:].any():
+        raise AssertionError("the whole stream's counts differ from the checked prefix's")
+    print(f"{P} pods: one scan and the grid at S=1 identical on the seven state outputs; the whole stream's "
+          f"counts are the prefix's", flush=True)
+
+    _phase(f"26 over-subscribed plan: simulate(), {P} pods on {N_NODES} nodes")
+    fresh = make()  # new objects: simulate() writes into its pods
+    torch.cuda.synchronize()
+    fs.LAUNCHES = 0
+    fs.VARIANT_LAUNCHES.clear()
+    fs.SCAN_LAUNCHED.clear()
+    res = sim.simulate(*fresh, device=device)
+    launches, by_variant = fs.LAUNCHES, dict(fs.VARIANT_LAUNCHES)
+    passes = int(fs.SCAN_LAUNCHED[variant]["count_clock"][1])  # counting passes in simulate()'s launch
+    if launches != 1 or by_variant != {variant: 1}:
+        raise AssertionError(f"simulate() launched {by_variant}, want exactly one {variant}")
+    if passes != n_failing:
+        raise AssertionError(f"simulate()'s launch ran {passes} counting passes, want {n_failing}")
+    want = []
+    for i in torch.nonzero(plain[0].chosen < 0).flatten().tolist():
+        if prep.forced[i]:
+            want.append(reasons.node_not_found(prep.ordered[i].spec.node_name))
+        else:
+            want.append(sim._reason_string(built["static_fail"][prep.tmpl_ids[i]], plain[0].fail_counts[i].cpu().numpy(),
+                                           plain[0].insufficient[i].cpu().numpy(), prep.meta, prep.meta.n_real_nodes))
+    got = [u.reason for u in res.unscheduled_pods]
+    if got != want:
+        raise AssertionError(f"simulate() reported {len(got)} unscheduled pods, want the plain version's {len(want)}")
+    n_placed = sum(len(ns.pods) for ns in res.node_status)
+    if n_placed != P - len(want) or n_placed != int((res.placements >= 0).sum()) or (res.placements[OVER_HEAD:] < 0).any():
+        raise AssertionError(f"placed {n_placed} of {P} pods, {len(want)} unscheduled")
+    hist = {}
+    for r in got:
+        hist[r] = hist.get(r, 0) + 1
+    print(f"placed {n_placed}/{P} pods, {len(got)} unscheduled with the plain version's reasons, kernel launches "
+          f"{by_variant}, {passes} counting passes")
+    for r, n in sorted(hist.items(), key=lambda x: -x[1]):
+        print(f"  {n:6d} x {r}")
+    wall = sum(res.timings.values())
+    print("timings: " + json.dumps({k: round(v, 6) for k, v in res.timings.items()}))
+    print(f"plan wall-clock {wall:.6f} s, {P / wall:.1f} pods/s (host clock)", flush=True)
+
+    _phase("27 over-subscribed plan: the kernel over the whole stream (CUDA events), its counting passes "
+           "(the card's global timer)")
+    clocks = []
+
+    def run_kernel():
+        fs.fast_scan(fi, tmpl, valid, forced)
+        clocks.append(fs.SCAN_LAUNCHED[variant]["count_clock"])
+
+    ms = _events_ms(run_kernel, reps=3)
+    count_ms = sum(int(c[0]) for c in clocks) / len(clocks) / 1e6
+    work = fs.fast_scan_work(fi, tmpl, valid, forced, torch.from_numpy(res.placements))
+    bound = lambda w: (w["bytes"] / PEAK_BYTES_S * 1e3, w["ops"] / PEAK_F32_S * 1e3)
+    t_bytes, t_ops = bound(work)
+    c_bytes, c_ops = bound(work["count"])
+    launched = fs.SCAN_LAUNCHED[variant]
+    shape = {k: v for k, v in launched["shape"]._asdict().items() if k != "offsets"}
+    print(f"kernel {ms:.3f} ms ({ms * 1e3 / P:.3f} us/pod), bound {max(t_bytes, t_ops):.6f} ms; counting passes "
+          f"{count_ms:.3f} ms ({count_ms * 1e3 / n_failing:.3f} us each over {n_failing}), bound "
+          f"{max(c_bytes, c_ops):.6f} ms ({work['count']['bytes']} B, {work['count']['ops']} op); "
+          f"plain {plain_ms:.3f} ms over {OVER_HEAD} pods", flush=True)
+    plan_row = {
+        "name": variant, "plan": "over-subscribed plan", "route": "cuda",
+        "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/ops/pallas_scan.py:1009",
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "pods": P,
+        "plain_pods": OVER_HEAD, "unscheduled": len(got), "cluster": shape["cluster"], "threads": shape["threads"],
+        "smem": shape["smem"], "resident": shape["resident"], "ptxas": launched["ptxas"],
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    count_row = {
+        "name": "fast_scan:count_fails", "plan": "over-subscribed plan", "route": "cuda",
+        "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/ops/kernels.py:1042",
+        "launches": passes, "max_abs_err": count_err, "ms": count_ms, "plain_ms": plain_ms,
+        "plain_pods": OVER_HEAD, "us_per_pass": count_ms * 1e3 / n_failing,
+        "bound_ms": max(c_bytes, c_ops), "bound_by": "bytes" if c_bytes >= c_ops else "operations",
+        "library_ms": None,
+    }
+    return [plan_row, count_row]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
@@ -448,6 +597,7 @@ def main() -> int:
 
     rows = [full_plan(device, label, make, variant, prefix) for label, make, variant, prefix in plans]
     rows.append(drain_sweep(device))
+    rows.extend(oversubscribed_plan(device))
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -379,7 +379,10 @@ def pod_stream(prep):
 
 
 class Scheduled(NamedTuple):
-    """Host copies of a scan's results, in the encoder's layouts."""
+    """Host copies of a scan's results, in the encoder's layouts, and the
+    failure attribution of the pods that found no node: the dynamic
+    filters' first-fail counts and the shortages of each pod (zero rows
+    for the others), and the static filters' per template."""
 
     chosen: np.ndarray  # [P] i32 node index, -1 unplaced
     used: np.ndarray  # [N, R] f32
@@ -387,15 +390,18 @@ class Scheduled(NamedTuple):
     gpu_free: np.ndarray  # [N, Gd] f32 final free memory per GPU
     vg_free: np.ndarray  # [N, Vg] f32 final free bytes per volume group
     dev_free: np.ndarray  # [N, Dv] f32 final free bytes per device, 0 once taken
+    fail_counts: np.ndarray  # [P, fast_scan.N_FAIL] i32 nodes failing each dynamic filter first
+    insufficient: np.ndarray  # [P, R] i32 nodes short of each resource
+    static_fail: np.ndarray  # [U, 4] i32 nodes failing each static filter first, per template
 
 
-def schedule(prep, fi: Optional[FastInputs] = None) -> Scheduled:
+def schedule(prep, built: Optional[Tuple[FastInputs, Dict[str, np.ndarray]]] = None) -> Scheduled:
     """Run the bind scan over the prepared stream: the kernel on a card,
-    the plain version on the CPU. Without GPU-share pods the scan leaves
-    the GPUs as they were (no takes, the initial free memory), and without
+    the plain version on the CPU; `built` is :func:`build_inputs`'s result
+    when the caller has it. Without GPU-share pods the scan leaves the GPUs
+    as they were (no takes, the initial free memory), and without
     local-storage pods the volume groups and devices."""
-    if fi is None:
-        fi, _ = build_inputs(prep)
+    fi, meta = build_inputs(prep) if built is None else built
     tmpl, valid, forced = pod_stream(prep)
     out = fast_scan(fi, tmpl, valid, forced)
     host = lambda t: t.T.contiguous().cpu().numpy()
@@ -408,7 +414,8 @@ def schedule(prep, fi: Optional[FastInputs] = None) -> Scheduled:
         gpu_free = np.asarray(st0.gpu_free)
         gpu_take = np.zeros((len(chosen), gpu_free.shape[1]), np.float32)
     vg_free, dev_free = (host(out.vg_free), host(out.dev_free)) if v.local else (st0.vg_free, st0.dev_free)
-    return Scheduled(chosen, host(out.used), gpu_take, gpu_free, np.asarray(vg_free), np.asarray(dev_free))
+    return Scheduled(chosen, host(out.used), gpu_take, gpu_free, np.asarray(vg_free), np.asarray(dev_free),
+                     out.fail_counts.cpu().numpy(), out.insufficient.cpu().numpy(), meta["static_fail"])
 
 
 class _SweepContext:

@@ -3,13 +3,15 @@
 ``simulate(cluster, apps)`` mirrors ``Simulate()``
 (``pkg/simulator/core.go:67-117``): expand the cluster's workloads into
 pods, schedule cluster pods first, then each app in configured order, and
-return which pods landed where. The whole pod stream is placed by one
-bind-scan kernel launch (``ops/fast_scan.py``).
+return which pods landed where and why the others found no node. The
+whole pod stream is placed by one bind-scan kernel launch
+(``ops/fast_scan.py``), which also counts, for each pod that finds no
+node, the nodes each filter rejected; decode renders those counts as the
+reference's kube FitError reason strings (``engine/reasons.py``).
 
-This slice covers the default arguments and the success path. It raises
-rather than falls back: ``NotImplementedError`` for an input outside the
-kernel's envelope (``fastpath.why_not``) and for a stream in which a pod
-ends unscheduled (failure attribution is a later slice).
+This slice covers the default arguments. It raises rather than falls
+back: ``NotImplementedError`` for an input outside the kernel's envelope
+(``fastpath.why_not``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import copy
 import json
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +41,7 @@ from ..models.objects import (
     ResourceTypes,
 )
 from ..ops import kernels
-from . import fastpath, queues
+from . import fastpath, queues, reasons
 
 
 @dataclass
@@ -263,27 +265,18 @@ def simulate(
     if miss is not None:
         raise NotImplementedError(f"outside the port's bind-scan envelope: {miss}")
     t1 = time.perf_counter()
-    fi, _ = fastpath.build_inputs(prep)
+    built = fastpath.build_inputs(prep)
     if prep.device.type == "cuda":
         torch.cuda.synchronize(prep.device)
     t2 = time.perf_counter()
-    out = fastpath.schedule(prep, fi)  # host copies: the card is done
-    chosen = out.chosen
+    out = fastpath.schedule(prep, built)  # host copies: the card is done
     t3 = time.perf_counter()
-
-    failed = np.nonzero(chosen < 0)[0]
-    if len(failed):
-        pod = prep.ordered[int(failed[0])]
-        raise NotImplementedError(
-            f"{len(failed)} pod(s) ended unscheduled (first: stream index {int(failed[0])}, "
-            f"{pod.metadata.namespace}/{pod.metadata.name}); failure attribution "
-            "(per-filter reasons) is a later slice of the port"
-        )
-    statuses = _decode(prep, out, cluster.nodes)
+    statuses, unscheduled = _decode(prep, out, cluster.nodes)
     t4 = time.perf_counter()
     return SimulateResult(
+        unscheduled_pods=unscheduled,
         node_status=statuses,
-        placements=chosen,
+        placements=out.chosen,
         used=out.used,
         gpu_take=out.gpu_take,
         gpu_free=out.gpu_free,
@@ -293,15 +286,39 @@ def simulate(
     )
 
 
-def _decode(prep: Prepared, out: fastpath.Scheduled, nodes: List[Node]) -> List[NodeStatus]:
-    """Bind every pod into its node's bucket, in stream order, and write
-    the GPU devices it took (the success path of the reference's
-    ``_decode``); node annotations show the final GPU and local-storage
-    state."""
+def _reason_string(
+    static_fail: np.ndarray,
+    fail_counts: np.ndarray,
+    insufficient: np.ndarray,
+    meta: ClusterMeta,
+    n_nodes: int,
+) -> str:
+    """The kube-scheduler FitError message the reference surfaces (e.g.
+    '0/4 nodes are available: 3 node(s) had taints...'), rendered through
+    the registered reason codes (engine/reasons.py). static_fail covers the
+    4 template-static filters, fail_counts the usage-dependent ones."""
+    counts = reasons.counts_from_rows(static_fail, fail_counts, insufficient, meta.resource_names)
+    return reasons.render_unschedulable(n_nodes, counts)
+
+
+def _decode(
+    prep: Prepared, out: fastpath.Scheduled, nodes: List[Node]
+) -> Tuple[List[NodeStatus], List[UnscheduledPod]]:
+    """One numpy pass splits the stream into placed and failed pods (the
+    reference's ``_decode``). Each placed pod goes into its node's bucket,
+    in stream order, with the GPU devices it took; each failed pod gets its
+    reason, in stream order: a forced pod's node was not found, any other
+    pod gets the FitError rendering of its counts. Returns the node
+    statuses, whose annotations show the final GPU and local-storage state,
+    and the unscheduled pods."""
     node_pods: Dict[str, List[Pod]] = {n.metadata.name: [] for n in nodes}
     pod_lists = [node_pods.get(n) for n in prep.meta.node_names]
     gpu_any = (out.gpu_take.sum(axis=1) > 0).tolist()
-    for i, (pod, c) in enumerate(zip(prep.ordered, out.chosen.astype(int).tolist())):
+    chosen = out.chosen
+    placed_idx = np.nonzero(chosen >= 0)[0]
+    failed_idx = np.nonzero(chosen < 0)[0]
+    for i, c in zip(placed_idx.tolist(), chosen[placed_idx].astype(int).tolist()):
+        pod = prep.ordered[i]
         pod.spec.node_name = prep.meta.node_names[c]
         pod.phase = "Running"
         if gpu_any[i]:
@@ -314,7 +331,17 @@ def _decode(prep: Prepared, out: fastpath.Scheduled, nodes: List[Node]) -> List[
             pod.metadata.annotations[ANNO_GPU_INDEX] = "-".join(ids)
             pod.metadata.annotations[ANNO_GPU_ASSUME_TIME] = str(time.time_ns())
         pod_lists[c].append(pod)
-    return _node_statuses(nodes, node_pods, prep.meta, out.gpu_free, out.vg_free, out.dev_free)
+    unscheduled: List[UnscheduledPod] = []
+    for i in failed_idx.tolist():
+        pod = prep.ordered[i]
+        if prep.forced[i]:
+            reason = reasons.node_not_found(pod.spec.node_name)
+        else:
+            reason = _reason_string(out.static_fail[prep.tmpl_ids[i]], out.fail_counts[i], out.insufficient[i],
+                                    prep.meta, prep.meta.n_real_nodes)
+        unscheduled.append(UnscheduledPod(pod, reason))
+    statuses = _node_statuses(nodes, node_pods, prep.meta, out.gpu_free, out.vg_free, out.dev_free)
+    return statuses, unscheduled
 
 
 def _node_statuses(

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 from .objects import (
     ANNO_NODE_LOCAL_STORAGE,
@@ -542,6 +542,34 @@ def local_pv_apps(n_pods: int) -> ResourceTypes:
     return rt
 
 
+def oversubscribed_cluster(n_nodes: int) -> ResourceTypes:
+    """The over-subscribed capacity plan's fleet: the capacity plan's
+    (:func:`synthetic_cluster`; disk ``hdd`` on the nodes with i % 3 == 0)
+    plus 10 bare pods bound by nodeName to ``node-99999``, a node that does
+    not exist, so they fail as forced pods."""
+    rt = synthetic_cluster(n_nodes)
+    rt.pods.extend(make_fake_pod(f"stray-{k}", "1", "1Gi", with_node_name("node-99999")) for k in range(10))
+    return rt
+
+
+def oversubscribed_apps(n_nodes: int, n_pods: int) -> List[Tuple[str, ResourceTypes]]:
+    """The over-subscribed capacity plan's three apps, in order, as (name,
+    resources): ``hog-hdd``, one Deployment of 0.4·n_nodes pods of 48 cores /
+    200 GiB under the node selector ``disk: hdd`` (one fits on each hdd
+    node, the rest fail on cpu and memory there and on node affinity
+    elsewhere); ``hog-any``, one Deployment of 0.8·n_nodes pods of 40 cores /
+    100 GiB (one fits on each ssd node, none where hog-hdd left 16 cores);
+    ``plan``, :func:`synthetic_apps` of n_pods pods, which all bind after
+    those failures. At 5,000 nodes: 2,000 and 4,000 hog pods, 333 and 667
+    of them failing."""
+    hdd = ResourceTypes()
+    hdd.deployments.append(make_fake_deployment("hog-hdd", 2 * n_nodes // 5, "48", "200Gi",
+                                                with_node_selector({"disk": "hdd"})))
+    anywhere = ResourceTypes()
+    anywhere.deployments.append(make_fake_deployment("hog-any", 4 * n_nodes // 5, "40", "100Gi"))
+    return [("hog-hdd", hdd), ("hog-any", anywhere), ("plan", synthetic_apps(n_pods))]
+
+
 def _gpu_share(mem: str, count: str) -> Option:
     return with_annotations({"alibabacloud.com/gpu-mem": mem, "alibabacloud.com/gpu-count": count})
 
@@ -574,6 +602,13 @@ SCAN_CASES = (
     ("local", 4, 128),
     ("local_rules", 9, 1),
     ("local_demo", 0, 1),
+    ("fail_ports", 4, 1),
+    ("fail_fit", 4, 1),
+    ("fail_spread", 4, 128),
+    ("fail_interpod", 3, 1),
+    ("fail_gpu", 3, 1),
+    ("fail_local", 3, 128),
+    ("fail_mixed", 6, 128),
 )
 
 
@@ -605,10 +640,13 @@ def scan_case(name: str):
     and HDD devices, StatefulSets asking LVM, an HDD device, and two SSD
     volumes of different sizes; ``local_demo``: the shipped
     ``example/cluster/demo`` with ``example/application/local`` (its node
-    count is the example's), where two pods find no device."""
+    count is the example's), where two pods find no device. The ``fail_*``
+    cases decide the failure attribution (:func:`_fail_case`)."""
     n_nodes, node_pad = {c[0]: c[1:] for c in SCAN_CASES}[name]
     cluster = ResourceTypes()
     app = ResourceTypes()
+    if name.startswith("fail_"):
+        return (*_fail_case(name), node_pad)
     if name == "local":
         return _local_cluster(n_nodes), _local_apps(), node_pad
     if name == "local_rules":
@@ -934,3 +972,127 @@ def _two_keys_apps() -> ResourceTypes:
         },
     })))
     return app
+
+
+def _bound(name: str, node: str, cpu: str, memory: str, *options: Option) -> Pod:
+    """A cluster pod bound to `node` by nodeName: it sets up the node's
+    state before the app's pods are scheduled."""
+    return make_fake_pod(name, cpu, memory, with_node_name(node), *options)
+
+
+def _anti(labels: Dict[str, str]) -> Option:
+    """Required anti-affinity, per host, against pods with `labels`."""
+    return with_affinity({"podAntiAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+        {"labelSelector": {"matchLabels": labels}, "topologyKey": "kubernetes.io/hostname"}]}})
+
+
+def _hard_host_spread(app: str) -> Option:
+    return with_topology_spread([{"maxSkew": 1, "topologyKey": "kubernetes.io/hostname",
+                                  "whenUnsatisfiable": "DoNotSchedule",
+                                  "labelSelector": {"matchLabels": {"app": app}}}])
+
+
+def _fail_case(name: str) -> Tuple[ResourceTypes, ResourceTypes]:
+    """The failure-attribution cases: in each, a pod finds no node, and on
+    some node the filter under test is the first to fail while a later one
+    fails there too (the counts then show the reference's order), and pods
+    bind after the failure.
+
+    - ``fail_ports``: host port 8080 taken on n0 (2 cores left) and n1, n2
+      short of cpu; the first 4-core pod asking 8080 binds on n3, the next
+      fails: ports on n0, n1, n3 (n0 lacks cpu too, but only n2 counts as
+      short of cpu), fit on n2.
+    - ``fail_fit``: hard hostname spread (maxSkew 1) with n0 holding one
+      such pod and lacking both cpu and memory, n1 lacking cpu only, n2 and
+      n3 holding one such pod each: fit on n0 (cpu and memory short, spread
+      fails there too) and n1, spread on n2 and n3.
+    - ``fail_spread``: hard hostname spread with such pods on n0 (two), n1
+      and n2, and pods that the newcomer's required anti-affinity refuses
+      on n0 and n3: spread on n0 (inter-pod too), n1, n2; inter-pod on n3.
+    - ``fail_interpod``: gpu-share nodes; anti-affinity refused on g0
+      (whose GPUs are full) and g2, g1's GPUs full: inter-pod on g0 (gpu
+      too) and g2, gpu on g1.
+    - ``fail_gpu``: nodes with 4 GPUs of 8 GiB and a 20 GiB volume group,
+      whole-GPU pods asking ``alibabacloud.com/gpu-count`` (the dynamic
+      gpu-count allocatable): n0 GPUs full and 10 GiB of its VG left, n1
+      GPUs full, n2 10 GiB of its VG left (and its SSD taken). A gpu-share
+      pod with a 15 GiB LVM volume fails gpu on n0 (local too) and n1,
+      local on n2; a whole-GPU pod with the same volume fails fit (no device
+      left with free memory: gpu-count short) on n0 (local too) and n1,
+      local on n2.
+    - ``fail_local``: an LVM volume and an SSD device: n0's VG too small,
+      n1 without a free SSD, n2 short of cpu: local on n0 and n1, fit on n2;
+      then an SSD pod and an LVM pod bind.
+    - ``fail_mixed``: a plain fleet, half of it ``disk: ssd``, the other
+      half with 4 of 8 cores taken: 7-core pods under that node selector
+      fill the ssd nodes and the fourth fails (node affinity first on the
+      hdd nodes, which lack cpu too, and cpu on the ssd nodes), big pods
+      fail on cpu in the middle of the stream, pods bind after them, and
+      later pods fail with other counts."""
+    cluster, app = ResourceTypes(), ResourceTypes()
+    if name == "fail_ports":
+        cluster.nodes.extend(make_fake_node(f"n{i}", "8", "16Gi", "110") for i in range(4))
+        cluster.pods += [_bound("holder-0", "n0", "6", "1Gi", with_host_ports([8080])),
+                         _bound("holder-1", "n1", "1", "1Gi", with_host_ports([8080])),
+                         _bound("filler-2", "n2", "6", "1Gi")]
+        app.pods += [make_fake_pod(f"web-{k}", "4", "1Gi", with_host_ports([8080])) for k in range(2)]
+        app.pods += [make_fake_pod(f"tail-{k}", "500m", "512Mi") for k in range(3)]
+    elif name == "fail_fit":
+        cluster.nodes.extend(make_fake_node(f"n{i}", "4", "8Gi", "110") for i in range(4))
+        sp = with_labels({"app": "sp"})
+        cluster.pods += [_bound("sp-0", "n0", "3", "6Gi", sp), _bound("filler-1", "n1", "3", "1Gi"),
+                         _bound("sp-2", "n2", "100m", "128Mi", sp), _bound("sp-3", "n3", "100m", "128Mi", sp)]
+        app.pods.append(make_fake_pod("sp-new", "2", "4Gi", sp, _hard_host_spread("sp")))
+        app.pods += [make_fake_pod(f"tail-{k}", "500m", "512Mi") for k in range(3)]
+    elif name == "fail_spread":
+        cluster.nodes.extend(make_fake_node(f"n{i}", "8", "16Gi", "110") for i in range(4))
+        sp, bad = with_labels({"app": "sp2"}), with_labels({"role": "bad"})
+        cluster.pods += [_bound("sp-0a", "n0", "100m", "128Mi", sp), _bound("sp-0b", "n0", "100m", "128Mi", sp),
+                         _bound("sp-1", "n1", "100m", "128Mi", sp), _bound("sp-2", "n2", "100m", "128Mi", sp),
+                         _bound("bad-0", "n0", "100m", "128Mi", bad), _bound("bad-3", "n3", "100m", "128Mi", bad)]
+        app.pods.append(make_fake_pod("sp-new", "1", "1Gi", sp, _hard_host_spread("sp2"), _anti({"role": "bad"})))
+        app.pods += [make_fake_pod(f"tail-{k}", "500m", "512Mi") for k in range(3)]
+    elif name == "fail_interpod":
+        cluster.nodes.extend(_gpu_node(f"g{i}") for i in range(3))
+        bad = with_labels({"role": "bad"})
+        cluster.pods += [_bound("bad-0", "g0", "1", "1Gi", bad, _gpu_share("8Gi", "4")),
+                         _bound("full-1", "g1", "1", "1Gi", _gpu_share("8Gi", "4")),
+                         _bound("bad-2", "g2", "1", "1Gi", bad)]
+        app.pods.append(make_fake_pod("picky", "1", "1Gi", _gpu_share("4Gi", "1"), _anti({"role": "bad"})))
+        app.pods += [make_fake_pod(f"tail-{k}", "1", "1Gi", _gpu_share("2Gi", "1")) for k in range(3)]
+    elif name == "fail_gpu":
+        for i in range(3):
+            cluster.nodes.append(make_fake_node(
+                f"n{i}", "16", "32Gi", "110",
+                with_allocatable({"alibabacloud.com/gpu-mem": "32Gi", "alibabacloud.com/gpu-count": "4"}),
+                with_node_local_storage(vgs=[{"name": "pool0", "capacity": 20 * 1024**3}],
+                                        devices=[{"device": "/dev/vdb", "capacity": 50 * 1024**3, "mediaType": "ssd"}])))
+        def lvm(gib, ssd=0):
+            vols = [{"size": str(gib * 1024**3), "kind": "LVM", "scName": "open-local-lvm"}]
+            vols += [{"size": str(ssd * 1024**3), "kind": "SSD", "scName": "open-local-device"}] if ssd else []
+            return with_pod_local_storage(json.dumps({"volumes": vols}))
+
+        cluster.pods += [_bound("full-0", "n0", "1", "1Gi", _gpu_share("8Gi", "4"), lvm(10)),
+                         _bound("full-1", "n1", "1", "1Gi", _gpu_share("8Gi", "4")),
+                         _bound("vg-2", "n2", "1", "1Gi", lvm(10, ssd=20))]
+        app.pods += [make_fake_pod("share", "1", "1Gi", _gpu_share("6Gi", "1"), lvm(15)),
+                     make_fake_pod("whole", "1", "1Gi", with_requests({"alibabacloud.com/gpu-count": "1"}), lvm(15))]
+        app.pods += [make_fake_pod(f"tail-{k}", "1", "1Gi", with_requests({"alibabacloud.com/gpu-count": "1"}))
+                     for k in range(2)]
+    elif name == "fail_local":
+        cluster.nodes += [_local_node("n0", "x", "8", vgs=[10], ssd=[50]),
+                          _local_node("n1", "x", "8", vgs=[100]),
+                          _local_node("n2", "x", "1", vgs=[100], ssd=[100])]
+        app.pods.append(_local_pod("both", "x", [("LVM", 30), ("SSD", 20)]))
+        app.pods += [_local_pod("dev", "x", [("SSD", 20)]), _local_pod("lvm", "x", [("LVM", 10)])]
+    elif name == "fail_mixed":
+        cluster.nodes.extend(make_fake_node(f"n{i}", "8", "16Gi", "110", with_labels({"disk": "ssd" if i % 2 else "hdd"}))
+                             for i in range(6))
+        cluster.pods += [_bound(f"fill-{i}", f"n{i}", "4", "1Gi") for i in (0, 2, 4)]
+        app.deployments += [make_fake_deployment("a", 10, "3", "2Gi"), make_fake_deployment("huge", 3, "9", "1Gi"),
+                            make_fake_deployment("b", 8, "1", "1Gi"), make_fake_deployment("c", 3, "500m", "10Gi"),
+                            make_fake_deployment("d", 4, "500m", "512Mi")]
+        app.pods += [make_fake_pod(f"ssd-{k}", "7", "1Gi", with_node_selector({"disk": "ssd"})) for k in range(4)]
+    else:
+        raise ValueError(f"no failure case named {name!r}")
+    return cluster, app

@@ -58,6 +58,18 @@
 // summing a count row. The GPU, VG and device binds are serial loops in the
 // thread that owns the chosen node.
 //
+// Failure attribution. A step whose pod finds no node (pass 2's reduction
+// says so, the same in every CTA) skips pass 3 and runs the counting pass
+// instead (count_fails, kernels.pod_step's count_fails in the JAX package,
+// which runs outside its Pallas kernel): each CTA walks its slice once,
+// takes each filter's own verdict from node_feasible (the same helpers and
+// float expressions as the feasibility test), attributes each node to the
+// first filter it fails in the reference's order, sums the counts over the
+// block and then over the cluster through distributed shared memory
+// (integer sums, exact in any order), and CTA 0 writes the pod's row. It is
+// a function of its own, not inlined, so a step that succeeds pays for it
+// neither in time nor in registers. The grid does not count.
+//
 // Scenario grid. Scenarios are independent chains over the same pod stream,
 // so block b runs B of them (scenarios b·B ... b·B + B - 1; the host picks
 // B = ceil(S / SMs), at most BMAX = 4, so 132 scenarios run one to a block
@@ -128,6 +140,7 @@ namespace cg = cooperative_groups;
 #define MAX_DV 64  // devices per node: the bits of the bind's per-pod taken mask
 #define MAX_K 4    // zone keys (engine/fastpath.MAX_ZONE_KEYS)
 #define MAX_RED 11  // values one step reduction takes: max(MAX_CS, 5 + na + tt + 2 local + 2 inter-pod)
+#define N_FAIL 7    // first-fail slots of a failing pod (ops/fast_scan.N_FAIL): ports, fit, spread, inter-pod, gpu, local, extra
 #define FULL_MASK 0xffffffffu
 // The sweep's shape, measured among B_max 2/4/8 at 512 or 1024 threads
 // (PERF.md §6); ops/fast_scan.SWEEP_B_MAX and SWEEP_THREADS hold the same.
@@ -240,6 +253,11 @@ struct FastScanArgs {
     const uint32_t* nv_bits;   // [Nw] per scenario: node validity
     uint32_t* feas_bits;       // [Nw] per scenario: pass 2's feasibility bits for pass 3, when the masks lie in global memory
     float* rep;                // [CL, Wrep] one scan: each CTA's copy of the small state, when its slice lies in global memory
+    // the one scan's failure attribution (the grid leaves them null): rows
+    // of the pods that find no node, the rest zeroed by the host
+    int32_t* fail_counts;      // [P, N_FAIL] nodes that fail each dynamic filter first
+    int32_t* insufficient;     // [P, R] nodes that reach fit and lack each resource
+    unsigned long long* count_clock;  // [2] the counting passes' global-timer nanoseconds and their number
     int64_t W;                 // floats per scenario in the arena
     int32_t S, P, N, R, U, A, K, Z, Cs, Gd, gc_row, Hp, Ti, Tn, Tp, G, Gp, Vg, Dv, Mv;
     int32_t has_gpu, has_na, has_tt, has_avoid, has_ports, has_interpod, has_local;
@@ -544,6 +562,11 @@ struct ScanShared {
     int ibuf[NWARP];
     float ps[2];
     int pi[2];
+    // the counting pass: each warp's counts, and this CTA's, which CTA 0
+    // reads (one buffer: CTA 0 has read it before any CTA can reach the
+    // next counting pass, as pass 2's cluster barrier lies between)
+    int cwarp[N_FAIL + MAX_R][NWARP];
+    int cpart[N_FAIL + MAX_R];
 };
 
 // The cluster's min (is_max(k) false) or max of NV values per thread
@@ -651,6 +674,21 @@ struct Red {
             rv[I_IP + 1] = 0.0f;
         }
     }
+};
+
+// The bits a failing node's verdicts take in the counting pass: bit f of
+// `fail` is the dynamic filter of slot f (N_FAIL's order, the reference's
+// order of attribution) that node n fails, bit r of `shortage` a resource
+// row it lacks (req > 0 and used + req > alloc). node_feasible fills them
+// where it is given a Verdicts (one scan only); NoVerdicts compiles them
+// out.
+enum { V_PORTS = 0, V_FIT, V_SPREAD, V_INTERPOD, V_GPU, V_LOCAL };
+struct Verdicts {
+    static constexpr bool on = true;
+    unsigned fail, shortage;
+};
+struct NoVerdicts {
+    static constexpr bool on = false;
 };
 
 // Counts of bound pods matching selector `sel` in node n's domain under
@@ -915,13 +953,16 @@ __device__ __forceinline__ void local_bind(const FastScanArgs& a, const Sl& S, i
 // Feasibility of node n for the step's pod per slot, 0 or 1, given each
 // slot's minimum counts of its hard spread constraints (slot j's at
 // min_cnt + j * MAX_CS) (pallas_scan.py:400-586), plus node n's dynamic
-// gpu-count state for the share add-back.
-template <bool GPU, bool GC, bool PORTS, bool IP, bool LOC, class Sl, class Cn, class TN, class PD>
+// gpu-count state for the share add-back. Given a Verdicts (one scan's
+// counting pass), each filter's own verdict as well.
+template <bool GPU, bool GC, bool PORTS, bool IP, bool LOC, class Sl, class Cn, class TN, class PD,
+          class VD = NoVerdicts>
 __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S, const Cn& cs, const TN& t,
                                               const PD& p, int n, const float* min_cnt, unsigned boot, unsigned want,
                                               float (&feasible)[Sl::NB], float (&gc_dyn)[Sl::NB],
-                                              float& gc_has_dev) {
+                                              float& gc_has_dev, VD* vd = nullptr) {
     constexpr int NB = Sl::NB;
+    static_assert(!VD::on || NB == 1, "the counting pass is the one scan's");
     const int u = p.u;
     if constexpr (GC) gc_nodes(a, S, t, n, want, gc_dyn, gc_has_dev);
     float fit[NB];
@@ -940,8 +981,10 @@ __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S
                 if (r == a.gc_row) alloc_r = gc_has_dev > 0.0f ? gc_dyn[j] : alloc_r;
             const float over = (used_r + req_r > alloc_r) ? 1.0f : 0.0f;
             fit[j] = fit[j] * (1.0f - over);
+            if constexpr (VD::on) vd->shortage |= (over > 0.0f ? 1u : 0u) << r;
         }
     }
+    if constexpr (VD::on) vd->fail |= (fit[0] > 0.0f ? 0u : 1u) << V_FIT;
 #pragma unroll
     for (int j = 0; j < NB; ++j) feasible[j] = t.sp() * fit[j] * S.valid(j, n);
     if constexpr (PORTS) {
@@ -960,6 +1003,7 @@ __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S
         }
 #pragma unroll
         for (int j = 0; j < NB; ++j) feasible[j] = feasible[j] * (conflicts[j] == 0.0f ? 1.0f : 0.0f);
+        if constexpr (VD::on) vd->fail |= (conflicts[0] == 0.0f ? 0u : 1u) << V_PORTS;
     }
     if constexpr (GPU) {
         // Open-Gpu-Share filter: sum_d floor(free_d / mem) >= count
@@ -981,13 +1025,18 @@ __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S
             for (int j = 0; j < NB; ++j) {
                 const bool gpu_ok = chunks_sum[j] >= gcnt && gcnt > 0.0f;
                 feasible[j] = feasible[j] * (gpu_ok ? 1.0f : 0.0f);
+                if constexpr (VD::on) vd->fail |= (gpu_ok ? 0u : 1u) << V_GPU;
             }
         }
     }
     if constexpr (LOC) {
 #pragma unroll
-        for (int j = 0; j < NB; ++j)
-            if (want >> j & 1u) feasible[j] = feasible[j] * local_filter(a, S, j, u, n);
+        for (int j = 0; j < NB; ++j) {
+            if (!(want >> j & 1u)) continue;
+            const float ok = local_filter(a, S, j, u, n);
+            feasible[j] = feasible[j] * ok;
+            if constexpr (VD::on) vd->fail |= (ok > 0.0f ? 0u : 1u) << V_LOCAL;
+        }
     }
     float cnt[NB];
     for (unsigned m = cs.hard; m; m &= m - 1u) {
@@ -998,6 +1047,7 @@ __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S
         for (int j = 0; j < NB; ++j) {
             const bool ok = (cnt[j] + self - min_cnt[j * MAX_CS + c] <= skew) && (has_label > 0.0f);
             feasible[j] = feasible[j] * (ok ? 1.0f : 0.0f);
+            if constexpr (VD::on) vd->fail |= (ok ? 0u : 1u) << V_SPREAD;
         }
     }
     if constexpr (IP) {
@@ -1005,6 +1055,7 @@ __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S
         interpod_filter(a, S, t, u, n, boot, want, ok);
 #pragma unroll
         for (int j = 0; j < NB; ++j) feasible[j] = feasible[j] * ok[j];
+        if constexpr (VD::on) vd->fail |= (ok[0] > 0.0f ? 0u : 1u) << V_INTERPOD;
     }
 }
 
@@ -1389,6 +1440,83 @@ __device__ __forceinline__ void store_slice(const FastScanArgs& a, const Slice<R
     }
 }
 
+// The step's hard-spread minimum counts, by value: the counting pass is not
+// inlined, and a pointer to the step's array would put it in local memory.
+struct MinCnt {
+    float v[MAX_CS];
+};
+
+__device__ __forceinline__ unsigned long long global_ns() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+
+// The counting pass of pod i (template u), which found no node
+// (kernels.pod_step's count_fails): over the nodes of this CTA's slice that
+// pass the static row and node validity, each counts under the first
+// dynamic filter it fails, in the reference's order (ports, fit, spread,
+// inter-pod, gpu, local; extra has none), and, where it passes ports, under
+// each resource it lacks. Each filter's verdict comes from node_feasible
+// itself, the same helpers and float expressions as the feasibility test,
+// never from another formula. The counts are summed over the block (warp
+// reductions, a value per warp in shared memory), then CTA 0 sums the CL
+// CTAs' through distributed shared memory after one cluster barrier and
+// writes row i. CTA 0's first thread adds the pass's global-timer
+// nanoseconds to count_clock[0] and one to count_clock[1].
+template <bool GPU, bool GC, bool PORTS, bool IP, bool LOC, int RES>
+__device__ __noinline__ void count_fails(const FastScanArgs& a, const Slice<RES> S, int i, int u, const MinCnt mc,
+                                         unsigned boot, ScanShared& sh) {
+    const cg::cluster_group cluster = cg::this_cluster();
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const bool first = cluster.block_rank() == 0;
+    const unsigned long long t0 = first && tid == 0 ? global_ns() : 0ull;
+    const Pod<false> p(a, u);
+    const GCons cs(a, u);
+    int cnt[N_FAIL + MAX_R];  // the filters' slots, then the resource rows
+#pragma unroll
+    for (int k = 0; k < N_FAIL + MAX_R; ++k) cnt[k] = 0;
+    for (int n = S.n0 + tid; n < S.n1; n += NT) {
+        const TNode<false, Slice<RES>> t(a, S, u, n);
+        if (!(t.sp() * S.valid(0, n) > 0.0f)) continue;  // the static row: the template's static_fail counts it
+        float feasible[1], gc_dyn[1], gc_has_dev = 0.0f;
+        Verdicts vd{0u, 0u};
+        node_feasible<GPU, GC, PORTS, IP, LOC>(a, S, cs, t, p, n, mc.v, boot, 1u, feasible, gc_dyn, gc_has_dev, &vd);
+        const int f = vd.fail ? __ffs(vd.fail) - 1 : N_FAIL;  // the bits lie in the order of attribution
+#pragma unroll
+        for (int k = 0; k < N_FAIL; ++k) cnt[k] += k == f ? 1 : 0;
+        if (!(vd.fail >> V_PORTS & 1u)) {
+#pragma unroll
+            for (int r = 0; r < MAX_R; ++r) cnt[N_FAIL + r] += vd.shortage >> r & 1u;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < N_FAIL + MAX_R; ++k) {
+        const int x = __reduce_add_sync(FULL_MASK, cnt[k]);
+        if (lane == 0) sh.cwarp[k][warp] = x;
+    }
+    __syncthreads();
+    if (tid < N_FAIL + MAX_R) {
+        int x = 0;
+        for (int w = 0; w < NWARP; ++w) x += sh.cwarp[tid][w];
+        sh.cpart[tid] = x;
+    }
+    cluster.sync();
+    if (first && tid < N_FAIL + a.R) {
+        int x = 0;
+#pragma unroll
+        for (int r = 0; r < CL; ++r) x += *cluster.map_shared_rank(&sh.cpart[tid], r);
+        if (tid < N_FAIL)
+            a.fail_counts[(size_t)i * N_FAIL + tid] = x;
+        else
+            a.insufficient[(size_t)i * a.R + tid - N_FAIL] = x;
+    }
+    if (first && tid == 0) {
+        a.count_clock[0] += global_ns() - t0;
+        a.count_clock[1] += 1ull;
+    }
+}
+
 // One scan over the whole pod stream, on a cluster of CL CTAs, CTA r
 // owning nodes [r·Nc, (r + 1)·Nc) (Slice<RES>). Every CTA walks the same
 // pods and takes the same branches; a step's node-axis reductions go
@@ -1476,7 +1604,15 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant_
             }
             cluster_reduce(rv[0], [](int k) { return RD::is_max(k); }, sh, par, cluster);
             const float* red = rv[0];
-            const bool any_feasible = red[4] > 0.0f;
+            if (!(red[4] > 0.0f)) {
+                // no node is feasible, in every CTA alike: count why
+                MinCnt mc;
+#pragma unroll
+                for (int c = 0; c < MAX_CS; ++c) mc.v[c] = min_cnt[c];
+                count_fails<GPU, GC, PORTS, IP, LOC, RES>(a, S, i, u, mc, boot, sh);
+                if (lead) a.chosen[i] = -1;
+                continue;
+            }
 
             // --- pass 3: score the feasible nodes (the kept ones from
             // their registers, the rest judged afresh), then the lowest
@@ -1504,8 +1640,7 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant_
                     better(best_s, best_i, score[0], n);
                 }
             }
-            const int best = cluster_argmax(best_s, best_i, N, sh, par, cluster);
-            choice = any_feasible ? best : -1;
+            choice = cluster_argmax(best_s, best_i, N, sh, par, cluster);
         }
         if (lead) a.chosen[i] = choice;
         if (choice >= 0) {
@@ -1801,7 +1936,8 @@ extern "C" int fast_scan_launch(const FastScanArgs* args, int cluster, int threa
     const FastScanArgs& a = *args;
     if (int err = check_args(a)) return err;
     if (a.S != 1 || cluster != CL || threads != NT || a.Nc != (a.N + CL - 1) / CL || a.Wrep < 0 ||
-        (a.resident ? smem <= 0 : smem != 0 || a.rep == nullptr))
+        (a.resident ? smem <= 0 : smem != 0 || a.rep == nullptr) || a.fail_counts == nullptr ||
+        a.insufficient == nullptr || a.count_clock == nullptr)
         return (int)cudaErrorInvalidValue;
     cudaGetLastError();  // clear a stale error so the check reports this launch
     return a.resident ? launch_scan<1>(a, smem, (cudaStream_t)stream) : launch_scan<0>(a, 0, (cudaStream_t)stream);

@@ -8,7 +8,11 @@ NodeAffinity, TaintToleration and NodePreferAvoidPods tables, the
 Open-Local binpack score and the inter-pod preferred score where present),
 take the lowest-index node among the best scores (or the pin of a forced
 pod), and bind it (usage, selector counts, host ports, GPU devices, volume
-groups and exclusive devices, inter-pod term counts of the chosen node).
+groups and exclusive devices, inter-pod term counts of the chosen node). A
+pod that finds no node gets its failure attribution: per dynamic filter,
+the nodes that fail it first, and per resource, the nodes short of it
+(``kernels.pod_step``'s ``count_fails`` in the JAX package, which runs it
+outside the Pallas kernel).
 This is the JAX package's Pallas megakernel
 (``opensim_tpu/ops/pallas_scan.py``, ``_make_kernel`` through
 ``run_fast_scan``'s ``pl.pallas_call``) for the flags ``has_gpu`` (with
@@ -62,6 +66,7 @@ from typing import Dict, Iterable, NamedTuple
 import torch
 
 from ..encoding import vocab as V
+from .kernels import F_PORTS, NUM_FILTERS
 
 NEG = -1e30
 BIG = 1e30
@@ -72,6 +77,10 @@ MAX_CS = 8  # spread constraints per template (csrc MAX_CS)
 MAX_GD = 8  # GPUs per node (csrc MAX_GD)
 MAX_DV = 64  # exclusive devices per node: the bits of the bind's per-pod taken mask (csrc MAX_DV)
 MAX_K = 4  # zone keys (csrc MAX_K; engine/fastpath.MAX_ZONE_KEYS)
+#: Slots of a failing pod's first-fail counts (csrc N_FAIL): the dynamic
+#: filters kernels.F_PORTS..F_EXTRA, in that order (ports, fit, spread,
+#: inter-pod, gpu, local, extra).
+N_FAIL = NUM_FILTERS - F_PORTS
 
 #: The one scan's cluster, fixed in the kernel (csrc CL and NT): the node
 #: axis split over SCAN_CLUSTER CTAs of SCAN_THREADS threads, one thread-block
@@ -104,8 +113,11 @@ SCAN_UNSCHEDULABLE = -1
 #: Number of kernel launches made through :func:`fast_scan` and
 #: :func:`fast_scan_sweep` (CUDA only), in all and by row name
 #: (:func:`variant_name`, :func:`sweep_name`); per one-scan row name, the
-#: shape of its last launch (:class:`ScanShape`) and the ptxas report of the
-#: kernel it ran, and per sweep row name the grid of its last launch
+#: shape of its last launch (:class:`ScanShape`), the ptxas report of the
+#: kernel it ran and that launch's ``count_clock`` (an int64 [2] tensor on
+#: the card: the nanoseconds its counting passes took, by the card's global
+#: timer on the cluster's first CTA, and how many ran, one per pod that
+#: found no node), and per sweep row name the grid of its last launch
 #: (:class:`SweepGrid`) and the ptxas report of the sweep kernel it ran
 #: (:func:`ptxas_report`).
 LAUNCHES = 0
@@ -194,7 +206,21 @@ class FastInputs(NamedTuple):
 class FastOutputs(NamedTuple):
     """What the scan returns, on the inputs' device (a sweep's fields have
     a leading scenario axis; from the kernel, the float state fields are
-    views into one per-launch arena, not contiguous across scenarios)."""
+    views into one per-launch arena, not contiguous across scenarios).
+
+    ``fail_counts`` and ``insufficient`` hold a row per pod: zeros, except
+    on a valid pod that is not forced and finds no node, where they hold
+    its failure attribution (kernels.pod_step's count_fails). Over the nodes
+    that pass the static row with node validity folded in, each node counts
+    under the first of the dynamic filters it fails, in that order: ports,
+    fit, spread (hard constraints), inter-pod, gpu, local, extra (none
+    registered: 0); the static filters' counts are the template's
+    ``static_fail`` row. ``insufficient[r]`` counts the nodes that reach the
+    fit filter and lack resource r (``req > 0`` and ``used + req > alloc``,
+    with the dynamic gpu-count allocatable). A forced pod's row stays zero,
+    as the reference's skip_pipeline returns; an invalid pod's row is zero
+    and never read (decode drops invalid pods). The scenario grid does not
+    count: its two count fields have width 0 (:func:`fast_scan_sweep`)."""
 
     chosen: torch.Tensor  # [P] i32 node of each pod, -1 when it did not bind
     used: torch.Tensor  # [R, N] f32 final usage
@@ -203,6 +229,13 @@ class FastOutputs(NamedTuple):
     port_used: torch.Tensor  # [Hp, N] f32 final host-port use per port id ([0, N] without ports)
     vg_free: torch.Tensor  # [Vg, N] f32 final free bytes per volume group ([0, N] without local)
     dev_free: torch.Tensor  # [Dv, N] f32 final free bytes per device, 0 once taken ([0, N] without local)
+    fail_counts: torch.Tensor  # [P, N_FAIL] i32 first-fail node counts per dynamic filter ([S, P, 0] from a grid)
+    insufficient: torch.Tensor  # [P, R] i32 nodes short of each resource ([S, P, 0] from a grid)
+
+
+#: The outputs both kernels compute: the placements and the final state
+#: (the grid leaves the two count fields empty).
+STATE_FIELDS = FastOutputs._fields[:7]
 
 
 class Variant(NamedTuple):
@@ -391,7 +424,7 @@ class _Args(ctypes.Structure):
         "lvm_req", "dev_req", "dev_need", "dev_sizes", "vg_cap", "vg0", "dev_cap", "dev0", "dev_media",
         "chosen", "used", "node_cnt", "zone_cnt", "gpu_take", "gpu_free",
         "port_used", "anti_node", "anti_zone", "prefw_node", "prefw_zone", "sel_total",
-        "vg_free", "dev_free", "nv_bits", "feas_bits", "rep",
+        "vg_free", "dev_free", "nv_bits", "feas_bits", "rep", "fail_counts", "insufficient", "count_clock",
     )] + [("W", ctypes.c_int64)] + [(n, ctypes.c_int32) for n in (
         "S", "P", "N", "R", "U", "A", "K", "Z", "Cs", "Gd", "gc_row", "Hp", "Ti", "Tn", "Tp", "G", "Gp",
         "Vg", "Dv", "Mv",
@@ -624,6 +657,11 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
     part = {name: arena[:, o:o + n].unflatten(1, shape) for (name, shape), o, n in zip(shapes.items(), starts, sizes)}
     chosen = torch.empty((S, P), dtype=torch.int32, device=dev)
     gpu_take = torch.zeros((S, P, Gd), dtype=f32, device=dev)  # the kernel writes bound pods' rows only
+    # the one scan writes the count rows of the pods that find no node; the
+    # grid does not count, so its count fields are empty
+    fail_counts = torch.zeros((S, P, 0 if sweep else N_FAIL), dtype=torch.int32, device=dev)
+    insufficient = torch.zeros((S, P, 0 if sweep else R), dtype=torch.int32, device=dev)
+    count_clock = None if sweep else torch.zeros((2,), dtype=torch.int64, device=dev)
     grid = sweep_grid(S, N, torch.cuda.get_device_properties(dev).multi_processor_count) if sweep else None
     shape = None if sweep else scan_shape(fi)
     nv_bits = feas_bits = rep = None
@@ -651,6 +689,7 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
         *(ptr(part[n]) for n in ("gpu_free", "port_used", "anti_node", "anti_zone", "prefw_node", "prefw_zone",
                                  "sel_total", "vg_free", "dev_free")),
         ptr(nv_bits), ptr(feas_bits), ptr(rep),
+        ptr(None if sweep else fail_counts), ptr(None if sweep else insufficient), ptr(count_clock),
         arena.shape[1],
         S, P, N, R, d.U, A, K, Z, d.Cs, Gd, fi.gc_row, d.Hp, d.Ti, d.Tn, d.Tp, d.G, d.Gp, d.Vg, d.Dv, d.Mv,
         int(v.gpu), int(v.na), int(v.tt), int(v.avoid), int(v.ports), int(v.interpod), int(v.local),
@@ -677,9 +716,9 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
         SWEEP_LAUNCHED[row] = {"grid": grid, "ptxas": _PTXAS[name].get("fast_scan_sweep")}
     else:
         kernel = "fast_scan" if shape.resident else "fast_scan_global"
-        SCAN_LAUNCHED[row] = {"shape": shape, "ptxas": _PTXAS[name].get(kernel)}
+        SCAN_LAUNCHED[row] = {"shape": shape, "ptxas": _PTXAS[name].get(kernel), "count_clock": count_clock}
     return FastOutputs(chosen, part["used"], gpu_take, part["gpu_free"], part["port_used"], part["vg_free"],
-                       part["dev_free"])
+                       part["dev_free"], fail_counts, insufficient)
 
 
 def fast_scan(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
@@ -687,7 +726,8 @@ def fast_scan(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     are int32 ``[P]`` tensors on the inputs' device. Returns the chosen
     nodes (-1 for a pod that did not bind), the final usage, each pod's GPU
     slots per device, the final free memory per GPU, the final host-port
-    use and the final free bytes per volume group and device.
+    use, the final free bytes per volume group and device, and the failure
+    attribution of each pod that found no node (:class:`FastOutputs`).
 
     On a CUDA device this launches the one-scan kernel (one launch for the
     stream, a thread-block cluster shaped by :func:`scan_shape`) or raises;
@@ -707,7 +747,9 @@ def fast_scan_sweep(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight)
     ``[S, P]``), ``node_valid`` (0/1 float32 ``[S, N]``) and
     ``spr_weight`` (float32 ``[S, U, Cs]``, the spread weights of the
     scenario's valid nodes). Returns :class:`FastOutputs` with a leading S
-    axis; scenario s gives what :func:`fast_scan` gives on its rows.
+    axis; scenario s gives what :func:`fast_scan` gives on its rows in the
+    seven :data:`STATE_FIELDS`. The grid does not count failures:
+    ``fail_counts`` and ``insufficient`` are ``[S, P, 0]``.
 
     On a CUDA device this is one launch of the sweep kernel, B scenarios
     per block (:func:`sweep_grid`), or raises; on the CPU it runs the plain
@@ -723,12 +765,14 @@ def fast_scan_sweep(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight)
 def fast_scan_sweep_reference(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight) -> FastOutputs:
     """Plain version of :func:`fast_scan_sweep` on any device: the plain
     scan once per scenario, with the scenario's node validity and spread
-    weights in place of the template's."""
+    weights in place of the template's; its count fields are empty, as the
+    grid's."""
     outs = [
         fast_scan_reference(fi._replace(node_valid=node_valid[s], spr_weight=spr_weight[s]), tmpl, valid[s], forced[s])
         for s in range(valid.shape[0])
     ]
-    return FastOutputs(*(torch.stack(field) for field in zip(*outs)))
+    out = FastOutputs(*(torch.stack(field) for field in zip(*outs)))
+    return out._replace(fail_counts=out.fail_counts[..., :0], insufficient=out.insufficient[..., :0])
 
 
 # ---------------------------------------------------------------------------
@@ -751,7 +795,14 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     card could round through TF32. Storage terms that the Pallas body
     multiplies by ``where(size > 0, ..., 0)`` (a volume slot of size 0,
     the LVM part of a template with no LVM) are skipped, which leaves every
-    value as it was."""
+    value as it was.
+
+    Each filter's verdict is also kept on its own (0/1 rows), and every
+    step reckons its failure attribution from them (the nodes that reach
+    each filter, in the reference's order, and fail it; the nodes that
+    reach fit and lack each resource), kept only where the pod is valid,
+    not forced and finds no node: a select, so no step waits to learn
+    whether it failed."""
     d = _dims(fi)
     N, R, U, A, K, Cs, Gd = d.N, d.R, d.U, d.A, d.K, d.Cs, d.Gd
     Vg, Dv, Mv = d.Vg, d.Dv, d.Mv
@@ -779,6 +830,9 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     ones_n = torch.ones((N,), dtype=f32, device=dev)
     zero = torch.zeros((), dtype=f32, device=dev)
     chosen = torch.empty((P,), dtype=torch.int32, device=dev)
+    fail_counts = torch.zeros((P, N_FAIL), dtype=torch.int32, device=dev)
+    insufficient = torch.zeros((P, R), dtype=torch.int32, device=dev)
+    no_count = torch.zeros((N_FAIL + R,), dtype=torch.int32, device=dev)
     gpu_free = fi.gpu0.clone()
     gpu_take = torch.zeros((P, Gd), dtype=f32, device=dev)
     port_used = torch.zeros((d.Hp, N), dtype=f32, device=dev)
@@ -844,20 +898,25 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
             # dynamic gpu-count allocatable (pallas_scan.py:401-419)
             gc_dyn_row = (gc_valid * (gpu_free > 0).to(f32)).sum(0)
         fit = ones_n
+        short = []  # per resource row: the pod asks it and the node lacks it
         for r in range(R):
             alloc_r = fi.alloc_T[r]
             if v.gc and r == fi.gc_row:
                 alloc_r = torch.where(gc_has_dev > 0, gc_dyn_row, alloc_r)
             over = (used[r] + req_u[r] > alloc_r).to(f32)
             fit = fit * torch.where(req_u[r] > 0, 1.0 - over, 1.0)
+            short.append((req_u[r] > 0) & (over > 0))
         feasible = fi.static_pass[u] * fit * valid_row
+        # each dynamic filter's own verdict, for the failure attribution
+        ports_ok = gpu_ok_row = local_ok = spread_ok = ip_ok = ones_n
 
         if v.ports:
             # NodePorts (:425-441): a conflicting port already used there
             conflicts = zero
             for h, w in conf_rows[u]:
                 conflicts = conflicts + w * (port_used[h] > 0).to(f32)
-            feasible = feasible * (conflicts == 0).to(f32)
+            ports_ok = (conflicts == 0).to(f32)
+            feasible = feasible * ports_ok
 
         if v.gpu:
             # Open-Gpu-Share filter: sum_d floor(free_d / mem) >= count
@@ -867,7 +926,8 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
             for d_ in range(Gd):
                 chunks_sum = chunks_sum + torch.floor(gpu_free[d_] / gmem1)
             gpu_ok = ((chunks_sum >= gcnt) & (gcnt > 0)).to(f32)
-            feasible = torch.where(gmem > 0, feasible * gpu_ok, feasible)
+            gpu_ok_row = torch.where(gmem > 0, gpu_ok, 1.0)
+            feasible = feasible * gpu_ok_row
 
         if v.local:
             # Open-Local filter (:455-477): the LVM request fits the VG with
@@ -877,7 +937,7 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
                 best_vg = torch.full((N,), NEG, dtype=f32, device=dev)
                 for g_ in range(Vg):
                     best_vg = torch.maximum(best_vg, vg_free[g_])
-                feasible = feasible * (best_vg >= fi.lvm_req[u]).to(f32)
+                local_ok = local_ok * (best_vg >= fi.lvm_req[u]).to(f32)
             for m in range(2):
                 for vi in range(Mv):
                     if sizes_h[u][m * Mv + vi] > 0:
@@ -886,7 +946,8 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
                         for d_ in range(Dv):
                             free_d = dev_free[d_]
                             cnt_fit = cnt_fit + fi.dev_media[m * Dv + d_] * ((free_d >= size) & (free_d > 0)).to(f32)
-                        feasible = feasible * (cnt_fit >= vi + 1).to(f32)
+                        local_ok = local_ok * (cnt_fit >= vi + 1).to(f32)
+            feasible = feasible * local_ok
 
         # --- PodTopologySpread
         aff_row = fi.aff_mask[u] * valid_row
@@ -904,6 +965,7 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
                 masked = torch.where(elig > 0, cnt, BIG)
                 min_cnt = torch.min(masked)
                 ok = (cnt + fi.spr_self[u, c] - min_cnt <= skew) & (has_label > 0)
+                spread_ok = spread_ok * ok.to(f32)
                 feasible = feasible * ok.to(f32)
             else:
                 contrib = torch.where(has_label > 0, cnt * fi.spr_weight[u, c] + (skew - 1.0), 0.0)
@@ -918,7 +980,7 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
             for t in range(d.Tn):  # incoming required anti-affinity
                 if an[0][u][t] == 1:
                     cnt, has_label = sel_cnt(an[1][u][t], an[2][u][t])
-                    feasible = feasible * (1.0 - ((cnt > 0) & (has_label > 0)).to(f32))
+                    ip_ok = ip_ok * (1.0 - ((cnt > 0) & (has_label > 0)).to(f32))
             at_terms = [t for t in range(d.Ti) if at[0][u][t] == 1]
             if at_terms:  # incoming required affinity, with the bootstrap
                 at_all_ok, at_labels_ok, at_map_total, at_self_all = ones_n, ones_n, zero, 1.0
@@ -931,12 +993,13 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
                     at_map_total = at_map_total + total
                     at_self_all = at_self_all * (1.0 if at[3][u][t] > 0 else 0.0)
                 at_bootstrap = ((at_map_total == 0) & (at_self_all > 0)).to(f32)
-                feasible = feasible * torch.maximum(at_all_ok, at_labels_ok * at_bootstrap)
+                ip_ok = ip_ok * torch.maximum(at_all_ok, at_labels_ok * at_bootstrap)
             # existing pods' anti terms against this pod
             sym_cnt = zero
             for g, m in g_rows[u]:
                 sym_cnt = sym_cnt + m * term_cnt(anti_node, anti_zone, g, g_key[g])
-            feasible = feasible * (1.0 - (sym_cnt > 0).to(f32))
+            ip_ok = ip_ok * (1.0 - (sym_cnt > 0).to(f32))
+            feasible = feasible * ip_ok
             # raw score: incoming preferred terms, then the existing pods'
             # preferred and hard-affinity weights
             ip_raw = torch.zeros((N,), dtype=f32, device=dev)
@@ -1067,6 +1130,20 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
         do_bind = valid[i] & (choice >= 0)
         chosen[i] = torch.where(do_bind, choice, -1)
 
+        # --- failure attribution (kernels.pod_step's count_fails): the
+        # nodes that reach each dynamic filter, in the reference's order
+        # (static row with validity, ports, fit, spread, inter-pod, gpu,
+        # local; extra none), and fail it; the nodes that reach fit and lack
+        # each resource. Kept where the pod is valid, not forced and finds
+        # no node.
+        passes = torch.stack(torch.broadcast_tensors(ports_ok, fit, spread_ok, ip_ok, gpu_ok_row, local_ok)) > 0
+        base = (fi.static_pass[u] * valid_row > 0)[None]
+        reach = torch.cat([base, passes[:-1]]).to(torch.int32).cumprod(0) > 0  # [6, N]
+        counts = torch.cat([(reach & ~passes).sum(1, dtype=torch.int32), no_count[:N_FAIL - 6],
+                            (torch.stack(short) & reach[1]).sum(1, dtype=torch.int32)])
+        counts = torch.where(valid[i] & ~forced[i] & ~any_feasible, counts, no_count)
+        fail_counts[i], insufficient[i] = counts[:N_FAIL], counts[N_FAIL:]
+
         # --- bind (adds exact zeros when nothing binds); the chosen node is
         # a one-element index tensor, so no value comes back to the host
         c = torch.clamp(choice, min=0).long().reshape(1)
@@ -1142,7 +1219,7 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
                 node_rows[:, c] = node_rows[:, c] + add[:, None]
                 zone_rows.scatter_add_(1, col[:, c], (add * has[:, c][:, 0])[:, None])
 
-    return FastOutputs(chosen, used, gpu_take, gpu_free, port_used, vg_free, dev_free)
+    return FastOutputs(chosen, used, gpu_take, gpu_free, port_used, vg_free, dev_free, fail_counts, insufficient)
 
 
 # ---------------------------------------------------------------------------
@@ -1181,6 +1258,16 @@ _LOC = 4
 _LOC_VG, _LOC_DEV = 5, 4
 _LOC_LVM, _LOC_VOL, _LOC_MEDIA = 5, 1, 6
 _LOC_BIND_VG, _LOC_BIND_DEV = 4, 8
+#: The counting pass, per (pod that finds no node, valid node): the static
+#: row and validity test 2, the first failing filter's slot 7 (a compare and
+#: an add each), 2 per resource row (the shortage test and its add), and
+#: each filter's own verdict again: fit 3 per resource row, 8 per active
+#: hard spread constraint, and the flag branches' filter terms as above
+#: (GPU 3 per GPU plus 4, the dynamic gpu-count 4 per GPU plus 1, ports 3
+#: per conflicting port id plus 2, inter-pod 4 per required term, 2 per
+#: matched anti row, 4 for the products; Open-Local 1 per VG plus 1 with LVM,
+#: 4 per device plus 1 per exclusive volume).
+_COUNT, _COUNT_PER_R = 9, 2
 
 #: FastInputs tables with a node axis (their last one).
 _NODE_AXIS = {"alloc_T", "used0_T", "static_pass", "aff_mask", "share_raw", "zone_idx", "node_valid",
@@ -1196,7 +1283,11 @@ def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None)
     per-node work of its own template's active constraints, terms, port
     conflicts, matched term rows and storage volumes and of the variant's
     flag branches, a pod that bound (``chosen`` >= 0, the scan's result)
-    its bind.
+    its bind, and one scan's pod that found no node the counting pass over
+    the valid nodes and its count row (``N_FAIL + R`` int32 written; its
+    inputs are the step's state, already on chip). ``count`` gives the
+    counting pass's own share: its bytes, ops and steps (0 for a grid,
+    which does not count).
 
     For a scenario grid, ``valid``/``forced``/``chosen`` are ``[S, P]`` and
     ``node_valid`` ``[S, N]``: each scenario is counted over its own valid
@@ -1253,4 +1344,22 @@ def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None)
         per_bind = per_bind + has_lvm * (_LOC_BIND_VG * d.Vg) + vols * (_LOC_BIND_DEV * d.Dv)
     sched = vd & ~fd
     ops = sum(int(per_node[sched[s]].sum()) * n_valid_s[s] + int(per_bind[bound[s]].sum()) for s in range(S))
-    return {"bytes": in_bytes + out_bytes, "ops": ops}
+    counting = {"bytes": 0, "ops": 0, "steps": 0}
+    if S == 1:
+        failed = sched[0] & (chosen[0].cpu() < 0)
+        hard = ((fi.spr_active.cpu() == 1) & (fi.spr_hard.cpu() == 1)).sum(1)[tm]
+        per_count = _COUNT + (_COUNT_PER_R + 3) * R + 8 * hard
+        if v.gpu:
+            per_count = per_count + asks * (_GPU_FILTER_PER_GD * Gd + _GPU_FILTER)
+        per_count = per_count + v.gc * (_GC_PER_GD * Gd + 1)
+        if v.ports:
+            per_count = per_count + _PORT + _PORT_PER_ROW * (fi.port_conf_HU.cpu() != 0).sum(0)[tm]
+        if v.interpod:
+            per_count = (per_count + 4 + _IP_REQ_TERM * (count(fi.at_active) + count(fi.an_active))
+                         + _IP_ROW * (fi.gmatch_GU.cpu() != 0).sum(0)[tm])
+        if v.local:
+            per_count = per_count + has_lvm * (d.Vg + 1) + vols * (_LOC_DEV * d.Dv + _LOC_VOL)
+        steps = int(failed.sum())
+        counting = {"bytes": steps * (N_FAIL + R) * 4, "ops": int(per_count[failed].sum()) * n_valid_s[0],
+                    "steps": steps}
+    return {"bytes": in_bytes + out_bytes + counting["bytes"], "ops": ops + counting["ops"], "count": counting}

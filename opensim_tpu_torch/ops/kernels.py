@@ -20,6 +20,24 @@ from ..encoding.state import EncodedCluster
 
 MAX_NODE_SCORE = 100.0
 
+# Filter ids, in the order a node's rejection is attributed (the first
+# filter it fails; engine/reasons.Reason carries the same values). The four
+# static ones are counted per template (StaticTables.static_fail); the bind
+# scan counts the dynamic ones, F_PORTS..F_EXTRA, on a pod that finds no
+# node (fast_scan.FastOutputs.fail_counts).
+F_NODE_PIN = 0  # NodeName
+F_UNSCHEDULABLE = 1
+F_TAINT = 2
+F_AFFINITY = 3  # NodeAffinity + nodeSelector
+F_PORTS = 4
+F_FIT = 5  # NodeResourcesFit
+F_SPREAD = 6
+F_INTERPOD = 7
+F_GPU = 8
+F_LOCAL = 9
+F_EXTRA = 10  # out-of-tree plugins; the port registers none, so its count stays 0
+NUM_FILTERS = 11
+
 
 class StaticTables(NamedTuple):
     """Per-(template, node) quantities that never change during a scan:
@@ -27,7 +45,7 @@ class StaticTables(NamedTuple):
 
     static_pass: np.ndarray  # [U, N] bool — AND of the four static filters
     aff_mask: np.ndarray  # [U, N] bool (NodeAffinity + nodeSelector, for spread eligibility)
-    static_fail: np.ndarray  # [U, 4] i32 first-fail counts for pin/unsched/taint/affinity
+    static_fail: np.ndarray  # [U, 4] i32 first-fail counts for F_NODE_PIN..F_AFFINITY
     na_raw: np.ndarray  # [U, N] f32 preferred-node-affinity weights
     tt_raw: np.ndarray  # [U, N] f32 intolerable PreferNoSchedule counts
     share_raw: np.ndarray  # [U, N] f32 Simon/GpuShare share × 100

@@ -244,7 +244,9 @@ def test_work_counts_scheduled_pods_only():
     chosen = fs.fast_scan_reference(fi, tmpl, valid, forced).chosen
     w = fs.fast_scan_work(fi, tmpl, valid, forced, chosen)
     w_none = fs.fast_scan_work(fi, tmpl, torch.zeros_like(valid), forced, chosen)
-    assert w["ops"] > w_none["ops"] == 0 and w["bytes"] == w_none["bytes"] > 0
+    assert w["ops"] > w_none["ops"] == 0 and w_none["bytes"] > 0
+    # the inputs are read alike; only the count rows of the pods that found no node are added
+    assert w["bytes"] == w_none["bytes"] + w["count"]["bytes"] and w_none["count"]["steps"] == 0
 
 
 def test_work_counts_valid_node_lanes_only():
@@ -268,7 +270,9 @@ def test_work_counts_the_flag_branches():
     w, w_base = fs.fast_scan_work(fi, *stream, chosen), fs.fast_scan_work(base, *stream, chosen)
     assert w["ops"] > w_base["ops"] and w["bytes"] > w_base["bytes"]
     all_bound = fs.fast_scan_work(fi, *stream, torch.zeros_like(chosen))
-    assert (chosen < 0).any() and all_bound["ops"] > w["ops"]  # a pod that did not bind binds nothing
+    # a pod that did not bind binds nothing; it runs the counting pass instead
+    assert (chosen < 0).any() and all_bound["ops"] > w["ops"] - w["count"]["ops"]
+    assert w["count"]["steps"] == int((chosen < 0).sum()) and all_bound["count"]["ops"] == 0
     assert fs.variant_name(fi) == "fast_scan[gpu,gc]" and fs.variant_name(base) == "fast_scan"
 
 
@@ -371,10 +375,11 @@ def test_plain_sweep_is_the_plain_scan_per_scenario():
     tmpl, valid, forced, node_valid, spr_weight = _drain_grid(port, [0, 3, 5])
     assert not forced.all(dim=0).equal(forced.any(dim=0))  # draining n000 or n003 releases a bound pod
     out = fs.fast_scan_sweep(fi, tmpl, valid, forced, node_valid, spr_weight)
+    assert out.fail_counts.shape == out.insufficient.shape == (3, tmpl.shape[0], 0)  # the grid does not count
     for s in range(3):
         one = fs.fast_scan_reference(fi._replace(node_valid=node_valid[s], spr_weight=spr_weight[s]),
                                      tmpl, valid[s], forced[s])
-        assert all(torch.equal(a[s], b) for a, b in zip(out, one))
+        assert all(torch.equal(getattr(out, f)[s], getattr(one, f)) for f in fs.STATE_FIELDS)
         assert not (out.chosen[s] == (0, 3, 5)[s]).any()  # nothing lands on the drained node
 
 

@@ -96,8 +96,9 @@ def test_sweep_of_one_scenario_matches_one_scan_on_card(name, cuda_device):
     tmpl, valid, forced = fastpath.pod_stream(prep)
     got = fs.fast_scan_sweep(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None])
     want = fs.fast_scan(fi, tmpl, valid, forced)
-    for field, g, w in zip(fs.FastOutputs._fields, got, want):
-        assert torch.equal(g[0], w), field
+    for field in fs.STATE_FIELDS:  # the grid does not count failures
+        assert torch.equal(getattr(got, field)[0], getattr(want, field)), field
+    assert got.fail_counts.shape == (1, tmpl.shape[0], 0)
 
 
 @pytest.mark.cuda
@@ -140,6 +141,24 @@ def test_simulate_on_card_launches_once(plan, cuda_device):
         assert res.gpu_take.sum() > 0
     if plan == "local":
         assert (res.dev_free == 0).any()
+
+
+@pytest.mark.cuda
+def test_simulate_on_card_reports_the_plain_versions_reasons(cuda_device):
+    """The over-subscribed plan at 64 nodes: one launch, whose counting
+    passes give every unscheduled pod the reason string the CPU run gives."""
+    def run(device=None):
+        cluster, apps = fx.oversubscribed_cluster(64), fx.oversubscribed_apps(64, 640)
+        return sim.simulate(cluster, [sim.AppResource(n, a) for n, a in apps], device=device)
+
+    before = fs.LAUNCHES
+    res = run()
+    assert fs.LAUNCHES == before + 1
+    passes = int(fs.SCAN_LAUNCHED["fast_scan"]["count_clock"][1])
+    cpu = run("cpu")
+    assert (res.placements == cpu.placements).all()
+    assert [u.reason for u in res.unscheduled_pods] == [u.reason for u in cpu.unscheduled_pods]
+    assert len(res.unscheduled_pods) == passes + 10  # the 10 forced strays run no counting pass
 
 
 @pytest.mark.cuda

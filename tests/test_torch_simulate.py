@@ -1,7 +1,7 @@
 """Slice parity: the port's simulate() against the JAX package's on small
 plans, placements compared by stream index, node annotations by content,
-plus the ways the slice refuses to run (outside the envelope, an
-unscheduled pod, no card and no explicit device)."""
+an unscheduled pod's reason string, plus the ways the slice refuses to run
+(outside the envelope, no card and no explicit device)."""
 
 import copy
 import dataclasses
@@ -184,11 +184,22 @@ def test_why_not_refuses_inter_pod_weights_past_exact_floats(monkeypatch):
 
 
 def test_simulate_raises_on_an_unscheduled_pod():
-    cluster = fx.synthetic_cluster(4)
-    app = expand.ResourceTypes()
-    app.deployments.append(fx.make_fake_deployment("huge", 2, "100", "1Gi"))
-    with pytest.raises(NotImplementedError, match="failure attribution"):
-        sim.simulate(cluster, [sim.AppResource("h", app)], device="cpu")
+    """The slice once raised on a pod that ends unscheduled; now such a pod
+    is reported with the reference's reason string, as the JAX simulate()
+    gives it, and lands in no node's bucket."""
+    def make():
+        cluster = fx.synthetic_cluster(4)
+        app = expand.ResourceTypes()
+        app.deployments.append(fx.make_fake_deployment("huge", 2, "100", "1Gi"))
+        return cluster, app
+
+    c, a = make()
+    res = sim.simulate(c, [sim.AppResource("h", a)], device="cpu")
+    c_ref, a_ref = (_reference_copy(x) for x in make())
+    ref_res = ref_sim.simulate(c_ref, [ref_sim.AppResource("h", a_ref)])
+    want = ["0/4 nodes are available: 4 Insufficient cpu."] * 2
+    assert [u.reason for u in res.unscheduled_pods] == [u.reason for u in ref_res.unscheduled_pods] == want
+    assert (res.placements == -1).all() and not any(ns.pods for ns in res.node_status)
 
 
 def test_simulate_without_a_card_raises(monkeypatch):

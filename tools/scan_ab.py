@@ -18,7 +18,8 @@ records it (cluster, threads, shared memory, residency), the number of
 steps whose template differs from the step before's, and the kernel's
 milliseconds per launch (CUDA events over three launches after one
 warm-up); the grid's line adds the bytes of its own state one
-step-scenario reads. To compare shapes of the one scan's cluster or of
+step-scenario reads. The six variants are built at once before the first
+plan. To compare shapes of the one scan's cluster or of
 the grid, time copies of this checkout whose SCAN_CLUSTER/SCAN_THREADS or
 SWEEP_B_MAX/SWEEP_THREADS (ops/fast_scan.py) and CL/NT or BMAX/SW_NT
 (ops/csrc/fast_scan.cu) were edited, in turns. Needs a card.
@@ -33,13 +34,13 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PLANS = {  # fixtures' cluster and apps makers, and the apps maker's options
-    "capacity": ("synthetic_cluster", "synthetic_apps", {}),
-    "gpu": ("gpu_cluster", "gpu_apps", {}),
-    "affinity": ("synthetic_cluster", "affinity_apps", {}),
-    "score": ("score_cluster", "score_apps", {}),
-    "ports": ("score_cluster", "score_apps", {"host_port": True}),
-    "local": ("local_pv_cluster", "local_pv_apps", {}),
+PLANS = {  # fixtures' cluster and apps makers, the apps maker's options, and the kernel variant
+    "capacity": ("synthetic_cluster", "synthetic_apps", {}, "fast_scan"),
+    "gpu": ("gpu_cluster", "gpu_apps", {}, "fast_scan[gpu,gc]"),
+    "affinity": ("synthetic_cluster", "affinity_apps", {}, "fast_scan[interpod]"),
+    "score": ("score_cluster", "score_apps", {}, "fast_scan[na,tt,avoid]"),
+    "ports": ("score_cluster", "score_apps", {"host_port": True}, "fast_scan[na,tt,avoid,ports]"),
+    "local": ("local_pv_cluster", "local_pv_apps", {}, "fast_scan[local]"),
 }
 REPS = 3
 N_NODES, N_PODS, N_SCENARIOS = 5000, 50000, 1000
@@ -92,7 +93,8 @@ def main() -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    for plan, (make_cluster, make_apps, opts) in PLANS.items():
+    fs.build([plan[3] for plan in PLANS.values()])  # every variant at once
+    for plan, (make_cluster, make_apps, opts, _variant) in PLANS.items():
         cluster, apps = getattr(fx, make_cluster)(N_NODES), getattr(fx, make_apps)(N_PODS, **opts)
         prep = sim.prepare(cluster, [sim.AppResource("plan", apps)], device="cuda")
         fi, _ = fastpath.build_inputs(prep)
