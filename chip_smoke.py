@@ -6,8 +6,9 @@
 Builds the bind-scan kernel's variants from ops/csrc/ with nvcc (one
 shared object per variant, all compiled at once), holds each against its
 plain PyTorch version on small cases and at full width (the scenario grid
-too, with three drain scenarios per small case), and drives simulate()
-through the kernel on six plans of 50,000 pods on 5,000 nodes:
+too, with three drain scenarios per small case), drives simulate()
+through the kernel on six plans of 50,000 pods on 5,000 nodes, and
+``simon apply`` end to end:
 
 - the capacity plan (20 Deployments, 4 zones; bench.py:85-135), the
   kernel's base variant;
@@ -49,9 +50,24 @@ failure counts included), against the grid at S = 1 on the seven state
 outputs over the whole stream, simulate() through exactly one launch
 reporting the reason strings of the plain version's counts, and the
 counting pass timed by the card's global timer inside the kernel.
-Every phase raises on failure. The last lines are the card's name and
-power limit, one JSON line with a row per kernel variant timed at full
-width and one for the sweep, and ``{"ok": true, "device": {...}}``.
+Then ``simon apply`` (phases 28-30): the apply plan (the capacity plan
+plus 5,100 pods of 60 cores, one a node, so 100 new nodes must come out
+of 128 candidates; ``fixtures.write_apply_plan``) written as YAML
+directories and run through the port's ``Applier`` as a user would, its
+steps timed against BASELINE.md's 10 s and its launches counted (two one
+scans, two grids); the masked one scan at 0, n_new - 1 and n_new new
+nodes against the coarse and fine grids' rows over the whole stream and
+the plain version over a prefix, the minimality of n_new by those
+launches, at 0 new nodes the first simulation's 100 reasons pod for pod
+and the failing tail (the 5,100 large pods, from the kernel's usage
+after the others) against the plain version on all nine outputs; and the three example configs, whose reports on the card equal
+the plain versions' on the CPU. Each small case of phase 3 also runs as a
+masked one scan (a node and a third of the pods masked out) against the
+plain version. Every phase raises on failure.
+The last lines are the card's name and power limit, one JSON line with
+a row per kernel variant timed at full width, one for the drain sweep
+and three for the apply plan (the masked one scan, the coarse and the fine
+grid), and ``{"ok": true, "device": {...}}``.
 Without a card it exits non-zero and prints no result.
 """
 
@@ -62,7 +78,9 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 #: Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -84,6 +102,21 @@ LATE_PODS = 5000
 #: The over-subscribed plan's pods before the capacity plan's 50,000: 10
 #: strays, 2,000 and 4,000 hog pods; the plain version checks them all.
 OVER_HEAD = 6010
+#: The apply plan: the capacity plan plus `hog`, one pod of 60 cores per
+#: node and 100 more, so `simon apply` must add APPLY_NEW nodes of the
+#: fleet's kind out of APPLY_MAX_NEW candidates; the plain version checks
+#: the masked one scan over APPLY_PLAIN_PODS pods. BASELINE.md's target:
+#: the whole command under APPLY_LIMIT_S seconds (recorded, not asserted).
+APPLY_NEW = 100
+APPLY_HOG = N_NODES + APPLY_NEW
+APPLY_MAX_NEW = 128
+APPLY_PLAIN_PODS = 2000
+APPLY_LIMIT_S = 10.0
+#: The example configs, their extended-resource reports and the kernel
+#: variant each runs (phase 30 checks it against the launches).
+EXAMPLES = (("simon-config.yaml", [], "fast_scan[interpod]"),
+            ("simon-gpushare-config.yaml", ["gpu"], "fast_scan[gpu]"),
+            ("simon-local-config.yaml", ["open-local"], "fast_scan[local]"))
 
 
 def _phase(name: str) -> None:
@@ -153,11 +186,23 @@ def small_cases(device) -> None:
     from opensim_tpu_torch.engine import fastpath
     from opensim_tpu_torch.ops import fast_scan as fs
 
+    masked_failures = 0
     for name, prep, fi in _small_preps(device):
         stream = fastpath.pod_stream(prep)
         got = fs.fast_scan(fi, *stream)
         want = fs.fast_scan_reference(fi, *stream)
         _same(got, want, f"case {name}")
+        # the same case on a masked node axis (node 1 out) and stream (every
+        # third pod out), as the planner's masked re-simulation launches it
+        node_valid = prep.ec_np.node_valid.copy()
+        node_valid[min(1, len(node_valid) - 1)] = False
+        pod_valid = np.arange(len(prep.tmpl_ids)) % 3 != 2
+        fi_m = fastpath.build_inputs(prep, node_valid)[0]
+        stream_m = fastpath.pod_stream(prep, pod_valid)
+        got_m = fs.fast_scan(fi_m, *stream_m)
+        _same(got_m, fs.fast_scan_reference(fi_m, *stream_m), f"case {name}, masked")
+        failing_m = int(((got_m.chosen < 0) & (stream_m[1] != 0) & (stream_m[2] == 0)).sum())
+        masked_failures += failing_m
         grid = _drain_grid(prep, list(range(min(3, len(prep.meta.node_names)))))
         got_s = fs.fast_scan_sweep(fi, *grid)
         want_s = fs.fast_scan_sweep_reference(fi, *grid)
@@ -167,7 +212,10 @@ def small_cases(device) -> None:
               f"placed={int((got.chosen >= 0).sum())} counted failures={counted} gpu slots={int(got.gpu_take.sum())} "
               f"ports used={int(got.port_used.sum())} devices taken={int((got.dev_free < fi.dev0).sum())} "
               f"identical; sweep of {grid[1].shape[0]} drains identical "
-              f"(placed {(got_s.chosen >= 0).sum(1).tolist()})", flush=True)
+              f"(placed {(got_s.chosen >= 0).sum(1).tolist()}); masked one scan identical "
+              f"({int(pod_valid.sum())} pods on {int(node_valid.sum())} nodes, {failing_m} found no node)", flush=True)
+    if masked_failures == 0:
+        raise AssertionError("no masked small case had a pod that found no node")
 
 
 def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
@@ -550,6 +598,270 @@ def oversubscribed_plan(device) -> list:
     return [plan_row, count_row]
 
 
+def _without_counters(text: str) -> str:
+    """A report without its engine footer, new-node and pod names without
+    their process-global counters (simon-<8 hex>, <name>-<10 hex>)."""
+    import re
+
+    text = re.sub(r"-[0-9a-f]{10}\b", "-#", re.sub(r"simon-[0-9a-f]{8}\b", "simon-#", text))
+    return "\n".join(line for line in text.splitlines() if not line.startswith("Scheduling engine: "))
+
+
+def _plan_dir() -> Path:
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    return Path(fs.BUILD_DIR) / "smoke"
+
+
+def _example(name: str) -> str:
+    return str(Path(__file__).resolve().parent / "example" / name)
+
+
+def _apply_failures(applier, prep, fi_k, tmpl, valid, node_valid, forced, out) -> tuple:
+    """The first simulation's failures at full width, on the masked node
+    axis of k = 0 (the candidates out): the reasons of the masked one
+    scan's counts (`out`) equal the Applier's first simulation's, pod for
+    pod, each the expected string; then the hog pods that close the stream
+    run from the kernel's usage after the bench pods, by the kernel (equal
+    to `out`'s rows over them) and by the plain version, on all nine
+    outputs, so the failing pods' counts and shortages are the plain
+    version's. Returns the largest difference and the plain version's ms."""
+    from opensim_tpu_torch.engine import fastpath, simulator as sim
+    from opensim_tpu_torch.models.objects import LABEL_APP_NAME
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    static_fail = fastpath.build_inputs(prep, node_valid.cpu().numpy() != 0)[1]["static_fail"]
+    n_valid = int(node_valid.sum())
+    failed = torch.nonzero((out.chosen < 0) & (valid != 0)).flatten().tolist()
+    got = [(prep.ordered[i].metadata.name,
+            sim._reason_string(static_fail[prep.tmpl_ids[i]], out.fail_counts[i].cpu().numpy(),
+                               out.insufficient[i].cpu().numpy(), prep.meta, n_valid)) for i in failed]
+    first = [(u.pod.metadata.name, u.reason) for u in applier.first_result.unscheduled_pods]
+    want = f"0/{N_NODES} nodes are available: {N_NODES} Insufficient cpu, {N_NODES} Insufficient memory."
+    if got != first:
+        raise AssertionError(f"k=0: the masked one scan's {len(got)} failures differ from the first simulation's "
+                             f"{len(first)}: {[g for g in got if g not in first][:3]}")
+    if len(got) != APPLY_NEW or any(r != want for _name, r in got):
+        raise AssertionError(f"k=0: want {APPLY_NEW} pods each '{want}', got {len(got)}: "
+                             f"{sorted({r for _name, r in got})[:3]}")
+    print(f"k=0: the masked one scan's {len(got)} failures are the first simulation's, pod for pod, each "
+          f"'{want}'", flush=True)
+
+    apps = [p.metadata.labels.get(LABEL_APP_NAME) for p in prep.ordered]
+    t0 = len(apps) - APPLY_HOG
+    if apps[t0:] != ["hog"] * APPLY_HOG or "hog" in apps[:t0] or fs.variant_name(fi_k) != "fast_scan":
+        raise AssertionError("the apply plan's stream does not close with its hog pods on the base variant")
+    head = fs.fast_scan(fi_k, tmpl[:t0].contiguous(), valid[:t0].contiguous(), forced[:t0].contiguous())
+    fi_tail = fi_k._replace(used0_T=head.used.clone())
+    tail = (tmpl[t0:].contiguous(), valid[t0:].contiguous(), forced[t0:].contiguous())
+    got_tail = fs.fast_scan(fi_tail, *tail)
+    per_pod = ("chosen", "gpu_take", "fail_counts", "insufficient")
+    err = _same(got_tail, fs.FastOutputs(*(getattr(out, f)[t0:] if f in per_pod else getattr(out, f)
+                                            for f in fs.FastOutputs._fields)),
+                f"k=0: the hog pods from the kernel's state after pod {t0} vs the whole stream's launch")
+    plain = [None]
+
+    def run_plain():
+        plain[0] = fs.fast_scan_reference(fi_tail, *tail)
+
+    plain_ms = _events_ms(run_plain, reps=1)
+    err = max(err, _same(got_tail, plain[0], f"k=0: the hog pods from the kernel's state after pod {t0} vs plain"))
+    failing = int((got_tail.chosen < 0).sum())
+    print(f"k=0: the {APPLY_HOG} hog pods from the kernel's usage after pod {t0}: kernel identical to the whole "
+          f"stream's launch and to the plain version on all nine outputs ({failing} found no node, their counts "
+          f"and shortages included; plain {plain_ms:.3f} ms)", flush=True)
+    return err, plain_ms
+
+
+def apply_plan(device, card: str) -> list:
+    """`simon apply` on the apply plan through the port's Applier as a
+    user runs it (YAML directories, the card): its launches, the new-node
+    count, the steps' host-clock times against BASELINE.md's 10 s; then
+    the path's masked one scan at k = 0, n_new - 1 and n_new new nodes
+    against the rows of the coarse and fine grids for those k (the seven
+    state outputs, over the whole stream) and against the plain version
+    over a prefix (all nine), each grid timed alone, and at k = 0 the
+    first simulation's failures (:func:`_apply_failures`). Returns the
+    rows of the masked one scan and the two grids."""
+    from opensim_tpu_torch.engine import fastpath
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.parallel import scenarios
+    from opensim_tpu_torch.planner import apply
+
+    _phase(f"28 apply plan: simon apply on {N_NODES} nodes, {N_PODS} + {APPLY_HOG} pods, "
+           f"{APPLY_MAX_NEW} candidate nodes (Applier.run() on the card)")
+    root = _plan_dir() / "apply"
+    config = fx.write_apply_plan(root, N_NODES, N_PODS, APPLY_HOG)
+    report = root / "report.txt"
+    torch.cuda.synchronize()
+    fs.LAUNCHES = 0
+    fs.VARIANT_LAUNCHES.clear()
+    fs.SCAN_LAUNCHED.clear()
+    fs.SWEEP_LAUNCHED.clear()
+    t0 = time.perf_counter()
+    applier = apply.Applier(apply.Options(simon_config=config, output_file=str(report),
+                                          max_new_nodes=APPLY_MAX_NEW))
+    rc = applier.run()
+    wall = time.perf_counter() - t0
+    by_name = dict(fs.VARIANT_LAUNCHES)
+    scan_shape = fs.SCAN_LAUNCHED["fast_scan"]["shape"]  # the masked re-simulation's launch, N = 5,128
+    text = report.read_text()
+    if rc != 0 or "Simulation success!" not in text:
+        raise AssertionError(f"simon apply returned {rc}:\n{text[:2000]}")
+    if by_name != {"fast_scan": 2, "fast_scan_sweep": 2}:
+        raise AssertionError(f"simon apply launched {by_name}, want two one scans (first simulation, masked "
+                             f"re-simulation) and two grids (coarse, fine)")
+    n_new = applier.n_new
+    (coarse, coarse_s), (fine, fine_s) = applier.sweeps
+    print(f"simon apply: rc {rc}, {n_new} new nodes, launches {by_name}; sweeps {coarse} then "
+          f"{fine[0]}..{fine[-1]} ({len(fine)} scenarios)")
+    print(f"masked one scan at N={len(applier.prep_full.meta.node_names)} launched as "
+          f"{json.dumps({k: v for k, v in scan_shape._asdict().items() if k != 'offsets'})}")
+    steps = dict(applier.timings, **{"sweep: coarse": coarse_s, "sweep: fine": fine_s})
+    print("steps: " + json.dumps({k: round(v, 6) for k, v in steps.items()}))
+    verdict = "met" if wall < APPLY_LIMIT_S else "missed"
+    print(f"simon apply wall-clock {wall:.6f} s against the {APPLY_LIMIT_S:.0f} s limit: {verdict} ({card})",
+          flush=True)
+    if n_new != APPLY_NEW or f"(added {APPLY_NEW} new node(s))" not in text:
+        raise AssertionError(f"simon apply added {n_new} nodes, want {APPLY_NEW}")
+
+    _phase(f"29 apply plan: the masked one scan at k = 0, {n_new - 1} and {n_new} against the coarse and fine "
+           f"grids' rows over the whole stream and the plain version over {APPLY_PLAIN_PODS} pods; at k = 0 the "
+           f"first simulation's reasons and the failing tail of {APPLY_HOG} pods against the plain version")
+    prep = applier.prep_full
+    n_real = N_NODES
+    fi, _ = fastpath.build_inputs(prep)
+    forced = torch.from_numpy(prep.forced.astype(np.int32)).to(device)
+    rows, grids = [], {}
+    for label, ks in (("coarse", coarse), ("fine", fine)):
+        node_valid, pod_valid = scenarios.count_masks(prep, n_real, ks)
+        tmpl, *grid = fastpath.sweep_inputs(prep, node_valid, pod_valid, np.broadcast_to(prep.forced, pod_valid.shape))
+        out = [None]
+
+        def run_grid():
+            out[0] = fs.fast_scan_sweep(fi, tmpl, *grid)
+
+        grid_ms = _events_ms(run_grid, reps=1)
+        launched = fs.SWEEP_LAUNCHED["fast_scan_sweep"]
+        unscheduled = ((out[0].chosen < 0) & (grid[0] != 0)).sum(1).tolist()
+        grids[label] = (ks, grid, out[0])
+        # the rows of the k that phase 29 checks, against the plain sweep over a prefix
+        sel = [ks.index(k) for k in ((0,) if label == "coarse" else (n_new - 1, n_new))]
+        head = [t[:, :APPLY_PLAIN_PODS].contiguous() for t in grid[:2]] + grid[2:]
+        got = fs.fast_scan_sweep(fi, tmpl[:APPLY_PLAIN_PODS].contiguous(), *head)
+        plain = [None]
+
+        def run_plain():
+            plain[0] = fs.fast_scan_sweep_reference(fi, tmpl[:APPLY_PLAIN_PODS].contiguous(), *(t[sel] for t in head))
+
+        plain_ms = _events_ms(run_plain, reps=1)
+        err = _same(fs.FastOutputs(*(t[sel] for t in got)), plain[0], f"{label} grid rows {sel} vs plain")
+        work = fs.fast_scan_work(fi, tmpl, grid[0], grid[1], out[0].chosen, grid[2])
+        t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
+        print(f"{label} grid, S={len(ks)}: {grid_ms:.3f} ms ({launched['grid'].b} scenarios per block, "
+              f"{launched['grid'].blocks} blocks); unscheduled {dict(zip(ks, unscheduled))}; rows {sel} identical "
+              f"to the plain sweep over {APPLY_PLAIN_PODS} pods (plain {plain_ms:.3f} ms); bound "
+              f"{max(t_bytes, t_ops):.6f} ms", flush=True)
+        rows.append({
+            "name": "fast_scan_sweep", "plan": f"apply plan, {label} sweep", "route": "cuda",
+            "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/engine/fastpath.py:532",
+            "launches": by_name["fast_scan_sweep"], "launches_are": "the path's two grids, coarse and fine",
+            "max_abs_err": err, "ms": grid_ms, "plain_ms": plain_ms, "scenarios": len(ks),
+            "pods": int(tmpl.shape[0]), "plain_checks": [sel, APPLY_PLAIN_PODS], "b": launched["grid"].b,
+            "blocks": launched["grid"].blocks, "threads": launched["grid"].threads, "ptxas": launched["ptxas"],
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "host_s": coarse_s if label == "coarse" else fine_s,
+        })
+
+    err, one = 0.0, {}
+    for k, label in ((0, "coarse"), (n_new - 1, "fine"), (n_new, "fine")):
+        ks, grid, out = grids[label]
+        s = ks.index(k)
+        fi_k, _ = fastpath.build_inputs(prep, grid[2][s].cpu().numpy() != 0)
+        if not torch.equal(fi_k.spr_weight, grid[3][s]) or not torch.equal(fi_k.node_valid, grid[2][s]):
+            raise AssertionError(f"k={k}: the masked one scan's validity or spread weights are not the grid's")
+        clocks = []
+
+        def run_one():
+            one[k] = fs.fast_scan(fi_k, tmpl, grid[0][s], forced)
+            clocks.append(int(fs.SCAN_LAUNCHED["fast_scan"]["count_clock"][1]))
+
+        ms_k = _events_ms(run_one, reps=3 if k == n_new else 1)
+        err = max(err, _same(one[k], fs.FastOutputs(*(t[s] for t in out)),
+                             f"masked one scan at k={k} vs the {label} grid's row", fs.STATE_FIELDS))
+        failing = int(((one[k].chosen < 0) & (grid[0][s] != 0) & (forced == 0)).sum())
+        if clocks[-1] != failing:
+            raise AssertionError(f"k={k}: {clocks[-1]} counting passes for {failing} pods that found no node")
+        print(f"k={k}: masked one scan {ms_k:.3f} ms, identical to the {label} grid's row on the seven state "
+              f"outputs over {int(grid[0][s].sum())} pods; {failing} pods found no node ({clocks[-1]} counting "
+              f"passes)", flush=True)
+        if k == 0:
+            tail_err, tail_plain_ms = _apply_failures(applier, prep, fi_k, tmpl, grid[0][s], grid[2][s], forced,
+                                                      one[k])
+            err = max(err, tail_err)
+        if k == n_new:
+            ms, fi_new, valid_new = ms_k, fi_k, grid[0][s]
+        if (k == n_new) != (failing == 0):
+            raise AssertionError(f"k={k}: {failing} pods found no node; the answer {n_new} is not minimal")
+        if k == n_new - 1:
+            head = (tmpl[:APPLY_PLAIN_PODS].contiguous(), grid[0][s][:APPLY_PLAIN_PODS].contiguous(),
+                    forced[:APPLY_PLAIN_PODS].contiguous())
+            plain = [None]
+
+            def run_plain():
+                plain[0] = fs.fast_scan_reference(fi_k, *head)
+
+            plain_ms = _events_ms(run_plain, reps=1)
+            err = max(err, _same(fs.fast_scan(fi_k, *head), plain[0], f"masked one scan at k={k}, "
+                                 f"{APPLY_PLAIN_PODS} pods vs plain"))
+            print(f"k={k}: masked one scan and plain version identical on all nine outputs over "
+                  f"{APPLY_PLAIN_PODS} pods (plain {plain_ms:.3f} ms)", flush=True)
+    work = fs.fast_scan_work(fi_new, tmpl, valid_new, forced, one[n_new].chosen)
+    t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
+    launched = fs.SCAN_LAUNCHED["fast_scan"]
+    print(f"masked one scan at k={n_new}: {ms:.3f} ms, bound {max(t_bytes, t_ops):.6f} ms", flush=True)
+    rows.insert(0, {
+        "name": "fast_scan", "plan": f"apply plan, masked re-simulation at k={n_new}", "route": "cuda",
+        "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/ops/pallas_scan.py:1009",
+        "launches": by_name["fast_scan"], "launches_are": "the path's two one scans, first simulation and masked",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "pods": int(tmpl.shape[0]),
+        "plain_pods": APPLY_PLAIN_PODS, "plain_tail": [APPLY_HOG, tail_plain_ms], "nodes": int(fi.alloc_T.shape[1]), "valid_nodes": N_NODES + n_new,
+        "cluster": scan_shape.cluster, "threads": scan_shape.threads, "smem": scan_shape.smem,
+        "resident": scan_shape.resident, "ptxas": launched["ptxas"], "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+        "apply_wall_s": wall, "apply_steps_s": steps, "apply_limit_s": APPLY_LIMIT_S, "apply_limit": verdict,
+    })
+    return rows
+
+
+def example_reports(device) -> None:
+    """The example configs through the port's Applier, on the CPU (the
+    plain versions) and on the card: the two reports equal."""
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.planner import apply
+
+    _phase("30 example configs: simon apply on the card against the plain versions on the CPU")
+    root = _plan_dir() / "examples"
+    root.mkdir(parents=True, exist_ok=True)
+    for config, extended, variant in EXAMPLES:
+        runs = []
+        for where, dev in (("cpu", "cpu"), ("card", str(device))):
+            out = root / f"{config}.{where}.txt"
+            fs.VARIANT_LAUNCHES.clear()
+            rc = apply.Applier(apply.Options(simon_config=_example(config), output_file=str(out),
+                                             extended_resources=extended, device=dev)).run()
+            runs.append((rc, out.read_text(), dict(fs.VARIANT_LAUNCHES)))
+        (rc_cpu, cpu, _), (rc_card, card_text, launches) = runs
+        if rc_cpu != 0 or rc_card != 0 or _without_counters(cpu) != _without_counters(card_text):
+            raise AssertionError(f"{config}: the card's report (rc {rc_card}) differs from the CPU's (rc {rc_cpu})")
+        if not launches or {name.replace("fast_scan_sweep", "fast_scan") for name in launches} != {variant}:
+            raise AssertionError(f"{config}: launched {launches}, want {variant} (built in phase 2)")
+        footer = [line for line in card_text.splitlines() if line.startswith("Scheduling engine: ")]
+        print(f"{config}: card and CPU reports identical ({len(card_text.splitlines())} lines); launches {launches}; "
+              f"{footer[0] if footer else ''}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
@@ -584,7 +896,8 @@ def main() -> int:
     ]
 
     _phase("2 build")
-    variants = sorted({v for *_rest, v, _p in plans} | {fs.variant_name(fi) for _n, _p, fi in _small_preps("cpu")})
+    variants = sorted({v for *_rest, v, _p in plans} | {fs.variant_name(fi) for _n, _p, fi in _small_preps("cpu")}
+                      | {v for *_rest, v in EXAMPLES})
     fs.build(variants)
     print(f"build: {fs.BUILD_LOG['seconds']:.3f} s for {len(variants)} kernel variants, one nvcc each, "
           f"all started together: {', '.join(variants)}")
@@ -598,6 +911,8 @@ def main() -> int:
     rows = [full_plan(device, label, make, variant, prefix) for label, make, variant, prefix in plans]
     rows.append(drain_sweep(device))
     rows.extend(oversubscribed_plan(device))
+    rows.extend(apply_plan(device, card))
+    example_reports(device)
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

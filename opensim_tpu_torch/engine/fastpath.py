@@ -98,14 +98,21 @@ def _to(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
 
-def build_inputs(prep) -> Tuple[FastInputs, Dict[str, np.ndarray]]:
+def build_inputs(prep, node_valid: Optional[np.ndarray] = None) -> Tuple[FastInputs, Dict[str, np.ndarray]]:
     """The kernel's tensors on ``prep.device``, plus the static first-fail
-    counts over the real valid nodes. Static tables are computed with every
-    node valid; validity is the kernel's runtime row (static filters are
-    per node, so this is equivalent)."""
+    counts over the valid nodes. `node_valid` ([N] bool) masks the node
+    axis down to a sub-cluster (None: the encoded validity); three inputs
+    follow it: the kernel's validity row, the spread weights (log of the
+    topology domains the valid nodes span) and the static first-fail
+    counts, so a masked run places and attributes as a fresh prepare of
+    the sub-cluster would. Static tables are computed with every node
+    valid; validity is the kernel's runtime row (static filters are per
+    node, so this is equivalent)."""
     ec = prep.ec_np
-    stat = kernels.precompute_static_np(ec._replace(node_valid=np.ones_like(ec.node_valid)))
-    static_fail = kernels.precompute_static_np(ec).static_fail
+    core = kernels.precompute_core_np(ec)
+    stat = kernels.precompute_static_np(ec._replace(node_valid=np.ones_like(ec.node_valid)), core)
+    nv = np.asarray(ec.node_valid if node_valid is None else node_valid, dtype=bool)
+    masked = kernels.precompute_static_np(ec._replace(node_valid=nv), core)
     N = int(ec.node_valid.shape[0])
     topo_keys = prep.meta.vocab.topo_keys.items()
     zone_tks = [i for i, k in enumerate(topo_keys) if k != HOSTNAME]
@@ -131,7 +138,7 @@ def build_inputs(prep) -> Tuple[FastInputs, Dict[str, np.ndarray]]:
     active = spr_topo >= 0
     spr_sel = np.maximum(np.asarray(ec.spr_sel), 0).astype(np.int32)
     matches_sel = np.asarray(ec.matches_sel)
-    spread_weight = np.asarray(stat.spread_weight)
+    spread_weight = np.asarray(masked.spread_weight)
     spr_self = np.where(
         active, np.take_along_axis(matches_sel, spr_sel, axis=1), False
     ).astype(np.float32)
@@ -161,7 +168,7 @@ def build_inputs(prep) -> Tuple[FastInputs, Dict[str, np.ndarray]]:
         share_raw=_to(stat.share_raw, f32, dev),
         zone_idx=_to(zone_idx, i32, dev),
         matches_AU=_to(matches_sel.T, f32, dev),
-        node_valid=_to(ec.node_valid, f32, dev),
+        node_valid=_to(nv, f32, dev),
         req=_to(req, f32, dev),
         cpu_nz=_to(cpu_nz, f32, dev),
         mem_nz=_to(mem_nz, f32, dev),
@@ -186,7 +193,7 @@ def build_inputs(prep) -> Tuple[FastInputs, Dict[str, np.ndarray]]:
         n_zones=n_zones,
         gc_row=kernels.gc_row_of(ec) if f.gc_dyn else -1,
     )
-    return fi, {"static_fail": static_fail}
+    return fi, {"static_fail": masked.static_fail}
 
 
 def _local_tables(prep) -> Dict[str, np.ndarray]:
@@ -366,10 +373,11 @@ def inputs_from_reference(
     )
 
 
-def pod_stream(prep):
+def pod_stream(prep, pod_valid: Optional[np.ndarray] = None):
     """(tmpl, valid, forced) int32 tensors of the prepared stream on
-    ``prep.device``; every pod is valid."""
-    valid = np.ones(len(prep.tmpl_ids), bool)
+    ``prep.device``; `pod_valid` ([P] bool) masks pods out of the stream
+    (None: every pod is valid)."""
+    valid = np.ones(len(prep.tmpl_ids), bool) if pod_valid is None else np.asarray(pod_valid, dtype=bool)
     i32 = torch.int32
     return (
         _to(prep.tmpl_ids, i32, prep.device),
@@ -388,6 +396,7 @@ class Scheduled(NamedTuple):
     used: np.ndarray  # [N, R] f32
     gpu_take: np.ndarray  # [P, Gd] f32 GPU slots per device
     gpu_free: np.ndarray  # [N, Gd] f32 final free memory per GPU
+    port_used: np.ndarray  # [N, Hports] f32 final use of each host-port id
     vg_free: np.ndarray  # [N, Vg] f32 final free bytes per volume group
     dev_free: np.ndarray  # [N, Dv] f32 final free bytes per device, 0 once taken
     fail_counts: np.ndarray  # [P, fast_scan.N_FAIL] i32 nodes failing each dynamic filter first
@@ -395,15 +404,20 @@ class Scheduled(NamedTuple):
     static_fail: np.ndarray  # [U, 4] i32 nodes failing each static filter first, per template
 
 
-def schedule(prep, built: Optional[Tuple[FastInputs, Dict[str, np.ndarray]]] = None) -> Scheduled:
-    """Run the bind scan over the prepared stream: the kernel on a card,
-    the plain version on the CPU; `built` is :func:`build_inputs`'s result
-    when the caller has it. Without GPU-share pods the scan leaves the GPUs
-    as they were (no takes, the initial free memory), and without
-    local-storage pods the volume groups and devices."""
+def schedule(
+    prep,
+    built: Optional[Tuple[FastInputs, Dict[str, np.ndarray]]] = None,
+    pod_valid: Optional[np.ndarray] = None,
+) -> Scheduled:
+    """Run the bind scan over the prepared stream, one launch: the kernel
+    on a card, the plain version on the CPU. `built` is
+    :func:`build_inputs`'s result when the caller has it (a masked node
+    axis enters there); `pod_valid` ([P] bool) masks pods out of the
+    stream. Without GPU-share pods the scan leaves the GPUs as they were
+    (no takes, the initial free memory), without host ports the ports, and
+    without local-storage pods the volume groups and devices."""
     fi, meta = build_inputs(prep) if built is None else built
-    tmpl, valid, forced = pod_stream(prep)
-    out = fast_scan(fi, tmpl, valid, forced)
+    out = fast_scan(fi, *pod_stream(prep, pod_valid))
     host = lambda t: t.T.contiguous().cpu().numpy()
     chosen = out.chosen.cpu().numpy()
     v = variant(fi)
@@ -413,9 +427,12 @@ def schedule(prep, built: Optional[Tuple[FastInputs, Dict[str, np.ndarray]]] = N
     else:
         gpu_free = np.asarray(st0.gpu_free)
         gpu_take = np.zeros((len(chosen), gpu_free.shape[1]), np.float32)
+    port_used = np.array(st0.port_used, copy=True)  # port ids past the templates' stay unused
+    port_used[:, : fi.port_HU.shape[0]] = host(out.port_used)
     vg_free, dev_free = (host(out.vg_free), host(out.dev_free)) if v.local else (st0.vg_free, st0.dev_free)
-    return Scheduled(chosen, host(out.used), gpu_take, gpu_free, np.asarray(vg_free), np.asarray(dev_free),
-                     out.fail_counts.cpu().numpy(), out.insufficient.cpu().numpy(), meta["static_fail"])
+    return Scheduled(chosen, host(out.used), gpu_take, gpu_free, port_used, np.asarray(vg_free),
+                     np.asarray(dev_free), out.fail_counts.cpu().numpy(), out.insufficient.cpu().numpy(),
+                     meta["static_fail"])
 
 
 class _SweepContext:

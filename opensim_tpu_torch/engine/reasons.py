@@ -4,7 +4,8 @@ FitError rendering: the port's own copy of the JAX package's
 
 Every unschedulable-reason string of the port comes from this module: the
 kube-scheduler FitError phrasings of the 11 filter plugins, and the
-missing pinned node of a forced pod. The filter members' values are the
+missing pinned node of a forced pod, and the eviction of a preemption
+victim. The filter members' values are the
 filter indices of ``ops/kernels.py`` (``F_NODE_PIN`` … ``F_EXTRA``).
 """
 
@@ -75,6 +76,10 @@ FILTER_MESSAGES: List[str] = [
 
 def node_not_found(node_name: str) -> str:
     return Reason.NODE_NOT_FOUND.message.format(node=node_name)
+
+
+def preempted(namespace: str, name: str) -> str:
+    return Reason.PREEMPTED.message.format(pod=f"{namespace}/{name}")
 
 
 @dataclass

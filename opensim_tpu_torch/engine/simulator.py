@@ -9,9 +9,13 @@ whole pod stream is placed by one bind-scan kernel launch
 node, the nodes each filter rejected; decode renders those counts as the
 reference's kube FitError reason strings (``engine/reasons.py``).
 
-This slice covers the default arguments. It raises rather than falls
-back: ``NotImplementedError`` for an input outside the kernel's envelope
-(``fastpath.why_not``).
+The planner's arguments are here: a prepared input reused over a masked
+node axis (``prep=``/``node_valid=``) and the opt-in preemption pass
+(``enable_preemption=``, ``engine/preemption.py``). It
+raises rather than falls back: ``NotImplementedError`` for an input
+outside the kernel's envelope (``fastpath.why_not``) and for a scheduler
+config, extra plugins, a sampled tie-break or explain mode (ROADMAP
+Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -40,8 +44,8 @@ from ..models.objects import (
     Pod,
     ResourceTypes,
 )
-from ..ops import kernels
-from . import fastpath, queues, reasons
+from ..ops import fast_scan, kernels
+from . import fastpath, preemption, queues, reasons
 
 
 @dataclass
@@ -77,7 +81,8 @@ class SimulateResult:
     the final free bytes per volume group ``vg_free [N, Vg]`` and per
     exclusive device ``dev_free [N, Dv]`` (0 once taken), and host-clock
     phase times in seconds (``timings``: prepare, inputs, kernel with the
-    copies back, decode)."""
+    copies back, decode with the preemption pass), and the engine that ran
+    (``engine``: the kernel variant and the device)."""
 
     unscheduled_pods: List[UnscheduledPod] = field(default_factory=list)
     node_status: List[NodeStatus] = field(default_factory=list)
@@ -88,6 +93,7 @@ class SimulateResult:
     vg_free: Optional[np.ndarray] = None
     dev_free: Optional[np.ndarray] = None
     timings: Dict[str, float] = field(default_factory=dict)
+    engine: str = ""
 
     def pods_on(self, node_name: str) -> List[Pod]:
         for ns in self.node_status:
@@ -101,7 +107,10 @@ class Prepared:
     """Expanded + encoded simulation inputs: the numpy encoding
     (``ec_np``/``st0_np``) and its tensors on ``device`` (``ec``/``st0``).
     ``ds_target[p]`` is the node a DaemonSet pod is pinned to, -1 for any
-    other pod."""
+    other pod. For the delta re-encoders (``engine/prepcache.py``): the
+    encoder that built it (``encoder``), the length of the cluster's part of
+    the stream (``n_cluster``) and the sizes of the cluster DaemonSets'
+    groups, which close it (``ds_group_sizes``)."""
 
     ec: EncodedCluster
     st0: ScanState
@@ -114,6 +123,9 @@ class Prepared:
     ds_target: np.ndarray
     features: kernels.Features
     device: torch.device
+    encoder: ClusterEncoder
+    n_cluster: int
+    ds_group_sizes: List[int]
 
 
 def pinned_node_name(pod: Pod) -> str:
@@ -156,11 +168,13 @@ def _owner_selector(pod: Pod) -> Optional[dict]:
     return None
 
 
-def _cluster_pods(cluster: ResourceTypes) -> List[Pod]:
+def _cluster_pods(cluster: ResourceTypes) -> Tuple[List[Pod], List[int]]:
     """GetValidPodExcludeDaemonSet (pkg/simulator/utils.go:77-230): bare
     cluster pods minus DaemonSet-owned ones (those are re-expanded per
-    node), plus expanded cluster workloads; DaemonSet pods form the tail,
-    grouped in ``cluster.daemon_sets`` order."""
+    node), plus expanded cluster workloads. Returns ``(pods,
+    ds_group_sizes)``: the DaemonSet pods form the tail, grouped in
+    ``cluster.daemon_sets`` order, and the delta re-encoder splices new
+    nodes' DaemonSet pods in by these sizes."""
     ds_names = {(d.metadata.namespace, d.metadata.name) for d in cluster.daemon_sets}
     bare = [
         p
@@ -179,9 +193,28 @@ def _cluster_pods(cluster: ResourceTypes) -> List[Pod]:
         cron_jobs=cluster.cron_jobs,
     )
     pods = expand.generate_pods_from_resources(rt, cluster.nodes, include_daemon_sets=False)
+    ds_group_sizes: List[int] = []
     for ds in cluster.daemon_sets:
-        pods.extend(expand.pods_from_daemon_set(ds, cluster.nodes))
-    return pods
+        group = expand.pods_from_daemon_set(ds, cluster.nodes)
+        ds_group_sizes.append(len(group))
+        pods.extend(group)
+    return pods, ds_group_sizes
+
+
+def ds_targets(ordered: List[Pod], meta: ClusterMeta) -> np.ndarray:
+    """The node each DaemonSet pod of the stream is pinned to, -1 for any
+    other pod: only DaemonSet expansion pins a pod by matchFields
+    metadata.name, and a bare pinned pod is not a DaemonSet pod (the drain
+    and candidate masks rely on it)."""
+    node_idx = {name: i for i, name in enumerate(meta.node_names)}
+    return np.array(
+        [
+            node_idx.get(pinned_node_name(p), -1) if p.metadata.annotations.get(ANNO_WORKLOAD_KIND) == "DaemonSet"
+            else -1
+            for p in ordered
+        ],
+        dtype=np.int32,
+    )
 
 
 def prepare(
@@ -199,7 +232,8 @@ def prepare(
     enc = ClusterEncoder(node_pad=node_pad)
     enc.add_nodes(cluster.nodes)
 
-    ordered: List[Pod] = list(_cluster_pods(cluster))
+    ordered, ds_group_sizes = _cluster_pods(cluster)
+    n_cluster = len(ordered)
     for app in apps:
         app_pods = expand.generate_pods_from_resources(app.resources, cluster.nodes)
         for p in app_pods:
@@ -221,17 +255,6 @@ def prepare(
     )
     ec_np, st0_np, meta = enc.build()
     ec, st0 = to_device(ec_np, st0_np, device)
-    node_idx = {name: i for i, name in enumerate(meta.node_names)}
-    # only DaemonSet expansion pins a pod by matchFields metadata.name; a
-    # bare pinned pod is not a DaemonSet pod (the drain masks rely on it)
-    ds_target = np.array(
-        [
-            node_idx.get(pinned_node_name(p), -1) if p.metadata.annotations.get(ANNO_WORKLOAD_KIND) == "DaemonSet"
-            else -1
-            for p in ordered
-        ],
-        dtype=np.int32,
-    )
     return Prepared(
         ec=ec,
         st0=st0,
@@ -241,10 +264,48 @@ def prepare(
         ordered=ordered,
         tmpl_ids=tmpl_ids,
         forced=np.array([bool(p.spec.node_name) for p in ordered], dtype=bool),
-        ds_target=ds_target,
+        ds_target=ds_targets(ordered, meta),
         features=kernels.features_of(ec_np),
         device=device,
+        encoder=enc,
+        n_cluster=n_cluster,
+        ds_group_sizes=ds_group_sizes,
     )
+
+
+def _later_slice(sched_config, extra_plugins, tie_seed, explain) -> None:
+    """Raise for the arguments whose engine paths the port has not yet:
+    ROADMAP Queue 1 item 5 (scheduler-config surfaces)."""
+    for name, given in (("sched_config", sched_config is not None), ("extra_plugins", bool(extra_plugins)),
+                        ("tie_seed", tie_seed is not None), ("explain", bool(explain))):
+        if given:
+            raise NotImplementedError(
+                f"simulate({name}=...): scheduler-config surfaces are ROADMAP Queue 1 item 5, not yet ported"
+            )
+
+
+def _pod_valid(prep: Prepared, cluster: ResourceTypes, node_valid) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """The stream's pod-validity mask and the masked node axis, checked as
+    the reference checks them (``opensim_tpu/engine/simulator.py:889-916``):
+    `node_valid` must select exactly ``cluster.nodes`` as a prefix of the
+    prepared node order, and DaemonSet pods pinned to a masked-out node
+    leave the stream, as a fresh expansion of the sub-cluster would never
+    create them."""
+    pod_valid = np.ones((len(prep.ordered),), dtype=bool)
+    if node_valid is None:
+        return pod_valid, None
+    nv_mask = np.asarray(node_valid, dtype=bool)
+    if nv_mask.shape[0] != int(np.asarray(prep.ec_np.node_valid).shape[0]):
+        raise ValueError("node_valid mask must cover the prepared (padded) node axis")
+    names = [n.metadata.name for n in cluster.nodes]
+    if names != list(prep.meta.node_names[: len(names)]):
+        raise ValueError("cluster.nodes must be the valid prefix of the prepared node order")
+    n_valid = int(nv_mask.sum())
+    if n_valid != len(names) or not nv_mask[:n_valid].all():
+        raise ValueError("node_valid must select exactly cluster.nodes as a prefix")
+    pinned = prep.ds_target >= 0
+    pod_valid[pinned] &= nv_mask[prep.ds_target[pinned]]
+    return pod_valid, nv_mask
 
 
 def simulate(
@@ -253,25 +314,48 @@ def simulate(
     use_greed: bool = False,
     node_pad: int = 1,
     device: DeviceLike = None,
+    sched_config=None,
+    extra_plugins: tuple = (),
+    enable_preemption: bool = False,
+    tie_seed: Optional[int] = None,
+    prep: Optional[Prepared] = None,
+    node_valid: Optional[np.ndarray] = None,
+    explain: bool = False,
 ) -> SimulateResult:
     """One full simulation: cluster pods then apps in order, all placed by
     the bind-scan kernel on `device` (the card unless the caller names
-    another device; the CPU runs the kernel's plain version)."""
+    another device; the CPU runs the kernel's plain version).
+
+    `prep`/`node_valid` (the planner's reuse): run over an existing
+    Prepared (on its device) with the node axis masked down to
+    `node_valid`; ``cluster.nodes`` must be exactly the valid prefix of the
+    prepared node order. Placements, reasons and node annotations equal a
+    fresh prepare of the sub-cluster's. `enable_preemption` runs the
+    preemption pass over the kernel's final state (not with `prep`)."""
+    _later_slice(sched_config, extra_plugins, tie_seed, explain)
+    if prep is not None and enable_preemption:
+        raise ValueError("prep reuse does not support enable_preemption; pass prep=None")
     t0 = time.perf_counter()
-    prep = prepare(cluster, apps, use_greed=use_greed, node_pad=node_pad, device=device)
+    if prep is None:
+        prep = prepare(cluster, apps, use_greed=use_greed, node_pad=node_pad, device=device)
     if prep is None:
         return SimulateResult(node_status=[NodeStatus(node=n, pods=[]) for n in cluster.nodes])
+    pod_valid, nv_mask = _pod_valid(prep, cluster, node_valid)
     miss = fastpath.why_not(prep)
     if miss is not None:
         raise NotImplementedError(f"outside the port's bind-scan envelope: {miss}")
     t1 = time.perf_counter()
-    built = fastpath.build_inputs(prep)
+    built = fastpath.build_inputs(prep, nv_mask)
     if prep.device.type == "cuda":
         torch.cuda.synchronize(prep.device)
     t2 = time.perf_counter()
-    out = fastpath.schedule(prep, built)  # host copies: the card is done
+    out = fastpath.schedule(prep, built, pod_valid=pod_valid)  # host copies: the card is done
     t3 = time.perf_counter()
-    statuses, unscheduled = _decode(prep, out, cluster.nodes)
+    victims_of: Dict[int, int] = {}
+    if enable_preemption and (out.chosen[~prep.forced] < 0).any():
+        out, victims_of = _preempt(prep, out, cluster, apps, pod_valid)
+    n_nodes = prep.meta.n_real_nodes if nv_mask is None else int(nv_mask.sum())
+    statuses, unscheduled = _decode(prep, out, cluster.nodes, pod_valid, n_nodes, victims_of)
     t4 = time.perf_counter()
     return SimulateResult(
         unscheduled_pods=unscheduled,
@@ -283,7 +367,22 @@ def simulate(
         vg_free=out.vg_free,
         dev_free=out.dev_free,
         timings={"prepare": t1 - t0, "inputs": t2 - t1, "kernel": t3 - t2, "decode": t4 - t3},
+        engine=f"{fast_scan.variant_name(built[0])} on {prep.device.type}",
     )
+
+
+def _preempt(prep: Prepared, out: fastpath.Scheduled, cluster: ResourceTypes, apps: List[AppResource],
+             pod_valid: np.ndarray) -> Tuple[fastpath.Scheduled, Dict[int, int]]:
+    """The preemption pass over copies of the scan's final state (the
+    encoder's layouts, as ``fastpath.schedule`` returns them); returns the
+    updated result and the victims, each with its preemptor."""
+    state = {name: np.array(getattr(out, name), copy=True)
+             for name in ("used", "gpu_take", "port_used", "gpu_free", "vg_free", "dev_free")}
+    pdbs = tuple(cluster.pdbs) + tuple(pdb for app in apps for pdb in app.resources.pdbs)
+    chosen, victims_of = preemption.preempt_pass(
+        prep, out.chosen, cluster.nodes, alloc=np.asarray(prep.ec_np.alloc), pdbs=pdbs, eligible=pod_valid, **state,
+    )
+    return out._replace(chosen=chosen, **state), victims_of
 
 
 def _reason_string(
@@ -302,21 +401,24 @@ def _reason_string(
 
 
 def _decode(
-    prep: Prepared, out: fastpath.Scheduled, nodes: List[Node]
+    prep: Prepared, out: fastpath.Scheduled, nodes: List[Node], active: np.ndarray, n_nodes: int,
+    victims_of: Dict[int, int],
 ) -> Tuple[List[NodeStatus], List[UnscheduledPod]]:
-    """One numpy pass splits the stream into placed and failed pods (the
-    reference's ``_decode``). Each placed pod goes into its node's bucket,
-    in stream order, with the GPU devices it took; each failed pod gets its
-    reason, in stream order: a forced pod's node was not found, any other
-    pod gets the FitError rendering of its counts. Returns the node
-    statuses, whose annotations show the final GPU and local-storage state,
-    and the unscheduled pods."""
+    """One numpy pass splits the stream's `active` pods (the valid ones)
+    into placed and failed pods (the reference's ``_decode``). Each placed
+    pod goes into its node's bucket, in stream order, with the GPU devices
+    it took; each failed pod gets its reason, in stream order: a forced
+    pod's node was not found, a preemption victim names its preemptor, any
+    other pod gets the FitError rendering of its counts over the `n_nodes`
+    valid nodes. Returns the node statuses, whose annotations show the
+    final GPU and local-storage state, and the unscheduled pods."""
     node_pods: Dict[str, List[Pod]] = {n.metadata.name: [] for n in nodes}
+    # a masked run's nodes past the valid prefix have no bucket (no pod lands there)
     pod_lists = [node_pods.get(n) for n in prep.meta.node_names]
     gpu_any = (out.gpu_take.sum(axis=1) > 0).tolist()
     chosen = out.chosen
-    placed_idx = np.nonzero(chosen >= 0)[0]
-    failed_idx = np.nonzero(chosen < 0)[0]
+    placed_idx = np.nonzero(active & (chosen >= 0))[0]
+    failed_idx = np.nonzero(active & (chosen < 0))[0]
     for i, c in zip(placed_idx.tolist(), chosen[placed_idx].astype(int).tolist()):
         pod = prep.ordered[i]
         pod.spec.node_name = prep.meta.node_names[c]
@@ -336,12 +438,43 @@ def _decode(
         pod = prep.ordered[i]
         if prep.forced[i]:
             reason = reasons.node_not_found(pod.spec.node_name)
+        elif i in victims_of:
+            preemptor = prep.ordered[victims_of[i]]
+            reason = reasons.preempted(preemptor.metadata.namespace, preemptor.metadata.name)
         else:
             reason = _reason_string(out.static_fail[prep.tmpl_ids[i]], out.fail_counts[i], out.insufficient[i],
-                                    prep.meta, prep.meta.n_real_nodes)
+                                    prep.meta, n_nodes)
         unscheduled.append(UnscheduledPod(pod, reason))
     statuses = _node_statuses(nodes, node_pods, prep.meta, out.gpu_free, out.vg_free, out.dev_free)
     return statuses, unscheduled
+
+
+def snapshot_bind_state(prep: Prepared) -> list:
+    """Everything :func:`_decode` changes on the prepared pods, so that a
+    caller running several simulations over one Prepared (the planner:
+    the first simulation, then the delta re-encode that reuses its pods)
+    can restore them between runs. Kept next to ``_decode``: a new
+    bind-time change to a pod goes into both."""
+    return [
+        (
+            p.spec.node_name,
+            p.phase,
+            p.metadata.annotations.get(ANNO_GPU_INDEX),
+            p.metadata.annotations.get(ANNO_GPU_ASSUME_TIME),
+        )
+        for p in prep.ordered
+    ]
+
+
+def restore_bind_state(prep: Prepared, snap: list) -> None:
+    for p, (node_name, phase, gpu_idx, assume) in zip(prep.ordered, snap):
+        p.spec.node_name = node_name
+        p.phase = phase
+        for key, value in ((ANNO_GPU_INDEX, gpu_idx), (ANNO_GPU_ASSUME_TIME, assume)):
+            if value is None:
+                p.metadata.annotations.pop(key, None)
+            else:
+                p.metadata.annotations[key] = value
 
 
 def _node_statuses(

@@ -570,6 +570,51 @@ def oversubscribed_apps(n_nodes: int, n_pods: int) -> List[Tuple[str, ResourceTy
     return [("hog-hdd", hdd), ("hog-any", anywhere), ("plan", synthetic_apps(n_pods))]
 
 
+def apply_apps(n_pods: int, n_hog: int) -> List[Tuple[str, ResourceTypes]]:
+    """The apply plan's two apps, in order, as (name, resources): ``bench``,
+    :func:`synthetic_apps` of n_pods pods, and ``hog``, one Deployment of
+    n_hog pods of 60 cores / 128 GiB, last in the stream. Each node of the
+    capacity fleet keeps about 1.7 cores in use after ``bench`` (at 10 pods
+    a node), so it then holds one ``hog`` pod and no second: the plan needs
+    n_hog − (fleet size) new nodes of the fleet's kind."""
+    hog = ResourceTypes()
+    hog.deployments.append(make_fake_deployment("hog", n_hog, "60", "128Gi"))
+    return [("bench", synthetic_apps(n_pods)), ("hog", hog)]
+
+
+def write_apply_plan(root, n_nodes: int, n_pods: int, n_hog: int) -> str:
+    """Write the apply plan as a user would hand it to ``simon apply``: the
+    capacity fleet of n_nodes (:func:`synthetic_cluster`) in ``cluster/``,
+    the apps of :func:`apply_apps` in ``bench/`` and ``hog/``, the fleet's
+    next node as the new-node template in ``newnode/``, and the Config CR
+    naming them, ``config.yaml``, whose path it returns."""
+    import yaml
+
+    dumper = getattr(yaml, "CSafeDumper", yaml.SafeDumper)
+    root = Path(root)
+    dirs = {
+        "cluster": [n.raw for n in synthetic_cluster(n_nodes).nodes],
+        "newnode": [_fleet_node(n_nodes).raw],
+        **{name: [w.raw for w in rt.deployments] for name, rt in apply_apps(n_pods, n_hog)},
+    }
+    for name, docs in dirs.items():
+        (root / name).mkdir(parents=True, exist_ok=True)
+        with open(root / name / f"{name}.yaml", "w") as f:
+            yaml.dump_all(docs, f, Dumper=dumper)
+    config = root / "config.yaml"
+    config.write_text(yaml.safe_dump({
+        "apiVersion": "simon/v1alpha1",
+        "kind": "Config",
+        "metadata": {"name": "apply-plan"},
+        "spec": {
+            "cluster": {"customConfig": "cluster"},
+            "appList": [{"name": "bench", "path": "bench"}, {"name": "hog", "path": "hog"}],
+            "newNode": "newnode",
+        },
+    }))
+    return str(config)
+
+
 def _gpu_share(mem: str, count: str) -> Option:
     return with_annotations({"alibabacloud.com/gpu-mem": mem, "alibabacloud.com/gpu-count": count})
 

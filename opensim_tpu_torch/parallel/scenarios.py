@@ -27,18 +27,25 @@ class SweepResult(NamedTuple):
     vg_used: np.ndarray  # [S] f32 VG bytes allocated on the scenario's valid nodes
 
 
-def sweep_counts(prep, n_real: int, ks, config=None) -> "tuple[SweepResult, np.ndarray]":
-    """Candidate new-node count sweep over a prepared arena: scenario s
-    enables the first ``n_real + ks[s]`` nodes of the prepared node axis,
-    and DaemonSet pods pinned to a disabled candidate node are masked out
-    of that scenario (a smaller expansion would never have created them).
-    Returns (SweepResult, node_valid_masks)."""
+def count_masks(prep, n_real: int, ks) -> "tuple[np.ndarray, np.ndarray]":
+    """The masks of a candidate new-node count sweep over a prepared arena:
+    scenario s enables the first ``n_real + ks[s]`` nodes of the prepared
+    node axis (``node_valid [S, N]``), and DaemonSet pods pinned to a
+    disabled candidate node leave that scenario's stream (``pod_valid [S,
+    P]``): a smaller expansion would never have created them."""
     N = int(np.asarray(prep.ec_np.node_valid).shape[0])
     ks = np.asarray(ks, dtype=np.int64)
     node_valid = np.arange(N)[None, :] < (n_real + ks)[:, None]
     pod_valid = np.ones((len(ks), len(prep.ordered)), dtype=bool)
     on_candidate = np.flatnonzero(prep.ds_target >= n_real)  # DaemonSet pods pinned to a candidate node
     pod_valid[:, on_candidate] = node_valid[:, prep.ds_target[on_candidate]]
+    return node_valid, pod_valid
+
+
+def sweep_counts(prep, n_real: int, ks, config=None) -> "tuple[SweepResult, np.ndarray]":
+    """Candidate new-node count sweep over a prepared arena, one scenario a
+    count (:func:`count_masks`). Returns (SweepResult, node_valid_masks)."""
+    node_valid, pod_valid = count_masks(prep, n_real, ks)
     return sweep_auto(prep, node_valid, pod_valid, config=config), node_valid
 
 
