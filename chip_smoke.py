@@ -45,8 +45,8 @@ over-subscribed capacity plan (the capacity fleet with 10 pods bound to a
 missing node, then 2,000 pods of 48 cores on the hdd nodes and 4,000 of 40
 cores anywhere, then the capacity plan's 50,000 pods; 1,010 pods find no
 node, all before the last 50,000 bind): the one scan against the plain
-version on all nine outputs over the first 6,010 pods (every failure,
-failure counts included), against the grid at S = 1 on the seven state
+version on all ten outputs over the first 6,010 pods (every failure,
+failure counts included), against the grid at S = 1 on the eight state
 outputs over the whole stream, simulate() through exactly one launch
 reporting the reason strings of the plain version's counts, and the
 counting pass timed by the card's global timer inside the kernel.
@@ -60,14 +60,34 @@ nodes against the coarse and fine grids' rows over the whole stream and
 the plain version over a prefix, the minimality of n_new by those
 launches, at 0 new nodes the first simulation's 100 reasons pod for pod
 and the failing tail (the 5,100 large pods, from the kernel's usage
-after the others) against the plain version on all nine outputs; and the three example configs, whose reports on the card equal
+after the others) against the plain version on all ten outputs; and the three example configs, whose reports on the card equal
 the plain versions' on the CPU. Each small case of phase 3 also runs as a
 masked one scan (a node and a third of the pods masked out) against the
-plain version. Every phase raises on failure.
+plain version; those of the base and score-table variants also under a
+scheduler config (one scan and grid), cut in two with the state carried,
+and (the base ones) with the sampled tie-break. Then the scheduler-config
+and sampled paths (phases 31-41): the config plan (the score-table plan
+with a NoSchedule taint no pod tolerates on every tenth node and one
+Deployment asking a resource no node offers, under a one-profile config
+that turns the taint filter off, ignores that resource and reweighs the
+scores: ``fast_scan[na,tt,avoid,cfg]``, its placements against the
+default config's), the two-profile plan (the capacity plan, its second
+half under the ``batch`` profile: two launches of ``fast_scan[cfg]``, the
+second from the first's state) and the sampled plan (the capacity plan
+with tie seed 7: ``fast_scan[sample]``), each against its plain version
+over 5,000 pods (of each segment), the first two against grid launches at
+S = 1 over the whole stream, the sampled placements each among its step's
+best scores and a quarter at least off the lowest index's; and ``simon
+apply -d`` on the apply plan (the cfg variants of both kernels), its
+masked one scan at n_new - 1 and n_new against the grids' rows. Every
+phase raises on failure.
 The last lines are the card's name and power limit, one JSON line with
-a row per kernel variant timed at full width, one for the drain sweep
-and three for the apply plan (the masked one scan, the coarse and the fine
-grid), and ``{"ok": true, "device": {...}}``.
+a row per kernel variant timed at full width, one for the drain sweep,
+three for the apply plan (the masked one scan, the coarse and the fine
+grid), one each for the config, two-profile and sampled plans (the
+last timed over its checked prefix, whose ties the plain version records
+for its bound) and three
+for the apply plan under ``-d``, and ``{"ok": true, "device": {...}}``.
 Without a card it exits non-zero and prints no result.
 """
 
@@ -84,9 +104,12 @@ import numpy as np
 import torch
 
 #: Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-#: float32 non-tensor-core FLOP/s.
+#: float32 non-tensor-core FLOP/s (128 lanes per SM, a fused multiply-add
+#: counted as two). The 32-bit integer rate follows from the same clock:
+#: 64 lanes per SM, an operation counted as one.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_I32_S = PEAK_F32_S / 4
 #: Every plan at its full size.
 N_NODES = 5000
 N_PODS = 50000
@@ -114,6 +137,16 @@ APPLY_PLAIN_PODS = 2000
 APPLY_LIMIT_S = 10.0
 #: The example configs, their extended-resource reports and the kernel
 #: variant each runs (phase 30 checks it against the launches).
+#: The scheduler-config and sampled plans: the plain version checks the
+#: first CFG_PLAIN_PODS pods (of each segment of the two-profile plan);
+#: the sampled plan's seed. SMALL_CONFIG is the config phase 3 runs the
+#: small cases of the default and score-table variants under.
+CFG_PLAIN_PODS = 5000
+TIE_SEED = 7
+SMALL_CONFIG = dict(w_balanced=0.0, w_least=3.0, w_node_affinity=2.0, w_taint_toleration=5.0, w_spread=1.0,
+                    w_prefer_avoid=0.0, w_simon=0.5, f_taints=False, f_spread=False, fit_ignored_cols=(1,))
+#: The variants the new plans and phase 3's config and sampled cases run.
+CFG_VARIANTS = ("fast_scan[cfg]", "fast_scan[na,tt,avoid,cfg]", "fast_scan[sample]")
 EXAMPLES = (("simon-config.yaml", [], "fast_scan[interpod]"),
             ("simon-gpushare-config.yaml", ["gpu"], "fast_scan[gpu]"),
             ("simon-local-config.yaml", ["open-local"], "fast_scan[local]"))
@@ -141,11 +174,19 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _ops_ms(work: dict) -> float:
+    """The least time the card could take for a work count's operations:
+    its integer operations alone at the INT32 rate, or all of them through
+    the issue slots, where an integer operation takes the slot of a fused
+    multiply-add (two float operations), whichever is longer."""
+    return max(work["ops"] + 2 * work["int_ops"], PEAK_F32_S / PEAK_I32_S * work["int_ops"]) / PEAK_F32_S * 1e3
+
+
 def _same(got, want, what: str, fields=None) -> float:
-    """Identical outputs, all nine unless `fields` names fewer (placements,
+    """Identical outputs, all ten unless `fields` names fewer (placements,
     usage, GPU takes, GPU, host-port, volume-group and device state, the
-    failure counts and shortages), or raise; returns the largest absolute
-    difference of the other outputs."""
+    failure counts and shortages, the whole final state row), or raise;
+    returns the largest absolute difference of the other outputs."""
     if not torch.equal(got.chosen, want.chosen):
         diff = got.chosen != want.chosen
         raise AssertionError(
@@ -207,22 +248,84 @@ def small_cases(device) -> None:
         got_s = fs.fast_scan_sweep(fi, *grid)
         want_s = fs.fast_scan_sweep_reference(fi, *grid)
         _same(got_s, want_s, f"case {name}, sweep of {grid[1].shape[0]} drains")
+        extra = _config_small_case(prep, fs.variant_name(fi), name)
         counted = int(got.fail_counts.any(1).sum())
         print(f"case {name} ({fs.variant_name(fi)}): N={fi.alloc_T.shape[1]} P={len(prep.tmpl_ids)} "
               f"placed={int((got.chosen >= 0).sum())} counted failures={counted} gpu slots={int(got.gpu_take.sum())} "
               f"ports used={int(got.port_used.sum())} devices taken={int((got.dev_free < fi.dev0).sum())} "
               f"identical; sweep of {grid[1].shape[0]} drains identical "
               f"(placed {(got_s.chosen >= 0).sum(1).tolist()}); masked one scan identical "
-              f"({int(pod_valid.sum())} pods on {int(node_valid.sum())} nodes, {failing_m} found no node)", flush=True)
+              f"({int(pod_valid.sum())} pods on {int(node_valid.sum())} nodes, {failing_m} found no node){extra}",
+              flush=True)
     if masked_failures == 0:
         raise AssertionError("no masked small case had a pod that found no node")
 
 
-def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
+def _sched_config(prep, text: str, name: str):
+    """The scheduler config file `text` (a ``fixtures.SCHED_*`` text)
+    written under the smoke directory as ``<name>.yaml``, loaded as
+    ``simon apply -d`` loads it, and routed over the prepared stream:
+    (the loaded config, its segments [(config, lo, hi)])."""
+    from opensim_tpu_torch.engine import schedconfig
+    from opensim_tpu_torch.models import fixtures as fx
+
+    path = fx.write_scheduler_config(_plan_dir() / "sched" / f"{name}.yaml", text)
+    sched = schedconfig.load_scheduler_config(path)
+    segments, invalid = schedconfig.resolve_profile_segments(sched, prep.ordered, prep.meta.resource_names,
+                                                             forced=prep.forced)
+    if invalid:
+        raise AssertionError(f"{len(invalid)} pods name no profile of {path}")
+    return sched, segments
+
+
+def _config_small_case(prep, variant: str, name: str) -> str:
+    """A small case of the default or score-table variant also under
+    SMALL_CONFIG (the cfg variant's one scan and three-drain grid against
+    the plain versions), cut in two with the state carried (one scan and
+    grid, against one launch), and with the default variant sampled
+    (TIE_SEED; against the plain version). Returns what it checked."""
+    from opensim_tpu_torch.engine import fastpath, schedconfig
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    if variant not in ("fast_scan", "fast_scan[na,tt,avoid]"):
+        return ""
+    fi, _ = fastpath.build_inputs(prep, cfg=schedconfig.SchedulerConfig(**SMALL_CONFIG))
+    stream = fastpath.pod_stream(prep)
+    whole = fs.fast_scan(fi, *stream)
+    _same(whole, fs.fast_scan_reference(fi, *stream), f"case {name} under a config")
+    grid = _drain_grid(prep, list(range(min(3, len(prep.meta.node_names)))))
+    whole_g = fs.fast_scan_sweep(fi, *grid)
+    _same(whole_g, fs.fast_scan_sweep_reference(fi, *grid), f"case {name} under a config, sweep")
+    k = stream[0].shape[0] // 2
+    a = fs.fast_scan(fi, *(t[:k] for t in stream))
+    b = fs.fast_scan(fi, *(t[k:] for t in stream), init=a.state)
+    per_pod = ("chosen", "gpu_take", "fail_counts", "insufficient")
+    _same(fs.FastOutputs(*(getattr(whole, f)[k:] if f in per_pod else getattr(whole, f) for f in fs.FastOutputs._fields)),
+          b, f"case {name} from the state after pod {k}")
+    cut = lambda sl: [grid[0][sl]] + [t[:, sl].contiguous() for t in grid[1:3]] + list(grid[3:])
+    a_g = fs.fast_scan_sweep(fi, *cut(slice(None, k)))
+    b_g = fs.fast_scan_sweep(fi, *cut(slice(k, None)), init=a_g.state)
+    _same(fs.FastOutputs(*(getattr(whole_g, f)[:, k:] if f in per_pod else getattr(whole_g, f)
+                           for f in fs.FastOutputs._fields)), b_g, f"case {name} sweep from the state after pod {k}")
+    out = f"; under a config ({fs.variant_name(fi)}) one scan, sweep and both from the state after pod {k} identical"
+    if variant == "fast_scan":
+        fi0, _ = fastpath.build_inputs(prep)
+        _same(fs.fast_scan(fi0, *stream, tie_seed=TIE_SEED), fs.fast_scan_reference(fi0, *stream, tie_seed=TIE_SEED),
+              f"case {name} sampled")
+        out += f"; sampled ({fs.variant_name(fi0, True)}) identical"
+    return out
+
+
+def full_plan(device, label: str, make, variant: str, prefix=None, sched_text=None, tie_seed=None) -> dict:
     """Kernel against its plain version over the first `prefix` pods of
     the stream (None: the whole stream), simulate() through the kernel,
-    then the kernel timed alone over the whole stream. Returns the plan's
-    row of the kernels table."""
+    then the kernel timed alone over the whole stream. With `sched_text`
+    (a one-profile scheduler config file), all of it under that config,
+    and the placements compared with the default config's; with
+    `tie_seed`, all of it with the sampled tie-break (no grid: it does not
+    sample), each placement among its step's best scores by the plain
+    version's record, and a quarter of the prefix's placements at least
+    off the lowest index's. Returns the plan's row of the kernels table."""
     from opensim_tpu_torch.engine import fastpath, simulator as sim
     from opensim_tpu_torch.ops import fast_scan as fs
 
@@ -231,39 +334,72 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
     cluster, app = make()
     apps = [sim.AppResource("plan", app)]
     prep = sim.prepare(cluster, apps, device=device)
-    miss = fastpath.why_not(prep)
+    sched = cfg = None
+    if sched_text is not None:
+        sched, segments = _sched_config(prep, sched_text, label.split()[1])
+        if len(segments) != 1:
+            raise AssertionError(f"the plan's config routes {len(segments)} segments, not one")
+        cfg = segments[0][0]
+    miss = fastpath.why_not(prep, cfg)
     if miss is not None:
         raise AssertionError(f"the plan falls outside the envelope: {miss}")
-    fi, _ = fastpath.build_inputs(prep)
-    if fs.variant_name(fi) != variant:
-        raise AssertionError(f"the plan runs {fs.variant_name(fi)}, not {variant}")
+    fi, _ = fastpath.build_inputs(prep, cfg=cfg)
+    sample = tie_seed is not None
+    if fs.variant_name(fi, sample) != variant:
+        raise AssertionError(f"the plan runs {fs.variant_name(fi, sample)}, not {variant}")
     tmpl, valid, forced = fastpath.pod_stream(prep)
     P, N = tmpl.shape[0], fi.alloc_T.shape[1]
     head = (tmpl, valid, forced) if prefix is None else tuple(t[:prefix].contiguous() for t in (tmpl, valid, forced))
     P_head = head[0].shape[0]
-    got_head = fs.fast_scan(fi, *head)
+    got_head = fs.fast_scan(fi, *head, tie_seed=tie_seed)
     torch.cuda.synchronize()
-    plain = [None]
+    plain, stats = [None], {}
 
     def run_plain():
-        plain[0] = fs.fast_scan_reference(fi, *head)
+        plain[0] = fs.fast_scan_reference(fi, *head, tie_seed=tie_seed, stats=stats)
 
     plain_ms = _events_ms(run_plain, reps=1)
     err = _same(got_head, plain[0], f"{label}, {P_head} pods")
-    print(f"{P_head} pods at N={N}: kernel and plain version identical on all nine outputs "
+    print(f"{P_head} pods at N={N}: kernel and plain version identical on all ten outputs "
           f"(plain {plain_ms:.3f} ms, {int(got_head.gpu_take.sum())} GPU slots taken, "
           f"{int(got_head.port_used.sum())} host ports used)", flush=True)
-    whole = fs.fast_scan(fi, tmpl, valid, forced)
-    grid1 = [None]
+    whole = fs.fast_scan(fi, tmpl, valid, forced, tie_seed=tie_seed)
+    extra = {}
+    if sample:
+        scheduled = (head[1] != 0) & (head[2] == 0) & (got_head.chosen >= 0)
+        if not bool(stats["at_max"].all()):
+            raise AssertionError(f"{int((~stats['at_max']).sum())} sampled placements off their step's maxima")
+        lowest = fs.fast_scan(fi, *head).chosen
+        moved = float((got_head.chosen != lowest).float().mean())
+        if moved < 0.25:
+            raise AssertionError(f"only {moved:.3f} of the sampled placements differ from the lowest index's")
+        ties = stats["ties"][scheduled].float()
+        extra = {"tie_seed": tie_seed, "moved_from_lowest": moved, "mean_ties": float(ties.mean()),
+                 "steps_tied": int((ties > 1).sum())}
+        print(f"every sampled placement among its step's best scores (plain version's record; {extra['steps_tied']} "
+              f"of {int(scheduled.sum())} steps tied, {extra['mean_ties']:.1f} nodes at the best score on average); "
+              f"{moved:.4f} of the {P_head} placements differ from the lowest-index run", flush=True)
+        grid1_ms = None
+    else:
+        grid1 = [None]
 
-    def run_grid1():
-        grid1[0] = fs.fast_scan_sweep(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None])
+        def run_grid1():
+            grid1[0] = fs.fast_scan_sweep(fi, tmpl, valid[None], forced[None], fi.node_valid[None],
+                                          fi.spr_weight[None])
 
-    grid1_ms = _events_ms(run_grid1, reps=1)
-    err = max(err, _same(whole, fs.FastOutputs(*(t[0] for t in grid1[0])),
-                         f"{label}: one scan vs the grid at S=1 over {P} pods", fs.STATE_FIELDS))
-    print(f"{P} pods: one scan and the grid at S=1 identical on all seven outputs over the whole stream "
-          f"(grid at S=1 {grid1_ms:.3f} ms)", flush=True)
+        grid1_ms = _events_ms(run_grid1, reps=1)
+        err = max(err, _same(whole, fs.FastOutputs(*(t[0] for t in grid1[0])),
+                             f"{label}: one scan vs the grid at S=1 over {P} pods", fs.STATE_FIELDS))
+        print(f"{P} pods: one scan and the grid at S=1 identical on all eight state outputs over the whole stream "
+              f"(grid at S=1 {grid1_ms:.3f} ms)", flush=True)
+    if cfg is not None:
+        default = fs.fast_scan(fastpath.build_inputs(prep)[0], tmpl, valid, forced).chosen
+        differ = int((default != whole.chosen).sum())
+        if differ == 0:
+            raise AssertionError("the config placed the stream as the default config does")
+        extra = {"differs_from_default": differ, "default_unplaced": int((default < 0).sum())}
+        print(f"{differ} of {P} placements differ from the default config's ({extra['default_unplaced']} pods "
+              f"find no node there)", flush=True)
 
     _phase(f"{label}: simulate(), {N_PODS} pods on {N_NODES} nodes")
     cluster, app = make()  # fresh objects: simulate() writes into its pods
@@ -271,7 +407,7 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
     torch.cuda.synchronize()
     fs.LAUNCHES = 0
     fs.VARIANT_LAUNCHES.clear()
-    res = sim.simulate(cluster, apps, device=device)
+    res = sim.simulate(cluster, apps, device=device, sched_config=sched, tie_seed=tie_seed)
     launches, by_variant = fs.LAUNCHES, dict(fs.VARIANT_LAUNCHES)
     launched = fs.SCAN_LAUNCHED[variant]  # the shape simulate()'s launch ran and its kernel's ptxas report
     n_placed = sum(len(ns.pods) for ns in res.node_status)
@@ -302,13 +438,24 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
     print(f"plan wall-clock {wall:.6f} s, {P / wall:.1f} pods/s (host clock)", flush=True)
 
     _phase(f"{label}: the kernel over the whole stream (CUDA events)")
-    ms = _events_ms(lambda: fs.fast_scan(fi, tmpl, valid, forced), reps=3)
+    ms = _events_ms(lambda: fs.fast_scan(fi, tmpl, valid, forced, tie_seed=tie_seed), reps=3)
     work = fs.fast_scan_work(fi, tmpl, valid, forced, torch.from_numpy(res.placements))
+    P_timed = P
+    if sample:
+        # the bound counts a draw per node at a tied step's best score, which
+        # the plain version records over the prefix only: the row times the
+        # kernel over that prefix, beside the lowest-index kernel on it
+        extra.update(whole_ms=ms, whole_pods=P, lowest_ms=_events_ms(lambda: fs.fast_scan(fi, *head), reps=3))
+        ms, P_timed = _events_ms(lambda: fs.fast_scan(fi, *head, tie_seed=tie_seed), reps=3), P_head
+        work = fs.fast_scan_work(fi, *head, got_head.chosen, ties=stats["ties"])
+        print(f"kernel over the whole stream {extra['whole_ms']:.3f} ms ({extra['whole_ms'] * 1e3 / P:.3f} us/pod); "
+              f"over the first {P_head} pods sampled {ms:.3f} ms, lowest index {extra['lowest_ms']:.3f} ms",
+              flush=True)
     t_bytes = work["bytes"] / PEAK_BYTES_S * 1e3
-    t_ops = work["ops"] / PEAK_F32_S * 1e3
-    print(f"kernel {ms:.3f} ms ({ms * 1e3 / P:.3f} us/pod), plain {plain_ms:.3f} ms over {P_head} pods "
-          f"({plain_ms * 1e3 / P_head:.3f} us/pod), bound {max(t_bytes, t_ops):.6f} ms "
-          f"({work['bytes']} B, {work['ops']} flop)", flush=True)
+    t_ops = _ops_ms(work)
+    print(f"kernel {ms:.3f} ms over {P_timed} pods ({ms * 1e3 / P_timed:.3f} us/pod), plain {plain_ms:.3f} ms over "
+          f"{P_head} pods ({plain_ms * 1e3 / P_head:.3f} us/pod), bound {max(t_bytes, t_ops):.6f} ms "
+          f"({work['bytes']} B, {work['ops']} flop, {work['int_ops']} integer operations)", flush=True)
     return {
         "name": variant,
         "plan": label.split(" ", 1)[1],
@@ -319,7 +466,7 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "pods": P,
+        "pods": P_timed,
         "plain_pods": P_head,
         "grid_s1_ms": grid1_ms,
         "cluster": shape["cluster"],
@@ -330,6 +477,7 @@ def full_plan(device, label: str, make, variant: str, prefix=None) -> dict:
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
+        **extra,
     }
 
 
@@ -468,7 +616,7 @@ def drain_sweep(device) -> dict:
 def oversubscribed_plan(device) -> list:
     """The over-subscribed capacity plan through the one scan's counting
     pass: kernel vs plain over the first OVER_HEAD pods (every failure) on
-    all nine outputs, vs the grid at S = 1 on the seven state outputs over
+    all ten outputs, vs the grid at S = 1 on the eight state outputs over
     the whole stream; simulate() through exactly one launch, its reasons
     those of the plain version's counts; the kernel timed over the whole
     stream and its counting passes by their own clock. Returns the plan's
@@ -509,7 +657,7 @@ def oversubscribed_plan(device) -> list:
     n_failing, n_forced = int(failing.sum()), int(((got_head.chosen < 0) & (head[2] != 0)).sum())
     if n_failing == 0 or not bool(got_head.fail_counts[failing].any(1).all()):
         raise AssertionError(f"{n_failing} failing pods, not every one counted")
-    print(f"{OVER_HEAD} pods at N={N}: kernel and plain version identical on all nine outputs (plain "
+    print(f"{OVER_HEAD} pods at N={N}: kernel and plain version identical on all ten outputs (plain "
           f"{plain_ms:.3f} ms); {n_failing} pods found no node and were counted, {n_forced} forced pods "
           f"found none", flush=True)
     whole = fs.fast_scan(fi, tmpl, valid, forced)
@@ -518,7 +666,7 @@ def oversubscribed_plan(device) -> list:
                          f"over-subscribed plan: one scan vs the grid at S=1 over {P} pods", fs.STATE_FIELDS))
     if not torch.equal(whole.fail_counts[:OVER_HEAD], got_head.fail_counts) or whole.fail_counts[OVER_HEAD:].any():
         raise AssertionError("the whole stream's counts differ from the checked prefix's")
-    print(f"{P} pods: one scan and the grid at S=1 identical on the seven state outputs; the whole stream's "
+    print(f"{P} pods: one scan and the grid at S=1 identical on the eight state outputs; the whole stream's "
           f"counts are the prefix's", flush=True)
 
     _phase(f"26 over-subscribed plan: simulate(), {P} pods on {N_NODES} nodes")
@@ -623,9 +771,11 @@ def _apply_failures(applier, prep, fi_k, tmpl, valid, node_valid, forced, out) -
     scan's counts (`out`) equal the Applier's first simulation's, pod for
     pod, each the expected string; then the hog pods that close the stream
     run from the kernel's usage after the bench pods, by the kernel (equal
-    to `out`'s rows over them) and by the plain version, on all nine
-    outputs, so the failing pods' counts and shortages are the plain
-    version's. Returns the largest difference and the plain version's ms."""
+    to `out`'s rows over them) and by the plain version, on the nine
+    outputs but the state row (the hog pods ask for no selector count, so
+    the tail's launch starts its counts at 0), so the failing pods' counts
+    and shortages are the plain version's. Returns the largest difference
+    and the plain version's ms."""
     from opensim_tpu_torch.engine import fastpath, simulator as sim
     from opensim_tpu_torch.models.objects import LABEL_APP_NAME
     from opensim_tpu_torch.ops import fast_scan as fs
@@ -655,21 +805,22 @@ def _apply_failures(applier, prep, fi_k, tmpl, valid, node_valid, forced, out) -
     fi_tail = fi_k._replace(used0_T=head.used.clone())
     tail = (tmpl[t0:].contiguous(), valid[t0:].contiguous(), forced[t0:].contiguous())
     got_tail = fs.fast_scan(fi_tail, *tail)
+    nine = fs.FastOutputs._fields[:-1]
     per_pod = ("chosen", "gpu_take", "fail_counts", "insufficient")
     err = _same(got_tail, fs.FastOutputs(*(getattr(out, f)[t0:] if f in per_pod else getattr(out, f)
                                             for f in fs.FastOutputs._fields)),
-                f"k=0: the hog pods from the kernel's state after pod {t0} vs the whole stream's launch")
+                f"k=0: the hog pods from the kernel's usage after pod {t0} vs the whole stream's launch", nine)
     plain = [None]
 
     def run_plain():
         plain[0] = fs.fast_scan_reference(fi_tail, *tail)
 
     plain_ms = _events_ms(run_plain, reps=1)
-    err = max(err, _same(got_tail, plain[0], f"k=0: the hog pods from the kernel's state after pod {t0} vs plain"))
+    err = max(err, _same(got_tail, plain[0], f"k=0: the hog pods from the kernel's usage after pod {t0} vs plain"))
     failing = int((got_tail.chosen < 0).sum())
     print(f"k=0: the {APPLY_HOG} hog pods from the kernel's usage after pod {t0}: kernel identical to the whole "
-          f"stream's launch and to the plain version on all nine outputs ({failing} found no node, their counts "
-          f"and shortages included; plain {plain_ms:.3f} ms)", flush=True)
+          f"stream's launch on the nine outputs but the state row and to the plain version on all ten ({failing} "
+          f"found no node, their counts and shortages included; plain {plain_ms:.3f} ms)", flush=True)
     return err, plain_ms
 
 
@@ -678,9 +829,9 @@ def apply_plan(device, card: str) -> list:
     user runs it (YAML directories, the card): its launches, the new-node
     count, the steps' host-clock times against BASELINE.md's 10 s; then
     the path's masked one scan at k = 0, n_new - 1 and n_new new nodes
-    against the rows of the coarse and fine grids for those k (the seven
+    against the rows of the coarse and fine grids for those k (the eight
     state outputs, over the whole stream) and against the plain version
-    over a prefix (all nine), each grid timed alone, and at k = 0 the
+    over a prefix (all ten), each grid timed alone, and at k = 0 the
     first simulation's failures (:func:`_apply_failures`). Returns the
     rows of the masked one scan and the two grids."""
     from opensim_tpu_torch.engine import fastpath
@@ -793,7 +944,7 @@ def apply_plan(device, card: str) -> list:
         failing = int(((one[k].chosen < 0) & (grid[0][s] != 0) & (forced == 0)).sum())
         if clocks[-1] != failing:
             raise AssertionError(f"k={k}: {clocks[-1]} counting passes for {failing} pods that found no node")
-        print(f"k={k}: masked one scan {ms_k:.3f} ms, identical to the {label} grid's row on the seven state "
+        print(f"k={k}: masked one scan {ms_k:.3f} ms, identical to the {label} grid's row on the eight state "
               f"outputs over {int(grid[0][s].sum())} pods; {failing} pods found no node ({clocks[-1]} counting "
               f"passes)", flush=True)
         if k == 0:
@@ -815,7 +966,7 @@ def apply_plan(device, card: str) -> list:
             plain_ms = _events_ms(run_plain, reps=1)
             err = max(err, _same(fs.fast_scan(fi_k, *head), plain[0], f"masked one scan at k={k}, "
                                  f"{APPLY_PLAIN_PODS} pods vs plain"))
-            print(f"k={k}: masked one scan and plain version identical on all nine outputs over "
+            print(f"k={k}: masked one scan and plain version identical on all ten outputs over "
                   f"{APPLY_PLAIN_PODS} pods (plain {plain_ms:.3f} ms)", flush=True)
     work = fs.fast_scan_work(fi_new, tmpl, valid_new, forced, one[n_new].chosen)
     t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
@@ -831,6 +982,257 @@ def apply_plan(device, card: str) -> list:
         "resident": scan_shape.resident, "ptxas": launched["ptxas"], "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
         "apply_wall_s": wall, "apply_steps_s": steps, "apply_limit_s": APPLY_LIMIT_S, "apply_limit": verdict,
+    })
+    return rows
+
+
+def two_profile_plan(device) -> dict:
+    """The capacity plan with its last ten Deployments under the ``batch``
+    profile (``fixtures.two_profile_apps``) and the two-profile config:
+    two segments, two launches of the cfg variant, the second from the
+    first's state. Each segment's first CFG_PLAIN_PODS pods against the
+    plain version (the second's from the kernel's state at the boundary),
+    the whole stream against two grid launches at S = 1 carrying the
+    state, simulate() through exactly two launches, both launches timed.
+    Returns the plan's row of the kernels table."""
+    from opensim_tpu_torch.engine import fastpath, simulator as sim
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    variant = "fast_scan[cfg]"
+
+    def make():
+        return fx.synthetic_cluster(N_NODES), [sim.AppResource(n, a) for n, a in fx.two_profile_apps(N_PODS)]
+
+    _phase(f"34 two-profile plan: {N_NODES} nodes, {N_PODS} pods in two profile segments, kernel vs plain over "
+           f"{CFG_PLAIN_PODS} pods of each, vs two grids at S=1 over the whole stream")
+    prep = sim.prepare(*make(), device=device)
+    sched, segments = _sched_config(prep, fx.SCHED_TWO_PROFILES, "two-profile")
+    half = N_PODS // 2
+    if [(lo, hi) for _c, lo, hi in segments] != [(0, half), (half, N_PODS)]:
+        raise AssertionError(f"the plan routes segments {[(lo, hi) for _c, lo, hi in segments]}")
+    built = []
+    for cfg, lo, hi in segments:
+        if fastpath.why_not(prep, cfg) is not None:
+            raise AssertionError(f"the plan falls outside the envelope: {fastpath.why_not(prep, cfg)}")
+        fi = fastpath.build_inputs(prep, cfg=cfg)[0]
+        if fs.variant_name(fi) != variant:
+            raise AssertionError(f"segment {lo}:{hi} runs {fs.variant_name(fi)}, not {variant}")
+        built.append((fi, lo, hi))
+    tmpl, valid, forced = fastpath.pod_stream(prep)
+
+    def run_kernel():
+        outs, state = [], None
+        for fi, lo, hi in built:
+            outs.append(fs.fast_scan(fi, tmpl[lo:hi], valid[lo:hi], forced[lo:hi], init=state))
+            state = outs[-1].state
+        return outs
+
+    whole = run_kernel()
+    err, plain_ms = 0.0, 0.0
+    for k, (fi, lo, hi) in enumerate(built):
+        init = None if k == 0 else whole[k - 1].state
+        head = (tmpl[lo:lo + CFG_PLAIN_PODS], valid[lo:lo + CFG_PLAIN_PODS], forced[lo:lo + CFG_PLAIN_PODS])
+        got = fs.fast_scan(fi, *head, init=init)
+        if not torch.equal(got.chosen, whole[k].chosen[:CFG_PLAIN_PODS]):
+            raise AssertionError(f"segment {k}: the prefix's launch placed differently from the segment's")
+        plain = [None]
+
+        def run_plain():
+            plain[0] = fs.fast_scan_reference(fi, *head, init=init)
+
+        ms = _events_ms(run_plain, reps=1)
+        plain_ms += ms
+        err = max(err, _same(got, plain[0], f"two-profile plan, segment {k}, {CFG_PLAIN_PODS} pods"))
+        print(f"segment {k} ({lo}:{hi}), its first {CFG_PLAIN_PODS} pods{' from the kernel state at ' + str(lo) if k else ''}: "
+              f"kernel and plain version identical on all ten outputs (plain {ms:.3f} ms)", flush=True)
+    grid = [None]
+
+    def run_grid():
+        outs, state = [], None
+        for fi, lo, hi in built:
+            outs.append(fs.fast_scan_sweep(fi, tmpl[lo:hi], valid[None, lo:hi].contiguous(),
+                                           forced[None, lo:hi].contiguous(), fi.node_valid[None], fi.spr_weight[None],
+                                           init=state))
+            state = outs[-1].state
+        grid[0] = outs
+
+    grid_ms = _events_ms(run_grid, reps=1)
+    for k, (one, g) in enumerate(zip(whole, grid[0])):
+        err = max(err, _same(one, fs.FastOutputs(*(t[0] for t in g)),
+                             f"two-profile plan: segment {k}, one scan vs the grid at S=1", fs.STATE_FIELDS))
+    print(f"{N_PODS} pods: two one-scan launches and two grid launches at S=1, each carrying the state, identical "
+          f"on all eight state outputs (grids {grid_ms:.3f} ms)", flush=True)
+
+    _phase(f"35 two-profile plan: simulate(sched_config=), {N_PODS} pods on {N_NODES} nodes")
+    fresh = make()
+    torch.cuda.synchronize()
+    fs.LAUNCHES = 0
+    fs.VARIANT_LAUNCHES.clear()
+    res = sim.simulate(*fresh, device=device, sched_config=sched)
+    launches, by_variant = fs.LAUNCHES, dict(fs.VARIANT_LAUNCHES)
+    if by_variant != {variant: 2}:
+        raise AssertionError(f"simulate() launched {by_variant}, want two {variant}, one a segment")
+    chosen = torch.cat([o.chosen for o in whole]).cpu().numpy()
+    if (res.placements < 0).any() or not np.array_equal(res.placements, chosen):
+        raise AssertionError("simulate() placed the stream differently from the checked launches")
+    print(f"placed {int((res.placements >= 0).sum())}/{N_PODS} pods, kernel launches {by_variant}; engine "
+          f"{res.engine}")
+    print("timings: " + json.dumps({k: round(v, 6) for k, v in res.timings.items()}))
+    wall = sum(res.timings.values())
+    print(f"plan wall-clock {wall:.6f} s, {N_PODS / wall:.1f} pods/s (host clock)", flush=True)
+
+    _phase("36 two-profile plan: both launches over the whole stream (CUDA events)")
+    ms = _events_ms(run_kernel, reps=3)
+    works = [fs.fast_scan_work(fi, tmpl[lo:hi], valid[lo:hi], forced[lo:hi], o.chosen)
+             for (fi, lo, hi), o in zip(built, whole)]
+    t_bytes = sum(w["bytes"] for w in works) / PEAK_BYTES_S * 1e3
+    t_ops = sum(w["ops"] for w in works) / PEAK_F32_S * 1e3
+    launched = fs.SCAN_LAUNCHED[variant]
+    print(f"two launches {ms:.3f} ms ({ms * 1e3 / N_PODS:.3f} us/pod), bound {max(t_bytes, t_ops):.6f} ms", flush=True)
+    return {
+        "name": variant, "plan": "two-profile plan (two segments)", "route": "cuda",
+        "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/ops/pallas_scan.py:1009",
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "pods": N_PODS,
+        "plain_pods": 2 * CFG_PLAIN_PODS, "grid_s1_ms": grid_ms, "segments": [[lo, hi] for _f, lo, hi in built],
+        "ptxas": launched["ptxas"], "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+        "plan_wall_s": wall,
+    }
+
+
+def apply_config_plan(device, card: str) -> list:
+    """``simon apply -d`` on the apply plan (phase 28's directories) with
+    ``fixtures.SCHED_APPLY``: through the Applier on the card, its launches
+    all of the cfg variant (two one scans, two grids); then the masked one
+    scan at n_new - 1 and n_new against the grids' rows over the whole
+    stream (eight state outputs) and at n_new - 1 against the plain version
+    over APPLY_PLAIN_PODS pods, one row of each grid against the plain
+    sweep over as many, each kernel timed. Returns the rows of the masked
+    one scan and the two grids."""
+    from opensim_tpu_torch.engine import fastpath, schedconfig
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.parallel import scenarios
+    from opensim_tpu_torch.planner import apply
+
+    scan, sweep = "fast_scan[cfg]", "fast_scan_sweep[cfg]"
+    _phase(f"40 apply plan under -d: simon apply -d with the capacity fleet's settings of the config plan "
+           f"(Applier.run() on the card)")
+    root = _plan_dir() / "apply"
+    sched_path = fx.write_scheduler_config(_plan_dir() / "sched" / "apply.yaml", fx.SCHED_APPLY)
+    report = root / "report-d.txt"
+    torch.cuda.synchronize()
+    fs.LAUNCHES = 0
+    fs.VARIANT_LAUNCHES.clear()
+    fs.SCAN_LAUNCHED.clear()
+    fs.SWEEP_LAUNCHED.clear()
+    t0 = time.perf_counter()
+    applier = apply.Applier(apply.Options(simon_config=str(root / "config.yaml"), default_scheduler_config=sched_path,
+                                          output_file=str(report), max_new_nodes=APPLY_MAX_NEW))
+    rc = applier.run()
+    wall = time.perf_counter() - t0
+    by_name = dict(fs.VARIANT_LAUNCHES)
+    text = report.read_text()
+    n_new = applier.n_new
+    if rc != 0 or "Simulation success!" not in text or not n_new:
+        raise AssertionError(f"simon apply -d returned {rc} with {n_new} new nodes:\n{text[:2000]}")
+    if by_name != {scan: 2, sweep: 2}:
+        raise AssertionError(f"simon apply -d launched {by_name}, want two {scan} and two {sweep}")
+    (coarse, coarse_s), (fine, fine_s) = applier.sweeps
+    steps = dict(applier.timings, **{"sweep: coarse": coarse_s, "sweep: fine": fine_s})
+    print(f"simon apply -d: rc {rc}, {n_new} new nodes, launches {by_name}; sweeps {coarse} then "
+          f"{fine[0]}..{fine[-1]} ({len(fine)} scenarios)")
+    print("steps: " + json.dumps({k: round(v, 6) for k, v in steps.items()}))
+    print(f"simon apply -d wall-clock {wall:.6f} s against the {APPLY_LIMIT_S:.0f} s limit: "
+          f"{'met' if wall < APPLY_LIMIT_S else 'missed'} ({card})", flush=True)
+
+    _phase(f"41 apply plan under -d: the masked one scan at k = {n_new - 1} and {n_new} against the grids' rows "
+           f"over the whole stream, and the plain versions over {APPLY_PLAIN_PODS} pods")
+    prep = applier.prep_full
+    (cfg, _lo, _hi), = schedconfig.resolve_profile_segments(applier.sched_config, prep.ordered,
+                                                            prep.meta.resource_names, forced=prep.forced)[0]
+    fi, _ = fastpath.build_inputs(prep, cfg=cfg)
+    forced = torch.from_numpy(prep.forced.astype(np.int32)).to(device)
+    rows, grids = [], {}
+    for label, ks in (("coarse", coarse), ("fine", fine)):
+        node_valid, pod_valid = scenarios.count_masks(prep, N_NODES, ks)
+        tmpl, *grid = fastpath.sweep_inputs(prep, node_valid, pod_valid, np.broadcast_to(prep.forced, pod_valid.shape))
+        out = [None]
+
+        def run_grid():
+            out[0] = fs.fast_scan_sweep(fi, tmpl, *grid)
+
+        grid_ms = _events_ms(run_grid, reps=1)
+        launched = fs.SWEEP_LAUNCHED[sweep]
+        grids[label] = (ks, grid, out[0])
+        sel = [max(i for i, k in enumerate(ks) if k <= n_new)]
+        head = [t[:, :APPLY_PLAIN_PODS].contiguous() for t in grid[:2]] + grid[2:]
+        got = fs.fast_scan_sweep(fi, tmpl[:APPLY_PLAIN_PODS].contiguous(), *head)
+        plain = [None]
+
+        def run_plain():
+            plain[0] = fs.fast_scan_sweep_reference(fi, tmpl[:APPLY_PLAIN_PODS].contiguous(), *(t[sel] for t in head))
+
+        plain_ms = _events_ms(run_plain, reps=1)
+        err = _same(fs.FastOutputs(*(t[sel] for t in got)), plain[0], f"-d {label} grid rows {sel} vs plain")
+        work = fs.fast_scan_work(fi, tmpl, grid[0], grid[1], out[0].chosen, grid[2])
+        t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
+        print(f"-d {label} grid, S={len(ks)}: {grid_ms:.3f} ms; row {sel} identical to the plain sweep over "
+              f"{APPLY_PLAIN_PODS} pods (plain {plain_ms:.3f} ms); bound {max(t_bytes, t_ops):.6f} ms", flush=True)
+        rows.append({
+            "name": sweep, "plan": f"apply plan under -d, {label} sweep", "route": "cuda",
+            "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/engine/fastpath.py:532",
+            "launches": by_name[sweep], "launches_are": "the path's two grids, coarse and fine",
+            "max_abs_err": err, "ms": grid_ms, "plain_ms": plain_ms, "scenarios": len(ks),
+            "pods": int(tmpl.shape[0]), "plain_checks": [sel, APPLY_PLAIN_PODS], "b": launched["grid"].b,
+            "blocks": launched["grid"].blocks, "ptxas": launched["ptxas"], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+            "host_s": coarse_s if label == "coarse" else fine_s,
+        })
+    err = 0.0
+    for k in (n_new - 1, n_new):
+        label = "fine" if k in fine else "coarse"
+        ks, grid, out = grids[label]
+        s = ks.index(k)
+        fi_k, _ = fastpath.build_inputs(prep, grid[2][s].cpu().numpy() != 0, cfg=cfg)
+        one = [None]
+
+        def run_one():
+            one[0] = fs.fast_scan(fi_k, tmpl, grid[0][s], forced)
+
+        ms_k = _events_ms(run_one, reps=3 if k == n_new else 1)
+        err = max(err, _same(one[0], fs.FastOutputs(*(t[s] for t in out)),
+                             f"-d masked one scan at k={k} vs the {label} grid's row", fs.STATE_FIELDS))
+        failing = int(((one[0].chosen < 0) & (grid[0][s] != 0) & (forced == 0)).sum())
+        if (k == n_new) != (failing == 0):
+            raise AssertionError(f"-d k={k}: {failing} pods found no node; the answer {n_new} is not minimal")
+        print(f"-d k={k}: masked one scan {ms_k:.3f} ms, identical to the {label} grid's row on the eight state "
+              f"outputs; {failing} pods found no node", flush=True)
+        if k == n_new - 1:
+            head = (tmpl[:APPLY_PLAIN_PODS].contiguous(), grid[0][s][:APPLY_PLAIN_PODS].contiguous(),
+                    forced[:APPLY_PLAIN_PODS].contiguous())
+            plain = [None]
+
+            def run_plain():
+                plain[0] = fs.fast_scan_reference(fi_k, *head)
+
+            plain_ms = _events_ms(run_plain, reps=1)
+            err = max(err, _same(fs.fast_scan(fi_k, *head), plain[0], f"-d masked one scan at k={k} vs plain"))
+        else:
+            ms, work = ms_k, fs.fast_scan_work(fi_k, tmpl, grid[0][s], forced, one[0].chosen)
+    t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
+    launched = fs.SCAN_LAUNCHED[scan]
+    print(f"-d masked one scan at k={n_new}: {ms:.3f} ms, bound {max(t_bytes, t_ops):.6f} ms; plain "
+          f"{plain_ms:.3f} ms over {APPLY_PLAIN_PODS} pods at k={n_new - 1}", flush=True)
+    rows.insert(0, {
+        "name": scan, "plan": f"apply plan under -d, masked re-simulation at k={n_new}", "route": "cuda",
+        "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/ops/pallas_scan.py:1009",
+        "launches": by_name[scan], "launches_are": "the path's two one scans, first simulation and masked",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "pods": int(tmpl.shape[0]),
+        "plain_pods": APPLY_PLAIN_PODS, "ptxas": launched["ptxas"], "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+        "apply_wall_s": wall, "apply_steps_s": steps, "n_new": n_new,
     })
     return rows
 
@@ -897,7 +1299,7 @@ def main() -> int:
 
     _phase("2 build")
     variants = sorted({v for *_rest, v, _p in plans} | {fs.variant_name(fi) for _n, _p, fi in _small_preps("cpu")}
-                      | {v for *_rest, v in EXAMPLES})
+                      | {v for *_rest, v in EXAMPLES} | set(CFG_VARIANTS))
     fs.build(variants)
     print(f"build: {fs.BUILD_LOG['seconds']:.3f} s for {len(variants)} kernel variants, one nvcc each, "
           f"all started together: {', '.join(variants)}")
@@ -913,6 +1315,13 @@ def main() -> int:
     rows.extend(oversubscribed_plan(device))
     rows.extend(apply_plan(device, card))
     example_reports(device)
+    rows.append(full_plan(device, "31-33 config plan", lambda: (fx.score_cluster(N_NODES, blocked=10),
+                                                                fx.score_apps(N_PODS, widget=True)),
+                          "fast_scan[na,tt,avoid,cfg]", CFG_PLAIN_PODS, sched_text=fx.SCHED_CONFIG_PLAN))
+    rows.append(two_profile_plan(device))
+    rows.append(full_plan(device, "37-39 sampled plan", lambda: (fx.synthetic_cluster(N_NODES), fx.synthetic_apps(N_PODS)),
+                          "fast_scan[sample]", CFG_PLAIN_PODS, tie_seed=TIE_SEED))
+    rows.extend(apply_config_plan(device, card))
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

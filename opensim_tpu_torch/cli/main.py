@@ -42,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     apply_p.add_argument("-f", "--simon-config", required=True, help="path of simon config (Config CR yaml)")
     apply_p.add_argument(
         "-d", "--default-scheduler-config", default="",
-        help="path of kube-scheduler config overrides (not yet ported: ROADMAP Queue 1 item 5)",
+        help="path of kube-scheduler config overrides (a KubeSchedulerConfiguration)",
     )
     apply_p.add_argument("-o", "--output-file", default="", help="redirect the report to a file")
     apply_p.add_argument("--use-greed", action="store_true", help="use greed algorithm to sort pods")
@@ -63,11 +63,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     apply_p.add_argument(
         "--tie-break", default="lowest", metavar="lowest|sample[:seed]",
-        help="equal-score node selection: lowest index (sample is not yet ported: ROADMAP Queue 1 item 5)",
+        help="equal-score node selection: lowest index, or a seeded uniform draw among the best nodes",
     )
     apply_p.add_argument(
         "--explain", action="store_true",
-        help="append the placement audit to the report (not yet ported: ROADMAP Queue 1 item 5)",
+        help="append the placement audit to the report (not yet ported: ROADMAP Queue 1 item 5b)",
     )
     apply_p.add_argument(
         "--device", default=None,

@@ -4,10 +4,12 @@
 port's kernel computes (fit, spread, least/balanced/share scores, GPU
 share with the dynamic gpu-count allocatable, the NodeAffinity,
 TaintToleration and NodePreferAvoidPods score tables, host ports,
-inter-pod affinity, Open-Local storage, selectHost, bind);
-`build_inputs()` turns the encoded cluster into the kernel's tensors;
-`schedule()` runs it over the stream, `sweep()` over a batch of
-scenarios. The counterpart in the JAX package is
+inter-pod affinity, Open-Local storage, selectHost, bind; under a
+scheduler config, its weights, filter switches and fit-ignored
+resources); `build_inputs()` turns the encoded cluster into the kernel's
+tensors for one config; `schedule()` runs it over the stream (one launch,
+or one launch per profile segment carrying the state), `sweep()` over a
+batch of scenarios. The counterpart in the JAX package is
 ``opensim_tpu/engine/fastpath.py``; the TPU layout rules there (128-lane
 node padding, 8-row GPU, VG, device, port and term-row padding,
 transposed scalar tables, chunked pod streams) and its VMEM- and
@@ -17,7 +19,7 @@ quantities.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +27,7 @@ import torch
 from ..encoding import vocab as V
 from ..ops import kernels
 from ..ops.fast_scan import MAX_CS, MAX_DV, MAX_GD, MAX_R, FastInputs, fast_scan, fast_scan_sweep, variant
+from .schedconfig import SchedulerConfig
 
 HOSTNAME = "kubernetes.io/hostname"
 
@@ -46,9 +49,12 @@ def interpod_weight_bound(ec, tmpl_ids: np.ndarray) -> float:
     return float(P * (pt.max() if pt.size else 0.0) + prefg[np.asarray(tmpl_ids)].sum())
 
 
-def why_not(prep) -> Optional[str]:
+def why_not(prep, cfg: Optional[SchedulerConfig] = None) -> Optional[str]:
     """None when the prepared simulation runs on the port's bind-scan
-    kernel, else a one-line reason. The caps are what the CUDA kernel
+    kernel under scheduler config `cfg` (None: the default), else a
+    one-line reason. Every config that ``schedconfig`` parses runs; one
+    built by hand must keep finite weights and ignore only resource rows
+    the cluster has. The caps are what the CUDA kernel
     takes: R ≤ 8 resources, Cs ≤ 8 spread constraints per template and
     Gd ≤ 8 GPUs per node (per-thread tables), Dv ≤ 64 exclusive devices per
     node (the bits of the bind's per-pod taken mask), hostname plus at most
@@ -91,6 +97,10 @@ def why_not(prep) -> Optional[str]:
         bound = interpod_weight_bound(ec, prep.tmpl_ids)
         if bound >= EXACT_INT:
             return f"inter-pod weights may sum to {bound:.0f} >= 2^24, past float32's exact integers"
+    try:
+        kernels.kernel_config(cfg, R)
+    except ValueError as e:
+        return f"scheduler config: {e}"
     return None
 
 
@@ -98,7 +108,9 @@ def _to(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
 
-def build_inputs(prep, node_valid: Optional[np.ndarray] = None) -> Tuple[FastInputs, Dict[str, np.ndarray]]:
+def build_inputs(
+    prep, node_valid: Optional[np.ndarray] = None, cfg: Optional[SchedulerConfig] = None, segment: bool = False,
+) -> Tuple[FastInputs, Dict[str, np.ndarray]]:
     """The kernel's tensors on ``prep.device``, plus the static first-fail
     counts over the valid nodes. `node_valid` ([N] bool) masks the node
     axis down to a sub-cluster (None: the encoded validity); three inputs
@@ -107,12 +119,16 @@ def build_inputs(prep, node_valid: Optional[np.ndarray] = None) -> Tuple[FastInp
     counts, so a masked run places and attributes as a fresh prepare of
     the sub-cluster would. Static tables are computed with every node
     valid; validity is the kernel's runtime row (static filters are per
-    node, so this is equivalent)."""
+    node, so this is equivalent). `cfg` (a scheduler config; None or the
+    default: the default variant) switches the static filters in the
+    tables and goes to the kernel as ``FastInputs.cfg``; a `segment` of a
+    segmented multi-profile run takes the cfg variant whatever its config
+    (``kernels.kernel_config``)."""
     ec = prep.ec_np
     core = kernels.precompute_core_np(ec)
-    stat = kernels.precompute_static_np(ec._replace(node_valid=np.ones_like(ec.node_valid)), core)
+    stat = kernels.precompute_static_np(ec._replace(node_valid=np.ones_like(ec.node_valid)), cfg, core=core)
     nv = np.asarray(ec.node_valid if node_valid is None else node_valid, dtype=bool)
-    masked = kernels.precompute_static_np(ec._replace(node_valid=nv), core)
+    masked = kernels.precompute_static_np(ec._replace(node_valid=nv), cfg, core=core)
     N = int(ec.node_valid.shape[0])
     topo_keys = prep.meta.vocab.topo_keys.items()
     zone_tks = [i for i, k in enumerate(topo_keys) if k != HOSTNAME]
@@ -192,6 +208,7 @@ def build_inputs(prep, node_valid: Optional[np.ndarray] = None) -> Tuple[FastInp
         **{name: _to(t, f32, dev) for name, t in local.items()},
         n_zones=n_zones,
         gc_row=kernels.gc_row_of(ec) if f.gc_dyn else -1,
+        cfg=kernels.kernel_config(cfg, req.shape[1], segment),
     )
     return fi, {"static_fail": masked.static_fail}
 
@@ -390,7 +407,8 @@ class Scheduled(NamedTuple):
     """Host copies of a scan's results, in the encoder's layouts, and the
     failure attribution of the pods that found no node: the dynamic
     filters' first-fail counts and the shortages of each pod (zero rows
-    for the others), and the static filters' per template."""
+    for the others), and the static filters' of each pod (its template's
+    row under the config of its launch)."""
 
     chosen: np.ndarray  # [P] i32 node index, -1 unplaced
     used: np.ndarray  # [N, R] f32
@@ -401,29 +419,44 @@ class Scheduled(NamedTuple):
     dev_free: np.ndarray  # [N, Dv] f32 final free bytes per device, 0 once taken
     fail_counts: np.ndarray  # [P, fast_scan.N_FAIL] i32 nodes failing each dynamic filter first
     insufficient: np.ndarray  # [P, R] i32 nodes short of each resource
-    static_fail: np.ndarray  # [U, 4] i32 nodes failing each static filter first, per template
+    static_fail: np.ndarray  # [P, 4] i32 nodes failing each static filter first, per pod
 
 
 def schedule(
     prep,
-    built: Optional[Tuple[FastInputs, Dict[str, np.ndarray]]] = None,
+    segments: List[Tuple[Tuple[FastInputs, Dict[str, np.ndarray]], int, int]],
     pod_valid: Optional[np.ndarray] = None,
+    tie_seed: Optional[int] = None,
 ) -> Scheduled:
-    """Run the bind scan over the prepared stream, one launch: the kernel
-    on a card, the plain version on the CPU. `built` is
-    :func:`build_inputs`'s result when the caller has it (a masked node
-    axis enters there); `pod_valid` ([P] bool) masks pods out of the
-    stream. Without GPU-share pods the scan leaves the GPUs as they were
-    (no takes, the initial free memory), without host ports the ports, and
-    without local-storage pods the volume groups and devices."""
-    fi, meta = build_inputs(prep) if built is None else built
-    out = fast_scan(fi, *pod_stream(prep, pod_valid))
+    """Run the bind scan over the prepared stream: the kernel on a card,
+    the plain version on the CPU. `segments` (``[(built, lo, hi)]``,
+    contiguous runs covering the stream in order, each with
+    :func:`build_inputs`'s result for its config and node mask) are one
+    launch each, each starting from the previous launch's final state: one
+    run for a single config, one per profile segment for the reference's
+    segmented multi-profile path. `pod_valid` ([P] bool) masks pods out of
+    the stream; `tie_seed` samples each step's node among the best scores
+    (the one scan's ``tie_seed``). Without GPU-share pods the scan leaves
+    the GPUs as they were (no takes, the initial free memory), without host
+    ports the ports, and without local-storage pods the volume groups and
+    devices."""
+    tmpl, valid, forced = pod_stream(prep, pod_valid)
+    outs, state = [], None
+    for (fi, meta), lo, hi in segments:
+        if hi <= lo:
+            continue
+        out = fast_scan(fi, tmpl[lo:hi], valid[lo:hi], forced[lo:hi], init=state, tie_seed=tie_seed, draw_base=lo)
+        outs.append((out, meta, lo, hi))
+        state = out.state
     host = lambda t: t.T.contiguous().cpu().numpy()
-    chosen = out.chosen.cpu().numpy()
+    cat = lambda field: np.concatenate([getattr(o, field).cpu().numpy() for o, *_ in outs])
+    chosen = cat("chosen")
+    static_fail = np.concatenate([meta["static_fail"][prep.tmpl_ids[lo:hi]] for _o, meta, lo, hi in outs])
+    out, fi = outs[-1][0], segments[-1][0][0]
     v = variant(fi)
     st0 = prep.st0_np
     if v.gpu:
-        gpu_take, gpu_free = out.gpu_take.cpu().numpy(), host(out.gpu_free)
+        gpu_take, gpu_free = cat("gpu_take"), host(out.gpu_free)
     else:
         gpu_free = np.asarray(st0.gpu_free)
         gpu_take = np.zeros((len(chosen), gpu_free.shape[1]), np.float32)
@@ -431,8 +464,7 @@ def schedule(
     port_used[:, : fi.port_HU.shape[0]] = host(out.port_used)
     vg_free, dev_free = (host(out.vg_free), host(out.dev_free)) if v.local else (st0.vg_free, st0.dev_free)
     return Scheduled(chosen, host(out.used), gpu_take, gpu_free, port_used, np.asarray(vg_free),
-                     np.asarray(dev_free), out.fail_counts.cpu().numpy(), out.insufficient.cpu().numpy(),
-                     meta["static_fail"])
+                     np.asarray(dev_free), cat("fail_counts"), cat("insufficient"), static_fail)
 
 
 class _SweepContext:
@@ -474,21 +506,35 @@ def sweep_inputs(prep, node_valid_masks, pod_valid_masks, forced_masks):
             _to(np.asarray(forced_masks, dtype=bool), i32, dev), _to(nv, f32, dev), _to(sw, f32, dev))
 
 
-def sweep(prep, node_valid_masks, pod_valid_masks, forced_masks):
+def sweep(prep, node_valid_masks, pod_valid_masks, forced_masks,
+          segments: Optional[List[Tuple[Optional[SchedulerConfig], int, int]]] = None):
     """Scenario sweep over the prepared stream: scenario s runs the bind
     scan with node validity ``node_valid_masks[s]`` ([S, N] bool), pod
     validity ``pod_valid_masks[s]`` and forced pods ``forced_masks[s]``
-    ([S, P] bool), and the spread weights of its valid nodes. All S in one
-    launch on a card (B scenarios per block), the plain version scenario
-    by scenario on the CPU. Returns host arrays (unscheduled [S] i32, used
-    [S, N, R] f32, chosen [S, P] i32, vg_used [S] f32), as
-    ``opensim_tpu/engine/fastpath.py:sweep``; VG usage counts only the
-    scenario's valid nodes."""
-    fi, _ = build_inputs(prep)
+    ([S, P] bool), and the spread weights of its valid nodes. `segments`
+    (``[(config, lo, hi)]``, contiguous runs covering the stream; None: the
+    whole stream under the default config) are one grid each on its
+    config's inputs, each scenario starting from its own final state of the
+    run before. All S in one launch per run on a card (B scenarios per
+    block), the plain version scenario by scenario on the CPU. Returns host
+    arrays (unscheduled [S] i32, used [S, N, R] f32, chosen [S, P] i32,
+    vg_used [S] f32), as ``opensim_tpu/engine/fastpath.py:sweep``; VG usage
+    counts only the scenario's valid nodes."""
     nv = np.asarray(node_valid_masks, dtype=bool)
     pv = np.asarray(pod_valid_masks, dtype=bool)
-    out = fast_scan_sweep(fi, *sweep_inputs(prep, nv, pv, forced_masks))
-    chosen = out.chosen.cpu().numpy()
+    if segments is None:
+        segments = [(None, 0, len(prep.tmpl_ids))]
+    tmpl, valid, forced, node_valid, spr_weight = sweep_inputs(prep, nv, pv, forced_masks)
+    chosen, state = [], None
+    for seg_cfg, lo, hi in segments:
+        if hi <= lo:
+            continue
+        fi, _ = build_inputs(prep, cfg=seg_cfg, segment=len(segments) > 1)
+        out = fast_scan_sweep(fi, tmpl[lo:hi], valid[:, lo:hi].contiguous(), forced[:, lo:hi].contiguous(),
+                              node_valid, spr_weight, init=state)
+        chosen.append(out.chosen.cpu().numpy())
+        state = out.state
+    chosen = np.concatenate(chosen, axis=1)
     unscheduled = ((chosen < 0) & pv).sum(axis=1).astype(np.int32)
     used = out.used.transpose(1, 2).contiguous().cpu().numpy()
     if variant(fi).local:

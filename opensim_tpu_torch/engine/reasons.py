@@ -78,6 +78,10 @@ def node_not_found(node_name: str) -> str:
     return Reason.NODE_NOT_FOUND.message.format(node=node_name)
 
 
+def unknown_profile(profile_name: str) -> str:
+    return Reason.UNKNOWN_PROFILE.message.format(profile=profile_name)
+
+
 def preempted(namespace: str, name: str) -> str:
     return Reason.PREEMPTED.message.format(pod=f"{namespace}/{name}")
 

@@ -11,11 +11,14 @@ reference's kube FitError reason strings (``engine/reasons.py``).
 
 The planner's arguments are here: a prepared input reused over a masked
 node axis (``prep=``/``node_valid=``) and the opt-in preemption pass
-(``enable_preemption=``, ``engine/preemption.py``). It
-raises rather than falls back: ``NotImplementedError`` for an input
-outside the kernel's envelope (``fastpath.why_not``) and for a scheduler
-config, extra plugins, a sampled tie-break or explain mode (ROADMAP
-Queue 1 item 5).
+(``enable_preemption=``, ``engine/preemption.py``). So are a scheduler
+config (``sched_config=``, ``engine/schedconfig.py``: the kernel takes its
+weights and switches; pods naming an unknown profile are reported, and
+differing profiles run as one launch per contiguous segment, each going
+on from the previous one's state) and the sampled tie-break
+(``tie_seed=``). It raises rather than falls back: ``NotImplementedError``
+for an input outside the kernel's envelope (``fastpath.why_not``) and for
+extra plugins or explain mode (ROADMAP Queue 1 item 5b).
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from ..models.objects import (
     ResourceTypes,
 )
 from ..ops import fast_scan, kernels
-from . import fastpath, preemption, queues, reasons
+from . import fastpath, preemption, queues, reasons, schedconfig
 
 
 @dataclass
@@ -273,15 +276,31 @@ def prepare(
     )
 
 
-def _later_slice(sched_config, extra_plugins, tie_seed, explain) -> None:
+def _later_slice(extra_plugins, explain) -> None:
     """Raise for the arguments whose engine paths the port has not yet:
-    ROADMAP Queue 1 item 5 (scheduler-config surfaces)."""
-    for name, given in (("sched_config", sched_config is not None), ("extra_plugins", bool(extra_plugins)),
-                        ("tie_seed", tie_seed is not None), ("explain", bool(explain))):
+    ROADMAP Queue 1 item 5b (explain mode and extra plugins, on the torch
+    reference scan)."""
+    for name, given in (("extra_plugins", bool(extra_plugins)), ("explain", bool(explain))):
         if given:
             raise NotImplementedError(
-                f"simulate({name}=...): scheduler-config surfaces are ROADMAP Queue 1 item 5, not yet ported"
+                f"simulate({name}=...): explain mode and extra plugins are ROADMAP Queue 1 item 5b, not yet ported"
             )
+
+
+def parse_tie_break(spec: str) -> Optional[int]:
+    """CLI ``--tie-break`` value → tie_seed (None = the deterministic
+    lowest index). Accepted: ``lowest``, ``sample`` (seed 0) or
+    ``sample:<int>``."""
+    if not spec or spec == "lowest":
+        return None
+    if spec == "sample":
+        return 0
+    if spec.startswith("sample:"):
+        try:
+            return int(spec.split(":", 1)[1])
+        except ValueError:
+            pass
+    raise ValueError(f"--tie-break must be 'lowest' or 'sample[:seed]', got {spec!r}")
 
 
 def _pod_valid(prep: Prepared, cluster: ResourceTypes, node_valid) -> Tuple[np.ndarray, Optional[np.ndarray]]:
@@ -331,8 +350,18 @@ def simulate(
     `node_valid`; ``cluster.nodes`` must be exactly the valid prefix of the
     prepared node order. Placements, reasons and node annotations equal a
     fresh prepare of the sub-cluster's. `enable_preemption` runs the
-    preemption pass over the kernel's final state (not with `prep`)."""
-    _later_slice(sched_config, extra_plugins, tie_seed, explain)
+    preemption pass over the kernel's final state (not with `prep`).
+
+    `sched_config` (a ``SchedulerConfig`` or the ``SchedulerProfiles`` of
+    ``schedconfig.load_scheduler_config``) routes the stream as the
+    reference does (``opensim_tpu/engine/simulator.py:918-950``): a pod
+    whose schedulerName names no profile leaves the stream and is reported
+    with the reference's reason; one effective config runs one launch;
+    differing profiles run one launch per contiguous segment, each on its
+    config's inputs, going on from the previous launch's state (not with
+    `enable_preemption`). `tie_seed` takes each step's node among its best
+    scores by a seeded draw (``parse_tie_break``)."""
+    _later_slice(extra_plugins, explain)
     if prep is not None and enable_preemption:
         raise ValueError("prep reuse does not support enable_preemption; pass prep=None")
     t0 = time.perf_counter()
@@ -340,23 +369,35 @@ def simulate(
         prep = prepare(cluster, apps, use_greed=use_greed, node_pad=node_pad, device=device)
     if prep is None:
         return SimulateResult(node_status=[NodeStatus(node=n, pods=[]) for n in cluster.nodes])
-    pod_valid, nv_mask = _pod_valid(prep, cluster, node_valid)
-    miss = fastpath.why_not(prep)
-    if miss is not None:
-        raise NotImplementedError(f"outside the port's bind-scan envelope: {miss}")
+    active, nv_mask = _pod_valid(prep, cluster, node_valid)
+    segments, custom_reasons = schedconfig.resolve_profile_segments(
+        sched_config, prep.ordered, prep.meta.resource_names, forced=prep.forced
+    )
+    pod_valid = active.copy()
+    pod_valid[list(custom_reasons)] = False  # unknown-profile pods never enter a queue
+    if len(segments) > 1 and enable_preemption:
+        raise ValueError("segmented multi-profile simulation does not support enable_preemption")
+    for cfg in {cfg for cfg, _lo, _hi in segments}:
+        miss = fastpath.why_not(prep, cfg)
+        if miss is not None:
+            raise NotImplementedError(f"outside the port's bind-scan envelope: {miss}")
     t1 = time.perf_counter()
-    built = fastpath.build_inputs(prep, nv_mask)
+    seg_built = [(fastpath.build_inputs(prep, nv_mask, cfg, segment=len(segments) > 1), lo, hi)
+                 for cfg, lo, hi in segments]
     if prep.device.type == "cuda":
         torch.cuda.synchronize(prep.device)
     t2 = time.perf_counter()
-    out = fastpath.schedule(prep, built, pod_valid=pod_valid)  # host copies: the card is done
+    # host copies: the card is done
+    out = fastpath.schedule(prep, seg_built, pod_valid=pod_valid, tie_seed=tie_seed)
     t3 = time.perf_counter()
     victims_of: Dict[int, int] = {}
     if enable_preemption and (out.chosen[~prep.forced] < 0).any():
         out, victims_of = _preempt(prep, out, cluster, apps, pod_valid)
     n_nodes = prep.meta.n_real_nodes if nv_mask is None else int(nv_mask.sum())
-    statuses, unscheduled = _decode(prep, out, cluster.nodes, pod_valid, n_nodes, victims_of)
+    statuses, unscheduled = _decode(prep, out, cluster.nodes, active, n_nodes, victims_of, custom_reasons)
     t4 = time.perf_counter()
+    names = [fast_scan.variant_name(fi, tie_seed is not None) for (fi, _meta), _lo, _hi in seg_built]
+    engine = names[0] if len(names) == 1 else f"{' + '.join(names)} (segmented multi-profile)"
     return SimulateResult(
         unscheduled_pods=unscheduled,
         node_status=statuses,
@@ -367,7 +408,7 @@ def simulate(
         vg_free=out.vg_free,
         dev_free=out.dev_free,
         timings={"prepare": t1 - t0, "inputs": t2 - t1, "kernel": t3 - t2, "decode": t4 - t3},
-        engine=f"{fast_scan.variant_name(built[0])} on {prep.device.type}",
+        engine=f"{engine} on {prep.device.type}",
     )
 
 
@@ -402,16 +443,18 @@ def _reason_string(
 
 def _decode(
     prep: Prepared, out: fastpath.Scheduled, nodes: List[Node], active: np.ndarray, n_nodes: int,
-    victims_of: Dict[int, int],
+    victims_of: Dict[int, int], custom_reasons: Dict[int, str],
 ) -> Tuple[List[NodeStatus], List[UnscheduledPod]]:
-    """One numpy pass splits the stream's `active` pods (the valid ones)
-    into placed and failed pods (the reference's ``_decode``). Each placed
-    pod goes into its node's bucket, in stream order, with the GPU devices
-    it took; each failed pod gets its reason, in stream order: a forced
-    pod's node was not found, a preemption victim names its preemptor, any
-    other pod gets the FitError rendering of its counts over the `n_nodes`
-    valid nodes. Returns the node statuses, whose annotations show the
-    final GPU and local-storage state, and the unscheduled pods."""
+    """One numpy pass splits the stream's `active` pods (those a fresh
+    expansion has) into placed and failed pods (the reference's
+    ``_decode``). Each placed pod goes into its node's bucket, in stream
+    order, with the GPU devices it took; each failed pod gets its reason,
+    in stream order: a forced pod's node was not found, a pod of an unknown
+    profile has its `custom_reasons` entry, a preemption victim names its
+    preemptor, any other pod gets the FitError rendering of its counts
+    (its own static row, ``out.static_fail[i]``) over the `n_nodes` valid
+    nodes. Returns the node statuses, whose annotations show the final GPU
+    and local-storage state, and the unscheduled pods."""
     node_pods: Dict[str, List[Pod]] = {n.metadata.name: [] for n in nodes}
     # a masked run's nodes past the valid prefix have no bucket (no pod lands there)
     pod_lists = [node_pods.get(n) for n in prep.meta.node_names]
@@ -438,12 +481,13 @@ def _decode(
         pod = prep.ordered[i]
         if prep.forced[i]:
             reason = reasons.node_not_found(pod.spec.node_name)
+        elif i in custom_reasons:
+            reason = custom_reasons[i]
         elif i in victims_of:
             preemptor = prep.ordered[victims_of[i]]
             reason = reasons.preempted(preemptor.metadata.namespace, preemptor.metadata.name)
         else:
-            reason = _reason_string(out.static_fail[prep.tmpl_ids[i]], out.fail_counts[i], out.insufficient[i],
-                                    prep.meta, n_nodes)
+            reason = _reason_string(out.static_fail[i], out.fail_counts[i], out.insufficient[i], prep.meta, n_nodes)
         unscheduled.append(UnscheduledPod(pod, reason))
     statuses = _node_statuses(nodes, node_pods, prep.meta, out.gpu_free, out.vg_free, out.dev_free)
     return statuses, unscheduled

@@ -77,6 +77,14 @@ def with_node_name(name: str) -> Option:
     return apply
 
 
+def with_scheduler_name(name: str) -> Option:
+    """The scheduler profile (``spec.schedulerName``) a pod selects."""
+    def apply(d: dict) -> None:
+        _pod_spec(d)["schedulerName"] = name
+
+    return apply
+
+
 def with_node_selector(sel: Dict[str, str]) -> Option:
     def apply(d: dict) -> None:
         _pod_spec(d).setdefault("nodeSelector", {}).update(sel)
@@ -389,13 +397,17 @@ def _avoided_replica_set(replicas: int, cpu: str, memory: str, *options: Option)
                                  lambda d: d["metadata"].update(uid="rs-avoided"), *options)
 
 
-def score_cluster(n_nodes: int) -> ResourceTypes:
+def score_cluster(n_nodes: int, blocked: int = 0) -> ResourceTypes:
     """The capacity plan's fleet with the score tables' inputs: a
     PreferNoSchedule taint on every eighth node, and every eighth node
-    (another set) prefers to avoid the ReplicaSet ``avoided``."""
+    (another set) prefers to avoid the ReplicaSet ``avoided``; with
+    `blocked`, every `blocked`-th node also carries a NoSchedule taint that
+    no pod tolerates (the config plan: its config turns that filter off)."""
     rt = ResourceTypes()
     for i in range(n_nodes):
         opts = []
+        if blocked and i % blocked == 0:
+            opts.append(with_taints([{"key": "block", "value": "x", "effect": "NoSchedule"}]))
         if i % 8 == 0:
             opts.append(with_taints([{"key": "soft", "value": "x", "effect": "PreferNoSchedule"}]))
         if i % 8 == 4:
@@ -404,12 +416,14 @@ def score_cluster(n_nodes: int) -> ResourceTypes:
     return rt
 
 
-def score_apps(n_pods: int, host_port: bool = False) -> ResourceTypes:
+def score_apps(n_pods: int, host_port: bool = False, widget: bool = False) -> ResourceTypes:
     """The capacity plan's workload with the score tables' inputs: 20
     workloads of ``n_pods // 20`` pods with its node selectors and soft
     zone spread, preferred ``disk=ssd`` node affinity (weight 50) on every
     third, and workload 4 the ReplicaSet ``avoided``, which tolerates the
-    soft taint; with `host_port`, Deployment 0 also asks host port 8080.
+    soft taint; with `host_port`, Deployment 0 also asks host port 8080;
+    with `widget`, Deployment 1 also asks one ``example.com/widget``, which
+    no node offers (the config plan: its config ignores that resource).
     The queue sorts put the tolerating pods first and the node-selector
     pods next, so both lead the stream."""
     rt = ResourceTypes()
@@ -424,12 +438,114 @@ def score_apps(n_pods: int, host_port: bool = False) -> ResourceTypes:
             ]}}))
         if host_port and w == 0:
             opts.append(with_host_ports([8080]))
+        if widget and w == 1:
+            opts.append(with_requests({WIDGET: "1"}))
         if w == 4:
             opts.append(with_tolerations([{"key": "soft", "operator": "Exists", "effect": "PreferNoSchedule"}]))
             rt.replica_sets.append(_avoided_replica_set(per, cpu, memory, *opts))
         else:
             rt.deployments.append(make_fake_deployment(f"bench-{w}", per, cpu, memory, *opts))
     return rt
+
+
+#: The extended resource of the config plan, which no node offers.
+WIDGET = "example.com/widget"
+
+#: KubeSchedulerConfiguration files of the card plans, in the format
+#: ``engine/schedconfig.py`` parses. The config plan's: every setting
+#: decides placements on the config plan (score_cluster(n, blocked=10),
+#: score_apps(n, widget=True)): the TaintToleration filter off, the
+#: NodeResourcesBalancedAllocation and NodePreferAvoidPods scores off,
+#: NodeResourcesLeastAllocated at weight 3, NodeAffinity at 2,
+#: PodTopologySpread at 1, and the widget ignored by the fit filter.
+SCHED_CONFIG_PLAN = f"""apiVersion: kubescheduler.config.k8s.io/v1beta1
+kind: KubeSchedulerConfiguration
+profiles:
+  - schedulerName: default-scheduler
+    plugins:
+      filter:
+        disabled:
+          - name: TaintToleration
+      score:
+        disabled:
+          - name: NodeResourcesBalancedAllocation
+          - name: NodePreferAvoidPods
+        enabled:
+          - name: NodeResourcesLeastAllocated
+            weight: 3
+          - name: NodeAffinity
+            weight: 2
+          - name: PodTopologySpread
+            weight: 1
+    pluginConfig:
+      - name: NodeResourcesFit
+        args:
+          ignoredResources:
+            - {WIDGET}
+"""
+#: The two-profile plan's: ``default-scheduler`` with LeastAllocated at
+#: weight 3; ``batch`` with BalancedAllocation at 5 and no spread score.
+SCHED_TWO_PROFILES = """apiVersion: kubescheduler.config.k8s.io/v1beta1
+kind: KubeSchedulerConfiguration
+profiles:
+  - schedulerName: default-scheduler
+    plugins:
+      score:
+        enabled:
+          - name: NodeResourcesLeastAllocated
+            weight: 3
+  - schedulerName: batch
+    plugins:
+      score:
+        disabled:
+          - name: PodTopologySpread
+        enabled:
+          - name: NodeResourcesBalancedAllocation
+            weight: 5
+"""
+#: ``simon apply -d`` on the apply plan: the config plan's settings that
+#: apply to the capacity fleet (no taints, preferred node affinity,
+#: avoided controllers or widgets there).
+SCHED_APPLY = """apiVersion: kubescheduler.config.k8s.io/v1beta1
+kind: KubeSchedulerConfiguration
+profiles:
+  - schedulerName: default-scheduler
+    plugins:
+      score:
+        disabled:
+          - name: NodeResourcesBalancedAllocation
+        enabled:
+          - name: NodeResourcesLeastAllocated
+            weight: 3
+          - name: PodTopologySpread
+            weight: 1
+"""
+
+
+def write_scheduler_config(path, text: str) -> str:
+    """Write a KubeSchedulerConfiguration (one of the SCHED_* texts) to
+    `path`, creating its directory; returns the path."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text)
+    return str(path)
+
+
+def two_profile_apps(n_pods: int) -> List[Tuple[str, ResourceTypes]]:
+    """The two-profile plan's apps, in order, as (name, resources): the
+    capacity plan's 20 Deployments (:func:`synthetic_apps`), the first ten
+    in ``plan`` and the last ten, selecting the ``batch`` profile, in
+    ``batch``. Each app's pods are sorted on their own, so the batch pods,
+    the second half, stay contiguous: two profile segments."""
+    per = n_pods // 20
+    apps = []
+    for name, ws, opts in (("plan", range(10), ()), ("batch", range(10, 20), (with_scheduler_name("batch"),))):
+        rt = ResourceTypes()
+        for w in ws:
+            cpu, memory, w_opts = _plan_workload(w)
+            rt.deployments.append(make_fake_deployment(f"bench-{w}", per, cpu, memory, *w_opts, *opts))
+        apps.append((name, rt))
+    return apps
 
 
 def bigu_apps(n_pods: int, n_templates: int = 1000) -> ResourceTypes:

@@ -19,12 +19,13 @@
 // kernel replaces that kernel under jax.vmap (opensim_tpu/engine/fastpath.py:
 // sweep).
 //
-// Variants: both kernels are templates over the eight flags. Each shared
-// object holds one instantiation of each, chosen at compile time by
-// -DFS_VARIANT (bit i = flag i in the order of the template; ops/fast_scan.py
-// builds the variants a run needs, all at once), so a variant carries no
-// code of a feature it lacks and the build does not grow with the number of
-// flags.
+// Variants: both kernels are templates over the eight feature flags, then
+// CFG (a scheduler config) and, for the one scan, SAMPLE (the sampled
+// tie-break). Each shared object holds one instantiation of each, chosen at
+// compile time by -DFS_VARIANT (bit i = flag i in the order of the
+// template; ops/fast_scan.py builds the variants a run needs, all at once),
+// so a variant carries no code of a feature it lacks and the build does not
+// grow with the number of flags.
 //
 // One scan. What bounds it: not bytes and not operations. A step reads a few
 // hundred KB and does some 70-250 flops per node, but pod i+1 reads the
@@ -100,6 +101,41 @@
 // (template values, hoisted in the sweep only) and GCons or SCons
 // (constraints).
 //
+// A scheduler config (variant flag CFG: a KubeSchedulerConfiguration other
+// than the default, or any segment of a segmented multi-profile run). The
+// reference runs such a config on its XLA scan,
+// whose step (opensim_tpu/ops/kernels.py: pod_step) sums the weighted
+// score parts in score_parts order from 0: balanced, least, node affinity,
+// taint toleration, inter-pod, spread, share, local, avoid; a part of
+// weight 0 is left out. The CFG variant sums in that order with the
+// config's float32 weights, runtime bits switch each dynamic filter off (a
+// disabled filter passes every node and counts nothing; with the spread
+// filter off no hard constraint is evaluated, so pass 1 does not run), and
+// the fit filter skips the ignored resource rows. The weights and bits lie
+// in the __grid_constant__ argument block, read from the constant bank, so
+// they take no registers. The default variants compile as before: CFG
+// false folds every switch to a constant.
+//
+// Initial state. The CFG variants of both kernels can start from a given
+// state (init: one row per scenario, laid out as the state arena) instead
+// of the encoded one, so that consecutive launches carry the state: a segmented
+// multi-profile stream runs one launch per segment, each on the CFG
+// variant (simulator._run_segments in the JAX package runs one scan of
+// its XLA engine per segment on the carry, summing in score_parts order
+// even for the default config). The one scan loads every CTA's copy of
+// the small state from it too. The other variants read no such pointer:
+// the branch alone, before the loop, moved two of their timed rows by
+// +3% and -5% (an ablation on the card, PERF.md §6).
+//
+// Sampled tie-break (variant flag SAMPLE, one scan only): selectHost takes
+// the node with the highest score, then the highest draw, then the lowest
+// index. The draw is Philox-4x32-10 (Salmon et al., SC'11), keyed by the
+// seed, with counter (stream index of the pod, node index), so the choice
+// is uniform over each step's maxima (the reference's
+// generic_scheduler.go:188-210 reservoir sampling, in distribution; the
+// JAX package's jax.random bits cannot be reproduced). It adds a word to
+// pass 3's reduction and nothing to the other passes.
+//
 // Bit-exactness with the plain PyTorch version (ops/fast_scan.py) and the
 // JAX reference: every formula is written in the reference's op order,
 // every constant is a float literal, and the file is compiled with
@@ -119,6 +155,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #ifndef FS_VARIANT
 #error "build one kernel variant per library: nvcc -DFS_VARIANT=<flag bits> (ops/fast_scan.py)"
@@ -258,6 +296,10 @@ struct FastScanArgs {
     int32_t* fail_counts;      // [P, N_FAIL] nodes that fail each dynamic filter first
     int32_t* insufficient;     // [P, R] nodes that reach fit and lack each resource
     unsigned long long* count_clock;  // [2] the counting passes' global-timer nanoseconds and their number
+    // the initial state (CFG variants; null: the encoded start), one row
+    // per scenario at the arena's stride W, laid out as the arena, whose
+    // first field is used
+    const float* init;
     int64_t W;                 // floats per scenario in the arena
     int32_t S, P, N, R, U, A, K, Z, Cs, Gd, gc_row, Hp, Ti, Tn, Tp, G, Gp, Vg, Dv, Mv;
     int32_t has_gpu, has_na, has_tt, has_avoid, has_ports, has_interpod, has_local;
@@ -271,7 +313,26 @@ struct FastScanArgs {
     int32_t o_alloc, o_zone, o_nv, o_gpu0, o_vg_cap, o_dev_cap, o_dev_media, o_rep;
     // float offsets of the small state within its copy
     int32_t o_zone_cnt, o_anti_zone, o_prefw_zone, o_sel_total;
+    // the variant's two later flags
+    int32_t has_cfg, has_sample;
+    // a config (CFG): bit V_x set = dynamic filter x on; bit r set = the fit
+    // filter skips resource row r
+    int32_t filters, fit_ignored;
+    // the sampled tie-break (SAMPLE): the first pod's stream index (the
+    // draw's counter), the Philox key
+    int32_t draw_base;
+    uint32_t key0, key1;
+    // a config's score weights (CFG), float32, in score_parts order
+    float w_balanced, w_least, w_node_affinity, w_taint_toleration, w_interpod, w_spread, w_share, w_local,
+        w_prefer_avoid;
 };
+
+// Value k of a state field in the given initial state's first row: the
+// rows are laid out as the arena, so the field lies at its offset from the
+// arena's first field, used.
+__device__ __forceinline__ float given(const FastScanArgs& a, const float* field, size_t k) {
+    return a.init[(field - a.used) + k];
+}
 
 // The scans a thread works on at once, and where their state lies. Every
 // per-node helper reads and writes state, and the constant node tables,
@@ -609,36 +670,99 @@ __device__ __forceinline__ void cluster_reduce(float (&v)[NV], IsMax is_max, Sca
     par ^= 1;
 }
 
-// The cluster's lowest index among the maxima of (s, i), the same way: one
-// pair per warp, the CTA's pair, one cluster barrier, then lane r of every
-// warp reads CTA r's pair and the warp reduces them. Returns the index in
-// every thread.
-__device__ __forceinline__ int cluster_argmax(float s, int i, int none, ScanShared& sh, int& par,
+// The sampled tie-break's draws: the first word of Philox-4x32-10 (Salmon
+// et al., SC'11; the Random123 constants) with key (key0, key1) and
+// counter (c0, c1, 0, 0). ops/fast_scan.philox_draws computes the same
+// words in integer torch ops.
+__device__ __forceinline__ unsigned philox_draw(unsigned k0, unsigned k1, unsigned c0, unsigned c1) {
+    unsigned c2 = 0u, c3 = 0u;
+#pragma unroll
+    for (int r = 0; r < 10; ++r) {
+        if (r) {
+            k0 += 0x9E3779B9u;
+            k1 += 0xBB67AE85u;
+        }
+        const unsigned hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+        const unsigned hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+        c0 = hi1 ^ c1 ^ k0;
+        c1 = lo1;
+        c2 = hi0 ^ c3 ^ k1;
+        c3 = lo0;
+    }
+    return c0;
+}
+
+// The sampled selectHost's order: (score, draw, index) triples, the highest
+// score, then the highest draw, then the lowest index. Without SAMPLE the
+// draw is not read: better and warp_argmax above.
+template <bool SAMPLE>
+__device__ __forceinline__ void better(float& s, unsigned& d, int& i, float s2, unsigned d2, int i2) {
+    if constexpr (SAMPLE) {
+        if (s2 > s || (s2 == s && (d2 > d || (d2 == d && i2 < i)))) {
+            s = s2;
+            d = d2;
+            i = i2;
+        }
+    } else {
+        better(s, i, s2, i2);
+    }
+}
+
+template <bool SAMPLE>
+__device__ __forceinline__ void warp_argmax(float& s, unsigned& d, int& i) {
+    if constexpr (SAMPLE) {
+        for (int o = 16; o > 0; o >>= 1)
+            better<true>(s, d, i, __shfl_xor_sync(FULL_MASK, s, o), __shfl_xor_sync(FULL_MASK, d, o),
+                         __shfl_xor_sync(FULL_MASK, i, o));
+    } else {
+        warp_argmax(s, i);
+    }
+}
+
+// One scan's reduction scratch with room for the draws (SAMPLE variants).
+struct ScanSharedDrawn : ScanShared {
+    unsigned dbuf[NWARP];
+    unsigned pd[2];
+};
+
+// The cluster's selectHost choice among (s, [d,] i), the same way as
+// cluster_reduce: one triple per warp, the CTA's triple, one cluster
+// barrier, then lane r of every warp reads CTA r's triple and the warp
+// reduces them. Without SAMPLE the lowest index among the maxima of (s, i)
+// (d is not read; sh is a ScanShared), with it the sampled order (sh is a
+// ScanSharedDrawn). Returns the index in every thread.
+template <bool SAMPLE, class SH>
+__device__ __forceinline__ int cluster_argmax(float s, unsigned d, int i, int none, SH& sh, int& par,
                                               const cg::cluster_group& cluster) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    warp_argmax(s, i);
+    warp_argmax<SAMPLE>(s, d, i);
     if (lane == 0) {
         sh.sbuf[warp] = s;
+        if constexpr (SAMPLE) sh.dbuf[warp] = d;
         sh.ibuf[warp] = i;
     }
     __syncthreads();
     if (warp == 0) {
         s = lane < NWARP ? sh.sbuf[lane] : NEG;
+        if constexpr (SAMPLE) d = lane < NWARP ? sh.dbuf[lane] : 0u;
         i = lane < NWARP ? sh.ibuf[lane] : none;
-        warp_argmax(s, i);
+        warp_argmax<SAMPLE>(s, d, i);
         if (lane == 0) {
             sh.ps[par] = s;
+            if constexpr (SAMPLE) sh.pd[par] = d;
             sh.pi[par] = i;
         }
     }
     cluster.sync();
     s = NEG;
+    d = 0u;
     i = none;
     if (lane < CL) {
         s = *cluster.map_shared_rank(&sh.ps[par], lane);
+        if constexpr (SAMPLE) d = *cluster.map_shared_rank(&sh.pd[par], lane);
         i = *cluster.map_shared_rank(&sh.pi[par], lane);
     }
-    warp_argmax(s, i);
+    warp_argmax<SAMPLE>(s, d, i);
     par ^= 1;
     return i;
 }
@@ -690,6 +814,21 @@ struct Verdicts {
 struct NoVerdicts {
     static constexpr bool on = false;
 };
+
+// Whether dynamic filter v (a V_* bit) runs: always in a default variant;
+// in a CFG variant, as the config's bits say.
+template <bool CFG>
+__device__ __forceinline__ bool filter_on(const FastScanArgs& a, int v) {
+    if constexpr (CFG) return (a.filters >> v & 1) != 0;
+    return true;
+}
+
+// The step's hard spread constraints as the filter takes them: none when
+// a config turns the spread filter off.
+template <bool CFG>
+__device__ __forceinline__ unsigned hard_cons(const FastScanArgs& a, unsigned hard) {
+    return filter_on<CFG>(a, V_SPREAD) ? hard : 0u;
+}
 
 // Counts of bound pods matching selector `sel` in node n's domain under
 // topology key `key` (0 = hostname, 1..K = zone keys), per slot in `want`
@@ -954,8 +1093,11 @@ __device__ __forceinline__ void local_bind(const FastScanArgs& a, const Sl& S, i
 // slot's minimum counts of its hard spread constraints (slot j's at
 // min_cnt + j * MAX_CS) (pallas_scan.py:400-586), plus node n's dynamic
 // gpu-count state for the share add-back. Given a Verdicts (one scan's
-// counting pass), each filter's own verdict as well.
-template <bool GPU, bool GC, bool PORTS, bool IP, bool LOC, class Sl, class Cn, class TN, class PD,
+// counting pass), each filter's own verdict as well. With CFG, a filter
+// the config turns off passes every node (the caller leaves the hard
+// spread constraints out of `cs`), and fit skips the ignored rows
+// (kernels.py:188-199).
+template <bool GPU, bool GC, bool PORTS, bool IP, bool LOC, bool CFG, class Sl, class Cn, class TN, class PD,
           class VD = NoVerdicts>
 __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S, const Cn& cs, const TN& t,
                                               const PD& p, int n, const float* min_cnt, unsigned boot, unsigned want,
@@ -968,11 +1110,14 @@ __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S
     float fit[NB];
 #pragma unroll
     for (int j = 0; j < NB; ++j) fit[j] = 1.0f;
+    const bool fit_on = filter_on<CFG>(a, V_FIT);
 #pragma unroll
     for (int r = 0; r < MAX_R; ++r) {
-        if (r >= a.R) break;
+        if (r >= a.R || !fit_on) break;
         const float req_r = p.req(r);
         if (!(req_r > 0.0f)) continue;  // the reference multiplies by 1 for a row the pod does not request
+        if constexpr (CFG)
+            if (a.fit_ignored >> r & 1) continue;  // NodeResourcesFitArgs.ignoredResources
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
             const float used_r = want >> j & 1u ? S.used(j, r, n) : 0.0f;
@@ -988,28 +1133,30 @@ __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S
 #pragma unroll
     for (int j = 0; j < NB; ++j) feasible[j] = t.sp() * fit[j] * S.valid(j, n);
     if constexpr (PORTS) {
-        // NodePorts: a conflicting port id already used on the node
-        float conflicts[NB];
+        if (filter_on<CFG>(a, V_PORTS)) {
+            // NodePorts: a conflicting port id already used on the node
+            float conflicts[NB];
 #pragma unroll
-        for (int j = 0; j < NB; ++j) conflicts[j] = 0.0f;
-        for (int h = 0; h < a.Hp; ++h) {
-            const float mine = a.port_conf[(size_t)h * a.U + u];
-            if (mine == 0.0f) continue;
+            for (int j = 0; j < NB; ++j) conflicts[j] = 0.0f;
+            for (int h = 0; h < a.Hp; ++h) {
+                const float mine = a.port_conf[(size_t)h * a.U + u];
+                if (mine == 0.0f) continue;
 #pragma unroll
-            for (int j = 0; j < NB; ++j) {
-                const float used_h = want >> j & 1u ? S.port_used(j, h, n) : 0.0f;
-                conflicts[j] = conflicts[j] + mine * (used_h > 0.0f ? 1.0f : 0.0f);
+                for (int j = 0; j < NB; ++j) {
+                    const float used_h = want >> j & 1u ? S.port_used(j, h, n) : 0.0f;
+                    conflicts[j] = conflicts[j] + mine * (used_h > 0.0f ? 1.0f : 0.0f);
+                }
             }
-        }
 #pragma unroll
-        for (int j = 0; j < NB; ++j) feasible[j] = feasible[j] * (conflicts[j] == 0.0f ? 1.0f : 0.0f);
-        if constexpr (VD::on) vd->fail |= (conflicts[0] == 0.0f ? 0u : 1u) << V_PORTS;
+            for (int j = 0; j < NB; ++j) feasible[j] = feasible[j] * (conflicts[j] == 0.0f ? 1.0f : 0.0f);
+            if constexpr (VD::on) vd->fail |= (conflicts[0] == 0.0f ? 0u : 1u) << V_PORTS;
+        }
     }
     if constexpr (GPU) {
         // Open-Gpu-Share filter: sum_d floor(free_d / mem) >= count
         const float gmem = a.gpu_mem[u];
         const float gcnt = a.gpu_cnt[u];
-        if (gmem > 0.0f) {
+        if (gmem > 0.0f && filter_on<CFG>(a, V_GPU)) {
             const float gmem1 = fmaxf(gmem, 1.0f);
             float chunks_sum[NB];
 #pragma unroll
@@ -1032,7 +1179,7 @@ __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S
     if constexpr (LOC) {
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
-            if (!(want >> j & 1u)) continue;
+            if (!(want >> j & 1u) || !filter_on<CFG>(a, V_LOCAL)) continue;
             const float ok = local_filter(a, S, j, u, n);
             feasible[j] = feasible[j] * ok;
             if constexpr (VD::on) vd->fail |= (ok > 0.0f ? 0u : 1u) << V_LOCAL;
@@ -1051,11 +1198,13 @@ __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S
         }
     }
     if constexpr (IP) {
-        float ok[NB];
-        interpod_filter(a, S, t, u, n, boot, want, ok);
+        if (filter_on<CFG>(a, V_INTERPOD)) {
+            float ok[NB];
+            interpod_filter(a, S, t, u, n, boot, want, ok);
 #pragma unroll
-        for (int j = 0; j < NB; ++j) feasible[j] = feasible[j] * ok[j];
-        if constexpr (VD::on) vd->fail |= (ok[0] > 0.0f ? 0u : 1u) << V_INTERPOD;
+            for (int j = 0; j < NB; ++j) feasible[j] = feasible[j] * ok[j];
+            if constexpr (VD::on) vd->fail |= (ok[0] > 0.0f ? 0u : 1u) << V_INTERPOD;
+        }
     }
 }
 
@@ -1129,7 +1278,8 @@ struct Kept {
 // them; an infeasible one adds the 0 the reference's masks give the
 // score-table maxima. Returns the feasibility in `feasible`, and one scan's
 // values for pass 3 in `kept` where given.
-template <bool GPU, bool GC, bool NA, bool TT, bool PORTS, bool IP, bool LOC, class Sl, class Cn, class TN, class PD>
+template <bool GPU, bool GC, bool NA, bool TT, bool PORTS, bool IP, bool LOC, bool CFG, class Sl, class Cn, class TN,
+          class PD>
 __device__ __forceinline__ void pass2_node(const FastScanArgs& a, const Sl& S, const Cn& cs, const TN& t,
                                            const PD& p, int n,
                                            const float* min_cnt, unsigned boot, unsigned want,
@@ -1138,7 +1288,8 @@ __device__ __forceinline__ void pass2_node(const FastScanArgs& a, const Sl& S, c
     constexpr int NB = Sl::NB;
     using RD = Red<NA, TT, LOC, IP>;
     float gc_dyn[NB], gc_has_dev = 0.0f, soft_raw[NB], ignored, ip[NB];
-    node_feasible<GPU, GC, PORTS, IP, LOC>(a, S, cs, t, p, n, min_cnt, boot, want, feasible, gc_dyn, gc_has_dev);
+    node_feasible<GPU, GC, PORTS, IP, LOC, CFG>(a, S, cs, t, p, n, min_cnt, boot, want, feasible, gc_dyn,
+                                                gc_has_dev);
     node_soft(a, S, cs, t, n, want, soft_raw, ignored);
     if constexpr (IP) interpod_raw(a, S, t, p.u, n, want, ip);
 #pragma unroll
@@ -1182,13 +1333,17 @@ __device__ __forceinline__ void pass2_node(const FastScanArgs& a, const Sl& S, c
 
 // Pass 3's score of a feasible node for one slot (pallas_scan.py:588-711),
 // added in the reference's order: ((least + balanced) + 2 share) + 2
-// spread, then the score tables, binpack and inter-pod scores. `rv` holds
-// the slot's reduced pass-2 values (Red's order); `lr()` gives the node's
-// binpack raw score, read only where the binpack range is positive.
-template <bool NA, bool TT, bool AV, bool LOC, bool IP, class PD, class LR>
-__device__ __forceinline__ float score_of(const PD& p, float alloc_cpu, float alloc_mem, float used_cpu,
-                                          float used_mem, float sh, float soft_raw, float ignored, float ip, LR lr,
-                                          float na, float tt, float avoid, bool any_soft, const float* rv) {
+// spread, then the score tables, binpack and inter-pod scores. With CFG,
+// each part times the config's weight, summed from 0 in score_parts order
+// (opensim_tpu/ops/kernels.py:918-979, pod_step :1073-1075), a part of
+// weight 0 left out. `rv` holds the slot's reduced pass-2 values (Red's
+// order); `lr()` gives the node's binpack raw score, read only where the
+// binpack range is positive and its weight is not 0.
+template <bool NA, bool TT, bool AV, bool LOC, bool IP, bool CFG, class PD, class LR>
+__device__ __forceinline__ float score_of(const FastScanArgs& a, const PD& p, float alloc_cpu, float alloc_mem,
+                                          float used_cpu, float used_mem, float sh, float soft_raw, float ignored,
+                                          float ip, LR lr, float na, float tt, float avoid, bool any_soft,
+                                          const float* rv) {
     using RD = Red<NA, TT, LOC, IP>;
     const float lo = rv[0], rng = rv[1] - lo, smn = rv[2], smx = rv[3];
     const float ucpu = used_cpu + p.cpu_req();
@@ -1206,6 +1361,36 @@ __device__ __forceinline__ float score_of(const PD& p, float alloc_cpu, float al
     float spread_norm = smx <= 0.0f ? MAX_SCORE : MAX_SCORE * (smx + smn - soft_raw) / fmaxf(smx, 1.0f);
     if (ignored > 0.0f) spread_norm = 0.0f;
     if (!any_soft) spread_norm = 0.0f;
+    if constexpr (CFG) {
+        float s = 0.0f;
+        if (a.w_balanced != 0.0f) s = s + a.w_balanced * balanced;
+        if (a.w_least != 0.0f) s = s + a.w_least * least;
+        if constexpr (NA) {
+            const float na_max = rv[RD::I_NA];
+            if (a.w_node_affinity != 0.0f)
+                s = s + a.w_node_affinity * (na_max > 0.0f ? na * MAX_SCORE / fmaxf(na_max, 1.0f) : na);
+        }
+        if constexpr (TT) {
+            const float tt_max = rv[RD::I_TT];
+            if (a.w_taint_toleration != 0.0f)
+                s = s + a.w_taint_toleration *
+                            (tt_max > 0.0f ? MAX_SCORE - tt * MAX_SCORE / fmaxf(tt_max, 1.0f) : MAX_SCORE);
+        }
+        if constexpr (IP) {
+            const float ip_lo = rv[RD::I_IP + 1], ip_rng = rv[RD::I_IP] - ip_lo;
+            if (a.w_interpod != 0.0f)
+                s = s + a.w_interpod * (ip_rng > 0.0f ? MAX_SCORE * (ip - ip_lo) / fmaxf(ip_rng, 1.0f) : 0.0f);
+        }
+        if (a.w_spread != 0.0f) s = s + a.w_spread * spread_norm;
+        if (a.w_share != 0.0f) s = s + a.w_share * share_norm;
+        if constexpr (LOC) {
+            const float l_lo = rv[RD::I_LOC], l_rng = rv[RD::I_LOC + 1] - l_lo;
+            if (a.w_local != 0.0f) s = s + a.w_local * (l_rng > 0.0f ? (lr() - l_lo) * MAX_SCORE / l_rng : 0.0f);
+        }
+        if constexpr (AV)
+            if (a.w_prefer_avoid != 0.0f) s = s + a.w_prefer_avoid * avoid;
+        return s;
+    }
     float s = least + balanced + 2.0f * share_norm + 2.0f * spread_norm;
     if constexpr (NA) {
         const float na_max = rv[RD::I_NA];
@@ -1231,7 +1416,7 @@ __device__ __forceinline__ float score_of(const PD& p, float alloc_cpu, float al
 // node is feasible), its values computed afresh from the state. Slot j
 // normalises with its reduced pass-2 values at red + j * MAX_RED, gc_dyn
 // its dynamic gpu-count allocatable.
-template <bool GC, bool NA, bool TT, bool AV, bool LOC, bool IP, class Sl, class Cn, class TN, class PD>
+template <bool GC, bool NA, bool TT, bool AV, bool LOC, bool IP, bool CFG, class Sl, class Cn, class TN, class PD>
 __device__ __forceinline__ void node_score(const FastScanArgs& a, const Sl& S, const Cn& cs, const TN& t,
                                            const PD& p, int n,
                                            const float (&gc_dyn)[Sl::NB], float gc_has_dev, bool any_soft,
@@ -1252,8 +1437,8 @@ __device__ __forceinline__ void node_score(const FastScanArgs& a, const Sl& S, c
     for (int j = 0; j < NB; ++j) {
         if (!(want >> j & 1u)) continue;
         const float sh = share_of<GC>(t, p, GC ? gc_dyn[j] : 0.0f, gc_has_dev);
-        score[j] = score_of<NA, TT, AV, LOC, IP>(
-            p, alloc_cpu, alloc_mem, used_cpu[j], used_mem[j], sh, soft_raw[j], ignored, IP ? ip[j] : 0.0f,
+        score[j] = score_of<NA, TT, AV, LOC, IP, CFG>(
+            a, p, alloc_cpu, alloc_mem, used_cpu[j], used_mem[j], sh, soft_raw[j], ignored, IP ? ip[j] : 0.0f,
             [&] { return local_raw_of(a, S, j, p.u, n); }, NA ? t.na() : 0.0f, TT ? t.tt() : 0.0f,
             AV ? t.avoid() : 0.0f, any_soft, red + j * MAX_RED);
     }
@@ -1341,10 +1526,15 @@ __device__ __forceinline__ bool at_bootstrap_of(const FastScanArgs& a, const Sl&
     return map_total == 0.0f && self_all > 0.0f;
 }
 
-// State init of the scan at offset `off`: used <- used0, counts <- 0,
-// gpu_free <- gpu0, vg_free <- vg0, dev_free <- dev0.
-template <bool GPU, bool PORTS, bool IP, bool LOC>
+// State init of the scan at offset `off`: a copy of the given state's row
+// at `off` where there is one (CFG variants), else used <- used0, counts
+// <- 0, gpu_free <- gpu0, vg_free <- vg0, dev_free <- dev0.
+template <bool GPU, bool PORTS, bool IP, bool LOC, bool CFG>
 __device__ __forceinline__ void init_state(const FastScanArgs& a, size_t off, int tid, int nt) {
+    if (CFG && a.init != nullptr) {
+        for (size_t j = tid; j < (size_t)a.W; j += nt) a.used[off + j] = a.init[off + j];
+        return;
+    }
     const size_t N = a.N, A = a.A, K = a.K, Z = a.Z;
     for (size_t j = tid; j < (size_t)a.R * N; j += nt) a.used[off + j] = a.used0[j];
     for (size_t j = tid; j < A * N; j += nt) a.node_cnt[off + j] = 0.0f;
@@ -1366,28 +1556,34 @@ __device__ __forceinline__ void init_state(const FastScanArgs& a, size_t off, in
     }
 }
 
-// One scan's state at the start, for the nodes CTA `rank` owns: used <-
-// used0, counts <- 0, gpu_free <- gpu0, vg_free <- vg0, dev_free <- dev0,
-// its copy of the small state <- 0; with RES = 1, the slice's constant node
-// tables copied into shared memory too. Each thread fills its own nodes'
-// rows, so neighbouring threads read neighbouring nodes.
-template <bool GPU, bool GC, bool PORTS, bool IP, bool LOC, int RES>
+// One scan's state at the start, for the nodes CTA `rank` owns: the
+// given state where there is one (INIT variants only), else
+// used <- used0, counts <- 0, gpu_free <- gpu0, vg_free <- vg0, dev_free
+// <- dev0; its copy of the small state likewise, from the given state or
+// 0; with RES = 1, the slice's constant node tables copied into shared
+// memory too. Each thread fills its own nodes' rows, so neighbouring
+// threads read neighbouring nodes.
+template <bool GPU, bool GC, bool PORTS, bool IP, bool LOC, bool INIT, int RES>
 __device__ __forceinline__ void load_slice(const FastScanArgs& a, const Slice<RES>& S, int tid) {
     const size_t N = a.N;
+    const bool init = INIT && a.init != nullptr;
     for (int n = S.n0 + tid; n < S.n1; n += NT) {
-        for (int r = 0; r < a.R; ++r) S.used(0, r, n) = a.used0[r * N + n];
-        for (int q = 0; q < a.A; ++q) S.node_cnt(0, q, n) = 0.0f;
+        for (int r = 0; r < a.R; ++r) S.used(0, r, n) = init ? given(a, a.used, r * N + n) : a.used0[r * N + n];
+        for (int q = 0; q < a.A; ++q) S.node_cnt(0, q, n) = init ? given(a, a.node_cnt, q * N + n) : 0.0f;
         if constexpr (GPU)
-            for (int d = 0; d < a.Gd; ++d) S.gpu_free(0, d, n) = a.gpu0[d * N + n];
+            for (int d = 0; d < a.Gd; ++d)
+                S.gpu_free(0, d, n) = init ? given(a, a.gpu_free, d * N + n) : a.gpu0[d * N + n];
         if constexpr (PORTS)
-            for (int h = 0; h < a.Hp; ++h) S.port_used(0, h, n) = 0.0f;
+            for (int h = 0; h < a.Hp; ++h) S.port_used(0, h, n) = init ? given(a, a.port_used, h * N + n) : 0.0f;
         if constexpr (IP) {
-            for (int g = 0; g < a.G; ++g) S.anti_node(0, g, n) = 0.0f;
-            for (int g = 0; g < a.Gp; ++g) S.prefw_node(0, g, n) = 0.0f;
+            for (int g = 0; g < a.G; ++g) S.anti_node(0, g, n) = init ? given(a, a.anti_node, g * N + n) : 0.0f;
+            for (int g = 0; g < a.Gp; ++g) S.prefw_node(0, g, n) = init ? given(a, a.prefw_node, g * N + n) : 0.0f;
         }
         if constexpr (LOC) {
-            for (int v = 0; v < a.Vg; ++v) S.vg_free(0, v, n) = a.vg0[v * N + n];
-            for (int d = 0; d < a.Dv; ++d) S.dev_free(0, d, n) = a.dev0[d * N + n];
+            for (int v = 0; v < a.Vg; ++v)
+                S.vg_free(0, v, n) = init ? given(a, a.vg_free, v * N + n) : a.vg0[v * N + n];
+            for (int d = 0; d < a.Dv; ++d)
+                S.dev_free(0, d, n) = init ? given(a, a.dev_free, d * N + n) : a.dev0[d * N + n];
         }
         if constexpr (RES) {
             for (int r = 0; r < a.R; ++r) S.template sm<float>(a.o_alloc, r, n) = a.alloc[r * N + n];
@@ -1403,7 +1599,17 @@ __device__ __forceinline__ void load_slice(const FastScanArgs& a, const Slice<RE
             }
         }
     }
-    for (int k = tid; k < a.Wrep; k += NT) S.small(0, k) = 0.0f;
+    if (!init) {
+        for (int k = tid; k < a.Wrep; k += NT) S.small(0, k) = 0.0f;
+        return;
+    }
+    const int KA = a.K * a.A, Z = a.Z;
+    for (int k = tid; k < KA * Z; k += NT) S.zone_cnt(0, k) = given(a, a.zone_cnt, k);
+    if constexpr (IP) {
+        for (int k = tid; k < a.G * Z; k += NT) S.anti_zone(0, k / Z, k % Z) = given(a, a.anti_zone, k);
+        for (int k = tid; k < a.Gp * Z; k += NT) S.prefw_zone(0, k / Z, k % Z) = given(a, a.prefw_zone, k);
+        for (int k = tid; k < KA + a.A; k += NT) S.sel_total(0, k) = given(a, a.sel_total, k);
+    }
 }
 
 // One scan's state at the end, into its buffers at offset 0: with RES = 1
@@ -1464,7 +1670,7 @@ __device__ __forceinline__ unsigned long long global_ns() {
 // CTAs' through distributed shared memory after one cluster barrier and
 // writes row i. CTA 0's first thread adds the pass's global-timer
 // nanoseconds to count_clock[0] and one to count_clock[1].
-template <bool GPU, bool GC, bool PORTS, bool IP, bool LOC, int RES>
+template <bool GPU, bool GC, bool PORTS, bool IP, bool LOC, bool CFG, int RES>
 __device__ __noinline__ void count_fails(const FastScanArgs& a, const Slice<RES> S, int i, int u, const MinCnt mc,
                                          unsigned boot, ScanShared& sh) {
     const cg::cluster_group cluster = cg::this_cluster();
@@ -1472,7 +1678,8 @@ __device__ __noinline__ void count_fails(const FastScanArgs& a, const Slice<RES>
     const bool first = cluster.block_rank() == 0;
     const unsigned long long t0 = first && tid == 0 ? global_ns() : 0ull;
     const Pod<false> p(a, u);
-    const GCons cs(a, u);
+    GCons cs(a, u);
+    cs.hard = hard_cons<CFG>(a, cs.hard);
     int cnt[N_FAIL + MAX_R];  // the filters' slots, then the resource rows
 #pragma unroll
     for (int k = 0; k < N_FAIL + MAX_R; ++k) cnt[k] = 0;
@@ -1481,7 +1688,8 @@ __device__ __noinline__ void count_fails(const FastScanArgs& a, const Slice<RES>
         if (!(t.sp() * S.valid(0, n) > 0.0f)) continue;  // the static row: the template's static_fail counts it
         float feasible[1], gc_dyn[1], gc_has_dev = 0.0f;
         Verdicts vd{0u, 0u};
-        node_feasible<GPU, GC, PORTS, IP, LOC>(a, S, cs, t, p, n, mc.v, boot, 1u, feasible, gc_dyn, gc_has_dev, &vd);
+        node_feasible<GPU, GC, PORTS, IP, LOC, CFG>(a, S, cs, t, p, n, mc.v, boot, 1u, feasible, gc_dyn, gc_has_dev,
+                                                    &vd);
         const int f = vd.fail ? __ffs(vd.fail) - 1 : N_FAIL;  // the bits lie in the order of attribution
 #pragma unroll
         for (int k = 0; k < N_FAIL; ++k) cnt[k] += k == f ? 1 : 0;
@@ -1523,14 +1731,15 @@ __device__ __noinline__ void count_fails(const FastScanArgs& a, const Slice<RES>
 // through the cluster (cluster_reduce, cluster_argmax), so every CTA knows
 // the choice, and the bind touches the owner's slice and every CTA's copy
 // of the small state.
-template <bool GPU, bool GC, bool NA, bool TT, bool AV, bool PORTS, bool IP, bool LOC, int RES>
+template <bool GPU, bool GC, bool NA, bool TT, bool AV, bool PORTS, bool IP, bool LOC, bool CFG, bool SAMPLE, int RES>
 __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant__ FastScanArgs a) {
+    using SH = std::conditional_t<SAMPLE, ScanSharedDrawn, ScanShared>;
     static_assert(GPU || !GC, "the gpu-count allocatable follows the GPUs");
-    static_assert(sizeof(ScanShared) <= SCAN_STATIC_SMEM, "the host budgets the rest of shared memory for the slice");
+    static_assert(sizeof(SH) <= SCAN_STATIC_SMEM, "the host budgets the rest of shared memory for the slice");
     using RD = Red<NA, TT, LOC, IP>;
     using SL = Slice<RES>;
     using TN = TNode<false, SL>;
-    __shared__ ScanShared sh;
+    __shared__ SH sh;
     const cg::cluster_group cluster = cg::this_cluster();
     const int tid = threadIdx.x, rank = (int)cluster.block_rank();
     const int N = a.N;
@@ -1539,7 +1748,7 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant_
     const bool lead = rank == 0 && tid == 0;  // writes chosen
     int par = 0;                              // parity of the reductions so far
 
-    load_slice<GPU, GC, PORTS, IP, LOC>(a, S, tid);
+    load_slice<GPU, GC, PORTS, IP, LOC, CFG>(a, S, tid);
     __syncthreads();
 
     for (int i = 0; i < a.P; ++i) {
@@ -1554,7 +1763,8 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant_
             choice = p >= 0 ? p : -1;
         } else {
             const Pod<false> p(a, u);
-            const GCons cs(a, u);
+            GCons cs(a, u);
+            cs.hard = hard_cons<CFG>(a, cs.hard);
             const unsigned boot = IP && at_bootstrap_of(a, S, 0, u) ? 1u : 0u;
             const bool any_soft = cs.soft != 0u;
 
@@ -1590,8 +1800,8 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant_
                 if (n < n1) {
                     const TN t(a, S, u, n);
                     float feasible[1];
-                    pass2_node<GPU, GC, NA, TT, PORTS, IP, LOC>(a, S, cs, t, p, n, min_cnt, boot, 1u, feasible, rv,
-                                                                &kept[k]);
+                    pass2_node<GPU, GC, NA, TT, PORTS, IP, LOC, CFG>(a, S, cs, t, p, n, min_cnt, boot, 1u, feasible,
+                                                                     rv, &kept[k]);
                     if constexpr (NA) kept[k].na = t.na();
                     if constexpr (TT) kept[k].tt = t.tt();
                     if constexpr (AV) kept[k].av = t.avoid();
@@ -1600,7 +1810,7 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant_
             for (int n = n0 + tid + SCAN_NPT * NT; n < n1; n += NT) {
                 const TN t(a, S, u, n);
                 float feasible[1];
-                pass2_node<GPU, GC, NA, TT, PORTS, IP, LOC>(a, S, cs, t, p, n, min_cnt, boot, 1u, feasible, rv);
+                pass2_node<GPU, GC, NA, TT, PORTS, IP, LOC, CFG>(a, S, cs, t, p, n, min_cnt, boot, 1u, feasible, rv);
             }
             cluster_reduce(rv[0], [](int k) { return RD::is_max(k); }, sh, par, cluster);
             const float* red = rv[0];
@@ -1609,38 +1819,48 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant_
                 MinCnt mc;
 #pragma unroll
                 for (int c = 0; c < MAX_CS; ++c) mc.v[c] = min_cnt[c];
-                count_fails<GPU, GC, PORTS, IP, LOC, RES>(a, S, i, u, mc, boot, sh);
+                count_fails<GPU, GC, PORTS, IP, LOC, CFG, RES>(a, S, i, u, mc, boot, sh);
                 if (lead) a.chosen[i] = -1;
                 continue;
             }
 
             // --- pass 3: score the feasible nodes (the kept ones from
             // their registers, the rest judged afresh), then the lowest
-            // index among the maxima
+            // index among the maxima (SAMPLE: the highest draw among them,
+            // then the lowest index)
             float best_s = NEG;
+            unsigned best_d = 0u;
             int best_i = N;
+            const auto keep = [&](float s, int n) {
+                if constexpr (SAMPLE)
+                    better<true>(best_s, best_d, best_i, s, philox_draw(a.key0, a.key1, (unsigned)(a.draw_base + i), n),
+                                 n);
+                else
+                    better(best_s, best_i, s, n);
+            };
 #pragma unroll
             for (int k = 0; k < SCAN_NPT; ++k) {
                 const Kept& kk = kept[k];
                 if (!kk.feas) continue;
                 const int n = n0 + tid + k * NT;
-                const float s = score_of<NA, TT, AV, LOC, IP>(
-                    p, S.alloc(RES_CPU, n), S.alloc(RES_MEMORY, n), S.used(0, RES_CPU, n), S.used(0, RES_MEMORY, n),
-                    kk.sh, kk.soft, kk.ignored, kk.ip, [&] { return kk.lr; }, kk.na, kk.tt, kk.av, any_soft, red);
-                better(best_s, best_i, s, n);
+                keep(score_of<NA, TT, AV, LOC, IP, CFG>(
+                         a, p, S.alloc(RES_CPU, n), S.alloc(RES_MEMORY, n), S.used(0, RES_CPU, n),
+                         S.used(0, RES_MEMORY, n), kk.sh, kk.soft, kk.ignored, kk.ip, [&] { return kk.lr; }, kk.na,
+                         kk.tt, kk.av, any_soft, red),
+                     n);
             }
             for (int n = n0 + tid + SCAN_NPT * NT; n < n1; n += NT) {
                 const TN t(a, S, u, n);
                 float feasible[1], gc_dyn[1], gc_has_dev = 0.0f, score[1];
-                node_feasible<GPU, GC, PORTS, IP, LOC>(a, S, cs, t, p, n, min_cnt, boot, 1u, feasible, gc_dyn,
-                                                      gc_has_dev);
+                node_feasible<GPU, GC, PORTS, IP, LOC, CFG>(a, S, cs, t, p, n, min_cnt, boot, 1u, feasible, gc_dyn,
+                                                           gc_has_dev);
                 if (feasible[0] > 0.0f) {
-                    node_score<GC, NA, TT, AV, LOC, IP>(a, S, cs, t, p, n, gc_dyn, gc_has_dev, any_soft, red, 1u,
-                                                        score);
-                    better(best_s, best_i, score[0], n);
+                    node_score<GC, NA, TT, AV, LOC, IP, CFG>(a, S, cs, t, p, n, gc_dyn, gc_has_dev, any_soft, red, 1u,
+                                                             score);
+                    keep(score[0], n);
                 }
             }
-            choice = cluster_argmax(best_s, best_i, N, sh, par, cluster);
+            choice = cluster_argmax<SAMPLE>(best_s, best_d, best_i, N, sh, par, cluster);
         }
         if (lead) a.chosen[i] = choice;
         if (choice >= 0) {
@@ -1673,7 +1893,7 @@ __device__ __forceinline__ void reduce_level2(float (*buf)[SW_NWARP], int nv, Sl
 // The scenario grid: block b runs scenarios b·B ... b·B + B - 1 (fewer in
 // a ragged last block) in lockstep through the pod stream. Slot j of the
 // block is scenario b·B + j.
-template <bool GPU, bool GC, bool NA, bool TT, bool AV, bool PORTS, bool IP, bool LOC>
+template <bool GPU, bool GC, bool NA, bool TT, bool AV, bool PORTS, bool IP, bool LOC, bool CFG>
 __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_constant__ FastScanArgs a) {
     static_assert(GPU || !GC, "the gpu-count allocatable follows the GPUs");
     using RD = Red<NA, TT, LOC, IP>;
@@ -1700,7 +1920,7 @@ __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_
     SCons cs{sh.cons, 0u, 0u};
     uint32_t* const feas_bits = a.bits_in_smem ? dyn + (size_t)a.B * Nw : a.feas_bits + (size_t)s0 * Nw;
 
-    for (int j = 0; j < nb; ++j) init_state<GPU, PORTS, IP, LOC>(a, S.off(j), tid, SW_NT);
+    for (int j = 0; j < nb; ++j) init_state<GPU, PORTS, IP, LOC, CFG>(a, S.off(j), tid, SW_NT);
     if (a.bits_in_smem)
         for (int w = tid; w < nb * Nw; w += SW_NT) dyn[w] = a.nv_bits[(size_t)s0 * Nw + w];
     __syncthreads();
@@ -1735,6 +1955,7 @@ __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_
             }
             __syncthreads();
             cons_masks(a, u, cs.hard, cs.soft);
+            cs.hard = hard_cons<CFG>(a, cs.hard);
             unsigned boot = 0u;  // bit j: slot j's inter-pod bootstrap
             if constexpr (IP) {
 #pragma unroll
@@ -1787,7 +2008,8 @@ __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_
                 if (in) {
                     TNode<true, Slots> t(a, S, u, n);
                     t.load<GC, NA, TT, AV, true, false>(p, S);
-                    pass2_node<GPU, GC, NA, TT, PORTS, IP, LOC>(a, S, cs, t, p, n, sh.mn, boot, sched, feasible, rv);
+                    pass2_node<GPU, GC, NA, TT, PORTS, IP, LOC, CFG>(a, S, cs, t, p, n, sh.mn, boot, sched, feasible,
+                                                                     rv);
                 }
 #pragma unroll
                 for (int j = 0; j < BMAX; ++j) {
@@ -1833,8 +2055,8 @@ __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_
                     if (sched >> j & 1u) feas |= (feas_bits[(size_t)j * Nw + (base >> 5)] >> lane & 1u) << j;
                 if constexpr (GC) gc_nodes(a, S, t, n, feas, gc_dyn, gc_has_dev);
                 if (!feas) continue;
-                node_score<GC, NA, TT, AV, LOC, IP>(a, S, cs, t, p, n, gc_dyn, gc_has_dev, any_soft, sh.red, feas,
-                                                    score);
+                node_score<GC, NA, TT, AV, LOC, IP, CFG>(a, S, cs, t, p, n, gc_dyn, gc_has_dev, any_soft, sh.red,
+                                                         feas, score);
 #pragma unroll
                 for (int j = 0; j < BMAX; ++j)
                     if (feas >> j & 1u) better(best_s[j], best_i[j], score[j], n);
@@ -1889,8 +2111,9 @@ int check_args(const FastScanArgs& a) {
         return (int)cudaErrorInvalidValue;
     const int v = (a.has_gpu ? 1 : 0) | (a.gc_row >= 0 ? 2 : 0) | (a.has_na ? 4 : 0) | (a.has_tt ? 8 : 0) |
                   (a.has_avoid ? 16 : 0) | (a.has_ports ? 32 : 0) | (a.has_interpod ? 64 : 0) |
-                  (a.has_local ? 128 : 0);
+                  (a.has_local ? 128 : 0) | (a.has_cfg ? 256 : 0) | (a.has_sample ? 512 : 0);
     if (v != FS_VARIANT) return (int)cudaErrorInvalidValue;  // this library holds one variant
+    if (a.init != nullptr && !a.has_cfg) return (int)cudaErrorInvalidValue;  // only a CFG variant takes a state
     return 0;
 }
 
@@ -1899,6 +2122,8 @@ int check_args(const FastScanArgs& a) {
 #define FS_FLAGS                                                                                             \
     (FS_VARIANT & 1) != 0, (FS_VARIANT & 2) != 0, (FS_VARIANT & 4) != 0, (FS_VARIANT & 8) != 0,              \
         (FS_VARIANT & 16) != 0, (FS_VARIANT & 32) != 0, (FS_VARIANT & 64) != 0, (FS_VARIANT & 128) != 0
+#define FS_CFG ((FS_VARIANT & 256) != 0)
+#define FS_SAMPLE ((FS_VARIANT & 512) != 0)
 
 // One scan as a cluster of CL CTAs of NT threads, `smem` bytes of dynamic
 // shared memory (the slices, with a.resident; else 0 and the slices in
@@ -1906,7 +2131,7 @@ int check_args(const FastScanArgs& a) {
 // SCAN_UNSCHEDULABLE when no such cluster fits on the card.
 template <int RES>
 int launch_scan(const FastScanArgs& a, int smem, cudaStream_t stream) {
-    auto kernel = fast_scan_kernel<FS_FLAGS, RES>;
+    auto kernel = fast_scan_kernel<FS_FLAGS, FS_CFG, FS_SAMPLE, RES>;
     cudaError_t err;
     if (smem > 48 * 1024 &&
         (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess)
@@ -1946,8 +2171,12 @@ extern "C" int fast_scan_launch(const FastScanArgs* args, int cluster, int threa
 // The scenario grid, shaped by ops/fast_scan.sweep_grid: `blocks` blocks of
 // `threads` threads (SW_NT), a.B scenarios each, `smem` bytes of dynamic
 // shared memory (the masks of a.B scenarios, or 0 when they lie in global
-// memory).
+// memory). A SAMPLE variant holds no grid: no sweep samples.
 extern "C" int fast_scan_sweep_launch(const FastScanArgs* args, int blocks, int threads, int smem, void* stream) {
+#if FS_VARIANT & 512
+    (void)args, (void)blocks, (void)threads, (void)smem, (void)stream;
+    return (int)cudaErrorInvalidValue;
+#else
     const FastScanArgs& a = *args;
     if (int err = check_args(a)) return err;
     const long long want_smem = a.bits_in_smem ? (long long)a.B * a.Nw * 4 * 2 : 0;
@@ -1955,11 +2184,12 @@ extern "C" int fast_scan_sweep_launch(const FastScanArgs* args, int blocks, int 
         smem != want_smem || (!a.bits_in_smem && a.feas_bits == nullptr) || a.nv_bits == nullptr)
         return (int)cudaErrorInvalidValue;
     cudaGetLastError();
-    auto kernel = fast_scan_sweep_kernel<FS_FLAGS>;
+    auto kernel = fast_scan_sweep_kernel<FS_FLAGS, FS_CFG>;
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return (int)err;
     }
     kernel<<<blocks, SW_NT, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
+#endif
 }

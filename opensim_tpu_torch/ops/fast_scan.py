@@ -18,7 +18,16 @@ This is the JAX package's Pallas megakernel
 ``run_fast_scan``'s ``pl.pallas_call``) for the flags ``has_gpu`` (with
 ``gc_row``), ``has_na``, ``has_tt``, ``has_avoid``, ``has_ports``,
 ``has_interpod`` and ``has_local``, and its scenario sweep
-(``run_fast_scan`` under ``jax.vmap`` in ``engine/fastpath.sweep``).
+(``run_fast_scan`` under ``jax.vmap`` in ``engine/fastpath.sweep``). Three
+paths the JAX package runs on its XLA scan instead (``scheduler._step``
+over ``kernels.pod_step``) run here too: a scheduler config
+(``FastInputs.cfg``: the score parts weighted and summed in
+``score_parts`` order, dynamic filters switched off, fit-ignored resource
+rows), a given initial state (``init``, in the cfg variants, so
+consecutive launches carry the state, as the reference's segmented
+profiles carry its scan state), and,
+in the one scan, the sampled tie-break (``tie_seed``: the highest
+Philox-4x32-10 draw among each step's best scores).
 
 - :func:`fast_scan` is the wrapper: on a CUDA tensor it launches
   ``csrc/fast_scan.cu`` (one shared object per kernel variant, built with
@@ -30,9 +39,10 @@ This is the JAX package's Pallas megakernel
   each run B scenarios in lockstep (:func:`sweep_grid` shapes the grid);
   on the CPU, :func:`fast_scan_sweep_reference`.
 - :func:`fast_scan_reference` is the plain PyTorch version: a Python loop
-  over pods, vector ops over nodes, op for op the Pallas body's formulas.
-  It runs on any device; the tests use it on the CPU, and the smoke script
-  holds the kernel against it on the card.
+  over pods, vector ops over nodes, op for op the Pallas body's formulas
+  (with a config, ``kernels.pod_step``'s weighted sum). It runs on any
+  device; the tests use it on the CPU, and the smoke script holds the
+  kernel against it on the card.
 
 Layouts (N nodes, R ≤ 8 resources, U templates, A selectors, K zone keys
 with Z zone columns, Cs ≤ 8 spread constraints per template, Gd ≤ 8 GPUs
@@ -54,19 +64,18 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import itertools
 import math
 import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, NamedTuple
+from typing import Dict, Iterable, NamedTuple, Optional
 
 import torch
 
 from ..encoding import vocab as V
-from .kernels import F_PORTS, NUM_FILTERS
+from .kernels import F_FIT, F_GPU, F_INTERPOD, F_LOCAL, F_PORTS, F_SPREAD, NUM_FILTERS, SCORE_PARTS, KernelConfig
 
 NEG = -1e30
 BIG = 1e30
@@ -109,6 +118,8 @@ SWEEP_STATIC_SMEM = 24576
 #: What the one-scan launcher returns when no cluster of SCAN_CLUSTER CTAs
 #: fits on the card (csrc SCAN_UNSCHEDULABLE).
 SCAN_UNSCHEDULABLE = -1
+#: Pods whose sampled tie-break draws the plain version computes at once.
+DRAW_CHUNK = 256
 
 #: Number of kernel launches made through :func:`fast_scan` and
 #: :func:`fast_scan_sweep` (CUDA only), in all and by row name
@@ -201,6 +212,7 @@ class FastInputs(NamedTuple):
     dev_media: torch.Tensor  # f32 0/1 media one-hots: row m·Dv + d is device d of media m
     n_zones: int  # Z, zone columns of the count table (max over keys, >= 1)
     gc_row: int  # resource row of alibabacloud.com/gpu-count whose allocatable follows the GPUs, -1 off
+    cfg: Optional[KernelConfig] = None  # a scheduler config's launch arguments (kernels.kernel_config); None: the default
 
 
 class FastOutputs(NamedTuple):
@@ -220,7 +232,12 @@ class FastOutputs(NamedTuple):
     with the dynamic gpu-count allocatable). A forced pod's row stays zero,
     as the reference's skip_pipeline returns; an invalid pod's row is zero
     and never read (decode drops invalid pods). The scenario grid does not
-    count: its two count fields have width 0 (:func:`fast_scan_sweep`)."""
+    count: its two count fields have width 0 (:func:`fast_scan_sweep`).
+
+    ``state`` is the whole final scan state as one float32 row in the
+    layout of :func:`state_layout` (from the kernel, its arena row, which
+    the fields above view): what a later launch takes as ``init`` to go on
+    from there."""
 
     chosen: torch.Tensor  # [P] i32 node of each pod, -1 when it did not bind
     used: torch.Tensor  # [R, N] f32 final usage
@@ -231,16 +248,18 @@ class FastOutputs(NamedTuple):
     dev_free: torch.Tensor  # [Dv, N] f32 final free bytes per device, 0 once taken ([0, N] without local)
     fail_counts: torch.Tensor  # [P, N_FAIL] i32 first-fail node counts per dynamic filter ([S, P, 0] from a grid)
     insufficient: torch.Tensor  # [P, R] i32 nodes short of each resource ([S, P, 0] from a grid)
+    state: torch.Tensor  # [W] f32 the final state (:func:`state_layout`)
 
 
 #: The outputs both kernels compute: the placements and the final state
 #: (the grid leaves the two count fields empty).
-STATE_FIELDS = FastOutputs._fields[:7]
+STATE_FIELDS = FastOutputs._fields[:7] + ("state",)
 
 
 class Variant(NamedTuple):
-    """Kernel variant: which flag branches of the Pallas body it carries.
-    Field i is bit i of the variant number the CUDA build takes."""
+    """Kernel variant: which flag branches of the Pallas body it carries,
+    then whether it takes a scheduler config and (one scan only) samples
+    its ties. Field i is bit i of the variant number the CUDA build takes."""
 
     gpu: bool
     gc: bool
@@ -250,9 +269,12 @@ class Variant(NamedTuple):
     ports: bool
     interpod: bool
     local: bool
+    cfg: bool
+    sample: bool
 
 
-def variant(fi: FastInputs) -> Variant:
+def variant(fi: FastInputs, sample: bool = False) -> Variant:
+    """The variant that runs on these inputs; `sample`: with a tie seed."""
     return Variant(
         gpu=fi.gpu_mem.numel() > 0,
         gc=fi.gc_row >= 0,
@@ -263,6 +285,8 @@ def variant(fi: FastInputs) -> Variant:
         interpod=any(n > 0 for n in (fi.at_active.shape[1], fi.an_active.shape[1], fi.pt_active.shape[1],
                                      fi.anti_g_key.numel(), fi.prefg_key.numel())),
         local=fi.lvm_req.numel() > 0,
+        cfg=fi.cfg is not None,
+        sample=sample,
     )
 
 
@@ -271,9 +295,10 @@ def _name(v: Variant) -> str:
     return f"fast_scan[{','.join(on)}]" if on else "fast_scan"
 
 
-def variant_name(fi: FastInputs) -> str:
-    """``fast_scan`` for the base variant, else ``fast_scan[gpu,gc,...]``."""
-    return _name(variant(fi))
+def variant_name(fi: FastInputs, sample: bool = False) -> str:
+    """``fast_scan`` for the base variant, else ``fast_scan[gpu,gc,...]``
+    (``cfg`` with a config, ``sample`` with a tie seed)."""
+    return _name(variant(fi, sample))
 
 
 def sweep_name(fi: FastInputs) -> str:
@@ -334,12 +359,44 @@ def _dims(fi: FastInputs) -> _Dims:
     )
 
 
-def _check(fi: FastInputs, tmpl, valid, forced, node_valid=None, spr_weight=None) -> None:
+def state_layout(fi: FastInputs) -> Dict[str, tuple]:
+    """The scan state's fields and shapes, in their order in one state row
+    (``FastOutputs.state``, a launch's ``init``): usage, per-node and
+    per-zone selector counts (zone key k's block of A rows at row k·A), GPU
+    free memory, host-port use, the inter-pod term rows by node and by zone
+    (each row under its own key), the per-selector totals (all bound pods,
+    then those on nodes labelled with each zone key; inter-pod variants
+    only), volume-group and device free bytes."""
+    d = _dims(fi)
+    Z = fi.n_zones
+    return {"used": (d.R, d.N), "node_cnt": (d.A, d.N), "zone_cnt": (d.K * d.A, Z), "gpu_free": (d.Gd, d.N),
+            "port_used": (d.Hp, d.N), "anti_node": (d.G, d.N), "anti_zone": (d.G, Z), "prefw_node": (d.Gp, d.N),
+            "prefw_zone": (d.Gp, Z), "sel_total": ((d.K + 1) * d.A if variant(fi).interpod else 0,),
+            "vg_free": (d.Vg, d.N), "dev_free": (d.Dv, d.N)}
+
+
+def state_width(fi: FastInputs) -> int:
+    """Floats of one state row (:func:`state_layout`)."""
+    return sum(math.prod(shape) for shape in state_layout(fi).values())
+
+
+def unpack_state(fi: FastInputs, state: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The fields of a state row ``[..., W]`` as views, by name."""
+    out, o = {}, 0
+    for name, shape in state_layout(fi).items():
+        n = math.prod(shape)
+        out[name] = state[..., o:o + n].unflatten(-1, shape)
+        o += n
+    return out
+
+
+def _check(fi: FastInputs, tmpl, valid, forced, node_valid=None, spr_weight=None, init=None) -> None:
     """Device, dtype, shape and contiguity of everything the kernel reads,
     and the range of every key and selector index it follows. ``valid``
     and ``forced`` are ``[P]`` for one scan or ``[S, P]`` for a scenario
     grid, whose ``node_valid [S, N]`` and ``spr_weight [S, U, Cs]`` are
-    checked too."""
+    checked too, and ``init`` (a state row per scenario, or None) with
+    them; a config's weights, filter bits and ignored rows too."""
     d = _dims(fi)
     N, R, U, A, K, Cs, Gd = d.N, d.R, d.U, d.A, d.K, d.Cs, d.Gd
     v = variant(fi)
@@ -385,6 +442,16 @@ def _check(fi: FastInputs, tmpl, valid, forced, node_valid=None, spr_weight=None
             raise ValueError(f"fast_scan: {name} must be a contiguous {dt} {list(shape)} tensor on {dev}")
     if len(lead) > 1 or (lead and lead[0] < 1):
         raise ValueError(f"fast_scan: a scenario grid takes [S, P] masks with S >= 1, not {list(valid.shape)}")
+    if init is not None:
+        want_init = lead + (state_width(fi),)
+        if init.device != dev or init.dtype != torch.float32 or tuple(init.shape) != want_init or not init.is_contiguous():
+            raise ValueError(f"fast_scan: init must be a contiguous float32 {list(want_init)} state on {dev}")
+    if fi.cfg is not None:
+        c = fi.cfg
+        if (len(c.weights) != len(_CFG_WEIGHTS) or not all(math.isfinite(w) for w in c.weights)
+                or not 0 <= c.filters < 1 << (F_LOCAL - F_PORTS + 1) or not 0 <= c.fit_ignored < 1 << R):
+            raise ValueError(f"fast_scan: config {c} is not {len(_CFG_WEIGHTS)} finite weights, "
+                             f"{F_LOCAL - F_PORTS + 1} filter bits and {R} fit-ignored bits")
     if node_valid is not None and not bool(((node_valid == 0) | (node_valid == 1)).all()):
         raise ValueError("fast_scan: node_valid must hold 0 or 1 (the sweep keeps it as bits)")
     if R > MAX_R or Cs > MAX_CS or Gd > MAX_GD or d.Dv > MAX_DV:
@@ -409,6 +476,12 @@ def _check(fi: FastInputs, tmpl, valid, forced, node_valid=None, spr_weight=None
 # build and bind
 # ---------------------------------------------------------------------------
 
+#: The kernel's weight fields, in kernels.SCORE_PARTS order (``share`` is
+#: Simon plus Open-Gpu-Share).
+_CFG_WEIGHTS = ("w_balanced", "w_least", "w_node_affinity", "w_taint_toleration", "w_interpod", "w_spread",
+                "w_share", "w_local", "w_prefer_avoid")
+
+
 class _Args(ctypes.Structure):
     """FastScanArgs in csrc/fast_scan.cu, field for field (a CPU test holds
     the two lists equal)."""
@@ -425,6 +498,7 @@ class _Args(ctypes.Structure):
         "chosen", "used", "node_cnt", "zone_cnt", "gpu_take", "gpu_free",
         "port_used", "anti_node", "anti_zone", "prefw_node", "prefw_zone", "sel_total",
         "vg_free", "dev_free", "nv_bits", "feas_bits", "rep", "fail_counts", "insufficient", "count_clock",
+        "init",
     )] + [("W", ctypes.c_int64)] + [(n, ctypes.c_int32) for n in (
         "S", "P", "N", "R", "U", "A", "K", "Z", "Cs", "Gd", "gc_row", "Hp", "Ti", "Tn", "Tp", "G", "Gp",
         "Vg", "Dv", "Mv",
@@ -434,7 +508,8 @@ class _Args(ctypes.Structure):
         "o_used", "o_node_cnt", "o_gpu_free", "o_port_used", "o_anti_node", "o_prefw_node", "o_vg_free", "o_dev_free",
         "o_alloc", "o_zone", "o_nv", "o_gpu0", "o_vg_cap", "o_dev_cap", "o_dev_media", "o_rep",
         "o_zone_cnt", "o_anti_zone", "o_prefw_zone", "o_sel_total",
-    )]
+        "has_cfg", "has_sample", "filters", "fit_ignored", "draw_base",
+    )] + [("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32)] + [(n, ctypes.c_float) for n in _CFG_WEIGHTS]
 
 
 #: Loaded shared objects by variant name; one per variant, each holding
@@ -623,38 +698,39 @@ def pack_bits(rows: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
 
 
-def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: bool) -> FastOutputs:
+def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: bool, init=None,
+            tie_seed: Optional[int] = None, draw_base: int = 0) -> FastOutputs:
     """One launch over S scenarios (``valid`` and ``forced`` [S, P],
-    ``node_valid`` [S, N], ``spr_weight`` [S, U, Cs]): the one-scan kernel
-    (S = 1), counted under :func:`variant_name`, or with `sweep` the sweep
-    kernel on :func:`sweep_grid`'s grid, counted under :func:`sweep_name`.
-    Every output and state buffer has a leading S axis; scenario s writes
-    its own slice."""
+    ``node_valid`` [S, N], ``spr_weight`` [S, U, Cs], ``init`` None or
+    [S, W]): the one-scan kernel (S = 1), counted under
+    :func:`variant_name`, or with `sweep` the sweep kernel on
+    :func:`sweep_grid`'s grid, counted under :func:`sweep_name`. Every
+    output and state buffer has a leading S axis; scenario s writes its own
+    slice. `tie_seed` (one scan only) samples the ties, with the draws'
+    pod counter starting at `draw_base`."""
     global LAUNCHES
-    _check(fi, tmpl, valid, forced, node_valid, spr_weight)
-    name = variant_name(fi)
+    _check(fi, tmpl, valid, forced, node_valid, spr_weight, init)
+    sample = tie_seed is not None
+    if sweep and sample:
+        raise ValueError("fast_scan_sweep: the scenario grid does not sample ties")
+    name = variant_name(fi, sample)
     row = sweep_name(fi) if sweep else name
     build([name])
     lib = _LIBS[name]
     d = _dims(fi)
     N, R, A, K, Gd = d.N, d.R, d.A, d.K, d.Gd
     S, P, Z = valid.shape[0], tmpl.shape[0], fi.n_zones
-    v = variant(fi)
+    v = variant(fi, sample)
     dev = fi.alloc_T.device
     f32 = torch.float32
     if not sweep and S != 1:
         raise ValueError(f"fast_scan: one scan takes one scenario, not {S}")
-    # The float state and outputs of scenario s lie in row s of one [S, W]
-    # arena, so the sweep kernel selects a scenario by one offset s * W for
-    # all of them. The kernel zeroes or copies in the state.
-    shapes = {"used": (R, N), "node_cnt": (A, N), "zone_cnt": (K * A, Z), "gpu_free": (Gd, N),
-              "port_used": (d.Hp, N), "anti_node": (d.G, N), "anti_zone": (d.G, Z), "prefw_node": (d.Gp, N),
-              "prefw_zone": (d.Gp, Z), "sel_total": ((K + 1) * A if v.interpod else 0,), "vg_free": (d.Vg, N),
-              "dev_free": (d.Dv, N)}
-    sizes = [math.prod(shape) for shape in shapes.values()]
-    arena = torch.empty((S, sum(sizes)), dtype=f32, device=dev)
-    starts = itertools.accumulate([0] + sizes)
-    part = {name: arena[:, o:o + n].unflatten(1, shape) for (name, shape), o, n in zip(shapes.items(), starts, sizes)}
+    # The float state of scenario s lies in row s of one [S, W] arena
+    # (state_layout), so the sweep kernel selects a scenario by one offset
+    # s * W for all of it; the kernel fills it from `init` or from the
+    # encoded start.
+    arena = torch.empty((S, state_width(fi)), dtype=f32, device=dev)
+    part = unpack_state(fi, arena)
     chosen = torch.empty((S, P), dtype=torch.int32, device=dev)
     gpu_take = torch.zeros((S, P, Gd), dtype=f32, device=dev)  # the kernel writes bound pods' rows only
     # the one scan writes the count rows of the pods that find no node; the
@@ -672,6 +748,8 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
     elif not shape.resident:
         rep = torch.empty((shape.cluster, max(shape.small, 1)), dtype=f32, device=dev)  # each CTA's small state
     ptr = lambda t: 0 if t is None else t.data_ptr()
+    cfg = fi.cfg
+    key = (tie_seed or 0) & (2 ** 64 - 1)
     args = _Args(
         ptr(tmpl), ptr(valid), ptr(forced), ptr(fi.alloc_T), ptr(fi.used0_T),
         ptr(None if sweep else node_valid[0]), ptr(fi.zone_idx), ptr(fi.static_pass), ptr(fi.aff_mask),
@@ -685,11 +763,12 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
         ptr(fi.gmatch_GU), ptr(fi.prefg_key), ptr(fi.prefg_GU), ptr(fi.pmatch_GU),
         ptr(fi.lvm_req), ptr(fi.dev_req), ptr(fi.dev_need), ptr(fi.dev_sizes), ptr(fi.vg_cap),
         ptr(fi.vg0), ptr(fi.dev_cap), ptr(fi.dev0), ptr(fi.dev_media),
-        ptr(chosen), ptr(part["used"]), ptr(part["node_cnt"]), ptr(part["zone_cnt"]), ptr(gpu_take),
+        ptr(chosen), *(ptr(part[n]) for n in ("used", "node_cnt", "zone_cnt")), ptr(gpu_take),
         *(ptr(part[n]) for n in ("gpu_free", "port_used", "anti_node", "anti_zone", "prefw_node", "prefw_zone",
                                  "sel_total", "vg_free", "dev_free")),
         ptr(nv_bits), ptr(feas_bits), ptr(rep),
         ptr(None if sweep else fail_counts), ptr(None if sweep else insufficient), ptr(count_clock),
+        ptr(init),
         arena.shape[1],
         S, P, N, R, d.U, A, K, Z, d.Cs, Gd, fi.gc_row, d.Hp, d.Ti, d.Tn, d.Tp, d.G, d.Gp, d.Vg, d.Dv, d.Mv,
         int(v.gpu), int(v.na), int(v.tt), int(v.avoid), int(v.ports), int(v.interpod), int(v.local),
@@ -699,6 +778,12 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
         args.Nc, args.resident, args.Wrep = shape.nc, int(shape.resident), shape.small
         for field, o in shape.offsets.items():
             setattr(args, f"o_{field}", o)
+    args.has_cfg, args.has_sample = int(v.cfg), int(sample)
+    if cfg is not None:
+        args.filters, args.fit_ignored = cfg.filters, cfg.fit_ignored
+        for field, w in zip(_CFG_WEIGHTS, cfg.weights):
+            setattr(args, field, w)
+    args.draw_base, args.key0, args.key1 = draw_base, key & 0xFFFFFFFF, key >> 32
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if grid is None:
@@ -718,57 +803,80 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
         kernel = "fast_scan" if shape.resident else "fast_scan_global"
         SCAN_LAUNCHED[row] = {"shape": shape, "ptxas": _PTXAS[name].get(kernel), "count_clock": count_clock}
     return FastOutputs(chosen, part["used"], gpu_take, part["gpu_free"], part["port_used"], part["vg_free"],
-                       part["dev_free"], fail_counts, insufficient)
+                       part["dev_free"], fail_counts, insufficient, arena)
 
 
-def fast_scan(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
+def fast_scan(fi: FastInputs, tmpl, valid, forced, init=None, tie_seed: Optional[int] = None,
+              draw_base: int = 0) -> FastOutputs:
     """Run the bind scan over the pod stream. ``tmpl``/``valid``/``forced``
     are int32 ``[P]`` tensors on the inputs' device. Returns the chosen
     nodes (-1 for a pod that did not bind), the final usage, each pod's GPU
     slots per device, the final free memory per GPU, the final host-port
-    use, the final free bytes per volume group and device, and the failure
-    attribution of each pod that found no node (:class:`FastOutputs`).
+    use, the final free bytes per volume group and device, the failure
+    attribution of each pod that found no node, and the whole final state
+    (:class:`FastOutputs`).
+
+    ``init`` (a ``[W]`` state row, :func:`state_layout`; None: the encoded
+    start) is the state the scan starts from: another launch's
+    ``FastOutputs.state``, so that consecutive launches go on from each
+    other. ``tie_seed`` (None: the lowest index) takes each step's node
+    among the best scores by the highest Philox draw keyed by the seed, the
+    counter being (``draw_base`` + the pod's index in this launch, the node
+    index).
+
+    The initial state is an argument of the cfg variants only (the other
+    variants' code stays as it was; a segmented run takes the cfg variant
+    in every segment, and a run of one segment starts from the encoded
+    state).
 
     On a CUDA device this launches the one-scan kernel (one launch for the
     stream, a thread-block cluster shaped by :func:`scan_shape`) or raises;
     on the CPU it runs the plain version."""
+    if init is not None and fi.cfg is None:
+        raise ValueError("fast_scan: an initial state runs in the cfg variants")
     dev = fi.alloc_T.device
     if dev.type == "cuda":
-        out = _launch(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None], sweep=False)
+        out = _launch(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None], sweep=False,
+                      init=None if init is None else init[None], tie_seed=tie_seed, draw_base=draw_base)
         return FastOutputs(*(t[0] for t in out))
     if dev.type == "cpu":
-        return fast_scan_reference(fi, tmpl, valid, forced)
+        return fast_scan_reference(fi, tmpl, valid, forced, init=init, tie_seed=tie_seed, draw_base=draw_base)
     raise ValueError(f"fast_scan: no kernel for device {dev}")
 
 
-def fast_scan_sweep(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight) -> FastOutputs:
+def fast_scan_sweep(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, init=None) -> FastOutputs:
     """S bind scans over one pod stream ``tmpl [P]`` that share every
     template table and differ per scenario in ``valid``/``forced`` (int32
-    ``[S, P]``), ``node_valid`` (0/1 float32 ``[S, N]``) and
+    ``[S, P]``), ``node_valid`` (0/1 float32 ``[S, N]``),
     ``spr_weight`` (float32 ``[S, U, Cs]``, the spread weights of the
-    scenario's valid nodes). Returns :class:`FastOutputs` with a leading S
+    scenario's valid nodes) and, where given, the state each starts from
+    (``init``, ``[S, W]``). Returns :class:`FastOutputs` with a leading S
     axis; scenario s gives what :func:`fast_scan` gives on its rows in the
-    seven :data:`STATE_FIELDS`. The grid does not count failures:
+    :data:`STATE_FIELDS`. The grid does not count failures:
     ``fail_counts`` and ``insufficient`` are ``[S, P, 0]``.
 
     On a CUDA device this is one launch of the sweep kernel, B scenarios
     per block (:func:`sweep_grid`), or raises; on the CPU it runs the plain
-    version scenario by scenario."""
+    version scenario by scenario. As in :func:`fast_scan`, only the cfg
+    variant takes an initial state."""
+    if init is not None and fi.cfg is None:
+        raise ValueError("fast_scan_sweep: an initial state runs in the cfg variant")
     dev = fi.alloc_T.device
     if dev.type == "cuda":
-        return _launch(fi, tmpl, valid, forced, node_valid, spr_weight, sweep=True)
+        return _launch(fi, tmpl, valid, forced, node_valid, spr_weight, sweep=True, init=init)
     if dev.type == "cpu":
-        return fast_scan_sweep_reference(fi, tmpl, valid, forced, node_valid, spr_weight)
+        return fast_scan_sweep_reference(fi, tmpl, valid, forced, node_valid, spr_weight, init=init)
     raise ValueError(f"fast_scan_sweep: no kernel for device {dev}")
 
 
-def fast_scan_sweep_reference(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight) -> FastOutputs:
+def fast_scan_sweep_reference(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, init=None) -> FastOutputs:
     """Plain version of :func:`fast_scan_sweep` on any device: the plain
-    scan once per scenario, with the scenario's node validity and spread
-    weights in place of the template's; its count fields are empty, as the
-    grid's."""
+    scan once per scenario, with the scenario's node validity, spread
+    weights and initial state in place of the template's; its count fields
+    are empty, as the grid's."""
     outs = [
-        fast_scan_reference(fi._replace(node_valid=node_valid[s], spr_weight=spr_weight[s]), tmpl, valid[s], forced[s])
+        fast_scan_reference(fi._replace(node_valid=node_valid[s], spr_weight=spr_weight[s]), tmpl, valid[s], forced[s],
+                            init=None if init is None else init[s])
         for s in range(valid.shape[0])
     ]
     out = FastOutputs(*(torch.stack(field) for field in zip(*outs)))
@@ -779,10 +887,53 @@ def fast_scan_sweep_reference(fi: FastInputs, tmpl, valid, forced, node_valid, s
 # plain version
 # ---------------------------------------------------------------------------
 
-def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
+_M32 = 0xFFFFFFFF
+
+
+def _mulhilo(m: int, a: torch.Tensor):
+    """(high, low) 32-bit words of m · a for uint32 values held in int64,
+    from 16-bit halves of `a` so that no product leaves int64."""
+    p_lo = (a & 0xFFFF) * m
+    p_hi = (a >> 16) * m
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (t >> 32), t & _M32
+
+
+def philox_draws(seed: int, pods: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """The sampled tie-break's draws ``[len(pods), n_nodes]`` (uint32 values
+    in int64): the first word of Philox-4x32-10 keyed by `seed` (its low
+    and high 32 bits) at counter (pod, node, 0, 0), as the kernel's
+    ``philox_draw`` computes them."""
+    key = seed & (2 ** 64 - 1)
+    k0, k1 = key & _M32, key >> 32
+    c0 = pods.long()[:, None].expand(-1, n_nodes)
+    c1 = torch.arange(n_nodes, dtype=torch.int64, device=pods.device)[None, :].expand(len(pods), -1)
+    c2 = c3 = torch.zeros_like(c0)
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + 0x9E3779B9) & _M32, (k1 + 0xBB67AE85) & _M32
+        hi0, lo0 = _mulhilo(0xD2511F53, c0)
+        hi1, lo1 = _mulhilo(0xCD9E8D57, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0
+
+
+def fast_scan_reference(fi: FastInputs, tmpl, valid, forced, init=None, tie_seed: Optional[int] = None,
+                        draw_base: int = 0, stats: Optional[dict] = None) -> FastOutputs:
     """Plain PyTorch bind scan on any device: the Pallas body's formulas op
     for op (pallas_scan.py:395-854), one torch op at a time, so each float
-    op rounds once as on the card. The template ids, the spread and
+    op rounds once as on the card. With a config (``fi.cfg``), the step of
+    the JAX package's XLA scan instead (``kernels.pod_step``): each score
+    part times its weight, summed from 0 in ``score_parts`` order, a part
+    of weight 0 left out; a dynamic filter the config turns off passes
+    every node; fit skips the ignored resource rows. ``init`` (a state row,
+    :func:`state_layout`) is the state to start from; ``tie_seed`` takes
+    each step's node among the best scores by the highest
+    :func:`philox_draws` draw (pod counter ``draw_base`` + i), then the
+    lowest index. Given a dict `stats`, it fills ``ties`` (int32 [P]: the
+    nodes at the step's best score, 0 where the pod was not scheduled) and
+    ``at_max`` (bool [P]: the chosen node is among them, or the pod was
+    not scheduled). The template ids, the spread and
     inter-pod terms' integer fields and the rows each template's port and
     symmetric terms touch come to the host once, before the loop, so a
     template's rows are views and the term branches are Python branches;
@@ -817,12 +968,18 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     valid = valid.to(dev) != 0
     forced = forced.to(dev) != 0
     P = len(tmpl)
+    cfg = fi.cfg
+    on = lambda f: cfg is None or bool(cfg.filters >> (f - F_PORTS) & 1)  # dynamic filter f runs
+    ignored_fit = set() if cfg is None else {r for r in range(R) if cfg.fit_ignored >> r & 1}
+    given = None if init is None else unpack_state(fi, init.to(dev))
+    pad_z = lambda t: torch.cat([t, torch.zeros((*t.shape[:-1], 1), dtype=f32, device=dev)], -1)
 
-    used = fi.used0_T.clone()
-    node_cnt = torch.zeros((A, N), dtype=f32, device=dev)
+    used = (fi.used0_T if given is None else given["used"]).clone()
+    node_cnt = torch.zeros((A, N), dtype=f32, device=dev) if given is None else given["node_cnt"].clone()
     # column Z is a "no label" column: nodes without the key gather from it,
     # and it stays 0 because binds add 0 there
-    zone_cnt = torch.zeros((K, A, Z + 1), dtype=f32, device=dev)
+    zone_cnt = (torch.zeros((K, A, Z + 1), dtype=f32, device=dev) if given is None
+                else pad_z(given["zone_cnt"].reshape(K, A, Z)))
     zone_col = torch.where(fi.zone_idx >= 0, fi.zone_idx, Z).long()  # [K, N]
     has_zone = (fi.zone_idx >= 0).to(f32)  # [K, N]
     iota_n = torch.arange(N, dtype=torch.int32, device=dev)
@@ -833,11 +990,15 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
     fail_counts = torch.zeros((P, N_FAIL), dtype=torch.int32, device=dev)
     insufficient = torch.zeros((P, R), dtype=torch.int32, device=dev)
     no_count = torch.zeros((N_FAIL + R,), dtype=torch.int32, device=dev)
-    gpu_free = fi.gpu0.clone()
+    gpu_free = (fi.gpu0 if given is None else given["gpu_free"]).clone()
     gpu_take = torch.zeros((P, Gd), dtype=f32, device=dev)
-    port_used = torch.zeros((d.Hp, N), dtype=f32, device=dev)
-    vg_free = fi.vg0.clone()
-    dev_free = fi.dev0.clone()
+    port_used = torch.zeros((d.Hp, N), dtype=f32, device=dev) if given is None else given["port_used"].clone()
+    vg_free = (fi.vg0 if given is None else given["vg_free"]).clone()
+    dev_free = (fi.dev0 if given is None else given["dev_free"]).clone()
+    if cfg is not None:
+        weights = [torch.tensor(w, dtype=f32, device=dev) for w in cfg.weights]
+    if stats is not None:
+        ties, at_max = [], []
     if v.local:
         # which storage terms each template has (host lists: control flow only)
         lvm_h, dreq_h, sizes_h = fi.lvm_req.tolist(), fi.dev_req.tolist(), fi.dev_sizes.tolist()
@@ -864,6 +1025,9 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
         # zone rows in each row's own key space, with the "no label" column Z
         anti_zone = torch.zeros((d.G, Z + 1), dtype=f32, device=dev)
         prefw_zone = torch.zeros((d.Gp, Z + 1), dtype=f32, device=dev)
+        if given is not None:
+            anti_node, prefw_node = given["anti_node"].clone(), given["prefw_node"].clone()
+            anti_zone, prefw_zone = pad_z(given["anti_zone"]), pad_z(given["prefw_zone"])
 
         def row_gather(keys):  # per row: the node's column under the row's key, and its label
             col = torch.full((len(keys), N), Z, dtype=torch.long, device=dev)
@@ -900,6 +1064,9 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
         fit = ones_n
         short = []  # per resource row: the pod asks it and the node lacks it
         for r in range(R):
+            if not on(F_FIT) or r in ignored_fit:
+                short.append(torch.zeros((N,), dtype=torch.bool, device=dev))
+                continue
             alloc_r = fi.alloc_T[r]
             if v.gc and r == fi.gc_row:
                 alloc_r = torch.where(gc_has_dev > 0, gc_dyn_row, alloc_r)
@@ -910,7 +1077,7 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
         # each dynamic filter's own verdict, for the failure attribution
         ports_ok = gpu_ok_row = local_ok = spread_ok = ip_ok = ones_n
 
-        if v.ports:
+        if v.ports and on(F_PORTS):
             # NodePorts (:425-441): a conflicting port already used there
             conflicts = zero
             for h, w in conf_rows[u]:
@@ -918,7 +1085,7 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
             ports_ok = (conflicts == 0).to(f32)
             feasible = feasible * ports_ok
 
-        if v.gpu:
+        if v.gpu and on(F_GPU):
             # Open-Gpu-Share filter: sum_d floor(free_d / mem) >= count
             gmem, gcnt = fi.gpu_mem[u], fi.gpu_cnt[u]
             gmem1 = torch.clamp(gmem, min=1.0)
@@ -929,7 +1096,7 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
             gpu_ok_row = torch.where(gmem > 0, gpu_ok, 1.0)
             feasible = feasible * gpu_ok_row
 
-        if v.local:
+        if v.local and on(F_LOCAL):
             # Open-Local filter (:455-477): the LVM request fits the VG with
             # the most free bytes; the i-th largest volume of a media finds
             # at least i + 1 free devices that fit it
@@ -961,6 +1128,8 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
             skew = fi.spr_skew[u, c]
             cnt, has_label = sel_cnt(key, sel)
             if spr_hard[u][c] == 1:
+                if not on(F_SPREAD):
+                    continue
                 elig = aff_row * has_label
                 masked = torch.where(elig > 0, cnt, BIG)
                 min_cnt = torch.min(masked)
@@ -973,7 +1142,7 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
                 ignored = torch.maximum(ignored, 1.0 - has_label)
                 any_soft = True
 
-        if v.interpod:
+        if v.interpod and on(F_INTERPOD):
             # --- InterPodAffinity (:503-586); every count and weight below
             # is an integer under 2^24 (fastpath.why_not), so these sums are
             # exact in any order
@@ -1000,6 +1169,7 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
                 sym_cnt = sym_cnt + m * term_cnt(anti_node, anti_zone, g, g_key[g])
             ip_ok = ip_ok * (1.0 - (sym_cnt > 0).to(f32))
             feasible = feasible * ip_ok
+        if v.interpod:
             # raw score: incoming preferred terms, then the existing pods'
             # preferred and hard-affinity weights
             ip_raw = torch.zeros((N,), dtype=f32, device=dev)
@@ -1062,23 +1232,21 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
         if not any_soft:
             spread_norm = torch.zeros_like(spread_norm)
 
-        score = least + balanced + 2.0 * share_norm + 2.0 * spread_norm
+        parts = {"balanced": balanced, "least": least, "spread": spread_norm, "share": share_norm}
         if v.na:
             # NodeAffinity preferred weights, max-normalised over the feasible set
             na_row = fi.na_raw[u]
             na_max = torch.max(torch.where(feas_b, na_row, 0.0))
-            score = score + torch.where(
-                na_max > 0, na_row * MAX_SCORE / torch.clamp(na_max, min=1.0), na_row
-            )
+            parts["node_affinity"] = torch.where(na_max > 0, na_row * MAX_SCORE / torch.clamp(na_max, min=1.0), na_row)
         if v.tt:
             # TaintToleration: intolerable PreferNoSchedule counts, reversed
             tt_row = fi.tt_raw[u]
             tt_max = torch.max(torch.where(feas_b, tt_row, 0.0))
-            score = score + torch.where(
+            parts["taint_toleration"] = torch.where(
                 tt_max > 0, MAX_SCORE - tt_row * MAX_SCORE / torch.clamp(tt_max, min=1.0), MAX_SCORE
             )
         if v.avoid:
-            score = score + AVOID_WEIGHT * fi.avoid_raw[u]
+            parts["prefer_avoid"] = fi.avoid_raw[u]
         if v.local:
             # Open-Local binpack score (:668-702): the mean over the pod's
             # storage units of request / capacity of the unit it would take,
@@ -1093,7 +1261,7 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
                     better = (free_v >= lvm) & (free_v < best_free)
                     best_free = torch.where(better, free_v, best_free)
                     best_cap = torch.where(better, fi.vg_cap[g_], best_cap)
-                parts = torch.where((lvm > 0) & (best_free < BIG), lvm / torch.clamp(best_cap, min=1.0), 0.0)
+                lparts = torch.where((lvm > 0) & (best_free < BIG), lvm / torch.clamp(best_cap, min=1.0), 0.0)
                 count = torch.where(lvm > 0, 1.0, 0.0)
                 for m in range(2):
                     size, need = fi.dev_req[u, m], fi.dev_need[u, m]
@@ -1102,33 +1270,58 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
                         free_d = dev_free[d_]
                         fitting = (fi.dev_media[m * Dv + d_] > 0) & (free_d >= size) & (free_d > 0)
                         first_cap = torch.where(fitting, torch.minimum(first_cap, fi.dev_cap[d_]), first_cap)
-                    parts = parts + torch.where(size > 0, need * size / torch.clamp(first_cap, min=1.0), 0.0)
+                    lparts = lparts + torch.where(size > 0, need * size / torch.clamp(first_cap, min=1.0), 0.0)
                     count = count + torch.where(size > 0, need, 0.0)
-                local_raw = torch.where(count > 0, parts / torch.clamp(count, min=1.0) * 10.0, 0.0)
+                local_raw = torch.where(count > 0, lparts / torch.clamp(count, min=1.0) * 10.0, 0.0)
             l_lo = torch.min(torch.where(feas_b, local_raw, BIG))
             l_hi = torch.max(torch.where(feas_b, local_raw, NEG))
             l_rng = l_hi - l_lo
-            score = score + torch.where(l_rng > 0, (local_raw - l_lo) * MAX_SCORE / l_rng, 0.0)
+            parts["local"] = torch.where(l_rng > 0, (local_raw - l_lo) * MAX_SCORE / l_rng, 0.0)
         if v.interpod:
             # inter-pod score, min-max normalised with both ends seeded at 0 (:703-711)
             ip_masked = torch.where(feas_b, ip_raw, 0.0)
             ip_hi = torch.clamp(torch.max(ip_masked), min=0.0)
             ip_lo = torch.clamp(torch.min(ip_masked), max=0.0)
             ip_rng = ip_hi - ip_lo
-            score = score + torch.where(
-                ip_rng > 0, MAX_SCORE * (ip_raw - ip_lo) / torch.clamp(ip_rng, min=1.0), 0.0
-            )
+            parts["interpod"] = torch.where(ip_rng > 0, MAX_SCORE * (ip_raw - ip_lo) / torch.clamp(ip_rng, min=1.0), 0.0)
+        if cfg is None:
+            # the Pallas body's sum: ((least + balanced) + 2 share) + 2 spread,
+            # then the score tables, binpack and inter-pod scores
+            score = least + balanced + 2.0 * share_norm + 2.0 * spread_norm
+            for name, weight in (("node_affinity", None), ("taint_toleration", None), ("prefer_avoid", AVOID_WEIGHT),
+                                 ("local", None), ("interpod", None)):
+                if name in parts:
+                    score = score + (parts[name] if weight is None else weight * parts[name])
+        else:
+            # kernels.pod_step's sum of the weighted score_parts, from 0
+            score = torch.zeros((N,), dtype=f32, device=dev)
+            for name, w, w_t in zip(SCORE_PARTS, cfg.weights, weights):
+                if w != 0.0 and name in parts:
+                    score = score + w_t * parts[name]
 
-        # --- selectHost: lowest index among the maxima; pins for forced pods
+        # --- selectHost: lowest index among the maxima (with a tie seed, the
+        # highest draw among them, then the lowest index); pins for forced pods
         masked_score = torch.where(feas_b, score, NEG)
         mx_score = torch.max(masked_score)
-        best = torch.min(torch.where(masked_score == mx_score, iota_n, N))
+        top = feas_b & (masked_score == mx_score)
+        if tie_seed is not None:
+            if i % DRAW_CHUNK == 0:
+                draws = philox_draws(tie_seed, torch.arange(draw_base + i, draw_base + min(i + DRAW_CHUNK, P),
+                                                            device=dev), N)
+            d_i = draws[i % DRAW_CHUNK]
+            top = top & (d_i == torch.max(torch.where(top, d_i, -1)))
+        best = torch.min(torch.where(top, iota_n, N))
         any_feasible = torch.max(feasible) > 0
         sel_choice = torch.where(any_feasible, best, -1)
         pin_u = fi.pin[u]
         choice = torch.where(forced[i], torch.where(pin_u >= 0, pin_u, -1), sel_choice)
         do_bind = valid[i] & (choice >= 0)
         chosen[i] = torch.where(do_bind, choice, -1)
+        if stats is not None:
+            scheduled = valid[i] & ~forced[i] & any_feasible
+            at_top = feas_b & (masked_score == mx_score)
+            ties.append(torch.where(scheduled, at_top.sum(dtype=torch.int32), 0))
+            at_max.append(~scheduled | at_top[torch.clamp(sel_choice, min=0)])
 
         # --- failure attribution (kernels.pod_step's count_fails): the
         # nodes that reach each dynamic filter, in the reference's order
@@ -1219,7 +1412,22 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced) -> FastOutputs:
                 node_rows[:, c] = node_rows[:, c] + add[:, None]
                 zone_rows.scatter_add_(1, col[:, c], (add * has[:, c][:, 0])[:, None])
 
-    return FastOutputs(chosen, used, gpu_take, gpu_free, port_used, vg_free, dev_free, fail_counts, insufficient)
+    if stats is not None:
+        stats["ties"] = torch.stack(ties) if P else torch.zeros((0,), dtype=torch.int32, device=dev)
+        stats["at_max"] = torch.stack(at_max) if P else torch.zeros((0,), dtype=torch.bool, device=dev)
+    # the final state as one row (state_layout): the zone columns without
+    # the "no label" column; the per-selector totals from the counts
+    rows = {"used": used, "node_cnt": node_cnt, "zone_cnt": zone_cnt[..., :Z], "gpu_free": gpu_free,
+            "port_used": port_used, "vg_free": vg_free, "dev_free": dev_free}
+    if v.interpod:
+        rows.update(anti_node=anti_node, anti_zone=anti_zone[:, :Z], prefw_node=prefw_node,
+                    prefw_zone=prefw_zone[:, :Z],
+                    sel_total=torch.cat([node_cnt.sum(1)] + [zone_cnt[k, :, :Z].sum(1) for k in range(K)]))
+    state = torch.cat([rows[name].reshape(-1) if name in rows else torch.zeros((math.prod(shape),), dtype=f32,
+                                                                                device=dev)
+                       for name, shape in state_layout(fi).items()])
+    return FastOutputs(chosen, used, gpu_take, gpu_free, port_used, vg_free, dev_free, fail_counts, insufficient,
+                       state)
 
 
 # ---------------------------------------------------------------------------
@@ -1268,6 +1476,21 @@ _LOC_BIND_VG, _LOC_BIND_DEV = 4, 8
 #: matched anti row, 4 for the products; Open-Local 1 per VG plus 1 with LVM,
 #: 4 per device plus 1 per exclusive volume).
 _COUNT, _COUNT_PER_R = 9, 2
+#: A config's weighted sum (the cfg variant), per (scheduled pod, node): a
+#: multiply and an add for each of the four base parts (balanced, least,
+#: spread, share) of non-zero weight, in place of the default sum's 5
+#: operations; a multiply for each flag part (node affinity, taint
+#: toleration, inter-pod, local, avoid) of the variant with a non-zero
+#: weight, whose add the flag's own count holds.
+_CFG_BASE_PARTS = ("balanced", "least", "spread", "share")
+_DEFAULT_SUM = 5
+#: The sampled tie-break, in 32-bit integer operations (``int_ops``): only
+#: a step with more than one node at its best score needs draws, one for
+#: each such node (the draw orders the maxima alone), each 10 rounds of
+#: Philox-4x32-10 (two multiplies, two high multiplies and four xors) and
+#: the comparator's 2; the key schedule (9 bumps of two adds) is the same
+#: for every node of a step, so once a step.
+_DRAW, _DRAW_KEY = 82, 18
 
 #: FastInputs tables with a node axis (their last one).
 _NODE_AXIS = {"alloc_T", "used0_T", "static_pass", "aff_mask", "share_raw", "zone_idx", "node_valid",
@@ -1276,7 +1499,7 @@ _NODE_AXIS = {"alloc_T", "used0_T", "static_pass", "aff_mask", "share_raw", "zon
 _PER_SCENARIO = {"node_valid", "spr_weight"}
 
 
-def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None) -> dict:
+def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None, ties=None) -> dict:
     """Bytes the scan must move (each input read once, each output written
     once) and float ops that this stream's pods need, over the valid node
     lanes only (padding lanes need no work): a scheduled pod does the
@@ -1292,7 +1515,12 @@ def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None)
     For a scenario grid, ``valid``/``forced``/``chosen`` are ``[S, P]`` and
     ``node_valid`` ``[S, N]``: each scenario is counted over its own valid
     nodes, the template tables the scenarios share are read once, and each
-    scenario's node validity and spread weights once per scenario."""
+    scenario's node validity and spread weights once per scenario. A
+    config's weighted sum is counted per scheduled pod and valid node too
+    (``_CFG_BASE_PARTS``). For a sampled one scan, `ties` (int [P], the
+    plain version's ``stats["ties"]``: the nodes at each step's best score)
+    gives the draws' 32-bit integer operations, apart from the float ones
+    as ``int_ops`` (``_DRAW``, ``_DRAW_KEY``; 0 without `ties`)."""
     d = _dims(fi)
     R, A, K, Gd = d.R, d.A, d.K, d.Gd
     v = variant(fi)
@@ -1326,6 +1554,12 @@ def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None)
         per_node = per_node + asks * (_GPU_FILTER_PER_GD * Gd + _GPU_FILTER)
         per_bind = per_bind + asks * (_GPU_BIND_PER_GD * Gd)
     per_node = per_node + v.gc * (_GC_PER_GD * Gd + _GC) + v.na * _NA + v.tt * _TT + v.avoid * _AVOID
+    if fi.cfg is not None:
+        w = dict(zip(_CFG_WEIGHTS, fi.cfg.weights))
+        flags = {"w_node_affinity": v.na, "w_taint_toleration": v.tt, "w_interpod": v.interpod, "w_local": v.local,
+                 "w_prefer_avoid": v.avoid}
+        per_node = (per_node + 2 * sum(w[f"w_{name}"] != 0.0 for name in _CFG_BASE_PARTS) - _DEFAULT_SUM
+                    + sum(on and w[name] != 0.0 for name, on in flags.items()))
     if v.ports:
         per_node = per_node + _PORT + _PORT_PER_ROW * (fi.port_conf_HU.cpu() != 0).sum(0)[tm]
         per_bind = per_bind + d.Hp
@@ -1362,4 +1596,9 @@ def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None)
         steps = int(failed.sum())
         counting = {"bytes": steps * (N_FAIL + R) * 4, "ops": int(per_count[failed].sum()) * n_valid_s[0],
                     "steps": steps}
-    return {"bytes": in_bytes + out_bytes + counting["bytes"], "ops": ops + counting["ops"], "count": counting}
+    int_ops = 0
+    if ties is not None:
+        drawn = ties.cpu()[ties.cpu() > 1].long()
+        int_ops = _DRAW * int(drawn.sum()) + _DRAW_KEY * drawn.numel()
+    return {"bytes": in_bytes + out_bytes + counting["bytes"], "ops": ops + counting["ops"], "int_ops": int_ops,
+            "count": counting}

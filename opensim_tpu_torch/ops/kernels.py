@@ -1,22 +1,26 @@
-"""Static tables and feature flags of the bind scan.
+"""Static tables, feature flags and scheduler-config launch arguments of
+the bind scan.
 
 The per-(template, node) quantities that never change during a scan —
 static filter masks, spread eligibility, raw share scores, spread weights —
 computed once on the host in numpy, exactly as the JAX package's
 ``precompute_static_np`` computes them (bitwise equal; the tests assert
-it). Only the default scheduler config is covered: its filter and score
-switches are inlined. The usage-dependent part of a scheduling step is the
-bind-scan kernel in ``ops/fast_scan.py``.
+it), the static filters switched by the scheduler config as there. The
+config's score weights, dynamic-filter switches and fit-ignored resource
+columns go to the kernel as launch arguments (:func:`kernel_config`). The
+usage-dependent part of a scheduling step is the bind-scan kernel in
+``ops/fast_scan.py``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
 from ..encoding import vocab as V
 from ..encoding.state import EncodedCluster
+from ..engine.schedconfig import DEFAULT_CONFIG, SchedulerConfig
 
 MAX_NODE_SCORE = 100.0
 
@@ -236,13 +240,17 @@ def precompute_core_np(ec):
     }
 
 
-def precompute_static_np(ec: EncodedCluster, core=None) -> StaticTables:
+def precompute_static_np(ec: EncodedCluster, cfg: Optional[SchedulerConfig] = None, core=None) -> StaticTables:
     """The static (usage-independent) tables of the bind scan under the
-    default scheduler config, op-for-op in float32. Every arithmetic step is
-    either exact in f32 (integer-valued sums/counts, single IEEE divisions,
-    max-reductions) or a shared-table gather (spread weights), so the
-    tables are bitwise equal to the JAX package's — tests/test_torch_encoding.py
-    asserts it. `core` reuses :func:`precompute_core_np` output."""
+    scheduler config `cfg` (None: the default), op-for-op in float32. Every
+    arithmetic step is either exact in f32 (integer-valued sums/counts,
+    single IEEE divisions, max-reductions) or a shared-table gather (spread
+    weights), so the tables are bitwise equal to the JAX package's —
+    tests/test_torch_encoding.py asserts it. The config's static-filter
+    switches (``f_unschedulable``, ``f_taints``, ``f_node_affinity``) pass
+    every node through a filter that is off. `core` reuses
+    :func:`precompute_core_np` output."""
+    cfg = cfg or DEFAULT_CONFIG
     f32 = np.float32
     if core is None:
         core = precompute_core_np(ec)
@@ -253,9 +261,13 @@ def precompute_static_np(ec: EncodedCluster, core=None) -> StaticTables:
     true_m = np.ones_like(taint)
     fails = []
     passed = np.broadcast_to(node_valid[None, :], taint.shape)
-    # the default config enables all four static filters; the pin column
-    # stays zero (forced-bind path)
-    for m in (true_m, unsched, taint, aff):
+    for m, enabled in (
+        (true_m, True),  # pin column stays zero (forced-bind path)
+        (unsched, cfg.f_unschedulable),
+        (taint, cfg.f_taints),
+        (aff, cfg.f_node_affinity),
+    ):
+        m = m if enabled else true_m
         fails.append((passed & ~m).sum(-1))
         passed = passed & m
 
@@ -341,3 +353,51 @@ def features_of(ec_np) -> Features:
             and (np.asarray(ec_np.req)[:, np.asarray(ec_np.gc_mask)] > 0).any()
         ),
     )
+
+
+#: The weighted score parts of a non-default config's sum, in the order
+#: the reference adds them (``kernels.score_parts``,
+#: ``opensim_tpu/ops/kernels.py:918-979``, summed from 0 in ``pod_step``):
+#: the weights of :class:`KernelConfig` in this order. ``share`` is Simon
+#: plus Open-Gpu-Share, which share one formula.
+SCORE_PARTS = ("balanced", "least", "node_affinity", "taint_toleration", "interpod", "spread", "share", "local",
+               "prefer_avoid")
+#: The dynamic filters a config switches, bit f - F_PORTS of
+#: :attr:`KernelConfig.filters` (the kernel's order of attribution).
+_DYNAMIC_FILTERS = (("f_ports", F_PORTS), ("f_fit", F_FIT), ("f_spread", F_SPREAD), ("f_interpod", F_INTERPOD),
+                    ("f_gpu", F_GPU), ("f_local", F_LOCAL))
+
+
+class KernelConfig(NamedTuple):
+    """A non-default scheduler config as the bind-scan kernel takes it."""
+
+    weights: Tuple[float, ...]  # float32 values, SCORE_PARTS order; 0 leaves the part out
+    filters: int  # bit f - F_PORTS set: dynamic filter f is on (ports, fit, spread, inter-pod, gpu, local)
+    fit_ignored: int  # bit r set: the fit filter skips resource row r
+
+
+def kernel_config(cfg: Optional[SchedulerConfig], n_resources: int, segment: bool = False) -> Optional[KernelConfig]:
+    """The launch arguments of scheduler config `cfg` over `n_resources`
+    resource rows; None for no config or one equal to the default, which
+    runs the kernel's default variant, but for a `segment` of a segmented
+    multi-profile run: the reference runs every segment on its XLA scan,
+    which sums the weighted parts in ``score_parts`` order whatever the
+    config, and a segment after the first starts from a carried state,
+    which the cfg variant takes. Each weight is the float32 the
+    reference multiplies by (its weakly typed product rounds the Python
+    float once); Simon's and Open-Gpu-Share's are added in double first, as
+    the reference adds them. The static filters' switches are not here:
+    they shape the static tables (:func:`precompute_static_np`)."""
+    if not segment and (cfg is None or cfg == DEFAULT_CONFIG):
+        return None
+    cfg = cfg or DEFAULT_CONFIG
+    cols = set(cfg.fit_ignored_cols)
+    if any(not 0 <= c < n_resources for c in cols):
+        raise ValueError(f"fit_ignored_cols {sorted(cols)} outside the {n_resources} resource rows")
+    raw = (cfg.w_balanced, cfg.w_least, cfg.w_node_affinity, cfg.w_taint_toleration, cfg.w_interpod, cfg.w_spread,
+           cfg.w_simon + cfg.w_gpu_share, cfg.w_local, cfg.w_prefer_avoid)
+    weights = tuple(float(np.float32(w)) for w in raw)
+    if not all(np.isfinite(weights)):
+        raise ValueError(f"scheduler config weights must be finite, not {raw}")
+    filters = sum(1 << (f - F_PORTS) for name, f in _DYNAMIC_FILTERS if getattr(cfg, name))
+    return KernelConfig(weights, filters, sum(1 << c for c in cols))

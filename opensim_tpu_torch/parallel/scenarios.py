@@ -6,9 +6,11 @@ encoded cluster and differs only in its node-validity, pod-validity and
 forced masks. On a card the whole batch is one launch of the bind-scan
 kernel's scenario grid, B scenarios in lockstep per block
 (``ops/fast_scan.fast_scan_sweep``); on the
-CPU the plain version runs scenario by scenario. This slice has the
-single-device kernel route only: a scheduler config, segmented profiles
-and a mesh of several devices raise.
+CPU the plain version runs scenario by scenario. A scheduler config runs
+in the grid as its launch arguments; a stream of differing profiles runs
+one grid per contiguous segment, each scenario going on from its own state
+(:func:`sweep_segmented`). A mesh of several devices raises (ROADMAP
+Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 from ..engine import fastpath
+from ..engine.schedconfig import DEFAULT_CONFIG, resolve_profile_segments
 
 
 class SweepResult(NamedTuple):
@@ -59,20 +62,52 @@ def sweep_auto(
 ) -> SweepResult:
     """Run a scenario sweep on the prepared input's device: every scenario
     in one kernel launch on a card, the plain version on the CPU. Without
-    `forced_masks` every scenario keeps the stream's forced pods. Raises
-    ``NotImplementedError`` outside the kernel's envelope, for a scheduler
-    config (and its segmented profiles) and for a mesh of devices: later
-    slices of the port. Nothing falls back to another engine."""
-    if config is not None:
-        raise NotImplementedError(
-            "a scheduler config (weights, disables, segmented profiles) in a sweep: a later slice of the port"
-        )
+    `forced_masks` every scenario keeps the stream's forced pods. `config`
+    (a ``SchedulerConfig`` or ``SchedulerProfiles``) routes as
+    ``simulate()`` does (``opensim_tpu/parallel/scenarios.py:106-130``):
+    pods of an unknown profile leave every scenario, differing profiles
+    run :func:`sweep_segmented`, one effective config runs one grid.
+    Raises ``NotImplementedError`` outside the kernel's envelope and for a
+    mesh of devices (ROADMAP Queue 1 item 9). Nothing falls back to
+    another engine."""
     if mesh is not None:
-        raise NotImplementedError("a sweep over a mesh of several devices: a later slice of the port")
-    miss = fastpath.why_not(prep)
-    if miss is not None:
-        raise NotImplementedError(f"outside the port's bind-scan envelope: {miss}")
+        raise NotImplementedError("a sweep over a mesh of several devices: ROADMAP Queue 1 item 9, not yet ported")
     S = np.asarray(node_valid_masks).shape[0]
     if forced_masks is None:
         forced_masks = np.broadcast_to(prep.forced, (S, len(prep.forced)))
-    return SweepResult(*fastpath.sweep(prep, node_valid_masks, pod_valid_masks, forced_masks))
+    if config is not None:
+        segs, invalid = resolve_profile_segments(config, prep.ordered, prep.meta.resource_names, forced=prep.forced)
+        if invalid:
+            pod_valid_masks = np.array(pod_valid_masks, copy=True)
+            pod_valid_masks[:, list(invalid)] = False
+        distinct = {c for c, _, _ in segs if c is not None and c != DEFAULT_CONFIG}
+        if len(segs) > 1 and distinct:
+            return sweep_segmented(prep, segs, node_valid_masks, pod_valid_masks, np.asarray(forced_masks, dtype=bool))
+        config = distinct.pop() if distinct else None
+    miss = fastpath.why_not(prep, config)
+    if miss is not None:
+        raise NotImplementedError(f"outside the port's bind-scan envelope: {miss}")
+    return SweepResult(*fastpath.sweep(prep, node_valid_masks, pod_valid_masks, forced_masks,
+                                       segments=[(config, 0, len(prep.tmpl_ids))]))
+
+
+def sweep_segmented(
+    prep,
+    segments,
+    node_valid_masks: np.ndarray,
+    pod_valid_masks: np.ndarray,
+    forced_masks: np.ndarray,
+) -> SweepResult:
+    """Scenario sweep over a stream of differing scheduler profiles:
+    ``simulate()``'s segmented path on the scenario axis
+    (``opensim_tpu/parallel/scenarios.py:220-311``). `segments` are
+    ``[(config, lo, hi)]``, contiguous same-profile runs covering the
+    stream in order; each is one launch of the scenario grid on its
+    config's inputs, every scenario starting from its own final state of
+    the run before, so each scenario's placements equal a segmented
+    ``simulate()`` of its sub-cluster."""
+    for cfg in {c for c, _, _ in segments}:
+        miss = fastpath.why_not(prep, cfg)
+        if miss is not None:
+            raise NotImplementedError(f"outside the port's bind-scan envelope: {miss}")
+    return SweepResult(*fastpath.sweep(prep, node_valid_masks, pod_valid_masks, forced_masks, segments=segments))

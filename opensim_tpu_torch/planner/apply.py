@@ -16,9 +16,13 @@ scenario grid on a card), coarse then fine, and re-simulates the answer
 over the same prepared input with the node axis masked.
 ``--interactive`` keeps the reference's prompt loop.
 
+A scheduler config (``-d``, ``engine/schedconfig.py``) goes to the first
+simulation, both sweeps and the re-simulation, all on the kernel; the
+sampled tie-break (``--tie-break sample[:seed]``) to the simulations,
+while the sweeps keep the lowest index, as the reference's planner does.
 Left for later slices, each raising ``NotImplementedError``: a
-``kubeConfig`` cluster (ROADMAP Queue 1 item 6), a scheduler config, the
-sampled tie-break and the placement audit (item 5).
+``kubeConfig`` cluster (ROADMAP Queue 1 item 6) and the placement audit
+(``--explain``, item 5b).
 """
 
 from __future__ import annotations
@@ -36,9 +40,11 @@ import numpy as np
 from ..device import resolve_device
 from ..encoding.vocab import RES_CPU, RES_MEMORY
 from ..engine import prepcache
+from ..engine.schedconfig import load_scheduler_config
 from ..engine.simulator import (
     AppResource,
     SimulateResult,
+    parse_tie_break,
     prepare,
     restore_bind_state,
     simulate,
@@ -94,8 +100,8 @@ class Options:
     extended_resources: List[str] = field(default_factory=list)
     report_pods: bool = False  # include the per-node Pod Info table
     max_new_nodes: int = 128  # sweep upper bound (auto mode)
-    tie_break: str = "lowest"  # lowest; sample[:seed] is ROADMAP Queue 1 item 5
-    explain: bool = False  # the placement audit: ROADMAP Queue 1 item 5
+    tie_break: str = "lowest"  # lowest | sample[:seed] (simulator.parse_tie_break)
+    explain: bool = False  # the placement audit: ROADMAP Queue 1 item 5b
     device: Optional[str] = None  # None: the card (raises without one); "cpu": the plain versions
 
 
@@ -172,11 +178,14 @@ class Applier:
 
     def __init__(self, opts: Options) -> None:
         self.opts = opts
-        for flag, given in (("--default-scheduler-config", bool(opts.default_scheduler_config)),
-                            (f"--tie-break {opts.tie_break}", opts.tie_break not in ("", "lowest")),
-                            ("--explain", opts.explain)):
-            if given:
-                raise NotImplementedError(f"simon apply {flag}: ROADMAP Queue 1 item 5, not yet ported")
+        if opts.explain:
+            raise NotImplementedError("simon apply --explain: the placement audit is ROADMAP Queue 1 item 5b, "
+                                      "not yet ported")
+        # the sampled tie-break applies to the simulations; the capacity
+        # sweeps keep the lowest index (one packing per candidate count)
+        self.tie_seed = parse_tie_break(opts.tie_break)
+        self.sched_config = (load_scheduler_config(opts.default_scheduler_config)
+                             if opts.default_scheduler_config else None)
         self.device = resolve_device(opts.device)
         self.config = SimonConfig.load(opts.simon_config)
         self.base = os.path.dirname(os.path.abspath(opts.simon_config))
@@ -270,7 +279,7 @@ class Applier:
         """One sweep over candidate new-node counts; a count is feasible
         when everything schedules within the env caps."""
         t0 = time.perf_counter()
-        res, node_valid = scenarios.sweep_counts(prep, n_real, ks)
+        res, node_valid = scenarios.sweep_counts(prep, n_real, ks, config=self.sched_config)
         self.sweeps.append((list(ks), time.perf_counter() - t0))
         max_cpu, max_mem, max_vg = resource_caps()
         alloc = np.asarray(prep.ec_np.alloc)
@@ -332,10 +341,10 @@ class Applier:
             snap0 = snapshot_bind_state(prep0) if prep0 is not None else None
         with Spinner("schedule pods"):
             if prep0 is not None:
-                result = simulate(cluster, apps, prep=prep0)
+                result = simulate(cluster, apps, prep=prep0, sched_config=self.sched_config, tie_seed=self.tie_seed)
             else:
-                result = simulate(cluster, apps, use_greed=self.opts.use_greed,
-                                  enable_preemption=self.opts.enable_preemption, device=dev)
+                result = simulate(cluster, apps, use_greed=self.opts.use_greed, sched_config=self.sched_config,
+                                  enable_preemption=self.opts.enable_preemption, tie_seed=self.tie_seed, device=dev)
         t = self._step("simulate", t)
         self.first_result = result
         n_new = 0
@@ -379,12 +388,14 @@ class Applier:
                     # share; greed_sort's order depends on the node totals,
                     # so the candidates' prep orders the stream differently
                     # from a fresh sort of the sub-cluster: re-expand
-                    result = simulate(sub, apps, use_greed=self.opts.use_greed,
-                                      enable_preemption=self.opts.enable_preemption, device=dev)
+                    result = simulate(sub, apps, use_greed=self.opts.use_greed, sched_config=self.sched_config,
+                                      enable_preemption=self.opts.enable_preemption, tie_seed=self.tie_seed,
+                                      device=dev)
                 else:
                     mask = np.zeros(np.asarray(prep_full.ec_np.node_valid).shape[0], dtype=bool)
                     mask[: len(sub.nodes)] = True
-                    result = simulate(sub, apps, prep=prep_full, node_valid=mask)
+                    result = simulate(sub, apps, prep=prep_full, node_valid=mask, sched_config=self.sched_config,
+                                      tie_seed=self.tie_seed)
             t = self._step("re-simulate", t)
         self.n_new = n_new
         print("Simulation success!", file=self.out)
@@ -480,7 +491,9 @@ class Applier:
                         self._cluster_with_new_nodes(cluster, template, n_new) if template else cluster,
                         apps,
                         use_greed=self.opts.use_greed,
+                        sched_config=self.sched_config,
                         enable_preemption=self.opts.enable_preemption,
+                        tie_seed=self.tie_seed,
                         device=self.device,
                     )
             resimulate = True

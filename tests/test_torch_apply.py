@@ -10,8 +10,10 @@ import inspect
 import io
 import os
 import re
+import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 import yaml
@@ -221,9 +223,10 @@ def test_chart_cases_through_the_port(case, tmp_path, monkeypatch):
 @pytest.mark.parametrize("case", ["success", "unschedulable", "missing", "scheduler_config", "sample", "explain",
                                   "trace", "kubeconfig", "no_card"])
 def test_cli_apply_exit_codes(tmp_path, capsys, monkeypatch, case):
-    """0 on a plan that fits (after adding nodes), 1 on one that cannot,
-    on a bad path, on the modes of later slices (naming their ROADMAP
-    item) and without a card unless `--device cpu` is given."""
+    """0 on a plan that fits (after adding nodes), also under a scheduler
+    config (`-d`) or the sampled tie-break; 1 on one that cannot, on a bad
+    path, on the modes of later slices (naming their ROADMAP item) and
+    without a card unless `--device cpu` is given."""
     args = ["apply", "-f", _adds_one(tmp_path), "--device", "cpu", "-o", str(tmp_path / "out.txt")]
     want, err = 1, None
     if case == "success":
@@ -234,14 +237,17 @@ def test_cli_apply_exit_codes(tmp_path, capsys, monkeypatch, case):
     elif case == "missing":
         args[2], err = str(tmp_path / "absent.yaml"), "No such file"
     elif case == "scheduler_config":
-        args += ["-d", str(tmp_path / "sched.yaml")]
-        err = "Queue 1 item 5"
+        sched = tmp_path / "sched.yaml"
+        sched.write_text("kind: KubeSchedulerConfiguration\nprofiles:\n  - plugins:\n      score:\n"
+                         "        disabled:\n          - name: NodeResourcesBalancedAllocation\n")
+        args += ["-d", str(sched)]
+        want = 0
     elif case == "sample":
         args += ["--tie-break", "sample:3"]
-        err = "Queue 1 item 5"
+        want = 0
     elif case == "explain":
         args += ["--explain"]
-        err = "Queue 1 item 5"
+        err = "Queue 1 item 5b"
     elif case == "trace":
         args += ["--trace", str(tmp_path / "t.json")]
         err = "Queue 1 item 10"
@@ -256,7 +262,7 @@ def test_cli_apply_exit_codes(tmp_path, capsys, monkeypatch, case):
     assert cli.main(args) == want
     if err is not None:
         assert err in capsys.readouterr().err
-    if case == "success":
+    if want == 0:
         assert "Simulation success!" in (tmp_path / "out.txt").read_text()
 
 
@@ -273,3 +279,75 @@ def test_applier_without_a_card_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         apply.Applier(apply.Options(simon_config=_adds_one(tmp_path)))
 
+
+
+EXAMPLES = [("simon-config.yaml", ()), ("simon-gpushare-config.yaml", ("gpu",)),
+            ("simon-local-config.yaml", ("open-local",))]
+
+
+@pytest.mark.parametrize("config,extended", EXAMPLES)
+def test_example_report_under_a_scheduler_config_equals_jax(tmp_path, config, extended):
+    """`simon apply -d` on the example configs: the port's report equals
+    the JAX package's under the same KubeSchedulerConfiguration (the
+    apply plan's: no balanced score, least-allocated at 3, spread at 1),
+    and the run takes the cfg variant."""
+    sched = fx.write_scheduler_config(tmp_path / "sched.yaml", fx.SCHED_APPLY)
+    (port, rc, text), (_ref, ref_rc, ref_text) = _reports(tmp_path, os.path.join(EXAMPLE, config), extended,
+                                                          default_scheduler_config=sched)
+    assert rc == ref_rc == 0 and "Simulation success!" in text
+    assert _normalised(text) == _normalised(ref_text)
+    engine = [line for line in text.splitlines() if line.startswith("Scheduling engine: ")]
+    assert len(engine) == 1 and ("[cfg]" in engine[0] or ",cfg]" in engine[0])
+
+
+def test_small_apply_plan_under_a_scheduler_config_equals_jax(tmp_path):
+    """The 40-node apply plan under `-d`: the first simulation, both
+    sweeps and the masked re-simulation take the config, and the report
+    equals the JAX package's."""
+    config = fx.write_apply_plan(tmp_path / "plan", 40, 400, 46)
+    sched = fx.write_scheduler_config(tmp_path / "sched.yaml", fx.SCHED_APPLY)
+    (port, rc, text), (_ref, ref_rc, ref_text) = _reports(tmp_path, config, max_new_nodes=16,
+                                                          default_scheduler_config=sched)
+    assert rc == ref_rc == 0 and _normalised(text) == _normalised(ref_text)
+    assert port.n_new == 6 and len(port.sweeps) == 2 and port.sched_config is not None
+
+
+def _replayed(tmp_path, config, placements):
+    """Binds of `placements` (the port's first simulation) that the
+    independent kube oracle of tests/test_k8s_oracle.py scores below the
+    best feasible node, replayed over the JAX package's preparation of the
+    same plan."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_k8s_oracle import _replay_with_scores
+
+    from opensim_tpu.engine import simulator as ref_sim
+
+    ref = ref_apply.Applier(ref_apply.Options(simon_config=config, output_file=str(tmp_path / "unused.txt")))
+    cluster, apps = ref.load_cluster(), ref.load_apps()
+    prep = ref_sim.prepare(cluster, apps)
+    return _replay_with_scores(prep, cluster, placements)
+
+
+@pytest.mark.parametrize("plan", ["example", "apply_plan"])
+def test_sampled_apply_binds_stay_score_optimal(tmp_path, plan):
+    """`simon apply --tie-break sample:3` through the CLI: the same exit
+    and new-node count as the JAX package's run, and every bind of the
+    first simulation score-optimal by the independent oracle (sampling
+    permutes ties only, so its report is not compared line by line)."""
+    if plan == "example":
+        config, max_new = os.path.join(EXAMPLE, "simon-config.yaml"), 128
+    else:
+        config, max_new = fx.write_apply_plan(tmp_path / "plan", 40, 400, 46), 16
+    out = tmp_path / "sampled.txt"
+    assert cli.main(["apply", "-f", config, "--device", "cpu", "-o", str(out), "--tie-break", "sample:3",
+                     "--max-new-nodes", str(max_new)]) == 0
+    text = out.read_text()
+    (port, rc, det), (_ref, ref_rc, ref_text) = _reports(tmp_path, config, max_new_nodes=max_new)
+    added = lambda t: [line for line in t.splitlines() if line.startswith("(added")]
+    assert rc == ref_rc == 0 and added(text) == added(ref_text)
+    sampler = apply.Applier(apply.Options(simon_config=config, output_file=str(tmp_path / "again.txt"),
+                                          tie_break="sample:3", max_new_nodes=max_new, device="cpu"))
+    assert sampler.run() == 0 and sampler.tie_seed == 3
+    first = sampler.first_result.placements
+    assert not np.array_equal(first, port.first_result.placements)
+    assert _replayed(tmp_path, config, first) == 0

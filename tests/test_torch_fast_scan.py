@@ -291,6 +291,24 @@ def test_work_counts_the_port_and_interpod_branches():
         assert w["ops"] > w_base["ops"] and w["bytes"] > w_base["bytes"], name
 
 
+def test_work_counts_the_draws_of_tied_steps_as_integer_ops():
+    """The sampled tie-break needs draws only at a step with several nodes
+    at its best score, one per such node, and the key schedule once for
+    the step; they are integer operations, kept apart from the float ones."""
+    port = _port_prep("ties")
+    fi, _ = fastpath.build_inputs(port)
+    stream = _stream(port)
+    stats = {}
+    chosen = fs.fast_scan_reference(fi, *stream, tie_seed=11, stats=stats).chosen
+    ties = stats["ties"]
+    plain, sampled = fs.fast_scan_work(fi, *stream, chosen), fs.fast_scan_work(fi, *stream, chosen, ties=ties)
+    tied = ties[ties > 1]
+    assert tied.numel() > 0 and (ties == 1).any()
+    assert plain["int_ops"] == 0 and sampled["ops"] == plain["ops"] and sampled["bytes"] == plain["bytes"]
+    assert sampled["int_ops"] == fs._DRAW * int(tied.sum()) + fs._DRAW_KEY * tied.numel()
+    assert fs.fast_scan_work(fi, *stream, chosen, ties=torch.ones_like(ties))["int_ops"] == 0
+
+
 def test_launcher_checks_term_indices():
     port = _port_prep("interpod")
     fi, _ = fastpath.build_inputs(port)

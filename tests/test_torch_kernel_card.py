@@ -251,3 +251,117 @@ def test_one_scan_with_state_in_global_memory_matches_plain_version_on_card(name
     fi, stream = _case_on_card(name, 1 << 19, cuda_device)
     assert not fs.scan_shape(fi).resident
     _one_scan_matches_plain(fi, stream)
+
+
+#: A config under which every setting decides something on the small
+#: cases: new weights, the static taint filter and the fit filter's cpu
+#: row off (tests/test_torch_schedconfig.py holds the plain version under
+#: it and under each dynamic filter off against the JAX package).
+CARD_CONFIGS = {
+    "weights": dict(w_balanced=0.0, w_least=3.0, w_node_affinity=2.0, w_taint_toleration=5.0, w_interpod=2.0,
+                    w_spread=1.0, w_prefer_avoid=0.0, w_simon=0.5, w_gpu_share=0.25, w_local=3.0, f_taints=False),
+    "filters_off": dict(f_ports=False, f_spread=False, f_interpod=False, f_gpu=False, f_local=False),
+    "fit_ignored": dict(f_fit=True, fit_ignored_cols=(0,)),
+}
+
+
+def _cfg_case_on_card(name, kind, device):
+    from opensim_tpu_torch.engine import schedconfig
+
+    cluster, app, node_pad = fx.scan_case(name)
+    prep = sim.prepare(cluster, [sim.AppResource("a", app)], node_pad=node_pad, device=device)
+    fi, _ = fastpath.build_inputs(prep, cfg=schedconfig.SchedulerConfig(**CARD_CONFIGS[kind]))
+    assert fs.variant(fi).cfg
+    return prep, fi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(CARD_CONFIGS))
+@pytest.mark.parametrize("name", [c[0] for c in fx.SCAN_CASES])
+def test_cfg_kernel_matches_plain_version_on_card(name, kind, cuda_device):
+    """The cfg variant of each case's kernel against its plain version on
+    every output: the one scan, and the grid of three drains."""
+    prep, fi = _cfg_case_on_card(name, kind, cuda_device)
+    _one_scan_matches_plain(fi, fastpath.pod_stream(prep))
+    grid = fastpath.sweep_inputs(prep, *defrag.drain_masks(prep, list(range(min(3, len(prep.meta.node_names))))))
+    got = fs.fast_scan_sweep(fi, *grid)
+    torch.cuda.synchronize()
+    want = fs.fast_scan_sweep_reference(fi, *grid)
+    for field, g, w in zip(fs.FastOutputs._fields, got, want):
+        assert torch.equal(g, w), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [c[0] for c in fx.SCAN_CASES])
+def test_carried_state_on_card(name, cuda_device):
+    """The stream cut in two, the second launch from the first's state:
+    equal to one launch (one scan and grid), and to the plain version from
+    the same state, on every output."""
+    prep, fi = _cfg_case_on_card(name, "weights", cuda_device)
+    tmpl, valid, forced = fastpath.pod_stream(prep)
+    P = tmpl.shape[0]
+    k = P // 2
+    whole = fs.fast_scan(fi, tmpl, valid, forced)
+    a = fs.fast_scan(fi, tmpl[:k], valid[:k], forced[:k])
+    b = fs.fast_scan(fi, tmpl[k:], valid[k:], forced[k:], init=a.state)
+    torch.cuda.synchronize()
+    want = fs.fast_scan_reference(fi, tmpl[k:], valid[k:], forced[k:], init=a.state)
+    for field, g, w in zip(fs.FastOutputs._fields, b, want):
+        assert torch.equal(g, w), field
+    assert torch.equal(torch.cat([a.chosen, b.chosen]), whole.chosen) and torch.equal(b.state, whole.state)
+    grid = fastpath.sweep_inputs(prep, *defrag.drain_masks(prep, list(range(min(3, len(prep.meta.node_names))))))
+    tmpl_g, rest = grid[0], grid[1:]
+    cut = lambda sl: [t[:, sl].contiguous() for t in rest[:2]] + list(rest[2:])
+    whole_g = fs.fast_scan_sweep(fi, *grid)
+    a_g = fs.fast_scan_sweep(fi, tmpl_g[:k], *cut(slice(None, k)))
+    b_g = fs.fast_scan_sweep(fi, tmpl_g[k:], *cut(slice(k, None)), init=a_g.state)
+    torch.cuda.synchronize()
+    want_g = fs.fast_scan_sweep_reference(fi, tmpl_g[k:], *cut(slice(k, None)), init=a_g.state)
+    for field, g, w in zip(fs.FastOutputs._fields, b_g, want_g):
+        assert torch.equal(g, w), field
+    assert torch.equal(torch.cat([a_g.chosen, b_g.chosen], 1), whole_g.chosen)
+    assert torch.equal(b_g.state, whole_g.state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [None, "weights"])
+@pytest.mark.parametrize("name", [c[0] for c in fx.SCAN_CASES])
+def test_sampled_kernel_matches_plain_version_on_card(name, cfg, cuda_device):
+    """The sampled variant (with and without a config) against its plain
+    version on every output, over the stream and, with a config, from a
+    carried state, its second half with the draws' pod counter going on
+    (without a config the variant takes no initial state)."""
+    if cfg is None:
+        cluster, app, node_pad = fx.scan_case(name)
+        prep = sim.prepare(cluster, [sim.AppResource("a", app)], node_pad=node_pad, device=cuda_device)
+        fi, _ = fastpath.build_inputs(prep)
+    else:
+        prep, fi = _cfg_case_on_card(name, cfg, cuda_device)
+    tmpl, valid, forced = fastpath.pod_stream(prep)
+    got = fs.fast_scan(fi, tmpl, valid, forced, tie_seed=7)
+    torch.cuda.synchronize()
+    want = fs.fast_scan_reference(fi, tmpl, valid, forced, tie_seed=7)
+    for field, g, w in zip(fs.FastOutputs._fields, got, want):
+        assert torch.equal(g, w), field
+    assert fs.variant_name(fi, sample=True) in fs.SCAN_LAUNCHED
+    k = tmpl.shape[0] // 2
+    a = fs.fast_scan(fi, tmpl[:k], valid[:k], forced[:k], tie_seed=7)
+    if cfg is None:
+        with pytest.raises(ValueError, match="runs in the cfg variants"):
+            fs.fast_scan(fi, tmpl[k:], valid[k:], forced[k:], init=a.state, tie_seed=7, draw_base=k)
+        return
+    b = fs.fast_scan(fi, tmpl[k:], valid[k:], forced[k:], init=a.state, tie_seed=7, draw_base=k)
+    assert torch.equal(torch.cat([a.chosen, b.chosen]), got.chosen) and torch.equal(b.state, got.state)
+
+
+@pytest.mark.cuda
+def test_sampled_choice_on_card_leaves_the_lowest_index(cuda_device):
+    """On the uniform fleet most steps tie: the sampled placements differ
+    from the lowest-index run's, and each seed repeats itself."""
+    cluster, app, _ = fx.scan_case("ties")
+    prep = sim.prepare(cluster, [sim.AppResource("a", app)], node_pad=1, device=cuda_device)
+    fi, _ = fastpath.build_inputs(prep)
+    stream = fastpath.pod_stream(prep)
+    lowest = fs.fast_scan(fi, *stream).chosen
+    a, b = (fs.fast_scan(fi, *stream, tie_seed=3).chosen for _ in range(2))
+    assert torch.equal(a, b) and (a != lowest).float().mean() > 0.25

@@ -402,6 +402,17 @@ def test_preemption_matches_jax(case):
 
 @pytest.mark.parametrize("arg", ["sched_config", "extra_plugins", "tie_seed", "explain"])
 def test_later_slice_arguments_raise(arg):
+    """extra_plugins and explain raise, naming their ROADMAP item;
+    sched_config and tie_seed are ported: a tie seed runs, and a config
+    object schedconfig does not know raises as the reference's does."""
     value = {"sched_config": object(), "extra_plugins": (("filter", len),), "tie_seed": 0, "explain": True}[arg]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        sim.simulate(fx.synthetic_cluster(2), [], device="cpu", **{arg: value})
+    run = lambda: sim.simulate(fx.synthetic_cluster(2), [sim.AppResource("a", fx.synthetic_apps(40))], device="cpu",
+                               **{arg: value})
+    if arg == "tie_seed":
+        assert (run().placements >= 0).all()
+    elif arg == "sched_config":
+        with pytest.raises(ValueError, match="unsupported scheduler config object"):
+            run()
+    else:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
+            run()

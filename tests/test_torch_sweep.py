@@ -188,7 +188,7 @@ def test_sweep_counts_matches_reference():
 def test_sweep_auto_refuses_what_a_later_slice_brings():
     port = _preps(*_setup(n_nodes=3, replicas=2))[1]
     nv, pv, fm = defrag.drain_masks(port, [0])
-    with pytest.raises(NotImplementedError, match="scheduler config"):
+    with pytest.raises(ValueError, match="unsupported scheduler config object"):  # a config is ported; this is none
         scenarios.sweep_auto(port, nv, pv, fm, config=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         scenarios.sweep_auto(port, nv, pv, fm, mesh=object())

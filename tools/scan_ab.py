@@ -19,7 +19,10 @@ steps whose template differs from the step before's, and the kernel's
 milliseconds per launch (CUDA events over three launches after one
 warm-up); the grid's line adds the bytes of its own state one
 step-scenario reads. The six variants are built at once before the first
-plan. To compare shapes of the one scan's cluster or of
+plan. ``--plans capacity,affinity`` times those plans alone (the grid
+only when ``drains`` is named too, with ``capacity``), for bisecting a
+difference over many checkouts. To compare shapes of the
+one scan's cluster or of
 the grid, time copies of this checkout whose SCAN_CLUSTER/SCAN_THREADS or
 SWEEP_B_MAX/SWEEP_THREADS (ops/fast_scan.py) and CL/NT or BMAX/SW_NT
 (ops/csrc/fast_scan.cu) were edited, in turns. Needs a card.
@@ -44,6 +47,7 @@ PLANS = {  # fixtures' cluster and apps makers, the apps maker's options, and th
 }
 REPS = 3
 N_NODES, N_PODS, N_SCENARIOS = 5000, 50000, 1000
+GRID = "drains"  # the 1,000-scenario grid of the capacity plan, for --plans
 
 
 def _events_ms(torch, fn, reps: int) -> float:
@@ -76,7 +80,12 @@ def _step_bytes(fi, tmpl) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=ROOT, help="checkout to time, inside this one")
+    ap.add_argument("--plans", default=",".join(list(PLANS) + [GRID]),
+                    help=f"comma-separated plans to time, of {list(PLANS) + [GRID]}")
     args = ap.parse_args()
+    plans = args.plans.split(",")
+    if not set(plans) <= set(PLANS) | {GRID}:
+        raise SystemExit(f"scan_ab: --plans {args.plans}: not among {list(PLANS) + [GRID]}")
     root = args.root.resolve()
     if root != ROOT and ROOT not in root.parents:
         raise SystemExit(f"scan_ab: --root {root} lies outside this checkout {ROOT}")
@@ -93,8 +102,10 @@ def main() -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    fs.build([plan[3] for plan in PLANS.values()])  # every variant at once
+    fs.build([PLANS[plan][3] for plan in plans if plan in PLANS])  # every variant at once
     for plan, (make_cluster, make_apps, opts, _variant) in PLANS.items():
+        if plan not in plans:
+            continue
         cluster, apps = getattr(fx, make_cluster)(N_NODES), getattr(fx, make_apps)(N_PODS, **opts)
         prep = sim.prepare(cluster, [sim.AppResource("plan", apps)], device="cuda")
         fi, _ = fastpath.build_inputs(prep)
@@ -109,7 +120,7 @@ def main() -> int:
         switches = int((tmpl[1:] != tmpl[:-1]).sum())  # steps whose template differs from the step before's
         print(json.dumps({"plan": plan, "variant": name, "root": str(root), "card": card, "ptxas": ptxas,
                           "shape": shape, "template_switches": switches, "ms": ms, "reps": REPS}), flush=True)
-        if plan == "capacity":
+        if plan == "capacity" and GRID in plans:
             tmpl, *grid = fastpath.sweep_inputs(prep, *defrag.drain_masks(prep, list(range(N_SCENARIOS))))
             ms = _events_ms(torch, lambda: fs.fast_scan_sweep(fi, tmpl, *grid), REPS)
             print(json.dumps({"plan": f"capacity, {N_SCENARIOS} drains", "variant": fs.sweep_name(fi),
