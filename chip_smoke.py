@@ -27,8 +27,8 @@ through the kernel on six plans of 50,000 pods on 5,000 nodes, and
 
 For each plan it holds the one-scan kernel (a thread-block cluster that
 splits the node axis, fast_scan.SCAN_CLUSTER CTAs) identical to the plain
-version (over the whole stream for the affinity plan, over a prefix of the
-others: the plain version is a Python loop) and, over the whole stream, to
+version (over a prefix: the plain version is a Python loop) and, over the
+whole stream, to
 one launch of the scenario grid at S = 1 (all nodes valid, the plan's own
 spread weights), a kernel of another design; runs simulate() with the
 launch counts set to 0 just before and read just after, prints the launch
@@ -79,15 +79,35 @@ over 5,000 pods (of each segment), the first two against grid launches at
 S = 1 over the whole stream, the sampled placements each among its step's
 best scores and a quarter at least off the lowest index's; and ``simon
 apply -d`` on the apply plan (the cfg variants of both kernels), its
-masked one scan at n_new - 1 and n_new against the grids' rows. Every
-phase raises on failure.
+masked one scan at n_new - 1 and n_new against the grids' rows. Then
+explain mode (phases 42-49), the one scan's ``[explain]`` variants, which
+count every step's rejections: the affinity-heavy plan with its hard
+zone spread at maxSkew 1 (``fast_scan[interpod,explain]``; at maxSkew 3
+no node fails a filter on any step), whose binding steps reject nodes,
+and the all-GPU-share plan
+(``fast_scan[gpu,gc,explain]``), each with placements, GPU takes and final
+state equal to the default variant's over the whole stream and all ten
+outputs equal to the plain version counting every step over its first
+2,000 pods; the over-subscribed plan (``fast_scan[explain]``), its failing
+steps' counts the default variant's over the whole stream; the capacity
+plan's simulate(explain=True) timed by phase; each simulate(explain=True)
+through exactly one launch; ``explain_pod`` on the card for an
+unscheduled pod and a scheduled one near the end of the stream, whose
+torch re-score (``kernels.pod_step`` at full width) takes the kernel's
+node; ``simon apply --explain`` on the apply plan, its report above the
+placement audit phase 28's; and the example configs' ``--explain``
+reports, card against CPU. The affinity-heavy plan's default variant is
+held against the plain version over its first 10,000 pods (phase 10;
+against the grid over the whole stream), leaving the run time for these
+phases. Every phase raises on failure.
 The last lines are the card's name and power limit, one JSON line with
 a row per kernel variant timed at full width, one for the drain sweep,
 three for the apply plan (the masked one scan, the coarse and the fine
 grid), one each for the config, two-profile and sampled plans (the
 last timed over its checked prefix, whose ties the plain version records
-for its bound) and three
-for the apply plan under ``-d``, and ``{"ok": true, "device": {...}}``.
+for its bound), three
+for the apply plan under ``-d`` and five for explain mode, and
+``{"ok": true, "device": {...}}``.
 Without a card it exits non-zero and prints no result.
 """
 
@@ -147,6 +167,15 @@ SMALL_CONFIG = dict(w_balanced=0.0, w_least=3.0, w_node_affinity=2.0, w_taint_to
                     w_prefer_avoid=0.0, w_simon=0.5, f_taints=False, f_spread=False, fit_ignored_cols=(1,))
 #: The variants the new plans and phase 3's config and sampled cases run.
 CFG_VARIANTS = ("fast_scan[cfg]", "fast_scan[na,tt,avoid,cfg]", "fast_scan[sample]")
+#: Explain mode (phases 42-49): the plain version counting every step
+#: checks the first EXPLAIN_PLAIN_PODS pods of each plan; the variants the
+#: plans run (the examples' are their own variants', explained). The
+#: affinity-heavy plan's default variant is held against the plain version
+#: over AFFINITY_PLAIN_PODS pods (and against the grid over the whole
+#: stream), which leaves the run time for these phases.
+EXPLAIN_PLAIN_PODS = 2000
+EXPLAIN_VARIANTS = ("fast_scan[interpod,explain]", "fast_scan[gpu,gc,explain]", "fast_scan[explain]")
+AFFINITY_PLAIN_PODS = 10000
 EXAMPLES = (("simon-config.yaml", [], "fast_scan[interpod]"),
             ("simon-gpushare-config.yaml", ["gpu"], "fast_scan[gpu]"),
             ("simon-local-config.yaml", ["open-local"], "fast_scan[local]"))
@@ -1237,28 +1266,336 @@ def apply_config_plan(device, card: str) -> list:
     return rows
 
 
-def example_reports(device) -> None:
+def _explain_row(fi, stream, variant: str, plan: str, launches: int, err: float, plain_ms: float, plain_pods: int,
+                 extra=None) -> dict:
+    """The kernels-table row of an [explain] variant on `stream`: the
+    kernel timed over the whole stream in explain mode (CUDA events, 3
+    launches) and, beside it, the default variant; its counting passes by
+    the card's global timer, its bound with the counting pass on every
+    step (``fast_scan_work(explain=True)``)."""
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    clocks, out = [], [None]
+
+    def run_kernel():
+        out[0] = fs.fast_scan(fi, *stream, explain=True)
+        clocks.append(fs.SCAN_LAUNCHED[variant]["count_clock"])
+
+    ms = _events_ms(run_kernel, reps=3)
+    default_ms = _events_ms(lambda: fs.fast_scan(fi, *stream), reps=3)
+    passes = int(clocks[-1][1])
+    count_ms = sum(int(c[0]) for c in clocks) / len(clocks) / 1e6
+    work = fs.fast_scan_work(fi, *stream, out[0].chosen, explain=True)
+    t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
+    P = stream[0].shape[0]
+    launched = fs.SCAN_LAUNCHED[variant]
+    print(f"{variant}: kernel {ms:.3f} ms ({ms * 1e3 / P:.3f} us/pod; the default variant {default_ms:.3f} ms), "
+          f"of which {passes} counting passes "
+          f"{count_ms:.3f} ms ({count_ms * 1e3 / max(passes, 1):.3f} us each); bound {max(t_bytes, t_ops):.6f} ms "
+          f"({work['bytes']} B, {work['ops']} flop; counting {work['count']['ops']} op); ptxas "
+          f"{json.dumps(launched['ptxas'])}", flush=True)
+    return {
+        "name": variant, "plan": plan, "route": "cuda", "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu",
+        "replaces": "opensim_tpu/ops/kernels.py:1056", "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "pods": P, "plain_pods": plain_pods, "default_ms": default_ms,
+        "count_passes": passes, "count_ms": count_ms,
+        "us_per_pass": count_ms * 1e3 / max(passes, 1), "ptxas": launched["ptxas"], "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None, **(extra or {}),
+    }
+
+
+def _explained(device, make, variant: str, what: str, reasons_of=None):
+    """simulate(explain=True) on a fresh copy of the plan with the launch
+    counts set to 0 just before: exactly one launch of `variant`, every
+    pod of the stream explained, the reject totals those of the kernel's
+    rows; with `reasons_of` (a run without explain mode), its placements
+    and reasons. Returns the result and its launches."""
+    from opensim_tpu_torch.engine import explain, reasons, simulator as sim
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    cluster, apps = make()
+    torch.cuda.synchronize()
+    fs.LAUNCHES = 0
+    fs.VARIANT_LAUNCHES.clear()
+    res = sim.simulate(cluster, apps, device=device, explain=True)
+    launches, by_variant = fs.LAUNCHES, dict(fs.VARIANT_LAUNCHES)
+    if launches != 1 or by_variant != {variant: 1}:
+        raise AssertionError(f"{what}: simulate(explain=True) launched {by_variant}, want exactly one {variant}")
+    ctx = res.explain_ctx
+    if len(res.explanations) != len(ctx.prep.ordered) or res.engine != f"{variant} on {torch.device(device).type}":
+        raise AssertionError(f"{what}: {len(res.explanations)} explanations of {len(ctx.prep.ordered)} pods, "
+                             f"engine {res.engine}")
+    rejects = explain.audit_rejects(ctx.static_fail, ctx.sf_rows, ctx.fail_counts, ~ctx.prep.forced)
+    if res.filter_rejects != reasons.rejects_dict(rejects):
+        raise AssertionError(f"{what}: the reject totals are not the kernel rows' sums")
+    if reasons_of is not None:
+        if not np.array_equal(res.placements, reasons_of.placements) or \
+                [u.reason for u in res.unscheduled_pods] != [u.reason for u in reasons_of.unscheduled_pods]:
+            raise AssertionError(f"{what}: explain mode placed or reasoned differently from the run without it")
+    wall = sum(res.timings.values())
+    print(f"{what}: simulate(explain=True) launched {by_variant}; {len(res.explanations)} explanations, "
+          f"{sum(e.status != 'scheduled' for e in res.explanations)} not scheduled; filter rejects "
+          f"{json.dumps(res.filter_rejects)}")
+    print("timings: " + json.dumps({k: round(v, 6) for k, v in res.timings.items()}))
+    print(f"plan wall-clock {wall:.6f} s, {len(ctx.prep.ordered) / wall:.1f} pods/s (host clock)", flush=True)
+    return res, launches
+
+
+def make_apps(make):
+    """`make` (cluster, app) as (cluster, [AppResource])."""
+    from opensim_tpu_torch.engine import simulator as sim
+
+    def made():
+        cluster, app = make()
+        return cluster, [sim.AppResource("plan", app)]
+    return made
+
+
+def explain_plan(device, label: str, make, variant: str, rejects: bool = False) -> dict:
+    """A plan in explain mode: over the whole stream the [explain] kernel's
+    placements, GPU takes and final state equal the default variant's, and
+    its counts on the failing pods the default's; its counts equal the
+    plain version counting every step over the first EXPLAIN_PLAIN_PODS
+    pods (all ten outputs); with `rejects`, some binding step of that
+    prefix rejects nodes; simulate(explain=True) through exactly one
+    launch; the kernel timed. Returns its row of the kernels table."""
+    from opensim_tpu_torch.engine import fastpath, simulator as sim
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    _phase(f"{label}: {N_NODES} nodes, {N_PODS} pods in explain mode: kernel vs the default variant over the whole "
+           f"stream, vs plain over its first {EXPLAIN_PLAIN_PODS} pods")
+    cluster, app = make()
+    prep = sim.prepare(cluster, [sim.AppResource("plan", app)], device=device)
+    fi, _ = fastpath.build_inputs(prep)
+    if fs.variant_name(fi, explain=True) != variant:
+        raise AssertionError(f"the plan runs {fs.variant_name(fi, explain=True)}, not {variant}")
+    stream = fastpath.pod_stream(prep)
+    got = fs.fast_scan(fi, *stream, explain=True)
+    default = fs.fast_scan(fi, *stream)
+    err = _same(got, default, f"{label}: explain vs the default variant", fs.STATE_FIELDS)
+    failing = (default.chosen < 0) & (stream[1] != 0) & (stream[2] == 0)
+    if not torch.equal(got.fail_counts[failing], default.fail_counts[failing]) or \
+            not torch.equal(got.insufficient[failing], default.insufficient[failing]):
+        raise AssertionError(f"{label}: the failing pods' counts differ from the default variant's")
+    bound_counted = int((got.fail_counts.any(1) & (got.chosen >= 0)).sum())
+    head = tuple(t[:EXPLAIN_PLAIN_PODS].contiguous() for t in stream)
+    got_head = fs.fast_scan(fi, *head, explain=True)
+    plain = [None]
+
+    def run_plain():
+        plain[0] = fs.fast_scan_reference(fi, *head, count_all=True)
+
+    plain_ms = _events_ms(run_plain, reps=1)
+    err = max(err, _same(got_head, plain[0], f"{label}: explain, {EXPLAIN_PLAIN_PODS} pods vs plain"))
+    if rejects and not bool((got_head.fail_counts.any(1) & (got_head.chosen >= 0)).any()):
+        raise AssertionError(f"{label}: no binding step of the checked prefix rejected a node")
+    print(f"{N_PODS} pods: explain and default variants identical on the eight state outputs, the {int(failing.sum())} "
+          f"failing pods' counts too; {bound_counted} binding steps rejected nodes; {EXPLAIN_PLAIN_PODS} pods: kernel "
+          f"and plain version (count_all) identical on all ten outputs (plain {plain_ms:.3f} ms)", flush=True)
+    res, launches = _explained(device, make_apps(make), variant, label)
+    if not np.array_equal(res.placements, default.chosen.cpu().numpy()):
+        raise AssertionError(f"{label}: simulate(explain=True) placed differently from the default variant")
+    return _explain_row(fi, stream, variant, label.split(" ", 1)[1], launches, err, plain_ms, EXPLAIN_PLAIN_PODS,
+                        {"binding_steps_counted": bound_counted, "plan_wall_s": sum(res.timings.values())})
+
+
+def explain_oversubscribed(device) -> dict:
+    """The over-subscribed plan in explain mode: over the whole stream the
+    [explain] kernel's state outputs equal the default variant's, and its
+    counts on every failing step; over the first EXPLAIN_PLAIN_PODS pods
+    all ten outputs equal the plain version's counting every step;
+    simulate(explain=True) through exactly one launch, placing and
+    reasoning as the run without it; then
+    ``explain_pod`` on the card for a pod that found no node, whose torch
+    re-score finds no feasible node either. Returns its row."""
+    from opensim_tpu_torch.engine import explain, fastpath, simulator as sim
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    variant = "fast_scan[explain]"
+
+    def make():
+        return fx.oversubscribed_cluster(N_NODES), [
+            sim.AppResource(name, app) for name, app in fx.oversubscribed_apps(N_NODES, N_PODS)]
+
+    _phase(f"46 over-subscribed plan in explain mode: {N_PODS + OVER_HEAD} pods, kernel vs the default variant over "
+           f"the whole stream, simulate(explain=True), explain_pod of an unscheduled pod on the card")
+    prep = sim.prepare(*make(), device=device)
+    fi, _ = fastpath.build_inputs(prep)
+    stream = fastpath.pod_stream(prep)
+    got = fs.fast_scan(fi, *stream, explain=True)
+    default = fs.fast_scan(fi, *stream)
+    err = _same(got, default, "over-subscribed plan: explain vs the default variant", fs.STATE_FIELDS)
+    failing = (default.chosen < 0) & (stream[1] != 0) & (stream[2] == 0)
+    if not bool(failing.any()) or not torch.equal(got.fail_counts[failing], default.fail_counts[failing]) or \
+            not torch.equal(got.insufficient[failing], default.insufficient[failing]):
+        raise AssertionError("over-subscribed plan: the failing steps' counts differ from the default variant's")
+    head = tuple(t[:EXPLAIN_PLAIN_PODS].contiguous() for t in stream)
+    plain = [None]
+
+    def run_plain():
+        plain[0] = fs.fast_scan_reference(fi, *head, count_all=True)
+
+    plain_ms = _events_ms(run_plain, reps=1)
+    err = max(err, _same(fs.fast_scan(fi, *head, explain=True), plain[0],
+                         f"over-subscribed plan: explain, {EXPLAIN_PLAIN_PODS} pods vs plain"))
+    print(f"{stream[0].shape[0]} pods: explain and default variants identical on the eight state outputs and on the "
+          f"{int(failing.sum())} failing steps' counts; {EXPLAIN_PLAIN_PODS} pods: kernel and plain version "
+          f"(count_all) identical on all ten outputs (plain {plain_ms:.3f} ms)", flush=True)
+    plain_res = sim.simulate(*make(), device=device)
+    res, launches = _explained(device, make, variant, "over-subscribed plan", reasons_of=plain_res)
+    i = int(torch.nonzero(failing)[-1])
+    deep = explain.explain_pod(res.explain_ctx, i)
+    step, _parts = explain.rescore(res.explain_ctx, i)
+    if deep.status != "unschedulable" or step.chosen != -1 or bool(step.feasible.any()):
+        raise AssertionError(f"pod {i}: explain_pod says {deep.status}, the torch re-score chose {step.chosen}")
+    want = {id(u.pod): u.reason for u in res.unscheduled_pods}[id(res.explain_ctx.prep.ordered[i])]
+    if deep.message != want:
+        raise AssertionError(f"pod {i}: explain_pod says {deep.message!r}, the report {want!r}")
+    print(f"explain_pod({i}) on the card: {deep.message}; the torch re-score finds no feasible node", flush=True)
+    return _explain_row(fi, stream, variant, "over-subscribed plan", launches, err, plain_ms, EXPLAIN_PLAIN_PODS,
+                        {"unscheduled": len(res.unscheduled_pods), "plan_wall_s": sum(res.timings.values())})
+
+
+def explain_capacity(device) -> dict:
+    """simulate(explain=True) on the capacity plan, timed by phase; the
+    [explain] kernel against the plain version over EXPLAIN_PLAIN_PODS pods;
+    ``explain_pod`` on the card for a scheduled pod near the end of the
+    stream, whose torch re-score (``pod_step`` at full width on the card)
+    takes the node the kernel took. Returns its row."""
+    from opensim_tpu_torch.engine import explain, fastpath, simulator as sim
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    variant = "fast_scan[explain]"
+    make = make_apps(lambda: (fx.synthetic_cluster(N_NODES), fx.synthetic_apps(N_PODS)))
+    _phase(f"47 capacity plan in explain mode: simulate(explain=True), kernel vs plain over {EXPLAIN_PLAIN_PODS} pods, "
+           f"explain_pod of a scheduled pod near the end on the card")
+    res, launches = _explained(device, make, variant, "capacity plan")
+    ctx = res.explain_ctx
+    prep = ctx.prep
+    fi, _ = fastpath.build_inputs(prep)
+    stream = fastpath.pod_stream(prep)
+    head = tuple(t[:EXPLAIN_PLAIN_PODS].contiguous() for t in stream)
+    plain = [None]
+
+    def run_plain():
+        plain[0] = fs.fast_scan_reference(fi, *head, count_all=True)
+
+    plain_ms = _events_ms(run_plain, reps=1)
+    err = _same(fs.fast_scan(fi, *head, explain=True), plain[0], f"capacity plan: explain, {EXPLAIN_PLAIN_PODS} pods")
+    i = len(prep.ordered) - 7
+    t0 = time.perf_counter()
+    deep = explain.explain_pod(ctx, i)
+    deep_s = time.perf_counter() - t0
+    step, parts = explain.rescore(ctx, i)
+    c = int(res.placements[i])
+    if deep.status != "scheduled" or step.chosen != c or deep.node != prep.meta.node_names[c]:
+        raise AssertionError(f"pod {i}: the kernel chose node {c}, the torch re-score {step.chosen} ({deep.status})")
+    print(f"explain_pod({i}) on the card ({deep_s:.3f} s): {deep.message}; the torch pod_step's lowest-index argmax "
+          f"over the feasible nodes is the kernel's node {c}; breakdown {json.dumps(deep.scores)}", flush=True)
+    return _explain_row(fi, stream, variant, "capacity plan", launches, err, plain_ms, EXPLAIN_PLAIN_PODS,
+                        {"plan_wall_s": sum(res.timings.values()), "plan_timings": res.timings,
+                         "explain_pod_s": deep_s})
+
+
+def apply_explain(device, card: str) -> dict:
+    """``simon apply --explain`` on the apply plan (phase 28's directories)
+    through the Applier on the card: both one scans in explain mode, the
+    grids as before, the report's placement audit; then the example
+    configs with ``--explain``, card report vs CPU report. Returns the
+    masked one scan's row."""
+    from opensim_tpu_torch.engine import fastpath
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.parallel import scenarios
+    from opensim_tpu_torch.planner import apply
+
+    _phase("48 apply plan: simon apply --explain (Applier.run() on the card)")
+    root = _plan_dir() / "apply"
+    report = root / "report-explain.txt"
+    torch.cuda.synchronize()
+    fs.LAUNCHES = 0
+    fs.VARIANT_LAUNCHES.clear()
+    fs.SCAN_LAUNCHED.clear()
+    t0 = time.perf_counter()
+    applier = apply.Applier(apply.Options(simon_config=str(root / "config.yaml"), output_file=str(report),
+                                          max_new_nodes=APPLY_MAX_NEW, explain=True))
+    rc = applier.run()
+    wall = time.perf_counter() - t0
+    by_name = dict(fs.VARIANT_LAUNCHES)
+    text = report.read_text()
+    if rc != 0 or applier.n_new != APPLY_NEW or "\nPlacement audit:\n" not in text:
+        raise AssertionError(f"simon apply --explain returned {rc} with {applier.n_new} new nodes:\n{text[-2000:]}")
+    if by_name != {"fast_scan[explain]": 2, "fast_scan_sweep": 2}:
+        raise AssertionError(f"simon apply --explain launched {by_name}, want two fast_scan[explain] and two grids")
+    audit = text[text.index("\nPlacement audit:\n") + 1:].splitlines()
+    plain_text = (root / "report.txt").read_text()
+    if _without_counters(text[:text.index("\nPlacement audit:\n")]) != _without_counters(plain_text.rstrip("\n")):
+        raise AssertionError("simon apply --explain reported the placements differently from simon apply")
+    (coarse, coarse_s), (fine, fine_s) = applier.sweeps
+    steps = dict(applier.timings, **{"sweep: coarse": coarse_s, "sweep: fine": fine_s})
+    print(f"simon apply --explain: rc {rc}, {applier.n_new} new nodes, launches {by_name}; the report above its "
+          f"audit is phase 28's; audit: {audit[1].strip() if len(audit) > 1 else ''}; {len(audit) - 2} audit lines")
+    print("steps: " + json.dumps({k: round(v, 6) for k, v in steps.items()}))
+    print(f"simon apply --explain wall-clock {wall:.6f} s against the {APPLY_LIMIT_S:.0f} s limit: "
+          f"{'met' if wall < APPLY_LIMIT_S else 'missed'} ({card})", flush=True)
+    prep = applier.prep_full
+    (node_valid,), (pod_valid,) = scenarios.count_masks(prep, N_NODES, [APPLY_NEW])  # the masked re-simulation's
+    fi, _ = fastpath.build_inputs(prep, node_valid)
+    stream = fastpath.pod_stream(prep, pod_valid)
+    head = tuple(t[:APPLY_PLAIN_PODS].contiguous() for t in stream)
+    plain = [None]
+
+    def run_plain():
+        plain[0] = fs.fast_scan_reference(fi, *head, count_all=True)
+
+    plain_ms = _events_ms(run_plain, reps=1)
+    err = _same(fs.fast_scan(fi, *head, explain=True), plain[0], f"apply --explain: masked, {APPLY_PLAIN_PODS} pods")
+    row = _explain_row(fi, stream, "fast_scan[explain]", f"apply plan --explain, masked re-simulation at "
+                       f"k={APPLY_NEW}", by_name["fast_scan[explain]"], err, plain_ms, APPLY_PLAIN_PODS,
+                       {"launches_are": "the path's two one scans, first simulation and masked",
+                        "apply_wall_s": wall, "apply_steps_s": steps})
+    _phase("49 example configs: simon apply --explain on the card against the plain versions on the CPU")
+    example_reports(device, explain=True)
+    return row
+
+
+def _explain_name(variant: str) -> str:
+    """The [explain] variant of a default variant's name."""
+    return variant[:-1] + ",explain]" if variant.endswith("]") else variant + "[explain]"
+
+
+def example_reports(device, explain: bool = False) -> None:
     """The example configs through the port's Applier, on the CPU (the
-    plain versions) and on the card: the two reports equal."""
+    plain versions) and on the card: the two reports equal; with
+    `explain`, ``simon apply --explain``'s (the placement audit too), on
+    the [explain] variants."""
     from opensim_tpu_torch.ops import fast_scan as fs
     from opensim_tpu_torch.planner import apply
 
-    _phase("30 example configs: simon apply on the card against the plain versions on the CPU")
+    if not explain:
+        _phase("30 example configs: simon apply on the card against the plain versions on the CPU")
     root = _plan_dir() / "examples"
     root.mkdir(parents=True, exist_ok=True)
     for config, extended, variant in EXAMPLES:
         runs = []
         for where, dev in (("cpu", "cpu"), ("card", str(device))):
-            out = root / f"{config}.{where}.txt"
+            out = root / f"{config}.{where}{'.explain' if explain else ''}.txt"
             fs.VARIANT_LAUNCHES.clear()
             rc = apply.Applier(apply.Options(simon_config=_example(config), output_file=str(out),
-                                             extended_resources=extended, device=dev)).run()
+                                             extended_resources=extended, device=dev, explain=explain)).run()
             runs.append((rc, out.read_text(), dict(fs.VARIANT_LAUNCHES)))
         (rc_cpu, cpu, _), (rc_card, card_text, launches) = runs
         if rc_cpu != 0 or rc_card != 0 or _without_counters(cpu) != _without_counters(card_text):
             raise AssertionError(f"{config}: the card's report (rc {rc_card}) differs from the CPU's (rc {rc_cpu})")
-        if not launches or {name.replace("fast_scan_sweep", "fast_scan") for name in launches} != {variant}:
-            raise AssertionError(f"{config}: launched {launches}, want {variant} (built in phase 2)")
+        base = {n.replace("fast_scan_sweep", "fast_scan").replace(",explain]", "]").replace("[explain]", "")
+                for n in launches}
+        scans = {n for n in launches if not n.startswith("fast_scan_sweep")}
+        if base != {variant} or scans != {_explain_name(variant) if explain else variant}:
+            raise AssertionError(f"{config}: launched {launches}, want {variant} (built in phase 2)"
+                                 + (" in explain mode" if explain else ""))
+        if explain and "\nPlacement audit:\n" not in card_text:
+            raise AssertionError(f"{config}: the card's report has no placement audit")
         footer = [line for line in card_text.splitlines() if line.startswith("Scheduling engine: ")]
         print(f"{config}: card and CPU reports identical ({len(card_text.splitlines())} lines); launches {launches}; "
               f"{footer[0] if footer else ''}", flush=True)
@@ -1288,7 +1625,7 @@ def main() -> int:
         ("7-9 all-GPU-share plan", lambda: (fx.gpu_cluster(N_NODES), fx.gpu_apps(N_PODS)),
          "fast_scan[gpu,gc]", 10000),
         ("10-12 affinity-heavy plan", lambda: (fx.synthetic_cluster(N_NODES), fx.affinity_apps(N_PODS)),
-         "fast_scan[interpod]", None),
+         "fast_scan[interpod]", AFFINITY_PLAIN_PODS),
         ("13-15 score-table plan", lambda: (fx.score_cluster(N_NODES), fx.score_apps(N_PODS)),
          "fast_scan[na,tt,avoid]", 5000),
         ("16-18 host-port plan", lambda: (fx.score_cluster(N_NODES), fx.score_apps(N_PODS, host_port=True)),
@@ -1299,7 +1636,8 @@ def main() -> int:
 
     _phase("2 build")
     variants = sorted({v for *_rest, v, _p in plans} | {fs.variant_name(fi) for _n, _p, fi in _small_preps("cpu")}
-                      | {v for *_rest, v in EXAMPLES} | set(CFG_VARIANTS))
+                      | {v for *_rest, v in EXAMPLES} | set(CFG_VARIANTS) | set(EXPLAIN_VARIANTS)
+                      | {_explain_name(v) for *_rest, v in EXAMPLES})
     fs.build(variants)
     print(f"build: {fs.BUILD_LOG['seconds']:.3f} s for {len(variants)} kernel variants, one nvcc each, "
           f"all started together: {', '.join(variants)}")
@@ -1322,6 +1660,14 @@ def main() -> int:
     rows.append(full_plan(device, "37-39 sampled plan", lambda: (fx.synthetic_cluster(N_NODES), fx.synthetic_apps(N_PODS)),
                           "fast_scan[sample]", CFG_PLAIN_PODS, tie_seed=TIE_SEED))
     rows.extend(apply_config_plan(device, card))
+    rows.append(explain_plan(device, "42-43 affinity-heavy plan at maxSkew 1",
+                             lambda: (fx.synthetic_cluster(N_NODES), fx.affinity_apps(N_PODS, max_skew=1)),
+                             "fast_scan[interpod,explain]", rejects=True))
+    rows.append(explain_plan(device, "44-45 all-GPU-share plan", lambda: (fx.gpu_cluster(N_NODES), fx.gpu_apps(N_PODS)),
+                             "fast_scan[gpu,gc,explain]"))
+    rows.append(explain_oversubscribed(device))
+    rows.append(explain_capacity(device))
+    rows.append(apply_explain(device, card))
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -405,10 +405,11 @@ def pod_stream(prep, pod_valid: Optional[np.ndarray] = None):
 
 class Scheduled(NamedTuple):
     """Host copies of a scan's results, in the encoder's layouts, and the
-    failure attribution of the pods that found no node: the dynamic
-    filters' first-fail counts and the shortages of each pod (zero rows
-    for the others), and the static filters' of each pod (its template's
-    row under the config of its launch)."""
+    failure attribution of the pods that found no node (in explain mode
+    of every pod not forced): the dynamic filters' first-fail counts and
+    the shortages of each pod (zero rows for the others), and the static
+    filters' of each pod (its template's row under the config of its
+    launch)."""
 
     chosen: np.ndarray  # [P] i32 node index, -1 unplaced
     used: np.ndarray  # [N, R] f32
@@ -427,6 +428,7 @@ def schedule(
     segments: List[Tuple[Tuple[FastInputs, Dict[str, np.ndarray]], int, int]],
     pod_valid: Optional[np.ndarray] = None,
     tie_seed: Optional[int] = None,
+    explain: bool = False,
 ) -> Scheduled:
     """Run the bind scan over the prepared stream: the kernel on a card,
     the plain version on the CPU. `segments` (``[(built, lo, hi)]``,
@@ -436,16 +438,19 @@ def schedule(
     run for a single config, one per profile segment for the reference's
     segmented multi-profile path. `pod_valid` ([P] bool) masks pods out of
     the stream; `tie_seed` samples each step's node among the best scores
-    (the one scan's ``tie_seed``). Without GPU-share pods the scan leaves
-    the GPUs as they were (no takes, the initial free memory), without host
-    ports the ports, and without local-storage pods the volume groups and
-    devices."""
+    (the one scan's ``tie_seed``); `explain` runs each launch in explain
+    mode, which counts the rejections of every pod not forced, so
+    ``fail_counts``/``insufficient`` hold a row per such pod. Without
+    GPU-share pods the scan leaves the GPUs as they were (no takes, the
+    initial free memory), without host ports the ports, and without
+    local-storage pods the volume groups and devices."""
     tmpl, valid, forced = pod_stream(prep, pod_valid)
     outs, state = [], None
     for (fi, meta), lo, hi in segments:
         if hi <= lo:
             continue
-        out = fast_scan(fi, tmpl[lo:hi], valid[lo:hi], forced[lo:hi], init=state, tie_seed=tie_seed, draw_base=lo)
+        out = fast_scan(fi, tmpl[lo:hi], valid[lo:hi], forced[lo:hi], init=state, tie_seed=tie_seed, draw_base=lo,
+                        explain=explain)
         outs.append((out, meta, lo, hi))
         state = out.state
     host = lambda t: t.T.contiguous().cpu().numpy()

@@ -1,19 +1,25 @@
-"""The registered reason codes of an unschedulable pod, and their kube
-FitError rendering: the port's own copy of the JAX package's
-``opensim_tpu/engine/reasons.py`` (the part ``simulate()`` calls).
+"""The registered reason codes of an unschedulable pod, their kube FitError
+rendering, and the per-pod decision-audit record: the port's own copy of
+the JAX package's ``opensim_tpu/engine/reasons.py``.
 
 Every unschedulable-reason string of the port comes from this module: the
 kube-scheduler FitError phrasings of the 11 filter plugins, and the
 missing pinned node of a forced pod, and the eviction of a preemption
-victim. The filter members' values are the
+victim, and a pod observed pending. The filter members' values are the
 filter indices of ``ops/kernels.py`` (``F_NODE_PIN`` … ``F_EXTRA``).
+
+:class:`PlacementExplanation` is the record of explain mode
+(``engine/explain.py``): a scheduled pod's node (and, on demand, its
+per-plugin score breakdown and margin over the runner-up), an
+unschedulable pod's per-filter rejection counts in kube's ``0/N nodes
+are available: …`` phrasing.
 """
 
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
 
 
 class Reason(enum.Enum):
@@ -86,6 +92,15 @@ def preempted(namespace: str, name: str) -> str:
     return Reason.PREEMPTED.message.format(pod=f"{namespace}/{name}")
 
 
+# a pod observed pending in a cluster: no simulation ran, so there is no
+# FitError breakdown to render
+PENDING_OBSERVED = "pod is pending in the observed cluster (no node assigned)"
+
+
+def pending_observed() -> str:
+    return PENDING_OBSERVED
+
+
 @dataclass
 class ReasonCount:
     """One line of a FitError breakdown: ``count`` nodes rejected for
@@ -101,6 +116,12 @@ class ReasonCount:
         if self.code is Reason.FIT and self.resource:
             return f"Insufficient {self.resource}"
         return self.code.message
+
+    def to_dict(self) -> dict:
+        out = {"code": self.code.name.lower(), "count": int(self.count)}
+        if self.resource:
+            out["resource"] = self.resource
+        return out
 
 
 def render_unschedulable(n_nodes: int, counts: Sequence[ReasonCount]) -> str:
@@ -138,4 +159,77 @@ def counts_from_rows(
                     out.append(ReasonCount(code, rcnt, resource=str(rname)))
         else:
             out.append(ReasonCount(code, cnt))
+    return out
+
+
+@dataclass
+class PlacementExplanation:
+    """One pod's decision-audit record.
+
+    ``status``: ``scheduled`` (on ``node``; ``forced`` for a pre-bound pod
+    that bypassed the scheduler), ``unschedulable`` (``reasons`` holds the
+    per-filter rejection counts, ``message`` their FitError rendering) or
+    ``preempted`` (evicted by a preemption pass). The score fields (each
+    plugin's weighted score on the winner, the runner-up and the margin
+    over it) are filled by the deep explainer (``explain.explain_pod``)
+    only."""
+
+    pod: str
+    status: str
+    nodes_total: int = 0
+    node: Optional[str] = None
+    forced: bool = False
+    reasons: List[ReasonCount] = field(default_factory=list)
+    message: str = ""
+    scores: Optional[Dict[str, float]] = None
+    score: Optional[float] = None
+    runner_up: Optional[str] = None
+    margin: Optional[float] = None
+
+    def to_dict(self) -> dict:
+        out: dict = {"pod": self.pod, "status": self.status}
+        if self.node is not None:
+            out["node"] = self.node
+        if self.forced:
+            out["forced"] = True
+        if self.reasons:
+            out["reasons"] = [c.to_dict() for c in self.reasons]
+        if self.message:
+            out["message"] = self.message
+        for k in ("scores", "score", "runner_up", "margin"):
+            v = getattr(self, k)
+            if v is not None:
+                out[k] = v
+        return out
+
+
+def format_rejects(rejects: Dict[str, int]) -> str:
+    """One line of per-filter reject totals, shared by ``simon explain``
+    and ``simon apply --explain``."""
+    return ", ".join(f"{k}={v}" for k, v in sorted(rejects.items()))
+
+
+def count_lines(counts: Sequence[ReasonCount]) -> List[str]:
+    """The per-reason lines (`` <n> × <label>``) under a FitError headline."""
+    return [f"{c.count:5d} × {c.label}" for c in counts]
+
+
+def primary_code(counts: Sequence[ReasonCount]) -> Optional[Reason]:
+    """The dominant rejection reason of an unschedulable pod: the filter
+    rejecting the most nodes, ties to the lowest filter index."""
+    best: Optional[ReasonCount] = None
+    for c in counts:
+        if best is None or c.count > best.count or (c.count == best.count and c.code.value < best.code.value):
+            best = c
+    return best.code if best is not None else None
+
+
+def rejects_dict(vec) -> Dict[str, int]:
+    """An 11-slot per-filter reject vector (filter-index order) as
+    ``{reason_name: count}``, zero slots dropped."""
+    out: Dict[str, int] = {}
+    for code in sorted((r for r in Reason if r.is_filter), key=lambda r: r.value):
+        n = int(vec[code.value])
+        if n:
+            out[code.name.lower()] = n
     return out

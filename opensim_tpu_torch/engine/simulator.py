@@ -15,10 +15,15 @@ node axis (``prep=``/``node_valid=``) and the opt-in preemption pass
 config (``sched_config=``, ``engine/schedconfig.py``: the kernel takes its
 weights and switches; pods naming an unknown profile are reported, and
 differing profiles run as one launch per contiguous segment, each going
-on from the previous one's state) and the sampled tie-break
-(``tie_seed=``). It raises rather than falls back: ``NotImplementedError``
-for an input outside the kernel's envelope (``fastpath.why_not``) and for
-extra plugins or explain mode (ROADMAP Queue 1 item 5b).
+on from the previous one's state), the sampled tie-break (``tie_seed=``)
+and explain mode (``explain=``: the kernel counts every step's
+rejections, and the result carries one ``PlacementExplanation`` per pod,
+the per-filter reject totals and the context of the deep explainer,
+``engine/explain.py``). Out-of-tree plugins (``extra_plugins=``, torch
+callables) run on the torch reference scan (``engine/scheduler.py``), on
+the CPU only: no kernel runs a Python callable. It raises rather than
+falls back: ``NotImplementedError`` for an input outside the kernel's
+envelope (``fastpath.why_not``) and for extra plugins on the card.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ from ..models.objects import (
     ResourceTypes,
 )
 from ..ops import fast_scan, kernels
-from . import fastpath, preemption, queues, reasons, schedconfig
+from . import explain as explain_mod
+from . import fastpath, preemption, queues, reasons, scheduler, schedconfig
 
 
 @dataclass
@@ -84,8 +90,13 @@ class SimulateResult:
     the final free bytes per volume group ``vg_free [N, Vg]`` and per
     exclusive device ``dev_free [N, Dv]`` (0 once taken), and host-clock
     phase times in seconds (``timings``: prepare, inputs, kernel with the
-    copies back, decode with the preemption pass), and the engine that ran
-    (``engine``: the kernel variant and the device)."""
+    copies back, decode with the preemption pass and the explanations),
+    and the engine that ran (``engine``: the kernel variant and the
+    device, or the torch reference scan). In explain mode also: one
+    ``PlacementExplanation`` per pod of the stream but the dropped ones
+    (``explanations``), the nodes each filter rejected over every audited
+    step (``filter_rejects``, ``{reason_name: count}``) and what the deep
+    explainer needs (``explain_ctx``, ``explain.explain_pod``)."""
 
     unscheduled_pods: List[UnscheduledPod] = field(default_factory=list)
     node_status: List[NodeStatus] = field(default_factory=list)
@@ -97,6 +108,9 @@ class SimulateResult:
     dev_free: Optional[np.ndarray] = None
     timings: Dict[str, float] = field(default_factory=dict)
     engine: str = ""
+    explanations: Optional[List[reasons.PlacementExplanation]] = None
+    filter_rejects: Optional[Dict[str, int]] = None
+    explain_ctx: Optional[explain_mod.ExplainContext] = None
 
     def pods_on(self, node_name: str) -> List[Pod]:
         for ns in self.node_status:
@@ -276,15 +290,40 @@ def prepare(
     )
 
 
-def _later_slice(extra_plugins, explain) -> None:
-    """Raise for the arguments whose engine paths the port has not yet:
-    ROADMAP Queue 1 item 5b (explain mode and extra plugins, on the torch
-    reference scan)."""
-    for name, given in (("extra_plugins", bool(extra_plugins)), ("explain", bool(explain))):
-        if given:
-            raise NotImplementedError(
-                f"simulate({name}=...): explain mode and extra plugins are ROADMAP Queue 1 item 5b, not yet ported"
-            )
+def _validate_extra_plugins(extra_plugins) -> None:
+    """The reference's checks of `extra_plugins`
+    (``opensim_tpu/engine/simulator.py:124-137``)."""
+    if not isinstance(extra_plugins, tuple):
+        raise ValueError("extra_plugins must be a tuple (jit requires a hashable static argument)")
+    for entry in extra_plugins:
+        if not isinstance(entry, tuple) or not entry or entry[0] not in ("filter", "score"):
+            raise ValueError(f'extra plugin entries are ("filter", fn) or ("score", fn, weight); got {entry!r}')
+        if entry[0] == "filter" and len(entry) != 2:
+            raise ValueError(f'filter plugin entries are ("filter", fn); got {entry!r}')
+        if entry[0] == "score" and len(entry) != 3:
+            raise ValueError(f'score plugin entries are ("score", fn, weight); got {entry!r}')
+
+
+def _reference_scan(prep: Prepared, segments, nv_mask, pod_valid, tie_seed, extra_plugins,
+                    explain) -> fastpath.Scheduled:
+    """The torch reference scan over each profile segment in turn, each
+    going on from the previous one's state, as ``fastpath.schedule`` runs
+    the kernel: the route of out-of-tree plugins."""
+    ec = prep.ec if nv_mask is None else prep.ec._replace(node_valid=torch.from_numpy(nv_mask).to(prep.device))
+    st = prep.st0
+    runs = []
+    for cfg, lo, hi in segments:
+        out = scheduler.schedule_pods(ec, st, prep.tmpl_ids[lo:hi], pod_valid[lo:hi], prep.forced[lo:hi],
+                                      features=prep.features, config=cfg, extra_plugins=extra_plugins,
+                                      tie_seed=tie_seed, explain=explain, draw_base=lo)
+        runs.append((out, lo, hi))
+        st = out.final_state
+    cat = lambda name: np.concatenate([getattr(o, name).cpu().numpy() for o, _lo, _hi in runs])
+    host = lambda t: t.cpu().numpy()
+    static_fail = np.concatenate([o.static_fail.cpu().numpy()[prep.tmpl_ids[lo:hi]] for o, lo, hi in runs])
+    return fastpath.Scheduled(cat("chosen"), host(st.used), cat("gpu_take"), host(st.gpu_free), host(st.port_used),
+                              host(st.vg_free), host(st.dev_free), cat("fail_counts"), cat("insufficient"),
+                              static_fail)
 
 
 def parse_tie_break(spec: str) -> Optional[int]:
@@ -360,13 +399,35 @@ def simulate(
     differing profiles run one launch per contiguous segment, each on its
     config's inputs, going on from the previous launch's state (not with
     `enable_preemption`). `tie_seed` takes each step's node among its best
-    scores by a seeded draw (``parse_tie_break``)."""
-    _later_slice(extra_plugins, explain)
+    scores by a seeded draw (``parse_tie_break``).
+
+    `explain` (explain mode): the kernel counts every step's rejections
+    (its ``[explain]`` variants), and the result carries one
+    ``PlacementExplanation`` per pod of the stream (dropped pods left
+    out), the per-filter reject totals over the pods that entered a queue
+    and were not forced, and the deep explainer's context; as the
+    reference fills its ``EngineDecision`` (``opensim_tpu/engine/
+    simulator.py:1096-1122``). The placements are those of a run without
+    it.
+
+    `extra_plugins` (``("filter", fn)`` or ``("score", fn, weight)``
+    entries, torch callables over the port's tensors, as
+    ``kernels.pod_step`` takes them) run on the torch reference scan when
+    the caller names the CPU; on the card this raises
+    ``NotImplementedError`` before anything runs (ROADMAP Queue 1
+    item 5b)."""
+    _validate_extra_plugins(extra_plugins)
     if prep is not None and enable_preemption:
         raise ValueError("prep reuse does not support enable_preemption; pass prep=None")
+    where = prep.device if prep is not None else resolve_device(device)
+    if extra_plugins and where.type != "cpu":
+        raise NotImplementedError(
+            "simulate(extra_plugins=...): out-of-tree plugins are Python callables, which no kernel runs; they run "
+            "on the torch reference scan with device='cpu' (the card route is ROADMAP Queue 1 item 5b)"
+        )
     t0 = time.perf_counter()
     if prep is None:
-        prep = prepare(cluster, apps, use_greed=use_greed, node_pad=node_pad, device=device)
+        prep = prepare(cluster, apps, use_greed=use_greed, node_pad=node_pad, device=where)
     if prep is None:
         return SimulateResult(node_status=[NodeStatus(node=n, pods=[]) for n in cluster.nodes])
     active, nv_mask = _pod_valid(prep, cluster, node_valid)
@@ -377,28 +438,36 @@ def simulate(
     pod_valid[list(custom_reasons)] = False  # unknown-profile pods never enter a queue
     if len(segments) > 1 and enable_preemption:
         raise ValueError("segmented multi-profile simulation does not support enable_preemption")
-    for cfg in {cfg for cfg, _lo, _hi in segments}:
-        miss = fastpath.why_not(prep, cfg)
-        if miss is not None:
-            raise NotImplementedError(f"outside the port's bind-scan envelope: {miss}")
+    if not extra_plugins:
+        for cfg in {cfg for cfg, _lo, _hi in segments}:
+            miss = fastpath.why_not(prep, cfg)
+            if miss is not None:
+                raise NotImplementedError(f"outside the port's bind-scan envelope: {miss}")
     t1 = time.perf_counter()
-    seg_built = [(fastpath.build_inputs(prep, nv_mask, cfg, segment=len(segments) > 1), lo, hi)
-                 for cfg, lo, hi in segments]
-    if prep.device.type == "cuda":
-        torch.cuda.synchronize(prep.device)
-    t2 = time.perf_counter()
-    # host copies: the card is done
-    out = fastpath.schedule(prep, seg_built, pod_valid=pod_valid, tie_seed=tie_seed)
+    if extra_plugins:
+        t2 = t1
+        out = _reference_scan(prep, segments, nv_mask, pod_valid, tie_seed, extra_plugins, explain)
+        engine = "torch reference scan"
+    else:
+        seg_built = [(fastpath.build_inputs(prep, nv_mask, cfg, segment=len(segments) > 1), lo, hi)
+                     for cfg, lo, hi in segments]
+        if prep.device.type == "cuda":
+            torch.cuda.synchronize(prep.device)
+        t2 = time.perf_counter()
+        # host copies: the card is done
+        out = fastpath.schedule(prep, seg_built, pod_valid=pod_valid, tie_seed=tie_seed, explain=explain)
+        engine = " + ".join(fast_scan.variant_name(fi, tie_seed is not None, explain)
+                            for (fi, _meta), _lo, _hi in seg_built)
+    if len(segments) > 1:
+        engine += " (segmented multi-profile)"
+    engine += f" on {prep.device.type}"
     t3 = time.perf_counter()
     victims_of: Dict[int, int] = {}
     if enable_preemption and (out.chosen[~prep.forced] < 0).any():
         out, victims_of = _preempt(prep, out, cluster, apps, pod_valid)
     n_nodes = prep.meta.n_real_nodes if nv_mask is None else int(nv_mask.sum())
     statuses, unscheduled = _decode(prep, out, cluster.nodes, active, n_nodes, victims_of, custom_reasons)
-    t4 = time.perf_counter()
-    names = [fast_scan.variant_name(fi, tie_seed is not None) for (fi, _meta), _lo, _hi in seg_built]
-    engine = names[0] if len(names) == 1 else f"{' + '.join(names)} (segmented multi-profile)"
-    return SimulateResult(
+    result = SimulateResult(
         unscheduled_pods=unscheduled,
         node_status=statuses,
         placements=out.chosen,
@@ -407,9 +476,37 @@ def simulate(
         gpu_free=out.gpu_free,
         vg_free=out.vg_free,
         dev_free=out.dev_free,
-        timings={"prepare": t1 - t0, "inputs": t2 - t1, "kernel": t3 - t2, "decode": t4 - t3},
-        engine=f"{engine} on {prep.device.type}",
+        engine=engine,
     )
+    if explain:
+        _attach_explanations(result, prep, out, segments, nv_mask, n_nodes, active, pod_valid, custom_reasons,
+                             victims_of, extra_plugins)
+    result.timings = {"prepare": t1 - t0, "inputs": t2 - t1, "kernel": t3 - t2, "decode": time.perf_counter() - t3}
+    return result
+
+
+def _attach_explanations(result: SimulateResult, prep: Prepared, out: fastpath.Scheduled, segments, nv_mask,
+                         n_nodes: int, active: np.ndarray, pod_valid: np.ndarray, custom_reasons: Dict[int, str],
+                         victims_of: Dict[int, int], extra_plugins: tuple) -> None:
+    """Explain mode's records (the reference's decode tail,
+    ``opensim_tpu/engine/simulator.py:1096-1122``): a
+    ``PlacementExplanation`` per pod but the dropped ones (`active` false),
+    the reject totals over the pods that entered a queue and were not
+    forced (`pod_valid` and not forced), and the deep explainer's context.
+    The static rows are per pod, so ``sf_rows`` is the stream index."""
+    sf_rows = np.arange(len(prep.ordered), dtype=np.int32)
+    ctx = explain_mod.ExplainContext(
+        prep=prep, chosen=out.chosen, gpu_take=out.gpu_take, static_fail=out.static_fail, sf_rows=sf_rows,
+        fail_counts=out.fail_counts, insufficient=out.insufficient, n_nodes=n_nodes,
+        node_names=prep.meta.node_names, resource_names=prep.meta.resource_names,
+        config=segments[0][0] if len(segments) == 1 else None, segments=segments if len(segments) > 1 else None,
+        extra_plugins=extra_plugins, node_valid=nv_mask,
+    )
+    drops = set(np.nonzero(~active)[0].tolist())
+    result.explain_ctx = ctx
+    result.explanations = explain_mod.build_explanations(ctx, custom_reasons, victims_of, drops)
+    rejects = explain_mod.audit_rejects(out.static_fail, sf_rows, out.fail_counts, pod_valid & ~prep.forced)
+    result.filter_rejects = reasons.rejects_dict(rejects)
 
 
 def _preempt(prep: Prepared, out: fastpath.Scheduled, cluster: ResourceTypes, apps: List[AppResource],

@@ -352,18 +352,20 @@ def synthetic_apps(n_pods: int) -> ResourceTypes:
     return rt
 
 
-def affinity_apps(n_pods: int) -> ResourceTypes:
+def affinity_apps(n_pods: int, max_skew: int = 3) -> ResourceTypes:
     """The affinity-heavy plan's workload (bench.py:454-506, BASELINE.md
     config 4): 10 Deployments of ``n_pods // 10`` pods, each under a hard
     zone spread (maxSkew 3); the even ones prefer not to share a host with
     their own pods (preferred anti-affinity, weight 100), and each odd one
-    requires a zone that holds its even neighbour's pods."""
+    requires a zone that holds its even neighbour's pods. At maxSkew 3 no
+    node fails the spread filter on the synthetic fleet; `max_skew` 1
+    makes it reject nodes on most binding steps (explain mode's cell)."""
     rt = ResourceTypes()
     n_workloads = 10
     per = n_pods // n_workloads
     for w in range(n_workloads):
         opts = [with_topology_spread([{
-            "maxSkew": 3,
+            "maxSkew": max_skew,
             "topologyKey": "topology.kubernetes.io/zone",
             "whenUnsatisfiable": "DoNotSchedule",
             "labelSelector": {"matchLabels": {"app": f"aff-{w}"}},

@@ -21,10 +21,11 @@
 //
 // Variants: both kernels are templates over the eight feature flags, then
 // CFG (a scheduler config) and, for the one scan, SAMPLE (the sampled
-// tie-break). Each shared object holds one instantiation of each, chosen at
-// compile time by -DFS_VARIANT (bit i = flag i in the order of the
-// template; ops/fast_scan.py builds the variants a run needs, all at once),
-// so a variant carries no code of a feature it lacks and the build does not
+// tie-break) and EXPLAIN (explain mode's counts on every step). Each shared
+// object holds one instantiation of each, chosen at compile time by
+// -DFS_VARIANT (bit i = flag i in the order of the template;
+// ops/fast_scan.py builds the variants a run needs, all at once), so a
+// variant carries no code of a feature it lacks and the build does not
 // grow with the number of flags.
 //
 // One scan. What bounds it: not bytes and not operations. A step reads a few
@@ -70,6 +71,20 @@
 // (integer sums, exact in any order), and CTA 0 writes the pod's row. It is
 // a function of its own, not inlined, so a step that succeeds pays for it
 // neither in time nor in registers. The grid does not count.
+//
+// Explain mode (variant flag EXPLAIN, one scan only: simulate(explain=True)).
+// The reference leaves its Pallas kernel for its XLA scan, whose step
+// counts every pod that runs the pipeline (opensim_tpu/ops/kernels.py:
+// pod_step's count_all): valid or not, bound or not, only forced pods skip
+// it. The EXPLAIN variant runs the counting pass on every such step, right
+// after pass 1 (its spread minima are this step's) and before pass 2, pass
+// 3 and the bind, so the counts are taken against the state before the
+// step's bind and no value of pass 2 is live across the call; a step that
+// finds no node does not count again. An invalid pod that is not forced
+// runs pass 1 and the count, binds nothing, and pays a cluster barrier so
+// that the next counting pass writes its partials only after CTA 0 has
+// read these. The other variants compile as before: the flag is a template
+// parameter, and every branch on it is folded away.
 //
 // Scenario grid. Scenarios are independent chains over the same pod stream,
 // so block b runs B of them (scenarios b·B ... b·B + B - 1; the host picks
@@ -325,6 +340,8 @@ struct FastScanArgs {
     // a config's score weights (CFG), float32, in score_parts order
     float w_balanced, w_least, w_node_affinity, w_taint_toleration, w_interpod, w_spread, w_share, w_local,
         w_prefer_avoid;
+    // the variant's last flag (EXPLAIN), read by the host-side check only
+    int32_t has_explain;
 };
 
 // Value k of a state field in the given initial state's first row: the
@@ -625,7 +642,8 @@ struct ScanShared {
     int pi[2];
     // the counting pass: each warp's counts, and this CTA's, which CTA 0
     // reads (one buffer: CTA 0 has read it before any CTA can reach the
-    // next counting pass, as pass 2's cluster barrier lies between)
+    // next counting pass, as pass 2's cluster barrier lies between, or in
+    // explain mode the barrier after an invalid pod's count)
     int cwarp[N_FAIL + MAX_R][NWARP];
     int cpart[N_FAIL + MAX_R];
 };
@@ -1731,7 +1749,8 @@ __device__ __noinline__ void count_fails(const FastScanArgs& a, const Slice<RES>
 // through the cluster (cluster_reduce, cluster_argmax), so every CTA knows
 // the choice, and the bind touches the owner's slice and every CTA's copy
 // of the small state.
-template <bool GPU, bool GC, bool NA, bool TT, bool AV, bool PORTS, bool IP, bool LOC, bool CFG, bool SAMPLE, int RES>
+template <bool GPU, bool GC, bool NA, bool TT, bool AV, bool PORTS, bool IP, bool LOC, bool CFG, bool SAMPLE,
+          bool EXPLAIN, int RES>
 __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant__ FastScanArgs a) {
     using SH = std::conditional_t<SAMPLE, ScanSharedDrawn, ScanShared>;
     static_assert(GPU || !GC, "the gpu-count allocatable follows the GPUs");
@@ -1753,9 +1772,9 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant_
 
     for (int i = 0; i < a.P; ++i) {
         const int u = a.tmpl[i];
-        if (a.valid[i] != 1) {
+        if (a.valid[i] != 1 && (!EXPLAIN || a.forced[i] == 1)) {
             if (lead) a.chosen[i] = -1;
-            continue;  // invalid pods touch no state
+            continue;  // invalid pods touch no state (explain mode counts those not forced)
         }
         int choice;
         if (a.forced[i] == 1) {
@@ -1787,6 +1806,19 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant_
                 }
                 cluster_reduce(min_cnt, [](int) { return false; }, sh, par, cluster);
             }
+            if constexpr (EXPLAIN) {
+                // explain mode: count this step against the state before
+                // its bind; an invalid pod binds nothing
+                MinCnt mc;
+#pragma unroll
+                for (int c = 0; c < MAX_CS; ++c) mc.v[c] = min_cnt[c];
+                count_fails<GPU, GC, PORTS, IP, LOC, CFG, RES>(a, S, i, u, mc, boot, sh);
+                if (a.valid[i] != 1) {
+                    if (lead) a.chosen[i] = -1;
+                    cluster.sync();  // CTA 0 has read the partials before the next count writes them
+                    continue;
+                }
+            }
 
             // --- pass 2: the ranges, any-feasible and the maxima; the
             // first SCAN_NPT owned nodes keep their values for pass 3
@@ -1815,11 +1847,14 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant_
             cluster_reduce(rv[0], [](int k) { return RD::is_max(k); }, sh, par, cluster);
             const float* red = rv[0];
             if (!(red[4] > 0.0f)) {
-                // no node is feasible, in every CTA alike: count why
-                MinCnt mc;
+                // no node is feasible, in every CTA alike: count why (explain
+                // mode has counted already)
+                if constexpr (!EXPLAIN) {
+                    MinCnt mc;
 #pragma unroll
-                for (int c = 0; c < MAX_CS; ++c) mc.v[c] = min_cnt[c];
-                count_fails<GPU, GC, PORTS, IP, LOC, CFG, RES>(a, S, i, u, mc, boot, sh);
+                    for (int c = 0; c < MAX_CS; ++c) mc.v[c] = min_cnt[c];
+                    count_fails<GPU, GC, PORTS, IP, LOC, CFG, RES>(a, S, i, u, mc, boot, sh);
+                }
                 if (lead) a.chosen[i] = -1;
                 continue;
             }
@@ -2111,7 +2146,8 @@ int check_args(const FastScanArgs& a) {
         return (int)cudaErrorInvalidValue;
     const int v = (a.has_gpu ? 1 : 0) | (a.gc_row >= 0 ? 2 : 0) | (a.has_na ? 4 : 0) | (a.has_tt ? 8 : 0) |
                   (a.has_avoid ? 16 : 0) | (a.has_ports ? 32 : 0) | (a.has_interpod ? 64 : 0) |
-                  (a.has_local ? 128 : 0) | (a.has_cfg ? 256 : 0) | (a.has_sample ? 512 : 0);
+                  (a.has_local ? 128 : 0) | (a.has_cfg ? 256 : 0) | (a.has_sample ? 512 : 0) |
+                  (a.has_explain ? 1024 : 0);
     if (v != FS_VARIANT) return (int)cudaErrorInvalidValue;  // this library holds one variant
     if (a.init != nullptr && !a.has_cfg) return (int)cudaErrorInvalidValue;  // only a CFG variant takes a state
     return 0;
@@ -2124,6 +2160,7 @@ int check_args(const FastScanArgs& a) {
         (FS_VARIANT & 16) != 0, (FS_VARIANT & 32) != 0, (FS_VARIANT & 64) != 0, (FS_VARIANT & 128) != 0
 #define FS_CFG ((FS_VARIANT & 256) != 0)
 #define FS_SAMPLE ((FS_VARIANT & 512) != 0)
+#define FS_EXPLAIN ((FS_VARIANT & 1024) != 0)
 
 // One scan as a cluster of CL CTAs of NT threads, `smem` bytes of dynamic
 // shared memory (the slices, with a.resident; else 0 and the slices in
@@ -2131,7 +2168,7 @@ int check_args(const FastScanArgs& a) {
 // SCAN_UNSCHEDULABLE when no such cluster fits on the card.
 template <int RES>
 int launch_scan(const FastScanArgs& a, int smem, cudaStream_t stream) {
-    auto kernel = fast_scan_kernel<FS_FLAGS, FS_CFG, FS_SAMPLE, RES>;
+    auto kernel = fast_scan_kernel<FS_FLAGS, FS_CFG, FS_SAMPLE, FS_EXPLAIN, RES>;
     cudaError_t err;
     if (smem > 48 * 1024 &&
         (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess)
@@ -2171,9 +2208,10 @@ extern "C" int fast_scan_launch(const FastScanArgs* args, int cluster, int threa
 // The scenario grid, shaped by ops/fast_scan.sweep_grid: `blocks` blocks of
 // `threads` threads (SW_NT), a.B scenarios each, `smem` bytes of dynamic
 // shared memory (the masks of a.B scenarios, or 0 when they lie in global
-// memory). A SAMPLE variant holds no grid: no sweep samples.
+// memory). A SAMPLE or EXPLAIN variant holds no grid: no sweep samples or
+// counts.
 extern "C" int fast_scan_sweep_launch(const FastScanArgs* args, int blocks, int threads, int smem, void* stream) {
-#if FS_VARIANT & 512
+#if FS_VARIANT & (512 | 1024)
     (void)args, (void)blocks, (void)threads, (void)smem, (void)stream;
     return (int)cudaErrorInvalidValue;
 #else

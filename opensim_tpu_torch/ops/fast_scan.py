@@ -27,7 +27,10 @@ rows), a given initial state (``init``, in the cfg variants, so
 consecutive launches carry the state, as the reference's segmented
 profiles carry its scan state), and,
 in the one scan, the sampled tie-break (``tie_seed``: the highest
-Philox-4x32-10 draw among each step's best scores).
+Philox-4x32-10 draw among each step's best scores) and explain mode
+(``explain``: the failure attribution counted on every step that runs the
+pipeline, ``kernels.pod_step``'s ``count_all``, against the state before
+the step's bind).
 
 - :func:`fast_scan` is the wrapper: on a CUDA tensor it launches
   ``csrc/fast_scan.cu`` (one shared object per kernel variant, built with
@@ -222,17 +225,21 @@ class FastOutputs(NamedTuple):
 
     ``fail_counts`` and ``insufficient`` hold a row per pod: zeros, except
     on a valid pod that is not forced and finds no node, where they hold
-    its failure attribution (kernels.pod_step's count_fails). Over the nodes
-    that pass the static row with node validity folded in, each node counts
-    under the first of the dynamic filters it fails, in that order: ports,
-    fit, spread (hard constraints), inter-pod, gpu, local, extra (none
-    registered: 0); the static filters' counts are the template's
+    its failure attribution (kernels.pod_step's count_fails); in explain
+    mode, every pod that is not forced holds its attribution against the
+    state before its step, valid or not, bound or not (the reference's
+    ``count_all``, which runs the pipeline for every such pod). Over the
+    nodes that pass the static row with node validity folded in, each node
+    counts under the first of the dynamic filters it fails, in that order:
+    ports, fit, spread (hard constraints), inter-pod, gpu, local, extra
+    (none registered: 0); the static filters' counts are the template's
     ``static_fail`` row. ``insufficient[r]`` counts the nodes that reach the
     fit filter and lack resource r (``req > 0`` and ``used + req > alloc``,
     with the dynamic gpu-count allocatable). A forced pod's row stays zero,
-    as the reference's skip_pipeline returns; an invalid pod's row is zero
-    and never read (decode drops invalid pods). The scenario grid does not
-    count: its two count fields have width 0 (:func:`fast_scan_sweep`).
+    as the reference's skip_pipeline returns; outside explain mode an
+    invalid pod's row is zero and never read (decode drops invalid pods).
+    The scenario grid does not count: its two count fields have width 0
+    (:func:`fast_scan_sweep`).
 
     ``state`` is the whole final scan state as one float32 row in the
     layout of :func:`state_layout` (from the kernel, its arena row, which
@@ -258,8 +265,9 @@ STATE_FIELDS = FastOutputs._fields[:7] + ("state",)
 
 class Variant(NamedTuple):
     """Kernel variant: which flag branches of the Pallas body it carries,
-    then whether it takes a scheduler config and (one scan only) samples
-    its ties. Field i is bit i of the variant number the CUDA build takes."""
+    then whether it takes a scheduler config and (one scan only) whether
+    it samples its ties and counts every step (explain mode). Field i is
+    bit i of the variant number the CUDA build takes."""
 
     gpu: bool
     gc: bool
@@ -271,10 +279,12 @@ class Variant(NamedTuple):
     local: bool
     cfg: bool
     sample: bool
+    explain: bool
 
 
-def variant(fi: FastInputs, sample: bool = False) -> Variant:
-    """The variant that runs on these inputs; `sample`: with a tie seed."""
+def variant(fi: FastInputs, sample: bool = False, explain: bool = False) -> Variant:
+    """The variant that runs on these inputs; `sample`: with a tie seed;
+    `explain`: in explain mode."""
     return Variant(
         gpu=fi.gpu_mem.numel() > 0,
         gc=fi.gc_row >= 0,
@@ -287,6 +297,7 @@ def variant(fi: FastInputs, sample: bool = False) -> Variant:
         local=fi.lvm_req.numel() > 0,
         cfg=fi.cfg is not None,
         sample=sample,
+        explain=explain,
     )
 
 
@@ -295,10 +306,11 @@ def _name(v: Variant) -> str:
     return f"fast_scan[{','.join(on)}]" if on else "fast_scan"
 
 
-def variant_name(fi: FastInputs, sample: bool = False) -> str:
+def variant_name(fi: FastInputs, sample: bool = False, explain: bool = False) -> str:
     """``fast_scan`` for the base variant, else ``fast_scan[gpu,gc,...]``
-    (``cfg`` with a config, ``sample`` with a tie seed)."""
-    return _name(variant(fi, sample))
+    (``cfg`` with a config, ``sample`` with a tie seed, ``explain`` in
+    explain mode)."""
+    return _name(variant(fi, sample, explain))
 
 
 def sweep_name(fi: FastInputs) -> str:
@@ -509,7 +521,8 @@ class _Args(ctypes.Structure):
         "o_alloc", "o_zone", "o_nv", "o_gpu0", "o_vg_cap", "o_dev_cap", "o_dev_media", "o_rep",
         "o_zone_cnt", "o_anti_zone", "o_prefw_zone", "o_sel_total",
         "has_cfg", "has_sample", "filters", "fit_ignored", "draw_base",
-    )] + [("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32)] + [(n, ctypes.c_float) for n in _CFG_WEIGHTS]
+    )] + [("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32)] + [(n, ctypes.c_float) for n in _CFG_WEIGHTS] + [
+        ("has_explain", ctypes.c_int32)]
 
 
 #: Loaded shared objects by variant name; one per variant, each holding
@@ -699,7 +712,7 @@ def pack_bits(rows: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: bool, init=None,
-            tie_seed: Optional[int] = None, draw_base: int = 0) -> FastOutputs:
+            tie_seed: Optional[int] = None, draw_base: int = 0, explain: bool = False) -> FastOutputs:
     """One launch over S scenarios (``valid`` and ``forced`` [S, P],
     ``node_valid`` [S, N], ``spr_weight`` [S, U, Cs], ``init`` None or
     [S, W]): the one-scan kernel (S = 1), counted under
@@ -707,20 +720,21 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
     :func:`sweep_grid`'s grid, counted under :func:`sweep_name`. Every
     output and state buffer has a leading S axis; scenario s writes its own
     slice. `tie_seed` (one scan only) samples the ties, with the draws'
-    pod counter starting at `draw_base`."""
+    pod counter starting at `draw_base`; `explain` (one scan only) counts
+    every step."""
     global LAUNCHES
     _check(fi, tmpl, valid, forced, node_valid, spr_weight, init)
     sample = tie_seed is not None
-    if sweep and sample:
-        raise ValueError("fast_scan_sweep: the scenario grid does not sample ties")
-    name = variant_name(fi, sample)
+    if sweep and (sample or explain):
+        raise ValueError("fast_scan_sweep: the scenario grid neither samples ties nor counts in explain mode")
+    name = variant_name(fi, sample, explain)
     row = sweep_name(fi) if sweep else name
     build([name])
     lib = _LIBS[name]
     d = _dims(fi)
     N, R, A, K, Gd = d.N, d.R, d.A, d.K, d.Gd
     S, P, Z = valid.shape[0], tmpl.shape[0], fi.n_zones
-    v = variant(fi, sample)
+    v = variant(fi, sample, explain)
     dev = fi.alloc_T.device
     f32 = torch.float32
     if not sweep and S != 1:
@@ -733,8 +747,9 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
     part = unpack_state(fi, arena)
     chosen = torch.empty((S, P), dtype=torch.int32, device=dev)
     gpu_take = torch.zeros((S, P, Gd), dtype=f32, device=dev)  # the kernel writes bound pods' rows only
-    # the one scan writes the count rows of the pods that find no node; the
-    # grid does not count, so its count fields are empty
+    # the one scan writes the count rows of the pods that find no node (in
+    # explain mode of every pod not forced); the grid does not count, so its
+    # count fields are empty
     fail_counts = torch.zeros((S, P, 0 if sweep else N_FAIL), dtype=torch.int32, device=dev)
     insufficient = torch.zeros((S, P, 0 if sweep else R), dtype=torch.int32, device=dev)
     count_clock = None if sweep else torch.zeros((2,), dtype=torch.int64, device=dev)
@@ -778,7 +793,7 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
         args.Nc, args.resident, args.Wrep = shape.nc, int(shape.resident), shape.small
         for field, o in shape.offsets.items():
             setattr(args, f"o_{field}", o)
-    args.has_cfg, args.has_sample = int(v.cfg), int(sample)
+    args.has_cfg, args.has_sample, args.has_explain = int(v.cfg), int(sample), int(explain)
     if cfg is not None:
         args.filters, args.fit_ignored = cfg.filters, cfg.fit_ignored
         for field, w in zip(_CFG_WEIGHTS, cfg.weights):
@@ -807,7 +822,7 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
 
 
 def fast_scan(fi: FastInputs, tmpl, valid, forced, init=None, tie_seed: Optional[int] = None,
-              draw_base: int = 0) -> FastOutputs:
+              draw_base: int = 0, explain: bool = False) -> FastOutputs:
     """Run the bind scan over the pod stream. ``tmpl``/``valid``/``forced``
     are int32 ``[P]`` tensors on the inputs' device. Returns the chosen
     nodes (-1 for a pod that did not bind), the final usage, each pod's GPU
@@ -822,7 +837,8 @@ def fast_scan(fi: FastInputs, tmpl, valid, forced, init=None, tie_seed: Optional
     other. ``tie_seed`` (None: the lowest index) takes each step's node
     among the best scores by the highest Philox draw keyed by the seed, the
     counter being (``draw_base`` + the pod's index in this launch, the node
-    index).
+    index). ``explain`` (explain mode) counts the failure attribution of
+    every pod that is not forced, against the state before its step.
 
     The initial state is an argument of the cfg variants only (the other
     variants' code stays as it was; a segmented run takes the cfg variant
@@ -837,10 +853,12 @@ def fast_scan(fi: FastInputs, tmpl, valid, forced, init=None, tie_seed: Optional
     dev = fi.alloc_T.device
     if dev.type == "cuda":
         out = _launch(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None], sweep=False,
-                      init=None if init is None else init[None], tie_seed=tie_seed, draw_base=draw_base)
+                      init=None if init is None else init[None], tie_seed=tie_seed, draw_base=draw_base,
+                      explain=explain)
         return FastOutputs(*(t[0] for t in out))
     if dev.type == "cpu":
-        return fast_scan_reference(fi, tmpl, valid, forced, init=init, tie_seed=tie_seed, draw_base=draw_base)
+        return fast_scan_reference(fi, tmpl, valid, forced, init=init, tie_seed=tie_seed, draw_base=draw_base,
+                                   count_all=explain)
     raise ValueError(f"fast_scan: no kernel for device {dev}")
 
 
@@ -919,7 +937,7 @@ def philox_draws(seed: int, pods: torch.Tensor, n_nodes: int) -> torch.Tensor:
 
 
 def fast_scan_reference(fi: FastInputs, tmpl, valid, forced, init=None, tie_seed: Optional[int] = None,
-                        draw_base: int = 0, stats: Optional[dict] = None) -> FastOutputs:
+                        draw_base: int = 0, stats: Optional[dict] = None, count_all: bool = False) -> FastOutputs:
     """Plain PyTorch bind scan on any device: the Pallas body's formulas op
     for op (pallas_scan.py:395-854), one torch op at a time, so each float
     op rounds once as on the card. With a config (``fi.cfg``), the step of
@@ -952,8 +970,9 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced, init=None, tie_seed
     step reckons its failure attribution from them (the nodes that reach
     each filter, in the reference's order, and fail it; the nodes that
     reach fit and lack each resource), kept only where the pod is valid,
-    not forced and finds no node: a select, so no step waits to learn
-    whether it failed."""
+    not forced and finds no node (with `count_all`, explain mode: where
+    the pod is not forced): a select, so no step waits to learn whether it
+    failed."""
     d = _dims(fi)
     N, R, U, A, K, Cs, Gd = d.N, d.R, d.U, d.A, d.K, d.Cs, d.Gd
     Vg, Dv, Mv = d.Vg, d.Dv, d.Mv
@@ -1328,13 +1347,14 @@ def fast_scan_reference(fi: FastInputs, tmpl, valid, forced, init=None, tie_seed
         # (static row with validity, ports, fit, spread, inter-pod, gpu,
         # local; extra none), and fail it; the nodes that reach fit and lack
         # each resource. Kept where the pod is valid, not forced and finds
-        # no node.
+        # no node, or with count_all where it is not forced.
         passes = torch.stack(torch.broadcast_tensors(ports_ok, fit, spread_ok, ip_ok, gpu_ok_row, local_ok)) > 0
         base = (fi.static_pass[u] * valid_row > 0)[None]
         reach = torch.cat([base, passes[:-1]]).to(torch.int32).cumprod(0) > 0  # [6, N]
         counts = torch.cat([(reach & ~passes).sum(1, dtype=torch.int32), no_count[:N_FAIL - 6],
                             (torch.stack(short) & reach[1]).sum(1, dtype=torch.int32)])
-        counts = torch.where(valid[i] & ~forced[i] & ~any_feasible, counts, no_count)
+        keep = ~forced[i] if count_all else valid[i] & ~forced[i] & ~any_feasible
+        counts = torch.where(keep, counts, no_count)
         fail_counts[i], insufficient[i] = counts[:N_FAIL], counts[N_FAIL:]
 
         # --- bind (adds exact zeros when nothing binds); the chosen node is
@@ -1499,7 +1519,8 @@ _NODE_AXIS = {"alloc_T", "used0_T", "static_pass", "aff_mask", "share_raw", "zon
 _PER_SCENARIO = {"node_valid", "spr_weight"}
 
 
-def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None, ties=None) -> dict:
+def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None, ties=None,
+                   explain: bool = False) -> dict:
     """Bytes the scan must move (each input read once, each output written
     once) and float ops that this stream's pods need, over the valid node
     lanes only (padding lanes need no work): a scheduled pod does the
@@ -1508,9 +1529,10 @@ def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None,
     flag branches, a pod that bound (``chosen`` >= 0, the scan's result)
     its bind, and one scan's pod that found no node the counting pass over
     the valid nodes and its count row (``N_FAIL + R`` int32 written; its
-    inputs are the step's state, already on chip). ``count`` gives the
-    counting pass's own share: its bytes, ops and steps (0 for a grid,
-    which does not count).
+    inputs are the step's state, already on chip); with `explain` (explain
+    mode) every pod that is not forced runs the counting pass and writes
+    its row. ``count`` gives the counting pass's own share: its bytes, ops
+    and steps (0 for a grid, which does not count).
 
     For a scenario grid, ``valid``/``forced``/``chosen`` are ``[S, P]`` and
     ``node_valid`` ``[S, N]``: each scenario is counted over its own valid
@@ -1580,7 +1602,7 @@ def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None,
     ops = sum(int(per_node[sched[s]].sum()) * n_valid_s[s] + int(per_bind[bound[s]].sum()) for s in range(S))
     counting = {"bytes": 0, "ops": 0, "steps": 0}
     if S == 1:
-        failed = sched[0] & (chosen[0].cpu() < 0)
+        failed = ~fd[0] if explain else sched[0] & (chosen[0].cpu() < 0)
         hard = ((fi.spr_active.cpu() == 1) & (fi.spr_hard.cpu() == 1)).sum(1)[tm]
         per_count = _COUNT + (_COUNT_PER_R + 3) * R + 8 * hard
         if v.gpu:

@@ -20,9 +20,11 @@ A scheduler config (``-d``, ``engine/schedconfig.py``) goes to the first
 simulation, both sweeps and the re-simulation, all on the kernel; the
 sampled tie-break (``--tie-break sample[:seed]``) to the simulations,
 while the sweeps keep the lowest index, as the reference's planner does.
-Left for later slices, each raising ``NotImplementedError``: a
-``kubeConfig`` cluster (ROADMAP Queue 1 item 6) and the placement audit
-(``--explain``, item 5b).
+``--explain`` runs the first simulation and the re-simulation in explain
+mode and appends the placement audit to the report (the interactive
+loop's simulations run without it, as the reference's do). Left for a
+later slice, raising ``NotImplementedError``: a ``kubeConfig`` cluster
+(ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import numpy as np
 
 from ..device import resolve_device
 from ..encoding.vocab import RES_CPU, RES_MEMORY
-from ..engine import prepcache
+from ..engine import prepcache, reasons
 from ..engine.schedconfig import load_scheduler_config
 from ..engine.simulator import (
     AppResource,
@@ -101,7 +103,7 @@ class Options:
     report_pods: bool = False  # include the per-node Pod Info table
     max_new_nodes: int = 128  # sweep upper bound (auto mode)
     tie_break: str = "lowest"  # lowest | sample[:seed] (simulator.parse_tie_break)
-    explain: bool = False  # the placement audit: ROADMAP Queue 1 item 5b
+    explain: bool = False  # append the placement audit (explain mode)
     device: Optional[str] = None  # None: the card (raises without one); "cpu": the plain versions
 
 
@@ -178,9 +180,6 @@ class Applier:
 
     def __init__(self, opts: Options) -> None:
         self.opts = opts
-        if opts.explain:
-            raise NotImplementedError("simon apply --explain: the placement audit is ROADMAP Queue 1 item 5b, "
-                                      "not yet ported")
         # the sampled tie-break applies to the simulations; the capacity
         # sweeps keep the lowest index (one packing per candidate count)
         self.tie_seed = parse_tie_break(opts.tie_break)
@@ -341,10 +340,12 @@ class Applier:
             snap0 = snapshot_bind_state(prep0) if prep0 is not None else None
         with Spinner("schedule pods"):
             if prep0 is not None:
-                result = simulate(cluster, apps, prep=prep0, sched_config=self.sched_config, tie_seed=self.tie_seed)
+                result = simulate(cluster, apps, prep=prep0, sched_config=self.sched_config, tie_seed=self.tie_seed,
+                                  explain=self.opts.explain)
             else:
                 result = simulate(cluster, apps, use_greed=self.opts.use_greed, sched_config=self.sched_config,
-                                  enable_preemption=self.opts.enable_preemption, tie_seed=self.tie_seed, device=dev)
+                                  enable_preemption=self.opts.enable_preemption, tie_seed=self.tie_seed, device=dev,
+                                  explain=self.opts.explain)
         t = self._step("simulate", t)
         self.first_result = result
         n_new = 0
@@ -390,12 +391,12 @@ class Applier:
                     # from a fresh sort of the sub-cluster: re-expand
                     result = simulate(sub, apps, use_greed=self.opts.use_greed, sched_config=self.sched_config,
                                       enable_preemption=self.opts.enable_preemption, tie_seed=self.tie_seed,
-                                      device=dev)
+                                      device=dev, explain=self.opts.explain)
                 else:
                     mask = np.zeros(np.asarray(prep_full.ec_np.node_valid).shape[0], dtype=bool)
                     mask[: len(sub.nodes)] = True
                     result = simulate(sub, apps, prep=prep_full, node_valid=mask, sched_config=self.sched_config,
-                                      tie_seed=self.tie_seed)
+                                      tie_seed=self.tie_seed, explain=self.opts.explain)
             t = self._step("re-simulate", t)
         self.n_new = n_new
         print("Simulation success!", file=self.out)
@@ -410,8 +411,29 @@ class Applier:
         )
         if result.engine:
             print(f"Scheduling engine: {result.engine}", file=self.out)
+        if self.opts.explain:
+            self._print_placement_audit(result)
         self._step("report", t)
         return 0
+
+    def _print_placement_audit(self, result: SimulateResult) -> None:
+        """``--explain``: the per-filter reject totals over every audited
+        step, and the kube-style breakdown of each pod that did not land
+        (``opensim_tpu/planner/apply.py:414-440``)."""
+        if result.explanations is None:
+            return  # a run without pods audits nothing
+        print("\nPlacement audit:", file=self.out)
+        if result.filter_rejects:
+            print("  filter rejects (nodes rejected per filter, all steps): "
+                  + reasons.format_rejects(result.filter_rejects), file=self.out)
+        bad = [e for e in result.explanations if e.status != "scheduled"]
+        if not bad:
+            print("  every pod scheduled; no rejection breakdowns to report", file=self.out)
+            return
+        for e in bad:
+            print(f"  {e.pod}: {e.message}", file=self.out)
+            for line in reasons.count_lines(e.reasons):
+                print(f"    {line}", file=self.out)
 
     # survey.Select option labels (apply.go SurveyShowResults/AddNode/Exit)
     SURVEY_SHOW = "Show unschedulable pods"

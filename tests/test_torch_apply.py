@@ -224,9 +224,10 @@ def test_chart_cases_through_the_port(case, tmp_path, monkeypatch):
                                   "trace", "kubeconfig", "no_card"])
 def test_cli_apply_exit_codes(tmp_path, capsys, monkeypatch, case):
     """0 on a plan that fits (after adding nodes), also under a scheduler
-    config (`-d`) or the sampled tie-break; 1 on one that cannot, on a bad
-    path, on the modes of later slices (naming their ROADMAP item) and
-    without a card unless `--device cpu` is given."""
+    config (`-d`), the sampled tie-break or with the placement audit
+    (`--explain`); 1 on one that cannot, on a bad path, on the modes of
+    later slices (naming their ROADMAP item) and without a card unless
+    `--device cpu` is given."""
     args = ["apply", "-f", _adds_one(tmp_path), "--device", "cpu", "-o", str(tmp_path / "out.txt")]
     want, err = 1, None
     if case == "success":
@@ -247,7 +248,7 @@ def test_cli_apply_exit_codes(tmp_path, capsys, monkeypatch, case):
         want = 0
     elif case == "explain":
         args += ["--explain"]
-        err = "Queue 1 item 5b"
+        want = 0
     elif case == "trace":
         args += ["--trace", str(tmp_path / "t.json")]
         err = "Queue 1 item 10"
@@ -263,7 +264,9 @@ def test_cli_apply_exit_codes(tmp_path, capsys, monkeypatch, case):
     if err is not None:
         assert err in capsys.readouterr().err
     if want == 0:
-        assert "Simulation success!" in (tmp_path / "out.txt").read_text()
+        report = (tmp_path / "out.txt").read_text()
+        assert "Simulation success!" in report
+        assert ("\nPlacement audit:\n" in report) == (case == "explain")
 
 
 def test_cli_version_and_usage(capsys):

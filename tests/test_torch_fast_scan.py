@@ -276,6 +276,22 @@ def test_work_counts_the_flag_branches():
     assert fs.variant_name(fi) == "fast_scan[gpu,gc]" and fs.variant_name(base) == "fast_scan"
 
 
+def test_work_counts_every_step_in_explain_mode():
+    """In explain mode every pod that is not forced runs the counting pass
+    and writes its count row, valid or not, bound or not."""
+    port = _port_prep("fail_mixed")
+    fi, _ = fastpath.build_inputs(port)
+    tmpl, valid, forced = _stream(port)
+    chosen = fs.fast_scan_reference(fi, tmpl, valid, forced).chosen
+    w, w_all = fs.fast_scan_work(fi, tmpl, valid, forced, chosen), fs.fast_scan_work(fi, tmpl, valid, forced, chosen,
+                                                                                       explain=True)
+    steps = int((forced == 0).sum())
+    assert w["count"]["steps"] == int(((chosen < 0) & (forced == 0)).sum()) < steps == w_all["count"]["steps"]
+    assert w_all["count"]["bytes"] == steps * (fs.N_FAIL + fi.req.shape[1]) * 4
+    assert w_all["ops"] - w_all["count"]["ops"] == w["ops"] - w["count"]["ops"]
+    assert w_all["bytes"] - w_all["count"]["bytes"] == w["bytes"] - w["count"]["bytes"]
+
+
 def test_work_counts_the_port_and_interpod_branches():
     for name, off in (
         ("ports", lambda fi, U: fi._replace(port_HU=fi.port_HU[:0], port_conf_HU=fi.port_conf_HU[:0])),

@@ -365,3 +365,97 @@ def test_sampled_choice_on_card_leaves_the_lowest_index(cuda_device):
     lowest = fs.fast_scan(fi, *stream).chosen
     a, b = (fs.fast_scan(fi, *stream, tie_seed=3).chosen for _ in range(2))
     assert torch.equal(a, b) and (a != lowest).float().mean() > 0.25
+
+
+#: Small cases of explain mode under a config, sampled, and from a carried state.
+EXPLAIN_MIXED = ["ties", "spread", "gpu_dyn", "interpod_terms", "ports", "local_rules", "fail_mixed"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["stream", "masked"])
+@pytest.mark.parametrize("name", [c[0] for c in fx.SCAN_CASES])
+def test_explain_kernel_matches_plain_version_on_card(name, mode, cuda_device):
+    """The [explain] variant against the plain version counting every step
+    (count_all) on all ten outputs: over the stream, and over a masked node
+    axis with two pods of every three invalid (an invalid pod that is not
+    forced is counted and binds nothing). Its placements and state are
+    the default variant's, whose counts it holds on the failing pods; each
+    pod not forced runs one counting pass."""
+    cluster, app, node_pad = fx.scan_case(name)
+    prep = sim.prepare(cluster, [sim.AppResource("a", app)], node_pad=node_pad, device=cuda_device)
+    if mode == "stream":
+        fi, _ = fastpath.build_inputs(prep)
+        stream = fastpath.pod_stream(prep)
+    else:
+        node_valid = prep.ec_np.node_valid.copy()
+        node_valid[min(1, len(node_valid) - 1)] = False
+        fi, _ = fastpath.build_inputs(prep, node_valid)
+        stream = fastpath.pod_stream(prep, torch.arange(len(prep.tmpl_ids)).numpy() % 3 == 0)
+    got = fs.fast_scan(fi, *stream, explain=True)
+    torch.cuda.synchronize()
+    want = fs.fast_scan_reference(fi, *stream, count_all=True)
+    for field, g, w in zip(fs.FastOutputs._fields, got, want):
+        assert torch.equal(g, w), field
+    row = fs.variant_name(fi, explain=True)
+    assert int(fs.SCAN_LAUNCHED[row]["count_clock"][1]) == int((stream[2] == 0).sum())
+    default = fs.fast_scan(fi, *stream)
+    for field in fs.STATE_FIELDS:
+        assert torch.equal(getattr(got, field), getattr(default, field)), field
+    failing = (default.chosen < 0) & (stream[1] != 0) & (stream[2] == 0)
+    assert torch.equal(got.fail_counts[failing], default.fail_counts[failing])
+    assert torch.equal(got.insufficient[failing], default.insufficient[failing])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cfg", "sample", "cfg_sample"])
+@pytest.mark.parametrize("name", EXPLAIN_MIXED)
+def test_explain_kernel_under_a_config_and_sampled_on_card(name, mode, cuda_device):
+    """[cfg,explain], [sample,explain] and [cfg,sample,explain] against the
+    plain version on every output; under a config also cut in two, the
+    second launch from the first's state, equal to one launch."""
+    if mode == "sample":
+        cluster, app, node_pad = fx.scan_case(name)
+        prep = sim.prepare(cluster, [sim.AppResource("a", app)], node_pad=node_pad, device=cuda_device)
+        fi, _ = fastpath.build_inputs(prep)
+    else:
+        prep, fi = _cfg_case_on_card(name, "weights", cuda_device)
+    seed = None if mode == "cfg" else 7
+    tmpl, valid, forced = fastpath.pod_stream(prep)
+    got = fs.fast_scan(fi, tmpl, valid, forced, tie_seed=seed, explain=True)
+    torch.cuda.synchronize()
+    want = fs.fast_scan_reference(fi, tmpl, valid, forced, tie_seed=seed, count_all=True)
+    for field, g, w in zip(fs.FastOutputs._fields, got, want):
+        assert torch.equal(g, w), field
+    assert fs.variant_name(fi, seed is not None, explain=True) in fs.SCAN_LAUNCHED
+    if mode == "sample":
+        return
+    k = tmpl.shape[0] // 2
+    a = fs.fast_scan(fi, tmpl[:k], valid[:k], forced[:k], tie_seed=seed, explain=True)
+    b = fs.fast_scan(fi, tmpl[k:], valid[k:], forced[k:], init=a.state, tie_seed=seed, draw_base=k, explain=True)
+    for field in ("chosen", "gpu_take", "fail_counts", "insufficient"):
+        assert torch.equal(torch.cat([getattr(a, field), getattr(b, field)]), getattr(got, field)), field
+    assert torch.equal(b.state, got.state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ties", "interpod", "local"])
+def test_explain_kernel_with_state_in_global_memory_on_card(name, cuda_device):
+    """Explain mode with the slices in global memory (half a million node lanes)."""
+    fi, stream = _case_on_card(name, 1 << 19, cuda_device)
+    assert not fs.scan_shape(fi).resident
+    got = fs.fast_scan(fi, *stream, explain=True)
+    torch.cuda.synchronize()
+    want = fs.fast_scan_reference(fi, *stream, count_all=True)
+    for field, g, w in zip(fs.FastOutputs._fields, got, want):
+        assert torch.equal(g, w), field
+
+
+@pytest.mark.cuda
+def test_the_grid_refuses_explain_mode_on_card(cuda_device):
+    cluster, app, node_pad = fx.scan_case("ties")
+    prep = sim.prepare(cluster, [sim.AppResource("a", app)], node_pad=node_pad, device=cuda_device)
+    fi, _ = fastpath.build_inputs(prep)
+    tmpl, valid, forced = fastpath.pod_stream(prep)
+    with pytest.raises(ValueError, match="explain mode"):
+        fs._launch(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None], sweep=True,
+                   explain=True)

@@ -14,6 +14,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from opensim_tpu.engine import prepcache as ref_prepcache
 from opensim_tpu.engine import simulator as ref_sim
@@ -402,17 +403,22 @@ def test_preemption_matches_jax(case):
 
 @pytest.mark.parametrize("arg", ["sched_config", "extra_plugins", "tie_seed", "explain"])
 def test_later_slice_arguments_raise(arg):
-    """extra_plugins and explain raise, naming their ROADMAP item;
-    sched_config and tie_seed are ported: a tie seed runs, and a config
-    object schedconfig does not know raises as the reference's does."""
-    value = {"sched_config": object(), "extra_plugins": (("filter", len),), "tie_seed": 0, "explain": True}[arg]
-    run = lambda: sim.simulate(fx.synthetic_cluster(2), [sim.AppResource("a", fx.synthetic_apps(40))], device="cpu",
-                               **{arg: value})
-    if arg == "tie_seed":
-        assert (run().placements >= 0).all()
-    elif arg == "sched_config":
+    """The arguments of the later slices are ported: a tie seed and explain
+    mode run, a config object schedconfig does not know raises as the
+    reference's does, and extra plugins run on the CPU but raise on the
+    card, naming their ROADMAP item."""
+    keep_all = lambda ec, st, u: torch.ones(ec.node_valid.shape[0], dtype=torch.bool)
+    value = {"sched_config": object(), "extra_plugins": (("filter", keep_all),), "tie_seed": 0, "explain": True}[arg]
+    run = lambda device="cpu": sim.simulate(fx.synthetic_cluster(2), [sim.AppResource("a", fx.synthetic_apps(40))],
+                                            device=device, **{arg: value})
+    if arg == "sched_config":
         with pytest.raises(ValueError, match="unsupported scheduler config object"):
             run()
-    else:
+        return
+    res = run()
+    assert (res.placements >= 0).all()
+    assert (res.explanations is not None) == (arg == "explain")
+    if arg == "extra_plugins":
+        assert res.engine == "torch reference scan on cpu"
         with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
-            run()
+            run("cuda")
