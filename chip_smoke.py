@@ -99,21 +99,47 @@ placement audit phase 28's; and the example configs' ``--explain``
 reports, card against CPU. The affinity-heavy plan's default variant is
 held against the plain version over its first 10,000 pods (phase 10;
 against the grid over the whole stream), leaving the run time for these
-phases. Every phase raises on failure.
+phases; past that prefix, it and the explain-mode plans of phases 42-45
+are held against the torch step (``kernels.pod_step``) re-run on the card
+from the replayed state before each of 200 steps spread over the whole
+stream: the chosen node and, in explain mode, the step's counts.
+Then ``simon server`` (phases 50-55): the capacity fleet served by the
+port's stub apiserver, whose snapshot holds the capacity plan's first ten
+Deployments (25,000 pods) bound where a card simulate() placed them; the
+server started as ``serve()`` starts it, its kernel variants built before
+it listens; eight requests over HTTP in order, each with the launch counts
+read around it: healthz, deploy-apps of the next ten Deployments (cold:
+the snapshot's base prepare and a delta re-encode, one launch at 50,000
+pods), the same again (a full-key hit, no encode, the same answer),
+scale-apps of bench-0 to 5,000 replicas (a drop mask over its 2,500 bound
+pods, one launch), the deploy with 100 new nodes (node extension, one
+launch at 5,100 nodes), the deploy with explain=1 (one ``[explain]``
+launch, its placements served), a spent deadline (504, no launch) and
+/metrics; then three answers against the uncached server's full prepares
+on the card, and the kernel rows of three requests, each held against the
+plain version over 2,000 of the request's own pods (the plain version
+starting from the kernel's state before them; in explain mode from the
+first step where the kernel counted a rejection, if any) on every output,
+the final state included. Then
+``prepcache.simulate_cached`` on the capacity plan, one cold call and ten
+warm hits, and ``simon apply`` in kubeConfig mode (the example config's
+cluster listed from the stub apiserver), card report vs CPU report.
+Every phase raises on failure, and each prints the time it took.
 The last lines are the card's name and power limit, one JSON line with
 a row per kernel variant timed at full width, one for the drain sweep,
 three for the apply plan (the masked one scan, the coarse and the fine
 grid), one each for the config, two-profile and sampled plans (the
 last timed over its checked prefix, whose ties the plain version records
 for its bound), three
-for the apply plan under ``-d`` and five for explain mode, and
-``{"ok": true, "device": {...}}``.
+for the apply plan under ``-d``, five for explain mode and three for the
+server plan, and ``{"ok": true, "device": {...}}``.
 Without a card it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -176,12 +202,39 @@ CFG_VARIANTS = ("fast_scan[cfg]", "fast_scan[na,tt,avoid,cfg]", "fast_scan[sampl
 EXPLAIN_PLAIN_PODS = 2000
 EXPLAIN_VARIANTS = ("fast_scan[interpod,explain]", "fast_scan[gpu,gc,explain]", "fast_scan[explain]")
 AFFINITY_PLAIN_PODS = 10000
+#: The affinity-heavy plan's default variant (phases 10-12) and the
+#: explain-mode plans (phases 42-45) are also held against the torch step
+#: (``kernels.pod_step``) re-run on the card from the replayed state before
+#: each of REPLAY_STEPS steps spread over the whole stream: the chosen
+#: node, and in explain mode the step's counts.
+REPLAY_STEPS = 200
+#: The server plan (phases 50-53): the snapshot holds the capacity plan's
+#: first fixtures.SERVER_BOUND Deployments bound on the fleet; R5 adds
+#: SERVER_NEW nodes; the snapshot is cached for SERVER_TTL_S (longer than
+#: the phase, so every request reads one fingerprint); each kernel row is
+#: held against the plain version over SERVER_PLAIN_PODS of the request's
+#: own pods (from the kernel's state before them) and the torch step over
+#: SERVER_REPLAY_STEPS steps of the request's pods. The steady
+#: phase (54) runs STEADY_WARM warm simulate_cached() calls.
+SERVER_NEW = 100
+SERVER_TTL_S = 3600.0
+SERVER_PLAIN_PODS = 2000
+SERVER_REPLAY_STEPS = 100
+STEADY_WARM = 10
 EXAMPLES = (("simon-config.yaml", [], "fast_scan[interpod]"),
             ("simon-gpushare-config.yaml", ["gpu"], "fast_scan[gpu]"),
             ("simon-local-config.yaml", ["open-local"], "fast_scan[local]"))
 
 
+_PHASE_T = []
+
+
 def _phase(name: str) -> None:
+    """Print a phase's header, after the time the previous phase took."""
+    now = time.perf_counter()
+    if _PHASE_T:
+        print(f"   (phase took {now - _PHASE_T[-1]:.1f} s)")
+    _PHASE_T.append(now)
     print(f"== {name}", flush=True)
 
 
@@ -345,7 +398,8 @@ def _config_small_case(prep, variant: str, name: str) -> str:
     return out
 
 
-def full_plan(device, label: str, make, variant: str, prefix=None, sched_text=None, tie_seed=None) -> dict:
+def full_plan(device, label: str, make, variant: str, prefix=None, sched_text=None, tie_seed=None,
+              replay: bool = False) -> dict:
     """Kernel against its plain version over the first `prefix` pods of
     the stream (None: the whole stream), simulate() through the kernel,
     then the kernel timed alone over the whole stream. With `sched_text`
@@ -354,7 +408,10 @@ def full_plan(device, label: str, make, variant: str, prefix=None, sched_text=No
     `tie_seed`, all of it with the sampled tie-break (no grid: it does not
     sample), each placement among its step's best scores by the plain
     version's record, and a quarter of the prefix's placements at least
-    off the lowest index's. Returns the plan's row of the kernels table."""
+    off the lowest index's. With `replay`, REPLAY_STEPS steps spread over
+    the whole stream are also re-run through the torch step on the card
+    (:func:`_replay_check`). Returns the plan's row of the kernels
+    table."""
     from opensim_tpu_torch.engine import fastpath, simulator as sim
     from opensim_tpu_torch.ops import fast_scan as fs
 
@@ -421,6 +478,8 @@ def full_plan(device, label: str, make, variant: str, prefix=None, sched_text=No
                              f"{label}: one scan vs the grid at S=1 over {P} pods", fs.STATE_FIELDS))
         print(f"{P} pods: one scan and the grid at S=1 identical on all eight state outputs over the whole stream "
               f"(grid at S=1 {grid1_ms:.3f} ms)", flush=True)
+    if replay:
+        extra["replay"] = _replay_check(prep, whole, label, valid, forced)
     if cfg is not None:
         default = fs.fast_scan(fastpath.build_inputs(prep)[0], tmpl, valid, forced).chosen
         differ = int((default != whole.chosen).sum())
@@ -1378,6 +1437,7 @@ def explain_plan(device, label: str, make, variant: str, rejects: bool = False) 
             not torch.equal(got.insufficient[failing], default.insufficient[failing]):
         raise AssertionError(f"{label}: the failing pods' counts differ from the default variant's")
     bound_counted = int((got.fail_counts.any(1) & (got.chosen >= 0)).sum())
+    replayed = _replay_check(prep, got, label, stream[1], stream[2], explain=True)
     head = tuple(t[:EXPLAIN_PLAIN_PODS].contiguous() for t in stream)
     got_head = fs.fast_scan(fi, *head, explain=True)
     plain = [None]
@@ -1396,7 +1456,8 @@ def explain_plan(device, label: str, make, variant: str, rejects: bool = False) 
     if not np.array_equal(res.placements, default.chosen.cpu().numpy()):
         raise AssertionError(f"{label}: simulate(explain=True) placed differently from the default variant")
     return _explain_row(fi, stream, variant, label.split(" ", 1)[1], launches, err, plain_ms, EXPLAIN_PLAIN_PODS,
-                        {"binding_steps_counted": bound_counted, "plan_wall_s": sum(res.timings.values())})
+                        {"binding_steps_counted": bound_counted, "plan_wall_s": sum(res.timings.values()),
+                         "replay": replayed})
 
 
 def explain_oversubscribed(device) -> dict:
@@ -1601,6 +1662,413 @@ def example_reports(device, explain: bool = False) -> None:
               f"{footer[0] if footer else ''}", flush=True)
 
 
+def _replay_check(prep, out, label: str, valid, forced, explain: bool = False, steps: int = REPLAY_STEPS,
+                  lo: int = 0, among=None) -> dict:
+    """`steps` steps of the stream from `lo` on, spread evenly over its valid
+    pods not forced (and among the stream indices `among`, if given), each re-run through the torch step
+    (``kernels.pod_step``, the JAX package's step op for op) on the card
+    from the state before it, rebuilt from the kernel's placements
+    (``engine/explain.replay_state``): the node it chooses must be the
+    kernel's and, in explain mode, its per-filter counts and shortages the
+    kernel's row. Returns what was checked."""
+    from opensim_tpu_torch.encoding.state import ScanState
+    from opensim_tpu_torch.engine import explain as explain_mod
+    from opensim_tpu_torch.ops import kernels
+
+    chosen, gpu_take = out.chosen.cpu().numpy(), out.gpu_take.cpu().numpy()
+    fail_counts, insufficient = out.fail_counts.cpu().numpy(), out.insufficient.cpu().numpy()
+    cand = np.nonzero((valid.cpu().numpy() != 0) & (forced.cpu().numpy() == 0))[0]
+    cand = cand[cand >= lo]
+    if among is not None:
+        cand = np.intersect1d(cand, among)
+    idx = cand[np.linspace(0, len(cand) - 1, min(steps, len(cand))).round().astype(int)]
+    stat = kernels.static_tables(prep.ec, None)
+    t0 = time.perf_counter()
+    rejecting = 0
+    for i in idx.tolist():
+        st = ScanState(*(torch.from_numpy(a).to(prep.device)
+                         for a in explain_mod.replay_state(prep, chosen, gpu_take, upto=i)))
+        res = kernels.pod_step(prep.ec, stat, st, int(prep.tmpl_ids[i]), prep.features, None, (), count_all=explain)
+        if res.chosen != int(chosen[i]):
+            raise AssertionError(f"{label}: step {i}: the kernel chose node {int(chosen[i])}, the torch step "
+                                 f"{res.chosen}")
+        if explain:
+            fc, ins = res.fail_counts.cpu().numpy(), res.insufficient.cpu().numpy()
+            if not np.array_equal(fc, fail_counts[i]) or not np.array_equal(ins, insufficient[i]):
+                raise AssertionError(f"{label}: step {i}: the kernel counted {fail_counts[i].tolist()} / "
+                                     f"{insufficient[i].tolist()}, the torch step {fc.tolist()} / {ins.tolist()}")
+            rejecting += int(fc.any() or ins.any())
+    secs = time.perf_counter() - t0
+    span = f"{int(idx[0])}..{int(idx[-1])}"
+    print(f"{len(idx)} steps spread over stream indices {span}: the torch step from the replayed state chose the "
+          f"kernel's node" + (f" and counted its rows ({rejecting} of them rejecting nodes)" if explain else "")
+          + f" ({secs:.3f} s, {secs / len(idx):.4f} s a step)", flush=True)
+    return {"steps": len(idx), "first": int(idx[0]), "last": int(idx[-1]), "seconds": secs,
+            "rejecting_steps": rejecting if explain else None}
+
+
+def _http(url: str, path: str, body=None, headers=None):
+    """(status, response headers, JSON body, round-trip seconds) of one
+    request to the server under test."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data, method="GET" if body is None else "POST",
+                                 headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, hdrs, raw = r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        code, hdrs, raw = e.code, dict(e.headers), e.read()
+    rt = time.perf_counter() - t0
+    try:
+        return code, hdrs, json.loads(raw), rt
+    except ValueError:
+        return code, hdrs, raw.decode(), rt
+
+
+def _server_row(label: str, entry, explain: bool, launches: int, request_rt: float) -> dict:
+    """The kernels-table row of one server request's launch, on the stream
+    the server cached for it (its drop mask applied): the kernel timed over
+    the whole stream (CUDA events, 3 launches); held against the plain
+    version over SERVER_PLAIN_PODS of the request's own pods, the plain
+    version starting from the kernel's state before them (a launch over the
+    stream up to there) and compared on every output, the final state row
+    included, with a launch over the stream up to the window's end; and
+    against the torch step over SERVER_REPLAY_STEPS steps of the request's
+    pods (:func:`_replay_check`). The window opens at the first request pod
+    (``prep.n_cluster``: the snapshot's forced binds precede it) or, in
+    explain mode, at the first step where the kernel counted a node
+    rejected, and half the replayed steps are then drawn from those steps.
+    Its bound from ``fast_scan_work``."""
+    from opensim_tpu_torch.engine import fastpath
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    prep = entry.prep
+    fi, _ = fastpath.build_inputs(prep)  # the request's own inputs, kept on its cache entry
+    stream = fastpath.pod_stream(prep, None if entry.drop_mask is None else ~entry.drop_mask)
+    variant = fs.variant_name(fi, explain=explain)
+    out = [None]
+
+    def run_kernel():
+        out[0] = fs.fast_scan(fi, *stream, explain=explain)
+
+    ms = _events_ms(run_kernel, reps=3)
+    P, lo = stream[0].shape[0], prep.n_cluster
+    rejecting = None
+    win_lo = lo
+    if explain:
+        rejecting = np.nonzero((out[0].fail_counts.any(1) | out[0].insufficient.any(1)).cpu().numpy())[0]
+        rejecting = rejecting[rejecting >= lo]
+        if len(rejecting):
+            win_lo = max(lo, min(int(rejecting[0]), P - SERVER_PLAIN_PODS))
+    hi = min(win_lo + SERVER_PLAIN_PODS, P)
+    cut = lambda a, b: tuple(t[a:b].contiguous() for t in stream)
+    init = fs.fast_scan(fi, *cut(0, win_lo), explain=explain).state.clone()
+    upto = fs.fast_scan(fi, *cut(0, hi), explain=explain)
+    if not torch.equal(upto.chosen, out[0].chosen[:hi]):
+        raise AssertionError(f"{label}: the launch over pods 0..{hi} placed differently from the whole stream's")
+    got = upto._replace(**{f: getattr(upto, f)[win_lo:] for f in ("chosen", "gpu_take", "fail_counts",
+                                                                   "insufficient")})
+    plain = [None]
+
+    def run_plain():
+        plain[0] = fs.fast_scan_reference(fi, *cut(win_lo, hi), init=init, count_all=explain)
+
+    plain_ms = _events_ms(run_plain, reps=1)
+    err = _same(got, plain[0], f"{label}: pods {win_lo}..{hi} vs plain from the kernel's state")
+    replay = _replay_check(prep, out[0], label, stream[1], stream[2], explain=explain,
+                           steps=SERVER_REPLAY_STEPS // 2 if rejecting is not None and len(rejecting)
+                           else SERVER_REPLAY_STEPS, lo=lo)
+    if rejecting is not None and len(rejecting):
+        replay = {"spread": replay, "rejecting": _replay_check(prep, out[0], label, stream[1], stream[2],
+                                                               explain=True, steps=SERVER_REPLAY_STEPS // 2,
+                                                               lo=lo, among=rejecting)}
+    work = fs.fast_scan_work(fi, *stream, out[0].chosen, explain=explain)
+    t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
+    N = fi.alloc_T.shape[1]
+    n_valid = int(stream[1].sum())
+    U = fs._dims(fi).U
+    counted = "" if rejecting is None else f"; the kernel counted rejections at {len(rejecting)} of the request's steps"
+    print(f"{label} ({variant}): P={P} ({n_valid} valid), N={N}, U={U} templates: kernel {ms:.3f} ms "
+          f"({ms * 1e3 / P:.3f} us/pod), plain {plain_ms:.3f} ms over request pods {win_lo}..{hi} from the "
+          f"kernel's state, identical on every output{counted}; bound {max(t_bytes, t_ops):.6f} ms", flush=True)
+    return {
+        "name": variant, "plan": f"server plan {label}", "route": "cuda",
+        "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu",
+        "replaces": "opensim_tpu/ops/kernels.py:1056" if explain else "opensim_tpu/ops/pallas_scan.py:1009",
+        "launches": launches, "launches_are": "the request's own launch in the server run", "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "pods": P, "valid_pods": n_valid, "nodes": N, "templates": U,
+        "plain_window": [win_lo, hi], "kernel_rejecting_steps": None if rejecting is None else len(rejecting),
+        "replay": replay, "request_rt_s": request_rt,
+        "ptxas": fs.SCAN_LAUNCHED[variant]["ptxas"], "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+    }
+
+
+def server_plan(device, card: str) -> list:
+    """``simon server`` of the port on the card (phases 50-53): the
+    capacity fleet served by the port's stub apiserver, its snapshot the
+    first fixtures.SERVER_BOUND Deployments of the capacity plan bound
+    where a card simulate() placed them (25,000 Running pods owned by their
+    ReplicaSets); the server started as ``serve()`` starts it
+    (``rest.start_server``: the kernel variants built before it listens) on
+    loopback, and eight requests sent in order over HTTP, each with the
+    launch counts set to 0 just before and read just after: R1 healthz;
+    R2 deploy bench-10..19 (cold: snapshot, base prepare, delta; one
+    launch at P = 50,000); R3 the same (a full-key hit, no encode,
+    verbatim R2's answer); R4 scale bench-0 to 5,000 replicas (a base
+    delta whose drop mask flips its 2,500 bound pods: P = 30,000); R5 R2's
+    body with SERVER_NEW new nodes (node extension and delta: N = 5,100);
+    R6 R2's body with explain=1 (a hit, one [explain] launch) and its
+    placements; R7 R2's body under a spent deadline (504, no launch); R8
+    /metrics. Then R2, R4 and R5 against the uncached server
+    (``prep_cache=False``) on the card, and the kernel rows of R2, R4 and
+    R6. Returns the rows."""
+    import threading
+
+    from opensim_tpu_torch.engine import simulator as sim
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.obs.metrics import parse_metrics
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.server import rest, stubapi
+    from opensim_tpu_torch.utils.trace import PREP_STATS
+
+    n_bound = N_PODS // 20 * fx.SERVER_BOUND
+    _phase(f"50 server plan: {n_bound} pods of bench-0..{fx.SERVER_BOUND - 1} bound on {N_NODES} nodes by a card "
+           "simulate(), served by the stub apiserver; simon server started (kernels built before it listens)")
+    t_phase = time.perf_counter()
+    seed = sim.simulate(fx.synthetic_cluster(N_NODES), [sim.AppResource("seed", fx.server_apps(N_PODS, 0,
+                                                                                                fx.SERVER_BOUND))],
+                        device=device)
+    if seed.unscheduled_pods:
+        raise AssertionError(f"{len(seed.unscheduled_pods)} snapshot pods found no node")
+    pods = [fx.snapshot_pod(p) for ns in seed.node_status for p in ns.pods]
+    stub = stubapi.StubApiServer().start()
+    fx.seed_stub(stub, fx.synthetic_cluster(N_NODES), pods)
+    root = _plan_dir() / "server"
+    root.mkdir(parents=True, exist_ok=True)
+    kube = stub.kubeconfig(root)
+    log = logging.getLogger("opensim_tpu_torch.server")  # start_server's lines: the variants it built
+    handler = logging.StreamHandler(sys.stdout)
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    try:
+        server, httpd = rest.start_server(kubeconfig=kube, port=0, host="127.0.0.1", device=device,
+                                          snapshot_ttl_s=SERVER_TTL_S)
+    finally:
+        log.removeHandler(handler)
+    start_s = time.perf_counter() - t0
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    print(f"snapshot: {len(pods)} bound pods ({n_bound} expected) on {N_NODES} nodes; server started in "
+          f"{start_s:.3f} s (the snapshot listed, its variants built); listening on {url}", flush=True)
+    bodies = fx.server_requests(N_NODES, N_PODS, SERVER_NEW)
+    answers, launches, traces = {}, {}, {}
+    try:
+        _phase("51 server plan: R1-R8 over HTTP, the launch counts set to 0 before each request and read after")
+        plan = [
+            ("R1", "/healthz", None, None),
+            ("R2", "/api/deploy-apps", bodies["deploy"], None),
+            ("R3", "/api/deploy-apps", bodies["deploy"], None),
+            ("R4", "/api/scale-apps", bodies["scale"], None),
+            ("R5", "/api/deploy-apps", bodies["newnodes"], None),
+            ("R6", "/api/deploy-apps?explain=1", bodies["deploy"], None),
+            ("R7", "/api/deploy-apps", bodies["deploy"], {"X-Simon-Timeout-S": "0.000001"}),
+            ("R8", "/metrics", None, None),
+        ]
+        for name, path, body, headers in plan:
+            counts0 = dict(PREP_STATS.snapshot()["counts"])
+            torch.cuda.synchronize()
+            fs.LAUNCHES = 0
+            fs.VARIANT_LAUNCHES.clear()
+            code, hdrs, answer, rt = _http(url, path, body, headers)
+            launches[name] = dict(fs.VARIANT_LAUNCHES)
+            counts = {k: v - counts0.get(k, 0) for k, v in PREP_STATS.snapshot()["counts"].items()
+                      if v != counts0.get(k, 0)}
+            rid = hdrs.get("X-Simon-Request-Id", "")
+            attrs = {}
+            if body is not None:
+                traces[name] = _http(url, f"/api/debug/requests/{rid}")[2]
+                attrs = traces[name]["spans"].get("attrs", {})
+            times = {k: attrs[k] for k in ("cache_s", "prepare_s", "inputs_s", "kernel_s", "decode_s") if k in attrs}
+            print(f"{name} {path}: HTTP {code} in {rt:.6f} s (round trip); rung {attrs.get('rung', '-')}; server "
+                  f"times {json.dumps(times)}; prepare kinds {counts}; launches {launches[name]}", flush=True)
+            answers[name] = (code, answer, rt, counts, attrs, rid)
+        expect = {"R1": (200, {}), "R2": (200, {"fast_scan": 1}), "R3": (200, {"fast_scan": 1}),
+                  "R4": (200, {"fast_scan": 1}), "R5": (200, {"fast_scan": 1}),
+                  "R6": (200, {"fast_scan[explain]": 1}), "R7": (504, {}), "R8": (200, {})}
+        for name, (code, want) in expect.items():
+            if answers[name][0] != code or launches[name] != want:
+                raise AssertionError(f"{name}: HTTP {answers[name][0]} with launches {launches[name]}, want {code} "
+                                     f"and {want}: {str(answers[name][1])[:500]}")
+        rungs = {n: answers[n][4].get("rung") for n in ("R2", "R3", "R4", "R5", "R6")}
+        if rungs != {"R2": "cold", "R3": "hit", "R4": "delta", "R5": "delta", "R6": "hit"}:
+            raise AssertionError(f"cache rungs {rungs}")
+        if answers["R2"][3] != {"full": 1, "delta_apps": 1} or answers["R3"][3] != {"hit": 1} or \
+                answers["R5"][3] != {"delta_nodes": 1, "delta_apps": 1} or answers["R6"][3] != {"hit": 1}:
+            raise AssertionError("prepare kinds " + json.dumps({n: answers[n][3] for n in ("R2", "R3", "R5", "R6")}))
+        if answers["R3"][1] != answers["R2"][1]:
+            raise AssertionError("R3 (a full-key hit) answered differently from R2")
+        r6, r2 = answers["R6"][1], answers["R2"][1]
+        unplaced = lambda answer: [(u["pod"], u["reason"]) for u in answer["unscheduledPods"]]
+        if r6["nodeStatus"] != r2["nodeStatus"] or unplaced(r6) != unplaced(r2) or "filterRejects" not in r6:
+            raise AssertionError("R6 (explain=1) placed differently from R2 or has no filter rejects")
+        code, _h, placements, _rt = _http(url, f"/api/debug/placements/{answers['R6'][5]}")
+        if code != 200 or placements["pods_total"] != N_PODS:
+            raise AssertionError(f"R6's placements: HTTP {code}, {placements.get('pods_total')} pods audited")
+        if answers["R7"][1].get("phase") not in ("snapshot", "prepare", "encode", "schedule", "decode"):
+            raise AssertionError(f"R7: {answers['R7'][1]}")
+        metrics = parse_metrics(answers["R8"][1])
+        seconds = lambda ep, status: metrics.get(("simon_request_seconds_count", (("endpoint", ep),
+                                                                                  ("status", status))), 0)
+        got = {"hits": metrics[("simon_prep_cache_hits_total", ())],
+               "deploy ok": seconds("deploy-apps", "ok"), "scale ok": seconds("scale-apps", "ok"),
+               "504": seconds("deploy-apps", "deadline-exceeded"),
+               "timeouts": metrics[("simon_request_timeouts_total", ())]}
+        if got["hits"] < 2 or got["deploy ok"] + got["scale ok"] != 5 or got["504"] != 1 or got["timeouts"] != 1:
+            raise AssertionError(f"/metrics: {got}")
+        print(f"R8 /metrics: {json.dumps(got)}; R6 audited {placements['pods_total']} pods "
+              f"({len(placements['explanations'])} stored); R4 answered {sum(len(e['pods']) for e in answers['R4'][1]['nodeStatus'])} "
+              f"placed pods; R5 placed on {sum(e['node'].startswith('simon-') for e in answers['R5'][1]['nodeStatus'])} "
+              f"new nodes", flush=True)
+        shape = fs.SCAN_LAUNCHED["fast_scan"]["shape"]  # R5's launch, the last of the base variant
+        if shape.nc != -(-(N_NODES + SERVER_NEW) // shape.cluster):
+            raise AssertionError(f"R5's launch: {shape.nc} nodes a CTA")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+    _phase("52 server plan: R2, R4 and R5 against the uncached server (a full prepare each) on the card")
+    entries = {e.key.split("|")[1]: e for e in server.prep_cache.entries_snapshot() if not e.key.endswith("|base")}
+    scale_entry, deploy_entry = entries["scale"], entries["deploy"]
+    if len(scale_entry.prep.ordered) != n_bound + 2 * N_PODS // 20 or \
+            int(scale_entry.drop_mask.sum()) != N_PODS // 20:
+        raise AssertionError(f"R4's stream: {len(scale_entry.prep.ordered)} pods, "
+                             f"{int(scale_entry.drop_mask.sum())} dropped")
+    if len(deploy_entry.prep.ordered) != N_PODS:
+        raise AssertionError(f"R2's stream: {len(deploy_entry.prep.ordered)} pods")
+    legacy = rest.SimonServer(kubeconfig=kube, prep_cache=False, device=device)
+    try:
+        for name, call, body in (("R2", legacy.deploy_apps, bodies["deploy"]), ("R4", legacy.scale_apps,
+                                                                                  bodies["scale"]),
+                                 ("R5", legacy.deploy_apps, bodies["newnodes"])):
+            t0 = time.perf_counter()
+            code, want = call(json.loads(json.dumps(body)))
+            secs = time.perf_counter() - t0
+            same = _without_counters(json.dumps(want, sort_keys=True)) == \
+                _without_counters(json.dumps(answers[name][1], sort_keys=True))
+            if code != 200 or not same:
+                raise AssertionError(f"{name}: the uncached server answered {code} differently")
+            print(f"{name}: the cached answer equals the uncached server's ({secs:.3f} s there), "
+                  f"{len(want['unscheduledPods'])} unscheduled", flush=True)
+    finally:
+        stub.stop()
+
+    _phase("53 server plan: the kernel rows of R2, R4 and R6 (CUDA events), each against the plain version and "
+           "the torch step")
+    rows = [_server_row("R2", deploy_entry, False, launches["R2"]["fast_scan"], answers["R2"][2]),
+            _server_row("R4", scale_entry, False, launches["R4"]["fast_scan"], answers["R4"][2]),
+            _server_row("R6", deploy_entry, True, launches["R6"]["fast_scan[explain]"], answers["R6"][2])]
+    print(f"server plan phases {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    return rows
+
+
+def steady_phase(device) -> dict:
+    """``prepcache.simulate_cached`` on the capacity plan (phase 54), as
+    bench.py:811-860 runs it: one cold call (the full prepare), then
+    STEADY_WARM warm calls, each a cache hit launching one kernel and
+    placing the stream as the cold call did. Returns its numbers."""
+    import statistics
+
+    from opensim_tpu_torch.engine import prepcache, simulator as sim
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.utils.trace import PREP_STATS
+
+    _phase(f"54 steady phase: simulate_cached() on the capacity plan, one cold call and {STEADY_WARM} warm")
+    cluster, apps = fx.synthetic_cluster(N_NODES), [sim.AppResource("plan", fx.synthetic_apps(N_PODS))]
+    cache = prepcache.PrepareCache()
+    t0 = time.perf_counter()
+    cold = prepcache.simulate_cached(cluster, apps, cache, device=device)
+    cold_s = time.perf_counter() - t0
+    kind, cold_prep = PREP_STATS.snapshot()["last"]
+    if kind != "full":
+        raise AssertionError(f"the cold call prepared by {kind}")
+    walls, preps = [], []
+    for k in range(STEADY_WARM):
+        torch.cuda.synchronize()
+        fs.LAUNCHES = 0
+        fs.VARIANT_LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = prepcache.simulate_cached(cluster, apps, cache, device=device)
+        walls.append(time.perf_counter() - t0)
+        kind, secs = PREP_STATS.snapshot()["last"]
+        preps.append(secs)
+        if kind != "hit" or dict(fs.VARIANT_LAUNCHES) != {"fast_scan": 1}:
+            raise AssertionError(f"warm call {k}: prepared by {kind}, launched {dict(fs.VARIANT_LAUNCHES)}")
+        if not np.array_equal(res.placements, cold.placements) or \
+                [u.reason for u in res.unscheduled_pods] != [u.reason for u in cold.unscheduled_pods]:
+            raise AssertionError(f"warm call {k} placed the stream differently from the cold call")
+    out = {"cold_s": cold_s, "cold_prepare_s": cold_prep, "warm_prepare_median_s": statistics.median(preps),
+           "warm_wall_median_s": statistics.median(walls), "warm_wall_s": walls, "cache": cache.stats.as_dict()}
+    print(f"cold call {cold_s:.6f} s (prepare {cold_prep:.6f} s); {STEADY_WARM} warm calls, each a hit with one "
+          f"launch and the cold call's placements: median prepare {out['warm_prepare_median_s']:.6f} s, median "
+          f"wall-clock {out['warm_wall_median_s']:.6f} s; cache {json.dumps(out['cache'])}", flush=True)
+    return out
+
+
+def kubeconfig_apply(device) -> None:
+    """``simon apply`` in kubeConfig mode (phase 55): example/simon-config.yaml
+    with its cluster (example/cluster/demo, its Deployment's pods bound
+    where a CPU simulation placed them) served by the stub apiserver, on
+    the CPU and on the card: the two reports equal."""
+    import yaml
+
+    from opensim_tpu_torch.engine import simulator as sim
+    from opensim_tpu_torch.models import expand, fixtures as fx
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.planner import apply
+    from opensim_tpu_torch.server import stubapi
+
+    _phase("55 simon apply in kubeConfig mode: example/simon-config.yaml's cluster listed from the stub apiserver, "
+           "card report vs CPU report")
+    cluster = expand.load_cluster_from_dir(_example("cluster/demo"))
+    placed = sim.simulate(cluster, [], device="cpu")
+    pods = [fx.snapshot_pod(p) for ns in placed.node_status for p in ns.pods]
+    stub = stubapi.StubApiServer().start()
+    fx.seed_stub(stub, cluster, pods)
+    root = _plan_dir() / "kubeconfig-apply"
+    root.mkdir(parents=True, exist_ok=True)
+    try:
+        spec = yaml.safe_load(Path(_example("simon-config.yaml")).read_text())
+        spec["spec"]["cluster"] = {"kubeConfig": stub.kubeconfig(root)}
+        for app in spec["spec"]["appList"]:
+            app["path"] = _example(app["path"])
+        spec["spec"]["newNode"] = _example(spec["spec"]["newNode"])
+        config = root / "config.yaml"
+        config.write_text(yaml.safe_dump(spec))
+        runs = []
+        for where, dev in (("cpu", "cpu"), ("card", str(device))):
+            out = root / f"report.{where}.txt"
+            fs.VARIANT_LAUNCHES.clear()
+            t0 = time.perf_counter()
+            rc = apply.Applier(apply.Options(simon_config=str(config), output_file=str(out), device=dev)).run()
+            runs.append((rc, out.read_text(), dict(fs.VARIANT_LAUNCHES), time.perf_counter() - t0))
+    finally:
+        stub.stop()
+    (rc_cpu, cpu, _l, cpu_s), (rc_card, card_text, launches, card_s) = runs
+    if rc_cpu != 0 or rc_card != 0 or _without_counters(cpu) != _without_counters(card_text):
+        raise AssertionError(f"kubeConfig apply: the card's report (rc {rc_card}) differs from the CPU's (rc {rc_cpu})")
+    if not launches or "Simulation success!" not in card_text:
+        raise AssertionError(f"kubeConfig apply launched {launches}:\n{card_text[-1500:]}")
+    print(f"{len(pods)} snapshot pods listed; card and CPU reports identical ({len(card_text.splitlines())} lines; "
+          f"card {card_s:.3f} s, CPU {cpu_s:.3f} s); launches {launches}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
@@ -1648,7 +2116,8 @@ def main() -> int:
     _phase("3 small cases: kernel vs plain version, one scan and a sweep of drains each")
     small_cases(device)
 
-    rows = [full_plan(device, label, make, variant, prefix) for label, make, variant, prefix in plans]
+    rows = [full_plan(device, label, make, variant, prefix, replay=variant == "fast_scan[interpod]")
+            for label, make, variant, prefix in plans]
     rows.append(drain_sweep(device))
     rows.extend(oversubscribed_plan(device))
     rows.extend(apply_plan(device, card))
@@ -1668,6 +2137,9 @@ def main() -> int:
     rows.append(explain_oversubscribed(device))
     rows.append(explain_capacity(device))
     rows.append(apply_explain(device, card))
+    rows.extend(server_plan(device, card))
+    steady_phase(device)
+    kubeconfig_apply(device)
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,10 +1,11 @@
 """simon CLI of the port — ``python -m opensim_tpu_torch {apply, explain,
-version}``, the ``apply`` and ``explain`` flags of
-``opensim_tpu/cli/main.py`` (``cmd/apply/apply.go:27-36``) plus
-``--device``. The run goes to the card unless ``--device cpu`` asks for
-the plain versions on the CPU; without a card and without that flag
-``apply`` and ``explain`` fail, and nothing falls back to the CPU. Log
-level comes from the ``LogLevel`` env (``cmd/simon/simon.go:46-66``)."""
+server, version}``, the ``apply``, ``explain`` and ``server`` flags of
+``opensim_tpu/cli/main.py`` (``cmd/apply/apply.go:27-36``,
+``cmd/server/server.go``) plus ``--device``. The run goes to the card
+unless ``--device cpu`` asks for the plain versions on the CPU; without a
+card and without that flag each subcommand fails (``server`` before it
+listens), and nothing falls back to the CPU. Log level comes from the
+``LogLevel`` env (``cmd/simon/simon.go:46-66``)."""
 
 from __future__ import annotations
 
@@ -93,6 +94,33 @@ def build_parser() -> argparse.ArgumentParser:
     explain_p.add_argument("--use-greed", action="store_true", help="use greed algorithm to sort pods")
     explain_p.add_argument("--json", action="store_true", help="emit the explanation(s) as JSON")
     explain_p.add_argument("--device", default=None, help=device_help)
+
+    server_p = sub.add_parser(
+        "server", help="start the simon REST server",
+        description="start the simon REST server (deploy-apps / scale-apps / healthz / metrics)",
+    )
+    server_p.add_argument("--kubeconfig", default="", help="kubeconfig of the real cluster")
+    server_p.add_argument("--master", default="", help="apiserver address override")
+    server_p.add_argument("--port", type=int, default=8080, help="listen port")
+    server_p.add_argument(
+        "--watch", default="auto", choices=["auto", "on", "off"],
+        help="snapshot strategy: auto and off serve the polling snapshot (re-listed every 30 s); on, the live "
+        "twin, is not yet ported (ROADMAP Queue 1 item 10)",
+    )
+    server_p.add_argument(
+        "--access-log", action="store_true",
+        help="emit one JSON access-log line per request (request id, endpoint, status, duration) — same as "
+        "OPENSIM_ACCESS_LOG=1",
+    )
+    server_p.add_argument("--workers", type=int, default=0,
+                          help="fleet worker processes (2 or more: not yet ported, ROADMAP Queue 1 item 10)")
+    server_p.add_argument("--journal", default="",
+                          help="watch-event journal directory (not yet ported, ROADMAP Queue 1 item 10)")
+    server_p.add_argument("--standby", action="store_true",
+                          help="run as the HA hot standby (not yet ported, ROADMAP Queue 1 item 10)")
+    server_p.add_argument("--handover", action="store_true",
+                          help="with --standby: request the handover (not yet ported, ROADMAP Queue 1 item 10)")
+    server_p.add_argument("--device", default=None, help=device_help)
     sub.add_parser("version", help="print version", description="print version and commit id")
     return parser
 
@@ -211,6 +239,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.command == "version":
         print(f"simon version: {VERSION}, commit: {COMMIT_ID}")
         return 0
+    if args.command == "server":
+        from ..server.rest import serve
+
+        if args.access_log:
+            os.environ["OPENSIM_ACCESS_LOG"] = "1"
+        try:
+            return serve(kubeconfig=args.kubeconfig, master=args.master, port=args.port, watch=args.watch,
+                         journal=args.journal, workers=args.workers, standby=args.standby or args.handover,
+                         device=args.device)
+        except (OSError, ValueError, RuntimeError, NotImplementedError) as e:
+            # the modes of later slices, a bad path, a busy port, no card
+            # without --device cpu: refused before it listens
+            print(f"simon server: {e}", file=sys.stderr)
+            return 1
     if args.command in ("apply", "explain"):
         try:
             return run_apply(args) if args.command == "apply" else run_explain(args)

@@ -918,15 +918,18 @@ def _field_to_torch(a: np.ndarray, policy: str, device: torch.device) -> torch.T
 
 
 def to_device(
-    ec_np: EncodedCluster, st0: ScanState, device: torch.device
+    ec_np: EncodedCluster, st0: ScanState, device: torch.device, reuse: Optional[Dict[int, torch.Tensor]] = None,
 ) -> Tuple[EncodedCluster, ScanState]:
     """Move the numpy-built cluster and carry to torch tensors on `device`,
     each field with the dtype its contract in ``encoding/dtypes.py`` names
-    (a field built at another width raises instead of being cast)."""
+    (a field built at another width raises instead of being cast).
+    `reuse` (``{id(numpy leaf): tensor}``, the delta re-encoders') keeps
+    the tensor already on `device` for each cluster leaf it holds."""
     device = torch.device(device)
+    reuse = reuse or {}
     return (
         EncodedCluster(*[
-            _field_to_torch(a, ARENA_CONTRACTS[f][0], device)
+            reuse[id(a)] if id(a) in reuse else _field_to_torch(a, ARENA_CONTRACTS[f][0], device)
             for f, a in zip(EncodedCluster._fields, ec_np)
         ]),
         ScanState(*[

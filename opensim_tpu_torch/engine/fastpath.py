@@ -123,7 +123,12 @@ def build_inputs(
     default: the default variant) switches the static filters in the
     tables and goes to the kernel as ``FastInputs.cfg``; a `segment` of a
     segmented multi-profile run takes the cfg variant whatever its config
-    (``kernels.kernel_config``)."""
+    (``kernels.kernel_config``). Without a node mask the result is kept in
+    ``prep.inputs_memo`` where the Prepared has one, as the reference keeps
+    ``prep._fast_inputs`` (``opensim_tpu/engine/fastpath.py:190``)."""
+    memo = prep.inputs_memo if node_valid is None else None
+    if memo is not None and (cfg, segment) in memo:
+        return memo[(cfg, segment)]
     ec = prep.ec_np
     core = kernels.precompute_core_np(ec)
     stat = kernels.precompute_static_np(ec._replace(node_valid=np.ones_like(ec.node_valid)), cfg, core=core)
@@ -210,6 +215,9 @@ def build_inputs(
         gc_row=kernels.gc_row_of(ec) if f.gc_dyn else -1,
         cfg=kernels.kernel_config(cfg, req.shape[1], segment),
     )
+    if memo is not None:
+        memo[(cfg, segment)] = (fi, {"static_fail": masked.static_fail})
+        return memo[(cfg, segment)]
     return fi, {"static_fail": masked.static_fail}
 
 

@@ -1,41 +1,372 @@
-"""Delta re-encoding for node addition — the part of
-``opensim_tpu/engine/prepcache.py`` that ``simon apply`` uses.
+"""Incremental prepare: a content-keyed encode cache and delta re-encoding —
+the port of ``opensim_tpu/engine/prepcache.py``.
 
-The planner's first simulation prepares the cluster; its candidate sweep
-needs the same cluster plus ``max_new_nodes`` candidate nodes.
-:func:`extend_with_nodes` encodes only the candidates into a fork of the
-first encoder and splices their DaemonSet pods into the stream at the
-positions a fresh full expansion would give them, so the result equals
-``prepare(cluster + candidates, apps)``: the same stream order and the
-same encoded arrays. The cache of prepared inputs (``PrepareCache``) is
-ROADMAP Queue 1 item 6.
+Repeated simulations against one cluster would pay the full host-side
+``prepare()`` (workload expansion plus the cluster encode, the largest
+host cost of a 50k-pod plan) on every call. This module makes them pay for
+their changes instead:
+
+- ``PrepareCache``: an LRU of ``prepare()`` outputs keyed by a cluster/app
+  content fingerprint, with per-entry locks and pristine bind-state
+  snapshots (``simulate``'s decode writes into the prepared pods; entries
+  are restored after every use, so a hit is indistinguishable from a fresh
+  prepare).
+- Delta re-encoders over a cached base ``Prepared``:
+    * ``derive_with_apps`` — append apps' expanded pods to the stream (new
+      templates assemble against the cached node arenas);
+    * ``extend_with_nodes`` — add nodes (the planner's candidates, a
+      request's ``newnodes``), splicing their DaemonSet pods in at the
+      positions a fresh expansion would give them;
+    * ``drop_mask_for_scaled`` — flip pod-validity bits for the pods a
+      scale request removes, instead of re-encoding the shrunk cluster.
+- ``simulate_cached``: one simulation through the cache.
+
+A delta's stream has the pod order of a fresh ``prepare()`` and its encoded
+arrays equal the fresh ones (template, domain and vocabulary ids may be
+numbered differently; the kernel does not care). Its tensors go to the
+base's device; with a cache entry, only the leaves the delta changed are
+uploaded (``CacheEntry.dev_map``). The live twin's deltas and the fleet's
+shared-memory publication are ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import hashlib
+import json
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 
-from ..encoding.state import to_device
+from ..encoding.state import ClusterEncoder, to_device
 from ..models import expand
-from ..models.objects import ResourceTypes
+from ..models.objects import LABEL_APP_NAME, Pod, ResourceTypes, touch_epoch
 from ..ops import kernels
-from .simulator import AppResource, Prepared, _owner_selector, _tmpl_hint, ds_targets
+from ..utils.trace import PREP_STATS
+from . import queues
+from .simulator import (
+    AppResource,
+    Prepared,
+    SimulateResult,
+    _owner_selector,
+    _tmpl_hint,
+    ds_targets,
+    prepare,
+    restore_bind_state,
+    simulate,
+    snapshot_bind_state,
+)
+
+# ---------------------------------------------------------------------------
+# content fingerprints
+# ---------------------------------------------------------------------------
 
 
-def _assemble_delta(
-    base: Prepared,
-    enc,
-    ordered: List,
-    tmpl_parts: List,
-    forced_parts: List,
-    n_cluster: int,
-    ds_group_sizes: List[int],
-) -> Prepared:
-    """Build the forked encoder and put the result on the base's device."""
+def _meta_rv(obj: object) -> str:
+    raw = getattr(obj, "raw", None) or {}
+    return str((raw.get("metadata") or {}).get("resourceVersion", ""))
+
+
+def fingerprint_cluster(cluster: ResourceTypes) -> str:
+    """Content key for a cluster snapshot. Hashes object identity + version
+    (name/uid/resourceVersion) plus the node fields that feed the encoder
+    directly, so hand-built clusters (no uid/rv) still key on node content.
+    In-place mutation of an already-fingerprinted object is NOT detected —
+    callers that edit objects must invalidate explicitly (the REST server
+    re-fingerprints on every snapshot refresh)."""
+    h = hashlib.blake2b(digest_size=16)
+    for n in cluster.nodes:
+        h.update(
+            "|".join(
+                (
+                    "n",
+                    n.metadata.name,
+                    n.metadata.uid or "",
+                    _meta_rv(n),
+                    "1" if n.unschedulable else "0",
+                    json.dumps(sorted(n.metadata.labels.items())),
+                    json.dumps(sorted((t.key, t.value, t.effect) for t in n.taints)),
+                    json.dumps(sorted(n.allocatable.items())),
+                    n.metadata.annotations.get("simon/node-local-storage", ""),
+                )
+            ).encode()
+        )
+    for p in cluster.pods:
+        m = p.metadata
+        h.update(f"p|{m.namespace}|{m.name}|{m.uid}|{_meta_rv(p)}|{p.spec.node_name}|{p.phase}".encode())
+    for kind, objs in (
+        ("dep", cluster.deployments),
+        ("rs", cluster.replica_sets),
+        ("sts", cluster.stateful_sets),
+        ("ds", cluster.daemon_sets),
+        ("job", cluster.jobs),
+        ("cj", cluster.cron_jobs),
+    ):
+        for w in objs:
+            h.update(
+                f"{kind}|{w.metadata.namespace}|{w.metadata.name}|{w.metadata.uid}|{_meta_rv(w)}|{w.replicas}".encode()
+            )
+    return h.hexdigest()
+
+
+def fingerprint_apps(apps: List[AppResource]) -> str:
+    """Content key for an app list: hashes each object's raw dict when
+    present (request payloads round-trip exactly), identity otherwise."""
+    h = hashlib.blake2b(digest_size=16)
+    for app in apps:
+        h.update(f"a|{app.name}".encode())
+        rt = app.resources
+        for objs in (rt.pods, rt.deployments, rt.replica_sets, rt.stateful_sets, rt.daemon_sets, rt.jobs,
+                     rt.cron_jobs):
+            for o in objs:
+                raw = getattr(o, "raw", None)
+                if raw:
+                    h.update(json.dumps(raw, sort_keys=True, default=str).encode())
+                else:
+                    h.update(f"{type(o).__name__}|{o.metadata.namespace}|{o.metadata.name}|{o.metadata.uid}".encode())
+    return h.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# cache
+# ---------------------------------------------------------------------------
+
+
+class StaleFingerprintError(RuntimeError):
+    """A cache hit landed on an entry whose watched object was ``touch()``ed
+    after the entry was fingerprinted — the cached encoding no longer
+    matches the object's content. Fix: ``cache.invalidate(obj)`` after the
+    mutation. ``obj`` carries the offending object so the cache can evict
+    everything it taints."""
+
+    def __init__(self, message: str, obj: Optional[object] = None) -> None:
+        super().__init__(message)
+        self.obj = obj
+
+
+def _watched_objects(cluster: ResourceTypes, apps: List[AppResource]) -> List[object]:
+    """Every model object a (cluster, apps) fingerprint covers — the set
+    the stale-entry guard watches for version bumps."""
+    out: List[object] = []
+    for rt in [cluster] + [a.resources for a in apps]:
+        for objs in (rt.nodes, rt.pods, rt.deployments, rt.replica_sets, rt.stateful_sets, rt.daemon_sets,
+                     rt.jobs, rt.cron_jobs,
+                     # the raw kinds are versioned too: they enter no
+                     # fingerprint, but touch()/invalidate(obj) holds for
+                     # every model object a cluster carries
+                     rt.services, rt.pdbs, rt.storage_classes, rt.pvcs, rt.config_maps):
+            out.extend(objs)
+    return out
+
+
+#: (watched (object, version) pairs, touch epoch) — both captured at
+#: FINGERPRINT time, before the (possibly seconds-long) prepare runs, so a
+#: touch()+invalidate() landing during the build is not lost: the entry
+#: records pre-build versions and an epoch older than the touch, forcing the
+#: next check_fresh to scan and catch it.
+WatchSnapshot = Tuple[List[Tuple[object, int]], int]
+
+
+def watch_snapshot(cluster: ResourceTypes, apps: List[AppResource]) -> WatchSnapshot:
+    """Capture the stale-guard baseline for a (cluster, apps) pair. The
+    epoch is read BEFORE the versions: a touch interleaving between the
+    two reads then leaves the entry's epoch behind the global one, which
+    forces a full version scan on the next check_fresh."""
+    epoch = touch_epoch()
+    pairs = [(o, getattr(o, "_local_version", 0)) for o in _watched_objects(cluster, apps)]
+    return pairs, epoch
+
+
+@dataclass
+class CacheStats:
+    hits: int = 0
+    misses: int = 0
+    invalidations: int = 0
+    evictions: int = 0
+
+    def as_dict(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses, "invalidations": self.invalidations,
+                "evictions": self.evictions}
+
+
+class CacheEntry:
+    """One cached ``Prepared`` plus everything reuse needs: a pristine
+    bind-state snapshot, a lock serializing uses of the (shared) pod
+    objects, and the map from numpy leaves to their tensors on the device
+    so delta builds re-upload only the leaves they changed. Entries derived
+    from a base share the base's lock — their pod streams alias the same
+    objects. ``drop_mask`` is the pod-validity flip a derived entry serves
+    with (a scale request's). The entry turns on its Prepared's
+    ``inputs_memo``: a hit reuses the kernel's inputs, which live on the
+    device as long as the entry does."""
+
+    def __init__(self, key: str, prep: Optional[Prepared], base: Optional["CacheEntry"] = None,
+                 watch: Optional[WatchSnapshot] = None) -> None:
+        self.key = key
+        self.prep = prep
+        self.base = base
+        self.lock = base.lock if base is not None else threading.RLock()
+        self.bind_snap = snapshot_bind_state(prep) if prep is not None else []
+        if prep is not None and prep.inputs_memo is None:
+            prep.inputs_memo = {}
+        self.drop_mask: Optional[np.ndarray] = None
+        self._dev_map: Optional[dict] = None  # guarded-by: lock
+        # (object, version at fingerprint time): the stale-entry guard.
+        # Derived entries share the base's list: their stream aliases the
+        # same objects, and the base was proven fresh before the delta.
+        if watch is None and base is not None:
+            self.watched: List[Tuple[object, int]] = base.watched
+            self._touch_epoch = base._touch_epoch
+        elif watch is not None:
+            self.watched, self._touch_epoch = watch
+        else:
+            self.watched, self._touch_epoch = [], touch_epoch()
+
+    def restore(self) -> None:
+        if self.prep is not None:
+            restore_bind_state(self.prep, self.bind_snap)
+
+    def watches(self, obj: object) -> bool:
+        return any(o is obj for o, _ in self.watched)
+
+    def check_fresh(self) -> None:
+        """Raise StaleFingerprintError if any watched object was touched
+        since this entry was fingerprinted. ``touch()`` bumps a
+        process-global epoch, so when nothing anywhere was touched since
+        (the steady state) this is one integer compare; a clean scan re-arms
+        the fast path at the current epoch."""
+        epoch = touch_epoch()
+        if epoch == self._touch_epoch:
+            return
+        for obj, v0 in self.watched:
+            v1 = getattr(obj, "_local_version", 0)
+            if v1 != v0:
+                kind = getattr(obj, "kind", type(obj).__name__)
+                meta = getattr(obj, "metadata", None)
+                name = getattr(meta, "name", "?") if meta is not None else "?"
+                raise StaleFingerprintError(
+                    f"cached prepare is stale: {kind} {name!r} was touch()ed (version {v1} vs {v0} at "
+                    "fingerprint time) without cache invalidation; call cache.invalidate(obj) after mutating "
+                    "a fingerprinted object",
+                    obj=obj,
+                )
+        self._touch_epoch = epoch
+
+    def dev_map(self) -> dict:
+        """{id(numpy leaf): tensor on the device} over the entry's
+        EncodedCluster — delta assemblies reuse the uploaded tensor of
+        every leaf the delta did not touch."""
+        with self.lock:
+            if self._dev_map is None:
+                self._dev_map = {id(np_leaf): leaf for np_leaf, leaf in zip(self.prep.ec_np, self.prep.ec)}
+            return self._dev_map
+
+
+class PrepareCache:
+    """Thread-safe LRU of CacheEntry keyed by content fingerprint."""
+
+    def __init__(self, capacity: int = 8) -> None:
+        self.capacity = capacity
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[str, CacheEntry]" = OrderedDict()  # guarded-by: _lock
+        self.stats = CacheStats()
+
+    def get(self, key: str) -> Optional[CacheEntry]:
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                self.stats.misses += 1
+                return None
+            self._entries.move_to_end(key)
+            self.stats.hits += 1
+            return entry
+
+    def put(self, key: str, entry: CacheEntry) -> CacheEntry:
+        with self._lock:
+            existing = self._entries.get(key)
+            if existing is not None:
+                return existing  # racing builders: first one wins
+            self._entries[key] = entry
+            while len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)
+                self.stats.evictions += 1
+            return entry
+
+    def invalidate(self, target: Union[str, object] = "") -> int:
+        """Drop cache entries; returns the number dropped.
+
+        - ``invalidate()`` — everything;
+        - ``invalidate(prefix)`` — entries whose key starts with ``prefix``
+          (the REST server's path when the snapshot's fingerprint changes);
+        - ``invalidate(obj)`` — entries whose fingerprint covered the model
+          object ``obj`` (by identity): the call to make after mutating an
+          already-fingerprinted object in place. Pair with ``obj.touch()``
+          so a forgotten invalidation fails loudly (StaleFingerprintError)
+          instead of serving stale placements."""
+        with self._lock:
+            if isinstance(target, str):
+                doomed = [k for k in self._entries if k.startswith(target)]
+            else:
+                doomed = [k for k, e in self._entries.items() if e.watches(target)]
+            for k in doomed:
+                del self._entries[k]
+            self.stats.invalidations += len(doomed)
+        if doomed:
+            # the trace event outside the cache lock
+            from ..obs import trace as obs
+
+            obs.event("prepcache.invalidate", dropped=len(doomed))
+        return len(doomed)
+
+    def check_fresh(self, entry: CacheEntry) -> None:
+        """Entry freshness check that also EVICTS on staleness: a proven
+        stale entry can never become fresh again, and a REST client cannot
+        call invalidate(obj). Eviction is by the offending object, dropping
+        every entry it taints (a base entry and its derived full-key
+        entries share one watch list), then by the entry's key."""
+        from ..resilience import faults
+
+        try:
+            # a fault here (exc name ``stale``) lands like a mid-flight touch()
+            faults.fault_point("cache.stale")
+            entry.check_fresh()
+        except StaleFingerprintError as e:
+            from ..obs import trace as obs
+
+            obs.event("prepcache.stale", status="error", key=entry.key)
+            if e.obj is not None:
+                self.invalidate(e.obj)
+            self.invalidate(entry.key)
+            raise
+
+    def entries_snapshot(self) -> List[CacheEntry]:
+        """Point-in-time list of resident entries, LRU-oldest first."""
+        with self._lock:
+            return list(self._entries.values())
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+
+# ---------------------------------------------------------------------------
+# delta assembly
+# ---------------------------------------------------------------------------
+
+
+def _assemble_delta(base: Prepared, base_entry: Optional[CacheEntry], enc: ClusterEncoder, ordered: List[Pod],
+                    tmpl_parts: List, forced_parts: List, n_cluster: int, n_bare: int,
+                    ds_group_sizes: List[int]) -> Prepared:
+    """Build the forked encoder and put the result on the base's device,
+    reusing the base entry's tensors for the leaves the delta shares."""
     ec_np, st0_np, meta = enc.build()
-    ec, st0 = to_device(ec_np, st0_np, base.device)
+    reuse = base_entry.dev_map() if base_entry is not None and base_entry.prep is not None else None
+    ec, st0 = to_device(ec_np, st0_np, base.device, reuse=reuse)
+    parts = [np.asarray(p, dtype=np.int32) for p in tmpl_parts if len(p)]
+    fparts = [np.asarray(p, dtype=bool) for p in forced_parts if len(p)]
     return Prepared(
         ec=ec,
         st0=st0,
@@ -43,29 +374,83 @@ def _assemble_delta(
         st0_np=st0_np,
         meta=meta,
         ordered=ordered,
-        tmpl_ids=np.concatenate([np.asarray(p, dtype=np.int32) for p in tmpl_parts]),
-        forced=np.concatenate([np.asarray(p, dtype=bool) for p in forced_parts]),
+        tmpl_ids=np.concatenate(parts) if parts else np.zeros((0,), np.int32),
+        forced=np.concatenate(fparts) if fparts else np.zeros((0,), bool),
         ds_target=ds_targets(ordered, meta),
         features=kernels.features_of(ec_np),
         device=base.device,
         encoder=enc,
         n_cluster=n_cluster,
+        n_bare=n_bare,
         ds_group_sizes=ds_group_sizes,
     )
 
 
-def extend_with_nodes(
-    base: Prepared,
-    new_nodes: List,
-    cluster: ResourceTypes,
-    apps: List[AppResource],
-    use_greed: bool = False,
-) -> Optional[Prepared]:
+def _expand_app(cluster: ResourceTypes, app: AppResource, use_greed: bool) -> List[Pod]:
+    """The app expansion of ``simulator.prepare``."""
+    app_pods = expand.generate_pods_from_resources(app.resources, cluster.nodes)
+    for p in app_pods:
+        p.metadata.labels.setdefault(LABEL_APP_NAME, app.name)
+    app_pods = queues.toleration_sort(queues.affinity_sort(app_pods))
+    if use_greed:
+        app_pods = queues.greed_sort(cluster.nodes, app_pods)
+    return app_pods
+
+
+def derive_with_apps(base: Prepared, cluster: ResourceTypes, apps: List[AppResource], use_greed: bool = False,
+                     base_entry: Optional[CacheEntry] = None) -> Optional[Prepared]:
+    """Delta re-encode: the cached base's stream plus `apps` appended —
+    the stream ``prepare(cluster, apps)`` gives when the base was prepared
+    from the same cluster with no apps. `base_entry` (whose prep is
+    `base`) keeps the device tensors of unchanged leaves. Returns None
+    when the result would be empty."""
+    got = derive_with_app_slices(base, cluster, apps, use_greed=use_greed, base_entry=base_entry)
+    return None if got is None else got[0]
+
+
+def derive_with_app_slices(base: Prepared, cluster: ResourceTypes, apps: List[AppResource], use_greed: bool = False,
+                           base_entry: Optional[CacheEntry] = None
+                           ) -> Optional[Tuple[Prepared, List[Tuple[int, int]]]]:
+    """:func:`derive_with_apps` that also reports per-app stream slices:
+    ``(prep, slices)``, where ``slices[k] = (lo, hi)`` is the half-open
+    range app ``k``'s expanded pods occupy in ``prep.ordered``."""
+    if isinstance(base, CacheEntry):  # the entry accepted directly
+        base_entry, base = base, base.prep
+    t0 = time.monotonic()
+    enc = base.encoder.fork()
+    new_pods: List[Pod] = []
+    slices: List[Tuple[int, int]] = []
+    n_base = len(base.ordered)
+    for app in apps:
+        lo = n_base + len(new_pods)
+        new_pods.extend(_expand_app(cluster, app, use_greed))
+        slices.append((lo, n_base + len(new_pods)))
+    if not new_pods and not base.ordered:
+        return None
+    tmpl_new = [enc.add_pod(p, (lambda p=p: _owner_selector(p)), hint=_tmpl_hint(p)) for p in new_pods]
+    prep = _assemble_delta(
+        base, base_entry, enc,
+        ordered=list(base.ordered) + new_pods,
+        tmpl_parts=[base.tmpl_ids, tmpl_new],
+        forced_parts=[base.forced, [bool(p.spec.node_name) for p in new_pods]],
+        n_cluster=base.n_cluster,
+        n_bare=base.n_bare,
+        ds_group_sizes=list(base.ds_group_sizes),
+    )
+    PREP_STATS.record("delta_apps", time.monotonic() - t0)
+    return prep, slices
+
+
+def extend_with_nodes(base: Prepared, new_nodes: List, cluster: ResourceTypes, apps: List[AppResource],
+                      use_greed: bool = False, base_entry: Optional[CacheEntry] = None) -> Optional[Prepared]:
     """`base` (prepared from `cluster` and `apps`, its pods as prepared:
     restore them first if a simulation ran on it) plus `new_nodes`, as
-    ``prepare`` of the cluster with those nodes appended would encode it.
-    Returns None where a delta cannot reproduce a fresh prepare, and the
-    caller prepares afresh:
+    ``prepare`` of the cluster with those nodes appended would encode it:
+    the new nodes go into a fork of the base's encoder and their DaemonSet
+    pods are spliced into the stream where a fresh expansion puts them.
+    `base_entry` (whose prep is `base`) keeps the device tensors of
+    unchanged leaves. Returns None where a delta cannot reproduce a fresh
+    prepare, and the caller prepares afresh:
 
     - the greedy sort orders app pods by node totals, which the new nodes
       change, so the whole stream may reorder;
@@ -74,6 +459,7 @@ def extend_with_nodes(
     """
     if use_greed or any(a.resources.daemon_sets for a in apps):
         return None
+    t0 = time.monotonic()
     # per-DaemonSet pods for the new nodes, in cluster.daemon_sets order:
     # the order _cluster_pods expands them in
     groups_new = [expand.pods_from_daemon_set(ds, new_nodes) for ds in cluster.daemon_sets]
@@ -101,12 +487,92 @@ def extend_with_nodes(
     ordered.extend(base.ordered[base.n_cluster :])
     tmpl_parts.append(base.tmpl_ids[base.n_cluster :])
     forced_parts.append(base.forced[base.n_cluster :])
-    return _assemble_delta(
-        base,
-        enc,
+    prep = _assemble_delta(
+        base, base_entry, enc,
         ordered=ordered,
         tmpl_parts=tmpl_parts,
         forced_parts=forced_parts,
         n_cluster=base.n_cluster + sum(len(g) for g in groups_new),
+        n_bare=base.n_bare,
         ds_group_sizes=ds_group_sizes,
     )
+    PREP_STATS.record("delta_nodes", time.monotonic() - t0)
+    return prep
+
+
+def drop_mask_for_scaled(prep: Prepared, owned_by: Callable[[Pod, set], bool], scaled: set) -> np.ndarray:
+    """Valid-mask flip for a scale request: mark the BARE cluster pods owned
+    by the scaled workloads (the pods ``scale-apps`` removes from the
+    snapshot before re-simulating). Only the bare prefix is eligible — the
+    fresh path filters ``cluster.pods``, never workload expansions."""
+    mask = np.zeros((len(prep.ordered),), dtype=bool)
+    for i in range(prep.n_bare):
+        if owned_by(prep.ordered[i], scaled):
+            mask[i] = True
+    return mask
+
+
+def pad_drop_mask(mask: Optional[np.ndarray], n: int) -> Optional[np.ndarray]:
+    """Extend a base-entry drop mask to a longer derived stream. Safe for
+    both derive paths: ``derive_with_apps`` appends at the end and
+    ``extend_with_nodes`` splices only above the bare-pod prefix, while
+    drop masks only ever flag bare pods — set bits never move."""
+    if mask is None:
+        return None
+    if len(mask) >= n:
+        return mask[:n]
+    out = np.zeros((n,), dtype=bool)
+    out[: len(mask)] = mask
+    return out
+
+
+def union_drop_masks(a: Optional[np.ndarray], b: Optional[np.ndarray], n: int) -> Optional[np.ndarray]:
+    """Union of two (optional) drop masks, padded to stream length ``n``."""
+    a = pad_drop_mask(a, n)
+    b = pad_drop_mask(b, n)
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return a | b
+
+
+# ---------------------------------------------------------------------------
+# steady-state entry point
+# ---------------------------------------------------------------------------
+
+
+def simulate_cached(cluster: ResourceTypes, apps: List[AppResource], cache: PrepareCache, *,
+                    use_greed: bool = False, node_pad: int = 1, device=None, sched_config: Optional[object] = None,
+                    extra_plugins: tuple = (), tie_seed: Optional[int] = None,
+                    key: Optional[str] = None) -> SimulateResult:
+    """One full simulation through the encode cache: the first call for a
+    (cluster, apps) content key pays the full prepare; every later call
+    reuses the cached Prepared (fingerprint + bind-state restore — no
+    expansion, no encode). The entry's tensors live on `device` (the card
+    unless the caller names another); the device is part of the key."""
+    full_key = key or (
+        fingerprint_cluster(cluster) + "|" + fingerprint_apps(apps) + f"|g{int(use_greed)}|p{node_pad}|d{device}"
+    )
+    entry = cache.get(full_key)
+    if entry is None:
+        # baseline captured BEFORE the build: a touch()+invalidate() racing
+        # the prepare leaves this entry provably stale, not silently fresh
+        watch = watch_snapshot(cluster, apps)
+        prep = prepare(cluster, apps, use_greed=use_greed, node_pad=node_pad, device=device)
+        entry = cache.put(full_key, CacheEntry(full_key, prep, watch=watch))
+    else:
+        t0 = time.monotonic()
+        cache.check_fresh(entry)
+        with entry.lock:
+            entry.restore()
+        PREP_STATS.record("hit", time.monotonic() - t0)
+    if entry.prep is None:
+        return simulate(cluster, apps, use_greed=use_greed, node_pad=node_pad, device=device,
+                        sched_config=sched_config, extra_plugins=extra_plugins, tie_seed=tie_seed)
+    with entry.lock:
+        try:
+            return simulate(cluster, apps, sched_config=sched_config, extra_plugins=extra_plugins,
+                            tie_seed=tie_seed, prep=entry.prep)
+        finally:
+            entry.restore()

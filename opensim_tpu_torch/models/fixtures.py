@@ -733,6 +733,63 @@ def write_apply_plan(root, n_nodes: int, n_pods: int, n_hog: int) -> str:
     return str(config)
 
 
+# -- the server plan ------------------------------------------------------------
+#
+# `simon server` on the capacity fleet: the snapshot holds the first
+# SERVER_BOUND Deployments of the capacity plan, bound where a simulation
+# placed them; requests deploy the next SERVER_BOUND, scale the first and
+# add nodes of the fleet's shape.
+
+SERVER_BOUND = 10
+
+
+def server_apps(n_pods: int, lo: int, hi: int) -> ResourceTypes:
+    """Deployments bench-lo ... bench-(hi - 1) of :func:`synthetic_apps`."""
+    rt = ResourceTypes()
+    rt.deployments.extend(synthetic_apps(n_pods).deployments[lo:hi])
+    return rt
+
+
+def snapshot_pod(pod: Pod) -> dict:
+    """A placed pod as an apiserver lists it: Running on its node, owned by
+    its ReplicaSet, without the simulator's own ``simon/`` labels and
+    annotations."""
+    raw = json.loads(json.dumps(pod.raw))
+    meta = pod.metadata.to_dict()
+    for key in ("labels", "annotations"):
+        kept = {k: v for k, v in (meta.get(key) or {}).items() if not k.startswith("simon/")}
+        if kept:
+            meta[key] = kept
+        else:
+            meta.pop(key, None)
+    raw["metadata"] = meta
+    raw.setdefault("spec", {})["nodeName"] = pod.spec.node_name
+    raw["status"] = {"phase": "Running"}
+    return raw
+
+
+def seed_stub(stub, cluster: ResourceTypes, pods: List[dict]) -> None:
+    """Install a cluster in a stub apiserver (``server/stubapi.StubApiServer``)
+    as the snapshot lister reads it: each listed kind's manifests at its
+    list path, the pod manifests `pods` in place of ``cluster.pods``."""
+    from ..server.snapshot import RESOURCES
+
+    for spec in RESOURCES:
+        stub.seed(spec.path, pods if spec.field == "pods" else [o.raw for o in getattr(cluster, spec.field)])
+
+
+def server_requests(n_nodes: int, n_pods: int, n_new: int) -> Dict[str, dict]:
+    """The plan's request bodies: ``deploy`` the next SERVER_BOUND
+    Deployments, ``scale`` bench-0 to twice its replicas, ``newnodes`` the
+    deploy plus `n_new` nodes of the fleet's shape."""
+    deploy = {"deployments": [w.raw for w in server_apps(n_pods, SERVER_BOUND, 2 * SERVER_BOUND).deployments]}
+    bench0 = server_apps(n_pods, 0, 1).deployments[0]
+    cpu, memory, opts = _plan_workload(0)
+    scale = {"deployments": [make_fake_deployment("bench-0", 2 * bench0.replicas, cpu, memory, *opts).raw]}
+    newnodes = dict(deploy, newnodes=[_fleet_node(n_nodes + i).raw for i in range(n_new)])
+    return {"deploy": deploy, "scale": scale, "newnodes": newnodes}
+
+
 def _gpu_share(mem: str, count: str) -> Option:
     return with_annotations({"alibabacloud.com/gpu-mem": mem, "alibabacloud.com/gpu-count": count})
 

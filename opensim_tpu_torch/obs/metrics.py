@@ -1,0 +1,204 @@
+"""Latency histograms and the Prometheus text format of ``/metrics`` — the
+port's copy of ``opensim_tpu/obs/metrics.py``, with the families the
+port's server renders.
+
+It owns the ONE recording lock of the metrics surface: the REST layer's
+counters, these histograms and the span sink all record under
+:data:`RECORDER`'s RLock, so a scrape never interleaves with a recording.
+Label values are escaped per the exposition format (``\\`` → ``\\\\``,
+``"`` → ``\\"``, newline → ``\\n``).
+"""
+
+from __future__ import annotations
+
+import math
+import re
+import threading
+from typing import Dict, List, Sequence, Tuple
+
+__all__ = [
+    "DEFAULT_BUCKETS",
+    "FAMILIES",
+    "HistogramVec",
+    "MetricsRecorder",
+    "RECORDER",
+    "escape_label_value",
+    "family_header",
+    "parse_metrics",
+]
+
+# fixed bucket upper bounds in seconds (the +Inf bucket is implicit):
+# sub-ms cache hits through multi-second cold 50k-pod plans
+DEFAULT_BUCKETS: Tuple[float, ...] = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0,
+)
+
+#: The metric-family registry: ``name -> (help, type)`` for every family the
+#: port's server renders. Other modules emit headers through
+#: :func:`family_header`, so an unregistered family fails at render time.
+FAMILIES: Dict[str, Tuple[str, str]] = {
+    # serving counters (server/rest.py)
+    "simon_requests_total": ("Requests served by endpoint", "counter"),
+    "simon_simulations_total": ("Successful simulations", "counter"),
+    "simon_pods_scheduled_total": ("Pods placed across all simulations", "counter"),
+    "simon_pods_unscheduled_total": ("Pods left unschedulable", "counter"),
+    "simon_simulate_seconds_total": ("Wall seconds in successful simulations", "counter"),
+    "simon_prepare_seconds_total": ("Host-side expand+encode seconds", "counter"),
+    "simon_prep_cache_hits_total": ("Encode-cache hits", "counter"),
+    "simon_prep_cache_misses_total": ("Encode-cache misses", "counter"),
+    "simon_prep_cache_invalidations_total": ("Encode-cache invalidations", "counter"),
+    # resilience
+    "simon_request_timeouts_total": ("Requests 504ed at a deadline boundary", "counter"),
+    "simon_snapshot_fetch_retries_total": ("Snapshot fetch retry attempts", "counter"),
+    "simon_snapshot_stale_served_total": ("Requests served from a stale snapshot", "counter"),
+    "simon_stale_prep_retries_total": ("Stale prep-cache internal retries", "counter"),
+    "simon_faults_injected_total": ("Chaos faults injected by point", "counter"),
+    # latency (this module's RECORDER)
+    "simon_phase_seconds": ("Per-phase latency from the request span trees", "histogram"),
+    "simon_request_seconds": ("Whole-request latency by endpoint and outcome", "histogram"),
+}
+
+
+def exposition_headers(name: str, help_text: str, kind: str = "counter") -> List[str]:
+    """The ``# HELP``/``# TYPE`` header pair every rendered family carries."""
+    return [f"# HELP {name} {help_text}", f"# TYPE {name} {kind}"]
+
+
+def family_header(name: str) -> List[str]:
+    """``# HELP``/``# TYPE`` for a REGISTERED family; an unregistered one
+    raises."""
+    try:
+        help_text, kind = FAMILIES[name]
+    except KeyError:
+        raise KeyError(f"metric family {name!r} is not registered in obs/metrics.py FAMILIES") from None
+    return exposition_headers(name, help_text, kind)
+
+
+def escape_label_value(value: str) -> str:
+    """Prometheus exposition-format label escaping (text format §label
+    values): backslash, double quote, and line feed."""
+    return str(value).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _fmt_le(bound: float) -> str:
+    return "+Inf" if math.isinf(bound) else f"{bound:g}"
+
+
+_SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?\s+([0-9eE+.\-]+|\+Inf|NaN)$")
+_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+MetricKey = Tuple[str, Tuple[Tuple[str, str], ...]]
+
+
+def parse_metrics(text: str) -> Dict[MetricKey, float]:
+    """Exposition text → ``{(name, sorted label items): value}``: the
+    inverse of the render path, for clients of ``/metrics``."""
+    out: Dict[MetricKey, float] = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = _SAMPLE.match(line)
+        if not m:
+            continue
+        name, labels_body, value = m.groups()
+        labels = tuple(sorted(
+            (k, v.replace('\\"', '"').replace("\\\\", "\\")) for k, v in _LABEL.findall(labels_body or "")
+        ))
+        out[(name, labels)] = float(value)
+    return out
+
+
+class HistogramVec:
+    """One histogram family over a fixed label set. Not self-locking: every
+    mutation and read happens under the owning :class:`MetricsRecorder`'s
+    lock."""
+
+    def __init__(self, name: str, label_names: Sequence[str], buckets: Sequence[float] = DEFAULT_BUCKETS) -> None:
+        help_text, kind = FAMILIES[name]  # KeyError = unregistered family
+        if kind != "histogram":
+            raise ValueError(f"{name} is registered as {kind}, not histogram")
+        self.name = name
+        self.label_names = tuple(label_names)
+        self.buckets = tuple(buckets) + (math.inf,)
+        self.help = help_text
+        # label-values tuple -> [per-bucket counts..., count, sum]
+        self._series: Dict[Tuple[str, ...], list] = {}  # guarded-by: RECORDER.lock
+
+    def observe(self, seconds: float, labels: Tuple[str, ...]) -> None:
+        series = self._series.get(labels)
+        if series is None:
+            series = self._series[labels] = [0] * len(self.buckets) + [0, 0.0]
+        for i, bound in enumerate(self.buckets):
+            if seconds <= bound:
+                series[i] += 1
+                break
+        series[-2] += 1
+        series[-1] += seconds
+
+    def render_lines(self) -> List[str]:
+        if not self._series:
+            return []
+        lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} histogram"]
+        for labels in sorted(self._series):
+            series = self._series[labels]
+            base = ",".join(f'{k}="{escape_label_value(v)}"' for k, v in zip(self.label_names, labels))
+            sep = "," if base else ""
+            wrap = f"{{{base}}}" if base else ""
+            cum = 0
+            for i, bound in enumerate(self.buckets):
+                cum += series[i]
+                lines.append(f'{self.name}_bucket{{{base}{sep}le="{_fmt_le(bound)}"}} {cum}')
+            lines.append(f"{self.name}_sum{wrap} {series[-1]:.6f}")
+            lines.append(f"{self.name}_count{wrap} {series[-2]}")
+        return lines
+
+    def reset(self) -> None:
+        self._series.clear()
+
+
+class MetricsRecorder:
+    """The locked recorder every metrics mutation routes through: phase and
+    request latency histograms fed from trace spans, plus the shared RLock
+    the REST counters borrow."""
+
+    def __init__(self) -> None:
+        self.lock = threading.RLock()
+        self.phase_seconds = HistogramVec("simon_phase_seconds", ("phase", "endpoint"))
+        self.request_seconds = HistogramVec("simon_request_seconds", ("endpoint", "status"))
+
+    def observe_request(self, endpoint: str, seconds: float, status: str = "ok") -> None:
+        """Whole-request latency, recorded for every outcome (labeled with
+        the trace status), with or without tracing enabled."""
+        with self.lock:
+            self.request_seconds.observe(seconds, (endpoint, status))
+
+    def observe_trace(self, trace) -> None:
+        """The span sink: fold a finished trace's phase spans into the
+        per-phase histograms, so the histograms and the flight-recorder
+        tree are computed from the same span objects."""
+        from .trace import PHASES
+
+        phases = set(PHASES)
+        with self.lock:
+            for sp in trace.walk():
+                if sp.name in phases:
+                    self.phase_seconds.observe(sp.duration_s, (sp.name, trace.endpoint))
+
+    def simulate_seconds_total(self) -> float:
+        """``simon_simulate_seconds_total``, derived from the request
+        histogram's ``status="ok"`` series."""
+        with self.lock:
+            return sum(s[-1] for labels, s in self.request_seconds._series.items() if labels[1] == "ok")
+
+    def render_lines(self) -> List[str]:
+        with self.lock:
+            return self.phase_seconds.render_lines() + self.request_seconds.render_lines()
+
+    def reset(self) -> None:
+        with self.lock:
+            self.phase_seconds.reset()
+            self.request_seconds.reset()
+
+
+RECORDER = MetricsRecorder()

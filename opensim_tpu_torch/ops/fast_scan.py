@@ -71,9 +71,10 @@ import math
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, NamedTuple, Optional
+from typing import Dict, Iterable, List, NamedTuple, Optional
 
 import torch
 
@@ -528,6 +529,7 @@ class _Args(ctypes.Structure):
 #: Loaded shared objects by variant name; one per variant, each holding
 #: only its own instantiation of the kernels, and ptxas's report of each.
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_BUILD_LOCK = threading.Lock()
 _PTXAS: Dict[str, Dict[str, dict]] = {}
 #: The last build() call: its wall-clock seconds, and per variant name the
 #: library, the nvcc seconds (None when the library was already built) and
@@ -573,7 +575,18 @@ def build(names: Iterable[str]) -> None:
     strings): one ``nvcc -DFS_VARIANT=<bits>`` per variant not yet built,
     all started together, into ``_build/`` (cached by source, flags and
     variant; ptxas's log beside each library). Raises when a build fails;
-    there is no fallback."""
+    there is no fallback. One build runs at a time (``_BUILD_LOCK``): two
+    threads that launch the same variant at once (the server's two
+    endpoints) compile it once, and a launch of a loaded variant does not
+    wait for another's compile."""
+    names = list(names)
+    if all(n in _LIBS for n in names):
+        return
+    with _BUILD_LOCK:
+        _build_locked(names)
+
+
+def _build_locked(names: List[str]) -> None:
     t0 = time.perf_counter()
     todo = {n: parse_variant(n) for n in names if n not in _LIBS}
     if not todo:

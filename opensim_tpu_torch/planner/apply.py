@@ -22,9 +22,9 @@ sampled tie-break (``--tie-break sample[:seed]``) to the simulations,
 while the sweeps keep the lowest index, as the reference's planner does.
 ``--explain`` runs the first simulation and the re-simulation in explain
 mode and appends the placement audit to the report (the interactive
-loop's simulations run without it, as the reference's do). Left for a
-later slice, raising ``NotImplementedError``: a ``kubeConfig`` cluster
-(ROADMAP Queue 1 item 6).
+loop's simulations run without it, as the reference's do). A
+``kubeConfig`` cluster is listed from its apiserver
+(``server/snapshot.cluster_from_kubeconfig``).
 """
 
 from __future__ import annotations
@@ -205,10 +205,9 @@ class Applier:
 
     def load_cluster(self) -> ResourceTypes:
         if self.config.kube_config:
-            raise NotImplementedError(
-                "simon apply with spec.cluster.kubeConfig (a live-cluster snapshot): ROADMAP Queue 1 item 6, "
-                "not yet ported"
-            )
+            from ..server.snapshot import cluster_from_kubeconfig
+
+            return cluster_from_kubeconfig(_resolve(self.base, self.config.kube_config))
         return expand.load_cluster_from_dir(_resolve(self.base, self.config.custom_cluster))
 
     def load_apps(self) -> List[AppResource]:

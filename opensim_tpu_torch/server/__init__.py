@@ -1,0 +1,3 @@
+"""``simon server`` of the port: the REST server (``rest``), the
+live-cluster snapshot (``snapshot``) and the stub apiserver tests and the
+smoke run list from (``stubapi``)."""

@@ -1,0 +1,893 @@
+"""``simon server`` of the port — the REST server of ``pkg/server/server.go``
+and ``opensim_tpu/server/rest.py``: ``GET /healthz``, ``POST
+/api/deploy-apps`` and ``POST /api/scale-apps`` with the reference's
+request and response DTOs (``server.go:48-93``), ``GET /metrics``, the
+flight recorder (``GET /api/debug/requests[/<id>]``) and the decision
+audit of ``?explain=1`` requests (``GET /api/debug/placements/<id>``).
+
+A request goes through the encode cache (``engine/prepcache.py``): the
+cluster snapshot's prepared encoding is kept across requests, and a
+request re-encodes only its delta — its app's pods appended, the node axis
+extended by its ``newnodes``, a scale request's removed pods flipped
+invalid — and is placed by one launch of the bind-scan kernel on the card
+(``fast_scan_kernel``, its ``[explain]`` variant for ``explain=1``). There
+is no fallback: a failed build or launch answers 500.
+
+The snapshot comes from an apiserver through ``server/snapshot.py``
+(``--kubeconfig``), cached for ``snapshot_ttl_s`` and fingerprinted, or is
+a fixed ``base_cluster``. Requests are single-flight per endpoint, the
+reference's TryLock 503 (``server.go:167,:234``). Not ported yet, and
+refused rather than approximated: the admission queue and request batching
+(ROADMAP Queue 1 item 8); the capacity report, the capacity timeline and
+campaigns (item 7); the live twin, the journal, the serving fleet, the
+memory observatory, the time series and the profiler (item 10) — their
+routes answer 501 naming the item.
+"""
+
+from __future__ import annotations
+
+import copy
+import hashlib
+import json
+import logging
+import signal
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import List, Optional, Tuple
+
+from ..device import DeviceLike, resolve_device
+from ..engine import prepcache
+from ..engine.simulator import AppResource, SimulateResult, prepare, simulate
+from ..models.expand import new_fake_nodes
+from ..models.objects import LABEL_APP_NAME, Node, ResourceTypes, object_from_dict
+from ..obs import trace as tracing
+from ..obs.metrics import RECORDER, escape_label_value, family_header
+from ..obs.recorder import FLIGHT_RECORDER
+from ..resilience import faults
+from ..resilience.deadline import Deadline, DeadlineExceeded, check_deadline, deadline_scope
+from ..resilience.retry import retry_call
+from ..utils import envknobs
+from ..utils.trace import PREP_STATS
+from .snapshot import SnapshotFetchError, SnapshotUnavailable, cluster_from_kubeconfig, snapshot_retry_policy
+
+log = logging.getLogger("opensim_tpu_torch.server")
+# structured access log (OPENSIM_ACCESS_LOG=1): one JSON object per line
+_ACCESS_LOG = logging.getLogger("opensim_tpu_torch.access")
+
+#: Routes of the reference's server that later slices bring, each with its
+#: ROADMAP Queue 1 item: they answer 501 naming it.
+NOT_PORTED = {
+    "/api/cluster/report": 7,
+    "/api/debug/capacity": 7,
+    "/api/campaign": 7,
+    "/api/debug/memory": 10,
+    "/api/debug/profile": 10,
+    "/api/debug/timeseries": 10,
+    "/api/fleet/": 10,
+    "/debug/profiler": 10,
+}
+
+# per-request state (one HTTP request = one handler thread): whether THIS
+# request's result was computed from a stale snapshot, and its request id
+_REQUEST_STATE = threading.local()
+
+
+def _mark_request_snapshot(stale: bool) -> None:
+    _REQUEST_STATE.snapshot_stale = stale
+
+
+def request_served_stale() -> bool:
+    """Did the current thread's request get served from a stale snapshot?"""
+    return getattr(_REQUEST_STATE, "snapshot_stale", False)
+
+
+def last_request_id() -> str:
+    """The request id of the current thread's request (the client's
+    ``X-Simon-Request-Id`` honored, generated otherwise)."""
+    return getattr(_REQUEST_STATE, "request_id", "")
+
+
+def _not_ported(path: str) -> Optional[int]:
+    """The ROADMAP item that brings `path`, None for a route served here."""
+    path = path.split("?", 1)[0]
+    for route, item in NOT_PORTED.items():
+        if path == route or (route.endswith("/") and path.startswith(route)) or path.startswith(route + "/"):
+            return item
+    return None
+
+
+class _Metrics:
+    """A server's counters at ``/metrics`` in the Prometheus text format.
+    Every mutation takes the one recorder lock shared with the span sink
+    and the latency histograms (``obs.metrics.RECORDER``), so a scrape
+    never interleaves with a recording."""
+
+    def __init__(self) -> None:
+        self.lock = RECORDER.lock
+        self.requests = {"deploy-apps": 0, "scale-apps": 0}
+        self.simulations = 0
+        self.pods_scheduled = 0
+        self.pods_unscheduled = 0
+        self.request_timeouts = 0
+        self.snapshot_retries = 0
+        self.snapshot_stale_served = 0
+        self.stale_prep_retries = 0
+
+    def record(self, endpoint: str, result: SimulateResult) -> None:
+        with self.lock:
+            self.requests[endpoint] = self.requests.get(endpoint, 0) + 1
+            self.simulations += 1
+            self.pods_scheduled += sum(len(ns.pods) for ns in result.node_status)
+            self.pods_unscheduled += len(result.unscheduled_pods)
+
+    def bump(self, counter: str, n: int = 1) -> None:
+        with self.lock:
+            setattr(self, counter, getattr(self, counter) + n)
+
+    def render(self, prep_cache: Optional[prepcache.PrepareCache]) -> str:
+        esc, hdr = escape_label_value, family_header
+        with self.lock:
+            lines = [
+                *hdr("simon_requests_total"),
+                *(f'simon_requests_total{{endpoint="{esc(ep)}"}} {n}' for ep, n in sorted(self.requests.items())),
+                *hdr("simon_simulations_total"), f"simon_simulations_total {self.simulations}",
+                *hdr("simon_pods_scheduled_total"), f"simon_pods_scheduled_total {self.pods_scheduled}",
+                *hdr("simon_pods_unscheduled_total"), f"simon_pods_unscheduled_total {self.pods_unscheduled}",
+                *hdr("simon_simulate_seconds_total"),
+                f"simon_simulate_seconds_total {RECORDER.simulate_seconds_total():.6f}",
+            ]
+        lines += [*hdr("simon_prepare_seconds_total"), f"simon_prepare_seconds_total {PREP_STATS.total_seconds():.6f}"]
+        if prep_cache is not None:
+            st = prep_cache.stats
+            lines += [
+                *hdr("simon_prep_cache_hits_total"), f"simon_prep_cache_hits_total {st.hits}",
+                *hdr("simon_prep_cache_misses_total"), f"simon_prep_cache_misses_total {st.misses}",
+                *hdr("simon_prep_cache_invalidations_total"),
+                f"simon_prep_cache_invalidations_total {st.invalidations}",
+            ]
+        with self.lock:
+            lines += [
+                *hdr("simon_request_timeouts_total"), f"simon_request_timeouts_total {self.request_timeouts}",
+                *hdr("simon_snapshot_fetch_retries_total"),
+                f"simon_snapshot_fetch_retries_total {self.snapshot_retries}",
+                *hdr("simon_snapshot_stale_served_total"),
+                f"simon_snapshot_stale_served_total {self.snapshot_stale_served}",
+                *hdr("simon_stale_prep_retries_total"), f"simon_stale_prep_retries_total {self.stale_prep_retries}",
+            ]
+        fired = sorted(faults.fault_stats().items())
+        if fired:
+            lines += hdr("simon_faults_injected_total")
+            lines += [f'simon_faults_injected_total{{point="{esc(point)}"}} {n}' for point, n in fired]
+        # per-phase / per-endpoint latency histograms, from the same spans
+        # the flight recorder serves
+        lines += RECORDER.render_lines()
+        return "\n".join(lines) + "\n"
+
+
+def _decode_app(payload: dict) -> ResourceTypes:
+    rt = ResourceTypes()
+    kind_map = {
+        "pods": "Pod",
+        "deployments": "Deployment",
+        "daemonsets": "DaemonSet",
+        "DaemonSets": "DaemonSet",
+        "statefulsets": "StatefulSet",
+        "StatefulSets": "StatefulSet",
+        "Jobs": "Job",
+        "jobs": "Job",
+        "ConfigMaps": "ConfigMap",
+        "configmaps": "ConfigMap",
+        "Deployments": "Deployment",
+        "Pods": "Pod",
+    }
+    for key, kind in kind_map.items():
+        for obj in payload.get(key) or []:
+            obj = dict(obj)
+            obj.setdefault("kind", kind)
+            decoded = object_from_dict(obj)
+            if decoded is not None:
+                rt.add(decoded)
+    return rt
+
+
+def _decode_new_nodes(payload: dict) -> List[Node]:
+    """Requested nodes become fake nodes exactly like the apply path
+    (server.go:187-194 → NewFakeNode): fresh simon-<rand> name, hostname
+    label rewritten, simon/new-node marker."""
+    nodes = []
+    for obj in payload.get("newnodes") or payload.get("NewNodes") or []:
+        obj = dict(obj)
+        obj.setdefault("kind", "Node")
+        nodes.extend(new_fake_nodes(Node.from_dict(obj), 1))
+    return nodes
+
+
+def _response(result: SimulateResult, explain: bool = False) -> dict:
+    """getSimulateResponse (server.go:446-470): names only; node entries only
+    for nodes holding app pods. ``explain=1`` upgrades each unscheduled
+    entry with its typed reason breakdown and adds the per-filter reject
+    totals — additive, so existing clients are unaffected."""
+    expl_by_pod = {}
+    if explain and result.explanations:
+        expl_by_pod = {e.pod: e for e in result.explanations}
+    out = {"unscheduledPods": [], "nodeStatus": []}
+    for up in result.unscheduled_pods:
+        name = f"{up.pod.metadata.namespace}/{up.pod.metadata.name}"
+        entry = {"pod": name, "reason": up.reason}
+        e = expl_by_pod.get(name)
+        if e is not None:
+            entry["explanation"] = e.to_dict()
+        out["unscheduledPods"].append(entry)
+    for ns in result.node_status:
+        pods = [f"{p.metadata.namespace}/{p.metadata.name}" for p in ns.pods if LABEL_APP_NAME in p.metadata.labels]
+        if pods:
+            out["nodeStatus"].append({"node": ns.node.metadata.name, "pods": pods})
+    if explain and result.filter_rejects is not None:
+        out["filterRejects"] = result.filter_rejects
+    return out
+
+
+def _explain_store_n() -> int:
+    """Per-trace cap on stored explanations: the ring holds N traces, and a
+    50k-pod audit would pin 50k dicts per trace. A typo'd knob degrades to
+    the default with a warning."""
+    raw = envknobs.raw("OPENSIM_EXPLAIN_STORE_N")
+    try:
+        return max(1, int(raw)) if raw else 512
+    except ValueError:
+        log.warning("ignoring unparseable OPENSIM_EXPLAIN_STORE_N=%r (using 512)", raw)
+        return 512
+
+
+def _placements_payload(rid: str, result: SimulateResult) -> dict:
+    """The serialized decision audit stored on the request's trace for
+    ``GET /api/debug/placements/<request-id>``: unschedulable records first
+    (they are what the endpoint exists for), scheduled records filling the
+    remaining cap."""
+    explanations = result.explanations or []
+    kept = sorted(explanations, key=lambda e: e.status == "scheduled")[:_explain_store_n()]
+    return {
+        "request_id": rid,
+        "engine": result.engine,
+        "filter_rejects": result.filter_rejects or {},
+        "pods_total": len(explanations),
+        "truncated": max(0, len(explanations) - len(kept)),
+        "explanations": [e.to_dict() for e in kept],
+    }
+
+
+def _admission_requested(admission) -> bool:
+    if admission is None:
+        return envknobs.raw("OPENSIM_ADMISSION", "off").strip().lower() in ("1", "on", "true", "yes")
+    return bool(admission)
+
+
+class SimonServer:
+    """The serving state: the snapshot (polled from `kubeconfig` and cached
+    for `snapshot_ttl_s`, or the fixed `base_cluster`), the encode cache
+    (`prep_cache`: None builds one unless ``OPENSIM_PREP_CACHE=0``, False
+    disables it and every request prepares afresh), the device the
+    simulations run on (the card unless `device` names another; without a
+    card this raises here, before any request) and one single-flight lock
+    per endpoint."""
+
+    def __init__(
+        self,
+        kubeconfig: str = "",
+        master: str = "",
+        base_cluster: Optional[ResourceTypes] = None,
+        snapshot_ttl_s: float = 30.0,
+        prep_cache=None,
+        admission=None,
+        device: DeviceLike = None,
+    ):
+        if _admission_requested(admission):
+            raise NotImplementedError(
+                "the admission queue and request batching (admission=True, OPENSIM_ADMISSION=on) are ROADMAP "
+                "Queue 1 item 8, not yet ported; the port serves single-flight"
+            )
+        self.device = resolve_device(device)
+        self.kubeconfig = kubeconfig
+        self.master = master
+        self.base_cluster = base_cluster
+        # the reference serves from its warm informer cache
+        # (pkg/server/server.go:97-137); here the snapshot is cached between
+        # requests, snapshot_ttl_s bounding its staleness (<= 0: re-list
+        # every request)
+        self.snapshot_ttl_s = snapshot_ttl_s
+        self._snapshot: Optional[ResourceTypes] = None
+        self._snapshot_at = 0.0
+        self._snapshot_fp: Optional[str] = None
+        # keeps (snapshot, fingerprint) pairs coherent across the two
+        # endpoints' threads and collapses concurrent refreshes into one fetch
+        self._snapshot_lock = threading.RLock()
+        # degradation: when the apiserver stays down through every retry,
+        # requests are served from the last good snapshot, tagged
+        # X-Simon-Snapshot: stale
+        self.snapshot_stale = False
+        self._snapshot_fetched_at = 0.0
+        if prep_cache is None and envknobs.raw("OPENSIM_PREP_CACHE", "1") != "0":
+            prep_cache = prepcache.PrepareCache()
+        self.prep_cache = prep_cache if prep_cache is not False else None
+        self.metrics = _Metrics()
+        self._deploy_lock = threading.Lock()  # single-flight: spans the whole simulation
+        self._scale_lock = threading.Lock()
+
+    def metrics_text(self) -> str:
+        """The ``/metrics`` body."""
+        return self.metrics.render(self.prep_cache)
+
+    # -- snapshot -------------------------------------------------------------
+
+    def current_cluster(self) -> ResourceTypes:
+        """The snapshot for the legacy (cache-off) path: each request gets
+        its own copy, since simulate() writes into pods and nodes."""
+        if self.base_cluster is not None:
+            return self.base_cluster
+        if self.kubeconfig:
+            self._refresh_snapshot()
+            return copy.deepcopy(self._snapshot)
+        return ResourceTypes()
+
+    def _refresh_snapshot(self) -> None:
+        with self._snapshot_lock:
+            self._refresh_snapshot_locked()
+
+    def _refresh_snapshot_locked(self) -> None:
+        now = time.monotonic()
+        if self._snapshot is not None and not (self.snapshot_ttl_s <= 0 or now - self._snapshot_at > self.snapshot_ttl_s):
+            # within the TTL window after a degrade the cached snapshot is
+            # still the stale one: this request is tagged too
+            _mark_request_snapshot(self.snapshot_stale)
+            return
+        check_deadline("snapshot")
+        attempts, base_delay = snapshot_retry_policy()
+
+        def _fetch() -> ResourceTypes:
+            faults.fault_point("snapshot.http")
+            return cluster_from_kubeconfig(self.kubeconfig, self.master)
+
+        def _note_retry(attempt: int, exc: BaseException, delay: float) -> None:
+            self.metrics.bump("snapshot_retries")
+            log.warning("snapshot fetch attempt %d failed (%s: %s); retrying in %.3fs",
+                        attempt + 1, type(exc).__name__, exc, delay)
+
+        with tracing.span("snapshot") as snap_span:
+            try:
+                # the one retry layer of the snapshot fetch; only the
+                # transient class retries — a missing kubeconfig or an auth
+                # misconfiguration will not heal and surfaces now
+                self._snapshot = retry_call(
+                    _fetch, attempts=attempts, base_delay=base_delay, retry_on=(SnapshotFetchError, TimeoutError),
+                    on_retry=_note_retry, trace_name="snapshot.retry",
+                )
+            except (SnapshotFetchError, TimeoutError) as e:
+                if self._snapshot is not None:
+                    # degrade: serve the last good snapshot, tagged stale, and
+                    # re-arm the TTL so a down apiserver is probed once per
+                    # TTL window instead of on every request
+                    self.snapshot_stale = True
+                    _mark_request_snapshot(True)
+                    self._snapshot_at = now
+                    self.metrics.bump("snapshot_stale_served")
+                    snap_span.mark("demoted", reason="stale snapshot served",
+                                   age_s=round(now - self._snapshot_fetched_at, 3),
+                                   error=f"{type(e).__name__}: {e}")
+                    log.warning("snapshot refresh failed after %d attempt(s) (%s: %s); serving stale snapshot "
+                                "(age %.1fs)", attempts, type(e).__name__, e, now - self._snapshot_fetched_at)
+                    return
+                raise SnapshotUnavailable(f"cluster snapshot unavailable after {attempts} attempt(s): {e}") from e
+        self._snapshot_at = now
+        self._snapshot_fetched_at = now
+        self.snapshot_stale = False
+        _mark_request_snapshot(False)
+        self._snapshot_fp = None  # re-fingerprint lazily
+
+    def _snapshot_for_cache(self) -> Tuple[ResourceTypes, str]:
+        """(cluster, content fingerprint) for the encode-cache path — no
+        defensive copy: the cached Prepared owns sanitized pod copies and
+        its bind state is restored after every use, so the snapshot objects
+        are never written. A fingerprint change (a refresh picked up cluster
+        changes) invalidates the entries of the old one."""
+        if self.base_cluster is not None:
+            with self._snapshot_lock:
+                if self._snapshot_fp is None:
+                    self._snapshot_fp = prepcache.fingerprint_cluster(self.base_cluster)
+                return self.base_cluster, self._snapshot_fp
+        if self.kubeconfig:
+            # fetch + fingerprint + invalidation under ONE lock: a concurrent
+            # refresh swapping the snapshot between the two reads would cache
+            # a prepare under the wrong fingerprint
+            with self._snapshot_lock:
+                old_fp = self._snapshot_fp
+                self._refresh_snapshot_locked()
+                if self._snapshot_fp is None:
+                    self._snapshot_fp = prepcache.fingerprint_cluster(self._snapshot)
+                    if old_fp is not None and old_fp != self._snapshot_fp:
+                        self.prep_cache.invalidate(old_fp)
+                return self._snapshot, self._snapshot_fp
+        return ResourceTypes(), "empty"
+
+    def kernel_variants(self) -> List[str]:
+        """The kernel variants this server's requests launch on its current
+        snapshot (:func:`snapshot_variants`) and the base variant, each
+        also in explain mode. A request whose app brings other features
+        (GPU shares, ports, volumes, inter-pod terms) builds its variant
+        when it first needs it."""
+        names = {"fast_scan", "fast_scan[explain]"}
+        if self.base_cluster is not None or self.kubeconfig:
+            cluster = self._snapshot_for_cache()[0] if self.prep_cache is not None else self.current_cluster()
+            names |= snapshot_variants(cluster)
+        return sorted(names)
+
+    # -- simulation -----------------------------------------------------------
+
+    def _simulate_request(self, kind: str, payload: dict, explain: bool = False) -> SimulateResult:
+        """`_simulate_request_once` plus stale-entry recovery: a
+        ``StaleFingerprintError`` means a fingerprinted object was
+        ``touch()``ed behind the cache's back, and
+        ``PrepareCache.check_fresh`` already evicted everything it taints,
+        so ONE internal retry re-prepares from the live objects (a REST
+        client cannot call ``invalidate(obj)``). A second stale failure
+        propagates as a typed 500."""
+        try:
+            return self._simulate_request_once(kind, payload, explain=explain)
+        except prepcache.StaleFingerprintError as e:
+            self.metrics.bump("stale_prep_retries")
+            log.warning("stale prepare-cache entry (%s); retrying once after eviction", e)
+            return self._simulate_request_once(kind, payload, explain=explain)
+
+    def _simulated(self, rung: str, t_cache: float, cluster: ResourceTypes, apps: List[AppResource], explain: bool,
+                   **kw) -> SimulateResult:
+        """simulate() on this server's device, with the cache rung the
+        request took and the host-clock times of its phases (the cache's
+        work, then simulate()'s prepare, inputs, kernel and decode) on the
+        request's trace."""
+        with tracing.span("simulate", rung=rung) as sp:
+            result = simulate(cluster, apps, device=self.device, explain=explain, **kw)
+            for phase, seconds in result.timings.items():
+                sp.child_from_seconds(phase, seconds)
+        tr = tracing.current_trace()
+        if tr is not None:
+            tr.root.set(rung=rung, cache_s=round(t_cache, 6), engine=result.engine,
+                        **{f"{k}_s": round(v, 6) for k, v in result.timings.items()})
+        return result
+
+    def _simulate_request_once(self, kind: str, payload: dict, explain: bool = False) -> SimulateResult:
+        """Shared deploy/scale simulation through the encode cache, by rung:
+
+        1. an identical repeated request → full-key hit: restore + simulate,
+           no re-encode (``hit``);
+        2. a known snapshot → base-entry delta: append the request's app
+           pods, extend the nodes by its ``newnodes``, flip the pod-validity
+           bits of scaled-away pods (``delta``);
+        3. cold → one full prepare of the snapshot, cached for 1 and 2,
+           then the delta (``cold``).
+        """
+        t0 = time.monotonic()
+        new_nodes = _decode_new_nodes(payload)
+        app = _decode_app(payload)
+        apps = [AppResource(kind, app)]
+        scaled: set = set()
+        if kind == "scale":
+            scaled = {(w.kind, w.metadata.namespace, w.metadata.name)
+                      for w in app.deployments + app.daemon_sets + app.stateful_sets}
+
+        if self.prep_cache is None:
+            # per-request snapshot copy + full prepare
+            cluster = _with_new_nodes(self.current_cluster(), new_nodes)
+            if scaled:
+                cluster.pods = [p for p in cluster.pods if not _owned_by(p, scaled)]
+            return self._simulated("uncached", time.monotonic() - t0, cluster, apps, explain)
+
+        cluster0, fp = self._snapshot_for_cache()
+        cluster = _with_new_nodes(cluster0, new_nodes)
+
+        def _filtered() -> ResourceTypes:
+            # only the full-prepare fallbacks need the scaled pods removed
+            # from the input; the cached paths mask them out instead
+            if not scaled:
+                return cluster
+            out = _with_new_nodes(cluster0, new_nodes)
+            out.pods = [p for p in cluster0.pods if not _owned_by(p, scaled)]
+            return out
+
+        payload_fp = hashlib.blake2b(json.dumps(payload, sort_keys=True, default=str).encode(),
+                                     digest_size=16).hexdigest()
+        full_key = f"{fp}|{kind}|{payload_fp}"
+        # full-key reuse only without newnodes: fake-node names are fresh per
+        # request, and a cached derived prep would replay the first
+        # request's names into later responses
+        entry = self.prep_cache.get(full_key) if not new_nodes else None
+        if entry is not None and entry.prep is not None:
+            self.prep_cache.check_fresh(entry)
+            with entry.lock:
+                t1 = time.monotonic()
+                entry.restore()
+                PREP_STATS.record("hit", time.monotonic() - t1)
+                try:
+                    return self._simulated("hit", time.monotonic() - t0, cluster, apps, explain, prep=entry.prep,
+                                           drop_pods=entry.drop_mask)
+                finally:
+                    entry.restore()
+
+        base_key = f"{fp}|base"
+        base = self.prep_cache.get(base_key)
+        rung = "delta"
+        if base is None:
+            watch = prepcache.watch_snapshot(cluster0, [])  # before the build
+            base = self.prep_cache.put(
+                base_key, prepcache.CacheEntry(base_key, prepare(cluster0, [], device=self.device), watch=watch))
+            rung = "cold"
+        if base.prep is None:
+            # a snapshot with no schedulable pods: nothing worth caching
+            return self._simulated("empty", time.monotonic() - t0, _filtered(), apps, explain)
+        self.prep_cache.check_fresh(base)
+        with base.lock:
+            base.restore()
+            base_prep = base.prep
+            if new_nodes:
+                base_prep = prepcache.extend_with_nodes(base_prep, new_nodes, cluster0, [], base_entry=base)
+            derived = (prepcache.derive_with_apps(base_prep, cluster, apps, base_entry=base if not new_nodes else None)
+                       if base_prep is not None else None)
+            if derived is None:
+                return self._simulated(f"{rung}: full prepare", time.monotonic() - t0, _filtered(), apps, explain)
+            drop = prepcache.drop_mask_for_scaled(derived, _owned_by, scaled) if scaled else None
+            entry = prepcache.CacheEntry(full_key, derived, base=base)
+            entry.drop_mask = drop
+            if not new_nodes:
+                self.prep_cache.put(full_key, entry)
+            try:
+                return self._simulated(rung, time.monotonic() - t0, cluster, apps, explain, prep=derived,
+                                       drop_pods=drop)
+            finally:
+                entry.restore()
+
+    # -- endpoints ------------------------------------------------------------
+
+    def _handle(self, endpoint: str, kind: str, lock: threading.Lock, payload: dict,
+                deadline: Optional[Deadline] = None, request_id: Optional[str] = None,
+                explain: bool = False) -> tuple:
+        """Shared endpoint shell: single-flight busy rejection, deadline
+        scope, request-scoped trace, and the failure ladder — every outcome
+        is a typed JSON body:
+
+        - 200: the simulation's result
+        - 503 busy: TryLock rejection (server.go:167,:234)
+        - 504 + phase: the request deadline ran out at a phase boundary
+        - 503 + retryable: the apiserver down through every retry with no
+          snapshot to degrade to
+        - 500 + type: anything else, a failed kernel build or launch too
+
+        Every request gets an id (the client's ``X-Simon-Request-Id``
+        honored, generated otherwise) and, when tracing is enabled, a span
+        tree recorded into the flight recorder and folded into the
+        ``/metrics`` latency histograms."""
+        t0 = time.monotonic()
+        rid = tracing.sanitize_request_id(request_id) or tracing.new_request_id()
+        _REQUEST_STATE.request_id = rid
+        if not lock.acquire(blocking=False):
+            RECORDER.observe_request(endpoint, time.monotonic() - t0, status="busy")
+            return 503, {"error": "the server is busy now, please try again later"}
+        _mark_request_snapshot(False)  # until a refresh says otherwise
+        tr = tracing.start_trace(endpoint, request_id=rid)
+        t0 = time.monotonic()
+        status = "error"
+        code, body = 500, {"error": "unhandled"}
+        result: Optional[SimulateResult] = None
+        try:
+            with deadline_scope(deadline), tracing.trace_scope(tr):
+                result = self._simulate_request(kind, payload, explain=explain)
+            status = "ok"
+            code, body = 200, _response(result, explain=explain)
+            if explain and tr is not None and result.explanations is not None:
+                # the decision audit joins the flight recorder, served at
+                # GET /api/debug/placements/<request-id> (serialized and
+                # capped: the context holding the whole Prepared is dropped)
+                tr.placements = _placements_payload(rid, result)
+        except DeadlineExceeded as e:
+            status = "deadline-exceeded"
+            self.metrics.bump("request_timeouts")
+            log.warning("%s timed out: %s", endpoint, e)
+            code, body = 504, {"error": str(e), "phase": e.phase}
+        except SnapshotUnavailable as e:
+            log.warning("%s snapshot unavailable: %s", endpoint, e)
+            code, body = 503, {"error": str(e), "retryable": True}
+        except Exception as e:  # a 500 like gin's error handler
+            log.warning("%s failed: %s: %s", endpoint, type(e).__name__, e)
+            code, body = 500, {"error": str(e), "type": type(e).__name__}
+        finally:
+            try:
+                seconds = time.monotonic() - t0
+                # the success counters and the histogram land in one
+                # critical section: a scrape never sees one without the other
+                with RECORDER.lock:
+                    if status == "ok" and result is not None:
+                        self.metrics.record(endpoint, result)
+                    RECORDER.observe_request(endpoint, seconds, status=status)
+                if tr is not None:
+                    tr.finish(status=status, http_status=code)
+                    FLIGHT_RECORDER.record(tr)
+                    RECORDER.observe_trace(tr)
+            finally:
+                # released even if telemetry recording throws: a leaked lock
+                # would 503 the endpoint until restart
+                lock.release()
+        return code, body
+
+    def deploy_apps(self, payload: dict, deadline: Optional[Deadline] = None, request_id: Optional[str] = None,
+                    explain: bool = False) -> tuple:
+        return self._handle("deploy-apps", "deploy", self._deploy_lock, payload, deadline, request_id,
+                            explain=explain)
+
+    def scale_apps(self, payload: dict, deadline: Optional[Deadline] = None, request_id: Optional[str] = None,
+                   explain: bool = False) -> tuple:
+        """scale-apps (server.go:233-312): remove the workload's existing
+        pods from the cluster snapshot, then re-simulate at the new scale —
+        on the cached path the removal is a pod-validity flip over the
+        snapshot's cached encoding, not a re-encode."""
+        return self._handle("scale-apps", "scale", self._scale_lock, payload, deadline, request_id,
+                            explain=explain)
+
+
+def _owned_by(pod, scaled: set) -> bool:
+    for ref in pod.metadata.owner_references:
+        key = (ref.kind, pod.metadata.namespace, ref.name)
+        if key in scaled:
+            return True
+        # deployment pods are owned via a generated ReplicaSet name prefix
+        if ref.kind == "ReplicaSet" and any(
+            k == "Deployment" and ns == pod.metadata.namespace and ref.name.startswith(name + "-")
+            for k, ns, name in scaled
+        ):
+            return True
+    return False
+
+
+def _template_pods(pods: List) -> List:
+    """One pod of each owner among `pods` (a bare pod is its own): the
+    pods of one controller share its pod template, so they encode to the
+    same features."""
+    seen, out = set(), []
+    for p in pods:
+        owners = tuple((r.kind, r.name) for r in p.metadata.owner_references)
+        key = (p.metadata.namespace, owners) if owners else id(p)
+        if key not in seen:
+            seen.add(key)
+            out.append(p)
+    return out
+
+
+def snapshot_variants(cluster: ResourceTypes) -> set:
+    """The kernel variant of a stream of `cluster`'s pods, and its explain
+    variant (an empty set with no pods to place): read from a host-only
+    prepare of one pod per owner (:func:`_template_pods`), not of the
+    whole snapshot, whose encode the server's first request does anyway."""
+    from ..engine import fastpath
+    from ..ops import fast_scan as fs
+
+    few = copy.copy(cluster)
+    few.pods = _template_pods(cluster.pods)
+    prep = prepare(few, [], device="cpu")
+    if prep is None:
+        return set()
+    fi, _ = fastpath.build_inputs(prep)
+    return {fs.variant_name(fi), fs.variant_name(fi, explain=True)}
+
+
+def _with_new_nodes(cluster: ResourceTypes, nodes: List[Node]) -> ResourceTypes:
+    out = copy.copy(cluster)
+    out.nodes = list(cluster.nodes) + nodes
+    return out
+
+
+def request_deadline(headers) -> Optional[Deadline]:
+    """Per-request deadline: the ``X-Simon-Timeout-S`` header wins, else
+    ``OPENSIM_REQUEST_TIMEOUT_S`` (unset/0 = no deadline)."""
+    raw = headers.get("X-Simon-Timeout-S") if headers is not None else None
+    if raw is None:
+        raw = envknobs.raw("OPENSIM_REQUEST_TIMEOUT_S")
+    if not raw:
+        return None
+    try:
+        budget = float(raw)
+    except ValueError:
+        log.warning("ignoring unparseable request timeout %r", raw)
+        return None
+    return Deadline.after(budget) if budget > 0 else None
+
+
+def make_handler(server: SimonServer):
+    class Handler(BaseHTTPRequestHandler):
+        # keep-alive: every response carries Content-Length, so HTTP/1.1
+        # persistent connections are safe
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):  # quiet by default
+            pass
+
+        def _begin_request(self) -> None:
+            # every request — GETs and 4xx paths included — gets an id here,
+            # so an access-log line always joins against the flight recorder
+            self._t0 = time.monotonic()
+            _REQUEST_STATE.request_id = (tracing.sanitize_request_id(self.headers.get("X-Simon-Request-Id"))
+                                         or tracing.new_request_id())
+
+        def _access_log(self, code: int) -> None:
+            """Opt-in structured access logging (``OPENSIM_ACCESS_LOG=1``):
+            one JSON object per request."""
+            if envknobs.raw("OPENSIM_ACCESS_LOG") != "1":
+                return
+            _ACCESS_LOG.info("%s", json.dumps({
+                "ts": round(time.time(), 3), "request_id": last_request_id(), "method": self.command,
+                "endpoint": self.path, "status": code,
+                "duration_s": round(time.monotonic() - getattr(self, "_t0", time.monotonic()), 6),
+                "remote": self.client_address[0],
+            }, sort_keys=True))
+
+        def _send_bytes(self, code: int, data: bytes, content_type: str, extra_headers: Optional[dict] = None):
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(data)))
+            if last_request_id():
+                self.send_header("X-Simon-Request-Id", last_request_id())
+            for k, v in (extra_headers or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(data)
+            self._access_log(code)
+
+        def _send(self, code: int, body: dict, extra_headers: Optional[dict] = None) -> None:
+            self._send_bytes(code, json.dumps(body).encode(), "application/json", extra_headers)
+
+        def _send_not_ported(self) -> bool:
+            item = _not_ported(self.path)
+            if item is None:
+                return False
+            route = self.path.split("?", 1)[0]
+            self._send(501, {"error": f"{self.command} {route} is not ported to the PyTorch/CUDA package yet",
+                             "roadmap": f"ROADMAP Queue 1 item {item}"})
+            return True
+
+        def do_GET(self):  # noqa: N802 (stdlib name)
+            self._begin_request()
+            path = self.path.split("?", 1)[0]
+            if path == "/healthz":
+                self._send(200, {"status": "ok"})
+            elif path == "/metrics":
+                self._send_bytes(200, server.metrics_text().encode(), "text/plain; version=0.0.4")
+            elif path == "/api/debug/requests":
+                # newest-first summaries of the last N request traces
+                self._send(200, {"requests": FLIGHT_RECORDER.summaries()})
+            elif path.startswith("/api/debug/requests/"):
+                rid = tracing.sanitize_request_id(path.rsplit("/", 1)[1])
+                tr = FLIGHT_RECORDER.get(rid)
+                if tr is None:
+                    self._send(404, {"error": f"no recorded trace for request id {rid!r}"})
+                else:
+                    self._send(200, tr.tree())
+            elif path.startswith("/api/debug/placements/"):
+                rid = tracing.sanitize_request_id(path.rsplit("/", 1)[1])
+                tr = FLIGHT_RECORDER.get(rid)
+                placements = getattr(tr, "placements", None) if tr is not None else None
+                if placements is None:
+                    self._send(404, {"error": f"no recorded placements for request id {rid!r}",
+                                     "hint": "POST /api/deploy-apps?explain=1 records them"})
+                else:
+                    self._send(200, placements)
+            elif not self._send_not_ported():
+                self._send(404, {"error": "not found"})
+
+        def do_POST(self):  # noqa: N802 (stdlib name)
+            self._begin_request()
+            length = int(self.headers.get("Content-Length", 0))
+            try:
+                payload = json.loads(self.rfile.read(length) or b"{}")
+            except ValueError:
+                self._send(400, {"error": "invalid JSON body"})
+                return
+            deadline = request_deadline(self.headers)
+            path, _, query = self.path.partition("?")
+            from urllib.parse import parse_qs
+
+            explain = parse_qs(query).get("explain", ["0"])[-1] not in ("", "0", "false")
+            if path == "/api/deploy-apps":
+                code, body = server.deploy_apps(payload, deadline=deadline, request_id=last_request_id(),
+                                                explain=explain)
+            elif path == "/api/scale-apps":
+                code, body = server.scale_apps(payload, deadline=deadline, request_id=last_request_id(),
+                                               explain=explain)
+            else:
+                if not self._send_not_ported():
+                    self._send(404, {"error": "not found"})
+                return
+            # a result computed from a stale snapshot says so (per request,
+            # thread-local: a concurrent refresh must not mis-tag it)
+            self._send(code, body, extra_headers={"X-Simon-Snapshot": "stale"} if request_served_stale() else None)
+
+    return Handler
+
+
+class SimonHTTPServer(ThreadingHTTPServer):
+    """The serving listener: stdlib ``ThreadingHTTPServer`` with a backlog
+    sized for hundreds of concurrent keep-alive clients (the default of 5
+    resets most of a connect storm before a request is read)."""
+
+    request_queue_size = 512
+
+
+def _refuse(what: str, item: int) -> ValueError:
+    return ValueError(f"{what} is ROADMAP Queue 1 item {item}, not yet ported to the PyTorch/CUDA package")
+
+
+def start_server(kubeconfig: str = "", master: str = "", port: int = 8080, watch: str = "auto", journal: str = "",
+                 workers: int = 0, standby: bool = False, device: DeviceLike = None, host: str = "0.0.0.0",
+                 snapshot_ttl_s: float = 30.0) -> Tuple[SimonServer, SimonHTTPServer]:
+    """What :func:`serve` does before it serves: refuse the modes of later
+    slices (``ValueError`` naming the ROADMAP item), create the server on
+    its device (raising without a card unless `device` names the CPU), on
+    the card fetch the snapshot and build the kernel variants its requests
+    launch (:meth:`SimonServer.kernel_variants`) so no request pays a
+    build, then bind the listener. Returns both; the caller runs
+    ``serve_forever`` and ``shutdown``."""
+    for label, path in (("--kubeconfig", kubeconfig), ("--journal", journal)):
+        if any(ord(c) < 32 for c in path):
+            raise ValueError(f"invalid {label}: control character in {path!r}")
+    if watch not in ("auto", "on", "off"):
+        raise ValueError(f"--watch must be auto, on or off, got {watch!r}")
+    if watch == "on":
+        raise _refuse("--watch on (serving from the live twin)", 10)
+    if journal:
+        raise _refuse("--journal (the watch-event journal of the live twin)", 10)
+    if standby:
+        raise _refuse("--standby (the HA hot standby of the serving fleet)", 10)
+    n_fleet = workers or int(envknobs.raw("OPENSIM_WORKERS_FLEET") or 0)
+    if n_fleet >= 2:
+        raise _refuse(f"--workers {n_fleet} (the multi-process serving fleet)", 10)
+    if kubeconfig and watch == "auto":
+        # the mode's own documented fallback: the polling snapshot serves
+        # until a twin syncs, and the port has no twin yet
+        log.info("--watch auto: the live twin is ROADMAP Queue 1 item 10; serving the polling snapshot "
+                 "(re-listed every %.0f s)", snapshot_ttl_s)
+    server = SimonServer(kubeconfig=kubeconfig, master=master, snapshot_ttl_s=snapshot_ttl_s, device=device)
+    if server.device.type == "cuda":
+        from ..ops import fast_scan as fs
+
+        variants = server.kernel_variants()
+        t0 = time.perf_counter()
+        fs.build(variants)
+        log.info("kernel variants %s loaded in %.3f s", ", ".join(variants), time.perf_counter() - t0)
+    return server, SimonHTTPServer((host, port), make_handler(server))
+
+
+def serve(kubeconfig: str = "", master: str = "", port: int = 8080, watch: str = "auto", journal: str = "",
+          workers: int = 0, standby: bool = False, device: DeviceLike = None) -> int:
+    """Start the REST server and serve until SIGTERM or SIGINT (see
+    :func:`start_server`). ``watch`` selects the snapshot strategy with a
+    kubeconfig: ``auto`` (the default) and ``off`` serve the polling
+    snapshot; ``on`` (the live twin), a ``journal``, ``workers`` ≥ 2 and
+    ``standby`` are refused, naming the ROADMAP item that brings them."""
+    server, httpd = start_server(kubeconfig=kubeconfig, master=master, port=port, watch=watch, journal=journal,
+                                 workers=workers, standby=standby, device=device)
+
+    # the handler only nudges the serve loop from a helper thread
+    # (httpd.shutdown() deadlocks when called from the serving thread)
+    def _graceful(signum, frame):
+        log.info("received %s; shutting down", signal.Signals(signum).name)
+        threading.Thread(target=httpd.shutdown, name="simon-shutdown", daemon=True).start()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(sig, _graceful)
+        except ValueError:
+            break  # not the main thread (embedded use): no handlers
+    print(f"simon server listening on :{port} [single-flight] on {server.device}", flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        print("simon server: shutdown complete", flush=True)
+    return 0

@@ -1,0 +1,84 @@
+"""Typed registry of the ``OPENSIM_*`` environment knobs the port reads —
+the port's copy of ``opensim_tpu/utils/envknobs.py``, holding the knobs of
+the modules it has (the server, the snapshot, the resilience layer and the
+request tracer).
+
+Every read goes through :func:`raw`, which fails loudly on an
+unregistered name, so a knob cannot ship undocumented and a typo'd name
+cannot silently read as unset. Writes (``os.environ["OPENSIM_X"] = ...``)
+stay legal: the CLI's ``--access-log`` sets its knob for the code below.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Dict
+
+__all__ = ["Knob", "KNOBS", "register", "raw"]
+
+
+@dataclass(frozen=True)
+class Knob:
+    """One registered environment knob: the name, a human type tag, the
+    documented default (raw string form, ``""`` = unset) and its doc line."""
+
+    name: str
+    type: str  # int | float | flag | enum | spec
+    default: str
+    doc: str
+
+
+KNOBS: Dict[str, Knob] = {}
+
+
+def register(knob: Knob) -> Knob:
+    if not knob.name.startswith("OPENSIM_"):
+        raise ValueError(f"env knob {knob.name!r} must be OPENSIM_-prefixed")
+    if knob.name in KNOBS:
+        raise ValueError(f"env knob {knob.name!r} registered twice")
+    KNOBS[knob.name] = knob
+    return knob
+
+
+def _registered(name: str) -> Knob:
+    knob = KNOBS.get(name)
+    if knob is None:
+        raise KeyError(f"env knob {name!r} is not registered in opensim_tpu_torch/utils/envknobs.py")
+    return knob
+
+
+def raw(name: str, default: str = "") -> str:
+    """``os.environ.get`` for a REGISTERED knob; an unregistered name
+    raises. A caller-supplied ``default`` keeps a site's unset-vs-empty
+    semantics and must match the registered one."""
+    _registered(name)
+    return os.environ.get(name, default)
+
+
+for _knob in (
+    # resilience (resilience/, server/snapshot.py)
+    Knob("OPENSIM_REQUEST_TIMEOUT_S", "float", "",
+         "Default per-request deadline in seconds (the `X-Simon-Timeout-S` header wins; unset/0 = unbounded)."),
+    Knob("OPENSIM_FAULTS", "spec", "", "Deterministic fault injection: `point:count:exc[,point:count:exc...]`."),
+    Knob("OPENSIM_SNAPSHOT_TIMEOUT_S", "float", "60", "Per-endpoint timeout for cluster snapshot list calls."),
+    Knob("OPENSIM_SNAPSHOT_RETRIES", "int", "3",
+         "Snapshot fetch attempts before degrading to a stale snapshot / typed 503."),
+    Knob("OPENSIM_SNAPSHOT_BACKOFF_S", "float", "0.1", "Full-jitter backoff base between snapshot fetch retries."),
+    # serving (server/rest.py)
+    Knob("OPENSIM_ADMISSION", "enum", "off",
+         "`on` asks for the admission queue and request batching (ROADMAP Queue 1 item 8, not yet ported: "
+         "the server refuses to start); `off` serves single-flight."),
+    Knob("OPENSIM_PREP_CACHE", "flag", "1", "`0` disables the encode cache (per-request full prepare)."),
+    Knob("OPENSIM_ACCESS_LOG", "flag", "",
+         "`1` emits one JSON access-log line per request on the `opensim_tpu_torch.access` logger."),
+    Knob("OPENSIM_WORKERS_FLEET", "int", "",
+         "Fleet worker processes for `simon server` (ROADMAP Queue 1 item 10, not yet ported: 2 or more refuse "
+         "to start)."),
+    # observability (obs/)
+    Knob("OPENSIM_TRACE", "flag", "1", "`0` disables request tracing."),
+    Knob("OPENSIM_FLIGHT_RECORDER_N", "int", "64", "Flight-recorder ring capacity (last N request traces)."),
+    Knob("OPENSIM_EXPLAIN_STORE_N", "int", "512",
+         "Per-trace cap on stored placement explanations (`?explain=1` audits)."),
+):
+    register(_knob)

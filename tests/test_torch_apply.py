@@ -255,7 +255,7 @@ def test_cli_apply_exit_codes(tmp_path, capsys, monkeypatch, case):
     elif case == "kubeconfig":
         cfg = tmp_path / "kube.yaml"
         cfg.write_text("apiVersion: simon/v1alpha1\nkind: Config\nspec:\n  cluster: {kubeConfig: /kube}\n")
-        args[2], err = str(cfg), "Queue 1 item 6"
+        args[2], err = str(cfg), "No such file or directory: '/kube'"  # the snapshot's kubeconfig is read
     else:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         args = args[:3]
