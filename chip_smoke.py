@@ -97,7 +97,7 @@ torch re-score (``kernels.pod_step`` at full width) takes the kernel's
 node; ``simon apply --explain`` on the apply plan, its report above the
 placement audit phase 28's; and the example configs' ``--explain``
 reports, card against CPU. The affinity-heavy plan's default variant is
-held against the plain version over its first 10,000 pods (phase 10;
+held against the plain version over its first 5,000 pods (phase 10;
 against the grid over the whole stream), leaving the run time for these
 phases; past that prefix, it and the explain-mode plans of phases 42-45
 are held against the torch step (``kernels.pod_step``) re-run on the card
@@ -124,6 +124,29 @@ the final state included. Then
 ``prepcache.simulate_cached`` on the capacity plan, one cold call and ten
 warm hits, and ``simon apply`` in kubeConfig mode (the example config's
 cluster listed from the stub apiserver), card report vs CPU report.
+Then the sweep consumers (phases 56-61): ``simon defrag --json
+--candidates`` on the capacity plan written as YAML (one grid launch, its
+rows phase 22's plans, its steps timed, the grid phase 23's on the same
+inputs and its head phase 24's plain sweep) and on the example configs, card against CPU; the capacity
+observatory on the server plan's running server: ``GET
+/api/cluster/report`` with the default headroom profiles and the fixture
+profile whose headroom lies inside its ladder (one grid launch per probe
+scan: each profile's ladder, then its bisection at S = 1), card
+``simulate()`` placing k replicas of it and not k + 1, the ladder's rows
+at the largest feasible and the smallest infeasible k and one bisection
+launch against the plain version over their probe pods (from the grid's
+state after the snapshot's forced binds), the timeline, ``simon top
+--json`` and ``/metrics``; and lifecycle campaigns: the campaign plan (the
+capacity fleet and Deployments under PDBs, a canary, a rolling drain, a
+spot storm, an autoscaler add, a scale-up, scale-down checks and a defrag
+plan; ``fixtures.write_campaign_plan``) in warm mode, every scheduling
+pass one ``fast_scan[cfg]`` launch from its carried state, each step's
+wall-clock, launches and kernel share printed, every launch against the
+plain version over its valid pods (the baseline's first 2,000, and its
+whole stream against a grid launch at S = 1 from the same state); cold mode
+over the baseline and two steps, its fingerprints warm mode's;
+example/campaign.yaml card against CPU; ``POST /api/campaign`` on the
+server plan's server against an in-process ``run_campaign``.
 Every phase raises on failure, and each prints the time it took.
 The last lines are the card's name and power limit, one JSON line with
 a row per kernel variant timed at full width, one for the drain sweep,
@@ -131,13 +154,16 @@ three for the apply plan (the masked one scan, the coarse and the fine
 grid), one each for the config, two-profile and sampled plans (the
 last timed over its checked prefix, whose ties the plain version records
 for its bound), three
-for the apply plan under ``-d``, five for explain mode and three for the
-server plan, and ``{"ok": true, "device": {...}}``.
+for the apply plan under ``-d``, five for explain mode, three for the
+server plan, one for ``simon defrag``'s grid, two for the headroom probes
+(the ladder and a bisection step) and one for the campaign plan's launches
+(in all and their median), and ``{"ok": true, "device": {...}}``.
 Without a card it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -201,7 +227,7 @@ CFG_VARIANTS = ("fast_scan[cfg]", "fast_scan[na,tt,avoid,cfg]", "fast_scan[sampl
 #: stream), which leaves the run time for these phases.
 EXPLAIN_PLAIN_PODS = 2000
 EXPLAIN_VARIANTS = ("fast_scan[interpod,explain]", "fast_scan[gpu,gc,explain]", "fast_scan[explain]")
-AFFINITY_PLAIN_PODS = 10000
+AFFINITY_PLAIN_PODS = 5000
 #: The affinity-heavy plan's default variant (phases 10-12) and the
 #: explain-mode plans (phases 42-45) are also held against the torch step
 #: (``kernels.pod_step``) re-run on the card from the replayed state before
@@ -221,6 +247,20 @@ SERVER_TTL_S = 3600.0
 SERVER_PLAIN_PODS = 2000
 SERVER_REPLAY_STEPS = 100
 STEADY_WARM = 10
+#: The campaign plan (phases 59-61, fixtures.write_campaign_plan): every
+#: launch is held against the plain version over its valid pods, the
+#: baseline's (all 50,000) over its first CAMPAIGN_PLAIN_PODS; the cold run
+#: covers the baseline and the first COLD_STEPS steps; POST /api/campaign on
+#: the server plan drains SERVER_CAMPAIGN_DRAIN nodes, SERVER_CAMPAIGN_WAVE a wave.
+CAMPAIGN_PLAIN_PODS = 2000
+CAMPAIGN_SIZES = dict(canary=1000, drain=20, drain_wave=5, reclaim=50, add=20, scale_up=500, check=32, defrag=64,
+                      defrag_max=8, defrag_wave=4)
+COLD_STEPS = 2
+SERVER_CAMPAIGN_DRAIN, SERVER_CAMPAIGN_WAVE = 4, 2
+#: The variant every campaign pass launches, on the campaign plan, on
+#: example/campaign.yaml's demo cluster and on the server plan's snapshot
+#: (the cfg variant takes the carried state; built with CFG_VARIANTS).
+CAMPAIGN_VARIANT = "fast_scan[cfg]"
 EXAMPLES = (("simon-config.yaml", [], "fast_scan[interpod]"),
             ("simon-gpushare-config.yaml", ["gpu"], "fast_scan[gpu]"),
             ("simon-local-config.yaml", ["open-local"], "fast_scan[local]"))
@@ -569,11 +609,14 @@ def full_plan(device, label: str, make, variant: str, prefix=None, sched_text=No
     }
 
 
-def drain_sweep(device) -> dict:
+def drain_sweep(device) -> tuple:
     """plan_drains() on the capacity plan with N_SCENARIOS drain scenarios
     (one launch of the scenario grid), the grid's rows against
     single-scenario launches and against the plain sweep, the grid timed
-    alone. Returns its row of the kernels table."""
+    alone. Returns its row of the kernels table, plan_drains()' plans and
+    the timed grid (``fi``, ``args``, ``out``) with the plain sweep's
+    placements of its scenarios 0-1 over PLAIN_PODS pods (``plain``, and
+    ``plain_ms``), which phase 56 holds ``simon defrag``'s grid against."""
     from opensim_tpu_torch.engine import fastpath, simulator as sim
     from opensim_tpu_torch.models import fixtures as fx
     from opensim_tpu_torch.ops import fast_scan as fs
@@ -652,7 +695,7 @@ def drain_sweep(device) -> dict:
         raise AssertionError(f"the ragged grid ran as {fs.SWEEP_LAUNCHED['fast_scan_sweep']['grid']}, not {ragged}")
     print(f"scenarios {late} of the {S_r}-scenario grid identical to single-scenario launches over the whole "
           f"stream", flush=True)
-    plain_ms = 0.0
+    plain_ms, head_plain = 0.0, {}
     for rows, pods in ((slice(0, PLAIN_SCENARIOS), PLAIN_PODS), (slice(late[0], late[-1] + 1), LATE_PODS)):
         head = [t[:, :pods].contiguous() for t in grid_r[:2]] + grid_r[2:]
         got = fs.fast_scan_sweep(fi, tmpl_r[:pods].contiguous(), *head)  # all S_r scenarios
@@ -664,6 +707,8 @@ def drain_sweep(device) -> dict:
 
         ms_rows = _events_ms(run_plain, reps=1)
         plain_ms += ms_rows
+        head_plain.setdefault("plain", plain[0])
+        head_plain.setdefault("plain_ms", ms_rows)
         err = max(err, _same(got, plain[0], f"sweep scenarios {rows.start}-{rows.stop - 1} x {pods} pods vs plain"))
         print(f"scenarios {rows.start}-{rows.stop - 1} of the grid x {pods} pods identical to the plain sweep "
               f"(plain {ms_rows:.3f} ms)", flush=True)
@@ -698,7 +743,7 @@ def drain_sweep(device) -> dict:
         "plan_drains_timings": result.timings,
         "scenarios_per_s": len(plans) / wall,
         "drainable": len(result.drainable()),
-    }
+    }, plans, {"fi": fi, "args": (tmpl, *grid), "out": sweep, **head_plain}
 
 
 def oversubscribed_plan(device) -> list:
@@ -1826,7 +1871,9 @@ def server_plan(device, card: str) -> list:
     placements; R7 R2's body under a spent deadline (504, no launch); R8
     /metrics. Then R2, R4 and R5 against the uncached server
     (``prep_cache=False``) on the card, and the kernel rows of R2, R4 and
-    R6. Returns the rows."""
+    R6. Returns the rows and the running server (``server``, ``url`` and
+    ``close``, which stops it and its stub apiserver), which the observatory
+    and campaign phases go on using."""
     import threading
 
     from opensim_tpu_torch.engine import simulator as sim
@@ -1938,9 +1985,11 @@ def server_plan(device, card: str) -> list:
         shape = fs.SCAN_LAUNCHED["fast_scan"]["shape"]  # R5's launch, the last of the base variant
         if shape.nc != -(-(N_NODES + SERVER_NEW) // shape.cluster):
             raise AssertionError(f"R5's launch: {shape.nc} nodes a CTA")
-    finally:
+    except BaseException:
         httpd.shutdown()
         httpd.server_close()
+        stub.stop()
+        raise
 
     _phase("52 server plan: R2, R4 and R5 against the uncached server (a full prepare each) on the card")
     entries = {e.key.split("|")[1]: e for e in server.prep_cache.entries_snapshot() if not e.key.endswith("|base")}
@@ -1952,21 +2001,18 @@ def server_plan(device, card: str) -> list:
     if len(deploy_entry.prep.ordered) != N_PODS:
         raise AssertionError(f"R2's stream: {len(deploy_entry.prep.ordered)} pods")
     legacy = rest.SimonServer(kubeconfig=kube, prep_cache=False, device=device)
-    try:
-        for name, call, body in (("R2", legacy.deploy_apps, bodies["deploy"]), ("R4", legacy.scale_apps,
-                                                                                  bodies["scale"]),
-                                 ("R5", legacy.deploy_apps, bodies["newnodes"])):
-            t0 = time.perf_counter()
-            code, want = call(json.loads(json.dumps(body)))
-            secs = time.perf_counter() - t0
-            same = _without_counters(json.dumps(want, sort_keys=True)) == \
-                _without_counters(json.dumps(answers[name][1], sort_keys=True))
-            if code != 200 or not same:
-                raise AssertionError(f"{name}: the uncached server answered {code} differently")
-            print(f"{name}: the cached answer equals the uncached server's ({secs:.3f} s there), "
-                  f"{len(want['unscheduledPods'])} unscheduled", flush=True)
-    finally:
-        stub.stop()
+    for name, call, body in (("R2", legacy.deploy_apps, bodies["deploy"]), ("R4", legacy.scale_apps,
+                                                                              bodies["scale"]),
+                             ("R5", legacy.deploy_apps, bodies["newnodes"])):
+        t0 = time.perf_counter()
+        code, want = call(json.loads(json.dumps(body)))
+        secs = time.perf_counter() - t0
+        same = _without_counters(json.dumps(want, sort_keys=True)) == \
+            _without_counters(json.dumps(answers[name][1], sort_keys=True))
+        if code != 200 or not same:
+            raise AssertionError(f"{name}: the uncached server answered {code} differently")
+        print(f"{name}: the cached answer equals the uncached server's ({secs:.3f} s there), "
+              f"{len(want['unscheduledPods'])} unscheduled", flush=True)
 
     _phase("53 server plan: the kernel rows of R2, R4 and R6 (CUDA events), each against the plain version and "
            "the torch step")
@@ -1974,7 +2020,13 @@ def server_plan(device, card: str) -> list:
             _server_row("R4", scale_entry, False, launches["R4"]["fast_scan"], answers["R4"][2]),
             _server_row("R6", deploy_entry, True, launches["R6"]["fast_scan[explain]"], answers["R6"][2])]
     print(f"server plan phases {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
-    return rows
+
+    def close() -> None:
+        httpd.shutdown()
+        httpd.server_close()
+        stub.stop()
+
+    return rows, {"server": server, "url": url, "close": close}
 
 
 def steady_phase(device) -> dict:
@@ -2069,6 +2121,518 @@ def kubeconfig_apply(device) -> None:
           f"card {card_s:.3f} s, CPU {cpu_s:.3f} s); launches {launches}", flush=True)
 
 
+@contextlib.contextmanager
+def _patched(obj, name: str, wrap):
+    """`obj.name` replaced by ``wrap(original)`` for the block."""
+    real = getattr(obj, name)
+    setattr(obj, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def _reset_launches() -> None:
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    torch.cuda.synchronize()
+    fs.LAUNCHES = 0
+    fs.VARIANT_LAUNCHES.clear()
+
+
+def _timed_launch(rec: dict):
+    """A wrapper of a kernel entry point that keeps its last call's inputs
+    (``args``), outputs (``out``) and CUDA-event time (``ms``) in `rec`."""
+    def wrap(real):
+        def run(fi, *args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(fi, *args, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            rec.update(fi=fi, args=args, out=out, ms=start.elapsed_time(end))
+            return out
+        return run
+    return wrap
+
+
+def _sweep_row(name: str, plan: str, fi, args, out, ms: float, launches: int, err: float, plain_ms: float,
+               plain: str, **extra) -> dict:
+    """A kernels-table row of one grid launch (its inputs `args`, its
+    outputs `out`, its CUDA-event time `ms` in the main path's run), its
+    bound from ``fast_scan_work``."""
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    tmpl, valid, forced, node_valid, _sw = args
+    work = fs.fast_scan_work(fi, tmpl, valid, forced, out.chosen, node_valid)
+    t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
+    grid = fs.sweep_grid(valid.shape[0], fi.alloc_T.shape[1], torch.cuda.get_device_properties(0).multi_processor_count)
+    print(f"{plan}: {fs.sweep_name(fi)} at S={valid.shape[0]}, P={tmpl.shape[0]}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms ({plain}), bound {max(t_bytes, t_ops):.6f} ms", flush=True)
+    return {"name": name, "plan": plan, "route": "cuda", "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu",
+            "replaces": "opensim_tpu/engine/fastpath.py:532", "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "plain_checks": plain, "scenarios": int(valid.shape[0]), "pods": int(tmpl.shape[0]),
+            "b": grid.b, "blocks": grid.blocks, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None, "library": "none", **extra}
+
+
+def defrag_cli(device, card: str, drain_plans, drain_grid: dict) -> dict:
+    """``simon defrag`` of the port (phase 56): the capacity plan written
+    as YAML (``fixtures.write_apply_plan`` without its hog app) and run as
+    a user runs it, ``--json --candidates`` over phase 22's N_SCENARIOS
+    nodes, on the card: one grid launch, its rows ``drain_plan_rows`` of
+    phase 22's plans; its steps (load, prepare, sweep) timed. Its grid's
+    inputs are phase 23's timed grid's, tensor for tensor, so it is held
+    against that grid on every output and its placements in scenarios 0-1
+    over PLAIN_PODS pods against phase 24's plain sweep of the same inputs
+    (no second plain run). Then the three example configs' ``--json``
+    reports, card against CPU, one grid launch each. Returns the grid's
+    row of the kernels table."""
+    from opensim_tpu_torch.cli import main as cli
+    from opensim_tpu_torch.engine import fastpath
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.planner import apply, defrag, report
+
+    _phase(f"56 simon defrag: the capacity plan as YAML, --json --candidates over phase 22's {N_SCENARIOS} nodes, "
+           "then the example configs card vs CPU")
+    root = _plan_dir() / "defrag"
+    config = fx.write_apply_plan(root, N_NODES, N_PODS, 0)
+    candidates = [f"node-{i:05d}" for i in range(N_SCENARIOS)]
+    steps, seen = {}, {}
+
+    def timed(name):
+        def wrap(real):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                out = real(*a, **kw)
+                steps[name] = steps.get(name, 0.0) + time.perf_counter() - t0
+                return out
+            return run
+        return wrap
+
+    def keep(real):
+        def run(*a, **kw):
+            seen["result"] = out = real(*a, **kw)
+            return out
+        return run
+
+    launch = {}
+    out_file = root / "plan.json"
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _patched(apply.Applier, "load_cluster", timed("load")), _patched(apply.Applier, "load_apps", timed("load")), \
+            _patched(defrag, "plan_drains", keep), _patched(fastpath, "fast_scan_sweep", _timed_launch(launch)):
+        rc = cli.main(["defrag", "-f", config, "--json", "--candidates", ",".join(candidates), "-o", str(out_file)])
+    wall = time.perf_counter() - t0
+    launches = dict(fs.VARIANT_LAUNCHES)
+    if rc != 0 or launches != {"fast_scan_sweep": 1}:
+        raise AssertionError(f"simon defrag: rc {rc}, launches {launches}")
+    body = json.loads(out_file.read_text())
+    want = report.drain_plan_rows(drain_plans)
+    if [body["table"]["header"]] + body["table"]["rows"] != want or body["total"] != N_SCENARIOS:
+        raise AssertionError("simon defrag's rows differ from drain_plan_rows of phase 22's plans")
+    timings = seen["result"].timings
+    steps.update(prepare=timings.get("prepare", 0.0), sweep=timings.get("sweep", 0.0))
+    print(f"simon defrag: {body['drainable']}/{body['total']} drainable, rows equal phase 22's; launches {launches}; "
+          f"wall-clock {wall:.3f} s, steps " + json.dumps({k: round(v, 6) for k, v in steps.items()}), flush=True)
+    fi, args = launch["fi"], launch["args"]
+    ref_fi = drain_grid["fi"]
+    differ = [name for name in fs.FastInputs._fields
+              if not (torch.equal(getattr(fi, name), getattr(ref_fi, name))
+                      if isinstance(getattr(fi, name), torch.Tensor) else getattr(fi, name) == getattr(ref_fi, name))]
+    differ += [f"argument {i}" for i, (a, b) in enumerate(zip(args, drain_grid["args"])) if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"simon defrag's grid inputs differ from phase 23's: {differ}")
+    err = _same(launch["out"], drain_grid["out"], "simon defrag's grid vs phase 23's grid on the same inputs")
+    plain = drain_grid["plain"]
+    head = fs.FastOutputs(*(t[:PLAIN_SCENARIOS, :PLAIN_PODS] if f in ("chosen", "gpu_take") else t
+                            for f, t in zip(fs.FastOutputs._fields, launch["out"])))
+    err = max(err, _same(head, plain, f"simon defrag's grid, scenarios 0-{PLAIN_SCENARIOS - 1} x {PLAIN_PODS} pods, "
+                                      "vs phase 24's plain sweep", ("chosen", "gpu_take")))
+    plain_ms = drain_grid["plain_ms"]
+    for config_name, extended, variant in EXAMPLES:
+        outs = {}
+        for where, dev in (("cpu", "cpu"), ("card", str(device))):
+            path = root / f"{config_name}.{where}.json"
+            _reset_launches()
+            rc = cli.main(["defrag", "-f", _example(config_name), "--json", "-o", str(path), "--device", dev])
+            outs[where] = (rc, path.read_text(), dict(fs.VARIANT_LAUNCHES))
+        want_l = {"fast_scan_sweep" + variant[len("fast_scan"):]: 1}
+        if outs["cpu"][:2] != outs["card"][:2] or outs["card"][0] != 0 or outs["card"][2] != want_l:
+            raise AssertionError(f"simon defrag -f {config_name}: card {outs['card']} vs CPU {outs['cpu'][:2]}")
+        print(f"simon defrag -f {config_name} --json: card equals CPU ({json.loads(outs['card'][1])['drainable']} "
+              f"drainable), launches {outs['card'][2]}", flush=True)
+    return _sweep_row("fast_scan_sweep", f"simon defrag, capacity plan, {N_SCENARIOS:,} candidates", fi, args,
+                      launch["out"], launch["ms"], launches["fast_scan_sweep"], err, plain_ms,
+                      f"every output phase 23's grid on the same inputs; placements of scenarios "
+                      f"0-{PLAIN_SCENARIOS - 1} x {PLAIN_PODS} pods phase 24's plain sweep", defrag_s=wall,
+                      defrag_steps=steps, card=card)
+
+
+def observatory(device, card: str, served) -> list:
+    """The capacity observatory on the server plan's running server (phases
+    57-58): ``GET /api/cluster/report`` with the default headroom profiles
+    and the fixture profile whose headroom is the number of nodes that tie
+    for the most free resources (``fixtures.headroom_profile``: 2,500 on
+    this fleet, so its bisection between the ladder's 2,048 and 4,096 takes
+    11 steps), the launch counts read around it (one grid launch per probe
+    scan: each profile's ladder, then its bisection at S = 1); card
+    ``simulate()`` placing k replicas of that profile and not k + 1; the
+    ladder's rows of the largest feasible and the smallest infeasible k,
+    and the bisection launch of the smallest k, against the plain version
+    over their probe pods, started from the grid's state after the
+    snapshot's forced binds;
+    the timeline's newest sample, ``simon top --json`` and ``/metrics``
+    against the report. Returns the ladder's and one bisection launch's
+    rows of the kernels table."""
+    import io
+
+    from opensim_tpu_torch.cli import main as cli
+    from opensim_tpu_torch.engine import fastpath, prepcache, simulator as sim
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.models.objects import LABEL_APP_NAME, ResourceTypes
+    from opensim_tpu_torch.obs import capacity as cap
+    from opensim_tpu_torch.obs.metrics import parse_metrics
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    server, url = served["server"], served["url"]
+    cluster, key = server._observed_cluster()
+    spec = fx.headroom_profile(cluster)
+    os.environ["OPENSIM_HEADROOM_PROFILES"] = f"{cap.DEFAULT_PROFILES},{spec}"
+    profiles = cap.headroom_profiles()
+    wide = profiles[-1]
+    _phase(f"57 capacity observatory: GET /api/cluster/report on the server plan's fleet, headroom of "
+           f"{[p.name for p in profiles]} ({spec})")
+    scans = []
+
+    def probe_scan(real):
+        def run(prep, app_slice, drop, ks):
+            lo = app_slice[0]
+            scans.append({"profile": prep.ordered[lo].metadata.labels.get(LABEL_APP_NAME, ""), "lo": lo,
+                          "ks": list(ks)})
+            out = real(prep, app_slice, drop, ks)
+            scans[-1]["ok"] = out
+            return out
+        return run
+
+    def grid(real):
+        def run(fi, *args, **kw):
+            return _timed_launch(scans[-1])(real)(fi, *args, **kw)
+        return run
+
+    _reset_launches()
+    with _patched(cap, "_probe_scan", probe_scan), _patched(fastpath, "fast_scan_sweep", grid):
+        code, _h, report, rt = _http(url, "/api/cluster/report")
+    launches = dict(fs.VARIANT_LAUNCHES)
+    if code != 200:
+        raise AssertionError(f"/api/cluster/report: HTTP {code}: {str(report)[:500]}")
+    headroom = report["capacity"]["headroom"]
+    if set(headroom) != {p.name for p in profiles} or launches != {"fast_scan_sweep": len(scans)}:
+        raise AssertionError(f"headroom {headroom}, launches {launches} for {len(scans)} probe scans")
+    per_profile = {}
+    for sc in scans:
+        per_profile.setdefault(sc["profile"], []).append(len(sc["ks"]))
+    k = headroom[wide.name]
+    if not 0 < k < wide.max_replicas:
+        raise AssertionError(f"the fixture profile's headroom {k} is not inside (0, {wide.max_replicas})")
+    print(f"report: HTTP 200 in {rt:.3f} s; {report['capacity']['nodes']} nodes, {report['capacity']['pods_bound']} "
+          f"pods bound; headroom {headroom}; launches {launches}, scenarios per probe scan by profile "
+          f"{json.dumps(per_profile)}", flush=True)
+
+    _phase(f"58 capacity observatory: card simulate() at k = {k} and k + 1 of {wide.name}; the ladder's rows vs "
+           "plain; timeline, simon top --json, /metrics")
+    base = server.prep_cache.get(f"{key}|base")
+
+    def unplaced(n: int) -> int:
+        rt_ = ResourceTypes()
+        rt_.add(fx.make_fake_deployment(f"simon-headroom-{wide.name}", n, wide.cpu, wide.memory))
+        apps = [sim.AppResource(f"simon-headroom-{wide.name}", rt_)]
+        with base.lock:
+            base.restore()
+            try:
+                derived = prepcache.derive_with_apps(base.prep, cluster, apps, base_entry=base)
+                _reset_launches()
+                res = sim.simulate(cluster, apps, prep=derived, device=device)
+                if dict(fs.VARIANT_LAUNCHES) != {"fast_scan": 1}:
+                    raise AssertionError(f"simulate() launched {dict(fs.VARIANT_LAUNCHES)}")
+            finally:
+                base.restore()
+        return len(res.unscheduled_pods)
+
+    t0 = time.perf_counter()
+    fit_k, fit_k1 = unplaced(k), unplaced(k + 1)
+    if fit_k != 0 or fit_k1 != 1:
+        raise AssertionError(f"simulate(): {fit_k} of {k} and {fit_k1} of {k + 1} replicas unplaced")
+    print(f"card simulate(): {k} replicas all placed, {k + 1} leave one unplaced ({time.perf_counter() - t0:.3f} s)",
+          flush=True)
+    mine = [sc for sc in scans if sc["profile"] == f"simon-headroom-{wide.name}"]
+    ladder = next(sc for sc in mine if len(sc["ks"]) > 1 and not all(sc["ok"]))
+    fi, args, out = ladder["fi"], ladder["args"], ladder["out"]
+    tmpl, valid, forced, node_valid, spr_weight = args
+    lo, ks, ok = ladder["lo"], ladder["ks"], ladder["ok"]
+    s_f = max((s for s in range(len(ks)) if ok[s]), default=None)
+    s_i = min(s for s in range(len(ks)) if not ok[s])
+    pre = fs.fast_scan_sweep(fi, tmpl[:lo].contiguous(), valid[:, :lo].contiguous(), forced[:, :lo].contiguous(),
+                             node_valid, spr_weight)
+    err, plain_ms, plain_pods = 0.0, 0.0, 0
+    for s in [x for x in (s_f, s_i) if x is not None]:
+        hi = lo + ks[s]
+        row = lambda t: t[s:s + 1].contiguous()
+        plain = [None]
+
+        def run_plain():
+            plain[0] = fs.fast_scan_sweep_reference(fi, tmpl[lo:hi].contiguous(), row(valid[:, lo:hi]),
+                                                    row(forced[:, lo:hi]), row(node_valid), row(spr_weight),
+                                                    init=row(pre.state))
+
+        plain_ms += _events_ms(run_plain, reps=1)
+        plain_pods += hi - lo
+        got = fs.FastOutputs(*(t[s:s + 1, lo:hi] if f in ("chosen", "gpu_take") else t[s:s + 1]
+                               for f, t in zip(fs.FastOutputs._fields, out)))
+        err = max(err, _same(got, plain[0], f"ladder scenario k={ks[s]}, probe pods {lo}..{hi}", fs.STATE_FIELDS))
+    print(f"ladder {ks}: scenarios k={[ks[s] for s in (s_f, s_i) if s is not None]} identical to the plain version "
+          f"over their probe pods from the grid's state after the {lo} forced binds", flush=True)
+    bisect = min((sc for sc in mine if len(sc["ks"]) == 1), key=lambda sc: sc["ks"][0])
+    b_args = bisect["args"]
+    b_plain = [None]
+    b_hi = lo + bisect["ks"][0]
+    b_pre = fs.fast_scan_sweep(bisect["fi"], b_args[0][:lo].contiguous(), *(t[:, :lo].contiguous() for t in b_args[1:3]),
+                               *b_args[3:])
+
+    def run_b_plain():
+        b_plain[0] = fs.fast_scan_sweep_reference(bisect["fi"], b_args[0][lo:b_hi].contiguous(),
+                                                  *(t[:, lo:b_hi].contiguous() for t in b_args[1:3]), *b_args[3:],
+                                                  init=b_pre.state)
+
+    b_plain_ms = _events_ms(run_b_plain, reps=1)
+    b_got = fs.FastOutputs(*(t[:, lo:b_hi] if f in ("chosen", "gpu_take") else t
+                             for f, t in zip(fs.FastOutputs._fields, bisect["out"])))
+    b_err = _same(b_got, b_plain[0], f"bisection k={bisect['ks'][0]}", fs.STATE_FIELDS)
+
+    code, _h, timeline, _rt = _http(url, "/api/debug/capacity")
+    if code != 200 or timeline["samples"][-1]["generation"] != report["capacity"]["generation"]:
+        raise AssertionError(f"/api/debug/capacity: HTTP {code}, newest sample "
+                             f"{timeline['samples'][-1] if timeline.get('samples') else None}")
+    buf = io.StringIO()
+    _reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["top", "--url", url, "--json"])
+    if rc != 0 or json.loads(buf.getvalue()) != report or fs.VARIANT_LAUNCHES:
+        raise AssertionError(f"simon top --json: rc {rc}, launches {dict(fs.VARIANT_LAUNCHES)}, equal to the report: "
+                             f"{rc == 0 and json.loads(buf.getvalue()) == report}")
+    metrics = parse_metrics(_http(url, "/metrics")[2])
+    got_h = {p.name: metrics.get(("simon_cluster_headroom", (("profile", p.name),))) for p in profiles}
+    if got_h != {n: float(v) for n, v in headroom.items()}:
+        raise AssertionError(f"/metrics headroom {got_h}, report {headroom}")
+    print(f"timeline: {len(timeline['samples'])} samples, the newest of generation "
+          f"{timeline['samples'][-1]['generation']}; simon top --json equals the report (no launch); /metrics "
+          f"simon_cluster_headroom {got_h}", flush=True)
+    rows = [_sweep_row("fast_scan_sweep", f"headroom ladder ({wide.name}, {len(ks)} scenarios)", fi, args, out,
+                       ladder["ms"], 1, err, plain_ms, f"scenarios k={[ks[s] for s in (s_f, s_i) if s is not None]}, {plain_pods} probe pods",
+                       headroom=headroom, probe_scans=per_profile, report_s=rt, card=card),
+            _sweep_row("fast_scan_sweep", f"headroom bisection step ({wide.name}, k={bisect['ks'][0]})", bisect["fi"],
+                       b_args, bisect["out"], bisect["ms"], sum(1 for sc in scans if len(sc["ks"]) == 1), b_err,
+                       b_plain_ms,
+                       f"k={bisect['ks'][0]}, {b_hi - lo} probe pods", launches_are="every bisection step's launch")]
+    del os.environ["OPENSIM_HEADROOM_PROFILES"]
+    return rows
+
+
+def _hold_campaign_launch(rec: dict) -> tuple:
+    """One campaign launch against the plain version: the launch's valid
+    pods (the baseline's first CAMPAIGN_PLAIN_PODS) as a compact stream from
+    the launch's initial state, the kernel on it placing them as the launch
+    did and equal to the plain version on every output. A launch with more
+    valid pods than that (the baseline's 50,000) is also held whole against
+    a grid launch at S = 1 over the same stream from the same state, on the
+    eight state outputs. Returns (largest difference, plain ms, pods
+    checked, grid ms or None)."""
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    fi, stream, init, out = rec["fi"], rec["stream"], rec["init"], rec["out"]
+    idx = torch.nonzero(stream[1]).flatten()
+    whole = len(idx) <= CAMPAIGN_PLAIN_PODS
+    grid_ms = None
+    if not whole:
+        grid = [None]
+
+        def run_grid():
+            grid[0] = fs.fast_scan_sweep(fi, stream[0], stream[1][None].contiguous(), stream[2][None].contiguous(),
+                                         fi.node_valid[None], fi.spr_weight[None], init=init[None])
+
+        grid_ms = _events_ms(run_grid, reps=1)
+        _same(out, fs.FastOutputs(*(t[0] for t in grid[0])),
+              f"{rec['where']}: the launch vs the grid at S=1 over its {len(idx)} valid pods", fs.STATE_FIELDS)
+    idx = idx[:CAMPAIGN_PLAIN_PODS]
+    sub = tuple(t[idx].contiguous() for t in stream)
+    got = fs.fast_scan(fi, *sub, init=init)
+    per_pod = ("chosen", "gpu_take", "fail_counts", "insufficient")
+    launch = fs.FastOutputs(*(getattr(out, f)[idx] if f in per_pod else getattr(out, f) for f in fs.FastOutputs._fields))
+    _same(got, launch, f"{rec['where']}: the launch's {len(idx)} valid pods as a compact stream",
+          fields=fs.FastOutputs._fields if whole else per_pod)
+    plain = [None]
+
+    def run_plain():
+        plain[0] = fs.fast_scan_reference(fi, *sub, init=init)
+
+    plain_ms = _events_ms(run_plain, reps=1)
+    return _same(got, plain[0], f"{rec['where']}: kernel vs plain over {len(idx)} pods"), plain_ms, len(idx), grid_ms
+
+
+def campaign_plan(device, card: str, served) -> list:
+    """Lifecycle campaigns on the card (phases 59-61): the campaign plan
+    (``fixtures.write_campaign_plan``: the capacity fleet and Deployments
+    under PDBs of minAvailable 90%, a 1,000-replica canary, a rolling drain
+    of 20 nodes 5 at a time, a storm reclaiming 50, 20 nodes added, bench-0
+    up by 500, 32 scale-down checks, a defrag over 64 candidates) written as
+    a ``customConfig`` directory and run in warm mode, each step's
+    wall-clock, launches and kernel share recorded, every scheduling pass
+    exactly one one-scan launch (``fast_scan[cfg]``, from the carried
+    state), each held against the plain version over its valid pods; cold
+    mode over the baseline and the first COLD_STEPS steps, its fingerprints
+    warm mode's; example/campaign.yaml card against CPU; ``POST
+    /api/campaign`` on the server plan's server against an in-process
+    ``run_campaign`` on its snapshot. Returns the campaign launches' row of
+    the kernels table."""
+    import statistics
+
+    from opensim_tpu_torch.engine import fastpath
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.planner import campaign as cp
+
+    _phase("59 campaign plan: written as a customConfig directory, run in warm mode on the card")
+    root = _plan_dir() / "campaign"
+    spec_path = fx.write_campaign_plan(root, N_NODES, N_PODS, **CAMPAIGN_SIZES)
+    t0 = time.perf_counter()
+    spec = cp.load_campaign(spec_path)
+    cluster = cp.load_campaign_cluster(spec)
+    load_s = time.perf_counter() - t0
+    recs, marks, engine_calls = [], [], [0]
+
+    def launch(real):
+        def run(fi, tmpl, valid, forced, init=None, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(fi, tmpl, valid, forced, init=init, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            recs.append({"fi": fi, "stream": (tmpl, valid, forced), "init": init, "out": out,
+                         "ms": start.elapsed_time(end), "step": len(marks), "where": f"launch {len(recs)}"})
+            return out
+        return run
+
+    def score(real):
+        def run(self, rep):
+            real(self, rep)
+            marks.append((rep.index, rep.name, rep.type, time.perf_counter(), len(recs)))
+        return run
+
+    def engine(real):
+        def run(self, *a, **kw):
+            engine_calls[0] += 1
+            return real(self, *a, **kw)
+        return run
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _patched(fastpath, "fast_scan", launch), _patched(cp._Executor, "score", score), \
+            _patched(cp._Executor, "_run_engine", engine):
+        warm = cp.run_campaign(cluster, spec, mode="warm", device=device)
+    warm_s = time.perf_counter() - t0
+    launches = dict(fs.VARIANT_LAUNCHES)
+    if launches != {CAMPAIGN_VARIANT: len(recs)} or engine_calls[0] != len(recs) or warm.full_prepares != 1:
+        raise AssertionError(f"warm campaign: launches {launches}, {engine_calls[0]} scheduling passes, "
+                             f"{warm.full_prepares} full prepares")
+    d = warm.to_dict()
+    if len(d["steps"]) != len(spec.steps) + 1 or d["steps"][1]["podsAdded"] != CAMPAIGN_SIZES["canary"]:
+        raise AssertionError(f"warm campaign: {len(d['steps'])} step reports, canary {d['steps'][1]['podsAdded']}")
+    per_step, t_prev, n_prev = [], t0, 0
+    for (index, name, type_, t, n), s in zip(marks, d["steps"]):
+        ms = [r["ms"] for r in recs[n_prev:n]]
+        wall = t - t_prev
+        per_step.append({"index": index, "name": name, "type": type_, "wall_s": wall, "launches": n - n_prev,
+                         "kernel_ms": sum(ms), "kernel_share": sum(ms) / 1e3 / wall if wall else 0.0,
+                         "evicted": s["evicted"], "rescheduled": s["rescheduled"], "unschedulable": len(s["unschedulable"]),
+                         "blocked": len(s["blocked"]), "pods_bound": s["capacity"]["pods_bound"],
+                         "pods_pending": s["capacity"]["pods_pending"]})
+        t_prev, n_prev = t, n
+    print(f"campaign plan: loaded in {load_s:.3f} s; warm run {warm_s:.3f} s, {len(recs)} launches {launches}, "
+          f"fingerprint {d['fingerprint']}", flush=True)
+    for row in per_step:
+        print("  step " + json.dumps({k: round(v, 6) if isinstance(v, float) else v for k, v in row.items()}),
+              flush=True)
+
+    _phase(f"60 campaign plan: each of the {len(recs)} launches against the plain version over its valid pods "
+           f"(the baseline over its first {CAMPAIGN_PLAIN_PODS}, and whole against the grid at S=1), from the "
+           "launch's initial state")
+    err, plain_ms, plain_pods, grids = 0.0, 0.0, 0, []
+    valid_pods = sum(int(r["stream"][1].sum()) for r in recs)
+    for rec in recs:
+        e, ms, n, grid_ms = _hold_campaign_launch(rec)
+        err, plain_ms, plain_pods = max(err, e), plain_ms + ms, plain_pods + n
+        if grid_ms is not None:
+            grids.append((rec["where"], int(rec["stream"][1].sum()), grid_ms))
+    print(f"every launch identical to the plain version over {plain_pods} of its {valid_pods} valid pods "
+          f"({plain_pods / valid_pods:.4f}); plain {plain_ms:.3f} ms; held whole against the grid at S=1 on the eight "
+          f"state outputs (launch, valid pods, grid ms): {grids}", flush=True)
+
+    _phase(f"61 campaigns: cold mode over the baseline and {COLD_STEPS} steps; example/campaign.yaml card vs CPU; "
+           "POST /api/campaign on the server plan")
+    cold_spec = cp.load_campaign(spec_path)
+    cold_spec.steps = cold_spec.steps[:COLD_STEPS]
+    t0 = time.perf_counter()
+    cold = cp.run_campaign(cp.load_campaign_cluster(cold_spec), cold_spec, mode="cold", device=device)
+    cold_s = time.perf_counter() - t0
+    if [s.fingerprint for s in cold.steps] != [s["fingerprint"] for s in d["steps"][:COLD_STEPS + 1]]:
+        raise AssertionError("cold mode's step fingerprints differ from warm mode's")
+    print(f"cold mode: {cold.full_prepares} full prepares in {cold_s:.3f} s, the {COLD_STEPS + 1} fingerprints warm "
+          f"mode's", flush=True)
+    example = cp.load_campaign(_example("campaign.yaml"))
+    runs = {}
+    for where, dev in (("cpu", "cpu"), ("card", device)):
+        _reset_launches()
+        runs[where] = (cp.run_campaign(cp.load_campaign_cluster(example), example, device=dev).to_dict(),
+                       dict(fs.VARIANT_LAUNCHES))
+    if runs["card"][0] != runs["cpu"][0] or set(runs["card"][1]) != {CAMPAIGN_VARIANT}:
+        raise AssertionError(f"example/campaign.yaml: the card's result differs from the CPU's "
+                             f"(launches {runs['card'][1]})")
+    print(f"example/campaign.yaml: card equals CPU ({len(runs['card'][0]['steps'])} steps, launches "
+          f"{runs['card'][1]}, fingerprint {runs['card'][0]['fingerprint']})", flush=True)
+    server, url = served["server"], served["url"]
+    steps = [{"name": "upgrade", "type": "drain-wave", "wave": SERVER_CAMPAIGN_WAVE,
+              "nodes": [f"node-{i:05d}" for i in range(SERVER_CAMPAIGN_DRAIN)]}]
+    _reset_launches()
+    code, _h, answer, rt = _http(url, "/api/campaign", {"name": "server-drain", "steps": steps})
+    http_launches = dict(fs.VARIANT_LAUNCHES)
+    if set(http_launches) != {CAMPAIGN_VARIANT}:
+        raise AssertionError(f"POST /api/campaign launched {http_launches}")
+    t0 = time.perf_counter()
+    want = cp.run_campaign(server._observed_cluster()[0], cp.parse_steps(steps), name="server-drain",
+                           device=device).to_dict()
+    local_s = time.perf_counter() - t0
+    if code != 200 or answer != want or sum(http_launches.values()) < 1 + -(-SERVER_CAMPAIGN_DRAIN // SERVER_CAMPAIGN_WAVE):
+        raise AssertionError(f"POST /api/campaign: HTTP {code}, launches {http_launches}, equal to the in-process "
+                             f"run: {answer == want}")
+    print(f"POST /api/campaign: HTTP 200 in {rt:.3f} s, launches {http_launches}; equals run_campaign() on the "
+          f"server's snapshot ({local_s:.3f} s); drained {answer['steps'][1]['nodesDrained']}", flush=True)
+    work = [fs.fast_scan_work(r["fi"], *r["stream"], r["out"].chosen) for r in recs]
+    t_bytes = sum(w["bytes"] for w in work) / PEAK_BYTES_S * 1e3
+    t_ops = sum(w["ops"] for w in work) / PEAK_F32_S * 1e3
+    ms = [r["ms"] for r in recs]
+    print(f"campaign launches: {len(recs)}, kernel {sum(ms):.3f} ms in all, median {statistics.median(ms):.3f} ms, "
+          f"bound {max(t_bytes, t_ops):.6f} ms ({card})", flush=True)
+    return [{"name": CAMPAIGN_VARIANT, "plan": "campaign plan, warm (every scheduling pass)", "route": "cuda",
+             "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/ops/pallas_scan.py:1009",
+             "launches": len(recs), "max_abs_err": err, "ms": sum(ms), "median_ms": statistics.median(ms),
+             "max_ms": max(ms), "plain_ms": plain_ms, "plain_pods": plain_pods, "valid_pods": valid_pods,
+             "grid_s1_checks": grids,
+             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": None, "library": "none", "campaign_s": warm_s, "load_s": load_s, "cold_s": cold_s, "steps": per_step,
+             "server_campaign_s": rt, "card": card}]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
@@ -2089,9 +2653,9 @@ def main() -> int:
 
     plans = [
         ("4-6 capacity plan", lambda: (fx.synthetic_cluster(N_NODES), fx.synthetic_apps(N_PODS)),
-         "fast_scan", 10000),
+         "fast_scan", 5000),
         ("7-9 all-GPU-share plan", lambda: (fx.gpu_cluster(N_NODES), fx.gpu_apps(N_PODS)),
-         "fast_scan[gpu,gc]", 10000),
+         "fast_scan[gpu,gc]", 5000),
         ("10-12 affinity-heavy plan", lambda: (fx.synthetic_cluster(N_NODES), fx.affinity_apps(N_PODS)),
          "fast_scan[interpod]", AFFINITY_PLAIN_PODS),
         ("13-15 score-table plan", lambda: (fx.score_cluster(N_NODES), fx.score_apps(N_PODS)),
@@ -2104,7 +2668,7 @@ def main() -> int:
 
     _phase("2 build")
     variants = sorted({v for *_rest, v, _p in plans} | {fs.variant_name(fi) for _n, _p, fi in _small_preps("cpu")}
-                      | {v for *_rest, v in EXAMPLES} | set(CFG_VARIANTS) | set(EXPLAIN_VARIANTS)
+                      | {v for *_rest, v in EXAMPLES} | set(CFG_VARIANTS) | set(EXPLAIN_VARIANTS) | {CAMPAIGN_VARIANT}
                       | {_explain_name(v) for *_rest, v in EXAMPLES})
     fs.build(variants)
     print(f"build: {fs.BUILD_LOG['seconds']:.3f} s for {len(variants)} kernel variants, one nvcc each, "
@@ -2118,7 +2682,8 @@ def main() -> int:
 
     rows = [full_plan(device, label, make, variant, prefix, replay=variant == "fast_scan[interpod]")
             for label, make, variant, prefix in plans]
-    rows.append(drain_sweep(device))
+    row, drain_plans, drain_grid = drain_sweep(device)
+    rows.append(row)
     rows.extend(oversubscribed_plan(device))
     rows.extend(apply_plan(device, card))
     example_reports(device)
@@ -2137,9 +2702,16 @@ def main() -> int:
     rows.append(explain_oversubscribed(device))
     rows.append(explain_capacity(device))
     rows.append(apply_explain(device, card))
-    rows.extend(server_plan(device, card))
-    steady_phase(device)
-    kubeconfig_apply(device)
+    server_rows, served = server_plan(device, card)
+    rows.extend(server_rows)
+    try:
+        steady_phase(device)
+        kubeconfig_apply(device)
+        rows.append(defrag_cli(device, card, drain_plans, drain_grid))
+        rows.extend(observatory(device, card, served))
+        rows.extend(campaign_plan(device, card, served))
+    finally:
+        served["close"]()
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,11 +1,13 @@
 """simon CLI of the port — ``python -m opensim_tpu_torch {apply, explain,
-server, version}``, the ``apply``, ``explain`` and ``server`` flags of
+defrag (drain), campaign, server, top, version}``, the flags of
 ``opensim_tpu/cli/main.py`` (``cmd/apply/apply.go:27-36``,
-``cmd/server/server.go``) plus ``--device``. The run goes to the card
-unless ``--device cpu`` asks for the plain versions on the CPU; without a
-card and without that flag each subcommand fails (``server`` before it
-listens), and nothing falls back to the CPU. Log level comes from the
-``LogLevel`` env (``cmd/simon/simon.go:46-66``)."""
+``cmd/server/server.go``) plus ``--device`` where a subcommand simulates.
+The run goes to the card unless ``--device cpu`` asks for the plain
+versions on the CPU; without a card and without that flag each of those
+subcommands fails (``server`` before it listens), and nothing falls back
+to the CPU. ``top`` and ``campaign --url`` read a running server, which
+simulates on its own device. Log level comes from the ``LogLevel`` env
+(``cmd/simon/simon.go:46-66``)."""
 
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import sys
 from typing import List, Optional
 
 from .. import __version__ as VERSION
+from ..utils.validate import user_path
 
 COMMIT_ID = os.environ.get("SIMON_COMMIT_ID", "unknown")
 
@@ -95,6 +98,47 @@ def build_parser() -> argparse.ArgumentParser:
     explain_p.add_argument("--json", action="store_true", help="emit the explanation(s) as JSON")
     explain_p.add_argument("--device", default=None, help=device_help)
 
+    defrag_p = sub.add_parser(
+        "defrag", aliases=["drain"],
+        help="evaluate node-drain what-ifs (the README's Pods Migration feature, batch-evaluated)",
+        description="evaluate node-drain what-ifs (Pods Migration), batch-evaluated as scenarios: one launch of "
+        "the scenario grid on the card",
+    )
+    defrag_p.add_argument("-f", "--simon-config", required=True, help="path of simon config (Config CR yaml)")
+    defrag_p.add_argument("--candidates", default="", help="comma-separated node names to evaluate (default: all)")
+    defrag_p.add_argument(
+        "--json", action="store_true",
+        help="emit the drain plan as JSON (the same table rows the text renderer prints)",
+    )
+    defrag_p.add_argument("-o", "--output-file", default="", help="redirect the report to a file")
+    defrag_p.add_argument("--device", default=None, help=device_help)
+
+    campaign_p = sub.add_parser(
+        "campaign", help="run a cluster-lifecycle campaign (drain waves, reclaim storms, scored what-ifs)",
+        description=(
+            "execute a declarative lifecycle campaign: an ordered list of typed steps — PDB-aware drain waves, "
+            "spot reclaim storms, deploys/scales, add-nodes, scale-down safety checks, defrag plans — evaluated "
+            "against the spec's cluster (or a live server with --url) with every step scored by the capacity "
+            "observatory: placements delta, disruption budget consumed, utilization/fragmentation/headroom "
+            "movement, and a bit-stable step fingerprint"
+        ),
+    )
+    campaign_p.add_argument("spec", help="campaign spec yaml (kind: Campaign)")
+    campaign_p.add_argument("--json", action="store_true", help="print the full result JSON instead of tables")
+    campaign_p.add_argument(
+        "--exec", dest="exec_mode", default="", choices=["", "warm", "cold"],
+        help="execution mode override (default OPENSIM_CAMPAIGN_EXEC): warm = one full prepare + prepcache "
+        "deltas; cold = per-step full prepare (the verification mode)",
+    )
+    campaign_p.add_argument(
+        "--url", default="",
+        help="POST the campaign's steps to a live server's /api/campaign and evaluate against its observed "
+        "cluster instead of the spec's cluster section",
+    )
+    campaign_p.add_argument("--timeout", type=float, default=600.0, help="--url request timeout seconds")
+    campaign_p.add_argument("-o", "--output-file", default="", help="also write the result to a file")
+    campaign_p.add_argument("--device", default=None, help=device_help)
+
     server_p = sub.add_parser(
         "server", help="start the simon REST server",
         description="start the simon REST server (deploy-apps / scale-apps / healthz / metrics)",
@@ -121,19 +165,30 @@ def build_parser() -> argparse.ArgumentParser:
     server_p.add_argument("--handover", action="store_true",
                           help="with --standby: request the handover (not yet ported, ROADMAP Queue 1 item 10)")
     server_p.add_argument("--device", default=None, help=device_help)
+
+    top_p = sub.add_parser(
+        "top", help="live cluster capacity view (utilization, headroom, fragmentation)",
+        description=(
+            "render a live capacity view of the cluster a simon server observes: per-resource "
+            "utilization/spread/fragmentation, headroom per registered workload profile, the hottest nodes and "
+            "pending pressure — read from GET /api/cluster/report, the same computation path as the text report "
+            "tables. One shot by default; --watch refreshes in place like kubectl top"
+        ),
+    )
+    top_p.add_argument("--url", required=True, help="base URL of the live server (http://host:port)")
+    top_p.add_argument("--json", action="store_true", help="print the raw report JSON instead of tables")
+    top_p.add_argument("--watch", action="store_true", help="refresh the view in place until interrupted (Ctrl-C exits)")
+    top_p.add_argument("--interval", type=float, default=2.0, help="--watch refresh interval in seconds (default 2)")
+    top_p.add_argument(
+        "--no-headroom", action="store_true",
+        help="skip the headroom probes (cheaper polling; utilization/fragmentation only)",
+    )
+    top_p.add_argument(
+        "-e", "--extended-resources", default="", help="comma-separated extended resource sections (gpu,open-local)",
+    )
+    top_p.add_argument("--timeout", type=float, default=60.0, help="per-request client timeout seconds")
     sub.add_parser("version", help="print version", description="print version and commit id")
     return parser
-
-
-def _user_path(p: str, label: str, allow_empty: bool = False) -> str:
-    """Reject an empty required path and control characters in any path."""
-    if not p:
-        if allow_empty:
-            return p
-        raise ValueError(f"empty {label}")
-    if any(ord(c) < 32 for c in p):
-        raise ValueError(f"invalid {label}: control character in {p!r}")
-    return p
 
 
 def run_apply(args) -> int:
@@ -142,10 +197,10 @@ def run_apply(args) -> int:
     if args.trace:
         raise NotImplementedError("simon apply --trace: ROADMAP Queue 1 item 10, not yet ported")
     opts = Options(
-        simon_config=_user_path(args.simon_config, "--simon-config"),
-        default_scheduler_config=_user_path(args.default_scheduler_config, "--default-scheduler-config",
-                                            allow_empty=True),
-        output_file=_user_path(args.output_file, "--output-file", allow_empty=True),
+        simon_config=user_path(args.simon_config, label="--simon-config"),
+        default_scheduler_config=user_path(args.default_scheduler_config, label="--default-scheduler-config",
+                                           allow_empty=True),
+        output_file=user_path(args.output_file, label="--output-file", allow_empty=True),
         use_greed=args.use_greed,
         enable_preemption=args.enable_preemption,
         interactive=args.interactive,
@@ -190,9 +245,9 @@ def run_explain(args) -> int:
     from ..planner.apply import Applier, Options
 
     applier = Applier(Options(
-        simon_config=_user_path(args.simon_config, "--simon-config"),
-        default_scheduler_config=_user_path(args.default_scheduler_config, "--default-scheduler-config",
-                                            allow_empty=True),
+        simon_config=user_path(args.simon_config, label="--simon-config"),
+        default_scheduler_config=user_path(args.default_scheduler_config, label="--default-scheduler-config",
+                                           allow_empty=True),
         use_greed=args.use_greed,
         device=args.device,
     ))
@@ -232,6 +287,136 @@ def run_explain(args) -> int:
     return 0
 
 
+def run_defrag(args) -> int:
+    """``simon defrag`` / ``simon drain``: batch-evaluated node-drain
+    what-ifs, one launch of the scenario grid on the card. Text and
+    ``--json`` both serialize the same rows (``report.drain_plan_rows``)."""
+    import json
+
+    from ..planner.apply import Applier, Options
+    from ..planner.defrag import plan_drains
+    from ..planner.report import _table, drain_plan_rows
+
+    applier = Applier(Options(simon_config=user_path(args.simon_config, label="--simon-config"), device=args.device))
+    cluster = applier.load_cluster()
+    apps = applier.load_apps()
+    candidates = [c.strip() for c in args.candidates.split(",") if c.strip()] or None
+    if candidates:
+        known = {n.metadata.name for n in cluster.nodes}
+        unknown = [c for c in candidates if c not in known]
+        if unknown:
+            print(f"simon defrag: unknown node(s): {', '.join(unknown)}", file=sys.stderr)
+            return 1
+    result = plan_drains(cluster, apps, candidates=candidates, device=applier.device)
+    rows = drain_plan_rows(result.plans)
+    out = open(user_path(args.output_file, label="--output-file"), "w") if args.output_file else sys.stdout
+    try:
+        if args.json:
+            print(json.dumps({"table": {"header": rows[0], "rows": rows[1:]}, "drainable": len(result.drainable()),
+                              "total": len(result.plans)}, sort_keys=True), file=out)
+        else:
+            print("Drain Plan", file=out)
+            _table(rows, out)
+            print(f"\n{len(result.drainable())}/{len(result.plans)} node(s) drainable", file=out)
+    finally:
+        if args.output_file:
+            out.close()
+    return 0
+
+
+def run_campaign_cmd(args) -> int:
+    """``simon campaign <spec.yaml>``: execute a lifecycle campaign against
+    the spec's cluster on this process's device, or — with ``--url`` —
+    POST its steps to a live server's ``/api/campaign`` (evaluated against
+    its observed cluster on its device). Text and ``--json`` both
+    serialize the same table rows."""
+    import json
+
+    from ..planner import campaign as campaign_mod
+    from ..planner.report import render_campaign
+
+    spec_path = user_path(args.spec, label="spec")
+    spec = campaign_mod.load_campaign(spec_path)
+    if args.url:
+        import urllib.error
+        import urllib.request
+
+        import yaml
+
+        with open(spec_path) as fh:
+            doc = yaml.safe_load(fh) or {}
+        body = json.dumps({"name": spec.name, "steps": (doc.get("spec") or {}).get("steps") or [],
+                           **({"mode": args.exec_mode} if args.exec_mode else {})}).encode()
+        req = urllib.request.Request(f"{args.url.rstrip('/')}/api/campaign", data=body,
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=args.timeout) as resp:
+                result = json.load(resp)
+        except urllib.error.HTTPError as e:
+            try:
+                detail = json.load(e)
+            except ValueError:
+                detail = {"error": str(e)}
+            print(f"simon campaign: HTTP {e.code}: {detail.get('error', e)}", file=sys.stderr)
+            return 1
+    else:
+        cluster = campaign_mod.load_campaign_cluster(spec)
+        result = campaign_mod.run_campaign(cluster, spec, mode=args.exec_mode or None, device=args.device).to_dict()
+    if args.json:
+        print(json.dumps(result, indent=2, sort_keys=True))
+    else:
+        render_campaign(result, sys.stdout)
+    if args.output_file:
+        with open(user_path(args.output_file, label="--output-file"), "w") as fh:
+            fh.write(json.dumps(result, sort_keys=True) + "\n")
+    # a campaign that left evictions blocked or pods unschedulable is a
+    # finding, not a failure: exit 0 with the verdict in the report
+    return 0
+
+
+def run_top(args) -> int:
+    """``simon top``: the capacity observatory's view — fetch
+    ``/api/cluster/report`` and render the same numbers the report tables
+    carry (one shot, ``--json``, or a ``--watch`` refresh loop)."""
+    import json
+    import time
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    from ..obs.capacity import format_top
+
+    params = {}
+    if args.no_headroom:
+        params["headroom"] = "0"
+    extended = [e for e in args.extended_resources.split(",") if e]
+    if extended:
+        params["extended"] = ",".join(extended)
+    url = f"{args.url.rstrip('/')}/api/cluster/report"
+    if params:
+        url += "?" + urllib.parse.urlencode(params)
+    while True:
+        try:
+            with urllib.request.urlopen(url, timeout=args.timeout) as resp:
+                report = json.load(resp)
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            if args.watch:
+                # a dashboard survives server restarts and transient blips
+                # (watch(1)/kubectl top semantics): report in place, keep polling
+                print(f"\x1b[2J\x1b[Hsimon top: {url}: {e} (retrying)", flush=True)
+                time.sleep(max(0.1, args.interval))
+                continue
+            print(f"simon top: {url}: {e}", file=sys.stderr)
+            return 1
+        rendered = json.dumps(report, indent=2, sort_keys=True) if args.json else format_top(report).rstrip("\n")
+        if not args.watch:
+            print(rendered)
+            return 0
+        # clear + home, like watch(1)/kubectl top: the view refreshes in place
+        print(f"\x1b[2J\x1b[H{rendered}", flush=True)
+        time.sleep(max(0.1, args.interval))
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     level = LOG_LEVELS.get(os.environ.get("LogLevel", "info").lower(), logging.INFO)
     logging.basicConfig(level=level, format="%(levelname)s %(message)s")
@@ -253,9 +438,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             # without --device cpu: refused before it listens
             print(f"simon server: {e}", file=sys.stderr)
             return 1
-    if args.command in ("apply", "explain"):
+    if args.command == "top":
         try:
-            return run_apply(args) if args.command == "apply" else run_explain(args)
+            return run_top(args)
+        except KeyboardInterrupt:
+            return 0
+    runs = {"apply": run_apply, "explain": run_explain, "defrag": run_defrag, "drain": run_defrag,
+            "campaign": run_campaign_cmd}
+    if args.command in runs:
+        try:
+            return runs[args.command](args)
         except (OSError, ValueError, RuntimeError, NotImplementedError) as e:
             # no card without --device cpu (RuntimeError) and the modes of
             # later slices (NotImplementedError) fail like a bad input

@@ -316,7 +316,10 @@ class TemplateSet:
 
         Incremental: the previous matrix (if any) fills the known block, so
         a delta build evaluates only new-template rows and new-selector
-        columns — O(ΔU·A + U·ΔA) python selector matches, not O(U·A)."""
+        columns — O(ΔU·A + U·ΔA) python selector matches, not O(U·A). A
+        row depends on the template's namespace and labels alone, so
+        templates that share them (the pinned replicas of one workload in a
+        live snapshot) share one evaluation."""
         import numpy as np
 
         U, A = len(self.templates), len(self.selectors)
@@ -326,10 +329,16 @@ class TemplateSet:
         if prev is not None and prev.shape[0] <= U and prev.shape[1] <= A:
             u0, a0 = prev.shape
             m[:u0, :a0] = prev
+        rows: Dict[tuple, np.ndarray] = {}
         for u, t in enumerate(self.templates):
-            for a, canon in enumerate(self.selectors):
-                if u < u0 and a < a0:
-                    continue
-                m[u, a] = selector_matches(canon, t.namespace, t.labels)
+            lo = a0 if u < u0 else 0
+            if lo >= A:
+                continue
+            key = (t.namespace, tuple(sorted(t.labels.items())), lo)
+            row = rows.get(key)
+            if row is None:
+                row = rows[key] = np.array(
+                    [selector_matches(canon, t.namespace, t.labels) for canon in self.selectors[lo:]], dtype=bool)
+            m[u, lo:] = row
         self._mm = m
         return m

@@ -8,8 +8,9 @@ inter-pod affinity, Open-Local storage, selectHost, bind; under a
 scheduler config, its weights, filter switches and fit-ignored
 resources); `build_inputs()` turns the encoded cluster into the kernel's
 tensors for one config; `schedule()` runs it over the stream (one launch,
-or one launch per profile segment carrying the state), `sweep()` over a
-batch of scenarios. The counterpart in the JAX package is
+or one launch per profile segment carrying the state, from the prepared
+state or from one rebuilt on the host: a campaign's scheduling pass),
+`sweep()` over a batch of scenarios. The counterpart in the JAX package is
 ``opensim_tpu/engine/fastpath.py``; the TPU layout rules there (128-lane
 node padding, 8-row GPU, VG, device, port and term-row padding,
 transposed scalar tables, chunked pod streams) and its VMEM- and
@@ -25,8 +26,11 @@ import numpy as np
 import torch
 
 from ..encoding import vocab as V
+from ..encoding.state import ScanState
 from ..ops import kernels
-from ..ops.fast_scan import MAX_CS, MAX_DV, MAX_GD, MAX_R, FastInputs, fast_scan, fast_scan_sweep, variant
+from ..ops.fast_scan import (
+    MAX_CS, MAX_DV, MAX_GD, MAX_R, FastInputs, fast_scan, fast_scan_sweep, pack_state, state_layout, variant,
+)
 from .schedconfig import SchedulerConfig
 
 HOSTNAME = "kubernetes.io/hostname"
@@ -130,10 +134,14 @@ def build_inputs(
     if memo is not None and (cfg, segment) in memo:
         return memo[(cfg, segment)]
     ec = prep.ec_np
-    core = kernels.precompute_core_np(ec)
-    stat = kernels.precompute_static_np(ec._replace(node_valid=np.ones_like(ec.node_valid)), cfg, core=core)
+    # the [U, N] static tables are computed over the distinct template rows
+    # and gathered to the stream's templates on the device
+    ec_u, static_row = kernels.static_rows(ec)
+    core = kernels.precompute_core_np(ec_u)
+    stat = kernels.precompute_static_np(ec_u._replace(node_valid=np.ones_like(ec.node_valid)), cfg, core=core)
     nv = np.asarray(ec.node_valid if node_valid is None else node_valid, dtype=bool)
-    masked = kernels.precompute_static_np(ec._replace(node_valid=nv), cfg, core=core)
+    masked = kernels.precompute_static_np(ec_u._replace(node_valid=nv), cfg, core=core)
+    static_fail = masked.static_fail[static_row]
     N = int(ec.node_valid.shape[0])
     topo_keys = prep.meta.vocab.topo_keys.items()
     zone_tks = [i for i, k in enumerate(topo_keys) if k != HOSTNAME]
@@ -181,12 +189,13 @@ def build_inputs(
 
     dev = prep.device
     f32, i32 = torch.float32, torch.int32
+    rows = _to(static_row, torch.int64, dev)
     fi = FastInputs(
         alloc_T=_to(np.asarray(ec.alloc).T, f32, dev),
         used0_T=_to(np.asarray(prep.st0_np.used).T, f32, dev),
-        static_pass=_to(stat.static_pass, f32, dev),
-        aff_mask=_to(stat.aff_mask, f32, dev),
-        share_raw=_to(stat.share_raw, f32, dev),
+        static_pass=_to(stat.static_pass, f32, dev)[rows],
+        aff_mask=_to(stat.aff_mask, f32, dev)[rows],
+        share_raw=_to(stat.share_raw, f32, dev)[rows],
         zone_idx=_to(zone_idx, i32, dev),
         matches_AU=_to(matches_sel.T, f32, dev),
         node_valid=_to(nv, f32, dev),
@@ -204,8 +213,8 @@ def build_inputs(
         gpu_mem=_to(np.asarray(ec.gpu_mem) if gpu_on else np.zeros(0), f32, dev),
         gpu_cnt=_to(np.asarray(ec.gpu_count) if gpu_on else np.zeros(0), f32, dev),
         gpu0=_to(gpu0, f32, dev),
-        na_raw=_to(stat.na_raw if f.pref_node_affinity else off_un, f32, dev),
-        tt_raw=_to(stat.tt_raw if f.prefer_taints else off_un, f32, dev),
+        na_raw=_to(stat.na_raw, f32, dev)[rows] if f.pref_node_affinity else _to(off_un, f32, dev),
+        tt_raw=_to(stat.tt_raw, f32, dev)[rows] if f.prefer_taints else _to(off_un, f32, dev),
         avoid_raw=_to(ec.avoid_score if f.prefer_avoid else off_un, f32, dev),
         port_HU=_to(ports[0], f32, dev),
         port_conf_HU=_to(ports[1], f32, dev),
@@ -216,9 +225,9 @@ def build_inputs(
         cfg=kernels.kernel_config(cfg, req.shape[1], segment),
     )
     if memo is not None:
-        memo[(cfg, segment)] = (fi, {"static_fail": masked.static_fail})
+        memo[(cfg, segment)] = (fi, {"static_fail": static_fail})
         return memo[(cfg, segment)]
-    return fi, {"static_fail": masked.static_fail}
+    return fi, {"static_fail": static_fail}
 
 
 def _local_tables(prep) -> Dict[str, np.ndarray]:
@@ -398,16 +407,17 @@ def inputs_from_reference(
     )
 
 
-def pod_stream(prep, pod_valid: Optional[np.ndarray] = None):
+def pod_stream(prep, pod_valid: Optional[np.ndarray] = None, forced: Optional[np.ndarray] = None):
     """(tmpl, valid, forced) int32 tensors of the prepared stream on
     ``prep.device``; `pod_valid` ([P] bool) masks pods out of the stream
-    (None: every pod is valid)."""
+    (None: every pod is valid); `forced` ([P] bool) names the pods bound
+    where they are pinned (None: the prepared stream's)."""
     valid = np.ones(len(prep.tmpl_ids), bool) if pod_valid is None else np.asarray(pod_valid, dtype=bool)
     i32 = torch.int32
     return (
         _to(prep.tmpl_ids, i32, prep.device),
         _to(valid, i32, prep.device),
-        _to(prep.forced, i32, prep.device),
+        _to(prep.forced if forced is None else np.asarray(forced, dtype=bool), i32, prep.device),
     )
 
 
@@ -437,6 +447,8 @@ def schedule(
     pod_valid: Optional[np.ndarray] = None,
     tie_seed: Optional[int] = None,
     explain: bool = False,
+    forced: Optional[np.ndarray] = None,
+    init: Optional[ScanState] = None,
 ) -> Scheduled:
     """Run the bind scan over the prepared stream: the kernel on a card,
     the plain version on the CPU. `segments` (``[(built, lo, hi)]``,
@@ -451,9 +463,18 @@ def schedule(
     ``fail_counts``/``insufficient`` hold a row per such pod. Without
     GPU-share pods the scan leaves the GPUs as they were (no takes, the
     initial free memory), without host ports the ports, and without
-    local-storage pods the volume groups and devices."""
-    tmpl, valid, forced = pod_stream(prep, pod_valid)
-    outs, state = [], None
+    local-storage pods the volume groups and devices. `forced` ([P] bool)
+    replaces the prepared stream's forced pods. `init` (a scan state in the
+    encoder's layout, as ``explain.replay_state`` rebuilds it on the host;
+    None: the prepared cluster's) is the state the first launch starts
+    from (:func:`carried_state`; its segment must be a cfg variant,
+    ``build_inputs(segment=True)``) and holds the fields a variant leaves
+    as they were: a campaign's scheduling pass, as the JAX package's
+    campaign runs its engines from ``st0``
+    (``opensim_tpu/planner/campaign.py:961-990``)."""
+    tmpl, valid, forced = pod_stream(prep, pod_valid, forced)
+    st0 = prep.st0_np if init is None else init
+    outs, state = [], None if init is None else carried_state(prep, segments[0][0][0], init)
     for (fi, meta), lo, hi in segments:
         if hi <= lo:
             continue
@@ -467,7 +488,6 @@ def schedule(
     static_fail = np.concatenate([meta["static_fail"][prep.tmpl_ids[lo:hi]] for _o, meta, lo, hi in outs])
     out, fi = outs[-1][0], segments[-1][0][0]
     v = variant(fi)
-    st0 = prep.st0_np
     if v.gpu:
         gpu_take, gpu_free = cat("gpu_take"), host(out.gpu_free)
     else:
@@ -478,6 +498,70 @@ def schedule(
     vg_free, dev_free = (host(out.vg_free), host(out.dev_free)) if v.local else (st0.vg_free, st0.dev_free)
     return Scheduled(chosen, host(out.used), gpu_take, gpu_free, port_used, np.asarray(vg_free),
                      np.asarray(dev_free), cat("fail_counts"), cat("insufficient"), static_fail)
+
+
+def _zone_columns(prep) -> List[np.ndarray]:
+    """Per zone key (the kernel's keys 1..K), the encoder's domain id of
+    each of its zone columns, in :func:`build_inputs`'s column order."""
+    ec = prep.ec_np
+    node_domain = np.asarray(ec.node_domain)
+    trash = np.asarray(ec.domain_topo).shape[0] - 1
+    zone_tks = [i for i, k in enumerate(prep.meta.vocab.topo_keys.items()) if k != HOSTNAME]
+    return [ids[ids != trash] for ids in (np.unique(node_domain[:, tk]) for tk in zone_tks)]
+
+
+def carried_state(prep, fi: FastInputs, st: ScanState) -> torch.Tensor:
+    """The kernel's state row (``fast_scan.state_layout``) of a scan state
+    in the encoder's layout (``explain.replay_state``'s, the host's mirror
+    of the binds so far), for a launch's ``init``: usage, GPU, host-port,
+    volume-group and device state transposed node-minor; the per-domain
+    selector and term counts gathered into the kernel's per-node rows (the
+    hostname domain of each node) and per-zone columns (the zone keys'
+    domains, :func:`_zone_columns`), and the per-selector totals summed
+    from them. A term row counts under its own key only: its node row when
+    its key is the hostname, its zone row otherwise, as the encoder counts
+    it; the kernel reads no other (the other stays 0)."""
+    ec = prep.ec_np
+    lay = state_layout(fi)
+    A, N = lay["node_cnt"]
+    Z = fi.n_zones
+    topo_keys = prep.meta.vocab.topo_keys.items()
+    node_domain = np.asarray(ec.node_domain)
+    trash = np.asarray(ec.domain_topo).shape[0] - 1
+    host = node_domain[:, topo_keys.index(HOSTNAME)] if HOSTNAME in topo_keys else None
+    cols = _zone_columns(prep)
+
+    def by_key(dom: np.ndarray, keys: np.ndarray):  # [D+1, X] per-domain counts -> ([X, N], [X, Z])
+        node_rows = np.zeros((dom.shape[1], N), np.float32)
+        zone_rows = np.zeros((dom.shape[1], Z), np.float32)
+        for x, k in enumerate(np.asarray(keys).tolist()):
+            if k == 0 and host is not None:
+                node_rows[x] = np.where(host != trash, dom[host, x], 0.0)
+            elif k > 0:
+                zone_rows[x, : len(cols[k - 1])] = dom[cols[k - 1], x]
+        return node_rows, zone_rows
+
+    dom_sel = np.asarray(st.dom_sel, np.float32)
+    # a node without the hostname label (padding) holds no pod: its row of
+    # the trash domain, which gathers the counts of unlabelled nodes under
+    # every key, is not its own
+    node_cnt = np.where(host != trash, dom_sel[host].T, 0.0).astype(np.float32) if host is not None \
+        else np.zeros((A, N), np.float32)
+    zone_cnt = np.zeros((fi.zone_idx.shape[0], A, Z), np.float32)
+    for ki, ids in enumerate(cols):
+        zone_cnt[ki, :, : len(ids)] = dom_sel[ids].T
+    fields = {"used": np.asarray(st.used).T, "node_cnt": node_cnt, "zone_cnt": zone_cnt.reshape(-1, Z),
+              "gpu_free": np.asarray(st.gpu_free).T[: lay["gpu_free"][0]],
+              "port_used": np.asarray(st.port_used).T[: lay["port_used"][0]]}
+    if variant(fi).interpod:
+        fields["anti_node"], fields["anti_zone"] = by_key(np.asarray(st.dom_anti, np.float32), fi.anti_g_key.cpu())
+        fields["prefw_node"], fields["prefw_zone"] = by_key(np.asarray(st.dom_prefw, np.float32),
+                                                            fi.prefg_key.cpu())
+        fields["sel_total"] = np.concatenate([node_cnt.sum(1, dtype=np.float32)]
+                                             + [z.sum(1, dtype=np.float32) for z in zone_cnt])
+    if variant(fi).local:
+        fields["vg_free"], fields["dev_free"] = np.asarray(st.vg_free).T, np.asarray(st.dev_free).T
+    return pack_state(fi, {name: _to(a, torch.float32, prep.device) for name, a in fields.items()})
 
 
 class _SweepContext:

@@ -705,15 +705,18 @@ def write_apply_plan(root, n_nodes: int, n_pods: int, n_hog: int) -> str:
     capacity fleet of n_nodes (:func:`synthetic_cluster`) in ``cluster/``,
     the apps of :func:`apply_apps` in ``bench/`` and ``hog/``, the fleet's
     next node as the new-node template in ``newnode/``, and the Config CR
-    naming them, ``config.yaml``, whose path it returns."""
+    naming them, ``config.yaml``, whose path it returns. With `n_hog` 0
+    the config names ``bench`` alone: the capacity plan, as ``simon
+    defrag`` reads it."""
     import yaml
 
     dumper = getattr(yaml, "CSafeDumper", yaml.SafeDumper)
     root = Path(root)
+    apps = apply_apps(n_pods, n_hog) if n_hog else [("bench", synthetic_apps(n_pods))]
     dirs = {
         "cluster": [n.raw for n in synthetic_cluster(n_nodes).nodes],
         "newnode": [_fleet_node(n_nodes).raw],
-        **{name: [w.raw for w in rt.deployments] for name, rt in apply_apps(n_pods, n_hog)},
+        **{name: [w.raw for w in rt.deployments] for name, rt in apps},
     }
     for name, docs in dirs.items():
         (root / name).mkdir(parents=True, exist_ok=True)
@@ -726,11 +729,74 @@ def write_apply_plan(root, n_nodes: int, n_pods: int, n_hog: int) -> str:
         "metadata": {"name": "apply-plan"},
         "spec": {
             "cluster": {"customConfig": "cluster"},
-            "appList": [{"name": "bench", "path": "bench"}, {"name": "hog", "path": "hog"}],
+            "appList": [{"name": name, "path": name} for name, _rt in apps],
             "newNode": "newnode",
         },
     }))
     return str(config)
+
+
+# -- the campaign plan ----------------------------------------------------------
+#
+# Users rehearsing a rolling upgrade and a spot storm on a real-size fleet:
+# the capacity plan's fleet and Deployments, each under a PodDisruptionBudget,
+# then a canary, drain waves, a reclaim storm, an autoscaler add, a scale-up,
+# scale-down checks and a defrag plan, in that order.
+
+def _pdb(name: str, app: str, min_available) -> dict:
+    return {"apiVersion": "policy/v1", "kind": "PodDisruptionBudget",
+            "metadata": {"name": name, "namespace": "default"},
+            "spec": {"minAvailable": min_available, "selector": {"matchLabels": {"app": app}}}}
+
+
+def campaign_steps(n_nodes: int, n_pods: int, canary: int = 1000, drain: int = 20, drain_wave: int = 5,
+                   reclaim: int = 50, add: int = 20, scale_up: int = 500, check: int = 32, defrag: int = 64,
+                   defrag_max: int = 8, defrag_wave: int = 4) -> List[dict]:
+    """The campaign plan's ``spec.steps``: deploy a `canary`-replica
+    Deployment with a PDB (minAvailable 90%); drain `drain` named nodes,
+    `drain_wave` at a time; reclaim the next `reclaim` nodes at once; add
+    `add` nodes cloned from the fleet's last node; scale bench-0 up by
+    `scale_up`; check `check` nodes for removal; defrag over `defrag`
+    candidates, at most `defrag_max` drained, `defrag_wave` at a time."""
+    cpu, memory, _opts = _plan_workload(0)
+    canary_dep = make_fake_deployment("canary", canary, "250m", "512Mi").raw
+    names = [f"node-{i:05d}" for i in range(n_nodes)]
+    return [
+        {"name": "canary", "type": "deploy", "app": {"name": "canary"},
+         "resources": [canary_dep, _pdb("canary-pdb", "canary", "90%")]},
+        {"name": "rolling-upgrade", "type": "drain-wave", "nodes": names[:drain], "wave": drain_wave},
+        {"name": "spot-storm", "type": "reclaim-storm", "nodes": names[drain:drain + reclaim]},
+        {"name": "autoscale", "type": "add-nodes", "count": add, "template": {"node": names[-1]}},
+        {"name": "bench-0-up", "type": "scale", "workload": {"kind": "Deployment", "name": "bench-0"},
+         "replicas": n_pods // 20 + scale_up},
+        {"name": "shrink-check", "type": "scale-down-check", "count": check},
+        {"name": "defrag", "type": "defrag", "count": defrag, "maxNodes": defrag_max, "wave": defrag_wave},
+    ]
+
+
+def write_campaign_plan(root, n_nodes: int, n_pods: int, **steps) -> str:
+    """Write the campaign plan as a user would hand it to ``simon
+    campaign``: the capacity fleet of n_nodes and the capacity plan's 20
+    Deployments of n_pods pods, each with a PDB of minAvailable 90%, as a
+    ``customConfig`` directory (``cluster/``), and the Campaign naming it
+    with :func:`campaign_steps` (sizes from `steps`), ``campaign.yaml``,
+    whose path it returns."""
+    import yaml
+
+    dumper = getattr(yaml, "CSafeDumper", yaml.SafeDumper)
+    root = Path(root)
+    (root / "cluster").mkdir(parents=True, exist_ok=True)
+    apps = synthetic_apps(n_pods).deployments
+    docs = ([n.raw for n in synthetic_cluster(n_nodes).nodes] + [w.raw for w in apps]
+            + [_pdb(f"{w.metadata.name}-pdb", w.metadata.name, "90%") for w in apps])
+    with open(root / "cluster" / "cluster.yaml", "w") as f:
+        yaml.dump_all(docs, f, Dumper=dumper)
+    spec = root / "campaign.yaml"
+    spec.write_text(yaml.dump({
+        "apiVersion": "simon/v1alpha1", "kind": "Campaign", "metadata": {"name": "campaign-plan"},
+        "spec": {"cluster": {"customConfig": "cluster"}, "steps": campaign_steps(n_nodes, n_pods, **steps)},
+    }, Dumper=dumper))
+    return str(spec)
 
 
 # -- the server plan ------------------------------------------------------------
@@ -748,6 +814,29 @@ def server_apps(n_pods: int, lo: int, hi: int) -> ResourceTypes:
     rt = ResourceTypes()
     rt.deployments.extend(synthetic_apps(n_pods).deployments[lo:hi])
     return rt
+
+
+def headroom_profile(cluster: ResourceTypes, name: str = "wide") -> str:
+    """An ``OPENSIM_HEADROOM_PROFILES`` entry whose headroom on `cluster`
+    (its pods bound) is the number of nodes with the most free resources:
+    as its cpu request the largest free cpu of a node (so a node takes one
+    replica at most) and as its memory request the most free memory among
+    the nodes with that cpu free, so exactly the nodes that tie on both
+    take one; ``max_replicas`` four times their number, so the frontier
+    lies inside the probe's ladder. On the server plan's bound fleet half
+    the nodes tie (2,500 of 5,000)."""
+    used: Dict[str, List[float]] = {}
+    for p in cluster.pods:
+        if p.spec.node_name and p.phase not in ("Succeeded", "Failed"):
+            req = p.resource_requests()
+            u = used.setdefault(p.spec.node_name, [0, 0])
+            u[0] += round(req.get("cpu", 0.0) * 1000)
+            u[1] += round(req.get("memory", 0.0))
+    free = [(round(n.allocatable.get("cpu", 0.0) * 1000) - used.get(n.metadata.name, [0, 0])[0],
+             round(n.allocatable.get("memory", 0.0)) - used.get(n.metadata.name, [0, 0])[1]) for n in cluster.nodes]
+    cpu = max(c for c, _m in free)
+    mem = max(m for c, m in free if c == cpu)
+    return f"{name}={cpu}m:{mem}:{4 * free.count((cpu, mem))}"
 
 
 def snapshot_pod(pod: Pod) -> dict:

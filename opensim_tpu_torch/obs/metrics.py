@@ -22,6 +22,7 @@ __all__ = [
     "HistogramVec",
     "MetricsRecorder",
     "RECORDER",
+    "UTILIZATION_BUCKETS",
     "escape_label_value",
     "family_header",
     "parse_metrics",
@@ -32,6 +33,12 @@ __all__ = [
 DEFAULT_BUCKETS: Tuple[float, ...] = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0, 10.0, 30.0,
+)
+
+#: per-node utilization is a ratio in [0, 1+] (requests can legitimately
+#: exceed allocatable on over-committed nodes) — capacity-shaped buckets
+UTILIZATION_BUCKETS: Tuple[float, ...] = (
+    0.1, 0.25, 0.5, 0.625, 0.75, 0.875, 0.95, 1.0,
 )
 
 #: The metric-family registry: ``name -> (help, type)`` for every family the
@@ -57,6 +64,27 @@ FAMILIES: Dict[str, Tuple[str, str]] = {
     # latency (this module's RECORDER)
     "simon_phase_seconds": ("Per-phase latency from the request span trees", "histogram"),
     "simon_request_seconds": ("Whole-request latency by endpoint and outcome", "histogram"),
+    # capacity observatory (obs/capacity.py) — cardinality contract: every
+    # family below is label-free or bounded (resource ∈ {cpu, memory, pods};
+    # profile = registered headroom profiles; node series are capped at the
+    # top-K hottest nodes)
+    "simon_cluster_utilization": ("Per-node utilization distribution by resource", "histogram"),
+    "simon_cluster_node_utilization": (
+        "Top-K hottest node utilization by resource (cardinality-capped)", "gauge",
+    ),
+    "simon_cluster_utilization_ratio": ("Aggregate requested/allocatable by resource", "gauge"),
+    "simon_cluster_allocatable": ("Cluster-wide allocatable by resource", "gauge"),
+    "simon_cluster_requested": ("Cluster-wide requests of counted pods by resource", "gauge"),
+    "simon_cluster_spread": ("Allocation spread: stddev/mean of per-node utilization", "gauge"),
+    "simon_cluster_fragmentation": (
+        "Free-capacity fragmentation: 1 - largest free node / total free", "gauge",
+    ),
+    "simon_cluster_headroom": (
+        "Max additional replicas of a registered workload profile that still fit", "gauge",
+    ),
+    "simon_cluster_nodes": ("Nodes in the observed cluster", "gauge"),
+    "simon_cluster_pods_bound": ("Counted pods bound to a node", "gauge"),
+    "simon_cluster_pods_pending": ("Counted pods with no node (unschedulable pressure)", "gauge"),
 }
 
 

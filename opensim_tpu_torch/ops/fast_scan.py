@@ -403,6 +403,26 @@ def unpack_state(fi: FastInputs, state: torch.Tensor) -> Dict[str, torch.Tensor]
     return out
 
 
+def pack_state(fi: FastInputs, fields: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The inverse of :func:`unpack_state`: one float32 state row ``[W]``
+    from its fields by name, each of its :func:`state_layout` shape (a
+    field left out is zeros), on the inputs' device: what a launch takes as
+    ``init``."""
+    unknown = set(fields) - set(state_layout(fi))
+    if unknown:
+        raise ValueError(f"pack_state: no state fields {sorted(unknown)}")
+    dev = fi.alloc_T.device
+    parts = []
+    for name, shape in state_layout(fi).items():
+        t = fields.get(name)
+        if t is None:
+            t = torch.zeros(shape, dtype=torch.float32, device=dev)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"pack_state: {name} has shape {tuple(t.shape)}, want {tuple(shape)}")
+        parts.append(t.to(device=dev, dtype=torch.float32).reshape(-1))
+    return torch.cat(parts) if parts else torch.zeros((0,), dtype=torch.float32, device=dev)
+
+
 def _check(fi: FastInputs, tmpl, valid, forced, node_valid=None, spr_weight=None, init=None) -> None:
     """Device, dtype, shape and contiguity of everything the kernel reads,
     and the range of every key and selector index it follows. ``valid``

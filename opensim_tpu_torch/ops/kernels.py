@@ -94,6 +94,25 @@ def _unique_rows_np(*arrays):
     return idx, inv
 
 
+#: The per-template fields the static tables read (precompute_core_np):
+#: templates equal on all of them share every row of those tables.
+STATIC_FIELDS = ("req", "gpu_mem", "tol_valid", "tol_key", "tol_op", "tol_val", "tol_effect", "ns_key", "ns_val",
+                 "has_req_aff", "aff_term_valid", "aff_key", "aff_op", "aff_val", "aff_num", "pna_weight",
+                 "pna_key", "pna_op", "pna_val", "pna_num")
+
+
+def static_rows(ec):
+    """``(ec_u, inv)``: the encoded cluster cut to one template of each
+    distinct :data:`STATIC_FIELDS` row (its other per-template fields left
+    as they were, unread by the static tables), and each template's row
+    there (``[U]``), so a static table of `ec` is the same table of `ec_u`
+    gathered by `inv`. A live snapshot's pinned pods are a template each
+    but a handful of distinct rows."""
+    fields = {f: np.asarray(getattr(ec, f)) for f in STATIC_FIELDS}
+    idx, inv = _unique_rows_np(*fields.values())
+    return ec._replace(**{f: a[idx] for f, a in fields.items()}), inv.reshape(-1)
+
+
 def precompute_core_np(ec):
     """The node_valid- and config-INDEPENDENT half of
     :func:`precompute_static_np`: per-(template, node) filter masks and raw

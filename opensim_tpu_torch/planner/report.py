@@ -1,14 +1,17 @@
 """Report rendering — the port's copy of ``opensim_tpu/planner/report.py``:
 plain-text parity with the pterm tables of ``pkg/apply/apply.go:309-687``
-(Node Info, Extended Resource Info, Pod Info, App Info). Every table is
-built by a ``*_rows`` function returning the formatted cells (header row
-first), and the text renderers below print those rows."""
+(Node Info, Extended Resource Info, Pod Info, App Info), the drain plan
+and the campaign tables. Every table is built by a ``*_rows`` function
+returning the formatted cells (header row first); the text renderers
+below print those rows, and the JSON surfaces (``GET /api/cluster/report``
+through :func:`report_data`, ``simon defrag --json``, a campaign's
+``table``) serialize the same cells, so the two cannot drift."""
 
 from __future__ import annotations
 
 import json
 import sys
-from typing import List, TextIO
+from typing import Dict, List, Optional, TextIO
 
 from ..engine.simulator import SimulateResult
 from ..models.objects import (
@@ -232,6 +235,131 @@ def app_info_rows(result: SimulateResult, app_names: List[str]) -> List[List[str
         nodes = sorted({p.spec.node_name for p in pods})
         rows.append([app, str(len(pods)), ",".join(nodes)])
     return rows
+
+
+def drain_plan_rows(plans: List[object]) -> List[List[str]]:
+    """Drain Plan — ``simon defrag``/``simon drain``: the one row source both the text table and ``--json`` serialize, so
+    the two surfaces stay byte-parity like every other report table.
+    ``plans`` is ``defrag.DefragResult.plans``."""
+    rows = [["Node", "Drainable", "Unscheduled", "Freed CPU", "Freed Memory"]]
+    for p in plans:
+        rows.append(
+            [
+                p.node,
+                "√" if p.feasible else "",
+                str(p.unscheduled),
+                format_milli(int(p.freed_cpu_milli)),
+                format_quantity(p.freed_memory),
+            ]
+        )
+    return rows
+
+
+def campaign_step_rows(steps: List[dict]) -> List[List[str]]:
+    """Campaign step table — one row per executed step from the
+    ``StepReport.to_dict()`` payloads. The ``simon campaign`` text renderer
+    and the JSON ``table`` section both serialize exactly these cells."""
+    rows = [
+        [
+            "#", "Step", "Type", "Evicted", "Resched", "Unsched", "Blocked",
+            "Nodes", "Pods", "Pending", "CPU Util", "Frag(cpu)", "Headroom",
+        ]
+    ]
+    for s in steps:
+        cap = s.get("capacity") or {}
+        util = (cap.get("utilization") or {}).get("cpu", 0.0)
+        frag = (cap.get("fragmentation") or {}).get("cpu", 0.0)
+        headroom = ",".join(
+            f"{k}={v}" for k, v in sorted((s.get("headroomFit") or {}).items())
+        )
+        rows.append(
+            [
+                str(s.get("index", "")),
+                str(s.get("name", "")),
+                str(s.get("type", "")),
+                str(s.get("evicted", 0)),
+                str(s.get("rescheduled", 0)),
+                str(len(s.get("unschedulable") or [])),
+                str(len(s.get("blocked") or [])),
+                str(cap.get("nodes", 0)),
+                str(cap.get("pods_bound", 0)),
+                str(cap.get("pods_pending", 0)),
+                f"{util * 100:.1f}%",
+                f"{frag:.3f}",
+                headroom,
+            ]
+        )
+    return rows
+
+
+def campaign_check_rows(checks: List[dict]) -> List[List[str]]:
+    """Scale-down-check / defrag verdict table — same parity contract."""
+    rows = [["Node", "Removable", "Pods", "Unschedulable", "PDB Blocked", "Freed CPU", "Freed Memory"]]
+    for c in checks:
+        rows.append(
+            [
+                str(c.get("node", "")),
+                "√" if c.get("removable") else "",
+                str(c.get("pods", 0)),
+                str(c.get("unschedulable", 0)),
+                str(c.get("pdbBlocked", 0)),
+                format_milli(int(float(c.get("freedCpu", 0.0)) * 1000)),
+                format_quantity(float(c.get("freedMemory", 0.0))),
+            ]
+        )
+    return rows
+
+
+def render_campaign(result: dict, out: TextIO = sys.stdout) -> None:
+    """Text rendering of one ``CampaignResult.to_dict()`` payload — prints
+    the SAME rows the JSON ``table`` section carries."""
+    print(f"Campaign {result.get('name', '')} ({result.get('mode', '')} execution)", file=out)
+    table = result.get("table") or {}
+    rows = [table.get("header") or []] + list(table.get("rows") or [])
+    _table([r for r in rows if r], out)
+    steps = result.get("steps") or []
+    checks = [c for s in steps for c in (s.get("checks") or [])]
+    if checks:
+        print("\nScale-down verdicts", file=out)
+        _table(campaign_check_rows(checks), out)
+    for s in steps:
+        for b in s.get("blocked") or []:
+            print(
+                f"\nBLOCKED eviction (step {s.get('index')}): {b.get('pod')} on "
+                f"{b.get('node')} — disruption budget exhausted ({b.get('pdb')})",
+                file=out,
+            )
+        for u in s.get("unschedulable") or []:
+            print(
+                f"\nunschedulable (step {s.get('index')}): {u.get('pod')}: {u.get('reason')}",
+                file=out,
+            )
+    print(f"\ncampaign fingerprint: {result.get('fingerprint', '')}", file=out)
+
+
+def _table_dict(rows: List[List[str]]) -> Dict[str, object]:
+    return {"header": rows[0], "rows": rows[1:]}
+
+
+def report_data(
+    result: SimulateResult,
+    extended: List[str],
+    app_names: List[str],
+    pod_nodes: Optional[List[str]] = None,
+) -> dict:
+    """The structured report — the same rows the text tables print, keyed
+    by section (``GET /api/cluster/report`` serializes this verbatim)."""
+    out: dict = {"nodeInfo": _table_dict(cluster_info_rows(result, extended))}
+    if contains_local_storage(extended):
+        out["localStorage"] = _table_dict(local_storage_rows(result))
+    if contains_gpu(extended):
+        out["gpuNodes"] = _table_dict(gpu_node_rows(result))
+        out["gpuPodMap"] = _table_dict(gpu_pod_map_rows(result))
+    if app_names:
+        out["appInfo"] = _table_dict(app_info_rows(result, app_names))
+    if pod_nodes is not None:
+        out["podInfo"] = _table_dict(pod_info_rows(result, extended, pod_nodes))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,12 @@
 and ``opensim_tpu/server/rest.py``: ``GET /healthz``, ``POST
 /api/deploy-apps`` and ``POST /api/scale-apps`` with the reference's
 request and response DTOs (``server.go:48-93``), ``GET /metrics``, the
-flight recorder (``GET /api/debug/requests[/<id>]``) and the decision
-audit of ``?explain=1`` requests (``GET /api/debug/placements/<id>``).
+flight recorder (``GET /api/debug/requests[/<id>]``), the decision
+audit of ``?explain=1`` requests (``GET /api/debug/placements/<id>``),
+the capacity observatory (``GET /api/cluster/report`` with its headroom
+probes, ``GET /api/debug/capacity``, the ``simon_cluster_*`` families of
+``/metrics``; ``obs/capacity.py``) and lifecycle campaigns (``POST
+/api/campaign``; ``planner/campaign.py``).
 
 A request goes through the encode cache (``engine/prepcache.py``): the
 cluster snapshot's prepared encoding is kept across requests, and a
@@ -16,12 +20,14 @@ is no fallback: a failed build or launch answers 500.
 The snapshot comes from an apiserver through ``server/snapshot.py``
 (``--kubeconfig``), cached for ``snapshot_ttl_s`` and fingerprinted, or is
 a fixed ``base_cluster``. Requests are single-flight per endpoint, the
-reference's TryLock 503 (``server.go:167,:234``). Not ported yet, and
-refused rather than approximated: the admission queue and request batching
-(ROADMAP Queue 1 item 8); the capacity report, the capacity timeline and
-campaigns (item 7); the live twin, the journal, the serving fleet, the
-memory observatory, the time series and the profiler (item 10) — their
-routes answer 501 naming the item.
+reference's TryLock 503 (``server.go:167,:234``); headroom probes and
+campaigns are serialized by locks of their own. A headroom probe is one
+grid launch of the kernel for its ladder and one per bisection step; a
+campaign one launch of the one scan per scheduling pass. Not ported yet,
+and refused rather than approximated: the admission queue and request
+batching (ROADMAP Queue 1 item 8); the live twin, the journal, the serving
+fleet, the memory observatory, the time series and the profiler (item 10)
+— their routes answer 501 naming the item.
 """
 
 from __future__ import annotations
@@ -41,9 +47,12 @@ from ..engine import prepcache
 from ..engine.simulator import AppResource, SimulateResult, prepare, simulate
 from ..models.expand import new_fake_nodes
 from ..models.objects import LABEL_APP_NAME, Node, ResourceTypes, object_from_dict
+from ..obs import capacity as capacity_mod
 from ..obs import trace as tracing
+from ..obs.capacity import CapacityEngine
 from ..obs.metrics import RECORDER, escape_label_value, family_header
 from ..obs.recorder import FLIGHT_RECORDER
+from ..planner import campaign as campaign_mod
 from ..resilience import faults
 from ..resilience.deadline import Deadline, DeadlineExceeded, check_deadline, deadline_scope
 from ..resilience.retry import retry_call
@@ -58,9 +67,6 @@ _ACCESS_LOG = logging.getLogger("opensim_tpu_torch.access")
 #: Routes of the reference's server that later slices bring, each with its
 #: ROADMAP Queue 1 item: they answer 501 naming it.
 NOT_PORTED = {
-    "/api/cluster/report": 7,
-    "/api/debug/capacity": 7,
-    "/api/campaign": 7,
     "/api/debug/memory": 10,
     "/api/debug/profile": 10,
     "/api/debug/timeseries": 10,
@@ -125,7 +131,7 @@ class _Metrics:
         with self.lock:
             setattr(self, counter, getattr(self, counter) + n)
 
-    def render(self, prep_cache: Optional[prepcache.PrepareCache]) -> str:
+    def render(self, prep_cache: Optional[prepcache.PrepareCache], capacity=None) -> str:
         esc, hdr = escape_label_value, family_header
         with self.lock:
             lines = [
@@ -159,6 +165,11 @@ class _Metrics:
         if fired:
             lines += hdr("simon_faults_injected_total")
             lines += [f'simon_faults_injected_total{{point="{esc(point)}"}} {n}' for point, n in fired]
+        # capacity observatory (obs/capacity.py): per-node utilization
+        # distribution, top-K hottest nodes, spread/fragmentation gauges,
+        # headroom per registered profile
+        if capacity is not None:
+            lines += capacity.metrics_lines()
         # per-phase / per-endpoint latency histograms, from the same spans
         # the flight recorder serves
         lines += RECORDER.render_lines()
@@ -267,10 +278,11 @@ class SimonServer:
     """The serving state: the snapshot (polled from `kubeconfig` and cached
     for `snapshot_ttl_s`, or the fixed `base_cluster`), the encode cache
     (`prep_cache`: None builds one unless ``OPENSIM_PREP_CACHE=0``, False
-    disables it and every request prepares afresh), the device the
-    simulations run on (the card unless `device` names another; without a
-    card this raises here, before any request) and one single-flight lock
-    per endpoint."""
+    disables it and every request prepares afresh), the capacity
+    observatory (`capacity`: None builds the default engine, False disables
+    it), the device the simulations run on (the card unless `device` names
+    another; without a card this raises here, before any request), one
+    single-flight lock per endpoint, and the headroom and campaign locks."""
 
     def __init__(
         self,
@@ -281,6 +293,7 @@ class SimonServer:
         prep_cache=None,
         admission=None,
         device: DeviceLike = None,
+        capacity=None,
     ):
         if _admission_requested(admission):
             raise NotImplementedError(
@@ -313,10 +326,21 @@ class SimonServer:
         self.metrics = _Metrics()
         self._deploy_lock = threading.Lock()  # single-flight: spans the whole simulation
         self._scale_lock = threading.Lock()
+        if capacity is None:
+            capacity = CapacityEngine()
+        self.capacity = capacity or None
+        # serializes headroom probes (each is kernel launches over the whole
+        # snapshot) and guards the published-generation watermark below
+        self._headroom_lock = threading.Lock()
+        self._headroom_pub_gen = -1
+        self._headroom_key: Optional[str] = None
+        # one campaign at a time per server: each builds its own prepared
+        # lineage and runs many launches
+        self._campaign_lock = threading.Lock()
 
     def metrics_text(self) -> str:
         """The ``/metrics`` body."""
-        return self.metrics.render(self.prep_cache)
+        return self.metrics.render(self.prep_cache, capacity=self.capacity)
 
     # -- snapshot -------------------------------------------------------------
 
@@ -420,6 +444,96 @@ class SimonServer:
             cluster = self._snapshot_for_cache()[0] if self.prep_cache is not None else self.current_cluster()
             names |= snapshot_variants(cluster)
         return sorted(names)
+
+    # -- capacity observatory -------------------------------------------------
+
+    def _observed_cluster(self) -> Tuple[ResourceTypes, str]:
+        """(cluster, stable key) for the capacity view: the cache path's
+        (snapshot, fingerprint) pair, or a content fingerprint on the
+        cache-off path."""
+        if self.prep_cache is not None:
+            return self._snapshot_for_cache()
+        cluster = self.current_cluster()
+        return cluster, prepcache.fingerprint_cluster(cluster)
+
+    def _probe_headroom(self, cluster: ResourceTypes, key: str) -> dict:
+        """Headroom per registered profile, probed through the warm base
+        entry of the encode cache (one delta re-encode and the kernel's
+        ladder and bisection launches a profile; creating a missing base is
+        the serving path's cold prepare). Keyed by the snapshot key: one
+        probe set per observed cluster state."""
+        if self.capacity is None:
+            return {}
+        # serialized: concurrent reports must not probe the same state
+        # twice, and a slow probe of an OLDER snapshot must not overwrite a
+        # newer probe's published gauges (the generation watermark)
+        with self._headroom_lock:
+            if self._headroom_key == key:
+                return self.capacity.headroom()
+            gen0 = self.capacity.generation
+            profiles = capacity_mod.headroom_profiles()
+            base = None
+            if self.prep_cache is not None:
+                base_key = f"{key}|base"
+                base = self.prep_cache.get(base_key)
+                if base is None:
+                    watch = prepcache.watch_snapshot(cluster, [])  # before the build
+                    base = self.prep_cache.put(
+                        base_key, prepcache.CacheEntry(base_key, prepare(cluster, [], device=self.device), watch=watch))
+                self.prep_cache.check_fresh(base)
+                if base.prep is None:
+                    base = None  # no schedulable pods cached: the probe prepares afresh
+            out = {}
+            for profile in profiles:
+                out[profile.name] = capacity_mod.headroom_probe(
+                    cluster, profile, base=base, kmax=self.capacity.fit_upper_bound(profile), device=self.device)
+            if gen0 >= self._headroom_pub_gen:
+                self.capacity.set_headroom(out)
+                self._headroom_key = key
+                self._headroom_pub_gen = gen0
+            return out
+
+    def cluster_report(self, extended: Optional[List[str]] = None, probe_headroom: bool = True) -> dict:
+        """The ``GET /api/cluster/report`` body: the capacity sample plus
+        the same table rows the text renderer prints
+        (``obs/capacity.build_report``)."""
+        if self.capacity is None:
+            raise RuntimeError("capacity observatory disabled (capacity=False)")
+        cluster, key = self._observed_cluster()
+        self.capacity.ensure_bootstrap(cluster, key)
+        if probe_headroom:
+            self._probe_headroom(cluster, key)
+        return capacity_mod.build_report(self.capacity, cluster, extended_resources=extended, state="polling")
+
+    # -- campaigns ----------------------------------------------------------------
+
+    def run_campaign(self, payload: dict, deadline: Optional[Deadline] = None) -> tuple:
+        """``POST /api/campaign``: evaluate a lifecycle campaign — the body's
+        ``steps``, the shape of a campaign file's ``spec.steps`` — against
+        the observed cluster (the polling snapshot, or the fixed cluster).
+        Campaigns are serialized: each builds its own prepared lineage
+        (one full prepare in warm mode) and never writes the snapshot's
+        objects. Step fields naming server-side paths are refused, at
+        parse and at run time. Returns ``(status, body)``."""
+        try:
+            with campaign_mod.remote_spec_context():
+                steps = campaign_mod.parse_steps(payload.get("steps"))
+        except campaign_mod.CampaignError as e:
+            return 400, {"error": str(e), "step": e.step, "field": e.field}
+        name = str(payload.get("name") or "campaign")
+        mode = payload.get("mode") or None
+        try:
+            with deadline_scope(deadline), self._campaign_lock, tracing.span("campaign", steps=len(steps)):
+                cluster, _key = self._observed_cluster()
+                with campaign_mod.remote_spec_context():
+                    result = campaign_mod.run_campaign(cluster, steps, mode=mode, name=name, device=self.device)
+            return 200, result.to_dict()
+        except DeadlineExceeded as e:
+            return 504, {"error": str(e), "phase": e.phase, "retryable": True}
+        except SnapshotUnavailable as e:
+            return 503, {"error": str(e), "retryable": True}
+        except campaign_mod.CampaignError as e:
+            return 400, {"error": str(e), "step": e.step, "field": e.field}
 
     # -- simulation -----------------------------------------------------------
 
@@ -776,6 +890,29 @@ def make_handler(server: SimonServer):
                                      "hint": "POST /api/deploy-apps?explain=1 records them"})
                 else:
                     self._send(200, placements)
+            elif path == "/api/cluster/report":
+                # the live capacity report: the same rows as the text renderer
+                from urllib.parse import parse_qs
+
+                q = parse_qs(self.path.partition("?")[2])
+                extended = [e for e in q.get("extended", [""])[-1].split(",") if e]
+                probe = q.get("headroom", ["1"])[-1] not in ("0", "false")
+                try:
+                    self._send(200, server.cluster_report(extended=extended, probe_headroom=probe))
+                except SnapshotUnavailable as e:
+                    self._send(503, {"error": str(e), "retryable": True})
+                except Exception as e:  # a failed build or launch too
+                    log.warning("cluster report failed: %s: %s", type(e).__name__, e)
+                    self._send(500, {"error": str(e), "type": type(e).__name__})
+            elif path == "/api/debug/capacity":
+                # the capacity timeline ring (obs/timeline.py): one sample per
+                # observed generation, for trend charts
+                if server.capacity is None:
+                    self._send(404, {"error": "capacity observatory disabled"})
+                else:
+                    server.capacity.sample()  # fold in the latest generation
+                    self._send(200, {"capacity": server.capacity.timeline.capacity,
+                                     "samples": [s.to_dict() for s in server.capacity.timeline.snapshot()]})
             elif not self._send_not_ported():
                 self._send(404, {"error": "not found"})
 
@@ -798,6 +935,10 @@ def make_handler(server: SimonServer):
             elif path == "/api/scale-apps":
                 code, body = server.scale_apps(payload, deadline=deadline, request_id=last_request_id(),
                                                explain=explain)
+            elif path == "/api/campaign":
+                # a what-if like the cluster report: runs inline on the
+                # handler thread, serialized across requests
+                code, body = server.run_campaign(payload, deadline=deadline)
             else:
                 if not self._send_not_ported():
                     self._send(404, {"error": "not found"})

@@ -1,7 +1,7 @@
 """Typed registry of the ``OPENSIM_*`` environment knobs the port reads —
 the port's copy of ``opensim_tpu/utils/envknobs.py``, holding the knobs of
-the modules it has (the server, the snapshot, the resilience layer and the
-request tracer).
+the modules it has (the server, the snapshot, the resilience layer, the
+request tracer, the capacity observatory and the campaign planner).
 
 Every read goes through :func:`raw`, which fails loudly on an
 unregistered name, so a knob cannot ship undocumented and a typo'd name
@@ -13,20 +13,23 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict
+from typing import Callable, Dict, Optional
 
-__all__ = ["Knob", "KNOBS", "register", "raw"]
+__all__ = ["Knob", "KNOBS", "register", "raw", "value"]
 
 
 @dataclass(frozen=True)
 class Knob:
     """One registered environment knob: the name, a human type tag, the
-    documented default (raw string form, ``""`` = unset) and its doc line."""
+    documented default (raw string form, ``""`` = unset), its doc line and,
+    for a knob read through :func:`value`, the validator that parses it
+    (raising ``ValueError`` on a bad value)."""
 
     name: str
     type: str  # int | float | flag | enum | spec
     default: str
     doc: str
+    validator: Optional[Callable[[str], object]] = None
 
 
 KNOBS: Dict[str, Knob] = {}
@@ -56,6 +59,36 @@ def raw(name: str, default: str = "") -> str:
     return os.environ.get(name, default)
 
 
+def value(name: str):
+    """The knob parsed through its registered validator (unset: its
+    default, parsed). A bad value raises ``ValueError``: the knobs read
+    here are spec bounds and modes, where a typo must not pass silently.
+    A knob without a validator reads as :func:`raw` with its default."""
+    knob = _registered(name)
+    text = os.environ.get(name, "") or knob.default
+    return text if knob.validator is None else knob.validator(text)
+
+
+def _int(lo: int) -> Callable[[str], int]:
+    def parse(text: str) -> int:
+        v = int(text)
+        if v < lo:
+            raise ValueError(f"must be >= {lo}, got {v}")
+        return v
+
+    return parse
+
+
+def _enum(*choices: str) -> Callable[[str], str]:
+    def parse(text: str) -> str:
+        v = text.strip().lower()
+        if v not in choices:
+            raise ValueError(f"must be one of {'|'.join(choices)}, got {text!r}")
+        return v
+
+    return parse
+
+
 for _knob in (
     # resilience (resilience/, server/snapshot.py)
     Knob("OPENSIM_REQUEST_TIMEOUT_S", "float", "",
@@ -80,5 +113,21 @@ for _knob in (
     Knob("OPENSIM_FLIGHT_RECORDER_N", "int", "64", "Flight-recorder ring capacity (last N request traces)."),
     Knob("OPENSIM_EXPLAIN_STORE_N", "int", "512",
          "Per-trace cap on stored placement explanations (`?explain=1` audits)."),
+    # capacity observatory (obs/capacity.py, obs/timeline.py)
+    Knob("OPENSIM_CAPACITY_TOPK", "int", "10",
+         "Per-node series cap for `simon_cluster_node_utilization` (cardinality governor)."),
+    Knob("OPENSIM_CAPACITY_TIMELINE_N", "int", "512", "Capacity timeline ring capacity (generation-keyed samples)."),
+    Knob("OPENSIM_HEADROOM_PROFILES", "spec", "small=500m:1Gi,large=4:8Gi",
+         "Registered headroom probe profiles: `name=cpu:mem[:max_replicas],...` (validated loudly)."),
+    # campaign planner (planner/campaign.py)
+    Knob("OPENSIM_CAMPAIGN_EXEC", "enum", "warm",
+         "Campaign execution mode (docs/campaigns.md): `warm` = one full prepare + prepcache deltas; `cold` = "
+         "per-step full prepare (the verification mode the delta-equality gate compares against).",
+         _enum("warm", "cold")),
+    Knob("OPENSIM_CAMPAIGN_MAX_STEPS", "int", "256",
+         "Campaign spec safety bound: specs with more steps are rejected at parse time.", _int(1)),
+    Knob("OPENSIM_CAMPAIGN_MAX_WAVES", "int", "64",
+         "Drain-wave runaway bound: cordon/evict/reschedule passes per drain step (blocked-eviction retries "
+         "included).", _int(1)),
 ):
     register(_knob)

@@ -262,6 +262,13 @@ def test_later_routes_answer_501(servers, method, path, item):
     port, _ref = servers
     with _serve(port) as url:
         code, _h, body = _call(url, path, {} if method == "POST" else None)
+    if item == 7:
+        # item 7's routes are served now (the capacity observatory and the
+        # campaign planner): the report and the timeline answer, an empty
+        # campaign is a typed 400 naming its field
+        assert code == (400 if method == "POST" else 200), body
+        assert body.get("field") == "steps" if method == "POST" else "roadmap" not in body
+        return
     assert code == 501 and body["roadmap"] == f"ROADMAP Queue 1 item {item}"
 
 
