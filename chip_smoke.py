@@ -261,6 +261,15 @@ SERVER_CAMPAIGN_DRAIN, SERVER_CAMPAIGN_WAVE = 4, 2
 #: example/campaign.yaml's demo cluster and on the server plan's snapshot
 #: (the cfg variant takes the carried state; built with CFG_VARIANTS).
 CAMPAIGN_VARIANT = "fast_scan[cfg]"
+#: The request storms (phases 62-64): the coalescing window the storms'
+#: admission queue takes (tests/test_admission.py's), the lanes of phase
+#: 62's grid in waves (more than the card's 132 SMs), and the explain
+#: rider's pods the plain sweep checks (the 80-core rider's are 100).
+STORM_WINDOW_S = 0.25
+WAVE_LANES = 140
+STORM_PLAIN_PODS = 2000
+#: Phase 62 runs its plain sweeps in this many CPU processes beside the card's launches.
+PLAIN_WORKERS = 6
 EXAMPLES = (("simon-config.yaml", [], "fast_scan[interpod]"),
             ("simon-gpushare-config.yaml", ["gpu"], "fast_scan[gpu]"),
             ("simon-local-config.yaml", ["open-local"], "fast_scan[local]"))
@@ -2024,6 +2033,7 @@ def server_plan(device, card: str) -> list:
     def close() -> None:
         httpd.shutdown()
         httpd.server_close()
+        server.close()
         stub.stop()
 
     return rows, {"server": server, "url": url, "close": close}
@@ -2130,6 +2140,42 @@ def _patched(obj, name: str, wrap):
         yield
     finally:
         setattr(obj, name, real)
+
+
+@contextlib.contextmanager
+def _host_watch(server):
+    """What a server request's host time went to, for the block: the
+    interpreter's full collections (count and seconds, through
+    ``gc.callbacks``), each prepare kind's count and seconds
+    (``PREP_STATS``) and the stale-entry retries, as deltas in the dict
+    it yields."""
+    import gc
+
+    from opensim_tpu_torch.utils.trace import PREP_STATS
+
+    got = {"gc_full": 0, "gc_full_s": 0.0}
+    started = {}
+
+    def watch(phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            started["t"] = time.perf_counter()
+        elif "t" in started:
+            got["gc_full"] += 1
+            got["gc_full_s"] += time.perf_counter() - started.pop("t")
+
+    prep0, retries0 = PREP_STATS.snapshot(), server.metrics.stale_prep_retries
+    gc.callbacks.append(watch)
+    try:
+        yield got
+    finally:
+        gc.callbacks.remove(watch)
+        prep1 = PREP_STATS.snapshot()
+        got["prep"] = {k: [n - prep0["counts"].get(k, 0), round(prep1["seconds"][k] - prep0["seconds"].get(k, 0.0), 6)]
+                       for k, n in prep1["counts"].items() if n != prep0["counts"].get(k, 0)}
+        got["stale_retries"] = server.metrics.stale_prep_retries - retries0
+        got["gc_full_s"] = round(got["gc_full_s"], 6)
 
 
 def _reset_launches() -> None:
@@ -2633,6 +2679,279 @@ def campaign_plan(device, card: str, served) -> list:
              "server_campaign_s": rt, "card": card}]
 
 
+def _plain_sweep_on_cpu(fi, args, kw):
+    """The plain sweep of a grid's inputs (CPU tensors), in a worker
+    process of phase 62."""
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    torch.set_num_threads(1)
+    return fs.fast_scan_sweep_reference(fi, *args, **kw)
+
+
+def counting_small_cases(device) -> None:
+    """Phase 62: every small case as a request batch's grid of three lanes
+    of distinct pod masks, under ``[count]`` and ``[explain]``, against the
+    plain sweep on all ten outputs and each lane against the one scan with
+    its mask (in explain mode its ``[explain]``); the fail_mixed case also
+    at WAVE_LANES lanes, more than the card's SMs, one a block, so a second
+    wave of blocks runs (its first three and last three lanes against the
+    plain sweep and their one scans). The plain sweeps run on the CPU, on
+    copies of the grid's inputs, in PLAIN_WORKERS processes while the card
+    runs the grids and the one scans: the kernel on the card is held
+    against the plain version on the CPU, as phases 30 and 49 hold the
+    card's reports against the CPU's."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from opensim_tpu_torch.engine import fastpath
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    _phase(f"62 grid counting on the small cases: [count] and [explain] grids of three lanes vs the plain sweep and "
+           f"each lane's one scan; fail_mixed at {WAVE_LANES} lanes, in two waves")
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else t
+    held = []
+    with ProcessPoolExecutor(PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        for name, prep, fi in _small_preps(device):
+            P = len(prep.tmpl_ids)
+            fi_cpu = fs.FastInputs(*map(cpu, fi))
+            for S in ((3, WAVE_LANES) if name == "fail_mixed" else (3,)):
+                args = fastpath.batch_inputs(prep, fi, fx.lane_masks(P, S))
+                picks = list(range(S)) if S == 3 else [0, 1, 2, S - 3, S - 2, S - 1]
+                for mode in ("count", "explain"):
+                    kw = {mode: True}
+                    plain = pool.submit(_plain_sweep_on_cpu, fi_cpu, [args[0].cpu(), *(t[picks].cpu() for t in args[1:])],
+                                        kw)
+                    got = fs.fast_scan_sweep(fi, *args, **kw)
+                    torch.cuda.synchronize()
+                    grid = fs.SWEEP_LAUNCHED[fs.sweep_name(fi, **kw)]["grid"]
+                    if grid.b != 1 or grid.blocks != S:
+                        raise AssertionError(f"{name} [{mode}]: {S} lanes ran as {grid}")
+                    for s in picks:
+                        one = fs.fast_scan(fi, args[0], args[1][s].contiguous(), args[2][s].contiguous(),
+                                           explain=mode == "explain")
+                        _same(fs.FastOutputs(*(t[s] for t in got)), one, f"{name} [{mode}] lane {s}: grid vs one scan")
+                    held.append((plain, fs.FastOutputs(*(t[picks].cpu() for t in got)),
+                                 f"{name} [{mode}] S={S}: grid vs plain sweep"))
+        for plain, got, what in held:
+            _same(got, plain.result(), what)
+    print(f"{len(held)} counting grids identical to the plain sweep and to each lane's one scan on all ten outputs "
+          f"({WAVE_LANES} lanes: {WAVE_LANES} blocks of one)", flush=True)
+
+
+#: Workload names of the storms' riders, longest first: an expanded pod's
+#: name starts with its workload's and a dash.
+_STORM_WORKLOADS = sorted([f"bench-{w}" for w in range(20)] + ["huge"], key=len, reverse=True)
+
+
+def _storm_canon(answer: dict):
+    """A server answer with each pod named by its workload (pod names carry
+    the process's counters): the unscheduled (pod, reason) pairs and each
+    node's pods, sorted."""
+    def pod(ref: str) -> str:
+        ns, _, name = ref.partition("/")
+        return f"{ns}/" + next((w for w in _STORM_WORKLOADS if name.startswith(w + "-")), name)
+
+    return (sorted((pod(u["pod"]), u["reason"]) for u in answer["unscheduledPods"]),
+            sorted((e["node"], sorted(pod(q) for q in e["pods"])) for e in answer["nodeStatus"]))
+
+
+def _rider(body: dict, explain: bool) -> str:
+    name = body["deployments"][0]["metadata"]["name"]
+    return f"{name}{' (explain=1)' if explain else ''}"
+
+
+def storm_plan(device, card: str, served) -> list:
+    """Phases 63-64: concurrent deploy and scale requests on the server
+    plan's running server. Each rider of storm B (``fixtures.storm_requests``:
+    deploys of bench-10..15 at 2,500 replicas, bench-0 scaled to 5,000, 100
+    replicas of 80 cores that fit no node, an explain=1 deploy of bench-16)
+    sent alone first, the solo path: one launch of the one scan each. Then
+    the server's admission queue with a STORM_WINDOW_S coalescing window,
+    and storm A (B less the explain rider) and storm B each sent at once
+    from threads: each exactly one request batch, one launch of
+    ``fast_scan_sweep[count]`` (A) or ``[explain]`` (B), every rider's
+    answer its solo answer (placements and reasons; the explain rider's
+    reject totals too), A's riders B's; round trips, the stages' times and
+    the solo round trips' sum printed. Phase 64: both launches again (CUDA
+    events), each lane against one launch of the one scan with its mask
+    over the whole stream on all ten outputs, the 80-core rider's lane
+    (A) and the explain rider's (B) against the plain sweep over their own
+    pods (the 100, and STORM_PLAIN_PODS of the 2,500) from the grid's state
+    before them; the two kernel rows."""
+    import threading
+
+    from opensim_tpu_torch.engine import fastpath, reqbatch
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.server import admission, pool
+
+    server, url = served["server"], served["url"]
+    storms = {"A": fx.storm_requests(N_PODS), "B": fx.storm_requests(N_PODS, explain_rider=True)}
+    path = lambda kind, explain: (("/api/deploy-apps" if kind == "deploy" else "/api/scale-apps")
+                                  + ("?explain=1" if explain else ""))
+    _phase(f"63 storms on the server plan: storm B's {len(storms['B'])} riders alone (the solo path), then storms A "
+           f"({len(storms['A'])} riders) and B at once through the admission queue ({STORM_WINDOW_S * 1e3:g} ms window)")
+    solo = []
+    for kind, body, explain in storms["B"]:
+        _reset_launches()
+        with _host_watch(server) as host:
+            code, hdrs, answer, rt = _http(url, path(kind, explain), body)
+        launches = dict(fs.VARIANT_LAUNCHES)
+        if code != 200 or launches != {"fast_scan[explain]" if explain else "fast_scan": 1}:
+            raise AssertionError(f"solo {_rider(body, explain)}: HTTP {code}, launches {launches}: {str(answer)[:300]}")
+        solo.append((answer, rt))
+        attrs = _http(url, f"/api/debug/requests/{hdrs.get('X-Simon-Request-Id', '')}")[2]["spans"].get("attrs", {})
+        # each request a delta on the cached base: no full prepare, no retry
+        if attrs.get("rung") != "delta" or set(host["prep"]) != {"delta_apps"} or host["stale_retries"]:
+            raise AssertionError(f"solo {_rider(body, explain)}: rung {attrs.get('rung')}, host {host}")
+        times = {k: attrs[k] for k in ("cache_s", "prepare_s", "inputs_s", "kernel_s", "decode_s") if k in attrs}
+        print(f"solo {_rider(body, explain)}: HTTP 200 in {rt:.6f} s (round trip), rung {attrs.get('rung')}, server "
+              f"times {json.dumps(times)}, host {json.dumps(host)}, launches {launches}, "
+              f"{sum(len(e['pods']) for e in answer['nodeStatus'])} placed, {len(answer['unscheduledPods'])} "
+              "unscheduled", flush=True)
+    server.admission.stop()
+    server.admission = admission.AdmissionController(
+        solo_fn=server._admitted_solo, batch_fn=server._admitted_batch, prep_fn=server._batch_prep,
+        dispatch_fn=server._batch_dispatch, decode_fn=server._batch_decode, window_s=STORM_WINDOW_S,
+        pool=pool.WorkerPool(device=device))
+    ctrl = server.admission
+    recorded, summary = [], {}
+
+    def keep(real):
+        def run(prep, items):
+            out = real(prep, items)
+            recorded.append((prep, items, out))
+            return out
+        return run
+
+    with _patched(reqbatch, "dispatch_request_batch", keep):
+        for label, reqs in storms.items():
+            batches0 = ctrl.batches_total
+            stages0 = {k: v["total_s"] for k, v in ctrl.pipeline_snapshot()["stages"].items()}
+            _reset_launches()
+            answers = [None] * len(reqs)
+
+            def send(i, kind, body, explain):
+                answers[i] = _http(url, path(kind, explain), body)
+
+            threads = [threading.Thread(target=send, args=(i, *r)) for i, r in enumerate(reqs)]
+            with _host_watch(server) as host:
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                storm_rt = time.perf_counter() - t0
+            launches = dict(fs.VARIANT_LAUNCHES)
+            row = "fast_scan_sweep[explain]" if label == "B" else "fast_scan_sweep[count]"
+            if launches != {row: 1} or ctrl.batches_total != batches0 + 1:
+                raise AssertionError(f"storm {label}: launches {launches}, {ctrl.batches_total - batches0} batches; "
+                                     f"want one launch of {row} in one batch")
+            # the batch rides the cached base: one delta, no full prepare, no retry
+            if set(host["prep"]) != {"delta_apps"} or host["prep"]["delta_apps"][0] != 1 or host["stale_retries"]:
+                raise AssertionError(f"storm {label}: host {host}; want one delta of the cached base")
+            stages = {k: v["total_s"] - stages0.get(k, 0.0) for k, v in ctrl.pipeline_snapshot()["stages"].items()}
+            queue = []
+            for i, ((kind, body, explain), (code, hdrs, answer, rt)) in enumerate(zip(reqs, answers)):
+                if code != 200:
+                    raise AssertionError(f"storm {label}, {_rider(body, explain)}: HTTP {code}: {str(answer)[:300]}")
+                if _storm_canon(answer) != _storm_canon(solo[i][0]):
+                    raise AssertionError(f"storm {label}, {_rider(body, explain)}: answer differs from its solo answer")
+                if explain and answer.get("filterRejects") != solo[i][0].get("filterRejects"):
+                    raise AssertionError(f"storm {label}, {_rider(body, explain)}: filter rejects differ from solo")
+                if label == "B" and i < len(storms["A"]) and \
+                        _storm_canon(answer) != _storm_canon(summary["A"]["answers"][i][2]):
+                    raise AssertionError(f"{_rider(body, explain)}: storm B placed it differently from storm A")
+                tree = _http(url, f"/api/debug/requests/{hdrs.get('X-Simon-Request-Id', '')}")[2]
+                spans = {c["name"]: c for c in tree["spans"].get("children", [])}
+                queue.append(spans["queue"]["duration_s"] if "queue" in spans else 0.0)
+                print(f"storm {label}, {_rider(body, explain)}: HTTP 200 in {rt:.6f} s (round trip), queue "
+                      f"{queue[-1]:.6f} s, batch of {spans.get('schedule', {}).get('attrs', {}).get('batch')}; equals "
+                      "its solo answer", flush=True)
+            solo_sum = sum(rt for _a, rt in solo[:len(reqs)])
+            summary[label] = {"answers": answers, "storm_rt_s": storm_rt, "solo_rt_sum_s": solo_sum, "stages_s": stages,
+                              "queue_s": queue, "rider_rt_s": [a[3] for a in answers], "host": host}
+            print(f"storm {label}: {len(reqs)} riders in {storm_rt:.6f} s (first send to last answer), one launch of "
+                  f"{row}; stages prep {stages.get('prep', 0):.6f} s, dispatch {stages.get('dispatch', 0):.6f} s, "
+                  f"decode {stages.get('decode', 0):.6f} s, queue {min(queue):.6f}-{max(queue):.6f} s; host "
+                  f"{json.dumps(host)}; the solo round trips' sum {solo_sum:.6f} s ({card})", flush=True)
+    if len(recorded) != 2:
+        raise AssertionError(f"{len(recorded)} request batches dispatched, want 2")
+
+    _phase("64 storm kernel rows: both launches again (CUDA events); each lane vs the one scan with its mask over the "
+           "whole stream; the 80-core and the explain riders' lanes vs the plain sweep over their own pods")
+    rows = []
+    for label, (prep, items, dispatch) in zip(storms, recorded):
+        explain = label == "B"
+        kw = {"explain": True} if explain else {"count": True}
+        fi, _ = fastpath.build_inputs(prep)
+        args = fastpath.batch_inputs(prep, fi, dispatch.pod_valid)
+        out = [None]
+
+        def run_grid():
+            out[0] = fs.fast_scan_sweep(fi, *args, **kw)
+
+        ms = _events_ms(run_grid, reps=3)
+        name = fs.sweep_name(fi, **kw)
+        shape = fs.SWEEP_LAUNCHED[name]["grid"]
+        grid, S, P = out[0], args[1].shape[0], args[1].shape[1]
+        err = 0.0
+        for s in range(S):
+            host = dispatch.outs[s]
+            if not (np.array_equal(grid.chosen[s].cpu().numpy(), host.chosen)
+                    and np.array_equal(grid.fail_counts[s].cpu().numpy(), host.fail_counts)
+                    and np.array_equal(grid.insufficient[s].cpu().numpy(), host.insufficient)):
+                raise AssertionError(f"storm {label}, lane {s}: the launch timed here differs from the storm's")
+            one = fs.fast_scan(fi, args[0], args[1][s].contiguous(), args[2][s].contiguous(), explain=explain)
+            err = max(err, _same(fs.FastOutputs(*(t[s] for t in grid)), one,
+                                 f"storm {label}, lane {s}: grid vs one scan over the whole stream"))
+        # lanes lie in the batch's order of arrival: find the rider's by its app
+        rider = lambda it: it.apps[0].resources.deployments[0].metadata.name
+        s = next(j for j, it in enumerate(items) if (it.explain if explain else rider(it) == "huge"))
+        plain_lane = f"{rider(items[s])}{' (explain=1)' if explain else ''}"
+        lo = items[s].lo
+        hi = min(items[s].hi, lo + STORM_PLAIN_PODS)
+        lane = lambda a, b: (args[0][a:b].contiguous(), args[1][s:s + 1, a:b].contiguous(),
+                             args[2][s:s + 1, a:b].contiguous(), args[3][s:s + 1], args[4][s:s + 1])
+        init = fs.fast_scan_sweep(fi, *lane(0, lo), **kw).state.clone()
+        upto = fs.fast_scan_sweep(fi, *lane(0, hi), **kw)
+        if not torch.equal(upto.chosen[0], grid.chosen[s, :hi]):
+            raise AssertionError(f"storm {label}: the lane's launch over pods 0..{hi} placed differently")
+        got = upto._replace(**{f: getattr(upto, f)[:, lo:] for f in ("chosen", "gpu_take", "fail_counts",
+                                                                     "insufficient")})
+        plain = [None]
+
+        def run_plain():
+            plain[0] = fs.fast_scan_sweep_reference(fi, *lane(lo, hi), init=init, **kw)
+
+        plain_ms = _events_ms(run_plain, reps=1)
+        err = max(err, _same(got, plain[0], f"storm {label}, {plain_lane}'s lane, pods {lo}..{hi} vs the plain sweep "
+                                            "from the grid's state"))
+        failing = int((got.chosen[0] < 0).sum())
+        work = fs.fast_scan_work(fi, args[0], args[1], args[2], grid.chosen, args[3], **kw)
+        t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
+        steps = int(((args[1] != 0) & (args[2] == 0)).sum())
+        print(f"storm {label}: {name} at S={S}, P={P} ({steps} lane-steps schedule, {work['count']['steps']} "
+              f"counted): kernel {ms:.3f} ms ({ms * 1e3 / (S * P):.4f} us a lane-step, {ms * 1e3 / steps:.3f} us a "
+              f"scheduling lane-step), {shape.blocks} blocks of {shape.b}; every lane equals its one scan; "
+              f"{plain_lane}'s pods {lo}..{hi} ({failing} find no node) equal the plain sweep "
+              f"({plain_ms:.3f} ms); bound {max(t_bytes, t_ops):.6f} ms ({card})", flush=True)
+        rows.append({
+            "name": name, "plan": f"storm {label}: {S} riders on the server plan, one request batch",
+            "route": "cuda", "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu",
+            "replaces": "opensim_tpu/ops/kernels.py:1056" if explain else "opensim_tpu/ops/kernels.py:1042",
+            "launches": 1, "launches_are": "the storm's one launch in the server run", "max_abs_err": err,
+            "ms": ms, "us_per_lane_step": ms * 1e3 / (S * P), "us_per_scheduling_lane_step": ms * 1e3 / steps,
+            "lanes": S, "pods": P, "scheduling_lane_steps": steps, "counted_steps": work["count"]["steps"],
+            "b": shape.b, "blocks": shape.blocks, "plain_ms": plain_ms,
+            "plain_span": [lo, hi], "plain_lane": plain_lane,
+            "ptxas": fs.SWEEP_LAUNCHED[name]["ptxas"], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None, "library": "none",
+            **{k: v for k, v in summary[label].items() if k != "answers"}, "card": card,
+        })
+    return rows
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
@@ -2667,9 +2986,12 @@ def main() -> int:
     ]
 
     _phase("2 build")
-    variants = sorted({v for *_rest, v, _p in plans} | {fs.variant_name(fi) for _n, _p, fi in _small_preps("cpu")}
+    small = [fi for _n, _p, fi in _small_preps("cpu")]
+    variants = sorted({v for *_rest, v, _p in plans} | {fs.variant_name(fi) for fi in small}
                       | {v for *_rest, v in EXAMPLES} | set(CFG_VARIANTS) | set(EXPLAIN_VARIANTS) | {CAMPAIGN_VARIANT}
-                      | {_explain_name(v) for *_rest, v in EXAMPLES})
+                      | {_explain_name(v) for *_rest, v in EXAMPLES} | {"fast_scan[count]"}
+                      | {fs.variant_name(fi, count=True) for fi in small}
+                      | {fs.variant_name(fi, explain=True) for fi in small})
     fs.build(variants)
     print(f"build: {fs.BUILD_LOG['seconds']:.3f} s for {len(variants)} kernel variants, one nvcc each, "
           f"all started together: {', '.join(variants)}")
@@ -2710,6 +3032,8 @@ def main() -> int:
         rows.append(defrag_cli(device, card, drain_plans, drain_grid))
         rows.extend(observatory(device, card, served))
         rows.extend(campaign_plan(device, card, served))
+        counting_small_cases(device)
+        rows.extend(storm_plan(device, card, served))
     finally:
         served["close"]()
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")

@@ -10,7 +10,8 @@ resources); `build_inputs()` turns the encoded cluster into the kernel's
 tensors for one config; `schedule()` runs it over the stream (one launch,
 or one launch per profile segment carrying the state, from the prepared
 state or from one rebuilt on the host: a campaign's scheduling pass),
-`sweep()` over a batch of scenarios. The counterpart in the JAX package is
+`sweep()` over a batch of scenarios, `schedule_batch()` over a request
+batch's lanes, counting their failures. The counterpart in the JAX package is
 ``opensim_tpu/engine/fastpath.py``; the TPU layout rules there (128-lane
 node padding, 8-row GPU, VG, device, port and term-row padding,
 transposed scalar tables, chunked pod streams) and its VMEM- and
@@ -29,7 +30,8 @@ from ..encoding import vocab as V
 from ..encoding.state import ScanState
 from ..ops import kernels
 from ..ops.fast_scan import (
-    MAX_CS, MAX_DV, MAX_GD, MAX_R, FastInputs, fast_scan, fast_scan_sweep, pack_state, state_layout, variant,
+    MAX_CS, MAX_DV, MAX_GD, MAX_R, FastInputs, FastOutputs, fast_scan, fast_scan_sweep, pack_state, state_layout,
+    sweep_name, variant,
 )
 from .schedconfig import SchedulerConfig
 
@@ -482,22 +484,63 @@ def schedule(
                         explain=explain)
         outs.append((out, meta, lo, hi))
         state = out.state
-    host = lambda t: t.T.contiguous().cpu().numpy()
     cat = lambda field: np.concatenate([getattr(o, field).cpu().numpy() for o, *_ in outs])
-    chosen = cat("chosen")
     static_fail = np.concatenate([meta["static_fail"][prep.tmpl_ids[lo:hi]] for _o, meta, lo, hi in outs])
-    out, fi = outs[-1][0], segments[-1][0][0]
+    return _host_scheduled(segments[-1][0][0], st0, outs[-1][0], cat("chosen"), cat("gpu_take"), cat("fail_counts"),
+                           cat("insufficient"), static_fail)
+
+
+def _host_scheduled(fi: FastInputs, st0: ScanState, last, chosen: np.ndarray, gpu_take: np.ndarray,
+                    fail_counts: np.ndarray, insufficient: np.ndarray, static_fail: np.ndarray) -> Scheduled:
+    """A :class:`Scheduled` from a scan's per-pod host rows and the final
+    state of its `last` launch (on `fi`'s variant), in the encoder's
+    layouts: what the variant leaves untouched comes from `st0`."""
+    host = lambda t: t.T.contiguous().cpu().numpy()
     v = variant(fi)
     if v.gpu:
-        gpu_take, gpu_free = cat("gpu_take"), host(out.gpu_free)
+        gpu_free = host(last.gpu_free)
     else:
         gpu_free = np.asarray(st0.gpu_free)
         gpu_take = np.zeros((len(chosen), gpu_free.shape[1]), np.float32)
     port_used = np.array(st0.port_used, copy=True)  # port ids past the templates' stay unused
-    port_used[:, : fi.port_HU.shape[0]] = host(out.port_used)
-    vg_free, dev_free = (host(out.vg_free), host(out.dev_free)) if v.local else (st0.vg_free, st0.dev_free)
-    return Scheduled(chosen, host(out.used), gpu_take, gpu_free, port_used, np.asarray(vg_free),
-                     np.asarray(dev_free), cat("fail_counts"), cat("insufficient"), static_fail)
+    port_used[:, : fi.port_HU.shape[0]] = host(last.port_used)
+    vg_free, dev_free = (host(last.vg_free), host(last.dev_free)) if v.local else (st0.vg_free, st0.dev_free)
+    return Scheduled(chosen, host(last.used), gpu_take, gpu_free, port_used, np.asarray(vg_free),
+                     np.asarray(dev_free), fail_counts, insufficient, static_fail)
+
+
+def batch_inputs(prep, fi: FastInputs, pod_valid_masks: np.ndarray):
+    """The request batch's grid tensors on ``prep.device`` (lane s: pod
+    validity ``pod_valid_masks[s]``, [S, P] bool): ``tmpl [P]``, ``valid``
+    and ``forced`` int32 ``[S, P]`` (the prepared stream's forced pods in
+    every lane), ``node_valid [S, N]`` (every node of `fi`) and
+    ``spr_weight [S, U, Cs]`` (the plan's own)."""
+    pv = np.asarray(pod_valid_masks, dtype=bool)
+    lanes = lambda t: t[None].expand(pv.shape[0], *t.shape).contiguous()
+    tmpl, _valid, forced = pod_stream(prep)
+    return tmpl, _to(pv, torch.int32, prep.device), lanes(forced), lanes(fi.node_valid), lanes(fi.spr_weight)
+
+
+def schedule_batch(prep, pod_valid_masks: np.ndarray, explain: bool = False) -> Tuple[str, List[Scheduled]]:
+    """A request batch's scans (``engine/reqbatch.py``): lane s runs the
+    bind scan over the prepared stream with pod validity
+    ``pod_valid_masks[s]`` ([S, P] bool), every node valid and the plan's
+    own spread weights (:func:`batch_inputs`), and counts the failures of
+    its pods that find no node (explain mode: of every pod not forced), as
+    :func:`schedule` runs one request. On a card that is one launch of the
+    scenario grid's ``[count]`` variant (``[explain]``), on the CPU the
+    plain sweep. Returns the launch's row name (``fast_scan.sweep_name``)
+    and each lane's host copies."""
+    fi, meta = build_inputs(prep)
+    out = fast_scan_sweep(fi, *batch_inputs(prep, fi, pod_valid_masks), count=not explain, explain=explain)
+    chosen, gpu_take, fail_counts, insufficient = (t.cpu().numpy() for t in (out.chosen, out.gpu_take,
+                                                                            out.fail_counts, out.insufficient))
+    static_fail = meta["static_fail"][prep.tmpl_ids]
+    return sweep_name(fi, count=not explain, explain=explain), [
+        _host_scheduled(fi, prep.st0_np, FastOutputs(*(t[s] for t in out)), chosen[s], gpu_take[s], fail_counts[s],
+                        insufficient[s], static_fail)
+        for s in range(len(chosen))
+    ]
 
 
 def _zone_columns(prep) -> List[np.ndarray]:

@@ -45,6 +45,7 @@ from ..encoding.state import ClusterEncoder, to_device
 from ..models import expand
 from ..models.objects import LABEL_APP_NAME, Pod, ResourceTypes, touch_epoch
 from ..ops import kernels
+from ..utils.gcpause import gc_paused
 from ..utils.trace import PREP_STATS
 from . import queues
 from .simulator import (
@@ -408,6 +409,7 @@ def derive_with_apps(base: Prepared, cluster: ResourceTypes, apps: List[AppResou
     return None if got is None else got[0]
 
 
+@gc_paused()
 def derive_with_app_slices(base: Prepared, cluster: ResourceTypes, apps: List[AppResource], use_greed: bool = False,
                            base_entry: Optional[CacheEntry] = None
                            ) -> Optional[Tuple[Prepared, List[Tuple[int, int]]]]:
@@ -441,6 +443,7 @@ def derive_with_app_slices(base: Prepared, cluster: ResourceTypes, apps: List[Ap
     return prep, slices
 
 
+@gc_paused()
 def extend_with_nodes(base: Prepared, new_nodes: List, cluster: ResourceTypes, apps: List[AppResource],
                       use_greed: bool = False, base_entry: Optional[CacheEntry] = None) -> Optional[Prepared]:
     """`base` (prepared from `cluster` and `apps`, its pods as prepared:

@@ -59,6 +59,7 @@ from ..models.objects import (
 from ..ops import fast_scan, kernels
 from ..resilience import faults
 from ..resilience.deadline import Deadline, check_deadline, deadline_scope
+from ..utils.gcpause import gc_paused
 from ..utils.trace import PREP_STATS
 from . import explain as explain_mod
 from . import fastpath, preemption, queues, reasons, scheduler, schedconfig
@@ -267,7 +268,8 @@ def prepare(
     device = resolve_device(device)
     check_deadline("prepare")
     t0 = time.monotonic()
-    prep = _prepare_inner(cluster, apps, use_greed, node_pad, device, patch_pods_fn)
+    with gc_paused():
+        prep = _prepare_inner(cluster, apps, use_greed, node_pad, device, patch_pods_fn)
     PREP_STATS.record("full", time.monotonic() - t0)
     return prep
 
@@ -537,8 +539,30 @@ def simulate(
     victims_of: Dict[int, int] = {}
     if enable_preemption and (out.chosen[~prep.forced] < 0).any():
         out, victims_of = _preempt(prep, out, cluster, apps, pod_valid)
+    result = finish_decode(prep, out, cluster, active, pod_valid, nv_mask, segments, engine, explain,
+                           custom_reasons=custom_reasons, victims_of=victims_of, extra_plugins=extra_plugins)
+    result.timings = {"prepare": t1 - t0, "inputs": t2 - t1, "kernel": t3 - t2, "decode": time.perf_counter() - t3}
+    return result
+
+
+def finish_decode(prep: Prepared, out: fastpath.Scheduled, cluster: ResourceTypes, active: np.ndarray,
+                  pod_valid: np.ndarray, nv_mask: Optional[np.ndarray], segments, engine: str, explain: bool,
+                  custom_reasons: Optional[Dict[int, str]] = None, victims_of: Optional[Dict[int, int]] = None,
+                  extra_plugins: tuple = ()) -> SimulateResult:
+    """The decode tail shared by :func:`simulate` and the request batch
+    (``engine/reqbatch.py``), as the reference shares its
+    ``finish_decode`` (``opensim_tpu/engine/simulator.py:1032-1163``):
+    bind the `active` pods of the scan's result `out` into their nodes'
+    buckets, render the reasons of the others (:func:`_decode`), and in
+    explain mode attach the audit over the pods of `pod_valid` that are
+    not forced (:func:`_attach_explanations`). It writes the prepared pods'
+    bind state: a caller decoding several results over one Prepared
+    restores it between them (:func:`snapshot_bind_state`)."""
+    custom_reasons = custom_reasons or {}
+    victims_of = victims_of or {}
     n_nodes = prep.meta.n_real_nodes if nv_mask is None else int(nv_mask.sum())
-    statuses, unscheduled = _decode(prep, out, cluster.nodes, active, n_nodes, victims_of, custom_reasons)
+    with gc_paused():
+        statuses, unscheduled = _decode(prep, out, cluster.nodes, active, n_nodes, victims_of, custom_reasons)
     result = SimulateResult(
         unscheduled_pods=unscheduled,
         node_status=statuses,
@@ -553,7 +577,6 @@ def simulate(
     if explain:
         _attach_explanations(result, prep, out, segments, nv_mask, n_nodes, active, pod_valid, custom_reasons,
                              victims_of, extra_plugins)
-    result.timings = {"prepare": t1 - t0, "inputs": t2 - t1, "kernel": t3 - t2, "decode": time.perf_counter() - t3}
     return result
 
 

@@ -8,10 +8,13 @@ import json
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
+
 from .objects import (
     ANNO_NODE_LOCAL_STORAGE,
     ANNO_POD_LOCAL_STORAGE,
     Node,
+    OwnerReference,
     Pod,
     ResourceTypes,
     Workload,
@@ -877,6 +880,63 @@ def server_requests(n_nodes: int, n_pods: int, n_new: int) -> Dict[str, dict]:
     scale = {"deployments": [make_fake_deployment("bench-0", 2 * bench0.replicas, cpu, memory, *opts).raw]}
     newnodes = dict(deploy, newnodes=[_fleet_node(n_nodes + i).raw for i in range(n_new)])
     return {"deploy": deploy, "scale": scale, "newnodes": newnodes}
+
+
+def storm_requests(n_pods: int, explain_rider: bool = False) -> List[tuple]:
+    """``(kind, body, explain)`` of a request storm on the server plan, each
+    a request a client sends at once with the others: deploy-apps of the
+    capacity plan's Deployments SERVER_BOUND ... SERVER_BOUND + 5, one each;
+    the plan's scale-apps of bench-0 (:func:`server_requests`); a deploy of
+    ``n_pods // 500`` replicas (at least one) of 80 cores, which fit no node
+    of the fleet (64 cores), so each of its pods fails with counted reasons;
+    with `explain_rider`, an ``explain=1`` deploy of Deployment
+    SERVER_BOUND + 6."""
+    apps = synthetic_apps(n_pods).deployments
+    storm = [("deploy", {"deployments": [apps[w].raw]}, False) for w in range(SERVER_BOUND, SERVER_BOUND + 6)]
+    storm.append(("scale", server_requests(0, n_pods, 0)["scale"], False))
+    huge = make_fake_deployment("huge", max(1, n_pods // 500), "80", "1Gi")
+    storm.append(("deploy", {"deployments": [huge.raw]}, False))
+    if explain_rider:
+        storm.append(("deploy", {"deployments": [apps[SERVER_BOUND + 6].raw]}, True))
+    return storm
+
+
+def lane_masks(n_pods: int, lanes: int) -> np.ndarray:
+    """[lanes, n_pods] bool pod masks of a request batch's shape, for the
+    counting grids' checks: lane 0 sees the whole stream, lane s its first
+    half and, past it, every pod but those of index i with i % 3 == s % 3
+    (each lane without another third of the "apps")."""
+    i = np.arange(n_pods)
+    masks = np.ones((lanes, n_pods), dtype=bool)
+    for s in range(1, lanes):
+        masks[s] = (i < n_pods // 2) | (i % 3 != s % 3)
+    return masks
+
+
+def admission_cluster() -> ResourceTypes:
+    """The admission queue's small cluster (tests/test_admission.py:36):
+    six nodes in three zones, a pinned pod and a Deployment-owned pod that
+    scale-apps of ``web`` removes."""
+    rt = ResourceTypes()
+    for i in range(6):
+        rt.nodes.append(make_fake_node(f"n{i:03d}", "16", "64Gi", "110",
+                                       with_labels({"topology.kubernetes.io/zone": f"z{i % 3}"})))
+    rt.pods.append(make_fake_pod("pinned", "100m", "128Mi", with_node_name("n000")))
+    owner = OwnerReference(kind="Deployment", name="web", uid="u1", controller=True)
+    rt.pods.append(make_fake_pod("web-1", "500m", "1Gi", with_node_name("n001"),
+                                 lambda d: d["metadata"].update(ownerReferences=[owner.to_dict()])))
+    return rt
+
+
+def admission_requests() -> List[tuple]:
+    """``(kind, body)`` of the admission queue's mixed small storm
+    (tests/test_admission.py:57): five distinct deploys, a scale of
+    ``web`` and an unschedulable deploy."""
+    reqs = [("deploy", {"deployments": [make_fake_deployment(f"app-{i}", 2 + i % 3, "500m", "1Gi").raw]})
+            for i in range(5)]
+    reqs.append(("scale", {"deployments": [make_fake_deployment("web", 3, "200m", "256Mi").raw]}))
+    reqs.append(("deploy", {"deployments": [make_fake_deployment("huge", 1, "640", "1Gi").raw]}))
+    return reqs
 
 
 def _gpu_share(mem: str, count: str) -> Option:

@@ -17,6 +17,8 @@ import threading
 from typing import Dict, List, Sequence, Tuple
 
 __all__ = [
+    "BATCH_SIZE_BUCKETS",
+    "CounterVec",
     "DEFAULT_BUCKETS",
     "FAMILIES",
     "HistogramVec",
@@ -34,6 +36,10 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0, 10.0, 30.0,
 )
+
+#: requests folded into one batched launch (the admission queue's
+#: OPENSIM_BATCH_MAX defaults to 16)
+BATCH_SIZE_BUCKETS: Tuple[float, ...] = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0)
 
 #: per-node utilization is a ratio in [0, 1+] (requests can legitimately
 #: exceed allocatable on over-committed nodes) — capacity-shaped buckets
@@ -61,6 +67,27 @@ FAMILIES: Dict[str, Tuple[str, str]] = {
     "simon_snapshot_stale_served_total": ("Requests served from a stale snapshot", "counter"),
     "simon_stale_prep_retries_total": ("Stale prep-cache internal retries", "counter"),
     "simon_faults_injected_total": ("Chaos faults injected by point", "counter"),
+    # the admission queue (server/admission.py) — cardinality contract:
+    # reason ∈ {queue_full, shutting_down, deadline}, lane ∈ {interactive,
+    # bulk}, stage ∈ {prep, dispatch, decode}
+    "simon_admission_queue_depth": ("Requests waiting in the admission queue", "gauge"),
+    "simon_batches_total": ("Batched schedule launches", "counter"),
+    "simon_shed_total": ("Requests shed at the admission queue by reason", "counter"),
+    "simon_batch_size": ("Requests folded into one batched schedule launch", "histogram"),
+    "simon_queue_wait_seconds": ("Real time-in-queue from admission to execution start", "histogram"),
+    "simon_pipeline_stage_seconds": ("Per-batch pipeline stage latency by stage (prep/dispatch/decode)", "histogram"),
+    "simon_pipeline_prep_overlap_seconds_total": (
+        "Launch-busy seconds observed while a later batch's host prep ran (the measured overlap)", "counter",
+    ),
+    "simon_pipeline_overlapped_batches_total": (
+        "Batches whose host prep overlapped another batch's launch", "counter",
+    ),
+    "simon_lane_depth": ("Admission queue depth by priority lane", "gauge"),
+    "simon_lane_admitted_total": ("Requests admitted by priority lane", "counter"),
+    "simon_lane_shed_total": ("Requests shed at the admission queue by lane and reason", "counter"),
+    "simon_lane_starvation_promotions_total": (
+        "Bulk requests promoted past the lane weight by the starvation bound", "counter",
+    ),
     # latency (this module's RECORDER)
     "simon_phase_seconds": ("Per-phase latency from the request span trees", "histogram"),
     "simon_request_seconds": ("Whole-request latency by endpoint and outcome", "histogram"),
@@ -135,6 +162,36 @@ def parse_metrics(text: str) -> Dict[MetricKey, float]:
         ))
         out[(name, labels)] = float(value)
     return out
+
+
+class CounterVec:
+    """One counter family over a fixed label set, rendered with its
+    ``# HELP``/``# TYPE`` header. Not self-locking: mutations happen under
+    :data:`RECORDER`'s lock like everything else."""
+
+    def __init__(self, name: str, label_names: Sequence[str]) -> None:
+        help_text, kind = FAMILIES[name]  # KeyError = unregistered family
+        if kind != "counter":
+            raise ValueError(f"{name} is registered as {kind}, not counter")
+        self.name = name
+        self.label_names = tuple(label_names)
+        self.help = help_text
+        self._series: Dict[Tuple[str, ...], int] = {}  # guarded-by: RECORDER.lock
+
+    def inc(self, labels: Tuple[str, ...], n: int = 1) -> None:
+        self._series[labels] = self._series.get(labels, 0) + n
+
+    def render_lines(self) -> List[str]:
+        if not self._series:
+            return []
+        lines = exposition_headers(self.name, self.help, "counter")
+        for labels in sorted(self._series):
+            base = ",".join(f'{k}="{escape_label_value(v)}"' for k, v in zip(self.label_names, labels))
+            lines.append(f"{self.name}{{{base}}} {self._series[labels]}")
+        return lines
+
+    def reset(self) -> None:
+        self._series.clear()
 
 
 class HistogramVec:

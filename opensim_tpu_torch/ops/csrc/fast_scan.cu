@@ -20,9 +20,11 @@
 // sweep).
 //
 // Variants: both kernels are templates over the eight feature flags, then
-// CFG (a scheduler config) and, for the one scan, SAMPLE (the sampled
-// tie-break) and EXPLAIN (explain mode's counts on every step). Each shared
-// object holds one instantiation of each, chosen at compile time by
+// CFG (a scheduler config), EXPLAIN (explain mode's counts on every step),
+// for the one scan SAMPLE (the sampled tie-break) and for the grid COUNT
+// (the counts of the steps that find no node). Each shared object holds one
+// instantiation of each (a COUNT object the grid's alone, a SAMPLE object
+// the one scan's alone), chosen at compile time by
 // -DFS_VARIANT (bit i = flag i in the order of the template;
 // ops/fast_scan.py builds the variants a run needs, all at once), so a
 // variant carries no code of a feature it lacks and the build does not
@@ -70,9 +72,10 @@
 // block and then over the cluster through distributed shared memory
 // (integer sums, exact in any order), and CTA 0 writes the pod's row. It is
 // a function of its own, not inlined, so a step that succeeds pays for it
-// neither in time nor in registers. The grid does not count.
+// neither in time nor in registers.
 //
-// Explain mode (variant flag EXPLAIN, one scan only: simulate(explain=True)).
+// Explain mode (variant flag EXPLAIN: simulate(explain=True), and the
+// grid's for a request batch with an explain rider).
 // The reference leaves its Pallas kernel for its XLA scan, whose step
 // counts every pod that runs the pipeline (opensim_tpu/ops/kernels.py:
 // pod_step's count_all): valid or not, bound or not, only forced pods skip
@@ -85,6 +88,22 @@
 // that the next counting pass writes its partials only after CTA 0 has
 // read these. The other variants compile as before: the flag is a template
 // parameter, and every branch on it is folded away.
+//
+// The grid's counts (variant flags COUNT and EXPLAIN of the sweep kernel: a
+// request batch, engine/reqbatch.py, whose riders need their reasons, as
+// the reference's batch vmaps its XLA scan with count_fails or count_all,
+// opensim_tpu/engine/reqbatch.py: _batched_schedule). These variants run
+// one scenario a block (the host gives them B = 1, so S scenarios are S
+// blocks in waves of one a SM), and the counting pass is count_fails's
+// loop over a one-slot view of the block's scenario (OneSlot, the same
+// node_feasible verdicts), all N nodes walked by the block and summed over
+// its warps in the first level's scratch, which is free between the
+// step's reductions. COUNT counts a step whose pod finds no node, after
+// pass 2's reduction says so; EXPLAIN counts every step not forced, valid
+// or not, after pass 1 and before pass 2, and an invalid pod then skips
+// pass 2, pass 3 and the bind. So the counts are the one scan's with the
+// scenario's masks. The variants the sweep consumers launch compile as
+// before: both flags are template parameters.
 //
 // Scenario grid. Scenarios are independent chains over the same pod stream,
 // so block b runs B of them (scenarios b·B ... b·B + B - 1; the host picks
@@ -306,11 +325,12 @@ struct FastScanArgs {
     const uint32_t* nv_bits;   // [Nw] per scenario: node validity
     uint32_t* feas_bits;       // [Nw] per scenario: pass 2's feasibility bits for pass 3, when the masks lie in global memory
     float* rep;                // [CL, Wrep] one scan: each CTA's copy of the small state, when its slice lies in global memory
-    // the one scan's failure attribution (the grid leaves them null): rows
-    // of the pods that find no node, the rest zeroed by the host
+    // the failure attribution, per scenario (a grid of neither COUNT nor
+    // EXPLAIN leaves them null): rows of the counted pods, the rest zeroed
+    // by the host
     int32_t* fail_counts;      // [P, N_FAIL] nodes that fail each dynamic filter first
     int32_t* insufficient;     // [P, R] nodes that reach fit and lack each resource
-    unsigned long long* count_clock;  // [2] the counting passes' global-timer nanoseconds and their number
+    unsigned long long* count_clock;  // [2] one scan: the counting passes' global-timer nanoseconds and their number
     // the initial state (CFG variants; null: the encoded start), one row
     // per scenario at the arena's stride W, laid out as the arena, whose
     // first field is used
@@ -340,8 +360,8 @@ struct FastScanArgs {
     // a config's score weights (CFG), float32, in score_parts order
     float w_balanced, w_least, w_node_affinity, w_taint_toleration, w_interpod, w_spread, w_share, w_local,
         w_prefer_avoid;
-    // the variant's last flag (EXPLAIN), read by the host-side check only
-    int32_t has_explain;
+    // the variant's last flags (EXPLAIN, COUNT), read by the host-side check only
+    int32_t has_explain, has_count;
 };
 
 // Value k of a state field in the given initial state's first row: the
@@ -471,6 +491,14 @@ struct Slots {
         return a.prefw_zone[off(j) + (size_t)g * a.Z + z];
     }
     __device__ __forceinline__ float& sel_total(int j, int k) const { return a.sel_total[off(j) + k]; }
+};
+
+// The grid's counting pass works on the one slot of a block of the COUNT
+// and EXPLAIN variants (B = 1) through this view: the grid's accessors,
+// one slot wide, so node_feasible gives that slot's verdicts as it gives
+// the one scan's.
+struct OneSlot : Slots {
+    static constexpr int NB = 1;
 };
 
 // The step's spread constraints: bit c of `hard` and `soft` marks an
@@ -822,8 +850,8 @@ struct Red {
 // `fail` is the dynamic filter of slot f (N_FAIL's order, the reference's
 // order of attribution) that node n fails, bit r of `shortage` a resource
 // row it lacks (req > 0 and used + req > alloc). node_feasible fills them
-// where it is given a Verdicts (one scan only); NoVerdicts compiles them
-// out.
+// where it is given a Verdicts (a counting pass, over one slot);
+// NoVerdicts compiles them out.
 enum { V_PORTS = 0, V_FIT, V_SPREAD, V_INTERPOD, V_GPU, V_LOCAL };
 struct Verdicts {
     static constexpr bool on = true;
@@ -1122,7 +1150,7 @@ __device__ __forceinline__ void node_feasible(const FastScanArgs& a, const Sl& S
                                               float (&feasible)[Sl::NB], float (&gc_dyn)[Sl::NB],
                                               float& gc_has_dev, VD* vd = nullptr) {
     constexpr int NB = Sl::NB;
-    static_assert(!VD::on || NB == 1, "the counting pass is the one scan's");
+    static_assert(!VD::on || NB == 1, "the counting pass takes one slot");
     const int u = p.u;
     if constexpr (GC) gc_nodes(a, S, t, n, want, gc_dyn, gc_has_dev);
     float fit[NB];
@@ -1907,6 +1935,56 @@ __global__ void __launch_bounds__(NT, 1) fast_scan_kernel(const __grid_constant_
     cluster.sync();  // no CTA leaves while a peer may still read its partials
 }
 
+// The grid's counting pass of pod i (template u) for the block's one
+// scenario (COUNT: the pod found no node; EXPLAIN: any step not forced):
+// count_fails's attribution over all N nodes through the one-slot view,
+// the counts summed by warp reductions, then over the block's warps in
+// `buf` (the reductions' first-level scratch, free here; ints held as
+// float bits), and written into the scenario's row i. Not inlined, as
+// count_fails is not.
+template <bool GPU, bool GC, bool PORTS, bool IP, bool LOC, bool CFG>
+__device__ __noinline__ void sweep_count_fails(const FastScanArgs& a, const OneSlot S, int i, int u, const MinCnt mc,
+                                               unsigned boot, float (*buf)[SW_NWARP]) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const Pod<false> p(a, u);
+    GCons cs(a, u);
+    cs.hard = hard_cons<CFG>(a, cs.hard);
+    int cnt[N_FAIL + MAX_R];  // the filters' slots, then the resource rows
+#pragma unroll
+    for (int k = 0; k < N_FAIL + MAX_R; ++k) cnt[k] = 0;
+    for (int n = tid; n < a.N; n += SW_NT) {
+        const TNode<false, OneSlot> t(a, S, u, n);
+        if (!(t.sp() * S.valid(0, n) > 0.0f)) continue;  // the static row: the template's static_fail counts it
+        float feasible[1], gc_dyn[1], gc_has_dev = 0.0f;
+        Verdicts vd{0u, 0u};
+        node_feasible<GPU, GC, PORTS, IP, LOC, CFG>(a, S, cs, t, p, n, mc.v, boot, 1u, feasible, gc_dyn, gc_has_dev,
+                                                    &vd);
+        const int f = vd.fail ? __ffs(vd.fail) - 1 : N_FAIL;  // the bits lie in the order of attribution
+#pragma unroll
+        for (int k = 0; k < N_FAIL; ++k) cnt[k] += k == f ? 1 : 0;
+        if (!(vd.fail >> V_PORTS & 1u)) {
+#pragma unroll
+            for (int r = 0; r < MAX_R; ++r) cnt[N_FAIL + r] += vd.shortage >> r & 1u;
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < N_FAIL + MAX_R; ++k) {
+        const int x = __reduce_add_sync(FULL_MASK, cnt[k]);
+        if (lane == 0) buf[k][warp] = __int_as_float(x);
+    }
+    __syncthreads();
+    if (tid < N_FAIL + a.R) {
+        int x = 0;
+        for (int w = 0; w < SW_NWARP; ++w) x += __float_as_int(buf[tid][w]);
+        const size_t row = S.pod0(0) + i;
+        if (tid < N_FAIL)
+            a.fail_counts[row * N_FAIL + tid] = x;
+        else
+            a.insufficient[row * a.R + tid - N_FAIL] = x;
+    }
+    __syncthreads();  // buf is free again for the step's next reduction
+}
+
 // Second level of a sweep reduction: warp w reduces values w, w +
 // SW_NWARP, ... of the `nv` values whose first level lies in buf[v][warp]
 // (v = the value's slot in `out`, from `slot(idx)`), min or max by
@@ -1927,10 +2005,13 @@ __device__ __forceinline__ void reduce_level2(float (*buf)[SW_NWARP], int nv, Sl
 
 // The scenario grid: block b runs scenarios b·B ... b·B + B - 1 (fewer in
 // a ragged last block) in lockstep through the pod stream. Slot j of the
-// block is scenario b·B + j.
-template <bool GPU, bool GC, bool NA, bool TT, bool AV, bool PORTS, bool IP, bool LOC, bool CFG>
+// block is scenario b·B + j. COUNT and EXPLAIN (B = 1) count slot 0's
+// steps (sweep_count_fails).
+template <bool GPU, bool GC, bool NA, bool TT, bool AV, bool PORTS, bool IP, bool LOC, bool CFG, bool COUNT,
+          bool EXPLAIN>
 __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_constant__ FastScanArgs a) {
     static_assert(GPU || !GC, "the gpu-count allocatable follows the GPUs");
+    static_assert(!(COUNT && EXPLAIN), "explain mode counts every step already");
     using RD = Red<NA, TT, LOC, IP>;
     constexpr int NR = RD::N;
     struct Shared {
@@ -1962,7 +2043,7 @@ __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_
 
     for (int i = 0; i < a.P; ++i) {
         const int u = a.tmpl[i];
-        unsigned act = 0u, frc = 0u;  // bit j: slot j's pod i is valid; it is forced
+        unsigned act = 0u, frc = 0u, aud = 0u;  // bit j: slot j's pod i is valid; it is forced; EXPLAIN counts it
 #pragma unroll
         for (int j = 0; j < BMAX; ++j) {
             if (j >= nb) continue;
@@ -1971,9 +2052,14 @@ __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_
                 act |= 1u << j;
                 if (a.forced[k] == 1) frc |= 1u << j;
             }
+            if constexpr (EXPLAIN)
+                if (a.forced[k] != 1) aud |= 1u << j;
         }
         const unsigned sched = act & ~frc;  // the slots that schedule pod i; the same in every thread
-        if (sched) {
+        // the slots that run pass 1: those that schedule, and in explain
+        // mode those that count too (invalid and not forced)
+        const unsigned run = EXPLAIN ? aud : sched;
+        if (run) {
             const Pod<true> p(a, u);
             if (tid < BMAX * MAX_CS) {  // stage the step's constraints and each slot's spread weights
                 const int j = tid / MAX_CS, c = tid % MAX_CS;
@@ -1995,7 +2081,7 @@ __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_
             if constexpr (IP) {
 #pragma unroll
                 for (int j = 0; j < BMAX; ++j)
-                    if (sched >> j & 1u && at_bootstrap_of(a, S, j, u)) boot |= 1u << j;
+                    if (run >> j & 1u && at_bootstrap_of(a, S, j, u)) boot |= 1u << j;
             }
             bool any_soft = false;
             for (int c = 0; c < Cs; ++c) any_soft |= a.spr_active[u * Cs + c] == 1 && a.spr_hard[u * Cs + c] == 0;
@@ -2011,11 +2097,11 @@ __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_
                     for (int n = tid; n < N; n += SW_NT) {
                         TNode<true, Slots> t(a, S, u, n);
                         t.load_zones(S);
-                        elig_min(a, S, cs, t, c, n, a.aff_mask[(size_t)u * N + n], sched, mn);
+                        elig_min(a, S, cs, t, c, n, a.aff_mask[(size_t)u * N + n], run, mn);
                     }
 #pragma unroll
                     for (int j = 0; j < BMAX; ++j) {
-                        if (!(sched >> j & 1u)) continue;
+                        if (!(run >> j & 1u)) continue;
                         const float v = warp_min(mn[j]);
                         if (lane == 0) sh.buf[j * MAX_CS + c][warp] = v;
                     }
@@ -2024,96 +2110,110 @@ __global__ void __launch_bounds__(SW_NT, 1) fast_scan_sweep_kernel(const __grid_
                 reduce_level2(
                     sh.buf, BMAX * Cs, [&](int idx) { return (idx / Cs) * MAX_CS + idx % Cs; },
                     [](int) { return false; },
-                    [&](int idx) { return !(sched >> (idx / Cs) & 1u) || !(cs.hard >> (idx % Cs) & 1u); },
+                    [&](int idx) { return !(run >> (idx / Cs) & 1u) || !(cs.hard >> (idx % Cs) & 1u); },
                     sh.mn);
                 __syncthreads();
             }
+            // the counting pass of the block's one slot (B = 1): explain
+            // mode counts here, against the state before the step's bind
+            const auto count_slot0 = [&] {
+                MinCnt mc;
+#pragma unroll
+                for (int c = 0; c < MAX_CS; ++c) mc.v[c] = sh.mn[c];
+                sweep_count_fails<GPU, GC, PORTS, IP, LOC, CFG>(a, OneSlot{S}, i, u, mc, boot & 1u, sh.buf);
+            };
+            if constexpr (EXPLAIN) count_slot0();
+            if (sched) {  // explain mode: an invalid pod has counted and binds nothing
 
-            // --- pass 2: per slot, the ranges, any-feasible and the maxima,
-            // and each node's feasibility bit for pass 3
-            float rv[BMAX][NR];
+                // --- pass 2: per slot, the ranges, any-feasible and the maxima,
+                // and each node's feasibility bit for pass 3
+                float rv[BMAX][NR];
 #pragma unroll
-            for (int j = 0; j < BMAX; ++j) RD::init(rv[j]);
-            for (int base = warp * 32; base < N; base += SW_NT) {
-                const int n = base + lane;
-                const bool in = n < N;
-                float feasible[BMAX];
+                for (int j = 0; j < BMAX; ++j) RD::init(rv[j]);
+                for (int base = warp * 32; base < N; base += SW_NT) {
+                    const int n = base + lane;
+                    const bool in = n < N;
+                    float feasible[BMAX];
 #pragma unroll
-                for (int j = 0; j < BMAX; ++j) feasible[j] = 0.0f;
-                if (in) {
-                    TNode<true, Slots> t(a, S, u, n);
-                    t.load<GC, NA, TT, AV, true, false>(p, S);
-                    pass2_node<GPU, GC, NA, TT, PORTS, IP, LOC, CFG>(a, S, cs, t, p, n, sh.mn, boot, sched, feasible,
-                                                                     rv);
+                    for (int j = 0; j < BMAX; ++j) feasible[j] = 0.0f;
+                    if (in) {
+                        TNode<true, Slots> t(a, S, u, n);
+                        t.load<GC, NA, TT, AV, true, false>(p, S);
+                        pass2_node<GPU, GC, NA, TT, PORTS, IP, LOC, CFG>(a, S, cs, t, p, n, sh.mn, boot, sched,
+                                                                         feasible, rv);
+                    }
+#pragma unroll
+                    for (int j = 0; j < BMAX; ++j) {
+                        if (!(sched >> j & 1u)) continue;
+                        const unsigned word = __ballot_sync(FULL_MASK, feasible[j] > 0.0f);
+                        if (lane == 0) feas_bits[(size_t)j * Nw + (base >> 5)] = word;
+                    }
                 }
 #pragma unroll
                 for (int j = 0; j < BMAX; ++j) {
                     if (!(sched >> j & 1u)) continue;
-                    const unsigned word = __ballot_sync(FULL_MASK, feasible[j] > 0.0f);
-                    if (lane == 0) feas_bits[(size_t)j * Nw + (base >> 5)] = word;
-                }
-            }
 #pragma unroll
-            for (int j = 0; j < BMAX; ++j) {
-                if (!(sched >> j & 1u)) continue;
-#pragma unroll
-                for (int k = 0; k < NR; ++k) {
-                    const float v = RD::is_max(k) ? warp_max(rv[j][k]) : warp_min(rv[j][k]);
-                    if (lane == 0) sh.buf[j * MAX_RED + k][warp] = v;
+                    for (int k = 0; k < NR; ++k) {
+                        const float v = RD::is_max(k) ? warp_max(rv[j][k]) : warp_min(rv[j][k]);
+                        if (lane == 0) sh.buf[j * MAX_RED + k][warp] = v;
+                    }
                 }
-            }
-            __syncthreads();
-            reduce_level2(
-                sh.buf, BMAX * NR, [](int idx) { return (idx / NR) * MAX_RED + idx % NR; },
-                [](int idx) { return RD::is_max(idx % NR); }, [&](int idx) { return !(sched >> (idx / NR) & 1u); },
-                sh.red);
-            __syncthreads();
+                __syncthreads();
+                reduce_level2(
+                    sh.buf, BMAX * NR, [](int idx) { return (idx / NR) * MAX_RED + idx % NR; },
+                    [](int idx) { return RD::is_max(idx % NR); },
+                    [&](int idx) { return !(sched >> (idx / NR) & 1u); }, sh.red);
+                __syncthreads();
+                // the grid's count: the block's one slot found no node
+                if constexpr (COUNT)
+                    if (!(sh.red[4] > 0.0f)) count_slot0();
 
-            // --- pass 3: per slot, score the feasible nodes and keep the
-            // lowest index among the maxima
-            float best_s[BMAX];
-            int best_i[BMAX];
+                // --- pass 3: per slot, score the feasible nodes and keep the
+                // lowest index among the maxima
+                float best_s[BMAX];
+                int best_i[BMAX];
 #pragma unroll
-            for (int j = 0; j < BMAX; ++j) {
-                best_s[j] = NEG;
-                best_i[j] = N;
-            }
-            for (int base = warp * 32; base < N; base += SW_NT) {
-                const int n = base + lane;
-                if (n >= N) continue;
-                TNode<true, Slots> t(a, S, u, n);
-                t.load<GC, NA, TT, AV, false, true>(p, S);
-                float gc_dyn[BMAX], gc_has_dev = 0.0f, score[BMAX];
-                unsigned feas = 0u;  // bit j: node n is feasible for slot j
-#pragma unroll
-                for (int j = 0; j < BMAX; ++j)
-                    if (sched >> j & 1u) feas |= (feas_bits[(size_t)j * Nw + (base >> 5)] >> lane & 1u) << j;
-                if constexpr (GC) gc_nodes(a, S, t, n, feas, gc_dyn, gc_has_dev);
-                if (!feas) continue;
-                node_score<GC, NA, TT, AV, LOC, IP, CFG>(a, S, cs, t, p, n, gc_dyn, gc_has_dev, any_soft, sh.red,
-                                                         feas, score);
-#pragma unroll
-                for (int j = 0; j < BMAX; ++j)
-                    if (feas >> j & 1u) better(best_s[j], best_i[j], score[j], n);
-            }
-#pragma unroll
-            for (int j = 0; j < BMAX; ++j) {
-                if (!(sched >> j & 1u)) continue;
-                warp_argmax(best_s[j], best_i[j]);
-                if (lane == 0) {
-                    sh.sbuf[j][warp] = best_s[j];
-                    sh.ibuf[j][warp] = best_i[j];
+                for (int j = 0; j < BMAX; ++j) {
+                    best_s[j] = NEG;
+                    best_i[j] = N;
                 }
+                for (int base = warp * 32; base < N; base += SW_NT) {
+                    const int n = base + lane;
+                    if (n >= N) continue;
+                    TNode<true, Slots> t(a, S, u, n);
+                    t.load<GC, NA, TT, AV, false, true>(p, S);
+                    float gc_dyn[BMAX], gc_has_dev = 0.0f, score[BMAX];
+                    unsigned feas = 0u;  // bit j: node n is feasible for slot j
+#pragma unroll
+                    for (int j = 0; j < BMAX; ++j)
+                        if (sched >> j & 1u) feas |= (feas_bits[(size_t)j * Nw + (base >> 5)] >> lane & 1u) << j;
+                    if constexpr (GC) gc_nodes(a, S, t, n, feas, gc_dyn, gc_has_dev);
+                    if (!feas) continue;
+                    node_score<GC, NA, TT, AV, LOC, IP, CFG>(a, S, cs, t, p, n, gc_dyn, gc_has_dev, any_soft, sh.red,
+                                                             feas, score);
+#pragma unroll
+                    for (int j = 0; j < BMAX; ++j)
+                        if (feas >> j & 1u) better(best_s[j], best_i[j], score[j], n);
+                }
+#pragma unroll
+                for (int j = 0; j < BMAX; ++j) {
+                    if (!(sched >> j & 1u)) continue;
+                    warp_argmax(best_s[j], best_i[j]);
+                    if (lane == 0) {
+                        sh.sbuf[j][warp] = best_s[j];
+                        sh.ibuf[j][warp] = best_i[j];
+                    }
+                }
+                __syncthreads();
+                for (int j = warp; j < BMAX; j += SW_NWARP) {
+                    if (!(sched >> j & 1u)) continue;
+                    float s = lane < SW_NWARP ? sh.sbuf[j][lane] : NEG;
+                    int bi = lane < SW_NWARP ? sh.ibuf[j][lane] : N;
+                    warp_argmax(s, bi);
+                    if (lane == 0) sh.best[j] = bi;
+                }
+                __syncthreads();
             }
-            __syncthreads();
-            for (int j = warp; j < BMAX; j += SW_NWARP) {
-                if (!(sched >> j & 1u)) continue;
-                float s = lane < SW_NWARP ? sh.sbuf[j][lane] : NEG;
-                int bi = lane < SW_NWARP ? sh.ibuf[j][lane] : N;
-                warp_argmax(s, bi);
-                if (lane == 0) sh.best[j] = bi;
-            }
-            __syncthreads();
         }
 
         // --- per slot: the choice (the pin of a forced pod), then the bind
@@ -2147,7 +2247,7 @@ int check_args(const FastScanArgs& a) {
     const int v = (a.has_gpu ? 1 : 0) | (a.gc_row >= 0 ? 2 : 0) | (a.has_na ? 4 : 0) | (a.has_tt ? 8 : 0) |
                   (a.has_avoid ? 16 : 0) | (a.has_ports ? 32 : 0) | (a.has_interpod ? 64 : 0) |
                   (a.has_local ? 128 : 0) | (a.has_cfg ? 256 : 0) | (a.has_sample ? 512 : 0) |
-                  (a.has_explain ? 1024 : 0);
+                  (a.has_explain ? 1024 : 0) | (a.has_count ? 2048 : 0);
     if (v != FS_VARIANT) return (int)cudaErrorInvalidValue;  // this library holds one variant
     if (a.init != nullptr && !a.has_cfg) return (int)cudaErrorInvalidValue;  // only a CFG variant takes a state
     return 0;
@@ -2161,6 +2261,7 @@ int check_args(const FastScanArgs& a) {
 #define FS_CFG ((FS_VARIANT & 256) != 0)
 #define FS_SAMPLE ((FS_VARIANT & 512) != 0)
 #define FS_EXPLAIN ((FS_VARIANT & 1024) != 0)
+#define FS_COUNT ((FS_VARIANT & 2048) != 0)
 
 // One scan as a cluster of CL CTAs of NT threads, `smem` bytes of dynamic
 // shared memory (the slices, with a.resident; else 0 and the slices in
@@ -2194,7 +2295,13 @@ int launch_scan(const FastScanArgs& a, int smem, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
+// A COUNT variant holds no one scan: the one scan counts the steps that
+// find no node in every variant.
 extern "C" int fast_scan_launch(const FastScanArgs* args, int cluster, int threads, int smem, void* stream) {
+#if FS_COUNT
+    (void)args, (void)cluster, (void)threads, (void)smem, (void)stream;
+    return (int)cudaErrorInvalidValue;
+#else
     const FastScanArgs& a = *args;
     if (int err = check_args(a)) return err;
     if (a.S != 1 || cluster != CL || threads != NT || a.Nc != (a.N + CL - 1) / CL || a.Wrep < 0 ||
@@ -2203,15 +2310,16 @@ extern "C" int fast_scan_launch(const FastScanArgs* args, int cluster, int threa
         return (int)cudaErrorInvalidValue;
     cudaGetLastError();  // clear a stale error so the check reports this launch
     return a.resident ? launch_scan<1>(a, smem, (cudaStream_t)stream) : launch_scan<0>(a, 0, (cudaStream_t)stream);
+#endif
 }
 
 // The scenario grid, shaped by ops/fast_scan.sweep_grid: `blocks` blocks of
 // `threads` threads (SW_NT), a.B scenarios each, `smem` bytes of dynamic
 // shared memory (the masks of a.B scenarios, or 0 when they lie in global
-// memory). A SAMPLE or EXPLAIN variant holds no grid: no sweep samples or
-// counts.
+// memory). A SAMPLE variant holds no grid: no sweep samples. The COUNT and
+// EXPLAIN variants run one scenario a block and write the count rows.
 extern "C" int fast_scan_sweep_launch(const FastScanArgs* args, int blocks, int threads, int smem, void* stream) {
-#if FS_VARIANT & (512 | 1024)
+#if FS_SAMPLE
     (void)args, (void)blocks, (void)threads, (void)smem, (void)stream;
     return (int)cudaErrorInvalidValue;
 #else
@@ -2219,10 +2327,11 @@ extern "C" int fast_scan_sweep_launch(const FastScanArgs* args, int blocks, int 
     if (int err = check_args(a)) return err;
     const long long want_smem = a.bits_in_smem ? (long long)a.B * a.Nw * 4 * 2 : 0;
     if (a.B < 1 || a.B > BMAX || threads != SW_NT || blocks != (a.S + a.B - 1) / a.B || a.Nw != (a.N + 31) / 32 ||
-        smem != want_smem || (!a.bits_in_smem && a.feas_bits == nullptr) || a.nv_bits == nullptr)
+        smem != want_smem || (!a.bits_in_smem && a.feas_bits == nullptr) || a.nv_bits == nullptr ||
+        ((FS_COUNT || FS_EXPLAIN) && (a.B != 1 || a.fail_counts == nullptr || a.insufficient == nullptr)))
         return (int)cudaErrorInvalidValue;
     cudaGetLastError();
-    auto kernel = fast_scan_sweep_kernel<FS_FLAGS, FS_CFG>;
+    auto kernel = fast_scan_sweep_kernel<FS_FLAGS, FS_CFG, FS_COUNT, FS_EXPLAIN>;
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return (int)err;

@@ -40,7 +40,11 @@ the step's bind).
   differ in node validity, spread weights, pod validity and forced masks:
   one launch of the sweep kernel in the same shared object, whose blocks
   each run B scenarios in lockstep (:func:`sweep_grid` shapes the grid);
-  on the CPU, :func:`fast_scan_sweep_reference`.
+  on the CPU, :func:`fast_scan_sweep_reference`. With ``count`` (the
+  ``[count]`` variant) or ``explain`` it counts each scenario's failures as
+  the one scan does, one scenario a block: the request batch's grid
+  (``engine/reqbatch.py``), as the JAX package's batch runs its XLA scan
+  with ``count_fails`` or ``count_all`` under ``jax.vmap``.
 - :func:`fast_scan_reference` is the plain PyTorch version: a Python loop
   over pods, vector ops over nodes, op for op the Pallas body's formulas
   (with a config, ``kernels.pod_step``'s weighted sum). It runs on any
@@ -126,7 +130,9 @@ SCAN_UNSCHEDULABLE = -1
 DRAW_CHUNK = 256
 
 #: Number of kernel launches made through :func:`fast_scan` and
-#: :func:`fast_scan_sweep` (CUDA only), in all and by row name
+#: :func:`fast_scan_sweep` (CUDA only; kept under ``_LAUNCH_LOCK``, as the
+#: server launches from its dispatcher and worker threads), in all and by
+#: row name
 #: (:func:`variant_name`, :func:`sweep_name`); per one-scan row name, the
 #: shape of its last launch (:class:`ScanShape`), the ptxas report of the
 #: kernel it ran and that launch's ``count_clock`` (an int64 [2] tensor on
@@ -139,6 +145,7 @@ LAUNCHES = 0
 VARIANT_LAUNCHES: Dict[str, int] = {}
 SCAN_LAUNCHED: Dict[str, dict] = {}
 SWEEP_LAUNCHED: Dict[str, dict] = {}
+_LAUNCH_LOCK = threading.Lock()
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "fast_scan.cu"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -239,8 +246,8 @@ class FastOutputs(NamedTuple):
     with the dynamic gpu-count allocatable). A forced pod's row stays zero,
     as the reference's skip_pipeline returns; outside explain mode an
     invalid pod's row is zero and never read (decode drops invalid pods).
-    The scenario grid does not count: its two count fields have width 0
-    (:func:`fast_scan_sweep`).
+    A scenario grid counts in its ``count`` and ``explain`` variants only;
+    otherwise its two count fields have width 0 (:func:`fast_scan_sweep`).
 
     ``state`` is the whole final scan state as one float32 row in the
     layout of :func:`state_layout` (from the kernel, its arena row, which
@@ -254,20 +261,21 @@ class FastOutputs(NamedTuple):
     port_used: torch.Tensor  # [Hp, N] f32 final host-port use per port id ([0, N] without ports)
     vg_free: torch.Tensor  # [Vg, N] f32 final free bytes per volume group ([0, N] without local)
     dev_free: torch.Tensor  # [Dv, N] f32 final free bytes per device, 0 once taken ([0, N] without local)
-    fail_counts: torch.Tensor  # [P, N_FAIL] i32 first-fail node counts per dynamic filter ([S, P, 0] from a grid)
-    insufficient: torch.Tensor  # [P, R] i32 nodes short of each resource ([S, P, 0] from a grid)
+    fail_counts: torch.Tensor  # [P, N_FAIL] i32 first-fail node counts per dynamic filter ([S, P, 0]: see above)
+    insufficient: torch.Tensor  # [P, R] i32 nodes short of each resource ([S, P, 0] from a grid that does not count)
     state: torch.Tensor  # [W] f32 the final state (:func:`state_layout`)
 
 
 #: The outputs both kernels compute: the placements and the final state
-#: (the grid leaves the two count fields empty).
+#: (a grid that does not count leaves the two count fields empty).
 STATE_FIELDS = FastOutputs._fields[:7] + ("state",)
 
 
 class Variant(NamedTuple):
     """Kernel variant: which flag branches of the Pallas body it carries,
-    then whether it takes a scheduler config and (one scan only) whether
-    it samples its ties and counts every step (explain mode). Field i is
+    then whether it takes a scheduler config, (one scan only) whether it
+    samples its ties, whether it counts every step (explain mode) and
+    (grid only) whether it counts the steps that find no node. Field i is
     bit i of the variant number the CUDA build takes."""
 
     gpu: bool
@@ -281,11 +289,12 @@ class Variant(NamedTuple):
     cfg: bool
     sample: bool
     explain: bool
+    count: bool
 
 
-def variant(fi: FastInputs, sample: bool = False, explain: bool = False) -> Variant:
+def variant(fi: FastInputs, sample: bool = False, explain: bool = False, count: bool = False) -> Variant:
     """The variant that runs on these inputs; `sample`: with a tie seed;
-    `explain`: in explain mode."""
+    `explain`: in explain mode; `count`: a grid that counts failures."""
     return Variant(
         gpu=fi.gpu_mem.numel() > 0,
         gc=fi.gc_row >= 0,
@@ -299,6 +308,7 @@ def variant(fi: FastInputs, sample: bool = False, explain: bool = False) -> Vari
         cfg=fi.cfg is not None,
         sample=sample,
         explain=explain,
+        count=count,
     )
 
 
@@ -307,18 +317,20 @@ def _name(v: Variant) -> str:
     return f"fast_scan[{','.join(on)}]" if on else "fast_scan"
 
 
-def variant_name(fi: FastInputs, sample: bool = False, explain: bool = False) -> str:
+def variant_name(fi: FastInputs, sample: bool = False, explain: bool = False, count: bool = False) -> str:
     """``fast_scan`` for the base variant, else ``fast_scan[gpu,gc,...]``
     (``cfg`` with a config, ``sample`` with a tie seed, ``explain`` in
-    explain mode)."""
-    return _name(variant(fi, sample, explain))
+    explain mode, ``count`` for a counting grid, whose shared object holds
+    the grid alone)."""
+    return _name(variant(fi, sample, explain, count))
 
 
-def sweep_name(fi: FastInputs) -> str:
+def sweep_name(fi: FastInputs, count: bool = False, explain: bool = False) -> str:
     """The launch-count name of :func:`fast_scan_sweep` on these inputs:
     ``fast_scan_sweep``, or ``fast_scan_sweep[...]`` with the variant's
-    flags. The sweep runs the same shared object as :func:`fast_scan`."""
-    return "fast_scan_sweep" + variant_name(fi)[len("fast_scan"):]
+    flags (``count`` or ``explain`` for a grid that counts). The sweep runs
+    the shared object of :func:`variant_name` with the same flags."""
+    return "fast_scan_sweep" + variant_name(fi, explain=explain, count=count)[len("fast_scan"):]
 
 
 def parse_variant(name: str) -> Variant:
@@ -543,7 +555,7 @@ class _Args(ctypes.Structure):
         "o_zone_cnt", "o_anti_zone", "o_prefw_zone", "o_sel_total",
         "has_cfg", "has_sample", "filters", "fit_ignored", "draw_base",
     )] + [("key0", ctypes.c_uint32), ("key1", ctypes.c_uint32)] + [(n, ctypes.c_float) for n in _CFG_WEIGHTS] + [
-        ("has_explain", ctypes.c_int32)]
+        ("has_explain", ctypes.c_int32), ("has_count", ctypes.c_int32)]
 
 
 #: Loaded shared objects by variant name; one per variant, each holding
@@ -712,18 +724,19 @@ class SweepGrid(NamedTuple):
     words: int  # 32-bit words of one N-bit mask
 
 
-def sweep_grid(S: int, N: int, sms: int = H100_SMS) -> SweepGrid:
+def sweep_grid(S: int, N: int, sms: int = H100_SMS, counting: bool = False) -> SweepGrid:
     """The scenario grid for S scenarios over N nodes on a card of `sms`
     SMs: b = ceil(S / sms) scenarios per block, at most SWEEP_B_MAX, so the
     grid fills the card in as few waves as b allows (S <= sms keeps one
-    scenario per block). Each scenario keeps its node validity and pass 2's
-    feasibility as two N-bit masks in shared memory; where b scenarios'
-    masks do not fit beside the static arrays, b shrinks to what fits, and
-    where one scenario's do not, they lie in global memory, so every N
-    runs."""
+    scenario per block); a `counting` grid (the ``count`` and ``explain``
+    variants) takes b = 1, its S blocks running in waves. Each scenario
+    keeps its node validity and pass 2's feasibility as two N-bit masks in
+    shared memory; where b scenarios' masks do not fit beside the static
+    arrays, b shrinks to what fits, and where one scenario's do not, they
+    lie in global memory, so every N runs."""
     words = -(-N // 32)
     per = 2 * 4 * words
-    b = min(SWEEP_B_MAX, -(-S // sms))
+    b = 1 if counting else min(SWEEP_B_MAX, -(-S // sms))
     fit = (SMEM_MAX - SWEEP_STATIC_SMEM) // per
     smem = 0
     if fit >= 1:
@@ -745,7 +758,8 @@ def pack_bits(rows: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: bool, init=None,
-            tie_seed: Optional[int] = None, draw_base: int = 0, explain: bool = False) -> FastOutputs:
+            tie_seed: Optional[int] = None, draw_base: int = 0, explain: bool = False,
+            count: bool = False) -> FastOutputs:
     """One launch over S scenarios (``valid`` and ``forced`` [S, P],
     ``node_valid`` [S, N], ``spr_weight`` [S, U, Cs], ``init`` None or
     [S, W]): the one-scan kernel (S = 1), counted under
@@ -753,21 +767,25 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
     :func:`sweep_grid`'s grid, counted under :func:`sweep_name`. Every
     output and state buffer has a leading S axis; scenario s writes its own
     slice. `tie_seed` (one scan only) samples the ties, with the draws'
-    pod counter starting at `draw_base`; `explain` (one scan only) counts
-    every step."""
+    pod counter starting at `draw_base`; `explain` counts every step;
+    `count` (grid only) counts the steps that find no node."""
     global LAUNCHES
     _check(fi, tmpl, valid, forced, node_valid, spr_weight, init)
     sample = tie_seed is not None
-    if sweep and (sample or explain):
-        raise ValueError("fast_scan_sweep: the scenario grid neither samples ties nor counts in explain mode")
-    name = variant_name(fi, sample, explain)
-    row = sweep_name(fi) if sweep else name
+    if sweep and sample:
+        raise ValueError("fast_scan_sweep: the scenario grid does not sample ties")
+    if count and (not sweep or explain):
+        raise ValueError("fast_scan: `count` is a grid's (the one scan always counts the steps that find no node; "
+                         "explain mode counts every step)")
+    counting = not sweep or count or explain
+    name = variant_name(fi, sample, explain, count)
+    row = sweep_name(fi, count, explain) if sweep else name
     build([name])
     lib = _LIBS[name]
     d = _dims(fi)
     N, R, A, K, Gd = d.N, d.R, d.A, d.K, d.Gd
     S, P, Z = valid.shape[0], tmpl.shape[0], fi.n_zones
-    v = variant(fi, sample, explain)
+    v = variant(fi, sample, explain, count)
     dev = fi.alloc_T.device
     f32 = torch.float32
     if not sweep and S != 1:
@@ -780,13 +798,14 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
     part = unpack_state(fi, arena)
     chosen = torch.empty((S, P), dtype=torch.int32, device=dev)
     gpu_take = torch.zeros((S, P, Gd), dtype=f32, device=dev)  # the kernel writes bound pods' rows only
-    # the one scan writes the count rows of the pods that find no node (in
-    # explain mode of every pod not forced); the grid does not count, so its
-    # count fields are empty
-    fail_counts = torch.zeros((S, P, 0 if sweep else N_FAIL), dtype=torch.int32, device=dev)
-    insufficient = torch.zeros((S, P, 0 if sweep else R), dtype=torch.int32, device=dev)
+    # the kernel writes the count rows of the pods that find no node (in
+    # explain mode of every pod not forced); a grid that does not count
+    # leaves its count fields empty
+    fail_counts = torch.zeros((S, P, N_FAIL if counting else 0), dtype=torch.int32, device=dev)
+    insufficient = torch.zeros((S, P, R if counting else 0), dtype=torch.int32, device=dev)
     count_clock = None if sweep else torch.zeros((2,), dtype=torch.int64, device=dev)
-    grid = sweep_grid(S, N, torch.cuda.get_device_properties(dev).multi_processor_count) if sweep else None
+    grid = (sweep_grid(S, N, torch.cuda.get_device_properties(dev).multi_processor_count, counting=counting)
+            if sweep else None)
     shape = None if sweep else scan_shape(fi)
     nv_bits = feas_bits = rep = None
     if grid is not None:
@@ -815,7 +834,7 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
         *(ptr(part[n]) for n in ("gpu_free", "port_used", "anti_node", "anti_zone", "prefw_node", "prefw_zone",
                                  "sel_total", "vg_free", "dev_free")),
         ptr(nv_bits), ptr(feas_bits), ptr(rep),
-        ptr(None if sweep else fail_counts), ptr(None if sweep else insufficient), ptr(count_clock),
+        ptr(fail_counts if counting else None), ptr(insufficient if counting else None), ptr(count_clock),
         ptr(init),
         arena.shape[1],
         S, P, N, R, d.U, A, K, Z, d.Cs, Gd, fi.gc_row, d.Hp, d.Ti, d.Tn, d.Tp, d.G, d.Gp, d.Vg, d.Dv, d.Mv,
@@ -826,7 +845,7 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
         args.Nc, args.resident, args.Wrep = shape.nc, int(shape.resident), shape.small
         for field, o in shape.offsets.items():
             setattr(args, f"o_{field}", o)
-    args.has_cfg, args.has_sample, args.has_explain = int(v.cfg), int(sample), int(explain)
+    args.has_cfg, args.has_sample, args.has_explain, args.has_count = int(v.cfg), int(sample), int(explain), int(count)
     if cfg is not None:
         args.filters, args.fit_ignored = cfg.filters, cfg.fit_ignored
         for field, w in zip(_CFG_WEIGHTS, cfg.weights):
@@ -843,13 +862,14 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
                            "each cannot be scheduled on this card")
     if err != 0:
         raise RuntimeError(f"fast_scan: kernel launch failed (cudaError {err})")
-    LAUNCHES += 1
-    VARIANT_LAUNCHES[row] = VARIANT_LAUNCHES.get(row, 0) + 1
-    if grid is not None:
-        SWEEP_LAUNCHED[row] = {"grid": grid, "ptxas": _PTXAS[name].get("fast_scan_sweep")}
-    else:
-        kernel = "fast_scan" if shape.resident else "fast_scan_global"
-        SCAN_LAUNCHED[row] = {"shape": shape, "ptxas": _PTXAS[name].get(kernel), "count_clock": count_clock}
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
+        VARIANT_LAUNCHES[row] = VARIANT_LAUNCHES.get(row, 0) + 1
+        if grid is not None:
+            SWEEP_LAUNCHED[row] = {"grid": grid, "ptxas": _PTXAS[name].get("fast_scan_sweep")}
+        else:
+            kernel = "fast_scan" if shape.resident else "fast_scan_global"
+            SCAN_LAUNCHED[row] = {"shape": shape, "ptxas": _PTXAS[name].get(kernel), "count_clock": count_clock}
     return FastOutputs(chosen, part["used"], gpu_take, part["gpu_free"], part["port_used"], part["vg_free"],
                        part["dev_free"], fail_counts, insufficient, arena)
 
@@ -895,7 +915,8 @@ def fast_scan(fi: FastInputs, tmpl, valid, forced, init=None, tie_seed: Optional
     raise ValueError(f"fast_scan: no kernel for device {dev}")
 
 
-def fast_scan_sweep(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, init=None) -> FastOutputs:
+def fast_scan_sweep(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, init=None, count: bool = False,
+                    explain: bool = False) -> FastOutputs:
     """S bind scans over one pod stream ``tmpl [P]`` that share every
     template table and differ per scenario in ``valid``/``forced`` (int32
     ``[S, P]``), ``node_valid`` (0/1 float32 ``[S, N]``),
@@ -903,34 +924,45 @@ def fast_scan_sweep(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight,
     scenario's valid nodes) and, where given, the state each starts from
     (``init``, ``[S, W]``). Returns :class:`FastOutputs` with a leading S
     axis; scenario s gives what :func:`fast_scan` gives on its rows in the
-    :data:`STATE_FIELDS`. The grid does not count failures:
-    ``fail_counts`` and ``insufficient`` are ``[S, P, 0]``.
+    :data:`STATE_FIELDS`. With `count` (the ``[count]`` variant) each
+    scenario also counts the failures of its pods that find no node, with
+    `explain` (``[explain]``) of every pod not forced, as :func:`fast_scan`
+    does with the scenario's masks; otherwise ``fail_counts`` and
+    ``insufficient`` are ``[S, P, 0]``.
 
     On a CUDA device this is one launch of the sweep kernel, B scenarios
-    per block (:func:`sweep_grid`), or raises; on the CPU it runs the plain
-    version scenario by scenario. As in :func:`fast_scan`, only the cfg
-    variant takes an initial state."""
+    per block (:func:`sweep_grid`; one in the counting variants), or
+    raises; on the CPU it runs the plain version scenario by scenario. As
+    in :func:`fast_scan`, only the cfg variant takes an initial state."""
     if init is not None and fi.cfg is None:
         raise ValueError("fast_scan_sweep: an initial state runs in the cfg variant")
     dev = fi.alloc_T.device
     if dev.type == "cuda":
-        return _launch(fi, tmpl, valid, forced, node_valid, spr_weight, sweep=True, init=init)
+        return _launch(fi, tmpl, valid, forced, node_valid, spr_weight, sweep=True, init=init, count=count,
+                       explain=explain)
     if dev.type == "cpu":
-        return fast_scan_sweep_reference(fi, tmpl, valid, forced, node_valid, spr_weight, init=init)
+        return fast_scan_sweep_reference(fi, tmpl, valid, forced, node_valid, spr_weight, init=init, count=count,
+                                         explain=explain)
     raise ValueError(f"fast_scan_sweep: no kernel for device {dev}")
 
 
-def fast_scan_sweep_reference(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, init=None) -> FastOutputs:
+def fast_scan_sweep_reference(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, init=None,
+                              count: bool = False, explain: bool = False) -> FastOutputs:
     """Plain version of :func:`fast_scan_sweep` on any device: the plain
     scan once per scenario, with the scenario's node validity, spread
-    weights and initial state in place of the template's; its count fields
-    are empty, as the grid's."""
+    weights and initial state in place of the template's, in explain mode
+    with `explain`; its count fields are empty unless `count` or `explain`
+    asks for them, as the grid's."""
+    if count and explain:
+        raise ValueError("fast_scan_sweep: `count` and `explain` are two variants; explain mode counts every step")
     outs = [
         fast_scan_reference(fi._replace(node_valid=node_valid[s], spr_weight=spr_weight[s]), tmpl, valid[s], forced[s],
-                            init=None if init is None else init[s])
+                            init=None if init is None else init[s], count_all=explain)
         for s in range(valid.shape[0])
     ]
     out = FastOutputs(*(torch.stack(field) for field in zip(*outs)))
+    if count or explain:
+        return out
     return out._replace(fail_counts=out.fail_counts[..., :0], insufficient=out.insufficient[..., :0])
 
 
@@ -1553,7 +1585,7 @@ _PER_SCENARIO = {"node_valid", "spr_weight"}
 
 
 def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None, ties=None,
-                   explain: bool = False) -> dict:
+                   explain: bool = False, count: bool = False) -> dict:
     """Bytes the scan must move (each input read once, each output written
     once) and float ops that this stream's pods need, over the valid node
     lanes only (padding lanes need no work): a scheduled pod does the
@@ -1564,8 +1596,10 @@ def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None,
     the valid nodes and its count row (``N_FAIL + R`` int32 written; its
     inputs are the step's state, already on chip); with `explain` (explain
     mode) every pod that is not forced runs the counting pass and writes
-    its row. ``count`` gives the counting pass's own share: its bytes, ops
-    and steps (0 for a grid, which does not count).
+    its row. A grid counts only with `count` (its ``[count]`` variant: each
+    scenario's pods that found no node) or `explain`, each scenario over its
+    own valid nodes. The result's ``count`` gives the counting passes' own
+    share: their bytes, ops and steps (0 for a grid that does not count).
 
     For a scenario grid, ``valid``/``forced``/``chosen`` are ``[S, P]`` and
     ``node_valid`` ``[S, N]``: each scenario is counted over its own valid
@@ -1634,8 +1668,8 @@ def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None,
     sched = vd & ~fd
     ops = sum(int(per_node[sched[s]].sum()) * n_valid_s[s] + int(per_bind[bound[s]].sum()) for s in range(S))
     counting = {"bytes": 0, "ops": 0, "steps": 0}
-    if S == 1:
-        failed = ~fd[0] if explain else sched[0] & (chosen[0].cpu() < 0)
+    if S == 1 or count or explain:
+        failed = ~fd if explain else sched & (chosen.cpu() < 0)  # [S, P]
         hard = ((fi.spr_active.cpu() == 1) & (fi.spr_hard.cpu() == 1)).sum(1)[tm]
         per_count = _COUNT + (_COUNT_PER_R + 3) * R + 8 * hard
         if v.gpu:
@@ -1649,8 +1683,8 @@ def fast_scan_work(fi: FastInputs, tmpl, valid, forced, chosen, node_valid=None,
         if v.local:
             per_count = per_count + has_lvm * (d.Vg + 1) + vols * (_LOC_DEV * d.Dv + _LOC_VOL)
         steps = int(failed.sum())
-        counting = {"bytes": steps * (N_FAIL + R) * 4, "ops": int(per_count[failed].sum()) * n_valid_s[0],
-                    "steps": steps}
+        counting = {"bytes": steps * (N_FAIL + R) * 4,
+                    "ops": sum(int(per_count[failed[s]].sum()) * n_valid_s[s] for s in range(S)), "steps": steps}
     int_ops = 0
     if ties is not None:
         drawn = ties.cpu()[ties.cpu() > 1].long()

@@ -19,14 +19,22 @@ is no fallback: a failed build or launch answers 500.
 
 The snapshot comes from an apiserver through ``server/snapshot.py``
 (``--kubeconfig``), cached for ``snapshot_ttl_s`` and fingerprinted, or is
-a fixed ``base_cluster``. Requests are single-flight per endpoint, the
-reference's TryLock 503 (``server.go:167,:234``); headroom probes and
-campaigns are serialized by locks of their own. A headroom probe is one
-grid launch of the kernel for its ladder and one per bisection step; a
-campaign one launch of the one scan per scheduling pass. Not ported yet,
-and refused rather than approximated: the admission queue and request
-batching (ROADMAP Queue 1 item 8); the live twin, the journal, the serving
-fleet, the memory observatory, the time series and the profiler (item 10)
+a fixed ``base_cluster``. Requests go through the admission queue
+(``server/admission.py``, ``OPENSIM_ADMISSION=on``, the default): a
+bounded queue with a typed 503 and ``Retry-After`` past its bound, two
+priority lanes, a coalescing window that folds concurrent batchable
+deploy/scale requests into one request batch (``engine/reqbatch.py``: one
+launch of the kernel's scenario grid, lane s request s, counting each
+lane's failures: ``[count]``, ``[explain]`` with an explain rider), a
+lone request and the unbatchable ones (newnodes) solo on a worker pool
+(``server/pool.py``). ``admission=False`` (``OPENSIM_ADMISSION=off``)
+serves single-flight per endpoint, the reference's TryLock 503
+(``server.go:167,:234``). Headroom probes and campaigns are serialized by
+locks of their own. A headroom probe is one grid launch of the kernel for
+its ladder and one per bisection step; a campaign one launch of the one
+scan per scheduling pass. Not ported yet, and refused rather than
+approximated: the live twin, the journal, the serving fleet, the memory
+observatory, the time series and the profiler (ROADMAP Queue 1 item 10)
 — their routes answer 501 naming the item.
 """
 
@@ -58,6 +66,8 @@ from ..resilience.deadline import Deadline, DeadlineExceeded, check_deadline, de
 from ..resilience.retry import retry_call
 from ..utils import envknobs
 from ..utils.trace import PREP_STATS
+from . import admission as admission_mod
+from .pool import WorkerPool
 from .snapshot import SnapshotFetchError, SnapshotUnavailable, cluster_from_kubeconfig, snapshot_retry_policy
 
 log = logging.getLogger("opensim_tpu_torch.server")
@@ -92,6 +102,12 @@ def last_request_id() -> str:
     """The request id of the current thread's request (the client's
     ``X-Simon-Request-Id`` honored, generated otherwise)."""
     return getattr(_REQUEST_STATE, "request_id", "")
+
+
+def response_extra_headers() -> dict:
+    """Headers the current thread's request adds to its response (the
+    shed 503's ``Retry-After``)."""
+    return getattr(_REQUEST_STATE, "extra_headers", {}) or {}
 
 
 def _not_ported(path: str) -> Optional[int]:
@@ -131,7 +147,7 @@ class _Metrics:
         with self.lock:
             setattr(self, counter, getattr(self, counter) + n)
 
-    def render(self, prep_cache: Optional[prepcache.PrepareCache], capacity=None) -> str:
+    def render(self, prep_cache: Optional[prepcache.PrepareCache] = None, capacity=None, admission=None) -> str:
         esc, hdr = escape_label_value, family_header
         with self.lock:
             lines = [
@@ -161,6 +177,10 @@ class _Metrics:
                 f"simon_snapshot_stale_served_total {self.snapshot_stale_served}",
                 *hdr("simon_stale_prep_retries_total"), f"simon_stale_prep_retries_total {self.stale_prep_retries}",
             ]
+        # the admission queue: depth, batch sizes, sheds by reason and
+        # lane, time in queue, the pipeline's stage times
+        if admission is not None:
+            lines += admission.metrics_lines()
         fired = sorted(faults.fault_stats().items())
         if fired:
             lines += hdr("simon_faults_injected_total")
@@ -268,21 +288,43 @@ def _placements_payload(rid: str, result: SimulateResult) -> dict:
     }
 
 
-def _admission_requested(admission) -> bool:
-    if admission is None:
-        return envknobs.raw("OPENSIM_ADMISSION", "off").strip().lower() in ("1", "on", "true", "yes")
-    return bool(admission)
+class _BatchUnroutable(Exception):
+    """The drained batch cannot run as one shared-prep request batch (a
+    snapshot with no schedulable pods to derive from, a delta re-encode
+    declined): the group degrades to solo runs, it does not fail."""
+
+
+class _BatchState:
+    """A batch handed between the pipeline's stages (prep → dispatch →
+    decode). The dispatch stage touches only ``derived``/``items``, whose
+    arrays nothing changes after the prep stage releases the base entry's
+    lock."""
+
+    __slots__ = ("tickets", "base", "derived", "items", "stale", "prep_s", "dispatch", "dispatch_s")
+
+    def __init__(self, tickets, base, derived, items, stale, prep_s):
+        self.tickets = tickets
+        self.base = base
+        self.derived = derived
+        self.items = items
+        self.stale = stale
+        self.prep_s = prep_s
+        self.dispatch = None
+        self.dispatch_s = 0.0
 
 
 class SimonServer:
     """The serving state: the snapshot (polled from `kubeconfig` and cached
     for `snapshot_ttl_s`, or the fixed `base_cluster`), the encode cache
     (`prep_cache`: None builds one unless ``OPENSIM_PREP_CACHE=0``, False
-    disables it and every request prepares afresh), the capacity
-    observatory (`capacity`: None builds the default engine, False disables
-    it), the device the simulations run on (the card unless `device` names
-    another; without a card this raises here, before any request), one
-    single-flight lock per endpoint, and the headroom and campaign locks."""
+    disables it and every request prepares afresh), the admission queue
+    (`admission`: None follows ``OPENSIM_ADMISSION``, on by default; False
+    serves single-flight with one lock per endpoint; an
+    ``AdmissionController`` is used as it is), the capacity observatory
+    (`capacity`: None builds the default engine, False disables it), the
+    device the simulations run on (the card unless `device` names another;
+    without a card this raises here, before any request), and the headroom
+    and campaign locks. :meth:`close` stops the admission queue."""
 
     def __init__(
         self,
@@ -295,11 +337,6 @@ class SimonServer:
         device: DeviceLike = None,
         capacity=None,
     ):
-        if _admission_requested(admission):
-            raise NotImplementedError(
-                "the admission queue and request batching (admission=True, OPENSIM_ADMISSION=on) are ROADMAP "
-                "Queue 1 item 8, not yet ported; the port serves single-flight"
-            )
         self.device = resolve_device(device)
         self.kubeconfig = kubeconfig
         self.master = master
@@ -324,8 +361,20 @@ class SimonServer:
             prep_cache = prepcache.PrepareCache()
         self.prep_cache = prep_cache if prep_cache is not False else None
         self.metrics = _Metrics()
-        self._deploy_lock = threading.Lock()  # single-flight: spans the whole simulation
+        self._deploy_lock = threading.Lock()  # single-flight (admission off): spans the whole simulation
         self._scale_lock = threading.Lock()
+        if admission is None:
+            admission = admission_mod.admission_enabled()
+        if admission is True:
+            admission = admission_mod.AdmissionController(
+                solo_fn=self._admitted_solo, batch_fn=self._admitted_batch,
+                # the staged executors: with OPENSIM_PIPELINE=on batch k+1's
+                # host prep overlaps batch k's launch; batch_fn stays the
+                # serial path
+                prep_fn=self._batch_prep, dispatch_fn=self._batch_dispatch, decode_fn=self._batch_decode,
+                pool=WorkerPool(device=self.device),
+            )
+        self.admission = admission or None
         if capacity is None:
             capacity = CapacityEngine()
         self.capacity = capacity or None
@@ -340,7 +389,14 @@ class SimonServer:
 
     def metrics_text(self) -> str:
         """The ``/metrics`` body."""
-        return self.metrics.render(self.prep_cache, capacity=self.capacity)
+        return self.metrics.render(self.prep_cache, capacity=self.capacity, admission=self.admission)
+
+    def close(self) -> None:
+        """Stop the admission queue: the batch and solos in flight
+        complete, queued tickets shed a typed 503 ``shutting_down``.
+        Idempotent."""
+        if self.admission is not None:
+            self.admission.stop()
 
     # -- snapshot -------------------------------------------------------------
 
@@ -436,10 +492,11 @@ class SimonServer:
     def kernel_variants(self) -> List[str]:
         """The kernel variants this server's requests launch on its current
         snapshot (:func:`snapshot_variants`) and the base variant, each
-        also in explain mode. A request whose app brings other features
-        (GPU shares, ports, volumes, inter-pod terms) builds its variant
-        when it first needs it."""
-        names = {"fast_scan", "fast_scan[explain]"}
+        also in explain mode and as the request batch's counting grid. A
+        request whose app brings other features (GPU shares, ports,
+        volumes, inter-pod terms) builds its variant when it first needs
+        it."""
+        names = {"fast_scan", "fast_scan[explain]", "fast_scan[count]"}
         if self.base_cluster is not None or self.kubeconfig:
             cluster = self._snapshot_for_cache()[0] if self.prep_cache is not None else self.current_cluster()
             names |= snapshot_variants(cluster)
@@ -658,6 +715,251 @@ class SimonServer:
             finally:
                 entry.restore()
 
+    # -- the admission queue's executors ---------------------------------------
+    #
+    # They run on the dispatcher's, the pipeline's and the worker pool's
+    # threads, never on the HTTP handler's: they talk to it through the
+    # ticket alone (result or error, and the stale flag observed on the
+    # executing thread, since _REQUEST_STATE is thread-local).
+
+    def _admitted_solo(self, ticket) -> None:
+        """A request alone: the `_simulate_request` path (the encode
+        cache's rungs, one launch of the one scan, one stale retry), with
+        the request's deadline and trace installed on this thread."""
+        _mark_request_snapshot(False)
+        _REQUEST_STATE.request_id = ticket.request_id
+        try:
+            with deadline_scope(ticket.deadline), tracing.trace_scope(ticket.trace):
+                result = self._simulate_request(ticket.kind, ticket.payload, explain=ticket.explain)
+            ticket.resolve(result=result, stale=request_served_stale())
+        except BaseException as e:
+            # carried to the handler thread, which answers it on its typed
+            # ladder (504/503/500) and logs it there
+            log.debug("solo execution failed: %s: %s", type(e).__name__, e)
+            ticket.resolve(error=e, stale=request_served_stale())
+
+    def _admitted_batch(self, tickets) -> None:
+        """The serial batch path: one retry after a stale-entry eviction,
+        as the solo path, and solo runs when the stream cannot batch."""
+        try:
+            try:
+                self._run_batch_once(tickets)
+            except prepcache.StaleFingerprintError as e:
+                self.metrics.bump("stale_prep_retries")
+                log.warning("stale prepare-cache entry in batch (%s); retrying once after eviction", e)
+                self._run_batch_once(tickets)
+        except _BatchUnroutable as e:
+            log.info("batch of %d unroutable (%s); running solo", len(tickets), e)
+            for t in tickets:
+                self._admitted_solo(t)
+        except BaseException as e:
+            # one failure fails the group with the typed error a solo run
+            # would give, never a partial result
+            log.warning("batch of %d failed (%s: %s); failing the group", len(tickets), type(e).__name__, e)
+            for t in tickets:
+                if not t.done.is_set():
+                    t.resolve(error=e)
+
+    def _run_batch_once(self, tickets) -> None:
+        """The three stage executors in a row (prep → dispatch → decode),
+        so the serial and the pipelined paths share one implementation."""
+        state = self._batch_prep_once(tickets)
+        if state is None:
+            return  # every rider resolved already (payloads that failed to decode)
+        self._batch_decode(self._batch_dispatch(state))
+
+    def _batch_prep_once(self, tickets) -> Optional[_BatchState]:
+        """Stage 1, host prep under the base entry's lock: the snapshot,
+        each rider's payload, one shared derive with every rider's app
+        slice, each rider's drops. The derived prep it hands on is not
+        changed after the lock is released."""
+        import numpy as np
+
+        from ..engine import reqbatch
+
+        _mark_request_snapshot(False)
+        t0 = time.monotonic()
+        cluster0, fp = self._snapshot_for_cache()
+        stale = request_served_stale()
+        apps: List[AppResource] = []
+        scaled_sets: List[set] = []
+        kept = []
+        for t in tickets:
+            # one malformed payload fails its own request (typed 500), never
+            # the batch
+            try:
+                app = _decode_app(t.payload)
+            except Exception as e:
+                log.warning("batch rider payload failed to decode (%s: %s)", type(e).__name__, e)
+                t.resolve(error=e, stale=stale)
+                continue
+            kept.append(t)
+            apps.append(AppResource(t.kind, app))
+            scaled_sets.append({(w.kind, w.metadata.namespace, w.metadata.name)
+                                for w in app.deployments + app.daemon_sets + app.stateful_sets}
+                               if t.kind == "scale" else set())
+        tickets = kept
+        if not tickets:
+            return None
+        base_key = f"{fp}|base"
+        base = self.prep_cache.get(base_key)
+        if base is None:
+            watch = prepcache.watch_snapshot(cluster0, [])  # before the build
+            base = self.prep_cache.put(
+                base_key, prepcache.CacheEntry(base_key, prepare(cluster0, [], device=self.device), watch=watch))
+        self.prep_cache.check_fresh(base)
+        with base.lock:
+            base.restore()
+            if base.prep is None:
+                # the solo path's "empty" rung prepares each request afresh
+                raise _BatchUnroutable("the snapshot has no schedulable pods to derive from")
+            got = prepcache.derive_with_app_slices(base.prep, cluster0, apps, base_entry=base)
+            if got is None:
+                raise _BatchUnroutable("delta re-encode declined the stream")
+            derived, slices = got
+            items = []
+            for s, t in enumerate(tickets):
+                drop = prepcache.drop_mask_for_scaled(derived, _owned_by, scaled_sets[s]) if scaled_sets[s] else None
+                items.append(reqbatch.BatchItem(
+                    cluster=cluster0, apps=[apps[s]], lo=slices[s][0], hi=slices[s][1],
+                    drops=set(np.nonzero(drop)[0].tolist()) if drop is not None else set(),
+                    explain=t.explain, deadline=t.deadline,
+                ))
+        return _BatchState(tickets, base, derived, items, stale, time.monotonic() - t0)
+
+    def _batch_prep(self, tickets) -> Optional[_BatchState]:
+        """The pipelined controller's ``prep_fn``: `_batch_prep_once` with
+        one retry after a stale-entry eviction, and None for a batch that
+        cannot ride the shared base (the controller then runs its riders
+        solo)."""
+        try:
+            try:
+                return self._batch_prep_once(tickets)
+            except prepcache.StaleFingerprintError as e:
+                self.metrics.bump("stale_prep_retries")
+                log.warning("stale prepare-cache entry in batch (%s); retrying once after eviction", e)
+                return self._batch_prep_once(tickets)
+        except _BatchUnroutable as e:
+            log.info("batch of %d unroutable (%s); degrading to solo", len(tickets), e)
+            return None
+
+    def _batch_dispatch(self, state: _BatchState) -> _BatchState:
+        """Stage 2, the launch, without the base entry's lock: it touches
+        only the derived prep and device buffers, so the next batch's host
+        prep overlaps it."""
+        from ..engine import reqbatch
+
+        t0 = time.monotonic()
+        state.dispatch = reqbatch.dispatch_request_batch(state.derived, state.items)
+        state.dispatch_s = time.monotonic() - t0
+        return state
+
+    def _batch_decode(self, state: _BatchState) -> None:
+        """Stage 3, each rider's result under the base entry's lock (the
+        decode writes the shared pod objects' bind state, restored for the
+        next holder)."""
+        from ..engine import reqbatch
+
+        tickets, base, stale = state.tickets, state.base, state.stale
+        t1 = time.monotonic()
+        with base.lock:
+            base.restore()
+            try:
+                results = reqbatch.decode_request_batch(state.derived, state.items, state.dispatch)
+            finally:
+                base.restore()
+        run_s = state.dispatch_s + (time.monotonic() - t1)
+        for t, res in zip(tickets, results):
+            if isinstance(res, BaseException):
+                # a rider shed before the launch: answered on the typed
+                # ladder (504 phase=schedule)
+                t.resolve(error=res, stale=stale)
+                continue
+            tr = t.trace
+            if tr is not None:
+                # the shared batch work, on every rider's trace, so the
+                # per-phase histograms see batched traffic too
+                tr.root.child_from_seconds("prepare", state.prep_s, batched=True, batch=len(tickets))
+                tr.root.child_from_seconds("schedule", run_s, batched=True, batch=len(tickets))
+            t.resolve(result=res, stale=stale, batch_size=len(tickets))
+
+    def _handle_admitted(self, endpoint: str, kind: str, payload: dict, deadline: Optional[Deadline] = None,
+                         request_id: Optional[str] = None, explain: bool = False) -> tuple:
+        """The admission path's endpoint shell: the typed failure ladder of
+        :meth:`_handle` plus the queue's two sheds:
+
+        - 503 + reason (``queue_full``, ``shutting_down``) + ``Retry-After``:
+          the queue is at its bound, or the server is stopping;
+        - 504 + phase ``queue``: the deadline ran out while queued (phase
+          ``schedule``: before the batch's launch).
+
+        Every outcome records its real elapsed time in the request
+        histogram."""
+        import math
+
+        rid = tracing.sanitize_request_id(request_id) or tracing.new_request_id()
+        _REQUEST_STATE.request_id = rid
+        _REQUEST_STATE.extra_headers = {}
+        _mark_request_snapshot(False)
+        tr = tracing.start_trace(endpoint, request_id=rid)
+        t0 = time.monotonic()
+        status = "error"
+        code, body = 500, {"error": "unhandled"}
+        result: Optional[SimulateResult] = None
+        ticket = None
+        try:
+            has_new_nodes = bool(payload.get("newnodes") or payload.get("NewNodes"))
+            ticket = admission_mod.Ticket(
+                kind=kind, payload=payload, explain=explain, deadline=deadline, trace=tr, request_id=rid,
+                # with the cache off every request prepares afresh: solo on
+                # the pool, never batched
+                has_new_nodes=has_new_nodes or self.prep_cache is None,
+            )
+            self.admission.submit(ticket)
+            self.admission.wait(ticket)
+            result = ticket.result
+            _mark_request_snapshot(ticket.stale)
+            status = "ok"
+            if tr is not None:
+                tr.root.set(engine=result.engine)
+                if ticket.batch_size:
+                    tr.root.set(batch_size=ticket.batch_size)
+            code, body = 200, _response(result, explain=explain)
+            if explain and tr is not None and result.explanations is not None:
+                tr.placements = _placements_payload(rid, result)
+        except admission_mod.QueueFull as e:
+            status = "shed"
+            log.warning("%s shed: %s", endpoint, e)
+            _REQUEST_STATE.extra_headers = {"Retry-After": str(max(1, int(math.ceil(e.retry_after_s))))}
+            # overload (queue_full: retry here later) or shutdown
+            # (shutting_down: retry against another replica)
+            code, body = 503, {"error": str(e), "reason": e.reason, "retryable": True}
+        except DeadlineExceeded as e:
+            status = "deadline-exceeded"
+            self.metrics.bump("request_timeouts")
+            log.warning("%s timed out: %s", endpoint, e)
+            code, body = 504, {"error": str(e), "phase": e.phase}
+        except SnapshotUnavailable as e:
+            log.warning("%s snapshot unavailable: %s", endpoint, e)
+            code, body = 503, {"error": str(e), "retryable": True}
+        except Exception as e:  # a failed build or launch too
+            log.warning("%s failed: %s: %s", endpoint, type(e).__name__, e)
+            code, body = 500, {"error": str(e), "type": type(e).__name__}
+        finally:
+            seconds = time.monotonic() - t0
+            with RECORDER.lock:
+                if status == "ok" and result is not None:
+                    self.metrics.record(endpoint, result)
+                RECORDER.observe_request(endpoint, seconds, status=status)
+            if tr is not None:
+                if ticket is not None and ticket.queue_s:
+                    # the real time in queue, on the span tree too
+                    tr.root.child_from_seconds("queue", ticket.queue_s)
+                tr.finish(status=status, http_status=code)
+                FLIGHT_RECORDER.record(tr)
+                RECORDER.observe_trace(tr)
+        return code, body
+
     # -- endpoints ------------------------------------------------------------
 
     def _handle(self, endpoint: str, kind: str, lock: threading.Lock, payload: dict,
@@ -677,7 +979,13 @@ class SimonServer:
         Every request gets an id (the client's ``X-Simon-Request-Id``
         honored, generated otherwise) and, when tracing is enabled, a span
         tree recorded into the flight recorder and folded into the
-        ``/metrics`` latency histograms."""
+        ``/metrics`` latency histograms.
+
+        With the admission queue on (the default) requests go through
+        :meth:`_handle_admitted` instead; this single-flight shell is the
+        ``admission=False`` path."""
+        if self.admission is not None:
+            return self._handle_admitted(endpoint, kind, payload, deadline, request_id, explain=explain)
         t0 = time.monotonic()
         rid = tracing.sanitize_request_id(request_id) or tracing.new_request_id()
         _REQUEST_STATE.request_id = rid
@@ -774,8 +1082,9 @@ def _template_pods(pods: List) -> List:
 
 
 def snapshot_variants(cluster: ResourceTypes) -> set:
-    """The kernel variant of a stream of `cluster`'s pods, and its explain
-    variant (an empty set with no pods to place): read from a host-only
+    """The kernel variant of a stream of `cluster`'s pods, its explain
+    variant and its counting grid (an empty set with no pods to place):
+    read from a host-only
     prepare of one pod per owner (:func:`_template_pods`), not of the
     whole snapshot, whose encode the server's first request does anyway."""
     from ..engine import fastpath
@@ -787,7 +1096,7 @@ def snapshot_variants(cluster: ResourceTypes) -> set:
     if prep is None:
         return set()
     fi, _ = fastpath.build_inputs(prep)
-    return {fs.variant_name(fi), fs.variant_name(fi, explain=True)}
+    return {fs.variant_name(fi), fs.variant_name(fi, explain=True), fs.variant_name(fi, count=True)}
 
 
 def _with_new_nodes(cluster: ResourceTypes, nodes: List[Node]) -> ResourceTypes:
@@ -825,6 +1134,7 @@ def make_handler(server: SimonServer):
             # every request — GETs and 4xx paths included — gets an id here,
             # so an access-log line always joins against the flight recorder
             self._t0 = time.monotonic()
+            _REQUEST_STATE.extra_headers = {}
             _REQUEST_STATE.request_id = (tracing.sanitize_request_id(self.headers.get("X-Simon-Request-Id"))
                                          or tracing.new_request_id())
 
@@ -944,8 +1254,12 @@ def make_handler(server: SimonServer):
                     self._send(404, {"error": "not found"})
                 return
             # a result computed from a stale snapshot says so (per request,
-            # thread-local: a concurrent refresh must not mis-tag it)
-            self._send(code, body, extra_headers={"X-Simon-Snapshot": "stale"} if request_served_stale() else None)
+            # thread-local: a concurrent refresh must not mis-tag it); a
+            # shed says when to retry
+            extra = dict(response_extra_headers())
+            if request_served_stale():
+                extra["X-Simon-Snapshot"] = "stale"
+            self._send(code, body, extra_headers=extra or None)
 
     return Handler
 
@@ -1023,12 +1337,20 @@ def serve(kubeconfig: str = "", master: str = "", port: int = 8080, watch: str =
             signal.signal(sig, _graceful)
         except ValueError:
             break  # not the main thread (embedded use): no handlers
-    print(f"simon server listening on :{port} [single-flight] on {server.device}", flush=True)
+    if server.admission is None:
+        mode = "single-flight"
+    else:
+        ctrl = server.admission
+        mode = (f"admission queue: bound {ctrl.bound}, window {ctrl.window_s * 1000:g} ms, batches of up to "
+                f"{ctrl.max_batch}, pipeline {'on' if ctrl.pipelined else 'off'}, {ctrl._pool.workers} "
+                f"{ctrl._pool.mode} workers")
+    print(f"simon server listening on :{port} [{mode}] on {server.device}", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         httpd.server_close()
+        server.close()
         print("simon server: shutdown complete", flush=True)
     return 0

@@ -1,7 +1,8 @@
 """Typed registry of the ``OPENSIM_*`` environment knobs the port reads —
 the port's copy of ``opensim_tpu/utils/envknobs.py``, holding the knobs of
-the modules it has (the server, the snapshot, the resilience layer, the
-request tracer, the capacity observatory and the campaign planner).
+the modules it has (the server and its admission queue, the snapshot, the
+resilience layer, the request tracer, the capacity observatory and the
+campaign planner).
 
 Every read goes through :func:`raw`, which fails loudly on an
 unregistered name, so a knob cannot ship undocumented and a typo'd name
@@ -79,6 +80,16 @@ def _int(lo: int) -> Callable[[str], int]:
     return parse
 
 
+def _float(lo: float) -> Callable[[str], float]:
+    def parse(text: str) -> float:
+        v = float(text)
+        if v < lo:
+            raise ValueError(f"must be >= {lo}, got {v}")
+        return v
+
+    return parse
+
+
 def _enum(*choices: str) -> Callable[[str], str]:
     def parse(text: str) -> str:
         v = text.strip().lower()
@@ -99,12 +110,38 @@ for _knob in (
          "Snapshot fetch attempts before degrading to a stale snapshot / typed 503."),
     Knob("OPENSIM_SNAPSHOT_BACKOFF_S", "float", "0.1", "Full-jitter backoff base between snapshot fetch retries."),
     # serving (server/rest.py)
-    Knob("OPENSIM_ADMISSION", "enum", "off",
-         "`on` asks for the admission queue and request batching (ROADMAP Queue 1 item 8, not yet ported: "
-         "the server refuses to start); `off` serves single-flight."),
+    Knob("OPENSIM_ADMISSION", "enum", "on",
+         "`on` routes requests through the admission queue + batcher; `off` restores the single-flight TryLock "
+         "path.", _enum("on", "off")),
     Knob("OPENSIM_PREP_CACHE", "flag", "1", "`0` disables the encode cache (per-request full prepare)."),
     Knob("OPENSIM_ACCESS_LOG", "flag", "",
          "`1` emits one JSON access-log line per request on the `opensim_tpu_torch.access` logger."),
+    # the admission queue (server/admission.py, server/pool.py, engine/reqbatch.py)
+    Knob("OPENSIM_QUEUE_BOUND", "int", "64", "Admission queue bound; past it requests shed typed 503 + Retry-After.",
+         _int(1)),
+    Knob("OPENSIM_BATCH_WINDOW_MS", "float", "5", "Admission coalescing window in ms, measured from the first waiter.",
+         _float(0.0)),
+    Knob("OPENSIM_BATCH_MAX", "int", "16", "Max requests folded into one batched schedule launch.", _int(1)),
+    Knob("OPENSIM_WORKERS", "int", "",
+         "Worker-pool size for unbatchable requests (default: a small CPU-derived bound)."),
+    Knob("OPENSIM_WORKERS_MODE", "enum", "auto",
+         "Worker pool mode: `auto`/`thread` (default) or `process` (opt-in fork+probe; on the CPU only: a forked "
+         "child cannot use the parent's CUDA context).", _enum("auto", "thread", "process")),
+    Knob("OPENSIM_PIPELINE", "enum", "on",
+         "`on` overlaps batch k+1 host prep with batch k's launch (staged pipeline); `off` restores the serial "
+         "single-batch-in-flight loop.", _enum("on", "off")),
+    Knob("OPENSIM_LANE_INTERACTIVE_PODS", "int", "8",
+         "Requests expanding to at most this many pods ride the interactive lane (explain requests always do).",
+         _int(0)),
+    Knob("OPENSIM_LANE_WEIGHT", "int", "4",
+         "Interactive-lane pickups per bulk pickup when both lanes are non-empty (weighted round-robin ratio).",
+         _int(1)),
+    Knob("OPENSIM_LANE_STARVATION_S", "float", "0.5",
+         "Starvation bound: a bulk request waiting longer than this is picked next regardless of lane weight.",
+         _float(0.0)),
+    Knob("OPENSIM_BATCH_ENGINE", "enum", "auto",
+         "Request-axis batch engine: `auto`, the port's one rung (the grid kernel); the reference's `xla` and "
+         "`native` raise.", _enum("auto")),
     Knob("OPENSIM_WORKERS_FLEET", "int", "",
          "Fleet worker processes for `simon server` (ROADMAP Queue 1 item 10, not yet ported: 2 or more refuse "
          "to start)."),

@@ -409,7 +409,7 @@ def test_plain_sweep_is_the_plain_scan_per_scenario():
     tmpl, valid, forced, node_valid, spr_weight = _drain_grid(port, [0, 3, 5])
     assert not forced.all(dim=0).equal(forced.any(dim=0))  # draining n000 or n003 releases a bound pod
     out = fs.fast_scan_sweep(fi, tmpl, valid, forced, node_valid, spr_weight)
-    assert out.fail_counts.shape == out.insufficient.shape == (3, tmpl.shape[0], 0)  # the grid does not count
+    assert out.fail_counts.shape == out.insufficient.shape == (3, tmpl.shape[0], 0)  # the default grid does not count
     for s in range(3):
         one = fs.fast_scan_reference(fi._replace(node_valid=node_valid[s], spr_weight=spr_weight[s]),
                                      tmpl, valid[s], forced[s])

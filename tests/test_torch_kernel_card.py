@@ -96,7 +96,7 @@ def test_sweep_of_one_scenario_matches_one_scan_on_card(name, cuda_device):
     tmpl, valid, forced = fastpath.pod_stream(prep)
     got = fs.fast_scan_sweep(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None])
     want = fs.fast_scan(fi, tmpl, valid, forced)
-    for field in fs.STATE_FIELDS:  # the grid does not count failures
+    for field in fs.STATE_FIELDS:  # the default grid does not count failures
         assert torch.equal(getattr(got, field)[0], getattr(want, field)), field
     assert got.fail_counts.shape == (1, tmpl.shape[0], 0)
 
@@ -451,11 +451,70 @@ def test_explain_kernel_with_state_in_global_memory_on_card(name, cuda_device):
 
 
 @pytest.mark.cuda
-def test_the_grid_refuses_explain_mode_on_card(cuda_device):
+def test_the_grid_refuses_sampling_on_card(cuda_device):
+    """The grid has no sampled tie-break, and `count` is a grid's alone
+    (the one scan always counts the steps that find no node)."""
     cluster, app, node_pad = fx.scan_case("ties")
     prep = sim.prepare(cluster, [sim.AppResource("a", app)], node_pad=node_pad, device=cuda_device)
     fi, _ = fastpath.build_inputs(prep)
     tmpl, valid, forced = fastpath.pod_stream(prep)
-    with pytest.raises(ValueError, match="explain mode"):
+    with pytest.raises(ValueError, match="sample"):
         fs._launch(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None], sweep=True,
-                   explain=True)
+                   tie_seed=7)
+    with pytest.raises(ValueError, match="grid"):
+        fs._launch(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None], sweep=False,
+                   count=True)
+
+
+def _counting_grid(name, S, device):
+    """A small case as a request batch's grid of S lanes
+    (``fastpath.batch_inputs`` of ``fixtures.lane_masks``)."""
+    cluster, app, node_pad = fx.scan_case(name)
+    prep = sim.prepare(cluster, [sim.AppResource("a", app)], node_pad=node_pad, device=device)
+    fi, _ = fastpath.build_inputs(prep)
+    return prep, fi, fastpath.batch_inputs(prep, fi, fx.lane_masks(len(prep.tmpl_ids), S))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["count", "explain"])
+@pytest.mark.parametrize("name", [c[0] for c in fx.SCAN_CASES])
+def test_counting_grid_matches_plain_sweep_and_one_scans_on_card(name, mode, cuda_device):
+    """The grid's [count] and [explain] variants (a request batch's: three
+    lanes of distinct pod masks, every node valid) against the plain sweep
+    on all ten outputs, one launch, one scenario a block; and each lane
+    against the one scan with that lane's mask (explain mode: the one
+    scan's [explain])."""
+    kw = {mode: True}
+    prep, fi, grid = _counting_grid(name, 3, cuda_device)
+    before = dict(fs.VARIANT_LAUNCHES)
+    got = fs.fast_scan_sweep(fi, *grid, **kw)
+    torch.cuda.synchronize()
+    row = fs.sweep_name(fi, **kw)
+    assert fs.VARIANT_LAUNCHES[row] == before.get(row, 0) + 1
+    assert fs.SWEEP_LAUNCHED[row]["grid"].b == 1
+    want = fs.fast_scan_sweep_reference(fi, *grid, **kw)
+    for field, g, w in zip(fs.FastOutputs._fields, got, want):
+        assert torch.equal(g, w), field
+    tmpl, valid, forced = grid[:3]
+    for s in range(3):
+        one = fs.fast_scan(fi, tmpl, valid[s].contiguous(), forced[s].contiguous(), explain=mode == "explain")
+        for field in fs.FastOutputs._fields[:-1]:
+            assert torch.equal(getattr(got, field)[s], getattr(one, field)), (s, field)
+        assert torch.equal(got.state[s], one.state), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["count", "explain"])
+@pytest.mark.parametrize("name", ["ties", "spread", "gpu_dyn", "interpod", "local", "fail_mixed"])
+def test_counting_grid_in_waves_on_card(name, mode, cuda_device):
+    """140 lanes, more than the card's SMs, one a block: the second wave's
+    rows equal the plain sweep of their masks too."""
+    kw = {mode: True}
+    prep, fi, grid = _counting_grid(name, 140, cuda_device)
+    got = fs.fast_scan_sweep(fi, *grid, **kw)
+    torch.cuda.synchronize()
+    assert fs.SWEEP_LAUNCHED[fs.sweep_name(fi, **kw)]["grid"].blocks == 140
+    picks = [0, 1, 2, 133, 138, 139]
+    want = fs.fast_scan_sweep_reference(fi, grid[0], *(t[picks] for t in grid[1:]), **kw)
+    for field, g, w in zip(fs.FastOutputs._fields, got, want):
+        assert torch.equal(g[picks], w), field

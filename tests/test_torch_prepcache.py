@@ -228,6 +228,34 @@ def test_derive_with_apps_equals_fresh_prepare_and_jax(with_ds):
     np.testing.assert_array_equal(r_delta.placements, _ref_placements(ref_derived, ref_res))
 
 
+def test_encoding_phases_pause_the_collector_and_restore_it(monkeypatch):
+    """prepare, the delta re-encodes and the decode run with the cyclic
+    collector paused, as the reference's prepare and decode do
+    (opensim_tpu/utils/gcpause.py), and leave it on; an outer pause wins."""
+    import gc
+
+    from opensim_tpu_torch.utils.gcpause import gc_paused
+
+    seen = []
+    for mod, name in ((prepcache, "_expand_app"), (sim, "_prepare_inner"), (sim, "_decode")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _real=real, _name=name, **k: (seen.append((_name, gc.isenabled())),
+                                                                               _real(*a, **k))[1])
+    cluster, apps = _cluster(), _apps()
+    base = sim.prepare(cluster, [], device="cpu")
+    derived = prepcache.derive_with_apps(base, cluster, apps)
+    sim.simulate(cluster, apps, prep=derived)
+    assert {name for name, _on in seen} == {"_expand_app", "_prepare_inner", "_decode"}
+    assert not any(on for _name, on in seen) and gc.isenabled()
+    gc.disable()
+    try:
+        with gc_paused():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
 @pytest.mark.parametrize("with_ds", [False, True])
 def test_extend_with_nodes_from_an_entry_equals_fresh_prepare_and_jax(with_ds):
     cluster, apps = _cluster(n_nodes=6, with_ds=with_ds), _apps()

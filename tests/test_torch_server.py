@@ -81,7 +81,7 @@ def stubs(tmp_path_factory):
 def servers(stubs):
     """(port server, JAX server) over the two stubs, snapshot cached for
     the module."""
-    port = rest.SimonServer(kubeconfig=stubs[0], snapshot_ttl_s=3600.0, device="cpu")
+    port = rest.SimonServer(kubeconfig=stubs[0], snapshot_ttl_s=3600.0, admission=False, device="cpu")
     ref = ref_rest.SimonServer(kubeconfig=stubs[1], snapshot_ttl_s=3600.0, admission=False, capacity=False)
     return port, ref
 
@@ -270,14 +270,6 @@ def test_later_routes_answer_501(servers, method, path, item):
         assert body.get("field") == "steps" if method == "POST" else "roadmap" not in body
         return
     assert code == 501 and body["roadmap"] == f"ROADMAP Queue 1 item {item}"
-
-
-def test_admission_is_refused(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        rest.SimonServer(admission=True, device="cpu")
-    monkeypatch.setenv("OPENSIM_ADMISSION", "on")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        rest.SimonServer(device="cpu")
 
 
 @pytest.mark.parametrize("kwargs,item", [

@@ -31,7 +31,7 @@ def _full_variants(cluster) -> set:
     if prep is None:
         return set()
     fi, _ = fastpath.build_inputs(prep)
-    return {fs.variant_name(fi), fs.variant_name(fi, explain=True)}
+    return {fs.variant_name(fi), fs.variant_name(fi, explain=True), fs.variant_name(fi, count=True)}
 
 
 @pytest.fixture(scope="module")
