@@ -65,7 +65,9 @@ the plain versions' on the CPU. Each small case of phase 3 also runs as a
 masked one scan (a node and a third of the pods masked out) against the
 plain version; those of the base and score-table variants also under a
 scheduler config (one scan and grid), cut in two with the state carried,
-and (the base ones) with the sampled tie-break. Then the scheduler-config
+and (the base ones) with the sampled tie-break; phase 3's plain versions
+run on the CPU, on copies of the launches' inputs, in worker processes
+beside the card's launches, as phase 62's plain sweeps do. Then the scheduler-config
 and sampled paths (phases 31-41): the config plan (the score-table plan
 with a NoSchedule taint no pod tolerates on every tenth node and one
 Deployment asking a resource no node offers, under a one-profile config
@@ -75,7 +77,8 @@ default config's), the two-profile plan (the capacity plan, its second
 half under the ``batch`` profile: two launches of ``fast_scan[cfg]``, the
 second from the first's state) and the sampled plan (the capacity plan
 with tie seed 7: ``fast_scan[sample]``), each against its plain version
-over 5,000 pods (of each segment), the first two against grid launches at
+over 2,000 pods (of each segment; the sampled plan over 5,000), the first
+two against grid launches at
 S = 1 over the whole stream, the sampled placements each among its step's
 best scores and a quarter at least off the lowest index's; and ``simon
 apply -d`` on the apply plan (the cfg variants of both kernels), its
@@ -88,7 +91,7 @@ and the all-GPU-share plan
 (``fast_scan[gpu,gc,explain]``), each with placements, GPU takes and final
 state equal to the default variant's over the whole stream and all ten
 outputs equal to the plain version counting every step over its first
-2,000 pods; the over-subscribed plan (``fast_scan[explain]``), its failing
+1,000 pods; the over-subscribed plan (``fast_scan[explain]``), its failing
 steps' counts the default variant's over the whole stream; the capacity
 plan's simulate(explain=True) timed by phase; each simulate(explain=True)
 through exactly one launch; ``explain_pod`` on the card for an
@@ -97,11 +100,11 @@ torch re-score (``kernels.pod_step`` at full width) takes the kernel's
 node; ``simon apply --explain`` on the apply plan, its report above the
 placement audit phase 28's; and the example configs' ``--explain``
 reports, card against CPU. The affinity-heavy plan's default variant is
-held against the plain version over its first 5,000 pods (phase 10;
+held against the plain version over its first 2,000 pods (phase 10;
 against the grid over the whole stream), leaving the run time for these
 phases; past that prefix, it and the explain-mode plans of phases 42-45
 are held against the torch step (``kernels.pod_step``) re-run on the card
-from the replayed state before each of 200 steps spread over the whole
+from the replayed state before each of 100 steps spread over the whole
 stream: the chosen node and, in explain mode, the step's counts.
 Then ``simon server`` (phases 50-55): the capacity fleet served by the
 port's stub apiserver, whose snapshot holds the capacity plan's first ten
@@ -115,8 +118,9 @@ scale-apps of bench-0 to 5,000 replicas (a drop mask over its 2,500 bound
 pods, one launch), the deploy with 100 new nodes (node extension, one
 launch at 5,100 nodes), the deploy with explain=1 (one ``[explain]``
 launch, its placements served), a spent deadline (504, no launch) and
-/metrics; then three answers against the uncached server's full prepares
-on the card, and the kernel rows of three requests, each held against the
+/metrics; then the scale answer and the new-nodes deploy's against the
+uncached server's full prepares on the card, and the kernel rows of three
+requests, each held against the
 plain version over 2,000 of the request's own pods (the plain version
 starting from the kernel's state before them; in explain mode from the
 first step where the kernel counted a rejection, if any) on every output,
@@ -144,9 +148,26 @@ pass one ``fast_scan[cfg]`` launch from its carried state, each step's
 wall-clock, launches and kernel share printed, every launch against the
 plain version over its valid pods (the baseline's first 2,000, and its
 whole stream against a grid launch at S = 1 from the same state); cold mode
-over the baseline and two steps, its fingerprints warm mode's;
+over the baseline, the canary and the rolling drain, its fingerprints warm
+mode's;
 example/campaign.yaml card against CPU; ``POST /api/campaign`` on the
 server plan's server against an in-process ``run_campaign``.
+Then the live twin (phases 65-67): ``simon server --watch on --journal``
+started in this process on the server plan's stub; wave W1 (2,000 pods
+ADDED, 1,000 of the snapshot's DELETED, 20 nodes ADDED) and wave W2 (a
+node MODIFIED) sent through the stub, after each the twin's fingerprint a
+full relist's and R2's body served from the twin (its generation in the
+request's trace; after W1 a delta on the folded base, no full prepare)
+with the uncached server's answer on the relisted cluster, W1's request's
+kernel row against the plain version and the torch step; storm A sent
+while a wave of events lands (every launch the grid's ``[count]``, each
+lane its one scan over the whole stream); the server as a subprocess on
+the card, SIGKILLed after wave W3 and restarted on its journal (checkpoint
+and suffix, no list, no variant rebuilt), its answer the in-process
+twin's, and that the uncached server's on the relisted cluster once the
+storm's wave and W3 have settled (the polling answer); ``simon replay
+--capacity --schedule`` on the journal, its fingerprint the relist's and
+its count a card ``simulate()``'s.
 Every phase raises on failure, and each prints the time it took.
 The last lines are the card's name and power limit, one JSON line with
 a row per kernel variant timed at full width, one for the drain sweep,
@@ -156,14 +177,16 @@ last timed over its checked prefix, whose ties the plain version records
 for its bound), three
 for the apply plan under ``-d``, five for explain mode, three for the
 server plan, one for ``simon defrag``'s grid, two for the headroom probes
-(the ladder and a bisection step) and one for the campaign plan's launches
-(in all and their median), and ``{"ok": true, "device": {...}}``.
+(the ladder and a bisection step), one for the campaign plan's launches
+(in all and their median), two for the storms, one for the live twin's
+request after W1, and ``{"ok": true, "device": {...}}``.
 Without a card it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import logging
 import os
@@ -189,11 +212,11 @@ N_PODS = 50000
 #: scenarios and pods its plain version is checked on, in a grid of one
 #: scenario more, whose last block holds one scenario (1,001 is one more
 #: than a multiple of every B the grid takes at this size): the first two
-#: over a short prefix, and the last two (the last full block's last
-#: scenario and the ragged block's) over a longer one.
+#: and the last two (the last full block's last scenario and the ragged
+#: block's) over a prefix each.
 N_SCENARIOS = 1000
 PLAIN_SCENARIOS, PLAIN_PODS = 2, 2000
-LATE_PODS = 5000
+LATE_PODS = 2000
 #: The over-subscribed plan's pods before the capacity plan's 50,000: 10
 #: strays, 2,000 and 4,000 hog pods; the plain version checks them all.
 OVER_HEAD = 6010
@@ -210,10 +233,13 @@ APPLY_LIMIT_S = 10.0
 #: The example configs, their extended-resource reports and the kernel
 #: variant each runs (phase 30 checks it against the launches).
 #: The scheduler-config and sampled plans: the plain version checks the
-#: first CFG_PLAIN_PODS pods (of each segment of the two-profile plan);
+#: first CFG_PLAIN_PODS pods of the config plan and of each segment of the
+#: two-profile plan (both are also held whole against the grid at S = 1),
+#: and the first SAMPLED_PLAIN_PODS of the sampled plan (no grid samples);
 #: the sampled plan's seed. SMALL_CONFIG is the config phase 3 runs the
 #: small cases of the default and score-table variants under.
-CFG_PLAIN_PODS = 5000
+CFG_PLAIN_PODS = 2000
+SAMPLED_PLAIN_PODS = 5000
 TIE_SEED = 7
 SMALL_CONFIG = dict(w_balanced=0.0, w_least=3.0, w_node_affinity=2.0, w_taint_toleration=5.0, w_spread=1.0,
                     w_prefer_avoid=0.0, w_simon=0.5, f_taints=False, f_spread=False, fit_ignored_cols=(1,))
@@ -222,26 +248,26 @@ CFG_VARIANTS = ("fast_scan[cfg]", "fast_scan[na,tt,avoid,cfg]", "fast_scan[sampl
 #: Explain mode (phases 42-49): the plain version counting every step
 #: checks the first EXPLAIN_PLAIN_PODS pods of each plan; the variants the
 #: plans run (the examples' are their own variants', explained). The
-#: affinity-heavy plan's default variant is held against the plain version
-#: over AFFINITY_PLAIN_PODS pods (and against the grid over the whole
-#: stream), which leaves the run time for these phases.
-EXPLAIN_PLAIN_PODS = 2000
+#: six plans of phases 4-21 are held against the plain version over their
+#: first PLAN_PLAIN_PODS pods (and against the grid over the whole stream),
+#: which leaves the run time for these phases and the live twin's.
+EXPLAIN_PLAIN_PODS = 1000
 EXPLAIN_VARIANTS = ("fast_scan[interpod,explain]", "fast_scan[gpu,gc,explain]", "fast_scan[explain]")
-AFFINITY_PLAIN_PODS = 5000
+PLAN_PLAIN_PODS = 2000
 #: The affinity-heavy plan's default variant (phases 10-12) and the
 #: explain-mode plans (phases 42-45) are also held against the torch step
 #: (``kernels.pod_step``) re-run on the card from the replayed state before
 #: each of REPLAY_STEPS steps spread over the whole stream: the chosen
 #: node, and in explain mode the step's counts.
-REPLAY_STEPS = 200
+REPLAY_STEPS = 100
 #: The server plan (phases 50-53): the snapshot holds the capacity plan's
 #: first fixtures.SERVER_BOUND Deployments bound on the fleet; R5 adds
 #: SERVER_NEW nodes; the snapshot is cached for SERVER_TTL_S (longer than
 #: the phase, so every request reads one fingerprint); each kernel row is
 #: held against the plain version over SERVER_PLAIN_PODS of the request's
-#: own pods (from the kernel's state before them) and the torch step over
-#: SERVER_REPLAY_STEPS steps of the request's pods. The steady
-#: phase (54) runs STEADY_WARM warm simulate_cached() calls.
+#: own pods (from the kernel's state before them; the live twin's row too)
+#: and the torch step over SERVER_REPLAY_STEPS steps of the request's pods. The steady phase (54) runs STEADY_WARM warm
+#: simulate_cached() calls.
 SERVER_NEW = 100
 SERVER_TTL_S = 3600.0
 SERVER_PLAIN_PODS = 2000
@@ -250,10 +276,12 @@ STEADY_WARM = 10
 #: The campaign plan (phases 59-61, fixtures.write_campaign_plan): every
 #: launch is held against the plain version over its valid pods, the
 #: baseline's (all 50,000) over its first CAMPAIGN_PLAIN_PODS; the cold run
-#: covers the baseline and the first COLD_STEPS steps; POST /api/campaign on
-#: the server plan drains SERVER_CAMPAIGN_DRAIN nodes, SERVER_CAMPAIGN_WAVE a wave.
+#: covers the baseline and the first COLD_STEPS steps (the canary deploy and
+#: the rolling drain, a full prepare a scheduling pass: its drain is cut to
+#: two waves); POST /api/campaign on the server plan drains
+#: SERVER_CAMPAIGN_DRAIN nodes, SERVER_CAMPAIGN_WAVE a wave.
 CAMPAIGN_PLAIN_PODS = 2000
-CAMPAIGN_SIZES = dict(canary=1000, drain=20, drain_wave=5, reclaim=50, add=20, scale_up=500, check=32, defrag=64,
+CAMPAIGN_SIZES = dict(canary=1000, drain=10, drain_wave=5, reclaim=50, add=20, scale_up=500, check=32, defrag=64,
                       defrag_max=8, defrag_wave=4)
 COLD_STEPS = 2
 SERVER_CAMPAIGN_DRAIN, SERVER_CAMPAIGN_WAVE = 4, 2
@@ -270,6 +298,19 @@ WAVE_LANES = 140
 STORM_PLAIN_PODS = 2000
 #: Phase 62 runs its plain sweeps in this many CPU processes beside the card's launches.
 PLAIN_WORKERS = 6
+#: The live twin (phases 65-67) on the server plan's stub: wave W1 adds
+#: TWIN_ADD pods (bound round-robin, in the requested workloads' shapes),
+#: deletes TWIN_DEL of the snapshot's and adds TWIN_NEW_NODES nodes; the
+#: storm of phase 66 runs under a wave of TWIN_STORM_WAVE pods ADDED and
+#: as many DELETED, and phase 67's W3 under one of TWIN_W3_WAVE each;
+#: ``simon replay --schedule`` places TWIN_REPLAY_PODS replicas. Every
+#: wait is bounded by TWIN_WAIT_S, a subprocess's start by TWIN_START_S.
+TWIN_ADD, TWIN_DEL, TWIN_NEW_NODES = 2000, 1000, 20
+TWIN_STORM_WAVE = 250
+TWIN_W3_WAVE = 250
+TWIN_REPLAY_PODS = 5000
+TWIN_WAIT_S = 120.0
+TWIN_START_S = 240.0
 EXAMPLES = (("simon-config.yaml", [], "fast_scan[interpod]"),
             ("simon-gpushare-config.yaml", ["gpu"], "fast_scan[gpu]"),
             ("simon-local-config.yaml", ["open-local"], "fast_scan[local]"))
@@ -355,39 +396,63 @@ def _drain_grid(prep, drained):
 
 
 def small_cases(device) -> None:
+    """Phase 3: each small case as one scan, as a masked one scan (a node
+    and a third of the pods out) and as a sweep of three drains, and (the
+    base and score-table variants) under SMALL_CONFIG and sampled
+    (:func:`_config_small_case`), each launch held against the plain
+    version on all ten outputs. The plain versions run on the CPU, on
+    copies of the launches' inputs, in PLAIN_WORKERS processes while the
+    card runs the launches, as phase 62 runs its plain sweeps."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     from opensim_tpu_torch.engine import fastpath
     from opensim_tpu_torch.ops import fast_scan as fs
 
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else t
     masked_failures = 0
-    for name, prep, fi in _small_preps(device):
-        stream = fastpath.pod_stream(prep)
-        got = fs.fast_scan(fi, *stream)
-        want = fs.fast_scan_reference(fi, *stream)
-        _same(got, want, f"case {name}")
-        # the same case on a masked node axis (node 1 out) and stream (every
-        # third pod out), as the planner's masked re-simulation launches it
-        node_valid = prep.ec_np.node_valid.copy()
-        node_valid[min(1, len(node_valid) - 1)] = False
-        pod_valid = np.arange(len(prep.tmpl_ids)) % 3 != 2
-        fi_m = fastpath.build_inputs(prep, node_valid)[0]
-        stream_m = fastpath.pod_stream(prep, pod_valid)
-        got_m = fs.fast_scan(fi_m, *stream_m)
-        _same(got_m, fs.fast_scan_reference(fi_m, *stream_m), f"case {name}, masked")
-        failing_m = int(((got_m.chosen < 0) & (stream_m[1] != 0) & (stream_m[2] == 0)).sum())
-        masked_failures += failing_m
-        grid = _drain_grid(prep, list(range(min(3, len(prep.meta.node_names)))))
-        got_s = fs.fast_scan_sweep(fi, *grid)
-        want_s = fs.fast_scan_sweep_reference(fi, *grid)
-        _same(got_s, want_s, f"case {name}, sweep of {grid[1].shape[0]} drains")
-        extra = _config_small_case(prep, fs.variant_name(fi), name)
-        counted = int(got.fail_counts.any(1).sum())
-        print(f"case {name} ({fs.variant_name(fi)}): N={fi.alloc_T.shape[1]} P={len(prep.tmpl_ids)} "
-              f"placed={int((got.chosen >= 0).sum())} counted failures={counted} gpu slots={int(got.gpu_take.sum())} "
-              f"ports used={int(got.port_used.sum())} devices taken={int((got.dev_free < fi.dev0).sum())} "
-              f"identical; sweep of {grid[1].shape[0]} drains identical "
-              f"(placed {(got_s.chosen >= 0).sum(1).tolist()}); masked one scan identical "
-              f"({int(pod_valid.sum())} pods on {int(node_valid.sum())} nodes, {failing_m} found no node){extra}",
-              flush=True)
+    held, lines = [], []
+    with ProcessPoolExecutor(PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+
+        def hold(sweep: bool, fi, args, got, what: str, **kw) -> None:
+            """Submit the plain version of a launch (`got`) on CPU copies of
+            its inputs; the comparison comes when every case has run."""
+            plain = pool.submit(_plain_on_cpu, sweep, fs.FastInputs(*map(cpu, fi)), [cpu(t) for t in args], kw)
+            held.append((plain, fs.FastOutputs(*map(cpu, got)), what))
+
+        for name, prep, fi in _small_preps(device):
+            stream = fastpath.pod_stream(prep)
+            got = fs.fast_scan(fi, *stream)
+            hold(False, fi, stream, got, f"case {name}")
+            # the same case on a masked node axis (node 1 out) and stream
+            # (every third pod out), as the planner's masked re-simulation
+            # launches it
+            node_valid = prep.ec_np.node_valid.copy()
+            node_valid[min(1, len(node_valid) - 1)] = False
+            pod_valid = np.arange(len(prep.tmpl_ids)) % 3 != 2
+            fi_m = fastpath.build_inputs(prep, node_valid)[0]
+            stream_m = fastpath.pod_stream(prep, pod_valid)
+            got_m = fs.fast_scan(fi_m, *stream_m)
+            hold(False, fi_m, stream_m, got_m, f"case {name}, masked")
+            failing_m = int(((got_m.chosen < 0) & (stream_m[1] != 0) & (stream_m[2] == 0)).sum())
+            masked_failures += failing_m
+            grid = _drain_grid(prep, list(range(min(3, len(prep.meta.node_names)))))
+            got_s = fs.fast_scan_sweep(fi, *grid)
+            hold(True, fi, grid, got_s, f"case {name}, sweep of {grid[1].shape[0]} drains")
+            extra = _config_small_case(prep, fs.variant_name(fi), name, hold)
+            counted = int(got.fail_counts.any(1).sum())
+            lines.append(f"case {name} ({fs.variant_name(fi)}): N={fi.alloc_T.shape[1]} P={len(prep.tmpl_ids)} "
+                         f"placed={int((got.chosen >= 0).sum())} counted failures={counted} "
+                         f"gpu slots={int(got.gpu_take.sum())} ports used={int(got.port_used.sum())} "
+                         f"devices taken={int((got.dev_free < fi.dev0).sum())} identical; sweep of "
+                         f"{grid[1].shape[0]} drains identical (placed {(got_s.chosen >= 0).sum(1).tolist()}); masked "
+                         f"one scan identical ({int(pod_valid.sum())} pods on {int(node_valid.sum())} nodes, "
+                         f"{failing_m} found no node){extra}")
+        for plain, got, what in held:
+            _same(got, plain.result(), what)
+    for line in lines:
+        print(line, flush=True)
+    print(f"{len(held)} launches identical to the plain version on the CPU on all ten outputs", flush=True)
     if masked_failures == 0:
         raise AssertionError("no masked small case had a pod that found no node")
 
@@ -409,12 +474,13 @@ def _sched_config(prep, text: str, name: str):
     return sched, segments
 
 
-def _config_small_case(prep, variant: str, name: str) -> str:
+def _config_small_case(prep, variant: str, name: str, hold) -> str:
     """A small case of the default or score-table variant also under
     SMALL_CONFIG (the cfg variant's one scan and three-drain grid against
     the plain versions), cut in two with the state carried (one scan and
     grid, against one launch), and with the default variant sampled
-    (TIE_SEED; against the plain version). Returns what it checked."""
+    (TIE_SEED; against the plain version). The plain versions go to
+    `hold` (:func:`small_cases`). Returns what it checked."""
     from opensim_tpu_torch.engine import fastpath, schedconfig
     from opensim_tpu_torch.ops import fast_scan as fs
 
@@ -423,10 +489,10 @@ def _config_small_case(prep, variant: str, name: str) -> str:
     fi, _ = fastpath.build_inputs(prep, cfg=schedconfig.SchedulerConfig(**SMALL_CONFIG))
     stream = fastpath.pod_stream(prep)
     whole = fs.fast_scan(fi, *stream)
-    _same(whole, fs.fast_scan_reference(fi, *stream), f"case {name} under a config")
+    hold(False, fi, stream, whole, f"case {name} under a config")
     grid = _drain_grid(prep, list(range(min(3, len(prep.meta.node_names)))))
     whole_g = fs.fast_scan_sweep(fi, *grid)
-    _same(whole_g, fs.fast_scan_sweep_reference(fi, *grid), f"case {name} under a config, sweep")
+    hold(True, fi, grid, whole_g, f"case {name} under a config, sweep")
     k = stream[0].shape[0] // 2
     a = fs.fast_scan(fi, *(t[:k] for t in stream))
     b = fs.fast_scan(fi, *(t[k:] for t in stream), init=a.state)
@@ -441,8 +507,8 @@ def _config_small_case(prep, variant: str, name: str) -> str:
     out = f"; under a config ({fs.variant_name(fi)}) one scan, sweep and both from the state after pod {k} identical"
     if variant == "fast_scan":
         fi0, _ = fastpath.build_inputs(prep)
-        _same(fs.fast_scan(fi0, *stream, tie_seed=TIE_SEED), fs.fast_scan_reference(fi0, *stream, tie_seed=TIE_SEED),
-              f"case {name} sampled")
+        hold(False, fi0, stream, fs.fast_scan(fi0, *stream, tie_seed=TIE_SEED), f"case {name} sampled",
+             tie_seed=TIE_SEED)
         out += f"; sampled ({fs.variant_name(fi0, True)}) identical"
     return out
 
@@ -1878,7 +1944,7 @@ def server_plan(device, card: str) -> list:
     body with SERVER_NEW new nodes (node extension and delta: N = 5,100);
     R6 R2's body with explain=1 (a hit, one [explain] launch) and its
     placements; R7 R2's body under a spent deadline (504, no launch); R8
-    /metrics. Then R2, R4 and R5 against the uncached server
+    /metrics. Then R4 and R5 against the uncached server
     (``prep_cache=False``) on the card, and the kernel rows of R2, R4 and
     R6. Returns the rows and the running server (``server``, ``url`` and
     ``close``, which stops it and its stub apiserver), which the observatory
@@ -1890,6 +1956,7 @@ def server_plan(device, card: str) -> list:
     from opensim_tpu_torch.obs.metrics import parse_metrics
     from opensim_tpu_torch.ops import fast_scan as fs
     from opensim_tpu_torch.server import rest, stubapi
+    from opensim_tpu_torch.utils.gcpause import gc_paused
     from opensim_tpu_torch.utils.trace import PREP_STATS
 
     n_bound = N_PODS // 20 * fx.SERVER_BOUND
@@ -1913,8 +1980,9 @@ def server_plan(device, card: str) -> list:
     log.setLevel(logging.INFO)
     t0 = time.perf_counter()
     try:
+        # the polling snapshot (--watch off): phase 65 starts the live twin
         server, httpd = rest.start_server(kubeconfig=kube, port=0, host="127.0.0.1", device=device,
-                                          snapshot_ttl_s=SERVER_TTL_S)
+                                          snapshot_ttl_s=SERVER_TTL_S, watch="off")
     finally:
         log.removeHandler(handler)
     start_s = time.perf_counter() - t0
@@ -2000,7 +2068,7 @@ def server_plan(device, card: str) -> list:
         stub.stop()
         raise
 
-    _phase("52 server plan: R2, R4 and R5 against the uncached server (a full prepare each) on the card")
+    _phase("52 server plan: R4 and R5 against the uncached server (a full prepare each) on the card")
     entries = {e.key.split("|")[1]: e for e in server.prep_cache.entries_snapshot() if not e.key.endswith("|base")}
     scale_entry, deploy_entry = entries["scale"], entries["deploy"]
     if len(scale_entry.prep.ordered) != n_bound + 2 * N_PODS // 20 or \
@@ -2010,11 +2078,16 @@ def server_plan(device, card: str) -> list:
     if len(deploy_entry.prep.ordered) != N_PODS:
         raise AssertionError(f"R2's stream: {len(deploy_entry.prep.ordered)} pods")
     legacy = rest.SimonServer(kubeconfig=kube, prep_cache=False, device=device)
-    for name, call, body in (("R2", legacy.deploy_apps, bodies["deploy"]), ("R4", legacy.scale_apps,
-                                                                              bodies["scale"]),
+    # R2's body is held against the uncached server by the live twin's
+    # phase 65 (three times); R4 is the drop mask's, R5 the request-time node
+    # extension's (extend_with_nodes at N = 5,100)
+    for name, call, body in (("R4", legacy.scale_apps, bodies["scale"]),
                              ("R5", legacy.deploy_apps, bodies["newnodes"])):
         t0 = time.perf_counter()
-        code, want = call(json.loads(json.dumps(body)))
+        # the collector paused: the uncached server's copy of the snapshot
+        # and its prepare are the check's, not a request's to time
+        with gc_paused():
+            code, want = call(json.loads(json.dumps(body)))
         secs = time.perf_counter() - t0
         same = _without_counters(json.dumps(want, sort_keys=True)) == \
             _without_counters(json.dumps(answers[name][1], sort_keys=True))
@@ -2030,13 +2103,23 @@ def server_plan(device, card: str) -> list:
             _server_row("R6", deploy_entry, True, launches["R6"]["fast_scan[explain]"], answers["R6"][2])]
     print(f"server plan phases {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
+    served = {"server": server, "url": url, "stub": stub, "kube": kube, "pods": pods, "bodies": bodies}
+    listening = [httpd]
+
+    def retire() -> None:
+        """Stop the server and its listener and drop both (the stub
+        apiserver goes on)."""
+        if listening:
+            listening[0].shutdown()
+            listening.pop().server_close()
+            served.pop("server").close()
+
     def close() -> None:
-        httpd.shutdown()
-        httpd.server_close()
-        server.close()
+        retire()
         stub.stop()
 
-    return rows, {"server": server, "url": url, "close": close}
+    served.update(retire=retire, close=close)
+    return rows, served
 
 
 def steady_phase(device) -> dict:
@@ -2143,12 +2226,12 @@ def _patched(obj, name: str, wrap):
 
 
 @contextlib.contextmanager
-def _host_watch(server):
+def _host_watch(server=None):
     """What a server request's host time went to, for the block: the
     interpreter's full collections (count and seconds, through
     ``gc.callbacks``), each prepare kind's count and seconds
-    (``PREP_STATS``) and the stale-entry retries, as deltas in the dict
-    it yields."""
+    (``PREP_STATS``) and `server`'s stale-entry retries, as deltas in the
+    dict it yields."""
     import gc
 
     from opensim_tpu_torch.utils.trace import PREP_STATS
@@ -2165,7 +2248,8 @@ def _host_watch(server):
             got["gc_full"] += 1
             got["gc_full_s"] += time.perf_counter() - started.pop("t")
 
-    prep0, retries0 = PREP_STATS.snapshot(), server.metrics.stale_prep_retries
+    retries = lambda: 0 if server is None else server.metrics.stale_prep_retries
+    prep0, retries0 = PREP_STATS.snapshot(), retries()
     gc.callbacks.append(watch)
     try:
         yield got
@@ -2174,7 +2258,7 @@ def _host_watch(server):
         prep1 = PREP_STATS.snapshot()
         got["prep"] = {k: [n - prep0["counts"].get(k, 0), round(prep1["seconds"][k] - prep0["seconds"].get(k, 0.0), 6)]
                        for k, n in prep1["counts"].items() if n != prep0["counts"].get(k, 0)}
-        got["stale_retries"] = server.metrics.stale_prep_retries - retries0
+        got["stale_retries"] = retries() - retries0
         got["gc_full_s"] = round(got["gc_full_s"], 6)
 
 
@@ -2421,40 +2505,68 @@ def observatory(device, card: str, served) -> list:
     s_i = min(s for s in range(len(ks)) if not ok[s])
     pre = fs.fast_scan_sweep(fi, tmpl[:lo].contiguous(), valid[:, :lo].contiguous(), forced[:, :lo].contiguous(),
                              node_valid, spr_weight)
+    # a scenario's first probe pods are another's with fewer (the probe pods
+    # sit at the stream's tail): where two runs agree on everything up to
+    # there, the plain version runs the longer one's rest from the shorter
+    # one's final state, and its outputs are the two runs joined
+    row = lambda t, s: t[s:s + 1].contiguous()
+    per_pod = ("chosen", "gpu_take", "fail_counts", "insufficient")
+    joined = lambda head, tail: fs.FastOutputs(*(torch.cat([h, t], 1) if f in per_pod else t
+                                                 for f, h, t in zip(fs.FastOutputs._fields, head, tail)))
+    same_inputs = lambda a, b: a is b or all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                                             for x, y in zip(a, b))
     err, plain_ms, plain_pods = 0.0, 0.0, 0
+    held = []  # (k, its plain outputs over the probe pods)
     for s in [x for x in (s_f, s_i) if x is not None]:
         hi = lo + ks[s]
-        row = lambda t: t[s:s + 1].contiguous()
+        head = held[-1] if held and all(
+            torch.equal(t[s_f, :lo + held[-1][0]], t[s, :lo + held[-1][0]]) for t in (valid, forced)) and all(
+            torch.equal(t[s_f], t[s]) for t in (node_valid, spr_weight, pre.state)) else None
+        a = lo if head is None else lo + head[0]
         plain = [None]
 
         def run_plain():
-            plain[0] = fs.fast_scan_sweep_reference(fi, tmpl[lo:hi].contiguous(), row(valid[:, lo:hi]),
-                                                    row(forced[:, lo:hi]), row(node_valid), row(spr_weight),
-                                                    init=row(pre.state))
+            plain[0] = fs.fast_scan_sweep_reference(fi, tmpl[a:hi].contiguous(), row(valid[:, a:hi], s),
+                                                    row(forced[:, a:hi], s), row(node_valid, s), row(spr_weight, s),
+                                                    init=row(pre.state, s) if head is None else head[1].state)
 
         plain_ms += _events_ms(run_plain, reps=1)
-        plain_pods += hi - lo
+        plain_pods += hi - a
+        want = plain[0] if head is None else joined(head[1], plain[0])
+        held.append((ks[s], want))
         got = fs.FastOutputs(*(t[s:s + 1, lo:hi] if f in ("chosen", "gpu_take") else t[s:s + 1]
                                for f, t in zip(fs.FastOutputs._fields, out)))
-        err = max(err, _same(got, plain[0], f"ladder scenario k={ks[s]}, probe pods {lo}..{hi}", fs.STATE_FIELDS))
+        err = max(err, _same(got, want, f"ladder scenario k={ks[s]}, probe pods {lo}..{hi}", fs.STATE_FIELDS))
     print(f"ladder {ks}: scenarios k={[ks[s] for s in (s_f, s_i) if s is not None]} identical to the plain version "
-          f"over their probe pods from the grid's state after the {lo} forced binds", flush=True)
+          f"over their probe pods from the grid's state after the {lo} forced binds ({plain_pods} probe pods run "
+          f"plain)", flush=True)
     bisect = min((sc for sc in mine if len(sc["ks"]) == 1), key=lambda sc: sc["ks"][0])
     b_args = bisect["args"]
     b_plain = [None]
     b_hi = lo + bisect["ks"][0]
     b_pre = fs.fast_scan_sweep(bisect["fi"], b_args[0][:lo].contiguous(), *(t[:, :lo].contiguous() for t in b_args[1:3]),
                                *b_args[3:])
+    k_f = held[0][0] if s_f is not None else 0
+    b_head = held[0] if s_f is not None and k_f < bisect["ks"][0] and same_inputs(bisect["fi"], fi) and \
+        torch.equal(b_args[0][:lo + k_f], tmpl[:lo + k_f]) and \
+        all(torch.equal(b[0, :lo + k_f], t[s_f, :lo + k_f]) for b, t in zip(b_args[1:3], (valid, forced))) and \
+        all(torch.equal(b[0], t[s_f]) for b, t in zip((*b_args[3:], b_pre.state), (node_valid, spr_weight, pre.state))) \
+        else None
+    b_a = lo if b_head is None else lo + k_f
 
     def run_b_plain():
-        b_plain[0] = fs.fast_scan_sweep_reference(bisect["fi"], b_args[0][lo:b_hi].contiguous(),
-                                                  *(t[:, lo:b_hi].contiguous() for t in b_args[1:3]), *b_args[3:],
-                                                  init=b_pre.state)
+        b_plain[0] = fs.fast_scan_sweep_reference(bisect["fi"], b_args[0][b_a:b_hi].contiguous(),
+                                                  *(t[:, b_a:b_hi].contiguous() for t in b_args[1:3]), *b_args[3:],
+                                                  init=b_pre.state if b_head is None else b_head[1].state)
 
     b_plain_ms = _events_ms(run_b_plain, reps=1)
+    b_want = b_plain[0] if b_head is None else joined(b_head[1], b_plain[0])
     b_got = fs.FastOutputs(*(t[:, lo:b_hi] if f in ("chosen", "gpu_take") else t
                              for f, t in zip(fs.FastOutputs._fields, bisect["out"])))
-    b_err = _same(b_got, b_plain[0], f"bisection k={bisect['ks'][0]}", fs.STATE_FIELDS)
+    b_err = _same(b_got, b_want, f"bisection k={bisect['ks'][0]}", fs.STATE_FIELDS)
+    b_checks = f"k={bisect['ks'][0]}, {b_hi - lo} probe pods" + (
+        "" if b_head is None else f" (the first {k_f} the ladder's plain run of k={k_f}, the last {b_hi - b_a} "
+                                  "from its final state)")
 
     code, _h, timeline, _rt = _http(url, "/api/debug/capacity")
     if code != 200 or timeline["samples"][-1]["generation"] != report["capacity"]["generation"]:
@@ -2475,12 +2587,14 @@ def observatory(device, card: str, served) -> list:
           f"{timeline['samples'][-1]['generation']}; simon top --json equals the report (no launch); /metrics "
           f"simon_cluster_headroom {got_h}", flush=True)
     rows = [_sweep_row("fast_scan_sweep", f"headroom ladder ({wide.name}, {len(ks)} scenarios)", fi, args, out,
-                       ladder["ms"], 1, err, plain_ms, f"scenarios k={[ks[s] for s in (s_f, s_i) if s is not None]}, {plain_pods} probe pods",
+                       ladder["ms"], 1, err, plain_ms,
+                       f"scenarios k={[k_ for k_, _w in held]}, {sum(k_ for k_, _w in held)} probe pods, "
+                       f"{plain_pods} of them run plain (a longer scenario's from a shorter one's final state)",
                        headroom=headroom, probe_scans=per_profile, report_s=rt, card=card),
             _sweep_row("fast_scan_sweep", f"headroom bisection step ({wide.name}, k={bisect['ks'][0]})", bisect["fi"],
                        b_args, bisect["out"], bisect["ms"], sum(1 for sc in scans if len(sc["ks"]) == 1), b_err,
                        b_plain_ms,
-                       f"k={bisect['ks'][0]}, {b_hi - lo} probe pods", launches_are="every bisection step's launch")]
+                       b_checks, launches_are="every bisection step's launch")]
     del os.environ["OPENSIM_HEADROOM_PROFILES"]
     return rows
 
@@ -2530,7 +2644,7 @@ def campaign_plan(device, card: str, served) -> list:
     """Lifecycle campaigns on the card (phases 59-61): the campaign plan
     (``fixtures.write_campaign_plan``: the capacity fleet and Deployments
     under PDBs of minAvailable 90%, a 1,000-replica canary, a rolling drain
-    of 20 nodes 5 at a time, a storm reclaiming 50, 20 nodes added, bench-0
+    of 10 nodes 5 at a time, a storm reclaiming 50, 20 nodes added, bench-0
     up by 500, 32 scale-down checks, a defrag over 64 candidates) written as
     a ``customConfig`` directory and run in warm mode, each step's
     wall-clock, launches and kernel share recorded, every scheduling pass
@@ -2547,6 +2661,7 @@ def campaign_plan(device, card: str, served) -> list:
     from opensim_tpu_torch.models import fixtures as fx
     from opensim_tpu_torch.ops import fast_scan as fs
     from opensim_tpu_torch.planner import campaign as cp
+    from opensim_tpu_torch.utils.gcpause import gc_paused
 
     _phase("59 campaign plan: written as a customConfig directory, run in warm mode on the card")
     root = _plan_dir() / "campaign"
@@ -2629,7 +2744,9 @@ def campaign_plan(device, card: str, served) -> list:
     cold_spec = cp.load_campaign(spec_path)
     cold_spec.steps = cold_spec.steps[:COLD_STEPS]
     t0 = time.perf_counter()
-    cold = cp.run_campaign(cp.load_campaign_cluster(cold_spec), cold_spec, mode="cold", device=device)
+    # the cluster phase 59 loaded: a campaign writes nothing into it (the
+    # server runs every POST /api/campaign on its one snapshot)
+    cold = cp.run_campaign(cluster, cold_spec, mode="cold", device=device)
     cold_s = time.perf_counter() - t0
     if [s.fingerprint for s in cold.steps] != [s["fingerprint"] for s in d["steps"][:COLD_STEPS + 1]]:
         raise AssertionError("cold mode's step fingerprints differ from warm mode's")
@@ -2655,8 +2772,9 @@ def campaign_plan(device, card: str, served) -> list:
     if set(http_launches) != {CAMPAIGN_VARIANT}:
         raise AssertionError(f"POST /api/campaign launched {http_launches}")
     t0 = time.perf_counter()
-    want = cp.run_campaign(server._observed_cluster()[0], cp.parse_steps(steps), name="server-drain",
-                           device=device).to_dict()
+    with gc_paused():  # the check's run, not the one timed
+        want = cp.run_campaign(server._observed_cluster()[0], cp.parse_steps(steps), name="server-drain",
+                               device=device).to_dict()
     local_s = time.perf_counter() - t0
     if code != 200 or answer != want or sum(http_launches.values()) < 1 + -(-SERVER_CAMPAIGN_DRAIN // SERVER_CAMPAIGN_WAVE):
         raise AssertionError(f"POST /api/campaign: HTTP {code}, launches {http_launches}, equal to the in-process "
@@ -2679,13 +2797,13 @@ def campaign_plan(device, card: str, served) -> list:
              "server_campaign_s": rt, "card": card}]
 
 
-def _plain_sweep_on_cpu(fi, args, kw):
-    """The plain sweep of a grid's inputs (CPU tensors), in a worker
-    process of phase 62."""
+def _plain_on_cpu(sweep: bool, fi, args, kw):
+    """The plain version of a one scan's or (`sweep`) a grid's inputs (CPU
+    tensors), in a worker process of phases 3 and 62."""
     from opensim_tpu_torch.ops import fast_scan as fs
 
     torch.set_num_threads(1)
-    return fs.fast_scan_sweep_reference(fi, *args, **kw)
+    return (fs.fast_scan_sweep_reference if sweep else fs.fast_scan_reference)(fi, *args, **kw)
 
 
 def counting_small_cases(device) -> None:
@@ -2720,8 +2838,8 @@ def counting_small_cases(device) -> None:
                 picks = list(range(S)) if S == 3 else [0, 1, 2, S - 3, S - 2, S - 1]
                 for mode in ("count", "explain"):
                     kw = {mode: True}
-                    plain = pool.submit(_plain_sweep_on_cpu, fi_cpu, [args[0].cpu(), *(t[picks].cpu() for t in args[1:])],
-                                        kw)
+                    plain = pool.submit(_plain_on_cpu, True, fi_cpu,
+                                        [args[0].cpu(), *(t[picks].cpu() for t in args[1:])], kw)
                     got = fs.fast_scan_sweep(fi, *args, **kw)
                     torch.cuda.synchronize()
                     grid = fs.SWEEP_LAUNCHED[fs.sweep_name(fi, **kw)]["grid"]
@@ -2952,6 +3070,448 @@ def storm_plan(device, card: str, served) -> list:
         })
     return rows
 
+def _wait_for(pred, timeout: float, what: str) -> float:
+    """Poll `pred` until it holds; the seconds it took. Raises past
+    `timeout`."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if pred():
+            return time.perf_counter() - t0
+        time.sleep(0.05)
+    raise AssertionError(f"timed out after {timeout:g} s waiting for {what}")
+
+
+def _relisted(kube: str):
+    """(cluster, content fingerprint) of a fresh full relist of the stub."""
+    from opensim_tpu_torch.engine.prepcache import fingerprint_cluster
+    from opensim_tpu_torch.server.snapshot import _cluster_via_rest
+
+    cluster, _rvs = _cluster_via_rest(kube, None)
+    return cluster, fingerprint_cluster(cluster)
+
+
+def _same_answer(got: dict, want: dict, what: str) -> None:
+    if _without_counters(json.dumps(got, sort_keys=True)) != _without_counters(json.dumps(want, sort_keys=True)):
+        raise AssertionError(f"{what}: the answers differ")
+
+
+def _twin_request(server, url: str, label: str, body: dict, key: str) -> dict:
+    """One deploy over HTTP to the twin server, its launches counted and
+    its host time watched (:func:`_host_watch`); the request's trace must
+    carry the twin's generation key `key` (the answer came from the twin)."""
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    _reset_launches()
+    with _host_watch(server) as host:
+        code, hdrs, answer, rt = _http(url, "/api/deploy-apps", body)
+    launches = dict(fs.VARIANT_LAUNCHES)
+    attrs = _http(url, f"/api/debug/requests/{hdrs.get('X-Simon-Request-Id', '')}")[2]["spans"].get("attrs", {})
+    if code != 200 or launches != {"fast_scan": 1}:
+        raise AssertionError(f"{label}: HTTP {code}, launches {launches}: {str(answer)[:300]}")
+    if attrs.get("twin_key") != key:
+        raise AssertionError(f"{label}: served from {attrs.get('twin_key')!r}, not the twin's {key!r}")
+    times = {k: attrs[k] for k in ("cache_s", "prepare_s", "inputs_s", "kernel_s", "decode_s") if k in attrs}
+    print(f"{label}: HTTP 200 in {rt:.6f} s (round trip), served from {key}, rung {attrs.get('rung')}, server times "
+          f"{json.dumps(times)}, host {json.dumps(host)}, launches {launches}", flush=True)
+    return {"answer": answer, "rt": rt, "launches": launches, "attrs": attrs, "host": host}
+
+
+def _twin_wave(stub, sup, ops, settled, label: str) -> dict:
+    """Send a wave's events through the stub and wait until the twin has
+    applied them (`settled`); then fold what the supervisor's tick has not
+    yet folded (``flush_pending``). Returns the send, apply and flush
+    times, the events per second from the first send to the last applied,
+    and what the host spent (``PREP_STATS`` kinds, full collections)."""
+    from opensim_tpu_torch.models import fixtures as fx
+
+    with _host_watch() as host:
+        t0 = time.perf_counter()
+        fx.send_wave(stub, ops)
+        send_s = time.perf_counter() - t0
+        apply_s = send_s + _wait_for(settled, TWIN_WAIT_S, f"{label} applied to the twin")
+        t1 = time.perf_counter()
+        sup.flush_pending()
+        flush_s = time.perf_counter() - t1
+    out = {"events": len(ops), "send_s": send_s, "applied_s": apply_s, "events_per_s": len(ops) / apply_s,
+           "final_flush_s": flush_s, "host": host, "generation": sup.twin.generation}
+    print(f"{label}: {len(ops)} events sent in {send_s:.6f} s, applied by the twin {apply_s:.6f} s after the first "
+          f"({len(ops) / apply_s:.1f} events/s); the last flush_pending {flush_s:.6f} s; host {json.dumps(host)}; "
+          f"generation {sup.twin.generation}", flush=True)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _metrics_of(url: str) -> dict:
+    from opensim_tpu_torch.obs.metrics import parse_metrics
+
+    return parse_metrics(_http(url, "/metrics")[2])
+
+
+def twin_plan(device, card: str, served) -> list:
+    """The live twin on the card (phases 65-67), on the server plan's stub
+    apiserver and fleet. 65: a second server, ``rest.start_server(watch=
+    "on", journal=...)``, its bootstrap and first request (R2's body: one
+    base prepare) timed; wave W1 (TWIN_ADD pods ADDED, TWIN_DEL of the
+    snapshot's DELETED, TWIN_NEW_NODES nodes ADDED), R2's body; wave W2 (one
+    node MODIFIED: the lineage drops), R2's body. After each wave the
+    twin's fingerprint is a full relist's; each answer the uncached
+    server's on the relisted cluster; after W1 the request is one delta on
+    the folded base (``twin_delta``, ``delta_nodes``, ``delta_apps``, no
+    ``full``), its kernel row against the plain version and the torch
+    step (as phase 53). 66: storm A through the twin server's admission
+    queue while a wave of pods lands: every rider 200, every launch the
+    grid's ``[count]``, each lane its one scan over the whole stream. 67:
+    ``simon server --watch on --journal`` as a subprocess on the card, wave
+    W3, SIGKILL, a restart on the journal (checkpoint and suffix, no
+    relist, no variant rebuilt); while it recovers, the uncached server's
+    answer on the relisted cluster and a card ``simulate()`` of the replay's
+    probe are computed here; the restart's answer (requested beside the
+    in-process twin's) the in-process twin's, and that the uncached
+    server's (the polling answer after the storm's wave and W3); SIGTERM;
+    ``simon replay --capacity --schedule`` on the card (the CLI in this
+    process), its fingerprint the relist's (the journal's last checkpoint
+    is the restored twin) and its count the card ``simulate()``'s. The
+    stub apiserver's objects and the earlier phases' are frozen out of the
+    collector's generations (``gc.freeze``) for these phases. Returns the
+    kernels-table row of 65's request."""
+    import gc
+    import shutil
+    import signal
+    import threading
+
+    from opensim_tpu_torch.engine import fastpath, reqbatch, simulator as sim
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.models.objects import ResourceTypes
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.server import admission, pool, rest
+    from opensim_tpu_torch.utils.gcpause import gc_paused
+
+    stub, kube, bodies = served["stub"], served["kube"], served["bodies"]
+    # phase 50's server has served its phases: it stops and leaves the
+    # heap, which the interpreter's full collections walk
+    served["retire"]()
+    # the stub apiserver's objects and what the earlier phases left stay out
+    # of the twin server's full collections: a server process holds neither
+    gc.freeze()
+    live = served.pop("pods")  # the stub's pods, kept in step with the waves
+    n_snapshot = len(live)
+    root = _plan_dir() / "twin"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    _phase(f"65 live twin: simon server --watch on --journal on the server plan's stub; W1 ({TWIN_ADD} pods ADDED, "
+           f"{TWIN_DEL} DELETED, {TWIN_NEW_NODES} nodes ADDED) and W2 (a node MODIFIED), R2's body after each")
+    t0 = time.perf_counter()
+    server, httpd = rest.start_server(kubeconfig=kube, watch="on", journal=str(root / "in-process"), port=0,
+                                      host="127.0.0.1", device=device)
+    start_s = time.perf_counter() - t0
+    sup = server.watch
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    key = lambda: f"{sup.key_prefix}{sup.twin.generation}"
+    # the uncached server, its cache off: each answer is held against its
+    # full prepare of the cluster as the stub lists it then
+    legacy = rest.SimonServer(kubeconfig=kube, prep_cache=False, device=device, admission=False, capacity=False)
+
+    def relisted(label: str, got: dict) -> float:
+        """A full relist of the stub: the twin's fingerprint must be its
+        fingerprint, and the twin's answer `got` the uncached server's (its
+        request path with the cache off: a full prepare and one launch) on
+        the relisted cluster, the server's own copy. The collector is paused
+        and the check's objects die before it runs again, so they add no
+        full collections to the twin server's requests."""
+        t1 = time.perf_counter()
+        with gc_paused():
+            fresh, fp = _relisted(kube)
+            if sup.twin.fingerprint() != fp:
+                raise AssertionError(f"{label}: the twin's fingerprint differs from a full relist's")
+            want = rest._response(legacy._simulated("uncached", 0.0, fresh, [sim.AppResource(
+                "deploy", rest._decode_app(json.loads(json.dumps(bodies["deploy"]))))], False))
+            n_nodes, n_pods = len(fresh.nodes), len(fresh.pods)
+            del fresh
+        _same_answer(got, want, f"{label} vs the uncached server on the relisted cluster")
+        secs = time.perf_counter() - t1
+        print(f"{label}: the twin's fingerprint equals a full relist's ({n_nodes} nodes, {n_pods} pods), its answer "
+              f"the uncached server's full prepare of the relisted cluster ({secs:.3f} s for both)", flush=True)
+        return secs
+
+    summary = {"start_s": start_s}
+    try:
+        print(f"twin server started in {start_s:.3f} s (bootstrap list, rebase, checkpoint enqueued, variants "
+              f"loaded), generation {sup.twin.generation}, state {sup.state()}; listening on {url}", flush=True)
+        r0 = _twin_request(server, url, "R2 on the twin (cold: one base prepare)", bodies["deploy"], key())
+        if set(r0["host"]["prep"]) != {"full", "delta_apps"} or r0["attrs"].get("rung") != "cold":
+            raise AssertionError(f"the twin's first request: {r0['host']}")
+        n_nodes = N_NODES + TWIN_NEW_NODES
+        w1 = fx.twin_wave(live, N_NODES, TWIN_ADD, TWIN_DEL, TWIN_NEW_NODES, tag="w1")
+        summary["W1"] = _twin_wave(stub, sup, w1, lambda: len(sup.twin.materialize().pods) == len(live)
+                                   and len(sup.twin.materialize().nodes) == n_nodes, "W1")
+        r1 = _twin_request(server, url, "R2 after W1", bodies["deploy"], key())
+        folded = summary["W1"]["host"]["prep"]
+        if r1["attrs"].get("rung") != "delta" or set(r1["host"]["prep"]) != {"delta_apps"} or "full" in folded \
+                or "twin_delta" not in folded or "delta_nodes" not in folded:
+            raise AssertionError(f"W1 and the request after it: wave {folded}, request {r1['host']}")
+        summary["uncached_W1_s"] = relisted("R2 after W1", r1["answer"])
+        (entry,) = [e for e in server.prep_cache.entries_snapshot() if e.key.startswith(f"{key()}|deploy|")]
+        if int(entry.drop_mask.sum()) != TWIN_DEL or len(entry.prep.ordered) != n_snapshot + TWIN_ADD + \
+                N_PODS // 2:
+            raise AssertionError(f"the twin request's stream: {len(entry.prep.ordered)} pods, "
+                                 f"{int(entry.drop_mask.sum())} masked")
+        shape = fs.SCAN_LAUNCHED["fast_scan"]["shape"]
+        if shape.nc != -(-n_nodes // shape.cluster):
+            raise AssertionError(f"the twin request's launch: {shape.nc} nodes a CTA at N = {n_nodes}")
+        row = _server_row("twin R2 after W1", entry, False, r1["launches"]["fast_scan"], r1["rt"])
+        w2 = fx.node_label_wave(0)
+        summary["W2"] = _twin_wave(stub, sup, w2, lambda: "twin-wave" in sup.twin.materialize().nodes[0]
+                                   .metadata.labels, "W2")
+        r2 = _twin_request(server, url, "R2 after W2 (the lineage dropped: one base prepare)", bodies["deploy"], key())
+        if set(r2["host"]["prep"]) != {"full", "delta_apps"} or r2["attrs"].get("rung") != "cold":
+            raise AssertionError(f"the request after W2: {r2['host']}")
+        summary["uncached_W2_s"] = relisted("R2 after W2", r2["answer"])
+        summary["rt_s"] = {"first": r0["rt"], "after_W1": r1["rt"], "after_W2": r2["rt"]}
+        summary["request_attrs"] = {n: {k: r["attrs"].get(k) for k in ("rung", "cache_s", "prepare_s", "inputs_s",
+                                                                          "kernel_s", "decode_s")}
+                                    for n, r in (("first", r0), ("after_W1", r1), ("after_W2", r2))}
+        print(f"phase 65: start {start_s:.3f} s; round trips first {r0['rt']:.6f}, after W1 {r1['rt']:.6f}, after W2 "
+              f"{r2['rt']:.6f} s; W1 {summary['W1']['events_per_s']:.1f} events/s ({card})", flush=True)
+
+        _phase(f"66 storm A on the twin server while a wave of {TWIN_STORM_WAVE} pods ADDED and {TWIN_STORM_WAVE} "
+               f"DELETED lands ({STORM_WINDOW_S * 1e3:g} ms window)")
+        server.admission.stop()
+        server.admission = admission.AdmissionController(
+            solo_fn=server._admitted_solo, batch_fn=server._admitted_batch, prep_fn=server._batch_prep,
+            dispatch_fn=server._batch_dispatch, decode_fn=server._batch_decode, window_s=STORM_WINDOW_S,
+            pool=pool.WorkerPool(device=device))
+        storm = fx.storm_requests(N_PODS)
+        wave = fx.twin_wave(live, N_NODES, TWIN_STORM_WAVE, TWIN_STORM_WAVE, tag="s66")
+        recorded = []
+
+        def keep(real):
+            def run(prep, items):
+                out = real(prep, items)
+                recorded.append((prep, items, out))
+                return out
+            return run
+
+        answers = [None] * len(storm)
+
+        def send(i, kind, body, explain):
+            answers[i] = _http(url, "/api/deploy-apps" if kind == "deploy" else "/api/scale-apps", body)
+
+        threads = [threading.Thread(target=send, args=(i, *r)) for i, r in enumerate(storm)]
+        threads.append(threading.Thread(target=fx.send_wave, args=(stub, wave)))
+        retries0 = server.metrics.stale_prep_retries
+        _reset_launches()
+        with _patched(reqbatch, "dispatch_request_batch", keep), _host_watch(server) as host:
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(TWIN_WAIT_S)
+            storm_rt = time.perf_counter() - t0
+        launches = dict(fs.VARIANT_LAUNCHES)
+        for (kind, body, explain), got in zip(storm, answers):
+            if got is None or got[0] != 200 or not {"unscheduledPods", "nodeStatus"} <= set(got[2]):
+                raise AssertionError(f"storm under events, {_rider(body, explain)}: {str(got)[:300]}")
+        if set(launches) != {"fast_scan_sweep[count]"}:
+            raise AssertionError(f"storm under events: launches {launches}, want the grid's [count] alone")
+        retries = server.metrics.stale_prep_retries - retries0
+        err = 0.0
+        lanes = 0
+        for prep, items, dispatch in recorded:
+            fi, _ = fastpath.build_inputs(prep)
+            args = fastpath.batch_inputs(prep, fi, dispatch.pod_valid)
+            for s_, host_out in enumerate(dispatch.outs):
+                one = fs.fast_scan(fi, args[0], args[1][s_].contiguous(), args[2][s_].contiguous())
+                for f in ("chosen", "fail_counts", "insufficient"):
+                    if not np.array_equal(getattr(one, f).cpu().numpy(), getattr(host_out, f)):
+                        raise AssertionError(f"storm under events: lane {s_}'s {f} differs from its one scan")
+                lanes += 1
+        print(f"storm under events: {len(storm)} riders answered 200 in {storm_rt:.6f} s, {len(recorded)} request "
+              f"batch(es), launches {launches}, {retries} generation-swap retries; each of {lanes} lanes equals its "
+              f"one scan over the whole stream; host {json.dumps(host)}", flush=True)
+        # the polling server's answer once the wave has settled: phase 67's
+        # in-process request after W3, on the cluster the stub then lists
+        settle_s = _wait_for(lambda: len(sup.twin.materialize().pods) == len(live), TWIN_WAIT_S, "the storm's wave")
+        summary["storm"] = {"riders": len(storm), "rt_s": storm_rt, "batches": len(recorded), "launches": launches,
+                            "stale_retries": retries, "lanes": lanes, "settle_s": settle_s, "host": host,
+                            "rider_rt_s": [a[3] for a in answers]}
+
+        _phase(f"67 journal and replay: simon server --watch on --journal as a subprocess on the card, W3 "
+               f"({TWIN_W3_WAVE} pods ADDED, {TWIN_W3_WAVE} DELETED), SIGKILL, restart on the journal; simon replay")
+        repo = os.path.dirname(os.path.abspath(__file__))
+        jd = str(root / "journal")
+        env = dict(os.environ, PYTHONPATH=repo, OPENSIM_JOURNAL_FSYNC="always")
+        # the subprocesses run where a user's would, on the card (a CPU
+        # rehearsal of this phase names its device)
+        dev_args = [] if torch.device(device).type == "cuda" else ["--device", str(device)]
+        built = {p.name: p.stat().st_mtime_ns for p in Path(fs.BUILD_DIR).glob("*.so")}
+
+        def launch(tag: str):
+            """Start ``simon server --watch on --journal`` in a subprocess;
+            :func:`listening` waits until it answers /healthz."""
+            port = _free_port()
+            log_path = root / f"server-{tag}.log"
+            fh = open(log_path, "w")
+            proc = subprocess.Popen([sys.executable, "-m", "opensim_tpu_torch", "server", "--kubeconfig", kube,
+                                     "--watch", "on", "--journal", jd, "--port", str(port), *dev_args],
+                                    stdout=fh, stderr=subprocess.STDOUT, cwd=repo, env=env)
+            fh.close()
+            procs.append(proc)
+            sub = {"tag": tag, "proc": proc, "url": f"http://127.0.0.1:{port}", "log": log_path, "up": []}
+
+            def up():
+                if proc.poll() is not None:
+                    raise AssertionError(f"simon server ({tag}) exited {proc.returncode}: "
+                                         f"{log_path.read_text()[-3000:]}")
+                try:
+                    return _http(sub["url"], "/healthz")[0] == 200
+                except OSError:
+                    return False
+
+            def watch():
+                # the seconds from the start to the first /healthz answer,
+                # read while this process goes on with other work
+                try:
+                    sub["up"].append(_wait_for(up, TWIN_START_S, f"simon server ({tag}) to listen"))
+                except AssertionError as e:
+                    sub["up"].append(e)
+
+            sub["watcher"] = threading.Thread(target=watch, daemon=True)
+            sub["watcher"].start()
+            return sub
+
+        def listening(sub) -> float:
+            sub["watcher"].join(TWIN_START_S + 30)
+            if not sub["up"] or isinstance(sub["up"][0], AssertionError):
+                raise AssertionError(f"simon server ({sub['tag']}): {sub['up'][0] if sub['up'] else 'no answer'}")
+            secs = sub["up"][0]
+            print(f"simon server --watch on --journal ({sub['tag']}): listening {secs:.3f} s after the process "
+                  f"started", flush=True)
+            return secs
+
+        procs = []
+        try:
+            first = launch("first")
+            first_s = listening(first)
+            w3 = fx.twin_wave(live, N_NODES, TWIN_W3_WAVE, TWIN_W3_WAVE, tag="w3")
+            fx.send_wave(stub, w3)
+            journaled = lambda: _metrics_of(first["url"]).get(("simon_journal_records_total", (("type", "ev"),)), 0)
+            _wait_for(lambda: journaled() >= len(w3), TWIN_WAIT_S, "W3's events in the subprocess's journal")
+            time.sleep(0.5)  # the writer counts a record before its batch's fsync
+            first["proc"].kill()  # SIGKILL: no flush, no close
+            first["proc"].wait(30)
+            _wait_for(lambda: len(sup.twin.materialize().pods) == len(live), TWIN_WAIT_S, "W3 in the in-process twin")
+            with gc_paused():
+                fresh, fp = _relisted(kube)
+            _wait_for(lambda: sup.twin.fingerprint() == fp, TWIN_WAIT_S, "the in-process twin to settle")
+            lists0 = sum(1 for _p, q in stub.requests_seen if "watch" not in q)
+            restart = launch("restart")
+            # while the restart recovers, this process computes what its
+            # answer and simon replay's count are held against, from the
+            # relisted cluster (no list of the stub until it listens): the
+            # uncached server's answer (the polling answer after the storm's
+            # wave and W3) and a card simulate() of the replay's probe
+            with gc_paused():
+                probe_cluster = copy.deepcopy(fresh)
+                t1 = time.perf_counter()
+                want = rest._response(legacy._simulated("uncached", 0.0, fresh, [sim.AppResource(
+                    "deploy", rest._decode_app(json.loads(json.dumps(bodies["deploy"]))))], False))
+                uncached_s = time.perf_counter() - t1
+                probe = ResourceTypes()
+                probe.deployments.append(fx.make_fake_deployment("replay-probe", TWIN_REPLAY_PODS, "100m", "256Mi"))
+                _reset_launches()
+                res = sim.simulate(probe_cluster, [sim.AppResource("replay", probe)], device=device)
+                probe_want = TWIN_REPLAY_PODS - len(res.unscheduled_pods)
+                probe_launches = dict(fs.VARIANT_LAUNCHES)
+                del res, probe_cluster, fresh
+            if probe_launches != {"fast_scan": 1}:
+                raise AssertionError(f"the replay probe's card simulate() launched {probe_launches}")
+            restart_s = listening(restart)
+            sub_url, log2 = restart["url"], restart["log"]
+            m = _metrics_of(sub_url)
+            if m.get(("simon_journal_recoveries_total", (("outcome", "restored"),))) != 1 or \
+                    m.get(("simon_watch_relists_total", ())) != 0 or \
+                    sum(1 for _p, q in stub.requests_seen if "watch" not in q) != lists0:
+                raise AssertionError("the restart did not recover from the journal alone: "
+                                     f"{ {k: v for k, v in m.items() if 'journal' in k[0] or 'relist' in k[0]} }")
+            import re
+
+            got = re.search(r"generation (\d+) \(checkpoint (\d+) \+ (\d+) replayed", log2.read_text())
+            if got is None or int(got.group(3)) < len(w3):
+                raise AssertionError(f"the restart's recovery line: {got and got.group(0)}")
+            rebuilt = {p.name: p.stat().st_mtime_ns for p in Path(fs.BUILD_DIR).glob("*.so")}
+            if rebuilt != built:
+                raise AssertionError("a subprocess rebuilt or added kernel variants")
+            # the restarted server's request (its base prepare, in its own
+            # process) beside the in-process twin's on the same state
+            sub_reply = [None]
+            sub_thread = threading.Thread(target=lambda: sub_reply.__setitem__(
+                0, _http(sub_url, "/api/deploy-apps", bodies["deploy"])))
+            sub_thread.start()
+            inproc = _twin_request(server, url, "R2 on the in-process twin after W3", bodies["deploy"], key())
+            sub_thread.join(TWIN_WAIT_S)
+            if sub_reply[0] is None or sub_reply[0][0] != 200:
+                raise AssertionError(f"the restarted server answered {str(sub_reply[0])[:300]}")
+            code, _h, sub_answer, sub_rt = sub_reply[0]
+            _same_answer(inproc["answer"], want, "the in-process twin after W3 vs the uncached server on the relisted "
+                                                 "cluster")
+            _same_answer(sub_answer, inproc["answer"], "the restarted server vs the in-process twin")
+            restart["proc"].send_signal(signal.SIGTERM)
+            rc = restart["proc"].wait(60)
+            if rc != 0 or "shutdown complete" not in log2.read_text():
+                raise AssertionError(f"SIGTERM: exit {rc}: {log2.read_text()[-2000:]}")
+        finally:
+            for p_ in procs:
+                if p_.poll() is None:
+                    p_.kill()
+                    p_.wait(30)
+        print(f"R2 on the in-process twin after W3: the uncached server's full prepare of the relisted cluster "
+              f"(the polling answer after the storm's wave and W3; {uncached_s:.3f} s, during the restart)", flush=True)
+        print(f"restart: listening {restart_s:.3f} s after the process started (first start {first_s:.3f} s), "
+              f"recovered {got.group(0)}; no list, no relist, no variant built; its answer equals the in-process "
+              f"twin's ({sub_rt:.6f} s round trip beside it, one base prepare); SIGTERM exit 0", flush=True)
+        # simon replay of the journal the restart re-anchored (its last
+        # checkpoint is the restored twin), on the card, in this process
+        import io
+
+        from opensim_tpu_torch.cli import main as cli
+
+        buf = io.StringIO()
+        _reset_launches()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["replay", jd, "--capacity", "--schedule", str(TWIN_REPLAY_PODS), *dev_args])
+        replay_s = time.perf_counter() - t1
+        replay_launches = dict(fs.VARIANT_LAUNCHES)
+        if rc != 0 or replay_launches != {"fast_scan": 1}:
+            raise AssertionError(f"simon replay: exit {rc}, launches {replay_launches}: {buf.getvalue()[-2000:]}")
+        replay = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if replay["fingerprint"] != fp or replay["schedule"]["scheduled"] != probe_want:
+            raise AssertionError(f"simon replay: {json.dumps(replay)}; the card simulate() placed {probe_want}")
+        print(f"simon replay --capacity --schedule {TWIN_REPLAY_PODS}: {replay_s:.3f} s, launches {replay_launches}; "
+              f"{json.dumps(replay)}; its fingerprint the relist's, its {replay['schedule']['scheduled']} scheduled "
+              f"the card simulate()'s", flush=True)
+        summary["journal"] = {"first_start_s": first_s, "restart_s": restart_s, "recovered": got.group(0),
+                              "replay_s": replay_s, "replay": replay, "restart_rt_s": sub_rt,
+                              "inproc_rt_s": inproc["rt"], "uncached_W3_s": uncached_s}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+        gc.unfreeze()
+    print(f"live twin phases {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    row["twin"] = summary
+    return [row]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
@@ -2972,17 +3532,17 @@ def main() -> int:
 
     plans = [
         ("4-6 capacity plan", lambda: (fx.synthetic_cluster(N_NODES), fx.synthetic_apps(N_PODS)),
-         "fast_scan", 5000),
+         "fast_scan", PLAN_PLAIN_PODS),
         ("7-9 all-GPU-share plan", lambda: (fx.gpu_cluster(N_NODES), fx.gpu_apps(N_PODS)),
-         "fast_scan[gpu,gc]", 5000),
+         "fast_scan[gpu,gc]", PLAN_PLAIN_PODS),
         ("10-12 affinity-heavy plan", lambda: (fx.synthetic_cluster(N_NODES), fx.affinity_apps(N_PODS)),
-         "fast_scan[interpod]", AFFINITY_PLAIN_PODS),
+         "fast_scan[interpod]", PLAN_PLAIN_PODS),
         ("13-15 score-table plan", lambda: (fx.score_cluster(N_NODES), fx.score_apps(N_PODS)),
-         "fast_scan[na,tt,avoid]", 5000),
+         "fast_scan[na,tt,avoid]", PLAN_PLAIN_PODS),
         ("16-18 host-port plan", lambda: (fx.score_cluster(N_NODES), fx.score_apps(N_PODS, host_port=True)),
-         "fast_scan[na,tt,avoid,ports]", 5000),
+         "fast_scan[na,tt,avoid,ports]", PLAN_PLAIN_PODS),
         ("19-21 all-local-PV plan", lambda: (fx.local_pv_cluster(N_NODES), fx.local_pv_apps(N_PODS)),
-         "fast_scan[local]", 5000),
+         "fast_scan[local]", PLAN_PLAIN_PODS),
     ]
 
     _phase("2 build")
@@ -3014,7 +3574,7 @@ def main() -> int:
                           "fast_scan[na,tt,avoid,cfg]", CFG_PLAIN_PODS, sched_text=fx.SCHED_CONFIG_PLAN))
     rows.append(two_profile_plan(device))
     rows.append(full_plan(device, "37-39 sampled plan", lambda: (fx.synthetic_cluster(N_NODES), fx.synthetic_apps(N_PODS)),
-                          "fast_scan[sample]", CFG_PLAIN_PODS, tie_seed=TIE_SEED))
+                          "fast_scan[sample]", SAMPLED_PLAIN_PODS, tie_seed=TIE_SEED))
     rows.extend(apply_config_plan(device, card))
     rows.append(explain_plan(device, "42-43 affinity-heavy plan at maxSkew 1",
                              lambda: (fx.synthetic_cluster(N_NODES), fx.affinity_apps(N_PODS, max_skew=1)),
@@ -3034,6 +3594,7 @@ def main() -> int:
         rows.extend(campaign_plan(device, card, served))
         counting_small_cases(device)
         rows.extend(storm_plan(device, card, served))
+        rows.extend(twin_plan(device, card, served))
     finally:
         served["close"]()
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")

@@ -1,12 +1,13 @@
 """simon CLI of the port — ``python -m opensim_tpu_torch {apply, explain,
-defrag (drain), campaign, server, top, version}``, the flags of
+defrag (drain), campaign, server, top, replay, version}``, the flags of
 ``opensim_tpu/cli/main.py`` (``cmd/apply/apply.go:27-36``,
 ``cmd/server/server.go``) plus ``--device`` where a subcommand simulates.
 The run goes to the card unless ``--device cpu`` asks for the plain
 versions on the CPU; without a card and without that flag each of those
 subcommands fails (``server`` before it listens), and nothing falls back
 to the CPU. ``top`` and ``campaign --url`` read a running server, which
-simulates on its own device. Log level comes from the ``LogLevel`` env
+simulates on its own device; ``replay`` simulates only with
+``--schedule``. Log level comes from the ``LogLevel`` env
 (``cmd/simon/simon.go:46-66``)."""
 
 from __future__ import annotations
@@ -148,8 +149,9 @@ def build_parser() -> argparse.ArgumentParser:
     server_p.add_argument("--port", type=int, default=8080, help="listen port")
     server_p.add_argument(
         "--watch", default="auto", choices=["auto", "on", "off"],
-        help="snapshot strategy: auto and off serve the polling snapshot (re-listed every 30 s); on, the live "
-        "twin, is not yet ported (ROADMAP Queue 1 item 10)",
+        help="live-twin mode: consume the cluster's watch streams and keep an always-warm incremental snapshot. "
+        "auto = watch, serving the polling snapshot (re-listed every 30 s) until the twin syncs; on = require "
+        "the twin to sync at start; off = polling only",
     )
     server_p.add_argument(
         "--access-log", action="store_true",
@@ -159,7 +161,9 @@ def build_parser() -> argparse.ArgumentParser:
     server_p.add_argument("--workers", type=int, default=0,
                           help="fleet worker processes (2 or more: not yet ported, ROADMAP Queue 1 item 10)")
     server_p.add_argument("--journal", default="",
-                          help="watch-event journal directory (not yet ported, ROADMAP Queue 1 item 10)")
+                          help="crash-safe watch-event journal directory: the twin restores from its newest "
+                          "checkpoint and the records after it at start, and records every accepted event "
+                          "(needs the live twin)")
     server_p.add_argument("--standby", action="store_true",
                           help="run as the HA hot standby (not yet ported, ROADMAP Queue 1 item 10)")
     server_p.add_argument("--handover", action="store_true",
@@ -187,6 +191,34 @@ def build_parser() -> argparse.ArgumentParser:
         "-e", "--extended-resources", default="", help="comma-separated extended resource sections (gpu,open-local)",
     )
     top_p.add_argument("--timeout", type=float, default=60.0, help="per-request client timeout seconds")
+    replay_p = sub.add_parser(
+        "replay", help="reconstruct and replay a recorded watch-event journal",
+        description=(
+            "replay a journal recorded by `simon server --journal`: reconstruct the live twin at any recorded "
+            "generation and stream the accepted event history — at N× recorded speed or as fast as possible — "
+            "through the apply path the live dispatch uses, feeding the capacity observatory as it goes. Prints "
+            "one JSON summary line: record counts, final generation, the reconstructed twin's content "
+            "fingerprint, event throughput and the final capacity sample. --schedule also places a probe "
+            "Deployment on the reconstructed cluster through the kernel on the card"
+        ),
+    )
+    replay_p.add_argument("journal", help="journal directory recorded by `simon server --journal`")
+    replay_p.add_argument("--speed", type=float, default=0.0,
+                          help="pace the stream at N× the recorded inter-event gaps (0 = as fast as possible, the "
+                          "default; gaps clamp at 30s)")
+    replay_p.add_argument("--at-generation", type=int, default=None, metavar="G",
+                          help="stop once the twin reaches generation G (default: the full history)")
+    replay_p.add_argument("--capacity", action=argparse.BooleanOptionalAction, default=True,
+                          help="feed the capacity observatory during replay and include the final "
+                          "utilization/fragmentation sample in the summary")
+    replay_p.add_argument("--schedule", type=int, default=0, metavar="PODS",
+                          help="after replay, schedule a Deployment of PODS replicas (100m, 256Mi) onto the "
+                          "reconstructed cluster and report placements")
+    replay_p.add_argument("--events", action="store_true",
+                          help="also print one JSON line per replayed record (type, generation, resource) before the "
+                          "summary")
+    replay_p.add_argument("-o", "--output-file", default="", help="also write the JSON summary to a file")
+    replay_p.add_argument("--device", default=None, help=device_help)
     sub.add_parser("version", help="print version", description="print version and commit id")
     return parser
 
@@ -417,6 +449,84 @@ def run_top(args) -> int:
         time.sleep(max(0.1, args.interval))
 
 
+def run_replay(args) -> int:
+    """``simon replay <journal>``: stream the recorded accepted-event
+    history through the live apply path, optionally paced, feeding the
+    capacity observatory and, with ``--schedule``, ``simulate()`` on the
+    card; one JSON summary line (``opensim_tpu/cli/main.py:1074-1160``)."""
+    import json
+    import time
+
+    from ..server.journal import replay_events
+
+    journal = user_path(args.journal, label="journal")
+    if not os.path.isdir(journal):
+        print(f"simon replay: {journal}: not a journal directory", file=sys.stderr)
+        return 1
+    capacity = None
+    if args.capacity:
+        from ..obs.capacity import CapacityEngine
+
+        capacity = CapacityEngine()
+    counts = {"ev": 0, "rb": 0, "ck": 0}
+    twin = None
+    t0 = time.time()
+    for rec, twin, change in replay_events(journal, speed=args.speed, at_generation=args.at_generation):
+        counts[str(rec.get("t"))] = counts.get(str(rec.get("t")), 0) + 1
+        if capacity is not None:
+            capacity.on_replay(rec, twin, change)
+        if args.events:
+            print(json.dumps({"type": rec.get("t"), "generation": rec.get("gen"), "resource": rec.get("f", ""),
+                              "event": rec.get("k", "")}, sort_keys=True))
+    wall_s = time.time() - t0
+    if twin is None:
+        print(f"simon replay: {journal}: no replayable records", file=sys.stderr)
+        return 1
+    summary = {
+        "journal": args.journal,
+        "records": sum(counts.values()),
+        "events": counts.get("ev", 0),
+        "rebases": counts.get("rb", 0),
+        "checkpoints": counts.get("ck", 0),
+        "generation": twin.generation,
+        "fingerprint": twin.fingerprint(),
+        "wall_s": round(wall_s, 3),
+        "speed": args.speed,
+        "events_per_s": round(counts.get("ev", 0) / wall_s, 1) if wall_s > 0 else 0.0,
+    }
+    if capacity is not None:
+        s = capacity.sample()
+        if s is not None:
+            summary["capacity"] = {
+                "nodes": s.nodes, "pods_bound": s.pods_bound, "pods_pending": s.pods_pending,
+                "utilization": {k: round(v, 4) for k, v in s.utilization.items()},
+                "fragmentation": {k: round(v, 4) for k, v in s.fragmentation.items()},
+            }
+    if args.schedule > 0:
+        # the reconstructed twin is schedulable state, not a data dump: a
+        # probe Deployment placed on it through the kernel
+        from ..engine.simulator import AppResource, simulate
+        from ..models import fixtures as fx
+        from ..models.objects import ResourceTypes
+
+        rt = ResourceTypes()
+        rt.deployments.append(fx.make_fake_deployment("replay-probe", args.schedule, "100m", "256Mi"))
+        t1 = time.time()
+        result = simulate(twin.materialize(), [AppResource("replay", rt)], device=args.device)
+        summary["schedule"] = {
+            "requested": args.schedule,
+            "scheduled": args.schedule - len(result.unscheduled_pods),
+            "unscheduled": len(result.unscheduled_pods),
+            "wall_s": round(time.time() - t1, 3),
+        }
+    line = json.dumps(summary, sort_keys=True)
+    print(line)
+    if args.output_file:
+        with open(user_path(args.output_file, label="--output-file"), "w") as f:
+            f.write(line + "\n")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     level = LOG_LEVELS.get(os.environ.get("LogLevel", "info").lower(), logging.INFO)
     logging.basicConfig(level=level, format="%(levelname)s %(message)s")
@@ -435,7 +545,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                          device=args.device)
         except (OSError, ValueError, RuntimeError, NotImplementedError) as e:
             # the modes of later slices, a bad path, a busy port, no card
-            # without --device cpu: refused before it listens
+            # without --device cpu, --watch on without a kubeconfig or a
+            # twin that cannot sync: refused before it listens
             print(f"simon server: {e}", file=sys.stderr)
             return 1
     if args.command == "top":
@@ -444,7 +555,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         except KeyboardInterrupt:
             return 0
     runs = {"apply": run_apply, "explain": run_explain, "defrag": run_defrag, "drain": run_defrag,
-            "campaign": run_campaign_cmd}
+            "campaign": run_campaign_cmd, "replay": run_replay}
     if args.command in runs:
         try:
             return runs[args.command](args)

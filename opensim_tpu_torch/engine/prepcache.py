@@ -19,14 +19,19 @@ their changes instead:
       positions a fresh expansion would give them;
     * ``drop_mask_for_scaled`` — flip pod-validity bits for the pods a
       scale request removes, instead of re-encoding the shrunk cluster.
+- ``twin_pod_delta``: the live twin's O(changes) maintenance of a base
+  entry (``server/watch.py``) — pods ADDED by watch events inserted at the
+  end of the bare region through a fork of the encoder, pods DELETED kept
+  in the stream as valid-mask flips (``CacheEntry.base_drop``), refused
+  past the compaction threshold.
 - ``simulate_cached``: one simulation through the cache.
 
 A delta's stream has the pod order of a fresh ``prepare()`` and its encoded
 arrays equal the fresh ones (template, domain and vocabulary ids may be
 numbered differently; the kernel does not care). Its tensors go to the
 base's device; with a cache entry, only the leaves the delta changed are
-uploaded (``CacheEntry.dev_map``). The live twin's deltas and the fleet's
-shared-memory publication are ROADMAP Queue 1 item 10.
+uploaded (``CacheEntry.dev_map``). The serving fleet's shared-memory
+publication is ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -193,6 +198,25 @@ class CacheStats:
                 "evictions": self.evictions}
 
 
+# drop-mask compaction telemetry: how many times twin_pod_delta REFUSED a
+# delta because the masked rows crossed the threshold, forcing the caller's
+# full rebuild (the event that re-compacts the stream). Process-global: the
+# refusal site has no cache handle.
+_compaction_lock = threading.Lock()
+_compactions = 0  # guarded-by: _compaction_lock
+
+
+def note_compaction() -> None:
+    global _compactions
+    with _compaction_lock:
+        _compactions += 1
+
+
+def compactions_total() -> int:
+    with _compaction_lock:
+        return _compactions
+
+
 class CacheEntry:
     """One cached ``Prepared`` plus everything reuse needs: a pristine
     bind-state snapshot, a lock serializing uses of the (shared) pod
@@ -200,7 +224,10 @@ class CacheEntry:
     so delta builds re-upload only the leaves they changed. Entries derived
     from a base share the base's lock — their pod streams alias the same
     objects. ``drop_mask`` is the pod-validity flip a derived entry serves
-    with (a scale request's). The entry turns on its Prepared's
+    with (a scale request's, joined with its base's ``base_drop``);
+    ``base_drop`` is a live-twin base entry's: the pods watch events
+    deleted, kept in the cached stream with their validity flipped. The
+    entry turns on its Prepared's
     ``inputs_memo``: a hit reuses the kernel's inputs, which live on the
     device as long as the entry does."""
 
@@ -208,12 +235,16 @@ class CacheEntry:
                  watch: Optional[WatchSnapshot] = None) -> None:
         self.key = key
         self.prep = prep
-        self.base = base
+        # the base lends its lock and its watch list, and no reference: a
+        # live twin's lineage derives a new base entry every generation, and
+        # a chain of bases would keep every old Prepared (and its tensors on
+        # the card) alive
         self.lock = base.lock if base is not None else threading.RLock()
         self.bind_snap = snapshot_bind_state(prep) if prep is not None else []
         if prep is not None and prep.inputs_memo is None:
             prep.inputs_memo = {}
         self.drop_mask: Optional[np.ndarray] = None
+        self.base_drop: Optional[np.ndarray] = None  # guarded-by: lock
         self._dev_map: Optional[dict] = None  # guarded-by: lock
         # (object, version at fingerprint time): the stale-entry guard.
         # Derived entries share the base's list: their stream aliases the
@@ -519,7 +550,8 @@ def pad_drop_mask(mask: Optional[np.ndarray], n: int) -> Optional[np.ndarray]:
     """Extend a base-entry drop mask to a longer derived stream. Safe for
     both derive paths: ``derive_with_apps`` appends at the end and
     ``extend_with_nodes`` splices only above the bare-pod prefix, while
-    drop masks only ever flag bare pods — set bits never move."""
+    drop masks only ever flag bare pods — set bits never move (a twin
+    delta that inserts pods builds its own mask)."""
     if mask is None:
         return None
     if len(mask) >= n:
@@ -538,6 +570,76 @@ def union_drop_masks(a: Optional[np.ndarray], b: Optional[np.ndarray], n: int) -
     if b is None:
         return a
     return a | b
+
+
+@gc_paused()
+def twin_pod_delta(base_entry: CacheEntry, key: str, added: List[Pod], removed_keys: set,
+                   watch: Optional[WatchSnapshot] = None) -> Optional[CacheEntry]:
+    """O(changes) base-entry maintenance for the live twin
+    (``server/watch.py``): a new base entry after a batch of pod ADDED and
+    DELETED watch events, without re-expanding or re-encoding the cluster.
+
+    - `added` pods go into a fork of the cached encoder and are inserted at
+      the END OF THE BARE REGION, where a fresh ``prepare()`` of the
+      re-listed cluster puts them (the twin appends new pods to its pod
+      list in event order). Every later row moves, so the new Prepared gets
+      its own (empty) ``inputs_memo`` from the new entry.
+    - `removed_keys`, ``(namespace, name)`` pairs, become valid-mask flips
+      in ``CacheEntry.base_drop``: the pods stay in the stream and every
+      launch skips them, as a scale request's dropped pods. A delete-only
+      delta shares the base's Prepared (its kernel inputs too): drops
+      travel as pod validity, never into the inputs.
+
+    Returns None where the entry cannot express the delta — no encoder, a
+    removed pod outside the bare region, or more masked rows than
+    ``max(64, P // 4)`` (the compaction threshold: the caller's full
+    rebuild then compacts the stream). MUST be called with
+    ``base_entry.lock`` held and bind state restored."""
+    prep = base_entry.prep
+    if prep is None or prep.encoder is None or prep.ds_group_sizes is None:
+        return None
+    t0 = time.monotonic()
+    nb = prep.n_bare
+    drop = (np.array(base_entry.base_drop, dtype=bool, copy=True) if base_entry.base_drop is not None
+            else np.zeros((len(prep.ordered),), dtype=bool))
+    if removed_keys:
+        found = set()
+        for i in range(nb):
+            p = prep.ordered[i]
+            k = (p.metadata.namespace, p.metadata.name)
+            if k in removed_keys:
+                drop[i] = True
+                found.add(k)
+        if removed_keys - found:
+            # a deletion not in the bare prefix (never admissible, or in a
+            # workload expansion): only the full rebuild expresses it
+            return None
+    if added:
+        enc = prep.encoder.fork()
+        ids_new = [enc.add_pod(p, (lambda p=p: _owner_selector(p)), hint=_tmpl_hint(p)) for p in added]
+        new_prep = _assemble_delta(
+            prep, base_entry, enc,
+            ordered=list(prep.ordered[:nb]) + list(added) + list(prep.ordered[nb:]),
+            tmpl_parts=[prep.tmpl_ids[:nb], ids_new, prep.tmpl_ids[nb:]],
+            forced_parts=[prep.forced[:nb], [bool(p.spec.node_name) for p in added], prep.forced[nb:]],
+            n_cluster=prep.n_cluster + len(added),
+            n_bare=nb + len(added),
+            ds_group_sizes=list(prep.ds_group_sizes),
+        )
+        drop = np.concatenate([drop[:nb], np.zeros((len(added),), bool), drop[nb:]])
+    else:
+        new_prep = prep  # drops alone never re-encode: the mask is the delta
+    # deleted pods stay as masked rows, so add/delete churn would grow the
+    # stream without bound: past the threshold the delta is refused and the
+    # caller re-prepares the compacted cluster
+    n_dropped = int(drop.sum())
+    if n_dropped > max(64, len(drop) // 4):
+        note_compaction()
+        return None
+    entry = CacheEntry(key, new_prep, base=base_entry, watch=watch)
+    entry.base_drop = drop if n_dropped else None
+    PREP_STATS.record("twin_delta", time.monotonic() - t0)
+    return entry
 
 
 # ---------------------------------------------------------------------------

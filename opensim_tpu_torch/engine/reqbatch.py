@@ -64,7 +64,9 @@ class BatchItem:
     apps: List[AppResource]  # its own apps (already appended to the stream)
     lo: int  # its app slice in prep.ordered (half-open)
     hi: int
-    # report-level drops: scale-removed pods, as indices over the batch stream
+    # report-level drops: scale-removed pods and the live twin's
+    # event-deleted pods (CacheEntry.base_drop), as indices over the batch
+    # stream
     drops: set = field(default_factory=set)
     explain: bool = False
     # the rider's request deadline: a rider already expired before the

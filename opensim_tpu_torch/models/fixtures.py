@@ -901,6 +901,69 @@ def storm_requests(n_pods: int, explain_rider: bool = False) -> List[tuple]:
     return storm
 
 
+def twin_pods(n_nodes: int, n: int, tag: str) -> List[dict]:
+    """`n` pods as a watch stream delivers them ADDED: Running, bound
+    round-robin over the fleet's first `n_nodes` nodes, each in the shape of
+    one of the server plan's requested workloads (bench-SERVER_BOUND ...,
+    cycling: its cpu and memory, its ``app`` label), named
+    ``<tag>-<i>``."""
+    out = []
+    for i in range(n):
+        w = SERVER_BOUND + i % SERVER_BOUND
+        cpu, memory, _opts = _plan_workload(w)
+        pod = make_fake_pod(f"{tag}-{i}", cpu, memory, with_labels({"app": f"bench-{w}"}),
+                            with_node_name(f"node-{i % n_nodes:05d}"))
+        raw = json.loads(json.dumps(pod.raw))
+        raw["status"] = {"phase": "Running"}
+        out.append(raw)
+    return out
+
+
+def twin_wave(live: List[dict], n_nodes: int, n_add: int, n_del: int, n_new_nodes: int = 0,
+              tag: str = "w") -> List[tuple]:
+    """The watch events of one wave, as ``(op, path, object)`` for a stub
+    apiserver (``server/stubapi.StubApiServer``: ``upsert`` or ``delete``):
+    `n_add` pods ADDED (:func:`twin_pods`), `n_del` of the pods in `live`
+    DELETED (spread evenly over it, the pods a wave's churn removes; `live`
+    is updated in place to what the stub lists after the wave) and
+    `n_new_nodes` nodes of the fleet's shape ADDED (``node-<n_nodes + i>``),
+    interleaved in that order, one add, one delete, one node at a time."""
+    step = max(1, len(live) // max(n_del, 1))
+    doomed = live[::step][:n_del]
+    gone = {(d["metadata"].get("namespace") or "default", d["metadata"]["name"]) for d in doomed}
+    added = twin_pods(n_nodes, n_add, tag)
+    nodes = [_fleet_node(n_nodes + i).raw for i in range(n_new_nodes)]
+    ops: List[tuple] = []
+    for i in range(max(n_add, n_del, n_new_nodes)):
+        if i < n_add:
+            ops.append(("upsert", "/api/v1/pods", added[i]))
+        if i < n_del:
+            ops.append(("delete", "/api/v1/pods", doomed[i]))
+        if i < n_new_nodes:
+            ops.append(("upsert", "/api/v1/nodes", nodes[i]))
+    live[:] = [d for d in live if (d["metadata"].get("namespace") or "default", d["metadata"]["name"]) not in gone]
+    live.extend(added)
+    return ops
+
+
+def node_label_wave(i: int = 0, label: str = "twin-wave") -> List[tuple]:
+    """One node MODIFIED: fleet node `i` with one more label (an in-place
+    node change, which a live twin cannot fold as a delta)."""
+    node = json.loads(json.dumps(_fleet_node(i).raw))
+    node["metadata"].setdefault("labels", {})[label] = "modified"
+    return [("upsert", "/api/v1/nodes", node)]
+
+
+def send_wave(stub, ops: List[tuple]) -> None:
+    """Apply a wave's ops to a stub apiserver, each one watch event."""
+    for op, path, obj in ops:
+        if op == "upsert":
+            stub.upsert(path, obj)
+        else:
+            meta = obj["metadata"]
+            stub.delete(path, meta["name"], meta.get("namespace") or "default")
+
+
 def lane_masks(n_pods: int, lanes: int) -> np.ndarray:
     """[lanes, n_pods] bool pod masks of a request batch's shape, for the
     counting grids' checks: lane 0 sees the whole stream, lane s its first

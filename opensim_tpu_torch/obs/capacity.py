@@ -6,11 +6,11 @@ the per-node utilization *distribution* (bucket counts moved between fixed
 utilization buckets) and the spread moments (Σu, Σu² per resource) so that
 one event moves them in O(1); a :meth:`~CapacityEngine.sample` folds them
 into fragmentation (largest free node vs total free) and the top-K hottest
-nodes once per generation, memoized. The port's server bootstraps the
-engine per snapshot key (the polling snapshot); the event-fed methods
-(:meth:`~CapacityEngine.on_twin_change`, :meth:`~CapacityEngine.on_replay`)
-are the live twin's and its journal's feed, which come with ROADMAP Queue 1
-item 10.
+nodes once per generation, memoized. With the live twin the watch
+supervisor bootstraps the engine at every sync and rebase and feeds it one
+:meth:`~CapacityEngine.on_twin_change` per accepted event; ``simon replay``
+feeds it each journal record (:meth:`~CapacityEngine.on_replay`). On the
+polling snapshot the server bootstraps it per snapshot key.
 
 Headroom is probed, not guessed: the max additional replicas of each
 registered workload profile (``OPENSIM_HEADROOM_PROFILES``) comes from a
@@ -174,10 +174,11 @@ class CapacityEngine:
     """The incrementally-maintained capacity view. Thread-safe: events
     may be fed while scrapes and reports read samples.
 
-    Wiring: the port's server (polling snapshot or a fixed cluster)
-    bootstraps it lazily per snapshot key through :meth:`ensure_bootstrap`;
-    the live twin's watch supervisor, which feeds it one
-    :meth:`on_twin_change` per accepted event, is ROADMAP Queue 1 item 10."""
+    Wiring: a live-twin server attaches the engine to its
+    :class:`~..server.watch.WatchSupervisor` (bootstrap on sync, one
+    :meth:`on_twin_change` per accepted event, :meth:`sample` on the
+    maintenance tick); a polling or fixed-cluster server bootstraps it
+    lazily per snapshot key through :meth:`ensure_bootstrap`."""
 
     def __init__(self, topk: Optional[int] = None, timeline: Optional[Timeline] = None) -> None:
         self._lock = threading.RLock()
@@ -702,12 +703,9 @@ def headroom_probe(
                 if got is None:
                     return 0  # empty stream: nothing to probe against
                 prep, slices = got
-                # the reference also drops the live twin's event-deleted
-                # pods here (its entry's base_drop); the port's snapshot is
-                # polled, deletes nothing between lists, and its entries
-                # carry no such mask until the twin comes (ROADMAP Queue 1
-                # item 10), so the probe's stream drops nothing
-                drop = None
+                # the live twin's event-deleted pods stay in its base
+                # stream as masked rows: every probe launch drops them
+                drop = prepcache.pad_drop_mask(base.base_drop, len(prep.ordered))
                 try:
                     got_k = _probe_max(prep, slices[0], drop, kmax)
                 finally:

@@ -21,10 +21,12 @@ __all__ = [
     "CounterVec",
     "DEFAULT_BUCKETS",
     "FAMILIES",
+    "FRESHNESS_BUCKETS",
     "HistogramVec",
     "MetricsRecorder",
     "RECORDER",
     "UTILIZATION_BUCKETS",
+    "WATCH_APPLY_BUCKETS",
     "escape_label_value",
     "family_header",
     "parse_metrics",
@@ -40,6 +42,20 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
 #: requests folded into one batched launch (the admission queue's
 #: OPENSIM_BATCH_MAX defaults to 16)
 BATCH_SIZE_BUCKETS: Tuple[float, ...] = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0)
+
+#: watch-event application is µs-scale dict surgery; the request bucket
+#: ladder would collapse the whole distribution into its first bucket
+WATCH_APPLY_BUCKETS: Tuple[float, ...] = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+    0.1, 0.5,
+)
+
+#: event-to-journaled freshness (obs/fleetobs.py): ms scale up to the
+#: minutes a wedged writer would show
+FRESHNESS_BUCKETS: Tuple[float, ...] = (
+    0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+    10.0, 30.0, 60.0,
+)
 
 #: per-node utilization is a ratio in [0, 1+] (requests can legitimately
 #: exceed allocatable on over-committed nodes) — capacity-shaped buckets
@@ -112,6 +128,27 @@ FAMILIES: Dict[str, Tuple[str, str]] = {
     "simon_cluster_nodes": ("Nodes in the observed cluster", "gauge"),
     "simon_cluster_pods_bound": ("Counted pods bound to a node", "gauge"),
     "simon_cluster_pods_pending": ("Counted pods with no node (unschedulable pressure)", "gauge"),
+    # the live twin (server/watch.py)
+    "simon_watch_state": ("Live-twin state machine (one-hot)", "gauge"),
+    "simon_watch_events_total": ("Watch events consumed by kind and resource", "counter"),
+    "simon_watch_reconnects_total": ("Watch stream reconnect attempts", "counter"),
+    "simon_watch_relists_total": ("Full relists (bootstrap/410/anti-entropy)", "counter"),
+    "simon_watch_gone_total": ("410 Gone resourceVersion expiries", "counter"),
+    "simon_twin_drift_total": ("Drifted objects repaired, by resource", "counter"),
+    "simon_twin_resyncs_total": ("Anti-entropy passes that found drift", "counter"),
+    "simon_twin_generation": ("Live-twin generation (bumps on every applied event)", "gauge"),
+    "simon_watch_apply_seconds": ("Watch-pipeline latency: event receipt to twin applied", "histogram"),
+    # the watch-event journal (server/journal.py); type is ev, rb or ck
+    "simon_journal_records_total": ("Journal records written by type (ev/rb/ck)", "counter"),
+    "simon_journal_bytes_total": ("Journal bytes written (framing included)", "counter"),
+    "simon_journal_dropped_total": ("Records dropped at the bounded writer queue", "counter"),
+    "simon_journal_fsync_seconds": ("Journal fsync latency", "histogram"),
+    "simon_journal_recoveries_total": ("Journal recovery attempts by outcome", "counter"),
+    # event-to-servable freshness (obs/fleetobs.py): the single-process
+    # server's pipeline ends at the journal stage
+    "simon_fleet_freshness_seconds": (
+        "Event-to-servable latency by pipeline stage, from watch-event acceptance", "histogram",
+    ),
 }
 
 
@@ -251,12 +288,21 @@ class MetricsRecorder:
         self.lock = threading.RLock()
         self.phase_seconds = HistogramVec("simon_phase_seconds", ("phase", "endpoint"))
         self.request_seconds = HistogramVec("simon_request_seconds", ("endpoint", "status"))
+        # the watch pipeline: event receipt to twin applied, fed from the
+        # supervisor's dispatch (server/watch.py)
+        self.watch_apply = HistogramVec("simon_watch_apply_seconds", (), buckets=WATCH_APPLY_BUCKETS)
 
     def observe_request(self, endpoint: str, seconds: float, status: str = "ok") -> None:
         """Whole-request latency, recorded for every outcome (labeled with
         the trace status), with or without tracing enabled."""
         with self.lock:
             self.request_seconds.observe(seconds, (endpoint, status))
+
+    def observe_watch_apply(self, seconds: float) -> None:
+        """One watch event's receipt→applied latency (``server/watch.py``
+        dispatch, the twin's own lock included)."""
+        with self.lock:
+            self.watch_apply.observe(seconds, ())
 
     def observe_trace(self, trace) -> None:
         """The span sink: fold a finished trace's phase spans into the
@@ -278,12 +324,14 @@ class MetricsRecorder:
 
     def render_lines(self) -> List[str]:
         with self.lock:
-            return self.phase_seconds.render_lines() + self.request_seconds.render_lines()
+            return (self.phase_seconds.render_lines() + self.request_seconds.render_lines()
+                    + self.watch_apply.render_lines())
 
     def reset(self) -> None:
         with self.lock:
             self.phase_seconds.reset()
             self.request_seconds.reset()
+            self.watch_apply.reset()
 
 
 RECORDER = MetricsRecorder()

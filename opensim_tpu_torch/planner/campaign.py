@@ -31,8 +31,9 @@ mode-independent. Steps are identified by stable ids, never by pod names,
 which carry a process counter.
 
 Step types are declared in :data:`STEP_TYPES` via :func:`register_step`.
-The ``from-journal`` step parses, but running it raises: it replays the
-live twin's journal (``server/journal.py``), ROADMAP Queue 1 item 10.
+The ``from-journal`` step replays a generation range of the live twin's
+journal (``server/journal.py``) through the campaign's own admission and
+scan path.
 """
 
 from __future__ import annotations
@@ -1585,10 +1586,106 @@ class FromJournalStep(Step):
         return cls(index, name, str(journal), gen_from, gen_to)
 
     def run(self, ex, rep):
-        raise NotImplementedError(
-            f"step {self.where}: from-journal replays the live twin's watch-event journal "
-            "(server/journal.py), ROADMAP Queue 1 item 10, not yet ported to the PyTorch/CUDA package"
-        )
+        from ..server.journal import iter_records
+
+        path = _resolve_path(self.journal)
+        if not os.path.isdir(path):
+            raise CampaignError(
+                f"{path!r} is not a journal directory", step=self.where, field="journal"
+            )
+        # NET effect of the range, per object key in record order: the last
+        # event wins (an add later deleted inside the window never
+        # materializes) — the replayed state at toGeneration, applied
+        # through the campaign's own admission/scan path.
+        node_final: Dict[str, Optional[Node]] = {}
+        pod_final: Dict[Tuple[str, str], Optional[dict]] = {}
+        n_events = 0
+        for rec in iter_records(path):
+            if rec.get("t") != "ev":
+                continue
+            gen = int(rec.get("gen") or 0)
+            if gen <= self.gen_from or (self.gen_to is not None and gen > self.gen_to):
+                continue
+            f_res, kind, obj = rec.get("f"), rec.get("k"), rec.get("o") or {}
+            meta = obj.get("metadata") or {}
+            if f_res == "nodes":
+                n_events += 1
+                name = str(meta.get("name") or "")
+                if kind == "DELETED":
+                    node_final[name] = None
+                elif kind in ("ADDED", "MODIFIED"):
+                    node_final[name] = Node.from_dict(obj)
+            elif f_res == "pods":
+                n_events += 1
+                key = (str(meta.get("namespace") or ""), str(meta.get("name") or ""))
+                if kind == "DELETED":
+                    pod_final[key] = None
+                elif kind in ("ADDED", "MODIFIED"):
+                    phase = (obj.get("status") or {}).get("phase", "")
+                    pod_final[key] = None if phase in ("Succeeded", "Failed") else obj
+        rep.journal_events = n_events
+        if not n_events:
+            return
+
+        fresh_adds = []
+        for name, node in node_final.items():
+            if node is None:
+                continue
+            si = ex.node_by_name.get(name)
+            if si is None:
+                fresh_adds.append(node)
+            elif ex.node_alive[si]:
+                # MODIFIED of a node the campaign already tracks: capacity
+                # changes need a rebase, not a delta — reported loudly as a
+                # skipped event, never silently replayed with stale alloc
+                rep.unschedulable.append(
+                    {
+                        "pod": f"<node {ex._node_stable_id(si)}>",
+                        "reason": "journal node MODIFIED skipped: in-place node "
+                        "capacity changes are outside the campaign delta envelope "
+                        "(replay from a checkpoint at this generation instead)",
+                    }
+                )
+        if fresh_adds:
+            ex.add_nodes(fresh_adds, rep, self.where)
+        displaced: List[int] = []
+        for name, node in node_final.items():
+            if node is not None:
+                continue
+            si = ex.node_by_name.get(name)
+            if si is None or not ex.node_alive[si]:
+                continue
+            for i in ex.bound_on(si, include_ds=True):
+                if ex.is_ds[i]:
+                    ex.delete_pod(i)
+                    rep.deleted += 1
+                else:
+                    ex.displace(i)
+                    displaced.append(i)
+            ex.node_sched[si] = False
+            ex.node_alive[si] = False
+            rep.nodes_removed.append(ex._node_stable_id(si))
+        key_to_idx = {
+            (p.metadata.namespace, p.metadata.name): i
+            for i, p in enumerate(ex.pods)
+            if ex.alive[i]
+        }
+        pod_adds: List[Pod] = []
+        for key, obj in pod_final.items():
+            i = key_to_idx.pop(key, None)
+            if i is not None:
+                # replace-or-delete of a pod the campaign already tracks
+                ex.delete_pod(i)
+                rep.deleted += 1
+            if obj is not None:
+                pod_adds.append(Pod.from_dict(obj))
+        new: List[int] = []
+        if pod_adds:
+            rt = ResourceTypes()
+            rt.pods = pod_adds
+            new = ex.admit_app(f"journal-{self.index}", rt, self.where)
+            rep.pods_added += len(new)
+        ex.run_scan(displaced + new + ex.pending_idxs(), rep)
 
 
 # ---------------------------------------------------------------------------

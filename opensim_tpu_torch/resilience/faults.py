@@ -11,6 +11,21 @@ point                  fires inside
 ``prep.encode``        ``engine/simulator.prepare`` before the encoder build
 ``cache.stale``        ``PrepareCache.check_fresh`` (raises
                        ``StaleFingerprintError`` like a mid-flight touch)
+``watch.disconnect``   the watch event read loop (``server/watch.py``) — the
+                       stream drops mid-flight and must reconnect
+``watch.gone``         the watch event read loop — the apiserver expires the
+                       resourceVersion (``410 Gone``) and the consumer must
+                       relist and rebase
+``watch.drop_event``   watch event dispatch — the event is LOST (the consumer
+                       skips it), so only the anti-entropy pass can notice
+``watch.reorder``      watch event dispatch — the event is delivered AFTER
+                       its successor (an out-of-order stream)
+``journal.write``      the journal writer thread's record write
+                       (``server/journal.py``) — the twin keeps serving,
+                       recording degrades loudly
+``journal.fsync``      the journal writer's fsync — as ``journal.write``
+``journal.corrupt``    ``Journal.recover`` — recovery from a poisoned journal
+                       degrades to a full relist with a typed warning
 =====================  ======================================================
 
 Activation, either route:
@@ -44,6 +59,13 @@ FAULT_POINTS = (
     "snapshot.http",
     "prep.encode",
     "cache.stale",
+    "watch.disconnect",
+    "watch.gone",
+    "watch.drop_event",
+    "watch.reorder",
+    "journal.write",
+    "journal.fsync",
+    "journal.corrupt",
 )
 
 

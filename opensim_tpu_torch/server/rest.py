@@ -17,9 +17,15 @@ invalid — and is placed by one launch of the bind-scan kernel on the card
 (``fast_scan_kernel``, its ``[explain]`` variant for ``explain=1``). There
 is no fallback: a failed build or launch answers 500.
 
-The snapshot comes from an apiserver through ``server/snapshot.py``
-(``--kubeconfig``), cached for ``snapshot_ttl_s`` and fingerprinted, or is
-a fixed ``base_cluster``. Requests go through the admission queue
+The snapshot comes from the live twin (``server/watch.py``, ``watch=``: a
+watch supervisor keeping an event-maintained mirror of the cluster and a
+warm base entry of the encode cache, folded by O(changes) deltas; requests
+are tagged ``X-Simon-Snapshot: stale`` while it is degraded), from an
+apiserver through ``server/snapshot.py`` (``--kubeconfig``), cached for
+``snapshot_ttl_s`` and fingerprinted — the fallback until the twin syncs —
+or is a fixed ``base_cluster``. With a ``journal=`` (``server/journal.py``)
+the twin restores from its crash-safe journal at start and records every
+accepted event. Requests go through the admission queue
 (``server/admission.py``, ``OPENSIM_ADMISSION=on``, the default): a
 bounded queue with a typed 503 and ``Retry-After`` past its bound, two
 priority lanes, a coalescing window that folds concurrent batchable
@@ -33,7 +39,7 @@ serves single-flight per endpoint, the reference's TryLock 503
 locks of their own. A headroom probe is one grid launch of the kernel for
 its ladder and one per bisection step; a campaign one launch of the one
 scan per scheduling pass. Not ported yet, and refused rather than
-approximated: the live twin, the journal, the serving fleet, the memory
+approximated: the serving fleet and its hot standby, the memory
 observatory, the time series and the profiler (ROADMAP Queue 1 item 10)
 — their routes answer 501 naming the item.
 """
@@ -147,7 +153,8 @@ class _Metrics:
         with self.lock:
             setattr(self, counter, getattr(self, counter) + n)
 
-    def render(self, prep_cache: Optional[prepcache.PrepareCache] = None, capacity=None, admission=None) -> str:
+    def render(self, prep_cache: Optional[prepcache.PrepareCache] = None, capacity=None, admission=None,
+               watch=None, journal=None) -> str:
         esc, hdr = escape_label_value, family_header
         with self.lock:
             lines = [
@@ -177,10 +184,18 @@ class _Metrics:
                 f"simon_snapshot_stale_served_total {self.snapshot_stale_served}",
                 *hdr("simon_stale_prep_retries_total"), f"simon_stale_prep_retries_total {self.stale_prep_retries}",
             ]
+        # the live twin: the state machine one-hot, events by kind and
+        # resource, reconnects, relists, drift, the generation
+        if watch is not None:
+            lines += watch.metrics_lines()
         # the admission queue: depth, batch sizes, sheds by reason and
         # lane, time in queue, the pipeline's stage times
         if admission is not None:
             lines += admission.metrics_lines()
+        # the watch-event journal: records and bytes written, drops, fsync
+        # latency, recoveries by outcome
+        if journal is not None:
+            lines += journal.metrics_lines()
         fired = sorted(faults.fault_stats().items())
         if fired:
             lines += hdr("simon_faults_injected_total")
@@ -314,8 +329,11 @@ class _BatchState:
 
 
 class SimonServer:
-    """The serving state: the snapshot (polled from `kubeconfig` and cached
-    for `snapshot_ttl_s`, or the fixed `base_cluster`), the encode cache
+    """The serving state: the snapshot (the live twin `watch`, a
+    ``WatchSupervisor`` whose ``prep_cache`` this server sets, once it has
+    synced; polled from `kubeconfig` and cached for `snapshot_ttl_s` until
+    then or without one; or the fixed `base_cluster`), the twin's
+    `journal` (flushed and closed by :meth:`close`), the encode cache
     (`prep_cache`: None builds one unless ``OPENSIM_PREP_CACHE=0``, False
     disables it and every request prepares afresh), the admission queue
     (`admission`: None follows ``OPENSIM_ADMISSION``, on by default; False
@@ -324,7 +342,8 @@ class SimonServer:
     (`capacity`: None builds the default engine, False disables it), the
     device the simulations run on (the card unless `device` names another;
     without a card this raises here, before any request), and the headroom
-    and campaign locks. :meth:`close` stops the admission queue."""
+    and campaign locks. :meth:`close` stops the admission queue, the twin
+    and the journal."""
 
     def __init__(
         self,
@@ -336,8 +355,14 @@ class SimonServer:
         admission=None,
         device: DeviceLike = None,
         capacity=None,
+        watch=None,
+        journal=None,
     ):
         self.device = resolve_device(device)
+        # the live twin: once synced, requests serve from its event-fed
+        # mirror (tagged stale while degraded); until then, the polling
+        # snapshot below
+        self.watch = watch
         self.kubeconfig = kubeconfig
         self.master = master
         self.base_cluster = base_cluster
@@ -378,6 +403,17 @@ class SimonServer:
         if capacity is None:
             capacity = CapacityEngine()
         self.capacity = capacity or None
+        if self.watch is not None:
+            # the supervisor keeps this server's base entry warm and feeds
+            # the capacity view event by event
+            self.watch.prep_cache = self.prep_cache
+            if self.capacity is not None:
+                self.watch.capacity = self.capacity
+        # the twin's journal: the supervisor restores from it at start and
+        # records every accepted event; kept here for /metrics and close()
+        self.journal = journal
+        if journal is not None and self.watch is not None:
+            self.watch.attach_journal(journal)
         # serializes headroom probes (each is kernel launches over the whole
         # snapshot) and guards the published-generation watermark below
         self._headroom_lock = threading.Lock()
@@ -389,22 +425,55 @@ class SimonServer:
 
     def metrics_text(self) -> str:
         """The ``/metrics`` body."""
-        return self.metrics.render(self.prep_cache, capacity=self.capacity, admission=self.admission)
+        return self.metrics.render(self.prep_cache, capacity=self.capacity, admission=self.admission,
+                                   watch=self.watch, journal=self.journal)
 
     def close(self) -> None:
-        """Stop the admission queue: the batch and solos in flight
-        complete, queued tickets shed a typed 503 ``shutting_down``.
-        Idempotent."""
+        """Stop the admission queue (the batch and solos in flight
+        complete, queued tickets shed a typed 503 ``shutting_down``), then
+        the twin's reflectors, then flush, fsync and close the journal, so
+        its history is complete to the last accepted event. Idempotent."""
         if self.admission is not None:
             self.admission.stop()
+        if self.watch is not None:
+            self.watch.stop()
+        if self.journal is not None:
+            self.journal.close()
 
     # -- snapshot -------------------------------------------------------------
+
+    def _twin_snapshot(self) -> Optional[Tuple[ResourceTypes, str]]:
+        """(cluster, cache key) from the synced live twin, or None when the
+        polling path must serve (no twin, or not synced yet). Tags the
+        request stale while the twin is degraded or resyncing."""
+        if self.watch is None:
+            return None
+        check_deadline("snapshot")
+        with tracing.span("snapshot", source="twin") as sp:
+            got = self.watch.serving_snapshot()
+            if got is None:
+                sp.set(synced=False)
+                return None
+            cluster, key, stale = got
+            sp.set(key=key, stale=stale, state=self.watch.state())
+            _mark_request_snapshot(stale)
+            if stale:
+                self.metrics.bump("snapshot_stale_served")
+        tr = tracing.current_trace()
+        if tr is not None:
+            # the twin generation this request was served from
+            tr.root.set(twin_key=key)
+        return cluster, key
 
     def current_cluster(self) -> ResourceTypes:
         """The snapshot for the legacy (cache-off) path: each request gets
         its own copy, since simulate() writes into pods and nodes."""
         if self.base_cluster is not None:
             return self.base_cluster
+        got = self._twin_snapshot()
+        if got is not None:
+            # the twin's objects stay pristine: this path writes into them
+            return copy.deepcopy(got[0])
         if self.kubeconfig:
             self._refresh_snapshot()
             return copy.deepcopy(self._snapshot)
@@ -475,6 +544,12 @@ class SimonServer:
                 if self._snapshot_fp is None:
                     self._snapshot_fp = prepcache.fingerprint_cluster(self.base_cluster)
                 return self.base_cluster, self._snapshot_fp
+        got = self._twin_snapshot()
+        if got is not None:
+            # keyed by the twin's generation, not by content: every applied
+            # event bumps it, and the watch supervisor owns the base entry
+            # (it replaces it by O(changes) deltas)
+            return got
         if self.kubeconfig:
             # fetch + fingerprint + invalidation under ONE lock: a concurrent
             # refresh swapping the snapshot between the two reads would cache
@@ -560,14 +635,16 @@ class SimonServer:
         self.capacity.ensure_bootstrap(cluster, key)
         if probe_headroom:
             self._probe_headroom(cluster, key)
-        return capacity_mod.build_report(self.capacity, cluster, extended_resources=extended, state="polling")
+        state = self.watch.state() if self.watch is not None else "polling"
+        return capacity_mod.build_report(self.capacity, cluster, extended_resources=extended, state=state)
 
     # -- campaigns ----------------------------------------------------------------
 
     def run_campaign(self, payload: dict, deadline: Optional[Deadline] = None) -> tuple:
         """``POST /api/campaign``: evaluate a lifecycle campaign — the body's
         ``steps``, the shape of a campaign file's ``spec.steps`` — against
-        the observed cluster (the polling snapshot, or the fixed cluster).
+        the observed cluster (the live twin once synced, else the polling
+        snapshot, or the fixed cluster).
         Campaigns are serialized: each builds its own prepared lineage
         (one full prepare in warm mode) and never writes the snapshot's
         objects. Step fields naming server-side paths are refused, at
@@ -704,7 +781,12 @@ class SimonServer:
                        if base_prep is not None else None)
             if derived is None:
                 return self._simulated(f"{rung}: full prepare", time.monotonic() - t0, _filtered(), apps, explain)
-            drop = prepcache.drop_mask_for_scaled(derived, _owned_by, scaled) if scaled else None
+            # the scale request's removals joined with the live twin's
+            # event-deleted pods (base_drop: kept in the cached stream,
+            # their validity flipped)
+            drop = prepcache.union_drop_masks(
+                base.base_drop, prepcache.drop_mask_for_scaled(derived, _owned_by, scaled) if scaled else None,
+                len(derived.ordered))
             entry = prepcache.CacheEntry(full_key, derived, base=base)
             entry.drop_mask = drop
             if not new_nodes:
@@ -781,6 +863,11 @@ class SimonServer:
         t0 = time.monotonic()
         cluster0, fp = self._snapshot_for_cache()
         stale = request_served_stale()
+        if self.watch is not None and fp.startswith(self.watch.key_prefix):
+            for t in tickets:
+                if t.trace is not None:
+                    # the twin generation the batch was served from
+                    t.trace.root.set(twin_key=fp)
         apps: List[AppResource] = []
         scaled_sets: List[set] = []
         kept = []
@@ -819,7 +906,10 @@ class SimonServer:
             derived, slices = got
             items = []
             for s, t in enumerate(tickets):
-                drop = prepcache.drop_mask_for_scaled(derived, _owned_by, scaled_sets[s]) if scaled_sets[s] else None
+                drop = prepcache.union_drop_masks(
+                    base.base_drop,
+                    prepcache.drop_mask_for_scaled(derived, _owned_by, scaled_sets[s]) if scaled_sets[s] else None,
+                    len(derived.ordered))
                 items.append(reqbatch.BatchItem(
                     cluster=cluster0, apps=[apps[s]], lo=slices[s][0], hi=slices[s][1],
                     drops=set(np.nonzero(drop)[0].tolist()) if drop is not None else set(),
@@ -1272,57 +1362,107 @@ class SimonHTTPServer(ThreadingHTTPServer):
     request_queue_size = 512
 
 
+#: How long ``--watch on`` waits for the live twin's first sync at start.
+SYNC_TIMEOUT_S = 60.0
+
+
 def _refuse(what: str, item: int) -> ValueError:
     return ValueError(f"{what} is ROADMAP Queue 1 item {item}, not yet ported to the PyTorch/CUDA package")
+
+
+def build_twin(kubeconfig: str, master: str, watch: str, journal: str):
+    """(watch supervisor or None, journal or None) for a serving process.
+    Raises ``ValueError`` on operator errors: ``--watch on`` without a
+    kubeconfig (nothing to sync from), a journal without the twin (no
+    event stream to record) or an unusable journal directory."""
+    if watch == "on" and not kubeconfig:
+        raise ValueError("--watch on requires --kubeconfig")
+    supervisor = None
+    if kubeconfig and watch != "off":
+        from .watch import WatchSupervisor, source_from_kubeconfig, watch_policy
+
+        policy = watch_policy()
+        supervisor = WatchSupervisor(source_from_kubeconfig(kubeconfig, master or None,
+                                                            read_timeout_s=policy["stale_s"]), policy=policy)
+    jrnl = None
+    if journal:
+        if supervisor is None:
+            raise ValueError("--journal requires the live twin (--kubeconfig and --watch auto|on)")
+        from .journal import Journal, JournalError
+
+        try:
+            jrnl = Journal(journal)
+        except JournalError as e:
+            raise ValueError(str(e)) from e
+    return supervisor, jrnl
 
 
 def start_server(kubeconfig: str = "", master: str = "", port: int = 8080, watch: str = "auto", journal: str = "",
                  workers: int = 0, standby: bool = False, device: DeviceLike = None, host: str = "0.0.0.0",
                  snapshot_ttl_s: float = 30.0) -> Tuple[SimonServer, SimonHTTPServer]:
     """What :func:`serve` does before it serves: refuse the modes of later
-    slices (``ValueError`` naming the ROADMAP item), create the server on
-    its device (raising without a card unless `device` names the CPU), on
-    the card fetch the snapshot and build the kernel variants its requests
-    launch (:meth:`SimonServer.kernel_variants`) so no request pays a
-    build, then bind the listener. Returns both; the caller runs
-    ``serve_forever`` and ``shutdown``."""
+    slices (``ValueError`` naming the ROADMAP item) and operator errors,
+    create the server on its device (raising without a card unless
+    `device` names the CPU) with its live twin and journal
+    (:func:`build_twin`), start the twin — with ``watch="on"`` wait up to
+    :data:`SYNC_TIMEOUT_S` for it to sync (from the journal's checkpoint and
+    suffix when it has one, else a relist) and raise if it cannot; with
+    ``auto`` the polling snapshot serves until it has — then on the card
+    build the kernel variants its requests launch
+    (:meth:`SimonServer.kernel_variants`) so no request pays a build, and
+    bind the listener. Returns both; the caller runs ``serve_forever``,
+    ``shutdown`` and ``server.close()``."""
     for label, path in (("--kubeconfig", kubeconfig), ("--journal", journal)):
         if any(ord(c) < 32 for c in path):
             raise ValueError(f"invalid {label}: control character in {path!r}")
     if watch not in ("auto", "on", "off"):
         raise ValueError(f"--watch must be auto, on or off, got {watch!r}")
-    if watch == "on":
-        raise _refuse("--watch on (serving from the live twin)", 10)
-    if journal:
-        raise _refuse("--journal (the watch-event journal of the live twin)", 10)
     if standby:
         raise _refuse("--standby (the HA hot standby of the serving fleet)", 10)
     n_fleet = workers or int(envknobs.raw("OPENSIM_WORKERS_FLEET") or 0)
     if n_fleet >= 2:
         raise _refuse(f"--workers {n_fleet} (the multi-process serving fleet)", 10)
-    if kubeconfig and watch == "auto":
-        # the mode's own documented fallback: the polling snapshot serves
-        # until a twin syncs, and the port has no twin yet
-        log.info("--watch auto: the live twin is ROADMAP Queue 1 item 10; serving the polling snapshot "
-                 "(re-listed every %.0f s)", snapshot_ttl_s)
-    server = SimonServer(kubeconfig=kubeconfig, master=master, snapshot_ttl_s=snapshot_ttl_s, device=device)
-    if server.device.type == "cuda":
-        from ..ops import fast_scan as fs
+    supervisor, jrnl = build_twin(kubeconfig, master, watch, journal)
+    try:
+        server = SimonServer(kubeconfig=kubeconfig, master=master, snapshot_ttl_s=snapshot_ttl_s, device=device,
+                             watch=supervisor, journal=jrnl)
+    except BaseException:
+        if jrnl is not None:
+            jrnl.close()
+        raise
+    try:
+        if supervisor is not None:
+            t0 = time.perf_counter()
+            synced = supervisor.start(wait_s=SYNC_TIMEOUT_S if watch == "on" else None)
+            if not synced:
+                raise RuntimeError(f"--watch on but the live twin could not sync in {SYNC_TIMEOUT_S:g} s")
+            if watch == "on":
+                log.info("live twin synced in %.3f s: generation %d", time.perf_counter() - t0,
+                         supervisor.twin.generation)
+        if server.device.type == "cuda":
+            from ..ops import fast_scan as fs
 
-        variants = server.kernel_variants()
-        t0 = time.perf_counter()
-        fs.build(variants)
-        log.info("kernel variants %s loaded in %.3f s", ", ".join(variants), time.perf_counter() - t0)
-    return server, SimonHTTPServer((host, port), make_handler(server))
+            variants = server.kernel_variants()
+            t0 = time.perf_counter()
+            fs.build(variants)
+            log.info("kernel variants %s loaded in %.3f s", ", ".join(variants), time.perf_counter() - t0)
+        return server, SimonHTTPServer((host, port), make_handler(server))
+    except BaseException:
+        server.close()
+        raise
 
 
 def serve(kubeconfig: str = "", master: str = "", port: int = 8080, watch: str = "auto", journal: str = "",
           workers: int = 0, standby: bool = False, device: DeviceLike = None) -> int:
     """Start the REST server and serve until SIGTERM or SIGINT (see
     :func:`start_server`). ``watch`` selects the snapshot strategy with a
-    kubeconfig: ``auto`` (the default) and ``off`` serve the polling
-    snapshot; ``on`` (the live twin), a ``journal``, ``workers`` ≥ 2 and
-    ``standby`` are refused, naming the ROADMAP item that brings them."""
+    kubeconfig: ``auto`` (the default) starts the live twin and serves
+    from it once synced, from the polling snapshot until then; ``on``
+    requires the twin to sync at start; ``off`` polls only. ``journal``
+    names the twin's crash-safe journal directory. ``workers`` ≥ 2 and
+    ``standby`` are refused, naming the ROADMAP item that brings them.
+    Shutdown drains the admission queue, stops the reflectors and flushes
+    the journal."""
     server, httpd = start_server(kubeconfig=kubeconfig, master=master, port=port, watch=watch, journal=journal,
                                  workers=workers, standby=standby, device=device)
 
@@ -1344,7 +1484,9 @@ def serve(kubeconfig: str = "", master: str = "", port: int = 8080, watch: str =
         mode = (f"admission queue: bound {ctrl.bound}, window {ctrl.window_s * 1000:g} ms, batches of up to "
                 f"{ctrl.max_batch}, pipeline {'on' if ctrl.pipelined else 'off'}, {ctrl._pool.workers} "
                 f"{ctrl._pool.mode} workers")
-    print(f"simon server listening on :{port} [{mode}] on {server.device}", flush=True)
+    twin = "" if server.watch is None else " (live twin)"
+    twin += "" if server.journal is None else f" [journal {server.journal.path}]"
+    print(f"simon server listening on :{port} [{mode}] on {server.device}{twin}", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -1,8 +1,8 @@
 """Typed registry of the ``OPENSIM_*`` environment knobs the port reads —
 the port's copy of ``opensim_tpu/utils/envknobs.py``, holding the knobs of
 the modules it has (the server and its admission queue, the snapshot, the
-resilience layer, the request tracer, the capacity observatory and the
-campaign planner).
+live twin and its journal, the resilience layer, the request tracer, the
+capacity observatory and the campaign planner).
 
 Every read goes through :func:`raw`, which fails loudly on an
 unregistered name, so a knob cannot ship undocumented and a typo'd name
@@ -142,6 +142,20 @@ for _knob in (
     Knob("OPENSIM_BATCH_ENGINE", "enum", "auto",
          "Request-axis batch engine: `auto`, the port's one rung (the grid kernel); the reference's `xla` and "
          "`native` raise.", _enum("auto")),
+    # the live twin and its journal (server/watch.py, server/journal.py):
+    # validated loudly by watch_policy()/journal_policy() at start
+    Knob("OPENSIM_WATCH_STALE_S", "float", "30",
+         "No watch event/bookmark for this long → the stream is stale and the twin degrades."),
+    Knob("OPENSIM_WATCH_RESYNC_S", "float", "300", "Anti-entropy relist-and-diff interval (0 disables)."),
+    Knob("OPENSIM_WATCH_RECONNECTS", "int", "5", "Bounded watch reconnect attempts per incident."),
+    Knob("OPENSIM_WATCH_BACKOFF_S", "float", "0.2", "Full-jitter backoff base between watch reconnects."),
+    Knob("OPENSIM_JOURNAL_FSYNC", "enum", "interval", "Journal fsync policy: `always`, `interval`, or `off`."),
+    Knob("OPENSIM_JOURNAL_FSYNC_S", "float", "1.0", "Journal `interval` fsync cadence in seconds."),
+    Knob("OPENSIM_JOURNAL_SEGMENT_MB", "float", "64", "Journal segment rotation size bound in MB."),
+    Knob("OPENSIM_JOURNAL_CHECKPOINT_EVERY", "int", "4096", "Event records between journal cadence checkpoints."),
+    Knob("OPENSIM_JOURNAL_KEEP", "int", "2", "Checkpoint segments retained by journal pruning."),
+    Knob("OPENSIM_JOURNAL_QUEUE", "int", "65536",
+         "Journal writer queue bound; past it records drop (counted) and the next checkpoint re-anchors."),
     Knob("OPENSIM_WORKERS_FLEET", "int", "",
          "Fleet worker processes for `simon server` (ROADMAP Queue 1 item 10, not yet ported: 2 or more refuse "
          "to start)."),

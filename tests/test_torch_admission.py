@@ -1,12 +1,13 @@
 """The port's admission queue (``server/admission.py``) and request batching
-(``engine/reqbatch.py``) on the CPU, the cases of tests/test_admission.py
-that need no live twin: concurrent deploy/scale/explain requests through
+(``engine/reqbatch.py``) on the CPU, the cases of tests/test_admission.py:
+concurrent deploy/scale/explain requests through
 the port's server, coalesced into one request batch (the plain sweep on
 the CPU), answer what the JAX package's single-flight server
 (``admission=False``) answers to each request alone; the worker pool, the
 queue's typed sheds (503 + Retry-After, 504 in the queue and before the
-launch), shutdown, the priority lanes, the pipeline and its off knob, and
-the ``/metrics`` families. Pod names carry the process's expansion
+launch), shutdown, the priority lanes, the pipeline and its off knob, the
+``/metrics`` families, and batches over the live twin while its watch
+events land mid-storm. Pod names carry the process's expansion
 counters, so answers are compared with each pod name cut to its
 workload's (:func:`_canon`, the reference test's canonical form); all
 else (nodes, counts, reasons, explain audits) exactly."""
@@ -505,6 +506,81 @@ def test_pipeline_off_knob_restores_serial_batch_path(monkeypatch):
         assert server.admission.pipeline_snapshot()["enabled"] is False
     finally:
         server.close()
+
+
+def test_batched_requests_with_twin_events_mid_storm(tmp_path):
+    """Concurrent batched requests while the live twin absorbs watch events
+    (a pod ADDED and a pod DELETED mid-storm) all answer 200 with both
+    keys; once the twin has settled, a request equals what a polling server
+    that relists the same cluster answers (tests/test_admission.py:380's
+    contract), and the deleted pod's row is masked in the batch's stream."""
+    from opensim_tpu_torch.server.stubapi import StubApiServer
+    from opensim_tpu_torch.server.watch import RestWatchSource, WatchSupervisor
+
+    def pod(name, node, cpu):
+        return {"apiVersion": "v1", "kind": "Pod", "metadata": {"name": name, "namespace": "default"},
+                "spec": {"nodeName": node, "containers": [{"name": "c", "resources": {"requests": {"cpu": cpu}}}]},
+                "status": {"phase": "Running"}}
+
+    stub = StubApiServer(bookmark_interval_s=0.1).start()
+    stub.seed("/api/v1/nodes", [fx.make_fake_node(f"n{i}", "8", "16Gi").raw for i in range(4)])
+    stub.seed("/api/v1/pods", [pod("seed-0", "n0", "100m"), pod("seed-1", "n2", "3")])
+    for p in ("/apis/apps/v1/daemonsets", "/apis/policy/v1/poddisruptionbudgets", "/api/v1/services",
+              "/apis/storage.k8s.io/v1/storageclasses", "/api/v1/persistentvolumeclaims", "/api/v1/configmaps"):
+        stub.seed(p, [])
+    kc = stub.kubeconfig(str(tmp_path))
+    sup = WatchSupervisor(RestWatchSource(kc, read_timeout_s=5.0),
+                          policy={"stale_s": 5.0, "resync_s": 0.0, "reconnects": 3, "backoff_s": 0.02})
+    server = rest.SimonServer(kubeconfig=kc, watch=sup, device="cpu")
+    server.admission.stop()
+    server.admission = admission_mod.AdmissionController(
+        solo_fn=server._admitted_solo, batch_fn=server._admitted_batch, window_s=0.25,
+        prep_fn=server._batch_prep, dispatch_fn=server._batch_dispatch, decode_fn=server._batch_decode)
+    batches = []
+    real = reqbatch.dispatch_request_batch
+    try:
+        assert sup.start(wait_s=15.0)
+        assert server.deploy_apps({"deployments": [fx.make_fake_deployment("warm", 1, "100m", "128Mi").raw]})[0] == 200
+        reqbatch.dispatch_request_batch = lambda prep, items: batches.append(items) or real(prep, items)
+        reqs = [("deploy", {"deployments": [fx.make_fake_deployment(f"storm-{i}", 2, "500m", "1Gi").raw]})
+                for i in range(6)]
+        results = [None] * len(reqs)
+
+        def run(i, payload):
+            results[i] = server.deploy_apps(payload)
+
+        threads = [threading.Thread(target=run, args=(i, p)) for i, (_k, p) in enumerate(reqs)]
+        for t in threads:
+            t.start()
+        stub.upsert("/api/v1/pods", pod("mid-storm", "n1", "200m"))  # twin events land mid-storm
+        stub.delete("/api/v1/pods", "seed-1")
+        for t in threads:
+            t.join()
+        for code, body in results:
+            assert code == 200, body
+            assert set(body) >= {"unscheduledPods", "nodeStatus"}
+        deadline = time.monotonic() + 10.0
+        settled = lambda: {p.metadata.name for p in sup.twin.materialize().pods} == {"seed-0", "mid-storm"}
+        while time.monotonic() < deadline and not settled():
+            time.sleep(0.05)
+        assert settled()
+        after = [("deploy", {"deployments": [fx.make_fake_deployment("after", 9, "1", "1Gi").raw]}),
+                 ("deploy", {"deployments": [fx.make_fake_deployment("after-b", 3, "500m", "1Gi").raw]})]
+        n_batches = len(batches)
+        twin_bodies = _storm(server, after)
+        assert len(batches) == n_batches + 1, "the settled pair rides one batch"
+        polling = rest.SimonServer(kubeconfig=kc, admission=False, device="cpu")
+        for (kind, payload), (code, body) in zip(after, twin_bodies):
+            assert code == 200
+            code2, poll_body = polling.deploy_apps(copy.deepcopy(payload))
+            assert code2 == 200
+            names = [payload["deployments"][0]["metadata"]["name"]]
+            assert _canon(body, names) == _canon(poll_body, names)
+        assert all(len(it.drops) == 1 for it in batches[-1])  # seed-1's row, masked in every lane
+    finally:
+        reqbatch.dispatch_request_batch = real
+        server.close()
+        stub.stop()
 
 
 def test_default_server_runs_the_admission_queue(monkeypatch):

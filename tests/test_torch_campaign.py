@@ -5,7 +5,8 @@ ties): ``run_campaign(...).to_dict()`` equal,
 step fingerprints included, in both execution modes; warm equal to cold in
 the port; every typed spec error with the reference's step and field; the
 carried state of a scheduling pass (``fastpath.carried_state``) against the
-kernel's own state; ``from-journal`` refused naming its ROADMAP item;
+kernel's own state; the ``from-journal`` step over a journal the port
+wrote;
 ``POST /api/campaign`` and ``simon campaign`` against the JAX package's.
 Clusters are built once in the port's object model and copied into the
 reference's from their manifests, so only plain dicts cross."""
@@ -295,11 +296,80 @@ def test_env_knobs_registered():
     assert (cp.exec_mode(), cp.max_steps(), cp.max_waves()) == ("warm", 256, 64)
 
 
-def test_from_journal_parses_but_raises_naming_item_10():
-    steps = cp.parse_steps([{"type": "from-journal", "journal": "/nonexistent", "fromGeneration": 1}])
-    assert ref_cp.parse_steps([{"type": "from-journal", "journal": "/nonexistent", "fromGeneration": 1}])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        cp.run_campaign(make_cluster(n_nodes=2, web=1, api=0), steps, mode="warm", device="cpu")
+def _journal_pods(jdir):
+    """tests/test_campaign.py's recorded range, written by the port's
+    journal: four pods ADDED (two bound to n1), then the first DELETED."""
+    from opensim_tpu_torch.server.journal import Journal
+
+    j = Journal(jdir, policy={"fsync": "off"})
+    try:
+        rv, gen = 100, 10
+        for i in range(4):
+            rv, gen = rv + 1, gen + 1
+            pod = {"apiVersion": "v1", "kind": "Pod",
+                   "metadata": {"name": f"j-{i}", "namespace": "default", "resourceVersion": str(rv)},
+                   "spec": {"containers": [{"name": "c", "resources": {"requests": {"cpu": "500m",
+                                                                                    "memory": "1Gi"}}}]},
+                   "status": {"phase": "Pending"}}
+            if i < 2:
+                pod["spec"]["nodeName"] = "n1"
+                pod["status"]["phase"] = "Running"
+            j.record_event("pods", "ADDED", pod, gen)
+        j.record_event("pods", "DELETED", {"metadata": {"name": "j-0", "namespace": "default",
+                                                        "resourceVersion": str(rv + 1)}}, gen + 1)
+    finally:
+        j.close()
+
+
+@pytest.mark.parametrize("mode", ["warm", "cold"])
+def test_from_journal_step_equals_reference(xla_reference, tmp_path, mode):
+    """A recorded generation range replays through the campaign's apply
+    path as the JAX package replays it: the NET effect of the window (j-0
+    added, then deleted inside it, never materializes), the bound add
+    force-bound, the unbound adds scheduled; warm equal to cold."""
+    jdir = str(tmp_path / "journal")
+    _journal_pods(jdir)
+    raw = [{"type": "from-journal", "journal": jdir, "fromGeneration": 10, "toGeneration": 15}]
+    got, want = _both(make_cluster(n_nodes=3, web=2, api=0), raw, mode)
+    assert got == want
+    s = got["steps"][1]
+    assert s["journalEvents"] == 5 and s["podsAdded"] == 3 and s["deleted"] == 0
+    assert s["capacity"]["pods_bound"] == 2 + 3 and not s["unschedulable"]
+    other = "cold" if mode == "warm" else "warm"
+    again = cp.run_campaign(make_cluster(n_nodes=3, web=2, api=0), cp.parse_steps(raw), mode=other, device="cpu")
+    assert again.fingerprint == got["fingerprint"]
+
+
+def test_from_journal_node_modify_reported_not_silent(tmp_path):
+    """A MODIFIED of a node the campaign tracks is outside the delta
+    envelope: reported in the step, as the reference reports it."""
+    from opensim_tpu_torch.server.journal import Journal
+
+    jdir = str(tmp_path / "journal")
+    j = Journal(jdir, policy={"fsync": "off"})
+    try:
+        node = json.loads(json.dumps(fx.make_fake_node("n0", "4", "8Gi").raw))
+        node["metadata"]["resourceVersion"] = "7"
+        j.record_event("nodes", "MODIFIED", node, 11)
+    finally:
+        j.close()
+    got, want = _both(make_cluster(n_nodes=2, web=1, api=0),
+                      [{"type": "from-journal", "journal": jdir, "fromGeneration": 10}])
+    assert got == want
+    s = got["steps"][1]
+    assert s["journalEvents"] == 1 and any("MODIFIED skipped" in u["reason"] for u in s["unschedulable"])
+
+
+def test_from_journal_generation_window():
+    """A path that is no journal directory is the typed error on the
+    ``journal`` field, as the reference's."""
+    raw = [{"type": "from-journal", "journal": "/nonexistent", "fromGeneration": 1}]
+    with pytest.raises(cp.CampaignError) as ei:
+        cp.run_campaign(make_cluster(n_nodes=2, web=1, api=0), cp.parse_steps(raw), mode="warm", device="cpu")
+    with pytest.raises(ref_cp.CampaignError) as ref_ei:
+        ref_cp.run_campaign(_reference_copy(make_cluster(n_nodes=2, web=1, api=0)), ref_cp.parse_steps(raw),
+                            mode="warm")
+    assert ei.value.field == ref_ei.value.field == "journal"
 
 
 def test_report_parity_and_drain_rows():

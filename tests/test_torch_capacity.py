@@ -4,9 +4,11 @@ probes (against the JAX probe and a fresh port ``simulate()``: the full
 cluster, a warm base entry, a ladder regrown past a low bound, the smoke
 run's profile fixture), the report body byte for byte, the REST report,
 timeline and ``/metrics`` families against the JAX server's, and ``simon
-top`` one-shot against the JAX CLI's rendering. The watch-fed, admission
-and lint cases of tests/test_capacity.py belong to later slices (ROADMAP
-Queue 1 items 8, 10, 11)."""
+top`` one-shot against the JAX CLI's rendering; the engine fed event by
+event through the live twin's supervisor against a fresh bootstrap and
+the JAX supervisor's engine, and a headroom probe through a twin entry's
+masked rows. The lint cases of tests/test_capacity.py belong to a later
+slice (ROADMAP Queue 1 item 11)."""
 
 import copy
 import dataclasses
@@ -152,6 +154,97 @@ def test_headroom_through_warm_base_entry_skips_full_prepare():
     assert PREP_STATS.counts.get("full", 0) == full_before
     assert cold == ref_cap.headroom_probe(_reference_copy(cluster), ref_cap.WorkloadProfile("t", "1", "2Gi", 32),
                                           kmax=32)
+
+
+def test_headroom_through_a_twin_entry_drops_its_deleted_pods():
+    """A live-twin base entry whose watch-deleted pods are masked rows
+    (``base_drop``): the probe drops them in every launch, so its k is the
+    k of the cluster without them (a fresh probe and a fresh simulate())."""
+    cluster = _cluster(n_nodes=2, n_pods=6)
+    profile = cap.WorkloadProfile("t", "1500m", "3Gi", max_replicas=64)
+    base = prepcache.CacheEntry("twin|1|3|base", prepare(cluster, [], device="cpu"))
+    gone = {("default", "p0"), ("default", "p2"), ("default", "p4")}  # the pods on n0
+    with base.lock:
+        entry = prepcache.twin_pod_delta(base, "twin|1|4|base", [], gone)
+    assert int(entry.base_drop.sum()) == 3
+    after = _cluster(n_nodes=2, n_pods=6)
+    after.pods = [p for p in after.pods if (p.metadata.namespace, p.metadata.name) not in gone]
+    k = cap.headroom_probe(after, profile, base=entry, kmax=64)
+    assert k == cap.headroom_probe(after, profile, kmax=64, device="cpu")
+    assert k > cap.headroom_probe(cluster, profile, kmax=64, device="cpu")
+    assert _fits(after, profile, k) and not _fits(after, profile, k + 1)
+
+
+def _ev_pod(name, node="", cpu="500m", mem="1Gi", phase="Running", rv=None):
+    d = {"apiVersion": "v1", "kind": "Pod", "metadata": {"name": name, "namespace": "default"},
+         "spec": {"containers": [{"name": "c", "resources": {"requests": {"cpu": cpu, "memory": mem}}}]},
+         "status": {"phase": phase}}
+    if node:
+        d["spec"]["nodeName"] = node
+    if rv is not None:
+        d["metadata"]["resourceVersion"] = str(rv)
+    return d
+
+
+def _ev_node(name, cpu, mem, rv=None):
+    d = json.loads(json.dumps(fx.make_fake_node(name, cpu, mem).raw))
+    if rv is not None:
+        d["metadata"]["resourceVersion"] = str(rv)
+    return d
+
+
+_STORMS = {
+    # adds, a rebind, a delete, a node add, a terminal pod, a duplicate
+    "pods": ([_ev_node(f"n{i}", "8", "16Gi") for i in range(3)],
+             [_ev_pod("a", node="n0", rv=1), _ev_pod("b", node="n1", cpu="2", mem="4Gi", rv=2),
+              _ev_pod("pending", rv=3)],
+             [("pods", "ADDED", _ev_pod("c", node="n2", cpu="1", rv=10)),
+              ("pods", "ADDED", _ev_pod("d", rv=11)),
+              ("pods", "MODIFIED", _ev_pod("pending", node="n1", rv=12)),
+              ("pods", "DELETED", _ev_pod("a", node="n0", rv=13)),
+              ("nodes", "ADDED", _ev_node("n3", "4", "8Gi")),
+              ("pods", "MODIFIED", _ev_pod("b", node="n1", cpu="2", mem="4Gi", phase="Succeeded", rv=14)),
+              ("pods", "ADDED", _ev_pod("c", node="n2", cpu="1", rv=10))]),
+    # a node resized, a node deleted and re-added
+    "node-flap": ([_ev_node(f"n{i}", "8", "16Gi") for i in range(2)], [_ev_pod("a", node="n0", rv=1)],
+                  [("nodes", "MODIFIED", _ev_node("n0", "32", "64Gi", rv=20)),
+                   ("nodes", "DELETED", _ev_node("n1", "8", "16Gi", rv=21)),
+                   ("nodes", "ADDED", _ev_node("n1", "8", "16Gi", rv=22))]),
+}
+
+
+@pytest.mark.parametrize("storm", sorted(_STORMS))
+def test_event_fed_engine_matches_fresh_bootstrap_and_the_reference(storm):
+    """A storm of pod and node events through the port's watch supervisor
+    dispatch (the capacity engine fed event by event): its aggregates equal
+    a fresh O(cluster) bootstrap of the final twin, and its sample and
+    /metrics lines equal the JAX supervisor's engine fed the same events;
+    the watch-apply histogram counts every applied dispatch."""
+    from opensim_tpu.server.watch import WatchSupervisor as RefSupervisor
+    from opensim_tpu_torch.server.watch import WatchSupervisor
+
+    nodes, pods, events = _STORMS[storm]
+    policy = {"stale_s": 30.0, "resync_s": 0.0, "reconnects": 1, "backoff_s": 0.0}
+    sups = (WatchSupervisor(source=None, policy=policy), RefSupervisor(source=None, policy=policy))
+    engines = (cap.CapacityEngine(topk=5), ref_cap.CapacityEngine(topk=5))
+    for sup, engine in zip(sups, engines):
+        sup.capacity = engine
+        sup.twin.rebase("nodes", copy.deepcopy(nodes))
+        sup.twin.rebase("pods", copy.deepcopy(pods))
+        sup._capacity_rebase()
+        assert engine.event_fed
+        for field, kind, obj in events:
+            sup.dispatch(field, kind, copy.deepcopy(obj))
+    ours, theirs = engines
+    fresh = cap.CapacityEngine(topk=5)
+    fresh.bootstrap(sups[0].twin.materialize(), sups[0].twin.generation)
+    assert ours.generation == sups[0].twin.generation == sups[1].twin.generation
+    assert _no_ts(ours.sample().to_dict()) == _no_ts(fresh.sample().to_dict())
+    assert ours._dist == fresh._dist
+    assert _no_ts(ours.sample().to_dict()) == _no_ts(theirs.sample().to_dict())
+    assert ours.metrics_lines() == theirs.metrics_lines()
+    applied = len(events) if storm == "pods" else 3
+    assert f"simon_watch_apply_seconds_count {applied}" in "\n".join(RECORDER.render_lines())
 
 
 def test_headroom_profile_fixture_frontier_inside_its_ladder():

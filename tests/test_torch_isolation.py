@@ -58,3 +58,13 @@ def test_the_checker_sees_dynamic_imports():
         "__import__('jax')\nfrom importlib import import_module\n"
     )
     assert sorted(_dynamic_imports(tree)) == ["__import__", "import_module", "importlib", "importlib"]
+
+
+@pytest.mark.parametrize("module", ["server/watch.py", "server/journal.py", "obs/fleetobs.py"])
+def test_the_live_twin_modules_are_checked(module):
+    """The live twin's modules, framework-free in the JAX package, are the
+    port's own copies, held by the check above."""
+    path = ROOT / "opensim_tpu_torch" / module
+    assert path in FILES
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not [n for n in _imports(tree) if _forbidden(n)]

@@ -7,7 +7,8 @@ path), ``newnodes``, ``explain=1``; the busy 503, the deadline 504,
 ``/healthz``, ``/metrics``, the debug routes and the 501 routes of later
 slices; the modes ``serve()`` refuses; the kernel build's lock; the
 snapshot lister against the JAX package's, and ``simon apply`` in
-kubeConfig mode against the JAX ``Applier``. Responses are compared after
+kubeConfig mode against the JAX ``Applier``; ``--watch on`` serving from
+the live twin and ``--journal`` restoring it. Responses are compared after
 the process counters in pod (``-<10 hex>``) and fake-node
 (``simon-<8 hex>``) names are normalized; otherwise exactly."""
 
@@ -272,12 +273,57 @@ def test_later_routes_answer_501(servers, method, path, item):
     assert code == 501 and body["roadmap"] == f"ROADMAP Queue 1 item {item}"
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"watch": "on"}, 10), ({"journal": "/tmp/j"}, 10), ({"standby": True}, 10), ({"workers": 2}, 10),
-])
+@pytest.mark.parametrize("kwargs,item", [({"standby": True}, 10), ({"workers": 2}, 10)])
 def test_serve_refuses_later_modes(kwargs, item):
     with pytest.raises(ValueError, match=f"item {item}"):
         rest.start_server(port=0, host="127.0.0.1", device="cpu", **kwargs)
+
+
+def test_serve_watch_on_answers_from_the_twin(stubs, servers):
+    """``--watch on``: start_server waits for the live twin to sync, and
+    a request is served from it (its generation key in the trace, the
+    state machine live in /metrics) with the polling server's answer."""
+    server, httpd = rest.start_server(kubeconfig=stubs[0], watch="on", port=0, host="127.0.0.1", device="cpu")
+    try:
+        assert server.watch is not None and server.watch.has_synced() and server.watch.state() == "live"
+        body = REQUESTS["deploy"]
+        code, got = server.deploy_apps(json.loads(json.dumps(body)), request_id="twin-served")
+        _code, want = servers[0].deploy_apps(json.loads(json.dumps(body)))
+        assert code == 200 and _names(got) == _names(want)
+        from opensim_tpu_torch.obs.recorder import FLIGHT_RECORDER
+
+        key = FLIGHT_RECORDER.get("twin-served").root.attrs["twin_key"]
+        assert key == f"{server.watch.key_prefix}{server.watch.twin.generation}"
+        assert 'simon_watch_state{state="live"} 1' in server.metrics_text()
+    finally:
+        httpd.server_close()
+        server.close()
+
+
+def test_serve_with_a_journal_records_and_restores(stubs, tmp_path):
+    """``--journal``: the first start relists and checkpoints the twin;
+    a second start on the same directory restores it from the journal
+    (``simon_journal_recoveries_total{outcome="restored"}``) with the
+    first twin's fingerprint, and close() leaves the history recoverable."""
+    from opensim_tpu_torch.server.journal import Journal, iter_records
+
+    jd = str(tmp_path / "journal")
+    fps = []
+    for run in range(2):
+        server, httpd = rest.start_server(kubeconfig=stubs[0], watch="on", journal=jd, port=0, host="127.0.0.1",
+                                          device="cpu")
+        try:
+            fps.append(server.watch.twin.fingerprint())
+            text = server.metrics_text()
+            if run:
+                assert 'simon_journal_recoveries_total{outcome="restored"} 1' in text
+                assert "simon_watch_relists_total 0" in text
+        finally:
+            httpd.server_close()
+            server.close()
+    assert fps[0] == fps[1]
+    assert [r["why"] for r in iter_records(jd) if r["t"] == "ck"][:2] == ["bootstrap", "recovered"]
+    assert Journal(jd, readonly=True).recover().outcome == "restored"
 
 
 def test_serve_without_a_card_raises_before_listening(monkeypatch):
