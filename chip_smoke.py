@@ -77,7 +77,7 @@ default config's), the two-profile plan (the capacity plan, its second
 half under the ``batch`` profile: two launches of ``fast_scan[cfg]``, the
 second from the first's state) and the sampled plan (the capacity plan
 with tie seed 7: ``fast_scan[sample]``), each against its plain version
-over 2,000 pods (of each segment; the sampled plan over 5,000), the first
+over 1,000 pods (of each segment; the sampled plan over 3,000), the first
 two against grid launches at
 S = 1 over the whole stream, the sampled placements each among its step's
 best scores and a quarter at least off the lowest index's; and ``simon
@@ -100,7 +100,7 @@ torch re-score (``kernels.pod_step`` at full width) takes the kernel's
 node; ``simon apply --explain`` on the apply plan, its report above the
 placement audit phase 28's; and the example configs' ``--explain``
 reports, card against CPU. The affinity-heavy plan's default variant is
-held against the plain version over its first 2,000 pods (phase 10;
+held against the plain version over its first 1,000 pods (phase 10;
 against the grid over the whole stream), leaving the run time for these
 phases; past that prefix, it and the explain-mode plans of phases 42-45
 are held against the torch step (``kernels.pod_step``) re-run on the card
@@ -168,6 +168,19 @@ twin's, and that the uncached server's on the relisted cluster once the
 storm's wave and W3 have settled (the polling answer); ``simon replay
 --capacity --schedule`` on the journal, its fingerprint the relist's and
 its count a card ``simulate()``'s.
+Then the serving fleet (phase 68), while the in-process twin serves:
+``simon server --workers 2 --watch on --journal`` under ``OPENSIM_HA=1``
+on phase 67's journal (restored from checkpoint and suffix: no list, no
+relist, no variant built; /dev/shm must hold two generations of its
+publication), R2's body on each worker (one ``fast_scan`` each, the
+in-process twin's answer), the publication attached in this process (its
+request's kernel row against the plain version over 2,000 of its pods),
+storm A at the fleet's port (every rider the in-process twin's answer), a
+wave W4 (both workers attach the new generation and answer as the twin),
+``simon server --standby`` at parity, a SIGKILL of the owner (the standby
+takes over at epoch 2, reason expired, no relist, the two workers adopted,
+none respawned), SIGTERM (every process exits 0 with "shutdown
+complete", no ``simon-fleet-*`` segment left in /dev/shm).
 Every phase raises on failure, and each prints the time it took.
 The last lines are the card's name and power limit, one JSON line with
 a row per kernel variant timed at full width, one for the drain sweep,
@@ -179,7 +192,8 @@ for the apply plan under ``-d``, five for explain mode, three for the
 server plan, one for ``simon defrag``'s grid, two for the headroom probes
 (the ladder and a bisection step), one for the campaign plan's launches
 (in all and their median), two for the storms, one for the live twin's
-request after W1, and ``{"ok": true, "device": {...}}``.
+request after W1, one for the fleet's R2 from the publication, and
+``{"ok": true, "device": {...}}``.
 Without a card it exits non-zero and prints no result.
 """
 
@@ -238,8 +252,8 @@ APPLY_LIMIT_S = 10.0
 #: and the first SAMPLED_PLAIN_PODS of the sampled plan (no grid samples);
 #: the sampled plan's seed. SMALL_CONFIG is the config phase 3 runs the
 #: small cases of the default and score-table variants under.
-CFG_PLAIN_PODS = 2000
-SAMPLED_PLAIN_PODS = 5000
+CFG_PLAIN_PODS = 1000
+SAMPLED_PLAIN_PODS = 3000
 TIE_SEED = 7
 SMALL_CONFIG = dict(w_balanced=0.0, w_least=3.0, w_node_affinity=2.0, w_taint_toleration=5.0, w_spread=1.0,
                     w_prefer_avoid=0.0, w_simon=0.5, f_taints=False, f_spread=False, fit_ignored_cols=(1,))
@@ -250,10 +264,11 @@ CFG_VARIANTS = ("fast_scan[cfg]", "fast_scan[na,tt,avoid,cfg]", "fast_scan[sampl
 #: plans run (the examples' are their own variants', explained). The
 #: six plans of phases 4-21 are held against the plain version over their
 #: first PLAN_PLAIN_PODS pods (and against the grid over the whole stream),
-#: which leaves the run time for these phases and the live twin's.
+#: which leaves the run time for these phases, the live twin's and the
+#: serving fleet's.
 EXPLAIN_PLAIN_PODS = 1000
 EXPLAIN_VARIANTS = ("fast_scan[interpod,explain]", "fast_scan[gpu,gc,explain]", "fast_scan[explain]")
-PLAN_PLAIN_PODS = 2000
+PLAN_PLAIN_PODS = 1000
 #: The affinity-heavy plan's default variant (phases 10-12) and the
 #: explain-mode plans (phases 42-45) are also held against the torch step
 #: (``kernels.pod_step``) re-run on the card from the replayed state before
@@ -265,8 +280,9 @@ REPLAY_STEPS = 100
 #: SERVER_NEW nodes; the snapshot is cached for SERVER_TTL_S (longer than
 #: the phase, so every request reads one fingerprint); each kernel row is
 #: held against the plain version over SERVER_PLAIN_PODS of the request's
-#: own pods (from the kernel's state before them; the live twin's row too)
-#: and the torch step over SERVER_REPLAY_STEPS steps of the request's pods. The steady phase (54) runs STEADY_WARM warm
+#: own pods (from the kernel's state before them; the live twin's and the
+#: fleet's rows too) and the torch step over SERVER_REPLAY_STEPS steps of
+#: the request's pods. The steady phase (54) runs STEADY_WARM warm
 #: simulate_cached() calls.
 SERVER_NEW = 100
 SERVER_TTL_S = 3600.0
@@ -311,6 +327,15 @@ TWIN_W3_WAVE = 250
 TWIN_REPLAY_PODS = 5000
 TWIN_WAIT_S = 120.0
 TWIN_START_S = 240.0
+#: The serving fleet (phase 68) on phase 67's journal: FLEET_WORKERS
+#: worker processes under an HA lease of FLEET_LEASE_S seconds: the owner's
+#: renewals stall for seconds at this size (its full collections), and a
+#: live owner lost a 2 s lease to the standby on the card and left a 5 s
+#: lease unrenewed for 5.1 s (PERF.md); wave W4 adds FLEET_W4_WAVE pods and
+#: deletes as many.
+FLEET_WORKERS = 2
+FLEET_LEASE_S = 10.0
+FLEET_W4_WAVE = 250
 EXAMPLES = (("simon-config.yaml", [], "fast_scan[interpod]"),
             ("simon-gpushare-config.yaml", ["gpu"], "fast_scan[gpu]"),
             ("simon-local-config.yaml", ["open-local"], "fast_scan[local]"))
@@ -973,17 +998,20 @@ def _example(name: str) -> str:
     return str(Path(__file__).resolve().parent / "example" / name)
 
 
-def _apply_failures(applier, prep, fi_k, tmpl, valid, node_valid, forced, out) -> tuple:
+def _apply_failures(applier, prep, fi_k, tmpl, valid, node_valid, forced, out, pool) -> tuple:
     """The first simulation's failures at full width, on the masked node
     axis of k = 0 (the candidates out): the reasons of the masked one
     scan's counts (`out`) equal the Applier's first simulation's, pod for
     pod, each the expected string; then the hog pods that close the stream
     run from the kernel's usage after the bench pods, by the kernel (equal
-    to `out`'s rows over them) and by the plain version, on the nine
-    outputs but the state row (the hog pods ask for no selector count, so
-    the tail's launch starts its counts at 0), so the failing pods' counts
-    and shortages are the plain version's. Returns the largest difference
-    and the plain version's ms."""
+    to `out`'s rows over them, on the nine outputs but the state row: the
+    hog pods ask for no selector count, so the tail's launch starts its
+    counts at 0) and by the plain version on all ten, so the failing pods'
+    counts and shortages are the plain version's. The plain version runs
+    on the CPU, on copies of the tail launch's inputs, in `pool`'s worker
+    process while the card goes on. Returns the largest difference so far
+    and a function that waits for the plain version, holds the kernel
+    against it and returns the largest difference and its ms."""
     from opensim_tpu_torch.engine import fastpath, simulator as sim
     from opensim_tpu_torch.models.objects import LABEL_APP_NAME
     from opensim_tpu_torch.ops import fast_scan as fs
@@ -1018,21 +1046,24 @@ def _apply_failures(applier, prep, fi_k, tmpl, valid, node_valid, forced, out) -
     err = _same(got_tail, fs.FastOutputs(*(getattr(out, f)[t0:] if f in per_pod else getattr(out, f)
                                             for f in fs.FastOutputs._fields)),
                 f"k=0: the hog pods from the kernel's usage after pod {t0} vs the whole stream's launch", nine)
-    plain = [None]
-
-    def run_plain():
-        plain[0] = fs.fast_scan_reference(fi_tail, *tail)
-
-    plain_ms = _events_ms(run_plain, reps=1)
-    err = max(err, _same(got_tail, plain[0], f"k=0: the hog pods from the kernel's usage after pod {t0} vs plain"))
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else t
+    plain = pool.submit(_plain_on_cpu_timed, fs.FastInputs(*map(cpu, fi_tail)), [cpu(t) for t in tail])
+    got_cpu = fs.FastOutputs(*map(cpu, got_tail))
     failing = int((got_tail.chosen < 0).sum())
-    print(f"k=0: the {APPLY_HOG} hog pods from the kernel's usage after pod {t0}: kernel identical to the whole "
-          f"stream's launch on the nine outputs but the state row and to the plain version on all ten ({failing} "
-          f"found no node, their counts and shortages included; plain {plain_ms:.3f} ms)", flush=True)
-    return err, plain_ms
+
+    def finish() -> tuple:
+        want, secs = plain.result()
+        tail_err = _same(got_cpu, want, f"k=0: the hog pods from the kernel's usage after pod {t0} vs plain")
+        print(f"k=0: the {APPLY_HOG} hog pods from the kernel's usage after pod {t0}: kernel identical to the whole "
+              f"stream's launch on the nine outputs but the state row and to the plain version on all ten "
+              f"({failing} found no node, their counts and shortages included; plain {secs * 1e3:.3f} ms on the "
+              f"CPU, in a worker process)", flush=True)
+        return max(err, tail_err), secs * 1e3
+
+    return err, finish
 
 
-def apply_plan(device, card: str) -> list:
+def apply_plan(device, card: str) -> tuple:
     """`simon apply` on the apply plan through the port's Applier as a
     user runs it (YAML directories, the card): its launches, the new-node
     count, the steps' host-clock times against BASELINE.md's 10 s; then
@@ -1041,11 +1072,14 @@ def apply_plan(device, card: str) -> list:
     state outputs, over the whole stream) and against the plain version
     over a prefix (all ten), each grid timed alone, and at k = 0 the
     first simulation's failures (:func:`_apply_failures`). Returns the
-    rows of the masked one scan and the two grids."""
-    from opensim_tpu_torch.engine import fastpath
+    rows of the masked one scan and the two grids, and a function that
+    completes the rows with the hog pods' plain check (its worker process
+    runs through phase 30; the function raises if it differs)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     from opensim_tpu_torch.models import fixtures as fx
     from opensim_tpu_torch.ops import fast_scan as fs
-    from opensim_tpu_torch.parallel import scenarios
     from opensim_tpu_torch.planner import apply
 
     _phase(f"28 apply plan: simon apply on {N_NODES} nodes, {N_PODS} + {APPLY_HOG} pods, "
@@ -1088,8 +1122,36 @@ def apply_plan(device, card: str) -> list:
     _phase(f"29 apply plan: the masked one scan at k = 0, {n_new - 1} and {n_new} against the coarse and fine "
            f"grids' rows over the whole stream and the plain version over {APPLY_PLAIN_PODS} pods; at k = 0 the "
            f"first simulation's reasons and the failing tail of {APPLY_HOG} pods against the plain version")
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        rows, finish_tail = _apply_masked(device, applier, n_new, coarse, fine, by_name, scan_shape, wall, steps,
+                                          verdict, pool)
+    except BaseException:
+        pool.shutdown(cancel_futures=True)
+        raise
+
+    def finish() -> None:
+        try:
+            err, tail_plain_ms = finish_tail()
+        finally:
+            pool.shutdown()
+        rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], err)
+        rows[0]["plain_tail"] = [APPLY_HOG, tail_plain_ms, "ms on the CPU"]
+
+    return rows, finish
+
+
+def _apply_masked(device, applier, n_new, coarse, fine, by_name, scan_shape, wall, steps, verdict, pool) -> tuple:
+    """Phase 29's checks of :func:`apply_plan` (the grids' rows, the masked
+    one scans, the first simulation's failures): the rows and the hog
+    pods' pending plain check."""
+    from opensim_tpu_torch.engine import fastpath
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.parallel import scenarios
+
     prep = applier.prep_full
     n_real = N_NODES
+
     fi, _ = fastpath.build_inputs(prep)
     forced = torch.from_numpy(prep.forced.astype(np.int32)).to(device)
     rows, grids = [], {}
@@ -1130,7 +1192,7 @@ def apply_plan(device, card: str) -> list:
             "pods": int(tmpl.shape[0]), "plain_checks": [sel, APPLY_PLAIN_PODS], "b": launched["grid"].b,
             "blocks": launched["grid"].blocks, "threads": launched["grid"].threads, "ptxas": launched["ptxas"],
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "host_s": coarse_s if label == "coarse" else fine_s,
+            "library_ms": None, "host_s": steps[f"sweep: {label}"],
         })
 
     err, one = 0.0, {}
@@ -1156,8 +1218,8 @@ def apply_plan(device, card: str) -> list:
               f"outputs over {int(grid[0][s].sum())} pods; {failing} pods found no node ({clocks[-1]} counting "
               f"passes)", flush=True)
         if k == 0:
-            tail_err, tail_plain_ms = _apply_failures(applier, prep, fi_k, tmpl, grid[0][s], grid[2][s], forced,
-                                                      one[k])
+            tail_err, finish_tail = _apply_failures(applier, prep, fi_k, tmpl, grid[0][s], grid[2][s], forced,
+                                                    one[k], pool)
             err = max(err, tail_err)
         if k == n_new:
             ms, fi_new, valid_new = ms_k, fi_k, grid[0][s]
@@ -1185,13 +1247,14 @@ def apply_plan(device, card: str) -> list:
         "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/ops/pallas_scan.py:1009",
         "launches": by_name["fast_scan"], "launches_are": "the path's two one scans, first simulation and masked",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "pods": int(tmpl.shape[0]),
-        "plain_pods": APPLY_PLAIN_PODS, "plain_tail": [APPLY_HOG, tail_plain_ms], "nodes": int(fi.alloc_T.shape[1]), "valid_nodes": N_NODES + n_new,
+        "plain_pods": APPLY_PLAIN_PODS, "plain_tail": None, "nodes": int(fi.alloc_T.shape[1]),
+        "valid_nodes": N_NODES + n_new,
         "cluster": scan_shape.cluster, "threads": scan_shape.threads, "smem": scan_shape.smem,
         "resident": scan_shape.resident, "ptxas": launched["ptxas"], "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
         "apply_wall_s": wall, "apply_steps_s": steps, "apply_limit_s": APPLY_LIMIT_S, "apply_limit": verdict,
     })
-    return rows
+    return rows, finish_tail
 
 
 def two_profile_plan(device) -> dict:
@@ -2797,6 +2860,14 @@ def campaign_plan(device, card: str, served) -> list:
              "server_campaign_s": rt, "card": card}]
 
 
+def _plain_on_cpu_timed(fi, args):
+    """:func:`_plain_on_cpu` of a one scan and its host seconds, in phase
+    29's worker process."""
+    t0 = time.perf_counter()
+    out = _plain_on_cpu(False, fi, args, {})
+    return out, time.perf_counter() - t0
+
+
 def _plain_on_cpu(sweep: bool, fi, args, kw):
     """The plain version of a one scan's or (`sweep`) a grid's inputs (CPU
     tensors), in a worker process of phases 3 and 62."""
@@ -3179,8 +3250,9 @@ def twin_plan(device, card: str, served) -> list:
     process), its fingerprint the relist's (the journal's last checkpoint
     is the restored twin) and its count the card ``simulate()``'s. The
     stub apiserver's objects and the earlier phases' are frozen out of the
-    collector's generations (``gc.freeze``) for these phases. Returns the
-    kernels-table row of 65's request."""
+    collector's generations (``gc.freeze``) for these phases. Then phase 68
+    (:func:`fleet_plan`) while this twin serves. Returns the kernels-table
+    rows of 65's request and of 68's request from the publication."""
     import gc
     import shutil
     import signal
@@ -3502,14 +3574,473 @@ def twin_plan(device, card: str, served) -> list:
         summary["journal"] = {"first_start_s": first_s, "restart_s": restart_s, "recovered": got.group(0),
                               "replay_s": replay_s, "replay": replay, "restart_rt_s": sub_rt,
                               "inproc_rt_s": inproc["rt"], "uncached_W3_s": uncached_s}
+        print(f"live twin phases 65-67 {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+        # phase 68: the serving fleet on the journal the restart left, while
+        # this twin serves
+        fleet_row = fleet_plan(device, card, {
+            "server": server, "url": url, "sup": sup, "key": key, "stub": stub, "kube": kube, "bodies": bodies,
+            "live": live, "jd": jd, "root": root, "built": built, "dev_args": dev_args})
     finally:
         httpd.shutdown()
         httpd.server_close()
         server.close()
         gc.unfreeze()
-    print(f"live twin phases {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
     row["twin"] = summary
-    return [row]
+    return [row, fleet_row]
+
+
+def _fleet_port() -> int:
+    """A public port P whose fleet neighbours are free too: the owner's
+    admin endpoint P + 1, the workers' loopback listeners P + 2 ... and the
+    standby's admin endpoint P + 16."""
+    import socket
+
+    for _ in range(50):
+        port = _free_port()
+        try:
+            for p in [port, port + 1, *(port + 2 + i for i in range(FLEET_WORKERS)), port + 16]:
+                with socket.socket() as s:
+                    s.bind(("0.0.0.0", p))
+        except OSError:
+            continue
+        return port
+    raise AssertionError("no free port block for the fleet")
+
+
+def _find_span(node: dict, name: str):
+    """The first span named `name` in a request's trace tree (depth first)."""
+    if node.get("name") == name:
+        return node
+    for child in node.get("children") or []:
+        got = _find_span(child, name)
+        if got is not None:
+            return got
+    return None
+
+
+def _worker_request(w: dict, body: dict, label: str, want_key: str) -> dict:
+    """R2's body to one fleet worker's loopback listener: the answer, the
+    round trip, and from the worker's own trace of it the kernel variants
+    it launched (exactly one ``fast_scan``), the generation it served
+    (`want_key`), its attach and upload times when it attached a
+    generation for it, and its phase split."""
+    wurl = f"http://127.0.0.1:{w['internal_port']}"
+    code, hdrs, answer, rt = _http(wurl, "/api/deploy-apps", body)
+    tree = _http(wurl, f"/api/debug/requests/{hdrs.get('X-Simon-Request-Id', '')}")[2]
+    attrs = tree["spans"].get("attrs", {})
+    if code != 200 or attrs.get("launches") != "fast_scan=1" or attrs.get("twin_key") != want_key:
+        raise AssertionError(f"{label}: HTTP {code}, launches {attrs.get('launches')!r}, served from "
+                             f"{attrs.get('twin_key')!r} (want {want_key!r}): {str(answer)[:300]}")
+    attach = (_find_span(tree["spans"], "fleet.attach") or {}).get("attrs", {})
+    split = {k: attrs[k] for k in ("rung", "cache_s", "prepare_s", "inputs_s", "kernel_s", "decode_s") if k in attrs}
+    print(f"{label} (worker {w['index']}, pid {w['pid']}): HTTP 200 in {rt:.6f} s (round trip), served from "
+          f"{want_key}, launches {attrs['launches']}; attach {attach.get('attach_s')} s, upload "
+          f"{attach.get('upload_s')} s; split {json.dumps(split)}", flush=True)
+    return {"answer": answer, "rt": rt, "attach_s": attach.get("attach_s"), "upload_s": attach.get("upload_s"),
+            "split": split}
+
+
+def _on_workers(workers: list, body: dict, label: str, want_key: str):
+    """:func:`_worker_request` on every worker at once, from threads;
+    returns a function that waits for them and returns their results."""
+    import threading
+
+    got = [None] * len(workers)
+
+    def one(i):
+        try:
+            got[i] = _worker_request(workers[i], body, label, want_key)
+        except BaseException as e:  # re-raised by wait(), on the caller's thread
+            got[i] = e
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(workers))]
+    for t in threads:
+        t.start()
+
+    def wait() -> list:
+        for t in threads:
+            t.join(TWIN_WAIT_S)
+        for g in got:
+            if g is None or isinstance(g, BaseException):
+                raise AssertionError(f"{label}: {g!r}")
+        return got
+
+    return wait
+
+
+def fleet_plan(device, card: str, twin: dict) -> tuple:
+    """The serving fleet on the card (phase 68), run while the in-process
+    twin of phases 65-67 serves, on the journal phase 67's restart left.
+    ``simon server --workers 2 --watch on --journal`` starts as a
+    subprocess under ``OPENSIM_HA=1``: the owner recovers from checkpoint
+    and suffix (no list of the stub, no relist, no variant built), prepares
+    the twin's base entry on the card and publishes it over /dev/shm (the
+    tmpfs must hold two generations); its two workers attach and serve.
+    R2's body to each worker's loopback listener: one ``fast_scan`` each,
+    the in-process twin's answer, the attach and upload times and the
+    request's split from the worker's trace. In this process a
+    ``FleetTwinClient`` attaches the owner's control block and a server
+    over it answers R2 through ``entry_from_publication`` on the card: the
+    in-process twin's answer, its kernel row held against the plain version
+    (the returned row). Storm A to the public port: every rider the
+    in-process twin's answer. Wave W4 through the stub: both workers attach
+    the new generation and answer as the in-process twin. ``simon server
+    --standby`` tails the journal to parity; the owner is SIGKILLed; the
+    standby takes over (reason expired, epoch 2, no relist, the same two
+    workers adopted, none respawned, the generation monotonic), and both
+    workers answer as the in-process twin. SIGTERM: the new owner and the
+    workers exit 0 with "shutdown complete", and no ``simon-fleet-*``
+    segment is left in /dev/shm. Returns the kernel row, with the phase's
+    summary under ``fleet``."""
+    import ctypes
+    import re
+    import signal
+    import threading
+
+    from opensim_tpu_torch.models import fixtures as fx
+    from opensim_tpu_torch.obs.recorder import FLIGHT_RECORDER
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.server import rest
+    from opensim_tpu_torch.server.fleet import FleetTwinClient
+
+    server, url, sup, key = twin["server"], twin["url"], twin["sup"], twin["key"]
+    stub, kube, bodies, live, jd, root = (twin[k] for k in ("stub", "kube", "bodies", "live", "jd", "root"))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    _phase(f"68 the serving fleet: simon server --workers {FLEET_WORKERS} --watch on --journal (OPENSIM_HA=1) on "
+           f"phase 67's journal; R2 on each worker and from the publication in this process; storm A; W4 "
+           f"({FLEET_W4_WAVE} pods ADDED, {FLEET_W4_WAVE} DELETED); simon server --standby, SIGKILL, takeover; "
+           "SIGTERM")
+    t_phase = time.perf_counter()
+    # the fleet's orphans (the workers a SIGKILLed owner leaves, the resource
+    # trackers) re-parent to this process, which reaps them: their exit
+    # status is read here, and none lingers as a zombie that a new owner
+    # would take for a live worker
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:  # PR_SET_CHILD_SUBREAPER
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+    shm = os.statvfs("/dev/shm")
+    shm_total, shm_free = shm.f_frsize * shm.f_blocks, shm.f_frsize * shm.f_bavail
+    print(f"/dev/shm: {shm_total} bytes, {shm_free} free; no simon-fleet-* segment: "
+          f"{not [n for n in os.listdir('/dev/shm') if n.startswith('simon-fleet-')]}", flush=True)
+    port = _fleet_port()
+    admin, sb_admin = f"http://127.0.0.1:{port + 1}", f"http://127.0.0.1:{port + 16}"
+    env = dict(os.environ, PYTHONPATH=repo, OPENSIM_HA="1", OPENSIM_HA_LEASE_S=str(FLEET_LEASE_S),
+               OPENSIM_JOURNAL_FSYNC="always", OPENSIM_BATCH_WINDOW_MS=f"{STORM_WINDOW_S * 1e3:g}")
+    lists = lambda: sum(1 for _p, q in stub.requests_seen if "watch" not in q)
+    status = lambda base: _http(base, "/api/fleet/status")[2]
+    procs, logs, worker_pids, reaped = {}, {}, [], {}
+
+    def start(tag: str, argv: list):
+        logs[tag] = root / f"fleet-{tag}.log"
+        with open(logs[tag], "w") as fh:
+            procs[tag] = subprocess.Popen([sys.executable, "-m", "opensim_tpu_torch", "server", "--kubeconfig", kube,
+                                           "--journal", jd, "--port", str(port), *argv, *twin["dev_args"]],
+                                          stdout=fh, stderr=subprocess.STDOUT, cwd=repo, env=env)
+        return procs[tag]
+
+    def alive(tag: str):
+        if procs[tag].poll() is not None:
+            raise AssertionError(f"{tag} exited {procs[tag].returncode}: {logs[tag].read_text()[-3000:]}")
+
+    def serving(base: str, tag: str):
+        """The owner at `base` published and every worker listens."""
+        alive(tag)
+        try:
+            st = status(base)
+            if st.get("role") != "owner" or st["generation"] < 0 or \
+                    sum(w["alive"] for w in st["workers"]) < FLEET_WORKERS:
+                return False
+            return all(_http(f"http://127.0.0.1:{w['internal_port']}", "/healthz")[0] == 200 for w in st["workers"])
+        except OSError:
+            return False
+
+    def settled(base: str, fp: str) -> dict:
+        """Wait until the owner's twin is the relist's (`fp`) and its twin
+        generation is the one it last published; returns its status."""
+        seen = {}
+
+        def pred():
+            seen["status"] = st = status(base)
+            seen["twin_generation"] = _metrics_of(base).get(("simon_twin_generation", ()))
+            return st["fingerprint"] == fp and st["generation"] == seen["twin_generation"]
+
+        try:
+            _wait_for(pred, TWIN_WAIT_S, "the owner to publish the relist's twin")
+        except AssertionError as e:
+            st = seen.get("status", {})
+            raise AssertionError(f"{e}: role {st.get('role')}, epoch {st.get('epoch')}, published generation "
+                                 f"{st.get('generation')}, twin generation {seen.get('twin_generation')}, the "
+                                 f"relist's fingerprint: {st.get('fingerprint') == fp}") from None
+        return status(base)
+
+    def role(base: str, want: str, flag: str = "") -> bool:
+        """The process behind `base` answers in role `want` (and `flag`
+        holds in its status); the standby must stay up meanwhile."""
+        alive("standby")
+        try:
+            st = status(base)
+        except OSError:
+            return False
+        return st.get("role") == want and (not flag or st.get(flag) is True)
+
+    lease_file = Path(jd) / "ha-lease.json"
+    lease_gap = {"max_s": 0.0, "stop": threading.Event()}
+
+    def watch_lease():
+        """The owner's longest gap between lease renewals, read from the
+        lease file until the SIGKILL: a gap past FLEET_LEASE_S would let
+        the standby take over from a live owner."""
+        while not lease_gap["stop"].wait(0.1):
+            with contextlib.suppress(OSError, ValueError):
+                doc = json.loads(lease_file.read_text())
+                if doc.get("epoch") == 1 and not doc.get("released"):
+                    lease_gap["max_s"] = max(lease_gap["max_s"], time.time() - float(doc["renewed_at"]))
+
+    def reap(pid: int):
+        try:
+            reaped[pid] = os.waitstatus_to_exitcode(os.waitpid(pid, 0)[1])
+        except ChildProcessError as e:
+            reaped[pid] = e
+
+    summary = {}
+    try:
+        # storm A at the fleet's public port, later, and at the in-process twin
+        storm = fx.storm_requests(N_PODS)
+        paths = ["/api/deploy-apps" if kind == "deploy" else "/api/scale-apps" for kind, _b, _e in storm]
+
+        def storm_at(base: str) -> tuple:
+            answers = [None] * len(storm)
+
+            def send(i):
+                answers[i] = _http(base, paths[i], storm[i][1])
+
+            threads = [threading.Thread(target=send, args=(i,)) for i in range(len(storm))]
+            t2 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(TWIN_WAIT_S)
+            return answers, time.perf_counter() - t2
+
+        lists0 = lists()
+        t_owner = time.perf_counter()
+        owner = start("owner", ["--watch", "on", "--workers", str(FLEET_WORKERS)])
+        # the standby starts beside the owner and tails the journal while the
+        # fleet serves; meanwhile the in-process twin answers R2 and storm A
+        standby = start("standby", ["--standby", "--watch", "on", "--workers", str(FLEET_WORKERS)])
+        t_standby = time.perf_counter()
+        inproc = _twin_request(server, url, "R2 on the in-process twin (phase 68)", bodies["deploy"], key())
+        twin_answers, twin_rt = storm_at(url)
+        _wait_for(lambda: serving(admin, "owner"), TWIN_START_S, "the fleet to serve")
+        summary["start_s"] = time.perf_counter() - t_owner
+        threading.Thread(target=watch_lease, daemon=True).start()
+        st = status(admin)
+        workers = st["workers"]
+        worker_pids[:] = [w["pid"] for w in workers]
+        m = _metrics_of(admin)
+        recovered = re.search(r"generation (\d+) \(checkpoint (\d+) \+ (\d+) replayed", logs["owner"].read_text())
+        if m.get(("simon_journal_recoveries_total", (("outcome", "restored"),))) != 1 or \
+                m.get(("simon_watch_relists_total", ())) != 0 or lists() != lists0 or recovered is None:
+            raise AssertionError("the fleet owner did not recover from the journal alone: "
+                                 f"{ {k: v for k, v in m.items() if 'journal' in k[0] or 'relist' in k[0]} }, "
+                                 f"{lists() - lists0} lists, {recovered and recovered.group(0)}")
+        if {p.name: p.stat().st_mtime_ns for p in Path(fs.BUILD_DIR).glob("*.so")} != twin["built"]:
+            raise AssertionError("the fleet rebuilt or added kernel variants")
+        fp_ = st["shm"]
+        print(f"fleet: owner serving {summary['start_s']:.3f} s after its start (recovered {recovered.group(0)}; no "
+              f"list, no relist, no variant built); generation {st['generation']}, epoch {st['epoch']}, control "
+              f"{st['control']}; publisher footprint {json.dumps(fp_)}; /dev/shm {shm_total} bytes "
+              f"({card})", flush=True)
+        if 2 * fp_["bytes"] > shm_total:
+            raise AssertionError(f"/dev/shm ({shm_total} bytes) cannot hold two generations of the publication "
+                                 f"({fp_['bytes']} bytes in {fp_['segments']} segments each)")
+        summary["footprint"] = fp_
+
+        # R2 on both workers and, at the same time, in this process from the
+        # same publication: the worker's path, then the kernel row of its
+        # launch on a quiet card
+        first_wait = _on_workers(workers, bodies["deploy"], "R2 on a fleet worker", f"fleet|{st['generation']}")
+        client = FleetTwinClient(st["control"], device=device)
+        local = rest.SimonServer(watch=client, device=device, admission=False, capacity=False)
+        try:
+            if not client.start(wait_s=30.0):
+                raise AssertionError("no publication to attach in this process")
+            _reset_launches()
+            t1 = time.perf_counter()
+            code, got = local.deploy_apps(json.loads(json.dumps(bodies["deploy"])), request_id="fleet-attach-r2")
+            attach_rt = time.perf_counter() - t1
+            launches = dict(fs.VARIANT_LAUNCHES)
+            tr = FLIGHT_RECORDER.get("fleet-attach-r2")
+            (ev,) = [sp for sp in tr.walk() if sp.name == "fleet.attach"]
+            if code != 200 or launches != {"fast_scan": 1} or \
+                    tr.root.attrs.get("twin_key") != f"fleet|{st['generation']}":
+                raise AssertionError(f"R2 from the publication: HTTP {code}, launches {launches}: {str(got)[:300]}")
+            _same_answer(got, inproc["answer"], "R2 from the publication in this process vs the in-process twin's")
+            (entry,) = [e for e in local.prep_cache.entries_snapshot()
+                        if e.key.startswith(f"fleet|{st['generation']}|deploy|")]
+            print(f"R2 from the publication in this process, beside the workers': {attach_rt:.6f} s (attach "
+                  f"{ev.attrs['attach_s']} s, upload to the card {ev.attrs['upload_s']} s), launches {launches}, the "
+                  "in-process twin's answer", flush=True)
+            first = first_wait()
+            for g in first:
+                _same_answer(g["answer"], inproc["answer"], "a fleet worker's R2 vs the in-process twin's")
+            summary["first"] = [{k: g[k] for k in ("rt", "attach_s", "upload_s", "split")} for g in first]
+            row = _server_row("fleet attach: R2 from the publication", entry, False, launches["fast_scan"], attach_rt)
+            row["fleet_attach"] = {"attach_s": ev.attrs["attach_s"], "upload_s": ev.attrs["upload_s"],
+                                   "request_s": attach_rt}
+        finally:
+            local.close()
+            del local, client
+
+        fleet_answers, fleet_rt = storm_at(f"http://127.0.0.1:{port}")
+        batches = []
+        for (kind, body, explain), got, want in zip(storm, fleet_answers, twin_answers):
+            if got is None or got[0] != 200 or want is None or want[0] != 200 or \
+                    _storm_canon(got[2]) != _storm_canon(want[2]):
+                raise AssertionError(f"storm A through the fleet, {_rider(body, explain)}: {str(got)[:300]}")
+            rid = got[1].get("X-Simon-Request-Id", "")
+            for w in workers:
+                code, _h, tree, _rt = _http(f"http://127.0.0.1:{w['internal_port']}", f"/api/debug/requests/{rid}")
+                if code == 200:
+                    batches.append((w["index"], tree["spans"].get("attrs", {}).get("batch_size")))
+        summary["storm"] = {"fleet_rt_s": fleet_rt, "twin_rt_s": twin_rt, "rider_rt_s": [a[3] for a in fleet_answers],
+                            "worker_batch": batches}
+        print(f"storm A through the fleet's public port: {len(storm)} riders answered 200 in {fleet_rt:.6f} s, each "
+              f"the in-process twin's answer (its storm {twin_rt:.6f} s); (worker, batch size) per rider {batches}",
+              flush=True)
+
+        # W4 through the stub: the owner folds and republishes, the workers
+        # attach the new generation on their next request
+        w4 = fx.twin_wave(live, N_NODES, FLEET_W4_WAVE, FLEET_W4_WAVE, tag="w4")
+        t3 = time.perf_counter()
+        fx.send_wave(stub, w4)
+        _wait_for(lambda: len(sup.twin.materialize().pods) == len(live), TWIN_WAIT_S, "W4 in the in-process twin")
+        fresh, fp = _relisted(kube)
+        del fresh
+        _wait_for(lambda: sup.twin.fingerprint() == fp, TWIN_WAIT_S, "the in-process twin to settle after W4")
+        inproc4 = _twin_request(server, url, "R2 on the in-process twin after W4", bodies["deploy"], key())
+        st4 = settled(admin, fp)
+        published_s = time.perf_counter() - t3
+        if st4["generation"] <= st["generation"]:
+            raise AssertionError(f"W4 published generation {st4['generation']} after {st['generation']}")
+        after = _on_workers(workers, bodies["deploy"], "R2 on a fleet worker after W4", f"fleet|{st4['generation']}")()
+        for w, g in zip(workers, after):
+            _same_answer(g["answer"], inproc4["answer"], "a fleet worker's R2 after W4 vs the in-process twin's")
+            m = _metrics_of(f"http://127.0.0.1:{w['internal_port']}")
+            if m.get(("simon_fleet_attach_generation", ())) != st4["generation"]:
+                raise AssertionError(f"worker {w['index']} attached {m.get(('simon_fleet_attach_generation', ()))}")
+        m = _metrics_of(admin)
+        if m.get(("simon_fleet_respawns_total", ())) != 0:
+            raise AssertionError(f"{m.get(('simon_fleet_respawns_total', ()))} worker respawns")
+        fresh_stages = {s: [m.get(("simon_fleet_freshness_seconds_count", (("stage", s),))),
+                            m.get(("simon_fleet_freshness_seconds_sum", (("stage", s),)))]
+                        for s in ("journaled", "published", "attached", "served")}
+        pub_s = [m.get(("simon_fleet_publish_seconds_count", ())), m.get(("simon_fleet_publish_seconds_sum", ()))]
+        summary["W4"] = {"events": len(w4), "event_to_published_s": published_s, "generation": st4["generation"],
+                         "after": [{k: g[k] for k in ("rt", "attach_s", "upload_s", "split")} for g in after],
+                         "freshness": fresh_stages, "publish_seconds": pub_s}
+        print(f"W4: {len(w4)} events; the owner published the relist's twin (generation {st4['generation']}) "
+              f"{published_s:.3f} s after the first was sent; both workers attached it and answer as the in-process "
+              f"twin; freshness by stage [count, sum s] {json.dumps(fresh_stages)}; publishes [count, sum s] {pub_s}; "
+              f"0 respawns", flush=True)
+
+        # the hot standby (started beside the owner): at parity, then the
+        # owner SIGKILLed
+        _wait_for(lambda: role(sb_admin, "standby", "at_parity"), TWIN_START_S, "the standby to tail to parity")
+        summary["standby_parity_s"] = time.perf_counter() - t_standby
+        g_old = status(admin)["generation"]
+        lists0 = lists()  # this process's relists above were the check's
+        lease_gap["stop"].set()
+        summary["lease_gap_max_s"] = lease_gap["max_s"]
+        if lease_gap["max_s"] >= FLEET_LEASE_S:
+            raise AssertionError(f"the live owner left its lease unrenewed for {lease_gap['max_s']:.3f} s")
+        owner.kill()  # SIGKILL: no flush, no lease release
+        owner.wait(30)
+        t4 = time.perf_counter()
+        reapers = [threading.Thread(target=reap, args=(pid,), daemon=True) for pid in worker_pids]
+        for t in reapers:
+            t.start()
+        summary["takeover_s"] = _wait_for(lambda: role(sb_admin, "owner"), TWIN_WAIT_S, "the standby to take over")
+        _wait_for(lambda: status(sb_admin)["shm"]["publishes"] >= 1, TWIN_WAIT_S, "the new owner's first publication")
+        st6 = status(sb_admin)
+        summary["takeover_published_s"] = time.perf_counter() - t4
+        m = _metrics_of(sb_admin)
+        adopted = sorted(w["pid"] for w in st6["workers"] if w["adopted"] and w["alive"])
+        if st6["epoch"] != 2 or m.get(("simon_fleet_takeovers_total", (("reason", "expired"),))) != 1 or \
+                m.get(("simon_watch_relists_total", ())) != 0 or lists() != lists0 or \
+                adopted != sorted(worker_pids) or m.get(("simon_fleet_respawns_total", ())) != 0 or \
+                st6["generation"] < g_old:
+            raise AssertionError(f"the takeover: epoch {st6['epoch']}, adopted {adopted} of {worker_pids}, generation "
+                                 f"{st6['generation']} after {g_old}, {lists() - lists0} lists, metrics "
+                                 f"{ {k: v for k, v in m.items() if 'takeover' in k[0] or 'relist' in k[0] or 'respawn' in k[0]} }")
+        st6 = settled(sb_admin, fp)
+        took = _on_workers(st6["workers"], bodies["deploy"], "R2 on a fleet worker after the takeover",
+                           f"fleet|{st6['generation']}")()
+        for g in took:
+            _same_answer(g["answer"], inproc4["answer"], "a fleet worker's R2 after the takeover vs the in-process "
+                                                         "twin's")
+        summary["takeover"] = {"generation": [g_old, st6["generation"]],
+                               "after": [{k: g[k] for k in ("rt", "attach_s", "upload_s", "split")} for g in took]}
+        print(f"takeover: the standby owned the fleet {summary['takeover_s']:.3f} s after the SIGKILL (lease "
+              f"{FLEET_LEASE_S:g} s) and published {summary['takeover_published_s']:.3f} s after it; epoch 2, "
+              f"reason expired, no list, no relist, workers {adopted} adopted, 0 respawns, generation {g_old} -> "
+              f"{st6['generation']}; both workers answer as the in-process twin; the standby at parity "
+              f"(checked {summary['standby_parity_s']:.3f} s after its start); the live owner's longest gap "
+              f"between lease renewals {summary['lease_gap_max_s']:.3f} s (lease {FLEET_LEASE_S:g} s)", flush=True)
+
+        # SIGTERM: workers first, then the owner; nothing left in /dev/shm
+        standby.send_signal(signal.SIGTERM)
+        rc = standby.wait(120)
+        for t in reapers:
+            t.join(60)
+        out = logs["standby"].read_text()
+        workers_log = logs["owner"].read_text()
+        if rc != 0 or "simon fleet: shutdown complete" not in out or \
+                any(reaped.get(pid) != 0 or f"simon server[worker {pid}]: shutdown complete" not in workers_log
+                    for pid in worker_pids):
+            raise AssertionError(f"SIGTERM: owner exit {rc}, workers {reaped}: {out[-2000:]}")
+        _wait_for(lambda: not [n for n in os.listdir("/dev/shm") if n.startswith("simon-fleet-")], TWIN_WAIT_S,
+                  "no simon-fleet-* segment in /dev/shm")
+        print(f"SIGTERM: the workers {worker_pids} and the owner exited 0 with \"shutdown complete\"; no "
+              f"simon-fleet-* segment left in /dev/shm", flush=True)
+    except BaseException:
+        # what the fleet's processes said, for the failure's diagnosis
+        for tag, path in logs.items():
+            with contextlib.suppress(OSError):
+                print(f"--- {tag} log (tail) ---\n{path.read_text()[-6000:]}", flush=True)
+        raise
+    finally:
+        lease_gap["stop"].set()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        for pid in worker_pids:
+            if pid not in reaped:
+                with contextlib.suppress(OSError):
+                    os.kill(pid, signal.SIGKILL)
+        _reap_orphans()
+    print(f"fleet phase {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+    row["fleet"] = summary
+    return row
+
+
+def _reap_orphans() -> None:
+    """Reap the zombies re-parented to this process (the fleet's resource
+    trackers and workers): a zombie is already dead; waiting for it frees
+    its process entry."""
+    me = os.getpid()
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if fields[0] == "Z" and int(fields[1]) == me:
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(int(entry), os.WNOHANG)
 
 
 def main() -> int:
@@ -3567,8 +4098,10 @@ def main() -> int:
     row, drain_plans, drain_grid = drain_sweep(device)
     rows.append(row)
     rows.extend(oversubscribed_plan(device))
-    rows.extend(apply_plan(device, card))
+    apply_rows, apply_tail = apply_plan(device, card)
+    rows.extend(apply_rows)
     example_reports(device)
+    apply_tail()  # phase 29's hog pods, held against their plain version on the CPU meanwhile
     rows.append(full_plan(device, "31-33 config plan", lambda: (fx.score_cluster(N_NODES, blocked=10),
                                                                 fx.score_apps(N_PODS, widget=True)),
                           "fast_scan[na,tt,avoid,cfg]", CFG_PLAIN_PODS, sched_text=fx.SCHED_CONFIG_PLAN))

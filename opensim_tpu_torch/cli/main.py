@@ -159,15 +159,22 @@ def build_parser() -> argparse.ArgumentParser:
         "OPENSIM_ACCESS_LOG=1",
     )
     server_p.add_argument("--workers", type=int, default=0,
-                          help="fleet worker processes (2 or more: not yet ported, ROADMAP Queue 1 item 10)")
+                          help="serve through a multi-process fleet: a twin-owner process publishes its warm "
+                          "snapshot over shared memory and N worker processes (2 or more) attach it and serve the "
+                          "port via SO_REUSEPORT, each launching the kernels on the card (needs --kubeconfig and "
+                          "the live twin; the owner's admin endpoint listens on port + 1; default "
+                          "OPENSIM_WORKERS_FLEET, 0/1 = one process)")
     server_p.add_argument("--journal", default="",
                           help="crash-safe watch-event journal directory: the twin restores from its newest "
                           "checkpoint and the records after it at start, and records every accepted event "
                           "(needs the live twin)")
     server_p.add_argument("--standby", action="store_true",
-                          help="run as the HA hot standby (not yet ported, ROADMAP Queue 1 item 10)")
+                          help="run as the HA hot standby: tail the fleet owner's --journal and take over the "
+                          "fleet, adopting its surviving workers, when the owner's lease (OPENSIM_HA=1) expires "
+                          "or is handed over; admin endpoint on port + 16")
     server_p.add_argument("--handover", action="store_true",
-                          help="with --standby: request the handover (not yet ported, ROADMAP Queue 1 item 10)")
+                          help="with --standby: once the journal tail reaches parity, ask the live owner to hand "
+                          "over (a rolling upgrade); without it the standby takes over only on lease expiry")
     server_p.add_argument("--device", default=None, help=device_help)
 
     top_p = sub.add_parser(
@@ -541,12 +548,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             os.environ["OPENSIM_ACCESS_LOG"] = "1"
         try:
             return serve(kubeconfig=args.kubeconfig, master=args.master, port=args.port, watch=args.watch,
-                         journal=args.journal, workers=args.workers, standby=args.standby or args.handover,
-                         device=args.device)
+                         journal=args.journal, workers=args.workers, standby=args.standby,
+                         ha_handover=args.handover, device=args.device)
         except (OSError, ValueError, RuntimeError, NotImplementedError) as e:
-            # the modes of later slices, a bad path, a busy port, no card
-            # without --device cpu, --watch on without a kubeconfig or a
-            # twin that cannot sync: refused before it listens
+            # a bad path, a busy port, no card without --device cpu,
+            # --watch on without a kubeconfig or a twin that cannot sync:
+            # refused before it listens
             print(f"simon server: {e}", file=sys.stderr)
             return 1
     if args.command == "top":

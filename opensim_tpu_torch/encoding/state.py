@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import json
 import math
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -911,7 +912,18 @@ _TORCH_DTYPES = {
 
 def _field_to_torch(a: np.ndarray, policy: str, device: torch.device) -> torch.Tensor:
     want = _TORCH_DTYPES[policy]
-    t = torch.from_numpy(np.ascontiguousarray(a))
+    a = np.ascontiguousarray(a)
+    if a.flags.writeable:
+        t = torch.from_numpy(a)
+    elif device.type == "cpu":
+        # a read-only buffer (a fleet worker's view of the owner's shared
+        # memory) is never aliased by a tensor on the host
+        t = torch.from_numpy(a.copy())
+    else:
+        # the upload to the card copies it
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+            t = torch.from_numpy(a)
     if t.dtype != want:
         raise TypeError(f"array of dtype {t.dtype} where the contract names {want}")
     return t.to(device)

@@ -30,8 +30,9 @@ A delta's stream has the pod order of a fresh ``prepare()`` and its encoded
 arrays equal the fresh ones (template, domain and vocabulary ids may be
 numbered differently; the kernel does not care). Its tensors go to the
 base's device; with a cache entry, only the leaves the delta changed are
-uploaded (``CacheEntry.dev_map``). The serving fleet's shared-memory
-publication is ROADMAP Queue 1 item 10.
+uploaded (``CacheEntry.dev_map``). The serving fleet publishes a warm
+base entry over shared memory (``publication_parts``) and each worker
+rebuilds it on its own device (``entry_from_publication``).
 """
 
 from __future__ import annotations
@@ -45,8 +46,9 @@ from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
-from ..encoding.state import ClusterEncoder, to_device
+from ..encoding.state import ClusterEncoder, EncodedCluster, ScanState, to_device
 from ..models import expand
 from ..models.objects import LABEL_APP_NAME, Pod, ResourceTypes, touch_epoch
 from ..ops import kernels
@@ -639,6 +641,79 @@ def twin_pod_delta(base_entry: CacheEntry, key: str, added: List[Pod], removed_k
     entry = CacheEntry(key, new_prep, base=base_entry, watch=watch)
     entry.base_drop = drop if n_dropped else None
     PREP_STATS.record("twin_delta", time.monotonic() - t0)
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# attach-from-shm (the serving fleet, server/fleet.py)
+# ---------------------------------------------------------------------------
+
+
+def publication_parts(entry: CacheEntry) -> Optional[dict]:
+    """The host-side pieces of a warm base entry a twin owner publishes
+    over shared memory (server/fleet.py): everything a worker process
+    needs to rebuild an equivalent :class:`CacheEntry` EXCEPT the tensors
+    (each attaching process uploads once per generation) and the per-entry
+    lock (locks are process-local). The carry comes back from the owner's
+    device (``st0``, as the launches start from it). MUST be called with
+    ``entry.lock`` held and bind state restored, like every other reader of
+    the shared pod objects. None for a no-prep entry (a cluster with no
+    schedulable pods: nothing to publish)."""
+    prep = entry.prep
+    if prep is None:
+        return None
+    return {
+        "ec_np": prep.ec_np,
+        "st0_np": ScanState(*[t.cpu().numpy() for t in prep.st0]),
+        "meta": prep.meta,
+        "ordered": prep.ordered,
+        "tmpl_ids": prep.tmpl_ids,
+        "forced": prep.forced,
+        "ds_target": prep.ds_target,
+        "features": prep.features,
+        "encoder": prep.encoder,
+        "n_cluster": prep.n_cluster,
+        "n_bare": prep.n_bare,
+        "ds_group_sizes": prep.ds_group_sizes,
+        "base_drop": entry.base_drop,
+    }
+
+
+def entry_from_publication(key: str, parts: dict, device) -> CacheEntry:
+    """Rebuild a warm base :class:`CacheEntry` on `device` from published
+    parts — the worker-process half of the fleet's attach-from-shm path.
+    The numpy leaves in ``parts`` may be zero-copy read-only views over
+    shared memory; nothing here (or on any serving path over the entry)
+    writes through them — deltas fork the encoder and drop masks are copied
+    before mutation — and no tensor on the host aliases them
+    (``encoding.state.to_device`` copies a read-only leaf there). The one
+    per-attach cost is the upload of the encoded cluster (each process owns
+    its tensors; later deltas reuse them leaf by leaf through
+    ``CacheEntry.dev_map``)."""
+    device = torch.device(device)
+    ec_np: EncodedCluster = parts["ec_np"]
+    st0_np: ScanState = parts["st0_np"]
+    ec, st0 = to_device(ec_np, st0_np, device)
+    prep = Prepared(
+        ec=ec,
+        st0=st0,
+        ec_np=ec_np,
+        st0_np=st0_np,
+        meta=parts["meta"],
+        ordered=parts["ordered"],
+        tmpl_ids=parts["tmpl_ids"],
+        forced=parts["forced"],
+        ds_target=parts["ds_target"],
+        features=parts["features"],
+        device=device,
+        encoder=parts["encoder"],
+        n_cluster=parts["n_cluster"],
+        n_bare=parts["n_bare"],
+        ds_group_sizes=parts["ds_group_sizes"],
+    )
+    entry = CacheEntry(key, prep)
+    with entry.lock:  # fresh and unpublished, but base_drop is guarded-by it
+        entry.base_drop = parts.get("base_drop")
     return entry
 
 

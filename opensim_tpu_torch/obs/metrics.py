@@ -14,7 +14,7 @@ from __future__ import annotations
 import math
 import re
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = [
     "BATCH_SIZE_BUCKETS",
@@ -27,8 +27,11 @@ __all__ = [
     "RECORDER",
     "UTILIZATION_BUCKETS",
     "WATCH_APPLY_BUCKETS",
+    "bucket_deltas",
+    "counter_delta",
     "escape_label_value",
     "family_header",
+    "histogram_quantile",
     "parse_metrics",
 ]
 
@@ -50,8 +53,9 @@ WATCH_APPLY_BUCKETS: Tuple[float, ...] = (
     0.1, 0.5,
 )
 
-#: event-to-journaled freshness (obs/fleetobs.py): ms scale up to the
-#: minutes a wedged writer would show
+#: event-to-servable freshness (obs/fleetobs.py): the publish loop alone
+#: adds up to OPENSIM_FLEET_PUBLISH_MS, so the ladder starts at ms scale
+#: and reaches the minutes a wedged worker would show
 FRESHNESS_BUCKETS: Tuple[float, ...] = (
     0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
     10.0, 30.0, 60.0,
@@ -144,11 +148,49 @@ FAMILIES: Dict[str, Tuple[str, str]] = {
     "simon_journal_dropped_total": ("Records dropped at the bounded writer queue", "counter"),
     "simon_journal_fsync_seconds": ("Journal fsync latency", "histogram"),
     "simon_journal_recoveries_total": ("Journal recovery attempts by outcome", "counter"),
-    # event-to-servable freshness (obs/fleetobs.py): the single-process
-    # server's pipeline ends at the journal stage
+    # the serving fleet (server/fleet.py): owner-side families and the
+    # worker-side attach counters are label-free
+    "simon_fleet_workers": ("Fleet worker processes currently alive", "gauge"),
+    "simon_fleet_workers_target": ("Fleet worker processes configured", "gauge"),
+    "simon_fleet_respawns_total": ("Fleet worker respawns after a crash", "counter"),
+    "simon_fleet_publishes_total": ("Twin publications over shared memory", "counter"),
+    "simon_fleet_generation": ("Last twin generation published over shared memory", "gauge"),
+    "simon_fleet_shm_segments": ("Live shared-memory segments the publisher owns", "gauge"),
+    "simon_fleet_shm_bytes": ("Bytes across live shared-memory segments", "gauge"),
+    "simon_fleet_publish_seconds": ("Twin publication latency (delta segments + control swap)", "histogram"),
+    "simon_fleet_attaches_total": ("Worker attaches to a published generation", "counter"),
+    "simon_fleet_attach_retries_total": ("Seqlock retries during worker attach (torn reads)", "counter"),
+    "simon_fleet_attach_retries_exhausted_total": (
+        "Worker attaches abandoned after exhausting seqlock retries", "counter",
+    ),
+    "simon_fleet_attach_generation": ("Twin generation this worker last attached", "gauge"),
+    "simon_fleet_segment_reuse_total": (
+        "Segments reused across generations at attach (content-keyed delta hits)", "counter",
+    ),
+    # the HA control plane (server/fleet.py); reason is expired or handover
+    "simon_fleet_takeovers_total": ("Standby-to-owner takeovers by reason (expired/handover)", "counter"),
+    "simon_fleet_standby_tail_lag_records": (
+        "Journal records the standby drained at its last tail poll (how far it had fallen behind)", "gauge",
+    ),
+    "simon_fleet_lease_age_seconds": ("Seconds since the HA lease was last renewed", "gauge"),
+    "simon_fleet_fenced_writes_total": (
+        "Publishes refused because the lease epoch moved (a deposed owner fenced out)", "counter",
+    ),
+    # event-to-servable freshness (obs/fleetobs.py): stage is journaled,
+    # published (owner), attached or served (worker), each measured from
+    # watch-event acceptance on the owner's wall clock
     "simon_fleet_freshness_seconds": (
         "Event-to-servable latency by pipeline stage, from watch-event acceptance", "histogram",
     ),
+    # the time-series ring (obs/timeseries.py): sampling liveness and the
+    # disk bound
+    "simon_ts_samples_total": ("Time-series ring samples recorded", "counter"),
+    "simon_ts_window_bytes": ("Bytes held by the on-disk time-series ring", "gauge"),
+    "simon_ts_windows": ("Delta-encoded windows resident in the time-series ring", "gauge"),
+    # the SLO engine (obs/slo.py): burn rate = observed bad fraction over the
+    # window divided by the objective's error budget; slo and window are a
+    # fixed small set
+    "simon_slo_burn_rate": ("SLO burn rate by objective and evaluation window", "gauge"),
 }
 
 
@@ -199,6 +241,71 @@ def parse_metrics(text: str) -> Dict[MetricKey, float]:
         ))
         out[(name, labels)] = float(value)
     return out
+
+
+def _series_delta(after_v: float, before_v: float) -> float:
+    """Cumulative-series delta with counter-reset handling (the PromQL
+    ``rate()`` convention): a decrease means the process restarted and the
+    counter began again at zero, so the post-reset value IS the delta."""
+    d = after_v - before_v
+    return after_v if d < 0 else d
+
+
+def bucket_deltas(before: Dict[MetricKey, float], after: Dict[MetricKey, float], family: str,
+                  match: Dict[str, str]) -> List[Tuple[float, float]]:
+    """Sorted ``(le, cumulative delta)`` for one histogram family, summed
+    over every series whose labels are a superset of ``match`` (the series
+    share the bucket ladder). A series absent from ``before`` contributes
+    its full ``after`` value; one that DECREASED is a counter reset and
+    contributes its post-reset value."""
+    sums: Dict[float, float] = {}
+    for (name, labels), v in after.items():
+        if name != f"{family}_bucket":
+            continue
+        ld = dict(labels)
+        if any(ld.get(k) != want for k, want in match.items()):
+            continue
+        le = math.inf if ld.get("le") == "+Inf" else float(ld.get("le", "inf"))
+        sums[le] = sums.get(le, 0.0) + _series_delta(v, before.get((name, labels), 0.0))
+    return sorted(sums.items())
+
+
+def histogram_quantile(before: Dict[MetricKey, float], after: Dict[MetricKey, float], family: str, q: float,
+                       match: Optional[Dict[str, str]] = None) -> Optional[float]:
+    """PromQL ``histogram_quantile`` over the scrape DELTA: linear
+    interpolation inside the target bucket. None when the delta is empty."""
+    buckets = bucket_deltas(before, after, family, match or {})
+    if not buckets:
+        return None
+    total = buckets[-1][1]
+    if total <= 0:
+        return None
+    target = q * total
+    prev_le, prev_cum = 0.0, 0.0
+    for le, cum in buckets:
+        if cum >= target:
+            if math.isinf(le):
+                return prev_le  # tail bucket: the lower bound is the honest answer
+            if cum == prev_cum:
+                return le
+            return prev_le + (le - prev_le) * (target - prev_cum) / (cum - prev_cum)
+        prev_le, prev_cum = le, cum
+    return buckets[-1][0]
+
+
+def counter_delta(before: Dict[MetricKey, float], after: Dict[MetricKey, float], name: str,
+                  match: Optional[Dict[str, str]] = None) -> float:
+    """Summed counter delta across matching series, reset-safe (see
+    :func:`bucket_deltas`)."""
+    total = 0.0
+    for (n, labels), v in after.items():
+        if n != name:
+            continue
+        ld = dict(labels)
+        if match and any(ld.get(k) != want for k, want in match.items()):
+            continue
+        total += _series_delta(v, before.get((n, labels), 0.0))
+    return total
 
 
 class CounterVec:

@@ -26,6 +26,15 @@ point                  fires inside
 ``journal.fsync``      the journal writer's fsync — as ``journal.write``
 ``journal.corrupt``    ``Journal.recover`` — recovery from a poisoned journal
                        degrades to a full relist with a typed warning
+``fleet.lease_steal``  ``FleetLease.check`` (``server/fleet.py``) — the HA
+                       lease is observed held by ANOTHER epoch: the owner
+                       fences itself instead of split-braining
+``journal.tail_gap``   ``JournalTailer.poll`` (``server/journal.py``) — a
+                       drained batch is lost; the standby's twin diverges
+                       until the next checkpoint record rebases it
+``shm.republish``      ``TwinPublisher.publish`` between the segment writes
+                       and the seqlock control swap — readers keep serving
+                       the previous stable generation, never a torn one
 =====================  ======================================================
 
 Activation, either route:
@@ -66,6 +75,9 @@ FAULT_POINTS = (
     "journal.write",
     "journal.fsync",
     "journal.corrupt",
+    "fleet.lease_steal",
+    "journal.tail_gap",
+    "shm.republish",
 )
 
 

@@ -2,7 +2,8 @@
 ``opensim_tpu/resilience/retry.py``.
 
 :func:`retry_call` wraps calls to something that can transiently fail (the
-apiserver snapshot fetch). Attempt ``k`` (0-based) sleeps a uniform sample
+apiserver snapshot fetch); :func:`backoff_delay` is its schedule as a bare
+delay (the fleet supervisor's worker respawns). Attempt ``k`` (0-based) sleeps a uniform sample
 from ``[0, min(max_delay, base_delay * 2**k)]`` (full jitter), which
 decorrelates retry storms across clients while keeping the expected
 backoff exponential. ``sleep`` and ``rng`` are injectable, so tests assert
@@ -18,7 +19,21 @@ from typing import Callable, Optional, Tuple, Type, TypeVar
 
 T = TypeVar("T")
 
-__all__ = ["retry_call"]
+__all__ = ["backoff_delay", "retry_call"]
+
+
+def backoff_delay(
+    attempt: int,
+    base_delay: float = 0.5,
+    max_delay: float = 10.0,
+    rng: Optional[random.Random] = None,
+) -> float:
+    """The :func:`retry_call` full-jitter schedule as a bare delay, for
+    loops that respawn rather than re-call (the fleet supervisor's worker
+    respawn backoff, server/fleet.py): attempt ``k`` (0-based) sleeps a
+    uniform sample from ``[0, min(max_delay, base_delay * 2**k)]``."""
+    rng = rng if rng is not None else random.Random()
+    return rng.uniform(0.0, min(max_delay, base_delay * (2.0 ** max(0, attempt))))
 
 
 def retry_call(

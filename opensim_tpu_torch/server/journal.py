@@ -38,12 +38,15 @@ record that raced the checkpoint re-applies as a no-op.
 Replay (:func:`iter_records`, :func:`rebuild_twin`, :func:`replay_events`)
 drives ``simon replay <journal>`` and the campaign's ``from-journal`` step:
 the twin at any recorded generation, or the event history streamed at N×
-speed into the capacity observatory and the scheduler.
+speed into the capacity observatory and the scheduler. The HA standby
+follows a live journal with :class:`JournalTailer` and applies each record
+with :func:`apply_record` (a checkpoint rebases its twin wholesale).
 
 Fault points (``OPENSIM_FAULTS``): ``journal.write`` and ``journal.fsync``
 fire in the writer thread (the journal degrades loudly, the serving path
 never notices); ``journal.corrupt`` fires at recovery (a corrupt journal
-degrades to a full relist with a typed warning, never a crash). Every
+degrades to a full relist with a typed warning, never a crash);
+``journal.tail_gap`` drops a batch the tailer drained. Every
 record write goes through the one framing helper
 (:meth:`Journal._write_framed`).
 """
@@ -69,7 +72,9 @@ log = logging.getLogger("opensim_tpu_torch.server.journal")
 __all__ = [
     "Journal",
     "JournalError",
+    "JournalTailer",
     "RecoveredState",
+    "apply_record",
     "iter_records",
     "journal_policy",
     "rebuild_twin",
@@ -797,6 +802,195 @@ def _apply_record(twin, rec: dict, state: Optional[RecoveredState] = None):
         if ts:
             state.timeline.extend(ts)
     return change
+
+
+def apply_record(twin, rec: dict, state: Optional[RecoveredState] = None):
+    """Apply ANY record type to a consumer twin — the standby tailer's
+    apply primitive (server/fleet.py). ``ev``/``rb`` ride
+    :func:`_apply_record` (rv-monotonic, generation-overlaid); a ``ck``
+    rebases the twin wholesale, exactly like :func:`replay_events` does —
+    a checkpoint is an authoritative full snapshot, and applying it is
+    what heals a tailer that lost records to a pruned gap."""
+    if rec.get("t") != "ck":
+        return _apply_record(twin, rec, state)
+    for field, items in (rec.get("stores") or {}).items():
+        twin.rebase(field, list(items))
+    gen = rec.get("gen")
+    if isinstance(gen, int) and gen >= twin.generation:
+        twin.generation = gen
+    if state is not None:
+        for f, rv in (rec.get("rvs") or {}).items():
+            state.resume_rvs[str(f)] = str(rv)
+        ts = rec.get("timeline")
+        if ts:
+            state.timeline = list(ts)
+        state.checkpoint_generation = int(gen or 0)
+    return None
+
+
+class JournalTailer:
+    """Live segment-follow reader over a journal directory ANOTHER process
+    is appending to — the HA standby's feed. Strictly read-only: never
+    truncates, never writes, never takes the writer's locks.
+
+    Follow semantics per :meth:`poll`:
+
+    - complete CRC-framed records after the remembered offset are drained
+      in order; the offset advances only past VALID frames;
+    - an **incomplete tail frame** (short header or short payload — the
+      writer is mid-append, or crashed there) is left unconsumed: the next
+      poll re-reads from the same offset once the bytes land;
+    - **rotation**: when a newer segment exists, the current one is
+      finished history — whatever valid frames remain are drained, then
+      the tailer moves on. A torn/corrupt tail abandoned by a crashed
+      writer is skipped the same way, which is safe because every segment
+      after the first STARTS with a checkpoint and :func:`apply_record`
+      rebases on checkpoints (the overlap re-applies as rv-monotonic
+      no-ops);
+    - **pruning**: when the tailer's segment vanished underneath it (the
+      writer pruned past it) or shrank below the offset (a takeover
+      truncated a torn tail), it re-anchors — oldest surviving segment,
+      offset 0 — and counts the gap; the first record there is a
+      checkpoint, so the consumer's twin snaps back to truth.
+
+    Chaos point ``journal.tail_gap`` drops one drained batch on the floor
+    (counted in ``gaps_total``): the deterministic stand-in for a tailer
+    that fell off the pruned end of history, proving the
+    checkpoint-rebase healing path.
+    """
+
+    def __init__(self, path: str) -> None:
+        self.path = os.path.abspath(path)
+        self._seq: Optional[int] = None  # segment being followed
+        self._offset = 0  # byte offset after the last valid frame
+        self.records_total = 0
+        self.gaps_total = 0
+        #: records drained by the last poll — how far the consumer had
+        #: fallen behind (simon_fleet_standby_tail_lag_records)
+        self.last_lag_records = 0
+        self.last_stop = ""  # incomplete | invalid | "" (clean EOF)
+
+    def _seg_seqs(self) -> List[int]:
+        try:
+            names = os.listdir(self.path)
+        except OSError:
+            return []
+        return sorted(s for n in names if (s := _segment_seq(n)) is not None)
+
+    def _read_from(self, seq: int, offset: int) -> Tuple[List[dict], int, str]:
+        """Drain valid frames from segment ``seq`` starting at ``offset``.
+        Returns ``(records, new_offset, stop)`` where stop is
+        ``"incomplete"`` (short tail — wait for the writer), ``"invalid"``
+        (corruption — only a newer segment can unblock), or ``""`` (clean
+        EOF). A magic-less prefix is ``"incomplete"`` too: the writer
+        stamps the magic on segment creation, so its absence means the
+        file is younger than its own header flush."""
+        path = os.path.join(self.path, _segment_name(seq))
+        out: List[dict] = []
+        try:
+            with open(path, "rb") as f:
+                if offset < len(SEGMENT_MAGIC):
+                    magic = f.read(len(SEGMENT_MAGIC))
+                    if len(magic) < len(SEGMENT_MAGIC):
+                        return out, offset, "incomplete"
+                    if magic != SEGMENT_MAGIC:
+                        return out, offset, "invalid"
+                    offset = f.tell()
+                else:
+                    f.seek(offset)
+                while True:
+                    hdr = f.read(_FRAME)
+                    if len(hdr) < _FRAME:
+                        return out, offset, "incomplete" if hdr else ""
+                    length = int.from_bytes(hdr[:4], "little")
+                    crc = int.from_bytes(hdr[4:8], "little")
+                    if length <= 0 or length >= _LEN_MAX:
+                        return out, offset, "invalid"
+                    payload = f.read(length)
+                    if len(payload) < length:
+                        return out, offset, "incomplete"
+                    if (zlib.crc32(payload) & 0xFFFFFFFF) != crc:
+                        return out, offset, "invalid"
+                    try:
+                        out.append(json.loads(payload))
+                    except ValueError:
+                        return out, offset, "invalid"
+                    offset = f.tell()
+        except FileNotFoundError:
+            return out, offset, "invalid"
+        except OSError as e:
+            log.warning("journal tail: segment %s unreadable: %s", path, e)
+            return out, offset, "invalid"
+
+    def poll(self) -> List[dict]:
+        """All records that became readable since the last poll, in order.
+        Empty when the writer is idle (or mid-frame). Never raises for
+        data-shaped problems — gaps are counted and healed by the next
+        checkpoint the stream carries."""
+        batch: List[dict] = []
+        for _hop in range(64):  # bound: segments crossed per poll
+            seqs = self._seg_seqs()
+            if not seqs:
+                break
+            if self._seq is None:
+                self._seq, self._offset = seqs[0], 0
+            elif self._seq not in seqs:
+                # pruned out from under us: re-anchor at the oldest
+                # survivor — its first record is a checkpoint
+                self.gaps_total += 1
+                log.warning(
+                    "journal tail: segment %d pruned underneath the tailer; "
+                    "re-anchoring at segment %d (the checkpoint there heals "
+                    "the gap)", self._seq, seqs[0] if self._seq < seqs[0] else seqs[-1],
+                )
+                newer = [s for s in seqs if s > self._seq]
+                self._seq, self._offset = (newer[0] if newer else seqs[0]), 0
+            else:
+                # a takeover's torn-tail truncation can shrink the file
+                # below our offset: re-read the whole segment (checkpoint
+                # first records + rv-monotonic apply make the re-read safe)
+                try:
+                    size = os.path.getsize(
+                        os.path.join(self.path, _segment_name(self._seq))
+                    )
+                except OSError:
+                    size = 0
+                if size < self._offset:
+                    self.gaps_total += 1
+                    self._offset = 0
+            recs, self._offset, stop = self._read_from(self._seq, self._offset)
+            batch.extend(recs)
+            self.last_stop = stop
+            newer = [s for s in seqs if s > self._seq]
+            if newer:
+                # rotation (or an abandoned torn tail): this segment is
+                # finished history — move on; a skipped bad tail is healed
+                # by the next segment's leading checkpoint
+                if stop == "invalid" or not recs:
+                    if stop == "invalid":
+                        self.gaps_total += 1
+                    self._seq, self._offset = newer[0], 0
+                continue  # drain again: more may have landed meanwhile
+            break
+        if batch:
+            try:
+                faults.fault_point("journal.tail_gap")
+            except Exception as e:
+                self.gaps_total += 1
+                log.warning(
+                    "journal tail: injected gap (%s): %d record(s) dropped; "
+                    "the next checkpoint rebases the consumer back to truth",
+                    e, len(batch),
+                )
+                self.last_lag_records = 0
+                return []
+        self.last_lag_records = len(batch)
+        self.records_total += len(batch)
+        return batch
+
+    def position(self) -> Tuple[Optional[int], int]:
+        """(segment seq, byte offset) after the last drained frame."""
+        return self._seq, self._offset
 
 
 def iter_records(path: str) -> Iterator[dict]:

@@ -38,10 +38,16 @@ serves single-flight per endpoint, the reference's TryLock 503
 (``server.go:167,:234``). Headroom probes and campaigns are serialized by
 locks of their own. A headroom probe is one grid launch of the kernel for
 its ladder and one per bisection step; a campaign one launch of the one
-scan per scheduling pass. Not ported yet, and refused rather than
-approximated: the serving fleet and its hot standby, the memory
-observatory, the time series and the profiler (ROADMAP Queue 1 item 10)
-— their routes answer 501 naming the item.
+scan per scheduling pass. ``serve()`` started servers also run the
+time-series ring and the SLO engine (``GET /api/debug/timeseries``, ``GET
+/api/fleet/slo``; 503 on a server that did not start them). With
+``workers`` ≥ 2 or ``standby``, :func:`serve` runs the serving fleet or its
+hot standby instead (``server/fleet.py``); a process started with
+``OPENSIM_FLEET_ATTACH`` is one of a fleet's workers, and its requests'
+traces carry the owner's publication (:meth:`SimonServer._stamp_fleet_trace`).
+Not ported yet, and refused rather than approximated: the memory
+observatory and the profiler (ROADMAP Queue 1 item 10) — their routes
+answer 501 naming the item.
 """
 
 from __future__ import annotations
@@ -85,8 +91,6 @@ _ACCESS_LOG = logging.getLogger("opensim_tpu_torch.access")
 NOT_PORTED = {
     "/api/debug/memory": 10,
     "/api/debug/profile": 10,
-    "/api/debug/timeseries": 10,
-    "/api/fleet/": 10,
     "/debug/profiler": 10,
 }
 
@@ -422,11 +426,68 @@ class SimonServer:
         # one campaign at a time per server: each builds its own prepared
         # lineage and runs many launches
         self._campaign_lock = threading.Lock()
+        # the time-series ring and the SLO engine: only serve() starts them,
+        # so library and test constructions run no sampler thread
+        self.timeseries = None
+        self.slo = None
+        self._ts_sampler = None
 
     def metrics_text(self) -> str:
-        """The ``/metrics`` body."""
-        return self.metrics.render(self.prep_cache, capacity=self.capacity, admission=self.admission,
+        """The ``/metrics`` body (the handler's and the time-series
+        sampler's): the request-layer families plus, while the ring runs,
+        its own telemetry and the SLO burn-rate gauges."""
+        text = self.metrics.render(self.prep_cache, capacity=self.capacity, admission=self.admission,
                                    watch=self.watch, journal=self.journal)
+        extra: List[str] = []
+        if self.timeseries is not None:
+            extra += self.timeseries.metrics_lines()
+        if self.slo is not None:
+            extra += self.slo.metrics_lines()
+        return text + ("\n".join(extra) + "\n" if extra else "")
+
+    def start_timeseries(self) -> None:
+        """Boot the on-disk time-series ring, the self-scrape sampler and
+        the SLO engine (idempotent; serve() calls this)."""
+        from ..obs.slo import SLOEngine
+        from ..obs.timeseries import TimeSeriesRing, TimeSeriesSampler
+
+        if self.timeseries is not None:
+            return
+        ts_dir = str(envknobs.value("OPENSIM_TS_DIR") or "") or None
+        self.timeseries = TimeSeriesRing(directory=ts_dir)
+        self.slo = SLOEngine(self.timeseries)
+        self._ts_sampler = TimeSeriesSampler(self.timeseries, self.metrics_text)
+        self._ts_sampler.start()
+
+    def _stamp_fleet_trace(self, tr) -> None:
+        """Cross-process stitching: when serving from a fleet twin client,
+        stamp the serving generation and the owner's publication span and
+        event ids onto the request trace. Free with tracing off (``tr is
+        None``) and on non-fleet servers (no ``stitch_info`` on the watch
+        object)."""
+        if tr is None:
+            return
+        stitch = getattr(self.watch, "stitch_info", None)
+        if stitch is None:
+            return
+        try:
+            gen, pub = stitch()
+        except Exception as e:  # a torn reader mid-swap must not fail the request
+            log.debug("fleet stitch skipped: %s: %s", type(e).__name__, e)
+            return
+        if gen is None:
+            return
+        tr.serving_generation = gen  # the flight recorder keys the graft on this
+        attrs = {"serving_generation": gen}
+        if isinstance(pub, dict):
+            if pub.get("span"):
+                attrs["fleet_publication"] = pub["span"]
+            events = [e[0] for e in pub.get("events") or []]
+            if events:
+                # comma-joined: span attrs are primitives so they survive
+                # the tree's JSON export verbatim
+                attrs["fleet_events"] = ",".join(events)
+        tr.root.set(**attrs)
 
     def close(self) -> None:
         """Stop the admission queue (the batch and solos in flight
@@ -435,6 +496,10 @@ class SimonServer:
         its history is complete to the last accepted event. Idempotent."""
         if self.admission is not None:
             self.admission.stop()
+        if self._ts_sampler is not None:
+            self._ts_sampler.stop()
+        if self.timeseries is not None:
+            self.timeseries.close()
         if self.watch is not None:
             self.watch.stop()
         if self.journal is not None:
@@ -566,16 +631,11 @@ class SimonServer:
 
     def kernel_variants(self) -> List[str]:
         """The kernel variants this server's requests launch on its current
-        snapshot (:func:`snapshot_variants`) and the base variant, each
-        also in explain mode and as the request batch's counting grid. A
-        request whose app brings other features (GPU shares, ports,
-        volumes, inter-pod terms) builds its variant when it first needs
-        it."""
-        names = {"fast_scan", "fast_scan[explain]", "fast_scan[count]"}
+        snapshot (:func:`serving_variants`)."""
+        cluster = None
         if self.base_cluster is not None or self.kubeconfig:
             cluster = self._snapshot_for_cache()[0] if self.prep_cache is not None else self.current_cluster()
-            names |= snapshot_variants(cluster)
-        return sorted(names)
+        return serving_variants(cluster)
 
     # -- capacity observatory -------------------------------------------------
 
@@ -692,13 +752,21 @@ class SimonServer:
         request took and the host-clock times of its phases (the cache's
         work, then simulate()'s prepare, inputs, kernel and decode) on the
         request's trace."""
+        from ..ops import fast_scan as fs
+
+        launched0 = dict(fs.VARIANT_LAUNCHES)
         with tracing.span("simulate", rung=rung) as sp:
             result = simulate(cluster, apps, device=self.device, explain=explain, **kw)
             for phase, seconds in result.timings.items():
                 sp.child_from_seconds(phase, seconds)
         tr = tracing.current_trace()
         if tr is not None:
-            tr.root.set(rung=rung, cache_s=round(t_cache, 6), engine=result.engine,
+            # the kernel variants launched meanwhile, as "name=count,...":
+            # the request's own with one request at a time (a fleet worker's
+            # launches are visible nowhere else outside its process)
+            launched = ",".join(f"{k}={v - launched0.get(k, 0)}" for k, v in sorted(fs.VARIANT_LAUNCHES.items())
+                                if v != launched0.get(k, 0))
+            tr.root.set(rung=rung, cache_s=round(t_cache, 6), engine=result.engine, launches=launched,
                         **{f"{k}_s": round(v, 6) for k, v in result.timings.items()})
         return result
 
@@ -1045,6 +1113,7 @@ class SimonServer:
                 if ticket is not None and ticket.queue_s:
                     # the real time in queue, on the span tree too
                     tr.root.child_from_seconds("queue", ticket.queue_s)
+                self._stamp_fleet_trace(tr)
                 tr.finish(status=status, http_status=code)
                 FLIGHT_RECORDER.record(tr)
                 RECORDER.observe_trace(tr)
@@ -1119,6 +1188,7 @@ class SimonServer:
                         self.metrics.record(endpoint, result)
                     RECORDER.observe_request(endpoint, seconds, status=status)
                 if tr is not None:
+                    self._stamp_fleet_trace(tr)
                     tr.finish(status=status, http_status=code)
                     FLIGHT_RECORDER.record(tr)
                     RECORDER.observe_trace(tr)
@@ -1187,6 +1257,18 @@ def snapshot_variants(cluster: ResourceTypes) -> set:
         return set()
     fi, _ = fastpath.build_inputs(prep)
     return {fs.variant_name(fi), fs.variant_name(fi, explain=True), fs.variant_name(fi, count=True)}
+
+
+def serving_variants(cluster: Optional[ResourceTypes] = None) -> List[str]:
+    """The kernel variants a server's requests launch on `cluster` (its
+    snapshot: :func:`snapshot_variants`) and the base variant, each also
+    in explain mode and as the request batch's counting grid. A request
+    whose app brings other features (GPU shares, ports, volumes, inter-pod
+    terms) builds its variant when it first needs it."""
+    names = {"fast_scan", "fast_scan[explain]", "fast_scan[count]"}
+    if cluster is not None:
+        names |= snapshot_variants(cluster)
+    return sorted(names)
 
 
 def _with_new_nodes(cluster: ResourceTypes, nodes: List[Node]) -> ResourceTypes:
@@ -1280,7 +1362,43 @@ def make_handler(server: SimonServer):
                 if tr is None:
                     self._send(404, {"error": f"no recorded trace for request id {rid!r}"})
                 else:
-                    self._send(200, tr.tree())
+                    body = tr.tree()
+                    # a fleet worker's request: graft the owner-side
+                    # publication subtree under the worker-side tree
+                    gen = getattr(tr, "serving_generation", None)
+                    if gen is not None:
+                        from ..obs.fleetobs import publication_tree
+
+                        fleet_node = publication_tree(gen)
+                        if fleet_node is not None:
+                            body["fleet"] = fleet_node
+                    self._send(200, body)
+            elif path == "/api/debug/timeseries":
+                # the on-disk time-series ring: serve() starts it; bare
+                # SimonServer constructions answer 503
+                if server.timeseries is None:
+                    self._send(503, {"error": "time-series ring not running"})
+                else:
+                    from urllib.parse import parse_qs
+
+                    from ..obs.timeseries import parse_duration_s
+
+                    q = parse_qs(self.path.partition("?")[2])
+                    try:
+                        range_s = parse_duration_s(q.get("range", [""])[-1])
+                    except ValueError as e:
+                        self._send(400, {"error": str(e)})
+                    else:
+                        self._send(200, {"stats": server.timeseries.stats(),
+                                         "samples": server.timeseries.query(family=q.get("family", [""])[-1],
+                                                                            range_s=range_s)})
+            elif path == "/api/fleet/slo":
+                # SLO burn rates, the surface the fleet's admin endpoint
+                # serves too
+                if server.slo is None:
+                    self._send(503, {"error": "SLO engine not running"})
+                else:
+                    self._send(200, server.slo.evaluate())
             elif path.startswith("/api/debug/placements/"):
                 rid = tracing.sanitize_request_id(path.rsplit("/", 1)[1])
                 tr = FLIGHT_RECORDER.get(rid)
@@ -1366,10 +1484,6 @@ class SimonHTTPServer(ThreadingHTTPServer):
 SYNC_TIMEOUT_S = 60.0
 
 
-def _refuse(what: str, item: int) -> ValueError:
-    return ValueError(f"{what} is ROADMAP Queue 1 item {item}, not yet ported to the PyTorch/CUDA package")
-
-
 def build_twin(kubeconfig: str, master: str, watch: str, journal: str):
     """(watch supervisor or None, journal or None) for a serving process.
     Raises ``ValueError`` on operator errors: ``--watch on`` without a
@@ -1397,12 +1511,34 @@ def build_twin(kubeconfig: str, master: str, watch: str, journal: str):
     return supervisor, jrnl
 
 
+def _check_args(kubeconfig: str, watch: str, journal: str) -> None:
+    for label, path in (("--kubeconfig", kubeconfig), ("--journal", journal)):
+        if any(ord(c) < 32 for c in path):
+            raise ValueError(f"invalid {label}: control character in {path!r}")
+    if watch not in ("auto", "on", "off"):
+        raise ValueError(f"--watch must be auto, on or off, got {watch!r}")
+
+
+def fleet_workers(flag: int = 0) -> int:
+    """The fleet size: the ``--workers`` flag wins, else
+    ``OPENSIM_WORKERS_FLEET``; 0 or 1 means single-process serving."""
+    if flag:
+        return flag
+    raw = envknobs.raw("OPENSIM_WORKERS_FLEET")
+    if not raw:
+        return 0
+    try:
+        return max(0, int(raw))
+    except ValueError:
+        log.warning("ignoring unparseable OPENSIM_WORKERS_FLEET=%r", raw)
+        return 0
+
+
 def start_server(kubeconfig: str = "", master: str = "", port: int = 8080, watch: str = "auto", journal: str = "",
-                 workers: int = 0, standby: bool = False, device: DeviceLike = None, host: str = "0.0.0.0",
+                 device: DeviceLike = None, host: str = "0.0.0.0",
                  snapshot_ttl_s: float = 30.0) -> Tuple[SimonServer, SimonHTTPServer]:
-    """What :func:`serve` does before it serves: refuse the modes of later
-    slices (``ValueError`` naming the ROADMAP item) and operator errors,
-    create the server on its device (raising without a card unless
+    """What :func:`serve` does before a single-process server serves:
+    refuse operator errors, create the server on its device (raising without a card unless
     `device` names the CPU) with its live twin and journal
     (:func:`build_twin`), start the twin — with ``watch="on"`` wait up to
     :data:`SYNC_TIMEOUT_S` for it to sync (from the journal's checkpoint and
@@ -1412,16 +1548,7 @@ def start_server(kubeconfig: str = "", master: str = "", port: int = 8080, watch
     (:meth:`SimonServer.kernel_variants`) so no request pays a build, and
     bind the listener. Returns both; the caller runs ``serve_forever``,
     ``shutdown`` and ``server.close()``."""
-    for label, path in (("--kubeconfig", kubeconfig), ("--journal", journal)):
-        if any(ord(c) < 32 for c in path):
-            raise ValueError(f"invalid {label}: control character in {path!r}")
-    if watch not in ("auto", "on", "off"):
-        raise ValueError(f"--watch must be auto, on or off, got {watch!r}")
-    if standby:
-        raise _refuse("--standby (the HA hot standby of the serving fleet)", 10)
-    n_fleet = workers or int(envknobs.raw("OPENSIM_WORKERS_FLEET") or 0)
-    if n_fleet >= 2:
-        raise _refuse(f"--workers {n_fleet} (the multi-process serving fleet)", 10)
+    _check_args(kubeconfig, watch, journal)
     supervisor, jrnl = build_twin(kubeconfig, master, watch, journal)
     try:
         server = SimonServer(kubeconfig=kubeconfig, master=master, snapshot_ttl_s=snapshot_ttl_s, device=device,
@@ -1453,18 +1580,44 @@ def start_server(kubeconfig: str = "", master: str = "", port: int = 8080, watch
 
 
 def serve(kubeconfig: str = "", master: str = "", port: int = 8080, watch: str = "auto", journal: str = "",
-          workers: int = 0, standby: bool = False, device: DeviceLike = None) -> int:
+          workers: int = 0, standby: bool = False, ha_handover: bool = False, device: DeviceLike = None) -> int:
     """Start the REST server and serve until SIGTERM or SIGINT (see
     :func:`start_server`). ``watch`` selects the snapshot strategy with a
     kubeconfig: ``auto`` (the default) starts the live twin and serves
     from it once synced, from the polling snapshot until then; ``on``
     requires the twin to sync at start; ``off`` polls only. ``journal``
-    names the twin's crash-safe journal directory. ``workers`` ≥ 2 and
-    ``standby`` are refused, naming the ROADMAP item that brings them.
-    Shutdown drains the admission queue, stops the reflectors and flushes
-    the journal."""
+    names the twin's crash-safe journal directory. Shutdown drains the
+    admission queue, stops the reflectors and flushes the journal.
+
+    ``workers`` ≥ 2 (or ``OPENSIM_WORKERS_FLEET``) serves through the
+    multi-process fleet instead (``server/fleet.py``): a twin-owner process
+    publishing its warm base entry over shared memory and N worker
+    processes sharing the port via ``SO_REUSEPORT``. ``standby`` runs the
+    HA hot standby, which tails the owner's journal and takes over on lease
+    expiry (with ``ha_handover``, it asks the owner to hand over once it is
+    at parity). A process with ``OPENSIM_FLEET_ATTACH`` set is one of a
+    fleet's workers."""
+    _check_args(kubeconfig, watch, journal)
+    if envknobs.raw("OPENSIM_FLEET_ATTACH"):
+        # this process IS a fleet worker (the supervisor set the knob):
+        # attach the owner's publication instead of building a twin
+        from .fleet import run_worker
+
+        return run_worker(port, device)
+    if standby:
+        from .fleet import serve_standby
+
+        return serve_standby(kubeconfig, master, port, watch, journal, fleet_workers(workers) or 2,
+                             handover=ha_handover, device=device)
+    n_fleet = fleet_workers(workers)
+    if n_fleet >= 2:
+        from .fleet import serve_fleet
+
+        return serve_fleet(kubeconfig, master, port, watch, journal, n_fleet, device=device)
     server, httpd = start_server(kubeconfig=kubeconfig, master=master, port=port, watch=watch, journal=journal,
-                                 workers=workers, standby=standby, device=device)
+                                 device=device)
+    # the time-series ring and the SLO engine: long-lived servers only
+    server.start_timeseries()
 
     # the handler only nudges the serve loop from a helper thread
     # (httpd.shutdown() deadlocks when called from the serving thread)

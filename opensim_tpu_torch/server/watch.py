@@ -719,6 +719,9 @@ class WatchSupervisor:
         # held that long, so reflector dispatch keeps flowing
         self._flush_lock = threading.Lock()
         self._boot_rvs: Dict[str, str] = {}
+        #: in-memory state to adopt at start() instead of journal recovery
+        #: (the HA standby's pre-warmed twin; see preload_state)
+        self._preloaded = None
         # serializes event application against the anti-entropy merge (the
         # reflector threads vs the supervisor thread) and guards the
         # per-field reorder-fault holding slots
@@ -783,6 +786,15 @@ class WatchSupervisor:
             stores, gen, resume_rvs=self._boot_rvs, timeline=timeline, why=why
         )
 
+    def preload_state(self, state) -> None:
+        """Hand the supervisor an in-memory :class:`~.journal.RecoveredState`
+        to adopt INSTEAD of recovering from its journal at start() — the HA
+        standby's takeover path (server/fleet.py): the standby tailed the
+        old owner's journal onto its own twin, and the new supervisor starts
+        from that state (zero relists, reflectors resuming at the recorded
+        rvs), not from a disk replay of history it already holds."""
+        self._preloaded = state
+
     def _restore_from_journal(self) -> bool:
         """Rebuild the twin from the journal's newest checkpoint + suffix
         replay, then resume serving WITHOUT a relist: the reflectors pick
@@ -796,7 +808,8 @@ class WatchSupervisor:
 
     def _adopt_state(self, state, span: str, why: str) -> bool:
         """Seed the twin, the capacity view and the resume rvs from a
-        recovered state and go live."""
+        recovered (or standby-tailed) state and go live — shared by journal
+        recovery and the HA takeover."""
         with self._traced(span):
             with self._maint_lock:
                 for field, items in state.stores.items():
@@ -861,6 +874,15 @@ class WatchSupervisor:
             self.journal.flush(timeout=10.0)
 
     def _run(self) -> None:
+        if self._preloaded is not None and not self._synced.is_set():
+            state, self._preloaded = self._preloaded, None
+            try:
+                self._adopt_state(state, "takeover-adopt", "takeover")
+            except Exception as e:
+                # a failed adopt degrades to the journal/bootstrap ladder
+                # below — the takeover gets slower, never stuck
+                log.warning("takeover state adopt failed (%s: %s); falling back to journal recovery / relist",
+                            type(e).__name__, e)
         if self.journal is not None and not self._synced.is_set():
             try:
                 self._restore_from_journal()  # sets _synced on success
@@ -1003,6 +1025,7 @@ class WatchSupervisor:
         # acceptance stamp: the event id rides the journal record, and the
         # acceptance time is the t=0 of simon_fleet_freshness_seconds
         eid, ts = new_event_id(), time.time()
+        FRESHNESS.event_accepted(eid, gen, ts)
         if self.journal is not None:
             # ACCEPTED events only (rv-monotonic no-ops never reach here):
             # an O(1) bounded-queue enqueue, never I/O — the journal's

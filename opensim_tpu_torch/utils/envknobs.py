@@ -1,8 +1,9 @@
 """Typed registry of the ``OPENSIM_*`` environment knobs the port reads —
 the port's copy of ``opensim_tpu/utils/envknobs.py``, holding the knobs of
 the modules it has (the server and its admission queue, the snapshot, the
-live twin and its journal, the resilience layer, the request tracer, the
-capacity observatory and the campaign planner).
+live twin and its journal, the serving fleet and its HA control plane, the
+resilience layer, the request tracer, the time-series ring and SLO engine,
+the capacity observatory and the campaign planner).
 
 Every read goes through :func:`raw`, which fails loudly on an
 unregistered name, so a knob cannot ship undocumented and a typo'd name
@@ -27,7 +28,7 @@ class Knob:
     (raising ``ValueError`` on a bad value)."""
 
     name: str
-    type: str  # int | float | flag | enum | spec
+    type: str  # int | float | flag | enum | str | path | spec
     default: str
     doc: str
     validator: Optional[Callable[[str], object]] = None
@@ -80,11 +81,11 @@ def _int(lo: int) -> Callable[[str], int]:
     return parse
 
 
-def _float(lo: float) -> Callable[[str], float]:
+def _float(lo: float, exclusive: bool = False) -> Callable[[str], float]:
     def parse(text: str) -> float:
         v = float(text)
-        if v < lo:
-            raise ValueError(f"must be >= {lo}, got {v}")
+        if v <= lo if exclusive else v < lo:
+            raise ValueError(f"must be {'>' if exclusive else '>='} {lo}, got {v}")
         return v
 
     return parse
@@ -156,14 +157,59 @@ for _knob in (
     Knob("OPENSIM_JOURNAL_KEEP", "int", "2", "Checkpoint segments retained by journal pruning."),
     Knob("OPENSIM_JOURNAL_QUEUE", "int", "65536",
          "Journal writer queue bound; past it records drop (counted) and the next checkpoint re-anchors."),
+    # the serving fleet (server/fleet.py)
     Knob("OPENSIM_WORKERS_FLEET", "int", "",
-         "Fleet worker processes for `simon server` (ROADMAP Queue 1 item 10, not yet ported: 2 or more refuse "
-         "to start)."),
+         "Fleet worker processes for `simon server` (the `--workers` flag wins; unset/0/1 = single process)."),
+    Knob("OPENSIM_FLEET_PUBLISH_MS", "float", "50",
+         "Twin-owner publish cadence: how often the owner checks the twin generation and republishes arena "
+         "deltas over shared memory.", _float(1.0)),
+    Knob("OPENSIM_FLEET_ATTACH_RETRIES", "int", "16",
+         "Seqlock attach retries before a worker declares the publication torn (counted in "
+         "simon_fleet_attach_retries_exhausted_total).", _int(1)),
+    Knob("OPENSIM_FLEET_ADMIN_PORT", "int", "",
+         "Fleet admin port (aggregated /metrics, /healthz, /api/fleet/status). Default: public port + 1."),
+    Knob("OPENSIM_FLEET_ATTACH", "str", "",
+         "INTERNAL: shared-memory control-block name a fleet worker attaches to (set by the fleet supervisor, "
+         "never by operators)."),
+    Knob("OPENSIM_FLEET_INTERNAL_PORT", "int", "",
+         "INTERNAL: per-worker loopback listener port the fleet supervisor scrapes for /metrics aggregation."),
+    # the HA control plane (server/fleet.py)
+    Knob("OPENSIM_HA", "flag", "",
+         "`1` enables the HA control plane: the fleet owner holds a fenced lease next to the journal and a "
+         "`simon server --standby` process tails the journal, ready to take over."),
+    Knob("OPENSIM_HA_LEASE_S", "float", "5",
+         "HA lease duration in seconds: an owner that has not renewed within this window is considered dead "
+         "and the standby takes over (renewal cadence is a third of it).", _float(0.0, exclusive=True)),
+    Knob("OPENSIM_HA_TAIL_POLL_MS", "float", "50",
+         "Standby journal tail-follow poll cadence in ms (also the lease-expiry check cadence).", _float(1.0)),
+    Knob("OPENSIM_HA_HANDOVER_TIMEOUT_S", "float", "30",
+         "Bound on an explicit handover drain (rolling upgrade): past it the requesting standby falls back to "
+         "lease-expiry takeover.", _float(0.0, exclusive=True)),
+    Knob("OPENSIM_FLEET_LEASE", "str", "",
+         "INTERNAL: HA lease file path a fleet worker follows to re-resolve the owner's control block after a "
+         "failover (set by the fleet supervisor, never by operators)."),
     # observability (obs/)
     Knob("OPENSIM_TRACE", "flag", "1", "`0` disables request tracing."),
     Knob("OPENSIM_FLIGHT_RECORDER_N", "int", "64", "Flight-recorder ring capacity (last N request traces)."),
     Knob("OPENSIM_EXPLAIN_STORE_N", "int", "512",
          "Per-trace cap on stored placement explanations (`?explain=1` audits)."),
+    # the time-series ring and the SLO engine (obs/timeseries.py, obs/slo.py)
+    Knob("OPENSIM_TS_INTERVAL_S", "float", "5",
+         "Time-series ring sampling cadence: every registered metric family is sampled into the on-disk ring at "
+         "this interval.", _float(0.0, exclusive=True)),
+    Knob("OPENSIM_TS_WINDOWS", "int", "48",
+         "Time-series ring bound: sealed delta-encoded windows kept on disk (oldest evicted first).", _int(2)),
+    Knob("OPENSIM_TS_WINDOW_SAMPLES", "int", "60",
+         "Samples per time-series window before it seals to disk (windows × window_samples × interval = "
+         "retention).", _int(2)),
+    Knob("OPENSIM_TS_DIR", "path", "",
+         "Time-series ring directory (persists across restarts and is re-adopted on boot). Default: a private "
+         "tempdir removed on shutdown."),
+    Knob("OPENSIM_SLO", "spec", "availability:99.9,latency_p99:99:2.5,freshness:99:30",
+         "Declarative SLOs: `name:target_pct[:threshold_s],...` with kinds availability/latency_p99/freshness "
+         "(validated loudly)."),
+    Knob("OPENSIM_SLO_WINDOWS", "spec", "5m,1h",
+         "SLO burn-rate evaluation windows: `<number><s|m|h|d>,...` (multi-window burn-rate alerting)."),
     # capacity observatory (obs/capacity.py, obs/timeline.py)
     Knob("OPENSIM_CAPACITY_TOPK", "int", "10",
          "Per-node series cap for `simon_cluster_node_utilization` (cardinality governor)."),

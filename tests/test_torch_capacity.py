@@ -377,13 +377,18 @@ def test_simon_top_one_shot_equals_reference(capsys):
 
 
 def test_only_item_10_routes_answer_501():
+    """Item 10's memory and profile routes answer 501; the fleet's
+    time-series and SLO routes are served (503 until serve() starts the
+    ring)."""
     assert set(rest.NOT_PORTED.values()) == {10}
+    assert set(rest.NOT_PORTED) == {"/api/debug/memory", "/api/debug/profile", "/debug/profiler"}
     server = rest.SimonServer(base_cluster=_cluster(), device="cpu", capacity=False)
     with _serving(server, rest.make_handler) as url:
-        for path in ("/api/debug/memory", "/api/fleet/slo"):
+        for path, code in (("/api/debug/memory", 501), ("/api/debug/profile", 501), ("/debug/profiler", 501),
+                           ("/api/fleet/slo", 503), ("/api/debug/timeseries", 503)):
             with pytest.raises(urllib.error.HTTPError) as ei:
                 _get(url + path)
-            assert ei.value.code == 501
+            assert ei.value.code == code, path
         with pytest.raises(urllib.error.HTTPError) as ei:
             _get(url + "/api/debug/capacity")
         assert ei.value.code == 404

@@ -60,11 +60,29 @@ def test_the_checker_sees_dynamic_imports():
     assert sorted(_dynamic_imports(tree)) == ["__import__", "import_module", "importlib", "importlib"]
 
 
-@pytest.mark.parametrize("module", ["server/watch.py", "server/journal.py", "obs/fleetobs.py"])
+@pytest.mark.parametrize("module", ["server/watch.py", "server/journal.py", "obs/fleetobs.py", "server/fleet.py",
+                                    "obs/timeseries.py", "obs/slo.py"])
 def test_the_live_twin_modules_are_checked(module):
-    """The live twin's modules, framework-free in the JAX package, are the
-    port's own copies, held by the check above."""
+    """The live twin's and the serving fleet's modules, framework-free in
+    the JAX package, are the port's own copies, held by the check above."""
     path = ROOT / "opensim_tpu_torch" / module
     assert path in FILES
     tree = ast.parse(path.read_text(), filename=str(path))
     assert not [n for n in _imports(tree) if _forbidden(n)]
+
+
+def test_fleet_workers_are_spawned_from_the_port():
+    """A fleet owner spawns its workers as fresh interpreters of the port's
+    package (never ``-m opensim_tpu``), naming the device only off the
+    card."""
+    import torch
+
+    from opensim_tpu_torch.server import fleet
+
+    for device, tail in ((torch.device("cuda"), []), (torch.device("cpu"), ["--device", "cpu"])):
+        argv = fleet.worker_argv(8080, device)
+        assert argv[1:3] == ["-m", "opensim_tpu_torch"] and "opensim_tpu" not in argv
+        assert argv[3:] == ["server", "--port", "8080", "--watch", "off", *tail]
+    tree = ast.parse((ROOT / "opensim_tpu_torch" / "server" / "fleet.py").read_text())
+    literals = {n.value for n in ast.walk(tree) if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+    assert "opensim_tpu" not in literals

@@ -4,8 +4,9 @@ same cluster from their own stub apiservers through
 ``cluster_from_kubeconfig``'s stdlib REST lister: deploy-apps (cold, then
 a full-key hit), scale-apps (the drop mask, also against the uncached
 path), ``newnodes``, ``explain=1``; the busy 503, the deadline 504,
-``/healthz``, ``/metrics``, the debug routes and the 501 routes of later
-slices; the modes ``serve()`` refuses; the kernel build's lock; the
+``/healthz``, ``/metrics``, the debug routes (the time-series and SLO
+routes' 503 without a running ring) and the 501 routes of later slices;
+the fleet's operator errors ``serve()`` refuses; the kernel build's lock; the
 snapshot lister against the JAX package's, and ``simon apply`` in
 kubeConfig mode against the JAX ``Applier``; ``--watch on`` serving from
 the live twin and ``--journal`` restoring it. Responses are compared after
@@ -256,11 +257,11 @@ def test_metrics_families_are_the_reference_families(servers):
 
 @pytest.mark.parametrize("method,path,item", [
     ("GET", "/api/cluster/report", 7), ("GET", "/api/debug/capacity", 7), ("POST", "/api/campaign", 7),
-    ("GET", "/api/debug/memory?fields=0", 10), ("GET", "/api/debug/timeseries", 10), ("GET", "/api/fleet/slo", 10),
+    ("GET", "/api/debug/memory?fields=0", 10), ("GET", "/api/debug/timeseries", 0), ("GET", "/api/fleet/slo", 0),
     ("GET", "/debug/profiler", 10), ("GET", "/api/debug/profile", 10),
 ])
 def test_later_routes_answer_501(servers, method, path, item):
-    port, _ref = servers
+    port, ref = servers
     with _serve(port) as url:
         code, _h, body = _call(url, path, {} if method == "POST" else None)
     if item == 7:
@@ -270,13 +271,39 @@ def test_later_routes_answer_501(servers, method, path, item):
         assert code == (400 if method == "POST" else 200), body
         assert body.get("field") == "steps" if method == "POST" else "roadmap" not in body
         return
+    if item == 0:
+        # served now (the time-series ring and the SLO engine): a server
+        # that serve() did not start runs neither, and answers the JAX
+        # package's typed 503
+        ref_httpd = ref_rest.SimonHTTPServer(("127.0.0.1", 0), ref_rest.make_handler(ref))
+        threading.Thread(target=ref_httpd.serve_forever, daemon=True).start()
+        try:
+            want = _call(f"http://127.0.0.1:{ref_httpd.server_address[1]}", path)
+        finally:
+            ref_httpd.shutdown()
+            ref_httpd.server_close()
+        assert (code, body) == (want[0], want[2]) == (503, body) and "roadmap" not in body
+        return
     assert code == 501 and body["roadmap"] == f"ROADMAP Queue 1 item {item}"
 
 
-@pytest.mark.parametrize("kwargs,item", [({"standby": True}, 10), ({"workers": 2}, 10)])
-def test_serve_refuses_later_modes(kwargs, item):
-    with pytest.raises(ValueError, match=f"item {item}"):
-        rest.start_server(port=0, host="127.0.0.1", device="cpu", **kwargs)
+@pytest.mark.parametrize("kwargs,env,message", [
+    ({"workers": 2}, {}, "--workers needs the live twin"),
+    ({"workers": 2, "kubeconfig": "/kube", "watch": "off"}, {}, "--workers needs the live twin"),
+    ({"workers": 2, "kubeconfig": "/kube"}, {"OPENSIM_HA": "1"}, "OPENSIM_HA=1 needs --journal"),
+])
+def test_serve_refuses_later_modes(kwargs, env, message, monkeypatch, capsys):
+    """The fleet's operator errors, refused as the JAX package's serve()
+    refuses them (exit 1, a message naming the missing piece) before
+    anything starts: ``--workers`` without the live twin, and the HA lease
+    without a journal to live beside."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    assert rest.serve(port=0, device="cpu", **kwargs) == 1
+    out = capsys.readouterr().out
+    assert message in out
+    assert ref_rest.serve(port=0, **kwargs) == 1
+    assert message in capsys.readouterr().out
 
 
 def test_serve_watch_on_answers_from_the_twin(stubs, servers):
