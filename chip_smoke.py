@@ -118,7 +118,10 @@ scale-apps of bench-0 to 5,000 replicas (a drop mask over its 2,500 bound
 pods, one launch), the deploy with 100 new nodes (node extension, one
 launch at 5,100 nodes), the deploy with explain=1 (one ``[explain]``
 launch, its placements served), a spent deadline (504, no launch) and
-/metrics; then the scale answer and the new-nodes deploy's against the
+/metrics; then ``simon loadgen`` against the same server (closed loop, 8
+clients, 10 s: no error, its QPS and p50/p99 from both clocks, the
+kernel variants the burst launched) and one loadgen payload alone, its
+pods against the plain version from the kernel's state; then the scale answer and the new-nodes deploy's against the
 uncached server's full prepares on the card, and the kernel rows of three
 requests, each held against the
 plain version over 2,000 of the request's own pods (the plain version
@@ -177,9 +180,14 @@ in-process twin's answer), the publication attached in this process (its
 request's kernel row against the plain version over 2,000 of its pods),
 storm A at the fleet's port (every rider the in-process twin's answer), a
 wave W4 (both workers attach the new generation and answer as the twin),
-``simon server --standby`` at parity, a SIGKILL of the owner (the standby
+``simon loadgen`` through the public port (no error) and ``simon dash
+--once --json`` of the admin endpoint (the fleet's QPS), ``simon server
+--standby`` at parity, the live owner at the default 5 s lease never
+fenced (its longest renewal gap, its collector's pauses and frozen
+objects printed), a SIGKILL of the owner (the standby
 takes over at epoch 2, reason expired, no relist, the two workers adopted,
-none respawned), SIGTERM (every process exits 0 with "shutdown
+none respawned; ``simon dash`` of the new owner shows the takeover),
+SIGTERM (every process exits 0 with "shutdown
 complete", no ``simon-fleet-*`` segment left in /dev/shm).
 Every phase raises on failure, and each prints the time it took.
 The last lines are the card's name and power limit, one JSON line with
@@ -289,6 +297,14 @@ SERVER_TTL_S = 3600.0
 SERVER_PLAIN_PODS = 2000
 SERVER_REPLAY_STEPS = 100
 STEADY_WARM = 10
+#: Phase 51's load: ``simon loadgen`` (the port's CLI, a process of its
+#: own) against the server plan's server, closed loop, LOADGEN_CONCURRENCY
+#: clients for LOADGEN_S seconds with the reference's default payload
+#: (up to 3 replicas of 500m / 1Gi); phase 68 sends a burst of
+#: FLEET_LOADGEN_S seconds through the fleet's public port.
+LOADGEN_CONCURRENCY = 8
+LOADGEN_S = 10.0
+FLEET_LOADGEN_S = 5.0
 #: The campaign plan (phases 59-61, fixtures.write_campaign_plan): every
 #: launch is held against the plain version over its valid pods, the
 #: baseline's (all 50,000) over its first CAMPAIGN_PLAIN_PODS; the cold run
@@ -314,6 +330,10 @@ WAVE_LANES = 140
 STORM_PLAIN_PODS = 2000
 #: Phase 62 runs its plain sweeps in this many CPU processes beside the card's launches.
 PLAIN_WORKERS = 6
+#: The full-width rows' plain versions (the plans', the apply plan's, explain
+#: mode's, the server's) run on the CPU in this many processes while the card
+#: goes on, and are compared before the twin's phases and at the end.
+BACKGROUND_WORKERS = 3
 #: The live twin (phases 65-67) on the server plan's stub: wave W1 adds
 #: TWIN_ADD pods (bound round-robin, in the requested workloads' shapes),
 #: deletes TWIN_DEL of the snapshot's and adds TWIN_NEW_NODES nodes; the
@@ -328,14 +348,49 @@ TWIN_REPLAY_PODS = 5000
 TWIN_WAIT_S = 120.0
 TWIN_START_S = 240.0
 #: The serving fleet (phase 68) on phase 67's journal: FLEET_WORKERS
-#: worker processes under an HA lease of FLEET_LEASE_S seconds: the owner's
-#: renewals stall for seconds at this size (its full collections), and a
-#: live owner lost a 2 s lease to the standby on the card and left a 5 s
-#: lease unrenewed for 5.1 s (PERF.md); wave W4 adds FLEET_W4_WAVE pods and
+#: worker processes under the HA lease's default of FLEET_LEASE_S seconds
+#: (``OPENSIM_HA_LEASE_S``), renewed every third of it; the live owner must
+#: never be fenced before its SIGKILL. Wave W4 adds FLEET_W4_WAVE pods and
 #: deletes as many.
 FLEET_WORKERS = 2
-FLEET_LEASE_S = 10.0
+FLEET_LEASE_S = 5.0
 FLEET_W4_WAVE = 250
+#: Phase 68's reader of the owner's lease file, run as a process of its
+#: own (``python -c``) with the file, a stop file and a result file: until
+#: the stop file appears it reads the lease every _LEASE_WATCH_POLL_S and
+#: keeps the oldest the epoch-1 lease looked (as a standby judges it), the
+#: longest step between consecutive renewal stamps (the owner's clock) and
+#: its own longest step between reads (a step near the renewal cadence
+#: would let it miss a renewal and double a stamp step).
+_LEASE_WATCH_POLL_S = 0.05
+_LEASE_WATCH = f"""
+import json, os, sys, time
+lease, stop, out = sys.argv[1:4]
+seen = {{"max_s": 0.0, "stamp_max_s": 0.0, "stamps": 0, "poll_max_s": 0.0}}
+last_stamp = last_poll = None
+while not os.path.exists(stop):
+    now = time.monotonic()
+    if last_poll is not None:
+        seen["poll_max_s"] = max(seen["poll_max_s"], now - last_poll)
+    last_poll = now
+    try:
+        with open(lease, encoding="utf-8") as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        doc = None
+    if isinstance(doc, dict) and doc.get("epoch") == 1 and not doc.get("released"):
+        stamp = float(doc["renewed_at"])
+        seen["max_s"] = max(seen["max_s"], time.time() - stamp)
+        if stamp != last_stamp:
+            if last_stamp is not None:
+                seen["stamp_max_s"] = max(seen["stamp_max_s"], stamp - last_stamp)
+            seen["stamps"] += 1
+            last_stamp = stamp
+    time.sleep({_LEASE_WATCH_POLL_S!r})
+with open(out + ".tmp", "w", encoding="utf-8") as f:
+    json.dump(seen, f)
+os.replace(out + ".tmp", out)
+"""
 EXAMPLES = (("simon-config.yaml", [], "fast_scan[interpod]"),
             ("simon-gpushare-config.yaml", ["gpu"], "fast_scan[gpu]"),
             ("simon-local-config.yaml", ["open-local"], "fast_scan[local]"))
@@ -579,16 +634,24 @@ def full_plan(device, label: str, make, variant: str, prefix=None, sched_text=No
     P_head = head[0].shape[0]
     got_head = fs.fast_scan(fi, *head, tie_seed=tie_seed)
     torch.cuda.synchronize()
-    plain, stats = [None], {}
+    plain, stats, held = [None], {}, None
+    if sample:
+        # the sampled checks below read the plain version's record of each
+        # step's ties: it runs here, on the card
 
-    def run_plain():
-        plain[0] = fs.fast_scan_reference(fi, *head, tie_seed=tie_seed, stats=stats)
+        def run_plain():
+            plain[0] = fs.fast_scan_reference(fi, *head, tie_seed=tie_seed, stats=stats)
 
-    plain_ms = _events_ms(run_plain, reps=1)
-    err = _same(got_head, plain[0], f"{label}, {P_head} pods")
-    print(f"{P_head} pods at N={N}: kernel and plain version identical on all ten outputs "
-          f"(plain {plain_ms:.3f} ms, {int(got_head.gpu_take.sum())} GPU slots taken, "
-          f"{int(got_head.port_used.sum())} host ports used)", flush=True)
+        plain_ms = _events_ms(run_plain, reps=1)
+        err = _same(got_head, plain[0], f"{label}, {P_head} pods")
+        print(f"{P_head} pods at N={N}: kernel and plain version identical on all ten outputs "
+              f"(plain {plain_ms:.3f} ms)", flush=True)
+    else:
+        held = BACKGROUND.hold(f"{label}: the kernel over {P_head} pods", got_head, fi, head)
+        err, plain_ms = 0.0, None
+        print(f"{P_head} pods at N={N}: the kernel's ten outputs held against the plain version on the CPU "
+              f"({int(got_head.gpu_take.sum())} GPU slots taken, {int(got_head.port_used.sum())} host ports used)",
+              flush=True)
     whole = fs.fast_scan(fi, tmpl, valid, forced, tie_seed=tie_seed)
     extra = {}
     if sample:
@@ -681,10 +744,10 @@ def full_plan(device, label: str, make, variant: str, prefix=None, sched_text=No
               flush=True)
     t_bytes = work["bytes"] / PEAK_BYTES_S * 1e3
     t_ops = _ops_ms(work)
-    print(f"kernel {ms:.3f} ms over {P_timed} pods ({ms * 1e3 / P_timed:.3f} us/pod), plain {plain_ms:.3f} ms over "
-          f"{P_head} pods ({plain_ms * 1e3 / P_head:.3f} us/pod), bound {max(t_bytes, t_ops):.6f} ms "
-          f"({work['bytes']} B, {work['ops']} flop, {work['int_ops']} integer operations)", flush=True)
-    return {
+    print(f"kernel {ms:.3f} ms over {P_timed} pods ({ms * 1e3 / P_timed:.3f} us/pod), bound "
+          f"{max(t_bytes, t_ops):.6f} ms ({work['bytes']} B, {work['ops']} flop, {work['int_ops']} integer "
+          "operations)", flush=True)
+    row = {
         "name": variant,
         "plan": label.split(" ", 1)[1],
         "route": "cuda",
@@ -707,6 +770,7 @@ def full_plan(device, label: str, make, variant: str, prefix=None, sched_text=No
         "library_ms": None,
         **extra,
     }
+    return held.fill(row) if held is not None else row
 
 
 def drain_sweep(device) -> tuple:
@@ -1047,7 +1111,7 @@ def _apply_failures(applier, prep, fi_k, tmpl, valid, node_valid, forced, out, p
                                             for f in fs.FastOutputs._fields)),
                 f"k=0: the hog pods from the kernel's usage after pod {t0} vs the whole stream's launch", nine)
     cpu = lambda t: t.cpu() if torch.is_tensor(t) else t
-    plain = pool.submit(_plain_on_cpu_timed, fs.FastInputs(*map(cpu, fi_tail)), [cpu(t) for t in tail])
+    plain = pool.submit(_plain_on_cpu_timed, False, fs.FastInputs(*map(cpu, fi_tail)), [cpu(t) for t in tail], {})
     got_cpu = fs.FastOutputs(*map(cpu, got_tail))
     failing = int((got_tail.chosen < 0).sum())
 
@@ -1171,29 +1235,24 @@ def _apply_masked(device, applier, n_new, coarse, fine, by_name, scan_shape, wal
         sel = [ks.index(k) for k in ((0,) if label == "coarse" else (n_new - 1, n_new))]
         head = [t[:, :APPLY_PLAIN_PODS].contiguous() for t in grid[:2]] + grid[2:]
         got = fs.fast_scan_sweep(fi, tmpl[:APPLY_PLAIN_PODS].contiguous(), *head)
-        plain = [None]
-
-        def run_plain():
-            plain[0] = fs.fast_scan_sweep_reference(fi, tmpl[:APPLY_PLAIN_PODS].contiguous(), *(t[sel] for t in head))
-
-        plain_ms = _events_ms(run_plain, reps=1)
-        err = _same(fs.FastOutputs(*(t[sel] for t in got)), plain[0], f"{label} grid rows {sel} vs plain")
+        held = BACKGROUND.hold(f"the {label} grid's rows {sel} over {APPLY_PLAIN_PODS} pods",
+                               fs.FastOutputs(*(t[sel] for t in got)), fi,
+                               [tmpl[:APPLY_PLAIN_PODS].contiguous(), *(t[sel] for t in head)], sweep=True)
         work = fs.fast_scan_work(fi, tmpl, grid[0], grid[1], out[0].chosen, grid[2])
         t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
         print(f"{label} grid, S={len(ks)}: {grid_ms:.3f} ms ({launched['grid'].b} scenarios per block, "
-              f"{launched['grid'].blocks} blocks); unscheduled {dict(zip(ks, unscheduled))}; rows {sel} identical "
-              f"to the plain sweep over {APPLY_PLAIN_PODS} pods (plain {plain_ms:.3f} ms); bound "
-              f"{max(t_bytes, t_ops):.6f} ms", flush=True)
-        rows.append({
+              f"{launched['grid'].blocks} blocks); unscheduled {dict(zip(ks, unscheduled))}; rows {sel} held "
+              f"against the plain sweep over {APPLY_PLAIN_PODS} pods; bound {max(t_bytes, t_ops):.6f} ms", flush=True)
+        rows.append(held.fill({
             "name": "fast_scan_sweep", "plan": f"apply plan, {label} sweep", "route": "cuda",
             "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/engine/fastpath.py:532",
             "launches": by_name["fast_scan_sweep"], "launches_are": "the path's two grids, coarse and fine",
-            "max_abs_err": err, "ms": grid_ms, "plain_ms": plain_ms, "scenarios": len(ks),
+            "max_abs_err": 0.0, "ms": grid_ms, "plain_ms": None, "scenarios": len(ks),
             "pods": int(tmpl.shape[0]), "plain_checks": [sel, APPLY_PLAIN_PODS], "b": launched["grid"].b,
             "blocks": launched["grid"].blocks, "threads": launched["grid"].threads, "ptxas": launched["ptxas"],
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "host_s": steps[f"sweep: {label}"],
-        })
+        }))
 
     err, one = 0.0, {}
     for k, label in ((0, "coarse"), (n_new - 1, "fine"), (n_new, "fine")):
@@ -1228,32 +1287,24 @@ def _apply_masked(device, applier, n_new, coarse, fine, by_name, scan_shape, wal
         if k == n_new - 1:
             head = (tmpl[:APPLY_PLAIN_PODS].contiguous(), grid[0][s][:APPLY_PLAIN_PODS].contiguous(),
                     forced[:APPLY_PLAIN_PODS].contiguous())
-            plain = [None]
-
-            def run_plain():
-                plain[0] = fs.fast_scan_reference(fi_k, *head)
-
-            plain_ms = _events_ms(run_plain, reps=1)
-            err = max(err, _same(fs.fast_scan(fi_k, *head), plain[0], f"masked one scan at k={k}, "
-                                 f"{APPLY_PLAIN_PODS} pods vs plain"))
-            print(f"k={k}: masked one scan and plain version identical on all ten outputs over "
-                  f"{APPLY_PLAIN_PODS} pods (plain {plain_ms:.3f} ms)", flush=True)
+            masked = BACKGROUND.hold(f"the masked one scan at k={k} over {APPLY_PLAIN_PODS} pods",
+                                     fs.fast_scan(fi_k, *head), fi_k, head)
     work = fs.fast_scan_work(fi_new, tmpl, valid_new, forced, one[n_new].chosen)
     t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
     launched = fs.SCAN_LAUNCHED["fast_scan"]
     print(f"masked one scan at k={n_new}: {ms:.3f} ms, bound {max(t_bytes, t_ops):.6f} ms", flush=True)
-    rows.insert(0, {
+    rows.insert(0, masked.fill({
         "name": "fast_scan", "plan": f"apply plan, masked re-simulation at k={n_new}", "route": "cuda",
         "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/ops/pallas_scan.py:1009",
         "launches": by_name["fast_scan"], "launches_are": "the path's two one scans, first simulation and masked",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "pods": int(tmpl.shape[0]),
+        "max_abs_err": err, "ms": ms, "plain_ms": None, "pods": int(tmpl.shape[0]),
         "plain_pods": APPLY_PLAIN_PODS, "plain_tail": None, "nodes": int(fi.alloc_T.shape[1]),
         "valid_nodes": N_NODES + n_new,
         "cluster": scan_shape.cluster, "threads": scan_shape.threads, "smem": scan_shape.smem,
         "resident": scan_shape.resident, "ptxas": launched["ptxas"], "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
         "apply_wall_s": wall, "apply_steps_s": steps, "apply_limit_s": APPLY_LIMIT_S, "apply_limit": verdict,
-    })
+    }))
     return rows, finish_tail
 
 
@@ -1440,27 +1491,23 @@ def apply_config_plan(device, card: str) -> list:
         sel = [max(i for i, k in enumerate(ks) if k <= n_new)]
         head = [t[:, :APPLY_PLAIN_PODS].contiguous() for t in grid[:2]] + grid[2:]
         got = fs.fast_scan_sweep(fi, tmpl[:APPLY_PLAIN_PODS].contiguous(), *head)
-        plain = [None]
-
-        def run_plain():
-            plain[0] = fs.fast_scan_sweep_reference(fi, tmpl[:APPLY_PLAIN_PODS].contiguous(), *(t[sel] for t in head))
-
-        plain_ms = _events_ms(run_plain, reps=1)
-        err = _same(fs.FastOutputs(*(t[sel] for t in got)), plain[0], f"-d {label} grid rows {sel} vs plain")
+        held = BACKGROUND.hold(f"the -d {label} grid's row {sel} over {APPLY_PLAIN_PODS} pods",
+                               fs.FastOutputs(*(t[sel] for t in got)), fi,
+                               [tmpl[:APPLY_PLAIN_PODS].contiguous(), *(t[sel] for t in head)], sweep=True)
         work = fs.fast_scan_work(fi, tmpl, grid[0], grid[1], out[0].chosen, grid[2])
         t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
-        print(f"-d {label} grid, S={len(ks)}: {grid_ms:.3f} ms; row {sel} identical to the plain sweep over "
-              f"{APPLY_PLAIN_PODS} pods (plain {plain_ms:.3f} ms); bound {max(t_bytes, t_ops):.6f} ms", flush=True)
-        rows.append({
+        print(f"-d {label} grid, S={len(ks)}: {grid_ms:.3f} ms; row {sel} held against the plain sweep over "
+              f"{APPLY_PLAIN_PODS} pods; bound {max(t_bytes, t_ops):.6f} ms", flush=True)
+        rows.append(held.fill({
             "name": sweep, "plan": f"apply plan under -d, {label} sweep", "route": "cuda",
             "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/engine/fastpath.py:532",
             "launches": by_name[sweep], "launches_are": "the path's two grids, coarse and fine",
-            "max_abs_err": err, "ms": grid_ms, "plain_ms": plain_ms, "scenarios": len(ks),
+            "max_abs_err": 0.0, "ms": grid_ms, "plain_ms": None, "scenarios": len(ks),
             "pods": int(tmpl.shape[0]), "plain_checks": [sel, APPLY_PLAIN_PODS], "b": launched["grid"].b,
             "blocks": launched["grid"].blocks, "ptxas": launched["ptxas"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
             "host_s": coarse_s if label == "coarse" else fine_s,
-        })
+        }))
     err = 0.0
     for k in (n_new - 1, n_new):
         label = "fine" if k in fine else "coarse"
@@ -1483,38 +1530,34 @@ def apply_config_plan(device, card: str) -> list:
         if k == n_new - 1:
             head = (tmpl[:APPLY_PLAIN_PODS].contiguous(), grid[0][s][:APPLY_PLAIN_PODS].contiguous(),
                     forced[:APPLY_PLAIN_PODS].contiguous())
-            plain = [None]
-
-            def run_plain():
-                plain[0] = fs.fast_scan_reference(fi_k, *head)
-
-            plain_ms = _events_ms(run_plain, reps=1)
-            err = max(err, _same(fs.fast_scan(fi_k, *head), plain[0], f"-d masked one scan at k={k} vs plain"))
+            masked = BACKGROUND.hold(f"the -d masked one scan at k={k} over {APPLY_PLAIN_PODS} pods",
+                                     fs.fast_scan(fi_k, *head), fi_k, head)
         else:
             ms, work = ms_k, fs.fast_scan_work(fi_k, tmpl, grid[0][s], forced, one[0].chosen)
     t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
     launched = fs.SCAN_LAUNCHED[scan]
-    print(f"-d masked one scan at k={n_new}: {ms:.3f} ms, bound {max(t_bytes, t_ops):.6f} ms; plain "
-          f"{plain_ms:.3f} ms over {APPLY_PLAIN_PODS} pods at k={n_new - 1}", flush=True)
-    rows.insert(0, {
+    print(f"-d masked one scan at k={n_new}: {ms:.3f} ms, bound {max(t_bytes, t_ops):.6f} ms; held against the "
+          f"plain version over {APPLY_PLAIN_PODS} pods at k={n_new - 1}", flush=True)
+    rows.insert(0, masked.fill({
         "name": scan, "plan": f"apply plan under -d, masked re-simulation at k={n_new}", "route": "cuda",
         "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/ops/pallas_scan.py:1009",
         "launches": by_name[scan], "launches_are": "the path's two one scans, first simulation and masked",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "pods": int(tmpl.shape[0]),
+        "max_abs_err": err, "ms": ms, "plain_ms": None, "pods": int(tmpl.shape[0]),
         "plain_pods": APPLY_PLAIN_PODS, "ptxas": launched["ptxas"], "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
         "apply_wall_s": wall, "apply_steps_s": steps, "n_new": n_new,
-    })
+    }))
     return rows
 
 
-def _explain_row(fi, stream, variant: str, plan: str, launches: int, err: float, plain_ms: float, plain_pods: int,
+def _explain_row(fi, stream, variant: str, plan: str, launches: int, err: float, plain_pods: int,
                  extra=None) -> dict:
     """The kernels-table row of an [explain] variant on `stream`: the
     kernel timed over the whole stream in explain mode (CUDA events, 3
     launches) and, beside it, the default variant; its counting passes by
     the card's global timer, its bound with the counting pass on every
-    step (``fast_scan_work(explain=True)``)."""
+    step (``fast_scan_work(explain=True)``). The plain version's time comes
+    when :data:`BACKGROUND` settles."""
     from opensim_tpu_torch.ops import fast_scan as fs
 
     clocks, out = [], [None]
@@ -1539,7 +1582,7 @@ def _explain_row(fi, stream, variant: str, plan: str, launches: int, err: float,
     return {
         "name": variant, "plan": plan, "route": "cuda", "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu",
         "replaces": "opensim_tpu/ops/kernels.py:1056", "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "pods": P, "plain_pods": plain_pods, "default_ms": default_ms,
+        "plain_ms": None, "pods": P, "plain_pods": plain_pods, "default_ms": default_ms,
         "count_passes": passes, "count_ms": count_ms,
         "us_per_pass": count_ms * 1e3 / max(passes, 1), "ptxas": launched["ptxas"], "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None, **(extra or {}),
@@ -1623,24 +1666,18 @@ def explain_plan(device, label: str, make, variant: str, rejects: bool = False) 
     replayed = _replay_check(prep, got, label, stream[1], stream[2], explain=True)
     head = tuple(t[:EXPLAIN_PLAIN_PODS].contiguous() for t in stream)
     got_head = fs.fast_scan(fi, *head, explain=True)
-    plain = [None]
-
-    def run_plain():
-        plain[0] = fs.fast_scan_reference(fi, *head, count_all=True)
-
-    plain_ms = _events_ms(run_plain, reps=1)
-    err = max(err, _same(got_head, plain[0], f"{label}: explain, {EXPLAIN_PLAIN_PODS} pods vs plain"))
+    held = BACKGROUND.hold(f"{label}: explain over {EXPLAIN_PLAIN_PODS} pods", got_head, fi, head, count_all=True)
     if rejects and not bool((got_head.fail_counts.any(1) & (got_head.chosen >= 0)).any()):
         raise AssertionError(f"{label}: no binding step of the checked prefix rejected a node")
     print(f"{N_PODS} pods: explain and default variants identical on the eight state outputs, the {int(failing.sum())} "
-          f"failing pods' counts too; {bound_counted} binding steps rejected nodes; {EXPLAIN_PLAIN_PODS} pods: kernel "
-          f"and plain version (count_all) identical on all ten outputs (plain {plain_ms:.3f} ms)", flush=True)
+          f"failing pods' counts too; {bound_counted} binding steps rejected nodes; {EXPLAIN_PLAIN_PODS} pods: the "
+          "kernel's ten outputs held against the plain version (count_all)", flush=True)
     res, launches = _explained(device, make_apps(make), variant, label)
     if not np.array_equal(res.placements, default.chosen.cpu().numpy()):
         raise AssertionError(f"{label}: simulate(explain=True) placed differently from the default variant")
-    return _explain_row(fi, stream, variant, label.split(" ", 1)[1], launches, err, plain_ms, EXPLAIN_PLAIN_PODS,
-                        {"binding_steps_counted": bound_counted, "plan_wall_s": sum(res.timings.values()),
-                         "replay": replayed})
+    return held.fill(_explain_row(fi, stream, variant, label.split(" ", 1)[1], launches, err,
+                                  EXPLAIN_PLAIN_PODS, {"binding_steps_counted": bound_counted,
+                                                       "plan_wall_s": sum(res.timings.values()), "replay": replayed}))
 
 
 def explain_oversubscribed(device) -> dict:
@@ -1675,17 +1712,11 @@ def explain_oversubscribed(device) -> dict:
             not torch.equal(got.insufficient[failing], default.insufficient[failing]):
         raise AssertionError("over-subscribed plan: the failing steps' counts differ from the default variant's")
     head = tuple(t[:EXPLAIN_PLAIN_PODS].contiguous() for t in stream)
-    plain = [None]
-
-    def run_plain():
-        plain[0] = fs.fast_scan_reference(fi, *head, count_all=True)
-
-    plain_ms = _events_ms(run_plain, reps=1)
-    err = max(err, _same(fs.fast_scan(fi, *head, explain=True), plain[0],
-                         f"over-subscribed plan: explain, {EXPLAIN_PLAIN_PODS} pods vs plain"))
+    held = BACKGROUND.hold(f"over-subscribed plan: explain over {EXPLAIN_PLAIN_PODS} pods",
+                           fs.fast_scan(fi, *head, explain=True), fi, head, count_all=True)
     print(f"{stream[0].shape[0]} pods: explain and default variants identical on the eight state outputs and on the "
-          f"{int(failing.sum())} failing steps' counts; {EXPLAIN_PLAIN_PODS} pods: kernel and plain version "
-          f"(count_all) identical on all ten outputs (plain {plain_ms:.3f} ms)", flush=True)
+          f"{int(failing.sum())} failing steps' counts; {EXPLAIN_PLAIN_PODS} pods: the kernel's ten outputs held "
+          "against the plain version (count_all)", flush=True)
     plain_res = sim.simulate(*make(), device=device)
     res, launches = _explained(device, make, variant, "over-subscribed plan", reasons_of=plain_res)
     i = int(torch.nonzero(failing)[-1])
@@ -1697,8 +1728,8 @@ def explain_oversubscribed(device) -> dict:
     if deep.message != want:
         raise AssertionError(f"pod {i}: explain_pod says {deep.message!r}, the report {want!r}")
     print(f"explain_pod({i}) on the card: {deep.message}; the torch re-score finds no feasible node", flush=True)
-    return _explain_row(fi, stream, variant, "over-subscribed plan", launches, err, plain_ms, EXPLAIN_PLAIN_PODS,
-                        {"unscheduled": len(res.unscheduled_pods), "plan_wall_s": sum(res.timings.values())})
+    return held.fill(_explain_row(fi, stream, variant, "over-subscribed plan", launches, err, EXPLAIN_PLAIN_PODS,
+                                  {"unscheduled": len(res.unscheduled_pods), "plan_wall_s": sum(res.timings.values())}))
 
 
 def explain_capacity(device) -> dict:
@@ -1721,13 +1752,8 @@ def explain_capacity(device) -> dict:
     fi, _ = fastpath.build_inputs(prep)
     stream = fastpath.pod_stream(prep)
     head = tuple(t[:EXPLAIN_PLAIN_PODS].contiguous() for t in stream)
-    plain = [None]
-
-    def run_plain():
-        plain[0] = fs.fast_scan_reference(fi, *head, count_all=True)
-
-    plain_ms = _events_ms(run_plain, reps=1)
-    err = _same(fs.fast_scan(fi, *head, explain=True), plain[0], f"capacity plan: explain, {EXPLAIN_PLAIN_PODS} pods")
+    held = BACKGROUND.hold(f"capacity plan: explain over {EXPLAIN_PLAIN_PODS} pods",
+                           fs.fast_scan(fi, *head, explain=True), fi, head, count_all=True)
     i = len(prep.ordered) - 7
     t0 = time.perf_counter()
     deep = explain.explain_pod(ctx, i)
@@ -1738,9 +1764,9 @@ def explain_capacity(device) -> dict:
         raise AssertionError(f"pod {i}: the kernel chose node {c}, the torch re-score {step.chosen} ({deep.status})")
     print(f"explain_pod({i}) on the card ({deep_s:.3f} s): {deep.message}; the torch pod_step's lowest-index argmax "
           f"over the feasible nodes is the kernel's node {c}; breakdown {json.dumps(deep.scores)}", flush=True)
-    return _explain_row(fi, stream, variant, "capacity plan", launches, err, plain_ms, EXPLAIN_PLAIN_PODS,
-                        {"plan_wall_s": sum(res.timings.values()), "plan_timings": res.timings,
-                         "explain_pod_s": deep_s})
+    return held.fill(_explain_row(fi, stream, variant, "capacity plan", launches, 0.0, EXPLAIN_PLAIN_PODS,
+                                  {"plan_wall_s": sum(res.timings.values()), "plan_timings": res.timings,
+                                   "explain_pod_s": deep_s}))
 
 
 def apply_explain(device, card: str) -> dict:
@@ -1788,17 +1814,12 @@ def apply_explain(device, card: str) -> dict:
     fi, _ = fastpath.build_inputs(prep, node_valid)
     stream = fastpath.pod_stream(prep, pod_valid)
     head = tuple(t[:APPLY_PLAIN_PODS].contiguous() for t in stream)
-    plain = [None]
-
-    def run_plain():
-        plain[0] = fs.fast_scan_reference(fi, *head, count_all=True)
-
-    plain_ms = _events_ms(run_plain, reps=1)
-    err = _same(fs.fast_scan(fi, *head, explain=True), plain[0], f"apply --explain: masked, {APPLY_PLAIN_PODS} pods")
-    row = _explain_row(fi, stream, "fast_scan[explain]", f"apply plan --explain, masked re-simulation at "
-                       f"k={APPLY_NEW}", by_name["fast_scan[explain]"], err, plain_ms, APPLY_PLAIN_PODS,
-                       {"launches_are": "the path's two one scans, first simulation and masked",
-                        "apply_wall_s": wall, "apply_steps_s": steps})
+    held = BACKGROUND.hold(f"apply --explain: the masked one scan over {APPLY_PLAIN_PODS} pods",
+                           fs.fast_scan(fi, *head, explain=True), fi, head, count_all=True)
+    row = held.fill(_explain_row(fi, stream, "fast_scan[explain]", f"apply plan --explain, masked re-simulation at "
+                                 f"k={APPLY_NEW}", by_name["fast_scan[explain]"], 0.0, APPLY_PLAIN_PODS,
+                                 {"launches_are": "the path's two one scans, first simulation and masked",
+                                  "apply_wall_s": wall, "apply_steps_s": steps}))
     _phase("49 example configs: simon apply --explain on the card against the plain versions on the CPU")
     example_reports(device, explain=True)
     return row
@@ -1955,13 +1976,8 @@ def _server_row(label: str, entry, explain: bool, launches: int, request_rt: flo
         raise AssertionError(f"{label}: the launch over pods 0..{hi} placed differently from the whole stream's")
     got = upto._replace(**{f: getattr(upto, f)[win_lo:] for f in ("chosen", "gpu_take", "fail_counts",
                                                                    "insufficient")})
-    plain = [None]
-
-    def run_plain():
-        plain[0] = fs.fast_scan_reference(fi, *cut(win_lo, hi), init=init, count_all=explain)
-
-    plain_ms = _events_ms(run_plain, reps=1)
-    err = _same(got, plain[0], f"{label}: pods {win_lo}..{hi} vs plain from the kernel's state")
+    held = BACKGROUND.hold(f"{label}: pods {win_lo}..{hi} from the kernel's state", got, fi, cut(win_lo, hi),
+                           init=init, count_all=explain)
     replay = _replay_check(prep, out[0], label, stream[1], stream[2], explain=explain,
                            steps=SERVER_REPLAY_STEPS // 2 if rejecting is not None and len(rejecting)
                            else SERVER_REPLAY_STEPS, lo=lo)
@@ -1976,19 +1992,19 @@ def _server_row(label: str, entry, explain: bool, launches: int, request_rt: flo
     U = fs._dims(fi).U
     counted = "" if rejecting is None else f"; the kernel counted rejections at {len(rejecting)} of the request's steps"
     print(f"{label} ({variant}): P={P} ({n_valid} valid), N={N}, U={U} templates: kernel {ms:.3f} ms "
-          f"({ms * 1e3 / P:.3f} us/pod), plain {plain_ms:.3f} ms over request pods {win_lo}..{hi} from the "
-          f"kernel's state, identical on every output{counted}; bound {max(t_bytes, t_ops):.6f} ms", flush=True)
-    return {
+          f"({ms * 1e3 / P:.3f} us/pod), every output over request pods {win_lo}..{hi} held against the plain "
+          f"version from the kernel's state{counted}; bound {max(t_bytes, t_ops):.6f} ms", flush=True)
+    return held.fill({
         "name": variant, "plan": f"server plan {label}", "route": "cuda",
         "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu",
         "replaces": "opensim_tpu/ops/kernels.py:1056" if explain else "opensim_tpu/ops/pallas_scan.py:1009",
-        "launches": launches, "launches_are": "the request's own launch in the server run", "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "pods": P, "valid_pods": n_valid, "nodes": N, "templates": U,
+        "launches": launches, "launches_are": "the request's own launch in the server run", "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": None, "pods": P, "valid_pods": n_valid, "nodes": N, "templates": U,
         "plain_window": [win_lo, hi], "kernel_rejecting_steps": None if rejecting is None else len(rejecting),
         "replay": replay, "request_rt_s": request_rt,
         "ptxas": fs.SCAN_LAUNCHED[variant]["ptxas"], "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
-    }
+    })
 
 
 def server_plan(device, card: str) -> list:
@@ -2125,6 +2141,10 @@ def server_plan(device, card: str) -> list:
         shape = fs.SCAN_LAUNCHED["fast_scan"]["shape"]  # R5's launch, the last of the base variant
         if shape.nc != -(-(N_NODES + SERVER_NEW) // shape.cluster):
             raise AssertionError(f"R5's launch: {shape.nc} nodes a CTA")
+        # R2's and R4's entries, before the load below adds its own
+        entries = {e.key.split("|")[1]: e for e in server.prep_cache.entries_snapshot()
+                   if not e.key.endswith("|base")}
+        under_load = loadgen_burst(server, url, card)
     except BaseException:
         httpd.shutdown()
         httpd.server_close()
@@ -2132,7 +2152,6 @@ def server_plan(device, card: str) -> list:
         raise
 
     _phase("52 server plan: R4 and R5 against the uncached server (a full prepare each) on the card")
-    entries = {e.key.split("|")[1]: e for e in server.prep_cache.entries_snapshot() if not e.key.endswith("|base")}
     scale_entry, deploy_entry = entries["scale"], entries["deploy"]
     if len(scale_entry.prep.ordered) != n_bound + 2 * N_PODS // 20 or \
             int(scale_entry.drop_mask.sum()) != N_PODS // 20:
@@ -2166,7 +2185,8 @@ def server_plan(device, card: str) -> list:
             _server_row("R6", deploy_entry, True, launches["R6"]["fast_scan[explain]"], answers["R6"][2])]
     print(f"server plan phases {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
-    served = {"server": server, "url": url, "stub": stub, "kube": kube, "pods": pods, "bodies": bodies}
+    served = {"server": server, "url": url, "stub": stub, "kube": kube, "pods": pods, "bodies": bodies,
+              "under_load": under_load}
     listening = [httpd]
 
     def retire() -> None:
@@ -2183,6 +2203,85 @@ def server_plan(device, card: str) -> list:
 
     served.update(retire=retire, close=close)
     return rows, served
+
+
+def loadgen_burst(server, url: str, card: str) -> dict:
+    """Phase 51's server under load: ``simon loadgen`` (the port's CLI in a
+    process of its own, so the clients do not share the server's GIL),
+    closed loop, LOADGEN_CONCURRENCY clients for LOADGEN_S seconds, each
+    request a deployment of its own (1-3 pods of 500m / 1Gi): zero errors;
+    its QPS, p50/p99 from the client's clock and from the server's
+    ``simon_request_seconds`` histogram, sheds and batches, and the kernel
+    variants launched (counts set to 0 before, read after: the lone warm-up
+    request's ``fast_scan``, the batches' ``fast_scan_sweep[count]``). Then
+    one more loadgen payload sent alone: one ``fast_scan`` launch, its pods
+    held against the plain version from the kernel's state before them on
+    every output, and the answer's nodes the kernel's. Returns the report
+    with the launches (``launches``) and the check."""
+    from opensim_tpu_torch.engine import fastpath
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.server.loadgen import _payload
+
+    _phase(f"51 server plan under load: simon loadgen, closed loop, {LOADGEN_CONCURRENCY} clients, {LOADGEN_S:g} s, "
+           "against R1-R8's server (launch counts 0 before, read after); one loadgen payload vs the plain version")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    _reset_launches()
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "opensim_tpu_torch", "loadgen", "--url", url, "--mode", "closed",
+                          "--concurrency", str(LOADGEN_CONCURRENCY), "--duration", str(LOADGEN_S)],
+                         capture_output=True, text=True, cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+                         timeout=LOADGEN_S + 600)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launched = dict(fs.VARIANT_LAUNCHES)
+    lines = run.stdout.strip().splitlines()
+    if run.returncode != 0 or not lines:
+        raise AssertionError(f"simon loadgen exited {run.returncode}: {(run.stderr or run.stdout)[-2000:]}")
+    report = json.loads(lines[-1])
+    if report["errors"] or report["ok"] < LOADGEN_CONCURRENCY:
+        raise AssertionError(f"simon loadgen: {report['errors']} errors, {report['ok']} answered: {lines[-1]}")
+    if not launched or set(launched) - {"fast_scan", "fast_scan_sweep[count]"}:
+        raise AssertionError(f"the burst launched {launched}")
+    print(f"simon loadgen: {report['ok']} requests answered in {report['duration_s']} s, {report['qps']} QPS, "
+          f"{report['errors']} errors, {report['shed']} shed {json.dumps(report['shed_total'])}; client p50 "
+          f"{report['client_p50_s']} s, p99 {report['client_p99_s']} s; server (simon_request_seconds) p50 "
+          f"{report['server_p50_s']} s, p99 {report['server_p99_s']} s; queue wait p99 {report['queue_wait_p99_s']} s; "
+          f"{report['batches']} batches, {report['mean_batch_size']} requests a batch; launches {launched} "
+          f"(the command {wall:.3f} s; {card})", flush=True)
+
+    body = json.loads(_payload(LOADGEN_CONCURRENCY, 2, 3, "500m", "1Gi"))
+    name = body["deployments"][0]["metadata"]["name"]
+    _reset_launches()
+    code, _h, answer, rt = _http(url, "/api/deploy-apps", body)
+    launches = dict(fs.VARIANT_LAUNCHES)
+    if code != 200 or launches != {"fast_scan": 1} or answer["unscheduledPods"]:
+        raise AssertionError(f"the loadgen payload alone: HTTP {code}, launches {launches}: {str(answer)[:300]}")
+    entry = server.prep_cache.entries_snapshot()[-1]  # the newest entry: this request's
+    prep = entry.prep
+    fi, _ = fastpath.build_inputs(prep)
+    stream = fastpath.pod_stream(prep, None if entry.drop_mask is None else ~entry.drop_mask)
+    lo, P = prep.n_cluster, stream[0].shape[0]
+    mine = [p.metadata.name for p in prep.ordered[lo:]]
+    if P - lo != 3 or not all(n.startswith(name + "-") for n in mine):
+        raise AssertionError(f"the newest cache entry is not the payload's: pods {lo}..{P}, {mine[:4]}")
+    cut = lambda a, b: tuple(t[a:b].contiguous() for t in stream)
+    whole = fs.fast_scan(fi, *stream)
+    init = fs.fast_scan(fi, *cut(0, lo)).state.clone()
+    t1 = time.perf_counter()
+    plain = fs.fast_scan_reference(fi, *cut(lo, P), init=init)
+    plain_s = time.perf_counter() - t1
+    got = whole._replace(**{f: getattr(whole, f)[lo:] for f in ("chosen", "gpu_take", "fail_counts", "insufficient")})
+    err = _same(got, plain, f"the loadgen payload's pods {lo}..{P} vs plain from the kernel's state")
+    chosen = sorted(prep.meta.node_names[int(c)] for c in plain.chosen.tolist())
+    placed = sorted(e["node"] for e in answer["nodeStatus"] for pod in e["pods"]
+                    if pod.split("/")[-1].startswith(name + "-"))
+    if placed != chosen:
+        raise AssertionError(f"the answer placed {name} on {placed}, the kernel on {chosen}")
+    print(f"the loadgen payload {name} alone: HTTP 200 in {rt:.6f} s, launches {launches}; its {P - lo} pods "
+          f"(stream {lo}..{P}) equal the plain version from the kernel's state on every output (plain "
+          f"{plain_s:.3f} s), placed on {chosen} as answered", flush=True)
+    report.update(launches=launched, command_s=wall, check={"pods": [lo, P], "max_abs_err": err, "nodes": chosen})
+    return report
 
 
 def steady_phase(device) -> dict:
@@ -2860,12 +2959,71 @@ def campaign_plan(device, card: str, served) -> list:
              "server_campaign_s": rt, "card": card}]
 
 
-def _plain_on_cpu_timed(fi, args):
-    """:func:`_plain_on_cpu` of a one scan and its host seconds, in phase
-    29's worker process."""
+def _plain_on_cpu_timed(sweep: bool, fi, args, kw):
+    """:func:`_plain_on_cpu` and its host seconds, in a worker process
+    (phase 29's, :class:`_Background`'s)."""
     t0 = time.perf_counter()
-    out = _plain_on_cpu(False, fi, args, {})
+    out = _plain_on_cpu(sweep, fi, args, kw)
     return out, time.perf_counter() - t0
+
+
+class _Held:
+    """A launch's plain version under way in a background process: the
+    rows it completes (:meth:`fill`) get its time (``plain_ms``, added to
+    what they hold) and its largest difference (``max_abs_err``)."""
+
+    def __init__(self, what: str, future, got, fields) -> None:
+        self.what, self.future, self.got, self.fields, self.rows = what, future, got, fields, []
+
+    def fill(self, row: dict) -> dict:
+        self.rows.append(row)
+        return row
+
+
+class _Background:
+    """The plain versions of full-width launches, held on the CPU in
+    BACKGROUND_WORKERS spawned processes while the card goes on (as phase 3
+    holds its small cases): each on CPU copies of its launch's inputs, the
+    kernel's outputs copied beside it. :meth:`settle` waits for them and
+    compares every output, raising on the first difference."""
+
+    def __init__(self) -> None:
+        self._pool = None
+        self._held = []
+
+    def hold(self, what: str, got, fi, args, sweep: bool = False, fields=None, **kw) -> _Held:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        from opensim_tpu_torch.ops import fast_scan as fs
+
+        if self._pool is None:
+            self._pool = ProcessPoolExecutor(BACKGROUND_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        cpu = lambda t: t.cpu() if torch.is_tensor(t) else t
+        future = self._pool.submit(_plain_on_cpu_timed, sweep, fs.FastInputs(*map(cpu, fi)), [cpu(t) for t in args],
+                                   {k: cpu(v) for k, v in kw.items()})
+        held = _Held(what, future, fs.FastOutputs(*map(cpu, got)), fields)
+        self._held.append(held)
+        return held
+
+    def settle(self) -> None:
+        held, self._held = self._held, []
+        for h in held:
+            plain, secs = h.future.result()
+            err = _same(h.got, plain, f"{h.what} vs plain", h.fields)
+            print(f"{h.what}: identical to the plain version on the CPU ({secs * 1e3:.3f} ms in a worker process)",
+                  flush=True)
+            for row in h.rows:
+                row["plain_ms"] = (row.get("plain_ms") or 0.0) + secs * 1e3
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(cancel_futures=True)
+            self._pool = None
+
+
+BACKGROUND = _Background()
 
 
 def _plain_on_cpu(sweep: bool, fi, args, kw):
@@ -3340,6 +3498,7 @@ def twin_plan(device, card: str, served) -> list:
         if shape.nc != -(-n_nodes // shape.cluster):
             raise AssertionError(f"the twin request's launch: {shape.nc} nodes a CTA at N = {n_nodes}")
         row = _server_row("twin R2 after W1", entry, False, r1["launches"]["fast_scan"], r1["rt"])
+        BACKGROUND.settle()  # the plain version done before the next wave is timed
         w2 = fx.node_label_wave(0)
         summary["W2"] = _twin_wave(stub, sup, w2, lambda: "twin-wave" in sup.twin.materialize().nodes[0]
                                    .metadata.labels, "W2")
@@ -3683,12 +3842,19 @@ def fleet_plan(device, card: str, twin: dict) -> tuple:
     over it answers R2 through ``entry_from_publication`` on the card: the
     in-process twin's answer, its kernel row held against the plain version
     (the returned row). Storm A to the public port: every rider the
-    in-process twin's answer. Wave W4 through the stub: both workers attach
-    the new generation and answer as the in-process twin. ``simon server
-    --standby`` tails the journal to parity; the owner is SIGKILLed; the
-    standby takes over (reason expired, epoch 2, no relist, the same two
-    workers adopted, none respawned, the generation monotonic), and both
-    workers answer as the in-process twin. SIGTERM: the new owner and the
+    in-process twin's answer. ``simon loadgen`` through the public port
+    for FLEET_LOADGEN_S (no error; the fleet's percentiles from the admin
+    endpoint), then ``simon dash --once --json`` of the admin endpoint
+    (ring samples, the fleet's QPS above 0, the SLO rows). Wave W4 through
+    the stub: both workers attach the new generation and answer as the
+    in-process twin. ``simon server --standby`` tails the journal to
+    parity; the live owner, at the default lease, is still the owner at
+    epoch 1, never fenced, its longest renewal gap (the lease file's and
+    its own) under the lease and its twin frozen out of the collector; the
+    owner is SIGKILLed; the standby takes over (reason expired, epoch 2, no
+    relist, the same two workers adopted, none respawned, the generation
+    monotonic), both workers answer as the in-process twin, and ``simon
+    dash`` of its admin endpoint shows the takeover marker. SIGTERM: the new owner and the
     workers exit 0 with "shutdown complete", and no ``simon-fleet-*``
     segment is left in /dev/shm. Returns the kernel row, with the phase's
     summary under ``fleet``."""
@@ -3702,6 +3868,7 @@ def fleet_plan(device, card: str, twin: dict) -> tuple:
     from opensim_tpu_torch.ops import fast_scan as fs
     from opensim_tpu_torch.server import rest
     from opensim_tpu_torch.server.fleet import FleetTwinClient
+    from opensim_tpu_torch.server.loadgen import run_loadgen
 
     server, url, sup, key = twin["server"], twin["url"], twin["sup"], twin["key"]
     stub, kube, bodies, live, jd, root = (twin[k] for k in ("stub", "kube", "bodies", "live", "jd", "root"))
@@ -3784,23 +3951,49 @@ def fleet_plan(device, card: str, twin: dict) -> tuple:
         return st.get("role") == want and (not flag or st.get(flag) is True)
 
     lease_file = Path(jd) / "ha-lease.json"
-    lease_gap = {"max_s": 0.0, "stop": threading.Event()}
+    lease_out, lease_stop = root / "fleet-lease-watch.json", root / "fleet-lease-watch.stop"
 
     def watch_lease():
-        """The owner's longest gap between lease renewals, read from the
-        lease file until the SIGKILL: a gap past FLEET_LEASE_S would let
-        the standby take over from a live owner."""
-        while not lease_gap["stop"].wait(0.1):
-            with contextlib.suppress(OSError, ValueError):
-                doc = json.loads(lease_file.read_text())
-                if doc.get("epoch") == 1 and not doc.get("released"):
-                    lease_gap["max_s"] = max(lease_gap["max_s"], time.time() - float(doc["renewed_at"]))
+        """Start the reader of the owner's lease file (`_LEASE_WATCH`): a
+        process of its own, importing nothing of the repo, so that no stall
+        of this process (its twin, its collector) makes a renewal look late
+        or makes it miss one."""
+        for path in (lease_out, lease_stop):
+            path.unlink(missing_ok=True)
+        procs["lease-watch"] = subprocess.Popen(
+            [sys.executable, "-c", _LEASE_WATCH, str(lease_file), str(lease_stop), str(lease_out)],
+            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+
+    def lease_seen() -> dict:
+        """Stop the lease reader and return what it saw."""
+        lease_stop.touch()
+        if procs["lease-watch"].wait(30) != 0 or not lease_out.exists():
+            raise AssertionError(f"the lease reader exited {procs['lease-watch'].returncode} without its result")
+        return json.loads(lease_out.read_text())
 
     def reap(pid: int):
         try:
             reaped[pid] = os.waitstatus_to_exitcode(os.waitpid(pid, 0)[1])
         except ChildProcessError as e:
             reaped[pid] = e
+
+    def dash(base: str, what: str, until=lambda rows: True) -> dict:
+        """One ``simon dash --once --json`` frame of `base` (the port's
+        CLI, a process of its own), taken again until `until` holds."""
+        deadline = time.perf_counter() + TWIN_WAIT_S
+        while True:
+            run = subprocess.run([sys.executable, "-m", "opensim_tpu_torch", "dash", "--url", base, "--once", "--json"],
+                                 capture_output=True, text=True, cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+                                 timeout=120)
+            lines = run.stdout.strip().splitlines()
+            if run.returncode != 0 or not lines:
+                raise AssertionError(f"simon dash ({what}) exited {run.returncode}: {(run.stderr or run.stdout)[-2000:]}")
+            rows = json.loads(lines[-1])
+            if until(rows):
+                return rows
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"simon dash ({what}): {lines[-1][:2000]}")
+            time.sleep(1.0)
 
     summary = {}
     try:
@@ -3833,7 +4026,7 @@ def fleet_plan(device, card: str, twin: dict) -> tuple:
         twin_answers, twin_rt = storm_at(url)
         _wait_for(lambda: serving(admin, "owner"), TWIN_START_S, "the fleet to serve")
         summary["start_s"] = time.perf_counter() - t_owner
-        threading.Thread(target=watch_lease, daemon=True).start()
+        watch_lease()
         st = status(admin)
         workers = st["workers"]
         worker_pids[:] = [w["pid"] for w in workers]
@@ -3888,6 +4081,7 @@ def fleet_plan(device, card: str, twin: dict) -> tuple:
             row = _server_row("fleet attach: R2 from the publication", entry, False, launches["fast_scan"], attach_rt)
             row["fleet_attach"] = {"attach_s": ev.attrs["attach_s"], "upload_s": ev.attrs["upload_s"],
                                    "request_s": attach_rt}
+            BACKGROUND.settle()  # the plain version done before the fleet is loaded
         finally:
             local.close()
             del local, client
@@ -3908,6 +4102,25 @@ def fleet_plan(device, card: str, twin: dict) -> tuple:
         print(f"storm A through the fleet's public port: {len(storm)} riders answered 200 in {fleet_rt:.6f} s, each "
               f"the in-process twin's answer (its storm {twin_rt:.6f} s); (worker, batch size) per rider {batches}",
               flush=True)
+
+        # simon loadgen through the public port (the server's percentiles
+        # from the admin endpoint's aggregate), then simon dash of the fleet
+        burst = run_loadgen(f"http://127.0.0.1:{port}", mode="closed", concurrency=LOADGEN_CONCURRENCY,
+                            duration_s=FLEET_LOADGEN_S, metrics_url=admin)
+        if burst["errors"] or burst["ok"] < LOADGEN_CONCURRENCY:
+            raise AssertionError(f"simon loadgen through the fleet: {json.dumps(burst)}")
+        frame = dash(admin, "the fleet", lambda rows: rows.get("qps", 0) > 0)
+        if not frame["samples"] or not frame.get("slo"):
+            raise AssertionError(f"simon dash of the fleet: {json.dumps(frame)[:2000]}")
+        summary["loadgen"] = {k: burst[k] for k in ("ok", "qps", "errors", "shed", "client_p50_s", "client_p99_s",
+                                                    "server_p50_s", "server_p99_s", "batches", "mean_batch_size")}
+        summary["dash"] = {k: frame.get(k) for k in ("samples", "window_s", "qps", "latency")}
+        print(f"simon loadgen through the fleet's public port: {burst['ok']} answered in {burst['duration_s']} s, "
+              f"{burst['qps']} QPS, {burst['errors']} errors, {burst['shed']} shed; client p50 {burst['client_p50_s']} "
+              f"s, p99 {burst['client_p99_s']} s; the fleet's simon_request_seconds p50 {burst['server_p50_s']} s, "
+              f"p99 {burst['server_p99_s']} s; {burst['batches']} batches; simon dash --once --json of the admin "
+              f"endpoint: {frame['samples']} ring samples over {frame.get('window_s')} s, fleet QPS {frame['qps']}, "
+              f"latency {json.dumps(frame.get('latency'))}, {len(frame['slo'])} SLO rows", flush=True)
 
         # W4 through the stub: the owner folds and republishes, the workers
         # attach the new generation on their next request
@@ -3950,10 +4163,29 @@ def fleet_plan(device, card: str, twin: dict) -> tuple:
         summary["standby_parity_s"] = time.perf_counter() - t_standby
         g_old = status(admin)["generation"]
         lists0 = lists()  # this process's relists above were the check's
-        lease_gap["stop"].set()
-        summary["lease_gap_max_s"] = lease_gap["max_s"]
-        if lease_gap["max_s"] >= FLEET_LEASE_S:
-            raise AssertionError(f"the live owner left its lease unrenewed for {lease_gap['max_s']:.3f} s")
+        lease_gap = lease_seen()
+        st5 = status(admin)
+        lease_doc = json.loads(lease_file.read_text())
+        summary["owner_lease_renewals"], summary["owner_collector"] = st5["lease_renewals"], st5["collector"]
+        summary["lease_seen"] = lease_gap
+        print(f"the live owner's lease ({FLEET_LEASE_S:g} s, the default), read every "
+              f"{_LEASE_WATCH_POLL_S:g} s by a process of its own: {lease_gap['stamps']} renewal stamps, the longest "
+              f"step between consecutive ones {lease_gap['stamp_max_s']:.3f} s, the oldest the lease looked "
+              f"{lease_gap['max_s']:.3f} s, the reader's own longest step {lease_gap['poll_max_s']:.3f} s; the "
+              f"owner's own count {json.dumps(st5['lease_renewals'])}; its "
+              f"collector {json.dumps(st5['collector'])}; role {st5['role']}, lease epoch {lease_doc.get('epoch')}, "
+              f"fenced writes {st5['fenced_writes']} ({card})", flush=True)
+        if st5["role"] != "owner" or st5["fenced_writes"] or lease_doc.get("epoch") != 1 or \
+                lease_doc.get("released") or not st5["collector"]["frozen"]:
+            raise AssertionError(f"the live owner before its SIGKILL: role {st5['role']}, fenced writes "
+                                 f"{st5['fenced_writes']}, lease {json.dumps(lease_doc)[:300]}, collector "
+                                 f"{st5['collector']}")
+        if not lease_gap["stamps"] or \
+                max(lease_gap["max_s"], lease_gap["stamp_max_s"], st5["lease_renewals"]["gap_max_s"]) >= FLEET_LEASE_S:
+            raise AssertionError(f"the live owner left its lease unrenewed for {lease_gap['max_s']:.3f} s as its "
+                                 f"reader saw it, {lease_gap['stamp_max_s']:.3f} s between stamps "
+                                 f"({lease_gap['stamps']} stamps read), "
+                                 f"{st5['lease_renewals']['gap_max_s']} s by its own clock")
         owner.kill()  # SIGKILL: no flush, no lease release
         owner.wait(30)
         t4 = time.perf_counter()
@@ -3986,7 +4218,14 @@ def fleet_plan(device, card: str, twin: dict) -> tuple:
               f"reason expired, no list, no relist, workers {adopted} adopted, 0 respawns, generation {g_old} -> "
               f"{st6['generation']}; both workers answer as the in-process twin; the standby at parity "
               f"(checked {summary['standby_parity_s']:.3f} s after its start); the live owner's longest gap "
-              f"between lease renewals {summary['lease_gap_max_s']:.3f} s (lease {FLEET_LEASE_S:g} s)", flush=True)
+              f"between lease renewals {summary['owner_lease_renewals']['gap_max_s']} s by its own clock, "
+              f"{summary['lease_seen']['stamp_max_s']:.3f} s between stamps (lease {FLEET_LEASE_S:g} s)", flush=True)
+
+        took_frame = dash(sb_admin, "the new owner", lambda rows: any(
+            m["reason"] == "expired" for m in rows.get("takeovers") or []))
+        summary["dash_takeover"] = took_frame["takeovers"]
+        print(f"simon dash --once --json of the new owner's admin endpoint: takeover markers "
+              f"{json.dumps(took_frame['takeovers'])}, {took_frame['samples']} ring samples", flush=True)
 
         # SIGTERM: workers first, then the owner; nothing left in /dev/shm
         standby.send_signal(signal.SIGTERM)
@@ -4010,7 +4249,6 @@ def fleet_plan(device, card: str, twin: dict) -> tuple:
                 print(f"--- {tag} log (tail) ---\n{path.read_text()[-6000:]}", flush=True)
         raise
     finally:
-        lease_gap["stop"].set()
         for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
@@ -4127,9 +4365,12 @@ def main() -> int:
         rows.extend(campaign_plan(device, card, served))
         counting_small_cases(device)
         rows.extend(storm_plan(device, card, served))
+        _phase("the plain versions held on the CPU since their phases, compared before the twin's servers start")
+        BACKGROUND.settle()
         rows.extend(twin_plan(device, card, served))
     finally:
         served["close"]()
+    BACKGROUND.settle()  # the twin's and the fleet's rows
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -4140,4 +4381,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        BACKGROUND.close()

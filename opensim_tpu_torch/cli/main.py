@@ -1,12 +1,12 @@
 """simon CLI of the port — ``python -m opensim_tpu_torch {apply, explain,
-defrag (drain), campaign, server, top, replay, version}``, the flags of
+defrag (drain), campaign, server, loadgen, top, dash, replay, version}``, the flags of
 ``opensim_tpu/cli/main.py`` (``cmd/apply/apply.go:27-36``,
 ``cmd/server/server.go``) plus ``--device`` where a subcommand simulates.
 The run goes to the card unless ``--device cpu`` asks for the plain
 versions on the CPU; without a card and without that flag each of those
 subcommands fails (``server`` before it listens), and nothing falls back
-to the CPU. ``top`` and ``campaign --url`` read a running server, which
-simulates on its own device; ``replay`` simulates only with
+to the CPU. ``loadgen``, ``top``, ``dash`` and ``campaign --url`` drive
+or read a running server, which simulates on its own device; ``replay`` simulates only with
 ``--schedule``. Log level comes from the ``LogLevel`` env
 (``cmd/simon/simon.go:46-66``)."""
 
@@ -177,6 +177,30 @@ def build_parser() -> argparse.ArgumentParser:
                           "over (a rolling upgrade); without it the standby takes over only on lease expiry")
     server_p.add_argument("--device", default=None, help=device_help)
 
+    loadgen_p = sub.add_parser(
+        "loadgen", help="drive a live simon server at load and report QPS + latency",
+        description=(
+            "open/closed-loop load harness for the serving core: drive the live server's /api/deploy-apps at a "
+            "target concurrency (closed loop) or arrival rate (open loop) and report sustained QPS with p50/p99 "
+            "latency read straight from the server's simon_request_seconds_bucket histogram, plus batching and "
+            "shed statistics. Prints one JSON report"
+        ),
+    )
+    loadgen_p.add_argument("--url", required=True, help="base URL of the live server (http://host:port)")
+    loadgen_p.add_argument(
+        "--mode", default="closed", choices=["closed", "open"],
+        help="closed = each worker waits for its response (sustained-QPS measurement); open = fire at --qps "
+        "regardless of completions",
+    )
+    loadgen_p.add_argument("--concurrency", type=int, default=8, help="closed-loop workers / open-loop in-flight cap")
+    loadgen_p.add_argument("--qps", type=float, default=0.0, help="open loop: target arrival rate")
+    loadgen_p.add_argument("--duration", type=float, default=10.0, help="measured seconds")
+    loadgen_p.add_argument("--replicas", type=int, default=3, help="max replicas per generated deployment")
+    loadgen_p.add_argument("--cpu", default="500m", help="per-pod cpu request of the generated workload")
+    loadgen_p.add_argument("--mem", default="1Gi", help="per-pod memory request of the generated workload")
+    loadgen_p.add_argument("--timeout", type=float, default=60.0, help="per-request client timeout seconds")
+    loadgen_p.add_argument("-o", "--output-file", default="", help="also write the JSON report to a file")
+
     top_p = sub.add_parser(
         "top", help="live cluster capacity view (utilization, headroom, fragmentation)",
         description=(
@@ -198,6 +222,24 @@ def build_parser() -> argparse.ArgumentParser:
         "-e", "--extended-resources", default="", help="comma-separated extended resource sections (gpu,open-local)",
     )
     top_p.add_argument("--timeout", type=float, default=60.0, help="per-request client timeout seconds")
+
+    dash_p = sub.add_parser(
+        "dash", help="live fleet dashboard (QPS, latency, freshness, lanes, SLO burn)",
+        description=(
+            "render the fleet's live terminal view from the time-series ring and the SLO engine of a running "
+            "server or fleet admin endpoint: fleet QPS and p50/p99 from merged per-worker histograms, "
+            "event-to-servable freshness per pipeline stage, admission lane depths, takeover markers and "
+            "multi-window SLO burn rates. Refreshes in place until interrupted; --once prints one frame"
+        ),
+    )
+    dash_p.add_argument("--url", required=True,
+                        help="base URL of the server or fleet admin endpoint (http://host:port)")
+    dash_p.add_argument("--once", action="store_true", help="print one frame and exit instead of refreshing")
+    dash_p.add_argument("--json", action="store_true", help="print the structured rows as JSON (stable key order)")
+    dash_p.add_argument("--interval", type=float, default=2.0, help="refresh interval in seconds (default 2)")
+    dash_p.add_argument("--range", default="5m", dest="range_spec", metavar="RANGE",
+                        help="ring query range: bare seconds or <n><s|m|h|d> (default 5m)")
+    dash_p.add_argument("--timeout", type=float, default=10.0, help="per-request client timeout seconds")
     replay_p = sub.add_parser(
         "replay", help="reconstruct and replay a recorded watch-event journal",
         description=(
@@ -456,6 +498,52 @@ def run_top(args) -> int:
         time.sleep(max(0.1, args.interval))
 
 
+def run_loadgen(args) -> int:
+    """``simon loadgen``: drive the server at ``--url`` and print the
+    report as one JSON line (also to ``-o``)."""
+    import json
+
+    from ..server.loadgen import run_loadgen as drive
+
+    try:
+        report = drive(args.url.rstrip("/"), mode=args.mode, concurrency=args.concurrency, qps=args.qps,
+                       duration_s=args.duration, replicas=args.replicas, cpu=args.cpu, mem=args.mem,
+                       timeout_s=args.timeout)
+    except (OSError, ValueError) as e:
+        print(f"simon loadgen: {e}", file=sys.stderr)
+        return 1
+    line = json.dumps(report, sort_keys=True)
+    print(line)
+    if args.output_file:
+        try:
+            with open(user_path(args.output_file, label="--output-file"), "w") as f:
+                f.write(line + "\n")
+        except (OSError, ValueError) as e:
+            print(f"simon loadgen: {e}", file=sys.stderr)
+            return 1
+    return 0
+
+
+def run_dash(args) -> int:
+    """``simon dash``: fetch the ring and SLO surfaces and render them
+    through the pure row functions of ``cli/dash.py`` (one frame with
+    ``--once``, refreshed in place otherwise, like ``simon top``)."""
+    import json
+    import time
+
+    from .dash import dash_rows, fetch_dash, format_dash
+
+    while True:
+        payload = fetch_dash(args.url, args.range_spec, timeout_s=args.timeout)
+        rendered = json.dumps(dash_rows(payload), sort_keys=True) if args.json else format_dash(payload)
+        if args.once:
+            print(rendered)
+            # both surfaces down: nothing was dashboarded, a nonzero exit
+            return 1 if ("timeseries" not in payload and "slo" not in payload) else 0
+        print(f"\x1b[2J\x1b[H{rendered}", flush=True)
+        time.sleep(max(0.1, args.interval))
+
+
 def run_replay(args) -> int:
     """``simon replay <journal>``: stream the recorded accepted-event
     history through the live apply path, optionally paced, feeding the
@@ -556,9 +644,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             # refused before it listens
             print(f"simon server: {e}", file=sys.stderr)
             return 1
-    if args.command == "top":
+    if args.command == "loadgen":
+        return run_loadgen(args)
+    if args.command in ("top", "dash"):
         try:
-            return run_top(args)
+            return (run_top if args.command == "top" else run_dash)(args)
         except KeyboardInterrupt:
             return 0
     runs = {"apply": run_apply, "explain": run_explain, "defrag": run_defrag, "drain": run_defrag,

@@ -33,6 +33,7 @@ __all__ = [
     "family_header",
     "histogram_quantile",
     "parse_metrics",
+    "scrape_metrics",
 ]
 
 # fixed bucket upper bounds in seconds (the +Inf bucket is implicit):
@@ -241,6 +242,14 @@ def parse_metrics(text: str) -> Dict[MetricKey, float]:
         ))
         out[(name, labels)] = float(value)
     return out
+
+
+def scrape_metrics(url: str, timeout_s: float = 10.0) -> Dict[MetricKey, float]:
+    """One ``GET {url}/metrics``, parsed (:func:`parse_metrics`)."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"{url}/metrics", timeout=timeout_s) as resp:
+        return parse_metrics(resp.read().decode())
 
 
 def _series_delta(after_v: float, before_v: float) -> float:

@@ -74,6 +74,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import gc
 import hashlib
 import io
 import json
@@ -109,6 +110,7 @@ from ..obs.metrics import (
 from ..resilience import faults
 from ..resilience.retry import backoff_delay
 from ..utils import envknobs
+from ..utils.gcpause import CollectorWatch, gc_paused
 
 if TYPE_CHECKING:
     import torch
@@ -149,6 +151,10 @@ _CONTROL_SIZE = 256 * 1024
 #: segment per 8-byte scalar array would be pure overhead, and zero-size
 #: arrays cannot be shm segments at all)
 _INLINE_BYTES = 64
+
+#: how long the publisher's exit hook waits for its lock before it leaves
+#: the segments to the resource tracker
+CLOSE_AT_EXIT_WAIT_S = 5.0
 
 
 def resolve_device(device: "DeviceLike"):
@@ -245,6 +251,7 @@ class FleetLease:
         self.lease_s = float(lease_s) if lease_s is not None else ha_lease_s()
         self.holder = holder or f"{os.getpid()}-{secrets.token_hex(4)}"
         self.epoch = 0  # 0 = not holding
+        self.write_max_s = 0.0  # the longest write of the file (a stall's share that is I/O)
 
     # -- file I/O ------------------------------------------------------------
 
@@ -261,9 +268,12 @@ class FleetLease:
         # acquires before opening the journal for append)
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
         tmp = f"{self.path}.{os.getpid()}.tmp"
+        body = json.dumps(doc, sort_keys=True)
+        t0 = time.monotonic()
         with open(tmp, "w", encoding="utf-8") as f:
-            json.dump(doc, f, sort_keys=True)
+            f.write(body)
         os.replace(tmp, self.path)
+        self.write_max_s = max(self.write_max_s, time.monotonic() - t0)
 
     # -- verdicts ------------------------------------------------------------
 
@@ -590,29 +600,37 @@ class TwinPublisher:
         self.last_generation = -1
         self.publish_seconds = HistogramVec("simon_fleet_publish_seconds", ())
         self._closed = False
-        atexit.register(self.close)
+        atexit.register(self._close_at_exit)
 
     # -- segments ------------------------------------------------------------
 
-    def _segment_name(self, data: bytes) -> str:
+    def _segment_name(self, data: np.ndarray) -> str:
         digest = hashlib.blake2b(data, digest_size=12).hexdigest()
         return f"simon-fleet-{self.token}-{digest}"
 
-    def _put_bytes(self, data: bytes, current: set) -> str:
-        name = self._segment_name(data)
+    def _put_bytes(self, data, current: set) -> str:
+        """One content-keyed segment holding `data` (bytes, or a
+        C-contiguous array). The hash and the copy run on a flat byte view
+        and release the GIL (blake2b past 2 KiB, ``np.copyto``): a 0.5 GB
+        buffer must not stall the owner's other threads, its lease
+        renewals first, for the length of a copy."""
+        flat = np.frombuffer(data, dtype=np.uint8) if isinstance(data, bytes) else data.reshape(-1).view(np.uint8)
+        name = self._segment_name(flat)
         current.add(name)
         if name in self._segments:
             return name
         try:
-            shm = _shm_cls()(name=name, create=True, size=len(data))
+            shm = _shm_cls()(name=name, create=True, size=flat.size)
             _OWNED_NAMES.add(name)
         except FileExistsError:
             # content-keyed: an existing same-name segment holds the same
             # bytes (it was published by US under this run token)
             shm = _attach(name)
-        shm.buf[: len(data)] = data
+        dst = np.frombuffer(shm.buf, dtype=np.uint8, count=flat.size)
+        np.copyto(dst, flat)
+        del dst  # no export may outlive the copy: close() needs none
         self._segments[name] = shm
-        self._seg_bytes[name] = len(data)
+        self._seg_bytes[name] = flat.size
         return name
 
     # -- publish -------------------------------------------------------------
@@ -635,7 +653,7 @@ class TwinPublisher:
 
             def put_array(arr: np.ndarray) -> str:
                 a = np.ascontiguousarray(arr)
-                name = self._put_bytes(a.tobytes(), current)
+                name = self._put_bytes(a, current)
                 arrays.append((name, a.dtype.str, list(a.shape)))
                 return name
 
@@ -728,21 +746,39 @@ class TwinPublisher:
             }
 
     def close(self) -> None:
-        """Unlink every owned segment (idempotent; atexit-registered)."""
+        """Unlink every owned segment (idempotent)."""
         with self._lock:
-            if self._closed:
-                return
-            self._closed = True
-            for name, shm in self._segments.items():
-                with contextlib.suppress(FileNotFoundError, OSError, BufferError):
-                    shm.unlink()
-                _OWNED_NAMES.discard(name)
-                with contextlib.suppress(BufferError, OSError):
-                    shm.close()
-            self._segments.clear()
-            self._seg_bytes.clear()
-            self.control.unlink()
-            self.control.close()
+            self._close_locked()
+
+    def _close_at_exit(self) -> None:
+        """``close`` at interpreter exit, where a daemon thread may be
+        frozen mid-publication holding the lock: wait a bounded time, then
+        leave the segments to the resource tracker, which unlinks what a
+        dead process owned."""
+        if self._closed:
+            return
+        if not self._lock.acquire(timeout=CLOSE_AT_EXIT_WAIT_S):
+            log.warning("fleet publisher: lock still held at exit; the resource tracker unlinks the segments")
+            return
+        try:
+            self._close_locked()
+        finally:
+            self._lock.release()
+
+    def _close_locked(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        for name, shm in self._segments.items():
+            with contextlib.suppress(FileNotFoundError, OSError, BufferError):
+                shm.unlink()
+            _OWNED_NAMES.discard(name)
+            with contextlib.suppress(BufferError, OSError):
+                shm.close()
+        self._segments.clear()
+        self._seg_bytes.clear()
+        self.control.unlink()
+        self.control.close()
 
 
 # ---------------------------------------------------------------------------
@@ -1357,12 +1393,32 @@ class FleetSupervisor:
         self._published_stale: Optional[bool] = None
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
+        # the owner's stalls, in /api/fleet/status: what the cyclic collector
+        # took, and the lease renewals' gaps
+        self.collector = CollectorWatch().install()
+        self.lease_renewals = {"count": 0, "gap_max_s": 0.0, "late_max_s": 0.0, "renew_max_s": 0.0}
 
     # -- publication ---------------------------------------------------------
 
     def publish_once(self) -> bool:
         """Publish the twin's current generation if it moved (or its
-        staleness flipped). Returns True when a publication was written."""
+        staleness flipped). Returns True when a publication was written.
+
+        The cyclic collector is paused over the whole publication (the fold,
+        the base entry's build, the pickle walk), and what the generation
+        built is then frozen out of its generations (``gc.freeze``): no
+        collection walks the twin and its base entry, millions of objects
+        at the server plan's size, while another thread of this process
+        renews the lease. These objects are acyclic (a base entry dropped
+        later is freed by refcounting), and the supervisor owns its
+        process."""
+        with gc_paused():
+            published = self._publish_generation()
+            if published:
+                gc.freeze()
+        return published
+
+    def _publish_generation(self) -> bool:
         from ..engine import prepcache
         from ..engine.simulator import prepare
 
@@ -1437,7 +1493,10 @@ class FleetSupervisor:
     def _lease_loop(self) -> None:
         assert self.lease is not None
         interval = max(0.2, self.lease.lease_s / 3.0)
+        stats = self.lease_renewals
+        last = None
         while not self._stop.is_set():
+            t0 = time.monotonic()
             try:
                 ok = self.lease.renew(**self._lease_doc_meta())
             except OSError as e:  # transient fs hiccup: try again next beat
@@ -1446,7 +1505,14 @@ class FleetSupervisor:
             if not ok:
                 self._demote("lease lost (stolen or expired past another acquire)")
                 return
+            t1 = time.monotonic()
+            stats["count"] += 1
+            stats["renew_max_s"] = max(stats["renew_max_s"], t1 - t0)
+            if last is not None:
+                stats["gap_max_s"] = max(stats["gap_max_s"], t1 - last)
+            last = t1
             self._stop.wait(interval)
+            stats["late_max_s"] = max(stats["late_max_s"], time.monotonic() - t1 - interval)
 
     def _demote(self, why: str) -> None:
         """The lease moved under us: stop publishing and journaling NOW.
@@ -1630,6 +1696,9 @@ class FleetSupervisor:
             "control": self.publisher.control.name,
             "port": self.port,
             "admin_port": self.admin_port,
+            "lease_renewals": dict({k: round(v, 6) for k, v in self.lease_renewals.items()},
+                                   write_max_s=round(self.lease.write_max_s, 6) if self.lease is not None else None),
+            "collector": self.collector.snapshot(),
         }
 
     def healthz(self) -> dict:
@@ -1747,6 +1816,7 @@ class FleetSupervisor:
         if self.timeseries is not None:
             self.timeseries.close()
         self.publisher.close()
+        self.collector.uninstall()
 
 
 class _RoleBox:

@@ -41,6 +41,7 @@ from opensim_tpu_torch.server.fleet import (
     TornGeneration,
     TwinPublisher,
 )
+from opensim_tpu_torch.utils.procgroup import spawn_group, stop_group
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PAD = 128  # the JAX package's default node padding; the port's is 1
@@ -234,20 +235,68 @@ def test_owner_hard_crash_leaves_no_segments(tmp_path):
         "print(pub.token, flush=True)\n"
         "time.sleep(60)\n"
     )
-    proc = subprocess.Popen([sys.executable, str(script)], stdout=subprocess.PIPE)
+    out = tmp_path / "owner.out"
+    with open(out, "w") as fh:
+        proc = spawn_group([sys.executable, str(script)], stdout=fh, env=dict(os.environ, OMP_NUM_THREADS="1"))
     try:
-        token = proc.stdout.readline().decode().strip()
+        deadline = time.monotonic() + 120.0
+        while not out.read_text().endswith("\n"):
+            assert proc.poll() is None and time.monotonic() < deadline, f"owner script: {out.read_text()[-2000:]}"
+            time.sleep(0.05)
+        token = out.read_text().strip()
         assert token and _shm_names(token)
-        proc.kill()
+        proc.kill()  # the owner alone: its resource tracker survives it
         proc.wait(timeout=30)
         deadline = time.monotonic() + 30.0
         while time.monotonic() < deadline and _shm_names(token):
             time.sleep(0.2)
         assert _shm_names(token) == [], "resource tracker left segments behind"
     finally:
-        if proc.poll() is None:  # pragma: no cover - cleanup on failure
-            proc.kill()
-        proc.stdout.close()
+        stop_group(proc, timeout_s=0.0)
+
+
+def _longest_stall(fn) -> float:
+    """The longest a thread that sleeps 1 ms at a time waits to run again
+    while `fn` runs in this one."""
+    gaps, stop = [0.0], threading.Event()
+
+    def probe():
+        last = time.perf_counter()
+        while not stop.is_set():
+            time.sleep(0.001)
+            now = time.perf_counter()
+            gaps[0], last = max(gaps[0], now - last), now
+
+    t = threading.Thread(target=probe)
+    t.start()
+    try:
+        time.sleep(0.02)
+        fn()
+    finally:
+        stop.set()
+        t.join(timeout=10)
+    assert not t.is_alive()
+    return gaps[0]
+
+
+def test_publication_copies_release_the_gil():
+    """A publication hashes and copies its arrays into shared memory
+    without holding the GIL: a 256 MB array's publication stalls the
+    owner's other threads (its lease renewals) far less than one copy of
+    that array that holds the GIL (``tobytes``) does."""
+    a = np.arange(64 << 20, dtype=np.int32)
+    held = _longest_stall(a.tobytes)
+    pub = TwinPublisher()
+    try:
+        free = _longest_stall(lambda: pub.publish(1, {"ok": True}, {"a": a}))
+        reader = FleetReader(pub.control.name)
+        gen, _payload, obj = reader.attach()
+        assert gen == 1 and np.array_equal(obj["parts"]["a"], a)
+        del obj
+        reader.close()
+    finally:
+        pub.close()
+    assert free < held / 2, f"the publication stalled another thread {free:.3f} s; a GIL-holding copy {held:.3f} s"
 
 
 def test_reader_exit_does_not_destroy_owner_segments():

@@ -19,14 +19,16 @@ journal tailer) on the CPU: the cases of tests/test_ha.py.
   "handover"}``), its workers answering as the JAX server does.
 
 The end-to-end runs spawn the port's owners, standbys and workers as
-``--device cpu`` subprocesses.
+``--device cpu`` subprocesses, each server the leader of its own process
+group with one intra-op thread (inherited by its workers); teardown stops
+every group, and each run checks that no server and no worker it spawned
+still runs afterwards.
 """
 
 import copy
 import json
 import os
 import re
-import signal
 import subprocess
 import sys
 import time
@@ -53,6 +55,7 @@ from opensim_tpu_torch.server.journal import Journal, JournalTailer, apply_recor
 from opensim_tpu_torch.server.snapshot import _cluster_via_rest
 from opensim_tpu_torch.server.stubapi import StubApiServer
 from opensim_tpu_torch.server.watch import ClusterTwin
+from opensim_tpu_torch.utils.procgroup import pid_gone, spawn_group, stop_group
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -455,12 +458,28 @@ def _seed(stub, n_nodes=4):
         stub.seed(p, [])
 
 
-def _free_port():
+def _free_port(span: int = 17):
+    """A public port P with P .. P + span - 1 free (the owner's admin
+    endpoint P + 1, the workers' loopback listeners P + 2 ..., the
+    standby's admin endpoint P + 16), drawn below the kernel's ephemeral
+    range, where no client connection of a concurrent test takes one of
+    them as its local port."""
+    import random
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        low = int(f.read().split()[0])
+    rng = random.Random()
+    for _ in range(200):
+        base = rng.randrange(max(1024, low - 12000), low - span)
+        try:
+            for p in range(base, base + span):
+                with socket.socket() as s:
+                    s.bind(("0.0.0.0", p))
+        except OSError:
+            continue
+        return base
+    raise RuntimeError("no free run of ports below the ephemeral range")
 
 
 def _http_json(url, timeout=3.0, method="GET", body=None):
@@ -476,17 +495,21 @@ def _http_text(url, timeout=3.0):
 
 
 def _ha_env(lease_s="1.5"):
+    # one intra-op thread in each server and, inherited, in each of its
+    # fleet workers: up to six torch interpreters run beside the test
+    # run's own workers
     return dict(os.environ, PYTHONPATH=REPO, OPENSIM_HA="1", OPENSIM_HA_LEASE_S=lease_s,
                 OPENSIM_HA_TAIL_POLL_MS="25", OPENSIM_FLEET_PUBLISH_MS="50",
-                OPENSIM_JOURNAL_FSYNC="always", OPENSIM_JOURNAL_CHECKPOINT_EVERY="64")
+                OPENSIM_JOURNAL_FSYNC="always", OPENSIM_JOURNAL_CHECKPOINT_EVERY="64", OMP_NUM_THREADS="1")
 
 
 def _spawn(argv, env, logfile):
     # stdout goes to a FILE, not a pipe: the workers inherit the fd and
-    # outlive the owner on handover/takeover; a pipe would never EOF
+    # outlive the owner on handover/takeover; a pipe would never EOF. Each
+    # server leads its own process group, which its workers join
     with open(logfile, "w") as fh:
-        return subprocess.Popen([sys.executable, "-m", "opensim_tpu_torch", "server", *argv, "--device", "cpu"],
-                                stdout=fh, stderr=subprocess.STDOUT, env=env, cwd=REPO)
+        return spawn_group([sys.executable, "-m", "opensim_tpu_torch", "server", *argv, "--device", "cpu"],
+                           stdout=fh, stderr=subprocess.STDOUT, env=env, cwd=REPO)
 
 
 def _spawn_owner(kc, jd, port, env, logfile):
@@ -571,17 +594,26 @@ def _workers_answer_as_jax(kc, admin, status):
 
 def _stop(owner, standby):
     # the standby-turned-owner owns the adopted workers: SIGTERM it first
-    # so it reaps them, then sweep whatever is left
-    if standby is not None and standby.poll() is None:
-        standby.send_signal(signal.SIGTERM)
-        try:
-            standby.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            pass
-    for p in (owner, standby):
-        if p is not None and p.poll() is None:
-            p.kill()
-            p.wait(timeout=10)
+    # so it reaps them; then each process group is killed whole, the
+    # workers a SIGKILLed owner left in its group included
+    if standby is not None:
+        stop_group(standby, timeout_s=30.0)
+    if owner is not None:
+        stop_group(owner, timeout_s=0.0)
+
+
+def _assert_reaped(procs, worker_pids):
+    """No server and no fleet worker of the run still runs."""
+    left = [p.pid for p in procs if p is not None and p.poll() is None]
+    left += [pid for pid in worker_pids if not pid_gone(pid)]
+    assert not left, f"processes left running after teardown: {left}"
+
+
+def _threads_capped(pids):
+    """Each fleet worker inherited its owner's one-thread cap."""
+    for pid in pids:
+        with open(f"/proc/{pid}/environ", "rb") as f:
+            assert b"OMP_NUM_THREADS=1" in f.read().split(b"\0"), f"worker {pid} has no thread cap"
 
 
 def test_sigkill_owner_standby_takes_over_bit_equal(tmp_path):
@@ -598,6 +630,7 @@ def test_sigkill_owner_standby_takes_over_bit_equal(tmp_path):
     env = _ha_env()
     owner_log, sb_log = str(tmp_path / "owner.log"), str(tmp_path / "standby.log")
     owner = standby = None
+    worker_pids = set()
     try:
         # the standby starts beside the owner: it tails once the owner's
         # lease and first checkpoint exist
@@ -608,8 +641,13 @@ def test_sigkill_owner_standby_takes_over_bit_equal(tmp_path):
         assert status["role"] == "owner" and status["epoch"] == 1
         worker_pids = {w["pid"] for w in status["workers"] if w["alive"]}
         assert len(worker_pids) == 2
+        _threads_capped(worker_pids)
         gen_before = status["generation"]
         _wait(_workers_listening(status), timeout=120.0, msg="the workers to listen")
+        # the owner published: the twin it built is frozen out of the
+        # collector's generations, and it renews its lease
+        owned = _http_json(f"http://127.0.0.1:{port + 1}/api/fleet/status")
+        assert owned["collector"]["frozen"] > 0 and owned["lease_renewals"]["count"] > 0
         sb_admin = f"http://127.0.0.1:{port + 16}"
 
         def standby_tailing():
@@ -659,6 +697,7 @@ def test_sigkill_owner_standby_takes_over_bit_equal(tmp_path):
     finally:
         _stop(owner, standby)
         stub.stop()
+    _assert_reaped((owner, standby), worker_pids)
 
 
 def test_rolling_upgrade_handover_drains_cleanly(tmp_path):
@@ -675,11 +714,13 @@ def test_rolling_upgrade_handover_drains_cleanly(tmp_path):
     env = _ha_env(lease_s="4")
     owner_log, sb_log = str(tmp_path / "owner.log"), str(tmp_path / "standby.log")
     owner = standby = None
+    worker_pids = set()
     try:
         owner = _spawn_owner(kc, jd, port, env, owner_log)
         _wait(_owner_up(port + 1, owner, owner_log), timeout=120.0, msg="HA owner fleet up")
         status = _http_json(f"http://127.0.0.1:{port + 1}/api/fleet/status")
         worker_pids = {w["pid"] for w in status["workers"] if w["alive"]}
+        _threads_capped(worker_pids)
         _wait(_workers_listening(status), timeout=120.0, msg="the workers to listen")
 
         standby = _spawn_standby(kc, jd, port, env, sb_log, handover=True)
@@ -710,3 +751,4 @@ def test_rolling_upgrade_handover_drains_cleanly(tmp_path):
     finally:
         _stop(owner, standby)
         stub.stop()
+    _assert_reaped((owner, standby), worker_pids)

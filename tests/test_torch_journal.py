@@ -44,6 +44,7 @@ from opensim_tpu_torch.server.journal import (
 from opensim_tpu_torch.server.snapshot import _cluster_via_rest
 from opensim_tpu_torch.server.stubapi import StubApiServer
 from opensim_tpu_torch.server.watch import RestWatchSource, WatchSupervisor
+from opensim_tpu_torch.utils.procgroup import spawn_group, stop_group
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAST = {"stale_s": 5.0, "resync_s": 0.0, "reconnects": 3, "backoff_s": 0.02}
@@ -481,13 +482,23 @@ def _free_port():
     return port
 
 
-def _server(kc, jd, port):
-    return subprocess.Popen(
-        [sys.executable, "-m", "opensim_tpu_torch", "server", "--kubeconfig", kc, "--watch", "on", "--journal", jd,
-         "--port", str(port), "--device", "cpu"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=REPO,
-        env=dict(os.environ, PYTHONPATH=REPO, OPENSIM_JOURNAL_FSYNC="always", OPENSIM_ADMISSION="off"),
-    )
+def _server(kc, jd, port, logfile):
+    """The journaled server as the leader of its own process group, one
+    intra-op thread; its output spooled to `logfile`, never a pipe, which
+    nobody drains while it serves (a full pipe blocks its logging)."""
+    with open(logfile, "w") as fh:
+        return spawn_group(
+            [sys.executable, "-m", "opensim_tpu_torch", "server", "--kubeconfig", kc, "--watch", "on", "--journal",
+             jd, "--port", str(port), "--device", "cpu"],
+            stdout=fh, stderr=subprocess.STDOUT, cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=REPO, OPENSIM_JOURNAL_FSYNC="always", OPENSIM_ADMISSION="off",
+                     OMP_NUM_THREADS="1"),
+        )
+
+
+def _read(path):
+    with open(path) as f:
+        return f.read()
 
 
 def _get(port, path):
@@ -495,10 +506,10 @@ def _get(port, path):
         return r.read().decode()
 
 
-def _up(proc, port):
+def _up(proc, port, logfile):
     def ready():
         if proc.poll() is not None:
-            raise AssertionError(f"server died early: {proc.stdout.read()[-2000:]}")
+            raise AssertionError(f"server died early: {_read(logfile)[-2000:]}")
         try:
             return _get(port, "/healthz") is not None
         except OSError:
@@ -519,9 +530,11 @@ def test_sigkill_restart_recovers_from_checkpoint_and_suffix(tmp_path):
     kc = stub.kubeconfig(tmp_path)
     jd, port = str(tmp_path / "journal"), _free_port()
     body = json.dumps({"deployments": [fx.make_fake_deployment("web", 3, "500m", "1Gi").raw]}).encode()
-    proc = _server(kc, jd, port)
+    first, second = str(tmp_path / "server-1.log"), str(tmp_path / "server-2.log")
+    procs = [_server(kc, jd, port, first)]
+    proc = procs[0]
     try:
-        _wait(_up(proc, port), timeout=120.0, msg="journaled server to come up")
+        _wait(_up(proc, port, first), timeout=120.0, msg="journaled server to come up")
         for i in range(30):
             stub.upsert("/api/v1/pods", _pod_dict(f"storm-{i}", phase="Running", node=f"n{i % 4}", cpu="150m"))
             if i == 20:
@@ -536,8 +549,9 @@ def test_sigkill_restart_recovers_from_checkpoint_and_suffix(tmp_path):
         fresh, _ = _cluster_via_rest(kc, None)
         assert {p.metadata.name for p in fresh.pods} == want
         lists0 = sum(1 for path, q in stub.requests_seen if "watch" not in q)
-        proc = _server(kc, jd, port)
-        _wait(_up(proc, port), timeout=120.0, msg="restart to come up from the journal")
+        proc = _server(kc, jd, port, second)
+        procs.append(proc)
+        _wait(_up(proc, port, second), timeout=120.0, msg="restart to come up from the journal")
         metrics = {}
 
         def converged():
@@ -556,14 +570,15 @@ def test_sigkill_restart_recovers_from_checkpoint_and_suffix(tmp_path):
         strip = lambda a: sorted((e["node"], len(e["pods"])) for e in a["nodeStatus"])
         assert code == 200 and strip(answer) == strip(ref) and answer["unscheduledPods"] == []
         proc.send_signal(signal.SIGTERM)
-        out, _ = proc.communicate(timeout=60)
+        proc.wait(timeout=60)
+        out = _read(second)
         assert proc.returncode == 0 and "shutdown complete" in out, out[-2000:]
         twin, _meta = rebuild_twin(jd)
         assert twin.fingerprint() == fingerprint_cluster(fresh)
         assert ref_journal.rebuild_twin(jd)[0].fingerprint() == twin.fingerprint()
     finally:
-        if proc.poll() is None:
-            proc.kill()
+        for p in procs:
+            stop_group(p, timeout_s=0.0)
         stub.stop()
 
 
