@@ -189,6 +189,23 @@ takes over at epoch 2, reason expired, no relist, the two workers adopted,
 none respawned; ``simon dash`` of the new owner shows the takeover),
 SIGTERM (every process exits 0 with "shutdown
 complete", no ``simon-fleet-*`` segment left in /dev/shm).
+The observatory rides those phases: phase 2 holds the build telemetry
+(``obs.profile.COMPILES``) to ``fast_scan.BUILD_LOG``; phase 26 holds
+the increases of ``simon_unschedulable_total`` and
+``simon_filter_reject_total`` to the plain version's counts; phase 30
+runs ``simon apply --trace`` on the card (the Chrome trace holds
+simulate()'s phases and the kernel's span naming its variant, the report
+the untraced card report); after R8 of phase 51, ``/api/debug/memory``
+(its total the unique bytes of the server's cache entries counted here,
+the card's memory reported), ``/api/debug/profile`` (one trace per
+recorded request, one ``schedule`` per simulating one), ``simon mem``
+and ``simon profile`` in process, the new ``/metrics`` families; in
+phase 68 each fleet worker's ``/api/debug/memory`` after its first R2
+and again after W4's. The last card step (phase 69) is a
+``/debug/profiler`` session on the in-process twin around one R2 hit,
+whose trace holds the ``fast_scan`` kernel and its label, between two
+timed hits before it and two after it: what the session leaves behind
+in the process (CUPTI's subscription), which no later timing carries.
 Every phase raises on failure, and each prints the time it took.
 The last lines are the card's name and power limit, one JSON line with
 a row per kernel variant timed at full width, one for the drain sweep,
@@ -355,6 +372,9 @@ TWIN_START_S = 240.0
 FLEET_WORKERS = 2
 FLEET_LEASE_S = 5.0
 FLEET_W4_WAVE = 250
+#: Phase 69 times PROFILER_HITS R2 hits on the in-process twin before its
+#: profiler session and as many after it.
+PROFILER_HITS = 2
 #: Phase 68's reader of the owner's lease file, run as a process of its
 #: own (``python -c``) with the file, a stop file and a result file: until
 #: the stop file appears it reads the lease every _LEASE_WATCH_POLL_S and
@@ -918,7 +938,7 @@ def oversubscribed_plan(device) -> list:
     those of the plain version's counts; the kernel timed over the whole
     stream and its counting passes by their own clock. Returns the plan's
     row and the counting pass's row of the kernels table."""
-    from opensim_tpu_torch.engine import fastpath, reasons, simulator as sim
+    from opensim_tpu_torch.engine import explain, fastpath, reasons, simulator as sim
     from opensim_tpu_torch.models import fixtures as fx
     from opensim_tpu_torch.ops import fast_scan as fs
 
@@ -972,7 +992,9 @@ def oversubscribed_plan(device) -> list:
     fs.LAUNCHES = 0
     fs.VARIANT_LAUNCHES.clear()
     fs.SCAN_LAUNCHED.clear()
+    counted0 = _decision_counts()
     res = sim.simulate(*fresh, device=device)
+    counted = _counts_delta(counted0, _decision_counts())
     launches, by_variant = fs.LAUNCHES, dict(fs.VARIANT_LAUNCHES)
     passes = int(fs.SCAN_LAUNCHED[variant]["count_clock"][1])  # counting passes in simulate()'s launch
     if launches != 1 or by_variant != {variant: 1}:
@@ -995,8 +1017,23 @@ def oversubscribed_plan(device) -> list:
     hist = {}
     for r in got:
         hist[r] = hist.get(r, 0) + 1
+    # the decision counters: the unscheduled pods by the primary reason of
+    # the plain version's counts (a forced pod's node not found), and the
+    # nodes each filter rejected for the pods that entered a queue
+    failed = [i for i in torch.nonzero(plain[0].chosen < 0).flatten().tolist() if not prep.forced[i]]
+    static_rows, fail_rows = np.asarray(built["static_fail"]), plain[0].fail_counts.cpu().numpy()
+    sf_rows = np.asarray(prep.tmpl_ids[:OVER_HEAD])  # the static rows are per template
+    want_counts = {"unschedulable": explain.primary_reason_histogram(static_rows, sf_rows, fail_rows, failed),
+                   "filter_rejects": {k: v for k, v in reasons.rejects_dict(explain.audit_rejects(
+                       static_rows, sf_rows, fail_rows, np.isin(np.arange(OVER_HEAD), failed))).items() if v}}
+    n_forced_failed = len(want) - len(failed)
+    if n_forced_failed:
+        want_counts["unschedulable"]["node_not_found"] = n_forced_failed
+    if counted != want_counts:
+        raise AssertionError(f"simulate() counted {json.dumps(counted)}, want {json.dumps(want_counts)}")
     print(f"placed {n_placed}/{P} pods, {len(got)} unscheduled with the plain version's reasons, kernel launches "
-          f"{by_variant}, {passes} counting passes")
+          f"{by_variant}, {passes} counting passes; /metrics' decision counters rose by the plain version's "
+          f"{json.dumps(counted)}")
     for r, n in sorted(hist.items(), key=lambda x: -x[1]):
         print(f"  {n:6d} x {r}")
     wall = sum(res.timings.values())
@@ -1864,6 +1901,31 @@ def example_reports(device, explain: bool = False) -> None:
         footer = [line for line in card_text.splitlines() if line.startswith("Scheduling engine: ")]
         print(f"{config}: card and CPU reports identical ({len(card_text.splitlines())} lines); launches {launches}; "
               f"{footer[0] if footer else ''}", flush=True)
+        if not explain and config == EXAMPLES[0][0]:
+            traced_apply(root, config, extended, variant, card_text)
+
+
+def traced_apply(root: Path, config: str, extended: list, variant: str, untraced: str) -> None:
+    """``simon apply --trace`` of an example config on the card, through
+    the CLI as a user runs it: the Chrome trace parses and holds
+    simulate()'s phases, its kernel span names `variant`, and the report is
+    the untraced card report."""
+    from opensim_tpu_torch.cli import main as cli
+
+    out, path = root / f"{config}.traced.txt", root / f"{config}.trace.json"
+    t0 = time.perf_counter()
+    argv = ["apply", "-f", _example(config), "-o", str(out), "--trace", str(path)]
+    rc = cli.main(argv + (["-e", ",".join(extended)] if extended else []))
+    wall = time.perf_counter() - t0
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    names = {e["name"] for e in events}
+    kernels = {e["args"].get("variant") for e in events if e["name"] == "engine.kernel"}
+    if rc != 0 or not {"apply", "prepare", "encode", "schedule", "decode"} <= names or variant not in kernels:
+        raise AssertionError(f"simon apply --trace {config}: rc {rc}, spans {sorted(names)}, kernel spans {kernels}")
+    if _without_counters(out.read_text()) != _without_counters(untraced):
+        raise AssertionError(f"simon apply --trace {config}: the report differs from the untraced card report")
+    print(f"{config} --trace: rc 0 in {wall:.3f} s, {len(events)} spans, kernel spans {sorted(kernels)}; the report "
+          "is the untraced card report", flush=True)
 
 
 def _replay_check(prep, out, label: str, valid, forced, explain: bool = False, steps: int = REPLAY_STEPS,
@@ -2141,6 +2203,7 @@ def server_plan(device, card: str) -> list:
         shape = fs.SCAN_LAUNCHED["fast_scan"]["shape"]  # R5's launch, the last of the base variant
         if shape.nc != -(-(N_NODES + SERVER_NEW) // shape.cluster):
             raise AssertionError(f"R5's launch: {shape.nc} nodes a CTA")
+        server_observatory(server, url, card, sum(1 for n in ("R2", "R3", "R4", "R5", "R6") if launches[n]))
         # R2's and R4's entries, before the load below adds its own
         entries = {e.key.split("|")[1]: e for e in server.prep_cache.entries_snapshot()
                    if not e.key.endswith("|base")}
@@ -3739,6 +3802,7 @@ def twin_plan(device, card: str, served) -> list:
         fleet_row = fleet_plan(device, card, {
             "server": server, "url": url, "sup": sup, "key": key, "stub": stub, "kube": kube, "bodies": bodies,
             "live": live, "jd": jd, "root": root, "built": built, "dev_args": dev_args})
+        profiler_session(server, url, card, bodies["deploy"], key())
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -3764,6 +3828,118 @@ def _fleet_port() -> int:
             continue
         return port
     raise AssertionError("no free port block for the fleet")
+
+
+def server_observatory(server, url: str, card: str, simulating: int) -> None:
+    """The server plan's memory and profile surfaces after R8: the memory
+    view's total is the unique host bytes of the server's cache entries
+    (summed here over their distinct arrays) and it reports the card, the
+    profile folds every recorded request (one ``schedule`` per simulating
+    one), ``simon mem`` and ``simon profile`` run in process, ``/metrics``
+    carries their families. The profiler's session is the last card step
+    (:func:`profiler_session`)."""
+    import io
+
+    from opensim_tpu_torch.cli import main as cli
+    from opensim_tpu_torch.obs.recorder import FLIGHT_RECORDER
+
+    t0 = time.perf_counter()
+    code, _h, mem, _rt = _http(url, "/api/debug/memory?fields=0")
+    cache, dev = mem["prepcache"], (mem.get("devices") or {}).get("0", {})
+    # the arrays each entry pins on the host (the encoded cluster's, the
+    # stream's, the twin's drop mask), each array counted once
+    seen, held = set(), 0
+    for entry in server.prep_cache.entries_snapshot():
+        prep = entry.prep
+        for arr in (*(prep.ec_np if prep is not None and prep.ec_np is not None else ()),
+                    getattr(prep, "tmpl_ids", None), getattr(prep, "forced", None), entry.base_drop):
+            if isinstance(arr, np.ndarray) and id(arr) not in seen:
+                seen.add(id(arr))
+                held += arr.nbytes
+    if code != 200 or not held or cache["total_bytes"] != held or \
+            cache["total_bytes"] != sum(e["unique_bytes"] for e in cache["entries"]) or \
+            not dev.get("in_use") or not dev.get("peak"):
+        raise AssertionError(f"/api/debug/memory: HTTP {code}, cache {cache.get('total_bytes')} bytes over "
+                             f"{len(cache.get('entries', []))} entries ({held} held by the entries' arrays), "
+                             f"devices {mem.get('devices')}")
+    print(f"/api/debug/memory after R2-R8: the card's allocator {dev['in_use']} bytes in use, peak {dev['peak']} "
+          f"(this process: the server runs in it); encode cache {cache['total_bytes']} host bytes in "
+          f"{len(cache['entries'])} entries ({cache['shared_bytes']} shared) = the entries' unique bytes = the "
+          f"{len(seen)} distinct arrays they hold; RSS {mem['process']['rss_bytes']} ({card})", flush=True)
+    code, _h, prof, _rt = _http(url, "/api/debug/profile")
+    spans, recorded = prof["phases"]["spans"], len(FLIGHT_RECORDER)
+    if code != 200 or prof["phases"]["traces"] != recorded or spans.get("schedule", {}).get("count") != simulating:
+        raise AssertionError(f"/api/debug/profile: HTTP {code}, {prof['phases']['traces']} traces for {recorded} "
+                             f"recorded requests, schedule {spans.get('schedule')} for {simulating} simulating ones")
+    print(f"/api/debug/profile: {recorded} traces = the recorded requests; " + ", ".join(
+        f"{n} {d['count']}x {d['seconds']:.6f} s" for n, d in spans.items()
+        if n in ("prepare", "encode", "schedule", "engine.kernel", "decode")), flush=True)
+    for argv in (["mem", "--url", url], ["profile", "--url", url]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        if rc != 0:
+            raise AssertionError(f"simon {argv[0]}: exit {rc}: {out.getvalue()[:300]}")
+        print(f"simon {argv[0]}: exit 0, {len(out.getvalue().splitlines())} lines; "
+              + " | ".join(out.getvalue().splitlines()[:2]), flush=True)
+    code, _h, text, _rt = _http(url, "/metrics")
+    missing = [f for f in ("simon_mem_rss_bytes", "simon_mem_device_bytes", "simon_mem_prepcache_bytes",
+                           "simon_phase_profile_calls_total", "simon_backend_compile_total",
+                           "simon_jitcache_persistent_files") if f"# TYPE {f} " not in text]
+    if code != 200 or missing:
+        raise AssertionError(f"/metrics: HTTP {code}, missing {missing}")
+    print(f"the server's memory and profile checks {time.perf_counter() - t0:.3f} s ({card})", flush=True)
+
+
+def profiler_session(server, url: str, card: str, body: dict, key: str) -> None:
+    """Phase 69, the last card step: a ``/debug/profiler`` session (CPU
+    and CUDA activities, every thread) around one R2 hit on the in-process
+    twin, whose Chrome trace must hold the ``fast_scan`` kernel's event and
+    its label. PROFILER_HITS timed hits before the session and as many
+    after it measure what a stopped session leaves behind in the process;
+    it is the last step so that no other timing carries that."""
+    from opensim_tpu_torch.ops import fast_scan as fs
+
+    def hits(label: str) -> list:
+        return [_twin_request(server, url, f"{label} {i + 1}", body, key) for i in range(PROFILER_HITS)]
+
+    def median(got: list, k: str):
+        vals = [g["rt"] if k == "rt" else g["attrs"].get(k) for g in got]
+        return None if None in vals else float(np.median(vals))
+
+    t_phase = time.perf_counter()
+    _phase(f"69 the profiler: a /debug/profiler session around one R2 hit on the in-process twin, "
+           f"{PROFILER_HITS} hits timed before it and {PROFILER_HITS} after it")
+    before = hits("R2 hit before the profiler's session")
+    t0 = time.perf_counter()
+    code, _h, started, _rt = _http(url, "/debug/profiler")
+    start_s = time.perf_counter() - t0
+    try:
+        if code != 200 or started.get("profiler") != "running" or "cuda" not in started.get("activities", []):
+            raise AssertionError(f"/debug/profiler: HTTP {code}: {started}")
+        under = _twin_request(server, url, "R2 hit under the profiler", body, key)
+    finally:
+        t1 = time.perf_counter()
+        code, _h, stopped, _rt = _http(url, "/debug/profiler?stop=1")
+        stop_s = time.perf_counter() - t1
+    if code != 200:
+        raise AssertionError(f"/debug/profiler?stop=1: HTTP {code}: {stopped}")
+    events = json.loads(Path(stopped["trace"]).read_text())["traceEvents"]
+    kernel = [e for e in events if e.get("cat") == "kernel" and "fast_scan_kernel" in e.get("name", "")]
+    label = [e for e in events if e.get("name") == "fast_scan" and e.get("cat") in ("user_annotation",
+                                                                                    "gpu_user_annotation")]
+    if under["launches"] != {"fast_scan": 1} or len(kernel) != 1 or not label:
+        raise AssertionError(f"the profiler's trace holds {len(kernel)} fast_scan kernel events and {len(label)} "
+                             f"fast_scan labels ({len(events)} events): CUDA activity tracing")
+    after = hits("R2 hit after the profiler's session")
+    print(f"/debug/profiler around R2: start {start_s:.3f} s, R2 {under['rt']:.6f} s (round trip), stop and export "
+          f"{stop_s:.3f} s; the trace ({Path(stopped['trace']).stat().st_size} bytes, {len(events)} events) holds "
+          f"the kernel {kernel[0]['name'][:60]}... ({kernel[0]['dur']} us on the card) and its label ({card})",
+          flush=True)
+    residue = {k: {"before": median(before, k), "after": median(after, k)}
+               for k in ("rt", "cache_s", "inputs_s", "kernel_s", "decode_s")}
+    print(f"the session's residue, medians of {PROFILER_HITS} R2 hits before it and after it (s): "
+          f"{json.dumps(residue)}; profiler phase {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
 
 def _find_span(node: dict, name: str):
@@ -3797,6 +3973,22 @@ def _worker_request(w: dict, body: dict, label: str, want_key: str) -> dict:
           f"{attach.get('upload_s')} s; split {json.dumps(split)}", flush=True)
     return {"answer": answer, "rt": rt, "attach_s": attach.get("attach_s"), "upload_s": attach.get("upload_s"),
             "split": split}
+
+
+def _worker_memory(w: dict, first: dict, publication_bytes: int, card: str) -> dict:
+    """One fleet worker's ``/api/debug/memory`` after its first R2: the
+    card's memory in its process, beside the publication it attached. The
+    request's own tensors are freed when it answers, so the peak lies above
+    what is in use: the read is the allocator's, live."""
+    code, _h, mem, _rt = _http(f"http://127.0.0.1:{w['internal_port']}", "/api/debug/memory?fields=0")
+    dev = (mem.get("devices") or {}).get("0", {}) if code == 200 else {}
+    if not dev.get("in_use") or dev.get("peak", 0) <= dev["in_use"]:
+        raise AssertionError(f"worker {w['index']}'s /api/debug/memory: HTTP {code}, devices {mem.get('devices')}")
+    print(f"worker {w['index']} (pid {w['pid']}) after its first R2: the card's allocator {dev['in_use']} bytes in "
+          f"use, peak {dev['peak']}; the publication {publication_bytes} bytes, attach {first['attach_s']} s, upload "
+          f"{first['upload_s']} s; RSS {mem['process']['rss_bytes']}, encode cache "
+          f"{mem['prepcache']['total_bytes']} host bytes ({card})", flush=True)
+    return dev
 
 
 def _on_workers(workers: list, body: dict, label: str, want_key: str):
@@ -4077,7 +4269,9 @@ def fleet_plan(device, card: str, twin: dict) -> tuple:
             first = first_wait()
             for g in first:
                 _same_answer(g["answer"], inproc["answer"], "a fleet worker's R2 vs the in-process twin's")
-            summary["first"] = [{k: g[k] for k in ("rt", "attach_s", "upload_s", "split")} for g in first]
+            for w, g in zip(workers, first):
+                g["device"] = _worker_memory(w, g, fp_["bytes"], card)
+            summary["first"] = [{k: g[k] for k in ("rt", "attach_s", "upload_s", "split", "device")} for g in first]
             row = _server_row("fleet attach: R2 from the publication", entry, False, launches["fast_scan"], attach_rt)
             row["fleet_attach"] = {"attach_s": ev.attrs["attach_s"], "upload_s": ev.attrs["upload_s"],
                                    "request_s": attach_rt}
@@ -4137,8 +4331,19 @@ def fleet_plan(device, card: str, twin: dict) -> tuple:
         if st4["generation"] <= st["generation"]:
             raise AssertionError(f"W4 published generation {st4['generation']} after {st['generation']}")
         after = _on_workers(workers, bodies["deploy"], "R2 on a fleet worker after W4", f"fleet|{st4['generation']}")()
-        for w, g in zip(workers, after):
+        for w, g, g0 in zip(workers, after, first):
             _same_answer(g["answer"], inproc4["answer"], "a fleet worker's R2 after W4 vs the in-process twin's")
+            # the new generation uploaded beside the old one: the watermark
+            # holds what the first read saw and lies above what is in use
+            code, _h, mem, _rt = _http(f"http://127.0.0.1:{w['internal_port']}", "/api/debug/memory?fields=0")
+            dev = (mem.get("devices") or {}).get("0", {}) if code == 200 else {}
+            if not dev.get("in_use") or dev.get("peak", 0) < g0["device"]["peak"] or dev["peak"] <= dev["in_use"]:
+                raise AssertionError(f"worker {w['index']}'s /api/debug/memory after W4: HTTP {code}, devices "
+                                     f"{mem.get('devices')} (after its first R2 {g0['device']})")
+            g["device"] = dev
+            print(f"worker {w['index']} after W4's R2: the card's allocator {dev['in_use']} bytes in use, peak "
+                  f"{dev['peak']} (after its first R2 {g0['device']['in_use']} / {g0['device']['peak']}) ({card})",
+                  flush=True)
             m = _metrics_of(f"http://127.0.0.1:{w['internal_port']}")
             if m.get(("simon_fleet_attach_generation", ())) != st4["generation"]:
                 raise AssertionError(f"worker {w['index']} attached {m.get(('simon_fleet_attach_generation', ()))}")
@@ -4150,7 +4355,7 @@ def fleet_plan(device, card: str, twin: dict) -> tuple:
                         for s in ("journaled", "published", "attached", "served")}
         pub_s = [m.get(("simon_fleet_publish_seconds_count", ())), m.get(("simon_fleet_publish_seconds_sum", ()))]
         summary["W4"] = {"events": len(w4), "event_to_published_s": published_s, "generation": st4["generation"],
-                         "after": [{k: g[k] for k in ("rt", "attach_s", "upload_s", "split")} for g in after],
+                         "after": [{k: g[k] for k in ("rt", "attach_s", "upload_s", "split", "device")} for g in after],
                          "freshness": fresh_stages, "publish_seconds": pub_s}
         print(f"W4: {len(w4)} events; the owner published the relist's twin (generation {st4['generation']}) "
               f"{published_s:.3f} s after the first was sent; both workers attached it and answer as the in-process "
@@ -4281,6 +4486,52 @@ def _reap_orphans() -> None:
                 os.waitpid(int(entry), os.WNOHANG)
 
 
+def build_telemetry(build_log: dict, card: str) -> None:
+    """Phase 2's build telemetry (``obs.profile.COMPILES``, the process's
+    first build) against ``BUILD_LOG``: a compile per variant nvcc built,
+    with its seconds, a hit per variant found built."""
+    from opensim_tpu_torch.obs.profile import COMPILES
+
+    snap = COMPILES.snapshot()
+    built = {n: e["seconds"] for n, e in build_log["variants"].items() if e["seconds"] is not None}
+    cached = [n for n, e in build_log["variants"].items() if e["seconds"] is None]
+    got = {n: b["seconds"] for n, b in snap["boundaries"].items()}
+    if set(got) != set(built) or any(abs(got[n] - built[n]) > 1e-5 for n in built) or \
+            any(b["compiles"] != 1 for b in snap["boundaries"].values()):
+        raise AssertionError(f"build telemetry {json.dumps(snap['boundaries'])} is not BUILD_LOG's nvcc runs "
+                             f"{json.dumps(built)}")
+    if snap["backend"]["compiles"] != len(built) or abs(snap["backend"]["seconds"] - sum(built.values())) > 1e-4 or \
+            snap["cache_events"].get("miss", 0) != len(built) or snap["cache_events"].get("hit", 0) != len(cached):
+        raise AssertionError(f"build telemetry {json.dumps(snap)}: want {len(built)} nvcc runs, {len(cached)} hits")
+    pc = snap["persistent_cache"] or {}
+    print(f"build telemetry: {len(built)} nvcc builds ({snap['backend']['seconds']:.3f} s summed, causes "
+          f"{json.dumps(_causes(snap))}), {len(cached)} cache hits: BUILD_LOG's; _build/ holds {pc.get('files')} "
+          f"files, {pc.get('bytes')} bytes ({card})", flush=True)
+
+
+def _causes(snap: dict) -> dict:
+    out = {}
+    for b in snap["boundaries"].values():
+        for cause, n in b["causes"].items():
+            out[cause] = out.get(cause, 0) + n
+    return out
+
+
+def _decision_counts() -> dict:
+    """The decision counters of ``/metrics`` as they stand:
+    ``{"unschedulable": {reason: n}, "filter_rejects": {filter: n}}``."""
+    from opensim_tpu_torch.obs.metrics import RECORDER
+
+    with RECORDER.lock:
+        return {"unschedulable": {k[0]: v for k, v in RECORDER.unschedulable._series.items()},
+                "filter_rejects": {k[0]: v for k, v in RECORDER.filter_rejects._series.items()}}
+
+
+def _counts_delta(before: dict, after: dict) -> dict:
+    return {fam: {k: v - before[fam].get(k, 0) for k, v in after[fam].items() if v != before[fam].get(k, 0)}
+            for fam in after}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card", file=sys.stderr)
@@ -4327,6 +4578,7 @@ def main() -> int:
     for name, entry in fs.BUILD_LOG["variants"].items():
         secs = "cached" if entry["seconds"] is None else f"nvcc {entry['seconds']:.3f} s"
         print(f"  {name}: {secs}, ptxas {json.dumps(fs.ptxas_report(entry['ptxas']))}")
+    build_telemetry(fs.BUILD_LOG, card)
 
     _phase("3 small cases: kernel vs plain version, one scan and a sweep of drains each")
     small_cases(device)

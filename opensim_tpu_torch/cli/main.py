@@ -1,12 +1,13 @@
 """simon CLI of the port — ``python -m opensim_tpu_torch {apply, explain,
-defrag (drain), campaign, server, loadgen, top, dash, replay, version}``, the flags of
-``opensim_tpu/cli/main.py`` (``cmd/apply/apply.go:27-36``,
-``cmd/server/server.go``) plus ``--device`` where a subcommand simulates.
-The run goes to the card unless ``--device cpu`` asks for the plain
-versions on the CPU; without a card and without that flag each of those
-subcommands fails (``server`` before it listens), and nothing falls back
-to the CPU. ``loadgen``, ``top``, ``dash`` and ``campaign --url`` drive
-or read a running server, which simulates on its own device; ``replay`` simulates only with
+defrag (drain), campaign, server, loadgen, top, dash, mem, profile, replay,
+version}``, the flags of ``opensim_tpu/cli/main.py``
+(``cmd/apply/apply.go:27-36``, ``cmd/server/server.go``) plus ``--device``
+where a subcommand simulates. The run goes to the card unless ``--device
+cpu`` asks for the plain versions on the CPU; without a card and without
+that flag each of those subcommands fails (``server`` before it listens),
+and nothing falls back to the CPU. ``loadgen``, ``top``, ``dash``, ``mem``,
+``profile`` and ``campaign --url`` drive or read a running server, which
+simulates on its own device; ``replay`` simulates only with
 ``--schedule``. Log level comes from the ``LogLevel`` env
 (``cmd/simon/simon.go:46-66``)."""
 
@@ -65,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     apply_p.add_argument("--report-pods", action="store_true", help="include the per-node Pod Info table")
     apply_p.add_argument(
         "--trace", default="", metavar="FILE",
-        help="Chrome-trace JSON of the run's spans (not yet ported: ROADMAP Queue 1 item 10)",
+        help="write a Chrome-trace JSON of the run's spans to FILE (chrome://tracing, ui.perfetto.dev)",
     )
     apply_p.add_argument(
         "--tie-break", default="lowest", metavar="lowest|sample[:seed]",
@@ -219,6 +220,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="skip the headroom probes (cheaper polling; utilization/fragmentation only)",
     )
     top_p.add_argument(
+        "--mem", action="store_true",
+        help="add the memory observatory block (process RSS, prep-cache arena bytes, ring occupancy)",
+    )
+    top_p.add_argument(
         "-e", "--extended-resources", default="", help="comma-separated extended resource sections (gpu,open-local)",
     )
     top_p.add_argument("--timeout", type=float, default=60.0, help="per-request client timeout seconds")
@@ -240,6 +245,33 @@ def build_parser() -> argparse.ArgumentParser:
     dash_p.add_argument("--range", default="5m", dest="range_spec", metavar="RANGE",
                         help="ring query range: bare seconds or <n><s|m|h|d> (default 5m)")
     dash_p.add_argument("--timeout", type=float, default=10.0, help="per-request client timeout seconds")
+    mem_p = sub.add_parser(
+        "mem", help="memory observatory: arena/cache footprint of a live server",
+        description=(
+            "read GET /api/debug/memory from a live simon server: process RSS and watermarks, the card's memory "
+            "(allocated bytes and their peak, where the server has used the card), the prep cache's host arena "
+            "bytes attributed per entry (by encoder field and dtype, with lineage depth and drop-mask density), "
+            "and bounded-ring occupancy (flight recorder, capacity timeline, journal writer queue). Totals count "
+            "shared delta-entry leaves once and reconcile exactly with the per-entry unique-bytes sum"
+        ),
+    )
+    mem_p.add_argument("--url", required=True, help="base URL of the live server (http://host:port)")
+    mem_p.add_argument("--json", action="store_true", help="print the raw debug JSON instead of tables")
+    mem_p.add_argument("--fields", action="store_true",
+                       help="include the per-entry per-field arena breakdown (verbose)")
+    mem_p.add_argument("--timeout", type=float, default=60.0, help="per-request client timeout seconds")
+    profile_p = sub.add_parser(
+        "profile", help="cumulative phase profiles + kernel build telemetry of a live server",
+        description=(
+            "read GET /api/debug/profile from a live simon server: per-span cumulative latency profiles folded "
+            "from every recorded request trace (count, inclusive/exclusive seconds, p50/p99) so 'where do "
+            "requests spend their time' is one query instead of N traces, plus the kernels' build telemetry — "
+            "nvcc builds and seconds per kernel variant, build-directory hits and misses and its footprint"
+        ),
+    )
+    profile_p.add_argument("--url", required=True, help="base URL of the live server (http://host:port)")
+    profile_p.add_argument("--json", action="store_true", help="print the raw debug JSON instead of tables")
+    profile_p.add_argument("--timeout", type=float, default=60.0, help="per-request client timeout seconds")
     replay_p = sub.add_parser(
         "replay", help="reconstruct and replay a recorded watch-event journal",
         description=(
@@ -275,8 +307,6 @@ def build_parser() -> argparse.ArgumentParser:
 def run_apply(args) -> int:
     from ..planner.apply import Applier, Options
 
-    if args.trace:
-        raise NotImplementedError("simon apply --trace: ROADMAP Queue 1 item 10, not yet ported")
     opts = Options(
         simon_config=user_path(args.simon_config, label="--simon-config"),
         default_scheduler_config=user_path(args.default_scheduler_config, label="--default-scheduler-config",
@@ -292,7 +322,24 @@ def run_apply(args) -> int:
         explain=args.explain,
         device=args.device,
     )
-    return Applier(opts).run()
+    if not args.trace:
+        return Applier(opts).run()
+    # span-trace the whole run and export Chrome-trace JSON (the explicit
+    # flag wins over OPENSIM_TRACE=0); written in a finally: a failed
+    # run's partial trace is the one worth reading
+    from ..obs import trace as tracing
+
+    trace_path = user_path(args.trace, label="--trace")
+    tr = tracing.start_trace("apply", force=True)
+    rc = 1
+    try:
+        with tracing.trace_scope(tr):
+            rc = Applier(opts).run()
+        return rc
+    finally:
+        tr.finish(status="ok" if rc == 0 else "error")
+        tracing.write_chrome(tr, trace_path)
+        print(f"trace written to {trace_path} (chrome://tracing or ui.perfetto.dev)", file=sys.stderr)
 
 
 def _render_explanation(e, out) -> None:
@@ -470,6 +517,8 @@ def run_top(args) -> int:
     params = {}
     if args.no_headroom:
         params["headroom"] = "0"
+    if args.mem:
+        params["mem"] = "1"
     extended = [e for e in args.extended_resources.split(",") if e]
     if extended:
         params["extended"] = ",".join(extended)
@@ -542,6 +591,207 @@ def run_dash(args) -> int:
             return 1 if ("timeseries" not in payload and "slo" not in payload) else 0
         print(f"\x1b[2J\x1b[H{rendered}", flush=True)
         time.sleep(max(0.1, args.interval))
+
+
+def _fetch_debug(url: str, timeout: float):
+    import json as _json
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return _json.load(resp), None
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        return None, f"{url}: {e}"
+
+
+def run_mem(args) -> int:
+    """``simon mem``: the memory observatory's live view — fetch
+    ``GET /api/debug/memory`` and render the footprint tables (or the raw
+    JSON with ``--json``)."""
+    import json as _json
+
+    from ..obs.footprint import fmt_bytes
+    from ..planner.report import _table
+
+    url = f"{args.url.rstrip('/')}/api/debug/memory"
+    if not args.fields:
+        url += "?fields=0"
+    payload, err = _fetch_debug(url, args.timeout)
+    if err:
+        print(f"simon mem: {err}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(_json.dumps(payload, indent=2, sort_keys=True))
+        return 0
+    out = sys.stdout
+    proc = payload.get("process") or {}
+    print(
+        f"process: RSS {fmt_bytes(int(proc.get('rss_bytes', 0)))} "
+        f"(peak {fmt_bytes(int(proc.get('rss_peak_bytes', 0)))})",
+        file=out,
+    )
+    for dev, stats in sorted((payload.get("devices") or {}).items()):
+        print(
+            f"device {dev}: {fmt_bytes(int(stats.get('in_use', 0)))} in use "
+            f"(peak {fmt_bytes(int(stats.get('peak', 0)))})",
+            file=out,
+        )
+    cache = payload.get("prepcache") or {}
+    entries = cache.get("entries") or []
+    print(
+        f"\nprep cache: {fmt_bytes(int(cache.get('total_bytes', 0)))} across "
+        f"{len(entries)} entr{'y' if len(entries) == 1 else 'ies'} "
+        f"({fmt_bytes(int(cache.get('shared_bytes', 0)))} shared between "
+        f"delta lineages), {cache.get('compactions', 0)} compaction(s)",
+        file=out,
+    )
+    dtypes = cache.get("dtypes") or {}
+    if dtypes:
+        print(
+            "arena bytes by dtype: "
+            + ", ".join(f"{k}={fmt_bytes(int(v))}" for k, v in sorted(dtypes.items())),
+            file=out,
+        )
+    if entries:
+        rows = [["Entry", "Bytes", "Unique", "Depth", "Pods", "Drop%"]]
+        for e in entries:
+            rows.append(
+                [
+                    e.get("key", "")[:40],
+                    fmt_bytes(int(e.get("bytes", 0))),
+                    fmt_bytes(int(e.get("unique_bytes", 0))),
+                    str(e.get("lineage_depth", 0)),
+                    str(e.get("pods", 0)),
+                    f"{float(e.get('drop_density', 0.0)) * 100:.1f}",
+                ]
+            )
+        print("", file=out)
+        _table(rows, out)
+    rings = payload.get("rings") or {}
+    if rings:
+        rows = [["Ring", "Occupancy"]]
+        for ring, occ in sorted(rings.items()):
+            rows.append([ring, f"{occ.get('entries', 0)}/{occ.get('capacity', 0)}"])
+        print("", file=out)
+        _table(rows, out)
+    return 0
+
+
+def run_profile(args) -> int:
+    """``simon profile``: cumulative per-phase latency profiles + the
+    kernels' build telemetry from ``GET /api/debug/profile``."""
+    import json as _json
+
+    from ..planner.report import _table
+
+    payload, err = _fetch_debug(
+        f"{args.url.rstrip('/')}/api/debug/profile", args.timeout
+    )
+    if err:
+        print(f"simon profile: {err}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(_json.dumps(payload, indent=2, sort_keys=True))
+        return 0
+    out = sys.stdout
+    phases = payload.get("phases") or {}
+    spans = phases.get("spans") or {}
+    print(f"phase profile over {phases.get('traces', 0)} recorded trace(s):", file=out)
+    rows = [["Span", "Calls", "Total s", "Exclusive s", "Mean s", "p50 s", "p99 s", "Max s"]]
+    for name, d in spans.items():
+        rows.append(
+            [
+                name,
+                str(d.get("count", 0)),
+                f"{d.get('seconds', 0.0):.3f}",
+                f"{d.get('exclusive_seconds', 0.0):.3f}",
+                f"{d.get('mean_s', 0.0):.4f}",
+                f"{d.get('p50_s', 0.0):.4f}",
+                f"{d.get('p99_s', 0.0):.4f}",
+                f"{d.get('max_s', 0.0):.4f}",
+            ]
+        )
+    _table(rows, out)
+    compiles = payload.get("compiles") or {}
+    backend = compiles.get("backend") or {}
+    print(
+        f"\nbackend compiles: {backend.get('compiles', 0)} "
+        f"({backend.get('seconds', 0.0):.2f}s)",
+        file=out,
+    )
+    boundaries = compiles.get("boundaries") or {}
+    if boundaries:
+        rows = [["Boundary", "Compiles", "Seconds", "Signatures", "Causes"]]
+        for name, fn in sorted(boundaries.items()):
+            causes = ", ".join(
+                f"{c}={n}" for c, n in sorted((fn.get("causes") or {}).items())
+            )
+            rows.append(
+                [
+                    name,
+                    str(fn.get("compiles", 0)),
+                    f"{fn.get('seconds', 0.0):.3f}",
+                    str(fn.get("distinct_signatures", 0)),
+                    causes,
+                ]
+            )
+        _table(rows, out)
+    pc = compiles.get("persistent_cache")
+    if pc:
+        print(
+            f"kernel build directory: {pc.get('files', 0)} file(s), "
+            f"{pc.get('bytes', 0)} bytes at {pc.get('dir', '')}",
+            file=out,
+        )
+    events = compiles.get("cache_events") or {}
+    if events:
+        print(
+            "build-directory events: "
+            + ", ".join(f"{k}={v}" for k, v in sorted(events.items())),
+            file=out,
+        )
+    pipe = payload.get("pipeline") or {}
+    if pipe.get("batches"):
+        overlap = pipe.get("prep_overlap_s", 0.0)
+        print(
+            f"\nadmission pipeline ({'on' if pipe.get('enabled') else 'off'}): "
+            f"{pipe.get('batches', 0)} batch(es), "
+            f"{pipe.get('overlapped_batches', 0)} overlapped "
+            f"({overlap:.3f}s prep under dispatch)",
+            file=out,
+        )
+        stages = pipe.get("stages") or {}
+        if stages:
+            rows = [["Stage", "Batches", "Total s", "Mean s", "Max s"]]
+            for stage in ("prep", "dispatch", "decode"):
+                d = stages.get(stage)
+                if not d:
+                    continue
+                count = d.get("count", 0)
+                total = d.get("total_s", 0.0)
+                rows.append(
+                    [
+                        stage,
+                        str(int(count)),
+                        f"{total:.3f}",
+                        f"{(total / count if count else 0.0):.4f}",
+                        f"{d.get('max_s', 0.0):.4f}",
+                    ]
+                )
+            _table(rows, out)
+        lanes = pipe.get("lane_admitted") or {}
+        if pipe.get("lanes_enabled") and lanes:
+            promo = pipe.get("starvation_promotions", 0)
+            print(
+                "priority lanes: "
+                + ", ".join(
+                    f"{lane}={n} admitted" for lane, n in sorted(lanes.items())
+                )
+                + f", {promo} starvation promotion(s)",
+                file=out,
+            )
+    return 0
 
 
 def run_replay(args) -> int:
@@ -646,6 +896,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 1
     if args.command == "loadgen":
         return run_loadgen(args)
+    if args.command == "mem":
+        return run_mem(args)
+    if args.command == "profile":
+        return run_profile(args)
     if args.command in ("top", "dash"):
         try:
             return (run_top if args.command == "top" else run_dash)(args)

@@ -242,6 +242,9 @@ class CacheEntry:
         # a chain of bases would keep every old Prepared (and its tensors on
         # the card) alive
         self.lock = base.lock if base is not None else threading.RLock()
+        # how many bases lie behind this entry (the memory observatory's
+        # lineage depth), carried as a number for the same reason
+        self.lineage_depth: int = base.lineage_depth + 1 if base is not None else 0
         self.bind_snap = snapshot_bind_state(prep) if prep is not None else []
         if prep is not None and prep.inputs_memo is None:
             prep.inputs_memo = {}

@@ -56,6 +56,7 @@ from ..models.objects import (
     Pod,
     ResourceTypes,
 )
+from ..obs import trace as obs
 from ..ops import fast_scan, kernels
 from ..resilience import faults
 from ..resilience.deadline import Deadline, check_deadline, deadline_scope
@@ -268,7 +269,7 @@ def prepare(
     device = resolve_device(device)
     check_deadline("prepare")
     t0 = time.monotonic()
-    with gc_paused():
+    with obs.span("prepare"), gc_paused():
         prep = _prepare_inner(cluster, apps, use_greed, node_pad, device, patch_pods_fn)
     PREP_STATS.record("full", time.monotonic() - t0)
     return prep
@@ -296,21 +297,22 @@ def _prepare_inner(cluster, apps, use_greed, node_pad, device, patch_pods_fn) ->
 
     # the expansion is done; the encode below is the expensive half of a
     # cold prepare: an exhausted deadline stops here
-    check_deadline("encode")
-    faults.fault_point("prep.encode")
-    # pods of one workload share a template: the hint short-circuits
-    # canonical extraction and the lazy selector callable skips the per-pod
-    # dict build on hint hits. patch_pods_fn may have edited single app
-    # pods, which the workload-identity hint cannot see: those take the
-    # content-keyed path.
-    tmpl_ids = np.array(
-        [enc.add_pod(p, (lambda p=p: _owner_selector(p)),
-                     hint=None if patch_pods_fn is not None and i >= n_cluster else _tmpl_hint(p))
-         for i, p in enumerate(ordered)],
-        dtype=np.int32,
-    )
-    ec_np, st0_np, meta = enc.build()
-    ec, st0 = to_device(ec_np, st0_np, device)
+    with obs.span("encode", pods=len(ordered)):
+        check_deadline("encode")
+        faults.fault_point("prep.encode")
+        # pods of one workload share a template: the hint short-circuits
+        # canonical extraction and the lazy selector callable skips the
+        # per-pod dict build on hint hits. patch_pods_fn may have edited
+        # single app pods, which the workload-identity hint cannot see:
+        # those take the content-keyed path.
+        tmpl_ids = np.array(
+            [enc.add_pod(p, (lambda p=p: _owner_selector(p)),
+                         hint=None if patch_pods_fn is not None and i >= n_cluster else _tmpl_hint(p))
+             for i, p in enumerate(ordered)],
+            dtype=np.int32,
+        )
+        ec_np, st0_np, meta = enc.build()
+        ec, st0 = to_device(ec_np, st0_np, device)
     return Prepared(
         ec=ec,
         st0=st0,
@@ -517,31 +519,45 @@ def simulate(
                 raise NotImplementedError(f"outside the port's bind-scan envelope: {miss}")
     check_deadline("schedule")
     t1 = time.perf_counter()
-    if extra_plugins:
-        t2 = t1
-        out = _reference_scan(prep, segments, nv_mask, pod_valid, tie_seed, extra_plugins, explain)
-        engine = "torch reference scan"
-    else:
-        seg_built = [(fastpath.build_inputs(prep, nv_mask, cfg, segment=len(segments) > 1), lo, hi)
-                     for cfg, lo, hi in segments]
-        if prep.device.type == "cuda":
-            torch.cuda.synchronize(prep.device)
-        t2 = time.perf_counter()
-        # host copies: the card is done
-        out = fastpath.schedule(prep, seg_built, pod_valid=pod_valid, tie_seed=tie_seed, explain=explain)
-        engine = " + ".join(fast_scan.variant_name(fi, tie_seed is not None, explain)
-                            for (fi, _meta), _lo, _hi in seg_built)
-    if len(segments) > 1:
-        engine += " (segmented multi-profile)"
-    engine += f" on {prep.device.type}"
-    t3 = time.perf_counter()
+    with obs.span("schedule", pods=len(prep.ordered)) as sched_span:
+        if extra_plugins:
+            t2 = t1
+            with obs.span("engine.reference_scan"):
+                out = _reference_scan(prep, segments, nv_mask, pod_valid, tie_seed, extra_plugins, explain)
+            engine = "torch reference scan"
+        else:
+            seg_built = [(fastpath.build_inputs(prep, nv_mask, cfg, segment=len(segments) > 1), lo, hi)
+                         for cfg, lo, hi in segments]
+            if prep.device.type == "cuda":
+                torch.cuda.synchronize(prep.device)
+            t2 = time.perf_counter()
+            engine = " + ".join(fast_scan.variant_name(fi, tie_seed is not None, explain)
+                                for (fi, _meta), _lo, _hi in seg_built)
+            # the kernel's launches and the host copies: the card is done
+            with obs.span("engine.kernel", variant=engine):
+                out = fastpath.schedule(prep, seg_built, pod_valid=pod_valid, tie_seed=tie_seed, explain=explain)
+        if len(segments) > 1:
+            engine += " (segmented multi-profile)"
+        engine += f" on {prep.device.type}"
+        sched_span.set(engine=engine)
+        # the timings' windows leave the telemetry out
+        t3 = time.perf_counter()
+        if not enable_preemption:
+            # preemption rewrites the placements in decode: its events
+            # come from there
+            _schedule_reason_events(prep, out, pod_valid, nv_mask)
+    t4 = time.perf_counter()
     check_deadline("decode")
-    victims_of: Dict[int, int] = {}
-    if enable_preemption and (out.chosen[~prep.forced] < 0).any():
-        out, victims_of = _preempt(prep, out, cluster, apps, pod_valid)
-    result = finish_decode(prep, out, cluster, active, pod_valid, nv_mask, segments, engine, explain,
-                           custom_reasons=custom_reasons, victims_of=victims_of, extra_plugins=extra_plugins)
-    result.timings = {"prepare": t1 - t0, "inputs": t2 - t1, "kernel": t3 - t2, "decode": time.perf_counter() - t3}
+    with obs.span("decode", pods=len(prep.ordered)):
+        victims_of: Dict[int, int] = {}
+        if enable_preemption and (out.chosen[~prep.forced] < 0).any():
+            out, victims_of = _preempt(prep, out, cluster, apps, pod_valid)
+        if enable_preemption:
+            # the final outcome: victims fail by eviction, not by a filter
+            _schedule_reason_events(prep, out, pod_valid, nv_mask, exclude=frozenset(victims_of))
+        result = finish_decode(prep, out, cluster, active, pod_valid, nv_mask, segments, engine, explain,
+                               custom_reasons=custom_reasons, victims_of=victims_of, extra_plugins=extra_plugins)
+    result.timings = {"prepare": t1 - t0, "inputs": t2 - t1, "kernel": t3 - t2, "decode": time.perf_counter() - t4}
     return result
 
 
@@ -563,6 +579,7 @@ def finish_decode(prep: Prepared, out: fastpath.Scheduled, cluster: ResourceType
     n_nodes = prep.meta.n_real_nodes if nv_mask is None else int(nv_mask.sum())
     with gc_paused():
         statuses, unscheduled = _decode(prep, out, cluster.nodes, active, n_nodes, victims_of, custom_reasons)
+    _record_decision_metrics(out, prep.forced, active, pod_valid, custom_reasons, victims_of)
     result = SimulateResult(
         unscheduled_pods=unscheduled,
         node_status=statuses,
@@ -602,6 +619,68 @@ def _attach_explanations(result: SimulateResult, prep: Prepared, out: fastpath.S
     result.explanations = explain_mod.build_explanations(ctx, custom_reasons, victims_of, drops)
     rejects = explain_mod.audit_rejects(out.static_fail, sf_rows, out.fail_counts, pod_valid & ~prep.forced)
     result.filter_rejects = reasons.rejects_dict(rejects)
+
+
+#: per-pod unschedulable events per schedule span
+_REASON_EVENT_CAP = 8
+
+
+def _schedule_reason_events(prep: Prepared, out: fastpath.Scheduled, pod_valid: np.ndarray,
+                            nv_mask: Optional[np.ndarray], exclude: frozenset = frozenset()) -> None:
+    """Decision telemetry on the span tree (the reference's
+    ``_schedule_reason_events``, ``opensim_tpu/engine/simulator.py:735-786``):
+    one instant event per unschedulable pod that entered a queue (at most
+    :data:`_REASON_EVENT_CAP`) plus a primary-reason histogram event. The
+    preemption victims in `exclude` fail by eviction, not by a filter, and
+    are left out. A no-op without an ambient trace or without failures."""
+    if obs.current_trace() is None:
+        return
+    failed = pod_valid & ~prep.forced & (out.chosen < 0)
+    idx = np.array([i for i in np.nonzero(failed)[0].tolist() if i not in exclude], dtype=np.int64)
+    if not len(idx):
+        return
+    n_nodes = prep.meta.n_real_nodes if nv_mask is None else int(nv_mask.sum())
+    sf_rows = np.arange(len(prep.ordered), dtype=np.int32)  # the static rows are per pod
+    hist = explain_mod.primary_reason_histogram(out.static_fail, sf_rows, out.fail_counts, idx)
+    obs.event("placement.reasons", unschedulable=int(len(idx)), **{f"reason_{k}": v for k, v in sorted(hist.items())})
+    for i in idx[:_REASON_EVENT_CAP].tolist():
+        pod = prep.ordered[i]
+        obs.event("placement.unschedulable", pod=f"{pod.metadata.namespace}/{pod.metadata.name}",
+                  reason=_reason_string(out.static_fail[i], out.fail_counts[i], out.insufficient[i], prep.meta,
+                                        n_nodes))
+
+
+def _record_decision_metrics(out: fastpath.Scheduled, forced: np.ndarray, active: np.ndarray,
+                             pod_valid: np.ndarray, custom_reasons: Dict[int, str],
+                             victims_of: Dict[int, int]) -> None:
+    """The always-on decision counters of ``/metrics`` (the reference's
+    ``_record_decision_metrics``, ``opensim_tpu/engine/simulator.py:1125-1160``):
+    ``simon_unschedulable_total{reason=}``, pods by primary reason, and
+    ``simon_filter_reject_total{filter=}``, the nodes each filter rejected
+    for the pods the kernel's counts attribute. In or out of explain mode
+    alike."""
+    from ..obs.metrics import RECORDER
+
+    chosen = out.chosen
+    failed = pod_valid & ~forced & (chosen < 0)
+    attributed = [i for i in np.nonzero(failed)[0].tolist() if i not in victims_of and i not in custom_reasons]
+    sf_rows = np.arange(len(chosen), dtype=np.int32)
+    hist = explain_mod.primary_reason_histogram(out.static_fail, sf_rows, out.fail_counts, attributed)
+    nnf = int((forced & (chosen < 0) & pod_valid).sum())
+    if nnf:
+        hist["node_not_found"] = hist.get("node_not_found", 0) + nnf
+    n_unknown = sum(1 for i in custom_reasons if active[i])
+    if n_unknown:
+        hist["unknown_profile"] = hist.get("unknown_profile", 0) + n_unknown
+    if victims_of:
+        hist["preempted"] = hist.get("preempted", 0) + len(victims_of)
+    if hist:
+        RECORDER.count_unschedulable(hist)
+    if attributed:
+        mask = np.zeros(len(pod_valid), dtype=bool)
+        mask[attributed] = True
+        rejects = explain_mod.audit_rejects(out.static_fail, sf_rows, out.fail_counts, mask)
+        RECORDER.count_filter_rejects(reasons.rejects_dict(rejects))
 
 
 def _preempt(prep: Prepared, out: fastpath.Scheduled, cluster: ResourceTypes, apps: List[AppResource],

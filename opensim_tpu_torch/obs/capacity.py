@@ -862,6 +862,12 @@ def format_top(report: dict) -> str:
                 ]
             )
         _table(rows, out)
+    memory = report.get("memory") or {}
+    if memory.get("rows"):
+        # the memory block (?mem=1, simon top --mem), rendered from the
+        # rows the JSON carries (obs/footprint.memory_rows)
+        print("", file=out)
+        _table(memory["rows"], out)
     pending = report.get("pending") or []
     if pending:
         print("", file=out)

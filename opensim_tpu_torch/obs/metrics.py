@@ -109,9 +109,13 @@ FAMILIES: Dict[str, Tuple[str, str]] = {
     "simon_lane_starvation_promotions_total": (
         "Bulk requests promoted past the lane weight by the starvation bound", "counter",
     ),
-    # latency (this module's RECORDER)
+    # latency and the decision audit (this module's RECORDER)
     "simon_phase_seconds": ("Per-phase latency from the request span trees", "histogram"),
     "simon_request_seconds": ("Whole-request latency by endpoint and outcome", "histogram"),
+    "simon_filter_reject_total": (
+        "Nodes rejected per filter plugin while attributing unschedulable pods", "counter",
+    ),
+    "simon_unschedulable_total": ("Unschedulable pods by primary (most-rejecting) reason code", "counter"),
     # capacity observatory (obs/capacity.py) — cardinality contract: every
     # family below is label-free or bounded (resource ∈ {cpu, memory, pods};
     # profile = registered headroom profiles; node series are capped at the
@@ -149,6 +153,39 @@ FAMILIES: Dict[str, Tuple[str, str]] = {
     "simon_journal_dropped_total": ("Records dropped at the bounded writer queue", "counter"),
     "simon_journal_fsync_seconds": ("Journal fsync latency", "histogram"),
     "simon_journal_recoveries_total": ("Journal recovery attempts by outcome", "counter"),
+    # the memory observatory (obs/footprint.py) — cardinality contract:
+    # dtype is one of the encoder policy's dtypes or "other"; ring is
+    # flight_recorder, capacity_timeline or journal_queue; one device series
+    # per card, kind in_use or peak
+    "simon_mem_rss_bytes": ("Process resident set size", "gauge"),
+    "simon_mem_rss_peak_bytes": ("Process RSS high watermark (VmHWM)", "gauge"),
+    "simon_mem_device_bytes": ("Per-device accelerator memory by kind (in_use/peak)", "gauge"),
+    "simon_mem_prepcache_bytes": ("Prep-cache host arena bytes (shared leaves counted once)", "gauge"),
+    "simon_mem_prepcache_entries": ("Prep-cache entries resident", "gauge"),
+    "simon_mem_prepcache_evictions_total": ("Prep-cache LRU evictions", "counter"),
+    "simon_mem_prepcache_compactions_total": (
+        "Twin-delta refusals at the drop-mask density threshold (full rebuild follows)", "counter",
+    ),
+    "simon_mem_arena_bytes": ("Prep-cache host arena bytes by encoder-policy dtype", "gauge"),
+    "simon_mem_ring_entries": ("Bounded-ring occupancy by ring", "gauge"),
+    "simon_mem_ring_capacity": ("Bounded-ring capacity by ring", "gauge"),
+    # build telemetry of the kernel variants (obs/profile.py) — fn is a
+    # variant name; cause is first or static; event is hit or miss
+    "simon_compile_total": ("nvcc builds of kernel variants, by variant", "counter"),
+    "simon_compile_seconds_total": ("Wall seconds of nvcc builds, by variant", "counter"),
+    "simon_compile_cause_total": ("Variant builds by cause (first/static)", "counter"),
+    "simon_backend_compile_seconds_total": ("Wall seconds of every nvcc build in the process", "counter"),
+    "simon_backend_compile_total": ("nvcc builds in the process", "counter"),
+    "simon_jitcache_persistent_files": ("Files in the kernel build directory", "gauge"),
+    "simon_jitcache_persistent_bytes": ("Bytes in the kernel build directory", "gauge"),
+    "simon_jitcache_events_total": ("Variant loads by build-directory outcome (hit/miss)", "counter"),
+    # cumulative phase profiles (obs/profile.py) — span names are the fixed
+    # instrumentation vocabulary
+    "simon_phase_profile_calls_total": ("Spans folded into the cumulative profile, by span name", "counter"),
+    "simon_phase_profile_seconds_total": ("Cumulative inclusive span seconds by span name", "counter"),
+    "simon_phase_profile_exclusive_seconds_total": (
+        "Cumulative exclusive span seconds (children subtracted) by span name", "counter",
+    ),
     # the serving fleet (server/fleet.py): owner-side families and the
     # worker-side attach counters are label-free
     "simon_fleet_workers": ("Fleet worker processes currently alive", "gauge"),
@@ -404,6 +441,11 @@ class MetricsRecorder:
         self.lock = threading.RLock()
         self.phase_seconds = HistogramVec("simon_phase_seconds", ("phase", "endpoint"))
         self.request_seconds = HistogramVec("simon_request_seconds", ("endpoint", "status"))
+        # the decision audit: per-filter node rejects from the failure
+        # attribution, and unschedulable pods by primary reason, bumped by
+        # every simulate() in or out of explain mode
+        self.filter_rejects = CounterVec("simon_filter_reject_total", ("filter",))
+        self.unschedulable = CounterVec("simon_unschedulable_total", ("reason",))
         # the watch pipeline: event receipt to twin applied, fed from the
         # supervisor's dispatch (server/watch.py)
         self.watch_apply = HistogramVec("simon_watch_apply_seconds", (), buckets=WATCH_APPLY_BUCKETS)
@@ -419,6 +461,16 @@ class MetricsRecorder:
         dispatch, the twin's own lock included)."""
         with self.lock:
             self.watch_apply.observe(seconds, ())
+
+    def count_filter_rejects(self, by_filter: Dict[str, int]) -> None:
+        with self.lock:
+            for name, n in by_filter.items():
+                self.filter_rejects.inc((name,), int(n))
+
+    def count_unschedulable(self, by_reason: Dict[str, int]) -> None:
+        with self.lock:
+            for name, n in by_reason.items():
+                self.unschedulable.inc((name,), int(n))
 
     def observe_trace(self, trace) -> None:
         """The span sink: fold a finished trace's phase spans into the
@@ -440,13 +492,16 @@ class MetricsRecorder:
 
     def render_lines(self) -> List[str]:
         with self.lock:
-            return (self.phase_seconds.render_lines() + self.request_seconds.render_lines()
+            return (self.filter_rejects.render_lines() + self.unschedulable.render_lines()
+                    + self.phase_seconds.render_lines() + self.request_seconds.render_lines()
                     + self.watch_apply.render_lines())
 
     def reset(self) -> None:
         with self.lock:
             self.phase_seconds.reset()
             self.request_seconds.reset()
+            self.filter_rejects.reset()
+            self.unschedulable.reset()
             self.watch_apply.reset()
 
 

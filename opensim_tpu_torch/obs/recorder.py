@@ -10,8 +10,8 @@ objects, served by the REST layer at
 
 Capacity comes from ``OPENSIM_FLIGHT_RECORDER_N`` (default 64); traces are
 recorded only after ``finish()``, so everything the endpoints read is
-immutable. (The reference also folds each trace into its cumulative
-phase profiles, a JAX compile watch: ROADMAP Queue 1 item 10.)
+immutable. Each recorded trace is also folded into the cumulative phase
+profiles (``obs/profile.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +52,11 @@ class FlightRecorder:
     def record(self, trace) -> None:
         if not trace.finished:
             raise ValueError("only finished traces are recordable (call finish() first)")
+        # one sink for the ring and the cumulative profiles, outside this
+        # ring's lock (PROFILE locks itself)
+        from .profile import PROFILE
+
+        PROFILE.observe_trace(trace)
         with self._lock:
             self._ring.append(trace)
             self._by_id[trace.request_id] = trace

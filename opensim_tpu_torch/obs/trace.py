@@ -18,9 +18,9 @@ prep-cache invalidations, fault injections, an exhausted deadline.
   thread), so the span stack needs no lock; finished traces are immutable
   and safe to read from the flight-recorder endpoints on other threads.
 
-Exporter: :meth:`TraceContext.tree` (the ``/api/debug/requests/<id>``
-span-tree JSON). The Chrome-trace export of ``simon apply --trace`` and
-``simulate()``'s own phase spans are ROADMAP Queue 1 item 10.
+Exporters: :meth:`TraceContext.tree` (the ``/api/debug/requests/<id>``
+span-tree JSON) and :meth:`TraceContext.to_chrome` (Chrome-trace JSON,
+written by ``simon apply --trace``).
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ __all__ = [
     "span",
     "start_trace",
     "trace_scope",
+    "write_chrome",
 ]
 
 # the Deadline layer's phase names — spans with these names feed the
@@ -243,6 +244,26 @@ class TraceContext:
         out["spans"] = node(self.root)
         return out
 
+    def to_chrome(self) -> dict:
+        """Chrome-trace JSON (chrome://tracing, Perfetto UI): one complete
+        ("X") event per span, timestamps in microseconds from trace start."""
+        events: List[dict] = [
+            {"name": "process_name", "ph": "M", "pid": 1, "args": {"name": f"simon {self.endpoint}"}},
+            {"name": "thread_name", "ph": "M", "pid": 1, "tid": 1, "args": {"name": f"request {self.request_id}"}},
+        ]
+        for sp in self.walk():
+            events.append({
+                "name": sp.name,
+                "cat": "simon",
+                "ph": "X",
+                "pid": 1,
+                "tid": 1,
+                "ts": round((sp.start - self.root.start) * 1e6, 3),
+                "dur": round(sp.duration_s * 1e6, 3),
+                "args": {"status": sp.status, **{k: _jsonable(v) for k, v in sp.attrs.items()}},
+            })
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
 
 def _jsonable(v: Any) -> Any:
     return v if isinstance(v, (str, int, float, bool, type(None))) else str(v)
@@ -356,3 +377,10 @@ def record_span(name: str, seconds: float, status: str = "ok", **attrs: Any) -> 
     sp.end = now
     sp.status = status
     tr.current_span().children.append(sp)
+
+
+def write_chrome(trace: TraceContext, path: str) -> None:
+    import json
+
+    with open(path, "w") as f:
+        json.dump(trace.to_chrome(), f)

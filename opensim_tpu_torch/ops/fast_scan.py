@@ -83,6 +83,7 @@ from typing import Dict, Iterable, List, NamedTuple, Optional
 import torch
 
 from ..encoding import vocab as V
+from ..obs.profile import COMPILES
 from .kernels import F_FIT, F_GPU, F_INTERPOD, F_LOCAL, F_PORTS, F_SPREAD, NUM_FILTERS, SCORE_PARTS, KernelConfig
 
 NEG = -1e30
@@ -565,7 +566,8 @@ _BUILD_LOCK = threading.Lock()
 _PTXAS: Dict[str, Dict[str, dict]] = {}
 #: The last build() call: its wall-clock seconds, and per variant name the
 #: library, the nvcc seconds (None when the library was already built) and
-#: ptxas's log (kept beside the library, so a cached one has it too).
+#: ptxas's log (kept beside the library, so a cached one has it too). The
+#: process's builds and cache hits add up in ``obs.profile.COMPILES``.
 BUILD_LOG: Dict[str, object] = {"seconds": None, "variants": {}}
 
 
@@ -628,6 +630,7 @@ def _build_locked(names: List[str]) -> None:
     for name, v in todo.items():
         path = _lib_path(v)
         if path.exists():
+            COMPILES.record_hit(str(BUILD_DIR))
             continue
         tmp = path.with_suffix(f".{time.time_ns()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, f"-DFS_VARIANT={_bits(v)}", "-o", str(tmp), str(_SRC)]
@@ -643,6 +646,7 @@ def _build_locked(names: List[str]) -> None:
         else:
             path.with_suffix(".ptxas").write_text(err)  # before the library, which marks the build done
             tmp.replace(path)
+            COMPILES.record_build(name, log[name]["seconds"], str(BUILD_DIR))
     if failed:
         raise RuntimeError("fast_scan: nvcc failed for " + "\n".join(failed))
     for name, v in todo.items():
@@ -851,7 +855,8 @@ def _launch(fi: FastInputs, tmpl, valid, forced, node_valid, spr_weight, sweep: 
         for field, w in zip(_CFG_WEIGHTS, cfg.weights):
             setattr(args, field, w)
     args.draw_base, args.key0, args.key1 = draw_base, key & 0xFFFFFFFF, key >> 32
-    with torch.cuda.device(dev):
+    # the variant's label on a profiler's timeline (free when none runs)
+    with torch.cuda.device(dev), torch.profiler.record_function(row):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if grid is None:
             err = lib.fast_scan_launch(ctypes.byref(args), shape.cluster, shape.threads, shape.smem, stream)

@@ -748,6 +748,7 @@ class AdmissionController:
         with RECORDER.lock:
             return {
                 "enabled": self.pipelined,
+                "lanes_enabled": True,  # the port always runs both lanes
                 "batches": self.batches_total,
                 "overlapped_batches": self.overlapped_batches,
                 "prep_overlap_s": round(self.prep_overlap_s, 6),

@@ -1157,9 +1157,7 @@ def run_worker(port: int, device: "DeviceLike" = None) -> int:
         return 1
     server = SimonServer(watch=client, device=device)
     client.prep_cache = server.prep_cache
-    # the reference's worker starts the memory observatory's ticker here;
-    # the port has no memory observatory yet (its /api/debug/memory route
-    # answers 501, ROADMAP Queue 1 item 10), so its workers run none
+    server.memory.start_ticker()
     handler = make_handler(server)
     httpd = _reuse_port_server(("0.0.0.0", port), handler)
     internal_httpd = None

@@ -736,6 +736,12 @@ class Journal:
             state.records_replayed = len(suffix)
         return state
 
+    def queue_occupancy(self) -> Tuple[int, int]:
+        """``(depth, bound)`` of the bounded writer queue: the memory
+        observatory's ring-occupancy view (``obs/footprint.py``)."""
+        with self._cond:
+            return len(self._queue), int(self.policy["queue"])
+
     # -- /metrics ------------------------------------------------------------
 
     def metrics_lines(self) -> List[str]:

@@ -4,6 +4,10 @@ and ``opensim_tpu/server/rest.py``: ``GET /healthz``, ``POST
 request and response DTOs (``server.go:48-93``), ``GET /metrics``, the
 flight recorder (``GET /api/debug/requests[/<id>]``), the decision
 audit of ``?explain=1`` requests (``GET /api/debug/placements/<id>``),
+the memory observatory (``GET /api/debug/memory``, ``obs/footprint.py``),
+the cumulative phase profiles and the kernels' build telemetry (``GET
+/api/debug/profile``, ``obs/profile.py``), a ``torch.profiler`` session
+(``GET /debug/profiler``, ``?stop=1`` ends it and writes its Chrome trace),
 the capacity observatory (``GET /api/cluster/report`` with its headroom
 probes, ``GET /api/debug/capacity``, the ``simon_cluster_*`` families of
 ``/metrics``; ``obs/capacity.py``) and lifecycle campaigns (``POST
@@ -45,9 +49,6 @@ time-series ring and the SLO engine (``GET /api/debug/timeseries``, ``GET
 hot standby instead (``server/fleet.py``); a process started with
 ``OPENSIM_FLEET_ATTACH`` is one of a fleet's workers, and its requests'
 traces carry the owner's publication (:meth:`SimonServer._stamp_fleet_trace`).
-Not ported yet, and refused rather than approximated: the memory
-observatory and the profiler (ROADMAP Queue 1 item 10) — their routes
-answer 501 naming the item.
 """
 
 from __future__ import annotations
@@ -56,7 +57,9 @@ import copy
 import hashlib
 import json
 import logging
+import os
 import signal
+import tempfile
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -70,7 +73,9 @@ from ..models.objects import LABEL_APP_NAME, Node, ResourceTypes, object_from_di
 from ..obs import capacity as capacity_mod
 from ..obs import trace as tracing
 from ..obs.capacity import CapacityEngine
+from ..obs.footprint import MemoryObservatory, memory_rows
 from ..obs.metrics import RECORDER, escape_label_value, family_header
+from ..obs.profile import COMPILES, PROFILE
 from ..obs.recorder import FLIGHT_RECORDER
 from ..planner import campaign as campaign_mod
 from ..resilience import faults
@@ -85,14 +90,6 @@ from .snapshot import SnapshotFetchError, SnapshotUnavailable, cluster_from_kube
 log = logging.getLogger("opensim_tpu_torch.server")
 # structured access log (OPENSIM_ACCESS_LOG=1): one JSON object per line
 _ACCESS_LOG = logging.getLogger("opensim_tpu_torch.access")
-
-#: Routes of the reference's server that later slices bring, each with its
-#: ROADMAP Queue 1 item: they answer 501 naming it.
-NOT_PORTED = {
-    "/api/debug/memory": 10,
-    "/api/debug/profile": 10,
-    "/debug/profiler": 10,
-}
 
 # per-request state (one HTTP request = one handler thread): whether THIS
 # request's result was computed from a stale snapshot, and its request id
@@ -118,15 +115,6 @@ def response_extra_headers() -> dict:
     """Headers the current thread's request adds to its response (the
     shed 503's ``Retry-After``)."""
     return getattr(_REQUEST_STATE, "extra_headers", {}) or {}
-
-
-def _not_ported(path: str) -> Optional[int]:
-    """The ROADMAP item that brings `path`, None for a route served here."""
-    path = path.split("?", 1)[0]
-    for route, item in NOT_PORTED.items():
-        if path == route or (route.endswith("/") and path.startswith(route)) or path.startswith(route + "/"):
-            return item
-    return None
 
 
 class _Metrics:
@@ -158,7 +146,7 @@ class _Metrics:
             setattr(self, counter, getattr(self, counter) + n)
 
     def render(self, prep_cache: Optional[prepcache.PrepareCache] = None, capacity=None, admission=None,
-               watch=None, journal=None) -> str:
+               watch=None, journal=None, memory=None) -> str:
         esc, hdr = escape_label_value, family_header
         with self.lock:
             lines = [
@@ -209,6 +197,14 @@ class _Metrics:
         # headroom per registered profile
         if capacity is not None:
             lines += capacity.metrics_lines()
+        # the memory observatory (obs/footprint.py): RSS and device
+        # watermarks, the encode cache's arena bytes, ring occupancy
+        if memory is not None:
+            lines += memory.metrics_lines()
+        # the kernels' build telemetry and the cumulative phase profiles
+        # (obs/profile.py): process singletons, rendered on every scrape
+        lines += COMPILES.metrics_lines()
+        lines += PROFILE.metrics_lines()
         # per-phase / per-endpoint latency histograms, from the same spans
         # the flight recorder serves
         lines += RECORDER.render_lines()
@@ -426,6 +422,14 @@ class SimonServer:
         # one campaign at a time per server: each builds its own prepared
         # lineage and runs many launches
         self._campaign_lock = threading.Lock()
+        # the memory observatory over the structures this server owns:
+        # every view is computed on demand; only serve() (and a fleet
+        # worker) starts its watermark ticker
+        self.memory = MemoryObservatory(prep_cache=self.prep_cache,
+                                        timeline=self.capacity.timeline if self.capacity is not None else None,
+                                        journal=journal)
+        # where a /debug/profiler session's Chrome trace is written
+        self.profile_dir = os.path.join(tempfile.gettempdir(), "simon-profiler")
         # the time-series ring and the SLO engine: only serve() starts them,
         # so library and test constructions run no sampler thread
         self.timeseries = None
@@ -437,7 +441,7 @@ class SimonServer:
         sampler's): the request-layer families plus, while the ring runs,
         its own telemetry and the SLO burn-rate gauges."""
         text = self.metrics.render(self.prep_cache, capacity=self.capacity, admission=self.admission,
-                                   watch=self.watch, journal=self.journal)
+                                   watch=self.watch, journal=self.journal, memory=self.memory)
         extra: List[str] = []
         if self.timeseries is not None:
             extra += self.timeseries.metrics_lines()
@@ -496,6 +500,7 @@ class SimonServer:
         its history is complete to the last accepted event. Idempotent."""
         if self.admission is not None:
             self.admission.stop()
+        self.memory.stop()
         if self._ts_sampler is not None:
             self._ts_sampler.stop()
         if self.timeseries is not None:
@@ -685,10 +690,13 @@ class SimonServer:
                 self._headroom_pub_gen = gen0
             return out
 
-    def cluster_report(self, extended: Optional[List[str]] = None, probe_headroom: bool = True) -> dict:
+    def cluster_report(self, extended: Optional[List[str]] = None, probe_headroom: bool = True,
+                       include_memory: bool = False) -> dict:
         """The ``GET /api/cluster/report`` body: the capacity sample plus
         the same table rows the text renderer prints
-        (``obs/capacity.build_report``)."""
+        (``obs/capacity.build_report``). ``include_memory`` (``?mem=1``)
+        adds the memory observatory's block: its summary and the rows
+        ``simon top --mem`` renders (``obs/footprint.memory_rows``)."""
         if self.capacity is None:
             raise RuntimeError("capacity observatory disabled (capacity=False)")
         cluster, key = self._observed_cluster()
@@ -696,7 +704,11 @@ class SimonServer:
         if probe_headroom:
             self._probe_headroom(cluster, key)
         state = self.watch.state() if self.watch is not None else "polling"
-        return capacity_mod.build_report(self.capacity, cluster, extended_resources=extended, state=state)
+        report = capacity_mod.build_report(self.capacity, cluster, extended_resources=extended, state=state)
+        if include_memory:
+            summary = self.memory.summary()
+            report["memory"] = {"summary": summary, "rows": memory_rows(summary)}
+        return report
 
     # -- campaigns ----------------------------------------------------------------
 
@@ -755,10 +767,10 @@ class SimonServer:
         from ..ops import fast_scan as fs
 
         launched0 = dict(fs.VARIANT_LAUNCHES)
-        with tracing.span("simulate", rung=rung) as sp:
+        # simulate() records its own phase spans (prepare, encode,
+        # schedule with the kernel's child, decode) under this one
+        with tracing.span("simulate", rung=rung):
             result = simulate(cluster, apps, device=self.device, explain=explain, **kw)
-            for phase, seconds in result.timings.items():
-                sp.child_from_seconds(phase, seconds)
         tr = tracing.current_trace()
         if tr is not None:
             # the kernel variants launched meanwhile, as "name=count,...":
@@ -1337,15 +1349,6 @@ def make_handler(server: SimonServer):
         def _send(self, code: int, body: dict, extra_headers: Optional[dict] = None) -> None:
             self._send_bytes(code, json.dumps(body).encode(), "application/json", extra_headers)
 
-        def _send_not_ported(self) -> bool:
-            item = _not_ported(self.path)
-            if item is None:
-                return False
-            route = self.path.split("?", 1)[0]
-            self._send(501, {"error": f"{self.command} {route} is not ported to the PyTorch/CUDA package yet",
-                             "roadmap": f"ROADMAP Queue 1 item {item}"})
-            return True
-
         def do_GET(self):  # noqa: N802 (stdlib name)
             self._begin_request()
             path = self.path.split("?", 1)[0]
@@ -1415,8 +1418,10 @@ def make_handler(server: SimonServer):
                 q = parse_qs(self.path.partition("?")[2])
                 extended = [e for e in q.get("extended", [""])[-1].split(",") if e]
                 probe = q.get("headroom", ["1"])[-1] not in ("0", "false")
+                mem = q.get("mem", ["0"])[-1] not in ("", "0", "false")
                 try:
-                    self._send(200, server.cluster_report(extended=extended, probe_headroom=probe))
+                    self._send(200, server.cluster_report(extended=extended, probe_headroom=probe,
+                                                          include_memory=mem))
                 except SnapshotUnavailable as e:
                     self._send(503, {"error": str(e), "retryable": True})
                 except Exception as e:  # a failed build or launch too
@@ -1431,7 +1436,54 @@ def make_handler(server: SimonServer):
                     server.capacity.sample()  # fold in the latest generation
                     self._send(200, {"capacity": server.capacity.timeline.capacity,
                                      "samples": [s.to_dict() for s in server.capacity.timeline.snapshot()]})
-            elif not self._send_not_ported():
+            elif path == "/api/debug/memory":
+                # the memory observatory: per-entry arena attribution, ring
+                # occupancy, RSS and device watermarks; ?fields=0 drops the
+                # per-field breakdown for cheap polling
+                from urllib.parse import parse_qs
+
+                q = parse_qs(self.path.partition("?")[2])
+                fields = q.get("fields", ["1"])[-1] not in ("0", "false")
+                try:
+                    self._send(200, server.memory.debug_payload(include_fields=fields))
+                except Exception as e:
+                    log.warning("memory debug failed: %s: %s", type(e).__name__, e)
+                    self._send(500, {"error": str(e), "type": type(e).__name__})
+            elif path == "/api/debug/profile":
+                # the cumulative phase profiles, the kernels' build
+                # telemetry and the admission pipeline's stage aggregates
+                from ..obs import profile as profile_mod
+
+                try:
+                    payload = profile_mod.debug_payload()
+                    if server.admission is not None:
+                        payload["pipeline"] = server.admission.pipeline_snapshot()
+                    self._send(200, payload)
+                except Exception as e:
+                    log.warning("profile debug failed: %s: %s", type(e).__name__, e)
+                    self._send(500, {"error": str(e), "type": type(e).__name__})
+            elif path == "/debug/profiler":
+                # the pprof analogue (the reference registers pprof on gin,
+                # server.go:152): a torch.profiler session over the whole
+                # process; ?stop=1 ends it and writes its Chrome trace
+                from urllib.parse import parse_qs
+
+                from ..utils.trace import start_profiler, stop_profiler
+
+                stop = parse_qs(self.path.partition("?")[2]).get("stop", ["0"])[-1] not in ("", "0", "false")
+                try:
+                    if stop:
+                        done = stop_profiler()
+                        if done is None:
+                            self._send(409, {"error": "no profiler session is running"})
+                        else:
+                            self._send(200, done)
+                    else:
+                        self._send(200, start_profiler(server.profile_dir, cuda=server.device.type == "cuda"))
+                except Exception as e:
+                    log.warning("profiler %s failed: %s: %s", "stop" if stop else "start", type(e).__name__, e)
+                    self._send(500, {"error": str(e)})
+            else:
                 self._send(404, {"error": "not found"})
 
         def do_POST(self):  # noqa: N802 (stdlib name)
@@ -1458,8 +1510,7 @@ def make_handler(server: SimonServer):
                 # handler thread, serialized across requests
                 code, body = server.run_campaign(payload, deadline=deadline)
             else:
-                if not self._send_not_ported():
-                    self._send(404, {"error": "not found"})
+                self._send(404, {"error": "not found"})
                 return
             # a result computed from a stale snapshot says so (per request,
             # thread-local: a concurrent refresh must not mis-tag it); a
@@ -1616,8 +1667,10 @@ def serve(kubeconfig: str = "", master: str = "", port: int = 8080, watch: str =
         return serve_fleet(kubeconfig, master, port, watch, journal, n_fleet, device=device)
     server, httpd = start_server(kubeconfig=kubeconfig, master=master, port=port, watch=watch, journal=journal,
                                  device=device)
-    # the time-series ring and the SLO engine: long-lived servers only
+    # the time-series ring, the SLO engine and the memory watermark
+    # ticker: long-lived servers only
     server.start_timeseries()
+    server.memory.start_ticker()
 
     # the handler only nudges the serve loop from a helper thread
     # (httpd.shutdown() deadlocks when called from the serving thread)

@@ -3,7 +3,8 @@ the port's copy of ``opensim_tpu/utils/envknobs.py``, holding the knobs of
 the modules it has (the server and its admission queue, the snapshot, the
 live twin and its journal, the serving fleet and its HA control plane, the
 resilience layer, the request tracer, the time-series ring and SLO engine,
-the capacity observatory and the campaign planner).
+the capacity observatory, the memory observatory and the campaign
+planner).
 
 Every read goes through :func:`raw`, which fails loudly on an
 unregistered name, so a knob cannot ship undocumented and a typo'd name
@@ -193,6 +194,8 @@ for _knob in (
     Knob("OPENSIM_FLIGHT_RECORDER_N", "int", "64", "Flight-recorder ring capacity (last N request traces)."),
     Knob("OPENSIM_EXPLAIN_STORE_N", "int", "512",
          "Per-trace cap on stored placement explanations (`?explain=1` audits)."),
+    Knob("OPENSIM_MEM_TICKER_S", "float", "10",
+         "Low-rate memory watermark sampling cadence in seconds (0 disables the ticker).", _float(0.0)),
     # the time-series ring and the SLO engine (obs/timeseries.py, obs/slo.py)
     Knob("OPENSIM_TS_INTERVAL_S", "float", "5",
          "Time-series ring sampling cadence: every registered metric family is sampled into the on-disk ring at "

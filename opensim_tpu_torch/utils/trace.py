@@ -1,10 +1,15 @@
-"""Host-side prepare attribution — the ``PREP_STATS`` of
-``opensim_tpu/utils/trace.py``. The profiler hook there
-(``start_profiler``, the JAX profiler) is ROADMAP Queue 1 item 10."""
+"""Host-side prepare attribution and the profiler hook — the
+``PREP_STATS`` and ``start_profiler`` of ``opensim_tpu/utils/trace.py``.
+The reference's hook starts the JAX profiler's server; the port's starts a
+``torch.profiler`` session over every thread of the process (the CPU's
+activities and, on the card, CUDA's) and exports it as a Chrome trace
+when stopped (``GET /debug/profiler``, ``?stop=1``)."""
 
 from __future__ import annotations
 
+import os
 import threading
+import time
 from typing import Optional, Tuple
 
 
@@ -51,3 +56,61 @@ class PrepStats:
 
 
 PREP_STATS = PrepStats()
+
+
+class Profiler:
+    """One ``torch.profiler`` session at a time in the process (the
+    profiler itself is process-wide). :meth:`start` is idempotent: a
+    second start while a session runs answers the running session."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._prof = None  # guarded-by: _lock
+        self._info: Optional[dict] = None  # guarded-by: _lock
+
+    def start(self, trace_dir: str, cuda: bool) -> dict:
+        """Start a session recording every thread's operators (with
+        `cuda`, the card's kernels too), whose trace :meth:`stop` writes
+        under `trace_dir`. Returns the running session's description."""
+        with self._lock:
+            if self._prof is None:
+                from torch._C._profiler import _ExperimentalConfig
+                from torch.profiler import ProfilerActivity, profile
+
+                activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+                # requests run on handler and pool threads, not the one
+                # that starts the session
+                prof = profile(activities=activities,
+                               experimental_config=_ExperimentalConfig(profile_all_threads=True))
+                prof.start()
+                self._prof = prof
+                self._info = {"profiler": "running", "activities": ["cpu"] + (["cuda"] if cuda else []),
+                              "trace_dir": trace_dir, "started_unix": round(time.time(), 3)}
+            return dict(self._info)
+
+    def stop(self) -> Optional[dict]:
+        """Stop the running session and write its Chrome trace; None when
+        no session runs."""
+        with self._lock:
+            prof, info = self._prof, self._info
+            self._prof = self._info = None
+            if prof is None:
+                return None
+            prof.stop()
+            os.makedirs(info["trace_dir"], exist_ok=True)
+            path = os.path.join(info["trace_dir"], f"simon-profile-{time.time_ns()}.json")
+            prof.export_chrome_trace(path)
+        return {**info, "profiler": "stopped", "trace": path, "seconds": round(time.time() - info["started_unix"], 3)}
+
+
+PROFILER = Profiler()
+
+
+def start_profiler(trace_dir: str, cuda: bool = False) -> dict:
+    """Start (or join) the process's profiler session (:class:`Profiler`)."""
+    return PROFILER.start(trace_dir, cuda)
+
+
+def stop_profiler() -> Optional[dict]:
+    """Stop the process's profiler session and export its trace."""
+    return PROFILER.stop()

@@ -8,6 +8,7 @@ exact: every cell of every table."""
 
 import inspect
 import io
+import json
 import os
 import re
 import sys
@@ -224,10 +225,11 @@ def test_chart_cases_through_the_port(case, tmp_path, monkeypatch):
                                   "trace", "kubeconfig", "no_card"])
 def test_cli_apply_exit_codes(tmp_path, capsys, monkeypatch, case):
     """0 on a plan that fits (after adding nodes), also under a scheduler
-    config (`-d`), the sampled tie-break or with the placement audit
-    (`--explain`); 1 on one that cannot, on a bad path, on the modes of
-    later slices (naming their ROADMAP item) and without a card unless
-    `--device cpu` is given."""
+    config (`-d`), the sampled tie-break, with the placement audit
+    (`--explain`) or with `--trace` (a Chrome trace beside the report that
+    an untraced run writes); 1 on one that cannot, on a bad path, on a
+    kubeconfig that cannot be read and without a card unless `--device
+    cpu` is given."""
     args = ["apply", "-f", _adds_one(tmp_path), "--device", "cpu", "-o", str(tmp_path / "out.txt")]
     want, err = 1, None
     if case == "success":
@@ -250,8 +252,9 @@ def test_cli_apply_exit_codes(tmp_path, capsys, monkeypatch, case):
         args += ["--explain"]
         want = 0
     elif case == "trace":
+        monkeypatch.setenv("OPENSIM_TRACE", "0")  # the explicit flag wins
         args += ["--trace", str(tmp_path / "t.json")]
-        err = "Queue 1 item 10"
+        want, err = 0, "trace written to"
     elif case == "kubeconfig":
         cfg = tmp_path / "kube.yaml"
         cfg.write_text("apiVersion: simon/v1alpha1\nkind: Config\nspec:\n  cluster: {kubeConfig: /kube}\n")
@@ -267,6 +270,11 @@ def test_cli_apply_exit_codes(tmp_path, capsys, monkeypatch, case):
         report = (tmp_path / "out.txt").read_text()
         assert "Simulation success!" in report
         assert ("\nPlacement audit:\n" in report) == (case == "explain")
+    if case == "trace":
+        spans = {e["name"] for e in json.loads((tmp_path / "t.json").read_text())["traceEvents"] if e["ph"] == "X"}
+        assert {"apply", "prepare", "encode", "schedule", "engine.kernel", "decode"} <= spans
+        assert cli.main(args[:-2] + ["-o", str(tmp_path / "plain.txt")]) == 0
+        assert _normalised((tmp_path / "plain.txt").read_text()) == _normalised(report)
 
 
 def test_cli_version_and_usage(capsys):

@@ -376,16 +376,21 @@ def test_simon_top_one_shot_equals_reference(capsys):
     assert cli.main(["top", "--url", "http://127.0.0.1:9", "--timeout", "2"]) == 1
 
 
-def test_only_item_10_routes_answer_501():
-    """Item 10's memory and profile routes answer 501; the fleet's
-    time-series and SLO routes are served (503 until serve() starts the
-    ring)."""
-    assert set(rest.NOT_PORTED.values()) == {10}
-    assert set(rest.NOT_PORTED) == {"/api/debug/memory", "/api/debug/profile", "/debug/profiler"}
+def test_only_item_10_routes_answer_501(tmp_path):
+    """No route answers 501 any more: item 10's memory, profile and
+    profiler routes are served; the fleet's time-series and SLO routes
+    answer 503 until serve() starts the ring."""
+    assert not hasattr(rest, "NOT_PORTED")
     server = rest.SimonServer(base_cluster=_cluster(), device="cpu", capacity=False)
+    server.profile_dir = str(tmp_path)
     with _serving(server, rest.make_handler) as url:
-        for path, code in (("/api/debug/memory", 501), ("/api/debug/profile", 501), ("/debug/profiler", 501),
-                           ("/api/fleet/slo", 503), ("/api/debug/timeseries", 503)):
+        assert set(_get(url + "/api/debug/memory?fields=0")) == {"generated_unix", "process", "devices",
+                                                                 "prepcache", "rings"}
+        assert {"phases", "compiles", "pipeline"} <= set(_get(url + "/api/debug/profile"))
+        assert _get(url + "/debug/profiler")["profiler"] == "running"
+        assert _get(url + "/debug/profiler?stop=1")["profiler"] == "stopped"
+        for path, code in (("/debug/profiler?stop=1", 409), ("/api/fleet/slo", 503),
+                           ("/api/debug/timeseries", 503)):
             with pytest.raises(urllib.error.HTTPError) as ei:
                 _get(url + path)
             assert ei.value.code == code, path

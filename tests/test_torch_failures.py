@@ -3,7 +3,8 @@ finds no node, the nodes each dynamic filter rejects first and the nodes
 short of each resource, exactly as the JAX package's XLA scan does
 (``kernels.pod_step``'s ``count_fails``) on the same prepared input; and
 the port's ``simulate()`` reports the unscheduled pods with the JAX
-``simulate()``'s reason strings. Counts are integers: compared exactly."""
+``simulate()``'s reason strings, its reason events and decision counters
+and its phase spans. Counts are integers: compared exactly."""
 
 import copy
 import dataclasses
@@ -18,13 +19,16 @@ import torch
 from opensim_tpu.engine import reasons as ref_reasons, simulator as ref_sim
 from opensim_tpu.engine.scheduler import pad_pod_stream, schedule_pods
 from opensim_tpu.models import expand as ref_expand
+from opensim_tpu.obs import metrics as ref_metrics, trace as ref_tracing
 from opensim_tpu.ops import kernels as ref_kernels
 from opensim_tpu_torch.engine import fastpath, reasons, simulator as sim
 from opensim_tpu_torch.models import expand, fixtures as fx
+from opensim_tpu_torch.obs import metrics, trace as tracing
 from opensim_tpu_torch.ops import fast_scan as fs, kernels
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent))
 from test_torch_fast_scan import _port_prep, _ref_prep, _reference_inputs, _stream  # noqa: E402
+from test_torch_masked import _preemption_case  # noqa: E402
 
 CASES = [c[0] for c in fx.SCAN_CASES]
 #: The filter each failure case puts first on some node of a failing pod.
@@ -272,3 +276,85 @@ def test_oversubscribed_plan_reports_every_failure_and_places_the_rest():
     stray = [u.pod for u in res.unscheduled_pods if u.pod.spec.node_name]
     assert len(stray) == 10 and all(p.spec.node_name == "node-99999" for p in stray)
     assert (res.placements[-500:] >= 0).all() and (res.placements[:10] == -1).all()
+
+
+# --- decision telemetry: simulate()'s reason events and counters ------------
+
+
+def _traced(tr_mod, recorder, run):
+    """(result, reason events, unschedulable events, counter increases,
+    trace) of `run()` under an ambient trace. An unschedulable event's pod
+    is given by its place among the result's unscheduled pods, which lie
+    in stream order in both packages: the names embed a process-global
+    counter."""
+    vecs = {"filter_rejects": recorder.filter_rejects, "unschedulable": recorder.unschedulable}
+    before = {k: dict(v._series) for k, v in vecs.items()}
+    tr = tr_mod.start_trace("lib", force=True)
+    with tr_mod.trace_scope(tr):
+        res = run()
+    tr.finish()
+    delta = {k: {lab[0]: n - before[k].get(lab, 0) for lab, n in v._series.items() if n != before[k].get(lab, 0)}
+             for k, v in vecs.items()}
+    where = {f"{u.pod.metadata.namespace}/{u.pod.metadata.name}": i for i, u in enumerate(res.unscheduled_pods)}
+    reason_events = [dict(sp.attrs) for sp in tr.walk() if sp.name == "placement.reasons"]
+    unsched = [(where[sp.attrs["pod"]], sp.attrs["reason"]) for sp in tr.walk() if sp.name == "placement.unschedulable"]
+    return res, reason_events, unsched, delta, tr
+
+
+def _both(cluster_apps, **kw):
+    cluster, apps = cluster_apps()
+    got = _traced(tracing, metrics.RECORDER,
+                  lambda: sim.simulate(cluster, [sim.AppResource(n, a) for n, a in apps], device="cpu", **kw))
+    c_raw, apps_raw = cluster_apps()
+    c_ref = _reference_copy(c_raw)
+    ref_apps = [ref_sim.AppResource(n, _reference_copy(a)) for n, a in apps_raw]
+    want = _traced(ref_tracing, ref_metrics.RECORDER, lambda: ref_sim.simulate(c_ref, ref_apps, **kw))
+    return got, want
+
+
+def _scan_case(name):
+    cluster, app, _ = fx.scan_case(name)
+    return cluster, [("a", app)]
+
+
+TELEMETRY = {**{f"case_{n}": (lambda n=n: _scan_case(n)) for n in CASES if n.startswith("fail_")},
+             "oversubscribed": _oversubscribed, "forced_unknown_node": _forced_unknown_node,
+             **{f"preempt_{c}": (lambda c=c: _preemption_case(c)) for c in ("eviction", "lowest_first", "equals")}}
+
+
+@pytest.mark.parametrize("preemption", [False, True])
+@pytest.mark.parametrize("plan", sorted(TELEMETRY))
+def test_decision_telemetry_matches_the_reference_simulate(plan, preemption):
+    """The ``placement.reasons`` event (the primary-reason histogram), the
+    ``placement.unschedulable`` events (at most 8: the pod by its stream
+    place, the reason string) and the increases of
+    ``simon_unschedulable_total`` and ``simon_filter_reject_total`` equal
+    the JAX ``simulate()``'s, with preemption on (victims left out) and
+    off."""
+    (res, reasons_ev, unsched, delta, tr), (ref_res, ref_reasons_ev, ref_unsched, ref_delta, _t) = _both(
+        TELEMETRY[plan], enable_preemption=preemption)
+    assert [u.reason for u in res.unscheduled_pods] == [u.reason for u in ref_res.unscheduled_pods]
+    assert reasons_ev == ref_reasons_ev
+    assert unsched == ref_unsched and len(unsched) <= 8
+    assert delta == ref_delta
+    if plan.startswith("case_fail") or plan == "oversubscribed":
+        assert reasons_ev and delta["unschedulable"] and delta["filter_rejects"]
+    stream_failed = np.nonzero(res.placements < 0)[0]
+    assert all(res.placements[stream_failed[i]] < 0 for i, _r in unsched)
+
+
+def test_simulate_spans_hold_the_reference_phases():
+    """Under an ambient trace the port's simulate() records the JAX
+    package's phase spans, the kernel's child under ``schedule`` names the
+    variant, and the disjoint phases fit in the root (tests/test_obs.py's
+    check)."""
+    (res, _r, _u, _d, tr), (_rr, _rre, _ru, _rd, ref_tr) = _both(lambda: _scan_case("fail_mixed"))
+    names = [sp.name for sp in tr.walk()]
+    phases = {"snapshot", "prepare", "encode", "schedule", "decode"}
+    assert {"prepare", "encode", "schedule", "decode"} <= set(names)
+    assert phases & {sp.name for sp in ref_tr.walk()} <= set(names)
+    sched = next(sp for sp in tr.walk() if sp.name == "schedule")
+    kernel = next(sp for sp in sched.children if sp.name == "engine.kernel")
+    assert kernel.attrs["variant"] == res.engine.rsplit(" on ", 1)[0]
+    total = sum(c.duration_s for c in tr.root.children if c.name in phases)
+    assert total <= tr.root.duration_s * 1.01

@@ -5,7 +5,8 @@ same cluster from their own stub apiservers through
 a full-key hit), scale-apps (the drop mask, also against the uncached
 path), ``newnodes``, ``explain=1``; the busy 503, the deadline 504,
 ``/healthz``, ``/metrics``, the debug routes (the time-series and SLO
-routes' 503 without a running ring) and the 501 routes of later slices;
+routes' 503 without a running ring; the memory, profile and profiler
+routes against the JAX server's answers);
 the fleet's operator errors ``serve()`` refuses; the kernel build's lock; the
 snapshot lister against the JAX package's, and ``simon apply`` in
 kubeConfig mode against the JAX ``Applier``; ``--watch on`` serving from
@@ -14,6 +15,7 @@ the process counters in pod (``-<10 hex>``) and fake-node
 (``simon-<8 hex>``) names are normalized; otherwise exactly."""
 
 import json
+import os
 import re
 import sys
 import threading
@@ -260,10 +262,34 @@ def test_metrics_families_are_the_reference_families(servers):
     ("GET", "/api/debug/memory?fields=0", 10), ("GET", "/api/debug/timeseries", 0), ("GET", "/api/fleet/slo", 0),
     ("GET", "/debug/profiler", 10), ("GET", "/api/debug/profile", 10),
 ])
-def test_later_routes_answer_501(servers, method, path, item):
+def test_later_routes_answer_501(servers, method, path, item, tmp_path, monkeypatch):
+    """The routes the JAX server serves and the port once answered 501 for:
+    each answers now, as the JAX server does."""
+    import opensim_tpu.utils.trace as ref_trace
+
     port, ref = servers
+    # the JAX route starts jax.profiler's server on a fixed TCP port that
+    # stays bound for the process's lifetime: its answer is compared with
+    # the start stubbed, so that no port is bound
+    monkeypatch.setattr(ref_trace, "start_profiler", lambda port=9999: port)
+    port.profile_dir = str(tmp_path)
     with _serve(port) as url:
         code, _h, body = _call(url, path, {} if method == "POST" else None)
+        if path == "/debug/profiler":
+            # a running session would profile every later test here
+            stopped = _call(url, "/debug/profiler?stop=1")
+    if item == 10:
+        # the memory observatory, the phase profiles and the profiler
+        want = _ref_answer(ref, path)
+        assert code == want[0] == 200, body
+        if path == "/debug/profiler":
+            assert body["profiler"] == want[2]["profiler"] == "running"
+            assert stopped[0] == 200 and os.path.isfile(stopped[2]["trace"])
+        else:
+            # the JAX server's "native" block reports its C++ engine, which
+            # the port does not have
+            assert set(body) == set(want[2]) - {"native"}
+        return
     if item == 7:
         # item 7's routes are served now (the capacity observatory and the
         # campaign planner): the report and the timeline answer, an empty
@@ -275,16 +301,19 @@ def test_later_routes_answer_501(servers, method, path, item):
         # served now (the time-series ring and the SLO engine): a server
         # that serve() did not start runs neither, and answers the JAX
         # package's typed 503
-        ref_httpd = ref_rest.SimonHTTPServer(("127.0.0.1", 0), ref_rest.make_handler(ref))
-        threading.Thread(target=ref_httpd.serve_forever, daemon=True).start()
-        try:
-            want = _call(f"http://127.0.0.1:{ref_httpd.server_address[1]}", path)
-        finally:
-            ref_httpd.shutdown()
-            ref_httpd.server_close()
+        want = _ref_answer(ref, path)
         assert (code, body) == (want[0], want[2]) == (503, body) and "roadmap" not in body
-        return
-    assert code == 501 and body["roadmap"] == f"ROADMAP Queue 1 item {item}"
+
+
+def _ref_answer(ref, path):
+    """The JAX server's (status, headers, body) for GET `path`."""
+    ref_httpd = ref_rest.SimonHTTPServer(("127.0.0.1", 0), ref_rest.make_handler(ref))
+    threading.Thread(target=ref_httpd.serve_forever, daemon=True).start()
+    try:
+        return _call(f"http://127.0.0.1:{ref_httpd.server_address[1]}", path)
+    finally:
+        ref_httpd.shutdown()
+        ref_httpd.server_close()
 
 
 @pytest.mark.parametrize("kwargs,env,message", [
