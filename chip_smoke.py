@@ -206,11 +206,28 @@ and again after W4's. The last card step (phase 69) is a
 whose trace holds the ``fast_scan`` kernel and its label, between two
 timed hits before it and two after it: what the session leaves behind
 in the process (CUPTI's subscription), which no later timing carries.
+The build cache and the CUDA probe ride phases too: phase 2 runs
+``utils/probe.accelerator_reachable(fresh=True)`` (a child process that
+sums a tensor on the card) beside the nvcc builds under a verdict cache
+of this run's (``OPENSIM_PROBE_CACHE``), then holds
+``jitcache.cache_stats()`` to its own sum of the build directory and every
+library to lie in it; after phase 33 the config plan's state after its
+first half is rebuilt on the host, written and read back as a checkpoint
+(``utils/checkpoint.py``) and launched from through
+``fastpath.schedule(init=)`` (its own kernel row, its placements and final
+state the whole-stream launch's bit for bit); phase 30 also runs
+``simon apply`` of the first example config as a user runs it, without
+``--device``, in a child process whose ``OPENSIM_JIT_CACHE`` names a
+directory holding that config's variant alone (it reads the cached
+verdict, runs no nvcc and prints the card report), and ``simon gen-doc``
+in process; the verdict is probed again beside phases 54-64, so that the
+``simon server`` processes of phases 67-68 read it instead of probing.
 Every phase raises on failure, and each prints the time it took.
 The last lines are the card's name and power limit, one JSON line with
 a row per kernel variant timed at full width, one for the drain sweep,
 three for the apply plan (the masked one scan, the coarse and the fine
-grid), one each for the config, two-profile and sampled plans (the
+grid), one each for the config plan, its resume from a checkpoint, the
+two-profile and the sampled plans (the
 last timed over its checked prefix, whose ties the plain version records
 for its bound), three
 for the apply plan under ``-d``, five for explain mode, three for the
@@ -226,11 +243,15 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -282,6 +303,17 @@ SAMPLED_PLAIN_PODS = 3000
 TIE_SEED = 7
 SMALL_CONFIG = dict(w_balanced=0.0, w_least=3.0, w_node_affinity=2.0, w_taint_toleration=5.0, w_spread=1.0,
                     w_prefer_avoid=0.0, w_simon=0.5, f_taints=False, f_spread=False, fit_ignored_cols=(1,))
+#: The config plan resumed from a checkpoint after its first half (after
+#: phase 33): the resumed launch's plain version runs from the loaded state
+#: over its first RESUME_PLAIN_PODS pods.
+RESUME_PLAIN_PODS = 2000
+#: The CUDA probe's time limit in the smoke's runs of it (phase 2, beside
+#: the builds, and the refresh beside phases 54-64).
+PROBE_TIMEOUT_S = 300
+#: The files ``simon gen-doc`` writes (phase 30): the index and one per
+#: subcommand, each headed ``# simon <subcommand>``.
+GEN_DOC_COMMANDS = ("apply", "explain", "defrag", "campaign", "server", "loadgen", "top", "dash", "mem", "profile",
+                    "replay", "version", "gen-doc")
 #: The variants the new plans and phase 3's config and sampled cases run.
 CFG_VARIANTS = ("fast_scan[cfg]", "fast_scan[na,tt,avoid,cfg]", "fast_scan[sample]")
 #: Explain mode (phases 42-49): the plain version counting every step
@@ -614,7 +646,7 @@ def _config_small_case(prep, variant: str, name: str, hold) -> str:
 
 
 def full_plan(device, label: str, make, variant: str, prefix=None, sched_text=None, tie_seed=None,
-              replay: bool = False) -> dict:
+              replay: bool = False, resume=None) -> dict:
     """Kernel against its plain version over the first `prefix` pods of
     the stream (None: the whole stream), simulate() through the kernel,
     then the kernel timed alone over the whole stream. With `sched_text`
@@ -625,8 +657,10 @@ def full_plan(device, label: str, make, variant: str, prefix=None, sched_text=No
     version's record, and a quarter of the prefix's placements at least
     off the lowest index's. With `replay`, REPLAY_STEPS steps spread over
     the whole stream are also re-run through the torch step on the card
-    (:func:`_replay_check`). Returns the plan's row of the kernels
-    table."""
+    (:func:`_replay_check`). With `resume` (a list), the plan is also
+    resumed from a checkpoint after its first half
+    (:func:`checkpoint_resume`), whose row is appended to it. Returns the
+    plan's row of the kernels table."""
     from opensim_tpu_torch.engine import fastpath, simulator as sim
     from opensim_tpu_torch.ops import fast_scan as fs
 
@@ -790,7 +824,109 @@ def full_plan(device, label: str, make, variant: str, prefix=None, sched_text=No
         "library_ms": None,
         **extra,
     }
+    if resume is not None:
+        resume.append(checkpoint_resume(label, variant, prep, cfg, whole, tmpl, valid, forced))
     return held.fill(row) if held is not None else row
+
+
+def checkpoint_resume(label: str, variant: str, prep, cfg, whole, tmpl, valid, forced) -> dict:
+    """A plan resumed from disk: the state after its first k = P/2 pods,
+    rebuilt from its whole-stream launch `whole` (``explain.replay_state``),
+    written by ``utils/checkpoint.save_state``, read back by ``load_state``
+    and run from over pods k..P-1 through ``fastpath.schedule(init=)``, one
+    launch of the plan's [cfg] `variant` (counted); its placements, GPU
+    takes and final state in the encoder's layout equal the whole-stream
+    launch's, and a direct launch from the loaded state (timed, CUDA
+    events) equals it on the kernel's whole state row too, bit for bit; its
+    plain version from the loaded state over RESUME_PLAIN_PODS pods after k
+    is held on the CPU (BACKGROUND). Returns its row of the kernels table:
+    the file's bytes and the save and load seconds beside the times."""
+    from opensim_tpu_torch.engine import explain, fastpath
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.utils.checkpoint import load_state, save_state
+
+    P = tmpl.shape[0]
+    k = P // 2
+    _phase(f"{label}: a checkpoint after its first {k} pods, saved, loaded and resumed on the card over pods "
+           f"{k}-{P - 1}")
+    t0 = time.perf_counter()
+    state = explain.replay_state(prep, whole.chosen.cpu().numpy(), whole.gpu_take.cpu().numpy(), k)
+    replay_s = time.perf_counter() - t0
+    meta = {"plan": label, "k": k}
+    with tempfile.TemporaryDirectory(prefix="smoke-checkpoint-") as tmp:
+        path = os.path.join(tmp, "plan.npz")
+        t0 = time.perf_counter()
+        save_state(path, prep.ec_np, state, extra=meta)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        ec, st, extra = load_state(path)
+        load_s = time.perf_counter() - t0
+    bits = lambda a: (np.asarray(a).dtype, np.asarray(a).shape, np.asarray(a).tobytes())  # NaN labels included
+    if extra != meta or [bits(a) for a in ec] != [bits(a) for a in prep.ec_np] or \
+            [bits(a) for a in st] != [bits(a) for a in state]:
+        raise AssertionError("the checkpoint did not load back bit for bit as it was written")
+    built = fastpath.build_inputs(prep, cfg=cfg, segment=True)
+    fi = built[0]
+    if fs.variant_name(fi) != variant:
+        raise AssertionError(f"the resumed segment runs {fs.variant_name(fi)}, not {variant}")
+    torch.cuda.synchronize()
+    fs.LAUNCHES = 0
+    fs.VARIANT_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = fastpath.schedule(prep, [(built, k, P)], init=st)
+    resume_s = time.perf_counter() - t0
+    launches, by_variant = fs.LAUNCHES, dict(fs.VARIANT_LAUNCHES)
+    if launches != 1 or by_variant != {variant: 1}:
+        raise AssertionError(f"the resume launched {by_variant}, want exactly one {variant}")
+    want = fastpath._host_scheduled(fi, prep.st0_np, whole, whole.chosen.cpu().numpy(), whole.gpu_take.cpu().numpy(),
+                                    None, None, None)
+    for field in ("chosen", "gpu_take", "used", "gpu_free", "port_used", "vg_free", "dev_free"):
+        a, b = getattr(res, field), getattr(want, field)
+        if not np.array_equal(a, b[k:] if field in ("chosen", "gpu_take") else b):
+            raise AssertionError(f"the resumed run's {field} differs from the whole-stream launch's")
+    init = fastpath.carried_state(prep, fi, st)
+    tail = tuple(t[k:].contiguous() for t in (tmpl, valid, forced))
+    out = fs.fast_scan(fi, *tail, init=init, draw_base=k)
+    for field in fs.STATE_FIELDS:
+        a, b = getattr(out, field), getattr(whole, field)
+        if not torch.equal(a, b[k:] if field in ("chosen", "gpu_take") else b):
+            raise AssertionError(f"the launch from the loaded state: {field} differs from the whole-stream launch's")
+    ms = _events_ms(lambda: fs.fast_scan(fi, *tail, init=init, draw_base=k), reps=3)
+    work = fs.fast_scan_work(fi, *tail, out.chosen)
+    head = tuple(t[:RESUME_PLAIN_PODS] for t in tail)
+    held = BACKGROUND.hold(f"{label}: the kernel from the loaded checkpoint over pods {k}-{k + RESUME_PLAIN_PODS - 1}",
+                           fs.fast_scan(fi, *head, init=init, draw_base=k), fi, head, init=init, draw_base=k)
+    t_bytes = work["bytes"] / PEAK_BYTES_S * 1e3
+    t_ops = _ops_ms(work)
+    print(f"checkpoint {nbytes} bytes: state after pod {k} rebuilt in {replay_s:.6f} s, saved in {save_s:.6f} s, "
+          f"loaded in {load_s:.6f} s; fastpath.schedule from it over {P - k} pods {resume_s:.6f} s (host clock), "
+          f"launches {by_variant}; placements, GPU takes and final state (the kernel's state row too) equal the "
+          f"whole-stream launch's", flush=True)
+    print(f"kernel from the loaded state {ms:.3f} ms over {P - k} pods ({ms * 1e3 / (P - k):.3f} us/pod), bound "
+          f"{max(t_bytes, t_ops):.6f} ms ({work['bytes']} B, {work['ops']} flop, {work['int_ops']} integer operations)",
+          flush=True)
+    return held.fill({
+        "name": variant,
+        "plan": f"{label.split(' ', 1)[1]}, resumed from a checkpoint after pod {k}",
+        "route": "cuda",
+        "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu",
+        "replaces": "opensim_tpu/ops/pallas_scan.py:1009",
+        "launches": launches,
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": None,
+        "pods": P - k,
+        "plain_pods": RESUME_PLAIN_PODS,
+        "k": k,
+        "checkpoint_bytes": nbytes,
+        "save_s": save_s,
+        "load_s": load_s,
+        "resume_s": resume_s,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    })
 
 
 def drain_sweep(device) -> tuple:
@@ -1090,9 +1226,9 @@ def _without_counters(text: str) -> str:
 
 
 def _plan_dir() -> Path:
-    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.utils import jitcache
 
-    return Path(fs.BUILD_DIR) / "smoke"
+    return jitcache.build_dir() / "smoke"
 
 
 def _example(name: str) -> str:
@@ -1871,12 +2007,28 @@ def example_reports(device, explain: bool = False) -> None:
     """The example configs through the port's Applier, on the CPU (the
     plain versions) and on the card: the two reports equal; with
     `explain`, ``simon apply --explain``'s (the placement audit too), on
-    the [explain] variants."""
+    the [explain] variants. Phase 30 also runs the first config through
+    the CLI as a user runs it with a relocated build directory
+    (:func:`relocated_cli`), beside the others, and ``simon gen-doc``."""
+    relocated = None
+    if not explain:
+        _phase("30 example configs: simon apply on the card against the plain versions on the CPU; the first as a "
+               "user runs it with a relocated build directory; simon gen-doc")
+        relocated = relocated_cli(EXAMPLES[0][0], EXAMPLES[0][2])
+    try:
+        _example_reports(device, explain, relocated)
+    finally:
+        if relocated is not None and relocated["proc"].poll() is None:
+            relocated["proc"].kill()
+            relocated["proc"].wait()
+
+
+def _example_reports(device, explain: bool, relocated) -> None:
     from opensim_tpu_torch.ops import fast_scan as fs
     from opensim_tpu_torch.planner import apply
 
-    if not explain:
-        _phase("30 example configs: simon apply on the card against the plain versions on the CPU")
+    if relocated is not None:
+        gen_doc_check()
     root = _plan_dir() / "examples"
     root.mkdir(parents=True, exist_ok=True)
     for config, extended, variant in EXAMPLES:
@@ -1903,6 +2055,7 @@ def example_reports(device, explain: bool = False) -> None:
               f"{footer[0] if footer else ''}", flush=True)
         if not explain and config == EXAMPLES[0][0]:
             traced_apply(root, config, extended, variant, card_text)
+            relocated_cli_check(relocated, card_text, card_line())
 
 
 def traced_apply(root: Path, config: str, extended: list, variant: str, untraced: str) -> None:
@@ -3484,6 +3637,7 @@ def twin_plan(device, card: str, served) -> list:
     from opensim_tpu_torch.models.objects import ResourceTypes
     from opensim_tpu_torch.ops import fast_scan as fs
     from opensim_tpu_torch.server import admission, pool, rest
+    from opensim_tpu_torch.utils import jitcache
     from opensim_tpu_torch.utils.gcpause import gc_paused
 
     stub, kube, bodies = served["stub"], served["kube"], served["bodies"]
@@ -3646,7 +3800,7 @@ def twin_plan(device, card: str, served) -> list:
         # the subprocesses run where a user's would, on the card (a CPU
         # rehearsal of this phase names its device)
         dev_args = [] if torch.device(device).type == "cuda" else ["--device", str(device)]
-        built = {p.name: p.stat().st_mtime_ns for p in Path(fs.BUILD_DIR).glob("*.so")}
+        built = {p.name: p.stat().st_mtime_ns for p in jitcache.build_dir().glob("*.so")}
 
         def launch(tag: str):
             """Start ``simon server --watch on --journal`` in a subprocess;
@@ -3741,7 +3895,7 @@ def twin_plan(device, card: str, served) -> list:
             got = re.search(r"generation (\d+) \(checkpoint (\d+) \+ (\d+) replayed", log2.read_text())
             if got is None or int(got.group(3)) < len(w3):
                 raise AssertionError(f"the restart's recovery line: {got and got.group(0)}")
-            rebuilt = {p.name: p.stat().st_mtime_ns for p in Path(fs.BUILD_DIR).glob("*.so")}
+            rebuilt = {p.name: p.stat().st_mtime_ns for p in jitcache.build_dir().glob("*.so")}
             if rebuilt != built:
                 raise AssertionError("a subprocess rebuilt or added kernel variants")
             # the restarted server's request (its base prepare, in its own
@@ -4061,6 +4215,7 @@ def fleet_plan(device, card: str, twin: dict) -> tuple:
     from opensim_tpu_torch.server import rest
     from opensim_tpu_torch.server.fleet import FleetTwinClient
     from opensim_tpu_torch.server.loadgen import run_loadgen
+    from opensim_tpu_torch.utils import jitcache
 
     server, url, sup, key = twin["server"], twin["url"], twin["sup"], twin["key"]
     stub, kube, bodies, live, jd, root = (twin[k] for k in ("stub", "kube", "bodies", "live", "jd", "root"))
@@ -4229,7 +4384,7 @@ def fleet_plan(device, card: str, twin: dict) -> tuple:
             raise AssertionError("the fleet owner did not recover from the journal alone: "
                                  f"{ {k: v for k, v in m.items() if 'journal' in k[0] or 'relist' in k[0]} }, "
                                  f"{lists() - lists0} lists, {recovered and recovered.group(0)}")
-        if {p.name: p.stat().st_mtime_ns for p in Path(fs.BUILD_DIR).glob("*.so")} != twin["built"]:
+        if {p.name: p.stat().st_mtime_ns for p in jitcache.build_dir().glob("*.so")} != twin["built"]:
             raise AssertionError("the fleet rebuilt or added kernel variants")
         fp_ = st["shm"]
         print(f"fleet: owner serving {summary['start_s']:.3f} s after its start (recovered {recovered.group(0)}; no "
@@ -4486,6 +4641,144 @@ def _reap_orphans() -> None:
                 os.waitpid(int(entry), os.WNOHANG)
 
 
+def start_probe() -> dict:
+    """``utils/probe.accelerator_reachable(fresh=True)`` on a thread: its
+    child process (torch, a CUDA context, a sum read back) runs beside
+    whatever this process does meanwhile. Beside phase 2's 33 nvcc builds
+    on 8 cores it took 47 s, so it is given PROBE_TIMEOUT_S rather than the
+    CLI's 90 s. :func:`probe_verdict` joins it."""
+    from opensim_tpu_torch.utils import probe
+
+    run = {}
+
+    def go():
+        t0 = time.perf_counter()
+        run["ok"] = probe.accelerator_reachable(timeout_s=PROBE_TIMEOUT_S, fresh=True)
+        run["s"] = time.perf_counter() - t0
+
+    run["thread"] = threading.Thread(target=go, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def probe_verdict(run: dict, what: str) -> float:
+    """The verdict of a :func:`start_probe` run, True or raise, and its
+    seconds."""
+    run["thread"].join(timeout=PROBE_TIMEOUT_S + 30)
+    if run.get("ok") is not True:
+        raise AssertionError(f"{what}: the CUDA probe's verdict is {run.get('ok')}, want True")
+    return run["s"]
+
+
+def build_cache(probe_run: dict, card: str) -> None:
+    """Phase 2's probe and build-directory checks: the probe's child, run
+    beside the nvcc builds, found the card, and a read of its cached
+    verdict agrees; ``jitcache.cache_stats()`` is an independent sum of the
+    build directory's files; every variant's library lies in
+    ``jitcache.build_dir()``."""
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.utils import jitcache, probe
+
+    probe_s = probe_verdict(probe_run, "phase 2")
+    t0 = time.perf_counter()
+    cached = probe.accelerator_reachable()
+    cached_s = time.perf_counter() - t0
+    if not cached:
+        raise AssertionError("the cached CUDA probe verdict is not the probe's")
+    d = jitcache.build_dir()
+    files = [p for p in d.iterdir() if p.is_file()]
+    want = {"dir": str(d), "files": len(files), "bytes": sum(p.stat().st_size for p in files)}
+    got = jitcache.cache_stats()
+    if got != want:
+        raise AssertionError(f"jitcache.cache_stats() {got}, the directory holds {want}")
+    outside = [n for n, e in fs.BUILD_LOG["variants"].items() if Path(e["library"]).parent != d]
+    if outside:
+        raise AssertionError(f"libraries outside the build directory {d}: {outside}")
+    print(f"CUDA probe: verdict True in {probe_s:.3f} s (a child process beside nvcc), the cached verdict read in "
+          f"{cached_s:.6f} s; build directory {d}: {got['files']} files, {got['bytes']} bytes, as counted here; "
+          f"{len(fs.BUILD_LOG['variants'])} libraries in it ({card})", flush=True)
+
+
+def relocated_cli(config: str, variant: str) -> dict:
+    """Start ``simon apply -f <config>`` as a user runs it, without
+    ``--device``, in a child process whose ``OPENSIM_JIT_CACHE`` names a
+    new directory holding hard links (or copies) of `variant`'s library and
+    ptxas report only, and whose ``OPENSIM_PROBE_CACHE`` is this run's (the
+    verdict phase 2 cached). :func:`relocated_cli_check` holds what it did."""
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.utils import probe
+
+    cache = Path(tempfile.mkdtemp(prefix="smoke-relocated-"))
+    lib = fs._lib_path(fs.parse_variant(variant))
+    for src in (lib, lib.with_suffix(".ptxas")):
+        try:
+            os.link(src, cache / src.name)
+        except OSError:
+            shutil.copy2(src, cache / src.name)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    verdict = os.stat(probe.cache_path()).st_mtime_ns
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "opensim_tpu_torch", "apply", "-f", _example(config)],
+                            cwd=repo, env=dict(os.environ, OPENSIM_JIT_CACHE=str(cache), PYTHONPATH=repo),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return {"proc": proc, "t0": t0, "cache": cache, "files": _files(cache), "verdict": verdict,
+            "config": config, "variant": variant}
+
+
+def _files(d: Path) -> dict:
+    return {p.name: (p.stat().st_size, p.stat().st_mtime_ns) for p in d.iterdir()}
+
+
+def relocated_cli_check(run: dict, card_text: str, card: str) -> None:
+    """The child of :func:`relocated_cli`: exit 0, its report phase 30's
+    card report of the same config (counters in generated names aside), on
+    the card with `variant`; no nvcc ran (its build directory's files as
+    they were) and no second probe (the verdict's file untouched)."""
+    from opensim_tpu_torch.utils import probe
+
+    try:
+        out, err = run["proc"].communicate(timeout=300)
+    finally:
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+    wall = time.perf_counter() - run["t0"]
+    files, cache = _files(run["cache"]), run["cache"]
+    shutil.rmtree(cache, ignore_errors=True)
+    footer = [line for line in out.splitlines() if line.startswith("Scheduling engine: ")]
+    if run["proc"].returncode != 0:
+        raise AssertionError(f"simon apply with OPENSIM_JIT_CACHE={cache}: exit {run['proc'].returncode}: {err[-2000:]}")
+    if files != run["files"]:
+        raise AssertionError(f"simon apply changed its relocated build directory: {sorted(run['files'])} -> "
+                             f"{sorted(files)}")
+    if os.stat(probe.cache_path()).st_mtime_ns != run["verdict"]:
+        raise AssertionError("simon apply probed the card again instead of reading the cached verdict")
+    card_footer = [line for line in card_text.splitlines() if line.startswith("Scheduling engine: ")]
+    if _without_counters(out) != _without_counters(card_text) or footer != card_footer or \
+            f"Scheduling engine: {run['variant']} on cuda" not in footer:
+        raise AssertionError(f"simon apply with a relocated build directory printed another report: {footer}")
+    print(f"simon apply -f {run['config']} (no --device) in a child process, OPENSIM_JIT_CACHE={cache} holding "
+          f"{len(files)} files: exit 0 in {wall:.3f} s (beside phase 30), the cached probe verdict, no nvcc (the "
+          f"directory unchanged), the report phase 30's card report; {footer[0]} ({card})", flush=True)
+
+
+def gen_doc_check() -> None:
+    """``simon gen-doc`` into a temporary directory, in process: the index
+    and one file per subcommand (GEN_DOC_COMMANDS), each headed with its
+    name."""
+    from opensim_tpu_torch.cli import main as cli
+
+    with tempfile.TemporaryDirectory(prefix="smoke-gen-doc-") as out, contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        rc = cli.gen_doc(cli.build_parser(), out)
+        secs = time.perf_counter() - t0
+        names = sorted(os.listdir(out))
+        heads = {n: Path(out, n).read_text().split("\n", 1)[0] for n in names}
+    want = {"simon.md": "# simon", **{f"simon_{c.replace('-', '_')}.md": f"# simon {c}" for c in GEN_DOC_COMMANDS}}
+    if rc != 0 or heads != want:
+        raise AssertionError(f"simon gen-doc: rc {rc}, files {heads}")
+    print(f"simon gen-doc: {len(names)} files, each headed with its subcommand, in {secs:.3f} s", flush=True)
+
+
 def build_telemetry(build_log: dict, card: str) -> None:
     """Phase 2's build telemetry (``obs.profile.COMPILES``, the process's
     first build) against ``BUILD_LOG``: a compile per variant nvcc built,
@@ -4566,6 +4859,11 @@ def main() -> int:
     ]
 
     _phase("2 build")
+    # the CUDA probe's verdict cache for this run and the processes it
+    # starts, which read it instead of probing again within its TTL
+    probe_dir = tempfile.TemporaryDirectory(prefix="smoke-probe-")
+    os.environ["OPENSIM_PROBE_CACHE"] = os.path.join(probe_dir.name, "verdict")
+    probe_run = start_probe()
     small = [fi for _n, _p, fi in _small_preps("cpu")]
     variants = sorted({v for *_rest, v, _p in plans} | {fs.variant_name(fi) for fi in small}
                       | {v for *_rest, v in EXAMPLES} | set(CFG_VARIANTS) | set(EXPLAIN_VARIANTS) | {CAMPAIGN_VARIANT}
@@ -4579,6 +4877,7 @@ def main() -> int:
         secs = "cached" if entry["seconds"] is None else f"nvcc {entry['seconds']:.3f} s"
         print(f"  {name}: {secs}, ptxas {json.dumps(fs.ptxas_report(entry['ptxas']))}")
     build_telemetry(fs.BUILD_LOG, card)
+    build_cache(probe_run, card)
 
     _phase("3 small cases: kernel vs plain version, one scan and a sweep of drains each")
     small_cases(device)
@@ -4592,9 +4891,12 @@ def main() -> int:
     rows.extend(apply_rows)
     example_reports(device)
     apply_tail()  # phase 29's hog pods, held against their plain version on the CPU meanwhile
+    resumed = []
     rows.append(full_plan(device, "31-33 config plan", lambda: (fx.score_cluster(N_NODES, blocked=10),
                                                                 fx.score_apps(N_PODS, widget=True)),
-                          "fast_scan[na,tt,avoid,cfg]", CFG_PLAIN_PODS, sched_text=fx.SCHED_CONFIG_PLAN))
+                          "fast_scan[na,tt,avoid,cfg]", CFG_PLAIN_PODS, sched_text=fx.SCHED_CONFIG_PLAN,
+                          resume=resumed))
+    rows.extend(resumed)
     rows.append(two_profile_plan(device))
     rows.append(full_plan(device, "37-39 sampled plan", lambda: (fx.synthetic_cluster(N_NODES), fx.synthetic_apps(N_PODS)),
                           "fast_scan[sample]", SAMPLED_PLAIN_PODS, tie_seed=TIE_SEED))
@@ -4609,6 +4911,9 @@ def main() -> int:
     rows.append(apply_explain(device, card))
     server_rows, served = server_plan(device, card)
     rows.extend(server_rows)
+    # phase 2's verdict lasts 600 s: a fresh one, probed beside phases 54-64,
+    # is what the simon server processes of phases 67-68 (no --device) read
+    refresh = start_probe()
     try:
         steady_phase(device)
         kubeconfig_apply(device)
@@ -4619,10 +4924,13 @@ def main() -> int:
         rows.extend(storm_plan(device, card, served))
         _phase("the plain versions held on the CPU since their phases, compared before the twin's servers start")
         BACKGROUND.settle()
+        print(f"CUDA probe refreshed since phase 54: verdict True in {probe_verdict(refresh, 'the refresh'):.3f} s",
+              flush=True)
         rows.extend(twin_plan(device, card, served))
     finally:
         served["close"]()
     BACKGROUND.settle()  # the twin's and the fleet's rows
+    probe_dir.cleanup()
     print(f"smoke run {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,11 +1,14 @@
 """simon CLI of the port — ``python -m opensim_tpu_torch {apply, explain,
 defrag (drain), campaign, server, loadgen, top, dash, mem, profile, replay,
-version}``, the flags of ``opensim_tpu/cli/main.py``
+version, gen-doc}``, the flags of ``opensim_tpu/cli/main.py``
 (``cmd/apply/apply.go:27-36``, ``cmd/server/server.go``) plus ``--device``
 where a subcommand simulates. The run goes to the card unless ``--device
-cpu`` asks for the plain versions on the CPU; without a card and without
-that flag each of those subcommands fails (``server`` before it listens),
-and nothing falls back to the CPU. ``loadgen``, ``top``, ``dash``, ``mem``,
+cpu`` asks for the plain versions on the CPU; without ``--device``, each of
+those subcommands first probes the card in a child process
+(``utils/probe.py``), and without a reachable card it fails (``server``
+before it listens): nothing falls back to the CPU. ``gen-doc`` writes to
+``docs/commandline_torch`` by default, never the JAX package's
+``docs/commandline``. ``loadgen``, ``top``, ``dash``, ``mem``,
 ``profile`` and ``campaign --url`` drive or read a running server, which
 simulates on its own device; ``replay`` simulates only with
 ``--schedule``. Log level comes from the ``LogLevel`` env
@@ -301,6 +304,13 @@ def build_parser() -> argparse.ArgumentParser:
     replay_p.add_argument("-o", "--output-file", default="", help="also write the JSON summary to a file")
     replay_p.add_argument("--device", default=None, help=device_help)
     sub.add_parser("version", help="print version", description="print version and commit id")
+
+    doc_p = sub.add_parser(
+        "gen-doc", help="generate markdown docs for the CLI",
+        description="generate one markdown doc per subcommand plus an index",
+    )
+    # not the JAX package's docs/commandline, which this port must never overwrite
+    doc_p.add_argument("--output-dir", default="docs/commandline_torch", help="where to write the docs")
     return parser
 
 
@@ -872,13 +882,82 @@ def run_replay(args) -> int:
     return 0
 
 
+def _probes_the_card(args) -> bool:
+    """True for a subcommand that simulates on this process's device when
+    no ``--device`` names one: the probe runs first (``utils/probe.py``)."""
+    if getattr(args, "device", "") is not None:
+        return False
+    if args.command == "campaign":
+        return not args.url
+    if args.command == "replay":
+        return args.schedule > 0
+    return args.command in ("apply", "explain", "defrag", "drain", "server")
+
+
+def gen_doc(parser: argparse.ArgumentParser, output_dir: str) -> int:
+    """Markdown CLI docs — one file per subcommand plus a root index, the
+    same tree cobra/doc emits for the reference
+    (cmd/doc/generate_markdown.go:33 → docs/commandline/simon_apply.md …),
+    in ``opensim_tpu/cli/main.py``'s layout and text."""
+    output_dir = user_path(output_dir, label="--output-dir")
+    os.makedirs(output_dir, exist_ok=True)
+    sub_actions = [a for a in parser._actions if isinstance(a, argparse._SubParsersAction)]
+    commands = []
+    seen_parsers = set()  # aliases map to the same parser: document once
+    for action in sub_actions:
+        for name, sp in action.choices.items():
+            if id(sp) in seen_parsers:
+                continue
+            seen_parsers.add(id(sp))
+            commands.append((name, sp))
+    written = []
+    with open(os.path.join(output_dir, "simon.md"), "w") as f:
+        f.write(f"# simon\n\n{parser.description}\n\n```\n{parser.format_help()}```\n\n")
+        f.write("## Commands\n\n")
+        for name, sp in commands:
+            f.write(f"- [simon {name}](simon_{name.replace('-', '_')}.md) — {sp.description or ''}\n")
+    written.append("simon.md")
+    for name, sp in commands:
+        fname = f"simon_{name.replace('-', '_')}.md"
+        with open(os.path.join(output_dir, fname), "w") as f:
+            f.write(f"# simon {name}\n\n{sp.description or sp.prog}\n\n")
+            f.write(f"```\n{sp.format_help()}```\n\n[simon](simon.md)\n")
+        written.append(fname)
+    print(f"docs written to {output_dir}: {', '.join(written)}")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
+    # the kernel build cache: repeated simon invocations load the variants
+    # already built instead of paying nvcc again; opt out / relocate with
+    # OPENSIM_JIT_CACHE (utils/jitcache.py)
+    from ..utils.jitcache import maybe_enable as _enable_build_cache
+
+    _enable_build_cache(default=True)
     level = LOG_LEVELS.get(os.environ.get("LogLevel", "info").lower(), logging.INFO)
     logging.basicConfig(level=level, format="%(levelname)s %(message)s")
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     if args.command == "version":
         print(f"simon version: {VERSION}, commit: {COMMIT_ID}")
         return 0
+    if args.command == "gen-doc":
+        try:
+            return gen_doc(parser, args.output_dir)
+        except (OSError, ValueError) as e:
+            print(f"simon gen-doc: {e}", file=sys.stderr)
+            return 1
+    if _probes_the_card(args):
+        # before anything asks CUDA (resolve_device included): a wedged
+        # card would hang that call; a failed probe is an error, never
+        # a fall back to the CPU
+        from ..utils.probe import ensure_card
+
+        try:
+            ensure_card()
+        except RuntimeError as e:
+            print(f"simon {args.command}: {e}", file=sys.stderr)
+            return 1
     if args.command == "server":
         from ..server.rest import serve
 
@@ -915,5 +994,5 @@ def main(argv: Optional[List[str]] = None) -> int:
             # later slices (NotImplementedError) fail like a bad input
             print(f"simon {args.command}: {e}", file=sys.stderr)
             return 1
-    build_parser().print_help()
+    parser.print_help()
     return 0

@@ -9,7 +9,8 @@ them with the reference's vocabulary: a *boundary* is a variant name, a
 in the process and ``static`` for each later new variant; ``backend`` sums
 every ``nvcc`` build in the process; ``cache_events`` counts ``hit`` (the
 variant's library was already in the build directory) and ``miss`` (``nvcc``
-ran); ``persistent_cache`` is the build directory's file count and bytes.
+ran); ``persistent_cache`` is the build directory's file count and bytes
+(``utils/jitcache.cache_stats``, None before the directory exists).
 
 **Cumulative phase profiles.** :class:`PhaseProfile` folds every recorded
 trace's span tree into per-span-name accumulators: call count, inclusive
@@ -27,11 +28,11 @@ FAMILIES). Framework-free: nothing here imports torch.
 from __future__ import annotations
 
 import math
-import os
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
+from ..utils import jitcache
 from .metrics import DEFAULT_BUCKETS, escape_label_value, family_header
 
 __all__ = [
@@ -70,25 +71,6 @@ def _quantile(counts: List[int], total: int, q: float) -> float:
 # ---------------------------------------------------------------------------
 
 
-def _dir_stats(path: str) -> Optional[dict]:
-    """``{"dir", "files", "bytes"}`` over the files directly in a build
-    directory (the libraries and their ptxas reports), None when it does not
-    exist. An O(entries) scan, for debug and metrics reads only."""
-    files = total = 0
-    try:
-        with os.scandir(path) as it:
-            for entry in it:
-                try:
-                    if entry.is_file():
-                        files += 1
-                        total += entry.stat().st_size
-                except OSError:
-                    continue  # removed mid-scan (a concurrent build's temp file)
-    except OSError:
-        return None
-    return {"dir": path, "files": files, "bytes": total}
-
-
 class CompileWatch:
     """Per-variant ``nvcc`` build accounting, process-wide."""
 
@@ -99,10 +81,9 @@ class CompileWatch:
         self._backend_compiles = 0  # guarded-by: _lock
         self._backend_seconds = 0.0  # guarded-by: _lock
         self._cache_events: Dict[str, int] = {}  # guarded-by: _lock
-        self._cache_dir: Optional[str] = None  # guarded-by: _lock
 
-    def record_build(self, name: str, seconds: float, cache_dir: str) -> None:
-        """One ``nvcc`` run of variant `name` into `cache_dir`."""
+    def record_build(self, name: str, seconds: float) -> None:
+        """One ``nvcc`` run of variant `name` into the build directory."""
         with self._lock:
             cause = "first" if not self._fns else "static"
             fn = self._fns.setdefault(name, {"compiles": 0, "seconds": 0.0, "causes": {}})
@@ -112,18 +93,11 @@ class CompileWatch:
             self._backend_compiles += 1
             self._backend_seconds += seconds
             self._cache_events["miss"] = self._cache_events.get("miss", 0) + 1
-            self._cache_dir = cache_dir
 
-    def record_hit(self, cache_dir: str) -> None:
-        """A variant loaded from a library already in `cache_dir`."""
+    def record_hit(self) -> None:
+        """A variant loaded from a library already in the build directory."""
         with self._lock:
             self._cache_events["hit"] = self._cache_events.get("hit", 0) + 1
-            self._cache_dir = cache_dir
-
-    def _persistent(self) -> Optional[dict]:
-        with self._lock:
-            cache_dir = self._cache_dir
-        return None if cache_dir is None else _dir_stats(cache_dir)
 
     # -- views ---------------------------------------------------------------
 
@@ -144,7 +118,7 @@ class CompileWatch:
                 "backend": {"compiles": self._backend_compiles, "seconds": round(self._backend_seconds, 6)},
                 "cache_events": dict(sorted(self._cache_events.items())),
             }
-        out["persistent_cache"] = self._persistent()
+        out["persistent_cache"] = jitcache.cache_stats()
         return out
 
     def metrics_lines(self) -> List[str]:
@@ -171,7 +145,7 @@ class CompileWatch:
                 lines += family_header("simon_jitcache_events_total")
                 lines += [f'simon_jitcache_events_total{{event="{esc(ev)}"}} {n}'
                           for ev, n in sorted(self._cache_events.items())]
-        stats = self._persistent()
+        stats = jitcache.cache_stats()
         if stats is not None:
             lines += [
                 *family_header("simon_jitcache_persistent_files"),

@@ -84,6 +84,7 @@ import torch
 
 from ..encoding import vocab as V
 from ..obs.profile import COMPILES
+from ..utils import jitcache
 from .kernels import F_FIT, F_GPU, F_INTERPOD, F_LOCAL, F_PORTS, F_SPREAD, NUM_FILTERS, SCORE_PARTS, KernelConfig
 
 NEG = -1e30
@@ -149,7 +150,6 @@ SWEEP_LAUNCHED: Dict[str, dict] = {}
 _LAUNCH_LOCK = threading.Lock()
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "fast_scan.cu"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -599,20 +599,22 @@ def _nvcc() -> str:
 
 
 def _lib_path(v: Variant) -> Path:
+    """The variant's library in the build directory (``utils/jitcache``)."""
     bits = _bits(v)
     tag = hashlib.sha1(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode() + str(bits).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"fast_scan-{tag}-v{bits}.so"
+    return jitcache.build_dir() / f"fast_scan-{tag}-v{bits}.so"
 
 
 def build(names: Iterable[str]) -> None:
     """Compile and load the named kernel variants (:func:`variant_name`
     strings): one ``nvcc -DFS_VARIANT=<bits>`` per variant not yet built,
-    all started together, into ``_build/`` (cached by source, flags and
-    variant; ptxas's log beside each library). Raises when a build fails;
-    there is no fallback. One build runs at a time (``_BUILD_LOCK``): two
-    threads that launch the same variant at once (the server's two
-    endpoints) compile it once, and a launch of a loaded variant does not
-    wait for another's compile."""
+    all started together, into the build directory (``utils/jitcache``:
+    ``_build/`` unless ``OPENSIM_JIT_CACHE`` names another; cached by
+    source, flags and variant; ptxas's log beside each library). Raises
+    when a build fails; there is no fallback. One build runs at a time
+    (``_BUILD_LOCK``): two threads that launch the same variant at once
+    (the server's two endpoints) compile it once, and a launch of a loaded
+    variant does not wait for another's compile."""
     names = list(names)
     if all(n in _LIBS for n in names):
         return
@@ -625,12 +627,12 @@ def _build_locked(names: List[str]) -> None:
     todo = {n: parse_variant(n) for n in names if n not in _LIBS}
     if not todo:
         return
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jitcache.build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, v in todo.items():
         path = _lib_path(v)
         if path.exists():
-            COMPILES.record_hit(str(BUILD_DIR))
+            COMPILES.record_hit()
             continue
         tmp = path.with_suffix(f".{time.time_ns()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, f"-DFS_VARIANT={_bits(v)}", "-o", str(tmp), str(_SRC)]
@@ -646,7 +648,7 @@ def _build_locked(names: List[str]) -> None:
         else:
             path.with_suffix(".ptxas").write_text(err)  # before the library, which marks the build done
             tmp.replace(path)
-            COMPILES.record_build(name, log[name]["seconds"], str(BUILD_DIR))
+            COMPILES.record_build(name, log[name]["seconds"])
     if failed:
         raise RuntimeError("fast_scan: nvcc failed for " + "\n".join(failed))
     for name, v in todo.items():

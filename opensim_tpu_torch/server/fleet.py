@@ -109,7 +109,7 @@ from ..obs.metrics import (
 )
 from ..resilience import faults
 from ..resilience.retry import backoff_delay
-from ..utils import envknobs
+from ..utils import envknobs, jitcache
 from ..utils.gcpause import CollectorWatch, gc_paused
 
 if TYPE_CHECKING:
@@ -1565,7 +1565,9 @@ class FleetSupervisor:
     # -- workers -------------------------------------------------------------
 
     def _spawn(self, w: _Worker) -> None:
-        env = dict(os.environ)
+        # the owner's build directory: the worker loads the variants
+        # _build_variants built, under OPENSIM_JIT_CACHE=0 too
+        env = jitcache.export(dict(os.environ))
         env["OPENSIM_FLEET_ATTACH"] = self.publisher.control.name
         env["OPENSIM_FLEET_INTERNAL_PORT"] = str(w.internal_port)
         if self.lease is not None:
@@ -1911,7 +1913,8 @@ def _make_admin_handler(box: _RoleBox):
 def _build_variants(supervisor, device) -> None:
     """On the card, build the kernel variants the workers' requests launch
     on the twin's snapshot (``rest.serving_variants``) before any worker
-    spawns: the workers then only load them from ``_build/``, and no
+    spawns: the workers then only load them from the owner's build
+    directory (``utils/jitcache``, handed to each in its environment), and no
     request pays a build."""
     if device.type != "cuda":
         return

@@ -397,15 +397,16 @@ def _boot_server(kubeconfig: str, port: int, admission: bool, batch_max: int,
     import subprocess
     import sys
 
+    from ..utils import jitcache
     from ..utils.procgroup import spawn_group
 
     repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    env = dict(
+    env = jitcache.export(dict(
         os.environ,
         OPENSIM_ADMISSION="on" if admission else "off",
         OPENSIM_BATCH_MAX=str(batch_max),
         PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
-    )
+    ))
     if queue_bound:
         env["OPENSIM_QUEUE_BOUND"] = str(queue_bound)
     if pipeline is not None:

@@ -1,10 +1,10 @@
 """Typed registry of the ``OPENSIM_*`` environment knobs the port reads —
 the port's copy of ``opensim_tpu/utils/envknobs.py``, holding the knobs of
-the modules it has (the server and its admission queue, the snapshot, the
-live twin and its journal, the serving fleet and its HA control plane, the
-resilience layer, the request tracer, the time-series ring and SLO engine,
-the capacity observatory, the memory observatory and the campaign
-planner).
+the modules it has (the kernel build cache and the CUDA probe, the server
+and its admission queue, the snapshot, the live twin and its journal, the
+serving fleet and its HA control plane, the resilience layer, the request
+tracer, the time-series ring and SLO engine, the capacity observatory, the
+memory observatory and the campaign planner).
 
 Every read goes through :func:`raw`, which fails loudly on an
 unregistered name, so a knob cannot ship undocumented and a typo'd name
@@ -103,6 +103,14 @@ def _enum(*choices: str) -> Callable[[str], str]:
 
 
 for _knob in (
+    # the kernel build cache and the CUDA probe (utils/jitcache.py, utils/probe.py)
+    Knob("OPENSIM_JIT_CACHE", "spec", "",
+         "Kernel build cache (the `nvcc` libraries of ops/fast_scan.py): unset or `1` = opensim_tpu_torch/_build/, "
+         "a path = build and load there, `0` = no reuse (a temporary directory of the process's own, removed at "
+         "exit; every variant compiles cold). An unwritable directory warns and builds as `0`."),
+    Knob("OPENSIM_PROBE_CACHE", "path", "",
+         "CUDA probe verdict cache file (default: opensim-tpu-torch-probe-<uid> in the temporary directory); a "
+         "failed probe is an error, never a CPU fallback."),
     # resilience (resilience/, server/snapshot.py)
     Knob("OPENSIM_REQUEST_TIMEOUT_S", "float", "",
          "Default per-request deadline in seconds (the `X-Simon-Timeout-S` header wins; unset/0 = unbounded)."),

@@ -30,6 +30,7 @@ from opensim_tpu_torch.models.objects import ResourceTypes
 from opensim_tpu_torch.obs import profile, trace as tracing
 from opensim_tpu_torch.ops import fast_scan as fs
 from opensim_tpu_torch.server import rest
+from opensim_tpu_torch.utils import jitcache
 
 #: (endpoint, [(span name, start, end, parent index or None)]) per trace:
 #: fixed times, so both packages fold the same durations
@@ -121,7 +122,7 @@ def fake_nvcc(tmp_path, monkeypatch):
     script.chmod(script.stat().st_mode | stat.S_IEXEC)
     watch = profile.CompileWatch()
     monkeypatch.setattr(fs, "_nvcc", lambda: str(script))
-    monkeypatch.setattr(fs, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(jitcache, "_DIR", tmp_path / "_build")
     monkeypatch.setattr(fs, "_LIBS", {})
     monkeypatch.setattr(fs, "_PTXAS", {})
     monkeypatch.setattr(fs, "BUILD_LOG", {"seconds": None, "variants": {}})
@@ -146,7 +147,7 @@ def test_build_telemetry_counts_nvcc_runs_and_cache_hits(fake_nvcc, monkeypatch)
         assert b["seconds"] == round(log[name]["seconds"], 6) and b["distinct_signatures"] == 1
     assert snap["cache_events"] == {"miss": 2}
     assert snap["persistent_cache"]["files"] == 4  # two libraries, two ptxas reports
-    assert snap["persistent_cache"]["dir"] == str(fs.BUILD_DIR)
+    assert snap["persistent_cache"]["dir"] == str(jitcache.build_dir())
     fs.build(["fast_scan"])  # loaded: nothing happens
     assert fake_nvcc.snapshot()["cache_events"] == {"miss": 2}
     monkeypatch.setattr(fs, "_LIBS", {})
@@ -163,10 +164,11 @@ def test_build_telemetry_counts_nvcc_runs_and_cache_hits(fake_nvcc, monkeypatch)
     assert fake_nvcc.snapshot()["backend"] == {"compiles": 0, "seconds": 0.0}
 
 
-def test_compile_watch_without_builds():
+def test_compile_watch_without_builds(tmp_path, monkeypatch):
     """Before any build: no boundary, no build directory, the backend
     totals at zero, as the JAX package's watch reports a process that
     compiled nothing."""
+    monkeypatch.setattr(jitcache, "_DIR", tmp_path / "not-built-yet")
     watch = profile.CompileWatch()
     snap = watch.snapshot()
     assert snap == {"boundaries": {}, "backend": {"compiles": 0, "seconds": 0.0}, "cache_events": {},

@@ -39,6 +39,7 @@ from opensim_tpu_torch.ops import fast_scan as fs
 from opensim_tpu_torch.planner import apply
 from opensim_tpu_torch.server import rest, snapshot
 from opensim_tpu_torch.server.stubapi import StubApiServer
+from opensim_tpu_torch.utils import jitcache
 from opensim_tpu_torch.utils.trace import PREP_STATS
 
 N_NODES, N_PODS = 24, 240  # the capacity plan cut to 24 nodes: 10 Deployments bound, 10 requested
@@ -433,7 +434,7 @@ def test_build_compiles_each_variant_once_under_two_threads(monkeypatch, tmp_pat
             return "", "ptxas info    : Used 32 registers"
 
     lib = types.SimpleNamespace(fast_scan_launch=types.SimpleNamespace(), fast_scan_sweep_launch=types.SimpleNamespace())
-    monkeypatch.setattr(fs, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(jitcache, "_DIR", tmp_path)
     monkeypatch.setattr(fs, "_nvcc", lambda: "nvcc")
     monkeypatch.setattr(fs.subprocess, "Popen", FakeProc)
     monkeypatch.setattr(fs.ctypes, "CDLL", lambda path: lib)

@@ -36,9 +36,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.utils import jitcache
 
-    fs.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = fs.BUILD_DIR / "cluster_probe.so"
+    build_dir = jitcache.build_dir()
+    build_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = build_dir / "cluster_probe.so"
     cmd = [fs._nvcc(), *fs.NVCC_FLAGS, "-DFS_VARIANT=0", "-o", str(lib_path), str(SRC)]
     done = subprocess.run(cmd, capture_output=True, text=True)
     if done.returncode != 0:
