@@ -40,7 +40,14 @@ launch of the scenario grid, which runs up to fast_scan.SWEEP_B_MAX
 scenarios to a block in lockstep, its rows held against single-scenario
 launches over the whole stream; then a grid of 1,001 scenarios, whose
 last block holds one, its last two rows against their own launches and,
-with its first two, against the plain sweep over prefixes. Last, the
+with its first two, against the plain sweep over prefixes; then (phase
+23b) the first 999 of those drains through ``scenarios.sweep_auto`` split
+over the mesh ``[cuda:0, cuda:0]``: two launches of the grid, the second
+shard padded by repeating the last drain, every output of each shard
+phase 23's grid rows bit for bit. Phase 3b drives the graft entry points
+(``graft_entry``): ``entry()``'s torch scan on the card against the one
+scan on the same tiny input, and ``dryrun_multichip(2)`` over ``[cuda:0,
+cuda:0]`` (two grid launches) against the unsplit sweep. Last, the
 over-subscribed capacity plan (the capacity fleet with 10 pods bound to a
 missing node, then 2,000 pods of 48 cores on the hdd nodes and 4,000 of 40
 cores anywhere, then the capacity plan's 50,000 pods; 1,010 pods find no
@@ -277,6 +284,9 @@ N_PODS = 50000
 N_SCENARIOS = 1000
 PLAIN_SCENARIOS, PLAIN_PODS = 2, 2000
 LATE_PODS = 2000
+#: Phase 23b splits the first SPLIT_SCENARIOS of those drains over two
+#: shards: an odd count, so that the second shard is padded.
+SPLIT_SCENARIOS = N_SCENARIOS - 1
 #: The over-subscribed plan's pods before the capacity plan's 50,000: 10
 #: strays, 2,000 and 4,000 hog pods; the plain version checks them all.
 OVER_HEAD = 6010
@@ -587,6 +597,68 @@ def small_cases(device) -> None:
     print(f"{len(held)} launches identical to the plain version on the CPU on all ten outputs", flush=True)
     if masked_failures == 0:
         raise AssertionError("no masked small case had a pod that found no node")
+
+
+def graft_entry_phase(device) -> None:
+    """Phase 3b: the port's graft entry points on the card.
+    ``graft_entry.entry()``'s function (the torch reference scan) on its
+    example arguments, held equal to the one-scan kernel on the same tiny
+    prepared input (placements and final usage); ``dryrun_multichip(2)``
+    over the mesh ``[cuda:0, cuda:0]``, exactly two grid launches, held
+    equal on every output to the unsplit ``sweep_auto`` of the same masks
+    (one launch: ``default_mesh()`` is None on one card)."""
+    from opensim_tpu_torch import graft_entry
+    from opensim_tpu_torch.engine import fastpath
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.parallel import scenarios
+
+    _phase("3b graft entry points: graft_entry.entry() against the one scan, dryrun_multichip(2) over "
+           "[cuda:0, cuda:0] against the unsplit sweep")
+    fn, args = graft_entry.entry()
+    t0 = time.perf_counter()
+    chosen, used = fn(*args)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    prep = graft_entry._tiny_prepared(device=device)
+    fi, _ = fastpath.build_inputs(prep)
+    _reset_launches()
+    one = fs.fast_scan(fi, *fastpath.pod_stream(prep))
+    if dict(fs.VARIANT_LAUNCHES) != {fs.variant_name(fi): 1}:
+        raise AssertionError(f"the tiny input's one scan launched {dict(fs.VARIANT_LAUNCHES)}")
+    if chosen.device != one.chosen.device or not torch.equal(chosen, one.chosen) or not torch.equal(used, one.used.T):
+        raise AssertionError("graft_entry.entry()'s scan differs from the one-scan kernel on the same input")
+    print(f"entry(): {len(chosen)} pods on {used.shape[0]} nodes through the torch scan on the card in "
+          f"{entry_s:.3f} s, placements and usage equal to {fs.variant_name(fi)}'s", flush=True)
+
+    seen = {}
+
+    def keep(real):
+        def run(prep, *a, **kw):
+            seen.update(prep=prep, args=a, kw=kw, res=real(prep, *a, **kw))
+            return seen["res"]
+        return run
+
+    grid_name = fs.sweep_name(fi)
+    mesh = [torch.device(torch.device(device).type, 0)] * 2
+    _reset_launches()
+    with _patched(scenarios, "sweep_auto", keep):
+        unscheds, best = graft_entry.dryrun_multichip(2, devices=mesh)
+    split = dict(fs.VARIANT_LAUNCHES)
+    if split != {grid_name: 2} or seen["kw"].get("mesh") != mesh:
+        raise AssertionError(f"dryrun_multichip(2) over {mesh} launched {split}, want two {grid_name}")
+    if scenarios.default_mesh() is not None:
+        raise AssertionError(f"default_mesh() on one card is {scenarios.default_mesh()}, want None")
+    _reset_launches()
+    whole = scenarios.sweep_auto(seen["prep"], *seen["args"])
+    if dict(fs.VARIANT_LAUNCHES) != {grid_name: 1}:
+        raise AssertionError(f"the unsplit sweep launched {dict(fs.VARIANT_LAUNCHES)}, want one {grid_name}")
+    for field in scenarios.SweepResult._fields:
+        if not np.array_equal(_bits(getattr(seen["res"], field)), _bits(getattr(whole, field))):
+            raise AssertionError(f"dryrun_multichip's split sweep differs from the unsplit one in {field}")
+    if unscheds != whole.unscheduled.tolist():
+        raise AssertionError("dryrun_multichip's unscheduled counts differ from the unsplit sweep's")
+    print(f"dryrun_multichip(2) over {[str(d) for d in mesh]}: launches {split}, every output equal to the unsplit "
+          f"sweep's (launches {{{grid_name!r}: 1}}); unscheduled {unscheds}, best {best}", flush=True)
 
 
 def _sched_config(prep, text: str, name: str):
@@ -932,11 +1004,13 @@ def checkpoint_resume(label: str, variant: str, prep, cfg, whole, tmpl, valid, f
 def drain_sweep(device) -> tuple:
     """plan_drains() on the capacity plan with N_SCENARIOS drain scenarios
     (one launch of the scenario grid), the grid's rows against
-    single-scenario launches and against the plain sweep, the grid timed
-    alone. Returns its row of the kernels table, plan_drains()' plans and
-    the timed grid (``fi``, ``args``, ``out``) with the plain sweep's
-    placements of its scenarios 0-1 over PLAIN_PODS pods (``plain``, and
-    ``plain_ms``), which phase 56 holds ``simon defrag``'s grid against."""
+    single-scenario launches and against the plain sweep (in BACKGROUND's
+    processes), the grid timed alone. Returns its row of the kernels
+    table, plan_drains()' plans and the timed grid (``fi``, ``args``,
+    ``out``, ``ms``, its ``prep``) with the plain sweep of its scenarios
+    0-1 over PLAIN_PODS pods under way (``plain``, a :class:`_Held` whose
+    future gives the plain outputs and their seconds), which phases 23b
+    and 56 hold their grids' heads against."""
     from opensim_tpu_torch.engine import fastpath, simulator as sim
     from opensim_tpu_torch.models import fixtures as fx
     from opensim_tpu_torch.ops import fast_scan as fs
@@ -1015,29 +1089,22 @@ def drain_sweep(device) -> tuple:
         raise AssertionError(f"the ragged grid ran as {fs.SWEEP_LAUNCHED['fast_scan_sweep']['grid']}, not {ragged}")
     print(f"scenarios {late} of the {S_r}-scenario grid identical to single-scenario launches over the whole "
           f"stream", flush=True)
-    plain_ms, head_plain = 0.0, {}
+    # the plain sweeps run in BACKGROUND's processes while the card goes on;
+    # phases 23b and 56 hold their grids' heads against the first
+    held = []
     for rows, pods in ((slice(0, PLAIN_SCENARIOS), PLAIN_PODS), (slice(late[0], late[-1] + 1), LATE_PODS)):
         head = [t[:, :pods].contiguous() for t in grid_r[:2]] + grid_r[2:]
         got = fs.fast_scan_sweep(fi, tmpl_r[:pods].contiguous(), *head)  # all S_r scenarios
-        got = fs.FastOutputs(*(t[rows] for t in got))
-        plain = [None]
-
-        def run_plain():
-            plain[0] = fs.fast_scan_sweep_reference(fi, tmpl_r[:pods].contiguous(), *(t[rows] for t in head))
-
-        ms_rows = _events_ms(run_plain, reps=1)
-        plain_ms += ms_rows
-        head_plain.setdefault("plain", plain[0])
-        head_plain.setdefault("plain_ms", ms_rows)
-        err = max(err, _same(got, plain[0], f"sweep scenarios {rows.start}-{rows.stop - 1} x {pods} pods vs plain"))
-        print(f"scenarios {rows.start}-{rows.stop - 1} of the grid x {pods} pods identical to the plain sweep "
-              f"(plain {ms_rows:.3f} ms)", flush=True)
+        held.append(BACKGROUND.hold(f"sweep scenarios {rows.start}-{rows.stop - 1} of the {S_r}-scenario grid x {pods} "
+                                    "pods", fs.FastOutputs(*(t[rows] for t in got)), fi,
+                                    [tmpl_r[:pods].contiguous(), *(t[rows] for t in head)], sweep=True))
+        print(f"scenarios {rows.start}-{rows.stop - 1} of the grid x {pods} pods held against the plain sweep on the "
+              "CPU", flush=True)
     work = fs.fast_scan_work(fi, tmpl, grid[0], grid[1], sweep.chosen, grid[2])
     t_bytes = work["bytes"] / PEAK_BYTES_S * 1e3
     t_ops = work["ops"] / PEAK_F32_S * 1e3
-    print(f"plain {plain_ms:.3f} ms in all; bound {max(t_bytes, t_ops):.6f} ms "
-          f"({work['bytes']} B, {work['ops']} flop)", flush=True)
-    return {
+    print(f"bound {max(t_bytes, t_ops):.6f} ms ({work['bytes']} B, {work['ops']} flop)", flush=True)
+    row = {
         "name": "fast_scan_sweep",
         "route": "cuda",
         "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu",
@@ -1045,7 +1112,7 @@ def drain_sweep(device) -> tuple:
         "launches": launches,
         "max_abs_err": err,
         "ms": ms,
-        "plain_ms": plain_ms,
+        "plain_ms": 0.0,  # the plain sweeps' seconds in their worker processes, added when BACKGROUND settles
         "scenarios": N_SCENARIOS,
         "pods": int(tmpl.shape[0]),
         "b": grid_shape.b,
@@ -1063,7 +1130,117 @@ def drain_sweep(device) -> tuple:
         "plan_drains_timings": result.timings,
         "scenarios_per_s": len(plans) / wall,
         "drainable": len(result.drainable()),
-    }, plans, {"fi": fi, "args": (tmpl, *grid), "out": sweep, **head_plain}
+    }
+    for h in held:
+        h.fill(row)
+    return row, plans, {"fi": fi, "args": (tmpl, *grid), "out": sweep, "ms": ms, "prep": prep, "plain": held[0]}
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    """A float32 array's bits, so that equality is bit for bit."""
+    return a.view(np.uint32) if a.dtype == np.float32 else a
+
+
+def split_sweep(device, drain_plans, drain_grid: dict, card: str) -> dict:
+    """Phase 23b: phase 23's drains cut to SPLIT_SCENARIOS, through
+    ``scenarios.sweep_auto`` over the mesh ``[cuda:0, cuda:0]``: exactly
+    two grid launches (the second shard padded with the last drain), each
+    timed with CUDA events, each shard's inputs phase 23's grid rows and
+    every output of each shard those rows' bit for bit; the joined result's
+    placements and usage phase 23's rows 0 to SPLIT_SCENARIOS - 1, its
+    unscheduled counts phase 22's plans, its head phase 24's plain sweep.
+    Takes ``prep`` out of `drain_grid`. Returns its kernels-table row."""
+    from opensim_tpu_torch.engine import fastpath
+    from opensim_tpu_torch.ops import fast_scan as fs
+    from opensim_tpu_torch.parallel import scenarios
+    from opensim_tpu_torch.planner import defrag
+
+    S, mesh = SPLIT_SCENARIOS, [torch.device(torch.device(device).type, 0)] * 2
+    per = -(-S // len(mesh))
+    _phase(f"23b drain sweep split: sweep_auto() over {[str(d) for d in mesh]}, phase 23's first {S} drains "
+           f"({per} a shard, the second padded), against phase 23's one-launch grid")
+    prep, fi0 = drain_grid.pop("prep"), drain_grid["fi"]
+    if scenarios.default_mesh() is not None:
+        raise AssertionError(f"default_mesh() on one card is {scenarios.default_mesh()}, want None")
+    node_valid, pod_valid, forced = defrag.drain_masks(prep, list(range(S)))
+    launched = []
+
+    def timed(real):
+        def run(fi, *args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(fi, *args, **kw)
+            end.record()
+            launched.append((fi, args, out, start, end))
+            return out
+        return run
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    with _patched(fastpath, "fast_scan_sweep", timed):
+        res = scenarios.sweep_auto(prep, node_valid, pod_valid, forced_masks=forced, mesh=mesh)
+    wall = time.perf_counter() - t0
+    launches = dict(fs.VARIANT_LAUNCHES)
+    if launches != {"fast_scan_sweep": 2} or len(launched) != 2:
+        raise AssertionError(f"sweep_auto over {mesh} launched {launches}, want exactly two fast_scan_sweep")
+    torch.cuda.synchronize()
+    shard_ms = [start.elapsed_time(end) for *_rest, start, end in launched]
+    grid_args, grid_out = drain_grid["args"], drain_grid["out"]
+    err, work = 0.0, {"bytes": 0, "ops": 0}
+    for k, (fi, args, out, _s, _e) in enumerate(launched):
+        rows = torch.tensor([min(r, S - 1) for r in range(k * per, (k + 1) * per)], device=device)
+        differ = [name for name in fs.FastInputs._fields
+                  if not (torch.equal(getattr(fi, name), getattr(fi0, name)) if torch.is_tensor(getattr(fi, name))
+                          else getattr(fi, name) == getattr(fi0, name))]
+        differ += [f"argument {i}" for i, (a, b) in enumerate(zip(args, (grid_args[0], *(t[rows] for t in grid_args[1:]))))
+                   if not torch.equal(a, b)]
+        if differ:
+            raise AssertionError(f"shard {k}'s inputs differ from phase 23's grid rows: {differ}")
+        err = max(err, _same(out, fs.FastOutputs(*(t[rows] for t in grid_out)),
+                             f"shard {k} vs phase 23's grid rows {k * per}-{(k + 1) * per - 1}"))
+        w = fs.fast_scan_work(fi, args[0], args[1], args[2], out.chosen, args[3])
+        work = {key: work[key] + w[key] for key in work}
+    if not (np.array_equal(res.chosen, grid_out.chosen[:S].cpu().numpy())
+            and np.array_equal(_bits(res.used), _bits(grid_out.used[:S].transpose(1, 2).cpu().numpy()))):
+        raise AssertionError(f"the split sweep's placements or usage differ from phase 23's rows 0-{S - 1}")
+    if res.unscheduled.tolist() != [p.unscheduled for p in drain_plans[:S]]:
+        raise AssertionError("the split sweep's unscheduled counts differ from phase 22's plans")
+    plain, _secs = drain_grid["plain"].future.result()
+    head = fs.FastOutputs(*(t[:PLAIN_SCENARIOS, :PLAIN_PODS].cpu() if f in ("chosen", "gpu_take") else t
+                            for f, t in zip(fs.FastOutputs._fields, launched[0][2])))  # the plain sweep ran on the CPU
+    err = max(err, _same(head, plain, f"shard 0, scenarios 0-{PLAIN_SCENARIOS - 1} x {PLAIN_PODS} pods, vs phase "
+                                      "24's plain sweep", ("chosen", "gpu_take")))
+    grid = fs.sweep_grid(per, N_NODES, torch.cuda.get_device_properties(device).multi_processor_count)
+    t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
+    ms = sum(shard_ms)
+    print(f"split sweep: {S} scenarios as {len(mesh)} shards of {per} ({grid.b} a block, {grid.blocks} blocks "
+          f"each), launches {launches}, kernel {ms:.3f} ms ({', '.join(f'{t:.3f}' for t in shard_ms)}) against "
+          f"the one launch's {drain_grid['ms']:.3f} ms at S={N_SCENARIOS}; sweep_auto {wall:.3f} s (host clock); "
+          f"every output of each shard identical to phase 23's rows, the unscheduled counts phase 22's; bound "
+          f"{max(t_bytes, t_ops):.6f} ms; {card}", flush=True)
+    return {
+        "name": "fast_scan_sweep",
+        "plan": f"drain sweep split over {[str(d) for d in mesh]}, {S:,} drains",
+        "route": "cuda",
+        "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu",
+        "replaces": "opensim_tpu/engine/fastpath.py:532",
+        "launches": launches["fast_scan_sweep"],
+        "max_abs_err": err,
+        "ms": ms,
+        "shard_ms": shard_ms,
+        "plain_ms": None,  # no plain run of its own: its head is held against phase 24's
+        "plain_checks": f"every output phase 23's grid rows; placements of scenarios 0-{PLAIN_SCENARIOS - 1} x "
+                        f"{PLAIN_PODS} pods phase 24's plain sweep",
+        "scenarios": S,
+        "shards": [per] * len(mesh),
+        "pods": int(grid_args[0].shape[0]),
+        "b": grid.b,
+        "blocks": grid.blocks,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "sweep_auto_s": wall,
+    }
 
 
 def oversubscribed_plan(device) -> list:
@@ -2753,12 +2930,12 @@ def defrag_cli(device, card: str, drain_plans, drain_grid: dict) -> dict:
     if differ:
         raise AssertionError(f"simon defrag's grid inputs differ from phase 23's: {differ}")
     err = _same(launch["out"], drain_grid["out"], "simon defrag's grid vs phase 23's grid on the same inputs")
-    plain = drain_grid["plain"]
-    head = fs.FastOutputs(*(t[:PLAIN_SCENARIOS, :PLAIN_PODS] if f in ("chosen", "gpu_take") else t
-                            for f, t in zip(fs.FastOutputs._fields, launch["out"])))
+    plain, plain_s = drain_grid["plain"].future.result()
+    head = fs.FastOutputs(*(t[:PLAIN_SCENARIOS, :PLAIN_PODS].cpu() if f in ("chosen", "gpu_take") else t
+                            for f, t in zip(fs.FastOutputs._fields, launch["out"])))  # the plain sweep ran on the CPU
     err = max(err, _same(head, plain, f"simon defrag's grid, scenarios 0-{PLAIN_SCENARIOS - 1} x {PLAIN_PODS} pods, "
                                       "vs phase 24's plain sweep", ("chosen", "gpu_take")))
-    plain_ms = drain_grid["plain_ms"]
+    plain_ms = plain_s * 1e3
     for config_name, extended, variant in EXAMPLES:
         outs = {}
         for where, dev in (("cpu", "cpu"), ("card", str(device))):
@@ -2774,7 +2951,8 @@ def defrag_cli(device, card: str, drain_plans, drain_grid: dict) -> dict:
     return _sweep_row("fast_scan_sweep", f"simon defrag, capacity plan, {N_SCENARIOS:,} candidates", fi, args,
                       launch["out"], launch["ms"], launches["fast_scan_sweep"], err, plain_ms,
                       f"every output phase 23's grid on the same inputs; placements of scenarios "
-                      f"0-{PLAIN_SCENARIOS - 1} x {PLAIN_PODS} pods phase 24's plain sweep", defrag_s=wall,
+                      f"0-{PLAIN_SCENARIOS - 1} x {PLAIN_PODS} pods phase 24's plain sweep, whose single-thread "
+                      "seconds in a worker process are plain_ms, shared with phase 24's row", defrag_s=wall,
                       defrag_steps=steps, card=card)
 
 
@@ -4864,7 +5042,11 @@ def main() -> int:
     probe_dir = tempfile.TemporaryDirectory(prefix="smoke-probe-")
     os.environ["OPENSIM_PROBE_CACHE"] = os.path.join(probe_dir.name, "verdict")
     probe_run = start_probe()
+    from opensim_tpu_torch import graft_entry
+    from opensim_tpu_torch.engine import fastpath
+
     small = [fi for _n, _p, fi in _small_preps("cpu")]
+    small.append(fastpath.build_inputs(graft_entry._tiny_prepared(device="cpu"))[0])  # phase 3b's input
     variants = sorted({v for *_rest, v, _p in plans} | {fs.variant_name(fi) for fi in small}
                       | {v for *_rest, v in EXAMPLES} | set(CFG_VARIANTS) | set(EXPLAIN_VARIANTS) | {CAMPAIGN_VARIANT}
                       | {_explain_name(v) for *_rest, v in EXAMPLES} | {"fast_scan[count]"}
@@ -4881,11 +5063,13 @@ def main() -> int:
 
     _phase("3 small cases: kernel vs plain version, one scan and a sweep of drains each")
     small_cases(device)
+    graft_entry_phase(device)
 
     rows = [full_plan(device, label, make, variant, prefix, replay=variant == "fast_scan[interpod]")
             for label, make, variant, prefix in plans]
     row, drain_plans, drain_grid = drain_sweep(device)
     rows.append(row)
+    rows.append(split_sweep(device, drain_plans, drain_grid, card))
     rows.extend(oversubscribed_plan(device))
     apply_rows, apply_tail = apply_plan(device, card)
     rows.extend(apply_rows)

@@ -10,8 +10,9 @@ resources); `build_inputs()` turns the encoded cluster into the kernel's
 tensors for one config; `schedule()` runs it over the stream (one launch,
 or one launch per profile segment carrying the state, from the prepared
 state or from one rebuilt on the host: a campaign's scheduling pass),
-`sweep()` over a batch of scenarios, `schedule_batch()` over a request
-batch's lanes, counting their failures. The counterpart in the JAX package is
+`sweep()` over a batch of scenarios, on one device or split over several,
+`schedule_batch()` over a request batch's lanes, counting their
+failures. The counterpart in the JAX package is
 ``opensim_tpu/engine/fastpath.py``; the TPU layout rules there (128-lane
 node padding, 8-row GPU, VG, device, port and term-row padding,
 transposed scalar tables, chunked pod streams) and its VMEM- and
@@ -632,22 +633,29 @@ class _SweepContext:
         return np.where(self.spr_topo >= 0, weights[np.maximum(self.spr_topo, 0)], 0.0).astype(np.float32)
 
 
-def sweep_inputs(prep, node_valid_masks, pod_valid_masks, forced_masks):
-    """The scenario grid's tensors on ``prep.device`` for the kernel's
-    sweep: ``tmpl [P]``, ``valid``/``forced`` int32 ``[S, P]`` from the
-    bool masks, ``node_valid`` float32 ``[S, N]`` and ``spr_weight`` float32
-    ``[S, U, Cs]``, the spread weights of each scenario's valid nodes."""
+def inputs_on(fi: FastInputs, device) -> FastInputs:
+    """`fi` with every tensor on `device`: a tensor already there is kept,
+    not copied, so the inputs of ``prep.device`` cost nothing."""
+    return FastInputs(*(t.to(device) if torch.is_tensor(t) else t for t in fi))
+
+
+def sweep_inputs(prep, node_valid_masks, pod_valid_masks, forced_masks, device=None):
+    """The scenario grid's tensors on `device` (None: ``prep.device``) for
+    the kernel's sweep: ``tmpl [P]``, ``valid``/``forced`` int32 ``[S, P]``
+    from the bool masks, ``node_valid`` float32 ``[S, N]`` and
+    ``spr_weight`` float32 ``[S, U, Cs]``, the spread weights of each
+    scenario's valid nodes."""
     nv = np.asarray(node_valid_masks, dtype=bool)
     ctx = _SweepContext(prep)
     sw = np.stack([ctx.spread_weights(row) for row in nv])
-    dev = prep.device
+    dev = prep.device if device is None else device
     i32, f32 = torch.int32, torch.float32
     return (_to(prep.tmpl_ids, i32, dev), _to(np.asarray(pod_valid_masks, dtype=bool), i32, dev),
             _to(np.asarray(forced_masks, dtype=bool), i32, dev), _to(nv, f32, dev), _to(sw, f32, dev))
 
 
 def sweep(prep, node_valid_masks, pod_valid_masks, forced_masks,
-          segments: Optional[List[Tuple[Optional[SchedulerConfig], int, int]]] = None):
+          segments: Optional[List[Tuple[Optional[SchedulerConfig], int, int]]] = None, devices=None):
     """Scenario sweep over the prepared stream: scenario s runs the bind
     scan with node validity ``node_valid_masks[s]`` ([S, N] bool), pod
     validity ``pod_valid_masks[s]`` and forced pods ``forced_masks[s]``
@@ -656,30 +664,55 @@ def sweep(prep, node_valid_masks, pod_valid_masks, forced_masks,
     whole stream under the default config) are one grid each on its
     config's inputs, each scenario starting from its own final state of the
     run before. All S in one launch per run on a card (B scenarios per
-    block), the plain version scenario by scenario on the CPU. Returns host
-    arrays (unscheduled [S] i32, used [S, N, R] f32, chosen [S, P] i32,
-    vg_used [S] f32), as ``opensim_tpu/engine/fastpath.py:sweep``; VG usage
-    counts only the scenario's valid nodes."""
-    nv = np.asarray(node_valid_masks, dtype=bool)
-    pv = np.asarray(pod_valid_masks, dtype=bool)
+    block), the plain version scenario by scenario on the CPU.
+
+    `devices` (None: ``[prep.device]``) split the scenario axis as the
+    reference shards it over a mesh (``opensim_tpu/parallel/
+    scenarios.py:337-384``): S padded to a multiple of ``len(devices)`` by
+    repeating the last row of each mask, shard k (contiguous rows) built
+    and launched on ``devices[k]``, the outputs joined in scenario order
+    and cut back to S. Every shard is placed before any is launched and
+    launched before any is read back, so that shards on distinct cards can
+    run at once (a copy to a card made after a launch would wait for it);
+    that overlap has run on no machine with two cards yet. A shard that
+    fails raises. Returns host arrays (unscheduled [S] i32, used [S, N, R]
+    f32, chosen [S, P] i32, vg_used [S] f32), as
+    ``opensim_tpu/engine/fastpath.py:sweep``; VG usage counts only the
+    scenario's valid nodes."""
+    masks = [np.asarray(a, dtype=bool) for a in (node_valid_masks, pod_valid_masks, forced_masks)]
+    devices = [prep.device] if devices is None else [torch.device(d) for d in devices]
+    S = len(masks[0])
+    pad = (-S) % len(devices)
+    if pad:
+        masks = [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)]) for a in masks]
+    per = (S + pad) // len(devices)
+    shards = [slice(k * per, (k + 1) * per) for k in range(len(devices))]
     if segments is None:
         segments = [(None, 0, len(prep.tmpl_ids))]
-    tmpl, valid, forced, node_valid, spr_weight = sweep_inputs(prep, nv, pv, forced_masks)
-    chosen, state = [], None
-    for seg_cfg, lo, hi in segments:
-        if hi <= lo:
-            continue
-        fi, _ = build_inputs(prep, cfg=seg_cfg, segment=len(segments) > 1)
-        out = fast_scan_sweep(fi, tmpl[lo:hi], valid[:, lo:hi].contiguous(), forced[:, lo:hi].contiguous(),
-                              node_valid, spr_weight, init=state)
-        chosen.append(out.chosen.cpu().numpy())
-        state = out.state
-    chosen = np.concatenate(chosen, axis=1)
-    unscheduled = ((chosen < 0) & pv).sum(axis=1).astype(np.int32)
-    used = out.used.transpose(1, 2).contiguous().cpu().numpy()
-    if variant(fi).local:
-        vg0, vg_b = fi.vg0.cpu().numpy(), out.vg_free.cpu().numpy()  # [Vg, N], [S, Vg, N]
-        vg_used = ((vg0[None] - vg_b) * nv[:, None, :]).sum(axis=(1, 2)).astype(np.float32)
-    else:
-        vg_used = np.zeros((len(nv),), np.float32)
-    return unscheduled, used, chosen, vg_used
+    runs = [(build_inputs(prep, cfg=cfg, segment=len(segments) > 1)[0], lo, hi) for cfg, lo, hi in segments if hi > lo]
+    placed = [([inputs_on(fi, dev) for fi, _lo, _hi in runs], sweep_inputs(prep, *(a[rows] for a in masks), device=dev))
+              for rows, dev in zip(shards, devices)]
+    launched = []
+    for fis, (tmpl, valid, forced, node_valid, spr_weight) in placed:
+        chosen, state = [], None
+        for fi, (_fi, lo, hi) in zip(fis, runs):
+            out = fast_scan_sweep(fi, tmpl[lo:hi], valid[:, lo:hi].contiguous(), forced[:, lo:hi].contiguous(),
+                                  node_valid, spr_weight, init=state)
+            chosen.append(out.chosen)
+            state = out.state
+        launched.append((fi, out, chosen))
+    parts = []
+    for rows, (fi, out, chosen) in zip(shards, launched):
+        nv, pv = masks[0][rows], masks[1][rows]
+        chosen = np.concatenate([c.cpu().numpy() for c in chosen], axis=1)
+        unscheduled = ((chosen < 0) & pv).sum(axis=1).astype(np.int32)
+        used = out.used.transpose(1, 2).contiguous().cpu().numpy()
+        if variant(fi).local:
+            vg0, vg_b = fi.vg0.cpu().numpy(), out.vg_free.cpu().numpy()  # [Vg, N], [S, Vg, N]
+            vg_used = ((vg0[None] - vg_b) * nv[:, None, :]).sum(axis=(1, 2)).astype(np.float32)
+        else:
+            vg_used = np.zeros((len(nv),), np.float32)
+        parts.append((unscheduled, used, chosen, vg_used))
+    if len(parts) == 1:  # one device: no pad, nothing to join
+        return parts[0]
+    return tuple(np.concatenate(field)[:S] for field in zip(*parts))

@@ -465,8 +465,8 @@ def simulate(
     entries, torch callables over the port's tensors, as
     ``kernels.pod_step`` takes them) run on the torch reference scan when
     the caller names the CPU; on the card this raises
-    ``NotImplementedError`` before anything runs (ROADMAP Queue 1
-    item 5b).
+    ``NotImplementedError`` before anything runs, saying to run with
+    ``device="cpu"`` (``--device cpu``).
 
     `drop_pods` (the encode cache's): a bool mask over the prepared stream
     (it needs `prep`); the marked pods are left out of the scan (invalid
@@ -495,8 +495,8 @@ def simulate(
     where = prep.device if prep is not None else resolve_device(device)
     if extra_plugins and where.type != "cpu":
         raise NotImplementedError(
-            "simulate(extra_plugins=...): out-of-tree plugins are Python callables, which no kernel runs; they run "
-            "on the torch reference scan with device='cpu' (the card route is ROADMAP Queue 1 item 5b)"
+            "simulate(extra_plugins=...): out-of-tree plugins are Python callables, which no kernel on the card "
+            "runs; run them on the CPU with device='cpu' (--device cpu), where the torch reference scan calls them"
         )
     t0 = time.perf_counter()
     if prep is None:

@@ -9,15 +9,26 @@ kernel's scenario grid, B scenarios in lockstep per block
 CPU the plain version runs scenario by scenario. A scheduler config runs
 in the grid as its launch arguments; a stream of differing profiles runs
 one grid per contiguous segment, each scenario going on from its own state
-(:func:`sweep_segmented`). A mesh of several devices raises (ROADMAP
-Queue 1 item 9).
+(:func:`sweep_segmented`).
+
+A one-config sweep splits its scenario axis over a mesh, a plain list of
+``torch.device``s (the counterpart of the reference's one-axis
+``jax.sharding.Mesh``, ``opensim_tpu/parallel/scenarios.py:337-397``): S
+is padded to a multiple of the list's length by repeating the last
+scenario, cut into contiguous shards, one launch of the grid on each
+shard's device (the plain version on a CPU entry), and the results are
+joined in scenario order and cut back to S (``fastpath.sweep(devices=)``,
+under :func:`mesh_of`). :func:`default_mesh` lists
+the local cards when there are several. Ranks that each sweep a shard
+(``parallel/multihost.py``) are ROADMAP Queue 1 item 9b.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from ..engine import fastpath
 from ..engine.schedconfig import DEFAULT_CONFIG, resolve_profile_segments
@@ -52,6 +63,33 @@ def sweep_counts(prep, n_real: int, ks, config=None) -> "tuple[SweepResult, np.n
     return sweep_auto(prep, node_valid, pod_valid, config=config), node_valid
 
 
+def default_mesh() -> Optional[List[torch.device]]:
+    """Every local card, one shard each, when there are several; None on
+    one card or none (``opensim_tpu/parallel/scenarios.py:392-397``)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() <= 1:
+        return None
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def mesh_of(prep, mesh=None) -> List[torch.device]:
+    """The devices a one-config sweep of `prep` is split over: `mesh` where
+    the caller gives one; for a prepared input on a card named without an
+    index (``cuda``, the entry points' default) :func:`default_mesh` where
+    there are several cards; else ``[prep.device]`` alone (a caller who
+    named ``cuda:1`` gets that card)."""
+    if mesh is not None:
+        try:
+            devices = [torch.device(d) for d in mesh]
+        except (TypeError, RuntimeError) as e:
+            raise ValueError(f"a mesh is a non-empty list of devices, not {mesh!r}") from e
+        if not devices:
+            raise ValueError("a mesh is a non-empty list of devices, not an empty one")
+        return devices
+    if prep.device.type == "cuda" and prep.device.index is None:
+        return default_mesh() or [prep.device]
+    return [prep.device]
+
+
 def sweep_auto(
     prep,
     node_valid_masks: np.ndarray,
@@ -66,12 +104,11 @@ def sweep_auto(
     (a ``SchedulerConfig`` or ``SchedulerProfiles``) routes as
     ``simulate()`` does (``opensim_tpu/parallel/scenarios.py:106-130``):
     pods of an unknown profile leave every scenario, differing profiles
-    run :func:`sweep_segmented`, one effective config runs one grid.
-    Raises ``NotImplementedError`` outside the kernel's envelope and for a
-    mesh of devices (ROADMAP Queue 1 item 9). Nothing falls back to
-    another engine."""
-    if mesh is not None:
-        raise NotImplementedError("a sweep over a mesh of several devices: ROADMAP Queue 1 item 9, not yet ported")
+    run :func:`sweep_segmented` on ``prep.device`` whatever the mesh, one
+    effective config runs one grid, split over the devices of
+    :func:`mesh_of` (``fastpath.sweep(devices=)``). Raises
+    ``NotImplementedError`` outside the kernel's envelope. Nothing falls
+    back to another engine or device."""
     S = np.asarray(node_valid_masks).shape[0]
     if forced_masks is None:
         forced_masks = np.broadcast_to(prep.forced, (S, len(prep.forced)))
@@ -88,7 +125,7 @@ def sweep_auto(
     if miss is not None:
         raise NotImplementedError(f"outside the port's bind-scan envelope: {miss}")
     return SweepResult(*fastpath.sweep(prep, node_valid_masks, pod_valid_masks, forced_masks,
-                                       segments=[(config, 0, len(prep.tmpl_ids))]))
+                                       segments=[(config, 0, len(prep.tmpl_ids))], devices=mesh_of(prep, mesh)))
 
 
 def sweep_segmented(

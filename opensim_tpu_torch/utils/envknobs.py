@@ -109,8 +109,8 @@ for _knob in (
          "a path = build and load there, `0` = no reuse (a temporary directory of the process's own, removed at "
          "exit; every variant compiles cold). An unwritable directory warns and builds as `0`."),
     Knob("OPENSIM_PROBE_CACHE", "path", "",
-         "CUDA probe verdict cache file (default: opensim-tpu-torch-probe-<uid> in the temporary directory); a "
-         "failed probe is an error, never a CPU fallback."),
+         "CUDA probe verdict cache file (default: opensim-tpu-torch-probe-<uid> in XDG_RUNTIME_DIR when set, else "
+         "in the temporary directory); a failed probe is an error, never a CPU fallback."),
     # resilience (resilience/, server/snapshot.py)
     Knob("OPENSIM_REQUEST_TIMEOUT_S", "float", "",
          "Default per-request deadline in seconds (the `X-Simon-Timeout-S` header wins; unset/0 = unbounded)."),

@@ -10,8 +10,9 @@ Unlike the reference, a failed probe never selects the CPU:
 plain versions. The verdict is cached briefly, per user, so a batch of
 invocations (a fleet's workers, a script's loop) pays for the child once;
 the cache is ``OPENSIM_PROBE_CACHE``, by default a file named for the port
-in the temporary directory, so the port never reads the JAX package's
-verdict.
+in ``XDG_RUNTIME_DIR`` (a per-user directory) when that is set, else in
+the temporary directory, as the reference places its own; the port's
+file name differs, so the port never reads the JAX package's verdict.
 """
 
 from __future__ import annotations
@@ -36,13 +37,14 @@ _PROBE_CODE = (
 
 
 def cache_path() -> str:
-    """The verdict's file. Scoped by uid: a world-shared fixed name would
-    let another user's file pin a stale verdict (or hold the name, so that
-    ``os.replace`` fails for ever)."""
+    """The verdict's file: ``OPENSIM_PROBE_CACHE``, else in
+    ``XDG_RUNTIME_DIR`` or the temporary directory
+    (``opensim_tpu/utils/probe.py:23-31``). Scoped by uid: a world-shared
+    fixed name would let another user's file pin a stale verdict (or hold
+    the name, so that ``os.replace`` fails for ever)."""
     uid = os.getuid() if hasattr(os, "getuid") else 0
-    return envknobs.raw("OPENSIM_PROBE_CACHE") or os.path.join(
-        tempfile.gettempdir(), f"opensim-tpu-torch-probe-{uid}"
-    )
+    base = os.environ.get("XDG_RUNTIME_DIR") or tempfile.gettempdir()
+    return envknobs.raw("OPENSIM_PROBE_CACHE") or os.path.join(base, f"opensim-tpu-torch-probe-{uid}")
 
 
 def _cached(path: str) -> Tuple[bool, float] | None:

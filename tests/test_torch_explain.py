@@ -483,6 +483,20 @@ def test_extra_plugins_validation_and_reason():
     assert len(res.unscheduled_pods) == 1 and "out-of-tree plugin" in res.unscheduled_pods[0].reason
 
 
+def test_extra_plugins_on_the_card_say_to_run_on_the_cpu():
+    """The card's refusal tells the user what to do, run on the CPU, and
+    sends them to no roadmap item; it comes before any card is touched."""
+    cluster = ResourceTypes()
+    cluster.nodes.append(fx.make_fake_node("n0", "8", "16Gi"))
+    app = ResourceTypes()
+    app.pods.append(fx.make_fake_pod("p", "100m", "128Mi"))
+    with pytest.raises(NotImplementedError) as err:
+        sim.simulate(cluster, [sim.AppResource("a", app)], device="cuda", extra_plugins=(("filter", _ban_all),))
+    message = str(err.value)
+    assert "device='cpu'" in message and "--device cpu" in message and "CPU" in message
+    assert "ROADMAP" not in message and "Queue" not in message and "item" not in message
+
+
 def test_extra_plugins_explained_equal_jax():
     """Out-of-tree plugins in explain mode, the torch twins against the JAX
     plugins: the extra filter's rejections count in their own slot."""
@@ -504,7 +518,7 @@ def test_extra_plugins_on_the_card_raise_before_anything_runs(monkeypatch):
     cluster, app = _three_nodes()
     monkeypatch.setattr(sim, "prepare", lambda *a, **k: pytest.fail("prepared before the check"))
     before = fs.LAUNCHES
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
+    with pytest.raises(NotImplementedError, match="device='cpu'"):
         sim.simulate(cluster, [sim.AppResource("a", app)], device="cuda", extra_plugins=(("filter", _ban_all),))
     assert fs.LAUNCHES == before
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

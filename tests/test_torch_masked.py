@@ -406,7 +406,7 @@ def test_later_slice_arguments_raise(arg):
     """The arguments of the later slices are ported: a tie seed and explain
     mode run, a config object schedconfig does not know raises as the
     reference's does, and extra plugins run on the CPU but raise on the
-    card, naming their ROADMAP item."""
+    card, saying to run them on the CPU."""
     keep_all = lambda ec, st, u: torch.ones(ec.node_valid.shape[0], dtype=torch.bool)
     value = {"sched_config": object(), "extra_plugins": (("filter", keep_all),), "tie_seed": 0, "explain": True}[arg]
     run = lambda device="cpu": sim.simulate(fx.synthetic_cluster(2), [sim.AppResource("a", fx.synthetic_apps(40))],
@@ -420,5 +420,5 @@ def test_later_slice_arguments_raise(arg):
     assert (res.explanations is not None) == (arg == "explain")
     if arg == "extra_plugins":
         assert res.engine == "torch reference scan on cpu"
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
+        with pytest.raises(NotImplementedError, match="device='cpu'"):
             run("cuda")

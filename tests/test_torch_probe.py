@@ -86,6 +86,26 @@ def test_cached_verdict_decides_as_the_reference(cache, monkeypatch, case):
     assert runs["port"] == runs["ref"] == (0 if case.startswith("recent") else 1)
 
 
+@pytest.mark.parametrize("xdg", [True, False], ids=["xdg_runtime_dir", "no_xdg_runtime_dir"])
+def test_the_verdict_file_lies_where_the_reference_puts_its_own(tmp_path, monkeypatch, xdg):
+    """Without ``OPENSIM_PROBE_CACHE`` the verdict lies in
+    ``XDG_RUNTIME_DIR`` when that is set, else in the temporary directory:
+    the reference's directory (``opensim_tpu/utils/probe.py:23-31``), under
+    the port's own file name; the knob, where set, comes first."""
+    monkeypatch.delenv("OPENSIM_PROBE_CACHE", raising=False)
+    monkeypatch.setattr(probe.tempfile, "gettempdir", lambda: str(tmp_path / "tmp"))
+    if xdg:
+        monkeypatch.setenv("XDG_RUNTIME_DIR", str(tmp_path / "run"))
+    else:
+        monkeypatch.delenv("XDG_RUNTIME_DIR", raising=False)
+    got = probe.cache_path()
+    want = ref_probe._default_cache_path()
+    assert os.path.dirname(got) == os.path.dirname(want) == str(tmp_path / ("run" if xdg else "tmp"))
+    assert os.path.basename(got) == f"opensim-tpu-torch-probe-{os.getuid()}" != os.path.basename(want)
+    monkeypatch.setenv("OPENSIM_PROBE_CACHE", str(tmp_path / "verdict"))
+    assert probe.cache_path() == str(tmp_path / "verdict")
+
+
 def test_a_child_past_the_timeout_is_killed(cache, tmp_path, monkeypatch):
     pid_file = tmp_path / "pid"
     monkeypatch.setattr(probe, "_PROBE_CODE",

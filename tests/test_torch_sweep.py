@@ -190,8 +190,9 @@ def test_sweep_auto_refuses_what_a_later_slice_brings():
     nv, pv, fm = defrag.drain_masks(port, [0])
     with pytest.raises(ValueError, match="unsupported scheduler config object"):  # a config is ported; this is none
         scenarios.sweep_auto(port, nv, pv, fm, config=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        scenarios.sweep_auto(port, nv, pv, fm, mesh=object())
+    for bad in (object(), []):  # a mesh is a non-empty list of devices
+        with pytest.raises(ValueError, match="mesh"):
+            scenarios.sweep_auto(port, nv, pv, fm, mesh=bad)
     res = scenarios.sweep_auto(port, nv, pv)  # forced masks default to the stream's
     assert res.unscheduled.tolist() == [0] and res.chosen.shape == (1, 2)
     assert not (res.chosen == 0).any()
