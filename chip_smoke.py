@@ -53,9 +53,10 @@ missing node, then 2,000 pods of 48 cores on the hdd nodes and 4,000 of 40
 cores anywhere, then the capacity plan's 50,000 pods; 1,010 pods find no
 node, all before the last 50,000 bind): the one scan against the plain
 version on all ten outputs over the first 6,010 pods (every failure,
-failure counts included), against the grid at S = 1 on the eight state
-outputs over the whole stream, simulate() through exactly one launch
-reporting the reason strings of the plain version's counts, and the
+failure counts included; the plain version in a worker process), against
+the grid at S = 1 on the eight state outputs over the whole stream,
+simulate() through exactly one launch reporting the reason strings of
+those checked counts, and the
 counting pass timed by the card's global timer inside the kernel.
 Then ``simon apply`` (phases 28-30): the apply plan (the capacity plan
 plus 5,100 pods of 60 cores, one a node, so 100 new nodes must come out
@@ -68,7 +69,11 @@ the plain version over a prefix, the minimality of n_new by those
 launches, at 0 new nodes the first simulation's 100 reasons pod for pod
 and the failing tail (the 5,100 large pods, from the kernel's usage
 after the others) against the plain version on all ten outputs; and the three example configs, whose reports on the card equal
-the plain versions' on the CPU. Each small case of phase 3 also runs as a
+the plain versions' on the CPU. Phase 28b runs the same ``simon apply``
+as two ranks of a ``torch.distributed`` job on the one card (two CLI
+processes joined through JAX_COORDINATOR), beside the wait for the plain
+versions before phase 65: each report phase 28's, each rank sweeping its
+own half of the coarse and fine grids. Each small case of phase 3 also runs as a
 masked one scan (a node and a third of the pods masked out) against the
 plain version; those of the base and score-table variants also under a
 scheduler config (one scan and grid), cut in two with the state carried,
@@ -199,7 +204,7 @@ complete", no ``simon-fleet-*`` segment left in /dev/shm).
 The observatory rides those phases: phase 2 holds the build telemetry
 (``obs.profile.COMPILES``) to ``fast_scan.BUILD_LOG``; phase 26 holds
 the increases of ``simon_unschedulable_total`` and
-``simon_filter_reject_total`` to the plain version's counts; phase 30
+``simon_filter_reject_total`` to the checked counts; phase 30
 runs ``simon apply --trace`` on the card (the Chrome trace holds
 simulate()'s phases and the kernel's span naming its variant, the report
 the untraced card report); after R8 of phase 51, ``/api/debug/memory``
@@ -299,6 +304,13 @@ APPLY_NEW = 100
 APPLY_HOG = N_NODES + APPLY_NEW
 APPLY_MAX_NEW = 128
 APPLY_PLAIN_PODS = 2000
+#: Phase 28b: the apply plan as this many ranks on the one card, each CLI
+#: child under this limit (the group's own timeout is 300 s).
+APPLY_RANKS = 2
+RANKS_TIMEOUT_S = 240
+#: Phase 28's two sweeps: the coarse grid's candidate counts 0, 1, 2, 4,
+#: ..., 128 and the fine grid's 65..127.
+APPLY_SWEEPS = (9, 63)
 APPLY_LIMIT_S = 10.0
 #: The example configs, their extended-resource reports and the kernel
 #: variant each runs (phase 30 checks it against the launches).
@@ -1246,9 +1258,10 @@ def split_sweep(device, drain_plans, drain_grid: dict, card: str) -> dict:
 def oversubscribed_plan(device) -> list:
     """The over-subscribed capacity plan through the one scan's counting
     pass: kernel vs plain over the first OVER_HEAD pods (every failure) on
-    all ten outputs, vs the grid at S = 1 on the eight state outputs over
-    the whole stream; simulate() through exactly one launch, its reasons
-    those of the plain version's counts; the kernel timed over the whole
+    all ten outputs (the plain version in :data:`BACKGROUND`), vs the grid
+    at S = 1 on the eight state outputs over the whole stream; simulate()
+    through exactly one launch, its reasons those of the checked prefix's
+    counts; the kernel timed over the whole
     stream and its counting passes by their own clock. Returns the plan's
     row and the counting pass's row of the kernels table."""
     from opensim_tpu_torch.engine import explain, fastpath, reasons, simulator as sim
@@ -1273,27 +1286,19 @@ def oversubscribed_plan(device) -> list:
     P, N = tmpl.shape[0], fi.alloc_T.shape[1]
     head = tuple(t[:OVER_HEAD].contiguous() for t in (tmpl, valid, forced))
     got_head = fs.fast_scan(fi, *head)
-    torch.cuda.synchronize()
-    plain = [None]
-
-    def run_plain():
-        plain[0] = fs.fast_scan_reference(fi, *head)
-
-    plain_ms = _events_ms(run_plain, reps=1)
-    err = _same(got_head, plain[0], f"over-subscribed plan, {OVER_HEAD} pods")
-    count_err = max(float((got_head.fail_counts - plain[0].fail_counts).abs().max()),
-                    float((got_head.insufficient - plain[0].insufficient).abs().max()))
+    # the plain version runs on the CPU in BACKGROUND; phase 26 reads the
+    # kernel's counts, which that holds equal to the plain version's
+    held = BACKGROUND.hold(f"over-subscribed plan: the kernel over {OVER_HEAD} pods", got_head, fi, head)
     failing = (got_head.chosen < 0) & (head[2] == 0)
     n_failing, n_forced = int(failing.sum()), int(((got_head.chosen < 0) & (head[2] != 0)).sum())
     if n_failing == 0 or not bool(got_head.fail_counts[failing].any(1).all()):
         raise AssertionError(f"{n_failing} failing pods, not every one counted")
-    print(f"{OVER_HEAD} pods at N={N}: kernel and plain version identical on all ten outputs (plain "
-          f"{plain_ms:.3f} ms); {n_failing} pods found no node and were counted, {n_forced} forced pods "
-          f"found none", flush=True)
+    print(f"{OVER_HEAD} pods at N={N}: the kernel's ten outputs held against the plain version on the CPU; "
+          f"{n_failing} pods found no node and were counted, {n_forced} forced pods found none", flush=True)
     whole = fs.fast_scan(fi, tmpl, valid, forced)
     grid1 = fs.fast_scan_sweep(fi, tmpl, valid[None], forced[None], fi.node_valid[None], fi.spr_weight[None])
-    err = max(err, _same(whole, fs.FastOutputs(*(t[0] for t in grid1)),
-                         f"over-subscribed plan: one scan vs the grid at S=1 over {P} pods", fs.STATE_FIELDS))
+    err = _same(whole, fs.FastOutputs(*(t[0] for t in grid1)),
+                f"over-subscribed plan: one scan vs the grid at S=1 over {P} pods", fs.STATE_FIELDS)
     if not torch.equal(whole.fail_counts[:OVER_HEAD], got_head.fail_counts) or whole.fail_counts[OVER_HEAD:].any():
         raise AssertionError("the whole stream's counts differ from the checked prefix's")
     print(f"{P} pods: one scan and the grid at S=1 identical on the eight state outputs; the whole stream's "
@@ -1315,15 +1320,16 @@ def oversubscribed_plan(device) -> list:
     if passes != n_failing:
         raise AssertionError(f"simulate()'s launch ran {passes} counting passes, want {n_failing}")
     want = []
-    for i in torch.nonzero(plain[0].chosen < 0).flatten().tolist():
+    head_fail, head_short = got_head.fail_counts.cpu().numpy(), got_head.insufficient.cpu().numpy()
+    for i in torch.nonzero(got_head.chosen < 0).flatten().tolist():
         if prep.forced[i]:
             want.append(reasons.node_not_found(prep.ordered[i].spec.node_name))
         else:
-            want.append(sim._reason_string(built["static_fail"][prep.tmpl_ids[i]], plain[0].fail_counts[i].cpu().numpy(),
-                                           plain[0].insufficient[i].cpu().numpy(), prep.meta, prep.meta.n_real_nodes))
+            want.append(sim._reason_string(built["static_fail"][prep.tmpl_ids[i]], head_fail[i], head_short[i],
+                                           prep.meta, prep.meta.n_real_nodes))
     got = [u.reason for u in res.unscheduled_pods]
     if got != want:
-        raise AssertionError(f"simulate() reported {len(got)} unscheduled pods, want the plain version's {len(want)}")
+        raise AssertionError(f"simulate() reported {len(got)} unscheduled pods, want the checked prefix's {len(want)}")
     n_placed = sum(len(ns.pods) for ns in res.node_status)
     if n_placed != P - len(want) or n_placed != int((res.placements >= 0).sum()) or (res.placements[OVER_HEAD:] < 0).any():
         raise AssertionError(f"placed {n_placed} of {P} pods, {len(want)} unscheduled")
@@ -1331,10 +1337,10 @@ def oversubscribed_plan(device) -> list:
     for r in got:
         hist[r] = hist.get(r, 0) + 1
     # the decision counters: the unscheduled pods by the primary reason of
-    # the plain version's counts (a forced pod's node not found), and the
+    # the checked prefix's counts (a forced pod's node not found), and the
     # nodes each filter rejected for the pods that entered a queue
-    failed = [i for i in torch.nonzero(plain[0].chosen < 0).flatten().tolist() if not prep.forced[i]]
-    static_rows, fail_rows = np.asarray(built["static_fail"]), plain[0].fail_counts.cpu().numpy()
+    failed = [i for i in torch.nonzero(got_head.chosen < 0).flatten().tolist() if not prep.forced[i]]
+    static_rows, fail_rows = np.asarray(built["static_fail"]), head_fail
     sf_rows = np.asarray(prep.tmpl_ids[:OVER_HEAD])  # the static rows are per template
     want_counts = {"unschedulable": explain.primary_reason_histogram(static_rows, sf_rows, fail_rows, failed),
                    "filter_rejects": {k: v for k, v in reasons.rejects_dict(explain.audit_rejects(
@@ -1344,9 +1350,9 @@ def oversubscribed_plan(device) -> list:
         want_counts["unschedulable"]["node_not_found"] = n_forced_failed
     if counted != want_counts:
         raise AssertionError(f"simulate() counted {json.dumps(counted)}, want {json.dumps(want_counts)}")
-    print(f"placed {n_placed}/{P} pods, {len(got)} unscheduled with the plain version's reasons, kernel launches "
-          f"{by_variant}, {passes} counting passes; /metrics' decision counters rose by the plain version's "
-          f"{json.dumps(counted)}")
+    print(f"placed {n_placed}/{P} pods, {len(got)} unscheduled with the reasons of the checked prefix's counts "
+          f"(held against the plain version's), kernel launches {by_variant}, {passes} counting passes; /metrics' "
+          f"decision counters rose by those counts' {json.dumps(counted)}")
     for r, n in sorted(hist.items(), key=lambda x: -x[1]):
         print(f"  {n:6d} x {r}")
     wall = sum(res.timings.values())
@@ -1371,12 +1377,11 @@ def oversubscribed_plan(device) -> list:
     shape = {k: v for k, v in launched["shape"]._asdict().items() if k != "offsets"}
     print(f"kernel {ms:.3f} ms ({ms * 1e3 / P:.3f} us/pod), bound {max(t_bytes, t_ops):.6f} ms; counting passes "
           f"{count_ms:.3f} ms ({count_ms * 1e3 / n_failing:.3f} us each over {n_failing}), bound "
-          f"{max(c_bytes, c_ops):.6f} ms ({work['count']['bytes']} B, {work['count']['ops']} op); "
-          f"plain {plain_ms:.3f} ms over {OVER_HEAD} pods", flush=True)
+          f"{max(c_bytes, c_ops):.6f} ms ({work['count']['bytes']} B, {work['count']['ops']} op)", flush=True)
     plan_row = {
         "name": variant, "plan": "over-subscribed plan", "route": "cuda",
         "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/ops/pallas_scan.py:1009",
-        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "pods": P,
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": None, "pods": P,
         "plain_pods": OVER_HEAD, "unscheduled": len(got), "cluster": shape["cluster"], "threads": shape["threads"],
         "smem": shape["smem"], "resident": shape["resident"], "ptxas": launched["ptxas"],
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1385,12 +1390,12 @@ def oversubscribed_plan(device) -> list:
     count_row = {
         "name": "fast_scan:count_fails", "plan": "over-subscribed plan", "route": "cuda",
         "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/ops/kernels.py:1042",
-        "launches": passes, "max_abs_err": count_err, "ms": count_ms, "plain_ms": plain_ms,
+        "launches": passes, "max_abs_err": 0.0, "ms": count_ms, "plain_ms": None,
         "plain_pods": OVER_HEAD, "us_per_pass": count_ms * 1e3 / n_failing,
         "bound_ms": max(c_bytes, c_ops), "bound_by": "bytes" if c_bytes >= c_ops else "operations",
         "library_ms": None,
     }
-    return [plan_row, count_row]
+    return [held.fill(plan_row), held.fill(count_row)]
 
 
 def _without_counters(text: str) -> str:
@@ -1663,7 +1668,8 @@ def two_profile_plan(device) -> dict:
     profile (``fixtures.two_profile_apps``) and the two-profile config:
     two segments, two launches of the cfg variant, the second from the
     first's state. Each segment's first CFG_PLAIN_PODS pods against the
-    plain version (the second's from the kernel's state at the boundary),
+    plain version (the second's from the kernel's state at the boundary;
+    both in :data:`BACKGROUND`),
     the whole stream against two grid launches at S = 1 carrying the
     state, simulate() through exactly two launches, both launches timed.
     Returns the plan's row of the kernels table."""
@@ -1701,23 +1707,17 @@ def two_profile_plan(device) -> dict:
         return outs
 
     whole = run_kernel()
-    err, plain_ms = 0.0, 0.0
+    err, held = 0.0, []
     for k, (fi, lo, hi) in enumerate(built):
         init = None if k == 0 else whole[k - 1].state
         head = (tmpl[lo:lo + CFG_PLAIN_PODS], valid[lo:lo + CFG_PLAIN_PODS], forced[lo:lo + CFG_PLAIN_PODS])
         got = fs.fast_scan(fi, *head, init=init)
         if not torch.equal(got.chosen, whole[k].chosen[:CFG_PLAIN_PODS]):
             raise AssertionError(f"segment {k}: the prefix's launch placed differently from the segment's")
-        plain = [None]
-
-        def run_plain():
-            plain[0] = fs.fast_scan_reference(fi, *head, init=init)
-
-        ms = _events_ms(run_plain, reps=1)
-        plain_ms += ms
-        err = max(err, _same(got, plain[0], f"two-profile plan, segment {k}, {CFG_PLAIN_PODS} pods"))
+        held.append(BACKGROUND.hold(f"two-profile plan, segment {k}: the kernel over {CFG_PLAIN_PODS} pods", got, fi,
+                                    head, init=init))
         print(f"segment {k} ({lo}:{hi}), its first {CFG_PLAIN_PODS} pods{' from the kernel state at ' + str(lo) if k else ''}: "
-              f"kernel and plain version identical on all ten outputs (plain {ms:.3f} ms)", flush=True)
+              f"the kernel's ten outputs held against the plain version on the CPU", flush=True)
     grid = [None]
 
     def run_grid():
@@ -1762,15 +1762,18 @@ def two_profile_plan(device) -> dict:
     t_ops = sum(w["ops"] for w in works) / PEAK_F32_S * 1e3
     launched = fs.SCAN_LAUNCHED[variant]
     print(f"two launches {ms:.3f} ms ({ms * 1e3 / N_PODS:.3f} us/pod), bound {max(t_bytes, t_ops):.6f} ms", flush=True)
-    return {
+    row = {
         "name": variant, "plan": "two-profile plan (two segments)", "route": "cuda",
         "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu", "replaces": "opensim_tpu/ops/pallas_scan.py:1009",
-        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "pods": N_PODS,
+        "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": None, "pods": N_PODS,
         "plain_pods": 2 * CFG_PLAIN_PODS, "grid_s1_ms": grid_ms, "segments": [[lo, hi] for _f, lo, hi in built],
         "ptxas": launched["ptxas"], "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
         "plan_wall_s": wall,
     }
+    for h in held:
+        h.fill(row)
+    return row
 
 
 def apply_config_plan(device, card: str) -> list:
@@ -2841,19 +2844,21 @@ def _timed_launch(rec: dict):
     return wrap
 
 
-def _sweep_row(name: str, plan: str, fi, args, out, ms: float, launches: int, err: float, plain_ms: float,
+def _sweep_row(name: str, plan: str, fi, args, out, ms: float, launches: int, err: float, plain_ms,
                plain: str, **extra) -> dict:
     """A kernels-table row of one grid launch (its inputs `args`, its
     outputs `out`, its CUDA-event time `ms` in the main path's run), its
-    bound from ``fast_scan_work``."""
+    bound from ``fast_scan_work``; `plain_ms` None for a plain version
+    held in :data:`BACKGROUND`, which adds its time."""
     from opensim_tpu_torch.ops import fast_scan as fs
 
     tmpl, valid, forced, node_valid, _sw = args
     work = fs.fast_scan_work(fi, tmpl, valid, forced, out.chosen, node_valid)
     t_bytes, t_ops = work["bytes"] / PEAK_BYTES_S * 1e3, work["ops"] / PEAK_F32_S * 1e3
     grid = fs.sweep_grid(valid.shape[0], fi.alloc_T.shape[1], torch.cuda.get_device_properties(0).multi_processor_count)
+    plain_at = "in a worker process" if plain_ms is None else f"{plain_ms:.3f} ms"
     print(f"{plan}: {fs.sweep_name(fi)} at S={valid.shape[0]}, P={tmpl.shape[0]}: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms ({plain}), bound {max(t_bytes, t_ops):.6f} ms", flush=True)
+          f"{plain_at} ({plain}), bound {max(t_bytes, t_ops):.6f} ms", flush=True)
     return {"name": name, "plan": plan, "route": "cuda", "source": "opensim_tpu_torch/ops/csrc/fast_scan.cu",
             "replaces": "opensim_tpu/engine/fastpath.py:532", "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "plain_checks": plain, "scenarios": int(valid.shape[0]), "pods": int(tmpl.shape[0]),
@@ -2965,10 +2970,10 @@ def observatory(device, card: str, served) -> list:
     11 steps), the launch counts read around it (one grid launch per probe
     scan: each profile's ladder, then its bisection at S = 1); card
     ``simulate()`` placing k replicas of that profile and not k + 1; the
-    ladder's rows of the largest feasible and the smallest infeasible k,
-    and the bisection launch of the smallest k, against the plain version
-    over their probe pods, started from the grid's state after the
-    snapshot's forced binds;
+    ladder's rows of the largest feasible and the smallest infeasible k
+    (their plain versions in :data:`BACKGROUND`), and the bisection launch
+    of the smallest k, against the plain version over their probe pods,
+    started from the grid's state after the snapshot's forced binds;
     the timeline's newest sample, ``simon top --json`` and ``/metrics``
     against the report. Returns the ladder's and one bisection launch's
     rows of the kernels table."""
@@ -3063,39 +3068,42 @@ def observatory(device, card: str, served) -> list:
                              node_valid, spr_weight)
     # a scenario's first probe pods are another's with fewer (the probe pods
     # sit at the stream's tail): where two runs agree on everything up to
-    # there, the plain version runs the longer one's rest from the shorter
-    # one's final state, and its outputs are the two runs joined
+    # there, the longer one's first pods are the shorter one's placements
+    # and the plain version runs its rest from the shorter one's final
+    # state (the kernel's, itself held against the plain version). The
+    # plain versions run on the CPU in BACKGROUND.
     row = lambda t, s: t[s:s + 1].contiguous()
     per_pod = ("chosen", "gpu_take", "fail_counts", "insufficient")
     joined = lambda head, tail: fs.FastOutputs(*(torch.cat([h, t], 1) if f in per_pod else t
                                                  for f, h, t in zip(fs.FastOutputs._fields, head, tail)))
     same_inputs = lambda a, b: a is b or all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
                                              for x, y in zip(a, b))
-    err, plain_ms, plain_pods = 0.0, 0.0, 0
-    held = []  # (k, its plain outputs over the probe pods)
+    plain_pods = 0
+    held, ladder_held = [], []  # held: (k, the kernel's outputs over its probe pods)
     for s in [x for x in (s_f, s_i) if x is not None]:
         hi = lo + ks[s]
         head = held[-1] if held and all(
             torch.equal(t[s_f, :lo + held[-1][0]], t[s, :lo + held[-1][0]]) for t in (valid, forced)) and all(
             torch.equal(t[s_f], t[s]) for t in (node_valid, spr_weight, pre.state)) else None
         a = lo if head is None else lo + head[0]
-        plain = [None]
-
-        def run_plain():
-            plain[0] = fs.fast_scan_sweep_reference(fi, tmpl[a:hi].contiguous(), row(valid[:, a:hi], s),
-                                                    row(forced[:, a:hi], s), row(node_valid, s), row(spr_weight, s),
-                                                    init=row(pre.state, s) if head is None else head[1].state)
-
-        plain_ms += _events_ms(run_plain, reps=1)
-        plain_pods += hi - a
-        want = plain[0] if head is None else joined(head[1], plain[0])
-        held.append((ks[s], want))
         got = fs.FastOutputs(*(t[s:s + 1, lo:hi] if f in ("chosen", "gpu_take") else t[s:s + 1]
                                for f, t in zip(fs.FastOutputs._fields, out)))
-        err = max(err, _same(got, want, f"ladder scenario k={ks[s]}, probe pods {lo}..{hi}", fs.STATE_FIELDS))
-    print(f"ladder {ks}: scenarios k={[ks[s] for s in (s_f, s_i) if s is not None]} identical to the plain version "
-          f"over their probe pods from the grid's state after the {lo} forced binds ({plain_pods} probe pods run "
-          f"plain)", flush=True)
+        if head is not None and not all(torch.equal(getattr(got, f)[:, :a - lo], getattr(head[1], f))
+                                        for f in ("chosen", "gpu_take")):
+            raise AssertionError(f"ladder scenario k={ks[s]}: its first {a - lo} probe pods placed otherwise than "
+                                 f"k={head[0]}'s")
+        rest = fs.FastOutputs(*(t[:, a - lo:] if f in ("chosen", "gpu_take") else t
+                                for f, t in zip(fs.FastOutputs._fields, got)))
+        ladder_held.append(BACKGROUND.hold(
+            f"ladder scenario k={ks[s]}, probe pods {a}..{hi}", rest, fi,
+            (tmpl[a:hi].contiguous(), row(valid[:, a:hi], s), row(forced[:, a:hi], s), row(node_valid, s),
+             row(spr_weight, s)), sweep=True, fields=fs.STATE_FIELDS,
+            init=row(pre.state, s) if head is None else head[1].state))
+        plain_pods += hi - a
+        held.append((ks[s], got))
+    print(f"ladder {ks}: scenarios k={[ks[s] for s in (s_f, s_i) if s is not None]} over their probe pods from the "
+          f"grid's state after the {lo} forced binds held against the plain version on the CPU ({plain_pods} probe "
+          f"pods run plain)", flush=True)
     bisect = min((sc for sc in mine if len(sc["ks"]) == 1), key=lambda sc: sc["ks"][0])
     b_args = bisect["args"]
     b_plain = [None]
@@ -3121,8 +3129,8 @@ def observatory(device, card: str, served) -> list:
                              for f, t in zip(fs.FastOutputs._fields, bisect["out"])))
     b_err = _same(b_got, b_want, f"bisection k={bisect['ks'][0]}", fs.STATE_FIELDS)
     b_checks = f"k={bisect['ks'][0]}, {b_hi - lo} probe pods" + (
-        "" if b_head is None else f" (the first {k_f} the ladder's plain run of k={k_f}, the last {b_hi - b_a} "
-                                  "from its final state)")
+        "" if b_head is None else f" (the first {k_f} the ladder's run of k={k_f}, held against the plain "
+                                  f"version, the last {b_hi - b_a} from its final state)")
 
     code, _h, timeline, _rt = _http(url, "/api/debug/capacity")
     if code != 200 or timeline["samples"][-1]["generation"] != report["capacity"]["generation"]:
@@ -3143,7 +3151,7 @@ def observatory(device, card: str, served) -> list:
           f"{timeline['samples'][-1]['generation']}; simon top --json equals the report (no launch); /metrics "
           f"simon_cluster_headroom {got_h}", flush=True)
     rows = [_sweep_row("fast_scan_sweep", f"headroom ladder ({wide.name}, {len(ks)} scenarios)", fi, args, out,
-                       ladder["ms"], 1, err, plain_ms,
+                       ladder["ms"], 1, 0.0, None,
                        f"scenarios k={[k_ for k_, _w in held]}, {sum(k_ for k_, _w in held)} probe pods, "
                        f"{plain_pods} of them run plain (a longer scenario's from a shorter one's final state)",
                        headroom=headroom, probe_scans=per_profile, report_s=rt, card=card),
@@ -3151,6 +3159,8 @@ def observatory(device, card: str, served) -> list:
                        b_args, bisect["out"], bisect["ms"], sum(1 for sc in scans if len(sc["ks"]) == 1), b_err,
                        b_plain_ms,
                        b_checks, launches_are="every bisection step's launch")]
+    for h in ladder_held:
+        h.fill(rows[0])
     del os.environ["OPENSIM_HEADROOM_PROFILES"]
     return rows
 
@@ -4939,6 +4949,91 @@ def relocated_cli_check(run: dict, card_text: str, card: str) -> None:
           f"directory unchanged), the report phase 30's card report; {footer[0]} ({card})", flush=True)
 
 
+def start_ranks() -> dict:
+    """Phase 28b's start: ``simon apply`` on phase 28's apply plan as a user
+    runs it on several hosts, here APPLY_RANKS CLI processes on the one
+    card, without ``--device``, joined through JAX_COORDINATOR (a free
+    port) / JAX_NUM_PROCESSES / JAX_PROCESS_ID, each with ``--trace``;
+    this run's probe verdict and build directory. :func:`ranks_check`
+    holds what they did."""
+    from opensim_tpu_torch.utils import jitcache
+
+    _phase(f"28b apply plan as {APPLY_RANKS} ranks on the card: simon apply in {APPLY_RANKS} processes joined "
+           f"through JAX_COORDINATOR, started beside the wait for the plain versions")
+    root, out = _plan_dir() / "apply", Path(tempfile.mkdtemp(prefix="smoke-ranks-"))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    libs = {n: v for n, v in _files(jitcache.build_dir()).items() if (jitcache.build_dir() / n).is_file()}
+    port, t0, procs = _free_port(), time.perf_counter(), []
+    for rank in range(APPLY_RANKS):
+        env = dict(os.environ, JAX_COORDINATOR=f"127.0.0.1:{port}", JAX_NUM_PROCESSES=str(APPLY_RANKS),
+                   JAX_PROCESS_ID=str(rank), PYTHONPATH=repo)
+        argv = [sys.executable, "-m", "opensim_tpu_torch", "apply", "-f", str(root / "config.yaml"), "--max-new-nodes",
+                str(APPLY_MAX_NEW), "-o", str(out / f"report{rank}.txt"), "--trace", str(out / f"trace{rank}.json")]
+        procs.append(subprocess.Popen(argv, cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    return {"procs": procs, "t0": t0, "dir": out, "libs": libs, "root": root}
+
+
+def stop_ranks(run: dict) -> None:
+    """Kill the ranks of :func:`start_ranks` still running."""
+    for p in run["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def ranks_check(run: dict, card: str, retried: bool = False) -> None:
+    """The ranks of :func:`start_ranks`: each exits 0 with phase 28's report
+    (counters in generated names aside) and 100 new nodes, loads the
+    kernels phase 2 built (no nvcc: the build directory's files as they
+    were), and its trace shows its own shard only: the coarse grid's 9
+    scenarios and the fine grid's 63, padded to 10 and 64, each rank
+    sweeping 5 and 32 of them and gathering the rest. Prints the phase's
+    host clock and each rank's steps (the trace's spans). A job whose
+    coordinator's port was taken meanwhile runs once more on another."""
+    from opensim_tpu_torch.utils import jitcache
+
+    _phase("28b apply plan as ranks: the reports, traces and build directory of the ranks")
+    try:
+        outs = [p.communicate(timeout=RANKS_TIMEOUT_S) for p in run["procs"]]
+    finally:
+        stop_ranks(run)
+    wall = time.perf_counter() - run["t0"]
+    if not retried and any("EADDRINUSE" in err for _out, err in outs):
+        shutil.rmtree(run["dir"], ignore_errors=True)
+        return ranks_check(start_ranks(), card, retried=True)
+    want = _without_counters((run["root"] / "report.txt").read_text())
+    libs = {n: v for n, v in _files(jitcache.build_dir()).items() if (jitcache.build_dir() / n).is_file()}
+    per = tuple(-(-S // APPLY_RANKS) for S in APPLY_SWEEPS)
+    for rank, (p, (_out, err)) in enumerate(zip(run["procs"], outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {rank}: simon apply exited {p.returncode}: {err[-3000:]}")
+        text = (run["dir"] / f"report{rank}.txt").read_text()
+        if _without_counters(text) != want or f"(added {APPLY_NEW} new node(s))" not in text:
+            raise AssertionError(f"rank {rank}: the report differs from phase 28's:\n{text[:2000]}")
+        events = [e for e in json.loads((run["dir"] / f"trace{rank}.json").read_text())["traceEvents"]
+                  if e.get("ph") == "X"]
+        sweeps = [(e["args"]["scenarios"], e["args"]["rows"], e["args"]["rank"], e["args"]["ranks"])
+                  for e in events if e["name"] == "engine.sweep"]
+        gathers = [e for e in events if e["name"] == "engine.allgather"]
+        if sweeps != [(S, n, rank, APPLY_RANKS) for S, n in zip(APPLY_SWEEPS, per)] or len(gathers) != 2:
+            raise AssertionError(f"rank {rank}: sweeps {sweeps}, {len(gathers)} gathers; want the coarse and fine "
+                                 f"grids' {APPLY_SWEEPS} scenarios, {per} of them on this rank, each gathered")
+        steps = {}
+        for e in events:
+            if not e["name"].startswith("placement."):  # the decode's instant events
+                steps.setdefault(e["name"], []).append(round(e["dur"] / 1e6, 6))
+        print(f"rank {rank}: exit 0, the report phase 28's with {APPLY_NEW} new nodes; swept {per[0]} of the coarse "
+              f"grid's {per[0] * APPLY_RANKS} padded scenarios and {per[1]} of the fine grid's "
+              f"{per[1] * APPLY_RANKS}, gathered {[e['args']['bytes'] for e in gathers]} bytes; spans, s: "
+              f"{json.dumps(steps)}", flush=True)
+    shutil.rmtree(run["dir"], ignore_errors=True)
+    if libs != run["libs"]:
+        raise AssertionError(f"the ranks changed the build directory: {sorted(run['libs'])} -> {sorted(libs)}")
+    print(f"simon apply as {APPLY_RANKS} ranks on one card: both done {wall:.3f} s after their start, no nvcc (the "
+          f"build directory unchanged) ({card})", flush=True)
+
+
 def gen_doc_check() -> None:
     """``simon gen-doc`` into a temporary directory, in process: the index
     and one file per subcommand (GEN_DOC_COMMANDS), each headed with its
@@ -5106,10 +5201,15 @@ def main() -> int:
         rows.extend(campaign_plan(device, card, served))
         counting_small_cases(device)
         rows.extend(storm_plan(device, card, served))
-        _phase("the plain versions held on the CPU since their phases, compared before the twin's servers start")
-        BACKGROUND.settle()
         print(f"CUDA probe refreshed since phase 54: verdict True in {probe_verdict(refresh, 'the refresh'):.3f} s",
               flush=True)
+        ranks = start_ranks()  # their verdict the refresh's
+        try:
+            _phase("the plain versions held on the CPU since their phases, compared before the twin's servers start")
+            BACKGROUND.settle()
+            ranks_check(ranks, card)
+        finally:
+            stop_ranks(ranks)
         rows.extend(twin_plan(device, card, served))
     finally:
         served["close"]()

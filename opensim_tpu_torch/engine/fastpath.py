@@ -654,6 +654,19 @@ def sweep_inputs(prep, node_valid_masks, pod_valid_masks, forced_masks, device=N
             _to(np.asarray(forced_masks, dtype=bool), i32, dev), _to(nv, f32, dev), _to(sw, f32, dev))
 
 
+def padded_shards(masks, k: int) -> "tuple[list, list]":
+    """`masks` (arrays, the scenario axis first) padded to a multiple of `k`
+    scenarios by repeating the last one, and the row slices of the `k`
+    contiguous shards of the padded axis. Without padding the arrays are
+    returned as they are, and a shard is a view."""
+    S = len(masks[0])
+    pad = (-S) % k
+    if pad:
+        masks = [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)]) for a in masks]
+    per = (S + pad) // k
+    return masks, [slice(i * per, (i + 1) * per) for i in range(k)]
+
+
 def sweep(prep, node_valid_masks, pod_valid_masks, forced_masks,
           segments: Optional[List[Tuple[Optional[SchedulerConfig], int, int]]] = None, devices=None):
     """Scenario sweep over the prepared stream: scenario s runs the bind
@@ -682,11 +695,7 @@ def sweep(prep, node_valid_masks, pod_valid_masks, forced_masks,
     masks = [np.asarray(a, dtype=bool) for a in (node_valid_masks, pod_valid_masks, forced_masks)]
     devices = [prep.device] if devices is None else [torch.device(d) for d in devices]
     S = len(masks[0])
-    pad = (-S) % len(devices)
-    if pad:
-        masks = [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)]) for a in masks]
-    per = (S + pad) // len(devices)
-    shards = [slice(k * per, (k + 1) * per) for k in range(len(devices))]
+    masks, shards = padded_shards(masks, len(devices))
     if segments is None:
         segments = [(None, 0, len(prep.tmpl_ids))]
     runs = [(build_inputs(prep, cfg=cfg, segment=len(segments) > 1)[0], lo, hi) for cfg, lo, hi in segments if hi > lo]

@@ -19,8 +19,16 @@ scenario, cut into contiguous shards, one launch of the grid on each
 shard's device (the plain version on a CPU entry), and the results are
 joined in scenario order and cut back to S (``fastpath.sweep(devices=)``,
 under :func:`mesh_of`). :func:`default_mesh` lists
-the local cards when there are several. Ranks that each sweep a shard
-(``parallel/multihost.py``) are ROADMAP Queue 1 item 9b.
+the local cards when there are several.
+
+Above that split sit ranks: in a ``torch.distributed`` job
+(``parallel/multihost.py``, joined by ``simon apply``) a one-config sweep
+pads S to a multiple of the number of ranks the same way, sweeps rank r's
+contiguous rows over its own devices, and gathers the four outputs to
+every rank in scenario order, cut back to S (the reference's tiled
+``process_allgather``, ``opensim_tpu/parallel/scenarios.py:337-384``).
+A sweep of differing profiles runs whole on every rank, as the
+reference's ``sweep_segmented`` takes no mesh.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ import torch
 
 from ..engine import fastpath
 from ..engine.schedconfig import DEFAULT_CONFIG, resolve_profile_segments
+from ..obs import trace as obs
+from . import multihost
 
 
 class SweepResult(NamedTuple):
@@ -106,9 +116,11 @@ def sweep_auto(
     pods of an unknown profile leave every scenario, differing profiles
     run :func:`sweep_segmented` on ``prep.device`` whatever the mesh, one
     effective config runs one grid, split over the devices of
-    :func:`mesh_of` (``fastpath.sweep(devices=)``). Raises
-    ``NotImplementedError`` outside the kernel's envelope. Nothing falls
-    back to another engine or device."""
+    :func:`mesh_of` (``fastpath.sweep(devices=)``), and in a job of
+    several ranks over the ranks first (each its contiguous rows, the
+    outputs gathered to every rank; span ``engine.sweep`` says which).
+    Raises ``NotImplementedError`` outside the kernel's envelope. Nothing
+    falls back to another engine or device."""
     S = np.asarray(node_valid_masks).shape[0]
     if forced_masks is None:
         forced_masks = np.broadcast_to(prep.forced, (S, len(prep.forced)))
@@ -124,8 +136,17 @@ def sweep_auto(
     miss = fastpath.why_not(prep, config)
     if miss is not None:
         raise NotImplementedError(f"outside the port's bind-scan envelope: {miss}")
-    return SweepResult(*fastpath.sweep(prep, node_valid_masks, pod_valid_masks, forced_masks,
-                                       segments=[(config, 0, len(prep.tmpl_ids))], devices=mesh_of(prep, mesh)))
+    rank, ranks = multihost.process_index(), multihost.process_count()
+    masks, shards = fastpath.padded_shards([np.asarray(a) for a in (node_valid_masks, pod_valid_masks, forced_masks)],
+                                           ranks)
+    rows = shards[rank]
+    with obs.span("engine.sweep", scenarios=S, rows=rows.stop - rows.start, rank=rank, ranks=ranks):
+        out = fastpath.sweep(prep, *(a[rows] for a in masks), segments=[(config, 0, len(prep.tmpl_ids))],
+                             devices=mesh_of(prep, mesh))
+        if ranks > 1:
+            with obs.span("engine.allgather", bytes=sum(a.nbytes for a in out) * ranks):
+                out = tuple(multihost.allgather(a)[:S] for a in out)
+    return SweepResult(*out)
 
 
 def sweep_segmented(

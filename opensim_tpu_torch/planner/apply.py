@@ -14,7 +14,10 @@ batch of candidate counts as the scenarios of one sweep
 (``parallel/scenarios.sweep_counts``: one launch of the bind-scan kernel's
 scenario grid on a card), coarse then fine, and re-simulates the answer
 over the same prepared input with the node axis masked.
-``--interactive`` keeps the reference's prompt loop.
+``--interactive`` keeps the reference's prompt loop. With JAX_COORDINATOR
+set, the run first joins the job of ranks (``parallel/multihost.py``), and
+every one-config sweep splits over the ranks, each deciding from the
+gathered result.
 
 A scheduler config (``-d``, ``engine/schedconfig.py``) goes to the first
 simulation, both sweeps and the re-simulation, all on the kernel; the
@@ -54,7 +57,7 @@ from ..engine.simulator import (
 )
 from ..models import expand
 from ..models.objects import ENV_MAX_CPU, ENV_MAX_MEMORY, ENV_MAX_VG, Node, ResourceTypes
-from ..parallel import scenarios
+from ..parallel import multihost, scenarios
 from ..utils.progress import Spinner
 from . import report as report_mod
 
@@ -317,6 +320,7 @@ class Applier:
         return t1
 
     def _run_inner(self) -> int:
+        multihost.initialize()  # a no-op unless JAX_COORDINATOR is set (ranks that split the sweeps)
         t = time.perf_counter()
         with Spinner("load cluster"):
             cluster = self.load_cluster()

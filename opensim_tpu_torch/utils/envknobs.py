@@ -4,7 +4,8 @@ the modules it has (the kernel build cache and the CUDA probe, the server
 and its admission queue, the snapshot, the live twin and its journal, the
 serving fleet and its HA control plane, the resilience layer, the request
 tracer, the time-series ring and SLO engine, the capacity observatory, the
-memory observatory and the campaign planner).
+memory observatory and the campaign planner), and beside them the three
+``JAX_*`` variables of the reference's multi-host launch (:data:`LAUNCH`).
 
 Every read goes through :func:`raw`, which fails loudly on an
 unregistered name, so a knob cannot ship undocumented and a typo'd name
@@ -18,7 +19,7 @@ import os
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
-__all__ = ["Knob", "KNOBS", "register", "raw", "value"]
+__all__ = ["Knob", "KNOBS", "LAUNCH", "register", "raw", "value"]
 
 
 @dataclass(frozen=True)
@@ -47,8 +48,23 @@ def register(knob: Knob) -> Knob:
     return knob
 
 
+#: The reference's multi-host launch contract (``opensim_tpu/parallel/
+#: multihost.py``), read by the port under the same names so that one launch
+#: line serves both packages. Kept apart from :data:`KNOBS`, the port's own
+#: ``OPENSIM_*`` knobs; :func:`raw` reads both.
+LAUNCH: Dict[str, Knob] = {k.name: k for k in (
+    Knob("JAX_COORDINATOR", "str", "",
+         "Multi-host job: the coordinator's `host:port` (rank 0 listens there, every process joins it) for "
+         "`parallel/multihost.initialize`, which `simon apply` calls; one process per host. Unset = one process, "
+         "nothing joined."),
+    Knob("JAX_NUM_PROCESSES", "int", "1", "Multi-host job: the number of processes; read when JAX_COORDINATOR is set."),
+    Knob("JAX_PROCESS_ID", "int", "0",
+         "Multi-host job: this process's rank, 0 to JAX_NUM_PROCESSES - 1; read when JAX_COORDINATOR is set."),
+)}
+
+
 def _registered(name: str) -> Knob:
-    knob = KNOBS.get(name)
+    knob = KNOBS.get(name) or LAUNCH.get(name)
     if knob is None:
         raise KeyError(f"env knob {name!r} is not registered in opensim_tpu_torch/utils/envknobs.py")
     return knob
